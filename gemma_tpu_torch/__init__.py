@@ -1,0 +1,18 @@
+"""gemma_tpu_torch — the PyTorch/CUDA port of gemma_tpu for NVIDIA Hopper.
+
+The JAX package `gemma_tpu` is the reference this package is held against.
+Module names mirror it (models/, quant/, ops/, runtime/, cli.py) so each
+counterpart is easy to find. Plain tensor code is PyTorch; every Pallas
+kernel on the served path is a hand-written CUDA C++ kernel for sm_90a under
+`csrc/`, built at first use by `kernels/build.py`.
+
+Device policy: the device of the tensor decides. A kernel wrapper given a
+CPU tensor runs its plain PyTorch version; given a CUDA tensor it launches
+the kernel or raises — there is no fallback on CUDA.
+
+Framework-free parts of the reference are imported, not copied:
+`gemma_tpu.gguf` (reader/writer), `gemma_tpu.quant.numpy_ref`,
+`gemma_tpu.tokenizer` and `gemma_tpu.native`. This package never imports jax.
+"""
+
+__version__ = "0.1.0"

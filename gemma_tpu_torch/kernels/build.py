@@ -1,0 +1,145 @@
+"""Build and bind the port's CUDA kernels.
+
+`gemma_tpu_torch/csrc/*.cu` compile at first use, with nvcc for Hopper
+(`-gencode arch=compute_90a,code=sm_90a`), into one shared library with a
+plain C interface under `gemma_tpu_torch/build/`, named by a hash of the
+sources and flags so an edit rebuilds and an unchanged tree reuses the
+build. The library is loaded with ctypes: pointers and the CUDA stream pass
+as `c_void_p`. Each C entry point returns `cudaGetLastError()` after its
+launches, and `check` raises on anything but 0.
+
+There is no fallback: a missing nvcc or a failed build raises
+`KernelBuildError` (with nvcc's stderr), never returns None.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (all return a cudaError_t as int)
+SIGNATURES = {
+    # x, x_dtype, qs, scales, y, M, N, K, stream
+    "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, kv_limit, out, part_m, part_l, part_o,
+    # B, Hq, Hkv, S, D, dtype, split, window, softcap, stream
+    "gt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, dtype, window, softcap, stream
+    "gt_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # time of the build this process ran, if any
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found (searched PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels of gemma_tpu_torch build only where the CUDA toolkit is installed. "
+        "Tensors on the CPU use the plain PyTorch versions and need no build."
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgemma_tpu_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    # ptxas -v: registers, shared memory and spills of every kernel
+    out.with_suffix(".log").write_text(proc.stderr)
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            t0 = time.perf_counter()
+            _compile(path)
+            build_seconds = time.perf_counter() - t0
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.gt_error_string.argtypes = [ctypes.c_int]
+        lib.gt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load().gt_error_string(err).decode()
+        raise KernelLaunchError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

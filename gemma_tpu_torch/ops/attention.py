@@ -1,0 +1,178 @@
+"""Attention ops: plain SDPA, and the decode and flash kernels.
+
+Counterpart of `gemma_tpu/ops/attention.py`, with its public layouts:
+    q:   [B, T, Hq, D]   (already scaled by query_scale, RoPE applied)
+    k,v: [B, Hkv, S, D]  (the KV cache's own layout)
+    positions: [B, T] i32 absolute query positions (arbitrary per row)
+    kv_limit:  [B] i32    number of valid cache slots
+Key slot s is valid for a query at position pos iff s <= pos and
+s < kv_limit[b] and, with a sliding window, s > pos - window.
+
+Kernels: `csrc/decode_attention.cu` (replaces `_decode_kernel`, bf16 arm)
+and `csrc/flash_attention.cu` (replaces `_flash_kernel`). Their plain
+PyTorch versions here follow the kernels' numerics: f32 scores, softcap
+before the mask, p rounded to the cache dtype before p . v, and 0 for a
+row with no valid key (plain `sdpa` gives the mean of V there instead).
+
+`attention` dispatches on T alone: T == 1 goes to decode, anything else to
+flash. There is no shape gate to a plain path on CUDA, so every prefill
+length reaches the flash kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+KERNEL_HEAD_DIMS = (128, 256)
+DECODE_SPLIT = 64  # keys per block of the split-S decode kernel
+
+
+def _valid_mask(positions, kv_limit, S, window):
+    """[B, T, S] bool: the key-validity rule of the module docstring."""
+    key = torch.arange(S, device=positions.device, dtype=torch.int32)
+    pos = positions.to(torch.int32)[:, :, None]
+    valid = (key <= pos) & (key < kv_limit.to(torch.int32)[:, None, None])
+    if window > 0:
+        valid &= key > pos - window
+    return valid
+
+
+def _scores(q, k, attn_softcap):
+    """f32 scores [B, Hkv, G, T, S] (products of bf16 values are exact in f32)."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).to(torch.float32)
+    s = torch.einsum("bthgd,bhsd->bhgts", qg, k.to(torch.float32))
+    if attn_softcap:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    return s
+
+
+def _pv(p, v, q_shape):
+    """p [B, Hkv, G, T, S] (already on v's grid) . v -> [B, T, Hq, D] f32."""
+    out = torch.einsum("bhgts,bhsd->bthgd", p, v.to(torch.float32))
+    return out.reshape(q_shape)
+
+
+def sdpa(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+    """Plain softmax attention: a port of the reference's `sdpa_xla`."""
+    s = _scores(q, k, attn_softcap)
+    valid = _valid_mask(positions, kv_limit, k.shape[2], window)[:, None, None]
+    w = torch.softmax(torch.where(valid, s, torch.tensor(-1e30, device=s.device)), dim=-1)
+    return _pv(w.to(v.dtype).to(torch.float32), v, q.shape).to(v.dtype)
+
+
+def flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+    """Plain version of the flash kernel: masked softmax with the kernel's
+    rounding points; rows with no valid key give 0. Returns q.dtype."""
+    s = _scores(q, k, attn_softcap)
+    valid = _valid_mask(positions, kv_limit, k.shape[2], window)[:, None, None]
+    s = torch.where(valid, s, torch.tensor(MASK_VALUE, device=s.device))
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_inv = torch.where(l == 0.0, 1.0, 1.0 / l)
+    out = _pv(p.to(v.dtype).to(torch.float32), v, q.shape)
+    l_inv = l_inv[..., 0].permute(0, 3, 1, 2).reshape(*q.shape[:3], 1)  # [B, T, Hq, 1]
+    return (out * l_inv).to(q.dtype)
+
+
+def decode_attention_plain(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+    """Plain version of the decode kernel: q [B, 1, Hq, D] at position
+    kv_limit - 1."""
+    positions = (kv_limit.to(torch.int32) - 1)[:, None]
+    return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
+
+
+def _check_kernel_args(name, q, k, v, kv_limit):
+    """Raise on what the CUDA attention kernels do not take."""
+    B, T, Hq, D = q.shape
+    if k.device != q.device or v.device != q.device or kv_limit.device != q.device:
+        raise ValueError(f"{name}: q, k, v and kv_limit must be on one CUDA device")
+    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} kernel takes q, k, v all bf16 or all f32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name} kernel needs contiguous k/v")
+
+
+def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+    """T = 1 attention, q [B, 1, Hq, D] -> [B, 1, Hq, D] in q.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the split-S
+    kernel (plus its combine step) or raises."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window)
+    B, T, Hq, D = q.shape
+    if T != 1:
+        raise ValueError(f"decode attention takes one query per sequence, got T={T}")
+    _check_kernel_args("decode attention", q, k, v, kv_limit)
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n_splits = -(-S // DECODE_SPLIT)
+    qc = q.contiguous()
+    lim = kv_limit.to(torch.int32).contiguous()
+    part_m = torch.empty(B * Hkv, n_splits, G, dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_o = torch.empty(B * Hkv, n_splits, G, D, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(qc)
+    lib = build.load()
+    err = lib.gt_decode_attention(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), lim.data_ptr(), out.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+        B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], DECODE_SPLIT, int(window),
+        float(attn_softcap), build.stream_ptr(q.device),
+    )
+    build.check(err, f"decode attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+    """Prefill attention, q [B, T, Hq, D] -> [B, T, Hq, D] in q.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. Any T and S."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
+    _check_kernel_args("flash attention", q, k, v, kv_limit)
+    B, T, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if tuple(positions.shape) != (B, T) or positions.device != q.device:
+        raise ValueError(f"flash attention: positions {tuple(positions.shape)} != {(B, T)}")
+    qc = q.contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    lim = kv_limit.to(torch.int32).contiguous()
+    out = torch.empty_like(qc)
+    lib = build.load()
+    err = lib.gt_flash_attention(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(), out.data_ptr(),
+        B, T, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], int(window), float(attn_softcap),
+        build.stream_ptr(q.device),
+    )
+    build.check(err, f"flash attention B={B} T={T} Hq={Hq} Hkv={Hkv} S={S} D={D}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0,
+              k_scale=None, v_scale=None):
+    """Dispatch: T == 1 -> decode, otherwise flash."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the int8-KV arm of decode attention is not ported yet (ROADMAP queue 1, item 3)"
+        )
+    if q.shape[1] == 1:
+        return decode_attention(q, k, v, kv_limit, attn_softcap, window)
+    return flash_attention(q, k, v, positions, kv_limit, attn_softcap, window)

@@ -1,0 +1,194 @@
+"""Test and smoke fixtures: fabricate Gemma checkpoints without jax.
+
+`make_gguf` writes a valid GGUF file with random weights through the
+reference's framework-free writer (a port of `gemma_tpu/testing.py`
+`make_gguf`: the same file for the same arguments). `make_params` fabricates a model
+directly in the port's layout on a device, for full-width runs where writing
+and quantizing a multi-GB GGUF on the host would be slow.
+"""
+from __future__ import annotations
+
+import math
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from gemma_tpu.gguf.constants import GGMLType, Keys
+from gemma_tpu.gguf.writer import GGUFWriter
+from gemma_tpu.quant import numpy_ref
+
+from .models.config import GemmaConfig
+from .models.gemma import Gemma
+from .quant.qtensor import QGROUP, QTensor
+
+TINY_CONFIG = GemmaConfig(
+    vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    head_dim=16, d_ff=128, context_length=128,
+)
+
+# Gemma-2-style toy: sandwich norms, softcaps, alternating sliding window
+TINY_GEMMA2_CONFIG = GemmaConfig(
+    vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    head_dim=16, d_ff=128, context_length=128,
+    sliding_window=16, swa_pattern=2, attn_softcap=50.0, final_softcap=30.0,
+)
+
+# Gemma-3-style toy: QK-norm, 5-local/1-global cadence, split rope bases,
+# linear rope scaling on the global layers
+TINY_GEMMA3_CONFIG = GemmaConfig(
+    vocab_size=512, d_model=64, n_layers=6, n_heads=4, n_kv_heads=2,
+    head_dim=16, d_ff=128, context_length=128,
+    sliding_window=16, swa_pattern=6,
+    rope_base=1_000_000.0, rope_base_swa=10_000.0, rope_scale=1.0 / 8.0,
+)
+
+# The smallest geometry the CUDA attention kernels take (head_dim 128):
+# an MQA toy shaped like Gemma-2B, for driving the CLI on the card.
+TINY_KERNEL_CONFIG = GemmaConfig(
+    vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+    head_dim=128, d_ff=512, context_length=256,
+)
+
+
+def default_vocab(n: int) -> tuple[list[str], list[float], list[int]]:
+    """SPM-style vocab: specials, byte-fallback tokens, then words."""
+    tokens = ["<pad>", "<bos>", "<eos>", "<unk>", "<start_of_turn>", "<end_of_turn>"]
+    types = [3, 3, 3, 2, 3, 3]
+    scores = [0.0] * 6
+    for b in range(256):
+        tokens.append(f"<0x{b:02X}>")
+        types.append(6)
+        scores.append(0.0)
+    words = ["▁the", "▁hello", "▁world", "▁a", "he", "llo", "wor", "ld", "▁he",
+             "▁wo", "l", "o", "r", "d", "e", "h", "w", "a", "t", "▁", "s", "in",
+             "er", "an", "on", "▁to", "▁of", "nd", "▁and", "ing"]
+    i = 0
+    while len(tokens) < n:
+        tokens.append(words[i] if i < len(words) else f"tok{i}")
+        types.append(1)
+        scores.append(-float(len(tokens)))  # longer id -> lower score
+        i += 1
+    return tokens[:n], scores[:n], types[:n]
+
+
+def make_gguf(
+    path: str | Path,
+    cfg: GemmaConfig = TINY_CONFIG,
+    *,
+    weight_type: GGMLType = GGMLType.Q4_0,
+    seed: int = 0,
+    scale: float = 0.05,
+    arch: str = "gemma",
+) -> Path:
+    """Write a GGUF checkpoint with random N(0, scale^2) weights.
+
+    `weight_type` applies to all 2-D matrices (default q4_0, the port's
+    quantized format; the reference defaults to F32); norms stay F32.
+    Matrix shapes follow the llama.cpp export convention ([out, in]).
+    """
+    rng = np.random.default_rng(seed)
+    path = Path(path)
+    w = GGUFWriter(path)
+    w.add_kv(Keys.ARCHITECTURE, arch)
+    w.add_kv(Keys.NAME, "gemma-tpu-synthetic")
+    if cfg.sliding_window:
+        w.add_kv(f"{arch}.attention.sliding_window", cfg.sliding_window)
+    if cfg.attn_softcap:
+        w.add_kv(f"{arch}.attn_logit_softcapping", cfg.attn_softcap)
+    if cfg.final_softcap:
+        w.add_kv(f"{arch}.final_logit_softcapping", cfg.final_softcap)
+    w.add_kv(f"{arch}.context_length", cfg.context_length)
+    w.add_kv(f"{arch}.embedding_length", cfg.d_model)
+    w.add_kv(f"{arch}.block_count", cfg.n_layers)
+    w.add_kv(f"{arch}.feed_forward_length", cfg.d_ff)
+    w.add_kv(f"{arch}.attention.head_count", cfg.n_heads)
+    w.add_kv(f"{arch}.attention.head_count_kv", cfg.n_kv_heads)
+    w.add_kv(f"{arch}.attention.key_length", cfg.head_dim)
+    w.add_kv(f"{arch}.attention.value_length", cfg.head_dim)
+    w.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
+    w.add_kv(f"{arch}.rope.freq_base", cfg.rope_base)
+    if cfg.rope_base_swa:
+        w.add_kv(f"{arch}.rope.freq_base_swa", cfg.rope_base_swa)
+    if cfg.rope_scale != 1.0:
+        w.add_kv(f"{arch}.rope.scaling.type", "linear")
+        w.add_kv(f"{arch}.rope.scaling.factor", 1.0 / cfg.rope_scale)
+
+    tokens, scores, types = default_vocab(cfg.vocab_size)
+    w.add_kv(Keys.TOKENIZER_MODEL, "llama")
+    w.add_kv(Keys.TOKENS, tokens)
+    w.add_kv(Keys.SCORES, np.asarray(scores, np.float32))
+    w.add_kv(Keys.TOKEN_TYPE, np.asarray(types, np.int32))
+    w.add_kv(Keys.BOS_ID, 1)
+    w.add_kv(Keys.EOS_ID, 2)
+    w.add_kv(Keys.UNK_ID, 3)
+    w.add_kv(Keys.PAD_ID, 0)
+
+    def mat(name: str, out_d: int, in_d: int, t: GGMLType = weight_type):
+        x = rng.normal(0.0, scale, size=(out_d, in_d)).astype(np.float32)
+        w.add_tensor(name, numpy_ref.quantize(x, t), (out_d, in_d), t)
+
+    def norm(name: str, d: int):
+        # +1 baked in, as llama.cpp's Gemma converter does
+        x = (1.0 + rng.normal(0.0, 0.02, size=(d,))).astype(np.float32)
+        w.add_tensor(name, x, (d,), GGMLType.F32)
+
+    mat("token_embd.weight", cfg.vocab_size, cfg.d_model)
+    norm("output_norm.weight", cfg.d_model)
+    for i in range(cfg.n_layers):
+        mat(f"blk.{i}.attn_q.weight", cfg.q_dim, cfg.d_model)
+        mat(f"blk.{i}.attn_k.weight", cfg.kv_dim, cfg.d_model)
+        mat(f"blk.{i}.attn_v.weight", cfg.kv_dim, cfg.d_model)
+        mat(f"blk.{i}.attn_output.weight", cfg.d_model, cfg.q_dim)
+        mat(f"blk.{i}.ffn_gate.weight", cfg.d_ff, cfg.d_model)
+        mat(f"blk.{i}.ffn_up.weight", cfg.d_ff, cfg.d_model)
+        mat(f"blk.{i}.ffn_down.weight", cfg.d_model, cfg.d_ff)
+        norm(f"blk.{i}.attn_norm.weight", cfg.d_model)
+        norm(f"blk.{i}.ffn_norm.weight", cfg.d_model)
+        if arch in ("gemma2", "gemma3"):  # sandwich norms
+            norm(f"blk.{i}.post_attention_norm.weight", cfg.d_model)
+            norm(f"blk.{i}.post_ffw_norm.weight", cfg.d_model)
+        if arch == "gemma3":  # per-head QK-norm over head_dim
+            norm(f"blk.{i}.attn_q_norm.weight", cfg.head_dim)
+            norm(f"blk.{i}.attn_k_norm.weight", cfg.head_dim)
+    w.write()
+    return path
+
+
+def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu") -> Gemma:
+    """Fabricate a q4_0 model directly in the port's layout on `device`.
+
+    Nibbles are uniform random bytes from a seeded `torch.Generator` on the
+    device. Each row's f16 scales are drawn around 1 / (4.6 sqrt(K)) (4.6 is
+    the standard deviation of a uniform nibble minus 8), so a projection
+    keeps its input's scale and activations stay finite through every
+    layer. Norm weights are 1. Throughput does not depend on the values."""
+    if fmt != "q4_0":
+        raise NotImplementedError(f"make_params fabricates q4_0 only, got {fmt!r}")
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def mat(rows: int, cols: int) -> QTensor:
+        qs = torch.randint(0, 256, (rows, cols // 2), generator=gen, device=device,
+                           dtype=torch.uint8)
+        base = 1.0 / (4.6 * math.sqrt(cols))
+        u = torch.rand(rows, cols // QGROUP, generator=gen, device=device)
+        return QTensor(qs, ((0.5 + u) * base).to(torch.float16))
+
+    def norm(d: int) -> torch.Tensor:
+        return torch.ones(d, dtype=torch.float32, device=device)
+
+    layers = [
+        {
+            "attn_qkv": mat(cfg.q_dim + 2 * cfg.kv_dim, cfg.d_model),
+            "attn_output": mat(cfg.d_model, cfg.q_dim),
+            "ffn_gate_up": mat(2 * cfg.d_ff, cfg.d_model),
+            "ffn_down": mat(cfg.d_model, cfg.d_ff),
+            "attn_norm": norm(cfg.d_model),
+            "ffn_norm": norm(cfg.d_model),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    return Gemma(cfg, embed=mat(cfg.vocab_size, cfg.d_model), final_norm=norm(cfg.d_model),
+                 layers=layers)

@@ -1,0 +1,167 @@
+"""The port's whole slice against the JAX package on the three tiny configs.
+
+One q4_0 GGUF per config (`gemma_tpu.testing.make_gguf`) is loaded into the
+JAX package, and into the port twice: through `from_jax_params` (the same
+numbers as the reference, its bf16-rounded scales included) and through
+`load_params` (ggml's exact f16 scales). The JAX model runs its XLA paths
+(GEMMA_TPU_INTERPRET_KERNELS unset); the port runs its plain versions.
+
+Tolerances, relative to the largest |logit|:
+* f32 activations and cache, `from_jax_params`: 1e-5 — identical
+  arithmetic up to the order of f32 sums (measured ~6e-7);
+* f32, `load_params`: 2e-2 — the reference rounds each q4_0 scale to bf16
+  (up to 2^-9 relative per weight; measured <= 0.6 %);
+* bf16 activations: 5e-2 — the same bf16 rounding points on inputs that
+  differ in their last bits (measured <= 2.2 %); prefill top-1 must agree.
+Greedy streams must be identical in f32.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gemma_tpu.gguf import GGMLType, GGUFReader
+from gemma_tpu.models.params import load_params as jax_load_params
+from gemma_tpu.runtime import Engine as JaxEngine
+from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
+from gemma_tpu.testing import TINY_CONFIG, TINY_GEMMA2_CONFIG, TINY_GEMMA3_CONFIG, make_gguf
+from gemma_tpu_torch.models import from_jax_params, load_params
+from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache
+
+ARCHS = {"gemma": TINY_CONFIG, "gemma2": TINY_GEMMA2_CONFIG, "gemma3": TINY_GEMMA3_CONFIG}
+PROMPT = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13]
+
+
+@pytest.fixture(autouse=True)
+def _xla_reference_paths(monkeypatch):
+    # other test modules set this process-wide; the reference model here
+    # runs its XLA paths, traced inside each test
+    monkeypatch.delenv("GEMMA_TPU_INTERPRET_KERNELS", raising=False)
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            path = make_gguf(tmp_path_factory.mktemp(arch) / "m.gguf", ARCHS[arch],
+                             weight_type=GGMLType.Q4_0, seed=7, arch=arch)
+            reader = GGUFReader(path)
+            jcfg, jparams = jax_load_params(reader)
+            tcfg, from_gguf = load_params(reader)
+            from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+            cache[arch] = (jcfg, jparams, tcfg, from_jax, from_gguf)
+        return cache[arch]
+
+    return get
+
+
+def _engines(models, arch, dtype, max_seq_len=64, batch=1):
+    jcfg, jparams, tcfg, from_jax, from_gguf = models(arch)
+    jc = dataclasses.replace(jcfg, activation_dtype=dtype)
+    tc = dataclasses.replace(tcfg, activation_dtype=dtype)
+    je = JaxEngine(jc, jparams, JaxEngineConfig(max_seq_len=max_seq_len, max_batch=batch,
+                                                kv_dtype=jnp.dtype(dtype), donate_cache=False))
+    ecfg = EngineConfig(max_seq_len=max_seq_len, max_batch=batch, kv_dtype=getattr(torch, dtype))
+    return je, Engine(tc, from_jax, ecfg), Engine(tc, from_gguf, ecfg)
+
+
+def _rel_err(a, ref):
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(np.asarray(a, np.float32) - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_config_matches_reference(models, arch):
+    jcfg, _, tcfg, from_jax, _ = models(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert from_jax.embed.shape == (jcfg.vocab_size, jcfg.d_model)  # vocab padding undone
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_f32_prefill_logits_and_greedy_stream(models, arch):
+    je, te, ge = _engines(models, arch, "float32")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    assert _rel_err(te.prefill([PROMPT])[0][0], ref) <= 1e-5
+    assert _rel_err(ge.prefill([PROMPT])[0][0], ref) <= 2e-2
+    ref_toks = je.generate([PROMPT], 16)[0]
+    assert len(ref_toks) == 16
+    assert te.generate([PROMPT], 16)[0] == ref_toks
+    assert ge.generate([PROMPT], 16)[0] == ref_toks
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_bf16_prefill_logits_and_top1(models, arch):
+    je, te, ge = _engines(models, arch, "bfloat16")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    for eng in (te, ge):
+        got = eng.prefill([PROMPT])[0][0]
+        assert got.dtype == torch.float32
+        assert _rel_err(got, ref) <= 5e-2
+        assert int(got.argmax()) == int(ref.argmax())
+
+
+@pytest.mark.parametrize("arch", ["gemma", "gemma2"])
+def test_batch2_generations_independent(models, arch):
+    """Sequences of different lengths in one batch do not contaminate each
+    other, and the batch matches the reference's batch."""
+    a, b = [1, 7, 300], [1, 44, 260, 9, 77, 5, 31]
+    je, te, _ = _engines(models, arch, "float32", batch=2)
+    both = te.generate([a, b], 6)
+    assert both == [te.generate([a], 6)[0], te.generate([b], 6)[0]]
+    assert both == je.generate([a, b], 6)
+
+
+def test_dense_checkpoint_matches_reference(tmp_path):
+    """F32 matrices load as dense bf16 in both packages: the dense `linear`
+    path and dense `from_jax_params` leaves, held like the q4_0 ones."""
+    path = make_gguf(tmp_path / "f32.gguf", TINY_CONFIG, weight_type=GGMLType.F32, seed=3)
+    reader = GGUFReader(path)
+    jcfg, jparams = jax_load_params(reader)
+    tcfg, from_gguf = load_params(reader)
+    from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    assert from_gguf.layers[0].attn_qkv.dtype == torch.bfloat16
+    jc, tc = (dataclasses.replace(c, activation_dtype="float32") for c in (jcfg, tcfg))
+    je = JaxEngine(jc, jparams, JaxEngineConfig(max_seq_len=32, kv_dtype=jnp.float32,
+                                                donate_cache=False))
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    for model in (from_jax, from_gguf):
+        eng = Engine(tc, model, EngineConfig(max_seq_len=32, kv_dtype=torch.float32))
+        assert _rel_err(eng.prefill([PROMPT])[0][0], ref) <= 1e-5
+
+
+def test_capacity_budget_matches_reference(models):
+    je, te, _ = _engines(models, "gemma", "float32", max_seq_len=16)
+    out = te.generate([PROMPT], 20)[0]
+    assert len(out) == 16 - len(PROMPT)
+    assert out == je.generate([PROMPT], 20)[0]
+    for eng in (je, te):
+        with pytest.raises(ValueError, match="capacity"):
+            eng.generate_fused([PROMPT], 20)
+    assert list(te.generate_fused([PROMPT], 6)[0]) == out
+    assert te.generate([PROMPT], 0) == [[]]
+
+
+def test_decode_steps_match_full_prefill(models):
+    """Logits of incremental decode equal a full prefill's: KV cache slots,
+    masks and RoPE offsets line up."""
+    _, te, _ = _engines(models, "gemma3", "float32")
+    logits, cache = te.prefill([PROMPT[:3]])
+    for t in range(3, len(PROMPT)):
+        logits, cache = te.decode_step(torch.tensor([PROMPT[t]], dtype=torch.int32), cache)
+        full = te.prefill([PROMPT[: t + 1]])[0]
+        assert _rel_err(logits, full) <= 1e-5
+    assert int(cache.length[0]) == len(PROMPT)
+
+
+def test_unported_engine_options_raise():
+    for flag in ({"paged": True}, {"kv_quantized": True}, {"prefill_chunk": 64}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            EngineConfig(**flag)
+    with pytest.raises(NotImplementedError, match="int8"):
+        KVCache.create(TINY_CONFIG, 1, 8, quantized=True)

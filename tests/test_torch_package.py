@@ -1,0 +1,125 @@
+"""Package-level checks of gemma_tpu_torch: no jax, the CLI, the kernel build,
+and chip_smoke.py's refusal to run without a GPU."""
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gemma_tpu_torch import cli
+from gemma_tpu_torch.kernels import build
+from gemma_tpu_torch.runtime import Engine, EngineConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "gemma_tpu_torch"
+
+_NO_JAX_RUN = r"""
+import importlib, json, pkgutil, runpy, sys
+sys.modules["jax"] = None  # any import of jax now fails
+import gemma_tpu_torch
+for m in pkgutil.walk_packages(gemma_tpu_torch.__path__, "gemma_tpu_torch."):
+    importlib.import_module(m.name)
+from gemma_tpu_torch.testing import TINY_CONFIG, make_gguf
+path = make_gguf(sys.argv[1], TINY_CONFIG, seed=1)  # q4_0
+sys.argv = ["gemma_tpu_torch", "generate", str(path), "--device", "cpu", "--tokens", "1,7,300",
+            "--max-new-tokens", "5", "--no-eos"]
+try:
+    runpy.run_module("gemma_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print(json.dumps({"jax": "jax" in sys.modules and sys.modules["jax"] is not None,
+                  "ml_dtypes": "ml_dtypes" in sys.modules}), file=sys.stderr)
+"""
+
+
+def test_runs_end_to_end_with_jax_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path / "tiny.gguf")],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"jax": False, "ml_dtypes": False}
+    assert "decode 5 tokens" in proc.stderr and "device cpu" in proc.stderr
+    # the CLI prints what the library generates
+    cfg, model, tok = cli.load(tmp_path / "tiny.gguf", "cpu")
+    out = Engine(cfg, model, EngineConfig()).generate([[1, 7, 300]], 5)[0]
+    assert proc.stdout == tok.decode(out) + "\n"
+
+
+def test_sources_have_no_jax_sdpa_or_compile():
+    """The port imports no jax and calls no finished attention kernel or
+    compiler for the ported ops."""
+    files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))
+    assert len(files) > 10
+    jax_import = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|import_module\(\s*['\"]jax", re.M)
+    for f in files:
+        text = f.read_text()
+        assert not jax_import.search(text), f
+        assert "scaled_dot_product_attention" not in text, f
+        assert "torch.compile" not in text, f
+
+
+def test_kernel_sources_note_what_they_replace():
+    notes = {"q4_0_matmul.cu": "_q4_0_kernel", "decode_attention.cu": "_decode_kernel",
+             "flash_attention.cu": "_flash_kernel"}
+    for name, tpu_kernel in notes.items():
+        text = (PKG / "csrc" / name).read_text()
+        assert re.search(rf"Replaces .*`{tpu_kernel}`", text, re.S), name
+        assert "What bounds it on the H100" in text or "bound by" in text, name
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.load()
+    assert build._lib is None
+
+
+def test_library_name_follows_the_sources():
+    name = build.library_path().name
+    assert re.fullmatch(r"libgemma_tpu_kernels_[0-9a-f]{16}\.so", name)
+    assert build.library_path() == build.library_path()
+    assert {p.name for p in build.sources()} >= {"q4_0_matmul.cu", "decode_attention.cu",
+                                                 "flash_attention.cu", "common.cuh"}
+
+
+def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["generate", str(tmp_path / "missing.gguf"), "--device", "cuda"])
+
+
+def test_cli_inspect_json(tmp_path, capsys):
+    from gemma_tpu_torch.testing import TINY_CONFIG, make_gguf
+
+    path = make_gguf(tmp_path / "t.gguf", TINY_CONFIG)
+    assert cli.main(["inspect", str(path), "--json"]) == 0
+    meta = json.loads(capsys.readouterr().out)
+    assert meta["architecture"] == "gemma"
+    assert meta["tensors"]["blk.0.attn_q.weight"] == {"shape": [64, 64], "type": "Q4_0"}
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu_or_repo(alone, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result where there is no
+    CUDA device (here), and where it stands without the repository."""
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
