@@ -7,17 +7,20 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 1. the card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   Gemma-2B shapes of the main path, with max|diff| against the stated
-   tolerance and the times of kernel and plain version (CUDA events);
-4. the main path at full Gemma-2B width (random q4_0 weights from a seed):
+   Gemma-2B shapes of the q4_0 and q4_k_m paths, with max|diff| against the
+   stated tolerance and the device times of kernel and plain version
+   (torch.profiler), then correctness-only edge cases;
+4. the main path at full Gemma-2B width, once with q4_0 weights (4) and
+   once with the q4_k_m recipe (4b), random weights from a seed:
    `Engine.prefill` of a 203-token prompt then `Engine.generate_from` for 64
    greedy tokens (what `Engine.generate` and the CLI run), with finite
-   logits, tokens in range, and the kernels' launch counters equal to what
-   the layer structure implies; then `Engine.generate` must give the same
-   tokens;
+   logits, tokens in range, and the kernels' launch counters, set to 0 just
+   before each run, equal to what the layer structure implies; then
+   `Engine.generate` must give the same tokens;
 5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
-   tiny q4_0 GGUF, its printed text equal to the in-process run's, and the
-   tiny model on the card held against the same model on the CPU (plain path).
+   tiny q4_0 GGUF and a tiny q4_k_m GGUF, its printed text equal to the
+   in-process run's, and each tiny model on the card held against the same
+   model on the CPU (plain path).
 
 The last two lines of standard output are a JSON line of the kernels and
 the contract line `{"ok": true, "device": {...}}`. With no CUDA device, or
@@ -43,6 +46,11 @@ MAX_SEQ_LEN = 512
 KERNELS = {
     "q4_0_matmul": ("gemma_tpu_torch/csrc/q4_0_matmul.cu",
                     "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel"),
+    "q4_k_matmul": ("gemma_tpu_torch/csrc/q4_k_matmul.cu",
+                    "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel"),
+    "q6_k_matmul": ("gemma_tpu_torch/csrc/q6_k_matmul.cu",
+                    "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel; "
+                    "gemma_tpu/ops/quant_matmul.py:146 _q6_k_v4_kernel"),
     "flash_attention": ("gemma_tpu_torch/csrc/flash_attention.cu",
                         "gemma_tpu/ops/attention.py:94 _flash_kernel"),
     "decode_attention": ("gemma_tpu_torch/csrc/decode_attention.cu",
@@ -107,53 +115,87 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_q4_0(torch, rows: int, cols: int, gen, dev):
+def random_qtensor(torch, fmt: str, rows: int, cols: int, gen, dev):
+    """Random payload bytes and tables, scales sized for outputs near 1."""
     from gemma_tpu_torch.quant.qtensor import QTensor
 
-    qs = torch.randint(0, 256, (rows, cols // 2), generator=gen, device=dev, dtype=torch.uint8)
-    scales = ((torch.rand(rows, cols // 32, generator=gen, device=dev) + 0.5) * 0.005)
-    return QTensor(qs, scales.to(torch.float16))
+    def bytes_(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def scales(base, *shape):
+        return ((torch.rand(*shape, generator=gen, device=dev) + 0.5) * base).to(torch.float16)
+
+    if fmt == "q4_0":
+        return QTensor("q4_0", qs=bytes_(rows, cols // 2), scales=scales(0.005, rows, cols // 32))
+    if fmt == "q4_k":
+        return QTensor("q4_k", qs=bytes_(rows, cols // 2), scales=bytes_(rows, cols // 256, 12),
+                       dm=scales(1e-4, rows, cols // 256, 2))
+    return QTensor("q6_k", ql=bytes_(rows, cols // 2), qh=bytes_(rows, cols // 4),
+                   sc=bytes_(rows, cols // 16).view(torch.int8), d=scales(2e-5, rows, cols // 256))
+
+
+def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
+    """One quantized matmul kernel against its plain version at M = 1 and
+    M = 203 with bf16 x, on each (name, N, K) of `shapes`."""
+    import gemma_tpu_torch.ops.quant_matmul as qmm
+
+    kernel, plain = qmm.MATMULS[fmt], qmm.PLAIN[fmt]
+    worst = 0.0
+    rep = None
+    for name, N, K in shapes:
+        qt = random_qtensor(torch, fmt, N, K, gen, dev)
+        wire_bytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
+        for M in (1, PROMPT_LEN):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            got = kernel(x, qt)
+            ref = plain(x, qt)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item() + 1e-6
+            ms = device_ms(torch, lambda: kernel(x, qt))
+            per_call = call_ms(torch, lambda: kernel(x, qt))
+            plain_ms = device_ms(torch, lambda: plain(x, qt), iters=5, warmup=1)
+            rate = (f"{wire_bytes / ms / 1e9:.3f} TB/s at wire bytes" if M == 1
+                    else f"{2 * M * N * K / ms / 1e9:.3f} TFLOP/s")
+            info("kernel", f"{fmt}_matmul {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
+                           f"tol={tol:.3e}; device ms: kernel {ms:.4f} ({rate}) plain "
+                           f"{plain_ms:.4f}; kernel per back-to-back call {per_call:.4f} ms")
+            require(bool(torch.isfinite(got).all()) and err <= tol,
+                    f"{fmt}_matmul {name} M={M}: max|diff| {err} > tol {tol}")
+            worst = max(worst, err)
+            if name == rep_name and M == 1:
+                rep = (ms, plain_ms, f"{name} M=1 N={N} K={K}")
+        del qt
+    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], "shape": rep[2]}
 
 
 def check_kernels(torch, dev) -> dict[str, dict]:
     """Phase 3: every kernel against its plain version at the main path's
     shapes. Returns per-kernel results for the JSON line."""
     import gemma_tpu_torch.ops.attention as att
-    import gemma_tpu_torch.ops.quant_matmul as qmm
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     results = {}
 
-    # q4_0: both the kernel and the plain version form the same f32 products
-    # (f32 weights at M <= 8, bf16-rounded weights at M > 8); only the order
-    # of the f32 sums differs, so the tolerance is 1e-4 of the output's scale.
-    shapes = [("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
-              ("down", 2048, 16384), ("head", 256000, 2048)]
-    worst = 0.0
-    rep = None
-    for name, N, K in shapes:
-        qt = random_q4_0(torch, N, K, gen, dev)
-        for M in (1, PROMPT_LEN):
-            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            got = qmm.q4_0_matmul(x, qt)
-            ref = qmm.q4_0_matmul_plain(x, qt)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            tol = 1e-4 * ref.abs().max().item() + 1e-6
-            ms = device_ms(torch, lambda: qmm.q4_0_matmul(x, qt))
-            per_call = call_ms(torch, lambda: qmm.q4_0_matmul(x, qt))
-            plain_ms = device_ms(torch, lambda: qmm.q4_0_matmul_plain(x, qt), iters=5, warmup=1)
-            info("kernel", f"q4_0_matmul {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
-                           f"tol={tol:.3e}; device ms: kernel {ms:.4f} plain {plain_ms:.4f}; "
-                           f"kernel per back-to-back call {per_call:.4f} ms")
-            require(bool(torch.isfinite(got).all()) and err <= tol,
-                    f"q4_0_matmul {name} M={M}: max|diff| {err} > tol {tol}")
-            worst = max(worst, err)
-            if name == "gate_up" and M == 1:
-                rep = (ms, plain_ms, f"gate_up M=1 N={N} K={K}")
-        del qt
-    results["q4_0_matmul"] = {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], "shape": rep[2]}
+    # Quantized matmuls. q4_0 and q6_k: the kernel and the plain version
+    # form the same f32 products (f32 weights at M <= 8, bf16-rounded
+    # weights at M > 8) and differ only in the order of f32 sums. q4_k at
+    # M <= 8 takes ggml's vec_dot form, d*sc * sum(x*q) - dmin*mn * sum(x),
+    # against the plain x @ dequant: the products differ by the f32
+    # rounding of each dequantized weight; at M > 8 both form
+    # bf16(d*sc * (q - 8)) products plus the f32 affine part. Each is
+    # ~1e-6 of the output's scale, so the tolerance is 1e-4 of it.
+    for fmt, shapes, rep_name in (
+        ("q4_0", [("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
+                  ("down", 2048, 16384), ("head", 256000, 2048)], "gate_up"),
+        ("q4_k", [("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
+                  ("gate_up", 32768, 2048), ("down", 2048, 16384)], "gate_up"),
+        # (2048, 16384): the deep-K shape of the reference's _q6_k_v4_kernel
+        ("q6_k", [("attn_v", 256, 2048), ("head", 256000, 2048),
+                  ("deep_k", 2048, 16384)], "head"),
+    ):
+        results[f"{fmt}_matmul"] = check_matmul(torch, fmt, shapes, rep_name, gen, dev)
 
     # attention: bf16 outputs, and p rounded to bf16 against a per-tile
     # (kernel) or per-row (plain) running max; the reference's own kernel
@@ -233,22 +275,24 @@ def check_edge_cases(torch, dev) -> None:
     not reach (M = 2..9 and 70 on ragged N and K, f32 activations, GQA with
     head_dim 128, batch 2 with per-row limits, ragged T, softcap + window),
     each against its plain version with the tolerances of check_kernels
-    (attention in f32: 1e-4, nothing rounds)."""
+    (attention in f32: 1e-4, nothing rounds). The K-quants take K = 1280,
+    five superblocks: off the GEMV's 1024-element K-chunk."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst = {}
-    qt = random_q4_0(torch, 1000, 1056, gen, dev)  # N, K off every tile and chunk
-    for dtype in (torch.bfloat16, torch.float32):
-        for M in (2, 5, 8, 9, 70):
-            x = torch.randn(M, 1056, generator=gen, device=dev).to(dtype)
-            got, ref = qmm.q4_0_matmul(x, qt), qmm.q4_0_matmul_plain(x, qt)
-            err = (got - ref).abs().max().item()
-            tol = 1e-4 * ref.abs().max().item() + 1e-6
-            require(err <= tol, f"q4_0_matmul M={M} {dtype}: max|diff| {err} > tol {tol}")
-            worst["q4_0"] = max(worst.get("q4_0", 0.0), err / tol)
+    for fmt, K in (("q4_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):  # N, K off every tile and chunk
+        qt = random_qtensor(torch, fmt, 1000, K, gen, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            for M in (2, 5, 8, 9, 70):
+                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
+                err = (got - ref).abs().max().item()
+                tol = 1e-4 * ref.abs().max().item() + 1e-6
+                require(err <= tol, f"{fmt}_matmul M={M} {dtype}: max|diff| {err} > tol {tol}")
+                worst[fmt] = max(worst.get(fmt, 0.0), err / tol)
     B, T, Hq, Hkv, D, S = 2, 37, 8, 2, 128, 100
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         q = (torch.randn(B, T, Hq, D, generator=gen, device=dev) * 0.3).to(dtype)
@@ -278,7 +322,8 @@ def reset_counters() -> None:
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
 
-    qmm.q4_0_matmul.launches = 0
+    for op in qmm.MATMULS.values():
+        op.launches = 0
     att.flash_attention.launches = 0
     att.decode_attention.launches = 0
 
@@ -288,7 +333,7 @@ def read_counters() -> dict[str, int]:
     import gemma_tpu_torch.ops.quant_matmul as qmm
 
     return {
-        "q4_0_matmul": qmm.q4_0_matmul.launches,
+        **{f"{fmt}_matmul": op.launches for fmt, op in qmm.MATMULS.items()},
         "flash_attention": att.flash_attention.launches,
         "decode_attention": att.decode_attention.launches,
     }
@@ -331,14 +376,32 @@ def host_profile(torch, eng, cache, last_tok: int, steps: int = 4) -> str:
         f"{name[:40]} x{n} {ms:.3f}" for ms, name, n in rows[:8])
 
 
-def main_path(torch, dev, card: str) -> dict[str, int]:
-    """Phase 4: full-width Gemma-2B q4_0, prefill + 64 greedy tokens."""
+def expected_launches(cfg, fmt: str) -> dict[str, int]:
+    """Kernel launches of one prefill and NEW_TOKENS decode steps (65
+    forwards) as the layer structure implies."""
+    forwards = 1 + NEW_TOKENS
+    if fmt == "q4_0":  # fused q|k|v, out, fused gate|up, down; tied head
+        per_forward = {"q4_0_matmul": 4 * cfg.n_layers + 1}
+    else:  # q4_k: q, k, out, fused gate|up, down; q6_k: attn_v, tied head
+        per_forward = {"q4_k_matmul": 5 * cfg.n_layers, "q6_k_matmul": cfg.n_layers + 1}
+    return {
+        **{name: per_forward.get(name, 0) * forwards
+           for name in ("q4_0_matmul", "q4_k_matmul", "q6_k_matmul")},
+        "flash_attention": cfg.n_layers,
+        "decode_attention": cfg.n_layers * NEW_TOKENS,
+    }
+
+
+def main_path(torch, dev, card: str, fmt: str) -> dict[str, int]:
+    """Phase 4 (q4_0) and 4b (q4_k_m): full-width Gemma-2B, prefill + 64
+    greedy tokens."""
     from gemma_tpu_torch.models import GEMMA_2B
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import make_params
 
     cfg = GEMMA_2B
-    model = make_params(cfg, "q4_0", seed=0, device=dev)
+    phase = f"main {fmt}"
+    model = make_params(cfg, fmt, seed=0, device=dev)
     weight_gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
     eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=1))
     prompt = [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
@@ -361,22 +424,18 @@ def main_path(torch, dev, card: str) -> dict[str, int]:
     require(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
     last = eng.decode_step(torch.tensor([toks[-1]], device=dev), cache)[0]
     require(bool(torch.isfinite(last).all()), "decode logits are not finite")
-    per_forward = 4 * cfg.n_layers + 1  # fused q|k|v, out, fused gate|up, down; tied head
-    expected = {
-        "q4_0_matmul": per_forward * (1 + NEW_TOKENS),
-        "flash_attention": cfg.n_layers,
-        "decode_attention": cfg.n_layers * NEW_TOKENS,
-    }
-    info("main", f"Gemma-2B q4_0 ({weight_gb:.3f} GB of weights on the card), prompt {PROMPT_LEN} "
-                 f"tokens: prefill {t_prefill * 1e3:.2f} ms, decode {NEW_TOKENS} tokens in "
-                 f"{t_decode:.3f} s = {NEW_TOKENS / t_decode:.2f} tok/s on {card}; "
-                 f"launches {counts} (expected {expected})")
+    expected = expected_launches(cfg, fmt)
+    info(phase, f"Gemma-2B {fmt} ({weight_gb:.3f} GB of weights on the card), prompt "
+                f"{PROMPT_LEN} tokens: prefill {t_prefill * 1e3:.2f} ms, decode {NEW_TOKENS} "
+                f"tokens in {t_decode:.3f} s = {NEW_TOKENS / t_decode:.2f} tok/s on {card}; "
+                f"launches {counts} (expected {expected})")
     require(counts == expected, f"launch counts {counts} != expected {expected}")
     busy, top = decode_profile(torch, eng, cache, toks[-1])
     per_token = t_decode / NEW_TOKENS * 1e3
-    info("main", f"decode step: {per_token:.3f} ms wall per token, device busy {busy:.3f} ms "
-                 f"(idle share {1 - busy / per_token:.3f}); device ms per token by kernel: {top}")
-    info("main", f"host ms per decode step by op: {host_profile(torch, eng, cache, toks[-1])}")
+    info(phase, f"decode step on {card}: {per_token:.3f} ms wall per token, device busy "
+                f"{busy:.3f} ms (idle share {1 - busy / per_token:.3f}); device ms per token "
+                f"by kernel: {top}")
+    info(phase, f"host ms per decode step by op: {host_profile(torch, eng, cache, toks[-1])}")
     again = eng.generate([prompt], NEW_TOKENS)[0]
     require(again == toks, "Engine.generate differs from prefill + generate_from")
     del eng, model, cache
@@ -384,16 +443,19 @@ def main_path(torch, dev, card: str) -> dict[str, int]:
     return counts
 
 
-def tiny_checks(torch, dev) -> None:
-    """Phase 5: the CLI on the card, and the card against the CPU on a tiny model."""
+def tiny_checks(torch, dev, weight_type: str) -> None:
+    """Phase 5: the CLI on the card, and the card against the CPU, on a tiny
+    q4_0 or q4_k_m model (TINY_KERNEL_CONFIG: every K a multiple of 256)."""
     from gemma_tpu_torch import cli
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
 
     prompt = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
     n_new = 16
+    moved = [name for name, n in expected_launches(TINY_KERNEL_CONFIG, weight_type).items() if n]
     with tempfile.TemporaryDirectory() as tmp:
-        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0)  # q4_0
+        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0,
+                         weight_type=weight_type)
         before = read_counters()
         proc = subprocess.run(
             [sys.executable, "-m", "gemma_tpu_torch", "generate", str(path), "--device", "cuda",
@@ -407,7 +469,8 @@ def tiny_checks(torch, dev) -> None:
         _, model_cpu, _ = cli.load(path, "cpu")
         gpu_toks = Engine(cfg, model_gpu, EngineConfig(max_seq_len=256)).generate([prompt], n_new)[0]
         after = read_counters()
-        require(all(after[k] > before[k] for k in after), f"tiny run missed a kernel: {before} -> {after}")
+        require(all(after[k] > before[k] for k in moved),
+                f"tiny {weight_type} run missed a kernel of {moved}: {before} -> {after}")
         text = tok.decode(gpu_toks)
         require(proc.stdout == text + "\n", f"CLI printed {proc.stdout!r}, in-process run {text!r}")
 
@@ -428,7 +491,8 @@ def tiny_checks(torch, dev) -> None:
         lcb, _ = Engine(cfg, model_cpu, EngineConfig(max_seq_len=256)).prefill([prompt])
         err_b = (lgb.cpu() - lcb).abs().max().item()
         tol_b = 5e-2 * lcb.abs().max().item()
-    info("tiny", f"CLI on cuda: its {n_new} tokens' text equals the in-process run's; card vs CPU, "
+    info("tiny", f"{weight_type}: CLI on cuda: its {n_new} tokens' text equals the in-process "
+                 f"run's; kernels {moved} launched; card vs CPU, "
                  f"f32: prefill logits max|diff|={err:.3e} (tol {tol:.3e}), greedy streams "
                  f"{'equal' if toks_g == toks_c else 'DIFFER'}; bf16: max|diff|={err_b:.3e} "
                  f"(tol {tol_b:.3e})")
@@ -461,8 +525,11 @@ def run() -> dict:
 
     results = check_kernels(torch, dev)
     check_edge_cases(torch, dev)
-    counts = main_path(torch, dev, card)
-    tiny_checks(torch, dev)
+    counts_q4_0 = main_path(torch, dev, card, "q4_0")
+    counts = main_path(torch, dev, card, "q4_k_m")  # this slice's path: reported below
+    counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"]
+    for weight_type in ("q4_0", "q4_k_m"):
+        tiny_checks(torch, dev, weight_type)
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [

@@ -1,0 +1,314 @@
+// q4_k dequant-matmul: y[M, N] (f32) = x[M, K] . dequant(W)^T.
+//
+// Replaces the Pallas kernel `_q4_k_kernel` of gemma_tpu/ops/quant_matmul.py
+// (launched by `_qmm_call`). W is q4_k in the port's layout
+// (gemma_tpu_torch/quant/qtensor.py), per row and 256-superblock: qs u8
+// [N, K/2] with ggml's 128 payload bytes (32-byte chunk c holds sub-block 2c
+// in its low nibbles, 2c + 1 in its high nibbles), scales u8 [N, K/256, 12]
+// with ggml's packed 6-bit sc/mn table, dm f16 [N, K/256, 2] with ggml's d
+// and dmin. Sub-block j dequantizes as w = (d * sc_j) * q - dmin * mn_j.
+//
+// Two launch shapes, one op:
+//
+// * Decode (M <= 8) is bound by weight bytes: 4.5 bits a weight used M
+//   times, far below the card's ~295 flop/byte balance point.
+//   `q4_k_gemv_kernel` gives each warp one output row. Lane l's 16-byte
+//   load is payload bytes 16l..16l+15 of a 512-byte span (four
+//   superblocks), so a warp reads 512 contiguous bytes per step: half a
+//   32-byte chunk, 16 weights of sub-block 2c (low nibbles) and 16 of 2c + 1
+//   (high nibbles). The lane decodes its two sub-blocks' sc/mn from the
+//   12-byte table and d/dmin in registers, and accumulates
+//   d*sc * sum(x*q) - dmin*mn * sum(x) per sub-block, as ggml's vec_dot
+//   does. x is staged in shared memory per K-chunk of 1024 in lane order
+//   (each lane's 32 values contiguous, padded to 36 floats so the lanes'
+//   float4 reads do not conflict on banks). All math is f32, the
+//   reference's numerics at M <= 8.
+// * Prefill (M > 8) is a tiled plain-FMA kernel (`q4_k_tiled_kernel`):
+//   64 x 64 outputs per block, K stepped one 64-element chunk (two
+//   sub-blocks) at a time, both tiles in shared memory. With bf16 x the
+//   weight tile is bf16(d*sc * (q - 8)) and the per-32 affine part
+//   sum(x) * (8 d*sc - dmin*mn) is added in f32 from f32 group sums of the
+//   x tile: the reference kernel's rounding point (a bf16-rounded offset
+//   is a perplexity bias). With f32 x (evaluation mode) the tile holds the
+//   f32 weights. Tensor cores (mma/wgmma) are later work.
+//
+// Every launch is checked: the entry point returns cudaGetLastError().
+#include <type_traits>
+
+#include "common.cuh"
+
+using namespace gt;
+
+namespace {
+
+constexpr int kQK = 256;  // superblock
+constexpr int kGemvWarps = 8;
+constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass (4 superblocks)
+constexpr int kXPad = 36;          // floats per lane's 32 staged values (bank-conflict-free)
+
+// byte i (0..11) of the packed 6-bit table held as three words
+__device__ __forceinline__ uint32_t table_byte(uint32_t t0, uint32_t t1, uint32_t t2, int i) {
+  const uint32_t w = i < 4 ? t0 : (i < 8 ? t1 : t2);
+  return (w >> (8 * (i & 3))) & 0xffu;
+}
+
+// ggml get_scale_min_k4: the 6-bit scale and min of sub-block j (0..7)
+__device__ __forceinline__ void scale_min_k4(uint32_t t0, uint32_t t1, uint32_t t2, int j,
+                                             float& sc, float& mn) {
+  uint32_t s, m;
+  if (j < 4) {
+    s = table_byte(t0, t1, t2, j) & 63u;
+    m = table_byte(t0, t1, t2, j + 4) & 63u;
+  } else {
+    const uint32_t c = table_byte(t0, t1, t2, j + 4);
+    s = (c & 15u) | ((table_byte(t0, t1, t2, j - 4) >> 6) << 4);
+    m = (c >> 4) | ((table_byte(t0, t1, t2, j) >> 6) << 4);
+  }
+  sc = static_cast<float>(s);
+  mn = static_cast<float>(m);
+}
+
+// (d * sc, dmin * mn) of sub-block j of superblock sb of one row
+__device__ __forceinline__ void group_scale(const uint8_t* table_row, const __half2* dm_row, int sb,
+                                            int j, float& dsc, float& dmn) {
+  const uint32_t* t = reinterpret_cast<const uint32_t*>(table_row + sb * 12);
+  const float2 dmf = __half22float2(dm_row[sb]);
+  float sc, mn;
+  scale_min_k4(t[0], t[1], t[2], j, sc, mn);
+  dsc = dmf.x * sc;
+  dmn = dmf.y * mn;
+}
+
+// GEMV lane order: element e (< 1024) of a staged K-chunk -> lane * kXPad + slot
+__device__ __forceinline__ int gemv_slot(int e) {
+  const int sb = e >> 8, r = e & 255;
+  const int c = r >> 6, s = r & 63;  // chunk, position in chunk
+  const int hi = s >> 5, h = (s & 31) >> 4;
+  return (sb * 8 + c * 2 + h) * kXPad + hi * 16 + (s & 15);
+}
+
+template <int M, typename TX>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+                 const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
+                 float* __restrict__ y, int N, int K) {
+  __shared__ __align__(16) float xs[M][32 * kXPad];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kGemvWarps + warp;
+  const int nsb = K / kQK;
+  const uint8_t* qrow = qs + static_cast<size_t>(n) * (K / 2);
+  const uint8_t* trow = table + static_cast<size_t>(n) * nsb * 12;
+  const __half2* dmrow = dm + static_cast<size_t>(n) * nsb;
+  const int c = (lane % 8) / 2;  // the lane's chunk: sub-blocks 2c and 2c + 1
+
+  float acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kGemvKChunk) {
+    const int klen = min(kGemvKChunk, K - k0);  // a multiple of 256
+    __syncthreads();  // previous chunk fully consumed
+    for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
+      const int m = i / kGemvKChunk;
+      const int e = i % kGemvKChunk;
+      xs[m][gemv_slot(e)] = e < klen ? to_f32(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
+    }
+    __syncthreads();
+    if (n < N && lane < klen / 32) {
+      const int sb = k0 / kQK + lane / 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(qrow + static_cast<size_t>(sb) * 128 + (lane % 8) * 16);
+      float dsc_lo, dmn_lo, dsc_hi, dmn_hi;
+      group_scale(trow, dmrow, sb, 2 * c, dsc_lo, dmn_lo);
+      group_scale(trow, dmrow, sb, 2 * c + 1, dsc_hi, dmn_hi);
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+      float qlo[16], qhi[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t byte = (words[i / 4] >> (8 * (i % 4))) & 0xffu;
+        qlo[i] = static_cast<float>(byte & 0xfu);
+        qhi[i] = static_cast<float>(byte >> 4);
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane * kXPad]);
+        float sq_lo = 0.f, sx_lo = 0.f, sq_hi = 0.f, sx_hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 a = xv[i];
+          const float4 b = xv[4 + i];
+          sq_lo = fmaf(qlo[4 * i + 0], a.x, sq_lo);
+          sq_lo = fmaf(qlo[4 * i + 1], a.y, sq_lo);
+          sq_lo = fmaf(qlo[4 * i + 2], a.z, sq_lo);
+          sq_lo = fmaf(qlo[4 * i + 3], a.w, sq_lo);
+          sx_lo += (a.x + a.y) + (a.z + a.w);
+          sq_hi = fmaf(qhi[4 * i + 0], b.x, sq_hi);
+          sq_hi = fmaf(qhi[4 * i + 1], b.y, sq_hi);
+          sq_hi = fmaf(qhi[4 * i + 2], b.z, sq_hi);
+          sq_hi = fmaf(qhi[4 * i + 3], b.w, sq_hi);
+          sx_hi += (b.x + b.y) + (b.z + b.w);
+        }
+        acc[m] = fmaf(dsc_lo, sq_lo, acc[m]);
+        acc[m] = fmaf(-dmn_lo, sx_lo, acc[m]);
+        acc[m] = fmaf(dsc_hi, sq_hi, acc[m]);
+        acc[m] = fmaf(-dmn_hi, sx_hi, acc[m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = warp_sum(acc[m]);
+  if (lane == 0 && n < N) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
+  }
+}
+
+constexpr int kTileM = 64;
+constexpr int kTileN = 64;
+constexpr int kTileK = 64;  // one 32-byte chunk: sub-blocks 2c and 2c + 1
+constexpr int kTiledThreads = 256;
+
+template <typename TX>
+__global__ void __launch_bounds__(kTiledThreads)
+q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+                  const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
+                  float* __restrict__ y, int M, int N, int K) {
+  // bf16 x: bf16 scale part + f32 affine part; f32 x: f32 weights
+  constexpr bool kSplit = std::is_same<TX, __nv_bfloat16>::value;
+  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
+  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // weight tile, K-major
+  __shared__ float xsum[2][kTileM];  // the x rows' sums over each 32-group
+  __shared__ float offs[2][kTileN];  // the weight rows' 8 d*sc - dmin*mn per 32-group
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int tx = tid % 16;  // output cols tx*4 .. +3
+  const int ty = tid / 16;  // output rows ty*4 .. +3
+  const int m0 = blockIdx.y * kTileM;
+  const int n0 = blockIdx.x * kTileN;
+  const int nsb = K / kQK;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    // a warp stages 32 consecutive values of one row: one 32-group
+#pragma unroll 4
+    for (int it = 0; it < kTileM * kTileK / kTiledThreads; ++it) {
+      const int i = tid + it * kTiledThreads;
+      const int r = i / kTileK;
+      const int c = i % kTileK;
+      const int m = m0 + r;
+      const float v = m < M ? to_f32(x[static_cast<size_t>(m) * K + k0 + c]) : 0.f;
+      xs[c][r] = v;
+      if (kSplit) {
+        const float s = warp_sum(v);
+        if (lane == 0) xsum[c / 32][r] = s;
+      }
+    }
+    {
+      // 64 weight rows x 4 quarters of 16 weights: quarter p holds elements
+      // 16p..16p+15 of the chunk, nibble p / 2 of payload bytes 16(p % 2)..
+      const int r = tid / 4;
+      const int part = tid % 4;
+      const int n = n0 + r;
+      const int sb = k0 / kQK;
+      const int c = (k0 % kQK) / kTileK;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      float dsc = 0.f, dmn = 0.f;
+      if (n < N) {
+        raw = *reinterpret_cast<const uint4*>(qs + static_cast<size_t>(n) * (K / 2) + sb * 128 + c * 32 + (part % 2) * 16);
+        group_scale(table + static_cast<size_t>(n) * nsb * 12, dm + static_cast<size_t>(n) * nsb, sb,
+                    2 * c + part / 2, dsc, dmn);
+      }
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+      const int shift = (part / 2) * 4;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float q = static_cast<float>((words[i / 4] >> (8 * (i % 4) + shift)) & 0xfu);
+        ws[part * 16 + i][r] = kSplit ? round_to<TX>(dsc * (q - 8.f))
+                                      : __fsub_rn(__fmul_rn(dsc, q), dmn);
+      }
+      if (kSplit && part % 2 == 0) offs[part / 2][r] = 8.f * dsc - dmn;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (kSplit) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(xsum[g][ty * 4 + i], offs[g][tx * 4 + j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <typename TX>
+void launch_q4_k(const void* x, const void* qs, const void* table, const void* dm, void* y, int M,
+                 int N, int K, cudaStream_t s) {
+  const TX* xp = static_cast<const TX*>(x);
+  const uint8_t* qp = static_cast<const uint8_t*>(qs);
+  const uint8_t* tp = static_cast<const uint8_t*>(table);
+  const __half2* dp = static_cast<const __half2*>(dm);
+  float* yp = static_cast<float*>(y);
+  if (M <= 8) {
+    const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+    const dim3 block(kGemvWarps * 32);
+    switch (M) {
+      case 1: q4_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 2: q4_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 3: q4_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 4: q4_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 5: q4_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 6: q4_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 7: q4_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      default: q4_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    }
+  } else {
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q4_k_tiled_kernel<TX><<<grid, kTiledThreads, 0, s>>>(xp, qp, tp, dp, yp, M, N, K);
+  }
+}
+
+}  // namespace
+
+// x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
+// port's q4_k layout; y: [M, N] f32. Returns a cudaError_t value.
+extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
+                              const void* dm, void* y, int M, int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kBF16) {
+    launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, M, N, K, s);
+  } else if (x_dtype == kF32) {
+    launch_q4_k<float>(x, qs, scales, dm, y, M, N, K, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,275 @@
+// q6_k dequant-matmul: y[M, N] (f32) = x[M, K] . dequant(W)^T.
+//
+// Replaces the Pallas kernels `_q6_k_kernel` (split-plane layout) and
+// `_q6_k_v4_kernel` (deep-K int8 layout) of gemma_tpu/ops/quant_matmul.py:
+// both compute this function, and the port has one q6_k layout
+// (gemma_tpu_torch/quant/qtensor.py), per row and 256-superblock: ql u8
+// [N, K/2], qh u8 [N, K/4], sc i8 [N, K/16], d f16 [N, K/256], each in
+// ggml's in-block byte order. A weight dequantizes as w = (d * sc) * q,
+// q = (low 4 bits | high 2 bits << 4) - 32, one int8 scale per 16 weights.
+// Within each 128-element half of a superblock, ql[l] (l < 64) holds the
+// low bits of elements l and 64 + l (low and high nibble), and qh[l % 32]
+// holds their high bits at bit 2 * (e / 32) for element e of the half.
+//
+// Two launch shapes, one op:
+//
+// * Decode (M <= 8) is bound by weight bytes (6.5625 bits a weight, used M
+//   times). `q6_k_gemv_kernel` gives each warp one output row. Lane l's
+//   16-byte ql load is bytes 16l..16l+15 of a 512-byte span (four
+//   superblocks), so a warp's ql reads are contiguous; with o = 16 (l % 8)
+//   the lane owns half h = o / 64 and p = o % 64 of its superblock, that is
+//   elements 128h + p + i (low nibbles) and 128h + 64 + p + i (high
+//   nibbles), i < 16. Their high bits are the 16 aligned qh bytes at
+//   32h + p % 32, fields 2 (p / 32) and 2 (p / 32) + 4 (two lanes read
+//   each qh line). The lane reads the two int8 scales of its two
+//   16-element sub-blocks, 8h + p / 16 and 8h + p / 16 + 4, and d, and
+//   accumulates (d*sc) * sum(x*q) per sub-block in f32. x is staged per
+//   K-chunk of 1024 in shared memory in lane order, padded to 36 floats a
+//   lane against bank conflicts. All math is f32, the reference's
+//   numerics at M <= 8.
+// * Prefill (M > 8) is a tiled plain-FMA kernel (`q6_k_tiled_kernel`):
+//   64 x 64 outputs per block, K stepped 64 elements (a quarter of a
+//   superblock) at a time. A thread dequantizes 16 weights of one row:
+//   one 16-element sub-block, from one aligned 16-byte ql load and one
+//   16-byte qh load. With bf16 x the weight tile is bf16((d*sc) * q), the
+//   true weight rounded once (the reference's -24 fold exists only for its
+//   int4 bitcast); with f32 x it stays f32. Tensor cores are later work.
+//
+// Every launch is checked: the entry point returns cudaGetLastError().
+#include "common.cuh"
+
+using namespace gt;
+
+namespace {
+
+constexpr int kQK = 256;  // superblock
+constexpr int kGemvWarps = 8;
+constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass (4 superblocks)
+constexpr int kXPad = 36;          // floats per lane's 32 staged values (bank-conflict-free)
+
+// 6-bit value q - 32 of one weight from its ql byte and qh byte
+__device__ __forceinline__ float q6(uint32_t ql_byte, int nibble_shift, uint32_t qh_byte, int qh_shift) {
+  const uint32_t u = ((ql_byte >> nibble_shift) & 0xfu) | (((qh_byte >> qh_shift) & 3u) << 4);
+  return static_cast<float>(static_cast<int>(u) - 32);
+}
+
+__device__ __forceinline__ uint32_t byte_of(const uint32_t w[4], int i) {
+  return (w[i / 4] >> (8 * (i % 4))) & 0xffu;
+}
+
+// GEMV lane order: element e (< 1024) of a staged K-chunk -> lane * kXPad + slot
+__device__ __forceinline__ int gemv_slot(int e) {
+  const int sb = e >> 8, r = e & 255;
+  const int h = r >> 7, s = r & 127;  // half, position in half
+  const int hi = s >> 6, p16 = (s & 63) >> 4;
+  return (sb * 8 + h * 4 + p16) * kXPad + hi * 16 + (s & 15);
+}
+
+template <int M, typename TX>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+q6_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
+                 const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
+                 const __half* __restrict__ d, float* __restrict__ y, int N, int K) {
+  __shared__ __align__(16) float xs[M][32 * kXPad];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kGemvWarps + warp;
+  const int nsb = K / kQK;
+  const uint8_t* qlrow = ql + static_cast<size_t>(n) * (K / 2);
+  const uint8_t* qhrow = qh + static_cast<size_t>(n) * (K / 4);
+  const int8_t* scrow = sc + static_cast<size_t>(n) * (K / 16);
+  const __half* drow = d + static_cast<size_t>(n) * nsb;
+  const int o = (lane % 8) * 16;
+  const int h = o / 64;
+  const int p = o % 64;
+  const int qh_shift = 2 * (p / 32);  // low nibbles; high nibbles + 4
+
+  float acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kGemvKChunk) {
+    const int klen = min(kGemvKChunk, K - k0);  // a multiple of 256
+    __syncthreads();  // previous chunk fully consumed
+    for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
+      const int m = i / kGemvKChunk;
+      const int e = i % kGemvKChunk;
+      xs[m][gemv_slot(e)] = e < klen ? to_f32(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
+    }
+    __syncthreads();
+    if (n < N && lane < klen / 32) {
+      const int sb = k0 / kQK + lane / 8;
+      const uint4 l4 = *reinterpret_cast<const uint4*>(qlrow + static_cast<size_t>(sb) * 128 + o);
+      const uint4 h4 = *reinterpret_cast<const uint4*>(qhrow + static_cast<size_t>(sb) * 64 + 32 * h + p % 32);
+      const float dd = __half2float(drow[sb]);
+      const float dsc_lo = dd * static_cast<float>(scrow[sb * 16 + 8 * h + p / 16]);
+      const float dsc_hi = dd * static_cast<float>(scrow[sb * 16 + 8 * h + p / 16 + 4]);
+      const uint32_t lw[4] = {l4.x, l4.y, l4.z, l4.w};
+      const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w};
+      float qlo[16], qhi[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        qlo[i] = q6(byte_of(lw, i), 0, byte_of(hw, i), qh_shift);
+        qhi[i] = q6(byte_of(lw, i), 4, byte_of(hw, i), qh_shift + 4);
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane * kXPad]);
+        float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 a = xv[i];
+          const float4 b = xv[4 + i];
+          s_lo = fmaf(qlo[4 * i + 0], a.x, s_lo);
+          s_lo = fmaf(qlo[4 * i + 1], a.y, s_lo);
+          s_lo = fmaf(qlo[4 * i + 2], a.z, s_lo);
+          s_lo = fmaf(qlo[4 * i + 3], a.w, s_lo);
+          s_hi = fmaf(qhi[4 * i + 0], b.x, s_hi);
+          s_hi = fmaf(qhi[4 * i + 1], b.y, s_hi);
+          s_hi = fmaf(qhi[4 * i + 2], b.z, s_hi);
+          s_hi = fmaf(qhi[4 * i + 3], b.w, s_hi);
+        }
+        acc[m] = fmaf(dsc_lo, s_lo, acc[m]);
+        acc[m] = fmaf(dsc_hi, s_hi, acc[m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = warp_sum(acc[m]);
+  if (lane == 0 && n < N) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
+  }
+}
+
+constexpr int kTileM = 64;
+constexpr int kTileN = 64;
+constexpr int kTileK = 64;  // a quarter superblock: four 16-element sub-blocks
+constexpr int kTiledThreads = 256;
+
+template <typename TX>
+__global__ void __launch_bounds__(kTiledThreads)
+q6_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
+                  const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
+                  const __half* __restrict__ d, float* __restrict__ y, int M, int N, int K) {
+  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
+  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // dequantized W tile, K-major
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // output cols tx*4 .. +3
+  const int ty = tid / 16;  // output rows ty*4 .. +3
+  const int m0 = blockIdx.y * kTileM;
+  const int n0 = blockIdx.x * kTileN;
+  const int nsb = K / kQK;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    for (int i = tid; i < kTileM * kTileK; i += kTiledThreads) {
+      const int r = i / kTileK;
+      const int c = i % kTileK;
+      const int m = m0 + r;
+      xs[c][r] = m < M ? to_f32(x[static_cast<size_t>(m) * K + k0 + c]) : 0.f;
+    }
+    {
+      // 64 weight rows x 4 sub-blocks of 16: part p holds element
+      // e = 64t + 16p + i of half h (t = this quarter within the half),
+      // from ql byte e % 64 (nibble t) and qh byte e % 32 (field e / 32)
+      const int r = tid / 4;
+      const int part = tid % 4;
+      const int n = n0 + r;
+      const int sb = k0 / kQK;
+      const int h = (k0 % kQK) / 128;
+      const int t = (k0 % 128) / kTileK;
+      uint4 l4 = make_uint4(0u, 0u, 0u, 0u);
+      uint4 h4 = make_uint4(0u, 0u, 0u, 0u);
+      float dsc = 0.f;
+      if (n < N) {
+        l4 = *reinterpret_cast<const uint4*>(ql + static_cast<size_t>(n) * (K / 2) + sb * 128 + 64 * h + 16 * part);
+        h4 = *reinterpret_cast<const uint4*>(qh + static_cast<size_t>(n) * (K / 4) + sb * 64 + 32 * h + 16 * (part % 2));
+        dsc = __half2float(d[static_cast<size_t>(n) * nsb + sb]) *
+              static_cast<float>(sc[static_cast<size_t>(n) * (K / 16) + sb * 16 + 8 * h + 4 * t + part]);
+      }
+      const uint32_t lw[4] = {l4.x, l4.y, l4.z, l4.w};
+      const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w};
+      const int qh_shift = 4 * t + 2 * (part / 2);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        ws[part * 16 + i][r] = round_to<TX>(dsc * q6(byte_of(lw, i), 4 * t, byte_of(hw, i), qh_shift));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <typename TX>
+void launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc, const void* d,
+                 void* y, int M, int N, int K, cudaStream_t s) {
+  const TX* xp = static_cast<const TX*>(x);
+  const uint8_t* lp = static_cast<const uint8_t*>(ql);
+  const uint8_t* hp = static_cast<const uint8_t*>(qh);
+  const int8_t* sp = static_cast<const int8_t*>(sc);
+  const __half* dp = static_cast<const __half*>(d);
+  float* yp = static_cast<float*>(y);
+  if (M <= 8) {
+    const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+    const dim3 block(kGemvWarps * 32);
+    switch (M) {
+      case 1: q6_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 2: q6_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 3: q6_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 4: q6_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 5: q6_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 6: q6_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 7: q6_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      default: q6_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+    }
+  } else {
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q6_k_tiled_kernel<TX><<<grid, kTiledThreads, 0, s>>>(xp, lp, hp, sp, dp, yp, M, N, K);
+  }
+}
+
+}  // namespace
+
+// x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
+// port's q6_k layout; y: [M, N] f32. Returns a cudaError_t value.
+extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const void* qh,
+                              const void* sc, const void* d, void* y, int M, int N, int K,
+                              void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kBF16) {
+    launch_q6_k<__nv_bfloat16>(x, ql, qh, sc, d, y, M, N, K, s);
+  } else if (x_dtype == kF32) {
+    launch_q6_k<float>(x, ql, qh, sc, d, y, M, N, K, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 `gemma_tpu_torch/csrc/*.cu` compile at first use, with nvcc for Hopper
-(`-gencode arch=compute_90a,code=sm_90a`), into one shared library with a
-plain C interface under `gemma_tpu_torch/build/`, named by a hash of the
-sources and flags so an edit rebuilds and an unchanged tree reuses the
-build. The library is loaded with ctypes: pointers and the CUDA stream pass
-as `c_void_p`. Each C entry point returns `cudaGetLastError()` after its
-launches, and `check` raises on anything but 0.
+(`-gencode arch=compute_90a,code=sm_90a`), one nvcc process per source, all
+started together, and link into one shared library with a plain C interface
+under `gemma_tpu_torch/build/`, named by a hash of the sources and flags so
+an edit rebuilds and an unchanged tree reuses the build. The library is
+loaded with ctypes: pointers and the CUDA stream pass as `c_void_p`. Each C
+entry point returns `cudaGetLastError()` after its launches, and `check`
+raises on anything but 0.
 
 There is no fallback: a missing nvcc or a failed build raises
 `KernelBuildError` (with nvcc's stderr), never returns None.
@@ -28,9 +29,9 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # compile flags of each source; the link adds -shared
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # dtype codes of csrc/common.cuh
@@ -43,6 +44,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, x_dtype, qs, scales, y, M, N, K, stream
     "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, dm, y, M, N, K, stream
+    "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, ql, qh, sc, d, y, M, N, K, stream
+    "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, kv_limit, out, part_m, part_l, part_o,
     # B, Hq, Hkv, S, D, dtype, split, window, softcap, stream
     "gt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -91,19 +96,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgemma_tpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run nvcc commands side by side; their stderr, or KernelBuildError."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+    return "".join(outs)
+
+
 def _compile(out: Path) -> None:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    cus = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cus]
+    try:
+        # ptxas -v: registers, shared memory and spills of every kernel
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(cus, objs)])
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    except KernelBuildError:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    # ptxas -v: registers, shared memory and spills of every kernel
-    out.with_suffix(".log").write_text(proc.stderr)
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
 
 

@@ -2,12 +2,14 @@
 
 Counterpart of `gemma_tpu/models/params.py`, with the same GGUF tensor names
 (`token_embd.weight`, `output_norm.weight`, `blk.{i}.*.weight`):
-* q4_0 matrices become `QTensor`s in the port's layout (exact f16 scales);
-* q8_0 / q4_k / q6_k matrices raise `NotImplementedError` (not ported yet);
+* q4_0, q4_k and q6_k matrices become `QTensor`s in the port's layout
+  (exact f16 scales);
+* q8_0 matrices raise `NotImplementedError` (not ported yet);
 * norms are f32;
 * every other type (f32, f16, bf16, q5_k, ...) is dequantized to dense bf16
   through `gemma_tpu.native.dequantize` or `numpy_ref`;
-* q|k|v and gate|up are fused into one matrix when their formats match;
+* q|k|v and gate|up are fused into one matrix when their formats match
+  (q4_k_m's q6_k attn_v keeps q|k|v split);
 * the head is tied to the embedding unless the file has `output.weight`.
 
 `from_jax_params` converts the reference's parameter pytree (leaves as numpy
@@ -25,7 +27,7 @@ from gemma_tpu import native
 from gemma_tpu.gguf.reader import GGUFReader
 from gemma_tpu.quant import numpy_ref
 
-from ..quant.qtensor import QUANTIZED_TYPES, QTensor, from_ggml, from_jax_q4_0
+from ..quant.qtensor import QUANTIZED_TYPES, QTensor, concat_rows, from_ggml, from_jax, select_rows
 from .config import GemmaConfig
 from .gemma import Gemma
 
@@ -56,7 +58,9 @@ def _maybe_fuse(lp: dict[str, Any], names: tuple[str, ...], fused_name: str) -> 
     only when every part has the same format (mixed exports stay split)."""
     parts = [lp[n] for n in names]
     if all(isinstance(p, QTensor) for p in parts):
-        fused = QTensor(torch.cat([p.qs for p in parts]), torch.cat([p.scales for p in parts]))
+        if len({p.fmt for p in parts}) != 1:
+            return
+        fused = concat_rows(parts)
     elif not any(isinstance(p, QTensor) for p in parts):
         fused = torch.cat(parts)
     else:
@@ -98,14 +102,13 @@ def load_params(reader: GGUFReader, device="cpu", fuse_projections: bool = True
 
 
 def _from_jax_leaf(leaf, device, rows: int | None = None):
-    """One reference leaf -> QTensor (q4_0), dense bf16 matrix or f32 norm.
-    `rows` slices the out-feature axis (the reference pads the vocab)."""
+    """One reference leaf -> QTensor (q4_0, q4_k, q6_k or q6_k_v4), dense
+    bf16 matrix or f32 norm. `rows` slices the out-feature axis (the
+    reference zero-pads a quantized embedding to 2048-row multiples)."""
     if hasattr(leaf, "fmt") and hasattr(leaf, "arrays"):
-        if leaf.fmt != "q4_0":
-            raise NotImplementedError(f"reference format {leaf.fmt} is not ported yet")
-        qt = from_jax_q4_0(leaf.arrays)
+        qt = from_jax(leaf.fmt, leaf.arrays)
         if rows is not None:
-            qt = QTensor(qt.qs[:rows].contiguous(), qt.scales[:rows].contiguous())
+            qt = select_rows(qt, slice(0, rows))
         return qt.to(device)
     a = np.asarray(leaf)
     if a.ndim == 1:

@@ -2,9 +2,11 @@
 
 `make_gguf` writes a valid GGUF file with random weights through the
 reference's framework-free writer (a port of `gemma_tpu/testing.py`
-`make_gguf`: the same file for the same arguments). `make_params` fabricates a model
-directly in the port's layout on a device, for full-width runs where writing
-and quantizing a multi-GB GGUF on the host would be slow.
+`make_gguf`: the same file for the same arguments; `weight_type="q4_k_m"`
+writes the tensors that `python -m gemma_tpu quantize --type q4_k_m` makes
+from the same seed's F32 file). `make_params` fabricates a model directly in
+the port's layout on a device, for full-width runs where writing and
+quantizing a multi-GB GGUF on the host would be slow.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from gemma_tpu.quant import numpy_ref
 
 from .models.config import GemmaConfig
 from .models.gemma import Gemma
-from .quant.qtensor import QGROUP, QTensor
+from .quant.qtensor import QGROUP, QK_K, QTensor
 
 TINY_CONFIG = GemmaConfig(
     vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -76,17 +78,23 @@ def make_gguf(
     path: str | Path,
     cfg: GemmaConfig = TINY_CONFIG,
     *,
-    weight_type: GGMLType = GGMLType.Q4_0,
+    weight_type: GGMLType | str = GGMLType.Q4_0,
     seed: int = 0,
     scale: float = 0.05,
     arch: str = "gemma",
 ) -> Path:
     """Write a GGUF checkpoint with random N(0, scale^2) weights.
 
-    `weight_type` applies to all 2-D matrices (default q4_0, the port's
-    quantized format; the reference defaults to F32); norms stay F32.
-    Matrix shapes follow the llama.cpp export convention ([out, in]).
+    `weight_type` (a GGMLType or its lower-case name) applies to all 2-D
+    matrices (default q4_0; the reference defaults to F32); norms stay F32.
+    "q4_k_m" is llama.cpp's mixed recipe as the reference's `quantize`
+    applies it (`gemma_tpu/cli.py` cmd_quantize): q6_k for token_embd and
+    attn_v, q4_k for the other matrices, F32 where a row is not a whole
+    number of 256-superblocks. Matrix shapes follow the llama.cpp export
+    convention ([out, in]).
     """
+    if isinstance(weight_type, str) and weight_type != "q4_k_m":
+        weight_type = GGMLType[weight_type.upper()]
     rng = np.random.default_rng(seed)
     path = Path(path)
     w = GGUFWriter(path)
@@ -124,8 +132,14 @@ def make_gguf(
     w.add_kv(Keys.UNK_ID, 3)
     w.add_kv(Keys.PAD_ID, 0)
 
-    def mat(name: str, out_d: int, in_d: int, t: GGMLType = weight_type):
+    def mat(name: str, out_d: int, in_d: int):
         x = rng.normal(0.0, scale, size=(out_d, in_d)).astype(np.float32)
+        t = weight_type
+        if weight_type == "q4_k_m":
+            q6 = name == "token_embd.weight" or name.endswith("attn_v.weight")
+            t = GGMLType.Q6_K if q6 else GGMLType.Q4_K
+            if in_d % QK_K:
+                t = GGMLType.F32
         w.add_tensor(name, numpy_ref.quantize(x, t), (out_d, in_d), t)
 
     def norm(name: str, d: int):
@@ -156,39 +170,71 @@ def make_gguf(
 
 
 def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu") -> Gemma:
-    """Fabricate a q4_0 model directly in the port's layout on `device`.
+    """Fabricate a q4_0 or q4_k_m model directly in the port's layout on
+    `device`, from a seeded `torch.Generator` on the device.
 
-    Nibbles are uniform random bytes from a seeded `torch.Generator` on the
-    device. Each row's f16 scales are drawn around 1 / (4.6 sqrt(K)) (4.6 is
-    the standard deviation of a uniform nibble minus 8), so a projection
-    keeps its input's scale and activations stay finite through every
-    layer. Norm weights are 1. Throughput does not depend on the values."""
-    if fmt != "q4_0":
-        raise NotImplementedError(f"make_params fabricates q4_0 only, got {fmt!r}")
+    Payload bytes are uniform random. q4_0: each row's f16 scales are drawn
+    around 1 / (4.6 sqrt(K)) (4.6 is the standard deviation of a uniform
+    nibble minus 8). q4_k_m is the reference's recipe (q4_k matrices, q6_k
+    attn_v and the tied embedding/head, so q|k|v stay unfused): q4_k tables
+    hold random 6-bit sc and mn, with dmin = 7.5 d so a group's mean
+    offsets cancel on average; q6_k sub-scales are random int8. Each d is
+    drawn so a weight's standard deviation is about 1 / sqrt(K) (the
+    constants are the standard deviations of sc * q - 7.5 mn and sc * q),
+    so a projection keeps its input's scale and activations stay finite
+    through every layer. Norm weights are 1. Throughput does not depend on
+    the values."""
+    if fmt not in ("q4_0", "q4_k_m"):
+        raise NotImplementedError(f"make_params fabricates q4_0 and q4_k_m, got {fmt!r}")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def mat(rows: int, cols: int) -> QTensor:
-        qs = torch.randint(0, 256, (rows, cols // 2), generator=gen, device=device,
-                           dtype=torch.uint8)
-        base = 1.0 / (4.6 * math.sqrt(cols))
-        u = torch.rand(rows, cols // QGROUP, generator=gen, device=device)
-        return QTensor(qs, ((0.5 + u) * base).to(torch.float16))
+    def bytes_(*shape: int) -> torch.Tensor:
+        return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+
+    def around(base: float, *shape: int) -> torch.Tensor:
+        u = torch.rand(*shape, generator=gen, device=device)
+        return ((0.5 + u) * base).to(torch.float16)
+
+    def q4_0(rows: int, cols: int) -> QTensor:
+        return QTensor("q4_0", qs=bytes_(rows, cols // 2),
+                       scales=around(1.0 / (4.6 * math.sqrt(cols)), rows, cols // QGROUP))
+
+    def q4_k(rows: int, cols: int) -> QTensor:
+        # random table bytes are random 6-bit sc and mn: their 16 fields
+        # fill all 96 bits of the table
+        d = around(1.0 / (258.0 * math.sqrt(cols)), rows, cols // QK_K).float()
+        dm = torch.stack([d, 7.5 * d], dim=-1).to(torch.float16)
+        return QTensor("q4_k", qs=bytes_(rows, cols // 2), scales=bytes_(rows, cols // QK_K, 12),
+                       dm=dm)
+
+    def q6_k(rows: int, cols: int) -> QTensor:
+        return QTensor("q6_k", ql=bytes_(rows, cols // 2), qh=bytes_(rows, cols // 4),
+                       sc=bytes_(rows, cols // 16).view(torch.int8),
+                       d=around(1.0 / (1366.0 * math.sqrt(cols)), rows, cols // QK_K))
 
     def norm(d: int) -> torch.Tensor:
         return torch.ones(d, dtype=torch.float32, device=device)
 
-    layers = [
-        {
-            "attn_qkv": mat(cfg.q_dim + 2 * cfg.kv_dim, cfg.d_model),
-            "attn_output": mat(cfg.d_model, cfg.q_dim),
-            "ffn_gate_up": mat(2 * cfg.d_ff, cfg.d_model),
-            "ffn_down": mat(cfg.d_model, cfg.d_ff),
-            "attn_norm": norm(cfg.d_model),
-            "ffn_norm": norm(cfg.d_model),
+    def layer() -> dict:
+        lp = {"attn_norm": norm(cfg.d_model), "ffn_norm": norm(cfg.d_model)}
+        if fmt == "q4_0":
+            return lp | {
+                "attn_qkv": q4_0(cfg.q_dim + 2 * cfg.kv_dim, cfg.d_model),
+                "attn_output": q4_0(cfg.d_model, cfg.q_dim),
+                "ffn_gate_up": q4_0(2 * cfg.d_ff, cfg.d_model),
+                "ffn_down": q4_0(cfg.d_model, cfg.d_ff),
+            }
+        return lp | {
+            "attn_q": q4_k(cfg.q_dim, cfg.d_model),
+            "attn_k": q4_k(cfg.kv_dim, cfg.d_model),
+            "attn_v": q6_k(cfg.kv_dim, cfg.d_model),
+            "attn_output": q4_k(cfg.d_model, cfg.q_dim),
+            "ffn_gate_up": q4_k(2 * cfg.d_ff, cfg.d_model),
+            "ffn_down": q4_k(cfg.d_model, cfg.d_ff),
         }
-        for _ in range(cfg.n_layers)
-    ]
-    return Gemma(cfg, embed=mat(cfg.vocab_size, cfg.d_model), final_norm=norm(cfg.d_model),
-                 layers=layers)
+
+    layers = [layer() for _ in range(cfg.n_layers)]
+    embed = (q4_0 if fmt == "q4_0" else q6_k)(cfg.vocab_size, cfg.d_model)
+    return Gemma(cfg, embed=embed, final_norm=norm(cfg.d_model), layers=layers)

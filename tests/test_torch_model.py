@@ -14,6 +14,20 @@ Tolerances, relative to the largest |logit|:
 * bf16 activations: 5e-2 — the same bf16 rounding points on inputs that
   differ in their last bits (measured <= 2.2 %); prefill top-1 must agree.
 Greedy streams must be identical in f32.
+
+The q4_k_m slice runs the same three configs widened to d_model 256,
+head_dim 64 and d_ff 512, so every K is a whole number of 256-superblocks.
+Its GGUF is the reference's mixed recipe (q4_k, with q6_k attn_v and
+embedding), written by the port's `make_gguf` and checked tensor for tensor
+against `python -m gemma_tpu quantize --type q4_k_m` of the same seed's F32
+file. Both port loads carry ggml's exact weights, so they get one set of
+tolerances:
+* f32: 1e-5 of the largest |logit| — the JAX q4_k dequant folds
+  sc * (q - 8) + offs, ulps from ggml's (d*sc) * q - dmin*mn, and sums run
+  in another order (measured <= 1e-6); greedy streams identical;
+* bf16: 5e-2 — the reference's XLA path rounds each whole dequantized
+  weight to bf16, the port keeps f32 weights at M <= 8 and the q4_k affine
+  part in f32 above (measured <= 1.5e-2); prefill top-1 must agree.
 """
 import dataclasses
 
@@ -24,15 +38,22 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from gemma_tpu import cli as jax_cli
 from gemma_tpu.gguf import GGMLType, GGUFReader
 from gemma_tpu.models.params import load_params as jax_load_params
 from gemma_tpu.runtime import Engine as JaxEngine
 from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
 from gemma_tpu.testing import TINY_CONFIG, TINY_GEMMA2_CONFIG, TINY_GEMMA3_CONFIG, make_gguf
 from gemma_tpu_torch.models import from_jax_params, load_params
+from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache
+from gemma_tpu_torch.testing import TINY_CONFIG as PORT_TINY_CONFIG
+from gemma_tpu_torch.testing import make_gguf as port_make_gguf
+from gemma_tpu_torch.testing import make_params
 
 ARCHS = {"gemma": TINY_CONFIG, "gemma2": TINY_GEMMA2_CONFIG, "gemma3": TINY_GEMMA3_CONFIG}
+# every K a multiple of 256 (the q4_k / q6_k superblock)
+KQUANT_WIDTHS = dict(d_model=256, head_dim=64, d_ff=512)
 PROMPT = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13]
 
 
@@ -56,6 +77,30 @@ def models(tmp_path_factory):
             tcfg, from_gguf = load_params(reader)
             from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
             cache[arch] = (jcfg, jparams, tcfg, from_jax, from_gguf)
+        return cache[arch]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def q4_k_m_models(tmp_path_factory):
+    """(port GGUF path, reference-quantized path, models) per arch."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            d = tmp_path_factory.mktemp(f"{arch}_q4_k_m")
+            cfg = dataclasses.replace(ARCHS[arch], **KQUANT_WIDTHS)
+            path = port_make_gguf(d / "m.gguf", cfg, weight_type="q4_k_m", seed=7, arch=arch)
+            f32 = make_gguf(d / "f32.gguf", cfg, weight_type=GGMLType.F32, seed=7, arch=arch)
+            args = jax_cli.build_parser().parse_args(
+                ["quantize", str(f32), str(d / "ref.gguf"), "--type", "q4_k_m"])
+            assert args.fn(args) == 0
+            reader = GGUFReader(path)
+            jcfg, jparams = jax_load_params(reader)
+            tcfg, from_gguf = load_params(reader)
+            from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+            cache[arch] = (path, d / "ref.gguf", (jcfg, jparams, tcfg, from_jax, from_gguf))
         return cache[arch]
 
     return get
@@ -165,3 +210,70 @@ def test_unported_engine_options_raise():
             EngineConfig(**flag)
     with pytest.raises(NotImplementedError, match="int8"):
         KVCache.create(TINY_CONFIG, 1, 8, quantized=True)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_q4_k_m_gguf_matches_reference_quantize(q4_k_m_models, arch):
+    path, ref_path, _ = q4_k_m_models(arch)
+    ours, ref = GGUFReader(path), GGUFReader(ref_path)
+    assert set(ours.tensors) == set(ref.tensors)
+    for ti in ours:
+        assert ti.ggml_type == ref.tensors[ti.name].ggml_type, ti.name
+        assert bytes(ours.tensor_raw(ti.name)) == bytes(ref.tensor_raw(ti.name)), ti.name
+    types = {ti.name: ti.ggml_type for ti in ours}
+    assert types["token_embd.weight"] == types["blk.0.attn_v.weight"] == GGMLType.Q6_K
+    assert types["blk.0.attn_q.weight"] == types["blk.0.ffn_down.weight"] == GGMLType.Q4_K
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_q4_k_m_layout_matches_reference(q4_k_m_models, arch):
+    """q|k|v stay unfused (attn_v is q6_k) and gate|up fuse, as in the
+    reference; the embedding is q6_k with its vocab padding undone."""
+    _, _, (jcfg, jparams, _, from_jax, from_gguf) = q4_k_m_models(arch)
+    jl = jparams["layers"][0]
+    assert "attn_qkv" not in jl and "ffn_gate_up" in jl and jl["attn_v"].fmt == "q6_k"
+    for model in (from_jax, from_gguf):
+        layer = model.layers[0]
+        assert not layer.has("attn_qkv") and layer.has("ffn_gate_up")
+        fmts = {n: getattr(layer, n).fmt for n in ("attn_q", "attn_k", "attn_v", "attn_output",
+                                                   "ffn_gate_up", "ffn_down")}
+        assert fmts == {"attn_q": "q4_k", "attn_k": "q4_k", "attn_v": "q6_k",
+                        "attn_output": "q4_k", "ffn_gate_up": "q4_k", "ffn_down": "q4_k"}
+        assert model.embed.fmt == "q6_k" and model.embed.shape == (jcfg.vocab_size, jcfg.d_model)
+    for name, buf in from_jax.named_buffers():
+        torch.testing.assert_close(buf, dict(from_gguf.named_buffers())[name], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_q4_k_m_f32_prefill_logits_and_greedy_stream(q4_k_m_models, arch):
+    je, te, ge = _engines(lambda a: q4_k_m_models(a)[2], arch, "float32")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    for eng in (te, ge):
+        assert _rel_err(eng.prefill([PROMPT])[0][0], ref) <= 1e-5
+    ref_toks = je.generate([PROMPT], 16)[0]
+    assert len(ref_toks) == 16
+    assert te.generate([PROMPT], 16)[0] == ref_toks
+    assert ge.generate([PROMPT], 16)[0] == ref_toks
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_q4_k_m_bf16_prefill_logits_and_top1(q4_k_m_models, arch):
+    je, te, ge = _engines(lambda a: q4_k_m_models(a)[2], arch, "bfloat16")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    for eng in (te, ge):
+        got = eng.prefill([PROMPT])[0][0]
+        assert _rel_err(got, ref) <= 5e-2
+        assert int(got.argmax()) == int(ref.argmax())
+
+
+def test_make_params_q4_k_m_recipe():
+    """The fabricated q4_k_m model has the recipe's formats and stays finite."""
+    cfg = dataclasses.replace(PORT_TINY_CONFIG, **KQUANT_WIDTHS)
+    model = make_params(cfg, "q4_k_m", seed=0)
+    layer = model.layers[0]
+    assert isinstance(model.embed, QTensor) and model.embed.fmt == "q6_k"
+    assert layer.attn_v.fmt == "q6_k" and layer.ffn_gate_up.fmt == "q4_k"
+    assert not layer.has("attn_qkv")
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=32))
+    logits, _ = eng.prefill([PROMPT])
+    assert bool(torch.isfinite(logits).all()) and float(logits.std()) > 0

@@ -65,9 +65,10 @@ def test_sources_have_no_jax_sdpa_or_compile():
 
 
 def test_kernel_sources_note_what_they_replace():
-    notes = {"q4_0_matmul.cu": "_q4_0_kernel", "decode_attention.cu": "_decode_kernel",
-             "flash_attention.cu": "_flash_kernel"}
-    for name, tpu_kernel in notes.items():
+    notes = [("q4_0_matmul.cu", "_q4_0_kernel"), ("decode_attention.cu", "_decode_kernel"),
+             ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
+             ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel")]
+    for name, tpu_kernel in notes:
         text = (PKG / "csrc" / name).read_text()
         assert re.search(rf"Replaces .*`{tpu_kernel}`", text, re.S), name
         assert "What bounds it on the H100" in text or "bound by" in text, name
@@ -90,7 +91,9 @@ def test_library_name_follows_the_sources():
     assert re.fullmatch(r"libgemma_tpu_kernels_[0-9a-f]{16}\.so", name)
     assert build.library_path() == build.library_path()
     assert {p.name for p in build.sources()} >= {"q4_0_matmul.cu", "decode_attention.cu",
-                                                 "flash_attention.cu", "common.cuh"}
+                                                 "flash_attention.cu", "q4_k_matmul.cu",
+                                                 "q6_k_matmul.cu", "common.cuh"}
+    assert {"gt_q4_k_matmul", "gt_q6_k_matmul"} <= set(build.SIGNATURES)
 
 
 def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):
@@ -123,3 +126,14 @@ def test_chip_smoke_fails_without_gpu_or_repo(alone, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_make_gguf_takes_type_names(tmp_path):
+    """`make_gguf(weight_type="q4_0")` (chip_smoke's tiny checks) writes the
+    same file as the GGMLType."""
+    from gemma_tpu.gguf import GGMLType
+    from gemma_tpu_torch.testing import TINY_CONFIG, make_gguf
+
+    by_name = make_gguf(tmp_path / "a.gguf", TINY_CONFIG, weight_type="q4_0")
+    by_type = make_gguf(tmp_path / "b.gguf", TINY_CONFIG, weight_type=GGMLType.Q4_0)
+    assert by_name.read_bytes() == by_type.read_bytes()
