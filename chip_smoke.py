@@ -7,12 +7,13 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 1. the card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   Gemma-2B shapes of the q4_0 and q4_k_m paths, with max|diff| against the
-   stated tolerance and the device times of kernel and plain version
+   Gemma-2B shapes of the q4_0 and q4_k_m paths and of 8-slot serving (the
+   paged kernel and both int8 arms), with max|diff| against the stated
+   tolerance and the device times of kernel and plain version
    (torch.profiler), then correctness-only edge cases;
 4. the main path at full Gemma-2B width, once with q4_0 weights (4) and
    once with the q4_k_m recipe (4b), random weights from a seed:
-   `Engine.prefill` of a 203-token prompt then `Engine.generate_from` for 64
+   `Engine.prefill` of a 203-token prompt then `Engine.generate_from` for 32
    greedy tokens (what `Engine.generate` and the CLI run), with finite
    logits, tokens in range, and the kernels' launch counters, set to 0 just
    before each run, equal to what the layer structure implies; then
@@ -20,7 +21,13 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
    tiny q4_0 GGUF and a tiny q4_k_m GGUF, its printed text equal to the
    in-process run's, and each tiny model on the card held against the same
-   model on the CPU (plain path).
+   model on the CPU (plain path); then `python -m gemma_tpu_torch serve
+   --device cuda --paged --kv-quant` against the in-process `serve`, and
+   serving on the card against the CPU in f32 over paged and paged int8
+   caches;
+6. continuous-batching serving at full Gemma-2B width (q4_0, 8 slots, 24
+   requests of 96 tokens) over four caches: dense, dense int8, paged, and
+   paged int8 with overlapped chunked admission, with exact launch counts.
 
 The last two lines of standard output are a JSON line of the kernels and
 the contract line `{"ok": true, "device": {...}}`. With no CUDA device, or
@@ -39,7 +46,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PROMPT_LEN = 203  # about 200 tokens, not a power of two
-NEW_TOKENS = 64
+NEW_TOKENS = 32  # greedy tokens of the phase 4 generation runs
 MAX_SEQ_LEN = 512
 
 # TPU kernels replaced by each port kernel
@@ -55,7 +62,19 @@ KERNELS = {
                         "gemma_tpu/ops/attention.py:94 _flash_kernel"),
     "decode_attention": ("gemma_tpu_torch/csrc/decode_attention.cu",
                          "gemma_tpu/ops/attention.py:273 _decode_kernel"),
+    "decode_attention_int8": ("gemma_tpu_torch/csrc/decode_attention.cu",
+                              "gemma_tpu/ops/attention.py:273 _decode_kernel (int8 arm)"),
+    "paged_attention": ("gemma_tpu_torch/csrc/paged_attention.cu",
+                        "gemma_tpu/ops/paged_attention.py:47 _paged_kernel"),
+    "paged_attention_int8": ("gemma_tpu_torch/csrc/paged_attention.cu",
+                             "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages)"),
 }
+SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
+SERVE_REQUESTS = 24
+SERVE_NEW_TOKENS = 96
+SERVE_SLOTS = 8
+SERVE_BLOCK = 8
+PAGE = 64
 
 
 class SmokeFailure(Exception):
@@ -318,25 +337,152 @@ def check_edge_cases(torch, dev) -> None:
                    + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
 
-def reset_counters() -> None:
+def _counters():
+    """(name, wrapper, attribute) of every launch counter."""
     import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
     import gemma_tpu_torch.ops.quant_matmul as qmm
 
-    for op in qmm.MATMULS.values():
-        op.launches = 0
-    att.flash_attention.launches = 0
-    att.decode_attention.launches = 0
+    return [*((f"{fmt}_matmul", op, "launches") for fmt, op in qmm.MATMULS.items()),
+            ("flash_attention", att.flash_attention, "launches"),
+            ("decode_attention", att.decode_attention, "launches"),
+            ("decode_attention_int8", att.decode_attention, "int8_launches"),
+            ("paged_attention", pat.paged_decode_attention, "launches"),
+            ("paged_attention_int8", pat.paged_decode_attention, "int8_launches")]
+
+
+def paged_case(torch, gen, dev, B, Hq, Hkv, D, ps, limits, n_pages, dtype, quantized, seed):
+    """(q, a one-layer PagedKVCache, kv_limit): random pages, each row's live
+    prefix on distinct shuffled physical pages, the rest of each table row
+    on the trash page 0 (which holds random values too)."""
+    import numpy as np
+
+    from gemma_tpu_torch.runtime import PagedKVCache
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    maxp = MAX_SEQ_LEN // ps
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    pt = np.zeros((B, maxp), np.int32)
+    live = [-(-lim // ps) for lim in limits]
+    pt[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
+    kp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
+    vp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
+    ks = vs = None
+    if quantized:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+    cache = PagedKVCache([kp], [vp], torch.from_numpy(pt).to(dev), lim.clone(),
+                         None if ks is None else [ks], None if vs is None else [vs])
+    q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(dtype if not quantized
+                                                                       else torch.bfloat16)
+    return q, cache, lim
+
+
+SERVE_LIMITS = [1, 64, 65, PROMPT_LEN, 300, MAX_SEQ_LEN, PROMPT_LEN, 64]  # B = 8 rows
+
+
+def check_serving_kernels(torch, dev) -> dict[str, dict]:
+    """Phase 3, the serving kernels at the serving shapes (8 rows, Gemma-2B
+    heads, limits SERVE_LIMITS): paged attention over a 65-page pool of
+    64-token pages, bf16 and int8 pages, and the int8 arm of decode
+    attention at S = 512. Tolerance 2e-2 as for bf16 decode: p (int8:
+    p * vs) rounds to bf16 against a page- or split-local max in the
+    kernels, the row max in the plain versions."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    tol = 2e-2
+    B, Hq, Hkv, D = SERVE_SLOTS, 8, 1, 256
+    results = {}
+
+    def held(name, desc, kernel, plain):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = device_ms(torch, kernel)
+        per_call = call_ms(torch, kernel)
+        plain_ms = device_ms(torch, plain)
+        info("kernel", f"{name} {desc}: max|diff|={err:.3e} tol={tol:.1e}; device ms: kernel "
+                       f"{ms:.4f} plain {plain_ms:.4f}; kernel per back-to-back call {per_call:.4f} ms")
+        require(bool(torch.isfinite(got).all()) and err <= tol, f"{name}: max|diff| {err} > tol {tol}")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} {desc}"}
+
+    for quantized in (False, True):
+        q, cache, lim = paged_case(torch, gen, dev, B, Hq, Hkv, D, PAGE, SERVE_LIMITS, 65,
+                                   torch.bfloat16, quantized, seed=3)
+        held("paged_attention_int8" if quantized else "paged_attention",
+             f"ps={PAGE} pool=65 limits={SERVE_LIMITS}",
+             lambda: pat.paged_decode_attention(q, cache, 0, lim),
+             lambda: pat.paged_decode_attention_plain(q, cache, 0, lim))
+    q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    k, v = ((torch.randn(B, Hkv, MAX_SEQ_LEN, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+            for _ in range(2))
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    lim = torch.tensor(SERVE_LIMITS, dtype=torch.int32, device=dev)
+    held("decode_attention_int8", f"S={MAX_SEQ_LEN} limits={SERVE_LIMITS}",
+         lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs),
+         lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs))
+    return results
+
+
+def check_serving_edge_cases(torch, dev) -> None:
+    """Phase 3, correctness only: the paged kernel and the int8 decode arm
+    off the serving shapes. f32 queries over f32 pages round nothing:
+    tolerance 1e-4. Every int8 case keeps the bf16 rounding of p * vs
+    (against a local max in the kernel, the row max in the plain version),
+    and bf16 queries round p: tolerance 2e-2."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = {}
+    cases = [  # name, Hq, Hkv, D, ps, dtype, cap, window
+        ("f32", 8, 1, 256, 64, torch.float32, 0.0, 0),
+        ("GQA D=128", 8, 2, 128, 64, torch.bfloat16, 0.0, 0),
+        ("softcap+window", 8, 1, 256, 64, torch.bfloat16, 50.0, 128),
+        ("ps=16", 8, 1, 256, 16, torch.bfloat16, 0.0, 0),
+        ("ps=256", 8, 1, 256, 256, torch.bfloat16, 30.0, 100),
+    ]
+    limits = [1, 16, 17, 255, 256, 257, 400, MAX_SEQ_LEN]
+    for name, Hq, Hkv, D, ps, dtype, cap, window in cases:
+        for quantized in (False, True):
+            q, cache, lim = paged_case(torch, gen, dev, len(limits), Hq, Hkv, D, ps, limits,
+                                       len(limits) * MAX_SEQ_LEN // ps + 1, dtype, quantized, seed=5)
+            if quantized:
+                q = q.to(dtype)  # f32 queries over int8 pages too
+            tol = 1e-4 if dtype == torch.float32 and not quantized else 2e-2
+            got = pat.paged_decode_attention(q, cache, 0, lim, cap, window)
+            ref = pat.paged_decode_attention_plain(q, cache, 0, lim, cap, window)
+            err = (got.float() - ref.float()).abs().max().item()
+            arm = f"paged{' int8' if quantized else ''}"
+            require(err <= tol, f"{arm} {name}: max|diff| {err} > tol {tol}")
+            worst[arm] = max(worst.get(arm, 0.0), err / tol)
+            if quantized:  # the int8 decode arm on the same rows, densely
+                k, v, ks, vs = cache.layer_kv(0)
+                got = att.decode_attention(q, k.contiguous(), v.contiguous(), lim, cap, window,
+                                           ks.contiguous(), vs.contiguous())
+                ref = att.decode_attention_plain(q, k, v, lim, cap, window, ks, vs)
+                err = (got.float() - ref.float()).abs().max().item()
+                require(err <= tol, f"decode int8 {name}: max|diff| {err} > tol {tol}")
+                worst["decode int8"] = max(worst.get("decode int8", 0.0), err / tol)
+    torch.cuda.synchronize()
+    info("kernel", "serving edge cases (f32, GQA D=128, softcap+window, ps 16 and 256, limits "
+                   f"{limits}) within tolerance; worst max|diff| / tol: "
+                   + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+
+
+def reset_counters() -> None:
+    for _, op, attr in _counters():
+        setattr(op, attr, 0)
 
 
 def read_counters() -> dict[str, int]:
-    import gemma_tpu_torch.ops.attention as att
-    import gemma_tpu_torch.ops.quant_matmul as qmm
-
-    return {
-        **{f"{fmt}_matmul": op.launches for fmt, op in qmm.MATMULS.items()},
-        "flash_attention": att.flash_attention.launches,
-        "decode_attention": att.decode_attention.launches,
-    }
+    return {name: getattr(op, attr) for name, op, attr in _counters()}
 
 
 def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
@@ -377,19 +523,27 @@ def host_profile(torch, eng, cache, last_tok: int, steps: int = 4) -> str:
 
 
 def expected_launches(cfg, fmt: str) -> dict[str, int]:
-    """Kernel launches of one prefill and NEW_TOKENS decode steps (65
-    forwards) as the layer structure implies."""
-    forwards = 1 + NEW_TOKENS
+    """Kernel launches of one prefill and NEW_TOKENS decode steps as the
+    layer structure implies."""
+    return expected_forward_launches(cfg, fmt, prefills=1, decode_steps=NEW_TOKENS,
+                                     decode_kernel="decode_attention")
+
+
+def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
+                              decode_kernel: str) -> dict[str, int]:
+    """Kernel launches of `prefills` prefill forwards (chunks counted one by
+    one) and `decode_steps` decode forwards whose attention is
+    `decode_kernel` (a counter name of `_counters`)."""
+    forwards = prefills + decode_steps
     if fmt == "q4_0":  # fused q|k|v, out, fused gate|up, down; tied head
         per_forward = {"q4_0_matmul": 4 * cfg.n_layers + 1}
     else:  # q4_k: q, k, out, fused gate|up, down; q6_k: attn_v, tied head
         per_forward = {"q4_k_matmul": 5 * cfg.n_layers, "q6_k_matmul": cfg.n_layers + 1}
-    return {
-        **{name: per_forward.get(name, 0) * forwards
-           for name in ("q4_0_matmul", "q4_k_matmul", "q6_k_matmul")},
-        "flash_attention": cfg.n_layers,
-        "decode_attention": cfg.n_layers * NEW_TOKENS,
-    }
+    counts = {name: 0 for name, _, _ in _counters()}
+    counts.update({name: n * forwards for name, n in per_forward.items()})
+    counts["flash_attention"] = cfg.n_layers * prefills
+    counts[decode_kernel] = cfg.n_layers * decode_steps
+    return counts
 
 
 def main_path(torch, dev, card: str, fmt: str) -> dict[str, int]:
@@ -441,6 +595,170 @@ def main_path(torch, dev, card: str, fmt: str) -> dict[str, int]:
     del eng, model, cache
     torch.cuda.empty_cache()
     return counts
+
+
+def serve_requests(cfg):
+    """Phase 6's requests: prompt lengths cycling SERVE_PROMPT_LENS, token
+    ids from a fixed recipe, SERVE_NEW_TOKENS greedy tokens each, no EOS."""
+    from gemma_tpu_torch.runtime import Request
+
+    return [Request(f"r{r}", [2 + (r * 104729 + i * 7919) % (cfg.vocab_size - 2)
+                              for i in range(SERVE_PROMPT_LENS[r % len(SERVE_PROMPT_LENS)])],
+                    max_new_tokens=SERVE_NEW_TOKENS)
+            for r in range(SERVE_REQUESTS)]
+
+
+# phase 6's caches: (name, EngineConfig options, decode attention counter)
+SERVE_RUNS = (
+    ("dense bf16", {}, "decode_attention"),
+    ("dense int8", {"kv_quantized": True}, "decode_attention_int8"),
+    ("paged bf16", {"paged": True, "page_size": PAGE}, "paged_attention"),
+    # prompts of 100 and 203 tokens prefill in 64-token chunks; the 203-token
+    # ones (> 2 chunks) admit overlapped, one chunk per decode block
+    ("paged int8", {"paged": True, "page_size": PAGE, "kv_quantized": True, "prefill_chunk": PAGE},
+     "paged_attention_int8"),
+)
+
+
+def serving(torch, dev, card: str) -> dict[str, dict[str, int]]:
+    """Phase 6: `serve` at full Gemma-2B width, q4_0 from make_params(seed=0),
+    SERVE_SLOTS slots, max_seq_len 512, blocks of SERVE_BLOCK, greedy, over
+    the four caches of SERVE_RUNS. Returns each run's launch counts."""
+    from gemma_tpu_torch.models import GEMMA_2B
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+    from gemma_tpu_torch.testing import make_params
+
+    cfg = GEMMA_2B
+    model = make_params(cfg, "q4_0", seed=0, device=dev)
+    streams, counts_by_run = {}, {}
+    for name, options, decode_kernel in SERVE_RUNS:
+        phase = f"serve {name}"
+        eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS,
+                                              **options))
+        if not streams:  # first launches and allocations of the serving path
+            warm = serve_requests(cfg)[:4]
+            serve(eng, [Request(r.id, r.prompt, 8) for r in warm], block=SERVE_BLOCK)
+            torch.cuda.synchronize()
+        reqs = serve_requests(cfg)
+        reset_counters()
+        t0 = time.perf_counter()
+        sched = serve(eng, reqs, block=SERVE_BLOCK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        st = sched.stats()
+        require(len(sched.finished) == SERVE_REQUESTS and all(
+            len(r.tokens) == SERVE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in sched.finished), f"{phase}: not every request finished with "
+                                      f"{SERVE_NEW_TOKENS} in-range tokens")
+        require(bool(torch.isfinite(sched._logits).all()), f"{phase}: logits are not finite")
+        chunk = options.get("prefill_chunk", 0)
+        prefills = sum(-(-len(r.prompt) // chunk) if chunk and len(r.prompt) > chunk else 1
+                       for r in reqs)
+        expected = expected_forward_launches(cfg, "q4_0", prefills, st["decode_steps"],
+                                             decode_kernel)
+        info(phase, f"Gemma-2B q4_0, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x "
+                    f"{SERVE_NEW_TOKENS} tokens, prompts {SERVE_PROMPT_LENS}, block {SERVE_BLOCK} "
+                    f"on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate (tokens / wall), "
+                    f"TTFT p50 {st['p50_ttft_s'] * 1e3:.1f} ms p99 {st['p99_ttft_s'] * 1e3:.1f} ms, "
+                    f"wall {wall:.3f} s, decode steps {st['decode_steps']}, tokens discarded "
+                    f"{st['tokens_discarded']}, admission forwards {prefills}; launches {counts}")
+        require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+        streams[name] = {r.id: r.tokens for r in sched.finished}
+        counts_by_run[name] = counts
+        del eng, sched
+        torch.cuda.empty_cache()
+    dense = streams["dense bf16"]
+    # every run prefills each prompt into the same flash kernel: int8 caches
+    # quantize the prompt's K/V, and on these weights no first token moved
+    firsts = {name: sum(s[i][0] == dense[i][0] for i in dense) / len(dense)
+              for name, s in streams.items()}
+    same = sum(streams["paged bf16"][i] == dense[i] for i in dense) / len(dense)
+    info("serve", f"share of first tokens equal to the dense bf16 run's: {firsts}; share of "
+                  f"paged bf16 streams equal to the dense bf16 streams: {same:.3f}")
+    require(all(v == 1.0 for v in firsts.values()), f"serve: first tokens differ across runs {firsts}")
+    serving_profile(torch, cfg, model, card)
+    del model
+    torch.cuda.empty_cache()
+    return counts_by_run
+
+
+def serving_profile(torch, cfg, model, card: str) -> None:
+    """The first wave of the dense bf16 serving run (one request per slot)
+    once more under torch.profiler (device activity only): device busy
+    time against the run's wall time, and the largest kernels. Profiling
+    slows the host, so this run's tok/s is not the one reported above."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, serve
+
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS))
+    reqs = serve_requests(cfg)[:SERVE_SLOTS]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched = serve(eng, reqs, block=SERVE_BLOCK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.key)
+                         for e in prof.key_averages()), reverse=True)
+    busy = sum(ms for ms, _ in per_kernel) / 1e3
+    require(busy > 0, "the profiled serving run recorded no device time")
+    steps = sched.stats()["decode_steps"]
+    info("serve dense bf16 profiled", f"{len(reqs)} requests on {card}: wall {wall:.3f} s, "
+                                      f"device busy {busy:.3f} s, "
+                                      f"idle share {1 - busy / wall:.3f}; {steps} decode steps; "
+                                      "device s by kernel: " + "; ".join(
+                                          f"{name[:48]} {ms / 1e3:.3f}" for ms, name in per_kernel[:6]))
+
+
+def tiny_serving_checks(torch, dev) -> None:
+    """Phase 5, serving: the CLI `serve --device cuda --paged --kv-quant` in a
+    subprocess against the in-process `serve`, then serving on the card
+    against the CPU in f32 (caches in f32, and int8) on paged caches."""
+    from gemma_tpu_torch import cli
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+    from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
+
+    texts = ["hello world", "the hello", "world of the worlds and hello", "a", "hello " * 40]
+    flags = ["--batch", "4", "--paged", "--kv-quant", "--page-size", "64", "--prefill-chunk",
+             "64", "--max-seq-len", "256", "--max-new-tokens", "12", "--block", "4", "--no-eos"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0)
+        (Path(tmp) / "p.txt").write_text("\n".join(texts) + "\n")
+        before = read_counters()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gemma_tpu_torch", "serve", str(path), "--device", "cuda",
+             "--prompts-file", str(Path(tmp) / "p.txt"), *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        require(proc.returncode == 0, f"CLI serve failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cli_texts = [json.loads(line)["text"] for line in proc.stdout.strip().splitlines()]
+        cfg, model_gpu, tok = cli.load(path, dev)
+        ecfg = dict(max_seq_len=256, max_batch=4, paged=True, page_size=64, kv_quantized=True,
+                    prefill_chunk=64)
+        sched = serve(Engine(cfg, model_gpu, EngineConfig(**ecfg)),
+                      [Request(f"r{i}", tok.encode(t), 12) for i, t in enumerate(texts)], block=4)
+        ours = [tok.decode(r.tokens) for r in sorted(sched.finished, key=lambda r: int(r.id[1:]))]
+        require(cli_texts == ours, f"CLI serve printed {cli_texts}, in-process serve {ours}")
+        after = read_counters()
+        require(after["paged_attention_int8"] > before["paged_attention_int8"],
+                "tiny serve did not launch the int8 paged kernel")
+
+        _, model_cpu, _ = cli.load(path, "cpu")
+        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+        prompts = [tok.encode(t) for t in texts]
+        results = {}
+        for name, quant in (("paged f32", False), ("paged int8", True)):
+            ecfg32 = EngineConfig(max_seq_len=256, max_batch=4, kv_dtype=torch.float32,
+                                  paged=True, page_size=64, kv_quantized=quant, prefill_chunk=64)
+            runs = [serve(Engine(cfg32, m, ecfg32),
+                          [Request(f"r{i}", p, 16) for i, p in enumerate(prompts)], block=4)
+                    for m in (model_gpu, model_cpu)]
+            gpu, cpu = ({r.id: r.tokens for r in s.finished} for s in runs)
+            results[name] = gpu == cpu
+            require(gpu == cpu, f"tiny f32 serving, {name}: card streams {gpu} != CPU {cpu}")
+    info("tiny", f"serve: CLI on cuda (paged int8, chunk 64) prints the in-process serve's texts; "
+                 f"f32 serving card vs CPU, greedy streams equal: {results}")
 
 
 def tiny_checks(torch, dev, weight_type: str) -> None:
@@ -523,13 +841,27 @@ def run() -> dict:
                    if built is not None else "kernel library already built")
          + f" ({time.perf_counter() - t0:.1f} s to load): {build.library_path().name}")
 
+    def done(phase: str) -> None:
+        info("time", f"{phase} done at {time.perf_counter() - t0:.1f} s")
+
     results = check_kernels(torch, dev)
+    results.update(check_serving_kernels(torch, dev))
     check_edge_cases(torch, dev)
+    check_serving_edge_cases(torch, dev)
+    done("kernels (phase 3)")
     counts_q4_0 = main_path(torch, dev, card, "q4_0")
-    counts = main_path(torch, dev, card, "q4_k_m")  # this slice's path: reported below
+    counts = main_path(torch, dev, card, "q4_k_m")
     counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"]
+    done("generation (phase 4)")
     for weight_type in ("q4_0", "q4_k_m"):
         tiny_checks(torch, dev, weight_type)
+    tiny_serving_checks(torch, dev)
+    done("tiny checks (phase 5)")
+    served = serving(torch, dev, card)  # this slice's path: its new kernels' counts below
+    done("serving (phase 6)")
+    for name, run in (("decode_attention_int8", "dense int8"), ("paged_attention", "paged bf16"),
+                      ("paged_attention_int8", "paged int8")):
+        counts[name] = served[run][name]
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [

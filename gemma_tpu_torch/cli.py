@@ -2,12 +2,15 @@
 
     python -m gemma_tpu_torch generate model.gguf --prompt "..." [--stream]
     python -m gemma_tpu_torch generate model.gguf --tokens 1,7,300 --device cpu
+    python -m gemma_tpu_torch serve    model.gguf --prompts-file p.txt [--paged] [--kv-quant]
     python -m gemma_tpu_torch inspect  model.gguf [--json]
 
-Counterpart of the `generate` and `inspect` subcommands of `gemma_tpu/cli.py`,
-with the shared tokenizer. `--device` defaults to `cuda`; without a GPU the
-command fails rather than running on the CPU. `--device cpu` is the explicit
-way to run the plain PyTorch path.
+Counterpart of the `generate`, `serve` and `inspect` subcommands of
+`gemma_tpu/cli.py`, with the shared tokenizer. `serve` reads one prompt per
+line and prints one JSON line per request on stdout and the scheduler's
+stats on stderr, as the reference does. `--device` defaults to `cuda`;
+without a GPU the command fails rather than running on the CPU. `--device
+cpu` is the explicit way to run the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -48,8 +51,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _engine_config(args, max_batch: int):
+    from .runtime import EngineConfig
+
+    return EngineConfig(
+        max_seq_len=args.max_seq_len, max_batch=max_batch, kv_quantized=args.kv_quant,
+        paged=args.paged, page_size=args.page_size,
+        prefill_chunk=getattr(args, "prefill_chunk", 0),
+    )
+
+
 def cmd_generate(args) -> int:
-    from .runtime import Engine, EngineConfig, SamplingParams
+    from .runtime import Engine, SamplingParams
 
     device = _device(args.device)
     t0 = time.perf_counter()
@@ -70,7 +83,7 @@ def cmd_generate(args) -> int:
               f"--max-seq-len {args.max_seq_len}", file=sys.stderr)
         return 2
 
-    eng = Engine(cfg, params, EngineConfig(max_seq_len=args.max_seq_len, max_batch=1))
+    eng = Engine(cfg, params, _engine_config(args, max_batch=1))
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
     eos = tok.special.eos if args.eos else None
     budget = min(args.max_new_tokens, args.max_seq_len - len(prompt))
@@ -102,6 +115,37 @@ def cmd_generate(args) -> int:
         f"device {eng.device}]",
         file=sys.stderr,
     )
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Offline-batch serving: prompts (one per line) through the
+    continuous-batching scheduler; completions and stats as the reference
+    prints them."""
+    from .runtime import Engine, Request, SamplingParams, serve
+
+    device = _device(args.device)
+    cfg, params, tok = load(args.model, device)
+    eng = Engine(cfg, params, _engine_config(args, max_batch=args.batch))
+    if args.prompts_file:
+        with open(args.prompts_file, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    else:
+        lines = sys.stdin.read().splitlines()
+    lines = [ln for ln in lines if ln.strip()]
+    eos = tok.special.eos if args.eos else None
+    reqs = [Request(f"r{i}", tok.encode(ln), max_new_tokens=args.max_new_tokens, eos_id=eos)
+            for i, ln in enumerate(lines)]
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
+    t0 = time.monotonic()
+    sched = serve(eng, reqs, sampling=sampling, block=args.block, seed=args.seed)
+    wall = time.monotonic() - t0
+    for r in sorted(sched.finished, key=lambda r: int(r.id[1:])):
+        print(json.dumps({"id": r.id, "text": tok.decode(r.tokens), "tokens": len(r.tokens),
+                          "ttft_s": round(r.ttft, 4) if r.ttft else None}))
+    stats = sched.stats()
+    stats["wall_s"] = round(wall, 2)
+    print(json.dumps(stats), file=sys.stderr)
     return 0
 
 
@@ -146,6 +190,17 @@ def cmd_inspect(args) -> int:
     return 0
 
 
+def _add_engine_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model", help="path to a GGUF checkpoint")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain PyTorch path)")
+    p.add_argument("--max-seq-len", type=int, default=512, help="KV-cache capacity")
+    p.add_argument("--kv-quant", action="store_true", help="int8-quantize the KV cache")
+    p.add_argument("--paged", action="store_true", help="use the paged KV cache (page tables)")
+    p.add_argument("--page-size", type=int, default=None,
+                   help="paged KV page length (default 64)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gemma_tpu_torch",
@@ -154,10 +209,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
 
     g = sub.add_parser("generate", help="prefill + decode one prompt")
-    g.add_argument("model", help="path to a GGUF checkpoint")
-    g.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain PyTorch path)")
-    g.add_argument("--max-seq-len", type=int, default=512, help="KV-cache capacity")
+    _add_engine_flags(g)
     g.add_argument("--prompt", default="Hello", help="prompt text")
     g.add_argument("--tokens", default=None,
                    help="comma-separated prompt token ids (bypasses encode)")
@@ -172,6 +224,23 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-eos", dest="eos", action="store_false",
                    help="ignore EOS and generate max-new-tokens")
     g.set_defaults(fn=cmd_generate)
+
+    s = sub.add_parser("serve", help="batch-serve prompts (one per line) through the "
+                       "continuous-batching scheduler")
+    _add_engine_flags(s)
+    s.add_argument("--prompts-file", default=None,
+                   help="file of prompts, one per line (default: stdin)")
+    s.add_argument("--batch", type=int, default=8, help="decode slots (concurrent sequences)")
+    s.add_argument("--max-new-tokens", type=int, default=128)
+    s.add_argument("--block", type=int, default=8, help="decode steps per issued block")
+    s.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunk admission prefills to this many tokens")
+    s.add_argument("--temperature", type=float, default=0.0)
+    s.add_argument("--top-k", type=int, default=0)
+    s.add_argument("--top-p", type=float, default=1.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--no-eos", dest="eos", action="store_false")
+    s.set_defaults(fn=cmd_serve)
 
     i = sub.add_parser("inspect", help="dump GGUF metadata and tensor info")
     i.add_argument("model")

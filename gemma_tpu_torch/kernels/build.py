@@ -36,6 +36,7 @@ NVCC_FLAGS = (  # compile flags of each source; the link adds -shared
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_CODE = 2  # int8 K/V with f32 scales
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,9 +49,12 @@ SIGNATURES = {
     "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, ql, qh, sc, d, y, M, N, K, stream
     "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, kv_limit, out, part_m, part_l, part_o,
-    # B, Hq, Hkv, S, D, dtype, split, window, softcap, stream
-    "gt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, k_scale, v_scale, kv_limit, out, part_m, part_l, part_o,
+    # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
+    "gt_decode_attention": (_P,) * 10 + (_I,) * 9 + (_F, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, part_m, part_l, part_o,
+    # B, Hq, Hkv, page_size, max_pages, D, q_dtype, kv_dtype, window, softcap, stream
+    "gt_paged_attention": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, dtype, window, softcap, stream
     "gt_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }

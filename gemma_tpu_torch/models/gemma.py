@@ -16,7 +16,11 @@ Weights live in `nn.Module`s: `Gemma` holds the embedding, the final norm
 and a `ModuleList` of `DecoderLayer`s; a layer holds its matrices (a
 `QTensor` submodule or a dense bf16 buffer, under the GGUF short names:
 attn_qkv or attn_q/k/v, attn_output, ffn_gate_up or ffn_gate/ffn_up,
-ffn_down) and `RMSNorm`s. The KV cache is updated in place.
+ffn_down) and `RMSNorm`s. The KV cache, dense (`KVCache`) or paged
+(`PagedKVCache`), bf16/f32 or int8, is updated in place. Attention follows
+the reference's dispatch (`gemma.py:116-133`): a paged cache at T = 1 goes
+to the paged kernel; otherwise the layer's K/V as stored (through the page
+table when paged), int8 with their scales, go to `attention`.
 """
 from __future__ import annotations
 
@@ -28,8 +32,10 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.linear import linear
+from ..ops.paged_attention import paged_decode_attention
 from ..quant.qtensor import QTensor, gather_dequant
 from ..runtime.kv_cache import KVCache
+from ..runtime.paged_kv import PagedKVCache
 from .config import GemmaConfig
 
 
@@ -80,7 +86,8 @@ class DecoderLayer(nn.Module):
     def has(self, name: str) -> bool:
         return name in self._modules or name in self._buffers
 
-    def forward(self, cfg: GemmaConfig, x, positions, cache: KVCache, write_index, kv_limit):
+    def forward(self, cfg: GemmaConfig, x, positions, cache: KVCache | PagedKVCache, write_index,
+                kv_limit):
         return decoder_layer(self, cfg, x, positions, cache, self.layer_idx, write_index, kv_limit)
 
 
@@ -89,7 +96,7 @@ def decoder_layer(
     cfg: GemmaConfig,
     x: torch.Tensor,  # [B, T, d_model]
     positions: torch.Tensor,  # [B, T]
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     layer_idx: int,
     write_index,  # int chunk start (prefill) or [B] per-sequence slot (decode)
     kv_limit: torch.Tensor,  # [B] valid cache slots after this write
@@ -125,8 +132,13 @@ def decoder_layer(
             "(ROADMAP queue 1, item 7)"
         )
 
-    kc, vc = cache.gather_layer(layer_idx)
-    attn = attention(q, kc, vc, positions, kv_limit, cfg.attn_softcap, cfg.layer_window(layer_idx))
+    window = cfg.layer_window(layer_idx)
+    if isinstance(cache, PagedKVCache) and T == 1:  # pages read in place through the table
+        attn = paged_decode_attention(q, cache, layer_idx, kv_limit, cfg.attn_softcap, window)
+    else:  # int8 K/V go with their scales: decode reads them in place
+        kc, vc, ks, vs = cache.layer_kv(layer_idx)
+        attn = attention(q, kc, vc, positions, kv_limit, cfg.attn_softcap, window,
+                         k_scale=ks, v_scale=vs)
     attn_out = linear(attn.reshape(B, T, cfg.q_dim), lp.attn_output)
     if lp.has("post_attention_norm"):  # Gemma-2/3 sandwich norm
         attn_out = lp.post_attention_norm(attn_out)
@@ -178,7 +190,7 @@ def forward(
     cfg: GemmaConfig,
     tokens: torch.Tensor,  # [B, T] token ids
     positions: torch.Tensor,  # [B, T] absolute positions
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     write_index,  # int chunk start (prefill) or [B] slots (decode)
     kv_limit: torch.Tensor,  # [B] valid lengths after the write
     logits_at: torch.Tensor | None = None,  # [B] row per sequence; None = all rows

@@ -101,6 +101,14 @@ def load_params(reader: GGUFReader, device="cpu", fuse_projections: bool = True
     return cfg, model
 
 
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype; ml_dtypes bf16
+    (the reference's bf16 arrays) through its bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def _from_jax_leaf(leaf, device, rows: int | None = None):
     """One reference leaf -> QTensor (q4_0, q4_k, q6_k or q6_k_v4), dense
     bf16 matrix or f32 norm. `rows` slices the out-feature axis (the
@@ -113,8 +121,8 @@ def _from_jax_leaf(leaf, device, rows: int | None = None):
     a = np.asarray(leaf)
     if a.ndim == 1:
         return torch.from_numpy(a.astype(np.float32)).to(device)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 -> torch bf16 through its bits
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "bfloat16":
+        t = tensor_from_numpy(a)
     else:
         t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
     if rows is not None:

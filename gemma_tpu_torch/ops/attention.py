@@ -8,15 +8,23 @@ Counterpart of `gemma_tpu/ops/attention.py`, with its public layouts:
 Key slot s is valid for a query at position pos iff s <= pos and
 s < kv_limit[b] and, with a sliding window, s > pos - window.
 
-Kernels: `csrc/decode_attention.cu` (replaces `_decode_kernel`, bf16 arm)
-and `csrc/flash_attention.cu` (replaces `_flash_kernel`). Their plain
-PyTorch versions here follow the kernels' numerics: f32 scores, softcap
-before the mask, p rounded to the cache dtype before p . v, and 0 for a
-row with no valid key (plain `sdpa` gives the mean of V there instead).
+Kernels: `csrc/decode_attention.cu` (replaces `_decode_kernel`, its bf16
+and int8 arms) and `csrc/flash_attention.cu` (replaces `_flash_kernel`).
+Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
+softcap before the mask, p rounded to the cache dtype before p . v, and 0
+for a row with no valid key (plain `sdpa` gives the mean of V there
+instead).
+
+Int8 K and V (the int8 KV cache) come with f32 scales [B, Hkv, S], one per
+(batch, kv head, position), and are read in place at decode: the scales
+commute through both dots, s = (q . k8) * ks and out = bf16(p * vs) . v8
+(`attention.py:313-344` of the reference), so p * vs rounds to bf16 even
+with f32 activations.
 
 `attention` dispatches on T alone: T == 1 goes to decode, anything else to
-flash. There is no shape gate to a plain path on CUDA, so every prefill
-length reaches the flash kernel.
+flash (int8 K and V are dequantized once first, as the reference does).
+There is no shape gate to a plain path on CUDA, so every prefill length
+reaches the flash kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +58,13 @@ def _scores(q, k, attn_softcap):
     return s
 
 
+def dequantize_kv(x8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 K or V [..., S, D] with f32 scales [..., S] -> bf16: the scale
+    rounded to bf16 and the product taken in bf16 (the reference's
+    `KVCache.gather_layer` and `attention` rounding point)."""
+    return x8.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
 def _pv(p, v, q_shape):
     """p [B, Hkv, G, T, S] (already on v's grid) . v -> [B, T, Hq, D] f32."""
     out = torch.einsum("bhgts,bhsd->bthgd", p, v.to(torch.float32))
@@ -64,54 +79,87 @@ def sdpa(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 
     return _pv(w.to(v.dtype).to(torch.float32), v, q.shape).to(v.dtype)
 
 
-def flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
-    """Plain version of the flash kernel: masked softmax with the kernel's
+def flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0,
+                          k_scale=None, v_scale=None):
+    """Plain version of the flash kernel (and, with int8 k/v and their
+    scales, of the int8 decode arm): masked softmax with the kernel's
     rounding points; rows with no valid key give 0. Returns q.dtype."""
-    s = _scores(q, k, attn_softcap)
+    s = _scores(q, k, attn_softcap if k_scale is None else 0.0)
+    if k_scale is not None:  # s = (q . k8) * ks, then softcap
+        s = s * k_scale[:, :, None, None, :]
+        if attn_softcap:
+            s = attn_softcap * torch.tanh(s / attn_softcap)
     valid = _valid_mask(positions, kv_limit, k.shape[2], window)[:, None, None]
     s = torch.where(valid, s, torch.tensor(MASK_VALUE, device=s.device))
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_inv = torch.where(l == 0.0, 1.0, 1.0 / l)
-    out = _pv(p.to(v.dtype).to(torch.float32), v, q.shape)
+    if v_scale is None:
+        p = p.to(v.dtype)
+    else:  # bf16(p * vs) . bf16(v8), whatever q's dtype
+        p, v = (p * v_scale[:, :, None, None, :]).to(torch.bfloat16), v.to(torch.bfloat16)
+    out = _pv(p.to(torch.float32), v, q.shape)
     l_inv = l_inv[..., 0].permute(0, 3, 1, 2).reshape(*q.shape[:3], 1)  # [B, T, Hq, 1]
     return (out * l_inv).to(q.dtype)
 
 
-def decode_attention_plain(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0):
+def decode_attention_plain(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0,
+                           k_scale=None, v_scale=None):
     """Plain version of the decode kernel: q [B, 1, Hq, D] at position
-    kv_limit - 1."""
+    kv_limit - 1; k/v int8 with f32 scales [B, Hkv, S] for the int8 arm."""
     positions = (kv_limit.to(torch.int32) - 1)[:, None]
-    return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
+    return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window, k_scale, v_scale)
 
 
-def _check_kernel_args(name, q, k, v, kv_limit):
-    """Raise on what the CUDA attention kernels do not take."""
-    B, T, Hq, D = q.shape
-    if k.device != q.device or v.device != q.device or kv_limit.device != q.device:
-        raise ValueError(f"{name}: q, k, v and kv_limit must be on one CUDA device")
-    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} kernel takes q, k, v all bf16 or all f32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
+def check_kv_args(name, q, k, v, k_scale, v_scale):
+    """Raise on query and K/V dtypes the CUDA attention kernels do not take:
+    q bf16 or f32; K and V of q's dtype, or int8 with f32 scales of K's
+    shape less its last axis."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes a bf16 or f32 query, got {q.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    if k.shape != v.shape or k.shape[-1] != q.shape[-1] or q.shape[2] % k.shape[1]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
-    if not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError(f"{name} kernel needs contiguous k/v")
+    tensors = [k, v]
+    if k_scale is None:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"{name} kernel takes k and v in q's dtype {q.dtype} or int8 with "
+                            f"scales, got {k.dtype}, {v.dtype}")
+    else:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError(f"{name} kernel takes int8 k and v with scales, got {k.dtype}, {v.dtype}")
+        for sc in (k_scale, v_scale):
+            if sc is None or sc.dtype != torch.float32 or sc.shape != k.shape[:-1]:
+                raise ValueError(f"{name}: scales must be f32 of shape {tuple(k.shape[:-1])}")
+        tensors += [k_scale, v_scale]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: q, k, v and the scales must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} kernel needs contiguous k, v and scales")
 
 
-def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0):
-    """T = 1 attention, q [B, 1, Hq, D] -> [B, 1, Hq, D] in q.dtype.
+def kv_dtype_code(k, k_scale) -> int:
+    """The kernels' code for the K/V dtype: int8 when scales come with it."""
+    return build.DTYPE_CODES[k.dtype] if k_scale is None else build.INT8_CODE
+
+
+def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0,
+                     k_scale=None, v_scale=None):
+    """T = 1 attention, q [B, 1, Hq, D] -> [B, 1, Hq, D] in q.dtype; k/v in
+    q's dtype, or int8 with f32 scales [B, Hkv, S] (the int8 arm).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the split-S
-    kernel (plus its combine step) or raises."""
+    kernel (plus its combine step) or raises. The bf16/f32 arm counts its
+    launches in `launches`, the int8 arm in `int8_launches`."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window)
+        return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
     B, T, Hq, D = q.shape
     if T != 1:
         raise ValueError(f"decode attention takes one query per sequence, got T={T}")
-    _check_kernel_args("decode attention", q, k, v, kv_limit)
+    check_kv_args("decode attention", q, k, v, k_scale, v_scale)
+    if k.shape[0] != B or kv_limit.device != q.device:
+        raise ValueError(f"decode attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
     n_splits = -(-S // DECODE_SPLIT)
@@ -121,19 +169,25 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     part_l = torch.empty_like(part_m)
     part_o = torch.empty(B * Hkv, n_splits, G, D, dtype=torch.float32, device=q.device)
     out = torch.empty_like(qc)
+    int8 = k_scale is not None
     lib = build.load()
     err = lib.gt_decode_attention(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), lim.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
-        B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], DECODE_SPLIT, int(window),
-        float(attn_softcap), build.stream_ptr(q.device),
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+        lim.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+        B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], kv_dtype_code(k, k_scale), DECODE_SPLIT,
+        int(window), float(attn_softcap), build.stream_ptr(q.device),
     )
-    build.check(err, f"decode attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}")
-    decode_attention.launches += 1
+    build.check(err, f"decode attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} int8={int8}")
+    if int8:
+        decode_attention.int8_launches += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.int8_launches = 0
 
 
 def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
@@ -143,9 +197,11 @@ def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, win
     or raises. Any T and S."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
-    _check_kernel_args("flash attention", q, k, v, kv_limit)
+    check_kv_args("flash attention", q, k, v, None, None)
     B, T, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
+    if k.shape[0] != B or kv_limit.device != q.device:
+        raise ValueError(f"flash attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     if tuple(positions.shape) != (B, T) or positions.device != q.device:
         raise ValueError(f"flash attention: positions {tuple(positions.shape)} != {(B, T)}")
     qc = q.contiguous()
@@ -168,11 +224,11 @@ flash_attention.launches = 0
 
 def attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0,
               k_scale=None, v_scale=None):
-    """Dispatch: T == 1 -> decode, otherwise flash."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8-KV arm of decode attention is not ported yet (ROADMAP queue 1, item 3)"
-        )
+    """Dispatch: T == 1 -> decode (int8 k/v read in place with their
+    scales); otherwise flash, after dequantizing int8 k/v once to bf16 and
+    then to q's dtype (the flash kernel takes one dtype)."""
     if q.shape[1] == 1:
-        return decode_attention(q, k, v, kv_limit, attn_softcap, window)
+        return decode_attention(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale).to(q.dtype), dequantize_kv(v, v_scale).to(q.dtype)
     return flash_attention(q, k, v, positions, kv_limit, attn_softcap, window)

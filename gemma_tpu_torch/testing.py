@@ -6,7 +6,9 @@ reference's framework-free writer (a port of `gemma_tpu/testing.py`
 writes the tensors that `python -m gemma_tpu quantize --type q4_k_m` makes
 from the same seed's F32 file). `make_params` fabricates a model directly in
 the port's layout on a device, for full-width runs where writing and
-quantizing a multi-GB GGUF on the host would be slow.
+quantizing a multi-GB GGUF on the host would be slow. `from_jax_cache`
+carries a reference KV cache's state into the port's, as
+`models.from_jax_params` carries its weights.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ from gemma_tpu.quant import numpy_ref
 
 from .models.config import GemmaConfig
 from .models.gemma import Gemma
+from .models.params import tensor_from_numpy
 from .quant.qtensor import QGROUP, QK_K, QTensor
+from .runtime.kv_cache import KVCache
+from .runtime.paged_kv import PagedKVCache
 
 TINY_CONFIG = GemmaConfig(
     vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -238,3 +243,21 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     layers = [layer() for _ in range(cfg.n_layers)]
     embed = (q4_0 if fmt == "q4_0" else q6_k)(cfg.vocab_size, cfg.d_model)
     return Gemma(cfg, embed=embed, final_norm=norm(cfg.d_model), layers=layers)
+
+
+def from_jax_cache(np_cache, device="cpu") -> KVCache | PagedKVCache:
+    """The reference's `KVCache` or `PagedKVCache` with numpy leaves
+    (`jax.tree_util.tree_map(np.asarray, cache)`) -> the port's cache of the
+    same state on `device`, so one cache state feeds both packages."""
+    def tensors(arrays):
+        return None if arrays is None else [tensor_from_numpy(np.asarray(a)).to(device) for a in arrays]
+
+    length = tensor_from_numpy(np.asarray(np_cache.length, np.int32)).to(device)
+    if hasattr(np_cache, "page_table"):
+        return PagedKVCache(
+            tensors(np_cache.k_pages), tensors(np_cache.v_pages),
+            tensor_from_numpy(np.asarray(np_cache.page_table, np.int32)).to(device), length,
+            tensors(np_cache.k_scale), tensors(np_cache.v_scale),
+        )
+    return KVCache(tensors(np_cache.k), tensors(np_cache.v), length,
+                   tensors(np_cache.k_scale), tensors(np_cache.v_scale))

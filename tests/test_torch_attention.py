@@ -10,6 +10,11 @@ kernels round the unnormalized p to bf16 against a per-tile running max
 while the plain versions round against the row max, and outputs are bf16:
 atol = rtol = 1e-2 (two bf16 ulps near 1; the reference's own kernel tests
 allow 2e-2). In f32 the same comparison is held to 1e-5.
+
+The int8 arm (int8 K/V with f32 scales, quantized by both packages'
+`_quantize`, which must agree bit for bit) has the same rounding points on
+both sides, bf16(p * vs) included, so it keeps atol = rtol = 1e-2 with bf16
+and with f32 queries.
 """
 import numpy as np
 import pytest
@@ -20,14 +25,17 @@ import jax.numpy as jnp
 from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.ops.attention import flash_attention as jax_flash
 from gemma_tpu.ops.attention import sdpa_xla
+from gemma_tpu.runtime.kv_cache import KVCache as JaxKVCache
 from gemma_tpu_torch.ops.attention import (
     attention,
     decode_attention,
     decode_attention_plain,
+    dequantize_kv,
     flash_attention,
     flash_attention_plain,
     sdpa,
 )
+from gemma_tpu_torch.runtime.kv_cache import quantize_kv
 
 TOL = dict(atol=1e-2, rtol=1e-2)
 
@@ -158,7 +166,8 @@ def test_sdpa_matches_reference(rng):
 
 def test_dispatch_and_cpu_wrappers(rng):
     """attention(): T == 1 -> decode, else flash; on CPU tensors the kernel
-    wrappers are their plain versions; the int8-KV arm is not ported."""
+    wrappers are their plain versions; int8 k/v go to the decode arm with
+    their scales, and are dequantized once (bf16, then q's dtype) for T > 1."""
     (_, _, _), (q, k, v) = make_qkv(rng, 1, 5, 16, 4, 2, 16)
     lim = torch.tensor([5], dtype=torch.int32)
     pos = torch.arange(5, dtype=torch.int32)[None]
@@ -167,5 +176,55 @@ def test_dispatch_and_cpu_wrappers(rng):
     q1 = q[:, :1]
     torch.testing.assert_close(attention(q1, k, v, pos[:, -1:], lim), decode_attention_plain(q1, k, v, lim))
     torch.testing.assert_close(decode_attention(q1, k, v, lim), decode_attention_plain(q1, k, v, lim))
-    with pytest.raises(NotImplementedError, match="int8"):
-        attention(q, k, v, pos, lim, k_scale=torch.ones(1), v_scale=torch.ones(1))
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    torch.testing.assert_close(attention(q1, k8, v8, pos[:, -1:], lim, k_scale=ks, v_scale=vs),
+                               decode_attention_plain(q1, k8, v8, lim, k_scale=ks, v_scale=vs))
+    q32 = q.float()
+    kd, vd = dequantize_kv(k8, ks).float(), dequantize_kv(v8, vs).float()
+    torch.testing.assert_close(attention(q32, k8, v8, pos, lim, k_scale=ks, v_scale=vs),
+                               flash_attention_plain(q32, kd, vd, pos, lim))
+
+
+def _jax_quantize(x):
+    q, s = JaxKVCache._quantize(x)
+    return np.asarray(q), np.asarray(s)
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+def test_quantize_kv_bit_exact(dtype, rng):
+    """The port's int8 quantization equals the reference's `_quantize` bit
+    for bit, on random rows and on rows built with exact .5 ties, zero rows
+    and rows whose amax is one element."""
+    x = rng.normal(size=(2, 7, 3, 128)) * 2.0
+    x[0, 0] = 0.0  # scale 0 -> inverse 0
+    x[0, 1, 0] = np.arange(128) - 63.5  # amax 64.5: half-integer multiples of the scale
+    x[1, 2, 1, :5] = [1e-3, -4e-3, 0.0, 7.0, -7.0]
+    xj = jnp.asarray(x, dtype)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    rq, rs = _jax_quantize(xj)
+    q, s = quantize_kv(xt)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), rq)
+    np.testing.assert_array_equal(s.numpy().view(np.int32), rs.view(np.int32))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,limits,cap,win", DECODE_CASES)
+def test_decode_int8_plain_matches_jax_kernel(B, S, Hq, Hkv, D, limits, cap, win, rng):
+    """The int8 arm: the reference's decode kernel (interpret mode) reads
+    int8 K/V with their scales; so does the port's plain version."""
+    (qj, kj, vj), (q, k, v) = make_qkv(rng, B, 1, S, Hq, Hkv, D)
+    (k8, ks), (v8, vs) = _jax_quantize(kj), _jax_quantize(vj)
+    lim = np.asarray(limits, np.int32)
+    ref = jax_decode(qj, jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lim), attn_softcap=cap,
+                     window=win, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    t = [torch.from_numpy(np.array(a)) for a in (k8, v8, ks, vs)]
+    got = decode_attention_plain(q, t[0], t[1], torch.from_numpy(lim), cap, win, t[2], t[3])
+    assert got.dtype == torch.bfloat16 and got.shape == (B, 1, Hq, D)
+    _close(got, ref, **TOL)
+    # f32 queries: the weight still rounds to bf16(p * vs) on both sides
+    ref32 = jax_decode(qj.astype(jnp.float32), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lim),
+                       attn_softcap=cap, window=win, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    got32 = decode_attention_plain(q.float(), t[0], t[1], torch.from_numpy(lim), cap, win, t[2], t[3])
+    assert got32.dtype == torch.float32
+    _close(got32, ref32, **TOL)

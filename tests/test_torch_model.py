@@ -46,7 +46,7 @@ from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
 from gemma_tpu.testing import TINY_CONFIG, TINY_GEMMA2_CONFIG, TINY_GEMMA3_CONFIG, make_gguf
 from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.quant.qtensor import QTensor
-from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache
+from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache, Scheduler, serve
 from gemma_tpu_torch.testing import TINY_CONFIG as PORT_TINY_CONFIG
 from gemma_tpu_torch.testing import make_gguf as port_make_gguf
 from gemma_tpu_torch.testing import make_params
@@ -205,11 +205,19 @@ def test_decode_steps_match_full_prefill(models):
 
 
 def test_unported_engine_options_raise():
-    for flag in ({"paged": True}, {"kv_quantized": True}, {"prefill_chunk": 64}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EngineConfig(**flag)
-    with pytest.raises(NotImplementedError, match="int8"):
-        KVCache.create(TINY_CONFIG, 1, 8, quantized=True)
+    """The serving options still unported raise NotImplementedError naming
+    their ROADMAP item; paged, int8 and chunked caches are legal."""
+    cfg = PORT_TINY_CONFIG
+    eng = Engine(cfg, make_params(cfg, seed=0), EngineConfig(max_seq_len=16))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 7"):
+        Scheduler(eng, speculative=True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 8"):
+        serve(eng, [], transport=("localhost", 1))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 9"):
+        serve(eng, [], roles=object())
+    ecfg = EngineConfig(paged=True, kv_quantized=True, prefill_chunk=64)
+    assert ecfg.page_size == 64
+    assert KVCache.create(cfg, 1, 8, quantized=True).quantized
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

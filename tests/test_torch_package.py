@@ -67,7 +67,8 @@ def test_sources_have_no_jax_sdpa_or_compile():
 def test_kernel_sources_note_what_they_replace():
     notes = [("q4_0_matmul.cu", "_q4_0_kernel"), ("decode_attention.cu", "_decode_kernel"),
              ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
-             ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel")]
+             ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel"),
+             ("paged_attention.cu", "_paged_kernel")]
     for name, tpu_kernel in notes:
         text = (PKG / "csrc" / name).read_text()
         assert re.search(rf"Replaces .*`{tpu_kernel}`", text, re.S), name
@@ -92,8 +93,9 @@ def test_library_name_follows_the_sources():
     assert build.library_path() == build.library_path()
     assert {p.name for p in build.sources()} >= {"q4_0_matmul.cu", "decode_attention.cu",
                                                  "flash_attention.cu", "q4_k_matmul.cu",
-                                                 "q6_k_matmul.cu", "common.cuh"}
-    assert {"gt_q4_k_matmul", "gt_q6_k_matmul"} <= set(build.SIGNATURES)
+                                                 "q6_k_matmul.cu", "paged_attention.cu",
+                                                 "common.cuh"}
+    assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention"} <= set(build.SIGNATURES)
 
 
 def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):
