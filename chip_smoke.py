@@ -7,27 +7,33 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 1. the card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   Gemma-2B shapes of the q4_0 and q4_k_m paths and of 8-slot serving (the
-   paged kernel and both int8 arms), with max|diff| against the stated
-   tolerance and the device times of kernel and plain version
-   (torch.profiler), then correctness-only edge cases;
-4. the main path at full Gemma-2B width, once with q4_0 weights (4) and
-   once with the q4_k_m recipe (4b), random weights from a seed:
-   `Engine.prefill` of a 203-token prompt then `Engine.generate_from` for 32
-   greedy tokens (what `Engine.generate` and the CLI run), with finite
-   logits, tokens in range, and the kernels' launch counters, set to 0 just
-   before each run, equal to what the layer structure implies; then
-   `Engine.generate` must give the same tokens;
+   Gemma-2B shapes of the q4_0 and q4_k_m paths, the Gemma-7B shapes of the
+   q8_0 path (attention at 16 heads, batch 1 and 8), and the shapes of
+   8-slot serving (the paged kernel and both int8 arms), with max|diff|
+   against the stated tolerance, the device
+   times of kernel, plain version and a PyTorch library call where one
+   computes the same function (torch.profiler), and the least time the
+   card could take (bound); then correctness-only edge cases;
+4. the main path at full width with random weights from a seed: Gemma-2B
+   q4_0 (4), Gemma-2B q4_k_m (4b) and Gemma-7B q8_0 (4c): `Engine.prefill`
+   of a 203-token prompt then `Engine.generate_from` for 32 greedy tokens
+   (what `Engine.generate` and the CLI run), with finite logits, tokens in
+   range, and the kernels' launch counters, set to 0 just before each run,
+   equal to what the layer structure implies; then `Engine.generate` must
+   give the same tokens;
 5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
-   tiny q4_0 GGUF and a tiny q4_k_m GGUF, its printed text equal to the
+   tiny q4_0, q4_k_m and q8_0 GGUF, its printed text equal to the
    in-process run's, and each tiny model on the card held against the same
    model on the CPU (plain path); then `python -m gemma_tpu_torch serve
    --device cuda --paged --kv-quant` against the in-process `serve`, and
    serving on the card against the CPU in f32 over paged and paged int8
    caches;
-6. continuous-batching serving at full Gemma-2B width (q4_0, 8 slots, 24
-   requests of 96 tokens) over four caches: dense, dense int8, paged, and
-   paged int8 with overlapped chunked admission, with exact launch counts.
+6. continuous-batching serving (8 slots, 24 requests of 96 tokens) at full
+   Gemma-2B q4_0 width over four caches: dense, dense int8, paged, and
+   paged int8 with overlapped chunked admission (6), and at full Gemma-7B
+   q8_0 width over the dense bf16 cache (6b), once more with the requests
+   shuffled and admitted every 4 steps, which must give the same streams;
+   all with exact launch counts.
 
 The last two lines of standard output are a JSON line of the kernels and
 the contract line `{"ok": true, "device": {...}}`. With no CUDA device, or
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import random
 import subprocess
 import sys
 import tempfile
@@ -49,10 +56,19 @@ PROMPT_LEN = 203  # about 200 tokens, not a power of two
 NEW_TOKENS = 32  # greedy tokens of the phase 4 generation runs
 MAX_SEQ_LEN = 512
 
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, dense bf16 tensor
+# core and f32 FMA flop/s; a kernel's bound is the larger of its bytes and
+# its flops over these
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
 # TPU kernels replaced by each port kernel
 KERNELS = {
     "q4_0_matmul": ("gemma_tpu_torch/csrc/q4_0_matmul.cu",
                     "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel"),
+    "q8_0_matmul": ("gemma_tpu_torch/csrc/q8_0_matmul.cu",
+                    "gemma_tpu/ops/quant_matmul.py:103 _q8_0_kernel"),
     "q4_k_matmul": ("gemma_tpu_torch/csrc/q4_k_matmul.cu",
                     "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel"),
     "q6_k_matmul": ("gemma_tpu_torch/csrc/q6_k_matmul.cu",
@@ -75,6 +91,8 @@ SERVE_NEW_TOKENS = 96
 SERVE_SLOTS = 8
 SERVE_BLOCK = 8
 PAGE = 64
+# kv_limit of each of SERVE_SLOTS rows in the serving kernels' checks
+SERVE_LIMITS = [1, 64, 65, PROMPT_LEN, 300, MAX_SEQ_LEN, PROMPT_LEN, 64]
 
 
 class SmokeFailure(Exception):
@@ -109,20 +127,44 @@ def call_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 def device_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of fn(): the summed durations of the GPU kernels it
     launches, per call, from torch.profiler (CUPTI); host launch cost is
-    not counted."""
+    not counted. A profiled pass that records no kernel at all (seen once
+    for a few microsecond-long cuBLAS calls) is run again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                   for e in prof.key_averages())
-    require(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / iters / 1e3
+    raise SmokeFailure("torch.profiler recorded no device time")
+
+
+def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of nbytes over HBM bandwidth and flops over `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_ms(torch, q, k, v, valid) -> float:
+    """Device ms of torch.nn.functional.scaled_dot_product_attention on the
+    kernels' inputs (q [B, T, Hq, D], k/v [B, Hkv, S, D], valid [B, T, S]
+    bool): the library yardstick of decode and flash attention, timed here
+    and used nowhere in the port."""
+    import torch.nn.functional as F
+
+    qh = q.transpose(1, 2)
+    mask = valid[:, None]
+    return device_ms(torch, lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                                   enable_gqa=True))
 
 
 def device_line() -> str:
@@ -146,6 +188,9 @@ def random_qtensor(torch, fmt: str, rows: int, cols: int, gen, dev):
 
     if fmt == "q4_0":
         return QTensor("q4_0", qs=bytes_(rows, cols // 2), scales=scales(0.005, rows, cols // 32))
+    if fmt == "q8_0":
+        return QTensor("q8_0", qs=bytes_(rows, cols).view(torch.int8),
+                       scales=scales(3e-4, rows, cols // 32))
     if fmt == "q4_k":
         return QTensor("q4_k", qs=bytes_(rows, cols // 2), scales=bytes_(rows, cols // 256, 12),
                        dm=scales(1e-4, rows, cols // 256, 2))
@@ -154,17 +199,24 @@ def random_qtensor(torch, fmt: str, rows: int, cols: int, gen, dev):
 
 
 def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
-    """One quantized matmul kernel against its plain version at M = 1 and
-    M = 203 with bf16 x, on each (name, N, K) of `shapes`."""
+    """One quantized matmul kernel against its plain version with bf16 x, on
+    each (name, N, K[, Ms]) of `shapes`, at M = 1 and 203 unless Ms is
+    given. The library yardstick is torch.matmul of x with the weight
+    dequantized to bf16 beforehand: it reads 16 bits per weight, not the
+    format's bits. The bound counts the wire bytes of the weight, x and
+    the f32 y, and the flops at the f32 rate at M <= 8 (the reference's
+    f32 products) and at the bf16 rate above."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
+    from gemma_tpu_torch.quant.qtensor import dequant
 
     kernel, plain = qmm.MATMULS[fmt], qmm.PLAIN[fmt]
     worst = 0.0
     rep = None
-    for name, N, K in shapes:
+    for name, N, K, *ms_list in shapes:
         qt = random_qtensor(torch, fmt, N, K, gen, dev)
         wire_bytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
-        for M in (1, PROMPT_LEN):
+        w16 = dequant(qt, torch.bfloat16)
+        for M in (ms_list[0] if ms_list else (1, PROMPT_LEN)):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             got = kernel(x, qt)
             ref = plain(x, qt)
@@ -174,18 +226,24 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
             ms = device_ms(torch, lambda: kernel(x, qt))
             per_call = call_ms(torch, lambda: kernel(x, qt))
             plain_ms = device_ms(torch, lambda: plain(x, qt), iters=5, warmup=1)
-            rate = (f"{wire_bytes / ms / 1e9:.3f} TB/s at wire bytes" if M == 1
+            library_ms = device_ms(torch, lambda: torch.matmul(x, w16.T))
+            bound_ms, bound_by = bound(wire_bytes + x.numel() * 2 + M * N * 4, 2 * M * N * K,
+                                       F32_FLOPS if M <= 8 else BF16_FLOPS)
+            rate = (f"{wire_bytes / ms / 1e9:.3f} TB/s at wire bytes" if M <= 8
                     else f"{2 * M * N * K / ms / 1e9:.3f} TFLOP/s")
             info("kernel", f"{fmt}_matmul {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
                            f"tol={tol:.3e}; device ms: kernel {ms:.4f} ({rate}) plain "
-                           f"{plain_ms:.4f}; kernel per back-to-back call {per_call:.4f} ms")
+                           f"{plain_ms:.4f} library (bf16 matmul, weight dequantized "
+                           f"beforehand) {library_ms:.4f}; bound {bound_ms:.4f} ({bound_by}); "
+                           f"kernel per back-to-back call {per_call:.4f} ms")
             require(bool(torch.isfinite(got).all()) and err <= tol,
                     f"{fmt}_matmul {name} M={M}: max|diff| {err} > tol {tol}")
             worst = max(worst, err)
             if name == rep_name and M == 1:
-                rep = (ms, plain_ms, f"{name} M=1 N={N} K={K}")
-        del qt
-    return {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], "shape": rep[2]}
+                rep = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms, "shape": f"{name} M=1 N={N} K={K}"}
+        del qt, w16
+    return {"max_abs_err": worst, **rep}
 
 
 def check_kernels(torch, dev) -> dict[str, dict]:
@@ -197,7 +255,7 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     gen.manual_seed(0)
     results = {}
 
-    # Quantized matmuls. q4_0 and q6_k: the kernel and the plain version
+    # Quantized matmuls. q4_0, q8_0 and q6_k: the kernel and the plain version
     # form the same f32 products (f32 weights at M <= 8, bf16-rounded
     # weights at M > 8) and differ only in the order of f32 sums. q4_k at
     # M <= 8 takes ggml's vec_dot form, d*sc * sum(x*q) - dmin*mn * sum(x),
@@ -208,6 +266,13 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     for fmt, shapes, rep_name in (
         ("q4_0", [("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
                   ("down", 2048, 16384), ("head", 256000, 2048)], "gate_up"),
+        # Gemma-7B; the head's plain version dequantizes 3.1 GB of f32, so
+        # it runs at the decode M only
+        ("q8_0", [("qkv", 12288, 3072, (1, 8, PROMPT_LEN)),
+                  ("attn_out", 3072, 4096, (1, 8, PROMPT_LEN)),
+                  ("gate_up", 49152, 3072, (1, 8, PROMPT_LEN)),
+                  ("down", 3072, 24576, (1, 8, PROMPT_LEN)),
+                  ("head", 256000, 3072, (1, 8))], "gate_up"),
         ("q4_k", [("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
                   ("gate_up", 32768, 2048), ("down", 2048, 16384)], "gate_up"),
         # (2048, 16384): the deep-K shape of the reference's _q6_k_v4_kernel
@@ -222,11 +287,43 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     att_tol = 2e-2
     Hq, Hkv, D = 8, 1, 256
     S = MAX_SEQ_LEN
+    key = torch.arange(S, device=dev)
 
-    def kv():
-        k = (torch.randn(1, Hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        v = (torch.randn(1, Hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        return k, v
+    def held(kind, desc, kernel, plain, library=None, nbytes=0, flops=0):
+        """kernel() against plain() within att_tol, with their device times;
+        given `library` (a timing function), also its ms and the bound of
+        nbytes and flops at the bf16 rate. Returns (reading, kernel output)."""
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        r = {"max_abs_err": err, "ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain)}
+        per_call = call_ms(torch, kernel)
+        line = (f"{kind} {desc}: max|diff|={err:.3e} tol={att_tol:.1e}; device ms: kernel "
+                f"{r['ms']:.4f} plain {r['plain_ms']:.4f}")
+        if library is not None:
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+            r["library_ms"] = library()
+            line += (f" library (scaled_dot_product_attention, boolean mask) "
+                     f"{r['library_ms']:.4f}; bound {r['bound_ms']:.6f} ({r['bound_by']})")
+        info("kernel", f"{line}; kernel per back-to-back call {per_call:.4f} ms")
+        require(bool(torch.isfinite(got).all()) and err <= att_tol,
+                f"{kind} {desc}: max|diff| {err} > tol {att_tol}")
+        return r, got
+
+    def decode_cost(limits, hq, hkv):
+        """(bytes, flops) of decode attention: the live keys' K and V, q,
+        out and the limits; QK and PV products."""
+        live = sum(limits)
+        return 2 * live * hkv * D * 2 + 2 * len(limits) * hq * D * 2 + len(limits) * 4, 4 * hq * D * live
+
+    def flash_cost(T, hq, hkv):
+        """(bytes, flops) of causal prefill attention from position 0: q, the
+        T live keys' K and V, out and positions; query t sees t + 1 keys."""
+        return 2 * T * hq * D * 2 + 2 * T * hkv * D * 2 + T * 4, 4 * hq * D * T * (T + 1) // 2
+
+    def kv(B=1, hkv=Hkv):
+        return ((torch.randn(B, hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+                for _ in range(2))
 
     worst = 0.0
     rep = None
@@ -235,57 +332,62 @@ def check_kernels(torch, dev) -> dict[str, dict]:
         q = (torch.randn(1, 1, Hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
         k, v = kv()
         lim = torch.tensor([limit], dtype=torch.int32, device=dev)
-        got = att.decode_attention(q, k, v, lim, cap, window)
-        ref = att.decode_attention_plain(q, k, v, lim, cap, window)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        ms = device_ms(torch, lambda: att.decode_attention(q, k, v, lim, cap, window))
-        per_call = call_ms(torch, lambda: att.decode_attention(q, k, v, lim, cap, window))
-        plain_ms = device_ms(torch, lambda: att.decode_attention_plain(q, k, v, lim, cap, window))
-        info("kernel", f"decode_attention S={S} limit={limit} softcap={cap} window={window}: "
-                       f"max|diff|={err:.3e} tol={att_tol:.1e}; device ms: kernel {ms:.4f} "
-                       f"plain {plain_ms:.4f}; kernel per back-to-back call {per_call:.4f} ms")
-        require(bool(torch.isfinite(got).all()) and err <= att_tol,
-                f"decode_attention limit={limit}: max|diff| {err} > tol {att_tol}")
-        worst = max(worst, err)
-        if limit == PROMPT_LEN + 1 and not cap:
-            rep = (ms, plain_ms, f"S={S} kv_limit={limit} Hq={Hq} Hkv={Hkv} D={D}")
-    results["decode_attention"] = {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], "shape": rep[2]}
+        is_rep = limit == PROMPT_LEN + 1 and not cap
+        r, _ = held("decode_attention", f"S={S} limit={limit} softcap={cap} window={window}",
+                    lambda: att.decode_attention(q, k, v, lim, cap, window),
+                    lambda: att.decode_attention_plain(q, k, v, lim, cap, window),
+                    (lambda: sdpa_ms(torch, q, k, v, key[None, None] < limit)) if is_rep else None,
+                    *decode_cost([limit], Hq, Hkv))
+        worst = max(worst, r["max_abs_err"])
+        if is_rep:
+            rep = {**r, "shape": f"S={S} kv_limit={limit} Hq={Hq} Hkv={Hkv} D={D}"}
+    # Gemma-7B's heads (Hq = Hkv = 16: one query head per KV head), the
+    # shapes of phases 4c (batch 1, kv_limit 204) and 6b (the 8 serving rows)
+    H7 = 16
+    k7, v7 = kv(SERVE_SLOTS, H7)
+    for limits in ([PROMPT_LEN + 1], SERVE_LIMITS):
+        B = len(limits)
+        q = (torch.randn(B, 1, H7, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        k, v = k7[:B], v7[:B]
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        r, _ = held("decode_attention", f"Gemma-7B heads Hq=Hkv={H7} B={B} S={S} limits={limits}",
+                    lambda: att.decode_attention(q, k, v, lim),
+                    lambda: att.decode_attention_plain(q, k, v, lim),
+                    lambda: sdpa_ms(torch, q, k, v, key[None, None] < lim[:, None, None]),
+                    *decode_cost(limits, H7, H7))
+        worst = max(worst, r["max_abs_err"])
+    results["decode_attention"] = {"max_abs_err": worst, **rep}
 
     T = PROMPT_LEN
     worst = 0.0
     rep = None
-    cases = [
-        ("prompt", torch.arange(T, device=dev), T, 0.0, 0),
-        ("softcap+window", torch.arange(T, device=dev) + 100, T + 100, 50.0, 64),
+    cases = [  # name, positions, kv_limit, softcap, window, query and KV heads
+        ("prompt", torch.arange(T, device=dev), T, 0.0, 0, Hq, Hkv),
+        ("softcap+window", torch.arange(T, device=dev) + 100, T + 100, 50.0, 64, Hq, Hkv),
         # rows at positions >= 181 see no key below kv_limit 150 in a 32-window
-        ("rows without keys", torch.arange(T, device=dev) + 100, 150, 0.0, 32),
+        ("rows without keys", torch.arange(T, device=dev) + 100, 150, 0.0, 32, Hq, Hkv),
+        ("Gemma-7B heads prompt", torch.arange(T, device=dev), T, 0.0, 0, H7, H7),
     ]
-    for name, pos, limit, cap, window in cases:
-        q = (torch.randn(1, T, Hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        k, v = kv()
+    for name, pos, limit, cap, window, hq, hkv in cases:
+        q = (torch.randn(1, T, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        k, v = kv(1, hkv)
         positions = pos.to(torch.int32)[None]
         lim = torch.tensor([limit], dtype=torch.int32, device=dev)
-        got = att.flash_attention(q, k, v, positions, lim, cap, window)
-        ref = att.flash_attention_plain(q, k, v, positions, lim, cap, window)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        ms = device_ms(torch, lambda: att.flash_attention(q, k, v, positions, lim, cap, window))
-        per_call = call_ms(torch, lambda: att.flash_attention(q, k, v, positions, lim, cap, window))
-        plain_ms = device_ms(torch, lambda: att.flash_attention_plain(q, k, v, positions, lim, cap, window))
-        info("kernel", f"flash_attention {name} T={T} S={S} limit={limit} softcap={cap} "
-                       f"window={window}: max|diff|={err:.3e} tol={att_tol:.1e}; device ms: "
-                       f"kernel {ms:.4f} plain {plain_ms:.4f}; kernel per back-to-back call "
-                       f"{per_call:.4f} ms")
-        require(bool(torch.isfinite(got).all()) and err <= att_tol,
-                f"flash_attention {name}: max|diff| {err} > tol {att_tol}")
+        timed = name.endswith("prompt")
+        valid = (key[None, None] <= pos[None, :, None]) & (key < limit)
+        r, got = held("flash_attention", f"{name} T={T} S={S} limit={limit} softcap={cap} "
+                                         f"window={window} Hq={hq} Hkv={hkv}",
+                      lambda: att.flash_attention(q, k, v, positions, lim, cap, window),
+                      lambda: att.flash_attention_plain(q, k, v, positions, lim, cap, window),
+                      (lambda: sdpa_ms(torch, q, k, v, valid)) if timed else None,
+                      *flash_cost(T, hq, hkv))
         if name == "rows without keys":
             empty = pos >= 181
             require(bool((got[0, empty] == 0).all()), "flash_attention: rows without keys are not 0")
-        worst = max(worst, err)
+        worst = max(worst, r["max_abs_err"])
         if name == "prompt":
-            rep = (ms, plain_ms, f"T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}")
-    results["flash_attention"] = {"max_abs_err": worst, "ms": rep[0], "plain_ms": rep[1], "shape": rep[2]}
+            rep = {**r, "shape": f"T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}"}
+    results["flash_attention"] = {"max_abs_err": worst, **rep}
     return results
 
 
@@ -293,16 +395,20 @@ def check_edge_cases(torch, dev) -> None:
     """Phase 3, correctness only: the kernels' instances the main path does
     not reach (M = 2..9 and 70 on ragged N and K, f32 activations, GQA with
     head_dim 128, batch 2 with per-row limits, ragged T, softcap + window),
-    each against its plain version with the tolerances of check_kernels
-    (attention in f32: 1e-4, nothing rounds). The K-quants take K = 1280,
-    five superblocks: off the GEMV's 1024-element K-chunk."""
+    and attention at Gemma-7B's heads (Hq = Hkv = 16, D = 256: one query
+    head per KV head), each against its plain version with the tolerances
+    of check_kernels (attention in f32: 1e-4, nothing rounds), also over
+    the 8 serving rows (SERVE_LIMITS) as phase 6b decodes them. q4_0 and
+    q8_0 take K = 1056, the K-quants K = 1280 (five superblocks): off the
+    GEMV's 1024-element K-chunk."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst = {}
-    for fmt, K in (("q4_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):  # N, K off every tile and chunk
+    # N, K off every tile and chunk
+    for fmt, K in (("q4_0", 1056), ("q8_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):
         qt = random_qtensor(torch, fmt, 1000, K, gen, dev)
         for dtype in (torch.bfloat16, torch.float32):
             for M in (2, 5, 8, 9, 70):
@@ -312,28 +418,40 @@ def check_edge_cases(torch, dev) -> None:
                 tol = 1e-4 * ref.abs().max().item() + 1e-6
                 require(err <= tol, f"{fmt}_matmul M={M} {dtype}: max|diff| {err} > tol {tol}")
                 worst[fmt] = max(worst.get(fmt, 0.0), err / tol)
-    B, T, Hq, Hkv, D, S = 2, 37, 8, 2, 128, 100
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        q = (torch.randn(B, T, Hq, D, generator=gen, device=dev) * 0.3).to(dtype)
-        k = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) * 0.3).to(dtype)
-        v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) * 0.3).to(dtype)
-        pos = torch.stack([torch.arange(T), torch.arange(T) + 50]).to(dev, torch.int32)
-        lim = torch.tensor([T, 90], dtype=torch.int32, device=dev)
-        for cap, window in ((0.0, 0), (30.0, 20)):
-            got = att.flash_attention(q, k, v, pos, lim, cap, window)
-            ref = att.flash_attention_plain(q, k, v, pos, lim, cap, window)
-            err = (got.float() - ref.float()).abs().max().item()
-            require(err <= tol, f"flash_attention edge {dtype} cap={cap}: {err} > {tol}")
-            worst["flash"] = max(worst.get("flash", 0.0), err / tol)
-            dlim = torch.tensor([1, 90], dtype=torch.int32, device=dev)
-            got = att.decode_attention(q[:, :1], k, v, dlim, cap, window)
-            ref = att.decode_attention_plain(q[:, :1], k, v, dlim, cap, window)
-            err = (got.float() - ref.float()).abs().max().item()
-            require(err <= tol, f"decode_attention edge {dtype} cap={cap}: {err} > {tol}")
-            worst["decode"] = max(worst.get("decode", 0.0), err / tol)
+    P = PROMPT_LEN
+    attn_cases = [  # name, B, T, Hq, Hkv, D, S, positions, limits, decode limits
+        ("GQA D=128", 2, 37, 8, 2, 128, 100, torch.stack([torch.arange(37), torch.arange(37) + 50]),
+         [37, 90], [1, 90]),
+        ("Gemma-7B heads", 1, P, 16, 16, 256, MAX_SEQ_LEN, torch.arange(P)[None], [P], [P + 1]),
+        # phase 6b's decode: 8 rows of Gemma-7B heads at the serving limits;
+        # flash on each row's last 16 positions below its limit
+        ("Gemma-7B heads, 8 rows", SERVE_SLOTS, 16, 16, 16, 256, MAX_SEQ_LEN,
+         torch.arange(16)[None] + torch.tensor([max(0, n - 16) for n in SERVE_LIMITS])[:, None],
+         SERVE_LIMITS, SERVE_LIMITS),
+    ]
+    for name, B, T, Hq, Hkv, D, S, positions, limits, dlimits in attn_cases:
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q = (torch.randn(B, T, Hq, D, generator=gen, device=dev) * 0.3).to(dtype)
+            k = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) * 0.3).to(dtype)
+            v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev) * 0.3).to(dtype)
+            pos = positions.to(dev, torch.int32)
+            lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+            dlim = torch.tensor(dlimits, dtype=torch.int32, device=dev)
+            for cap, window in ((0.0, 0), (30.0, 20)):
+                got = att.flash_attention(q, k, v, pos, lim, cap, window)
+                ref = att.flash_attention_plain(q, k, v, pos, lim, cap, window)
+                err = (got.float() - ref.float()).abs().max().item()
+                require(err <= tol, f"flash_attention {name} {dtype} cap={cap}: {err} > {tol}")
+                worst[f"flash {name}"] = max(worst.get(f"flash {name}", 0.0), err / tol)
+                got = att.decode_attention(q[:, :1], k, v, dlim, cap, window)
+                ref = att.decode_attention_plain(q[:, :1], k, v, dlim, cap, window)
+                err = (got.float() - ref.float()).abs().max().item()
+                require(err <= tol, f"decode_attention {name} {dtype} cap={cap}: {err} > {tol}")
+                worst[f"decode {name}"] = max(worst.get(f"decode {name}", 0.0), err / tol)
     torch.cuda.synchronize()
-    info("kernel", "edge cases (other M, ragged N/K/T, f32, GQA D=128, batch 2) within "
-                   "tolerance; worst max|diff| / tol: "
+    info("kernel", "edge cases (other M, ragged N/K/T, f32, GQA D=128, batch 2, Gemma-7B heads "
+                   "at batch 1 and 8) "
+                   "within tolerance; worst max|diff| / tol: "
                    + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
 
@@ -378,9 +496,6 @@ def paged_case(torch, gen, dev, B, Hq, Hkv, D, ps, limits, n_pages, dtype, quant
     return q, cache, lim
 
 
-SERVE_LIMITS = [1, 64, 65, PROMPT_LEN, 300, MAX_SEQ_LEN, PROMPT_LEN, 64]  # B = 8 rows
-
-
 def check_serving_kernels(torch, dev) -> dict[str, dict]:
     """Phase 3, the serving kernels at the serving shapes (8 rows, Gemma-2B
     heads, limits SERVE_LIMITS): paged attention over a 65-page pool of
@@ -398,17 +513,26 @@ def check_serving_kernels(torch, dev) -> dict[str, dict]:
     B, Hq, Hkv, D = SERVE_SLOTS, 8, 1, 256
     results = {}
 
-    def held(name, desc, kernel, plain):
+    live = sum(SERVE_LIMITS)
+
+    def held(name, desc, kernel, plain, kv_bytes_per_key, table_bytes=0):
+        """No single PyTorch call computes paged or int8 attention: no
+        library time. The bound counts the live keys' K and V (int8: and
+        their f32 scales), q, out, the limits and any page table."""
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         ms = device_ms(torch, kernel)
         per_call = call_ms(torch, kernel)
         plain_ms = device_ms(torch, plain)
+        bound_ms, bound_by = bound(live * Hkv * kv_bytes_per_key + 2 * B * Hq * D * 2 + B * 4
+                                   + table_bytes, 4 * Hq * D * live, BF16_FLOPS)
         info("kernel", f"{name} {desc}: max|diff|={err:.3e} tol={tol:.1e}; device ms: kernel "
-                       f"{ms:.4f} plain {plain_ms:.4f}; kernel per back-to-back call {per_call:.4f} ms")
+                       f"{ms:.4f} plain {plain_ms:.4f}; bound {bound_ms:.6f} ({bound_by}); "
+                       f"kernel per back-to-back call {per_call:.4f} ms")
         require(bool(torch.isfinite(got).all()) and err <= tol, f"{name}: max|diff| {err} > tol {tol}")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None,
                          "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} {desc}"}
 
     for quantized in (False, True):
@@ -417,7 +541,8 @@ def check_serving_kernels(torch, dev) -> dict[str, dict]:
         held("paged_attention_int8" if quantized else "paged_attention",
              f"ps={PAGE} pool=65 limits={SERVE_LIMITS}",
              lambda: pat.paged_decode_attention(q, cache, 0, lim),
-             lambda: pat.paged_decode_attention_plain(q, cache, 0, lim))
+             lambda: pat.paged_decode_attention_plain(q, cache, 0, lim),
+             2 * (D + 4) if quantized else 2 * D * 2, cache.page_table.numel() * 4)
     q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
     k, v = ((torch.randn(B, Hkv, MAX_SEQ_LEN, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
             for _ in range(2))
@@ -425,7 +550,7 @@ def check_serving_kernels(torch, dev) -> dict[str, dict]:
     lim = torch.tensor(SERVE_LIMITS, dtype=torch.int32, device=dev)
     held("decode_attention_int8", f"S={MAX_SEQ_LEN} limits={SERVE_LIMITS}",
          lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs),
-         lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs))
+         lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs), 2 * (D + 4))
     return results
 
 
@@ -535,9 +660,9 @@ def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
     one) and `decode_steps` decode forwards whose attention is
     `decode_kernel` (a counter name of `_counters`)."""
     forwards = prefills + decode_steps
-    if fmt == "q4_0":  # fused q|k|v, out, fused gate|up, down; tied head
-        per_forward = {"q4_0_matmul": 4 * cfg.n_layers + 1}
-    else:  # q4_k: q, k, out, fused gate|up, down; q6_k: attn_v, tied head
+    if fmt in ("q4_0", "q8_0"):  # fused q|k|v, out, fused gate|up, down; tied head
+        per_forward = {f"{fmt}_matmul": 4 * cfg.n_layers + 1}
+    else:  # q4_k_m: q4_k q, k, out, fused gate|up, down; q6_k attn_v, tied head
         per_forward = {"q4_k_matmul": 5 * cfg.n_layers, "q6_k_matmul": cfg.n_layers + 1}
     counts = {name: 0 for name, _, _ in _counters()}
     counts.update({name: n * forwards for name, n in per_forward.items()})
@@ -546,15 +671,21 @@ def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
     return counts
 
 
-def main_path(torch, dev, card: str, fmt: str) -> dict[str, int]:
-    """Phase 4 (q4_0) and 4b (q4_k_m): full-width Gemma-2B, prefill + 64
-    greedy tokens."""
-    from gemma_tpu_torch.models import GEMMA_2B
+def model_config(name: str):
+    """GEMMA_2B or GEMMA_7B of gemma_tpu_torch.models by its printed name."""
+    from gemma_tpu_torch.models import GEMMA_2B, GEMMA_7B
+
+    return {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B}[name]
+
+
+def main_path(torch, dev, card: str, model_name: str, fmt: str) -> dict[str, int]:
+    """Phases 4 (Gemma-2B q4_0), 4b (Gemma-2B q4_k_m) and 4c (Gemma-7B
+    q8_0): the model at full width, prefill + NEW_TOKENS greedy tokens."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import make_params
 
-    cfg = GEMMA_2B
-    phase = f"main {fmt}"
+    cfg = model_config(model_name)
+    phase = f"main {model_name} {fmt}"
     model = make_params(cfg, fmt, seed=0, device=dev)
     weight_gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
     eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=1))
@@ -579,7 +710,7 @@ def main_path(torch, dev, card: str, fmt: str) -> dict[str, int]:
     last = eng.decode_step(torch.tensor([toks[-1]], device=dev), cache)[0]
     require(bool(torch.isfinite(last).all()), "decode logits are not finite")
     expected = expected_launches(cfg, fmt)
-    info(phase, f"Gemma-2B {fmt} ({weight_gb:.3f} GB of weights on the card), prompt "
+    info(phase, f"{model_name} {fmt} ({weight_gb:.3f} GB of weights on the card), prompt "
                 f"{PROMPT_LEN} tokens: prefill {t_prefill * 1e3:.2f} ms, decode {NEW_TOKENS} "
                 f"tokens in {t_decode:.3f} s = {NEW_TOKENS / t_decode:.2f} tok/s on {card}; "
                 f"launches {counts} (expected {expected})")
@@ -618,21 +749,34 @@ SERVE_RUNS = (
     ("paged int8", {"paged": True, "page_size": PAGE, "kv_quantized": True, "prefill_chunk": PAGE},
      "paged_attention_int8"),
 )
+# phase 6b's runs: dense bf16, then the same requests in a shuffled order
+# admitted every 4 decode steps, so each request decodes in another slot
+# beside other requests; rows are computed independently, so every stream
+# must equal the first run's
+SERVE_7B_RUNS = (
+    SERVE_RUNS[0],
+    ("dense bf16, shuffled, block 4", {"block": 4, "shuffle_seed": 1}, "decode_attention"),
+)
 
 
-def serving(torch, dev, card: str) -> dict[str, dict[str, int]]:
-    """Phase 6: `serve` at full Gemma-2B width, q4_0 from make_params(seed=0),
-    SERVE_SLOTS slots, max_seq_len 512, blocks of SERVE_BLOCK, greedy, over
-    the four caches of SERVE_RUNS. Returns each run's launch counts."""
-    from gemma_tpu_torch.models import GEMMA_2B
+def serving(torch, dev, card: str, model_name: str, fmt: str,
+            runs=SERVE_RUNS) -> dict[str, dict[str, int]]:
+    """Phases 6 (Gemma-2B q4_0, the four caches of SERVE_RUNS) and 6b
+    (Gemma-7B q8_0, SERVE_7B_RUNS): `serve` at full width, weights from
+    make_params(seed=0), SERVE_SLOTS slots, max_seq_len 512, blocks of
+    SERVE_BLOCK (or a run's "block"), greedy; a run with "shuffle_seed"
+    submits the requests shuffled and must give the first run's streams.
+    Returns each run's launch counts."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
     from gemma_tpu_torch.testing import make_params
 
-    cfg = GEMMA_2B
-    model = make_params(cfg, "q4_0", seed=0, device=dev)
+    cfg = model_config(model_name)
+    model = make_params(cfg, fmt, seed=0, device=dev)
     streams, counts_by_run = {}, {}
-    for name, options, decode_kernel in SERVE_RUNS:
-        phase = f"serve {name}"
+    for name, options, decode_kernel in runs:
+        phase = f"serve {model_name} {fmt} {name}"
+        options = dict(options)
+        block, shuffle_seed = options.pop("block", SERVE_BLOCK), options.pop("shuffle_seed", None)
         eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS,
                                               **options))
         if not streams:  # first launches and allocations of the serving path
@@ -640,9 +784,11 @@ def serving(torch, dev, card: str) -> dict[str, dict[str, int]]:
             serve(eng, [Request(r.id, r.prompt, 8) for r in warm], block=SERVE_BLOCK)
             torch.cuda.synchronize()
         reqs = serve_requests(cfg)
+        if shuffle_seed is not None:
+            random.Random(shuffle_seed).shuffle(reqs)
         reset_counters()
         t0 = time.perf_counter()
-        sched = serve(eng, reqs, block=SERVE_BLOCK)
+        sched = serve(eng, reqs, block=block)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counters()
@@ -655,10 +801,10 @@ def serving(torch, dev, card: str) -> dict[str, dict[str, int]]:
         chunk = options.get("prefill_chunk", 0)
         prefills = sum(-(-len(r.prompt) // chunk) if chunk and len(r.prompt) > chunk else 1
                        for r in reqs)
-        expected = expected_forward_launches(cfg, "q4_0", prefills, st["decode_steps"],
+        expected = expected_forward_launches(cfg, fmt, prefills, st["decode_steps"],
                                              decode_kernel)
-        info(phase, f"Gemma-2B q4_0, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x "
-                    f"{SERVE_NEW_TOKENS} tokens, prompts {SERVE_PROMPT_LENS}, block {SERVE_BLOCK} "
+        info(phase, f"{model_name} {fmt}, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x "
+                    f"{SERVE_NEW_TOKENS} tokens, prompts {SERVE_PROMPT_LENS}, block {block} "
                     f"on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate (tokens / wall), "
                     f"TTFT p50 {st['p50_ttft_s'] * 1e3:.1f} ms p99 {st['p99_ttft_s'] * 1e3:.1f} ms, "
                     f"wall {wall:.3f} s, decode steps {st['decode_steps']}, tokens discarded "
@@ -673,17 +819,25 @@ def serving(torch, dev, card: str) -> dict[str, dict[str, int]]:
     # quantize the prompt's K/V, and on these weights no first token moved
     firsts = {name: sum(s[i][0] == dense[i][0] for i in dense) / len(dense)
               for name, s in streams.items()}
-    same = sum(streams["paged bf16"][i] == dense[i] for i in dense) / len(dense)
-    info("serve", f"share of first tokens equal to the dense bf16 run's: {firsts}; share of "
-                  f"paged bf16 streams equal to the dense bf16 streams: {same:.3f}")
+    if "paged bf16" in streams:
+        same = sum(streams["paged bf16"][i] == dense[i] for i in dense) / len(dense)
+        info("serve", f"share of first tokens equal to the dense bf16 run's: {firsts}; share of "
+                      f"paged bf16 streams equal to the dense bf16 streams: {same:.3f}")
     require(all(v == 1.0 for v in firsts.values()), f"serve: first tokens differ across runs {firsts}")
-    serving_profile(torch, cfg, model, card)
+    for name, options, _ in runs:
+        if "shuffle_seed" in options:
+            same = sum(streams[name][i] == dense[i] for i in dense)
+            info("serve", f"{model_name} {fmt} {name}: {same} of {len(dense)} streams equal to "
+                          "the dense bf16 run's")
+            require(same == len(dense), f"serve {model_name} {fmt} {name}: {len(dense) - same} "
+                                        "streams differ from the dense bf16 run's")
+    serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
     del model
     torch.cuda.empty_cache()
     return counts_by_run
 
 
-def serving_profile(torch, cfg, model, card: str) -> None:
+def serving_profile(torch, cfg, model, card: str, label: str) -> None:
     """The first wave of the dense bf16 serving run (one request per slot)
     once more under torch.profiler (device activity only): device busy
     time against the run's wall time, and the largest kernels. Profiling
@@ -704,7 +858,7 @@ def serving_profile(torch, cfg, model, card: str) -> None:
     busy = sum(ms for ms, _ in per_kernel) / 1e3
     require(busy > 0, "the profiled serving run recorded no device time")
     steps = sched.stats()["decode_steps"]
-    info("serve dense bf16 profiled", f"{len(reqs)} requests on {card}: wall {wall:.3f} s, "
+    info(f"serve {label} dense bf16 profiled", f"{len(reqs)} requests on {card}: wall {wall:.3f} s, "
                                       f"device busy {busy:.3f} s, "
                                       f"idle share {1 - busy / wall:.3f}; {steps} decode steps; "
                                       "device s by kernel: " + "; ".join(
@@ -761,19 +915,21 @@ def tiny_serving_checks(torch, dev) -> None:
                  f"f32 serving card vs CPU, greedy streams equal: {results}")
 
 
-def tiny_checks(torch, dev, weight_type: str) -> None:
+def tiny_checks(torch, dev, weight_type: str, config_name: str) -> None:
     """Phase 5: the CLI on the card, and the card against the CPU, on a tiny
-    q4_0 or q4_k_m model (TINY_KERNEL_CONFIG: every K a multiple of 256)."""
-    from gemma_tpu_torch import cli
+    model of `config_name` in gemma_tpu_torch.testing: TINY_KERNEL_CONFIG
+    (MQA, every K a multiple of 256) for q4_0 and q4_k_m, TINY_MHA_CONFIG
+    (multi-head, q_dim != d_model) for q8_0."""
+    from gemma_tpu_torch import cli, testing
     from gemma_tpu_torch.runtime import Engine, EngineConfig
-    from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
 
+    tiny_cfg = getattr(testing, config_name)
     prompt = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
     n_new = 16
-    moved = [name for name, n in expected_launches(TINY_KERNEL_CONFIG, weight_type).items() if n]
+    moved = [name for name, n in expected_launches(tiny_cfg, weight_type).items() if n]
     with tempfile.TemporaryDirectory() as tmp:
-        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0,
-                         weight_type=weight_type)
+        path = testing.make_gguf(Path(tmp) / "tiny.gguf", tiny_cfg, seed=0,
+                                 weight_type=weight_type)
         before = read_counters()
         proc = subprocess.run(
             [sys.executable, "-m", "gemma_tpu_torch", "generate", str(path), "--device", "cuda",
@@ -809,7 +965,7 @@ def tiny_checks(torch, dev, weight_type: str) -> None:
         lcb, _ = Engine(cfg, model_cpu, EngineConfig(max_seq_len=256)).prefill([prompt])
         err_b = (lgb.cpu() - lcb).abs().max().item()
         tol_b = 5e-2 * lcb.abs().max().item()
-    info("tiny", f"{weight_type}: CLI on cuda: its {n_new} tokens' text equals the in-process "
+    info("tiny", f"{weight_type} {config_name}: CLI on cuda: its {n_new} tokens' text equals the in-process "
                  f"run's; kernels {moved} launched; card vs CPU, "
                  f"f32: prefill logits max|diff|={err:.3e} (tol {tol:.3e}), greedy streams "
                  f"{'equal' if toks_g == toks_c else 'DIFFER'}; bf16: max|diff|={err_b:.3e} "
@@ -849,19 +1005,27 @@ def run() -> dict:
     check_edge_cases(torch, dev)
     check_serving_edge_cases(torch, dev)
     done("kernels (phase 3)")
-    counts_q4_0 = main_path(torch, dev, card, "q4_0")
-    counts = main_path(torch, dev, card, "q4_k_m")
+    counts_q4_0 = main_path(torch, dev, card, "Gemma-2B", "q4_0")
+    counts = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
     counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"]
-    done("generation (phase 4)")
-    for weight_type in ("q4_0", "q4_k_m"):
-        tiny_checks(torch, dev, weight_type)
+    done("generation (phases 4, 4b)")
+    # this slice's path: q8_0, and flash and decode attention at G = 1
+    counts_7b = main_path(torch, dev, card, "Gemma-7B", "q8_0")
+    counts["q8_0_matmul"] = counts_7b["q8_0_matmul"]
+    done("Gemma-7B q8_0 generation (phase 4c)")
+    for weight_type, config_name in (("q4_0", "TINY_KERNEL_CONFIG"),
+                                     ("q4_k_m", "TINY_KERNEL_CONFIG"),
+                                     ("q8_0", "TINY_MHA_CONFIG")):
+        tiny_checks(torch, dev, weight_type, config_name)
     tiny_serving_checks(torch, dev)
     done("tiny checks (phase 5)")
-    served = serving(torch, dev, card)  # this slice's path: its new kernels' counts below
+    served = serving(torch, dev, card, "Gemma-2B", "q4_0")
     done("serving (phase 6)")
     for name, run in (("decode_attention_int8", "dense int8"), ("paged_attention", "paged bf16"),
                       ("paged_attention_int8", "paged int8")):
         counts[name] = served[run][name]
+    serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
+    done("Gemma-7B q8_0 serving (phase 6b)")
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [

@@ -10,9 +10,10 @@ Device policy: the device of the tensor decides. A kernel wrapper given a
 CPU tensor runs its plain PyTorch version; given a CUDA tensor it launches
 the kernel or raises — there is no fallback on CUDA.
 
-Framework-free parts of the reference are imported, not copied:
-`gemma_tpu.gguf` (reader/writer), `gemma_tpu.quant.numpy_ref`,
-`gemma_tpu.tokenizer` and `gemma_tpu.native`. This package never imports jax.
+The package imports nothing of `gemma_tpu` and never imports jax: it keeps
+its own copies of the reference's framework-free modules (`gguf/`,
+`quant/numpy_ref.py`, `tokenizer/`), which tests/test_torch_gguf.py holds
+equal to the originals.
 """
 
 __version__ = "0.1.0"

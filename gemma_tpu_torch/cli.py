@@ -6,9 +6,9 @@
     python -m gemma_tpu_torch inspect  model.gguf [--json]
 
 Counterpart of the `generate`, `serve` and `inspect` subcommands of
-`gemma_tpu/cli.py`, with the shared tokenizer. `serve` reads one prompt per
-line and prints one JSON line per request on stdout and the scheduler's
-stats on stderr, as the reference does. `--device` defaults to `cuda`;
+`gemma_tpu/cli.py`, with the port's copy of its tokenizer. `serve` reads
+one prompt per line and prints one JSON line per request on stdout and the
+scheduler's stats on stderr, as the reference does. `--device` defaults to `cuda`;
 without a GPU the command fails rather than running on the CPU. `--device
 cpu` is the explicit way to run the plain PyTorch path.
 """
@@ -21,23 +21,19 @@ import time
 
 
 def _device(name: str):
-    import torch
+    from .models.params import resolve_device
 
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "error: --device cuda, but no CUDA device is available "
-            "(pass --device cpu to run the plain PyTorch path)"
-        )
-    return dev
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
 
 
 def load(path, device):
     """(config, model on `device`, tokenizer) of a GGUF checkpoint."""
-    from gemma_tpu.gguf.reader import GGUFReader
-    from gemma_tpu.tokenizer.sentencepiece import Tokenizer
-
+    from .gguf.reader import GGUFReader
     from .models.params import load_params
+    from .tokenizer.sentencepiece import Tokenizer
 
     reader = GGUFReader(path)
     cfg, params = load_params(reader, device)
@@ -167,7 +163,7 @@ def _jsonable(v):
 
 def cmd_inspect(args) -> int:
     """Dump GGUF header KV pairs and tensor info."""
-    from gemma_tpu.gguf.reader import GGUFReader
+    from .gguf.reader import GGUFReader
 
     reader = GGUFReader(args.model)
     if args.json:

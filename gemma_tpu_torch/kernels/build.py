@@ -45,6 +45,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, x_dtype, qs, scales, y, M, N, K, stream
     "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, y, M, N, K, stream
+    "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, qs, scales, dm, y, M, N, K, stream
     "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, ql, qh, sc, d, y, M, N, K, stream

@@ -10,8 +10,8 @@ import dataclasses
 
 import torch
 
-from gemma_tpu.gguf.constants import Keys
-from gemma_tpu.gguf.reader import GGUFReader
+from ..gguf.constants import Keys
+from ..gguf.reader import GGUFReader
 
 
 @dataclasses.dataclass(frozen=True)

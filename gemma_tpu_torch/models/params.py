@@ -2,12 +2,11 @@
 
 Counterpart of `gemma_tpu/models/params.py`, with the same GGUF tensor names
 (`token_embd.weight`, `output_norm.weight`, `blk.{i}.*.weight`):
-* q4_0, q4_k and q6_k matrices become `QTensor`s in the port's layout
-  (exact f16 scales);
-* q8_0 matrices raise `NotImplementedError` (not ported yet);
+* q4_0, q8_0, q4_k and q6_k matrices become `QTensor`s in the port's
+  layout (exact f16 scales);
 * norms are f32;
 * every other type (f32, f16, bf16, q5_k, ...) is dequantized to dense bf16
-  through `gemma_tpu.native.dequantize` or `numpy_ref`;
+  through the port's `quant/numpy_ref.py`;
 * q|k|v and gate|up are fused into one matrix when their formats match
   (q4_k_m's q6_k attn_v keeps q|k|v split);
 * the head is tied to the embedding unless the file has `output.weight`.
@@ -23,10 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from gemma_tpu import native
-from gemma_tpu.gguf.reader import GGUFReader
-from gemma_tpu.quant import numpy_ref
-
+from ..gguf.reader import GGUFReader
+from ..quant import numpy_ref
 from ..quant.qtensor import QUANTIZED_TYPES, QTensor, concat_rows, from_ggml, from_jax, select_rows
 from .config import GemmaConfig
 from .gemma import Gemma
@@ -46,9 +43,7 @@ def _load_tensor(reader: GGUFReader, name: str, device, *, is_norm: bool = False
     raw = reader.tensor_raw(name)
     if not is_norm and ti.ggml_type in QUANTIZED_TYPES:
         return from_ggml(raw, ti.ggml_type, ti.shape, device)
-    x = native.dequantize(raw, ti.ggml_type, ti.shape)
-    if x is None:
-        x = numpy_ref.dequantize(raw, ti.ggml_type, ti.shape)
+    x = numpy_ref.dequantize(raw, ti.ggml_type, ti.shape)
     t = torch.from_numpy(np.asarray(x, np.float32).reshape(ti.shape))
     return t.to(device) if is_norm else t.to(torch.bfloat16).to(device)
 
@@ -70,11 +65,22 @@ def _maybe_fuse(lp: dict[str, Any], names: tuple[str, ...], fused_name: str) -> 
     lp[fused_name] = fused
 
 
-def load_params(reader: GGUFReader, device="cpu", fuse_projections: bool = True
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device where none is available
+    raises rather than running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda, but no CUDA device is available "
+                           "(pass --device cpu, or device=\"cpu\", to run the plain PyTorch path)")
+    return dev
+
+
+def load_params(reader: GGUFReader, device="cuda", fuse_projections: bool = True
                 ) -> tuple[GemmaConfig, Gemma]:
-    """Read (config, model) from a GGUF file onto `device`."""
+    """Read (config, model) from a GGUF file onto `device` (the card unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
     cfg = GemmaConfig.from_gguf(reader)
-    device = torch.device(device)
     layers = []
     for i in range(cfg.n_layers):
         lp = {

@@ -3,7 +3,7 @@
 Counterpart of `gemma_tpu/ops/linear.py`. All model projections route
 through `linear`:
 * a `QTensor` goes to the op of its format (`ops.quant_matmul.quant_matmul`:
-  q4_0, q4_k or q6_k), whose wrapper runs the plain version for CPU tensors
+  q4_0, q8_0, q4_k or q6_k), whose wrapper runs the plain version for CPU tensors
   and the CUDA kernel for CUDA tensors — there is no dequant-and-dot
   fallback on CUDA;
 * a dense [out, in] weight goes to `torch.matmul` in f32 (products of bf16

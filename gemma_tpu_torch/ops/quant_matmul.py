@@ -4,6 +4,7 @@ Counterpart of `gemma_tpu/ops/quant_matmul.py` `quant_matmul`. One kernel
 per format, each under `csrc/` with a header that says which Pallas kernel
 it replaces, what bounds it on the H100 and how the design answers that:
 * q4_0: `csrc/q4_0_matmul.cu` (replaces `_q4_0_kernel`);
+* q8_0: `csrc/q8_0_matmul.cu` (replaces `_q8_0_kernel`);
 * q4_k: `csrc/q4_k_matmul.cu` (replaces `_q4_k_kernel`);
 * q6_k: `csrc/q6_k_matmul.cu` (replaces `_q6_k_kernel` and, on the
   reference's deep-K int8 layout, `_q6_k_v4_kernel`).
@@ -13,7 +14,9 @@ M = 8 (`quant_matmul.py:315`):
 * M <= 8 (decode), or f32 activations (evaluation mode): weights and x in
   f32, f32 accumulation;
 * M > 8 with bf16 activations (prefill): bf16 x against bf16-rounded
-  weights, f32 accumulation. q4_0 rounds w = d * (q - 8). q4_k rounds
+  weights, f32 accumulation. q4_0 rounds w = d * (q - 8), q8_0 w = d * q
+  (the reference's scales are ggml's f16 rounded to bf16, the port's the
+  exact f16: ROADMAP section 3, expected differences). q4_k rounds
   only its scale part, bf16(d*sc * (q - 8)), and adds the per-32 affine
   part sum(x) * (8 d*sc - dmin*mn) in f32, the reference's rounding point
   (`quant_matmul.py:131-143`; a bf16-rounded offset is a perplexity bias).
@@ -40,7 +43,7 @@ def _f32_regime(x2: torch.Tensor) -> bool:
 
 def _dense_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x @ dequant(qt).T with f32 weights, or bf16-rounded weights and bf16
-    x at M > 8 (q4_0, q6_k)."""
+    x at M > 8 (q4_0, q8_0, q6_k)."""
     N, K = qt.shape
     x2 = x.reshape(-1, K)
     if _f32_regime(x2):
@@ -52,6 +55,11 @@ def _dense_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def q4_0_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """The plain PyTorch version: x [..., K] -> [..., N] f32."""
+    return _dense_plain(x, qt)
+
+
+def q8_0_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """The plain PyTorch version: x [..., K] -> [..., N] f32."""
     return _dense_plain(x, qt)
 
@@ -126,6 +134,16 @@ def q4_0_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return _launch(q4_0_matmul, "gt_q4_0_matmul", x, qt)
 
 
+def q8_0_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """y = x @ dequant(qt).T in f32 for a q8_0 weight; x [..., K] bf16 or f32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    if _checked("q8_0", x, qt):
+        return q8_0_matmul_plain(x, qt)
+    return _launch(q8_0_matmul, "gt_q8_0_matmul", x, qt)
+
+
 def q4_k_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """y = x @ dequant(qt).T in f32 for a q4_k weight; x [..., K] bf16 or f32.
 
@@ -147,11 +165,13 @@ def q6_k_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 q4_0_matmul.launches = 0
+q8_0_matmul.launches = 0
 q4_k_matmul.launches = 0
 q6_k_matmul.launches = 0
 
-MATMULS = {"q4_0": q4_0_matmul, "q4_k": q4_k_matmul, "q6_k": q6_k_matmul}
-PLAIN = {"q4_0": q4_0_matmul_plain, "q4_k": q4_k_matmul_plain, "q6_k": q6_k_matmul_plain}
+MATMULS = {"q4_0": q4_0_matmul, "q8_0": q8_0_matmul, "q4_k": q4_k_matmul, "q6_k": q6_k_matmul}
+PLAIN = {"q4_0": q4_0_matmul_plain, "q8_0": q8_0_matmul_plain, "q4_k": q4_k_matmul_plain,
+         "q6_k": q6_k_matmul_plain}
 
 
 def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

@@ -14,6 +14,9 @@ q4_0   qs u8 [N, K/2]: ggml's 16 payload bytes of each      4.5
        is the low nibble of byte j, element j + 16 its
        high nibble), unsigned with the zero point 8;
        scales f16 [N, K/32]: ggml's exact f16 scales
+q8_0   qs i8 [N, K]: ggml's 32 payload bytes of each        8.5
+       32-block, in order; scales f16 [N, K/32]: ggml's
+       exact f16 scales
 q4_k   qs u8 [N, K/2]: ggml's 128 payload bytes of each     4.5
        256-superblock (32-byte chunk c holds sub-block 2c
        in its low nibbles and 2c + 1 in its high nibbles);
@@ -27,13 +30,11 @@ q6_k   ql u8 [N, K/2], qh u8 [N, K/4], sc i8 [N, K/16],     6.5625
 
 Each row's K is contiguous, so a warp walking one output row issues
 16-byte coalesced loads. The density is ggml's wire density and every scale
-stays exact: `dequant` is bit-identical to `gemma_tpu.quant.numpy_ref`
-(the same f32 operations in the same order), and packing is a slice of
-ggml's block bytes. The 12-byte q4_k table stays packed (4.5 bpw rather
-than 4.625 unpacked): the kernels decode it in registers.
-
-q8_0 has no port layout yet; it raises `NotImplementedError` naming the
-ROADMAP item that ports it.
+stays exact: `dequant` is bit-identical to `numpy_ref` (the port's copy of
+the reference's ggml codecs: the same f32 operations in the same order),
+and packing is a slice of ggml's block bytes. The 12-byte q4_k table stays
+packed (4.5 bpw rather than 4.625 unpacked): the kernels decode it in
+registers.
 """
 from __future__ import annotations
 
@@ -41,34 +42,36 @@ import numpy as np
 import torch
 from torch import nn
 
-from gemma_tpu.gguf.constants import GGMLType
-from gemma_tpu.quant import numpy_ref
+from ..gguf.constants import GGMLType
+from . import numpy_ref
 
 QGROUP = 32  # ggml QK4_0: elements per q4_0 block (one f16 scale)
 QK_K = 256  # ggml QK_K: elements per q4_k / q6_k superblock
 Q4_0_BLOCK_BYTES = 18  # 2-byte f16 scale + 16 payload bytes
+Q8_0_BLOCK_BYTES = 34  # 2-byte f16 scale + 32 int8 payload bytes
 Q4_K_BLOCK_BYTES = 144  # d, dmin (f16), 12-byte sc/mn table, 128 payload bytes
 Q6_K_BLOCK_BYTES = 210  # ql 128, qh 64, sc 16 (int8), d (f16)
 
-# fmt -> (ggml block size, ((buffer, dtype, trailing shape for a given K), ...));
-# the first buffer is the payload that K is read from (K/2 bytes a row)
+# fmt -> (ggml block size, K per payload column,
+#         ((buffer, dtype, trailing shape for a given K), ...));
+# the first buffer is the payload that K is read from
 FORMATS = {
-    "q4_0": (QGROUP, (("qs", torch.uint8, lambda k: (k // 2,)),
-                      ("scales", torch.float16, lambda k: (k // QGROUP,)))),
-    "q4_k": (QK_K, (("qs", torch.uint8, lambda k: (k // 2,)),
-                    ("scales", torch.uint8, lambda k: (k // QK_K, 12)),
-                    ("dm", torch.float16, lambda k: (k // QK_K, 2)))),
-    "q6_k": (QK_K, (("ql", torch.uint8, lambda k: (k // 2,)),
-                    ("qh", torch.uint8, lambda k: (k // 4,)),
-                    ("sc", torch.int8, lambda k: (k // 16,)),
-                    ("d", torch.float16, lambda k: (k // QK_K,)))),
+    "q4_0": (QGROUP, 2, (("qs", torch.uint8, lambda k: (k // 2,)),
+                         ("scales", torch.float16, lambda k: (k // QGROUP,)))),
+    "q8_0": (QGROUP, 1, (("qs", torch.int8, lambda k: (k,)),
+                         ("scales", torch.float16, lambda k: (k // QGROUP,)))),
+    "q4_k": (QK_K, 2, (("qs", torch.uint8, lambda k: (k // 2,)),
+                       ("scales", torch.uint8, lambda k: (k // QK_K, 12)),
+                       ("dm", torch.float16, lambda k: (k // QK_K, 2)))),
+    "q6_k": (QK_K, 2, (("ql", torch.uint8, lambda k: (k // 2,)),
+                       ("qh", torch.uint8, lambda k: (k // 4,)),
+                       ("sc", torch.int8, lambda k: (k // 16,)),
+                       ("d", torch.float16, lambda k: (k // QK_K,)))),
 }
 
-# formats of the reference's quantized path that the port has not laid out
-# yet, with the ROADMAP queue item that ports each
-_NOT_PORTED = {GGMLType.Q8_0: "q8_0 (ROADMAP queue 1, item 2: q8_0)"}
-_GGML_FMT = {GGMLType.Q4_0: "q4_0", GGMLType.Q4_K: "q4_k", GGMLType.Q6_K: "q6_k"}
-QUANTIZED_TYPES = frozenset(_NOT_PORTED) | frozenset(_GGML_FMT)
+_GGML_FMT = {GGMLType.Q4_0: "q4_0", GGMLType.Q8_0: "q8_0", GGMLType.Q4_K: "q4_k",
+             GGMLType.Q6_K: "q6_k"}
+QUANTIZED_TYPES = frozenset(_GGML_FMT)
 
 
 class QTensor(nn.Module):
@@ -80,13 +83,13 @@ class QTensor(nn.Module):
         super().__init__()
         if fmt not in FORMATS:
             raise ValueError(f"unknown QTensor format {fmt!r}")
-        block, spec = FORMATS[fmt]
+        block, k_per_col, spec = FORMATS[fmt]
         if set(buffers) != {name for name, _, _ in spec}:
             raise ValueError(f"{fmt} wants buffers {[n for n, _, _ in spec]}, got {sorted(buffers)}")
         payload = buffers[spec[0][0]]
         if payload.dim() != 2:
-            raise ValueError(f"{fmt} payload must be [N, K/2], got {tuple(payload.shape)}")
-        n, k = int(payload.shape[0]), 2 * int(payload.shape[1])
+            raise ValueError(f"{fmt} payload must be [N, K/{k_per_col}], got {tuple(payload.shape)}")
+        n, k = int(payload.shape[0]), k_per_col * int(payload.shape[1])
         if k % block:
             raise ValueError(f"{fmt} needs in-features divisible by {block}, got {k}")
         for name, dtype, trailing in spec:
@@ -152,6 +155,15 @@ def pack_q4_0(raw, shape: tuple[int, int]) -> dict[str, np.ndarray]:
             "scales": _f16(b[:, :, :2]).reshape(rows, cols // QGROUP)}
 
 
+def pack_q8_0(raw, shape: tuple[int, int]) -> dict[str, np.ndarray]:
+    """ggml q8_0 bytes of an [N, K] matrix -> qs i8 [N, K] (the 32 payload
+    bytes of each block, in order), scales f16 [N, K/32]."""
+    b = _blocks(raw, shape, QGROUP, Q8_0_BLOCK_BYTES)
+    rows, cols = shape
+    return {"qs": np.ascontiguousarray(b[:, :, 2:]).view(np.int8).reshape(rows, cols),
+            "scales": _f16(b[:, :, :2]).reshape(rows, cols // QGROUP)}
+
+
 def pack_q4_k(raw, shape: tuple[int, int]) -> dict[str, np.ndarray]:
     """ggml q4_k bytes -> qs u8 [N, K/2], scales u8 [N, K/256, 12], dm f16
     [N, K/256, 2]: slices of the 144-byte superblocks."""
@@ -173,7 +185,7 @@ def pack_q6_k(raw, shape: tuple[int, int]) -> dict[str, np.ndarray]:
             "d": _f16(b[:, :, 208:210]).reshape(rows, cols // QK_K)}
 
 
-_PACKERS = {"q4_0": pack_q4_0, "q4_k": pack_q4_k, "q6_k": pack_q6_k}
+_PACKERS = {"q4_0": pack_q4_0, "q8_0": pack_q8_0, "q4_k": pack_q4_k, "q6_k": pack_q6_k}
 
 
 def _to_qtensor(fmt: str, arrays: dict[str, np.ndarray], device) -> QTensor:
@@ -183,10 +195,6 @@ def _to_qtensor(fmt: str, arrays: dict[str, np.ndarray], device) -> QTensor:
 
 def from_ggml(raw, ggml_type: GGMLType, shape: tuple[int, int], device) -> QTensor:
     """A ggml payload of the quantized path -> QTensor on `device`."""
-    if ggml_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{_NOT_PORTED[ggml_type]} is not ported to gemma_tpu_torch yet"
-        )
     if ggml_type not in _GGML_FMT:
         raise ValueError(f"{ggml_type.name} is not a quantized-path format")
     fmt = _GGML_FMT[ggml_type]
@@ -211,6 +219,13 @@ def _dequant_q4_0(qs, scales):
     lead = qs.shape[:-1]
     blocks = qs.reshape(*lead, -1, 16)
     q = torch.cat([blocks & 0x0F, blocks >> 4], dim=-1).to(torch.float32) - 8.0
+    return (q * scales.to(torch.float32)[..., None]).reshape(*lead, -1)
+
+
+def _dequant_q8_0(qs, scales):
+    """f32 scale * q, [..., K] (numpy_ref.dequant_q8_0)."""
+    lead = qs.shape[:-1]
+    q = qs.to(torch.float32).reshape(*lead, -1, QGROUP)
     return (q * scales.to(torch.float32)[..., None]).reshape(*lead, -1)
 
 
@@ -260,7 +275,8 @@ def _dequant_q6_k(ql, qh, sc, d):
     return (scale[..., None] * q).reshape(*lead, -1)
 
 
-_DEQUANT = {"q4_0": _dequant_q4_0, "q4_k": _dequant_q4_k, "q6_k": _dequant_q6_k}
+_DEQUANT = {"q4_0": _dequant_q4_0, "q8_0": _dequant_q8_0, "q4_k": _dequant_q4_k,
+            "q6_k": _dequant_q6_k}
 
 
 def dequant(qt: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -315,6 +331,15 @@ def from_jax_q4_0(arrays: dict[str, np.ndarray], device="cpu") -> QTensor:
     qs = (u[:, :, :16] | (u[:, :, 16:] << 4)).reshape(n, k // 2)
     sc16 = _exact_f16(_bf16_bits_to_f32(arrays["scales"]).T, "q4_0 scales")
     return _to_qtensor("q4_0", {"qs": qs, "scales": sc16}, device)
+
+
+def from_jax_q8_0(arrays: dict[str, np.ndarray], device="cpu") -> QTensor:
+    """Convert a reference q8_0 QTensor (`qs` i8 [K, N], `scales` bf16
+    [K/32, N]) into the port layout: transposed, with the bf16 scales it
+    rounded from ggml's f16 carried as f16 (exact; an overflow raises)."""
+    qs = np.ascontiguousarray(np.asarray(arrays["qs"]).view(np.int8).T)
+    sc16 = _exact_f16(np.ascontiguousarray(_bf16_bits_to_f32(arrays["scales"]).T), "q8_0 scales")
+    return _to_qtensor("q8_0", {"qs": qs, "scales": sc16}, device)
 
 
 def _superscale(rows_bf16: np.ndarray, hi: int, lo: int) -> np.ndarray:
@@ -393,9 +418,10 @@ def from_jax(fmt: str, arrays: dict[str, np.ndarray], device="cpu") -> QTensor:
     """A reference QTensor (`fmt`, numpy `arrays`) -> the port's QTensor."""
     if fmt == "q4_0":
         return from_jax_q4_0(arrays, device)
+    if fmt == "q8_0":
+        return from_jax_q8_0(arrays, device)
     if fmt == "q4_k":
         return from_jax_q4_k(arrays, device)
     if fmt in ("q6_k", "q6_k_v4"):
         return from_jax_q6_k(arrays, fmt, device)
-    raise NotImplementedError(f"reference format {fmt} is not ported yet "
-                              "(ROADMAP queue 1, item 2: q8_0)")
+    raise ValueError(f"unknown reference format {fmt!r}")

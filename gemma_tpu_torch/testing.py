@@ -1,8 +1,9 @@
 """Test and smoke fixtures: fabricate Gemma checkpoints without jax.
 
-`make_gguf` writes a valid GGUF file with random weights through the
-reference's framework-free writer (a port of `gemma_tpu/testing.py`
-`make_gguf`: the same file for the same arguments; `weight_type="q4_k_m"`
+`make_gguf` writes a valid GGUF file with random weights through the port's
+copy of the reference's GGUF writer and ggml codecs (a port of
+`gemma_tpu/testing.py` `make_gguf`: the same file for the same arguments,
+which tests/test_torch_gguf.py checks; `weight_type="q4_k_m"`
 writes the tensors that `python -m gemma_tpu quantize --type q4_k_m` makes
 from the same seed's F32 file). `make_params` fabricates a model directly in
 the port's layout on a device, for full-width runs where writing and
@@ -18,13 +19,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gemma_tpu.gguf.constants import GGMLType, Keys
-from gemma_tpu.gguf.writer import GGUFWriter
-from gemma_tpu.quant import numpy_ref
-
+from .gguf.constants import GGMLType, Keys
+from .gguf.writer import GGUFWriter
 from .models.config import GemmaConfig
 from .models.gemma import Gemma
 from .models.params import tensor_from_numpy
+from .quant import numpy_ref
 from .quant.qtensor import QGROUP, QK_K, QTensor
 from .runtime.kv_cache import KVCache
 from .runtime.paged_kv import PagedKVCache
@@ -54,6 +54,13 @@ TINY_GEMMA3_CONFIG = GemmaConfig(
 # an MQA toy shaped like Gemma-2B, for driving the CLI on the card.
 TINY_KERNEL_CONFIG = GemmaConfig(
     vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+    head_dim=128, d_ff=512, context_length=256,
+)
+
+# A multi-head toy shaped like Gemma-7B: one query head per KV head (G = 1)
+# and q_dim 512 != d_model 256, at the kernels' smallest head_dim.
+TINY_MHA_CONFIG = GemmaConfig(
+    vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=4,
     head_dim=128, d_ff=512, context_length=256,
 )
 
@@ -175,12 +182,14 @@ def make_gguf(
 
 
 def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu") -> Gemma:
-    """Fabricate a q4_0 or q4_k_m model directly in the port's layout on
-    `device`, from a seeded `torch.Generator` on the device.
+    """Fabricate a q4_0, q8_0 or q4_k_m model directly in the port's layout
+    on `device`, from a seeded `torch.Generator` on the device.
 
     Payload bytes are uniform random. q4_0: each row's f16 scales are drawn
     around 1 / (4.6 sqrt(K)) (4.6 is the standard deviation of a uniform
-    nibble minus 8). q4_k_m is the reference's recipe (q4_k matrices, q6_k
+    nibble minus 8); q8_0 around 1 / (73.9 sqrt(K)) (73.9 is that of a
+    uniform int8). q4_0 and q8_0 fuse q|k|v and gate|up and tie a head of
+    their own format. q4_k_m is the reference's recipe (q4_k matrices, q6_k
     attn_v and the tied embedding/head, so q|k|v stay unfused): q4_k tables
     hold random 6-bit sc and mn, with dmin = 7.5 d so a group's mean
     offsets cancel on average; q6_k sub-scales are random int8. Each d is
@@ -189,8 +198,8 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     so a projection keeps its input's scale and activations stay finite
     through every layer. Norm weights are 1. Throughput does not depend on
     the values."""
-    if fmt not in ("q4_0", "q4_k_m"):
-        raise NotImplementedError(f"make_params fabricates q4_0 and q4_k_m, got {fmt!r}")
+    if fmt not in ("q4_0", "q8_0", "q4_k_m"):
+        raise NotImplementedError(f"make_params fabricates q4_0, q8_0 and q4_k_m, got {fmt!r}")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -205,6 +214,10 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     def q4_0(rows: int, cols: int) -> QTensor:
         return QTensor("q4_0", qs=bytes_(rows, cols // 2),
                        scales=around(1.0 / (4.6 * math.sqrt(cols)), rows, cols // QGROUP))
+
+    def q8_0(rows: int, cols: int) -> QTensor:
+        return QTensor("q8_0", qs=bytes_(rows, cols).view(torch.int8),
+                       scales=around(1.0 / (73.9 * math.sqrt(cols)), rows, cols // QGROUP))
 
     def q4_k(rows: int, cols: int) -> QTensor:
         # random table bytes are random 6-bit sc and mn: their 16 fields
@@ -224,12 +237,13 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
 
     def layer() -> dict:
         lp = {"attn_norm": norm(cfg.d_model), "ffn_norm": norm(cfg.d_model)}
-        if fmt == "q4_0":
+        if fmt in ("q4_0", "q8_0"):
+            mat = q4_0 if fmt == "q4_0" else q8_0
             return lp | {
-                "attn_qkv": q4_0(cfg.q_dim + 2 * cfg.kv_dim, cfg.d_model),
-                "attn_output": q4_0(cfg.d_model, cfg.q_dim),
-                "ffn_gate_up": q4_0(2 * cfg.d_ff, cfg.d_model),
-                "ffn_down": q4_0(cfg.d_model, cfg.d_ff),
+                "attn_qkv": mat(cfg.q_dim + 2 * cfg.kv_dim, cfg.d_model),
+                "attn_output": mat(cfg.d_model, cfg.q_dim),
+                "ffn_gate_up": mat(2 * cfg.d_ff, cfg.d_model),
+                "ffn_down": mat(cfg.d_model, cfg.d_ff),
             }
         return lp | {
             "attn_q": q4_k(cfg.q_dim, cfg.d_model),
@@ -241,7 +255,7 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
         }
 
     layers = [layer() for _ in range(cfg.n_layers)]
-    embed = (q4_0 if fmt == "q4_0" else q6_k)(cfg.vocab_size, cfg.d_model)
+    embed = {"q4_0": q4_0, "q8_0": q8_0, "q4_k_m": q6_k}[fmt](cfg.vocab_size, cfg.d_model)
     return Gemma(cfg, embed=embed, final_norm=norm(cfg.d_model), layers=layers)
 
 

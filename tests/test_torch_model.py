@@ -28,6 +28,12 @@ tolerances:
 * bf16: 5e-2 — the reference's XLA path rounds each whole dequantized
   weight to bf16, the port keeps f32 weights at M <= 8 and the q4_k affine
   part in f32 above (measured <= 1.5e-2); prefill top-1 must agree.
+
+The q8_0 slice runs `TINY_CONFIG` and `TINY_MHA_CONFIG` (multi-head, one
+query head per KV head, q_dim != d_model, as Gemma-7B) from a q8_0 GGUF,
+with the q4_0 tolerances: the reference rounds q8_0 scales to bf16 as it
+rounds q4_0's, and the port keeps ggml's f16 (`load_params`) or carries the
+reference's bf16 values (`from_jax_params`).
 """
 import dataclasses
 
@@ -48,6 +54,7 @@ from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache, Scheduler, serve
 from gemma_tpu_torch.testing import TINY_CONFIG as PORT_TINY_CONFIG
+from gemma_tpu_torch.testing import TINY_MHA_CONFIG
 from gemma_tpu_torch.testing import make_gguf as port_make_gguf
 from gemma_tpu_torch.testing import make_params
 
@@ -55,6 +62,7 @@ ARCHS = {"gemma": TINY_CONFIG, "gemma2": TINY_GEMMA2_CONFIG, "gemma3": TINY_GEMM
 # every K a multiple of 256 (the q4_k / q6_k superblock)
 KQUANT_WIDTHS = dict(d_model=256, head_dim=64, d_ff=512)
 PROMPT = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13]
+Q8_0_CONFIGS = {"tiny": PORT_TINY_CONFIG, "tiny_mha": TINY_MHA_CONFIG}
 
 
 @pytest.fixture(autouse=True)
@@ -74,7 +82,7 @@ def models(tmp_path_factory):
                              weight_type=GGMLType.Q4_0, seed=7, arch=arch)
             reader = GGUFReader(path)
             jcfg, jparams = jax_load_params(reader)
-            tcfg, from_gguf = load_params(reader)
+            tcfg, from_gguf = load_params(reader, device="cpu")
             from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
             cache[arch] = (jcfg, jparams, tcfg, from_jax, from_gguf)
         return cache[arch]
@@ -98,7 +106,7 @@ def q4_k_m_models(tmp_path_factory):
             assert args.fn(args) == 0
             reader = GGUFReader(path)
             jcfg, jparams = jax_load_params(reader)
-            tcfg, from_gguf = load_params(reader)
+            tcfg, from_gguf = load_params(reader, device="cpu")
             from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
             cache[arch] = (path, d / "ref.gguf", (jcfg, jparams, tcfg, from_jax, from_gguf))
         return cache[arch]
@@ -168,7 +176,7 @@ def test_dense_checkpoint_matches_reference(tmp_path):
     path = make_gguf(tmp_path / "f32.gguf", TINY_CONFIG, weight_type=GGMLType.F32, seed=3)
     reader = GGUFReader(path)
     jcfg, jparams = jax_load_params(reader)
-    tcfg, from_gguf = load_params(reader)
+    tcfg, from_gguf = load_params(reader, device="cpu")
     from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
     assert from_gguf.layers[0].attn_qkv.dtype == torch.bfloat16
     jc, tc = (dataclasses.replace(c, activation_dtype="float32") for c in (jcfg, tcfg))
@@ -283,5 +291,73 @@ def test_make_params_q4_k_m_recipe():
     assert layer.attn_v.fmt == "q6_k" and layer.ffn_gate_up.fmt == "q4_k"
     assert not layer.has("attn_qkv")
     eng = Engine(cfg, model, EngineConfig(max_seq_len=32))
+    logits, _ = eng.prefill([PROMPT])
+    assert bool(torch.isfinite(logits).all()) and float(logits.std()) > 0
+
+
+@pytest.fixture(scope="module")
+def q8_0_models(tmp_path_factory):
+    """(jcfg, jparams, tcfg, from_jax, from_gguf) of a q8_0 GGUF per config."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            path = port_make_gguf(tmp_path_factory.mktemp(f"{name}_q8_0") / "m.gguf",
+                                  Q8_0_CONFIGS[name], weight_type="q8_0", seed=7)
+            reader = GGUFReader(path)
+            jcfg, jparams = jax_load_params(reader)
+            tcfg, from_gguf = load_params(reader, device="cpu")
+            from_jax = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+            cache[name] = (jcfg, jparams, tcfg, from_jax, from_gguf)
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(Q8_0_CONFIGS))
+def test_q8_0_layout_matches_reference(q8_0_models, name):
+    """q|k|v and gate|up fuse, as in the reference, and the tied embedding
+    is q8_0 with its vocab padding undone."""
+    jcfg, jparams, tcfg, from_jax, from_gguf = q8_0_models(name)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert jparams["layers"][0]["attn_qkv"].fmt == "q8_0"
+    for model in (from_jax, from_gguf):
+        layer = model.layers[0]
+        assert layer.attn_qkv.fmt == layer.ffn_gate_up.fmt == layer.attn_output.fmt == "q8_0"
+        assert layer.attn_qkv.shape == (tcfg.q_dim + 2 * tcfg.kv_dim, tcfg.d_model)
+        assert layer.attn_output.shape == (tcfg.d_model, tcfg.q_dim)
+        assert model.embed.fmt == "q8_0" and model.embed.shape == (tcfg.vocab_size, tcfg.d_model)
+
+
+@pytest.mark.parametrize("name", list(Q8_0_CONFIGS))
+def test_q8_0_f32_prefill_logits_and_greedy_stream(q8_0_models, name):
+    je, te, ge = _engines(lambda _: q8_0_models(name), name, "float32")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    assert _rel_err(te.prefill([PROMPT])[0][0], ref) <= 1e-5
+    assert _rel_err(ge.prefill([PROMPT])[0][0], ref) <= 2e-2
+    ref_toks = je.generate([PROMPT], 16)[0]
+    assert len(ref_toks) == 16
+    assert te.generate([PROMPT], 16)[0] == ref_toks
+    assert ge.generate([PROMPT], 16)[0] == ref_toks
+
+
+@pytest.mark.parametrize("name", list(Q8_0_CONFIGS))
+def test_q8_0_bf16_prefill_logits_and_top1(q8_0_models, name):
+    je, te, ge = _engines(lambda _: q8_0_models(name), name, "bfloat16")
+    ref = np.asarray(je.prefill([PROMPT])[0][0])
+    for eng in (te, ge):
+        got = eng.prefill([PROMPT])[0][0]
+        assert _rel_err(got, ref) <= 5e-2
+        assert int(got.argmax()) == int(ref.argmax())
+
+
+def test_make_params_q8_0():
+    """The fabricated q8_0 model fuses q|k|v and gate|up, ties a q8_0 head,
+    and stays finite on the multi-head geometry."""
+    model = make_params(TINY_MHA_CONFIG, "q8_0", seed=0)
+    layer = model.layers[0]
+    assert model.embed.fmt == layer.attn_qkv.fmt == layer.ffn_gate_up.fmt == "q8_0"
+    assert layer.attn_qkv.qs.dtype == torch.int8
+    eng = Engine(TINY_MHA_CONFIG, model, EngineConfig(max_seq_len=32))
     logits, _ = eng.prefill([PROMPT])
     assert bool(torch.isfinite(logits).all()) and float(logits.std()) > 0

@@ -1,5 +1,6 @@
-"""Package-level checks of gemma_tpu_torch: no jax, the CLI, the kernel build,
-and chip_smoke.py's refusal to run without a GPU."""
+"""Package-level checks of gemma_tpu_torch: no jax and nothing of the JAX
+package, the CLI, the loader's device, the kernel build, and chip_smoke.py's
+refusal to run without a GPU."""
 import json
 import os
 import re
@@ -21,6 +22,7 @@ PKG = ROOT / "gemma_tpu_torch"
 _NO_JAX_RUN = r"""
 import importlib, json, pkgutil, runpy, sys
 sys.modules["jax"] = None  # any import of jax now fails
+sys.modules["gemma_tpu"] = None  # and any import of the JAX package
 import gemma_tpu_torch
 for m in pkgutil.walk_packages(gemma_tpu_torch.__path__, "gemma_tpu_torch."):
     importlib.import_module(m.name)
@@ -33,6 +35,8 @@ try:
 except SystemExit as e:
     assert not e.code, e.code
 print(json.dumps({"jax": "jax" in sys.modules and sys.modules["jax"] is not None,
+                  "gemma_tpu": any(m == "gemma_tpu" or m.startswith("gemma_tpu.")
+                                   for m, mod in sys.modules.items() if mod is not None),
                   "ml_dtypes": "ml_dtypes" in sys.modules}), file=sys.stderr)
 """
 
@@ -43,7 +47,8 @@ def test_runs_end_to_end_with_jax_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path / "tiny.gguf")],
                           cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"jax": False, "ml_dtypes": False}
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"jax": False, "gemma_tpu": False,
+                                                                 "ml_dtypes": False}
     assert "decode 5 tokens" in proc.stderr and "device cpu" in proc.stderr
     # the CLI prints what the library generates
     cfg, model, tok = cli.load(tmp_path / "tiny.gguf", "cpu")
@@ -64,11 +69,43 @@ def test_sources_have_no_jax_sdpa_or_compile():
         assert "torch.compile" not in text, f
 
 
+def test_sources_import_nothing_of_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports `gemma_tpu`
+    (relative imports of the port's own modules aside)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    pattern = re.compile(r"^\s*(import\s+gemma_tpu\b|from\s+gemma_tpu\b)"
+                         r"|import_module\(\s*['\"]gemma_tpu\b", re.M)
+    assert pattern.search("from gemma_tpu.gguf import GGUFReader")
+    assert not pattern.search("from gemma_tpu_torch.gguf import GGUFReader")
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+
+
+def test_load_params_defaults_to_the_card(monkeypatch, tmp_path):
+    """Without a GPU, load_params with no device fails before it reads a
+    tensor: it never loads onto the CPU. The CLI fails with its message."""
+    from gemma_tpu_torch.gguf import GGUFReader
+    from gemma_tpu_torch.models import load_params
+    from gemma_tpu_torch.testing import TINY_CONFIG, make_gguf
+
+    path = make_gguf(tmp_path / "t.gguf", TINY_CONFIG)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device") as err:
+        load_params(GGUFReader(path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_params(object())  # fails before reading anything of the file
+    with pytest.raises(SystemExit, match="error: " + re.escape(str(err.value))):
+        cli.main(["generate", str(path)])
+    cfg, model = load_params(GGUFReader(path), device="cpu")
+    assert cfg.n_layers == TINY_CONFIG.n_layers and model.embed.device.type == "cpu"
+
+
 def test_kernel_sources_note_what_they_replace():
     notes = [("q4_0_matmul.cu", "_q4_0_kernel"), ("decode_attention.cu", "_decode_kernel"),
              ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
              ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel"),
-             ("paged_attention.cu", "_paged_kernel")]
+             ("paged_attention.cu", "_paged_kernel"), ("q8_0_matmul.cu", "_q8_0_kernel")]
     for name, tpu_kernel in notes:
         text = (PKG / "csrc" / name).read_text()
         assert re.search(rf"Replaces .*`{tpu_kernel}`", text, re.S), name
@@ -94,8 +131,9 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in build.sources()} >= {"q4_0_matmul.cu", "decode_attention.cu",
                                                  "flash_attention.cu", "q4_k_matmul.cu",
                                                  "q6_k_matmul.cu", "paged_attention.cu",
-                                                 "common.cuh"}
-    assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention"} <= set(build.SIGNATURES)
+                                                 "q8_0_matmul.cu", "common.cuh"}
+    assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention",
+            "gt_q8_0_matmul"} <= set(build.SIGNATURES)
 
 
 def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):

@@ -1,14 +1,17 @@
-"""gemma_tpu_torch q4_0, q4_k and q6_k layouts against the reference's codecs.
+"""gemma_tpu_torch q4_0, q8_0, q4_k and q6_k layouts against the reference's
+codecs.
 
 Tolerances:
-* none for dequant against `numpy_ref.dequantize` from the GGUF bytes: the
-  port computes the same f32 operations in the same order (q4_0
-  scale * (q - 8), q4_k (d * sc) * q - dmin * mn, q6_k (d * sc) * q) from
-  ggml's exact f16 scales, so every value is bit-exact;
+* none for dequant against `numpy_ref.dequantize` from the GGUF bytes (the
+  reference's and the port's copy): the port computes the same f32
+  operations in the same order (q4_0 scale * (q - 8), q8_0 scale * q, q4_k
+  (d * sc) * q - dmin * mn, q6_k (d * sc) * q) from ggml's exact f16
+  scales, so every value is bit-exact;
 * none for the `from_jax_*` converters: they rebuild ggml's block bytes
   from the reference's arrays (its hi/lo bf16 superscales are exact) and
   must reproduce the port's packing of the original bytes exactly;
-* none against the JAX q4_0 and q6_k `dequant` (the same products); the
+* none against the JAX q4_0, q8_0 and q6_k `dequant` (the same products;
+  `from_jax_q8_0` carries the reference's bf16-rounded scales); the
   JAX q4_k dequant folds as sc * (q - 8) + (8 sc - mn), another rounding
   order than ggml's, so it is held within 4 f32 ulps of the largest
   weight (and one bf16 ulp after a cast to bf16).
@@ -19,6 +22,7 @@ import torch
 
 from gemma_tpu.gguf import GGMLType, GGUFReader, GGUFWriter
 from gemma_tpu.quant import numpy_ref
+from gemma_tpu_torch.quant import numpy_ref as port_numpy_ref
 from gemma_tpu.quant.qtensor import dequant as jax_dequant
 from gemma_tpu.quant.qtensor import gather_dequant as jax_gather_dequant
 from gemma_tpu.quant.qtensor import quantize_array
@@ -29,8 +33,10 @@ from gemma_tpu_torch.quant.qtensor import (
     from_ggml,
     from_jax,
     from_jax_q4_0,
+    from_jax_q8_0,
     gather_dequant,
     pack_q4_0,
+    pack_q8_0,
     pack_q4_k,
     pack_q6_k,
     select_rows,
@@ -85,11 +91,13 @@ def test_pack_keeps_ggml_block_bytes(rng):
     np.testing.assert_array_equal(scales.view(np.uint8).reshape(shape[0], -1, 2), blocks[:, :, :2])
 
 
+@pytest.mark.parametrize("fmt", ["q4_0", "q8_0"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gather_dequant_matches_rows_and_reference(dtype, rng):
+def test_gather_dequant_matches_rows_and_reference(dtype, fmt, rng):
     x = rng.normal(size=(40, 128)).astype(np.float32)
-    jqt = quantize_array(x, "q4_0")
-    qt = from_jax_q4_0({k: np.asarray(v) for k, v in jqt.arrays.items()})
+    jqt = quantize_array(x, fmt)
+    qt = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+    assert qt.fmt == fmt
     idx = np.array([[3, 0, 39], [7, 7, 12]], np.int32)
     got = gather_dequant(qt, torch.from_numpy(idx), dtype)
     assert got.shape == (2, 3, 128) and got.dtype == dtype
@@ -98,24 +106,51 @@ def test_gather_dequant_matches_rows_and_reference(dtype, rng):
     torch.testing.assert_close(got, torch.from_numpy(ref).to(dtype), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("ggml_type", [GGMLType.Q8_0])
-def test_unported_formats_raise(ggml_type, rng):
-    shape = (4, 256)
-    raw = numpy_ref.quantize(rng.normal(size=shape).astype(np.float32), ggml_type)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_ggml(raw, ggml_type, shape, "cpu")
+def _q8_0(shape, seed):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    raw = numpy_ref.quantize(x, GGMLType.Q8_0)
+    return x, raw, from_ggml(raw, GGMLType.Q8_0, shape, "cpu")
 
 
-def test_load_params_q8_0_raises(tmp_path):
-    """A q8_0 checkpoint reaching the loader names the ROADMAP item."""
-    from gemma_tpu_torch.models import GemmaConfig, load_params
-    from gemma_tpu_torch.testing import make_gguf
+@pytest.mark.parametrize("shape", SHAPES)
+def test_q8_0_dequant_bit_exact_vs_numpy_ref(shape):
+    """Against the reference's numpy_ref and the port's copy, at ggml's
+    8.5 bpw."""
+    _, raw, qt = _q8_0(shape, seed=sum(shape))
+    assert qt.fmt == "q8_0" and qt.shape == shape
+    assert qt.qs.dtype == torch.int8 and qt.scales.dtype == torch.float16
+    nbytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
+    assert nbytes * 8 / (shape[0] * shape[1]) == 8.5
+    got = dequant(qt, torch.float32).numpy()
+    np.testing.assert_array_equal(got, numpy_ref.dequantize(raw, GGMLType.Q8_0, shape))
+    np.testing.assert_array_equal(got, port_numpy_ref.dequantize(raw, GGMLType.Q8_0, shape))
 
-    cfg = GemmaConfig(vocab_size=300, d_model=256, n_layers=1, n_heads=2, n_kv_heads=1,
-                      head_dim=128, d_ff=512)
-    path = make_gguf(tmp_path / "q8.gguf", cfg, weight_type=GGMLType.Q8_0)
-    with pytest.raises(NotImplementedError, match="q8_0.*ROADMAP"):
-        load_params(GGUFReader(path))
+
+def test_pack_q8_0_keeps_ggml_block_bytes(rng):
+    shape = (3, 96)
+    raw = np.frombuffer(numpy_ref.quantize(rng.normal(size=shape).astype(np.float32),
+                                           GGMLType.Q8_0), np.uint8)
+    packed = pack_q8_0(raw, shape)
+    blocks = raw.reshape(3, 3, 34)
+    np.testing.assert_array_equal(packed["qs"].view(np.uint8), blocks[:, :, 2:].reshape(3, -1))
+    np.testing.assert_array_equal(packed["scales"].view(np.uint8).reshape(3, -1, 2), blocks[:, :, :2])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_from_jax_q8_0_matches_from_ggml(shape):
+    """The reference's q8_0 (`qs` i8 [K, N], bf16 `scales` [K/32, N]) of the
+    same values converts to from_ggml's QTensor: the payload equal, the
+    scales equal to ggml's f16 rounded to bf16 as the reference rounds them,
+    and the dequantized matrix equal to the JAX dequant."""
+    x, _, qt = _q8_0(shape, seed=3 + shape[0])
+    jqt = quantize_array(x, "q8_0")
+    got = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+    assert got.fmt == "q8_0" and got.shape == shape
+    assert torch.equal(got.qs, qt.qs)
+    assert torch.equal(got.scales, qt.scales.to(torch.bfloat16).to(torch.float16))
+    ref = np.asarray(jax_dequant(jqt, dtype=np.float32))
+    np.testing.assert_array_equal(dequant(got, torch.float32).numpy(), ref)
+    assert torch.equal(from_jax_q8_0({k: np.asarray(v) for k, v in jqt.arrays.items()}).qs, qt.qs)
 
 
 def _kquant(fmt, shape, seed):

@@ -1,14 +1,16 @@
 """Quantized matmuls: the port's plain versions against the JAX kernels.
 
 The JAX `quant_matmul` runs its Pallas kernels (`_q4_0_kernel`,
-`_q4_k_kernel`, `_q6_k_kernel`, `_q6_k_v4_kernel`) in interpret mode on the
+`_q8_0_kernel`, `_q4_k_kernel`, `_q6_k_kernel`, `_q6_k_v4_kernel`) in
+interpret mode on the
 CPU; both sides get the same weights (`from_jax_*` carries the reference's
 scales exactly) and the same activations. The JAX K-quant kernels need
 K % 1024 == 0 (their metadata tiles), so the K-quant shapes are 1024-deep
 multiples.
 
 Tolerances, by regime (the reference switches its dot dtype at M = 8):
-* M <= 8, bf16 or f32 x, and M > 8 with bf16 x: both sides form identical
+* q4_0 and q8_0 (whose bf16 scales `from_jax_q8_0` carries exactly):
+  M <= 8, bf16 or f32 x, and M > 8 with bf16 x: both sides form identical
   products (f32 weights and x; or bf16-rounded weights and bf16 x, whose
   products are exact in f32) and differ only in the order of f32 sums:
   rtol 1e-5 of the output's scale.
@@ -39,8 +41,9 @@ from gemma_tpu_torch.ops.quant_matmul import (
     q4_0_matmul_plain,
     q4_k_matmul,
     q6_k_matmul,
+    q8_0_matmul,
 )
-from gemma_tpu_torch.quant.qtensor import dequant, from_jax, from_jax_q4_0
+from gemma_tpu_torch.quant.qtensor import dequant, from_jax
 
 SHAPES = [(256, 512), (384, 1024)]  # (N, K): the JAX kernel's tile-compatible sizes
 KQUANT_SHAPES = [(256, 1024), (128, 2048)]
@@ -54,26 +57,30 @@ def _interpret_kernels(monkeypatch):
     monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
 
 
-def _weights(N, K, seed):
+def _weights(fmt, N, K, seed):
     rng = np.random.default_rng(seed)
-    jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, "q4_0")
-    return jqt, from_jax_q4_0({k: np.asarray(v) for k, v in jqt.arrays.items()})
+    jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, fmt)
+    return jqt, from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
 
 
 def _max_err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))
 
 
+@pytest.mark.parametrize("fmt", ["q4_0", "q8_0"])
 @pytest.mark.parametrize("N,K", SHAPES)
 @pytest.mark.parametrize("M", [1, 8, 16, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_plain_matches_jax_kernel(M, N, K, dtype):
-    jqt, qt = _weights(N, K, seed=M + N)
+def test_plain_matches_jax_kernel(M, N, K, dtype, fmt):
+    """`q4_0_matmul_plain` and `q8_0_matmul_plain` against `_q4_0_kernel`
+    and `_q8_0_kernel` in interpret mode."""
+    jqt, qt = _weights(fmt, N, K, seed=M + N)
+    assert qt.fmt == fmt and qt.shape == (N, K)
     x = np.random.default_rng(M).normal(size=(M, K)).astype(np.float32)
     xj = jnp.asarray(x, dtype)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
 
-    got = q4_0_matmul_plain(xt, qt)
+    got = PLAIN[fmt](xt, qt)
     assert got.dtype == torch.float32 and got.shape == (M, N)
     ref = np.asarray(quant_matmul(xj, jqt))
     scale = float(np.abs(ref).max())
@@ -85,18 +92,12 @@ def test_plain_matches_jax_kernel(M, N, K, dtype):
         assert _max_err(got, ref) <= 1e-5 * scale
 
 
-def _kquant_weights(fmt, N, K, seed):
-    rng = np.random.default_rng(seed)
-    jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, fmt)
-    return jqt, from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
-
-
 @pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
 @pytest.mark.parametrize("N,K", KQUANT_SHAPES)
 @pytest.mark.parametrize("M", [1, 8, 16, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kquant_plain_matches_jax_kernel(fmt, M, N, K, dtype):
-    jqt, qt = _kquant_weights(fmt, N, K, seed=N)
+    jqt, qt = _weights(fmt, N, K, seed=N)
     x = np.random.default_rng(M).normal(size=(M, K)).astype(np.float32)
     xj = jnp.asarray(x, dtype)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
@@ -121,7 +122,7 @@ def test_q6_k_v4_plain_matches_jax_kernel(M, monkeypatch):
     one q6_k layout compute the same function; at M = 9 both round the true
     weight to bf16, so the tolerance is tight at both M."""
     monkeypatch.setenv("GEMMA_TPU_Q6K_DEEPK", "8192")
-    jqt, qt = _kquant_weights("q6_k", 128, 8192, seed=M)
+    jqt, qt = _weights("q6_k", 128, 8192, seed=M)
     assert jqt.fmt == "q6_k_v4" and qt.fmt == "q6_k"
     x = np.random.default_rng(M).normal(size=(M, 8192)).astype(np.float32)
     xj = jnp.asarray(x, jnp.bfloat16)
@@ -131,7 +132,7 @@ def test_q6_k_v4_plain_matches_jax_kernel(M, monkeypatch):
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
-    _, qt = _weights(256, 512, seed=3)
+    _, qt = _weights("q4_0", 256, 512, seed=3)
     x = torch.randn(2, 5, 512, dtype=torch.bfloat16)
     y = q4_0_matmul(x, qt)
     assert y.shape == (2, 5, 256)
@@ -140,16 +141,17 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 def test_wrapper_refuses_other_devices():
     """No fallback: only a CPU tensor takes the plain path."""
-    _, qt = _weights(256, 512, seed=4)
+    _, qt = _weights("q4_0", 256, 512, seed=4)
     with pytest.raises(ValueError):
         q4_0_matmul(torch.empty(1, 512, device="meta"), qt)
     with pytest.raises(ValueError):
         q4_0_matmul(torch.empty(1, 256), qt)
 
 
-@pytest.mark.parametrize("fmt,op", [("q4_k", q4_k_matmul), ("q6_k", q6_k_matmul)])
+@pytest.mark.parametrize("fmt,op", [("q4_k", q4_k_matmul), ("q6_k", q6_k_matmul),
+                                    ("q8_0", q8_0_matmul)])
 def test_kquant_wrappers_refuse_other_devices_and_formats(fmt, op):
-    _, qt = _kquant_weights(fmt, 128, 1024, seed=6)
+    _, qt = _weights(fmt, 128, 1024, seed=6)
     x = torch.randn(3, 1024, dtype=torch.bfloat16)
     torch.testing.assert_close(op(x, qt), PLAIN[fmt](x, qt), rtol=0, atol=0)
     with pytest.raises(ValueError):
@@ -162,7 +164,7 @@ def test_kquant_wrappers_refuse_other_devices_and_formats(fmt, op):
 
 
 def test_linear_dispatch():
-    _, qt = _weights(256, 512, seed=5)
+    _, qt = _weights("q4_0", 256, 512, seed=5)
     x = torch.randn(3, 512, dtype=torch.bfloat16)
     y = linear(x, qt)
     assert y.dtype == torch.bfloat16
@@ -174,9 +176,9 @@ def test_linear_dispatch():
     torch.testing.assert_close(linear(x, w), ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k", "q8_0"])
 def test_linear_dispatches_kquants_by_format(fmt):
-    _, qt = _kquant_weights(fmt, 128, 1024, seed=8)
+    _, qt = _weights(fmt, 128, 1024, seed=8)
     x = torch.randn(2, 9, 1024, dtype=torch.bfloat16)  # M = 18: the prefill regime
     y = linear(x, qt, out_dtype=torch.float32)
     torch.testing.assert_close(y, PLAIN[fmt](x, qt), rtol=0, atol=0)

@@ -17,6 +17,10 @@ arms quantize bit for bit alike and round p * vs to bf16 at the same point
 it was scheduled (batch neighbours, block size, chunked or overlapped
 admission, a separate prefill engine, waiting for pages), so each
 scheduling scenario is held against the one reference run of its arm.
+
+One more scenario serves a q8_0 GGUF of `TINY_MHA_CONFIG` (multi-head, one
+query head per KV head, as Gemma-7B) on the dense f32 cache, held to the
+reference's streams the same way.
 """
 import dataclasses
 import json
@@ -38,7 +42,7 @@ from gemma_tpu.runtime.scheduler import Scheduler as JaxScheduler
 from gemma_tpu_torch import cli
 from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, Scheduler, serve
-from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
+from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, TINY_MHA_CONFIG, make_gguf
 
 MAX_SEQ_LEN = 64
 PAGE = 16
@@ -78,7 +82,7 @@ def tiny(tmp_path_factory):
     path = make_gguf(tmp_path_factory.mktemp("serving") / "tiny.gguf", TINY_KERNEL_CONFIG, seed=3)
     reader = GGUFReader(path)
     jcfg, jparams = jax_load_params(reader)
-    tcfg, _ = load_params(reader)
+    tcfg, _ = load_params(reader, device="cpu")
     model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
     jcfg, tcfg = (dataclasses.replace(c, activation_dtype="float32") for c in (jcfg, tcfg))
     return path, jcfg, jparams, tcfg, model
@@ -237,3 +241,29 @@ def test_cli_serve_matches_reference_cli(tiny, tmp_path, capsys, flags):
     ref = capsys.readouterr()
     assert rows(ours.out) == rows(ref.out) and len(rows(ours.out)) == 4
     assert json.loads(ours.err.strip().splitlines()[-1])["requests"] == 4
+
+
+def test_q8_0_multi_head_serve_matches_reference_scheduler(tmp_path):
+    """serve() of a q8_0 multi-head model on the dense f32 cache: the JAX
+    Scheduler's streams, decode steps and discarded tokens."""
+    path = make_gguf(tmp_path / "mha.gguf", TINY_MHA_CONFIG, weight_type="q8_0", seed=5)
+    reader = GGUFReader(path)
+    jcfg, jparams = jax_load_params(reader)
+    tcfg, _ = load_params(reader, device="cpu")
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    jcfg, tcfg = (dataclasses.replace(c, activation_dtype="float32") for c in (jcfg, tcfg))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+        ref = JaxScheduler(JaxEngine(jcfg, jparams, JaxEngineConfig(
+            max_seq_len=MAX_SEQ_LEN, max_batch=3, kv_dtype=jnp.float32, donate_cache=False)))
+        for rid, (prompt, n) in REQUESTS.items():
+            ref.submit(JaxRequest(rid, prompt, max_new_tokens=n))
+        ref.run(block=4)
+    sched = serve(Engine(tcfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=3,
+                                                   kv_dtype=torch.float32)),
+                  [Request(rid, *REQUESTS[rid]) for rid in REQUESTS], block=4)
+    streams = {r.id: r.tokens for r in sched.finished}
+    assert streams == {r.id: r.tokens for r in ref.finished}
+    assert all(len(streams[rid]) == n for rid, (_, n) in REQUESTS.items())
+    for key in ("requests", "decode_steps", "tokens_discarded", "total_tokens"):
+        assert sched.stats()[key] == ref.stats()[key], key
