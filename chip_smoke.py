@@ -12,7 +12,7 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    8-slot serving (the paged kernel and both int8 arms), with max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
-   computes the same function (torch.profiler), and the least time the
+   computes the same function (CUDA events), and the least time the
    card could take (bound); then correctness-only edge cases;
 4. the main path at full width with random weights from a seed: Gemma-2B
    q4_0 (4), Gemma-2B q4_k_m (4b) and Gemma-7B q8_0 (4c): `Engine.prefill`
@@ -33,7 +33,16 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
    shuffled and admitted every 4 steps, which must give the same streams;
-   all with exact launch counts.
+   all with exact launch counts;
+7. the decode-GEMV instruments, the kernels that replace the Pallas
+   kernels of the reference's tools/ (bench_qmm_variants, bench_bn_sweep,
+   probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
+   its plain version at the tools' Gemma-2B shapes with exact launch
+   counts, each kernel's L2-cold time, bound, plain and library time, then
+   each `python -m gemma_tpu_torch.tools.<name>` in a subprocess.
+
+Quantized-matmul times are taken with L2 cold (operands rotated over
+copies totalling >= 100 MB), as a decode step meets its weights.
 
 The last two lines of standard output are a JSON line of the kernels and
 the contract line `{"ok": true, "device": {...}}`. With no CUDA device, or
@@ -45,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,12 +66,13 @@ PROMPT_LEN = 203  # about 200 tokens, not a power of two
 NEW_TOKENS = 32  # greedy tokens of the phase 4 generation runs
 MAX_SEQ_LEN = 512
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, dense bf16 tensor
-# core and f32 FMA flop/s; a kernel's bound is the larger of its bytes and
-# its flops over these
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and dense bf16
+# tensor-core flop/s; a kernel's bound is the larger of its bytes and its
+# flops over these. The quantized matmuls' products of bf16 x with
+# small-integer weights are exact on the tensor cores (f32 sums, the scale
+# per block after), so their flops count at the bf16 rate at any M.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
 
 # TPU kernels replaced by each port kernel
 KERNELS = {
@@ -124,27 +135,20 @@ def call_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn(): the summed durations of the GPU kernels it
-    launches, per call, from torch.profiler (CUPTI); host launch cost is
-    not counted. A profiled pass that records no kernel at all (seen once
-    for a few microsecond-long cuBLAS calls) is run again, up to three
-    times."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, launches: int = 20, reps: int = 5) -> float:
+    """Device ms per call of fn() with its operands warm: CUDA events around
+    back-to-back calls queued behind a sleep that outlasts their enqueue,
+    so the host's launch cost is hidden (tools/_timing.py `time_us`). A
+    plain version launches tens of kernels a call: time it one call a
+    repetition (launches=1), or the calls overflow the launch queue behind
+    the sleep and the host's time leaks in. Not torch.profiler: a short
+    profile on the H100 machine lost kernel records (a plain version read
+    at a tenth of its time), though the long decode and serving profiles
+    lose almost none (`profiler_coverage`)."""
+    from gemma_tpu_torch.tools import _timing as T
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0)
-                       or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / iters / 1e3
-    raise SmokeFailure("torch.profiler recorded no device time")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return T.time_us(lambda: fn(), [()], dev, reps, launches) / 1e3
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -176,26 +180,16 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_qtensor(torch, fmt: str, rows: int, cols: int, gen, dev):
-    """Random payload bytes and tables, scales sized for outputs near 1."""
-    from gemma_tpu_torch.quant.qtensor import QTensor
+def cold_ms(fn, args: tuple, dev, reps: int = 5) -> float:
+    """Device ms per call of fn(*args) with L2 cold: CUDA events around
+    launches rotating over copies of args totalling >= 100 MB, behind a
+    sleep that hides the host's launch cost (gemma_tpu_torch/tools/_timing.py)."""
+    from gemma_tpu_torch.tools import _timing as T
 
-    def bytes_(*shape):
-        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
-
-    def scales(base, *shape):
-        return ((torch.rand(*shape, generator=gen, device=dev) + 0.5) * base).to(torch.float16)
-
-    if fmt == "q4_0":
-        return QTensor("q4_0", qs=bytes_(rows, cols // 2), scales=scales(0.005, rows, cols // 32))
-    if fmt == "q8_0":
-        return QTensor("q8_0", qs=bytes_(rows, cols).view(torch.int8),
-                       scales=scales(3e-4, rows, cols // 32))
-    if fmt == "q4_k":
-        return QTensor("q4_k", qs=bytes_(rows, cols // 2), scales=bytes_(rows, cols // 256, 12),
-                       dm=scales(1e-4, rows, cols // 256, 2))
-    return QTensor("q6_k", ql=bytes_(rows, cols // 2), qh=bytes_(rows, cols // 4),
-                   sc=bytes_(rows, cols // 16).view(torch.int8), d=scales(2e-5, rows, cols // 256))
+    sets = T.replicate(args, T.copies_for(T.nbytes(*args), dev))
+    us = T.time_us(fn, sets, dev, reps)
+    del sets
+    return us / 1e3
 
 
 def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
@@ -204,16 +198,19 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
     given. The library yardstick is torch.matmul of x with the weight
     dequantized to bf16 beforehand: it reads 16 bits per weight, not the
     format's bits. The bound counts the wire bytes of the weight, x and
-    the f32 y, and the flops at the f32 rate at M <= 8 (the reference's
-    f32 products) and at the bf16 rate above."""
+    the f32 y, and the flops at the bf16 rate. Kernel and library are timed
+    with L2 cold (`cold_ms`), as a decode step meets its weights; the warm
+    time (`device_ms`), operands back to back in L2, stays in the line
+    beside them."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.quant.qtensor import dequant
+    from gemma_tpu_torch.tools._timing import random_qtensor
 
     kernel, plain = qmm.MATMULS[fmt], qmm.PLAIN[fmt]
     worst = 0.0
     rep = None
     for name, N, K, *ms_list in shapes:
-        qt = random_qtensor(torch, fmt, N, K, gen, dev)
+        qt = random_qtensor(fmt, N, K, gen, dev)
         wire_bytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
         w16 = dequant(qt, torch.bfloat16)
         for M in (ms_list[0] if ms_list else (1, PROMPT_LEN)):
@@ -223,18 +220,21 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             tol = 1e-4 * ref.abs().max().item() + 1e-6
-            ms = device_ms(torch, lambda: kernel(x, qt))
+            warm_ms = device_ms(torch, lambda: kernel(x, qt))
+            ms = cold_ms(kernel, (x, qt), dev)
             per_call = call_ms(torch, lambda: kernel(x, qt))
-            plain_ms = device_ms(torch, lambda: plain(x, qt), iters=5, warmup=1)
-            library_ms = device_ms(torch, lambda: torch.matmul(x, w16.T))
+            plain_ms = device_ms(torch, lambda: plain(x, qt), launches=1)
+            warm_library_ms = device_ms(torch, lambda: torch.matmul(x, w16.T))
+            library_ms = cold_ms(lambda x_, w_: torch.matmul(x_, w_.T), (x, w16), dev)
             bound_ms, bound_by = bound(wire_bytes + x.numel() * 2 + M * N * 4, 2 * M * N * K,
-                                       F32_FLOPS if M <= 8 else BF16_FLOPS)
+                                       BF16_FLOPS)
             rate = (f"{wire_bytes / ms / 1e9:.3f} TB/s at wire bytes" if M <= 8
                     else f"{2 * M * N * K / ms / 1e9:.3f} TFLOP/s")
             info("kernel", f"{fmt}_matmul {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
-                           f"tol={tol:.3e}; device ms: kernel {ms:.4f} ({rate}) plain "
-                           f"{plain_ms:.4f} library (bf16 matmul, weight dequantized "
-                           f"beforehand) {library_ms:.4f}; bound {bound_ms:.4f} ({bound_by}); "
+                           f"tol={tol:.3e}; device ms, L2 cold: kernel {ms:.4f} ({rate}) library "
+                           f"(bf16 matmul, weight dequantized beforehand) {library_ms:.4f}; "
+                           f"warm: kernel {warm_ms:.4f} library {warm_library_ms:.4f}; "
+                           f"plain {plain_ms:.4f}; bound {bound_ms:.4f} ({bound_by}); "
                            f"kernel per back-to-back call {per_call:.4f} ms")
             require(bool(torch.isfinite(got).all()) and err <= tol,
                     f"{fmt}_matmul {name} M={M}: max|diff| {err} > tol {tol}")
@@ -296,7 +296,8 @@ def check_kernels(torch, dev) -> dict[str, dict]:
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        r = {"max_abs_err": err, "ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain)}
+        r = {"max_abs_err": err, "ms": device_ms(torch, kernel),
+             "plain_ms": device_ms(torch, plain, launches=1)}
         per_call = call_ms(torch, kernel)
         line = (f"{kind} {desc}: max|diff|={err:.3e} tol={att_tol:.1e}; device ms: kernel "
                 f"{r['ms']:.4f} plain {r['plain_ms']:.4f}")
@@ -403,13 +404,14 @@ def check_edge_cases(torch, dev) -> None:
     GEMV's 1024-element K-chunk."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
+    from gemma_tpu_torch.tools._timing import random_qtensor
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst = {}
     # N, K off every tile and chunk
     for fmt, K in (("q4_0", 1056), ("q8_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):
-        qt = random_qtensor(torch, fmt, 1000, K, gen, dev)
+        qt = random_qtensor(fmt, 1000, K, gen, dev)
         for dtype in (torch.bfloat16, torch.float32):
             for M in (2, 5, 8, 9, 70):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
@@ -524,7 +526,7 @@ def check_serving_kernels(torch, dev) -> dict[str, dict]:
         err = (got.float() - ref.float()).abs().max().item()
         ms = device_ms(torch, kernel)
         per_call = call_ms(torch, kernel)
-        plain_ms = device_ms(torch, plain)
+        plain_ms = device_ms(torch, plain, launches=1)
         bound_ms, bound_by = bound(live * Hkv * kv_bytes_per_key + 2 * B * Hq * D * 2 + B * 4
                                    + table_bytes, 4 * Hq * D * live, BF16_FLOPS)
         info("kernel", f"{name} {desc}: max|diff|={err:.3e} tol={tol:.1e}; device ms: kernel "
@@ -610,12 +612,27 @@ def read_counters() -> dict[str, int]:
     return {name: getattr(op, attr) for name, op, attr in _counters()}
 
 
+def profiler_coverage(prof, before: dict[str, int]) -> str:
+    """'<recorded> of <launched> quantized-matmul launches recorded' by a
+    torch.profiler run that began at counters `before`: each wrapper
+    call launches one GEMV or tile kernel. Busy times and idle shares read
+    from the run rest on its records; a share below 1 makes busy read
+    low and idle high."""
+    after = read_counters()
+    launched = sum(after[k] - before[k] for k in after if k.endswith("_matmul"))
+    recorded = sum(e.count for e in prof.key_averages()
+                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel", e.key))
+    return f"{recorded} of {launched} quantized-matmul launches recorded"
+
+
 def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
     """Device time of greedy decode steps from torch.profiler: (busy ms per
-    step, the five largest kernels' ms per step)."""
+    step, the five largest kernels' ms per step and the profiler's
+    coverage)."""
     from torch.profiler import ProfilerActivity, profile
 
     tok = torch.tensor([last_tok], device=eng.device)
+    before = read_counters()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             logits, cache = eng.decode_step(tok, cache)
@@ -625,7 +642,7 @@ def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
                          for e in prof.key_averages()), reverse=True)
     busy = sum(ms for ms, _ in per_kernel)
     top = "; ".join(f"{name[:48]} {ms:.4f}" for ms, name in per_kernel[:5])
-    return busy, top
+    return busy, f"{top}; {profiler_coverage(prof, before)}"
 
 
 def host_profile(torch, eng, cache, last_tok: int, steps: int = 4) -> str:
@@ -848,6 +865,7 @@ def serving_profile(torch, cfg, model, card: str, label: str) -> None:
 
     eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS))
     reqs = serve_requests(cfg)[:SERVE_SLOTS]
+    before = read_counters()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched = serve(eng, reqs, block=SERVE_BLOCK)
@@ -861,6 +879,7 @@ def serving_profile(torch, cfg, model, card: str, label: str) -> None:
     info(f"serve {label} dense bf16 profiled", f"{len(reqs)} requests on {card}: wall {wall:.3f} s, "
                                       f"device busy {busy:.3f} s, "
                                       f"idle share {1 - busy / wall:.3f}; {steps} decode steps; "
+                                      f"{profiler_coverage(prof, before)}; "
                                       "device s by kernel: " + "; ".join(
                                           f"{name[:48]} {ms / 1e3:.3f}" for ms, name in per_kernel[:6]))
 
@@ -975,6 +994,194 @@ def tiny_checks(torch, dev, weight_type: str, config_name: str) -> None:
     require(err_b <= tol_b, f"bf16 prefill logits card vs CPU: {err_b} > {tol_b}")
 
 
+# phase 7: the decode-GEMV instruments, kernels of the reference's tools/
+TOOL_KERNELS = {
+    "qmm_variant": ("gemma_tpu_torch/csrc/q4_0_matmul.cu",
+                    "tools/bench_qmm_variants.py:55 _kernel; tools/probe_int4.py:43 kernel, "
+                    ":81 kernel2"),
+    "row_checksum": ("gemma_tpu_torch/csrc/qmm_variants.cu",
+                     "tools/bench_qmm_variants.py:55 _kernel (stream); "
+                     "tools/bench_q6k_variants.py:68 _kernel (stream)"),
+    "q4_0_gemv_warps": ("gemma_tpu_torch/csrc/q4_0_matmul.cu", "tools/bench_bn_sweep.py:43 call"),
+    "q4_k_variant": ("gemma_tpu_torch/csrc/q4_k_matmul.cu", "tools/bench_q4k_variants.py:40 _kernel"),
+    "q6_k_variant": ("gemma_tpu_torch/csrc/q6_k_matmul.cu", "tools/bench_q6k_variants.py:68 _kernel"),
+    "int4_dot": ("gemma_tpu_torch/csrc/qmm_variants.cu", "tools/probe_int4.py:120 kernel3"),
+}
+TOOLS = ("bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
+         "bench_q6k_variants")
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+
+
+def check_tool_kernels(torch, dev) -> dict[str, dict]:
+    """Phase 7: every mode of the instruments' kernels against its plain
+    version on the card at the tools' Gemma-2B shapes (M = 8, bf16 x):
+    1e-4 x max|ref| for float modes (f32 products, sums in another order;
+    the bf16-rounded modes round the same weights on both sides), exact for
+    the checksum and the int32 dot. The launches of these checks are
+    counted and must equal the checks made. Then each kernel's
+    representative shape: L2-cold device time, plain time (warm),
+    bound, and a library call's L2-cold time. Returns the JSON records."""
+    import gemma_tpu_torch.ops.qmm_variants as qv
+    from gemma_tpu_torch.ops.quant_matmul import q4_0_matmul_plain
+    from gemma_tpu_torch.quant.qtensor import dequant
+    from gemma_tpu_torch.tools import bench_bn_sweep, bench_qmm_variants
+    from gemma_tpu_torch.tools._timing import random_qtensor
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    M = qv.GEMV_M
+    for op in qv.COUNTERS.values():
+        op.launches = 0
+    made = {name: 0 for name in qv.COUNTERS}
+    worst = {name: 0.0 for name in qv.COUNTERS}
+
+    def held(name, desc, got, ref, exact=False):
+        torch.cuda.synchronize()
+        made[name] += 1
+        if exact:
+            require(torch.equal(got, ref), f"{name} {desc}: differs from its plain version")
+            return
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item() + 1e-6
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"{name} {desc}: max|diff| {err} > tol {tol}")
+        worst[name] = max(worst[name], err)
+
+    x8 = {}
+    for sname, N, K in bench_qmm_variants.SHAPES:
+        qt = random_qtensor("q4_0", N, K, gen, dev)
+        x = x8[K] = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        for mode, scd, _ in bench_qmm_variants.CONFIGS:
+            sc = qt.scales.to(scd)
+            if mode == "stream":
+                held("row_checksum", f"q4_0 {sname}", qv.row_checksum(qt.qs, sc),
+                     qv.row_checksum_plain(qt.qs, sc), exact=True)
+            else:
+                held("qmm_variant", f"{mode} {scd} {sname}", qv.qmm_variant(mode, x, qt.qs, sc),
+                     qv.qmm_variant_plain(mode, x, qt.qs, sc))
+        del qt
+    for sname, N, K in bench_bn_sweep.SHAPES:
+        qt = random_qtensor("q4_0", N, K, gen, dev)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        ref = q4_0_matmul_plain(x, qt)
+        for warps in qv.WARPS:
+            held("q4_0_gemv_warps", f"{warps} warps {sname}", qv.q4_0_gemv_warps(x, qt, warps), ref)
+        del qt, ref
+    N, K = 2048, 16384  # ffn_down
+    xd = x8[K]
+    q4k = random_qtensor("q4_k", N, K, gen, dev)
+    q4k_w = {"prod": q4k, "nohilo": qv.q4_k_hi_parts(q4k), "noaffine": q4k, "nosub": q4k,
+             "q4_0ref": qv.q4_0ref_weight(q4k)}
+    for mode, w in q4k_w.items():
+        held("q4_k_variant", f"{mode} ffn_down", qv.q4_k_variant(mode, xd, w),
+             qv.q4_k_variant_plain(mode, xd, w))
+    q6k = random_qtensor("q6_k", N, K, gen, dev)
+    q6k_w = {"prod": qv.q6_k_int8_payload(q6k), "split_f32": q6k.arrays, "split_int": q6k.arrays}
+    for mode, arrays in q6k_w.items():
+        held("q6_k_variant", f"{mode} ffn_down", qv.q6_k_variant(mode, xd, arrays),
+             qv.q6_k_variant_plain(mode, xd, arrays))
+    planes = tuple(q6k.arrays.values())
+    held("row_checksum", "q6_k planes ffn_down", qv.row_checksum(*planes),
+         qv.row_checksum_plain(*planes), exact=True)
+    int4 = {}
+    for sname, (N4, K4) in (("probe", (256, 512)), ("ffn_down", (N, K))):
+        xi = torch.randint(-128, 128, (M, K4), generator=gen, device=dev, dtype=torch.int8)
+        w4 = torch.randint(0, 256, (N4, K4 // 2), generator=gen, device=dev, dtype=torch.uint8)
+        held("int4_dot", f"{sname} [{M}, {K4}] x [{K4}, {N4}]", qv.int4_dot(xi, w4),
+             qv.int4_dot_plain(xi, w4), exact=True)
+        int4[sname] = (xi, w4)
+    counts = {name: op.launches for name, op in qv.COUNTERS.items()}
+    info("tools", f"instrument kernels within tolerance against their plain versions; worst "
+                  f"max|diff| {worst}; launches {counts} (checks made {made})")
+    require(counts == made, f"phase 7 launch counts {counts} != checks made {made}")
+
+    # each kernel's representative shape: cold time, plain, bound, library
+    results = {}
+
+    def timed(name, shape, kernel, plain, args, nbytes, ops, peak, library=None, lib_args=None,
+              lib_name="none"):
+        ms = cold_ms(kernel, args, dev)
+        plain_ms = device_ms(torch, lambda: plain(*args), launches=1)
+        bound_ms, bound_by = bound(nbytes, ops, peak)
+        library_ms = cold_ms(library, lib_args, dev) if library is not None else None
+        results[name] = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "shape": shape}
+        info("tools", f"{name} {shape}: device ms, L2 cold: kernel {ms:.4f} library ({lib_name}) "
+                      f"{'none' if library_ms is None else f'{library_ms:.4f}'}; plain "
+                      f"{plain_ms:.4f}; bound {bound_ms:.4f} ({bound_by})")
+
+    def matmul_yardstick(w16):
+        return (lambda x_, w_: torch.matmul(x_, w_.T)), (xd, w16)
+
+    qt = random_qtensor("q4_0", N, K, gen, dev)
+    lib, lib_args = matmul_yardstick(dequant(qt, torch.bfloat16))
+    wire = qt.qs.numel() + qt.scales.numel() * 2
+    timed("qmm_variant", f"f32dot f16 scales ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.qmm_variant("f32dot", *a), lambda *a: qv.qmm_variant_plain("f32dot", *a),
+          (xd, qt.qs, qt.scales), wire + xd.numel() * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS,
+          lib, lib_args, "bf16 matmul, weight dequantized beforehand")
+    sc_bits = qt.scales.view(torch.int16)
+    timed("row_checksum", f"q4_0 ffn_down N={N} K={K}", qv.row_checksum, qv.row_checksum_plain,
+          (qt.qs, qt.scales), wire + N * 4, 0, BF16_FLOPS,
+          lambda a, b: (torch.sum(a, -1, dtype=torch.int32), torch.sum(b, -1, dtype=torch.int32)),
+          (qt.qs, sc_bits), "torch.sum of the payload and of the scale bits, two calls")
+    timed("q4_0_gemv_warps", f"8 warps ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.q4_0_gemv_warps(*a, 8), q4_0_matmul_plain, (xd, qt),
+          wire + xd.numel() * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS, lib, lib_args,
+          "bf16 matmul, weight dequantized beforehand")
+    del qt, lib_args
+    lib, lib_args = matmul_yardstick(dequant(q4k, torch.bfloat16))
+    timed("q4_k_variant", f"prod ffn_down M=8 N={N} K={K}", lambda *a: qv.q4_k_variant("prod", *a),
+          lambda *a: qv.q4_k_variant_plain("prod", *a), (xd, q4k),
+          sum(a.numel() * a.element_size() for a in q4k.arrays.values()) + xd.numel() * 2
+          + M * N * 4, 2 * M * N * K, BF16_FLOPS, lib, lib_args,
+          "bf16 matmul, weight dequantized beforehand")
+    lib, lib_args = matmul_yardstick(dequant(q6k, torch.bfloat16))
+    payload = q6k_w["prod"]
+    timed("q6_k_variant", f"prod (int8 payload) ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.q6_k_variant("prod", *a), lambda *a: qv.q6_k_variant_plain("prod", *a),
+          (xd, payload), sum(a.numel() * a.element_size() for a in payload.values())
+          + xd.numel() * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS, lib, lib_args,
+          "bf16 matmul, weight dequantized beforehand")
+    del lib_args
+    xi, w4 = int4["ffn_down"]
+    w8 = qv.int4_values(w4)
+    xpad = torch.zeros(32, K, dtype=torch.int8, device=dev)
+    xpad[:M] = xi
+    timed("int4_dot", f"ffn_down [{M}, {K}] x [{K}, {N}]", qv.int4_dot, qv.int4_dot_plain, (xi, w4),
+          xi.numel() + w4.numel() + M * N * 4, 2 * M * N * K, INT8_OPS,
+          lambda a, b: torch._int_mm(a, b.t()), (xpad, w8),
+          "torch._int_mm on int8 weights, x padded to 32 rows (its shape rule m > 16)")
+    return results
+
+
+def run_tools(dev) -> dict[str, int]:
+    """Phase 7, the benches as a user runs them: `python -m
+    gemma_tpu_torch.tools.<name>` in a subprocess on the card, each of
+    which holds its kernels against their plain versions, times them L2
+    cold and checks its own launch counts. Returns the launches they
+    report, summed by kernel."""
+    launches: dict[str, int] = {}
+    for name in TOOLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"gemma_tpu_torch.tools.{name}"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            info(f"tool {name}", line)
+        require(proc.returncode == 0, f"tools.{name} failed ({proc.returncode}):\n"
+                                      f"{proc.stderr[-4000:]}")
+        reported = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+                    if line.startswith("launches ")]
+        require(len(reported) == 1 and all(n > 0 for n in reported[0].values()),
+                f"tools.{name} reported launches {reported}")
+        for k, n in reported[0].items():
+            launches[k] = launches.get(k, 0) + n
+        info("tools", f"tools.{name} passed in {time.perf_counter() - t0:.1f} s")
+    require(set(launches) == set(TOOL_KERNELS), f"the tools launched {sorted(launches)}")
+    return launches
+
+
 def run() -> dict:
     import torch
 
@@ -1026,12 +1233,15 @@ def run() -> dict:
         counts[name] = served[run][name]
     serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
     done("Gemma-7B q8_0 serving (phase 6b)")
+    results.update(check_tool_kernels(torch, dev))
+    counts.update(run_tools(dev))
+    done("decode-GEMV instruments (phase 7)")
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[name], **results[name]}
-        for name, (src, replaces) in KERNELS.items()
+        for name, (src, replaces) in {**KERNELS, **TOOL_KERNELS}.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

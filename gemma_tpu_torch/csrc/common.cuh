@@ -22,6 +22,7 @@ constexpr float kMaskValue = -0.7f * 3.402823466e38f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);

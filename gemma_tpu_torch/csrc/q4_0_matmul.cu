@@ -18,7 +18,22 @@
 //   K-chunks of 1024 (all of K = 16384 at M = 8 in f32 would not fit),
 //   padded to 36 floats per block so the lanes' float4 reads do not
 //   conflict on banks. Numerics follow the reference kernel at M <= 8:
-//   weights and x in f32.
+//   weights and x in f32. Rows per block (warps), the dot form (Mode) and
+//   the scale type are template parameters; the main path launches
+//   kGemvWarps = 8, kGDot, f16 scales. Two bench entry points launch the
+//   same kernel at M = 8: `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps
+//   (replaces `call` of tools/bench_bn_sweep.py, the reference kernel at a
+//   forced N tile) and `gt_qmm_variant` in the modes below with f32, bf16
+//   or f16 scales (replaces `_kernel` of tools/bench_qmm_variants.py and
+//   `kernel`/`kernel2` of tools/probe_int4.py). A mode differs only in how
+//   a weight meets x:
+//     kF32Dot   w = (u - 8) * d                  (the tool's f32dot)
+//     kRsc      w = bf16((u - 8) * d)            (its f32sc, rsc, u16sc)
+//     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (its bf16sc, rscb)
+//     kNoScale  w = u - 8
+//     kGDot     d * sum_32((u - 8) * x)          (the main path, gdot)
+//   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
+//   scale's broadcast lived; here each pair is one instantiation.
 // * Prefill (M > 8) is a tiled plain-FMA kernel (`q4_0_tiled_kernel`):
 //   64 x 64 outputs per block, K stepped one 32-block at a time, both
 //   tiles dequantized into shared memory. With bf16 x the weight tile is
@@ -37,6 +52,17 @@ constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass
 constexpr int kGemvBlocks = kGemvKChunk / 32;
 constexpr int kXPad = 36;  // floats per staged 32-block (bank-conflict-free)
 
+// GEMV modes (ops/qmm_variants.py VARIANT_MODES); see the header
+constexpr int kF32Dot = 0;
+constexpr int kRsc = 1;
+constexpr int kRscb = 2;
+constexpr int kNoScale = 3;
+constexpr int kGDot = 4;
+// scale dtypes of gt_qmm_variant (ops/qmm_variants.py SCALE_CODES)
+constexpr int kScF32 = 0;
+constexpr int kScBF16 = 1;
+constexpr int kScF16 = 2;
+
 __device__ __forceinline__ void unpack_block(uint4 raw, float w[32]) {
   const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
@@ -47,17 +73,17 @@ __device__ __forceinline__ void unpack_block(uint4 raw, float w[32]) {
   }
 }
 
-template <int M, typename TX>
-__global__ void __launch_bounds__(kGemvWarps * 32)
+template <int M, typename TX, int Warps = kGemvWarps, int Mode = kGDot, typename SC = __half>
+__global__ void __launch_bounds__(Warps * 32)
 q4_0_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
-                 const __half* __restrict__ scales, float* __restrict__ y, int N, int K) {
+                 const SC* __restrict__ scales, float* __restrict__ y, int N, int K) {
   __shared__ __align__(16) float xs[M][kGemvBlocks][kXPad];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kGemvWarps + warp;
+  const int n = blockIdx.x * Warps + warp;
   const int nblk = K / 32;
   const uint8_t* qrow = qs + static_cast<size_t>(n) * (K / 2);
-  const __half* srow = scales + static_cast<size_t>(n) * nblk;
+  const SC* srow = scales + static_cast<size_t>(n) * nblk;
 
   float acc[M];
 #pragma unroll
@@ -75,9 +101,21 @@ q4_0_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
     const int b = k0 / 32 + lane;
     if (n < N && lane < klen / 32) {
       const uint4 raw = *reinterpret_cast<const uint4*>(qrow + static_cast<size_t>(b) * 16);
-      const float d = __half2float(srow[b]);
+      const float d = to_f32(srow[b]);
       float w[32];
       unpack_block(raw, w);
+      if constexpr (Mode == kF32Dot || Mode == kRsc || Mode == kRscb) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if constexpr (Mode == kF32Dot) {
+            w[i] *= d;
+          } else if constexpr (Mode == kRsc) {
+            w[i] = round_to<__nv_bfloat16>(w[i] * d);
+          } else {
+            w[i] = __bfloat162float(__hmul(__float2bfloat16_rn(w[i]), __float2bfloat16_rn(d)));
+          }
+        }
+      }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane][0]);
@@ -90,7 +128,7 @@ q4_0_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
           s = fmaf(w[4 * i + 2], t.z, s);
           s = fmaf(w[4 * i + 3], t.w, s);
         }
-        acc[m] = fmaf(d, s, acc[m]);
+        acc[m] = Mode == kGDot ? fmaf(d, s, acc[m]) : acc[m] + s;
       }
     }
   }
@@ -226,6 +264,88 @@ extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const 
     launch_q4_0<float>(x, qs, scales, y, M, N, K, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <int Warps>
+void launch_gemv_m8(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc, float* y, int N,
+                    int K, cudaStream_t s) {
+  q4_0_gemv_kernel<8, __nv_bfloat16, Warps><<<(N + Warps - 1) / Warps, Warps * 32, 0, s>>>(x, qs, sc, y, N, K);
+}
+
+template <int Mode>
+bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc, void* y, int N,
+                    int K, cudaStream_t s) {
+  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* qp = static_cast<const uint8_t*>(qs);
+  auto* yp = static_cast<float*>(y);
+  switch (sc_dtype) {
+    case kScF32:
+      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, float><<<grid, kGemvWarps * 32, 0, s>>>(
+          xp, qp, static_cast<const float*>(sc), yp, N, K);
+      return true;
+    case kScBF16:
+      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, __nv_bfloat16><<<grid, kGemvWarps * 32, 0, s>>>(
+          xp, qp, static_cast<const __nv_bfloat16*>(sc), yp, N, K);
+      return true;
+    case kScF16:
+      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, __half><<<grid, kGemvWarps * 32, 0, s>>>(
+          xp, qp, static_cast<const __half*>(sc), yp, N, K);
+      return true;
+    default:
+      return false;
+  }
+}
+
+}  // namespace
+
+// The q4_0 GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K], scales
+// [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32: M = 8 in
+// every mode; kGDot on f16 scales is the main path's launch, at any M <= 8.
+// Returns a cudaError_t value.
+extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales,
+                              int sc_dtype, void* y, int M, int N, int K, void* stream) {
+  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kGDot && sc_dtype == kScF16) {
+    launch_gemv<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
+                               static_cast<const __half*>(scales), static_cast<float*>(y), M, N, K, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  bool launched = false;
+  if (M == 8) {
+    switch (mode) {
+      case kF32Dot: launched = launch_variant<kF32Dot>(sc_dtype, x, qs, scales, y, N, K, s); break;
+      case kRsc: launched = launch_variant<kRsc>(sc_dtype, x, qs, scales, y, N, K, s); break;
+      case kRscb: launched = launch_variant<kRscb>(sc_dtype, x, qs, scales, y, N, K, s); break;
+      case kNoScale: launched = launch_variant<kNoScale>(sc_dtype, x, qs, scales, y, N, K, s); break;
+      case kGDot: launched = launch_variant<kGDot>(sc_dtype, x, qs, scales, y, N, K, s); break;
+      default: break;
+    }
+  }
+  return launched ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The main path's q4_0 GEMV at M = 8 with bf16 x and `warps` (4, 8, 16 or
+// 32) rows per block; y: [8, N] f32. Returns a cudaError_t value.
+extern "C" int gt_q4_0_gemv_warps(const void* x, const void* qs, const void* scales, void* y,
+                                  int N, int K, int warps, void* stream) {
+  if (N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* qp = static_cast<const uint8_t*>(qs);
+  const auto* sp = static_cast<const __half*>(scales);
+  auto* yp = static_cast<float*>(y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (warps) {
+    case 4: launch_gemv_m8<4>(xp, qp, sp, yp, N, K, s); break;
+    case 8: launch_gemv_m8<8>(xp, qp, sp, yp, N, K, s); break;
+    case 16: launch_gemv_m8<16>(xp, qp, sp, yp, N, K, s); break;
+    case 32: launch_gemv_m8<32>(xp, qp, sp, yp, N, K, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,11 @@
 //   (each lane's 32 values contiguous, padded to 36 floats so the lanes'
 //   float4 reads do not conflict on banks). All math is f32, the
 //   reference's numerics at M <= 8.
+//   A template mode drops parts of that math for the metadata ablation
+//   that replaces `_kernel` of tools/bench_q4k_variants.py
+//   (`gt_q4_k_variant`, M = 8, bf16 x): noaffine forms d*sc * (q - 8)
+//   (no dmin*mn, no sum(x)), nosub d * (q - 8) (no 6-bit table decode, no
+//   affine part).
 // * Prefill (M > 8) is a tiled plain-FMA kernel (`q4_k_tiled_kernel`):
 //   64 x 64 outputs per block, K stepped one 64-element chunk (two
 //   sub-blocks) at a time, both tiles in shared memory. With bf16 x the
@@ -45,6 +50,11 @@ constexpr int kQK = 256;  // superblock
 constexpr int kGemvWarps = 8;
 constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass (4 superblocks)
 constexpr int kXPad = 36;          // floats per lane's 32 staged values (bank-conflict-free)
+
+// GEMV modes (ops/qmm_variants.py Q4_K_MODES)
+constexpr int kProd = 0;
+constexpr int kNoAffine = 1;
+constexpr int kNoSub = 2;
 
 // byte i (0..11) of the packed 6-bit table held as three words
 __device__ __forceinline__ uint32_t table_byte(uint32_t t0, uint32_t t1, uint32_t t2, int i) {
@@ -87,7 +97,7 @@ __device__ __forceinline__ int gemv_slot(int e) {
   return (sb * 8 + c * 2 + h) * kXPad + hi * 16 + (s & 15);
 }
 
-template <int M, typename TX>
+template <int M, typename TX, int Mode = kProd>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
                  const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
@@ -119,15 +129,21 @@ q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
       const int sb = k0 / kQK + lane / 8;
       const uint4 raw = *reinterpret_cast<const uint4*>(qrow + static_cast<size_t>(sb) * 128 + (lane % 8) * 16);
       float dsc_lo, dmn_lo, dsc_hi, dmn_hi;
-      group_scale(trow, dmrow, sb, 2 * c, dsc_lo, dmn_lo);
-      group_scale(trow, dmrow, sb, 2 * c + 1, dsc_hi, dmn_hi);
+      if constexpr (Mode == kNoSub) {
+        dsc_lo = dsc_hi = __low2float(dmrow[sb]);
+        dmn_lo = dmn_hi = 0.f;
+      } else {
+        group_scale(trow, dmrow, sb, 2 * c, dsc_lo, dmn_lo);
+        group_scale(trow, dmrow, sb, 2 * c + 1, dsc_hi, dmn_hi);
+      }
+      const float zero = Mode == kProd ? 0.f : 8.f;  // the ablations take q - 8
       const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
       float qlo[16], qhi[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const uint32_t byte = (words[i / 4] >> (8 * (i % 4))) & 0xffu;
-        qlo[i] = static_cast<float>(byte & 0xfu);
-        qhi[i] = static_cast<float>(byte >> 4);
+        qlo[i] = static_cast<float>(byte & 0xfu) - zero;
+        qhi[i] = static_cast<float>(byte >> 4) - zero;
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -141,17 +157,19 @@ q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
           sq_lo = fmaf(qlo[4 * i + 1], a.y, sq_lo);
           sq_lo = fmaf(qlo[4 * i + 2], a.z, sq_lo);
           sq_lo = fmaf(qlo[4 * i + 3], a.w, sq_lo);
-          sx_lo += (a.x + a.y) + (a.z + a.w);
+          if constexpr (Mode == kProd) sx_lo += (a.x + a.y) + (a.z + a.w);
           sq_hi = fmaf(qhi[4 * i + 0], b.x, sq_hi);
           sq_hi = fmaf(qhi[4 * i + 1], b.y, sq_hi);
           sq_hi = fmaf(qhi[4 * i + 2], b.z, sq_hi);
           sq_hi = fmaf(qhi[4 * i + 3], b.w, sq_hi);
-          sx_hi += (b.x + b.y) + (b.z + b.w);
+          if constexpr (Mode == kProd) sx_hi += (b.x + b.y) + (b.z + b.w);
         }
         acc[m] = fmaf(dsc_lo, sq_lo, acc[m]);
-        acc[m] = fmaf(-dmn_lo, sx_lo, acc[m]);
         acc[m] = fmaf(dsc_hi, sq_hi, acc[m]);
-        acc[m] = fmaf(-dmn_hi, sx_hi, acc[m]);
+        if constexpr (Mode == kProd) {
+          acc[m] = fmaf(-dmn_lo, sx_lo, acc[m]);
+          acc[m] = fmaf(-dmn_hi, sx_hi, acc[m]);
+        }
       }
     }
   }
@@ -309,6 +327,28 @@ extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const 
     launch_q4_k<float>(x, qs, scales, dm, y, M, N, K, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);
+// y: [8, N] f32. Returns a cudaError_t value.
+extern "C" int gt_q4_k_variant(const void* x, int mode, const void* qs, const void* scales,
+                               const void* dm, void* y, int N, int K, void* stream) {
+  if (N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* qp = static_cast<const uint8_t*>(qs);
+  const auto* tp = static_cast<const uint8_t*>(scales);
+  const auto* dp = static_cast<const __half2*>(dm);
+  auto* yp = static_cast<float*>(y);
+  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+  const dim3 block(kGemvWarps * 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kProd: q4_k_gemv_kernel<8, __nv_bfloat16, kProd><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    case kNoAffine: q4_k_gemv_kernel<8, __nv_bfloat16, kNoAffine><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    case kNoSub: q4_k_gemv_kernel<8, __nv_bfloat16, kNoSub><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

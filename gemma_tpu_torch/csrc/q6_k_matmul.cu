@@ -26,7 +26,14 @@
 //   accumulates (d*sc) * sum(x*q) per sub-block in f32. x is staged per
 //   K-chunk of 1024 in shared memory in lane order, padded to 36 floats a
 //   lane against bank conflicts. All math is f32, the reference's
-//   numerics at M <= 8.
+//   numerics at M <= 8. The 6-bit value is combined in int32 and
+//   converted once: the `split_int` mode of tools/bench_q6k_variants.py.
+//   For the layout ablation that replaces that tool's `_kernel`
+//   (`gt_q6_k_variant`, M = 8, bf16 x), a template flag combines the two
+//   planes in f32 instead (`split_f32`: lo + 16 * hi - 32), and
+//   `q6_k_int8_gemv_kernel` reads an int8 payload q [N, K] with the same
+//   sc and d (`prod`, 8.5625 bits a weight against 6.5625: a lane's two
+//   16-byte loads are its 32 weights, two 16-element sub-blocks).
 // * Prefill (M > 8) is a tiled plain-FMA kernel (`q6_k_tiled_kernel`):
 //   64 x 64 outputs per block, K stepped 64 elements (a quarter of a
 //   superblock) at a time. A thread dequantizes 16 weights of one row:
@@ -65,7 +72,13 @@ __device__ __forceinline__ int gemv_slot(int e) {
   return (sb * 8 + h * 4 + p16) * kXPad + hi * 16 + (s & 15);
 }
 
-template <int M, typename TX>
+// the same in f32: low nibble + 16 * high bits - 32
+__device__ __forceinline__ float q6_f32(uint32_t ql_byte, int nibble_shift, uint32_t qh_byte, int qh_shift) {
+  return static_cast<float>((ql_byte >> nibble_shift) & 0xfu) +
+         16.f * static_cast<float>((qh_byte >> qh_shift) & 3u) - 32.f;
+}
+
+template <int M, typename TX, bool F32Combine = false>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 q6_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
                  const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
@@ -109,8 +122,85 @@ q6_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
       float qlo[16], qhi[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        qlo[i] = q6(byte_of(lw, i), 0, byte_of(hw, i), qh_shift);
-        qhi[i] = q6(byte_of(lw, i), 4, byte_of(hw, i), qh_shift + 4);
+        if constexpr (F32Combine) {
+          qlo[i] = q6_f32(byte_of(lw, i), 0, byte_of(hw, i), qh_shift);
+          qhi[i] = q6_f32(byte_of(lw, i), 4, byte_of(hw, i), qh_shift + 4);
+        } else {
+          qlo[i] = q6(byte_of(lw, i), 0, byte_of(hw, i), qh_shift);
+          qhi[i] = q6(byte_of(lw, i), 4, byte_of(hw, i), qh_shift + 4);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane * kXPad]);
+        float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 a = xv[i];
+          const float4 b = xv[4 + i];
+          s_lo = fmaf(qlo[4 * i + 0], a.x, s_lo);
+          s_lo = fmaf(qlo[4 * i + 1], a.y, s_lo);
+          s_lo = fmaf(qlo[4 * i + 2], a.z, s_lo);
+          s_lo = fmaf(qlo[4 * i + 3], a.w, s_lo);
+          s_hi = fmaf(qhi[4 * i + 0], b.x, s_hi);
+          s_hi = fmaf(qhi[4 * i + 1], b.y, s_hi);
+          s_hi = fmaf(qhi[4 * i + 2], b.z, s_hi);
+          s_hi = fmaf(qhi[4 * i + 3], b.w, s_hi);
+        }
+        acc[m] = fmaf(dsc_lo, s_lo, acc[m]);
+        acc[m] = fmaf(dsc_hi, s_hi, acc[m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = warp_sum(acc[m]);
+  if (lane == 0 && n < N) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
+  }
+}
+
+// int8 payload q [N, K] (-32..31), sc i8 [N, K/16], d f16 [N, K/256], M = 8,
+// bf16 x: lane l of a K-chunk owns elements 32l..32l+31 (x staged in that
+// order, 36 floats a lane) and scales their two 16-sums by d*sc in f32
+__global__ void __launch_bounds__(kGemvWarps * 32)
+q6_k_int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qs,
+                      const int8_t* __restrict__ sc, const __half* __restrict__ d,
+                      float* __restrict__ y, int N, int K) {
+  constexpr int M = 8;
+  __shared__ __align__(16) float xs[M][32 * kXPad];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kGemvWarps + warp;
+  const int8_t* qrow = qs + static_cast<size_t>(n) * K;
+  const int8_t* scrow = sc + static_cast<size_t>(n) * (K / 16);
+  const __half* drow = d + static_cast<size_t>(n) * (K / kQK);
+  float acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kGemvKChunk) {
+    const int klen = min(kGemvKChunk, K - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
+      const int m = i / kGemvKChunk;
+      const int e = i % kGemvKChunk;
+      xs[m][(e / 32) * kXPad + e % 32] = e < klen ? __bfloat162float(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
+    }
+    __syncthreads();
+    if (n < N && lane < klen / 32) {
+      const int k = k0 + 32 * lane;
+      const uint4 a4 = *reinterpret_cast<const uint4*>(qrow + k);
+      const uint4 b4 = *reinterpret_cast<const uint4*>(qrow + k + 16);
+      const float dd = __half2float(drow[k / kQK]);
+      const float dsc_lo = dd * static_cast<float>(scrow[k / 16]);
+      const float dsc_hi = dd * static_cast<float>(scrow[k / 16 + 1]);
+      const uint32_t aw[4] = {a4.x, a4.y, a4.z, a4.w};
+      const uint32_t bw[4] = {b4.x, b4.y, b4.z, b4.w};
+      float qlo[16], qhi[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        qlo[i] = static_cast<float>(static_cast<int8_t>(byte_of(aw, i)));
+        qhi[i] = static_cast<float>(static_cast<int8_t>(byte_of(bw, i)));
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -270,6 +360,40 @@ extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const 
     launch_q6_k<float>(x, ql, qh, sc, d, y, M, N, K, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout ablation at M = 8 with bf16 x; y: [8, N] f32. mode 0 (prod):
+// a0 = q i8 [N, K], a1 = sc, a2 = d, a3 unused; mode 1 (split_f32) and 2
+// (split_int, the main path's GEMV): a0..a3 = ql, qh, sc, d of the port's
+// q6_k layout. Returns a cudaError_t value.
+extern "C" int gt_q6_k_variant(const void* x, int mode, const void* a0, const void* a1,
+                               const void* a2, const void* a3, void* y, int N, int K,
+                               void* stream) {
+  if (N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* yp = static_cast<float*>(y);
+  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+  const dim3 block(kGemvWarps * 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* u0 = static_cast<const uint8_t*>(a0);
+  const auto* u1 = static_cast<const uint8_t*>(a1);
+  switch (mode) {
+    case 0:
+      q6_k_int8_gemv_kernel<<<grid, block, 0, s>>>(xp, static_cast<const int8_t*>(a0),
+                                                   static_cast<const int8_t*>(a1),
+                                                   static_cast<const __half*>(a2), yp, N, K);
+      break;
+    case 1:
+      q6_k_gemv_kernel<8, __nv_bfloat16, true><<<grid, block, 0, s>>>(
+          xp, u0, u1, static_cast<const int8_t*>(a2), static_cast<const __half*>(a3), yp, N, K);
+      break;
+    case 2:
+      q6_k_gemv_kernel<8, __nv_bfloat16, false><<<grid, block, 0, s>>>(
+          xp, u0, u1, static_cast<const int8_t*>(a2), static_cast<const __half*>(a3), yp, N, K);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,19 @@ SIGNATURES = {
     "gt_paged_attention": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, dtype, window, softcap, stream
     "gt_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # the decode-GEMV instruments (ops/qmm_variants.py)
+    # x, mode, qs, scales, sc_dtype, y, M, N, K, stream
+    "gt_qmm_variant": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
+    # x, w, y, M, N, K, stream
+    "gt_int4_dot": (_P, _P, _P, _I, _I, _I, _P),
+    # four (array, row_bytes, width), out, N, stream
+    "gt_row_checksum": (_P, _I, _I) * 4 + (_P, _I, _P),
+    # x, qs, scales, y, N, K, warps, stream
+    "gt_q4_0_gemv_warps": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, mode, qs, scales, dm, y, N, K, stream
+    "gt_q4_k_variant": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # x, mode, a0, a1, a2, a3, y, N, K, stream
+    "gt_q6_k_variant": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -75,7 +75,7 @@ def sdpa(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 
     """Plain softmax attention: a port of the reference's `sdpa_xla`."""
     s = _scores(q, k, attn_softcap)
     valid = _valid_mask(positions, kv_limit, k.shape[2], window)[:, None, None]
-    w = torch.softmax(torch.where(valid, s, torch.tensor(-1e30, device=s.device)), dim=-1)
+    w = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
     return _pv(w.to(v.dtype).to(torch.float32), v, q.shape).to(v.dtype)
 
 
@@ -90,7 +90,7 @@ def flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap: float = 0.
         if attn_softcap:
             s = attn_softcap * torch.tanh(s / attn_softcap)
     valid = _valid_mask(positions, kv_limit, k.shape[2], window)[:, None, None]
-    s = torch.where(valid, s, torch.tensor(MASK_VALUE, device=s.device))
+    s = torch.where(valid, s, MASK_VALUE)
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_inv = torch.where(l == 0.0, 1.0, 1.0 / l)

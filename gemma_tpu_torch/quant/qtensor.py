@@ -249,9 +249,6 @@ def _dequant_q4_k(qs, scales, dm):
     return (scale[..., None] * q - minv[..., None]).flatten(-3)
 
 
-_Q6_SHIFTS = (0, 2, 4, 6)  # qh bit field of each of the four 32-runs of a half
-
-
 def q6_k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     """ql u8 [..., K/2], qh u8 [..., K/4] -> q in [-32, 31] (int16)
     [..., K] in logical order. Within each 128-element half: ql[l] low
@@ -262,7 +259,9 @@ def q6_k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     lq = ql.reshape(*lead, -1, 2, 32)  # [..., half, run of 32 bytes, 32]
     low4 = torch.cat([lq & 0x0F, lq >> 4], dim=-2)  # [..., half, 4, 32]
     hq = qh.reshape(*lead, -1, 1, 32)
-    shifts = torch.tensor(_Q6_SHIFTS, dtype=torch.uint8, device=ql.device)[:, None]
+    # the qh bit field of each of the four 32-runs of a half: 0, 2, 4, 6 (made
+    # on the device: a copy from the host would wait for the stream)
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=ql.device)[:, None]
     hi2 = (hq >> shifts) & 3
     return ((low4 | (hi2 << 4)).to(torch.int16) - 32).reshape(*lead, -1)
 

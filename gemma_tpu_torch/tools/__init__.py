@@ -1,0 +1,9 @@
+"""The port's decode-GEMV benches, counterparts of the reference's
+`tools/bench_qmm_variants.py`, `bench_bn_sweep.py`, `probe_int4.py`,
+`bench_q4k_variants.py` and `bench_q6k_variants.py`:
+
+    python -m gemma_tpu_torch.tools.<name> [shape] [--device cpu]
+
+They run on the card unless `--device cpu` asks for the plain versions, and
+time each kernel with L2 cold (`_timing.py`).
+"""

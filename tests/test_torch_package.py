@@ -82,6 +82,51 @@ def test_sources_import_nothing_of_the_jax_package():
         assert not pattern.search(f.read_text()), f
 
 
+def test_sources_import_nothing_of_the_reference_tools():
+    """No module of the port, and not chip_smoke.py, imports a module of the
+    root tools/ directory or puts tools/ on sys.path: the port's benches are
+    its own (`gemma_tpu_torch/tools/`)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    names = sorted(p.stem for p in (ROOT / "tools").glob("*.py"))
+    assert {"bench_qmm_variants", "bench_bn_sweep", "probe_int4"} <= set(names)
+    imports = re.compile(rf"^\s*(import|from)\s+(tools|{'|'.join(names)})\b"
+                         rf"|import_module\(\s*['\"](tools|{'|'.join(names)})\b", re.M)
+    path_edit = re.compile(r"sys\.path\.(insert|append|extend)\([^)]*tools", re.S)
+    assert imports.search("import bench_qmm_variants") and imports.search("from tools import x")
+    assert not imports.search("from gemma_tpu_torch.tools import bench_qmm_variants")
+    assert not imports.search("from . import _timing")
+    assert path_edit.search('sys.path.insert(0, str(ROOT / "tools"))')
+    for f in files:
+        text = f.read_text()
+        assert not imports.search(text), f
+        assert not path_edit.search(text), f
+
+
+_TOOLS_NO_JAX = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["gemma_tpu"] = None
+import gemma_tpu_torch.tools as t
+names = [m.name for m in pkgutil.iter_modules(t.__path__)]
+for n in names:
+    importlib.import_module(f"gemma_tpu_torch.tools.{n}")
+print(json.dumps({"tools": sorted(names), "reference_tools": sorted(
+    m for m in sys.modules if m.startswith(("bench_", "probe_", "tools")))}))
+"""
+
+
+def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_NO_JAX], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout) == {
+        "tools": ["_timing", "bench_bn_sweep", "bench_q4k_variants", "bench_q6k_variants",
+                  "bench_qmm_variants", "probe_int4"],
+        "reference_tools": []}
+
+
 def test_load_params_defaults_to_the_card(monkeypatch, tmp_path):
     """Without a GPU, load_params with no device fails before it reads a
     tensor: it never loads onto the CPU. The CLI fails with its message."""
@@ -106,6 +151,9 @@ def test_kernel_sources_note_what_they_replace():
              ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
              ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel"),
              ("paged_attention.cu", "_paged_kernel"), ("q8_0_matmul.cu", "_q8_0_kernel")]
+    notes += [("qmm_variants.cu", "kernel3"), ("qmm_variants.cu", "_kernel"),
+              ("q4_0_matmul.cu", "_kernel"), ("q4_0_matmul.cu", "call"),
+              ("q4_k_matmul.cu", "_kernel"), ("q6_k_matmul.cu", "_kernel")]
     for name, tpu_kernel in notes:
         text = (PKG / "csrc" / name).read_text()
         assert re.search(rf"Replaces .*`{tpu_kernel}`", text, re.S), name

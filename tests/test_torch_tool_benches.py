@@ -1,0 +1,162 @@
+"""The port's decode-GEMV benches (`gemma_tpu_torch/tools/`) end to end on
+the CPU at small shapes, their harness, and the wrappers' argument checks.
+On the CPU the benches run the plain versions; on the card (chip_smoke.py
+phase 7) they launch the kernels."""
+import importlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from gemma_tpu_torch.ops import qmm_variants as qv
+from gemma_tpu_torch.quant.qtensor import QTensor
+from gemma_tpu_torch.tools import _timing as T
+from gemma_tpu_torch.tools import (bench_bn_sweep, bench_q4k_variants, bench_q6k_variants,
+                                   bench_qmm_variants, probe_int4)
+
+CPU = torch.device("cpu")
+TOOLS = ["bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
+         "bench_q6k_variants"]
+LINE = re.compile(r"\d+\.\d\d us +\d+\.\d GB/s +\d\.\d{3} of 3\.35 TB/s; bound \d+\.\d\d us "
+                  r"\((bytes|operations)\)")
+
+
+def test_bench_qmm_variants_runs_every_config(capsys):
+    out = bench_qmm_variants.run([("tiny", 128, 512)], CPU, reps=1)
+    assert len(out) == len(bench_qmm_variants.CONFIGS) + 1  # and gdot at M = 1
+    assert out[("tiny", "gdot", "float16", 1)]["flops"] * 8 == out[("tiny", "gdot", "float16", 8)]["flops"]
+    text = capsys.readouterr().out
+    assert text.splitlines()[0].startswith("cpu (cpu: plain PyTorch versions")
+    assert len(LINE.findall(text)) == len(bench_qmm_variants.CONFIGS) + 1
+    assert "exact" in text and 'launches {"row_checksum": 0, "qmm_variant": 0}' in text
+
+
+def test_bench_qmm_variants_cli_on_one_shape(capsys):
+    assert bench_qmm_variants.main(["attn_out", "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "attn_out [2048, 2048]" in text and "ffn_down" not in text
+    assert len(LINE.findall(text)) == len(bench_qmm_variants.CONFIGS) + 1
+
+
+def test_bench_bn_sweep_runs_every_warp_count(capsys):
+    out = bench_bn_sweep.run([("tiny", 96, 1024)], CPU, reps=1)
+    assert sorted(w for _, w in out) == list(qv.WARPS)
+    assert len(LINE.findall(capsys.readouterr().out)) == len(qv.WARPS)
+
+
+def test_bench_q4k_variants_runs_every_mode(capsys):
+    out = bench_q4k_variants.run(CPU, reps=1, n=64, k=1024)
+    assert list(out) == list(qv.Q4_K_MODES)
+    # nosub reads no 6-bit table; q4_0ref reads f16 scales of the same size
+    assert out["nosub"]["bytes"] < out["prod"]["bytes"] == out["q4_0ref"]["bytes"]
+    assert len(LINE.findall(capsys.readouterr().out)) == len(qv.Q4_K_MODES)
+
+
+def test_bench_q6k_variants_runs_every_mode(capsys):
+    out = bench_q6k_variants.run(CPU, reps=1, n=64, k=1024)
+    assert list(out) == list(bench_q6k_variants.MODES)
+    assert out["prod"]["bpw"] == 8.5625 and out["split_int"]["bpw"] == 6.5625
+    assert len(LINE.findall(capsys.readouterr().out)) == len(bench_q6k_variants.MODES)
+
+
+def test_probe_int4_prints_ok_lines(capsys):
+    assert probe_int4.main(["--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert text.count(" OK: ") == 4 and "WRONG" not in text
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_benches_run_on_the_card_by_default(name, monkeypatch):
+    """No CUDA device and no `--device cpu`: the CLI's message, no run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(f"gemma_tpu_torch.tools.{name}").main([])
+
+
+def test_copies_fill_twice_the_l2():
+    cuda = torch.device("cuda")
+    assert T.copies_for(2048 * 1024 + 2048 * 64 * 2, cuda) == 43  # attn_out: 43 copies
+    assert T.copies_for(288_000_000, cuda) == 1  # the head
+    assert T.copies_for(1000, cuda) == T.MAX_COPIES
+    assert T.copies_for(1000, CPU) == 1
+    qt = QTensor("q4_0", qs=torch.zeros(4, 16, dtype=torch.uint8),
+                 scales=torch.ones(4, 1, dtype=torch.float16))
+    sets = T.replicate((torch.ones(2), qt, {"a": torch.zeros(3)}, 5), 3)
+    assert len(sets) == 3 and sets[0][0] is not sets[1][0] and sets[2][3] == 5
+    assert sets[1][1].qs.data_ptr() != qt.qs.data_ptr() and torch.equal(sets[1][1].qs, qt.qs)
+    assert T.nbytes(*sets[1]) == 8 + 64 + 8 + 12
+
+
+def test_tally_holds_counters_to_calls():
+    tally = T.Tally()
+    fn = tally.call("int4_dot", lambda: None)
+    fn(), fn()
+    assert tally.report(CPU) == 'launches {"int4_dot": 0}'
+    with pytest.raises(RuntimeError, match="launch counters"):
+        tally.report(torch.device("cuda"))  # no launches were made
+    qv.int4_dot.launches = 2
+    assert tally.report(torch.device("cuda")) == 'launches {"int4_dot": 2}'
+    qv.int4_dot.launches = 0
+
+
+def test_bound_takes_the_larger_term():
+    assert T.bound_us(3.35e6, 0) == pytest.approx((1.0, "bytes"))
+    assert T.bound_us(0, 989e6) == pytest.approx((1.0, "operations"))
+    # q4_0 at M = 8: 16 flops a 0.5625-byte weight, bound by its bytes
+    assert T.bound_us(0.5625e6, 16e6)[1] == "bytes"
+
+
+def test_row_checksum_wraps_modulo_2_32():
+    a = torch.full((2, 4096), -1, dtype=torch.int32)  # 4096 x (2^32 - 1) per row
+    b = torch.full((2, 8), 255, dtype=torch.uint8)
+    got = qv.row_checksum(a, b)
+    want = (4096 * (2**32 - 1) + 8 * 255) % 2**32
+    assert got.tolist() == [want - 2**32 if want >= 2**31 else want] * 2
+
+
+@pytest.mark.parametrize("fn,args,err", [
+    (qv.qmm_variant, ("nope", torch.zeros(8, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_variant, ("u16sc", torch.zeros(8, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), TypeError),
+    (qv.qmm_variant, ("f32dot", torch.zeros(9, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    # off the main path's gdot on f16 scales, the modes take M = 8 only
+    (qv.qmm_variant, ("f32dot", torch.zeros(4, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_variant, ("gdot", torch.zeros(1, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_variant, ("f32dot", torch.zeros(8, 64), torch.zeros(4, 32, dtype=torch.uint8),
+                      torch.ones(4, 2)), TypeError),
+    (qv.qmm_variant, ("f32dot", torch.zeros(8, 64, dtype=torch.bfloat16, device="meta"),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.int4_dot, (torch.zeros(8, 64), torch.zeros(4, 32, dtype=torch.uint8)), TypeError),
+    (qv.row_checksum, (torch.zeros(4, 3, dtype=torch.uint8),), ValueError),
+])
+def test_wrappers_refuse_bad_arguments(fn, args, err):
+    with pytest.raises(err):
+        fn(*args)
+
+
+def test_variant_wrappers_check_format_and_rows():
+    gen = T.generator(CPU)
+    q4k = T.random_qtensor("q4_k", 32, 256, gen, CPU)
+    x8 = T.bf16_x(8, 256, gen, CPU)
+    with pytest.raises(ValueError, match="q4_0 weight"):
+        qv.q4_k_variant("q4_0ref", x8, q4k)
+    with pytest.raises(ValueError, match=r"\[8, 256\]"):
+        qv.q4_k_variant("prod", x8[:4], q4k)
+    with pytest.raises(ValueError, match="warps"):
+        qv.q4_0_gemv_warps(x8, qv.q4_0ref_weight(q4k), 64)
+    q6k = T.random_qtensor("q6_k", 32, 256, gen, CPU)
+    with pytest.raises(ValueError, match="arrays"):
+        qv.q6_k_variant("prod", x8, q6k.arrays)
+    # the plain versions of the ablations against their definitions
+    w = qv.q4_0ref_weight(q4k)
+    assert w.fmt == "q4_0" and torch.equal(w.qs, q4k.qs)
+    assert float(w.scales.max()) <= 63 and torch.equal(w.scales, w.scales.round())
+    q = qv.q6_k_int8_payload(q6k)["qs"]
+    assert q.dtype == torch.int8 and int(q.min()) >= -32 and int(q.max()) <= 31
+    np.testing.assert_allclose(qv.q6_k_variant("prod", x8, qv.q6_k_int8_payload(q6k)),
+                               qv.q6_k_variant("split_int", x8, q6k.arrays), rtol=1e-5, atol=1e-6)
