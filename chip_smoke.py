@@ -7,7 +7,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 1. the card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   Gemma-2B shapes of the q4_0 and q4_k_m paths, the Gemma-7B shapes of the
+   Gemma-2B shapes of the q4_0 and q4_k_m paths (the q4_k and q6_k prefill
+   tiles at M = 17, 64 and 203), the Gemma-7B shapes of the
    q8_0 path (attention at 16 heads, batch 1 and 8), and the shapes of
    8-slot serving (the paged kernel and both int8 arms), with max|diff|
    against the stated tolerance, the device
@@ -20,7 +21,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    (what `Engine.generate` and the CLI run), with finite logits, tokens in
    range, and the kernels' launch counters, set to 0 just before each run,
    equal to what the layer structure implies; then `Engine.generate` must
-   give the same tokens;
+   give the same tokens; the prefill's median wall time over 5 more runs
+   and a device profile of one;
 5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
    tiny q4_0, q4_k_m and q8_0 GGUF, its printed text equal to the
    in-process run's, and each tiny model on the card held against the same
@@ -55,6 +57,7 @@ import dataclasses
 import json
 import random
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -95,6 +98,28 @@ KERNELS = {
                         "gemma_tpu/ops/paged_attention.py:47 _paged_kernel"),
     "paged_attention_int8": ("gemma_tpu_torch/csrc/paged_attention.cu",
                              "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages)"),
+}
+# prefill rows of the quantized-matmul tiles: a serving prompt, an
+# admission chunk, the prompt
+TILE_MS = (17, 64, PROMPT_LEN)
+# phase 3's quantized-matmul shapes (name, N, K[, Ms]): Gemma-2B's for q4_0
+# and for the q4_k_m path (q4_k q, k, out, fused gate|up, down; q6_k attn_v,
+# and the tied head, which prefill runs at its last row only), the deep-K
+# shape of the reference's _q6_k_v4_kernel, and Gemma-7B's for q8_0, whose
+# head's plain version dequantizes 3.1 GB of f32 and so runs at decode M
+MATMUL_SHAPES = {
+    "q4_0": ([("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
+              ("down", 2048, 16384), ("head", 256000, 2048)], "gate_up"),
+    "q8_0": ([("qkv", 12288, 3072, (1, 8, PROMPT_LEN)),
+              ("attn_out", 3072, 4096, (1, 8, PROMPT_LEN)),
+              ("gate_up", 49152, 3072, (1, 8, PROMPT_LEN)),
+              ("down", 3072, 24576, (1, 8, PROMPT_LEN)),
+              ("head", 256000, 3072, (1, 8))], "gate_up"),
+    "q4_k": ([(name, N, K, (1, *TILE_MS)) for name, N, K in (
+        ("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
+        ("gate_up", 32768, 2048), ("down", 2048, 16384))], "gate_up"),
+    "q6_k": ([(name, N, K, (1, *TILE_MS)) for name, N, K in (
+        ("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048))], "head"),
 }
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
 SERVE_REQUESTS = 24
@@ -195,8 +220,9 @@ def cold_ms(fn, args: tuple, dev, reps: int = 5) -> float:
 def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
     """One quantized matmul kernel against its plain version with bf16 x, on
     each (name, N, K[, Ms]) of `shapes`, at M = 1 and 203 unless Ms is
-    given. The library yardstick is torch.matmul of x with the weight
-    dequantized to bf16 beforehand: it reads 16 bits per weight, not the
+    given; the JSON reading is `rep_name` at M = 1, with the prefill tile's
+    at M = 203 under "tile". The library yardstick is torch.matmul of x
+    with the weight dequantized to bf16 beforehand: it reads 16 bits per weight, not the
     format's bits. The bound counts the wire bytes of the weight, x and
     the f32 y, and the flops at the bf16 rate. Kernel and library are timed
     with L2 cold (`cold_ms`), as a decode step meets its weights; the warm
@@ -208,7 +234,7 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
 
     kernel, plain = qmm.MATMULS[fmt], qmm.PLAIN[fmt]
     worst = 0.0
-    rep = None
+    rep = tile = None
     for name, N, K, *ms_list in shapes:
         qt = random_qtensor(fmt, N, K, gen, dev)
         wire_bytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
@@ -239,47 +265,43 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
             require(bool(torch.isfinite(got).all()) and err <= tol,
                     f"{fmt}_matmul {name} M={M}: max|diff| {err} > tol {tol}")
             worst = max(worst, err)
+            reading = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms, "shape": f"{name} M={M} N={N} K={K}"}
             if name == rep_name and M == 1:
-                rep = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": library_ms, "shape": f"{name} M=1 N={N} K={K}"}
+                rep = reading
+            elif name == rep_name and M == PROMPT_LEN:
+                tile = reading
         del qt, w16
-    return {"max_abs_err": worst, **rep}
+    return {"max_abs_err": worst, **rep, **({"tile": tile} if tile else {})}
+
+
+def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
+    """Phase 3, the quantized matmuls of `formats` at MATMUL_SHAPES.
+
+    q4_0, q8_0 and q6_k: the kernel and the plain version form the same f32
+    products (f32 weights at M <= 8, bf16-rounded weights at M > 8, whose
+    products with bf16 x are exact in f32 on the tensor cores too) and
+    differ only in the order of f32 sums. q4_k at M <= 8 takes ggml's
+    vec_dot form, d*sc * sum(x*q) - dmin*mn * sum(x), against the plain
+    x @ dequant: the products differ by the f32 rounding of each dequantized
+    weight; at M > 8 both form bf16(d*sc * (q - 8)) products plus the f32
+    affine part. Each is ~1e-6 of the output's scale, so the tolerance is
+    1e-4 of it."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return {f"{fmt}_matmul": check_matmul(torch, fmt, *MATMUL_SHAPES[fmt], gen, dev)
+            for fmt in formats}
 
 
 def check_kernels(torch, dev) -> dict[str, dict]:
     """Phase 3: every kernel against its plain version at the main path's
-    shapes. Returns per-kernel results for the JSON line."""
+    shapes (the quantized matmuls by `check_matmuls`). Returns per-kernel
+    results for the JSON line."""
     import gemma_tpu_torch.ops.attention as att
 
+    results = check_matmuls(torch, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    results = {}
-
-    # Quantized matmuls. q4_0, q8_0 and q6_k: the kernel and the plain version
-    # form the same f32 products (f32 weights at M <= 8, bf16-rounded
-    # weights at M > 8) and differ only in the order of f32 sums. q4_k at
-    # M <= 8 takes ggml's vec_dot form, d*sc * sum(x*q) - dmin*mn * sum(x),
-    # against the plain x @ dequant: the products differ by the f32
-    # rounding of each dequantized weight; at M > 8 both form
-    # bf16(d*sc * (q - 8)) products plus the f32 affine part. Each is
-    # ~1e-6 of the output's scale, so the tolerance is 1e-4 of it.
-    for fmt, shapes, rep_name in (
-        ("q4_0", [("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
-                  ("down", 2048, 16384), ("head", 256000, 2048)], "gate_up"),
-        # Gemma-7B; the head's plain version dequantizes 3.1 GB of f32, so
-        # it runs at the decode M only
-        ("q8_0", [("qkv", 12288, 3072, (1, 8, PROMPT_LEN)),
-                  ("attn_out", 3072, 4096, (1, 8, PROMPT_LEN)),
-                  ("gate_up", 49152, 3072, (1, 8, PROMPT_LEN)),
-                  ("down", 3072, 24576, (1, 8, PROMPT_LEN)),
-                  ("head", 256000, 3072, (1, 8))], "gate_up"),
-        ("q4_k", [("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
-                  ("gate_up", 32768, 2048), ("down", 2048, 16384)], "gate_up"),
-        # (2048, 16384): the deep-K shape of the reference's _q6_k_v4_kernel
-        ("q6_k", [("attn_v", 256, 2048), ("head", 256000, 2048),
-                  ("deep_k", 2048, 16384)], "head"),
-    ):
-        results[f"{fmt}_matmul"] = check_matmul(torch, fmt, shapes, rep_name, gen, dev)
 
     # attention: bf16 outputs, and p rounded to bf16 against a per-tile
     # (kernel) or per-row (plain) running max; the reference's own kernel
@@ -394,7 +416,8 @@ def check_kernels(torch, dev) -> dict[str, dict]:
 
 def check_edge_cases(torch, dev) -> None:
     """Phase 3, correctness only: the kernels' instances the main path does
-    not reach (M = 2..9 and 70 on ragged N and K, f32 activations, GQA with
+    not reach (M = 2..9 and 70 on ragged N and K, the K-quants also at the
+    prefill rows 17, 64, 130 and 203, f32 activations, GQA with
     head_dim 128, batch 2 with per-row limits, ragged T, softcap + window),
     and attention at Gemma-7B's heads (Hq = Hkv = 16, D = 256: one query
     head per KV head), each against its plain version with the tolerances
@@ -413,7 +436,7 @@ def check_edge_cases(torch, dev) -> None:
     for fmt, K in (("q4_0", 1056), ("q8_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):
         qt = random_qtensor(fmt, 1000, K, gen, dev)
         for dtype in (torch.bfloat16, torch.float32):
-            for M in (2, 5, 8, 9, 70):
+            for M in (2, 5, 8, 9, 70) + ((17, 64, 130, PROMPT_LEN) if fmt.endswith("_k") else ()):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                 got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
                 err = (got - ref).abs().max().item()
@@ -615,14 +638,40 @@ def read_counters() -> dict[str, int]:
 def profiler_coverage(prof, before: dict[str, int]) -> str:
     """'<recorded> of <launched> quantized-matmul launches recorded' by a
     torch.profiler run that began at counters `before`: each wrapper
-    call launches one GEMV or tile kernel. Busy times and idle shares read
+    call launches one GEMV or tile kernel (`dq_tile_kernel` for the
+    K-quants' bf16 prefill tiles). Busy times and idle shares read
     from the run rest on its records; a share below 1 makes busy read
     low and idle high."""
     after = read_counters()
     launched = sum(after[k] - before[k] for k in after if k.endswith("_matmul"))
     recorded = sum(e.count for e in prof.key_averages()
-                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel", e.key))
+                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_tile_kernel", e.key))
     return f"{recorded} of {launched} quantized-matmul launches recorded"
+
+
+def prefill_profile(torch, eng, prompt: list[int], runs: int = 5) -> tuple[float, str]:
+    """(median wall ms of `runs` prefills of `prompt`, each ended by a
+    synchronize; a torch.profiler reading of one more: device busy ms, the
+    largest kernels' ms and the profiler's coverage)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        eng.prefill([prompt])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    before = read_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.prefill([prompt])
+        torch.cuda.synchronize()
+    per_kernel = sorted(((getattr(e, "self_device_time_total", 0) / 1e3,
+                          e.key.replace("void ", "").replace("(anonymous namespace)::", ""))
+                         for e in prof.key_averages()), reverse=True)
+    busy = sum(ms for ms, _ in per_kernel)
+    top = "; ".join(f"{name[:72]} {ms:.4f}" for ms, name in per_kernel[:6])
+    return statistics.median(times), (f"device busy {busy:.3f} ms; device ms by kernel: {top}; "
+                                      f"{profiler_coverage(prof, before)}")
 
 
 def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
@@ -732,6 +781,9 @@ def main_path(torch, dev, card: str, model_name: str, fmt: str) -> dict[str, int
                 f"tokens in {t_decode:.3f} s = {NEW_TOKENS / t_decode:.2f} tok/s on {card}; "
                 f"launches {counts} (expected {expected})")
     require(counts == expected, f"launch counts {counts} != expected {expected}")
+    median_ms, profiled = prefill_profile(torch, eng, prompt)
+    info(phase, f"prefill of {PROMPT_LEN} tokens on {card}: {median_ms:.3f} ms wall, the median of "
+                f"5 after warm-up; one more under torch.profiler: {profiled}")
     busy, top = decode_profile(torch, eng, cache, toks[-1])
     per_token = t_decode / NEW_TOKENS * 1e3
     info(phase, f"decode step on {card}: {per_token:.3f} ms wall per token, device busy "

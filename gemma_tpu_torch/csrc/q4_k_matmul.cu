@@ -28,19 +28,23 @@
 //   (`gt_q4_k_variant`, M = 8, bf16 x): noaffine forms d*sc * (q - 8)
 //   (no dmin*mn, no sum(x)), nosub d * (q - 8) (no 6-bit table decode, no
 //   affine part).
-// * Prefill (M > 8) is a tiled plain-FMA kernel (`q4_k_tiled_kernel`):
-//   64 x 64 outputs per block, K stepped one 64-element chunk (two
-//   sub-blocks) at a time, both tiles in shared memory. With bf16 x the
-//   weight tile is bf16(d*sc * (q - 8)) and the per-32 affine part
-//   sum(x) * (8 d*sc - dmin*mn) is added in f32 from f32 group sums of the
-//   x tile: the reference kernel's rounding point (a bf16-rounded offset
-//   is a perplexity bias). With f32 x (evaluation mode) the tile holds the
-//   f32 weights. Tensor cores (mma/wgmma) are later work.
+// * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
+//   is bound by operations (gate_up at M = 203: 0.0275 ms at 989 TFLOP/s
+//   against 0.0113 ms of bytes). It runs on the tensor cores through the
+//   shared tile of dq_tile.cuh (`dq_tile_kernel<Q4KTile>`: bf16 mma.sync,
+//   f32 accumulators, x and the raw q4_k bytes staged by cp.async a few
+//   steps ahead), the counterpart of the reference kernel's bf16 MXU
+//   operands above M = 8. `Q4KTile` dequantizes 16 weights a thread from
+//   shared memory into the bf16 tile: bf16(d*sc * (q - 8)), the reference
+//   kernel's rounding point. The per-32 affine part sum(x) * (8 d*sc -
+//   dmin*mn) stays in f32 (a bf16-rounded offset is a perplexity bias): the
+//   tile adds it from the x tile's group sums into the accumulators.
+// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
+//   (`q4_k_tiled_kernel`): 64 x 64 outputs per block, K stepped one 64-element
+//   chunk (two sub-blocks) at a time, both tiles in shared memory in f32.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
-#include <type_traits>
-
-#include "common.cuh"
+#include "dq_tile.cuh"
 
 using namespace gt;
 
@@ -181,24 +185,71 @@ q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
   }
 }
 
+// The tensor-core tile's q4_k item (dq_tile.cuh): 16 weights of one row in
+// one 64-element step, chunk c = (k0 % 256) / 64 of superblock k0 / 256.
+// Quarter p is elements 16p .. 16p + 15 of the chunk: nibble p / 2 (sub-block
+// 2c + p / 2) of payload bytes 16 (p % 2) .. + 15. A row's raw step: the
+// chunk's 32 payload bytes, the superblock's 12-byte table and its d, dmin.
+struct Q4KTile {
+  struct Weight {
+    const uint8_t* qs;
+    const uint8_t* table;
+    const __half2* dm;
+  };
+  static constexpr int kRaw = 48;  // qs [0, 32), table [32, 44), dm [44, 48)
+  static constexpr bool kAffine = true;
+
+  __device__ __forceinline__ static void copy(const Weight& w, uint32_t raw, int n, int N, int K,
+                                              int k0, int part) {
+    const bool ok = n < N;
+    const size_t sbi = static_cast<size_t>(ok ? n : 0) * (K / kQK) + k0 / kQK;  // superblock index
+    if (part < 2) {
+      cp_async16(raw + 16 * part, w.qs + sbi * 128 + (k0 % kQK) / 2 + 16 * part, ok);
+    } else if (part == 2) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) cp_async4(raw + 32 + 4 * i, w.table + sbi * 12 + 4 * i, ok);
+    } else {
+      cp_async4(raw + 44, w.dm + sbi, ok);
+    }
+  }
+
+  __device__ __forceinline__ static void store(const uint8_t* raw, __nv_bfloat16* row, float* off,
+                                               int, int, int k0, int part) {
+    const int g = part / 2;  // 32-group of the chunk
+    const uint32_t* t = reinterpret_cast<const uint32_t*>(raw + 32);
+    const float2 dmf = __half22float2(*reinterpret_cast<const __half2*>(raw + 44));
+    float sc, mn;
+    scale_min_k4(t[0], t[1], t[2], 2 * ((k0 % kQK) / 64) + g, sc, mn);
+    const float dsc = dmf.x * sc;
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + 16 * (part % 2));
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const uint32_t v = words[i / 4] >> (8 * (i % 4) + 4 * g);  // nibbles of bytes i, i + 1
+      p[i / 2] = pack_bf16(dsc * small_int_minus(v & 0xfu, 8.f),
+                           dsc * small_int_minus((v >> 8) & 0xfu, 8.f));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(row + 16 * part);
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+    if (part % 2 == 0) *off = 8.f * dsc - dmf.y * mn;
+  }
+};
+
 constexpr int kTileM = 64;
 constexpr int kTileN = 64;
 constexpr int kTileK = 64;  // one 32-byte chunk: sub-blocks 2c and 2c + 1
 constexpr int kTiledThreads = 256;
 
-template <typename TX>
+// f32 x (evaluation mode): f32 weights, plain FMA
 __global__ void __launch_bounds__(kTiledThreads)
-q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+q4_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
                   const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
                   float* __restrict__ y, int M, int N, int K) {
-  // bf16 x: bf16 scale part + f32 affine part; f32 x: f32 weights
-  constexpr bool kSplit = std::is_same<TX, __nv_bfloat16>::value;
   __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
   __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // weight tile, K-major
-  __shared__ float xsum[2][kTileM];  // the x rows' sums over each 32-group
-  __shared__ float offs[2][kTileN];  // the weight rows' 8 d*sc - dmin*mn per 32-group
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
   const int tx = tid % 16;  // output cols tx*4 .. +3
   const int ty = tid / 16;  // output rows ty*4 .. +3
   const int m0 = blockIdx.y * kTileM;
@@ -212,19 +263,13 @@ q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kTileK) {
-    // a warp stages 32 consecutive values of one row: one 32-group
 #pragma unroll 4
     for (int it = 0; it < kTileM * kTileK / kTiledThreads; ++it) {
       const int i = tid + it * kTiledThreads;
       const int r = i / kTileK;
       const int c = i % kTileK;
       const int m = m0 + r;
-      const float v = m < M ? to_f32(x[static_cast<size_t>(m) * K + k0 + c]) : 0.f;
-      xs[c][r] = v;
-      if (kSplit) {
-        const float s = warp_sum(v);
-        if (lane == 0) xsum[c / 32][r] = s;
-      }
+      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
     }
     {
       // 64 weight rows x 4 quarters of 16 weights: quarter p holds elements
@@ -246,10 +291,8 @@ q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const float q = static_cast<float>((words[i / 4] >> (8 * (i % 4) + shift)) & 0xfu);
-        ws[part * 16 + i][r] = kSplit ? round_to<TX>(dsc * (q - 8.f))
-                                      : __fsub_rn(__fmul_rn(dsc, q), dmn);
+        ws[part * 16 + i][r] = __fsub_rn(__fmul_rn(dsc, q), dmn);
       }
-      if (kSplit && part % 2 == 0) offs[part / 2][r] = 8.f * dsc - dmn;
     }
     __syncthreads();
 #pragma unroll
@@ -262,15 +305,6 @@ q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kSplit) {
-#pragma unroll
-      for (int g = 0; g < 2; ++g)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(xsum[g][ty * 4 + i], offs[g][tx * 4 + j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -287,8 +321,8 @@ q4_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
 }
 
 template <typename TX>
-void launch_q4_k(const void* x, const void* qs, const void* table, const void* dm, void* y, int M,
-                 int N, int K, cudaStream_t s) {
+cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const void* dm, void* y,
+                        void* work, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(qs);
   const uint8_t* tp = static_cast<const uint8_t*>(table);
@@ -307,28 +341,37 @@ void launch_q4_k(const void* x, const void* qs, const void* table, const void* d
       case 7: q4_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
       default: q4_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
     }
+  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return launch_dq_tile<Q4KTile>(xp, {qp, tp, dp}, yp, static_cast<float*>(work), M, N, K, s);
   } else {
     const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_k_tiled_kernel<TX><<<grid, kTiledThreads, 0, s>>>(xp, qp, tp, dp, yp, M, N, K);
+    q4_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, tp, dp, yp, M, N, K);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
-// port's q4_k layout; y: [M, N] f32. Returns a cudaError_t value.
+// port's q4_k layout; y: [M, N] f32; work: gt_kquant_work_bytes(x_dtype,
+// M, N, K) bytes of f32 scratch (null when 0). Returns a cudaError_t value.
 extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
-                              const void* dm, void* y, int M, int N, int K, void* stream) {
+                              const void* dm, void* y, void* work, int M, int N, int K,
+                              void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kBF16) {
-    launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, M, N, K, s);
-  } else if (x_dtype == kF32) {
-    launch_q4_k<float>(x, qs, scales, dm, y, M, N, K, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (x_dtype == kBF16)
+    return static_cast<int>(launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, work, M, N, K, s));
+  if (x_dtype == kF32)
+    return static_cast<int>(launch_q4_k<float>(x, qs, scales, dm, y, work, M, N, K, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of the f32 scratch the q4_k and q6_k matmuls take at (x_dtype, M,
+// N, K): their bf16 prefill tile's K-split partial sums, else 0.
+extern "C" size_t gt_kquant_work_bytes(int x_dtype, int M, int N, int K) {
+  return x_dtype == kBF16 && M > 8 && N > 0 && K > 0 && K % kQK == 0 ? dq_tile_work_bytes(M, N, K)
+                                                                     : 0;
 }
 
 // The GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);

@@ -34,16 +34,22 @@
 //   `q6_k_int8_gemv_kernel` reads an int8 payload q [N, K] with the same
 //   sc and d (`prod`, 8.5625 bits a weight against 6.5625: a lane's two
 //   16-byte loads are its 32 weights, two 16-element sub-blocks).
-// * Prefill (M > 8) is a tiled plain-FMA kernel (`q6_k_tiled_kernel`):
-//   64 x 64 outputs per block, K stepped 64 elements (a quarter of a
-//   superblock) at a time. A thread dequantizes 16 weights of one row:
-//   one 16-element sub-block, from one aligned 16-byte ql load and one
-//   16-byte qh load. With bf16 x the weight tile is bf16((d*sc) * q), the
-//   true weight rounded once (the reference's -24 fold exists only for its
-//   int4 bitcast); with f32 x it stays f32. Tensor cores are later work.
+// * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
+//   is bound by operations (the deep-K (2048, 16384) shape at M = 203:
+//   0.0138 ms at 989 TFLOP/s against 0.0082 ms of bytes). It runs on the
+//   tensor cores through the shared tile of dq_tile.cuh
+//   (`dq_tile_kernel<Q6KTile>`: bf16 mma.sync, f32 accumulators, x and the
+//   raw q6_k bytes staged by cp.async a few steps ahead), the counterpart of
+//   the reference kernels' bf16 MXU operands above M = 8. `Q6KTile`
+//   dequantizes 16 weights a thread from shared memory into the bf16 tile:
+//   bf16((d*sc) * q), the true weight rounded once with d*sc formed in f32
+//   first (the reference's -24 fold exists only for its int4 bitcast).
+// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
+//   (`q6_k_tiled_kernel`): 64 x 64 outputs per block, K stepped 64 elements
+//   at a time; a thread dequantizes one 16-element sub-block of one row.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
-#include "common.cuh"
+#include "dq_tile.cuh"
 
 using namespace gt;
 
@@ -232,14 +238,73 @@ q6_k_int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restr
   }
 }
 
+// The tensor-core tile's q6_k item (dq_tile.cuh): 16 weights of one row in
+// one 64-element step, quarter t = (k0 % 128) / 64 of half h = (k0 % 256) /
+// 128 of superblock k0 / 256. Item p is elements e = 64t + 16p + i (i < 16)
+// of the half: ql byte 16p + i of the half's 64 (nibble t), qh byte
+// 16 (p % 2) + i of its 32 (field 2t + p / 2), sub-block 8h + 4t + p. A
+// row's raw step: the half's 64 ql and 32 qh bytes, the quarter's four int8
+// scales, and the aligned 4-byte word that holds d.
+struct Q6KTile {
+  struct Weight {
+    const uint8_t* ql;
+    const uint8_t* qh;
+    const int8_t* sc;
+    const __half* d;
+  };
+  static constexpr int kRaw = 112;  // ql [0, 64), qh [64, 96), sc [96, 100), d word [100, 104)
+  static constexpr bool kAffine = false;
+
+  __device__ __forceinline__ static void copy(const Weight& w, uint32_t raw, int n, int N, int K,
+                                              int k0, int part) {
+    const bool ok = n < N;
+    const size_t row = ok ? n : 0;
+    const int sb = k0 / kQK, h = (k0 % kQK) / 128, t = (k0 % 128) / 64;
+    cp_async16(raw + 16 * part, w.ql + row * (K / 2) + sb * 128 + 64 * h + 16 * part, ok);
+    if (part < 2) {
+      cp_async16(raw + 64 + 16 * part, w.qh + row * (K / 4) + sb * 64 + 32 * h + 16 * part, ok);
+    } else if (part == 2) {
+      cp_async4(raw + 96, w.sc + row * (K / 16) + sb * 16 + 8 * h + 4 * t, ok);
+    } else {
+      cp_async4(raw + 100, w.d + ((row * (K / kQK) + sb) & ~size_t{1}), ok);
+    }
+  }
+
+  __device__ __forceinline__ static void store(const uint8_t* raw, __nv_bfloat16* row, float*,
+                                               int n, int K, int k0, int part) {
+    const int sb = k0 / kQK, t = (k0 % 128) / 64;
+    const int qh_shift = 4 * t + 2 * (part / 2);
+    const __half2 dword = *reinterpret_cast<const __half2*>(raw + 100);
+    const bool odd = (static_cast<size_t>(n) * (K / kQK) + sb) & 1;  // d is the word's high half
+    const float d = __half2float(odd ? __high2half(dword) : __low2half(dword));
+    const float dsc = d * static_cast<float>(static_cast<int8_t>(raw[96 + part]));
+    const uint4 l = *reinterpret_cast<const uint4*>(raw + 16 * part);
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + 64 + 16 * (part % 2));
+    const uint32_t lw[4] = {l.x, l.y, l.z, l.w};
+    const uint32_t hw[4] = {q.x, q.y, q.z, q.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const uint32_t lv = lw[i / 4] >> (8 * (i % 4) + 4 * t);    // nibbles in bits 0-3, 8-11
+      const uint32_t hv = hw[i / 4] >> (8 * (i % 4) + qh_shift);  // fields in bits 0-1, 8-9
+      const uint32_t u0 = (lv & 0xfu) | ((hv & 3u) << 4);
+      const uint32_t u1 = ((lv >> 8) & 0xfu) | (((hv >> 8) & 3u) << 4);
+      p[i / 2] = pack_bf16(dsc * small_int_minus(u0, 32.f), dsc * small_int_minus(u1, 32.f));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(row + 16 * part);
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+};
+
 constexpr int kTileM = 64;
 constexpr int kTileN = 64;
 constexpr int kTileK = 64;  // a quarter superblock: four 16-element sub-blocks
 constexpr int kTiledThreads = 256;
 
-template <typename TX>
+// f32 x (evaluation mode): f32 weights, plain FMA
 __global__ void __launch_bounds__(kTiledThreads)
-q6_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
+q6_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ ql,
                   const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
                   const __half* __restrict__ d, float* __restrict__ y, int M, int N, int K) {
   __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
@@ -262,7 +327,7 @@ q6_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
       const int r = i / kTileK;
       const int c = i % kTileK;
       const int m = m0 + r;
-      xs[c][r] = m < M ? to_f32(x[static_cast<size_t>(m) * K + k0 + c]) : 0.f;
+      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
     }
     {
       // 64 weight rows x 4 sub-blocks of 16: part p holds element
@@ -288,7 +353,7 @@ q6_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
       const int qh_shift = 4 * t + 2 * (part / 2);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        ws[part * 16 + i][r] = round_to<TX>(dsc * q6(byte_of(lw, i), 4 * t, byte_of(hw, i), qh_shift));
+        ws[part * 16 + i][r] = dsc * q6(byte_of(lw, i), 4 * t, byte_of(hw, i), qh_shift);
       }
     }
     __syncthreads();
@@ -318,8 +383,8 @@ q6_k_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
 }
 
 template <typename TX>
-void launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc, const void* d,
-                 void* y, int M, int N, int K, cudaStream_t s) {
+cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc,
+                        const void* d, void* y, void* work, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
   const uint8_t* lp = static_cast<const uint8_t*>(ql);
   const uint8_t* hp = static_cast<const uint8_t*>(qh);
@@ -339,29 +404,31 @@ void launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc, 
       case 7: q6_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
       default: q6_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
     }
+  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return launch_dq_tile<Q6KTile>(xp, {lp, hp, sp, dp}, yp, static_cast<float*>(work), M, N, K,
+                                   s);
   } else {
     const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q6_k_tiled_kernel<TX><<<grid, kTiledThreads, 0, s>>>(xp, lp, hp, sp, dp, yp, M, N, K);
+    q6_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, lp, hp, sp, dp, yp, M, N, K);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
-// port's q6_k layout; y: [M, N] f32. Returns a cudaError_t value.
+// port's q6_k layout; y: [M, N] f32; work: gt_kquant_work_bytes(x_dtype,
+// M, N, K) bytes of f32 scratch (null when 0). Returns a cudaError_t value.
 extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const void* qh,
-                              const void* sc, const void* d, void* y, int M, int N, int K,
-                              void* stream) {
+                              const void* sc, const void* d, void* y, void* work, int M, int N,
+                              int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kBF16) {
-    launch_q6_k<__nv_bfloat16>(x, ql, qh, sc, d, y, M, N, K, s);
-  } else if (x_dtype == kF32) {
-    launch_q6_k<float>(x, ql, qh, sc, d, y, M, N, K, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (x_dtype == kBF16)
+    return static_cast<int>(launch_q6_k<__nv_bfloat16>(x, ql, qh, sc, d, y, work, M, N, K, s));
+  if (x_dtype == kF32)
+    return static_cast<int>(launch_q6_k<float>(x, ql, qh, sc, d, y, work, M, N, K, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The layout ablation at M = 8 with bf16 x; y: [8, N] f32. mode 0 (prod):

@@ -47,10 +47,10 @@ SIGNATURES = {
     "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, qs, scales, y, M, N, K, stream
     "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, qs, scales, dm, y, M, N, K, stream
-    "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, ql, qh, sc, d, y, M, N, K, stream
-    "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, dm, y, work, M, N, K, stream
+    "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, ql, qh, sc, d, y, work, M, N, K, stream
+    "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, part_m, part_l, part_o,
     # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
     "gt_decode_attention": (_P,) * 10 + (_I,) * 9 + (_F, _P),
@@ -169,6 +169,9 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gt_error_string.argtypes = [ctypes.c_int]
         lib.gt_error_string.restype = ctypes.c_char_p
+        # x_dtype, M, N, K -> bytes of the K-quant matmuls' f32 scratch
+        lib.gt_kquant_work_bytes.argtypes = [ctypes.c_int] * 4
+        lib.gt_kquant_work_bytes.restype = ctypes.c_size_t
         _lib = lib
         return _lib
 

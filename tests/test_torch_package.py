@@ -122,8 +122,8 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
-        "tools": ["_timing", "bench_bn_sweep", "bench_q4k_variants", "bench_q6k_variants",
-                  "bench_qmm_variants", "probe_int4"],
+        "tools": ["_timing", "bench_bn_sweep", "bench_prefill", "bench_q4k_variants",
+                  "bench_q6k_variants", "bench_qmm_variants", "probe_int4"],
         "reference_tools": []}
 
 

@@ -94,7 +94,8 @@ def test_plain_matches_jax_kernel(M, N, K, dtype, fmt):
 
 @pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
 @pytest.mark.parametrize("N,K", KQUANT_SHAPES)
-@pytest.mark.parametrize("M", [1, 8, 16, 64])
+# 17 and 70: ragged against the card's 64-row tensor-core tiles
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 70])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kquant_plain_matches_jax_kernel(fmt, M, N, K, dtype):
     jqt, qt = _weights(fmt, N, K, seed=N)

@@ -3,6 +3,7 @@ the CPU at small shapes, their harness, and the wrappers' argument checks.
 On the CPU the benches run the plain versions; on the card (chip_smoke.py
 phase 7) they launch the kernels."""
 import importlib
+import json
 import re
 
 import numpy as np
@@ -12,12 +13,12 @@ import torch
 from gemma_tpu_torch.ops import qmm_variants as qv
 from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.tools import _timing as T
-from gemma_tpu_torch.tools import (bench_bn_sweep, bench_q4k_variants, bench_q6k_variants,
-                                   bench_qmm_variants, probe_int4)
+from gemma_tpu_torch.tools import (bench_bn_sweep, bench_prefill, bench_q4k_variants,
+                                   bench_q6k_variants, bench_qmm_variants, probe_int4)
 
 CPU = torch.device("cpu")
 TOOLS = ["bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
-         "bench_q6k_variants"]
+         "bench_q6k_variants", "bench_prefill"]
 LINE = re.compile(r"\d+\.\d\d us +\d+\.\d GB/s +\d\.\d{3} of 3\.35 TB/s; bound \d+\.\d\d us "
                   r"\((bytes|operations)\)")
 
@@ -58,6 +59,27 @@ def test_bench_q6k_variants_runs_every_mode(capsys):
     assert list(out) == list(bench_q6k_variants.MODES)
     assert out["prod"]["bpw"] == 8.5625 and out["split_int"]["bpw"] == 6.5625
     assert len(LINE.findall(capsys.readouterr().out)) == len(bench_q6k_variants.MODES)
+
+
+def test_bench_prefill_reports_marginal_rates(capsys):
+    """On the CPU: the tiny config at a sixteenth of the card's lengths."""
+    out = bench_prefill.run(CPU, fmts=("q4_k_m",), reps=1)
+    assert list(out) == ["q4_k_m"]
+    assert list(out["q4_k_m"]) == ["mono_T64_to_T128", "chunked_T128_to_T256"]
+    assert all(r > 0 for r in out["q4_k_m"].values())
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("cpu (cpu: plain PyTorch versions")
+    record = json.loads(lines[-1])
+    assert record["metric"] == "prefill_tokens_per_sec_tiny_q4_k_m"
+    assert record["unit"] == "tokens/s (marginal)" and record["launches"] == {}
+    assert record["mono_T64_to_T128"] == out["q4_k_m"]["mono_T64_to_T128"]
+
+
+def test_bench_prefill_cli_takes_formats(capsys):
+    assert bench_prefill.main(["--fmt", "q4_0", "--fmt", "q8_0", "--device", "cpu"]) == 0
+    metrics = [json.loads(line)["metric"] for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert metrics == ["prefill_tokens_per_sec_tiny_q4_0", "prefill_tokens_per_sec_tiny_q8_0"]
 
 
 def test_probe_int4_prints_ok_lines(capsys):
