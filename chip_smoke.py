@@ -7,9 +7,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 1. the card: `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   Gemma-2B shapes of the q4_0 and q4_k_m paths (the q4_k and q6_k prefill
-   tiles at M = 17, 64 and 203), the Gemma-7B shapes of the
-   q8_0 path (attention at 16 heads, batch 1 and 8), and the shapes of
+   Gemma-2B shapes of the q4_0 and q4_k_m paths (every format's prefill
+   tile at M = 17, 64 and 203, q4_0's serving GEMV at M = 8), the Gemma-7B
+   shapes of the q8_0 path (its tiles and serving GEMV likewise; attention
+   at 16 heads, batch 1 and 8), and the shapes of
    8-slot serving (the paged kernel and both int8 arms), with max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
@@ -102,19 +103,19 @@ KERNELS = {
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
 TILE_MS = (17, 64, PROMPT_LEN)
-# phase 3's quantized-matmul shapes (name, N, K[, Ms]): Gemma-2B's for q4_0
+SERVE_SLOTS = 8  # the serving step's rows: q4_0's and q8_0's tensor-core GEMV
+# phase 3's quantized-matmul shapes (name, N, K, Ms): Gemma-2B's for q4_0
 # and for the q4_k_m path (q4_k q, k, out, fused gate|up, down; q6_k attn_v,
 # and the tied head, which prefill runs at its last row only), the deep-K
 # shape of the reference's _q6_k_v4_kernel, and Gemma-7B's for q8_0, whose
 # head's plain version dequantizes 3.1 GB of f32 and so runs at decode M
 MATMUL_SHAPES = {
-    "q4_0": ([("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
-              ("down", 2048, 16384), ("head", 256000, 2048)], "gate_up"),
-    "q8_0": ([("qkv", 12288, 3072, (1, 8, PROMPT_LEN)),
-              ("attn_out", 3072, 4096, (1, 8, PROMPT_LEN)),
-              ("gate_up", 49152, 3072, (1, 8, PROMPT_LEN)),
-              ("down", 3072, 24576, (1, 8, PROMPT_LEN)),
-              ("head", 256000, 3072, (1, 8))], "gate_up"),
+    "q4_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
+        ("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
+        ("down", 2048, 16384))] + [("head", 256000, 2048, (1, SERVE_SLOTS, PROMPT_LEN))], "gate_up"),
+    "q8_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
+        ("qkv", 12288, 3072), ("attn_out", 3072, 4096), ("gate_up", 49152, 3072),
+        ("down", 3072, 24576))] + [("head", 256000, 3072, (1, SERVE_SLOTS))], "gate_up"),
     "q4_k": ([(name, N, K, (1, *TILE_MS)) for name, N, K in (
         ("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
         ("gate_up", 32768, 2048), ("down", 2048, 16384))], "gate_up"),
@@ -124,7 +125,6 @@ MATMUL_SHAPES = {
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 96
-SERVE_SLOTS = 8
 SERVE_BLOCK = 8
 PAGE = 64
 # kv_limit of each of SERVE_SLOTS rows in the serving kernels' checks
@@ -219,11 +219,11 @@ def cold_ms(fn, args: tuple, dev, reps: int = 5) -> float:
 
 def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
     """One quantized matmul kernel against its plain version with bf16 x, on
-    each (name, N, K[, Ms]) of `shapes`, at M = 1 and 203 unless Ms is
-    given; the JSON reading is `rep_name` at M = 1, with the prefill tile's
-    at M = 203 under "tile". The library yardstick is torch.matmul of x
-    with the weight dequantized to bf16 beforehand: it reads 16 bits per weight, not the
-    format's bits. The bound counts the wire bytes of the weight, x and
+    each (name, N, K, Ms) of `shapes`, at each M of Ms; the JSON reading is
+    `rep_name` at M = 1, with the prefill tile's at M = 203 under "tile"
+    and the serving GEMV's at M = 8 under "m8". The library yardstick is
+    torch.matmul of x with the weight dequantized to bf16 beforehand: it
+    reads 16 bits per weight, not the format's bits. The bound counts the wire bytes of the weight, x and
     the f32 y, and the flops at the bf16 rate. Kernel and library are timed
     with L2 cold (`cold_ms`), as a decode step meets its weights; the warm
     time (`device_ms`), operands back to back in L2, stays in the line
@@ -234,12 +234,12 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
 
     kernel, plain = qmm.MATMULS[fmt], qmm.PLAIN[fmt]
     worst = 0.0
-    rep = tile = None
-    for name, N, K, *ms_list in shapes:
+    readings = {}
+    for name, N, K, ms in shapes:
         qt = random_qtensor(fmt, N, K, gen, dev)
         wire_bytes = sum(a.numel() * a.element_size() for a in qt.arrays.values())
         w16 = dequant(qt, torch.bfloat16)
-        for M in (ms_list[0] if ms_list else (1, PROMPT_LEN)):
+        for M in ms:
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             got = kernel(x, qt)
             ref = plain(x, qt)
@@ -265,14 +265,14 @@ def check_matmul(torch, fmt: str, shapes, rep_name: str, gen, dev) -> dict:
             require(bool(torch.isfinite(got).all()) and err <= tol,
                     f"{fmt}_matmul {name} M={M}: max|diff| {err} > tol {tol}")
             worst = max(worst, err)
-            reading = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": library_ms, "shape": f"{name} M={M} N={N} K={K}"}
-            if name == rep_name and M == 1:
-                rep = reading
-            elif name == rep_name and M == PROMPT_LEN:
-                tile = reading
+            if name == rep_name:
+                readings[M] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": library_ms,
+                               "shape": f"{name} M={M} N={N} K={K}"}
         del qt, w16
-    return {"max_abs_err": worst, **rep, **({"tile": tile} if tile else {})}
+    extra = {key: readings[M] for key, M in (("tile", PROMPT_LEN), ("m8", SERVE_SLOTS))
+             if M in readings}
+    return {"max_abs_err": worst, **readings[1], **extra}
 
 
 def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
@@ -416,15 +416,18 @@ def check_kernels(torch, dev) -> dict[str, dict]:
 
 def check_edge_cases(torch, dev) -> None:
     """Phase 3, correctness only: the kernels' instances the main path does
-    not reach (M = 2..9 and 70 on ragged N and K, the K-quants also at the
-    prefill rows 17, 64, 130 and 203, f32 activations, GQA with
+    not reach (M = 2..9 and 70 on ragged N and K, and the prefill rows 17,
+    64, 130 and 203, f32 activations, GQA with
     head_dim 128, batch 2 with per-row limits, ragged T, softcap + window),
     and attention at Gemma-7B's heads (Hq = Hkv = 16, D = 256: one query
     head per KV head), each against its plain version with the tolerances
     of check_kernels (attention in f32: 1e-4, nothing rounds), also over
-    the 8 serving rows (SERVE_LIMITS) as phase 6b decodes them. q4_0 and
-    q8_0 take K = 1056, the K-quants K = 1280 (five superblocks): off the
-    GEMV's 1024-element K-chunk."""
+    the 8 serving rows (SERVE_LIMITS) as phase 6b decodes them. Every
+    format takes K = 1280 (five superblocks), off the SIMT GEMV's
+    1024-element K-chunk; q4_0 and q8_0 also K = 1056, whose 33 blocks end
+    the tensor-core tile's K on a half step and put odd rows' scales at odd
+    halves of their words, at N = 1000 and at N = 999 (an odd count of
+    scales)."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.tools._timing import random_qtensor
@@ -432,17 +435,23 @@ def check_edge_cases(torch, dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst = {}
-    # N, K off every tile and chunk
-    for fmt, K in (("q4_0", 1056), ("q8_0", 1056), ("q4_k", 1280), ("q6_k", 1280)):
-        qt = random_qtensor(fmt, 1000, K, gen, dev)
+    # N, K off every tile and chunk; N = 999 with K = 1056: an odd count of
+    # scales, whose last one ends the array in the middle of an f16 word
+    for fmt, N, K in (("q4_0", 1000, 1056), ("q4_0", 1000, 1280), ("q4_0", 999, 1056),
+                      ("q8_0", 1000, 1056), ("q8_0", 1000, 1280), ("q8_0", 999, 1056),
+                      ("q4_k", 1000, 1280), ("q6_k", 1000, 1280)):
+        qt = random_qtensor(fmt, N, K, gen, dev)
+        small = range(2, 10) if fmt in ("q4_0", "q8_0") else (2, 5, 8, 9)
         for dtype in (torch.bfloat16, torch.float32):
-            for M in (2, 5, 8, 9, 70) + ((17, 64, 130, PROMPT_LEN) if fmt.endswith("_k") else ()):
+            for M in (*small, 17, 64, 70, 130, PROMPT_LEN):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                 got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
                 err = (got - ref).abs().max().item()
                 tol = 1e-4 * ref.abs().max().item() + 1e-6
-                require(err <= tol, f"{fmt}_matmul M={M} {dtype}: max|diff| {err} > tol {tol}")
-                worst[fmt] = max(worst.get(fmt, 0.0), err / tol)
+                require(err <= tol, f"{fmt}_matmul N={N} K={K} M={M} {dtype}: max|diff| {err} > "
+                                    f"tol {tol}")
+                key = f"{fmt} N={N} K={K}"
+                worst[key] = max(worst.get(key, 0.0), err / tol)
     P = PROMPT_LEN
     attn_cases = [  # name, B, T, Hq, Hkv, D, S, positions, limits, decode limits
         ("GQA D=128", 2, 37, 8, 2, 128, 100, torch.stack([torch.arange(37), torch.arange(37) + 50]),
@@ -638,14 +647,15 @@ def read_counters() -> dict[str, int]:
 def profiler_coverage(prof, before: dict[str, int]) -> str:
     """'<recorded> of <launched> quantized-matmul launches recorded' by a
     torch.profiler run that began at counters `before`: each wrapper
-    call launches one GEMV or tile kernel (`dq_tile_kernel` for the
-    K-quants' bf16 prefill tiles). Busy times and idle shares read
+    call launches one GEMV or tile kernel (`dq_tile_kernel` for the bf16
+    prefill tiles, `dq_gemv_kernel` for q4_0's and q8_0's bf16 GEMV at
+    2 <= M <= 8). Busy times and idle shares read
     from the run rest on its records; a share below 1 makes busy read
     low and idle high."""
     after = read_counters()
     launched = sum(after[k] - before[k] for k in after if k.endswith("_matmul"))
     recorded = sum(e.count for e in prof.key_averages()
-                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_tile_kernel", e.key))
+                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_(tile|gemv)_kernel", e.key))
     return f"{recorded} of {launched} quantized-matmul launches recorded"
 
 

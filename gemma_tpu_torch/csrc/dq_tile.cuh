@@ -18,6 +18,10 @@
 //                       int k0, int part);
 //   };
 //
+// K is a multiple of 32. Where it is not one of 64 (q4_0 and q8_0), the last
+// step is half a step: the tile reads no x past K (zeros in shared memory),
+// and the functors copy nothing past K and store zero weights there.
+//
 // The affine part of a format like q4_k (y += sum over 32-groups g of
 // xsum[m, g] * off[n, g], the reference kernel's rank-reduced xsum32 @ offs)
 // stays in f32: the tile sums each x row's 32-groups once per K-step from the
@@ -61,6 +65,9 @@ constexpr int kDqLd = kDqBK + 8;   // shared row pitch of the bf16 tiles (144 by
 constexpr int kDqStages = 4;       // ring of x tiles and raw weight bytes
 constexpr int kDqWStages = 2;      // ring of dequantized weight tiles
 
+// K steps of the tile: the last one is half a step where K % 64 == 32
+__host__ __device__ constexpr int dq_steps(int K) { return (K + kDqBK - 1) / kDqBK; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -76,6 +83,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// the aligned f16 word that holds element h of a [total] f16 array (h even)
+// -> 4 bytes of shared memory, asynchronously: zeros for h >= total, and
+// only the low half for h == total - 1, which ends the array
+__device__ __forceinline__ void cp_async_half2(uint32_t dst, const __half* a, size_t h,
+                                               size_t total) {
+  const int n = h < total ? (h + 1 < total ? 4 : 2) : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(n ? a + h : a), "r"(n)
                : "memory");
 }
 
@@ -131,7 +149,9 @@ __device__ __forceinline__ float sum8_bf16(uint4 v) {
 
 // byte offsets of the tile's shared buffers: x [S][BM][kDqLd] bf16, raw
 // [S][BN][F::kRaw], W [2][BN][kDqLd] bf16, offs [2][2][BN] f32, xsum
-// [2][BM][2] f32
+// [2][BM][2] f32. q8_0's 80-byte raw step keeps the blocks the launch
+// bounds ask for within an SM's 228 KB: 75776 bytes at 64 x 64 (3 blocks),
+// 114688 at 64 x 128 (2), 151552 at 128 x 128 (1).
 template <class F, int BM, int BN>
 struct DqTileSmem {
   static constexpr size_t kX = 0;
@@ -173,7 +193,7 @@ dq_tile_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w,
   const int lane = tid % 32;
   const int wm = (tid / 32) / 4, wn = (tid / 32) % 4;  // warp row, column
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int steps = K / kDqBK / gridDim.z;  // this split's
+  const int steps = dq_steps(K) / gridDim.z;  // this split's
   const int kbase = blockIdx.z * steps * kDqBK;
   const bool rows = m0 + wm * WM < M;  // the warp has rows below M
   y += static_cast<size_t>(blockIdx.z) * M * N;
@@ -185,7 +205,7 @@ dq_tile_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w,
 #pragma unroll
     for (int i = tid; i < BM * (kDqBK / 8); i += kThreads) {
       const int r = i / (kDqBK / 8), c = i % (kDqBK / 8);
-      const bool ok = m0 + r < M;
+      const bool ok = m0 + r < M && k0 + c * 8 < K;
       const __nv_bfloat16* src = ok ? x + static_cast<size_t>(m0 + r) * K + k0 + c * 8 : x;
       cp_async16(smem_u32(xdst + r * kDqLd + c * 8), src, ok);
     }
@@ -386,7 +406,7 @@ inline long dq_warps(int M, int N, int bm, int bn) {
 // K splits of (bm x bn)-tiles at (M, N, K): doubled, while each split keeps
 // at least 4 steps, until the grid holds 16 warps an SM
 inline int dq_splits(int M, int N, int K, int bm, int bn) {
-  const int steps = K / kDqBK;
+  const int steps = dq_steps(K);
   int splits = 1;
   while (dq_warps(M, N, bm, bn) * splits < 16L * sm_count() && splits < 8 &&
          steps % (2 * splits) == 0 && steps / (2 * splits) >= 4)
@@ -394,7 +414,7 @@ inline int dq_splits(int M, int N, int K, int bm, int bn) {
   return splits;
 }
 
-// The tile's shape at M > 8 (K a multiple of 256), as measured on the H100
+// The tile's shape at M > 8, as measured on the H100
 // at Gemma-2B's prefill shapes (PERF.md): 128 x 128 above M = 64 (a weight
 // tile serves twice the rows), except on narrow weights (N < 1024: 64 x 64,
 // more blocks); at M <= 64, 64 x 128 on wide weights (N >= 4096), else

@@ -7,41 +7,54 @@
 // One 32-block dequantizes as w[j] = d * ((byte[j] & 15) - 8) and
 // w[j + 16] = d * ((byte[j] >> 4) - 8), j < 16.
 //
-// Two launch shapes, one op:
+// Four launch shapes, one op:
 //
-// * Decode (M <= 8) is bound by weight bytes: each weight is used M times,
-//   far below the card's ~295 flop/byte balance point. `q4_0_gemv_kernel`
-//   gives each warp one output row; a lane's 16-byte load along K is
-//   exactly one block (32 nibbles + one scale), so a warp reads 512
-//   contiguous bytes per step. Nibbles unpack and scale in registers, FMA
-//   into f32, and a warp shuffle reduces. x is staged in shared memory in
-//   K-chunks of 1024 (all of K = 16384 at M = 8 in f32 would not fit),
-//   padded to 36 floats per block so the lanes' float4 reads do not
-//   conflict on banks. Numerics follow the reference kernel at M <= 8:
-//   weights and x in f32. Rows per block (warps), the dot form (Mode) and
-//   the scale type are template parameters; the main path launches
-//   kGemvWarps = 8, kGDot, f16 scales. Two bench entry points launch the
-//   same kernel at M = 8: `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps
-//   (replaces `call` of tools/bench_bn_sweep.py, the reference kernel at a
-//   forced N tile) and `gt_qmm_variant` in the modes below with f32, bf16
-//   or f16 scales (replaces `_kernel` of tools/bench_qmm_variants.py and
+// * Decode at M = 1, and with f32 x at M <= 8, is bound by weight bytes:
+//   each weight is used M times, far below the card's ~295 flop/byte
+//   balance point. `q4_0_gemv_kernel` (SIMT) gives each warp one output
+//   row; a lane's 16-byte load along K is exactly one block (32 nibbles +
+//   one scale), so a warp reads 512 contiguous bytes per step. Nibbles
+//   unpack and scale in registers, FMA into f32, and a warp shuffle reduces.
+//   x is staged in shared memory in K-chunks of 1024 (all of K = 16384 at
+//   M = 8 in f32 would not fit), padded to 36 floats per block so the
+//   lanes' float4 reads do not conflict on banks. Numerics follow the
+//   reference kernel at M <= 8: weights and x in f32. Rows per block
+//   (warps), the dot form (Mode) and the scale type are template
+//   parameters; the main path launches kGemvWarps = 8, kGDot, f16 scales.
+//   Two bench entry points launch the same kernel at M = 8 with bf16 x (a
+//   shape the main path runs on the tensor cores, below):
+//   `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps (replaces `call` of
+//   tools/bench_bn_sweep.py, the reference kernel at a forced N tile) and
+//   `gt_qmm_variant` in the modes below with f32, bf16 or f16 scales
+//   (replaces `_kernel` of tools/bench_qmm_variants.py and
 //   `kernel`/`kernel2` of tools/probe_int4.py). A mode differs only in how
 //   a weight meets x:
 //     kF32Dot   w = (u - 8) * d                  (the tool's f32dot)
 //     kRsc      w = bf16((u - 8) * d)            (its f32sc, rsc, u16sc)
 //     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (its bf16sc, rscb)
 //     kNoScale  w = u - 8
-//     kGDot     d * sum_32((u - 8) * x)          (the main path, gdot)
+//     kGDot     d * sum_32((u - 8) * x)          (the main path's, gdot)
 //   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
 //   scale's broadcast lived; here each pair is one instantiation.
-// * Prefill (M > 8) is a tiled plain-FMA kernel (`q4_0_tiled_kernel`):
-//   64 x 64 outputs per block, K stepped one 32-block at a time, both
-//   tiles dequantized into shared memory. With bf16 x the weight tile is
-//   rounded to bf16, as the reference kernel does above M = 8; with f32 x
-//   (evaluation mode) it stays f32. Tensor cores (mma/wgmma) are later work.
+// * Serving (2 <= M <= 8) with bf16 x, also bound by weight bytes, runs on
+//   the tensor cores: `dq_gemv_kernel<16>` of dq_gemv.cuh (W the A operand
+//   of bf16 mma.sync as its integers u - 8, x the n8 operand, each block's
+//   fragment scaled by d in f32: the same gdot numerics), with x copied
+//   once a block and each warp's rows streamed through its own cp.async
+//   ring.
+// * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
+//   bound by operations: the shared tensor-core tile of dq_tile.cuh
+//   (`dq_tile_kernel<Q4_0Tile>`: bf16 mma.sync, f32 accumulators, x and the
+//   raw bytes staged by cp.async), the counterpart of the reference
+//   kernel's bf16 MXU operands above M = 8. `Q4_0Tile` rounds each weight
+//   to bf16(d * (u - 8)), the reference kernel's rounding point. Where K %
+//   64 == 32 the tile's last K-step is half a step, zero-filled.
+// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
+//   (`q4_0_tiled_kernel`): 64 x 64 outputs per block, K stepped one
+//   32-block at a time, both tiles in shared memory in f32.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
-#include "common.cuh"
+#include "dq_gemv.cuh"
 
 using namespace gt;
 
@@ -145,9 +158,9 @@ constexpr int kTileN = 64;
 constexpr int kTileK = 32;  // one q4_0 block
 constexpr int kTiledThreads = 256;
 
-template <typename TX>
+// f32 x (evaluation mode): f32 weights, plain FMA
 __global__ void __launch_bounds__(kTiledThreads)
-q4_0_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+q4_0_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
                   const __half* __restrict__ scales, float* __restrict__ y, int M, int N, int K) {
   __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
   __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // dequantized W tile, K-major
@@ -169,7 +182,7 @@ q4_0_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
       const int r = i / kTileK;
       const int c = i % kTileK;
       const int m = m0 + r;
-      xs[c][r] = m < M ? to_f32(x[static_cast<size_t>(m) * K + k0 + c]) : 0.f;
+      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
     }
     {
       // 64 weight rows x 4 words of 4 payload bytes: 8 values per thread
@@ -188,8 +201,8 @@ q4_0_tiled_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
         const uint32_t byte = (word >> (8 * j)) & 0xffu;
         const float lo = d * static_cast<float>(static_cast<int>(byte & 0xfu) - 8);
         const float hi = d * static_cast<float>(static_cast<int>(byte >> 4) - 8);
-        ws[part * 4 + j][r] = round_to<TX>(lo);
-        ws[16 + part * 4 + j][r] = round_to<TX>(hi);
+        ws[part * 4 + j][r] = lo;
+        ws[16 + part * 4 + j][r] = hi;
       }
     }
     __syncthreads();
@@ -235,37 +248,97 @@ void launch_gemv(const TX* x, const uint8_t* qs, const __half* sc, float* y, int
   }
 }
 
-template <typename TX>
-void launch_q4_0(const void* x, const void* qs, const void* scales, void* y, int M, int N, int K,
-                 cudaStream_t s) {
-  const TX* xp = static_cast<const TX*>(x);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const __half* sp = static_cast<const __half*>(scales);
-  float* yp = static_cast<float*>(y);
-  if (M <= 8) {
-    launch_gemv<TX>(xp, qp, sp, yp, M, N, K, s);
-  } else {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_0_tiled_kernel<TX><<<grid, kTiledThreads, 0, s>>>(xp, qp, sp, yp, M, N, K);
+// The tensor-core tile's q4_0 item (dq_tile.cuh): 16 weights of one row in
+// one 64-element step, blocks b0 = k0 / 32 and b0 + 1. Quarter p is nibble
+// p % 2 of block p / 2's 16 payload bytes: elements 16p .. 16p + 15 of the
+// step. A row's raw step: the two blocks' payload, and the two aligned f16
+// words that hold their scales (b0's at half b0 % 2 of the first word:
+// row * (K / 32) + b0 may be odd where K % 64 == 32).
+struct Q4_0Tile {
+  using Weight = BlockWeight;
+  static constexpr int kRaw = 48;  // qs [0, 32), scale words [32, 40)
+  static constexpr bool kAffine = false;
+
+  __device__ __forceinline__ static void copy(const Weight& w, uint32_t raw, int n, int N, int K,
+                                              int k0, int part) {
+    const bool ok = n < N;
+    const size_t row = ok ? n : 0;
+    if (part < 2) {
+      cp_async16(raw + 16 * part, w.qs + row * (K / 2) + k0 / 2 + 16 * part,
+                 ok && k0 + 32 * part < K);
+    } else {
+      const size_t s = row * (K / 32) + k0 / 32;
+      cp_async_half2(raw + 32 + 4 * (part - 2), w.scales, (s & ~size_t{1}) + 2 * (part - 2),
+                     ok ? static_cast<size_t>(N) * (K / 32) : 0);
+    }
   }
+
+  __device__ __forceinline__ static void store(const uint8_t* raw, __nv_bfloat16* row, float*,
+                                               int n, int K, int k0, int part) {
+    uint4* dst = reinterpret_cast<uint4*>(row + 16 * part);
+    const int b = part / 2;
+    if (k0 + 32 * b >= K) {  // the half step past K
+      dst[0] = dst[1] = make_uint4(0u, 0u, 0u, 0u);
+      return;
+    }
+    const int odd = (static_cast<size_t>(n) * (K / 32) + k0 / 32) & 1;
+    const float d = __half2float(reinterpret_cast<const __half*>(raw + 32)[odd + b]);
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + 16 * b);
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+    uint32_t p[8];
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const uint32_t v = words[i / 4] >> (8 * (i % 4) + 4 * (part % 2));  // nibbles of bytes i, i + 1
+      p[i / 2] = pack_bf16(d * small_int_minus(v & 0xfu, 8.f), d * small_int_minus((v >> 8) & 0xfu, 8.f));
+    }
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+};
+
+template <typename TX>
+cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void* y, void* work,
+                        int M, int N, int K, cudaStream_t s) {
+  const TX* xp = static_cast<const TX*>(x);
+  const BlockWeight w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(scales)};
+  float* yp = static_cast<float*>(y);
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    if (M > 8) return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    if (M > 1) return launch_dq_gemv<16>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+  } else if (M > 8) {
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
+    return cudaGetLastError();
+  }
+  launch_gemv<TX>(xp, w.qs, w.scales, yp, M, N, K, s);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales: the
-// port's q4_0 layout; y: [M, N] f32. Returns a cudaError_t value.
+// x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;
+// qs/scales: the port's q4_0 layout; y: [M, N] f32; work:
+// gt_matmul_work_bytes(0, x_dtype, M, N, K) bytes of f32 scratch (null
+// when 0). Returns a cudaError_t value.
 extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
-                              void* y, int M, int N, int K, void* stream) {
+                              void* y, void* work, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kBF16) {
-    launch_q4_0<__nv_bfloat16>(x, qs, scales, y, M, N, K, s);
-  } else if (x_dtype == kF32) {
-    launch_q4_0<float>(x, qs, scales, y, M, N, K, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (x_dtype == kBF16)
+    return static_cast<int>(launch_q4_0<__nv_bfloat16>(x, qs, scales, y, work, M, N, K, s));
+  if (x_dtype == kF32) return static_cast<int>(launch_q4_0<float>(x, qs, scales, y, work, M, N, K, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of the f32 scratch a quantized matmul of format `fmt` (0 q4_0,
+// 1 q8_0, 2 q4_k, 3 q6_k: kernels/build.py FORMAT_CODES) takes at
+// (x_dtype, M, N, K): the K-split partial sums of its bf16 prefill tile
+// (M > 8) or, for q4_0 and q8_0, of its tensor-core GEMV (2 <= M <= 8);
+// else 0.
+extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K) {
+  if (x_dtype != kBF16 || M <= 1 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
+  if (M > 8) return dq_tile_work_bytes(M, N, K);
+  return fmt <= 1 ? dq_gemv_work_bytes(M, N, K) : 0;
 }
 
 namespace {
@@ -303,10 +376,10 @@ bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc,
 
 }  // namespace
 
-// The q4_0 GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K], scales
-// [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32: M = 8 in
-// every mode; kGDot on f16 scales is the main path's launch, at any M <= 8.
-// Returns a cudaError_t value.
+// The q4_0 SIMT GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K],
+// scales [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32:
+// M = 8 in every mode; kGDot on f16 scales at any M <= 8 (the main path's
+// launch at M = 1). Returns a cudaError_t value.
 extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales,
                               int sc_dtype, void* y, int M, int N, int K, void* stream) {
   if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -330,8 +403,9 @@ extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const voi
   return launched ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The main path's q4_0 GEMV at M = 8 with bf16 x and `warps` (4, 8, 16 or
-// 32) rows per block; y: [8, N] f32. Returns a cudaError_t value.
+// The q4_0 SIMT GEMV (kGDot, f16 scales) at M = 8 with bf16 x and `warps`
+// (4, 8, 16 or 32) rows per block; y: [8, N] f32. Returns a cudaError_t
+// value.
 extern "C" int gt_q4_0_gemv_warps(const void* x, const void* qs, const void* scales, void* y,
                                   int N, int K, int warps, void* stream) {
   if (N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);

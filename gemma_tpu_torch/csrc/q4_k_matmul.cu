@@ -353,8 +353,9 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
-// port's q4_k layout; y: [M, N] f32; work: gt_kquant_work_bytes(x_dtype,
-// M, N, K) bytes of f32 scratch (null when 0). Returns a cudaError_t value.
+// port's q4_k layout; y: [M, N] f32; work: gt_matmul_work_bytes(2,
+// x_dtype, M, N, K) bytes of f32 scratch (null when 0). Returns a
+// cudaError_t value.
 extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
                               const void* dm, void* y, void* work, int M, int N, int K,
                               void* stream) {
@@ -365,13 +366,6 @@ extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const 
   if (x_dtype == kF32)
     return static_cast<int>(launch_q4_k<float>(x, qs, scales, dm, y, work, M, N, K, s));
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Bytes of the f32 scratch the q4_k and q6_k matmuls take at (x_dtype, M,
-// N, K): their bf16 prefill tile's K-split partial sums, else 0.
-extern "C" size_t gt_kquant_work_bytes(int x_dtype, int M, int N, int K) {
-  return x_dtype == kBF16 && M > 8 && N > 0 && K > 0 && K % kQK == 0 ? dq_tile_work_bytes(M, N, K)
-                                                                     : 0;
 }
 
 // The GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);

@@ -417,8 +417,9 @@ cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const voi
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
-// port's q6_k layout; y: [M, N] f32; work: gt_kquant_work_bytes(x_dtype,
-// M, N, K) bytes of f32 scratch (null when 0). Returns a cudaError_t value.
+// port's q6_k layout; y: [M, N] f32; work: gt_matmul_work_bytes(3,
+// x_dtype, M, N, K) bytes of f32 scratch (null when 0). Returns a
+// cudaError_t value.
 extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const void* qh,
                               const void* sc, const void* d, void* y, void* work, int M, int N,
                               int K, void* stream) {

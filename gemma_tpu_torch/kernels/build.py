@@ -11,9 +11,14 @@ raises on anything but 0.
 
 There is no fallback: a missing nvcc or a failed build raises
 `KernelBuildError` (with nvcc's stderr), never returns None.
+
+`build_library` also builds a patched copy of the sources (the variants of
+`gemma_tpu_torch/tools/probe_variants.py`), and `using` runs the wrappers
+through such a build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +41,8 @@ NVCC_FLAGS = (  # compile flags of each source; the link adds -shared
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# format codes of gt_matmul_work_bytes (csrc/q4_0_matmul.cu)
+FORMAT_CODES = {"q4_0": 0, "q8_0": 1, "q4_k": 2, "q6_k": 3}
 INT8_CODE = 2  # int8 K/V with f32 scales
 
 _P = ctypes.c_void_p
@@ -43,10 +50,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (all return a cudaError_t as int)
 SIGNATURES = {
-    # x, x_dtype, qs, scales, y, M, N, K, stream
-    "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, qs, scales, y, M, N, K, stream
-    "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, y, work, M, N, K, stream
+    "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, y, work, M, N, K, stream
+    "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, qs, scales, dm, y, work, M, N, K, stream
     "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, x_dtype, ql, qh, sc, d, y, work, M, N, K, stream
@@ -88,8 +95,9 @@ _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # time of the build this process ran, if any
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path | None = None) -> list[Path]:
+    csrc = csrc or CSRC
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -107,12 +115,12 @@ def find_nvcc() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(csrc: Path | None = None, build_dir: Path | None = None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libgemma_tpu_kernels_{h.hexdigest()[:16]}.so"
+    return (build_dir or BUILD_DIR) / f"libgemma_tpu_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds: list[list[str]]) -> str:
@@ -126,11 +134,11 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def _compile(out: Path) -> None:
+def _compile(out: Path, csrc: Path) -> None:
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = sorted(CSRC.glob("*.cu"))
+    cus = sorted(csrc.glob("*.cu"))
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cus]
     try:
         # ptxas -v: registers, shared memory and spills of every kernel
@@ -146,34 +154,55 @@ def _compile(out: Path) -> None:
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
 
 
+def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ctypes.CDLL:
+    """The library of the sources under `csrc` (default: the package's),
+    built into `build_dir` unless a build of the same sources is there, and
+    bound."""
+    global build_seconds
+    path = library_path(csrc, build_dir)
+    if not path.exists():
+        t0 = time.perf_counter()
+        _compile(path, csrc or CSRC)
+        build_seconds = time.perf_counter() - t0
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.gt_error_string.argtypes = [ctypes.c_int]
+    lib.gt_error_string.restype = ctypes.c_char_p
+    # format, x_dtype, M, N, K -> bytes of a quantized matmul's f32 scratch
+    lib.gt_matmul_work_bytes.argtypes = [ctypes.c_int] * 5
+    lib.gt_matmul_work_bytes.restype = ctypes.c_size_t
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:
         return _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not path.exists():
-            t0 = time.perf_counter()
-            _compile(path)
-            build_seconds = time.perf_counter() - t0
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            raise KernelBuildError(f"cannot load {path}: {e}") from e
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.gt_error_string.argtypes = [ctypes.c_int]
-        lib.gt_error_string.restype = ctypes.c_char_p
-        # x_dtype, M, N, K -> bytes of the K-quant matmuls' f32 scratch
-        lib.gt_kquant_work_bytes.argtypes = [ctypes.c_int] * 4
-        lib.gt_kquant_work_bytes.restype = ctypes.c_size_t
-        _lib = lib
+        if _lib is None:
+            _lib = build_library()
         return _lib
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """Every wrapper launches through `lib` (another build, as
+    `build_library` returns) inside the block."""
+    global _lib
+    with _lock:
+        prev, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = prev
 
 
 def check(err: int, what: str) -> None:

@@ -3,17 +3,18 @@ kernels in the reference's timing tools, each with its plain version.
 
 * `qmm_variant` (`csrc/q4_0_matmul.cu`, replaces `_kernel` of
   tools/bench_qmm_variants.py and `kernel`/`kernel2` of tools/probe_int4.py):
-  the main path's q4_0 GEMV at M = 8 over the port's q4_0 payload with f32,
-  bf16 or f16-bit scales, in the modes of `VARIANT_MODES` (gdot on f16
-  scales is the main path's launch, at any M <= 8);
+  q4_0's SIMT GEMV at M = 8 over the port's q4_0 payload with f32, bf16 or
+  f16-bit scales, in the modes of `VARIANT_MODES` (gdot on f16 scales, at
+  any M <= 8, is the kernel the main path launches at M = 1 and with f32
+  x; bf16 x at 2 <= M <= 8 takes the tensor-core GEMV of `csrc/dq_gemv.cuh`);
 * `int4_dot` (`csrc/qmm_variants.cu`, replaces `kernel3` of
   tools/probe_int4.py): int8 x [M, K] against int4 w [N, K/2] -> int32;
 * `row_checksum` (`csrc/qmm_variants.cu`, the `stream` modes of
   tools/bench_qmm_variants.py and tools/bench_q6k_variants.py): per row, the
   wrapping uint32 sum of every element of up to four arrays;
 * `q4_0_gemv_warps` (`csrc/q4_0_matmul.cu`, replaces `call` of
-  tools/bench_bn_sweep.py): the main path's q4_0 GEMV at M = 8 with 4, 8,
-  16 or 32 rows per block;
+  tools/bench_bn_sweep.py): q4_0's SIMT GEMV at M = 8 with 4, 8, 16 or 32
+  rows per block;
 * `q4_k_variant` (`csrc/q4_k_matmul.cu`, replaces `_kernel` of
   tools/bench_q4k_variants.py): the q4_k GEMV ablations of `Q4_K_MODES`;
 * `q6_k_variant` (`csrc/q6_k_matmul.cu`, replaces `_kernel` of
@@ -113,8 +114,8 @@ def qmm_variant_plain(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torc
 
 
 def qmm_variant(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """The q4_0 GEMV variant `mode`: x bf16 [8, K] (gdot on f16 scales, the
-    main path's GEMV: [M <= 8, K]), qs u8 [N, K/2] (the port's q4_0
+    """The q4_0 SIMT GEMV variant `mode`: x bf16 [8, K] (gdot on f16 scales:
+    [M <= 8, K]), qs u8 [N, K/2] (the port's q4_0
     payload), scales [N, K/32] f32, bf16 or f16 (u16sc needs f16) -> y
     [M, N] f32."""
     if mode not in VARIANT_MODES:
@@ -211,11 +212,11 @@ def row_checksum(*arrays: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rows per block of the main path's q4_0 GEMV (bench_bn_sweep)
+# rows per block of q4_0's SIMT GEMV (bench_bn_sweep)
 # ---------------------------------------------------------------------------
 
 def q4_0_gemv_warps(x: torch.Tensor, qt: QTensor, warps: int) -> torch.Tensor:
-    """The main path's q4_0 GEMV at M = 8 with `warps` rows per block:
+    """q4_0's SIMT GEMV at M = 8 with `warps` rows per block:
     x bf16 [8, K] -> y [8, N] f32 (the plain version is q4_0's)."""
     if qt.fmt != "q4_0" or warps not in WARPS:
         raise ValueError(f"q4_0 GEMV sweep takes a q4_0 weight and warps in {WARPS}, "

@@ -8,10 +8,14 @@ it replaces, what bounds it on the H100 and how the design answers that:
 * q4_k: `csrc/q4_k_matmul.cu` (replaces `_q4_k_kernel`);
 * q6_k: `csrc/q6_k_matmul.cu` (replaces `_q6_k_kernel` and, on the
   reference's deep-K int8 layout, `_q6_k_v4_kernel`).
-Each is a GEMV at M <= 8. Above, q4_k and q6_k with bf16 x run on the
-tensor cores through the shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`,
-f32 accumulators, x copied by `cp.async`, the weight dequantized to bf16 in
-shared memory); q4_0, q8_0 and every f32-x arm run plain-FMA tiles.
+With bf16 x, every format runs on the tensor cores above M = 8, through the
+shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`, f32 accumulators, x
+copied by `cp.async`, the weight dequantized to bf16 in shared memory);
+q4_0 and q8_0 also at 2 <= M <= 8, through the GEMV of `csrc/dq_gemv.cuh`
+(the weight's integers against x in bf16 `mma.sync`, scaled per block in
+f32). The rest is SIMT: each format's GEMV at M = 1 (and the K-quants' at
+M <= 8), and with f32 x (evaluation mode) the GEMVs at M <= 8 and plain-FMA
+tiles above.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -90,12 +94,12 @@ def q4_k_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], N)
 
 
-def _launch(op, entry: str, x: torch.Tensor, qt: QTensor, kquant: bool = False) -> torch.Tensor:
+def _launch(op, entry: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """Check x and qt for the kernel `entry` and launch it:
-    entry(x, x_dtype, *qt buffers, y, M, N, K, stream). The K-quants'
-    entries (`kquant`) also take the f32 scratch of their prefill tile's K
-    splits after y (`gt_kquant_work_bytes`, often none), and their tile
-    copies x in 16-byte pieces."""
+    entry(x, x_dtype, *qt buffers, y, work, M, N, K, stream), where work is
+    the f32 scratch of the tensor-core kernels' K splits
+    (`gt_matmul_work_bytes`, often none). Those kernels copy x in 16-byte
+    pieces."""
     N, K = qt.shape
     name = f"{qt.fmt} matmul"
     if x.device.type != "cuda" or qt.device != x.device:
@@ -107,7 +111,7 @@ def _launch(op, entry: str, x: torch.Tensor, qt: QTensor, kquant: bool = False) 
         raise ValueError(f"{name} kernel needs contiguous, 16-byte aligned buffers")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K).contiguous()
-    if kquant and x2.data_ptr() % 16:
+    if x2.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs x 16-byte aligned")
     M = x2.shape[0]
     y = torch.empty(M, N, dtype=torch.float32, device=x.device)
@@ -115,12 +119,11 @@ def _launch(op, entry: str, x: torch.Tensor, qt: QTensor, kquant: bool = False) 
         return y.reshape(*lead, N)
     lib = build.load()
     code = build.DTYPE_CODES[x2.dtype]
-    args = [x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr()]
-    if kquant:
-        nbytes = lib.gt_kquant_work_bytes(code, M, N, K)
-        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
-        args.append(None if work is None else work.data_ptr())
-    err = getattr(lib, entry)(*args, M, N, K, build.stream_ptr(x.device))
+    nbytes = lib.gt_matmul_work_bytes(build.FORMAT_CODES[qt.fmt], code, M, N, K)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    err = getattr(lib, entry)(x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr(),
+                              None if work is None else work.data_ptr(), M, N, K,
+                              build.stream_ptr(x.device))
     build.check(err, f"{name} M={M} N={N} K={K}")
     op.launches += 1
     return y.reshape(*lead, N)
@@ -164,7 +167,7 @@ def q4_k_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     kernel or raises."""
     if _checked("q4_k", x, qt):
         return q4_k_matmul_plain(x, qt)
-    return _launch(q4_k_matmul, "gt_q4_k_matmul", x, qt, kquant=True)
+    return _launch(q4_k_matmul, "gt_q4_k_matmul", x, qt)
 
 
 def q6_k_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -174,7 +177,7 @@ def q6_k_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     kernel or raises."""
     if _checked("q6_k", x, qt):
         return q6_k_matmul_plain(x, qt)
-    return _launch(q6_k_matmul, "gt_q6_k_matmul", x, qt, kquant=True)
+    return _launch(q6_k_matmul, "gt_q6_k_matmul", x, qt)
 
 
 q4_0_matmul.launches = 0

@@ -5,5 +5,9 @@
     python -m gemma_tpu_torch.tools.<name> [shape] [--device cpu]
 
 They run on the card unless `--device cpu` asks for the plain versions, and
-time each kernel with L2 cold (`_timing.py`).
+time each kernel with L2 cold (`_timing.py`). Two more instruments serve the
+port's own kernels: `probe_variants` builds patched copies of the kernels
+and times them side by side on the card (constants, tile shapes,
+ablations), and `tc_emulation` emulates the q4_0 and q8_0 tensor-core
+kernels lane by lane in numpy on the CPU.
 """

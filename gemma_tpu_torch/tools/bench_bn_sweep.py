@@ -1,10 +1,10 @@
-"""Rows per block of the main path's q4_0 GEMV at decode M = 8: does a
-wider block pay on the 256000-row head?
+"""Rows per block of q4_0's SIMT GEMV at decode M = 8: does a wider block
+pay on the 256000-row head?
 
 The counterpart of the reference's `tools/bench_bn_sweep.py`, which forced
 the N tile (bn 2048, 4096, 8192) of its production kernel. Here the same
 question is the rows (warps) per block of `q4_0_gemv_kernel`
-(`csrc/q4_0_matmul.cu`): 4, 8 (the main path), 16 and 32, through
+(`csrc/q4_0_matmul.cu`; the main path's at M = 1): 4, 8 (shipped), 16 and 32, through
 `gt_q4_0_gemv_warps`. Times are L2 cold (`_timing.py`); each line gives
 GB/s at the weight's wire bytes plus x and y.
 
@@ -46,7 +46,7 @@ def measure(name: str, N: int, K: int, warps_list, dev, tally: T.Tally, reps: in
 def run(shapes, dev: torch.device, reps: int = 5, warps_list=qv.WARPS) -> dict:
     tally = T.Tally()
     print(T.card_line(dev), flush=True)
-    print(f"q4_0 GEMV rows per block, M={M} (the main path launches 8)", flush=True)
+    print(f"q4_0 GEMV rows per block, M={M} (the shipped kernel runs 8)", flush=True)
     out = {}
     for name, N, K in shapes:
         for warps, r in measure(name, N, K, warps_list, dev, tally, reps).items():

@@ -3,11 +3,12 @@ precision and dot form cost, against a stream of the same bytes.
 
 The counterpart of the reference's `tools/bench_qmm_variants.py` on the
 port's q4_0 layout (qs u8 [N, K/2], scales [N, K/32]); the kernels are
-the main path's q4_0 GEMV in the modes of `ops/qmm_variants.VARIANT_MODES`
-(`csrc/q4_0_matmul.cu`) and the stream checksum (`csrc/qmm_variants.cu`). Each line: mode, scale dtype, µs (L2 cold, `_timing.py`),
-GB/s at the variant's own bytes (payload + scales + x + y), its fraction of
-3.35 TB/s, and the bound. Every variant is first held against its plain
-version on the same inputs.
+q4_0's SIMT GEMV (the main path's at M = 1) in the modes of
+`ops/qmm_variants.VARIANT_MODES` (`csrc/q4_0_matmul.cu`) and the stream
+checksum (`csrc/qmm_variants.cu`). Each line: mode, scale dtype, µs (L2
+cold, `_timing.py`), GB/s at the variant's own bytes (payload + scales + x
++ y), its fraction of 3.35 TB/s, and the bound. Every variant is first
+held against its plain version on the same inputs.
 
 The TPU's (bk, bn) tile pairs have no counterpart here: every mode stages x
 in 1024-element K-chunks in shared memory with 8 rows (warps) per block;

@@ -69,7 +69,9 @@ def _max_err(a, b):
 
 @pytest.mark.parametrize("fmt", ["q4_0", "q8_0"])
 @pytest.mark.parametrize("N,K", SHAPES)
-@pytest.mark.parametrize("M", [1, 8, 16, 64])
+# 2: the card's tensor-core GEMV below its n8 tile; 17 and 70: ragged
+# against the 64-row tensor-core tiles
+@pytest.mark.parametrize("M", [1, 2, 8, 16, 17, 64, 70])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_plain_matches_jax_kernel(M, N, K, dtype, fmt):
     """`q4_0_matmul_plain` and `q8_0_matmul_plain` against `_q4_0_kernel`

@@ -182,3 +182,18 @@ def test_variant_wrappers_check_format_and_rows():
     assert q.dtype == torch.int8 and int(q.min()) >= -32 and int(q.max()) <= 31
     np.testing.assert_allclose(qv.q6_k_variant("prod", x8, qv.q6_k_int8_payload(q6k)),
                                qv.q6_k_variant("split_int", x8, q6k.arrays), rtol=1e-5, atol=1e-6)
+
+
+def test_probe_variants_patches_apply_to_the_sources():
+    """Every variant of the kernel probe still finds its text in csrc/, once
+    (the probe builds and times them on the card only)."""
+    from gemma_tpu_torch.tools import probe_variants as pv
+
+    for name in pv.VARIANTS:
+        changed = pv.patched_sources(name)
+        assert set(changed) <= {"dq_gemv.cuh", "dq_tile.cuh"}, name
+        assert bool(changed) == (name != "base"), name
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        pv.main(["gemv", "--variants", "base"])
+    with pytest.raises(SystemExit, match="unknown variants"):
+        pv.main(["tile", "--variants", "nope"])
