@@ -10,6 +10,13 @@ s < kv_limit[b] and, with a sliding window, s > pos - window.
 
 Kernels: `csrc/decode_attention.cu` (replaces `_decode_kernel`, its bf16
 and int8 arms) and `csrc/flash_attention.cu` (replaces `_flash_kernel`).
+Each holds two kernels, and the route between them is fixed by dtype (and
+for decode by G = Hq / Hkv): a bf16 query takes the tensor-core kernel
+(`mma.sync` on bf16 operands; decode over a bf16 or int8 cache at
+2 <= G <= 8); an f32 query, whose f32 x f32 products bf16 tensor cores
+cannot form exactly, takes the FMA kernel (flash) or the split-S kernel
+with its combine launch (decode), as does decode at G = 1 and G > 8. Both routes launch a
+hand-written kernel; neither falls back.
 Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
 softcap before the mask, p rounded to the cache dtype before p . v, and 0
 for a row with no valid key (plain `sdpa` gives the mean of V there
@@ -34,7 +41,11 @@ from ..kernels import build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (128, 256)
-DECODE_SPLIT = 64  # keys per block of the split-S decode kernel
+DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (f32 q, G = 1, G > 8)
+TC_MAX_G = 8  # query heads a KV head the decode tensor-core kernel takes (its n8 side)
+# G = 1 (Gemma-7B) takes the split-S kernel: at 8 serving rows the
+# tensor-core kernel measured slower there (PERF.md)
+TC_MIN_G = 2
 
 
 def _valid_mask(positions, kv_limit, S, window):
@@ -144,14 +155,59 @@ def kv_dtype_code(k, k_scale) -> int:
     return build.DTYPE_CODES[k.dtype] if k_scale is None else build.INT8_CODE
 
 
+def decode_tc_split(S: int) -> int:
+    """Keys a block of the tensor-core decode kernel at cache length S (a
+    multiple of 16: its 4 warps take the block's 16-key tiles in turn):
+    64, doubled while S holds more than 16 splits, at most 256. Measured
+    (PERF.md): at S = 512, 64 keys beat 32 and 256 in both arms (128
+    is 7 % faster in bf16, 11 % slower in int8); at S = 4096, 256 beat 64
+    and 128 (the last block merges fewer partials). Fixed by S, never by
+    the live length, which stays on the device."""
+    split = 64
+    while split < 256 and S > 16 * split:
+        split *= 2
+    return split
+
+
+def decode_route(q_dtype: torch.dtype, G: int, S: int) -> tuple[str, int]:
+    """("tc", keys a block) for the tensor-core decode kernel, or
+    ("split", DECODE_SPLIT) for the split-S kernel: bf16 queries with
+    TC_MIN_G <= G <= TC_MAX_G take the tensor cores."""
+    if q_dtype == torch.bfloat16 and TC_MIN_G <= G <= TC_MAX_G:
+        return "tc", decode_tc_split(S)
+    return "split", DECODE_SPLIT
+
+
+_tc_workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def tc_workspace(device: torch.device, stream: int, floats: int, tickets: int):
+    """(f32 scratch of >= `floats`, i32 tickets of >= `tickets`, all 0) of
+    the tensor-core decode kernel on `device`, one pair for each stream
+    (`stream`: its cudaStream_t), kept between calls and grown on demand.
+    The kernel leaves its tickets at 0, so the launches that share a pair
+    run in order on their stream. Growth allocates: a launch captured in a
+    CUDA graph needs its pair sized beforehand, at the largest batch and S."""
+    ws = _tc_workspaces.get((device, stream))
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tickets:
+        floats = max(floats, 0 if ws is None else ws[0].numel())
+        tickets = max(tickets, 0 if ws is None else ws[1].numel())
+        ws = (torch.empty(floats, dtype=torch.float32, device=device),
+              torch.zeros(tickets, dtype=torch.int32, device=device))
+        _tc_workspaces[(device, stream)] = ws
+    return ws
+
+
 def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0,
                      k_scale=None, v_scale=None):
     """T = 1 attention, q [B, 1, Hq, D] -> [B, 1, Hq, D] in q.dtype; k/v in
     q's dtype, or int8 with f32 scales [B, Hkv, S] (the int8 arm).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the split-S
-    kernel (plus its combine step) or raises. The bf16/f32 arm counts its
-    launches in `launches`, the int8 arm in `int8_launches`."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    of `decode_route` (the tensor-core kernel, one launch; or the split-S
+    kernel plus its combine step) or raises. The bf16/f32 arm counts its
+    calls in `launches`, the int8 arm in `int8_launches`; those that went
+    through the tensor-core kernel also in `tc_launches`."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
     B, T, Hq, D = q.shape
@@ -162,39 +218,52 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
         raise ValueError(f"decode attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    n_splits = -(-S // DECODE_SPLIT)
+    route, split = decode_route(q.dtype, G, S)
+    n_splits = -(-S // split)
     qc = q.contiguous()
     lim = kv_limit.to(torch.int32).contiguous()
-    part_m = torch.empty(B * Hkv, n_splits, G, dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_o = torch.empty(B * Hkv, n_splits, G, D, dtype=torch.float32, device=q.device)
     out = torch.empty_like(qc)
     int8 = k_scale is not None
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if int8 else (None, None)
     lib = build.load()
-    err = lib.gt_decode_attention(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
-        lim.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
-        B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], kv_dtype_code(k, k_scale), DECODE_SPLIT,
-        int(window), float(attn_softcap), build.stream_ptr(q.device),
-    )
-    build.check(err, f"decode attention B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} int8={int8}")
+    stream = build.stream_ptr(q.device)
+    if route == "tc":
+        work, tickets = tc_workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
+        err = lib.gt_decode_attention_tc(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
+            work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D, kv_dtype_code(k, k_scale),
+            split, int(window), float(attn_softcap), stream,
+        )
+    else:
+        part_m = torch.empty(B * Hkv, n_splits, G, dtype=torch.float32, device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_o = torch.empty(B * Hkv, n_splits, G, D, dtype=torch.float32, device=q.device)
+        err = lib.gt_decode_attention(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(), B, Hq, Hkv, S, D,
+            build.DTYPE_CODES[q.dtype], kv_dtype_code(k, k_scale), split, int(window),
+            float(attn_softcap), stream,
+        )
+    build.check(err, f"decode attention ({route}) B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} int8={int8}")
     if int8:
         decode_attention.int8_launches += 1
     else:
         decode_attention.launches += 1
+    decode_attention.tc_launches += route == "tc"
     return out
 
 
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
+decode_attention.tc_launches = 0
 
 
 def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):
     """Prefill attention, q [B, T, Hq, D] -> [B, T, Hq, D] in q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. Any T and S."""
+    or raises: bf16 the tensor-core kernel (also counted in `tc_launches`),
+    f32 the FMA kernel. Any T and S."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
     check_kv_args("flash attention", q, k, v, None, None)
@@ -209,17 +278,24 @@ def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, win
     lim = kv_limit.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
     lib = build.load()
-    err = lib.gt_flash_attention(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype], int(window), float(attn_softcap),
-        build.stream_ptr(q.device),
-    )
-    build.check(err, f"flash attention B={B} T={T} Hq={Hq} Hkv={Hkv} S={S} D={D}")
+    tc = q.dtype == torch.bfloat16
+    args = (qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(),
+            out.data_ptr(), B, T, Hq, Hkv, S, D)
+    if tc:
+        # 0: the kernel's block shape (`flash_tc_shape`, csrc/flash_attention.cu)
+        err = lib.gt_flash_attention_tc(*args, 0, int(window), float(attn_softcap),
+                                        build.stream_ptr(q.device))
+    else:
+        err = lib.gt_flash_attention(*args, int(window), float(attn_softcap),
+                                     build.stream_ptr(q.device))
+    build.check(err, f"flash attention B={B} T={T} Hq={Hq} Hkv={Hkv} S={S} D={D} tc={tc}")
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 def attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0,

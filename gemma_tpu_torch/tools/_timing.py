@@ -199,6 +199,23 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float | None) -
     return f"max|diff| {err:.2e} (tol {tol:.2e})"
 
 
+def attn_err(got: torch.Tensor, ref: torch.Tensor, tol: float) -> tuple[float, float, float, float]:
+    """(max|diff|, worst ratio, least and largest row scale) of attention
+    output `got` against its plain version `ref` ([..., D]). Each row (one
+    query of one head) is held to tol x its scale, min(1, max|ref| of the
+    row): a row that averages n keys of values ~0.3 is ~0.3 / sqrt(n) in
+    size (~0.05 at 4096 keys), so one absolute tolerance for every row
+    would let a dropped split or key tile pass at long caches. A row with
+    no valid key (scale 0) must be exactly 0. The check passes iff the
+    worst ratio |diff| / (tol x scale) is <= 1 (and `got` is finite)."""
+    diff = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp(max=1.0)
+    ratio = torch.where(scale > 0, diff / (tol * scale), torch.where(diff > 0, math.inf, 0.0))
+    if not torch.isfinite(got).all():
+        ratio = torch.full_like(ratio, math.inf)
+    return (diff.max().item(), ratio.max().item(), scale.min().item(), scale.max().item())
+
+
 def random_qtensor(fmt: str, rows: int, cols: int, gen: torch.Generator, dev) -> QTensor:
     """Random payload bytes and tables of a `fmt` weight [rows, cols], the
     scales sized for outputs near 1 (exact f16)."""

@@ -1,10 +1,28 @@
 """Patched builds of the kernels, timed side by side on the card: the
 measurements behind the tensor-core GEMV's constants (`csrc/dq_gemv.cuh`)
 and the tile plan (`csrc/dq_tile.cuh`), and ablations that say where a
-kernel's time goes.
+kernel's time goes; and the tensor-core attention kernels' launch shapes.
 
     python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_0,q8_0]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
+    python -m gemma_tpu_torch.tools.probe_variants attn
+    python -m gemma_tpu_torch.tools.probe_variants mutants
+
+`attn` needs no patched build: at the main path's attention shapes (and
+S = 4096, bench_prefill's), each in bf16 with D = 256, it holds the flash
+kernel's 4 warps as 1, 2 or 4 row warps (the rest splitting the keys)
+and the decode kernel at 32-256 keys a
+block (both arms) to the plain version (2e-2 of each row's scale,
+`_timing.attn_err`: p rounds to bf16 against a local max), and times each,
+decode beside the split-S kernel and its combine launch (the route of
+G = 1), device ms with the operands warm (as chip_smoke.py).
+`tools/parent_turn.py` times the parent's kernels.
+
+`mutants` checks that check: it builds MUTANTS, the attention kernels with
+a planted fault (a decode split or a flash key tile dropped), and holds
+each, and the unpatched kernels, to the plain version at the S = 4096
+shapes, where a row averages thousands of keys; it fails unless the
+unpatched kernels pass and every mutant fails.
 
 A variant is a list of text substitutions in a copy of
 `gemma_tpu_torch/csrc/`, built into `gemma_tpu_torch/build/variants/<name>/`
@@ -84,11 +102,23 @@ SHAPES = {
 }
 
 
+# name -> substitutions that plant a fault in an attention kernel
+MUTANTS: dict[str, list[tuple[str, str, str]]] = {
+    # the decode kernel's last block merges every split but split 1
+    "drop_split_1": [("decode_attention.cu",
+                      "const float w = ls > 0.f ? expf(sw[sp_ * G + h] - mx) : 0.f;",
+                      "const float w = ls > 0.f && sp_ != 1 ? expf(sw[sp_ * G + h] - mx) : 0.f;")],
+    # the flash kernel loads ring step 5 (64 keys at D = 256) but never multiplies it
+    "drop_step_5": [("flash_attention.cu", "    compute(i);\n    __syncthreads();  // stage i % 2",
+                     "    if (i != 5) compute(i);\n    __syncthreads();  // stage i % 2")],
+}
+
+
 def patched_sources(name: str) -> dict[str, str]:
-    """The text of each source file variant `name` changes; raises unless
-    every substitution's old text occurs exactly once."""
+    """The text of each source file variant or mutant `name` changes; raises
+    unless every substitution's old text occurs exactly once."""
     out: dict[str, str] = {}
-    for f, old, new in VARIANTS[name]:
+    for f, old, new in {**VARIANTS, **MUTANTS}[name]:
         text = out.get(f) or (build.CSRC / f).read_text()
         if text.count(old) != 1:
             raise ValueError(f"variant {name}: {old!r} occurs {text.count(old)} times in {f}")
@@ -97,7 +127,8 @@ def patched_sources(name: str) -> dict[str, str]:
 
 
 def build_variant(name: str):
-    """The kernel library of variant `name`, built from a patched copy."""
+    """The kernel library of variant or mutant `name`, built from a patched
+    copy."""
     root = build.BUILD_DIR / "variants" / name
     csrc = root / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
@@ -137,9 +168,177 @@ def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.
             del qt
 
 
+# attention shapes: flash (name, T, first position, S, kv_limit, Hq, Hkv),
+# decode (name, S, kv_limits, Hq, Hkv); Gemma-2B's heads (8, 1), Gemma-7B's (16, 16)
+SERVE_LIMITS = [1, 64, 65, 203, 300, 512, 203, 64]  # chip_smoke.py's serving rows
+FLASH_SHAPES = (("Gemma-2B T=203", 203, 0, 512, 203, 8, 1),
+                ("Gemma-7B T=203", 203, 0, 512, 203, 16, 16),
+                ("Gemma-2B T=2048", 2048, 0, 4096, 2048, 8, 1),
+                ("Gemma-7B T=2048", 2048, 0, 4096, 2048, 16, 16),
+                ("Gemma-2B chunk 3584-4095", 512, 3584, 4096, 4096, 8, 1))
+DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B", 512, [512], 8, 1),
+                 ("Gemma-2B", 4096, [2048], 8, 1), ("Gemma-2B", 4096, [4096], 8, 1),
+                 ("Gemma-2B serving", 512, SERVE_LIMITS, 8, 1), ("Gemma-7B", 512, [204], 16, 16),
+                 ("Gemma-7B serving", 512, SERVE_LIMITS, 16, 16), ("Gemma-7B", 4096, [4096], 16, 16),
+                 # the other groups of the Gemma family: G = 2 (Gemma-2 2B), G = 4 (Gemma-3 1B)
+                 ("G=2 heads", 512, [204], 8, 4), ("G=2 serving", 512, SERVE_LIMITS, 8, 4),
+                 ("G=4 heads", 512, [204], 4, 1), ("G=4 serving", 512, SERVE_LIMITS, 4, 1))
+SPLITS = (32, 64, 128, 256)
+ATT_TOL = 2e-2
+
+
+def _held(name: str, got, ref) -> None:
+    """Raise unless got is within ATT_TOL of each row's scale of ref."""
+    ratio = T.attn_err(got, ref, ATT_TOL)[1]
+    if ratio > 1.0:
+        raise RuntimeError(f"{name}: |diff| {ratio:.3f} x {ATT_TOL} of its row's scale")
+
+
+def _flash(lib, q, k, v, pos, lim, row_warps: int):
+    """One launch of the tensor-core flash kernel at `row_warps` on bf16
+    inputs, through its C entry point."""
+    B, T_, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(), out.data_ptr(),
+            B, T_, Hq, Hkv, S, D)
+    err = lib.gt_flash_attention_tc(*args, row_warps, 0, 0.0, build.stream_ptr(q.device))
+    build.check(err, f"flash at {row_warps} row warps")
+    return out
+
+
+def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool = True):
+    """One launch of the decode kernel on bf16 q at `split` keys a block:
+    the tensor-core kernel, or (tc=False) the split-S kernel and its
+    combine, through the C entry points."""
+    from ..ops import attention as att
+
+    B, _, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G, n = Hq // Hkv, -(-S // split)
+    out = torch.empty_like(q)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None else (None, None)
+    kvd = att.kv_dtype_code(k, k_scale)
+    stream = build.stream_ptr(q.device)
+    if tc:
+        work, tickets = att.tc_workspace(q.device, stream, B * Hkv * n * G * (D + 2), B * Hkv)
+        err = lib.gt_decode_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
+                                         lim.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                         tickets.data_ptr(), B, Hq, Hkv, S, D, kvd, split, 0, 0.0, stream)
+    else:
+        parts = torch.empty(B * Hkv * n * G * (D + 2), dtype=torch.float32, device=q.device)
+        pm, pl = parts.data_ptr(), parts[B * Hkv * n * G:].data_ptr()
+        po = parts[2 * B * Hkv * n * G:].data_ptr()
+        err = lib.gt_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(),
+                                      out.data_ptr(), pm, pl, po, B, Hq, Hkv, S, D,
+                                      build.DTYPE_CODES[q.dtype], kvd, split, 0, 0.0, stream)
+    build.check(err, f"decode tc={tc} split={split}")
+    return out
+
+
+def run_attention(dev: torch.device) -> None:
+    from ..ops import attention as att
+    from ..runtime.kv_cache import quantize_kv
+
+    gen = T.generator(dev)
+    D = 256
+    lib = build.load()
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+
+    def ms(fn):
+        return T.time_us(lambda: fn(), [()], dev) / 1e3
+
+    for name, T_, p0, S, limit, hq, hkv in FLASH_SHAPES:
+        q, k, v = rnd(1, T_, hq, D), rnd(1, hkv, S, D), rnd(1, hkv, S, D)
+        pos = torch.arange(p0, p0 + T_, dtype=torch.int32, device=dev)[None]
+        lim = torch.tensor([limit], dtype=torch.int32, device=dev)
+        ref = att.flash_attention_plain(q, k, v, pos, lim)
+        flops = 4 * hq * D * sum(min(p + 1, limit) for p in range(p0, p0 + T_))
+        readings = []
+        for rw in (1, 2, 4):
+            _held(f"flash {name} {rw} row warps", _flash(lib, q, k, v, pos, lim, rw), ref)
+            t = ms(lambda: _flash(lib, q, k, v, pos, lim, rw))
+            readings.append(f"{rw} row warps x {4 // rw} key groups {t:.4f} "
+                            f"({flops / t / 1e9:.1f} TFLOP/s)")
+        print(f"flash {name} S={S}: device ms, warm: " + "; ".join(readings), flush=True)
+        del q, k, v, ref
+
+    for name, S, limits, hq, hkv in DECODE_SHAPES:
+        B = len(limits)
+        q, k, v = rnd(B, 1, hq, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D)
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        for arm, args in (("bf16", (k, v)), ("int8", (k8, v8, ks, vs))):
+            ref = att.decode_attention_plain(q, args[0], args[1], lim, 0.0, 0, *args[2:])
+            readings = []
+            for split, tc in ((att.DECODE_SPLIT, False), *((sp, True) for sp in SPLITS)):
+                def call(split=split, tc=tc):
+                    return _decode(lib, split, q, args[0], args[1], lim, *args[2:], tc=tc)
+
+                _held(f"decode {name} {arm} split {split} tc={tc}", call(), ref)
+                readings.append(f"{split} keys a block {ms(call):.4f}" if tc
+                                else f"split-S kernel {ms(call):.4f}")
+            print(f"decode {name} {arm} S={S} Hq={hq} Hkv={hkv} limits={limits}: device ms, warm "
+                  f"(route: {att.decode_route(torch.bfloat16, hq // hkv, S)}): " + "; ".join(readings),
+                  flush=True)
+        del q, k, v, k8, v8
+
+
+def run_mutants(dev: torch.device) -> None:
+    """The unpatched attention kernels and each of MUTANTS against the plain
+    versions at the S = 4096 shapes of FLASH_SHAPES and DECODE_SHAPES
+    (decode: both arms), through the public wrappers; one line a reading,
+    with max|diff| beside the row-scaled ratio."""
+    from ..ops import attention as att
+    from ..runtime.kv_cache import quantize_kv
+
+    D = 256
+    libs = {"unpatched": build.load(), **{name: build_variant(name) for name in MUTANTS}}
+    gen = T.generator(dev)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+
+    cases = []  # (reading, kernel call, plain output)
+    for name, T_, p0, S, limit, hq, hkv in FLASH_SHAPES:
+        if S == 4096:
+            q, k, v = rnd(1, T_, hq, D), rnd(1, hkv, S, D), rnd(1, hkv, S, D)
+            pos = torch.arange(p0, p0 + T_, dtype=torch.int32, device=dev)[None]
+            lim = torch.tensor([limit], dtype=torch.int32, device=dev)
+            cases.append((f"flash {name}", lambda q=q, k=k, v=v, pos=pos, lim=lim:
+                          att.flash_attention(q, k, v, pos, lim),
+                          att.flash_attention_plain(q, k, v, pos, lim)))
+    for name, S, limits, hq, hkv in DECODE_SHAPES:
+        if S == 4096 and att.decode_route(torch.bfloat16, hq // hkv, S)[0] == "tc":
+            B = len(limits)
+            q, k, v = rnd(B, 1, hq, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D)
+            lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            for arm, (kk, vv, sk, sv) in (("bf16", (k, v, None, None)), ("int8", (k8, v8, ks, vs))):
+                cases.append((f"decode {name} S={S} limits={limits} {arm}",
+                              lambda q=q, kk=kk, vv=vv, lim=lim, sk=sk, sv=sv:
+                              att.decode_attention(q, kk, vv, lim, k_scale=sk, v_scale=sv),
+                              att.decode_attention_plain(q, kk, vv, lim, k_scale=sk, v_scale=sv)))
+    failed = {}
+    for lname, lib in libs.items():
+        with build.using(lib):
+            for reading, call, ref in cases:
+                err, ratio, lo, hi = T.attn_err(call(), ref, ATT_TOL)
+                failed.setdefault(lname, []).append(ratio > 1.0)
+                print(f"{lname} {reading}: max|diff| {err:.3e} (an absolute {ATT_TOL} "
+                      f"{'fails' if err > ATT_TOL else 'passes'}); worst |diff| / ({ATT_TOL} x row "
+                      f"scale) {ratio:.3f} ({'fails' if ratio > 1.0 else 'passes'}); row scales "
+                      f"{lo:.3e}-{hi:.3e}", flush=True)
+    if any(failed["unpatched"]) or not all(any(failed[name]) for name in MUTANTS):
+        raise SystemExit("mutants: the unpatched kernels must pass and every mutant must fail")
+    print("mutants: the unpatched kernels pass; every mutant fails", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("gemv", "tile"))
+    ap.add_argument("mode", choices=("gemv", "tile", "attn", "mutants"))
     ap.add_argument("--variants", default="base,tw4,tw16,st3,st6,w2,w8,sl1024,sk256,nosplit",
                     help="comma-separated names of VARIANTS")
     ap.add_argument("--fmt", default="q4_0,q8_0")
@@ -152,6 +351,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_variants: no CUDA device (it times builds of the kernels on the card)")
     dev = torch.device("cuda", 0)
+    if args.mode in ("attn", "mutants"):
+        print(T.card_line(dev), flush=True)
+        (run_attention if args.mode == "attn" else run_mutants)(dev)
+        return
     ms = [int(m) for m in (args.ms or ("8" if args.mode == "gemv" else "17,64,203")).split(",")]
     print(T.card_line(dev), flush=True)
     run(args.mode, names, args.fmt.split(","), ms, dev)

@@ -1,4 +1,5 @@
-"""Lane-by-lane numpy emulation of the q4_0 and q8_0 tensor-core kernels.
+"""Lane-by-lane numpy emulation of the tensor-core kernels: q4_0's and
+q8_0's GEMV and tile functors, flash and decode attention.
 
 The CUDA sources build only on the card, so their index math is held here,
 on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
@@ -14,8 +15,20 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   `csrc/q4_0_matmul.cu` and `csrc/q8_0_matmul.cu` (`copy` with cp.async's
   zero fill, then `store`) for every K-step of `dq_tile.cuh`, the half step
   past K included: the bf16 weight tile they write, as f32.
+* `flash` emulates `flash_tc_kernel` of `csrc/flash_attention.cu`: the
+  (position, head) row packing of a block's row warps, Q, K and V in
+  shared memory at the kernel's pitch and ring stage, the key groups'
+  tiles of a stage, ldmatrix of Q and K, ldmatrix.trans of V, S's C
+  fragments reused as P's A fragments, the masks and the online softmax
+  over key tiles, the live-range and per-warp tile skips, and the merge of
+  the key groups.
+* `decode` emulates `decode_tc_kernel` of `csrc/decode_attention.cu`: K
+  (or V^T by ldmatrix.trans) as the A operand, q (or P through its shared
+  tile) as the n8 B operand, int8 tiles widened to bf16 and their scales,
+  each warp's running softmax, the block's merge and the last block's
+  merge of the splits in order.
 
-Run as a module, it checks both formats at a few ragged shapes:
+Run as a module, it checks each at a few ragged shapes:
 
     python -m gemma_tpu_torch.tools.tc_emulation
 """
@@ -120,6 +133,20 @@ def mma_16816(c: list, a: list, b0: np.ndarray, b1: np.ndarray) -> list:
     C = (A @ B).astype(np.float32)  # the products are exact; f32 sums
     return [c[0] + C[g, 2 * t], c[1] + C[g, 2 * t + 1], c[2] + C[g + 8, 2 * t],
             c[3] + C[g + 8, 2 * t + 1]]
+
+
+def ldmatrix_x4_trans(smem: np.ndarray, addr: np.ndarray) -> list[np.ndarray]:
+    """ldmatrix.x4.trans.b16: lane l's address gives row l % 8 of matrix
+    l // 8; lane (g, t) receives (M[2t][g], M[2t + 1][g]) of each matrix M."""
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    h = smem.view(np.uint16)
+    out = []
+    for i in range(4):
+        lo = h[(addr[8 * i + 2 * t] + 2 * g) // 2].astype(np.uint32)
+        hi = h[(addr[8 * i + 2 * t + 1] + 2 * g) // 2].astype(np.uint32)
+        out.append(lo | (hi << 16))
+    return out
 
 
 def _cp_half2(scales: np.ndarray, h: int, total: int) -> bytes:
@@ -259,6 +286,317 @@ def tile_weights(qt: QTensor, rows: int | None = None) -> np.ndarray:
     return out
 
 
+# constants of csrc/flash_attention.cu (kFlashTargetBlocks, FlashTc) and
+# csrc/decode_attention.cu (kDecWarps, DecodeTc::kPLd)
+FLASH_TARGET_BLOCKS = 99
+DEC_WARPS, P_LD = 4, 24
+MASK_VALUE = np.float32(-0.7 * np.finfo(np.float32).max)  # gt::kMaskValue
+INT_MAX = 2**31 - 1
+_F32 = np.float32
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    """The uint16 bits of a bf16 tensor."""
+    return x.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _to_bf16_bits(v) -> np.ndarray:
+    """f32 values rounded to bf16 (nearest even), as uint16 bits."""
+    t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def _bf16_round(v) -> np.ndarray:
+    return _bf16_bits_to_f32(_to_bf16_bits(v))
+
+
+def _pack(lo, hi) -> np.ndarray:
+    """`pack_bf16`: two f32 arrays rounded to a bf16x2 word each."""
+    return _to_bf16_bits(lo).astype(np.uint32) | (_to_bf16_bits(hi).astype(np.uint32) << 16)
+
+
+def _word(h: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """The bf16x2 word of elements idx, idx + 1 of uint16 bits h."""
+    return h[idx].astype(np.uint32) | (h[idx + 1].astype(np.uint32) << 16)
+
+
+def _quad(x: np.ndarray, op) -> np.ndarray:
+    """op over the 4 lanes of each quad (a C fragment's row), per lane."""
+    return np.repeat(op(x.reshape(8, 4), axis=1), 4)
+
+
+def _col(x: np.ndarray, op) -> np.ndarray:
+    """op over the 8 lanes of each t (a C fragment's column), per lane."""
+    return np.tile(op(x.reshape(8, 4), axis=0), 8)
+
+
+def _key_valid(s, pos, limit: int, window: int) -> np.ndarray:
+    ok = (pos >= 0) & (s <= pos) & (s < limit)
+    return ok & (s > pos - window) if window > 0 else ok
+
+
+def flash_shape(B: int, Hkv: int, T: int, G: int) -> tuple[int, int]:
+    """`flash_tc_shape`: (row warps, key groups) of a 4-warp block: the most
+    row warps whose grid holds FLASH_TARGET_BLOCKS blocks."""
+    for r in (4, 2):
+        if B * Hkv * -(-(T * G) // (16 * r)) >= FLASH_TARGET_BLOCKS:
+            return r, 4 // r
+    return 1, 4
+
+
+def flash_tile_keys(D: int, H: int) -> int:
+    """`flash_tile_keys`: keys a warp's tile."""
+    return (64 if D == 256 else 128) // (2 if H == 1 else H)
+
+
+def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
+          row_warps: int = 0) -> np.ndarray:
+    """`flash_tc_kernel` on bf16 q [B, T, Hq, D] and k/v [B, Hkv, S, D]
+    (positions [B, T], kv_limit [B]): out [B, T, Hq, D] as f32 (bf16
+    values). row_warps: 0 for the plan, or 1, 2, 4."""
+    B, T, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    R, H = flash_shape(B, Hkv, T, G) if not row_warps else (row_warps, 4 // row_warps)
+    BK = flash_tile_keys(D, H)
+    SK, ld, nrows, rows = BK * H, D + 8, 16 * R, T * G
+    qb, kb, vb = _bits(q), _bits(k), _bits(v)
+    pos_all, lims = positions.to(torch.int32).numpy(), kv_limit.to(torch.int32).numpy()
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    k_off = nrows * ld  # uint16 offsets: Q [nrows][ld], K [2][SK][ld], V [2][SK][ld]
+    v_off = k_off + 2 * SK * ld
+    nblk = -(-rows // nrows)
+    out = np.zeros((B, T, Hq, D), np.float32)
+    for b, hk, bx in np.ndindex(B, Hkv, nblk):
+        limit = min(int(lims[b]), S)
+        r0 = (nblk - 1 - bx) * nrows  # latest rows first
+        smem = np.zeros(2 * (v_off + 2 * SK * ld), np.uint8)
+        h = smem.view(np.uint16)
+        for r in range(min(nrows, rows - r0)):
+            h[r * ld: r * ld + D] = qb[b, (r0 + r) // G, hk * G + (r0 + r) % G]
+        wpos, wlo, whi = [], [], []  # of each row warp
+        for rw in range(R):
+            prs = (r0 + rw * 16 + g, r0 + rw * 16 + g + 8)
+            ps = [np.where(pr < rows, pos_all[b, np.minimum(pr, rows - 1) // G], -1) for pr in prs]
+            hi_ = int(max(ps[0].max(), ps[1].max()))
+            lo_ = INT_MAX if hi_ < 0 else (
+                max(0, int(np.concatenate([p_[p_ >= 0] for p_ in ps]).min()) - window + 1)
+                if window > 0 else 0)
+            wpos.append((prs, ps))
+            wlo.append(lo_)
+            whi.append(min(hi_, limit - 1))
+        lo, hi = min(wlo), max(whi)
+        s_beg = lo // SK * SK if hi >= lo else 0
+        nst = -(-(hi + 1 - s_beg) // SK) if hi >= lo else 0
+        acc = [dict(o=[[np.zeros(32, _F32) for _ in range(4)] for _ in range(D // 8)],
+                    m=[np.full(32, -np.inf, _F32) for _ in range(2)],
+                    l=[np.zeros(32, _F32) for _ in range(2)]) for _ in range(R * H)]
+        for i in range(nst):
+            st = i % 2
+            for j in range(SK):  # issue(i): keys past hi zero-filled
+                key = s_beg + i * SK + j
+                ko, vo = k_off + (st * SK + j) * ld, v_off + (st * SK + j) * ld
+                h[ko: ko + D] = kb[b, hk, key] if key <= hi else 0
+                h[vo: vo + D] = vb[b, hk, key] if key <= hi else 0
+            for w in range(R * H):
+                rw, kg = w % R, w // R
+                s0 = s_beg + i * SK + kg * BK
+                if s0 > whi[rw] or s0 + BK - 1 < wlo[rw]:
+                    continue
+                a_ = acc[w]
+                kt, vt = k_off + (st * SK + kg * BK) * ld, v_off + (st * SK + kg * BK) * ld
+                sc = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(BK // 8)]
+                for kk in range(D // 16):
+                    a = ldmatrix_x4(smem, 2 * ((rw * 16 + lanes % 16) * ld + kk * 16 + (lanes // 16) * 8))
+                    for n2 in range(BK // 16):
+                        bk = ldmatrix_x4(smem, 2 * (kt + (n2 * 16 + (lanes // 16) * 8 + lanes % 8) * ld
+                                                    + kk * 16 + ((lanes // 8) % 2) * 8))
+                        sc[2 * n2] = mma_16816(sc[2 * n2], a, bk[0], bk[1])
+                        sc[2 * n2 + 1] = mma_16816(sc[2 * n2 + 1], a, bk[2], bk[3])
+                pos = wpos[rw][1]
+                valid = {}
+                mx = [np.full(32, MASK_VALUE, _F32) for _ in range(2)]
+                for n in range(BK // 8):
+                    for e in range(4):
+                        key = s0 + n * 8 + 2 * t + (e & 1)
+                        x = sc[n][e]
+                        if softcap > 0:
+                            x = (_F32(softcap) * np.tanh(x / _F32(softcap))).astype(_F32)
+                        ok = _key_valid(key, pos[e // 2], limit, window)
+                        valid[n, e] = ok
+                        sc[n][e] = np.where(ok, x, MASK_VALUE).astype(_F32)
+                        mx[e // 2] = np.maximum(mx[e // 2], sc[n][e])
+                mn = [np.maximum(a_["m"][r], _quad(mx[r], np.max)) for r in range(2)]
+                al = [np.exp(a_["m"][r] - mn[r]).astype(_F32) for r in range(2)]
+                a_["m"] = mn
+                psum = [np.zeros(32, _F32) for _ in range(2)]
+                pa = []
+                for n in range(BK // 8):
+                    pn = [np.where(valid[n, e], np.exp(sc[n][e] - mn[e // 2]), 0).astype(_F32)
+                          for e in range(4)]
+                    psum[0] += pn[0] + pn[1]
+                    psum[1] += pn[2] + pn[3]
+                    pa.append((_pack(pn[0], pn[1]), _pack(pn[2], pn[3])))
+                a_["l"] = [a_["l"][r] * al[r] + psum[r] for r in range(2)]
+                o = a_["o"]
+                for n in range(D // 8):
+                    o[n] = [o[n][0] * al[0], o[n][1] * al[0], o[n][2] * al[1], o[n][3] * al[1]]
+                for kk in range(BK // 16):
+                    a = [pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]]
+                    for dp in range(D // 16):
+                        bv = ldmatrix_x4_trans(smem, 2 * (vt + (kk * 16 + ((lanes // 8) % 2) * 8 + lanes % 8) * ld
+                                                          + dp * 16 + (lanes // 16) * 8))
+                        o[2 * dp] = mma_16816(o[2 * dp], a, bv[0], bv[1])
+                        o[2 * dp + 1] = mma_16816(o[2 * dp + 1], a, bv[2], bv[3])
+        for rw in range(R):
+            a_ = acc[rw]  # key group 0 merges groups 1.. in order
+            for kg in range(1, H):
+                o_ = acc[kg * R + rw]
+                for r in range(2):
+                    m, hm = a_["m"][r], o_["m"][r]
+                    mn = np.maximum(m, hm)
+                    wa = np.where(m == -np.inf, 0, np.exp(m - np.where(mn == -np.inf, 0, mn))).astype(_F32)
+                    wb = np.where(hm == -np.inf, 0, np.exp(hm - np.where(mn == -np.inf, 0, mn))).astype(_F32)
+                    a_["l"][r] = a_["l"][r] * wa + o_["l"][r] * wb
+                    for n in range(D // 8):
+                        for e in (2 * r, 2 * r + 1):
+                            a_["o"][n][e] = a_["o"][n][e] * wa + o_["o"][n][e] * wb
+                    a_["m"][r] = mn
+            for r in range(2):
+                lsum = _quad(a_["l"][r], np.sum)
+                inv = np.where(lsum == 0, _F32(1), _F32(1) / np.where(lsum == 0, 1, lsum)).astype(_F32)
+                pr = wpos[rw][0][r]
+                m = pr < rows
+                tt, hh = pr[m] // G, hk * G + pr[m] % G
+                for n in range(D // 8):
+                    for e in range(2):
+                        out[b, tt, hh, n * 8 + 2 * t[m] + e] = _bf16_round(a_["o"][n][2 * r + e][m] * inv[m])
+    return out
+
+
+def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=None, v_scale=None,
+           split: int = 64) -> np.ndarray:
+    """`decode_tc_kernel` on bf16 q [B, 1, Hq, D] (Hq / Hkv <= 8) and k/v
+    [B, Hkv, S, D] bf16, or int8 with f32 scales [B, Hkv, S]: out [B, 1, Hq,
+    D] as f32 (bf16 values)."""
+    B, _, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    assert G <= 8 and split % 16 == 0
+    int8 = k_scale is not None
+    qb = _bits(q).reshape(B, Hq, D)
+    # the staged tiles: bf16 as they are, int8 widened exactly (`widen_int8x16`)
+    kh, vh = ((_to_bf16_bits(x.numpy().astype(np.float32)) for x in (k, v)) if int8
+              else (_bits(k), _bits(v)))
+    ks, vs = (k_scale.numpy(), v_scale.numpy()) if int8 else (None, None)
+    lims = kv_limit.to(torch.int32).numpy()
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    ld, n_splits = D + 8, -(-S // split)
+    out = np.zeros((B, 1, Hq, D), np.float32)
+    for b, hk in np.ndindex(B, Hkv):
+        limit = min(int(lims[b]), S)
+        live_lo = max(limit - window, 0) if window > 0 else 0
+        qrow = qb[b, hk * G:(hk + 1) * G]
+        # q as the B operand: lane (g, t) holds q[head g][16 kk + 2t (+8) + {0, 1}]
+        gq = np.minimum(g, G - 1)
+        qf = [[np.where(g < G, qrow[gq, kk * 16 + 2 * t + 8 * c].astype(np.uint32)
+                        | (qrow[gq, kk * 16 + 2 * t + 8 * c + 1].astype(np.uint32) << 16), 0)
+               .astype(np.uint32) for c in range(2)] for kk in range(D // 16)]
+        parts = []
+        for sp in range(n_splits):
+            s0 = sp * split
+            kbeg, kend = max(s0, live_lo), min(s0 + split, limit)
+            if kbeg >= kend:
+                parts.append((np.full(G, -np.inf, _F32), np.zeros(G, _F32), None))
+                continue
+            kb0 = s0 + (kbeg - s0) // 16 * 16
+            ntile = -(-(kend - kb0) // 16)
+            s_m = np.full((DEC_WARPS, 8), -np.inf, _F32)
+            s_l = np.zeros((DEC_WARPS, 8), _F32)
+            red = np.zeros((DEC_WARPS, 8, D), _F32)
+            states = []
+            for w in range(DEC_WARPS):
+                mine = -(-(ntile - w) // DEC_WARPS) if ntile > w else 0
+                o = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(D // 16)]
+                m = [np.full(32, -np.inf, _F32) for _ in range(2)]
+                l = [np.zeros(32, _F32) for _ in range(2)]
+                for j in range(mine):
+                    key0 = kb0 + 16 * (w + j * DEC_WARPS)
+                    tk, tv = np.zeros(16 * ld, np.uint16), np.zeros(16 * ld, np.uint16)
+                    for r in range(16):
+                        if key0 + r < kend:
+                            tk[r * ld: r * ld + D] = kh[b, hk, key0 + r]
+                            tv[r * ld: r * ld + D] = vh[b, hk, key0 + r]
+                    sab = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(2)]  # two chains
+                    for kk in range(D // 16):
+                        a = ldmatrix_x4(tk.view(np.uint8),
+                                        2 * ((lanes % 16) * ld + kk * 16 + (lanes // 16) * 8))
+                        sab[kk % 2] = mma_16816(sab[kk % 2], a, qf[kk][0], qf[kk][1])
+                    sc, ok, tmx = [], [], [np.full(32, MASK_VALUE, _F32) for _ in range(2)]
+                    for e in range(4):
+                        key = key0 + g + 8 * (e // 2)
+                        ok.append((key >= kbeg) & (key < kend) & (2 * t + e % 2 < G))
+                        x = (sab[0][e] + sab[1][e]).astype(_F32)
+                        if int8:
+                            x = x * np.where(ok[e], ks[b, hk, np.minimum(key, S - 1)], 0).astype(_F32)
+                        if softcap > 0:
+                            x = (_F32(softcap) * np.tanh(x / _F32(softcap))).astype(_F32)
+                        sc.append(np.where(ok[e], x, MASK_VALUE).astype(_F32))
+                        tmx[e % 2] = np.maximum(tmx[e % 2], sc[e])
+                    al = []
+                    for hh in range(2):
+                        mn = np.maximum(m[hh], _col(tmx[hh], np.max))
+                        al.append(np.exp(m[hh] - mn).astype(_F32))
+                        m[hh] = mn
+                    pt = np.zeros((8, P_LD), np.uint16)
+                    pv = []
+                    for e in range(4):
+                        key = key0 + g + 8 * (e // 2)
+                        pe = np.where(ok[e], np.exp(sc[e] - m[e % 2]), 0).astype(_F32)
+                        pv.append(pe)
+                        wgt = pe * np.where(ok[e], vs[b, hk, np.minimum(key, S - 1)], 0).astype(_F32) \
+                            if int8 else pe
+                        pt[2 * t + e % 2, g + 8 * (e // 2)] = _to_bf16_bits(wgt)
+                    l = [l[0] * al[0] + (pv[0] + pv[2]), l[1] * al[1] + (pv[1] + pv[3])]
+                    pflat = pt.reshape(-1)
+                    b0, b1 = _word(pflat, g * P_LD + 2 * t), _word(pflat, g * P_LD + 8 + 2 * t)
+                    for mt in range(D // 16):
+                        o[mt] = [o[mt][0] * al[0], o[mt][1] * al[1], o[mt][2] * al[0], o[mt][3] * al[1]]
+                        a = ldmatrix_x4_trans(tv.view(np.uint8), 2 * (((lanes // 16) * 8 + lanes % 8) * ld
+                                                                       + mt * 16 + ((lanes // 8) % 2) * 8))
+                        o[mt] = mma_16816(o[mt], a, b0, b1)
+                l = [_col(x, np.sum) for x in l]
+                for hh in range(2):
+                    s_m[w, 2 * t[:4] + hh] = m[hh][:4]
+                    s_l[w, 2 * t[:4] + hh] = l[hh][:4]
+                states.append((m, o))
+            M = s_m.max(axis=0)
+            for w, (m, o) in enumerate(states):
+                f = [np.exp(m[hh] - M[2 * t + hh]).astype(_F32) for hh in range(2)]
+                for mt in range(D // 16):
+                    for e in range(4):
+                        red[w, 2 * t + e % 2, mt * 16 + g + 8 * (e // 2)] = o[mt][e] * f[e % 2]
+            po = np.zeros((G, D), _F32)
+            for w in range(DEC_WARPS):
+                po += red[w, :G]
+            pl = np.zeros(G, _F32)
+            for w in range(DEC_WARPS):
+                pl += s_l[w, :G] * np.exp(s_m[w, :G] - M[:G]).astype(_F32)
+            parts.append((M[:G].copy(), pl, po))
+        for hh in range(G):  # the last block's merge, in split order
+            mx = max((pm[hh] for pm, pl, _ in parts if pl[hh] > 0), default=-np.inf)
+            total, acc = _F32(0), np.zeros(D, _F32)
+            for pm, pl, po in parts:
+                w = _F32(np.exp(pm[hh] - mx)) if pl[hh] > 0 else _F32(0)
+                total = _F32(w * pl[hh] + total)
+                if w > 0:
+                    acc = (w * po[hh] + acc).astype(_F32)
+            out[b, 0, hk * G + hh] = _bf16_round(acc * (_F32(1) if total == 0 else _F32(1) / total))
+    return out
+
+
 def main() -> None:
     from ..ops.quant_matmul import PLAIN
     from ..quant.qtensor import dequant
@@ -276,6 +614,25 @@ def main() -> None:
                      and not tile[N:].any() and not tile[:, K:].any())
             print(f"{fmt} N={N} K={K} M={M}: gemv max|diff| / max|ref| {err:.2e}; "
                   f"tile weights bit-exact: {exact}")
+    from ..ops.attention import decode_attention_plain, flash_attention_plain
+    from ..runtime.kv_cache import quantize_kv
+
+    for B, T, S, Hq, Hkv, D, pos0, lim, cap, window in ((1, 37, 100, 8, 1, 128, 0, [37], 0.0, 0),
+                                                        (2, 20, 70, 4, 4, 128, 30, [50, 45], 30.0, 16)):
+        q, k, v = (torch.randn(*shape, generator=gen).mul(0.3).to(torch.bfloat16)
+                   for shape in ((B, T, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        pos = (torch.arange(T, dtype=torch.int32) + pos0).expand(B, T).contiguous()
+        lim_t = torch.tensor(lim, dtype=torch.int32)
+        ref = flash_attention_plain(q, k, v, pos, lim_t, cap, window).float().numpy()
+        err = np.abs(flash(q, k, v, pos, lim_t, cap, window) - ref).max() / np.abs(ref).max()
+        qd = q[:, :1].contiguous()
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        refd = decode_attention_plain(qd, k, v, lim_t, cap, window).float().numpy()
+        errd = np.abs(decode(qd, k, v, lim_t, cap, window) - refd).max() / np.abs(refd).max()
+        ref8 = decode_attention_plain(qd, k8, v8, lim_t, cap, window, ks, vs).float().numpy()
+        err8 = np.abs(decode(qd, k8, v8, lim_t, cap, window, ks, vs) - ref8).max() / np.abs(ref8).max()
+        print(f"attention B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}: max|diff| / max|ref|: flash "
+              f"{err:.2e}, decode {errd:.2e}, decode int8 {err8:.2e}")
 
 
 if __name__ == "__main__":

@@ -228,3 +228,19 @@ def test_decode_int8_plain_matches_jax_kernel(B, S, Hq, Hkv, D, limits, cap, win
     got32 = decode_attention_plain(q.float(), t[0], t[1], torch.from_numpy(lim), cap, win, t[2], t[3])
     assert got32.dtype == torch.float32
     _close(got32, ref32, **TOL)
+
+
+def test_decode_route_is_fixed_by_dtype_and_group():
+    """bf16 queries with 2 <= G <= 8 take the tensor-core kernel at the
+    split of `decode_tc_split` (a multiple of 16, fixed by S); f32 queries,
+    G = 1 and G > 8 the split-S kernel. No route depends on the live
+    length."""
+    from gemma_tpu_torch.ops import attention as att
+
+    for S in (1, 512, 4096, 8192):
+        route, split = att.decode_route(torch.bfloat16, 8, S)
+        assert route == "tc" and split % 16 == 0 and split == att.decode_tc_split(S)
+        assert att.decode_route(torch.bfloat16, 2, S)[0] == "tc"
+        for q_dtype, G in ((torch.float32, 8), (torch.bfloat16, 1), (torch.bfloat16, 16)):
+            assert att.decode_route(q_dtype, G, S) == ("split", att.DECODE_SPLIT)
+    assert [att.decode_tc_split(S) for S in (512, 1024, 2048, 4096, 8192)] == [64, 64, 128, 256, 256]

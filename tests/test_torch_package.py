@@ -61,6 +61,9 @@ def test_sources_have_no_jax_sdpa_or_compile():
     compiler for the ported ops."""
     files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))
     assert len(files) > 10
+    # every header, the tensor-core attention header and the emulation included
+    assert {"attn_tc.cuh", "dq_gemv.cuh", "dq_tile.cuh", "common.cuh", "tc_emulation.py",
+            "probe_variants.py"} <= {f.name for f in files}
     jax_import = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|import_module\(\s*['\"]jax", re.M)
     for f in files:
         text = f.read_text()
@@ -72,8 +75,8 @@ def test_sources_have_no_jax_sdpa_or_compile():
 def test_sources_import_nothing_of_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports `gemma_tpu`
     (relative imports of the port's own modules aside)."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20 and PKG / "csrc" / "attn_tc.cuh" in files
     pattern = re.compile(r"^\s*(import\s+gemma_tpu\b|from\s+gemma_tpu\b)"
                          r"|import_module\(\s*['\"]gemma_tpu\b", re.M)
     assert pattern.search("from gemma_tpu.gguf import GGUFReader")
@@ -123,8 +126,8 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
         "tools": ["_timing", "bench_bn_sweep", "bench_prefill", "bench_q4k_variants",
-                  "bench_q6k_variants", "bench_qmm_variants", "probe_int4", "probe_variants",
-                  "tc_emulation"],
+                  "bench_q6k_variants", "bench_qmm_variants", "parent_turn", "probe_int4",
+                  "probe_variants", "tc_emulation"],
         "reference_tools": []}
 
 
@@ -180,9 +183,9 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in build.sources()} >= {"q4_0_matmul.cu", "decode_attention.cu",
                                                  "flash_attention.cu", "q4_k_matmul.cu",
                                                  "q6_k_matmul.cu", "paged_attention.cu",
-                                                 "q8_0_matmul.cu", "common.cuh"}
-    assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention",
-            "gt_q8_0_matmul"} <= set(build.SIGNATURES)
+                                                 "q8_0_matmul.cu", "common.cuh", "attn_tc.cuh"}
+    assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention", "gt_q8_0_matmul",
+            "gt_flash_attention_tc", "gt_decode_attention_tc"} <= set(build.SIGNATURES)
 
 
 def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):

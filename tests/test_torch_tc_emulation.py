@@ -1,6 +1,6 @@
-"""The q4_0 and q8_0 tensor-core kernels' index math, emulated lane by lane
-in numpy (`gemma_tpu_torch/tools/tc_emulation.py`), against the plain
-versions the card holds the kernels to.
+"""The tensor-core kernels' index math, emulated lane by lane in numpy
+(`gemma_tpu_torch/tools/tc_emulation.py`), against the plain versions the
+card holds the kernels to.
 
 * The small-M GEMV (`csrc/dq_gemv.cuh`): its products are exact (integer
   weights and bf16 x), so it differs from the plain version (f32 weights
@@ -8,11 +8,23 @@ versions the card holds the kernels to.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
+* Flash and decode attention (`csrc/flash_attention.cu` flash_tc_kernel,
+  `csrc/decode_attention.cu` decode_tc_kernel), bf16: products are exact,
+  but p rounds to bf16 against a tile's (flash) or a warp's (decode)
+  running max where the plain version rounds against the row max, and the
+  output is bf16: 2e-2 of the output's scale, the card's tolerance
+  (chip_smoke.py). Rows without a valid key are exactly 0. One case of
+  each is also held to the JAX kernel in interpret mode.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from gemma_tpu.ops.attention import decode_attention as jax_decode
+from gemma_tpu.ops.attention import flash_attention as jax_flash
+from gemma_tpu_torch.ops.attention import decode_attention_plain, flash_attention_plain
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
 from gemma_tpu_torch.quant.qtensor import dequant
 from gemma_tpu_torch.tools import tc_emulation as emu
@@ -73,3 +85,112 @@ def test_gemv_plan_covers_k_in_slices_that_fit(N, K):
     sl, splits = emu.gemv_plan(N, K)
     assert sl % 32 == 0 and sl <= emu.GV_SLICE_MAX
     assert (splits - 1) * sl < K <= splits * sl
+
+
+ATT_TOL = 2e-2  # of max|ref|: p rounded against a local max, bf16 outputs
+
+
+def _qkv(B, T, S, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3).to(torch.bfloat16)
+            for shape in ((B, T, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+
+
+def _held(got, ref):
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= ATT_TOL * np.abs(ref).max()
+
+
+FLASH_EMU_CASES = [
+    # B, T, S, Hq, Hkv, D, pos0, limits, softcap, window, row warps (0: the plan)
+    (1, 37, 300, 8, 1, 128, 0, [37], 0.0, 0, 0),     # MQA, ragged T and S: 1 x 4 key groups
+    (1, 37, 100, 8, 1, 128, 0, [37], 0.0, 0, 4),     # rows of 8 positions a block
+    (2, 21, 90, 4, 4, 128, 40, [61, 50], 30.0, 0, 2),  # MHA, batch rows, softcap, offset
+    (1, 30, 260, 4, 2, 128, 150, [180], 0.0, 24, 1),  # GQA, window: tiles skipped both sides
+    (1, 9, 40, 8, 1, 256, 0, [9], 50.0, 0, 0),       # Gemma-2B heads, D = 256 (16-key tiles)
+    (1, 5, 80, 8, 1, 256, 60, [65], 0.0, 0, 4),      # D = 256, 32-key tiles, one key group
+]
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,pos0,limits,cap,window,row_warps", FLASH_EMU_CASES)
+def test_flash_emulation_matches_plain(B, T, S, Hq, Hkv, D, pos0, limits, cap, window, row_warps):
+    q, k, v = _qkv(B, T, S, Hq, Hkv, D, seed=T + S)
+    pos = (torch.arange(T, dtype=torch.int32) + pos0).expand(B, T).contiguous()
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ref = flash_attention_plain(q, k, v, pos, lim, cap, window).float().numpy()
+    _held(emu.flash(q, k, v, pos, lim, cap, window, row_warps), ref)
+
+
+def test_flash_emulation_rows_without_keys_are_zero():
+    """Rows at positions >= 81 see no key below kv_limit 50 in a 32-window."""
+    q, k, v = _qkv(1, 40, 96, 4, 1, 128, seed=3)
+    pos = (torch.arange(40, dtype=torch.int32) + 50)[None]
+    lim = torch.tensor([50], dtype=torch.int32)
+    got = emu.flash(q, k, v, pos, lim, 0.0, 32, row_warps=2)
+    empty = pos[0].numpy() >= 81
+    assert empty.any() and not got[0, empty].any()
+    _held(got, flash_attention_plain(q, k, v, pos, lim, 0.0, 32).float().numpy())
+
+
+def test_flash_block_plan():
+    """Four row warps where the grid holds 99 blocks (long prompts); fewer
+    row warps below, the block's other warps splitting the keys: a 512-row
+    chunk and Gemma-7B's 203-token prompt take 2 x 2, Gemma-2B's 1 x 4."""
+    assert emu.flash_shape(1, 1, 203, 8) == (1, 4) and emu.flash_shape(1, 16, 203, 1) == (2, 2)
+    assert emu.flash_shape(1, 1, 2048, 8) == (4, 1) and emu.flash_shape(1, 16, 2048, 1) == (4, 1)
+    assert emu.flash_shape(1, 1, 512, 8) == (2, 2)
+
+
+DECODE_EMU_CASES = [
+    # B, S, Hq, Hkv, D, limits, softcap, window, split
+    (1, 300, 8, 1, 128, [204], 0.0, 0, 64),          # Gemma-2B's group, ragged last tile
+    (2, 160, 4, 4, 128, [1, 160], 0.0, 0, 64),       # G = 1 (MHA): 7 zero columns; one key
+    (1, 256, 8, 2, 128, [230], 30.0, 40, 32),        # GQA, softcap, window: dead splits
+    (2, 200, 8, 1, 128, [130, 17], 0.0, 0, 128),     # a warp with two tiles; per-row limits
+    (1, 64, 8, 1, 256, [50], 20.0, 0, 16),           # D = 256, one tile a split
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,limits,cap,window,split", DECODE_EMU_CASES)
+def test_decode_emulation_matches_plain(B, S, Hq, Hkv, D, limits, cap, window, split, int8):
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    q, k, v = _qkv(B, 1, S, Hq, Hkv, D, seed=S + split)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    scales = {}
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    ref = decode_attention_plain(q, k, v, lim, cap, window, **scales).float().numpy()
+    _held(emu.decode(q, k, v, lim, cap, window, split=split, **scales), ref)
+
+
+def test_emulations_match_the_jax_kernels():
+    """The emulated kernels against the reference's Pallas kernels
+    (interpret mode) on the same bf16 inputs: Gemma-2B's group (MQA) with
+    softcap and window for flash, MHA over per-row limits for decode."""
+    q, k, v = _qkv(1, 30, 96, 8, 1, 128, seed=11)
+    qj, kj, vj = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    pos = (np.arange(30, dtype=np.int32) + 40)[None]
+    lim = np.asarray([70], np.int32)
+    ref = jax_flash(qj, kj, vj, jnp.asarray(pos), jnp.asarray(lim), attn_softcap=30.0, window=48)
+    _held(emu.flash(q, k, v, torch.from_numpy(pos), torch.from_numpy(lim), 30.0, 48), ref)
+    q, k, v = _qkv(2, 1, 160, 4, 4, 128, seed=12)
+    qj, kj, vj = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v))
+    lim = np.asarray([77, 150], np.int32)
+    ref = jax_decode(qj, kj, vj, jnp.asarray(lim))
+    _held(emu.decode(q, k, v, torch.from_numpy(lim)), ref)
+
+
+def test_transposing_ldmatrix():
+    """ldmatrix.x4.trans gives lane (g, t) (M[2t][g], M[2t + 1][g])."""
+    m = np.arange(4 * 64, dtype=np.uint16)  # four 8 x 8 matrices, rows of 8 values
+    addr = 2 * 8 * np.arange(32)  # lane l: row l % 8 of matrix l // 8
+    r = emu.ldmatrix_x4_trans(m.view(np.uint8), addr)
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for i in range(4):
+        assert np.array_equal(r[i] & 0xFFFF, 64 * i + 8 * (2 * t) + g)
+        assert np.array_equal(r[i] >> 16, 64 * i + 8 * (2 * t + 1) + g)

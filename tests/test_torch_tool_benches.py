@@ -197,3 +197,55 @@ def test_probe_variants_patches_apply_to_the_sources():
         pv.main(["gemv", "--variants", "base"])
     with pytest.raises(SystemExit, match="unknown variants"):
         pv.main(["tile", "--variants", "nope"])
+
+
+def test_probe_mutants_patch_the_attention_kernels_only():
+    """Each planted fault of `probe_variants mutants` finds its text once in
+    one attention kernel's source, and none of the timing variants touches
+    those sources."""
+    from gemma_tpu_torch.tools import probe_variants as pv
+
+    assert set(pv.MUTANTS) & set(pv.VARIANTS) == set()
+    for name in pv.MUTANTS:
+        changed = pv.patched_sources(name)
+        assert len(changed) == 1 and set(changed) <= {"decode_attention.cu", "flash_attention.cu"}
+    assert {f for name in pv.MUTANTS for f in pv.patched_sources(name)} == {
+        "decode_attention.cu", "flash_attention.cu"}
+
+
+def test_attn_err_holds_each_row_to_its_own_scale():
+    """`_timing.attn_err` scales the tolerance by each row's max|ref| (at
+    most 1): a small row fails on an error a large row would absorb, a row
+    of zeros must stay exactly 0, and a non-finite output fails."""
+    from gemma_tpu_torch.tools._timing import attn_err
+
+    ref = torch.tensor([[0.5, -0.25], [0.0, 0.0], [0.0125, 0.025], [2.0, 1.0]])
+    assert attn_err(ref.clone(), ref, 2e-2) == (0.0, 0.0, 0.0, 1.0)
+    got = ref.clone()
+    got[0, 1] += 0.005  # 0.5 of 2e-2 x 0.5
+    got[3, 0] += 0.01  # 0.5 of 2e-2 x min(1, 2)
+    err, ratio, lo, hi = attn_err(got, ref, 2e-2)
+    assert err == pytest.approx(0.01) and ratio == pytest.approx(0.5) and (lo, hi) == (0.0, 1.0)
+    got[2, 0] += 0.001  # 2 x (2e-2 x 0.025): an absolute 2e-2 would pass it
+    assert attn_err(got, ref, 2e-2)[1] == pytest.approx(2.0)
+    got[1, 0] = 1e-6
+    assert attn_err(got, ref, 2e-2)[1] == float("inf")
+    got = ref.clone()
+    got[0, 0] = float("nan")
+    assert attn_err(got, ref, 2e-2)[1] == float("inf")
+
+
+def test_attention_probes_run_on_the_card_only(monkeypatch):
+    """`probe_variants attn` and `mutants`, and `parent_turn`, run kernels on
+    the card: without one they stop before building or loading anything."""
+    from gemma_tpu_torch.tools import parent_turn
+    from gemma_tpu_torch.tools import probe_variants as pv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("attn", "mutants"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            pv.main([mode])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        parent_turn.main(["--turn", "change", "--shapes", '{"flash": [], "decode": []}'])
+    with pytest.raises(SystemExit):
+        parent_turn.main([])  # neither --parent nor --turn
