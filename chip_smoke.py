@@ -8,7 +8,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 2. the build of the CUDA kernels (gemma_tpu_torch/csrc, nvcc for sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
    Gemma-2B shapes of the q4_0 and q4_k_m paths (every format's prefill
-   tile at M = 17, 64 and 203, q4_0's serving GEMV at M = 8), the Gemma-7B
+   tile at M = 17, 64 and 203, its GEMV at M = 1 and the serving step's
+   M = 8), the Gemma-7B
    shapes of the q8_0 path (its tiles and serving GEMV likewise; attention
    at 16 heads, batch 1 and 8), and the shapes of
    8-slot serving (the paged kernel and both int8 arms), and attention
@@ -109,12 +110,14 @@ KERNELS = {
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
 TILE_MS = (17, 64, PROMPT_LEN)
-SERVE_SLOTS = 8  # the serving step's rows: q4_0's and q8_0's tensor-core GEMV
+SERVE_SLOTS = 8  # the serving step's rows: every format's tensor-core GEMV
 # phase 3's quantized-matmul shapes (name, N, K, Ms): Gemma-2B's for q4_0
 # and for the q4_k_m path (q4_k q, k, out, fused gate|up, down; q6_k attn_v,
 # and the tied head, which prefill runs at its last row only), the deep-K
 # shape of the reference's _q6_k_v4_kernel, and Gemma-7B's for q8_0, whose
-# head's plain version dequantizes 3.1 GB of f32 and so runs at decode M
+# head's plain version dequantizes 3.1 GB of f32 and so runs at decode M.
+# M = 1 is the decode step (q4_k and q6_k: the tensor-core GEMV; q4_0 and
+# q8_0: the SIMT GEMV), M = 8 the serving step
 MATMUL_SHAPES = {
     "q4_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
@@ -122,10 +125,10 @@ MATMUL_SHAPES = {
     "q8_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("qkv", 12288, 3072), ("attn_out", 3072, 4096), ("gate_up", 49152, 3072),
         ("down", 3072, 24576))] + [("head", 256000, 3072, (1, SERVE_SLOTS))], "gate_up"),
-    "q4_k": ([(name, N, K, (1, *TILE_MS)) for name, N, K in (
+    "q4_k": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
         ("gate_up", 32768, 2048), ("down", 2048, 16384))], "gate_up"),
-    "q6_k": ([(name, N, K, (1, *TILE_MS)) for name, N, K in (
+    "q6_k": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048))], "head"),
 }
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
@@ -285,14 +288,15 @@ def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
     """Phase 3, the quantized matmuls of `formats` at MATMUL_SHAPES.
 
     q4_0, q8_0 and q6_k: the kernel and the plain version form the same f32
-    products (f32 weights at M <= 8, bf16-rounded weights at M > 8, whose
-    products with bf16 x are exact in f32 on the tensor cores too) and
-    differ only in the order of f32 sums. q4_k at M <= 8 takes ggml's
-    vec_dot form, d*sc * sum(x*q) - dmin*mn * sum(x), against the plain
-    x @ dequant: the products differ by the f32 rounding of each dequantized
-    weight; at M > 8 both form bf16(d*sc * (q - 8)) products plus the f32
-    affine part. Each is ~1e-6 of the output's scale, so the tolerance is
-    1e-4 of it."""
+    products (f32 weights at M <= 8, where the tensor-core GEMV multiplies
+    the integers and scales each group's sum in f32; bf16-rounded weights
+    at M > 8, whose products with bf16 x are exact in f32 on the tensor
+    cores too) and differ only in the order of f32 sums. q4_k at M <= 8
+    forms d*sc * sum((q - 8) x) + (8 d*sc - dmin*mn) * sum(x) per 32-group
+    against the plain x @ dequant: the products differ by the f32 rounding
+    of each dequantized weight; at M > 8 both form bf16(d*sc * (q - 8))
+    products plus the f32 affine part. Each is ~1e-6 of the output's scale,
+    so the tolerance is 1e-4 of it."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     return {f"{fmt}_matmul": check_matmul(torch, fmt, *MATMUL_SHAPES[fmt], gen, dev)
@@ -481,10 +485,12 @@ def check_edge_cases(torch, dev) -> None:
     of check_kernels (attention in f32: 1e-4, nothing rounds), also over
     the 8 serving rows (SERVE_LIMITS) as phase 6b decodes them. Every
     format takes K = 1280 (five superblocks), off the SIMT GEMV's
-    1024-element K-chunk; q4_0 and q8_0 also K = 1056, whose 33 blocks end
-    the tensor-core tile's K on a half step and put odd rows' scales at odd
+    1024-element K-chunk, at every GEMV M (q4_0 and q8_0: 2-9; q4_k and
+    q6_k: 1-9); q4_0 and q8_0 also K = 1056, whose 33 blocks end the
+    tensor-core tile's K on a half step and put odd rows' scales at odd
     halves of their words, at N = 1000 and at N = 999 (an odd count of
-    scales)."""
+    scales); q6_k also N = 999 at K = 1280, an odd count of its f16 d
+    values, whose last ends the array in the middle of a word."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.tools._timing import attn_err, random_qtensor
@@ -492,13 +498,14 @@ def check_edge_cases(torch, dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst = {}
-    # N, K off every tile and chunk; N = 999 with K = 1056: an odd count of
-    # scales, whose last one ends the array in the middle of an f16 word
+    # N, K off every tile and chunk; N = 999 with K = 1056 (q6_k: 1280): an
+    # odd count of scales, whose last one ends the array in the middle of an
+    # f16 word
     for fmt, N, K in (("q4_0", 1000, 1056), ("q4_0", 1000, 1280), ("q4_0", 999, 1056),
                       ("q8_0", 1000, 1056), ("q8_0", 1000, 1280), ("q8_0", 999, 1056),
-                      ("q4_k", 1000, 1280), ("q6_k", 1000, 1280)):
+                      ("q4_k", 1000, 1280), ("q6_k", 1000, 1280), ("q6_k", 999, 1280)):
         qt = random_qtensor(fmt, N, K, gen, dev)
-        small = range(2, 10) if fmt in ("q4_0", "q8_0") else (2, 5, 8, 9)
+        small = range(2, 10) if fmt in ("q4_0", "q8_0") else range(1, 10)
         for dtype in (torch.bfloat16, torch.float32):
             for M in (*small, 17, 64, 70, 130, PROMPT_LEN):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)

@@ -45,7 +45,7 @@
 //   outside [max(limit - window, 0), limit) are masked; a split with no
 //   live key reads nothing. The limit stays on the device, so the launch
 //   can be captured in a CUDA graph once its workspace is sized beforehand
-//   (ops/attention.py `tc_workspace` grows it on demand).
+//   (kernels/build.py `workspace` grows it on demand).
 // * The block merges its warps in shared memory, writes its partial (max,
 //   sum, unnormalized output) and takes a ticket from a per-(b, kv head)
 //   counter; the last block of the row merges all partials in split order
@@ -54,7 +54,7 @@
 //   the outputs) and resets the counter to 0. One launch; the result does
 //   not depend on which block finished last, so serving stays
 //   batch-invariant and deterministic. The counters must start at 0 and launches that share
-//   them must not overlap: `tc_workspace` keeps one workspace a stream.
+//   them must not overlap: `workspace` keeps one a stream.
 // The paged kernel (paged_attention.cu) could take this core with a page
 // table in place of the slab offset; it still runs `attend_split`.
 //

@@ -37,7 +37,7 @@
 //   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
 //   scale's broadcast lived; here each pair is one instantiation.
 // * Serving (2 <= M <= 8) with bf16 x, also bound by weight bytes, runs on
-//   the tensor cores: `dq_gemv_kernel<16>` of dq_gemv.cuh (W the A operand
+//   the tensor cores: `dq_gemv_kernel<Q4_0Gemv>` of dq_gemv.cuh (W the A operand
 //   of bf16 mma.sync as its integers u - 8, x the n8 operand, each block's
 //   fragment scaled by d in f32: the same gdot numerics), with x copied
 //   once a block and each warp's rows streamed through its own cp.async
@@ -298,13 +298,15 @@ struct Q4_0Tile {
 
 template <typename TX>
 cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void* y, void* work,
-                        int M, int N, int K, cudaStream_t s) {
+                        void* tickets, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
   const BlockWeight w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(scales)};
   float* yp = static_cast<float*>(y);
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (M > 8) return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    if (M > 1) return launch_dq_gemv<16>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    if (M > 1)
+      return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
+                                      N, K, s);
   } else if (M > 8) {
     const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
     q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
@@ -317,28 +319,40 @@ cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void*
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;
-// qs/scales: the port's q4_0 layout; y: [M, N] f32; work:
-// gt_matmul_work_bytes(0, x_dtype, M, N, K) bytes of f32 scratch (null
-// when 0). Returns a cudaError_t value.
+// qs/scales: the port's q4_0 layout; y: [M, N] f32; work and tickets: the
+// f32 scratch and the ints (0 on entry and on return) that
+// gt_matmul_work_bytes(0, x_dtype, M, N, K, &tickets) gives (each null when
+// its size is 0). Returns a cudaError_t value.
 extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
-                              void* y, void* work, int M, int N, int K, void* stream) {
+                              void* y, void* work, void* tickets, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kBF16)
-    return static_cast<int>(launch_q4_0<__nv_bfloat16>(x, qs, scales, y, work, M, N, K, s));
-  if (x_dtype == kF32) return static_cast<int>(launch_q4_0<float>(x, qs, scales, y, work, M, N, K, s));
+    return static_cast<int>(launch_q4_0<__nv_bfloat16>(x, qs, scales, y, work, tickets, M, N, K, s));
+  if (x_dtype == kF32)
+    return static_cast<int>(launch_q4_0<float>(x, qs, scales, y, work, tickets, M, N, K, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Bytes of the f32 scratch a quantized matmul of format `fmt` (0 q4_0,
-// 1 q8_0, 2 q4_k, 3 q6_k: kernels/build.py FORMAT_CODES) takes at
-// (x_dtype, M, N, K): the K-split partial sums of its bf16 prefill tile
-// (M > 8) or, for q4_0 and q8_0, of its tensor-core GEMV (2 <= M <= 8);
-// else 0.
-extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K) {
-  if (x_dtype != kBF16 || M <= 1 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
+// The scratch a quantized matmul of format `fmt` (0 q4_0, 1 q8_0, 2 q4_k,
+// 3 q6_k: kernels/build.py FORMAT_CODES) takes at (x_dtype, M, N, K):
+// returns the bytes of its f32 scratch, the K-split partial sums of its
+// bf16 prefill tile (M > 8) or of its tensor-core GEMV (q4_0 and q8_0:
+// 2 <= M <= 8; q4_k and q6_k: M <= 8), and sets *tickets to the count of
+// ints (0 between launches) the GEMV's last block a row tile takes to sum
+// the splits; each 0 where there is none.
+extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K, int* tickets) {
+  *tickets = 0;
+  if (x_dtype != kBF16 || M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
   if (M > 8) return dq_tile_work_bytes(M, N, K);
-  return fmt <= 1 ? dq_gemv_work_bytes(M, N, K) : 0;
+  if (fmt <= 1) {
+    if (M == 1) return 0;
+    *tickets = dq_gemv_tickets<BlockPlan>(N, K);
+    return dq_gemv_work_bytes<BlockPlan>(M, N, K);
+  }
+  if (K % kGvSuperK != 0) return 0;
+  *tickets = dq_gemv_tickets<SuperPlan>(N, K);
+  return dq_gemv_work_bytes<SuperPlan>(M, N, K);
 }
 
 namespace {

@@ -8,26 +8,33 @@
 // with ggml's packed 6-bit sc/mn table, dm f16 [N, K/256, 2] with ggml's d
 // and dmin. Sub-block j dequantizes as w = (d * sc_j) * q - dmin * mn_j.
 //
-// Two launch shapes, one op:
+// What launches where, one op:
 //
-// * Decode (M <= 8) is bound by weight bytes: 4.5 bits a weight used M
-//   times, far below the card's ~295 flop/byte balance point.
-//   `q4_k_gemv_kernel` gives each warp one output row. Lane l's 16-byte
-//   load is payload bytes 16l..16l+15 of a 512-byte span (four
-//   superblocks), so a warp reads 512 contiguous bytes per step: half a
-//   32-byte chunk, 16 weights of sub-block 2c (low nibbles) and 16 of 2c + 1
-//   (high nibbles). The lane decodes its two sub-blocks' sc/mn from the
-//   12-byte table and d/dmin in registers, and accumulates
-//   d*sc * sum(x*q) - dmin*mn * sum(x) per sub-block, as ggml's vec_dot
-//   does. x is staged in shared memory per K-chunk of 1024 in lane order
-//   (each lane's 32 values contiguous, padded to 36 floats so the lanes'
-//   float4 reads do not conflict on banks). All math is f32, the
-//   reference's numerics at M <= 8.
-//   A template mode drops parts of that math for the metadata ablation
-//   that replaces `_kernel` of tools/bench_q4k_variants.py
-//   (`gt_q4_k_variant`, M = 8, bf16 x): noaffine forms d*sc * (q - 8)
-//   (no dmin*mn, no sum(x)), nosub d * (q - 8) (no 6-bit table decode, no
-//   affine part).
+// * Decode and serving (M <= 8) with bf16 x are bound by weight bytes: 4.5
+//   bits a weight used M times, far below the card's ~295 flop/byte balance
+//   point. They run on the tensor cores through the shared GEMV of
+//   dq_gemv.cuh (`dq_gemv_kernel<Q4KGemv>`): the weight's integers q - 8 as
+//   the A operand of bf16 mma.sync (a nibble pair to bf16x2 by one mask-or
+//   and one subtract, no conversion per weight), x the n8 operand, each
+//   32-group's fragment scaled by d*sc in f32 and the affine part (8 d*sc -
+//   dmin*mn) * sum(x) added in f32 (the reference's `xs_ref` side input,
+//   quant_matmul.py:110-143); x copied once a block with its per-32 sums,
+//   each warp's 16 rows streamed a superblock a stage through its own
+//   cp.async ring, the 6-bit table decoded once a row and superblock, K
+//   split in whole superblocks where the rows alone do not fill the card.
+// * With f32 x (evaluation mode) M <= 8 runs the SIMT `q4_k_gemv_kernel`:
+//   each warp one output row, lane l's 16-byte load payload bytes 16l..16l+15
+//   of a 512-byte span (four superblocks), half a 32-byte chunk: 16 weights
+//   of sub-block 2c (low nibbles) and 16 of 2c + 1 (high nibbles). The lane
+//   decodes its two sub-blocks' sc/mn from the 12-byte table and d/dmin in
+//   registers, and accumulates d*sc * sum(x*q) - dmin*mn * sum(x) per
+//   sub-block, as ggml's vec_dot does; x staged in shared memory per K-chunk
+//   of 1024 in lane order (each lane's 32 values contiguous, padded to 36
+//   floats so the lanes' float4 reads do not conflict on banks); all math
+//   f32. A template mode drops parts of that math for the metadata ablation
+//   that replaces `_kernel` of tools/bench_q4k_variants.py (`gt_q4_k_variant`,
+//   M = 8, bf16 x): noaffine forms d*sc * (q - 8) (no dmin*mn, no sum(x)),
+//   nosub d * (q - 8) (no 6-bit table decode, no affine part).
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
 //   is bound by operations (gate_up at M = 203: 0.0275 ms at 989 TFLOP/s
 //   against 0.0113 ms of bytes). It runs on the tensor cores through the
@@ -44,7 +51,7 @@
 //   chunk (two sub-blocks) at a time, both tiles in shared memory in f32.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
-#include "dq_tile.cuh"
+#include "dq_gemv.cuh"
 
 using namespace gt;
 
@@ -237,6 +244,92 @@ struct Q4KTile {
   }
 };
 
+// The tensor-core GEMV's q4_k (dq_gemv.cuh): a stage is one superblock of
+// the warp's 16 rows, its 128 payload bytes a row ([16][kPitch], 16 bytes of
+// padding a row against ldmatrix bank conflicts), then each row's 12-byte
+// table and d, dmin ([16][16]). Piece c is chunk c: byte j holds element 64c
+// + j in its low nibble (group 2c) and 64c + 32 + j in its high nibble
+// (group 2c + 1), q4_0's "byte j holds w[j] and w[j + 16]" at twice the
+// stride: step s of a group is bytes 16s..16s + 15 (words r[2s], r[2s + 1]),
+// nibble gi of each, so `nibble_pair` gives q - 8 exactly. `prepare` decodes
+// the table once a row and superblock: lane l takes row l % 16 and groups
+// l / 16 + 2i, writing d*sc and the affine offset 8 d*sc - dmin*mn to the
+// warp's table ([group][row] each, so the reads of rows g and g + 8 fall on
+// distinct banks).
+struct Q4KGemv : SuperPlan {
+  using Weight = Q4KTile::Weight;
+  static constexpr int kStageK = kGvSuperK;
+  static constexpr int kGroupK = 32;
+  static constexpr int kPitch = kQK / 2 + 16;
+  static constexpr int kMeta = 16 * kPitch;
+  static constexpr int kStage = kMeta + 16 * 16;
+  static constexpr int kPieces = 4, kGroups = 2, kSteps = 2;
+  static constexpr int kWords = 4;
+  static constexpr int kTable = 2 * 8 * 16;  // d*sc [8][16], then offsets [8][16]
+  static constexpr bool kAffine = true;
+
+  __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
+                                              int N, int K, int kb, int) {
+    const int nsb = K / kQK, sb = kb / kQK;
+#pragma unroll
+    for (int i = lane; i < 16 * 8; i += 32) {  // 8 payload pieces of 16 bytes a row
+      const int r = i / 8, c = i % 8;
+      const bool ok = n0 + r < N;
+      const size_t row = ok ? n0 + r : 0;
+      cp_async16(smem_u32(stage + r * kPitch + 16 * c), w.qs + row * (K / 2) + sb * 128 + 16 * c, ok);
+    }
+#pragma unroll
+    for (int i = lane; i < 16 * 4; i += 32) {  // the table's 3 words and d, dmin a row
+      const int r = i / 4, j = i % 4;
+      const bool ok = n0 + r < N;
+      const size_t sbi = static_cast<size_t>(ok ? n0 + r : 0) * nsb + sb;
+      const void* src = j < 3 ? static_cast<const void*>(w.table + sbi * 12 + 4 * j)
+                              : static_cast<const void*>(w.dm + sbi);
+      cp_async4(smem_u32(stage + kMeta + 16 * r + 4 * j), src, ok);
+    }
+  }
+
+  __device__ __forceinline__ static void prepare(const unsigned char* stage, float* table, int lane, int,
+                                                 int, int) {
+    const int r = lane % 16;
+    const uint32_t* t = reinterpret_cast<const uint32_t*>(stage + kMeta + 16 * r);
+    const float2 dmf = __half22float2(*reinterpret_cast<const __half2*>(t + 3));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = lane / 16 + 2 * i;
+      float sc, mn;
+      scale_min_k4(t[0], t[1], t[2], j, sc, mn);
+      const float dsc = dmf.x * sc;
+      table[16 * j + r] = dsc;
+      table[128 + 16 * j + r] = 8.f * dsc - dmf.y * mn;
+    }
+  }
+
+  __device__ __forceinline__ static void load(const unsigned char* stage, int lane, int p,
+                                              uint32_t (&r)[kWords]) {
+    ldmatrix_rows16(r, stage, kPitch, 32 * p, lane);
+  }
+
+  __device__ __forceinline__ static void a_frag(const uint32_t (&r)[kWords], int gi, int s,
+                                                uint32_t (&a)[4]) {
+    const uint32_t w0 = r[2 * s], w1 = r[2 * s + 1];
+    a[0] = nibble_pair(w0 >> (4 * gi));
+    a[1] = nibble_pair(w1 >> (4 * gi));
+    a[2] = nibble_pair(w0 >> (4 * gi + 8));
+    a[3] = nibble_pair(w1 >> (4 * gi + 8));
+  }
+
+  __device__ __forceinline__ static int x_off(int p, int gi, int s) { return 64 * p + 32 * gi + 16 * s; }
+
+  __device__ __forceinline__ static void scales(const unsigned char*, const float* table, int g, int,
+                                                int, int, int grp, float (&d)[2], float (&off)[2]) {
+    d[0] = table[16 * grp + g];
+    d[1] = table[16 * grp + g + 8];
+    off[0] = table[128 + 16 * grp + g];
+    off[1] = table[128 + 16 * grp + g + 8];
+  }
+};
+
 constexpr int kTileM = 64;
 constexpr int kTileN = 64;
 constexpr int kTileK = 64;  // one 32-byte chunk: sub-blocks 2c and 2c + 1
@@ -322,30 +415,31 @@ q4_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
 
 template <typename TX>
 cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const void* dm, void* y,
-                        void* work, int M, int N, int K, cudaStream_t s) {
+                        void* work, void* tickets, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const uint8_t* tp = static_cast<const uint8_t*>(table);
-  const __half2* dp = static_cast<const __half2*>(dm);
+  const Q4KTile::Weight w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(table),
+                          static_cast<const __half2*>(dm)};
   float* yp = static_cast<float*>(y);
-  if (M <= 8) {
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    if (M > 8) return launch_dq_tile<Q4KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    return launch_dq_gemv<Q4KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
+                                   N, K, s);
+  } else if (M > 8) {
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q4_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.table, w.dm, yp, M, N, K);
+  } else {
     const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
     const dim3 block(kGemvWarps * 32);
     switch (M) {
-      case 1: q4_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 2: q4_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 3: q4_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 4: q4_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 5: q4_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 6: q4_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      case 7: q4_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-      default: q4_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+      case 1: q4_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 2: q4_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 3: q4_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 4: q4_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 5: q4_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 6: q4_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      case 7: q4_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
+      default: q4_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
     }
-  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    return launch_dq_tile<Q4KTile>(xp, {qp, tp, dp}, yp, static_cast<float*>(work), M, N, K, s);
-  } else {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, tp, dp, yp, M, N, K);
   }
   return cudaGetLastError();
 }
@@ -353,18 +447,19 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
-// port's q4_k layout; y: [M, N] f32; work: gt_matmul_work_bytes(2,
-// x_dtype, M, N, K) bytes of f32 scratch (null when 0). Returns a
-// cudaError_t value.
+// port's q4_k layout; y: [M, N] f32; work and tickets: the f32 scratch
+// and the ints (0 on entry and on return) that gt_matmul_work_bytes(2,
+// x_dtype, M, N, K, &tickets) gives (each null when its size is 0).
+// Returns a cudaError_t value.
 extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
-                              const void* dm, void* y, void* work, int M, int N, int K,
+                              const void* dm, void* y, void* work, void* tickets, int M, int N, int K,
                               void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kBF16)
-    return static_cast<int>(launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, work, M, N, K, s));
+    return static_cast<int>(launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, work, tickets, M, N, K, s));
   if (x_dtype == kF32)
-    return static_cast<int>(launch_q4_k<float>(x, qs, scales, dm, y, work, M, N, K, s));
+    return static_cast<int>(launch_q4_k<float>(x, qs, scales, dm, y, work, tickets, M, N, K, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,27 +11,36 @@
 // low bits of elements l and 64 + l (low and high nibble), and qh[l % 32]
 // holds their high bits at bit 2 * (e / 32) for element e of the half.
 //
-// Two launch shapes, one op:
+// What launches where, one op:
 //
-// * Decode (M <= 8) is bound by weight bytes (6.5625 bits a weight, used M
-//   times). `q6_k_gemv_kernel` gives each warp one output row. Lane l's
-//   16-byte ql load is bytes 16l..16l+15 of a 512-byte span (four
-//   superblocks), so a warp's ql reads are contiguous; with o = 16 (l % 8)
-//   the lane owns half h = o / 64 and p = o % 64 of its superblock, that is
-//   elements 128h + p + i (low nibbles) and 128h + 64 + p + i (high
-//   nibbles), i < 16. Their high bits are the 16 aligned qh bytes at
-//   32h + p % 32, fields 2 (p / 32) and 2 (p / 32) + 4 (two lanes read
-//   each qh line). The lane reads the two int8 scales of its two
-//   16-element sub-blocks, 8h + p / 16 and 8h + p / 16 + 4, and d, and
+// * Decode and serving (M <= 8) with bf16 x are bound by weight bytes
+//   (6.5625 bits a weight, used M times). They run on the tensor cores
+//   through the shared GEMV of dq_gemv.cuh (`dq_gemv_kernel<Q6KGemv>`): each
+//   k16 step one 16-element sub-block, its 6-bit values formed four at a
+//   time from the ql and qh words by 32-bit mask, shift and or and turned
+//   into bf16 pairs of q - 32 by one mask-or and one subtract (no conversion
+//   per weight), multiplied against x on bf16 mma.sync, each sub-block's
+//   fragment scaled by d * sc in f32 (formed once a row and sub-block); x
+//   copied once a block, each warp's 16 rows streamed a superblock a stage
+//   through its own cp.async ring, K split in whole superblocks where the
+//   rows alone do not fill the card.
+// * With f32 x (evaluation mode) M <= 8 runs the SIMT `q6_k_gemv_kernel`:
+//   each warp one output row. Lane l's 16-byte ql load is bytes 16l..16l+15
+//   of a 512-byte span (four superblocks), so a warp's ql reads are
+//   contiguous; with o = 16 (l % 8) the lane owns half h = o / 64 and p = o %
+//   64 of its superblock, that is elements 128h + p + i (low nibbles) and
+//   128h + 64 + p + i (high nibbles), i < 16. Their high bits are the 16
+//   aligned qh bytes at 32h + p % 32, fields 2 (p / 32) and 2 (p / 32) + 4
+//   (two lanes read each qh line). The lane reads the two int8 scales of its
+//   two 16-element sub-blocks, 8h + p / 16 and 8h + p / 16 + 4, and d, and
 //   accumulates (d*sc) * sum(x*q) per sub-block in f32. x is staged per
 //   K-chunk of 1024 in shared memory in lane order, padded to 36 floats a
-//   lane against bank conflicts. All math is f32, the reference's
-//   numerics at M <= 8. The 6-bit value is combined in int32 and
-//   converted once: the `split_int` mode of tools/bench_q6k_variants.py.
-//   For the layout ablation that replaces that tool's `_kernel`
-//   (`gt_q6_k_variant`, M = 8, bf16 x), a template flag combines the two
-//   planes in f32 instead (`split_f32`: lo + 16 * hi - 32), and
-//   `q6_k_int8_gemv_kernel` reads an int8 payload q [N, K] with the same
+//   lane against bank conflicts; all math f32. The 6-bit value is combined
+//   in int32 and converted once: the `split_int` mode of
+//   tools/bench_q6k_variants.py. For the layout ablation that replaces that
+//   tool's `_kernel` (`gt_q6_k_variant`, M = 8, bf16 x), a template flag
+//   combines the two planes in f32 instead (`split_f32`: lo + 16 * hi - 32),
+//   and `q6_k_int8_gemv_kernel` reads an int8 payload q [N, K] with the same
 //   sc and d (`prod`, 8.5625 bits a weight against 6.5625: a lane's two
 //   16-byte loads are its 32 weights, two 16-element sub-blocks).
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
@@ -49,7 +58,7 @@
 //   at a time; a thread dequantizes one 16-element sub-block of one row.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
-#include "dq_tile.cuh"
+#include "dq_gemv.cuh"
 
 using namespace gt;
 
@@ -297,6 +306,116 @@ struct Q6KTile {
   }
 };
 
+// The tensor-core GEMV's q6_k (dq_gemv.cuh): a stage is one superblock of
+// the warp's 16 rows: ql [16][kQlPitch] (128 bytes a row), qh [16][kQhPitch]
+// (64), the 16 int8 scales and the aligned word that holds d (16 bytes of
+// padding a ql or qh row against ldmatrix bank conflicts). Piece h is half h
+// of the superblock: ldmatrix of its 64 ql bytes (two 32-byte columns) and
+// its 32 qh bytes, 12 words. Each k16 step is one 16-element sub-block, in
+// `Q6KTile`'s item order: group gi = 4t + p of the half is elements 64t +
+// 16p + i, ql byte 16p + i (nibble t) and qh byte 16 (p % 2) + i (field 2t +
+// p / 2). The 6-bit values of four bytes form at once by 32-bit mask, shift
+// and or; `six_bit_pair` turns each pair into bf16 q - 32. `prepare` forms
+// d * sc once a row and sub-block: lane l takes row l % 16 and sub-blocks
+// l / 16 + 2i, into the warp's table [sub-block][row].
+struct Q6KGemv : SuperPlan {
+  using Weight = Q6KTile::Weight;
+  static constexpr int kStageK = kGvSuperK;
+  static constexpr int kGroupK = 16;
+  static constexpr int kQlPitch = kQK / 2 + 16, kQhPitch = kQK / 4 + 16;
+  static constexpr int kQh = 16 * kQlPitch;
+  static constexpr int kSc = kQh + 16 * kQhPitch;
+  static constexpr int kD = kSc + 16 * 16;
+  static constexpr int kStage = kD + 16 * 4;
+  static constexpr int kPieces = 2, kGroups = 8, kSteps = 1;
+  static constexpr int kWords = 12;
+  static constexpr int kTable = 16 * 16;  // d * sc [16 sub-blocks][16 rows]
+  static constexpr bool kAffine = false;
+
+  __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
+                                              int N, int K, int kb, int) {
+    const int nsb = K / kQK, sb = kb / kQK;
+#pragma unroll
+    for (int i = lane; i < 16 * 8; i += 32) {  // ql: 8 pieces of 16 bytes a row
+      const int r = i / 8, c = i % 8;
+      const bool ok = n0 + r < N;
+      const size_t row = ok ? n0 + r : 0;
+      cp_async16(smem_u32(stage + r * kQlPitch + 16 * c), w.ql + row * (K / 2) + sb * 128 + 16 * c, ok);
+    }
+#pragma unroll
+    for (int i = lane; i < 16 * 4; i += 32) {  // qh: 4 pieces a row
+      const int r = i / 4, c = i % 4;
+      const bool ok = n0 + r < N;
+      const size_t row = ok ? n0 + r : 0;
+      cp_async16(smem_u32(stage + kQh + r * kQhPitch + 16 * c), w.qh + row * (K / 4) + sb * 64 + 16 * c,
+                 ok);
+    }
+    const int r = lane % 16;
+    const bool ok = n0 + r < N;
+    const size_t row = ok ? n0 + r : 0;
+    if (lane < 16) {
+      cp_async16(smem_u32(stage + kSc + 16 * r), w.sc + row * (K / 16) + sb * 16, ok);
+    } else {
+      cp_async_half2(smem_u32(stage + kD + 4 * r), w.d, (row * nsb + sb) & ~size_t{1},
+                     ok ? static_cast<size_t>(N) * nsb : 0);
+    }
+  }
+
+  __device__ __forceinline__ static void prepare(const unsigned char* stage, float* table, int lane,
+                                                 int n0, int K, int kb) {
+    const int r = lane % 16;
+    const __half2 dword = *reinterpret_cast<const __half2*>(stage + kD + 4 * r);
+    const bool odd = (static_cast<size_t>(n0 + r) * (K / kQK) + kb / kQK) & 1;  // d is the high half
+    const float d = __half2float(odd ? __high2half(dword) : __low2half(dword));
+    const uint4 sv = *reinterpret_cast<const uint4*>(stage + kSc + 16 * r);
+    const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = 2 * i + lane / 16;  // byte j % 4 of word i / 2
+      const int sc = static_cast<int8_t>(sw[i / 2] >> (8 * (j % 4)));
+      table[16 * j + r] = d * static_cast<float>(sc);
+    }
+  }
+
+  __device__ __forceinline__ static void load(const unsigned char* stage, int lane, int p,
+                                              uint32_t (&r)[kWords]) {
+    uint32_t q0[4], q1[4], h[4];
+    ldmatrix_rows16(q0, stage, kQlPitch, 64 * p, lane);
+    ldmatrix_rows16(q1, stage, kQlPitch, 64 * p + 32, lane);
+    ldmatrix_rows16(h, stage + kQh, kQhPitch, 32 * p, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = q0[i];
+      r[4 + i] = q1[i];
+      r[8 + i] = h[i];
+    }
+  }
+
+  // the four 6-bit values of ql word l (nibble t) and qh word h (field f)
+  __device__ __forceinline__ static uint32_t six_bits(uint32_t l, uint32_t h, int t, int f) {
+    return ((l >> (4 * t)) & 0x0F0F0F0Fu) | (((h >> (2 * f)) & 0x03030303u) << 4);
+  }
+
+  __device__ __forceinline__ static void a_frag(const uint32_t (&r)[kWords], int gi, int,
+                                                uint32_t (&a)[4]) {
+    const int t = gi / 4, p = gi % 4;
+    const int lw = 4 * (p / 2) + 2 * (p % 2), hw = 8 + 2 * (p % 2), f = 2 * t + p / 2;
+    const uint32_t u0 = six_bits(r[lw], r[hw], t, f), u1 = six_bits(r[lw + 1], r[hw + 1], t, f);
+    a[0] = six_bit_pair(u0);
+    a[1] = six_bit_pair(u1);
+    a[2] = six_bit_pair(u0 >> 8);
+    a[3] = six_bit_pair(u1 >> 8);
+  }
+
+  __device__ __forceinline__ static int x_off(int p, int gi, int) { return 128 * p + 16 * gi; }
+
+  __device__ __forceinline__ static void scales(const unsigned char*, const float* table, int g, int,
+                                                int, int, int grp, float (&d)[2], float (&)[2]) {
+    d[0] = table[16 * grp + g];
+    d[1] = table[16 * grp + g + 8];
+  }
+};
+
 constexpr int kTileM = 64;
 constexpr int kTileN = 64;
 constexpr int kTileK = 64;  // a quarter superblock: four 16-element sub-blocks
@@ -384,32 +503,32 @@ q6_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ ql,
 
 template <typename TX>
 cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc,
-                        const void* d, void* y, void* work, int M, int N, int K, cudaStream_t s) {
+                        const void* d, void* y, void* work, void* tickets, int M, int N, int K,
+                        cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
-  const uint8_t* lp = static_cast<const uint8_t*>(ql);
-  const uint8_t* hp = static_cast<const uint8_t*>(qh);
-  const int8_t* sp = static_cast<const int8_t*>(sc);
-  const __half* dp = static_cast<const __half*>(d);
+  const Q6KTile::Weight w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
+                          static_cast<const int8_t*>(sc), static_cast<const __half*>(d)};
   float* yp = static_cast<float*>(y);
-  if (M <= 8) {
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    if (M > 8) return launch_dq_tile<Q6KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    return launch_dq_gemv<Q6KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
+                                   N, K, s);
+  } else if (M > 8) {
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q6_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, M, N, K);
+  } else {
     const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
     const dim3 block(kGemvWarps * 32);
     switch (M) {
-      case 1: q6_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 2: q6_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 3: q6_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 4: q6_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 5: q6_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 6: q6_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      case 7: q6_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
-      default: q6_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, lp, hp, sp, dp, yp, N, K); break;
+      case 1: q6_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 2: q6_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 3: q6_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 4: q6_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 5: q6_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 6: q6_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      case 7: q6_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
+      default: q6_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
     }
-  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    return launch_dq_tile<Q6KTile>(xp, {lp, hp, sp, dp}, yp, static_cast<float*>(work), M, N, K,
-                                   s);
-  } else {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q6_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, lp, hp, sp, dp, yp, M, N, K);
   }
   return cudaGetLastError();
 }
@@ -417,24 +536,25 @@ cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const voi
 }  // namespace
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
-// port's q6_k layout; y: [M, N] f32; work: gt_matmul_work_bytes(3,
-// x_dtype, M, N, K) bytes of f32 scratch (null when 0). Returns a
-// cudaError_t value.
+// port's q6_k layout; y: [M, N] f32; work and tickets: the f32 scratch
+// and the ints (0 on entry and on return) that gt_matmul_work_bytes(3,
+// x_dtype, M, N, K, &tickets) gives (each null when its size is 0).
+// Returns a cudaError_t value.
 extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const void* qh,
-                              const void* sc, const void* d, void* y, void* work, int M, int N,
-                              int K, void* stream) {
+                              const void* sc, const void* d, void* y, void* work, void* tickets, int M,
+                              int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kBF16)
-    return static_cast<int>(launch_q6_k<__nv_bfloat16>(x, ql, qh, sc, d, y, work, M, N, K, s));
+    return static_cast<int>(launch_q6_k<__nv_bfloat16>(x, ql, qh, sc, d, y, work, tickets, M, N, K, s));
   if (x_dtype == kF32)
-    return static_cast<int>(launch_q6_k<float>(x, ql, qh, sc, d, y, work, M, N, K, s));
+    return static_cast<int>(launch_q6_k<float>(x, ql, qh, sc, d, y, work, tickets, M, N, K, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The layout ablation at M = 8 with bf16 x; y: [8, N] f32. mode 0 (prod):
 // a0 = q i8 [N, K], a1 = sc, a2 = d, a3 unused; mode 1 (split_f32) and 2
-// (split_int, the main path's GEMV): a0..a3 = ql, qh, sc, d of the port's
+// (split_int, the SIMT GEMV of f32 x): a0..a3 = ql, qh, sc, d of the port's
 // q6_k layout. Returns a cudaError_t value.
 extern "C" int gt_q6_k_variant(const void* x, int mode, const void* a0, const void* a1,
                                const void* a2, const void* a3, void* y, int N, int K,

@@ -21,7 +21,7 @@
 //   conflict on banks. Numerics follow the reference kernel at M <= 8:
 //   weights and x in f32.
 // * Serving (2 <= M <= 8) with bf16 x runs on the tensor cores:
-//   `dq_gemv_kernel<32>` of dq_gemv.cuh (W the A operand of bf16 mma.sync
+//   `dq_gemv_kernel<Q8_0Gemv>` of dq_gemv.cuh (W the A operand of bf16 mma.sync
 //   as its int8 values, x the n8 operand, each block's fragment scaled by d
 //   in f32: the same numerics), with x copied once a block and each warp's
 //   rows streamed through its own cp.async ring.
@@ -259,14 +259,16 @@ struct Q8_0Tile {
 
 template <typename TX>
 cudaError_t launch_q8_0(const void* x, const void* qs, const void* scales, void* y, void* work,
-                        int M, int N, int K, cudaStream_t s) {
+                        void* tickets, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
   const BlockWeight w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(scales)};
   const int8_t* qp = static_cast<const int8_t*>(qs);
   float* yp = static_cast<float*>(y);
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (M > 8) return launch_dq_tile<Q8_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    if (M > 1) return launch_dq_gemv<32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    if (M > 1)
+      return launch_dq_gemv<Q8_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
+                                      N, K, s);
   } else if (M > 8) {
     const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
     q8_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, w.scales, yp, M, N, K);
@@ -280,14 +282,16 @@ cudaError_t launch_q8_0(const void* x, const void* qs, const void* scales, void*
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;
 // qs/scales: the port's q8_0 layout (qs 16-byte aligned); y: [M, N] f32;
-// work: gt_matmul_work_bytes(1, x_dtype, M, N, K) bytes of f32 scratch
-// (null when 0). Returns a cudaError_t value.
+// work and tickets: the f32 scratch and the ints (0 on entry and on
+// return) that gt_matmul_work_bytes(1, x_dtype, M, N, K, &tickets) gives
+// (each null when its size is 0). Returns a cudaError_t value.
 extern "C" int gt_q8_0_matmul(const void* x, int x_dtype, const void* qs, const void* scales,
-                              void* y, void* work, int M, int N, int K, void* stream) {
+                              void* y, void* work, void* tickets, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kBF16)
-    return static_cast<int>(launch_q8_0<__nv_bfloat16>(x, qs, scales, y, work, M, N, K, s));
-  if (x_dtype == kF32) return static_cast<int>(launch_q8_0<float>(x, qs, scales, y, work, M, N, K, s));
+    return static_cast<int>(launch_q8_0<__nv_bfloat16>(x, qs, scales, y, work, tickets, M, N, K, s));
+  if (x_dtype == kF32)
+    return static_cast<int>(launch_q8_0<float>(x, qs, scales, y, work, tickets, M, N, K, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

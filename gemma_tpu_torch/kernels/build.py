@@ -15,6 +15,10 @@ There is no fallback: a missing nvcc or a failed build raises
 `build_library` also builds a patched copy of the sources (the variants of
 `gemma_tpu_torch/tools/probe_variants.py`), and `using` runs the wrappers
 through such a build.
+
+`workspace` keeps the persistent scratch and tickets that kernels which
+merge their splits in the same launch share, one pair a stream, and
+`matmul_scratch` the quantized matmuls' scratch sizes, a query a shape.
 """
 from __future__ import annotations
 
@@ -50,14 +54,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (all return a cudaError_t as int)
 SIGNATURES = {
-    # x, x_dtype, qs, scales, y, work, M, N, K, stream
-    "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, qs, scales, y, work, M, N, K, stream
-    "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, qs, scales, dm, y, work, M, N, K, stream
-    "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, x_dtype, ql, qh, sc, d, y, work, M, N, K, stream
-    "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, y, work, tickets, M, N, K, stream
+    "gt_q4_0_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, y, work, tickets, M, N, K, stream
+    "gt_q8_0_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, qs, scales, dm, y, work, tickets, M, N, K, stream
+    "gt_q4_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, x_dtype, ql, qh, sc, d, y, work, tickets, M, N, K, stream
+    "gt_q6_k_matmul": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, part_m, part_l, part_o,
     # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
     "gt_decode_attention": (_P,) * 10 + (_I,) * 9 + (_F, _P),
@@ -179,8 +183,10 @@ def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ct
         fn.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
-    # format, x_dtype, M, N, K -> bytes of a quantized matmul's f32 scratch
-    lib.gt_matmul_work_bytes.argtypes = [ctypes.c_int] * 5
+    # format, x_dtype, M, N, K, &tickets -> bytes of a quantized matmul's
+    # f32 scratch; sets the count of its tickets (ints kept at 0 between
+    # launches)
+    lib.gt_matmul_work_bytes.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.gt_matmul_work_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -219,3 +225,42 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_scratch: dict[tuple, tuple[int, int]] = {}
+
+
+def matmul_scratch(lib: ctypes.CDLL, fmt: int, x_dtype: int, M: int, N: int, K: int) -> tuple[int, int]:
+    """(bytes of f32 scratch, tickets) of a quantized matmul through `lib`
+    at (format code, dtype code, M, N, K): `gt_matmul_work_bytes`, asked
+    once a library and shape."""
+    key = (lib, fmt, x_dtype, M, N, K)
+    got = _scratch.get(key)
+    if got is None:
+        tickets = ctypes.c_int(0)
+        got = _scratch[key] = (lib.gt_matmul_work_bytes(fmt, x_dtype, M, N, K, ctypes.byref(tickets)),
+                               tickets.value)
+    return got
+
+
+_workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def workspace(device: torch.device, stream: int, floats: int, tickets: int):
+    """(f32 scratch of >= `floats`, i32 tickets of >= `tickets`, all 0) on
+    `device`, one pair for each stream (`stream`: its cudaStream_t), kept
+    between calls and grown on demand: the tensor-core decode attention's
+    (ops/attention.py) and the quantized matmuls' K-split scratch and the
+    GEMV's tickets (ops/quant_matmul.py). Each kernel leaves its tickets at
+    0, so the launches that share a pair run in order on their stream.
+    Growth allocates: a launch captured in a CUDA graph needs its pair
+    sized beforehand, at the largest batch and S and the widest weight
+    whose matmul splits K."""
+    ws = _workspaces.get((device, stream))
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tickets:
+        floats = max(floats, 0 if ws is None else ws[0].numel())
+        tickets = max(tickets, 0 if ws is None else ws[1].numel())
+        ws = (torch.empty(floats, dtype=torch.float32, device=device),
+              torch.zeros(tickets, dtype=torch.int32, device=device))
+        _workspaces[(device, stream)] = ws
+    return ws

@@ -178,26 +178,6 @@ def decode_route(q_dtype: torch.dtype, G: int, S: int) -> tuple[str, int]:
     return "split", DECODE_SPLIT
 
 
-_tc_workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def tc_workspace(device: torch.device, stream: int, floats: int, tickets: int):
-    """(f32 scratch of >= `floats`, i32 tickets of >= `tickets`, all 0) of
-    the tensor-core decode kernel on `device`, one pair for each stream
-    (`stream`: its cudaStream_t), kept between calls and grown on demand.
-    The kernel leaves its tickets at 0, so the launches that share a pair
-    run in order on their stream. Growth allocates: a launch captured in a
-    CUDA graph needs its pair sized beforehand, at the largest batch and S."""
-    ws = _tc_workspaces.get((device, stream))
-    if ws is None or ws[0].numel() < floats or ws[1].numel() < tickets:
-        floats = max(floats, 0 if ws is None else ws[0].numel())
-        tickets = max(tickets, 0 if ws is None else ws[1].numel())
-        ws = (torch.empty(floats, dtype=torch.float32, device=device),
-              torch.zeros(tickets, dtype=torch.int32, device=device))
-        _tc_workspaces[(device, stream)] = ws
-    return ws
-
-
 def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int = 0,
                      k_scale=None, v_scale=None):
     """T = 1 attention, q [B, 1, Hq, D] -> [B, 1, Hq, D] in q.dtype; k/v in
@@ -228,7 +208,7 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     lib = build.load()
     stream = build.stream_ptr(q.device)
     if route == "tc":
-        work, tickets = tc_workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
+        work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_decode_attention_tc(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
             work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D, kv_dtype_code(k, k_scale),

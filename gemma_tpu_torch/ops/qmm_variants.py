@@ -268,7 +268,7 @@ def q4_k_variant_plain(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 def q4_k_variant(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """The q4_k GEMV ablation `mode` at M = 8, x bf16 [8, K] -> [8, N] f32:
-    prod (the main path's GEMV), nohilo (prod; pass `q4_k_hi_parts(qt)`),
+    prod (the SIMT GEMV of f32 x), nohilo (prod; pass `q4_k_hi_parts(qt)`),
     noaffine (d*sc * (q - 8)), nosub (d * (q - 8)), q4_0ref (#1's GEMV;
     pass `q4_0ref_weight(qt)`)."""
     if mode not in Q4_K_MODES:

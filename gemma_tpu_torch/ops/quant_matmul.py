@@ -10,12 +10,12 @@ it replaces, what bounds it on the H100 and how the design answers that:
   reference's deep-K int8 layout, `_q6_k_v4_kernel`).
 With bf16 x, every format runs on the tensor cores above M = 8, through the
 shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`, f32 accumulators, x
-copied by `cp.async`, the weight dequantized to bf16 in shared memory);
-q4_0 and q8_0 also at 2 <= M <= 8, through the GEMV of `csrc/dq_gemv.cuh`
-(the weight's integers against x in bf16 `mma.sync`, scaled per block in
-f32). The rest is SIMT: each format's GEMV at M = 1 (and the K-quants' at
-M <= 8), and with f32 x (evaluation mode) the GEMVs at M <= 8 and plain-FMA
-tiles above.
+copied by `cp.async`, the weight dequantized to bf16 in shared memory), and
+at M <= 8 through the GEMV of `csrc/dq_gemv.cuh` (the weight's integers
+against x in bf16 `mma.sync`, scaled per group in f32): q4_k and q6_k at
+1 <= M <= 8, q4_0 and q8_0 at 2 <= M <= 8. The rest is SIMT: q4_0's and
+q8_0's GEMV at M = 1, and with f32 x (evaluation mode) every format's GEMV
+at M <= 8 and plain-FMA tiles above.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -96,10 +96,11 @@ def q4_k_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 def _launch(op, entry: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """Check x and qt for the kernel `entry` and launch it:
-    entry(x, x_dtype, *qt buffers, y, work, M, N, K, stream), where work is
-    the f32 scratch of the tensor-core kernels' K splits
-    (`gt_matmul_work_bytes`, often none). Those kernels copy x in 16-byte
-    pieces."""
+    entry(x, x_dtype, *qt buffers, y, work, tickets, M, N, K, stream), where
+    work is the f32 scratch of the tensor-core kernels' K splits, the
+    tiles' and the GEMVs', and tickets the GEMV's split sums, both from the
+    stream's persistent `build.workspace` (sizes: `build.matmul_scratch`,
+    often none). Those kernels copy x in 16-byte pieces."""
     N, K = qt.shape
     name = f"{qt.fmt} matmul"
     if x.device.type != "cuda" or qt.device != x.device:
@@ -118,12 +119,14 @@ def _launch(op, entry: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     if M == 0:
         return y.reshape(*lead, N)
     lib = build.load()
-    code = build.DTYPE_CODES[x2.dtype]
-    nbytes = lib.gt_matmul_work_bytes(build.FORMAT_CODES[qt.fmt], code, M, N, K)
-    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
-    err = getattr(lib, entry)(x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr(),
-                              None if work is None else work.data_ptr(), M, N, K,
-                              build.stream_ptr(x.device))
+    code, fmt = build.DTYPE_CODES[x2.dtype], build.FORMAT_CODES[qt.fmt]
+    stream = build.stream_ptr(x.device)
+    nbytes, nt = build.matmul_scratch(lib, fmt, code, M, N, K)
+    work = tickets = None
+    if nbytes or nt:
+        work, tickets = (t.data_ptr() for t in build.workspace(x.device, stream, nbytes // 4, nt))
+    err = getattr(lib, entry)(x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr(), work,
+                              tickets, M, N, K, stream)
     build.check(err, f"{name} M={M} N={N} K={K}")
     op.launches += 1
     return y.reshape(*lead, N)

@@ -5,7 +5,8 @@ The counterpart of the reference's `tools/bench_q4k_variants.py` on the
 port's q4_k layout (qs u8 [N, K/2], the packed 12-byte 6-bit table, f16 d
 and dmin), through `gt_q4_k_variant` (`csrc/q4_k_matmul.cu`) and #1's GEMV:
 
-  prod      the main path's GEMV: d*sc * sum(x q) - dmin*mn * sum(x)
+  prod      the SIMT GEMV (f32 x's path; bf16 x takes the tensor-core
+            GEMV of csrc/dq_gemv.cuh): d*sc * sum(x q) - dmin*mn * sum(x)
   nohilo    prod on d and dmin rounded to bf16. The reference stores them
             as an exact bf16 hi/lo pair and paid two adds for exactness;
             the port keeps exact f16, so that cost does not exist here and

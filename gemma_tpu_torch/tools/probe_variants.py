@@ -3,7 +3,7 @@ measurements behind the tensor-core GEMV's constants (`csrc/dq_gemv.cuh`)
 and the tile plan (`csrc/dq_tile.cuh`), and ablations that say where a
 kernel's time goes; and the tensor-core attention kernels' launch shapes.
 
-    python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_0,q8_0]
+    python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
     python -m gemma_tpu_torch.tools.probe_variants attn
     python -m gemma_tpu_torch.tools.probe_variants mutants
@@ -27,8 +27,9 @@ unpatched kernels pass and every mutant fails.
 A variant is a list of text substitutions in a copy of
 `gemma_tpu_torch/csrc/`, built into `gemma_tpu_torch/build/variants/<name>/`
 (`kernels/build.py build_library`). For each main-path shape of q4_0
-(Gemma-2B) and q8_0 (Gemma-7B), and each M (gemv: the serving step's 8;
-tile: the prefill rows), a line gives the library call (torch.matmul of
+(Gemma-2B), q8_0 (Gemma-7B), q4_k and q6_k (Gemma-2B q4_k_m, and q6_k's
+deep-K shape), and each M (gemv: the decode step's 1 and the serving
+step's 8; tile: the prefill rows), a line gives the library call (torch.matmul of
 the weight dequantized to bf16 beforehand) and each variant's time, all
 device ms with L2 cold (`_timing.py`). Variants named `ab_*` drop a part
 of the kernel and compute wrong results, so they are timed only; every
@@ -76,6 +77,11 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "sk256": [_gv("kGvStageK = 128;", "kGvStageK = 256;"),
               _gv("kGvScaleWords = 3;", "kGvScaleWords = 5;")],
     "nosplit": [_gv("kGvSliceMin = 512;", "kGvSliceMin = 1 << 30;")],
+    "sl256": [_gv("kGvSliceMin = 512;", "kGvSliceMin = 256;")],
+    # the K-quants' split target alone (q4_0 and q8_0 keep theirs)
+    "ktw2": [_gv("kGvSuperTargetWarps = 4;", "kGvSuperTargetWarps = 2;")],
+    "ktw8": [_gv("kGvSuperTargetWarps = 4;", "kGvSuperTargetWarps = 8;")],
+    "ktw16": [_gv("kGvSuperTargetWarps = 4;", "kGvSuperTargetWarps = 16;")],
     # the tile's shape, forced
     "f64x64": _forced(64, 64), "f64x128": _forced(64, 128), "f128x64": _forced(128, 64),
     "f128x128": _forced(128, 128),
@@ -90,15 +96,34 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "ab_gv_nomma": [_gv("          mma_16816(f, a, __byte_perm(xv.x, xv.y, 0x5410), "
                         "__byte_perm(xv.x, xv.y, 0x7632));",
                         "          f[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ xv.x ^ xv.y);")],
-    "ab_gv_noload": [_gv("    if (st + kS - 1 < nstages) issue(st + kS - 1);", "")],
+    # no weight bytes copied at all (the x slice still is)
+    "ab_gv_noload": [_gv("    F::copy(w, ring + (st % kS) * F::kStage, lane, n0, N, K, "
+                         "klo + st * F::kStageK, khi);", "")],
+    # how the GEMV sums its K splits: by ticket in the same launch at every
+    # grid, or in a second launch at every grid; four outputs a thread of
+    # the ticket sum at every M
+    "tk_all": [_gv("kGvTicketBlocks = 4;", "kGvTicketBlocks = 1 << 20;")],
+    "tk_none": [_gv("kGvTicketBlocks = 4;", "kGvTicketBlocks = 0;")],
+    "sum4": [_gv("  switch ((M * kGvWarps * 16 + kGvWarps * 32 - 1) / (kGvWarps * 32)) {",
+                 "  switch (4) {")],
+    # no split sum: the splits' partials stay in the workspace, no ticket is taken
+    "ab_gv_nosum": [_gv("  if (tickets == nullptr) return;", "  return;"),
+                    _gv("  if (p.splits > 1 && !ticket) {", "  if (false) {")],
+    # the K-quants' scale decode (`prepare`): the table keeps what it held
+    "ab_gv_noprep": [_gv("      F::prepare(ring + (st % kS) * F::kStage, table, lane, n0, K, "
+                         "klo + st * F::kStageK);", "")],
 }
 
-# the main path's shapes (chip_smoke.py MATMUL_SHAPES): q4_0 Gemma-2B, q8_0 Gemma-7B
+# the main path's shapes (chip_smoke.py MATMUL_SHAPES): q4_0 Gemma-2B, q8_0
+# Gemma-7B, q4_k and q6_k Gemma-2B q4_k_m (and q6_k's deep-K shape)
 SHAPES = {
     "q4_0": [("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
              ("down", 2048, 16384), ("head", 256000, 2048)],
     "q8_0": [("qkv", 12288, 3072), ("attn_out", 3072, 4096), ("gate_up", 49152, 3072),
              ("down", 3072, 24576), ("head", 256000, 3072)],
+    "q4_k": [("attn_q", 2048, 2048), ("attn_k", 256, 2048), ("attn_out", 2048, 2048),
+             ("gate_up", 32768, 2048), ("down", 2048, 16384)],
+    "q6_k": [("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048)],
 }
 
 
@@ -221,7 +246,7 @@ def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool 
     kvd = att.kv_dtype_code(k, k_scale)
     stream = build.stream_ptr(q.device)
     if tc:
-        work, tickets = att.tc_workspace(q.device, stream, B * Hkv * n * G * (D + 2), B * Hkv)
+        work, tickets = build.workspace(q.device, stream, B * Hkv * n * G * (D + 2), B * Hkv)
         err = lib.gt_decode_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
                                          lim.data_ptr(), out.data_ptr(), work.data_ptr(),
                                          tickets.data_ptr(), B, Hq, Hkv, S, D, kvd, split, 0, 0.0, stream)
@@ -342,7 +367,7 @@ def main(argv=None) -> None:
     ap.add_argument("--variants", default="base,tw4,tw16,st3,st6,w2,w8,sl1024,sk256,nosplit",
                     help="comma-separated names of VARIANTS")
     ap.add_argument("--fmt", default="q4_0,q8_0")
-    ap.add_argument("--ms", default=None, help="rows of x (gemv: 8; tile: 17,64,203)")
+    ap.add_argument("--ms", default=None, help="rows of x (gemv: 1,8; tile: 17,64,203)")
     args = ap.parse_args(argv)
     names = args.variants.split(",")
     unknown = [n for n in names if n not in VARIANTS]
@@ -355,7 +380,7 @@ def main(argv=None) -> None:
         print(T.card_line(dev), flush=True)
         (run_attention if args.mode == "attn" else run_mutants)(dev)
         return
-    ms = [int(m) for m in (args.ms or ("8" if args.mode == "gemv" else "17,64,203")).split(",")]
+    ms = [int(m) for m in (args.ms or ("1,8" if args.mode == "gemv" else "17,64,203")).split(",")]
     print(T.card_line(dev), flush=True)
     run(args.mode, names, args.fmt.split(","), ms, dev)
 

@@ -1,16 +1,19 @@
-"""Lane-by-lane numpy emulation of the tensor-core kernels: q4_0's and
-q8_0's GEMV and tile functors, flash and decode attention.
+"""Lane-by-lane numpy emulation of the tensor-core kernels: the GEMV of
+every format, q4_0's and q8_0's tile functors, flash and decode attention.
 
 The CUDA sources build only on the card, so their index math is held here,
 on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
 
-* `gemv` emulates `dq_gemv_kernel` of `csrc/dq_gemv.cuh` (2 <= M <= 8, bf16
-  x): the block's x slice and each warp's ring stage in shared memory as
-  bytes, ldmatrix.x4 on the raw payload, the A fragments built from the
-  words by the kernel's bit operations (nibble pairs, int8 pairs), the B
-  fragments of x by byte perms, `mma.sync` m16n8k16 through the PTX
-  fragment layouts, the per-block scale into f32 accumulators, the K
-  splits and their sum in order.
+* `gemv` emulates `dq_gemv_kernel` of `csrc/dq_gemv.cuh` (M <= 8, bf16 x)
+  through each format's functor (`BlockGemv` for q4_0 and q8_0, `Q4KGemv`,
+  `Q6KGemv`): the block's x slice (and q4_k's per-32 sums of x) and each
+  warp's ring stage in shared memory as bytes, the functor's decoded scale
+  table, ldmatrix.x4 on the raw payload, the A fragments built from the
+  words by the kernel's bit operations (nibble pairs, 6-bit pairs, int8
+  pairs), the B fragments of x by byte perms, `mma.sync` m16n8k16 through
+  the PTX fragment layouts, the per-group scale (and q4_k's affine part)
+  into f32 accumulators, the K splits and their sum in split order (by the
+  row tile's last block, or a second launch: the same sums).
 * `tile_weights` emulates the `Q4_0Tile` and `Q8_0Tile` functors of
   `csrc/q4_0_matmul.cu` and `csrc/q8_0_matmul.cu` (`copy` with cp.async's
   zero fill, then `store`) for every K-step of `dq_tile.cuh`, the half step
@@ -40,8 +43,8 @@ import torch
 from ..quant.qtensor import QTensor
 
 # constants of csrc/dq_gemv.cuh
-GV_WARPS, GV_STAGE_K, GV_STAGES, GV_SCALE_WORDS = 4, 128, 4, 3
-GV_SLICE_MAX, GV_SLICE_MIN, GV_TARGET_WARPS = 2048, 512, 8
+GV_WARPS, GV_STAGE_K, GV_SUPER_K, GV_STAGES, GV_SCALE_WORDS = 4, 128, 256, 4, 3
+GV_SLICE_MAX, GV_SLICE_MIN, GV_TARGET_WARPS, GV_SUPER_TARGET_WARPS = 2048, 512, 8, 4
 H100_SMS = 132
 BLOCK_BYTES = {"q4_0": 16, "q8_0": 32}
 DQ_BK = 64  # csrc/dq_tile.cuh kDqBK
@@ -87,17 +90,20 @@ def int8_pair(u, i: int, j: int) -> np.ndarray:
     return byte_perm(a.view(np.uint32), b.view(np.uint32), 0x7632)
 
 
-def gemv_plan(N: int, K: int, sms: int = H100_SMS) -> tuple[int, int]:
-    """`dq_gemv_plan`: (slice, splits) at (N, K)."""
+def gemv_plan(N: int, K: int, sms: int = H100_SMS, gran: int = 32,
+              target: int = GV_TARGET_WARPS) -> tuple[int, int]:
+    """`dq_gemv_plan`: (slice, splits) at (N, K), slices in multiples of
+    `gran` (q4_0, q8_0: 32; q4_k, q6_k: their 256-superblock), splits
+    doubled towards `target` warps an SM (`BlockPlan`, `SuperPlan`)."""
     tiles = (N + 15) // 16
 
     def slice_of(splits):
-        return -(-(K // 32) // splits) * 32
+        return -(-(K // gran) // splits) * gran
 
     splits = 1
     while slice_of(splits) > GV_SLICE_MAX:
         splits *= 2
-    while tiles * splits < GV_TARGET_WARPS * sms and slice_of(2 * splits) >= GV_SLICE_MIN:
+    while tiles * splits < target * sms and slice_of(2 * splits) >= GV_SLICE_MIN:
         splits *= 2
     sl = slice_of(splits)
     return sl, -(-K // sl)
@@ -156,77 +162,302 @@ def _cp_half2(scales: np.ndarray, h: int, total: int) -> bytes:
     return raw + b"\0" * (4 - n)
 
 
+LANES = np.arange(32)
+LANE_G, LANE_T = LANES // 4, LANES % 4
+
+
+def _rows16_addr(pitch: int, col: int) -> np.ndarray:
+    """`ldmatrix_rows16`: lane l's address in a [16][pitch] tile, 32 bytes
+    at column `col`."""
+    return ((LANES & 7) + ((LANES >> 3) & 1) * 8) * pitch + col + (LANES >> 4) * 16
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().numpy().reshape(-1)
+
+
+def six_bit_pair(v) -> np.ndarray:
+    """`six_bit_pair`: bf16x2 (u0 - 32, u1 - 32) of bits 0-5 and 16-21 of v."""
+    b = (_u32(v) & 0x003F003F) | 0x43004300
+    lo = _bf16_bits_to_f32(b & 0xFFFF) - np.float32(160)
+    hi = _bf16_bits_to_f32(b >> 16) - np.float32(160)
+    return _f32_to_bf16_bits_exact(lo) | (_f32_to_bf16_bits_exact(hi) << 16)
+
+
+def scale_min_k4(tb: np.ndarray, j: int) -> tuple[np.ndarray, np.ndarray]:
+    """ggml get_scale_min_k4 on 12-byte tables tb [..., 12]: (sc, mn) of
+    sub-block j as f32."""
+    tb = tb.astype(np.uint32)
+    if j < 4:
+        sc, mn = tb[..., j] & 63, tb[..., j + 4] & 63
+    else:
+        sc = (tb[..., j + 4] & 15) | ((tb[..., j - 4] >> 6) << 4)
+        mn = (tb[..., j + 4] >> 4) | ((tb[..., j] >> 6) << 4)
+    return sc.astype(np.float32), mn.astype(np.float32)
+
+
+class BlockGemv:
+    """`BlockGemv<kBlockBytes>` (q4_0: 16, q8_0: 32) of csrc/dq_gemv.cuh."""
+    stage_k, gran, target = GV_STAGE_K, 32, GV_TARGET_WARPS
+    group_k, steps, affine = 32, 2, False
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.bb = BLOCK_BYTES[qt.fmt]
+        self.qs = _np(qt.qs).view(np.uint8)
+        self.sc = _np(qt.scales)
+        self.row_stage = self.stage_k // 32 * self.bb
+        self.pitch = self.row_stage + 16
+        self.scales_off = 16 * self.pitch
+        self.stage_bytes = self.scales_off + 16 * GV_SCALE_WORDS * 4
+        self.pieces, self.groups = self.row_stage // 32, 32 // self.bb
+
+    def copy(self, n0: int, kb: int, khi: int) -> np.ndarray:
+        N, K, bb = self.N, self.K, self.bb
+        stage = np.zeros(self.stage_bytes, np.uint8)
+        for i in range(self.row_stage):  # 16 rows x row_stage / 16 chunks
+            r, c = divmod(i, self.row_stage // 16)
+            if n0 + r < N and kb + c * 16 // bb * 32 < khi:
+                src = (n0 + r) * (K // 32 * bb) + kb // 32 * bb + 16 * c
+                stage[r * self.pitch + 16 * c: r * self.pitch + 16 * c + 16] = self.qs[src: src + 16]
+        for i in range(16 * GV_SCALE_WORDS):
+            r, j = divmod(i, GV_SCALE_WORDS)
+            h = (((n0 + r) * (K // 32) + kb // 32) & ~1) + 2 * j
+            o = self.scales_off + 4 * i
+            stage[o: o + 4] = np.frombuffer(_cp_half2(self.sc, h, N * (K // 32)), np.uint8)
+        return stage
+
+    def prepare(self, stage, n0, kb):
+        return None
+
+    def load(self, stage, p):
+        return ldmatrix_x4(stage, _rows16_addr(self.pitch, 32 * p))
+
+    def a_frag(self, r, gi, s):
+        if self.bb == 16:
+            w0, w1 = r[2 * gi], r[2 * gi + 1]
+            return [nibble_pair(w0 >> (4 * s)), nibble_pair(w1 >> (4 * s)),
+                    nibble_pair(w0 >> (4 * s + 8)), nibble_pair(w1 >> (4 * s + 8))]
+        u0, u1 = r[2 * s] ^ 0x80808080, r[2 * s + 1] ^ 0x80808080
+        return [int8_pair(u0, 0, 2), int8_pair(u1, 0, 2), int8_pair(u0, 1, 3), int8_pair(u1, 1, 3)]
+
+    def x_off(self, p, gi, s):
+        return 32 * (p * self.groups + gi) + 16 * s
+
+    def scales(self, stage, table, n0, kb, grp):
+        sc = stage[self.scales_off:].view(np.float16)
+        d = []
+        for h in range(2):
+            odd = ((n0 + LANE_G + 8 * h) * (self.K // 32) + kb // 32) & 1
+            d.append(sc[(LANE_G + 8 * h) * 2 * GV_SCALE_WORDS + odd + grp].astype(np.float32))
+        return d, None
+
+
+class Q4KGemv:
+    """`Q4KGemv` of csrc/q4_k_matmul.cu: a stage is one superblock, payload
+    [16][144], then each row's 12-byte table and d, dmin [16][16]; the
+    warp's table holds d*sc [8][16] and the offsets [8][16]."""
+    stage_k = gran = GV_SUPER_K
+    target = GV_SUPER_TARGET_WARPS
+    group_k, steps, affine, pieces, groups = 32, 2, True, 4, 2
+    pitch = 144
+    meta = 16 * pitch
+    stage_bytes = meta + 16 * 16
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.qs = _np(qt.qs).view(np.uint8)
+        self.tab = _np(qt.scales).view(np.uint8)
+        self.dm = _np(qt.dm).view(np.uint8)
+
+    def copy(self, n0, kb, khi):
+        N, K = self.N, self.K
+        nsb, sb = K // 256, kb // 256
+        stage = np.zeros(self.stage_bytes, np.uint8)
+        for r in range(16):
+            if n0 + r >= N:
+                continue  # zero-filled
+            src = (n0 + r) * (K // 2) + sb * 128
+            stage[r * self.pitch: r * self.pitch + 128] = self.qs[src: src + 128]
+            sbi = (n0 + r) * nsb + sb
+            o = self.meta + 16 * r
+            stage[o: o + 12] = self.tab[12 * sbi: 12 * sbi + 12]
+            stage[o + 12: o + 16] = self.dm[4 * sbi: 4 * sbi + 4]
+        return stage
+
+    def prepare(self, stage, n0, kb):
+        table = np.zeros(256, np.float32)
+        r = LANES % 16
+        meta = stage[self.meta:].reshape(16, 16)[r]  # each lane's row
+        dm = meta[:, 12:16].copy().view(np.float16).astype(np.float32)
+        for i in range(4):
+            j = LANES // 16 + 2 * i
+            for jj in (2 * i, 2 * i + 1):
+                sel = j == jj
+                sc, mn = scale_min_k4(meta[sel, :12], jj)
+                dsc = dm[sel, 0] * sc
+                table[16 * jj + r[sel]] = dsc
+                table[128 + 16 * jj + r[sel]] = np.float32(8) * dsc - dm[sel, 1] * mn
+        return table
+
+    def load(self, stage, p):
+        return ldmatrix_x4(stage, _rows16_addr(self.pitch, 32 * p))
+
+    def a_frag(self, r, gi, s):
+        w0, w1 = r[2 * s], r[2 * s + 1]
+        return [nibble_pair(w0 >> (4 * gi)), nibble_pair(w1 >> (4 * gi)),
+                nibble_pair(w0 >> (4 * gi + 8)), nibble_pair(w1 >> (4 * gi + 8))]
+
+    def x_off(self, p, gi, s):
+        return 64 * p + 32 * gi + 16 * s
+
+    def scales(self, stage, table, n0, kb, grp):
+        return ([table[16 * grp + LANE_G], table[16 * grp + LANE_G + 8]],
+                [table[128 + 16 * grp + LANE_G], table[128 + 16 * grp + LANE_G + 8]])
+
+
+class Q6KGemv:
+    """`Q6KGemv` of csrc/q6_k_matmul.cu: a stage is one superblock, ql
+    [16][144], qh [16][80], sc [16][16], the d words [16][4]; a piece is a
+    half (12 ldmatrix words), a group one 16-element sub-block."""
+    stage_k = gran = GV_SUPER_K
+    target = GV_SUPER_TARGET_WARPS
+    group_k, steps, affine, pieces, groups = 16, 1, False, 2, 8
+    ql_pitch, qh_pitch = 144, 80
+    qh_off = 16 * ql_pitch
+    sc_off = qh_off + 16 * qh_pitch
+    d_off = sc_off + 16 * 16
+    stage_bytes = d_off + 16 * 4
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.ql = _np(qt.ql).view(np.uint8)
+        self.qh = _np(qt.qh).view(np.uint8)
+        self.sc = _np(qt.sc).view(np.uint8)
+        self.d = _np(qt.d)
+
+    def copy(self, n0, kb, khi):
+        N, K = self.N, self.K
+        nsb, sb = K // 256, kb // 256
+        stage = np.zeros(self.stage_bytes, np.uint8)
+        for r in range(16):
+            ok = n0 + r < N
+            row = n0 + r if ok else 0
+            if ok:
+                o, q = r * self.ql_pitch, row * (K // 2) + sb * 128
+                stage[o: o + 128] = self.ql[q: q + 128]
+                o, q = self.qh_off + r * self.qh_pitch, row * (K // 4) + sb * 64
+                stage[o: o + 64] = self.qh[q: q + 64]
+                o, q = self.sc_off + 16 * r, row * (K // 16) + sb * 16
+                stage[o: o + 16] = self.sc[q: q + 16]
+            o = self.d_off + 4 * r
+            stage[o: o + 4] = np.frombuffer(
+                _cp_half2(self.d, (row * nsb + sb) & ~1, N * nsb if ok else 0), np.uint8)
+        return stage
+
+    def prepare(self, stage, n0, kb):
+        table = np.zeros(256, np.float32)
+        r = LANES % 16
+        dw = stage[self.d_off:].reshape(16, 4)[r].copy().view(np.float16).astype(np.float32)
+        odd = ((n0 + r) * (self.K // 256) + kb // 256) & 1
+        d = np.where(odd == 1, dw[:, 1], dw[:, 0])
+        sc = stage[self.sc_off: self.sc_off + 256].reshape(16, 16)[r].view(np.int8)
+        for i in range(8):
+            j = 2 * i + LANES // 16
+            table[16 * j + r] = d * sc[LANES, j].astype(np.float32)
+        return table
+
+    def load(self, stage, p):
+        return (ldmatrix_x4(stage, _rows16_addr(self.ql_pitch, 64 * p))
+                + ldmatrix_x4(stage, _rows16_addr(self.ql_pitch, 64 * p + 32))
+                + ldmatrix_x4(stage, self.qh_off + _rows16_addr(self.qh_pitch, 32 * p)))
+
+    @staticmethod
+    def six_bits(lw, hw, t, f):
+        return ((lw >> (4 * t)) & 0x0F0F0F0F) | (((hw >> (2 * f)) & 0x03030303) << 4)
+
+    def a_frag(self, r, gi, s):
+        t, p = divmod(gi, 4)
+        lw, hw, f = 4 * (p // 2) + 2 * (p % 2), 8 + 2 * (p % 2), 2 * t + p // 2
+        u0 = self.six_bits(r[lw], r[hw], t, f)
+        u1 = self.six_bits(r[lw + 1], r[hw + 1], t, f)
+        return [six_bit_pair(u0), six_bit_pair(u1), six_bit_pair(u0 >> 8), six_bit_pair(u1 >> 8)]
+
+    def x_off(self, p, gi, s):
+        return 128 * p + 16 * gi
+
+    def scales(self, stage, table, n0, kb, grp):
+        return [table[16 * grp + LANE_G], table[16 * grp + LANE_G + 8]], None
+
+
+GEMV_FORMATS = {"q4_0": BlockGemv, "q8_0": BlockGemv, "q4_k": Q4KGemv, "q6_k": Q6KGemv}
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """fmaf in f32 (the product is exact in f64)."""
+    return (np.float64(1) * a * b + c).astype(np.float32)
+
+
+def _sum8(v: np.ndarray) -> np.float32:
+    """`sum8_bf16` of 8 f32 values (bf16 in shared memory), in its order."""
+    s = [np.float32(v[2 * i] + v[2 * i + 1]) for i in range(4)]
+    return np.float32(np.float32(s[0] + s[1]) + np.float32(s[2] + s[3]))
+
+
 def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
-    """`launch_dq_gemv` on x bf16 [M, K] (2 <= M <= 8), qt q4_0 or q8_0:
-    y f32 [M, N]."""
-    bb = BLOCK_BYTES[qt.fmt]
+    """`launch_dq_gemv` on x bf16 [M, K] (1 <= M <= 8) and qt of any format,
+    through its functor (`GEMV_FORMATS`): y f32 [M, N]."""
+    F = GEMV_FORMATS[qt.fmt](qt)
     M, K = x.shape
     N = qt.shape[0]
-    assert 2 <= M <= 8 and x.dtype == torch.bfloat16 and K % 32 == 0
+    assert 1 <= M <= 8 and x.dtype == torch.bfloat16 and K % F.gran == 0
     xb = x.contiguous().view(torch.int16).numpy().view(np.uint16)
-    qs = qt.qs.contiguous().numpy().view(np.uint8).reshape(-1)
-    scales = qt.scales.contiguous().numpy().reshape(-1)
-    nscales = N * (K // 32)
-    row_bytes = K // 32 * bb
-    sl, splits = gemv_plan(N, K, sms)
-    row_stage = GV_STAGE_K // 32 * bb
-    pitch = row_stage + 16
-    scales_off = 16 * pitch
-    stage_bytes = scales_off + 16 * GV_SCALE_WORDS * 4
-    lanes = np.arange(32)
-    g, t = lanes // 4, lanes % 4
+    sl, splits = gemv_plan(N, K, sms, F.gran, F.target)
+    g, t = LANE_G, LANE_T
     work = np.zeros((splits, M, N), np.float32)
     for z in range(splits):
         klo, khi = z * sl, min(K, (z + 1) * sl)
-        xs = np.zeros((8, sl + 16), np.uint16)  # the block's x slice
+        xs = np.zeros((min(M + 1, 8), sl + 16), np.uint16)  # the x slice; row M (< 8): zeros
         for r in range(M):
             for c in range(sl // 8):
                 if klo + 8 * c < khi:
                     xs[r, 8 * c: 8 * c + 8] = xb[r, klo + 8 * c: klo + 8 * c + 8]
         xflat = xs.reshape(-1)
+        xsum = np.zeros((sl // 32, 8), np.float32)
+        if F.affine:
+            xf = _bf16_bits_to_f32(xs)
+            for grp in range(sl // 32):
+                for m in range(M):
+                    v = xf[m, 32 * grp: 32 * grp + 32]
+                    xsum[grp, m] = np.float32(np.float32(_sum8(v[:8]) + _sum8(v[8:16]))
+                                              + np.float32(_sum8(v[16:24]) + _sum8(v[24:])))
         for n0 in range(0, N, 16):
             acc = [np.zeros(32, np.float32) for _ in range(4)]
-            for st in range(-(-(khi - klo) // GV_STAGE_K)):
-                kb = klo + st * GV_STAGE_K
-                stage = np.zeros(stage_bytes, np.uint8)  # issue(st)
-                for i in range(row_stage):  # 16 rows x row_stage / 16 chunks
-                    r, c = divmod(i, row_stage // 16)
-                    if n0 + r < N and kb + c * 16 // bb * 32 < khi:
-                        src = (n0 + r) * row_bytes + kb // 32 * bb + 16 * c
-                        stage[r * pitch + 16 * c: r * pitch + 16 * c + 16] = qs[src: src + 16]
-                for i in range(16 * GV_SCALE_WORDS):
-                    r, j = divmod(i, GV_SCALE_WORDS)
-                    h = (((n0 + r) * (K // 32) + kb // 32) & ~1) + 2 * j
-                    stage[scales_off + 4 * i: scales_off + 4 * i + 4] = np.frombuffer(
-                        _cp_half2(scales, h, nscales), np.uint8)
-                sc = stage[scales_off:].view(np.float16)
-                odd0 = ((n0 + g) * (K // 32) + kb // 32) & 1
-                odd1 = ((n0 + g + 8) * (K // 32) + kb // 32) & 1
-                for p in range(row_stage // 32):  # compute(st)
-                    addr = ((lanes & 7) + ((lanes >> 3) & 1) * 8) * pitch + 32 * p + (lanes >> 4) * 16
-                    r4 = ldmatrix_x4(stage, addr)
-                    for b in range(32 // bb):
-                        blk = p * (32 // bb) + b
-                        if kb + 32 * blk >= khi:
+            for st in range(-(-(khi - klo) // F.stage_k)):
+                kb = klo + st * F.stage_k
+                stage = F.copy(n0, kb, khi)
+                table = F.prepare(stage, n0, kb)
+                for p in range(F.pieces):  # compute(st)
+                    r4 = F.load(stage, p)
+                    for gi in range(F.groups):
+                        grp = p * F.groups + gi
+                        if F.gran < F.stage_k and kb + F.group_k * grp >= khi:
                             break
                         f = [np.zeros(32, np.float32) for _ in range(4)]
-                        for s in range(2):
-                            if bb == 16:
-                                w0, w1 = r4[2 * b], r4[2 * b + 1]
-                                a = [nibble_pair(w0 >> (4 * s)), nibble_pair(w1 >> (4 * s)),
-                                     nibble_pair(w0 >> (4 * s + 8)), nibble_pair(w1 >> (4 * s + 8))]
-                            else:
-                                u0, u1 = r4[2 * s] ^ 0x80808080, r4[2 * s + 1] ^ 0x80808080
-                                a = [int8_pair(u0, 0, 2), int8_pair(u1, 0, 2), int8_pair(u0, 1, 3),
-                                     int8_pair(u1, 1, 3)]
-                            xo = g * (sl + 16) + (kb - klo) + 4 * t + 32 * blk + 16 * s
+                        for s in range(F.steps):
+                            a = F.a_frag(r4, gi, s)
+                            xo = np.minimum(g, M) * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
                             xw = xflat[xo[:, None] + np.arange(4)].astype(np.uint32)
                             lo, hi = xw[:, 0] | (xw[:, 1] << 16), xw[:, 2] | (xw[:, 3] << 16)
                             f = mma_16816(f, a, byte_perm(lo, hi, 0x5410), byte_perm(lo, hi, 0x7632))
-                        d0 = sc[g * 2 * GV_SCALE_WORDS + odd0 + blk].astype(np.float32)
-                        d1 = sc[(g + 8) * 2 * GV_SCALE_WORDS + odd1 + blk].astype(np.float32)
-                        acc = [acc[0] + d0 * f[0], acc[1] + d0 * f[1], acc[2] + d1 * f[2],
-                               acc[3] + d1 * f[3]]
+                        d, off = F.scales(stage, table, n0, kb, grp)
+                        acc = [_fma(d[0], f[0], acc[0]), _fma(d[0], f[1], acc[1]),
+                               _fma(d[1], f[2], acc[2]), _fma(d[1], f[3], acc[3])]
+                        if F.affine:
+                            xg = xsum[(kb - klo) // 32 + grp]
+                            x0, x1 = xg[2 * t], xg[2 * t + 1]
+                            acc = [_fma(off[0], x0, acc[0]), _fma(off[0], x1, acc[1]),
+                                   _fma(off[1], x0, acc[2]), _fma(off[1], x1, acc[3])]
             m = 2 * t
             for h in range(2):
                 n = n0 + g + 8 * h
@@ -603,17 +834,21 @@ def main() -> None:
     from ._timing import random_qtensor
 
     gen = torch.Generator().manual_seed(0)
-    for fmt in BLOCK_BYTES:
-        for N, K, M in ((40, 1056, 5), (20, 1280, 8), (48, 4096, 2)):
+    for fmt in GEMV_FORMATS:
+        block = fmt in BLOCK_BYTES
+        for N, K, M in (((40, 1056, 5), (20, 1280, 8), (48, 4096, 2)) if block else
+                        ((40, 1280, 1), (20, 2048, 8), (48, 4096, 2))):
             qt = random_qtensor(fmt, N, K, gen, "cpu")
             x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
             ref = PLAIN[fmt](x, qt).numpy()
             err = np.abs(gemv(x, qt) - ref).max() / np.abs(ref).max()
-            tile = tile_weights(qt, N + 3)
-            exact = (np.array_equal(tile[:N, :K], dequant(qt, torch.bfloat16).float().numpy())
-                     and not tile[N:].any() and not tile[:, K:].any())
-            print(f"{fmt} N={N} K={K} M={M}: gemv max|diff| / max|ref| {err:.2e}; "
-                  f"tile weights bit-exact: {exact}")
+            line = f"{fmt} N={N} K={K} M={M}: gemv max|diff| / max|ref| {err:.2e}"
+            if block:
+                tile = tile_weights(qt, N + 3)
+                exact = (np.array_equal(tile[:N, :K], dequant(qt, torch.bfloat16).float().numpy())
+                         and not tile[N:].any() and not tile[:, K:].any())
+                line += f"; tile weights bit-exact: {exact}"
+            print(line)
     from ..ops.attention import decode_attention_plain, flash_attention_plain
     from ..runtime.kv_cache import quantize_kv
 

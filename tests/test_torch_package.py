@@ -188,6 +188,36 @@ def test_library_name_follows_the_sources():
             "gt_flash_attention_tc", "gt_decode_attention_tc"} <= set(build.SIGNATURES)
 
 
+def test_matmul_scratch_asks_once_a_library_and_shape(monkeypatch):
+    """`build.matmul_scratch` asks the library's one query (bytes, and the
+    tickets through its pointer) once a library and shape; `build.workspace`
+    keeps one pair a stream, grown on demand, its tickets zeros."""
+    asked = []
+
+    class Lib:
+        def gt_matmul_work_bytes(self, fmt, x_dtype, M, N, K, tickets):
+            asked.append((fmt, x_dtype, M, N, K))
+            tickets._obj.value = N // 64
+            return 4 * M * N
+
+    monkeypatch.setattr(build, "_scratch", {})
+    lib, other = Lib(), Lib()
+    for _ in range(3):
+        assert build.matmul_scratch(lib, 2, 1, 1, 256, 2048) == (1024, 4)
+    assert build.matmul_scratch(lib, 2, 1, 8, 256, 2048) == (8192, 4)
+    assert build.matmul_scratch(other, 2, 1, 1, 256, 2048) == (1024, 4)
+    assert asked == [(2, 1, 1, 256, 2048), (2, 1, 8, 256, 2048), (2, 1, 1, 256, 2048)]
+
+    monkeypatch.setattr(build, "_workspaces", {})
+    cpu = torch.device("cpu")
+    work, tickets = build.workspace(cpu, 7, 10, 3)
+    assert work.numel() == 10 and tickets.tolist() == [0, 0, 0]
+    assert build.workspace(cpu, 7, 4, 2)[0] is work  # large enough: kept
+    grown = build.workspace(cpu, 7, 4, 5)
+    assert grown[0].numel() == 10 and grown[1].tolist() == [0] * 5
+    assert build.workspace(cpu, 8, 1, 1)[0] is not grown[0]  # another stream, another pair
+
+
 def test_cli_refuses_cuda_without_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -2,9 +2,12 @@
 (`gemma_tpu_torch/tools/tc_emulation.py`), against the plain versions the
 card holds the kernels to.
 
-* The small-M GEMV (`csrc/dq_gemv.cuh`): its products are exact (integer
-  weights and bf16 x), so it differs from the plain version (f32 weights
-  and x, M <= 8) only in the order of f32 sums: 1e-5 of the output's scale.
+* The small-M GEMV (`csrc/dq_gemv.cuh`) of every format: its products are
+  exact (integer weights and bf16 x), so it differs from the plain version
+  (f32 weights and x, M <= 8) only in the order of f32 sums, and for q4_k
+  in the f32 rounding of each dequantized weight against its (d*sc, affine)
+  split: 1e-5 of the output's scale, also against `_q4_k_kernel` and
+  `_q6_k_kernel` in interpret mode at M = 1.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
@@ -24,9 +27,11 @@ import jax.numpy as jnp
 
 from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.ops.attention import flash_attention as jax_flash
+from gemma_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
+from gemma_tpu.quant.qtensor import quantize_array
 from gemma_tpu_torch.ops.attention import decode_attention_plain, flash_attention_plain
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
-from gemma_tpu_torch.quant.qtensor import dequant
+from gemma_tpu_torch.quant.qtensor import dequant, from_jax
 from gemma_tpu_torch.tools import tc_emulation as emu
 from gemma_tpu_torch.tools._timing import random_qtensor
 
@@ -36,12 +41,17 @@ def _case(fmt, N, K, seed):
     return gen, random_qtensor(fmt, N, K, gen, "cpu")
 
 
-@pytest.mark.parametrize("fmt", ["q4_0", "q8_0"])
-# K = 1056: an odd count of 32-blocks (scale words at odd parity, a slice
-# ending mid-stage; with 19 rows the last scale ends the array mid-word);
-# 4096 with 48 rows: eight K splits; 40, 20 and 19 rows: ragged against the
-# 16-row tiles
-@pytest.mark.parametrize("N,K,M", [(40, 1056, 5), (19, 1056, 3), (20, 1280, 8), (48, 4096, 2)])
+# q4_0, q8_0 (2 <= M <= 8 on the card): K = 1056, an odd count of 32-blocks
+# (scale words at odd parity, a slice ending mid-stage; with 19 rows the
+# last scale ends the array mid-word). q4_k, q6_k (M <= 8): K in whole
+# superblocks, M = 1 included; 19 rows with K = 1280: q6_k's d values end
+# the array mid-word. 4096 with 48 rows: K splits; 40, 20 and 19 rows:
+# ragged against the 16-row tiles
+@pytest.mark.parametrize("N,K,M,fmt", [
+    *((N, K, M, fmt) for fmt in ("q4_0", "q8_0")
+      for N, K, M in ((40, 1056, 5), (19, 1056, 3), (20, 1280, 8), (48, 4096, 2))),
+    *((N, K, M, fmt) for fmt in ("q4_k", "q6_k")
+      for N, K, M in ((40, 1280, 1), (19, 1280, 5), (20, 2048, 8), (48, 4096, 2)))])
 def test_gemv_emulation_matches_plain(fmt, N, K, M):
     gen, qt = _case(fmt, N, K, seed=N + M)
     x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
@@ -62,11 +72,16 @@ def test_tile_functor_weights_are_the_plain_bf16_dequant(fmt, N, K):
 
 
 def test_fragment_conversions_are_exact():
-    """Every nibble and every int8 byte, through the kernel's bit tricks."""
+    """Every nibble, every 6-bit value and every int8 byte, through the
+    kernel's bit tricks."""
     u = np.arange(16, dtype=np.uint32)
     pair = emu.nibble_pair(u | (u[::-1] << 16))
     assert np.array_equal(emu._bf16_bits_to_f32(pair & 0xFFFF), u - 8.0)
     assert np.array_equal(emu._bf16_bits_to_f32(pair >> 16), u[::-1] - 8.0)
+    u = np.arange(64, dtype=np.uint32)
+    pair = emu.six_bit_pair(u | (u[::-1] << 16))
+    assert np.array_equal(emu._bf16_bits_to_f32(pair & 0xFFFF), u - 32.0)
+    assert np.array_equal(emu._bf16_bits_to_f32(pair >> 16), u[::-1] - 32.0)
     b = np.arange(256, dtype=np.uint32)
     w = b | (b[::-1] << 8) | (b << 16) | ((b ^ 0x55) << 24)
     q = lambda v: (v.astype(np.uint8).view(np.int8)).astype(np.float32)  # noqa: E731
@@ -78,13 +93,39 @@ def test_fragment_conversions_are_exact():
 
 @pytest.mark.parametrize("N,K", [(2560, 2048), (2048, 2048), (32768, 2048), (2048, 16384),
                                  (256000, 2048), (12288, 3072), (3072, 4096), (49152, 3072),
-                                 (3072, 24576), (256000, 3072), (1000, 1056)])
+                                 (3072, 24576), (256000, 3072), (1000, 1056),
+                                 # q4_k_m's attn_k and attn_v; the K-quants' edge cases
+                                 (256, 2048), (1000, 1280), (999, 1280)])
 def test_gemv_plan_covers_k_in_slices_that_fit(N, K):
-    """The plan at the main path's shapes: whole 32-blocks a slice, at most
-    the slice the shared x buffer holds, every K value in one slice."""
-    sl, splits = emu.gemv_plan(N, K)
-    assert sl % 32 == 0 and sl <= emu.GV_SLICE_MAX
-    assert (splits - 1) * sl < K <= splits * sl
+    """The plan at the main path's shapes (Gemma-2B q4_0 and q4_k_m,
+    Gemma-7B q8_0): whole 32-blocks a slice (q4_k and q6_k: whole
+    superblocks), at most the slice the shared x buffer holds, every K
+    value in one slice, and enough warps for the card where K allows."""
+    for gran, target in ((32, emu.GV_TARGET_WARPS), (emu.GV_SUPER_K, emu.GV_SUPER_TARGET_WARPS)):
+        if K % gran:
+            continue
+        sl, splits = emu.gemv_plan(N, K, gran=gran, target=target)
+        assert sl % gran == 0 and sl <= emu.GV_SLICE_MAX
+        assert (splits - 1) * sl < K <= splits * sl
+        warps = -(-N // 16) * splits
+        assert warps >= target * emu.H100_SMS or sl < 2 * emu.GV_SLICE_MIN
+
+
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+def test_kquant_gemv_emulation_matches_the_jax_kernel(fmt, monkeypatch):
+    """The K-quants' GEMV at M = 1 against `_q4_k_kernel` and `_q6_k_kernel`
+    (interpret mode) on the same weights (`from_jax` carries them exactly)
+    and the same bf16 x; the reference takes f32 weights at M <= 8."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    rng = np.random.default_rng(7)
+    jqt = quantize_array(rng.normal(size=(256, 1024)).astype(np.float32) * 0.05, fmt)
+    qt = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+    xj = jnp.asarray(rng.normal(size=(1, 1024)).astype(np.float32), jnp.bfloat16)
+    x = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    ref = np.asarray(jax_quant_matmul(xj, jqt), np.float32)
+    got = emu.gemv(x, qt)
+    assert got.shape == ref.shape == (1, 256)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 ATT_TOL = 2e-2  # of max|ref|: p rounded against a local max, bf16 outputs

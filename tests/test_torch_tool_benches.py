@@ -247,5 +247,7 @@ def test_attention_probes_run_on_the_card_only(monkeypatch):
             pv.main([mode])
     with pytest.raises(SystemExit, match="no CUDA device"):
         parent_turn.main(["--turn", "change", "--shapes", '{"flash": [], "decode": []}'])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        parent_turn.main(["--turn", "change", "--decode"])
     with pytest.raises(SystemExit):
         parent_turn.main([])  # neither --parent nor --turn
