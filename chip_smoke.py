@@ -116,8 +116,8 @@ SERVE_SLOTS = 8  # the serving step's rows: every format's tensor-core GEMV
 # and the tied head, which prefill runs at its last row only), the deep-K
 # shape of the reference's _q6_k_v4_kernel, and Gemma-7B's for q8_0, whose
 # head's plain version dequantizes 3.1 GB of f32 and so runs at decode M.
-# M = 1 is the decode step (q4_k and q6_k: the tensor-core GEMV; q4_0 and
-# q8_0: the SIMT GEMV), M = 8 the serving step
+# M = 1 is the decode step and M = 8 the serving step (every format: the
+# tensor-core GEMV of csrc/dq_gemv.cuh)
 MATMUL_SHAPES = {
     "q4_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
@@ -485,8 +485,8 @@ def check_edge_cases(torch, dev) -> None:
     of check_kernels (attention in f32: 1e-4, nothing rounds), also over
     the 8 serving rows (SERVE_LIMITS) as phase 6b decodes them. Every
     format takes K = 1280 (five superblocks), off the SIMT GEMV's
-    1024-element K-chunk, at every GEMV M (q4_0 and q8_0: 2-9; q4_k and
-    q6_k: 1-9); q4_0 and q8_0 also K = 1056, whose 33 blocks end the
+    1024-element K-chunk, at every GEMV M (1-9); q4_0 and q8_0 also K =
+    1056, whose 33 blocks end the
     tensor-core tile's K on a half step and put odd rows' scales at odd
     halves of their words, at N = 1000 and at N = 999 (an odd count of
     scales); q6_k also N = 999 at K = 1280, an odd count of its f16 d
@@ -505,9 +505,8 @@ def check_edge_cases(torch, dev) -> None:
                       ("q8_0", 1000, 1056), ("q8_0", 1000, 1280), ("q8_0", 999, 1056),
                       ("q4_k", 1000, 1280), ("q6_k", 1000, 1280), ("q6_k", 999, 1280)):
         qt = random_qtensor(fmt, N, K, gen, dev)
-        small = range(2, 10) if fmt in ("q4_0", "q8_0") else range(1, 10)
         for dtype in (torch.bfloat16, torch.float32):
-            for M in (*small, 17, 64, 70, 130, PROMPT_LEN):
+            for M in (*range(1, 10), 17, 64, 70, 130, PROMPT_LEN):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                 got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
                 err = (got - ref).abs().max().item()
@@ -724,8 +723,8 @@ def profiler_coverage(prof, before: dict[str, int]) -> str:
     """'<recorded> of <launched> quantized-matmul launches recorded' by a
     torch.profiler run that began at counters `before`: each wrapper
     call launches one GEMV or tile kernel (`dq_tile_kernel` for the bf16
-    prefill tiles, `dq_gemv_kernel` for q4_0's and q8_0's bf16 GEMV at
-    2 <= M <= 8). Busy times and idle shares read
+    prefill tiles, `dq_gemv_kernel` for every format's bf16 GEMV at
+    M <= 8). Busy times and idle shares read
     from the run rest on its records; a share below 1 makes busy read
     low and idle high."""
     after = read_counters()
@@ -763,7 +762,9 @@ def prefill_profile(torch, eng, prompt: list[int], runs: int = 5) -> tuple[float
 def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
     """Device time of greedy decode steps from torch.profiler: (busy ms per
     step, the five largest kernels' ms per step and the profiler's
-    coverage)."""
+    coverage, and the device kernels a step beside the quantized-matmul
+    wrapper launches a step: a K split summed in a second launch shows as
+    `dq_split_sum_kernel`, a GEMV off the tensor cores as a SIMT kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     tok = torch.tensor([last_tok], device=eng.device)
@@ -773,11 +774,19 @@ def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
             logits, cache = eng.decode_step(tok, cache)
             tok = logits.argmax(-1)
         torch.cuda.synchronize()
+    events = prof.key_averages()
     per_kernel = sorted(((getattr(e, "self_device_time_total", 0) / steps / 1e3, e.key)
-                         for e in prof.key_averages()), reverse=True)
+                         for e in events), reverse=True)
     busy = sum(ms for ms, _ in per_kernel)
     top = "; ".join(f"{name[:48]} {ms:.4f}" for ms, name in per_kernel[:5])
-    return busy, f"{top}; {profiler_coverage(prof, before)}"
+    after = read_counters()
+    wrapper = sum(after[k] - before[k] for k in after if k.endswith("_matmul")) / steps
+    kernels = sum(e.count for e in events if getattr(e, "self_device_time_total", 0) > 0) / steps
+    split_sums = sum(e.count for e in events if "dq_split_sum_kernel" in e.key) / steps
+    simt = sum(e.count for e in events if re.search(r"q[468]_[0k]_gemv_kernel", e.key)) / steps
+    counted = (f"device kernels a step {kernels:g} (quantized-matmul wrapper launches {wrapper:g}, "
+               f"second-launch split sums {split_sums:g}, SIMT GEMVs {simt:g})")
+    return busy, f"{top}; {profiler_coverage(prof, before)}; {counted}"
 
 
 def host_profile(torch, eng, cache, last_tok: int, steps: int = 4) -> str:

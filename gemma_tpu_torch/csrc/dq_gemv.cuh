@@ -1,11 +1,10 @@
 // The tensor-core GEMV of the quantized matmuls: y[M, N] (f32) = x[M, K]
 // (bf16) . dequant(W)^T at M <= 8 with bf16 x, the decode and serving steps'
-// shape. What launches it (each format's launcher, M <= 8 and bf16 x):
-// * q4_k and q6_k at 1 <= M <= 8 (`Q4KGemv` in q4_k_matmul.cu, `Q6KGemv` in
-//   q6_k_matmul.cu): every matmul of a q4_k_m decode step;
-// * q4_0 and q8_0 at 2 <= M <= 8 (`Q4_0Gemv`, `Q8_0Gemv` below); at M = 1
-//   they still run their SIMT GEMV (ROADMAP step 2 names that next).
-// f32 x (evaluation mode) runs each format's SIMT GEMV at M <= 8.
+// shape. Every format launches it at 1 <= M <= 8 with bf16 x: q4_k and q6_k
+// (`Q4KGemv` in q4_k_matmul.cu, `Q6KGemv` in q6_k_matmul.cu), q4_0 and q8_0
+// (`Q4_0Gemv`, `Q8_0Gemv` below), so every matmul of a batch-1 decode step
+// and of a serving step runs here. f32 x (evaluation mode) runs each
+// format's SIMT GEMV at M <= 8.
 //
 // Replaces, at that shape, the Pallas kernels `_q4_0_kernel`, `_q8_0_kernel`,
 // `_q4_k_kernel` and `_q6_k_kernel` (`_q6_k_v4_kernel` on its layout) of
@@ -27,14 +26,24 @@
 //   at or past M read as zeros (at M = 1 seven of eight columns: bytes, not
 //   the tensor cores, bound the kernel). One mma does 16 x 8 x 16 products.
 // * x is copied once a block, as bf16, by 16-byte cp.async: the block's
-//   K-slice of its M rows (<= kGvSliceMax values a row) and, below M = 8,
-//   one zero row that the lanes of rows >= M read, in shared memory,
-//   one barrier (q4_k: two, around the per-32 sums of x), then no
-//   block-level barrier at all.
+//   K-slice of its M rows (gemv_slice_max(M) values a row: at M = 1 up to
+//   all of K that a decode step has, so a split is made only to fill the
+//   card) and, at 2 <= M < 8, one zero row that the lanes of rows >= M
+//   read, in shared memory, one barrier (q4_k: two, around the per-32 sums
+//   of x), then no block-level barrier at all. At M = 1 those lanes read x
+//   itself: an output column depends only on its own column of x, and the
+//   seven are never stored; the block's shared memory stays under what
+//   q8_0's gate_up and head read fastest with (PERF.md).
 // * Each warp streams its 16 rows through its own ring of kGvStages stages
 //   (F::kStageK values a row: 16-byte cp.async of the payload, coalesced, and
 //   the format's scale bytes), so three stages are in flight while one is
-//   multiplied; a warp waits only on its own copies (`__syncwarp`).
+//   multiplied; a warp waits only on its own copies (`__syncwarp`). q4_0's
+//   and q8_0's payload copies have L2 fetch the row's next stage with this
+//   one (`.L2::128B`, `.L2::256B`: 2 x 64 and 2 x 128 bytes), so DRAM reads a
+//   row in runs of two stages, where kGvPrefetchAhead more stages of the
+//   slice follow (PERF.md). A block a 64-row tile: a grid of
+//   the blocks the card holds, each warp walking several tiles on one ring,
+//   was tried and read slower at the heads and q8_0's gate_up (PERF.md).
 // * ldmatrix on the raw payload bytes gives lane (g, t) the 32-bit word
 //   4t..4t+3 of rows g and g + 8 of a 16-byte piece: exactly the bytes its A
 //   fragment needs under this k order within a k16 step:
@@ -44,24 +53,30 @@
 //   becomes bf16x2 by one mask-or (128 + u) and a bf16x2 subtract of 136
 //   (`nibble_pair`), q6_k's 6-bit pairs the same way less 160
 //   (`six_bit_pair`), an int8 pair by the f32 magic 2^23 + 128 and a perm
-//   that keeps the high halves (`int8_pair`; exact: |q| <= 128).
+//   that keeps the high halves (`int8_pair`; exact: |q| <= 128; two
+//   mask-ors and a bf16x2 subtract a pair read slower, PERF.md).
 // * Scales: q4_0's and q8_0's f16 words are read where they landed; q4_k's
 //   6-bit table and q6_k's int8 scales are decoded once a row and
 //   superblock, by one lane each, into a warp's f32 table (`prepare`).
 // * K splits over blocks (grid y) where the row tiles hold too few warps to
-//   fill the card (q4_0, q8_0: 8 warps an SM; q4_k and q6_k, whose stages
-//   are a whole superblock, read fastest at 4, with twice the stages a
-//   warp). Each split writes its f32 partials to a workspace the caller
+//   fill the card (q4_0, q8_0: 8 warps an SM, slices down to 256; q4_k and
+//   q6_k, whose stages are a whole superblock, read fastest at 4 and 512,
+//   with twice the stages a warp). Each split writes its f32 partials to a workspace the caller
 //   allocates, and they are added in split order, so a row's sums do not
-//   depend on the other rows or on M: serving stays batch-invariant and
-//   deterministic. Where the grid holds at most kGvTicketBlocks blocks an
-//   SM (every split the plan makes to fill the card), the last block of a
-//   row tile to finish, found by a ticket a tile in a persistent buffer
-//   that the kernel leaves at 0, adds them in the same launch, all its
-//   loads in flight at once (`gemv_split_sum`); a wider grid (q8_0's splits
-//   to fit K = 3072 or 24576 in shared memory) adds them in a second
-//   launch, `dq_split_sum_kernel`, as every block's fence and ticket would
-//   lengthen each of its waves (PERF.md).
+//   depend on the other rows: serving stays batch-invariant and
+//   deterministic. The plan depends on M only through M = 1's wider slice:
+//   at 2 <= M <= 8 a row's sums do not depend on M, but at M = 1 a shape
+//   that splits at M >= 2 only to fit x (q8_0's K = 3072, K = 24576) sums
+//   in fewer splits, so its M = 1 and M >= 2 rows agree to the order of f32
+//   sums, not bit for bit. Where the grid holds at most kGvTicketBlocks
+//   blocks an SM (every split the plan makes to fill the card, and at M = 1
+//   every split of a main-path shape), the last block of a row tile to finish, found by a
+//   ticket a tile in a persistent buffer that the kernel leaves at 0, adds
+//   them in the same launch, all its loads in flight at once
+//   (`gemv_split_sum`); a wider grid (q8_0's splits at M >= 2 to fit K =
+//   3072 or 24576 in shared memory) adds them in a second launch,
+//   `dq_split_sum_kernel`, as every block's fence and ticket would lengthen
+//   each of its waves (PERF.md).
 //
 // A format is a functor F:
 //   struct F {
@@ -92,6 +107,8 @@
 //   };
 #pragma once
 
+#include <atomic>
+
 #include "dq_tile.cuh"
 
 namespace {
@@ -110,21 +127,25 @@ constexpr int kGvStageK = 128;      // K of q4_0's and q8_0's ring stage: four 3
 constexpr int kGvSuperK = 256;      // q4_k's and q6_k's superblock: their stage and split unit
 constexpr int kGvStages = 4;        // depth of each warp's ring
 constexpr int kGvScaleWords = 3;    // f16 words a row a stage: its 4 scales at any parity
-constexpr int kGvSliceMax = 2048;   // K of x a block holds in shared memory
-constexpr int kGvSliceMin = 512;    // K splits stop above this slice
+constexpr int kGvSliceMax = 2048;   // K of x a row a block holds in shared memory at M >= 2
+constexpr int kGvSliceMin = 512;    // K splits stop above this slice (q4_k, q6_k)
+constexpr int kGvBlockSliceMin = 256;  // the same for q4_0 and q8_0 (measured: PERF.md)
 constexpr int kGvTargetWarps = 8;   // warps an SM the K splits aim for (q4_0, q8_0)
 constexpr int kGvSuperTargetWarps = 4;  // the same for q4_k and q6_k (measured: PERF.md)
 constexpr int kGvTicketBlocks = 4;  // blocks an SM up to which a launch sums its own splits (measured)
+constexpr int kGvPrefetchAhead = 4;  // stages of a slice that must follow a copy for its L2 prefetch
 
 // the plan's constants: q4_0's and q8_0's (whole 32-blocks), and q4_k's
 // and q6_k's (whole superblocks)
 struct BlockPlan {
   static constexpr int kGran = 32;
   static constexpr int kTargetWarps = kGvTargetWarps;
+  static constexpr int kSliceMin = kGvBlockSliceMin;
 };
 struct SuperPlan {
   static constexpr int kGran = kGvSuperK;
   static constexpr int kTargetWarps = kGvSuperTargetWarps;
+  static constexpr int kSliceMin = kGvSliceMin;
 };
 
 // bf16x2 (u0 - 8, u1 - 8) of the nibbles in bits 0-3 and 16-19 of v
@@ -151,6 +172,22 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t u, int i, int j) {
   return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
 
+// cp_async16 whose L2 fill takes the kBytes (128 or 256) around src: the
+// rest of a row's run, which the warp's next stage reads
+template <int kBytes>
+__device__ __forceinline__ void cp_async16_l2(uint32_t dst, const void* src, bool valid) {
+  static_assert(kBytes == 128 || kBytes == 256, "cp.async L2 prefetch size");
+  if constexpr (kBytes == 256) {
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  }
+}
+
 // ldmatrix.x4 of 32 bytes at column `col` of a [16][pitch] byte tile: r[0] /
 // r[1]: rows g / g + 8, bytes 4t.. of the first 16; r[2] / r[3]: of the second
 __device__ __forceinline__ void ldmatrix_rows16(uint32_t (&r)[4], const unsigned char* tile,
@@ -171,6 +208,8 @@ struct BlockGemv : BlockPlan {
   static constexpr int kStageK = kGvStageK;
   static constexpr int kGroupK = 32;
   static constexpr int kRowBytes = kStageK / 32 * kBlockBytes;
+  // a row's run in L2: this stage's and the next's (PERF.md)
+  static constexpr int kPrefetch = 2 * kRowBytes < 256 ? 2 * kRowBytes : 256;
   static constexpr int kPitch = kRowBytes + 16;
   static constexpr int kScales = 16 * kPitch;
   static constexpr int kStage = kScales + 16 * kGvScaleWords * 4;
@@ -190,7 +229,11 @@ struct BlockGemv : BlockPlan {
       const bool ok = n0 + r < N && kb + c * 16 / kBlockBytes * 32 < khi;
       const uint8_t* src = w.qs + static_cast<size_t>(n0 + r) * row_bytes +
                            static_cast<size_t>(kb) / 32 * kBlockBytes + c * 16;
-      cp_async16(smem_u32(stage + r * kPitch + c * 16), ok ? src : w.qs, ok);
+      const uint32_t dst = smem_u32(stage + r * kPitch + c * 16);
+      if (kb + kGvPrefetchAhead * kStageK < khi)  // a short slice reads no faster with it (PERF.md)
+        cp_async16_l2<kPrefetch>(dst, ok ? src : w.qs, ok);
+      else
+        cp_async16(dst, ok ? src : w.qs, ok);
     }
 #pragma unroll
     for (int i = lane; i < 16 * kGvScaleWords; i += 32) {
@@ -242,8 +285,14 @@ struct BlockGemv : BlockPlan {
 using Q4_0Gemv = BlockGemv<16>;
 using Q8_0Gemv = BlockGemv<32>;
 
-// rows of the x slice in shared memory: M, and below 8 one row of zeros
-__host__ __device__ constexpr int gemv_x_rows(int M) { return M < 8 ? M + 1 : 8; }
+// rows of the x slice in shared memory: M, and at 2 <= M < 8 one row of
+// zeros
+__host__ __device__ constexpr int gemv_x_rows(int M) { return M == 1 ? 1 : M < 8 ? M + 1 : 8; }
+
+// K values of x a row a block holds in shared memory: at M = 1 eight times
+// kGvSliceMax, no more bytes than 8 rows of kGvSliceMax, so a split is made
+// only to fill the card
+__host__ __device__ constexpr int gemv_slice_max(int M) { return M == 1 ? 8 * kGvSliceMax : kGvSliceMax; }
 
 // shared bytes of a block at M rows of x and a K-slice: x [gemv_x_rows(M)]
 // [slice + 16] bf16 (a pitch of 32 mod 128 bytes, so the 8-byte x reads of
@@ -346,7 +395,8 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
   auto compute = [&](int st) {
     const unsigned char* src = ring + (st % kS) * F::kStage;
     const int kb = klo + st * F::kStageK;
-    const __nv_bfloat16* xrow = xs + min(g, M) * xpitch + (kb - klo) + 4 * t;  // rows >= M: zeros
+    // rows >= M: the zero row (M = 1: x, its columns unused)
+    const __nv_bfloat16* xrow = xs + min(g, xrows - 1) * xpitch + (kb - klo) + 4 * t;
 #pragma unroll
     for (int p = 0; p < F::kPieces; ++p) {
       uint32_t r[F::kWords];
@@ -454,18 +504,19 @@ struct GemvPlan {
   int splits;  // grid y
 };
 
-// The plan at (N, K), whatever M: the fewest splits whose slice (whole
-// multiples of P::kGran) fits kGvSliceMax, doubled while the row tiles hold
-// fewer than P::kTargetWarps warps an SM and each slice keeps at least
-// kGvSliceMin.
+// The plan at (M, N, K): the fewest splits whose slice (whole multiples of
+// P::kGran) fits gemv_slice_max(M), doubled while the row tiles hold fewer
+// than P::kTargetWarps warps an SM and each slice keeps at least
+// P::kSliceMin. It depends on M only through gemv_slice_max: at M = 1 only
+// the card's fill splits K.
 template <class P>
-GemvPlan dq_gemv_plan(int N, int K) {
+GemvPlan dq_gemv_plan(int M, int N, int K) {
   const long tiles = (N + 15) / 16;
   auto slice_of = [K](int splits) { return (K / P::kGran + splits - 1) / splits * P::kGran; };
   int splits = 1;
-  while (slice_of(splits) > kGvSliceMax) splits *= 2;
+  while (slice_of(splits) > gemv_slice_max(M)) splits *= 2;
   while (tiles * splits < static_cast<long>(P::kTargetWarps) * sm_count() &&
-         slice_of(2 * splits) >= kGvSliceMin)
+         slice_of(2 * splits) >= P::kSliceMin)
     splits *= 2;
   const int slice = slice_of(splits);
   return {slice, (K + slice - 1) / slice};
@@ -474,7 +525,7 @@ GemvPlan dq_gemv_plan(int N, int K) {
 // bytes of the workspace of a (M, N, K) GEMV of plan P (0: none)
 template <class P>
 size_t dq_gemv_work_bytes(int M, int N, int K) {
-  const GemvPlan p = dq_gemv_plan<P>(N, K);
+  const GemvPlan p = dq_gemv_plan<P>(M, N, K);
   return p.splits > 1 ? static_cast<size_t>(p.splits) * M * N * sizeof(float) : 0;
 }
 
@@ -486,24 +537,46 @@ inline bool dq_gemv_ticket_sum(const GemvPlan& p, int N) {
   return p.splits > 1 && tiles * p.splits <= static_cast<long>(kGvTicketBlocks) * sm_count();
 }
 
-// tickets of a (N, K) GEMV of plan P: one a row tile where it sums its
+// tickets of a (M, N, K) GEMV of plan P: one a row tile where it sums its
 // splits by ticket (0: none)
 template <class P>
-int dq_gemv_tickets(int N, int K) {
-  return dq_gemv_ticket_sum(dq_gemv_plan<P>(N, K), N) ? ((N + 15) / 16 + kGvWarps - 1) / kGvWarps : 0;
+int dq_gemv_tickets(int M, int N, int K) {
+  return dq_gemv_ticket_sum(dq_gemv_plan<P>(M, N, K), N) ? ((N + 15) / 16 + kGvWarps - 1) / kGvWarps : 0;
 }
 
-// work: dq_gemv_work_bytes<F>(M, N, K) bytes, tickets: dq_gemv_tickets<F>(N,
-// K) ints, 0 (each may be null when its size is 0)
+constexpr int kGvDevices = 16;  // devices whose shared memory limits are remembered
+
+// Raise dq_gemv_kernel<F>'s dynamic shared memory limit on the current
+// device to at least `smem`. The limit set is remembered a device, so a
+// launch pays the runtime call only when it needs more than any before: a
+// decode step's 73-113 launches wait on the host (PERF.md).
+template <class F>
+cudaError_t gemv_smem_limit(size_t smem) {
+  static std::atomic<int> limits[kGvDevices];  // bytes set so far, 0 on start
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::atomic<int>* limit = dev < kGvDevices ? &limits[dev] : nullptr;
+  if (limit != nullptr && static_cast<int>(smem) <= limit->load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(dq_gemv_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess && limit != nullptr) {
+    int seen = limit->load(std::memory_order_relaxed);
+    while (seen < static_cast<int>(smem) && !limit->compare_exchange_weak(seen, static_cast<int>(smem))) {
+    }
+  }
+  return e;
+}
+
+// work: dq_gemv_work_bytes<F>(M, N, K) bytes, tickets: dq_gemv_tickets<F>(M,
+// N, K) ints, 0 (each may be null when its size is 0)
 template <class F>
 cudaError_t launch_dq_gemv(const __nv_bfloat16* x, const typename F::Weight& w, float* y, float* work,
                            int* tickets, int M, int N, int K, cudaStream_t s) {
-  const GemvPlan p = dq_gemv_plan<F>(N, K);
+  const GemvPlan p = dq_gemv_plan<F>(M, N, K);
   const bool ticket = dq_gemv_ticket_sum(p, N);
   if (p.splits > 1 && (work == nullptr || (ticket && tickets == nullptr))) return cudaErrorInvalidValue;
   const size_t smem = gemv_smem_bytes<F>(M, p.slice);
-  const cudaError_t e = cudaFuncSetAttribute(dq_gemv_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
+  const cudaError_t e = gemv_smem_limit<F>(smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(((N + 15) / 16 + kGvWarps - 1) / kGvWarps, p.splits);
   dq_gemv_kernel<F><<<grid, kGvWarps * 32, smem, s>>>(x, w, y, work, ticket ? tickets : nullptr, M, N, K,

@@ -9,20 +9,27 @@
 //
 // Four launch shapes, one op:
 //
-// * Decode at M = 1, and with f32 x at M <= 8, is bound by weight bytes:
-//   each weight is used M times, far below the card's ~295 flop/byte
-//   balance point. `q4_0_gemv_kernel` (SIMT) gives each warp one output
-//   row; a lane's 16-byte load along K is exactly one block (32 nibbles +
-//   one scale), so a warp reads 512 contiguous bytes per step. Nibbles
+// * Decode (M <= 8) is bound by weight bytes: each weight is used M times,
+//   far below the card's ~295 flop/byte balance point. With bf16 x it runs
+//   on the tensor cores, the batch-1 decode step (M = 1) and serving (2 <=
+//   M <= 8) alike: `dq_gemv_kernel<Q4_0Gemv>` of dq_gemv.cuh (W the A
+//   operand of bf16 mma.sync as its integers u - 8, x the n8 operand, each
+//   block's fragment scaled by d in f32: the gdot numerics below), with x
+//   copied once a block, each warp's rows streamed through its own cp.async
+//   ring, and at M = 1 K split only to fill the card.
+// * With f32 x (evaluation mode) at M <= 8, `q4_0_gemv_kernel` (SIMT)
+//   gives each warp one output row; a lane's 16-byte load along K is
+//   exactly one block (32 nibbles + one scale), so a warp reads 512
+//   contiguous bytes per step. Nibbles
 //   unpack and scale in registers, FMA into f32, and a warp shuffle reduces.
 //   x is staged in shared memory in K-chunks of 1024 (all of K = 16384 at
 //   M = 8 in f32 would not fit), padded to 36 floats per block so the
 //   lanes' float4 reads do not conflict on banks. Numerics follow the
 //   reference kernel at M <= 8: weights and x in f32. Rows per block
 //   (warps), the dot form (Mode) and the scale type are template
-//   parameters; the main path launches kGemvWarps = 8, kGDot, f16 scales.
-//   Two bench entry points launch the same kernel at M = 8 with bf16 x (a
-//   shape the main path runs on the tensor cores, below):
+//   parameters; f32 x launches kGemvWarps = 8, kGDot, f16 scales.
+//   Two bench entry points launch the same kernel with bf16 x (a shape the
+//   main path runs on the tensor cores):
 //   `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps (replaces `call` of
 //   tools/bench_bn_sweep.py, the reference kernel at a forced N tile) and
 //   `gt_qmm_variant` in the modes below with f32, bf16 or f16 scales
@@ -33,15 +40,9 @@
 //     kRsc      w = bf16((u - 8) * d)            (its f32sc, rsc, u16sc)
 //     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (its bf16sc, rscb)
 //     kNoScale  w = u - 8
-//     kGDot     d * sum_32((u - 8) * x)          (the main path's, gdot)
+//     kGDot     d * sum_32((u - 8) * x)          (f32 x's, gdot)
 //   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
 //   scale's broadcast lived; here each pair is one instantiation.
-// * Serving (2 <= M <= 8) with bf16 x, also bound by weight bytes, runs on
-//   the tensor cores: `dq_gemv_kernel<Q4_0Gemv>` of dq_gemv.cuh (W the A operand
-//   of bf16 mma.sync as its integers u - 8, x the n8 operand, each block's
-//   fragment scaled by d in f32: the same gdot numerics), with x copied
-//   once a block and each warp's rows streamed through its own cp.async
-//   ring.
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
 //   bound by operations: the shared tensor-core tile of dq_tile.cuh
 //   (`dq_tile_kernel<Q4_0Tile>`: bf16 mma.sync, f32 accumulators, x and the
@@ -304,16 +305,17 @@ cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void*
   float* yp = static_cast<float*>(y);
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (M > 8) return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    if (M > 1)
-      return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
-                                      N, K, s);
-  } else if (M > 8) {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
+    return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M, N,
+                                    K, s);
+  } else {
+    if (M > 8) {
+      const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+      q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
+    } else {
+      launch_gemv<TX>(xp, w.qs, w.scales, yp, M, N, K, s);
+    }
     return cudaGetLastError();
   }
-  launch_gemv<TX>(xp, w.qs, w.scales, yp, M, N, K, s);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -337,8 +339,8 @@ extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const 
 // The scratch a quantized matmul of format `fmt` (0 q4_0, 1 q8_0, 2 q4_k,
 // 3 q6_k: kernels/build.py FORMAT_CODES) takes at (x_dtype, M, N, K):
 // returns the bytes of its f32 scratch, the K-split partial sums of its
-// bf16 prefill tile (M > 8) or of its tensor-core GEMV (q4_0 and q8_0:
-// 2 <= M <= 8; q4_k and q6_k: M <= 8), and sets *tickets to the count of
+// bf16 prefill tile (M > 8) or of its tensor-core GEMV (M <= 8), and sets
+// *tickets to the count of
 // ints (0 between launches) the GEMV's last block a row tile takes to sum
 // the splits; each 0 where there is none.
 extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K, int* tickets) {
@@ -346,12 +348,11 @@ extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K
   if (x_dtype != kBF16 || M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
   if (M > 8) return dq_tile_work_bytes(M, N, K);
   if (fmt <= 1) {
-    if (M == 1) return 0;
-    *tickets = dq_gemv_tickets<BlockPlan>(N, K);
+    *tickets = dq_gemv_tickets<BlockPlan>(M, N, K);
     return dq_gemv_work_bytes<BlockPlan>(M, N, K);
   }
   if (K % kGvSuperK != 0) return 0;
-  *tickets = dq_gemv_tickets<SuperPlan>(N, K);
+  *tickets = dq_gemv_tickets<SuperPlan>(M, N, K);
   return dq_gemv_work_bytes<SuperPlan>(M, N, K);
 }
 
@@ -392,8 +393,8 @@ bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc,
 
 // The q4_0 SIMT GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K],
 // scales [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32:
-// M = 8 in every mode; kGDot on f16 scales at any M <= 8 (the main path's
-// launch at M = 1). Returns a cudaError_t value.
+// M = 8 in every mode; kGDot on f16 scales at any M <= 8 (the kernel f32 x
+// launches, here on bf16 x). Returns a cudaError_t value.
 extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales,
                               int sc_dtype, void* y, int M, int N, int K, void* stream) {
   if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);

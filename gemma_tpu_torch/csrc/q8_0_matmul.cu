@@ -11,20 +11,20 @@
 // * Decode (M <= 8) is bound by weight bytes, 8.5 bits per weight: each
 //   weight is used M times, far below the card's ~295 flop/byte balance
 //   point (Gemma-7B reads 9.07 GB of q8_0 weights per token, 2.71 ms at
-//   3.35 TB/s). At M = 1, and with f32 x at any M <= 8, `q8_0_gemv_kernel`
-//   (SIMT) gives each warp one output row; a lane takes one 32-byte block
-//   as two 16-byte loads, so a warp reads 1 KB contiguous per step. The
-//   int8 values widen in registers, FMA into f32 against x, and the block's
-//   sum is scaled by d once; a warp shuffle reduces. x is staged in shared
-//   memory in K-chunks of 1024 (all of K = 24576 at M = 8 in f32 would not
-//   fit), padded to 36 floats per block so the lanes' float4 reads do not
-//   conflict on banks. Numerics follow the reference kernel at M <= 8:
-//   weights and x in f32.
-// * Serving (2 <= M <= 8) with bf16 x runs on the tensor cores:
-//   `dq_gemv_kernel<Q8_0Gemv>` of dq_gemv.cuh (W the A operand of bf16 mma.sync
-//   as its int8 values, x the n8 operand, each block's fragment scaled by d
-//   in f32: the same numerics), with x copied once a block and each warp's
-//   rows streamed through its own cp.async ring.
+//   3.35 TB/s). With bf16 x, the batch-1 decode step (M = 1) and serving
+//   (2 <= M <= 8) run on the tensor cores: `dq_gemv_kernel<Q8_0Gemv>` of
+//   dq_gemv.cuh (W the A operand of bf16 mma.sync as its int8 values, two
+//   mask-ors and a bf16x2 subtract a pair, x the n8 operand, each block's
+//   fragment scaled by d in f32: the reference's numerics at M <= 8), with
+//   x copied once a block, each warp's rows streamed through its own
+//   cp.async ring, and at M = 1 K split only to fill the card. With f32 x
+//   (evaluation mode) `q8_0_gemv_kernel` (SIMT) gives each warp one output
+//   row; a lane takes one 32-byte block as two 16-byte loads, so a warp
+//   reads 1 KB contiguous per step. The int8 values widen in registers,
+//   FMA into f32 against x, and the block's sum is scaled by d once; a
+//   warp shuffle reduces. x is staged in shared memory in K-chunks of 1024
+//   (all of K = 24576 at M = 8 in f32 would not fit), padded to 36 floats
+//   per block so the lanes' float4 reads do not conflict on banks.
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
 //   bound by operations: the shared tensor-core tile of dq_tile.cuh
 //   (`dq_tile_kernel<Q8_0Tile>`: bf16 mma.sync, f32 accumulators, x and the
@@ -59,9 +59,9 @@ __device__ __forceinline__ void unpack16(uint4 raw, float* w) {
   for (int i = 0; i < 16; ++i) w[i] = sbyte(words[i / 4], i % 4);
 }
 
-template <int M, typename TX>
+template <int M>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-q8_0_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qs,
+q8_0_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
                  const __half* __restrict__ scales, float* __restrict__ y, int N, int K) {
   __shared__ __align__(16) float xs[M][kGemvBlocks][kXPad];
   const int warp = threadIdx.x / 32;
@@ -81,7 +81,7 @@ q8_0_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ qs,
     for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
       const int m = i / kGemvKChunk;
       const int kk = i % kGemvKChunk;
-      xs[m][kk / 32][kk % 32] = kk < klen ? to_f32(x[static_cast<size_t>(m) * K + k0 + kk]) : 0.f;
+      xs[m][kk / 32][kk % 32] = kk < klen ? x[static_cast<size_t>(m) * K + k0 + kk] : 0.f;
     }
     __syncthreads();
     const int b = k0 / 32 + lane;
@@ -191,25 +191,20 @@ q8_0_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 }
 
-// bf16 x takes the SIMT GEMV at M = 1 only (the tensor cores above)
-template <typename TX>
-void launch_gemv(const TX* x, const int8_t* qs, const __half* sc, float* y, int M, int N, int K,
+// f32 x only (bf16 x takes the tensor cores above)
+void launch_gemv(const float* x, const int8_t* qs, const __half* sc, float* y, int M, int N, int K,
                  cudaStream_t s) {
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const dim3 block(kGemvWarps * 32);
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    q8_0_gemv_kernel<1, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K);
-  } else {
-    switch (M) {
-      case 1: q8_0_gemv_kernel<1, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 2: q8_0_gemv_kernel<2, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 3: q8_0_gemv_kernel<3, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 4: q8_0_gemv_kernel<4, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 5: q8_0_gemv_kernel<5, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 6: q8_0_gemv_kernel<6, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      case 7: q8_0_gemv_kernel<7, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-      default: q8_0_gemv_kernel<8, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    }
+  switch (M) {
+    case 1: q8_0_gemv_kernel<1><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 2: q8_0_gemv_kernel<2><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 3: q8_0_gemv_kernel<3><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 4: q8_0_gemv_kernel<4><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 5: q8_0_gemv_kernel<5><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 6: q8_0_gemv_kernel<6><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 7: q8_0_gemv_kernel<7><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    default: q8_0_gemv_kernel<8><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
   }
 }
 
@@ -266,16 +261,17 @@ cudaError_t launch_q8_0(const void* x, const void* qs, const void* scales, void*
   float* yp = static_cast<float*>(y);
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (M > 8) return launch_dq_tile<Q8_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    if (M > 1)
-      return launch_dq_gemv<Q8_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
-                                      N, K, s);
-  } else if (M > 8) {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q8_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, w.scales, yp, M, N, K);
+    return launch_dq_gemv<Q8_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M, N,
+                                    K, s);
+  } else {
+    if (M > 8) {
+      const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+      q8_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, w.scales, yp, M, N, K);
+    } else {
+      launch_gemv(xp, qp, w.scales, yp, M, N, K, s);
+    }
     return cudaGetLastError();
   }
-  launch_gemv<TX>(xp, qp, w.scales, yp, M, N, K, s);
-  return cudaGetLastError();
 }
 
 }  // namespace

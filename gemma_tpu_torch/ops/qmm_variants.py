@@ -5,8 +5,8 @@ kernels in the reference's timing tools, each with its plain version.
   tools/bench_qmm_variants.py and `kernel`/`kernel2` of tools/probe_int4.py):
   q4_0's SIMT GEMV at M = 8 over the port's q4_0 payload with f32, bf16 or
   f16-bit scales, in the modes of `VARIANT_MODES` (gdot on f16 scales, at
-  any M <= 8, is the kernel the main path launches at M = 1 and with f32
-  x; bf16 x at 2 <= M <= 8 takes the tensor-core GEMV of `csrc/dq_gemv.cuh`);
+  any M <= 8, is the kernel the main path launches with f32 x; bf16 x at
+  M <= 8 takes the tensor-core GEMV of `csrc/dq_gemv.cuh`);
 * `int4_dot` (`csrc/qmm_variants.cu`, replaces `kernel3` of
   tools/probe_int4.py): int8 x [M, K] against int4 w [N, K/2] -> int32;
 * `row_checksum` (`csrc/qmm_variants.cu`, the `stream` modes of

@@ -11,11 +11,10 @@ it replaces, what bounds it on the H100 and how the design answers that:
 With bf16 x, every format runs on the tensor cores above M = 8, through the
 shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`, f32 accumulators, x
 copied by `cp.async`, the weight dequantized to bf16 in shared memory), and
-at M <= 8 through the GEMV of `csrc/dq_gemv.cuh` (the weight's integers
-against x in bf16 `mma.sync`, scaled per group in f32): q4_k and q6_k at
-1 <= M <= 8, q4_0 and q8_0 at 2 <= M <= 8. The rest is SIMT: q4_0's and
-q8_0's GEMV at M = 1, and with f32 x (evaluation mode) every format's GEMV
-at M <= 8 and plain-FMA tiles above.
+at 1 <= M <= 8 through the GEMV of `csrc/dq_gemv.cuh` (the weight's
+integers against x in bf16 `mma.sync`, scaled per group in f32), the
+batch-1 decode step included. Only f32 x (evaluation mode) runs SIMT:
+every format's GEMV at M <= 8 and plain-FMA tiles above.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):

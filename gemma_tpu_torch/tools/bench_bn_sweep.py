@@ -4,7 +4,7 @@ pay on the 256000-row head?
 The counterpart of the reference's `tools/bench_bn_sweep.py`, which forced
 the N tile (bn 2048, 4096, 8192) of its production kernel. Here the same
 question is the rows (warps) per block of `q4_0_gemv_kernel`
-(`csrc/q4_0_matmul.cu`; the main path's at M = 1): 4, 8 (shipped), 16 and 32, through
+(`csrc/q4_0_matmul.cu`; f32 x's at M <= 8): 4, 8 (shipped), 16 and 32, through
 `gt_q4_0_gemv_warps`. Times are L2 cold (`_timing.py`); each line gives
 GB/s at the weight's wire bytes plus x and y.
 

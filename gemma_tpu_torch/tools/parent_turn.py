@@ -19,8 +19,9 @@ on PYTHONPATH (its own kernels, built at first use, and its own
   shapes of `probe_variants attn` (this tree's tables, handed to every
   turn), all through the public wrappers, so each tree takes its own
   kernels and routes;
-* chip_smoke's `main_path` for Gemma-2B q4_0 and q4_k_m (prefill wall and
-  device profile, decode step, host profile);
+* chip_smoke's `main_path` for Gemma-2B q4_0 and q4_k_m and Gemma-7B q8_0
+  (prefill wall and device profile, decode step with its busy time and
+  kernel count, host profile);
 * a device profile of a 2048-token Gemma-2B q4_0 prefill (busy time by
   kernel);
 * `bench_prefill` q4_0 and chip_smoke's `serving` over the dense bf16 and
@@ -151,6 +152,7 @@ def turn(tag: str, shapes: dict, outputs: str | None = None) -> None:
     print(tag, "kernels device ms, warm:", json.dumps(times), flush=True)
     c.main_path(torch, dev, card, "Gemma-2B", "q4_0")
     c.main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
+    c.main_path(torch, dev, card, "Gemma-7B", "q8_0")
     model = make_params(GEMMA_2B, "q4_0", seed=0, device=dev)
     eng = Engine(GEMMA_2B, model, EngineConfig(max_seq_len=4096, max_batch=1))
     med, prof = c.prefill_profile(torch, eng, [2 + i % 1000 for i in range(2048)], runs=3)

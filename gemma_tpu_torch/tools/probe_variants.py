@@ -3,7 +3,7 @@ measurements behind the tensor-core GEMV's constants (`csrc/dq_gemv.cuh`)
 and the tile plan (`csrc/dq_tile.cuh`), and ablations that say where a
 kernel's time goes; and the tensor-core attention kernels' launch shapes.
 
-    python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8]
+    python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8] [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
     python -m gemma_tpu_torch.tools.probe_variants attn
     python -m gemma_tpu_torch.tools.probe_variants mutants
@@ -34,12 +34,15 @@ the weight dequantized to bf16 beforehand) and each variant's time, all
 device ms with L2 cold (`_timing.py`). Variants named `ab_*` drop a part
 of the kernel and compute wrong results, so they are timed only; every
 other variant is first held to the plain version within 1e-4 x max|ref|.
-Runs on the card only.
+`--parent DIR` (a commit unpacked with `git archive`) adds its kernels,
+built from its `csrc/`, as one more variant named `parent`. Runs on the
+card only.
 """
 from __future__ import annotations
 
 import argparse
 import shutil
+from pathlib import Path
 
 import torch
 
@@ -76,8 +79,11 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "sl1024": [_gv("kGvSliceMax = 2048;", "kGvSliceMax = 1024;")],
     "sk256": [_gv("kGvStageK = 128;", "kGvStageK = 256;"),
               _gv("kGvScaleWords = 3;", "kGvScaleWords = 5;")],
-    "nosplit": [_gv("kGvSliceMin = 512;", "kGvSliceMin = 1 << 30;")],
+    "nosplit": [_gv("kGvSliceMin = 512;", "kGvSliceMin = 1 << 30;"),
+                _gv("kGvBlockSliceMin = 256;", "kGvBlockSliceMin = 1 << 30;")],
     "sl256": [_gv("kGvSliceMin = 512;", "kGvSliceMin = 256;")],
+    # q4_0's and q8_0's splits stop above 512 (the parent's), not 256
+    "bsl512": [_gv("kGvBlockSliceMin = 256;", "kGvBlockSliceMin = 512;")],
     # the K-quants' split target alone (q4_0 and q8_0 keep theirs)
     "ktw2": [_gv("kGvSuperTargetWarps = 4;", "kGvSuperTargetWarps = 2;")],
     "ktw8": [_gv("kGvSuperTargetWarps = 4;", "kGvSuperTargetWarps = 8;")],
@@ -99,6 +105,81 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # no weight bytes copied at all (the x slice still is)
     "ab_gv_noload": [_gv("    F::copy(w, ring + (st % kS) * F::kStage, lane, n0, N, K, "
                          "klo + st * F::kStageK, khi);", "")],
+    # q4_0's and q8_0's A fragments as the raw payload words: no conversion
+    "ab_gv_noconv": [_gv("""      a[0] = nibble_pair(w0 >> (4 * s));
+      a[1] = nibble_pair(w1 >> (4 * s));
+      a[2] = nibble_pair(w0 >> (4 * s + 8));
+      a[3] = nibble_pair(w1 >> (4 * s + 8));""", """      a[0] = w0 >> (4 * s);
+      a[1] = w1 >> (4 * s);
+      a[2] = w0 >> (4 * s + 8);
+      a[3] = w1 >> (4 * s + 8);"""),
+                     _gv("""      a[0] = int8_pair(u0, 0, 2);
+      a[1] = int8_pair(u1, 0, 2);
+      a[2] = int8_pair(u0, 1, 3);
+      a[3] = int8_pair(u1, 1, 3);""", """      a[0] = u0;
+      a[1] = u1;
+      a[2] = u0 >> 8;
+      a[3] = u1 >> 8;""")],
+    # q8_0's int8 pairs as bf16 128 + (q & 127) less 128, or 256 where q < 0:
+    # two mask-ors and a bf16x2 subtract a pair in place of the f32 magic
+    "mask8": [_gv("// bf16x2 (q_i, q_j) of the int8 bytes i and j of w, given u = w ^ 0x80808080\n",
+                  """__device__ __forceinline__ uint32_t int8_pair_mask(uint32_t v) {
+  const uint32_t b = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (v & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+"""),
+              _gv("""      a[0] = int8_pair(u0, 0, 2);
+      a[1] = int8_pair(u1, 0, 2);
+      a[2] = int8_pair(u0, 1, 3);
+      a[3] = int8_pair(u1, 1, 3);""", """      a[0] = int8_pair_mask(r[2 * s]);
+      a[1] = int8_pair_mask(r[2 * s + 1]);
+      a[2] = int8_pair_mask(r[2 * s] >> 8);
+      a[3] = int8_pair_mask(r[2 * s + 1] >> 8);""")],
+    # q4_0's and q8_0's scale parity in 32-bit ops: the parity of a product
+    # is the AND of the parities, of a sum their XOR
+    "par32": [_gv("((static_cast<size_t>(n0 + g + 8 * h) * (K / 32) + kb / 32) & 1);",
+                  "((((n0 + g + 8 * h) & (K / 32)) ^ (kb / 32)) & 1);")],
+    # six blocks an SM by registers (at most 80 a thread)
+    "lb6": [_gv("__launch_bounds__(kGvWarps * 32, 4)", "__launch_bounds__(kGvWarps * 32, 6)")],
+    # q4_0's and q8_0's payload copies without their L2 prefetch of the row's next stage
+    "nopf": [_gv("kGvPrefetchAhead = 4;", "kGvPrefetchAhead = 1 << 20;")],
+    # the L2 prefetch at every stage of every slice
+    "pfall": [_gv("kGvPrefetchAhead = 4;", "kGvPrefetchAhead = 0;")],
+    "st5": [_gv("kGvStages = 4;", "kGvStages = 5;")],
+    # q4_0's and q8_0's stage rows unpadded, each 16-byte chunk c of row r at
+    # c ^ (r & 7) (q8_0's 128-byte rows) or c ^ ((r / 2) & 3) (q4_0's 64):
+    # the ldmatrix phases stay on distinct banks, and q8_0 holds 5 blocks
+    # an SM at M <= 2 in place of 4
+    "swz": [_gv("  static constexpr int kPitch = kRowBytes + 16;", "  static constexpr int kPitch = kRowBytes;"),
+            _gv("      const uint32_t dst = smem_u32(stage + r * kPitch + c * 16);",
+                "      const int sw = kRowBytes >= 128 ? r & 7 : (r / (128 / kRowBytes)) & (kRowBytes / 16 - 1);\n"
+                "      const uint32_t dst = smem_u32(stage + r * kPitch + (c ^ sw) * 16);"),
+            _gv("    ldmatrix_rows16(r, stage, kPitch, 32 * p, lane);",
+                "    const int row = (lane & 7) + ((lane >> 3) & 1) * 8, c = 2 * p + (lane >> 4);\n"
+                "    const int sw = kRowBytes >= 128 ? row & 7 : (row / (128 / kRowBytes)) & (kRowBytes / 16 - 1);\n"
+                "    ldmatrix_x4(r, smem_u32(stage + row * kPitch + (c ^ sw) * 16));")],
+    **{f"run{n}": [_gv("""        cp_async16(dst, ok ? src : w.qs, ok);
+    }
+""", f"""        cp_async16(dst, ok ? src : w.qs, ok);
+    }}
+    // at the first stage of each {n}-byte run of the rows, one lane a row
+    // asks L2 for the run (to khi) by one bulk prefetch
+    if (lane < 16 && n0 + lane < N && (kb / 32 * kBlockBytes) % {n} == 0) {{
+      const int bytes = min({n}, (khi - kb) / 32 * kBlockBytes);
+      const uint8_t* src = w.qs + static_cast<size_t>(n0 + lane) * row_bytes + static_cast<size_t>(kb) / 32 * kBlockBytes;
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n" ::"l"(src), "r"(bytes) : "memory");
+    }}
+""")] for n in (512, 1024, 2048)},
+    # the L2 prefetch where the row's next stage lies in the block's slice
+    "pfin": [_gv("kGvPrefetchAhead = 4;", "kGvPrefetchAhead = 1;")],
+    # M = 1 holds x slices no wider than M >= 2 (the parent's plan)
+    "m1slice": [_gv("return M == 1 ? 8 * kGvSliceMax : kGvSliceMax;", "return kGvSliceMax;")],
+    # M = 1 holds a zero row beside x, as M >= 2 does (the parent's)
+    "m1zero": [_gv("return M == 1 ? 1 : M < 8 ? M + 1 : 8;", "return M < 8 ? M + 1 : 8;"),
+               _gv("return M == 1 ? 8 * kGvSliceMax : kGvSliceMax;", "return M == 1 ? 4 * kGvSliceMax : kGvSliceMax;")],
     # how the GEMV sums its K splits: by ticket in the same launch at every
     # grid, or in a second launch at every grid; four outputs a thread of
     # the ticket sum at every M
@@ -163,8 +244,12 @@ def build_variant(name: str):
     return build.build_library(csrc, root)
 
 
-def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.device) -> None:
+def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.device,
+        parent: str | None = None) -> None:
     libs = {name: build_variant(name) for name in names}
+    if parent:  # the parent commit's kernels, timed and held like a variant
+        libs["parent"] = build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
+                                             build.BUILD_DIR / "variants" / "parent")
     gen = T.generator(dev)
     for fmt in fmts:
         for sname, N, K in SHAPES[fmt]:
@@ -368,6 +453,7 @@ def main(argv=None) -> None:
                     help="comma-separated names of VARIANTS")
     ap.add_argument("--fmt", default="q4_0,q8_0")
     ap.add_argument("--ms", default=None, help="rows of x (gemv: 1,8; tile: 17,64,203)")
+    ap.add_argument("--parent", help="the parent commit unpacked here: its kernels timed beside the variants")
     args = ap.parse_args(argv)
     names = args.variants.split(",")
     unknown = [n for n in names if n not in VARIANTS]
@@ -382,7 +468,7 @@ def main(argv=None) -> None:
         return
     ms = [int(m) for m in (args.ms or ("1,8" if args.mode == "gemv" else "17,64,203")).split(",")]
     print(T.card_line(dev), flush=True)
-    run(args.mode, names, args.fmt.split(","), ms, dev)
+    run(args.mode, names, args.fmt.split(","), ms, dev, args.parent)
 
 
 if __name__ == "__main__":

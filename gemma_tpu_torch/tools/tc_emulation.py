@@ -45,6 +45,7 @@ from ..quant.qtensor import QTensor
 # constants of csrc/dq_gemv.cuh
 GV_WARPS, GV_STAGE_K, GV_SUPER_K, GV_STAGES, GV_SCALE_WORDS = 4, 128, 256, 4, 3
 GV_SLICE_MAX, GV_SLICE_MIN, GV_TARGET_WARPS, GV_SUPER_TARGET_WARPS = 2048, 512, 8, 4
+GV_BLOCK_SLICE_MIN = 256  # q4_0's and q8_0's slice floor (BlockPlan)
 H100_SMS = 132
 BLOCK_BYTES = {"q4_0": 16, "q8_0": 32}
 DQ_BK = 64  # csrc/dq_tile.cuh kDqBK
@@ -90,20 +91,26 @@ def int8_pair(u, i: int, j: int) -> np.ndarray:
     return byte_perm(a.view(np.uint32), b.view(np.uint32), 0x7632)
 
 
-def gemv_plan(N: int, K: int, sms: int = H100_SMS, gran: int = 32,
-              target: int = GV_TARGET_WARPS) -> tuple[int, int]:
-    """`dq_gemv_plan`: (slice, splits) at (N, K), slices in multiples of
-    `gran` (q4_0, q8_0: 32; q4_k, q6_k: their 256-superblock), splits
-    doubled towards `target` warps an SM (`BlockPlan`, `SuperPlan`)."""
+def gemv_slice_max(M: int) -> int:
+    """`gemv_slice_max`: K values of x a row a block holds."""
+    return 8 * GV_SLICE_MAX if M == 1 else GV_SLICE_MAX
+
+
+def gemv_plan(M: int, N: int, K: int, sms: int = H100_SMS, gran: int = 32,
+              target: int = GV_TARGET_WARPS, slice_min: int = GV_BLOCK_SLICE_MIN) -> tuple[int, int]:
+    """`dq_gemv_plan`: (slice, splits) at (M, N, K), slices in multiples of
+    `gran` (q4_0, q8_0: 32; q4_k, q6_k: their 256-superblock) no wider than
+    `gemv_slice_max(M)`, splits doubled towards `target` warps an SM while
+    a slice keeps `slice_min` (`BlockPlan`, `SuperPlan`)."""
     tiles = (N + 15) // 16
 
     def slice_of(splits):
         return -(-(K // gran) // splits) * gran
 
     splits = 1
-    while slice_of(splits) > GV_SLICE_MAX:
+    while slice_of(splits) > gemv_slice_max(M):
         splits *= 2
-    while tiles * splits < target * sms and slice_of(2 * splits) >= GV_SLICE_MIN:
+    while tiles * splits < target * sms and slice_of(2 * splits) >= slice_min:
         splits *= 2
     sl = slice_of(splits)
     return sl, -(-K // sl)
@@ -198,7 +205,7 @@ def scale_min_k4(tb: np.ndarray, j: int) -> tuple[np.ndarray, np.ndarray]:
 
 class BlockGemv:
     """`BlockGemv<kBlockBytes>` (q4_0: 16, q8_0: 32) of csrc/dq_gemv.cuh."""
-    stage_k, gran, target = GV_STAGE_K, 32, GV_TARGET_WARPS
+    stage_k, gran, target, slice_min = GV_STAGE_K, 32, GV_TARGET_WARPS, GV_BLOCK_SLICE_MIN
     group_k, steps, affine = 32, 2, False
 
     def __init__(self, qt: QTensor):
@@ -258,7 +265,7 @@ class Q4KGemv:
     [16][144], then each row's 12-byte table and d, dmin [16][16]; the
     warp's table holds d*sc [8][16] and the offsets [8][16]."""
     stage_k = gran = GV_SUPER_K
-    target = GV_SUPER_TARGET_WARPS
+    target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
     group_k, steps, affine, pieces, groups = 32, 2, True, 4, 2
     pitch = 144
     meta = 16 * pitch
@@ -321,7 +328,7 @@ class Q6KGemv:
     [16][144], qh [16][80], sc [16][16], the d words [16][4]; a piece is a
     half (12 ldmatrix words), a group one 16-element sub-block."""
     stage_k = gran = GV_SUPER_K
-    target = GV_SUPER_TARGET_WARPS
+    target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
     group_k, steps, affine, pieces, groups = 16, 1, False, 2, 8
     ql_pitch, qh_pitch = 144, 80
     qh_off = 16 * ql_pitch
@@ -412,12 +419,13 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
     N = qt.shape[0]
     assert 1 <= M <= 8 and x.dtype == torch.bfloat16 and K % F.gran == 0
     xb = x.contiguous().view(torch.int16).numpy().view(np.uint16)
-    sl, splits = gemv_plan(N, K, sms, F.gran, F.target)
+    sl, splits = gemv_plan(M, N, K, sms, F.gran, F.target, F.slice_min)
     g, t = LANE_G, LANE_T
     work = np.zeros((splits, M, N), np.float32)
     for z in range(splits):
         klo, khi = z * sl, min(K, (z + 1) * sl)
-        xs = np.zeros((min(M + 1, 8), sl + 16), np.uint16)  # the x slice; row M (< 8): zeros
+        # the x slice; row M (2 <= M < 8): zeros
+        xs = np.zeros((1 if M == 1 else min(M + 1, 8), sl + 16), np.uint16)
         for r in range(M):
             for c in range(sl // 8):
                 if klo + 8 * c < khi:
@@ -446,7 +454,7 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
                         f = [np.zeros(32, np.float32) for _ in range(4)]
                         for s in range(F.steps):
                             a = F.a_frag(r4, gi, s)
-                            xo = np.minimum(g, M) * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
+                            xo = np.minimum(g, len(xs) - 1) * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
                             xw = xflat[xo[:, None] + np.arange(4)].astype(np.uint32)
                             lo, hi = xw[:, 0] | (xw[:, 1] << 16), xw[:, 2] | (xw[:, 3] << 16)
                             f = mma_16816(f, a, byte_perm(lo, hi, 0x5410), byte_perm(lo, hi, 0x7632))
@@ -836,7 +844,7 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     for fmt in GEMV_FORMATS:
         block = fmt in BLOCK_BYTES
-        for N, K, M in (((40, 1056, 5), (20, 1280, 8), (48, 4096, 2)) if block else
+        for N, K, M in (((40, 1056, 5), (19, 1056, 1), (20, 1280, 8), (48, 4096, 2)) if block else
                         ((40, 1280, 1), (20, 2048, 8), (48, 4096, 2))):
             qt = random_qtensor(fmt, N, K, gen, "cpu")
             x = torch.randn(M, K, generator=gen).to(torch.bfloat16)

@@ -6,8 +6,8 @@ card holds the kernels to.
   exact (integer weights and bf16 x), so it differs from the plain version
   (f32 weights and x, M <= 8) only in the order of f32 sums, and for q4_k
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
-  split: 1e-5 of the output's scale, also against `_q4_k_kernel` and
-  `_q6_k_kernel` in interpret mode at M = 1.
+  split: 1e-5 of the output's scale, also against every format's Pallas
+  kernel in interpret mode at M = 1.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
@@ -41,15 +41,16 @@ def _case(fmt, N, K, seed):
     return gen, random_qtensor(fmt, N, K, gen, "cpu")
 
 
-# q4_0, q8_0 (2 <= M <= 8 on the card): K = 1056, an odd count of 32-blocks
-# (scale words at odd parity, a slice ending mid-stage; with 19 rows the
-# last scale ends the array mid-word). q4_k, q6_k (M <= 8): K in whole
-# superblocks, M = 1 included; 19 rows with K = 1280: q6_k's d values end
-# the array mid-word. 4096 with 48 rows: K splits; 40, 20 and 19 rows:
-# ragged against the 16-row tiles
+# q4_0, q8_0: K = 1056, an odd count of 32-blocks (scale words at odd
+# parity, a slice ending mid-stage; with 19 rows the last scale ends the
+# array mid-word), and at M = 1 K = 3072 (Gemma-7B's d_model). q4_k, q6_k:
+# K in whole superblocks; 19 rows with K = 1280: q6_k's d values end the
+# array mid-word. 4096 with 48 rows: K splits; 40, 20 and 19 rows: ragged
+# against the 16-row tiles
 @pytest.mark.parametrize("N,K,M,fmt", [
     *((N, K, M, fmt) for fmt in ("q4_0", "q8_0")
-      for N, K, M in ((40, 1056, 5), (19, 1056, 3), (20, 1280, 8), (48, 4096, 2))),
+      for N, K, M in ((40, 1056, 5), (19, 1056, 3), (20, 1280, 8), (48, 4096, 2),
+                      (40, 1056, 1), (19, 1056, 1), (48, 4096, 1), (32, 3072, 1))),
     *((N, K, M, fmt) for fmt in ("q4_k", "q6_k")
       for N, K, M in ((40, 1280, 1), (19, 1280, 5), (20, 2048, 8), (48, 4096, 2)))])
 def test_gemv_emulation_matches_plain(fmt, N, K, M):
@@ -91,31 +92,41 @@ def test_fragment_conversions_are_exact():
         assert np.array_equal(emu._bf16_bits_to_f32(pair >> 16), q((w >> (8 * j)) & 0xFF))
 
 
+@pytest.mark.parametrize("M", [1, 8])
 @pytest.mark.parametrize("N,K", [(2560, 2048), (2048, 2048), (32768, 2048), (2048, 16384),
                                  (256000, 2048), (12288, 3072), (3072, 4096), (49152, 3072),
                                  (3072, 24576), (256000, 3072), (1000, 1056),
                                  # q4_k_m's attn_k and attn_v; the K-quants' edge cases
                                  (256, 2048), (1000, 1280), (999, 1280)])
-def test_gemv_plan_covers_k_in_slices_that_fit(N, K):
+def test_gemv_plan_covers_k_in_slices_that_fit(N, K, M):
     """The plan at the main path's shapes (Gemma-2B q4_0 and q4_k_m,
-    Gemma-7B q8_0): whole 32-blocks a slice (q4_k and q6_k: whole
-    superblocks), at most the slice the shared x buffer holds, every K
-    value in one slice, and enough warps for the card where K allows."""
-    for gran, target in ((32, emu.GV_TARGET_WARPS), (emu.GV_SUPER_K, emu.GV_SUPER_TARGET_WARPS)):
+    Gemma-7B q8_0), at the decode step's M = 1 and the serving step's
+    M = 8: whole 32-blocks a slice (q4_k and q6_k: whole superblocks), at
+    most the slice the shared x buffer holds at M, every K value in one
+    slice, and enough warps for the card where K allows; at M = 1 K split
+    only to fill the card (q8_0's gate_up and head in one)."""
+    for gran, target, slice_min in ((32, emu.GV_TARGET_WARPS, emu.GV_BLOCK_SLICE_MIN),
+                                     (emu.GV_SUPER_K, emu.GV_SUPER_TARGET_WARPS, emu.GV_SLICE_MIN)):
         if K % gran:
             continue
-        sl, splits = emu.gemv_plan(N, K, gran=gran, target=target)
-        assert sl % gran == 0 and sl <= emu.GV_SLICE_MAX
+        sl, splits = emu.gemv_plan(M, N, K, gran=gran, target=target, slice_min=slice_min)
+        assert sl % gran == 0 and sl <= emu.gemv_slice_max(M)
         assert (splits - 1) * sl < K <= splits * sl
         warps = -(-N // 16) * splits
-        assert warps >= target * emu.H100_SMS or sl < 2 * emu.GV_SLICE_MIN
+        assert warps >= target * emu.H100_SMS or sl < 2 * slice_min
+        if M == 1 and splits > 1:
+            assert -(-N // 16) * splits // 2 < target * emu.H100_SMS
+    if M == 1 and N >= 49152 and K == 3072:
+        assert emu.gemv_plan(M, N, K)[1] == 1
 
 
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("fmt", ["q4_0", "q8_0", "q4_k", "q6_k"])
 def test_kquant_gemv_emulation_matches_the_jax_kernel(fmt, monkeypatch):
-    """The K-quants' GEMV at M = 1 against `_q4_k_kernel` and `_q6_k_kernel`
-    (interpret mode) on the same weights (`from_jax` carries them exactly)
-    and the same bf16 x; the reference takes f32 weights at M <= 8."""
+    """Every format's GEMV at M = 1 against `_q4_0_kernel`, `_q8_0_kernel`,
+    `_q4_k_kernel` and `_q6_k_kernel` (interpret mode) on the same weights
+    (`from_jax` carries them exactly: q4_0's and q8_0's bf16 scales are
+    exact in f16) and the same bf16 x; the reference takes f32 weights at
+    M <= 8."""
     monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
     rng = np.random.default_rng(7)
     jqt = quantize_array(rng.normal(size=(256, 1024)).astype(np.float32) * 0.05, fmt)
