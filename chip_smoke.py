@@ -14,8 +14,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    at 16 heads, batch 1 and 8), and the shapes of
    8-slot serving (the paged kernel and both int8 arms), and attention
    over long caches (S = 4096: flash at 2048 tokens from position 0 and at
-   the last 512-token chunk, decode at limits 2048 and 4096, both arms),
-   with the route each took (bf16: the tensor-core kernels), max|diff|
+   the last 512-token chunk, decode and paged decode at limits 2048 and
+   4096, both arms; paged decode equal bit for bit to decode on the
+   gathered rows), with the route each took (bf16: the tensor-core
+   kernels), max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
    computes the same function (CUDA events), and the least time the
@@ -41,7 +43,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
    shuffled and admitted every 4 steps, which must give the same streams;
-   all with exact launch counts;
+   all with exact launch counts (every bf16 paged decode call on the
+   tensor cores);
 7. the decode-GEMV instruments, the kernels that replace the Pallas
    kernels of the reference's tools/ (bench_qmm_variants, bench_bn_sweep,
    probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
@@ -568,61 +571,40 @@ def _counters():
             ("flash_attention_tc", att.flash_attention, "tc_launches"),
             ("decode_attention_tc", att.decode_attention, "tc_launches"),
             ("paged_attention", pat.paged_decode_attention, "launches"),
-            ("paged_attention_int8", pat.paged_decode_attention, "int8_launches")]
-
-
-def paged_case(torch, gen, dev, B, Hq, Hkv, D, ps, limits, n_pages, dtype, quantized, seed):
-    """(q, a one-layer PagedKVCache, kv_limit): random pages, each row's live
-    prefix on distinct shuffled physical pages, the rest of each table row
-    on the trash page 0 (which holds random values too)."""
-    import numpy as np
-
-    from gemma_tpu_torch.runtime import PagedKVCache
-    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
-
-    maxp = MAX_SEQ_LEN // ps
-    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
-    pt = np.zeros((B, maxp), np.int32)
-    live = [-(-lim // ps) for lim in limits]
-    pt[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
-    kp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
-    vp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
-    ks = vs = None
-    if quantized:
-        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
-    lim = torch.tensor(limits, dtype=torch.int32, device=dev)
-    cache = PagedKVCache([kp], [vp], torch.from_numpy(pt).to(dev), lim.clone(),
-                         None if ks is None else [ks], None if vs is None else [vs])
-    q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(dtype if not quantized
-                                                                       else torch.bfloat16)
-    return q, cache, lim
+            ("paged_attention_int8", pat.paged_decode_attention, "int8_launches"),
+            # the calls of the two above that went through the tensor cores
+            ("paged_attention_tc", pat.paged_decode_attention, "tc_launches")]
 
 
 def check_serving_kernels(torch, dev) -> dict[str, dict]:
-    """Phase 3, the serving kernels at the serving shapes (8 rows, Gemma-2B
-    heads, limits SERVE_LIMITS): paged attention over a 65-page pool of
-    64-token pages, bf16 and int8 pages, and the int8 arm of decode
-    attention at S = 512. Tolerance 2e-2 of each row's scale
-    (`_timing.attn_err`) as for bf16 decode: p (int8: p * vs) rounds to
-    bf16 against a page- or split-local max in the kernels, the row max in
-    the plain versions."""
+    """Phase 3, the serving kernels: paged attention (Gemma-2B heads, 64-token
+    pages, bf16 and int8 pages) at the serving shape (8 rows, limits
+    SERVE_LIMITS, a 65-page pool) and over long caches (2 rows of 64 pages,
+    S = 4096, limits 2048 and 4096: four pages a block), and the int8 arm of
+    decode attention at S = 512 (8 rows). Tolerance 2e-2 of each row's
+    scale (`_timing.attn_err`) as for bf16 decode: p (int8: p * vs) rounds
+    to bf16 against a split-local max in the kernels, the row max in the
+    plain versions. Paged attention must take the tensor-core route there
+    and equal `decode_attention` on the same rows gathered densely
+    (`cache.layer_kv`, made contiguous) bit for bit: the same split, tiles
+    and arithmetic. Returns the serving shape's readings."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.paged_attention as pat
     from gemma_tpu_torch.runtime.kv_cache import quantize_kv
     from gemma_tpu_torch.tools._timing import attn_err
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     tol = 2e-2
-    B, Hq, Hkv, D = SERVE_SLOTS, 8, 1, 256
+    Hq, Hkv, D = 8, 1, 256
     results = {}
 
-    live = sum(SERVE_LIMITS)
-
-    def held(name, desc, kernel, plain, kv_bytes_per_key, table_bytes=0):
+    def held(name, desc, kernel, plain, limits, kv_bytes_per_key, table_bytes=0):
         """No single PyTorch call computes paged or int8 attention: no
         library time. The bound counts the live keys' K and V (int8: and
-        their f32 scales), q, out, the limits and any page table."""
+        their f32 scales), q, out, the limits and the live table entries."""
+        B, live = len(limits), sum(limits)
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err, ratio, lo, hi = attn_err(got, ref, tol)
@@ -637,39 +619,67 @@ def check_serving_kernels(torch, dev) -> dict[str, dict]:
                        f"kernel per back-to-back call {per_call:.4f} ms")
         require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
                 f"{name}: |diff| {ratio:.3f} x {tol} of its row's scale")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None,
-                         "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} {desc}"}
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} {desc}"}
 
-    for quantized in (False, True):
-        q, cache, lim = paged_case(torch, gen, dev, B, Hq, Hkv, D, PAGE, SERVE_LIMITS, 65,
-                                   torch.bfloat16, quantized, seed=3)
-        held("paged_attention_int8" if quantized else "paged_attention",
-             f"ps={PAGE} pool=65 limits={SERVE_LIMITS}",
-             lambda: pat.paged_decode_attention(q, cache, 0, lim),
-             lambda: pat.paged_decode_attention_plain(q, cache, 0, lim),
-             2 * (D + 4) if quantized else 2 * D * 2, cache.page_table.numel() * 4)
+    long_limits = [LONG_SEQ_LEN // 2, LONG_SEQ_LEN]
+    for S, limits, pool in ((MAX_SEQ_LEN, SERVE_LIMITS, 65),
+                            (LONG_SEQ_LEN, long_limits, 2 * LONG_SEQ_LEN // PAGE + 1)):
+        for quantized in (False, True):
+            name = "paged_attention_int8" if quantized else "paged_attention"
+            q, cache, lim = paged_inputs(gen, dev, len(limits), Hq, Hkv, D, PAGE, limits, pool, S,
+                                         quantized)
+            route, split = pat.paged_route(q.dtype, Hq // Hkv, PAGE, S)
+            tc_before = pat.paged_decode_attention.tc_launches
+            r = held(name, f"S={S} ps={PAGE} pool={pool} limits={limits} ({route}, {split} keys a "
+                           "block)",
+                     lambda: pat.paged_decode_attention(q, cache, 0, lim),
+                     lambda: pat.paged_decode_attention_plain(q, cache, 0, lim), limits,
+                     2 * (D + 4) if quantized else 2 * D * 2,
+                     sum(-(-n // PAGE) for n in limits) * 4)
+            require(route == "tc" and pat.paged_decode_attention.tc_launches > tc_before,
+                    f"{name} S={S}: took the {route} route, not the tensor cores")
+            k, v, ks, vs = (None if x is None else x.contiguous() for x in cache.layer_kv(0))
+            dense = att.decode_attention(q, k, v, lim, k_scale=ks, v_scale=vs)
+            same = torch.equal(pat.paged_decode_attention(q, cache, 0, lim), dense)
+            info("kernel", f"{name} S={S}: equal bit for bit to decode_attention on the gathered "
+                           f"rows: {same}")
+            require(same, f"{name} S={S}: differs from decode_attention on the gathered rows")
+            if S == MAX_SEQ_LEN:
+                results[name] = r
+            del q, cache, k, v, ks, vs, dense
+    B = SERVE_SLOTS
     q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
     k, v = ((torch.randn(B, Hkv, MAX_SEQ_LEN, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
             for _ in range(2))
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     lim = torch.tensor(SERVE_LIMITS, dtype=torch.int32, device=dev)
-    held("decode_attention_int8", f"S={MAX_SEQ_LEN} limits={SERVE_LIMITS}",
-         lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs),
-         lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs), 2 * (D + 4))
+    results["decode_attention_int8"] = held(
+        "decode_attention_int8", f"S={MAX_SEQ_LEN} limits={SERVE_LIMITS}",
+        lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs),
+        lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs), SERVE_LIMITS,
+        2 * (D + 4))
     return results
 
 
 def check_serving_edge_cases(torch, dev) -> None:
-    """Phase 3, correctness only: the paged kernel and the int8 decode arm
-    off the serving shapes. f32 queries over f32 pages round nothing:
-    tolerance 1e-4. Every int8 case keeps the bf16 rounding of p * vs
-    (against a local max in the kernel, the row max in the plain version),
-    and bf16 queries round p: tolerance 2e-2. Each of the row's scale
-    (`_timing.attn_err`)."""
+    """Phase 3, correctness only: the paged kernels and the int8 decode arm
+    off the serving shapes. bf16 queries take the tensor-core route (GQA
+    with head_dim 128, softcap with window, 16-, 64- and 256-key pages:
+    four pages a block, one, a quarter of one) and equal `decode_attention`
+    on the gathered rows bit for bit; f32 queries the split-S route. f32
+    queries over f32 pages round nothing: tolerance 1e-4. Every int8 case
+    keeps the bf16 rounding of p * vs (against a local max in the kernel,
+    the row max in the plain version), and bf16 queries round p: tolerance
+    2e-2. Each of the row's scale (`_timing.attn_err`). Then no fallback: a
+    page table that is not int32 raises, and so does the tensor-core entry
+    at a page size off 16."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.kernels import build
     from gemma_tpu_torch.tools._timing import attn_err
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -684,30 +694,63 @@ def check_serving_edge_cases(torch, dev) -> None:
     limits = [1, 16, 17, 255, 256, 257, 400, MAX_SEQ_LEN]
     for name, Hq, Hkv, D, ps, dtype, cap, window in cases:
         for quantized in (False, True):
-            q, cache, lim = paged_case(torch, gen, dev, len(limits), Hq, Hkv, D, ps, limits,
-                                       len(limits) * MAX_SEQ_LEN // ps + 1, dtype, quantized, seed=5)
+            q, cache, lim = paged_inputs(gen, dev, len(limits), Hq, Hkv, D, ps, limits,
+                                         len(limits) * MAX_SEQ_LEN // ps + 1, MAX_SEQ_LEN, quantized,
+                                         dtype, seed=5)
             if quantized:
                 q = q.to(dtype)  # f32 queries over int8 pages too
             tol = 1e-4 if dtype == torch.float32 and not quantized else 2e-2
+            route = pat.paged_route(q.dtype, Hq // Hkv, ps, MAX_SEQ_LEN)[0]
+            tc_before = pat.paged_decode_attention.tc_launches
             got = pat.paged_decode_attention(q, cache, 0, lim, cap, window)
+            arm = f"paged{' int8' if quantized else ''}"
+            require(route == ("tc" if dtype == torch.bfloat16 else "split")
+                    and pat.paged_decode_attention.tc_launches - tc_before == (route == "tc"),
+                    f"{arm} {name}: took the {route} route")
             ref = pat.paged_decode_attention_plain(q, cache, 0, lim, cap, window)
             ratio = attn_err(got, ref, tol)[1]
-            arm = f"paged{' int8' if quantized else ''}"
             require(ratio <= 1.0, f"{arm} {name}: |diff| {ratio:.3f} x {tol} of its row's scale")
-            worst[arm] = max(worst.get(arm, 0.0), ratio)
+            worst[f"{arm} {route}"] = max(worst.get(f"{arm} {route}", 0.0), ratio)
+            k, v, ks, vs = (None if x is None else x.contiguous() for x in cache.layer_kv(0))
+            if route == "tc":  # the dense kernel on the gathered rows, bit for bit
+                dense = att.decode_attention(q, k, v, lim, cap, window, ks, vs)
+                require(torch.equal(got, dense), f"{arm} {name}: differs from decode_attention on "
+                                                 "the gathered rows")
             if quantized:  # the int8 decode arm on the same rows, densely
-                k, v, ks, vs = cache.layer_kv(0)
-                got = att.decode_attention(q, k.contiguous(), v.contiguous(), lim, cap, window,
-                                           ks.contiguous(), vs.contiguous())
+                got = att.decode_attention(q, k, v, lim, cap, window, ks, vs)
                 ref = att.decode_attention_plain(q, k, v, lim, cap, window, ks, vs)
                 ratio = attn_err(got, ref, tol)[1]
                 require(ratio <= 1.0, f"decode int8 {name}: |diff| {ratio:.3f} x {tol} of its row's "
                                       "scale")
                 worst["decode int8"] = max(worst.get("decode int8", 0.0), ratio)
+    # no fallback on the tensor-core route
+    q, cache, lim = paged_inputs(gen, dev, 2, 8, 1, 256, PAGE, [100, 200], 9, MAX_SEQ_LEN, False)
+    refused = []
+    table = cache.page_table
+    cache.page_table = table.long()
+    try:
+        pat.paged_decode_attention(q, cache, 0, lim)
+    except ValueError as e:
+        refused.append(f"int64 table: {e}")
+    cache.page_table = table
+    work, tickets = build.workspace(dev, build.stream_ptr(dev), 0, 0)
+    kp, vp = cache.layer_pages(0)[:2]
+    err = build.load().gt_paged_attention_tc(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None, table.data_ptr(), lim.data_ptr(),
+        torch.empty_like(q).data_ptr(), work.data_ptr(), tickets.data_ptr(), 2, 8, 1, 8,
+        table.shape[1] * PAGE // 8, 256, build.DTYPE_CODES[torch.bfloat16], 64, 0, 0.0,
+        build.stream_ptr(dev))
+    try:
+        build.check(err, "paged attention (tc) at page size 8")
+    except build.KernelLaunchError as e:
+        refused.append(str(e))
+    require(len(refused) == 2, f"paged attention: a bad call did not raise ({refused})")
     torch.cuda.synchronize()
     info("kernel", "serving edge cases (f32, GQA D=128, softcap+window, ps 16 and 256, limits "
-                   f"{limits}) within tolerance; worst max|diff| / (tol x row scale): "
-                   + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+                   f"{limits}; bf16 on the tensor cores, equal bit for bit to decode_attention on "
+                   "the gathered rows) within tolerance; worst max|diff| / (tol x row scale): "
+                   + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+                   + "; refused: " + "; ".join(refused))
 
 
 def reset_counters() -> None:
@@ -829,19 +872,27 @@ def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
     counts.update({name: n * forwards for name, n in per_forward.items()})
     counts["flash_attention"] = counts["flash_attention_tc"] = cfg.n_layers * prefills
     counts[decode_kernel] = cfg.n_layers * decode_steps
-    # bf16 activations: dense decode takes the tensor cores where its route says so
+    # bf16 activations: dense and paged decode take the tensor cores where
+    # their routes say so
     if decode_kernel.startswith("decode_attention") and decode_route(cfg)[0] == "tc":
         counts["decode_attention_tc"] = cfg.n_layers * decode_steps
+    if decode_kernel.startswith("paged_attention") and decode_route(cfg, paged=True)[0] == "tc":
+        counts["paged_attention_tc"] = cfg.n_layers * decode_steps
     return counts
 
 
-def decode_route(cfg):
-    """The decode kernel's route for `cfg`'s bf16 queries over a MAX_SEQ_LEN cache."""
+def decode_route(cfg, paged: bool = False):
+    """The decode kernel's route for `cfg`'s bf16 queries over a MAX_SEQ_LEN
+    cache, dense or of PAGE-key pages."""
     import torch
 
     import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
 
-    return att.decode_route(torch.bfloat16, cfg.n_heads // cfg.n_kv_heads, MAX_SEQ_LEN)
+    G = cfg.n_heads // cfg.n_kv_heads
+    if paged:
+        return pat.paged_route(torch.bfloat16, G, PAGE, MAX_SEQ_LEN)
+    return att.decode_route(torch.bfloat16, G, MAX_SEQ_LEN)
 
 
 def model_config(name: str):
@@ -986,6 +1037,10 @@ def serving(torch, dev, card: str, model_name: str, fmt: str,
                     f"wall {wall:.3f} s, decode steps {st['decode_steps']}, tokens discarded "
                     f"{st['tokens_discarded']}, admission forwards {prefills}; launches {counts}")
         require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+        if decode_kernel.startswith("paged_attention"):  # every paged decode call on the tensor cores
+            require(counts["paged_attention_tc"] == counts[decode_kernel] > 0,
+                    f"{phase}: {counts['paged_attention_tc']} of {counts[decode_kernel]} paged "
+                    "decode calls took the tensor cores")
         streams[name] = {r.id: r.tokens for r in sched.finished}
         counts_by_run[name] = counts
         del eng, sched
@@ -1390,6 +1445,8 @@ def run() -> dict:
     for name, run in (("decode_attention_int8", "dense int8"), ("paged_attention", "paged bf16"),
                       ("paged_attention_int8", "paged int8")):
         counts[name] = served[run][name]
+        if name.startswith("paged"):  # of those, on the tensor cores
+            results[name]["tc_launches"] = served[run]["paged_attention_tc"]
     serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
     done("Gemma-7B q8_0 serving (phase 6b)")
     results.update(check_tool_kernels(torch, dev))

@@ -1,5 +1,5 @@
 // Shared pieces of the tensor-core attention kernels (flash_attention.cu,
-// decode_attention.cu): the transposing ldmatrix and reductions over the
+// decode_tc.cuh): the transposing ldmatrix and reductions over the
 // lanes of a warp or of an mma fragment.
 //
 // Fragment layouts of `mma.sync.m16n8k16` (bf16 operands, f32

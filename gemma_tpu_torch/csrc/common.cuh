@@ -8,6 +8,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace gt {
@@ -47,6 +48,29 @@ __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+constexpr int kSmemDevices = 16;  // devices whose shared memory limits are remembered
+
+// Raise `kernel`'s dynamic shared memory limit on the current device to at
+// least `smem`. `limits` (one array a kernel, 0 on start) remembers the
+// bytes set a device, so a launch pays the runtime call only when it needs
+// more than any before: a decode step's launches wait on the host
+// (PERF.md).
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, std::atomic<int> (&limits)[kSmemDevices], size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::atomic<int>* limit = dev < kSmemDevices ? &limits[dev] : nullptr;
+  if (limit != nullptr && static_cast<int>(smem) <= limit->load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess && limit != nullptr) {
+    int seen = limit->load(std::memory_order_relaxed);
+    while (seen < static_cast<int>(smem) && !limit->compare_exchange_weak(seen, static_cast<int>(smem))) {
+    }
+  }
+  return e;
 }
 
 }  // namespace gt

@@ -544,27 +544,12 @@ int dq_gemv_tickets(int M, int N, int K) {
   return dq_gemv_ticket_sum(dq_gemv_plan<P>(M, N, K), N) ? ((N + 15) / 16 + kGvWarps - 1) / kGvWarps : 0;
 }
 
-constexpr int kGvDevices = 16;  // devices whose shared memory limits are remembered
-
 // Raise dq_gemv_kernel<F>'s dynamic shared memory limit on the current
-// device to at least `smem`. The limit set is remembered a device, so a
-// launch pays the runtime call only when it needs more than any before: a
-// decode step's 73-113 launches wait on the host (PERF.md).
+// device to at least `smem`, once a device and size (`raise_smem_limit`).
 template <class F>
 cudaError_t gemv_smem_limit(size_t smem) {
-  static std::atomic<int> limits[kGvDevices];  // bytes set so far, 0 on start
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<int>* limit = dev < kGvDevices ? &limits[dev] : nullptr;
-  if (limit != nullptr && static_cast<int>(smem) <= limit->load(std::memory_order_relaxed)) return cudaSuccess;
-  e = cudaFuncSetAttribute(dq_gemv_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e == cudaSuccess && limit != nullptr) {
-    int seen = limit->load(std::memory_order_relaxed);
-    while (seen < static_cast<int>(smem) && !limit->compare_exchange_weak(seen, static_cast<int>(smem))) {
-    }
-  }
-  return e;
+  static std::atomic<int> limits[kSmemDevices];  // bytes set so far, 0 on start
+  return raise_smem_limit(dq_gemv_kernel<F>, limits, smem);
 }
 
 // work: dq_gemv_work_bytes<F>(M, N, K) bytes, tickets: dq_gemv_tickets<F>(M,

@@ -7,22 +7,37 @@
 // Layouts: q [B, Hq, D]; k/v pages [P, Hkv, ps, D]; page_table i32 [B, maxp]
 // (the physical page of each logical page of a sequence; 0 is the trash
 // page); kv_limit i32 [B] (the query sits at position kv_limit - 1). The
-// numerics are decode_attention.cu's (attend_split in common.cuh).
+// numerics are decode attention's (decode_attention.cu).
 //
-// What bounds it on the H100: the bytes of the live pages, which at serving
-// shapes are tiny (8 slots x ~300 keys x 256 x 2 bytes x 2 for K and V is
-// ~2.5 MB a layer in bf16, under 1 us of HBM time; half for int8), so
-// launches and occupancy bound it. The TPU kernel walks the pages of a row
-// in sequence with its running softmax in VMEM and fetches each page through
-// scalar-prefetched table entries (`page_map`). Here each block takes ONE
-// page of one (batch row, kv head): grid (maxp, B * Hkv), the split equal to
-// the page size, so a batch of 8 rows of Gemma-2B's single KV head spreads
-// over the SMs. A block reads its own physical page id from
-// page_table[b, i] only when the page holds a live key; pages at or past
-// kv_limit[b], or wholly before the window, write an empty partial and read
-// nothing (their table entries are the trash page). The combine launch of
-// decode_attention.cu then merges the pages of each (row, head).
-#include "common.cuh"
+// What bounds it on the H100: launch and latency at serving shapes (8 slots
+// x ~300 keys x 256 x 2 bytes x 2 for K and V is ~2.5 MB a layer in bf16,
+// under 1 us of HBM time; half for int8), the live K/V bytes at long
+// contexts. The TPU kernel walks the pages of a row in sequence with its
+// running softmax in VMEM and fetches each page through scalar-prefetched
+// table entries (`page_map`). Two kernels, routed in
+// ops/paged_attention.py `paged_route`:
+//
+// `decode_tc_kernel` (decode_tc.cuh, with `PagedRows`): bf16 q, 2 <= G <= 8,
+// a page size that is a multiple of 16 (the main path: Gemma-2B's G = 8,
+// 64-token pages). The dense decode kernel's tensor-core core with the page
+// table in place of the slab offset: all G query heads on the n8 side of
+// `mma.sync`, 16-key tiles fetched by cp.async from their physical pages
+// into the core's ring (two stages where a warp has more than one tile), a
+// block a `decode_tc_split(maxp * ps)` keys (several pages, or part of one)
+// and the splits merged in split order by the last block, in one launch.
+// Its split, tile order and arithmetic are the dense kernel's at S = maxp *
+// ps, so it equals decode attention on the gathered pages bit for bit.
+// A tile reads its table entry only when it holds a live key.
+//
+// `paged_split_kernel`: f32 queries, G = 1, G > 8 and other page sizes.
+// Each block takes ONE page of one (batch row, kv head): grid (maxp, B *
+// Hkv), the split equal to the page size. A block reads its own physical
+// page id from page_table[b, i] only when the page holds a live key; pages
+// at or past kv_limit[b], or wholly before the window, write an empty
+// partial and read nothing (their table entries are the trash page). The
+// combine launch of decode_attention.cu then merges the pages of each
+// (row, head).
+#include "decode_tc.cuh"
 
 using namespace gt;
 
@@ -120,4 +135,29 @@ extern "C" int gt_paged_attention(const void* q, const void* k_pages, const void
   if (q_dtype == kF32 && kv_dtype == kI8 && D == 128) GT_PAGED(float, int8_t, 128);
 #undef GT_PAGED
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core kernel: q [B, Hq, D] bf16 with G = Hq / Hkv <= 8; k/v
+// pages [P, Hkv, ps, D] bf16 or int8 (kv_dtype kI8, with f32
+// k_scale/v_scale [P, Hkv, ps]; else null), ps a multiple of 16, all
+// contiguous; page_table i32 [B, maxp]; kv_limit i32 [B]; out [B, Hq, D]
+// bf16. work: B * Hkv * n_splits * G * (D + 2) f32, n_splits = ceil(maxp *
+// ps / split); tickets: B * Hkv ints, 0 on entry and on return; split: a
+// multiple of 16.
+extern "C" int gt_paged_attention_tc(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* page_table, const void* kv_limit, void* out,
+                                     void* work, void* tickets, int B, int Hq, int Hkv, int ps,
+                                     int maxp, int D, int kv_dtype, int split, int window,
+                                     float softcap, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || ps % 16 != 0 || maxp <= 0 || split <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows rows{static_cast<const int*>(page_table), Hkv, ps, maxp};
+  return dispatch_decode_tc(kv_dtype, D, q, k_pages, v_pages, static_cast<const float*>(k_scale),
+                            static_cast<const float*>(v_scale), static_cast<const int*>(kv_limit),
+                            out, static_cast<float*>(work), static_cast<int*>(tickets), rows, B,
+                            Hq, Hkv, maxp * ps, split, window, softcap,
+                            static_cast<cudaStream_t>(stream));
 }

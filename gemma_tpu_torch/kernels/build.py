@@ -68,6 +68,9 @@ SIGNATURES = {
     # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, part_m, part_l, part_o,
     # B, Hq, Hkv, page_size, max_pages, D, q_dtype, kv_dtype, window, softcap, stream
     "gt_paged_attention": (_P,) * 11 + (_I,) * 9 + (_F, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, work, tickets,
+    # B, Hq, Hkv, page_size, max_pages, D, kv_dtype, split, window, softcap, stream
+    "gt_paged_attention_tc": (_P,) * 10 + (_I,) * 9 + (_F, _P),
     # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, window, softcap, stream (f32)
     "gt_flash_attention": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
@@ -250,8 +253,9 @@ def workspace(device: torch.device, stream: int, floats: int, tickets: int):
     """(f32 scratch of >= `floats`, i32 tickets of >= `tickets`, all 0) on
     `device`, one pair for each stream (`stream`: its cudaStream_t), kept
     between calls and grown on demand: the tensor-core decode attention's
-    (ops/attention.py) and the quantized matmuls' K-split scratch and the
-    GEMV's tickets (ops/quant_matmul.py). Each kernel leaves its tickets at
+    (ops/attention.py, and through pages ops/paged_attention.py) and the
+    quantized matmuls' K-split scratch and the GEMV's tickets
+    (ops/quant_matmul.py). Each kernel leaves its tickets at
     0, so the launches that share a pair run in order on their stream.
     Growth allocates: a launch captured in a CUDA graph needs its pair
     sized beforehand, at the largest batch and S and the widest weight

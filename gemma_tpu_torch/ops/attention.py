@@ -8,8 +8,9 @@ Counterpart of `gemma_tpu/ops/attention.py`, with its public layouts:
 Key slot s is valid for a query at position pos iff s <= pos and
 s < kv_limit[b] and, with a sliding window, s > pos - window.
 
-Kernels: `csrc/decode_attention.cu` (replaces `_decode_kernel`, its bf16
-and int8 arms) and `csrc/flash_attention.cu` (replaces `_flash_kernel`).
+Kernels: `csrc/decode_attention.cu` with `csrc/decode_tc.cuh` (replaces
+`_decode_kernel`, its bf16 and int8 arms) and `csrc/flash_attention.cu`
+(replaces `_flash_kernel`).
 Each holds two kernels, and the route between them is fixed by dtype (and
 for decode by G = Hq / Hkv): a bf16 query takes the tensor-core kernel
 (`mma.sync` on bf16 operands; decode over a bf16 or int8 cache at

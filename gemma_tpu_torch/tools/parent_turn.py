@@ -16,16 +16,19 @@ on PYTHONPATH (its own kernels, built at first use, and its own
   (max|diff| / max|parent|: 0 where the two compute bit for bit alike);
   device ms, warm, of
   `flash_attention` and `decode_attention` (both arms) at the attention
-  shapes of `probe_variants attn` (this tree's tables, handed to every
-  turn), all through the public wrappers, so each tree takes its own
-  kernels and routes;
+  shapes of `probe_variants attn`, and `paged_decode_attention` (bf16 and
+  int8 pages) at its PAGED_SHAPES with the host µs of one wrapper call
+  back to back (this tree's tables, handed to every turn), all through the
+  public wrappers, so each tree takes its own kernels and routes;
 * chip_smoke's `main_path` for Gemma-2B q4_0 and q4_k_m and Gemma-7B q8_0
   (prefill wall and device profile, decode step with its busy time and
   kernel count, host profile);
 * a device profile of a 2048-token Gemma-2B q4_0 prefill (busy time by
   kernel);
-* `bench_prefill` q4_0 and chip_smoke's `serving` over the dense bf16 and
-  int8 caches.
+* `bench_prefill` q4_0 and chip_smoke's `serving` over its four caches
+  (dense and paged, bf16 and int8), then paged bf16 serving and decode
+  steps under torch.profiler (`paged_serving_profile`: device busy,
+  kernels and the paged kernels' ms a step).
 Then DECODE_ROUNDS more rounds in the same order, each turn a fresh
 process that only decodes (`decode_turn`): batch-1 tok/s of Gemma-2B q4_k_m
 and q4_0, several runs without a profiler, and the host µs of one call of
@@ -48,10 +51,48 @@ import torch
 D = 256
 
 
-def kernel_times(dev: torch.device, flash_shapes, decode_shapes) -> dict[str, float]:
+def paged_inputs(gen: torch.Generator, dev: torch.device, B: int, Hq: int, Hkv: int, D: int, ps: int,
+                 limits: list[int], n_pages: int, seq_len: int, quantized: bool,
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 3):
+    """(q [B, 1, Hq, D], a one-layer PagedKVCache of `n_pages` pages of `ps`
+    keys and seq_len // ps table entries a row, kv_limit): random pages
+    (int8 with their scales if `quantized`), each row's live prefix on
+    distinct physical pages shuffled by a numpy permutation from `seed`, the
+    rest of each table row on the trash page 0, which holds random values
+    too. q is in `dtype` (bf16 over int8 pages). It uses only what every
+    tree of the port has (`PagedKVCache`, `quantize_kv`), so a turn builds
+    the same inputs in a parent tree; chip_smoke.py and probe_variants
+    build theirs here too."""
+    import numpy as np
+
+    from gemma_tpu_torch.runtime import PagedKVCache
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    maxp = seq_len // ps
+    perm = np.random.default_rng(seed).permutation(n_pages - 1) + 1
+    pt = np.zeros((B, maxp), np.int32)
+    live = [-(-lim // ps) for lim in limits]
+    pt[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
+    kp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
+    vp = (torch.randn(n_pages, Hkv, ps, D, generator=gen, device=dev) * 0.3).to(dtype)
+    ks = vs = None
+    if quantized:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+    cache = PagedKVCache([kp], [vp], torch.from_numpy(pt).to(dev), lim.clone(),
+                         None if ks is None else [ks], None if vs is None else [vs])
+    q = (torch.randn(B, 1, Hq, D, generator=gen, device=dev) * 0.3).to(
+        torch.bfloat16 if quantized else dtype)
+    return q, cache, lim
+
+
+def kernel_times(dev: torch.device, flash_shapes, decode_shapes, paged_shapes) -> dict[str, float]:
     """Device ms of the public attention wrappers at probe_variants'
-    FLASH_SHAPES and DECODE_SHAPES (decode: both arms)."""
+    FLASH_SHAPES, DECODE_SHAPES and PAGED_SHAPES (decode and paged: both
+    arms), and of paged attention also the host µs of one call, back to
+    back (HOST_CALLS calls; the device's part is shorter)."""
     import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
     from gemma_tpu_torch.runtime.kv_cache import quantize_kv
     from gemma_tpu_torch.tools import _timing as T
 
@@ -79,7 +120,81 @@ def kernel_times(dev: torch.device, flash_shapes, decode_shapes) -> dict[str, fl
         res[f"decode {at}"] = ms(lambda: att.decode_attention(q, k, v, lim))
         res[f"decode int8 {at}"] = ms(lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks,
                                                                     v_scale=vs))
+    for name, S, limits, ps, hq, hkv, pool in paged_shapes:
+        for quantized in (False, True):
+            q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, ps, limits, pool, S,
+                                         quantized)
+            at = (f"paged{' int8' if quantized else ''} {name} S={S} ps={ps} pool={pool} Hq={hq} "
+                  f"Hkv={hkv} limits={limits}")
+            res[at] = ms(lambda: pat.paged_decode_attention(q, cache, 0, lim))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                pat.paged_decode_attention(q, cache, 0, lim)
+            torch.cuda.synchronize()
+            res[f"host us a call, {at}"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+            del q, cache
     return res
+
+
+PAGED_KERNELS = ("paged_split_kernel", "attend_combine_kernel", "decode_tc_kernel")
+PAGED_STEPS = 16  # decode steps of the decode-only profile
+
+
+def _device_reading(prof, steps: int) -> str:
+    """Device busy ms, device kernels and the paged attention kernels' ms
+    (PAGED_KERNELS: the split-S kernel and its combine, or the tensor-core
+    kernel) of a profile, in all and a step."""
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    paged = sum(e.self_device_time_total for e in events
+                if any(n in e.key for n in PAGED_KERNELS)) / 1e3
+    kernels = sum(e.count for e in events)
+    return (f"device busy {busy:.3f} ms ({busy / steps:.4f} a step), device kernels {kernels} "
+            f"({kernels / steps:.2f} a step), paged attention kernels {paged:.3f} ms "
+            f"({paged / steps:.4f} a step)")
+
+
+def paged_serving_profile(dev: torch.device, c) -> str:
+    """Paged bf16 attention at full Gemma-2B q4_0 width under torch.profiler
+    (device activity), with chip_smoke's (`c`) serving settings: the first
+    wave of serving (SERVE_SLOTS requests; a step's share includes the
+    admission prefills), then PAGED_STEPS greedy decode steps alone over
+    those SERVE_SLOTS prompts prefilled (`Engine.prefill`, identity pages).
+    Each: `_device_reading`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gemma_tpu_torch.models import GEMMA_2B
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+    from gemma_tpu_torch.testing import make_params
+
+    model = make_params(GEMMA_2B, "q4_0", seed=0, device=dev)
+    eng = Engine(GEMMA_2B, model, EngineConfig(max_seq_len=c.MAX_SEQ_LEN, max_batch=c.SERVE_SLOTS,
+                                               paged=True, page_size=c.PAGE))
+    reqs = c.serve_requests(GEMMA_2B)[:c.SERVE_SLOTS]
+    serve(eng, [Request(r.id, r.prompt, 8) for r in reqs[:4]], block=c.SERVE_BLOCK)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sched = serve(eng, reqs, block=c.SERVE_BLOCK)
+        torch.cuda.synchronize()
+    steps = sched.stats()["decode_steps"]
+    served = _device_reading(prof, steps)
+    logits, cache = eng.prefill([r.prompt for r in reqs])
+    tok = logits.argmax(-1)
+    for _ in range(2):  # warm-up
+        logits, cache = eng.decode_step(tok, cache)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAGED_STEPS):
+            logits, cache = eng.decode_step(tok, cache)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    stepped = _device_reading(prof, PAGED_STEPS)
+    del eng, model, cache
+    torch.cuda.empty_cache()
+    return (f"paged bf16 serving, first wave of {len(reqs)} requests, {steps} decode steps: "
+            f"{served}; {PAGED_STEPS} decode steps alone over {len(reqs)} rows: {stepped}")
 
 
 MATMUL_MS = (1, 2, 4, 8)  # the decode step's rows and the serving step's
@@ -148,7 +263,7 @@ def turn(tag: str, shapes: dict, outputs: str | None = None) -> None:
           json.dumps(matmul_times(dev, shapes["matmul"])), flush=True)
     if outputs:
         torch.save(matmul_outputs(dev), outputs)
-    times = kernel_times(dev, shapes["flash"], shapes["decode"])
+    times = kernel_times(dev, shapes["flash"], shapes["decode"], shapes["paged"])
     print(tag, "kernels device ms, warm:", json.dumps(times), flush=True)
     c.main_path(torch, dev, card, "Gemma-2B", "q4_0")
     c.main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
@@ -160,7 +275,8 @@ def turn(tag: str, shapes: dict, outputs: str | None = None) -> None:
     del eng, model
     torch.cuda.empty_cache()
     print(tag, "bench_prefill", bench_prefill.run(dev, ("q4_0",)), flush=True)
-    c.serving(torch, dev, card, "Gemma-2B", "q4_0", runs=c.SERVE_RUNS[:2])
+    c.serving(torch, dev, card, "Gemma-2B", "q4_0", runs=c.SERVE_RUNS)
+    print(tag, paged_serving_profile(dev, c), flush=True)
     print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -234,9 +350,10 @@ def main(argv=None) -> int:
         return 0
     if not args.parent:
         ap.error("give --parent DIR (or --turn TAG --shapes JSON)")
-    from .probe_variants import DECODE_SHAPES, FLASH_SHAPES, SHAPES
+    from .probe_variants import DECODE_SHAPES, FLASH_SHAPES, PAGED_SHAPES, SHAPES
 
-    shapes = json.dumps({"matmul": SHAPES, "flash": FLASH_SHAPES, "decode": DECODE_SHAPES})
+    shapes = json.dumps({"matmul": SHAPES, "flash": FLASH_SHAPES, "decode": DECODE_SHAPES,
+                         "paged": PAGED_SHAPES})
     change = Path(__file__).resolve().parents[2]
     order = ("parent", "change", "change", "parent")
     with tempfile.TemporaryDirectory() as tmp:

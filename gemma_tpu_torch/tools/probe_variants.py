@@ -19,10 +19,12 @@ G = 1), device ms with the operands warm (as chip_smoke.py).
 `tools/parent_turn.py` times the parent's kernels.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
-a planted fault (a decode split or a flash key tile dropped), and holds
-each, and the unpatched kernels, to the plain version at the S = 4096
-shapes, where a row averages thousands of keys; it fails unless the
-unpatched kernels pass and every mutant fails.
+a planted fault (a decode split or a flash key tile dropped, the int8 V
+scale of a paged tile read at its logical rather than its physical page),
+and holds each, and the unpatched kernels, to the plain version at the S =
+4096 shapes, where a row averages thousands of keys, and at PAGED_SHAPES
+(both arms, shuffled pages); it fails unless the unpatched kernels pass
+and every mutant fails.
 
 A variant is a list of text substitutions in a copy of
 `gemma_tpu_torch/csrc/`, built into `gemma_tpu_torch/build/variants/<name>/`
@@ -211,12 +213,17 @@ SHAPES = {
 # name -> substitutions that plant a fault in an attention kernel
 MUTANTS: dict[str, list[tuple[str, str, str]]] = {
     # the decode kernel's last block merges every split but split 1
-    "drop_split_1": [("decode_attention.cu",
+    "drop_split_1": [("decode_tc.cuh",
                       "const float w = ls > 0.f ? expf(sw[sp_ * G + h] - mx) : 0.f;",
                       "const float w = ls > 0.f && sp_ != 1 ? expf(sw[sp_ * G + h] - mx) : 0.f;")],
     # the flash kernel loads ring step 5 (64 keys at D = 256) but never multiplies it
     "drop_step_5": [("flash_attention.cu", "    compute(i);\n    __syncthreads();  // stage i % 2",
                      "    if (i != 5) compute(i);\n    __syncthreads();  // stage i % 2")],
+    # the tensor-core core reads a tile's int8 V scales at the dense slab
+    # offset: through pages, the logical page's rows, not the physical one's
+    "paged_v_scale_logical": [("decode_tc.cuh", "w *= ok[e] ? v_scale[srow + 8 * (e / 2)] : 0.f;",
+                               "w *= ok[e] ? v_scale[static_cast<size_t>(bh) * S + key0 + g + "
+                               "8 * (e / 2)] : 0.f;")],
 }
 
 
@@ -293,6 +300,10 @@ DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B", 512, [512], 8, 1),
                  # the other groups of the Gemma family: G = 2 (Gemma-2 2B), G = 4 (Gemma-3 1B)
                  ("G=2 heads", 512, [204], 8, 4), ("G=2 serving", 512, SERVE_LIMITS, 8, 4),
                  ("G=4 heads", 512, [204], 4, 1), ("G=4 serving", 512, SERVE_LIMITS, 4, 1))
+# paged shapes (name, S = maxp * ps, kv_limits, ps, Hq, Hkv, pool pages): chip_smoke.py's
+# serving rows over a 65-page pool, and two rows of a 4096-key cache (four pages a block)
+PAGED_SHAPES = (("Gemma-2B serving", 512, SERVE_LIMITS, 64, 8, 1, 65),
+                ("Gemma-2B long", 4096, [2048, 4096], 64, 8, 1, 129))
 SPLITS = (32, 64, 128, 256)
 ATT_TOL = 2e-2
 
@@ -399,10 +410,13 @@ def run_attention(dev: torch.device) -> None:
 def run_mutants(dev: torch.device) -> None:
     """The unpatched attention kernels and each of MUTANTS against the plain
     versions at the S = 4096 shapes of FLASH_SHAPES and DECODE_SHAPES
-    (decode: both arms), through the public wrappers; one line a reading,
-    with max|diff| beside the row-scaled ratio."""
+    (decode: both arms) and at PAGED_SHAPES (bf16 and int8 pages), through
+    the public wrappers; one line a reading, with max|diff| beside the
+    row-scaled ratio."""
     from ..ops import attention as att
+    from ..ops import paged_attention as pat
     from ..runtime.kv_cache import quantize_kv
+    from .parent_turn import paged_inputs
 
     D = 256
     libs = {"unpatched": build.load(), **{name: build_variant(name) for name in MUTANTS}}
@@ -431,6 +445,13 @@ def run_mutants(dev: torch.device) -> None:
                               lambda q=q, kk=kk, vv=vv, lim=lim, sk=sk, sv=sv:
                               att.decode_attention(q, kk, vv, lim, k_scale=sk, v_scale=sv),
                               att.decode_attention_plain(q, kk, vv, lim, k_scale=sk, v_scale=sv)))
+    for name, S, limits, ps, hq, hkv, pool in PAGED_SHAPES:
+        for quantized in (False, True):
+            q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, ps, limits, pool, S,
+                                         quantized)
+            cases.append((f"paged{' int8' if quantized else ''} {name} S={S} ps={ps} limits={limits}",
+                          lambda q=q, cache=cache, lim=lim: pat.paged_decode_attention(q, cache, 0, lim),
+                          pat.paged_decode_attention_plain(q, cache, 0, lim)))
     failed = {}
     for lname, lib in libs.items():
         with build.using(lib):

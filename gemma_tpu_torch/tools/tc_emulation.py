@@ -25,11 +25,13 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   fragments reused as P's A fragments, the masks and the online softmax
   over key tiles, the live-range and per-warp tile skips, and the merge of
   the key groups.
-* `decode` emulates `decode_tc_kernel` of `csrc/decode_attention.cu`: K
-  (or V^T by ldmatrix.trans) as the A operand, q (or P through its shared
-  tile) as the n8 B operand, int8 tiles widened to bf16 and their scales,
-  each warp's running softmax, the block's merge and the last block's
-  merge of the splits in order.
+* `decode` emulates `decode_tc_kernel` of `csrc/decode_tc.cuh` over the
+  dense cache (`DenseRows`): K (or V^T by ldmatrix.trans) as the A
+  operand, q (or P through its shared tile) as the n8 B operand, int8
+  tiles widened to bf16 and their scales, each warp's running softmax, the
+  block's merge and the last block's merge of the splits in order;
+  `paged_decode` the same kernel through a page table (`PagedRows`), each
+  tile's rows and scales taken from its physical page.
 
 Run as a module, it checks each at a few ragged shapes:
 
@@ -526,7 +528,7 @@ def tile_weights(qt: QTensor, rows: int | None = None) -> np.ndarray:
 
 
 # constants of csrc/flash_attention.cu (kFlashTargetBlocks, FlashTc) and
-# csrc/decode_attention.cu (kDecWarps, DecodeTc::kPLd)
+# csrc/decode_tc.cuh (kDecWarps, DecodeTc::kPLd)
 FLASH_TARGET_BLOCKS = 99
 DEC_WARPS, P_LD = 4, 24
 MASK_VALUE = np.float32(-0.7 * np.finfo(np.float32).max)  # gt::kMaskValue
@@ -716,11 +718,52 @@ def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
 
 def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=None, v_scale=None,
            split: int = 64) -> np.ndarray:
-    """`decode_tc_kernel` on bf16 q [B, 1, Hq, D] (Hq / Hkv <= 8) and k/v
-    [B, Hkv, S, D] bf16, or int8 with f32 scales [B, Hkv, S]: out [B, 1, Hq,
-    D] as f32 (bf16 values)."""
+    """`decode_tc_kernel` with `DenseRows` on bf16 q [B, 1, Hq, D] (Hq / Hkv
+    <= 8) and k/v [B, Hkv, S, D] bf16, or int8 with f32 scales [B, Hkv, S]:
+    out [B, 1, Hq, D] as f32 (bf16 values)."""
+    B, Hkv, S, D = k.shape
+    return _decode_tc(q, k.reshape(-1, D), v.reshape(-1, D),
+                      None if k_scale is None else k_scale.reshape(-1),
+                      None if v_scale is None else v_scale.reshape(-1),
+                      kv_limit, Hkv, S, lambda b, hk, key0: (b * Hkv + hk) * S + key0,
+                      softcap, window, split)
+
+
+def paged_decode(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0, window: int = 0,
+                 k_scale=None, v_scale=None, split: int | None = None,
+                 reads: set | None = None) -> np.ndarray:
+    """`decode_tc_kernel` with `PagedRows` on bf16 q [B, 1, Hq, D] and pools
+    [P, Hkv, ps, D] (ps a multiple of 16) bf16, or int8 with f32 scales [P,
+    Hkv, ps], through page_table [B, maxp]; split by default the route's,
+    `decode_tc_split(maxp * ps)`. Each (row, logical page) whose table
+    entry a tile reads goes into `reads`: out [B, 1, Hq, D] as f32 (bf16
+    values)."""
+    from ..ops.attention import decode_tc_split
+
+    _, Hkv, ps, D = k_pages.shape
+    assert ps % 16 == 0
+    table = page_table.to(torch.int32).numpy()
+    S = table.shape[1] * ps
+
+    def row(b, hk, key0):  # the tile at key0 lies in one page
+        if reads is not None:
+            reads.add((b, key0 // ps))
+        return (int(table[b, key0 // ps]) * Hkv + hk) * ps + key0 % ps
+
+    return _decode_tc(q, k_pages.reshape(-1, D), v_pages.reshape(-1, D),
+                      None if k_scale is None else k_scale.reshape(-1),
+                      None if v_scale is None else v_scale.reshape(-1),
+                      kv_limit, Hkv, S, row, softcap, window,
+                      decode_tc_split(S) if split is None else split)
+
+
+def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softcap: float,
+               window: int, split: int) -> np.ndarray:
+    """`decode_tc_kernel` on K/V rows k, v [N, D] (scales [N]), S logical
+    keys a (batch row, kv head), `row(b, hk, key0)` the row of the first
+    key of a 16-key tile (its others follow it), called only for a tile
+    that holds a live key."""
     B, _, Hq, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
     assert G <= 8 and split % 16 == 0
     int8 = k_scale is not None
@@ -763,11 +806,14 @@ def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=Non
                 l = [np.zeros(32, _F32) for _ in range(2)]
                 for j in range(mine):
                     key0 = kb0 + 16 * (w + j * DEC_WARPS)
+                    row0 = row(b, hk, key0)
                     tk, tv = np.zeros(16 * ld, np.uint16), np.zeros(16 * ld, np.uint16)
                     for r in range(16):
                         if key0 + r < kend:
-                            tk[r * ld: r * ld + D] = kh[b, hk, key0 + r]
-                            tv[r * ld: r * ld + D] = vh[b, hk, key0 + r]
+                            tk[r * ld: r * ld + D] = kh[row0 + r]
+                            tv[r * ld: r * ld + D] = vh[row0 + r]
+                    # the tile's scale rows (int8): lane (g, t)'s keys g and g + 8
+                    srows = [np.minimum(row0 + g + 8 * h, len(kh) - 1) for h in range(2)]
                     sab = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(2)]  # two chains
                     for kk in range(D // 16):
                         a = ldmatrix_x4(tk.view(np.uint8),
@@ -779,7 +825,7 @@ def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=Non
                         ok.append((key >= kbeg) & (key < kend) & (2 * t + e % 2 < G))
                         x = (sab[0][e] + sab[1][e]).astype(_F32)
                         if int8:
-                            x = x * np.where(ok[e], ks[b, hk, np.minimum(key, S - 1)], 0).astype(_F32)
+                            x = x * np.where(ok[e], ks[srows[e // 2]], 0).astype(_F32)
                         if softcap > 0:
                             x = (_F32(softcap) * np.tanh(x / _F32(softcap))).astype(_F32)
                         sc.append(np.where(ok[e], x, MASK_VALUE).astype(_F32))
@@ -792,11 +838,9 @@ def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=Non
                     pt = np.zeros((8, P_LD), np.uint16)
                     pv = []
                     for e in range(4):
-                        key = key0 + g + 8 * (e // 2)
                         pe = np.where(ok[e], np.exp(sc[e] - m[e % 2]), 0).astype(_F32)
                         pv.append(pe)
-                        wgt = pe * np.where(ok[e], vs[b, hk, np.minimum(key, S - 1)], 0).astype(_F32) \
-                            if int8 else pe
+                        wgt = pe * np.where(ok[e], vs[srows[e // 2]], 0).astype(_F32) if int8 else pe
                         pt[2 * t + e % 2, g + 8 * (e // 2)] = _to_bf16_bits(wgt)
                     l = [l[0] * al[0] + (pv[0] + pv[2]), l[1] * al[1] + (pv[1] + pv[3])]
                     pflat = pt.reshape(-1)
@@ -876,6 +920,20 @@ def main() -> None:
         err8 = np.abs(decode(qd, k8, v8, lim_t, cap, window, ks, vs) - ref8).max() / np.abs(ref8).max()
         print(f"attention B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}: max|diff| / max|ref|: flash "
               f"{err:.2e}, decode {errd:.2e}, decode int8 {err8:.2e}")
+    # paged decode: 16-key pages shuffled over a pool, against the dense
+    # emulation on the gathered pages
+    from ..ops.paged_attention import gather_pages
+
+    B, Hq, Hkv, D, ps, maxp = 2, 8, 2, 128, 16, 8
+    q = torch.randn(B, 1, Hq, D, generator=gen).mul(0.3).to(torch.bfloat16)
+    kp, vp = (torch.randn(B * maxp + 1, Hkv, ps, D, generator=gen).mul(0.3).to(torch.bfloat16)
+              for _ in range(2))
+    pt = (torch.randperm(B * maxp, generator=gen) + 1).to(torch.int32).reshape(B, maxp)
+    lim_t = torch.tensor([70, 128], dtype=torch.int32)
+    same = np.array_equal(paged_decode(q, kp, vp, pt, lim_t, 30.0, 48),
+                          decode(q, gather_pages(kp, pt), gather_pages(vp, pt), lim_t, 30.0, 48))
+    print(f"paged decode B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps}: bit for bit the dense emulation on "
+          f"the gathered pages: {same}")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ lengths) must be equal bit for bit. Paged attention: the kernel rounds p
 (or p * vs for int8 pages) to bf16 against its page-walk's running max, the
 port's plain version against the row max, and outputs are bf16: atol =
 rtol = 1e-2, as for the dense decode kernel (tests/test_torch_attention.py).
+The tensor-core kernel's lane emulation (`tools/tc_emulation.paged_decode`)
+is held to the reference kernel row by row, within 2e-2 of each row's
+scale (`tools/_timing.attn_err`), as the card holds the kernel.
 """
 
 import numpy as np
@@ -27,9 +30,12 @@ from gemma_tpu.runtime.paged_kv import PageAllocator as JaxPageAllocator
 from gemma_tpu.runtime.paged_kv import PagedKVCache as JaxPagedKVCache
 from gemma_tpu_torch.models.config import GemmaConfig
 from gemma_tpu_torch.models.params import tensor_from_numpy
-from gemma_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_plain
+from gemma_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                 paged_decode_attention_plain, paged_route)
 from gemma_tpu_torch.runtime import KVCache, PageAllocator, PagedKVCache
 from gemma_tpu_torch.testing import from_jax_cache
+from gemma_tpu_torch.tools import tc_emulation as emu
+from gemma_tpu_torch.tools._timing import attn_err
 
 TOL = dict(atol=1e-2, rtol=1e-2)
 
@@ -48,10 +54,11 @@ def _t(a):
         torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
 
 
-def _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized):
+def _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized, fill_free=False):
     """A reference paged cache of one layer holding random bf16 pages (or
     their int8 quantization), distinct shuffled pages per sequence, the
-    rest of each table row on the trash page."""
+    rest of each table row on the trash page; with `fill_free`, the trash
+    page and the free pages hold random values too."""
     perm = rng.permutation(n_pages - 1) + 1
     pt = np.zeros((B, maxp), np.int32)
     kp = np.zeros((n_pages, Hkv, ps, D), np.float32)
@@ -64,6 +71,10 @@ def _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized):
             pt[b, i] = pg
             kp[pg] = rng.normal(size=(Hkv, ps, D)) * 0.3
             vp[pg] = rng.normal(size=(Hkv, ps, D)) * 0.3
+    if fill_free:
+        free = np.setdiff1d(np.arange(n_pages), pt[pt > 0])
+        kp[free] = rng.normal(size=(len(free), Hkv, ps, D)) * 0.3
+        vp[free] = rng.normal(size=(len(free), Hkv, ps, D)) * 0.3
     kp, vp = jnp.asarray(kp, jnp.bfloat16), jnp.asarray(vp, jnp.bfloat16)
     common = dict(page_table=jnp.asarray(pt), length=jnp.asarray(lengths, jnp.int32))
     if not quantized:
@@ -101,6 +112,48 @@ def test_paged_plain_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages, length
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **TOL)
     # on CPU tensors the wrapper is the plain version
     torch.testing.assert_close(paged_decode_attention(q, cache, 0, lim_t, softcap, window), got)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,maxp,n_pages,lengths,softcap,window", PAGED_CASES)
+def test_paged_tc_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages, lengths, softcap,
+                                               window, quantized, rng):
+    """The tensor-core kernel through the page table (lane emulation) against
+    `_paged_kernel` on shuffled pages, the trash page and the free pages
+    holding random values: within 2e-2 of each row's scale, and no table
+    entry read but those of pages that hold a live key. The kernel takes
+    G <= 8, so the G = 1 cases count too (the route sends them to split-S)."""
+    jcache = _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized, fill_free=True)
+    qj = jnp.asarray(rng.normal(size=(B, 1, Hq, D)) * 0.3, jnp.bfloat16)
+    ref = jax_paged(qj, jcache, 0, jnp.asarray(lengths, jnp.int32), softcap, window)
+    cache = from_jax_cache(_numpy(jcache))
+    k, v, ks, vs = cache.layer_pages(0)
+    reads = set()
+    got = emu.paged_decode(_t(qj), k, v, cache.page_table, torch.tensor(lengths, dtype=torch.int32),
+                           softcap, window, ks, vs, reads=reads)
+    assert got.shape == (B, 1, Hq, D)
+    ratio = attn_err(torch.from_numpy(got), torch.from_numpy(np.asarray(ref, np.float32)), 2e-2)[1]
+    assert ratio <= 1.0
+    for b, i in reads:  # the page holds a key in [max(limit - window, 0), limit)
+        lo = max(lengths[b] - window, 0) if window else 0
+        assert i * ps < lengths[b] and (i + 1) * ps > lo
+    assert {b for b, _ in reads} == set(range(B))
+
+
+@pytest.mark.parametrize("dtype,G,ps,S,route", [
+    (torch.bfloat16, 8, 64, 512, ("tc", 64)),     # Gemma-2B serving: 64-token pages
+    (torch.bfloat16, 8, 64, 4096, ("tc", 256)),   # a long cache: four pages a block
+    (torch.bfloat16, 4, 16, 512, ("tc", 64)),     # four pages a block
+    (torch.float32, 8, 64, 512, ("split", 64)),   # f32 products are not exact on bf16 tensor cores
+    (torch.bfloat16, 1, 64, 512, ("split", 64)),  # G = 1 (Gemma-7B) stays split-S, as dense decode
+    (torch.bfloat16, 16, 64, 512, ("split", 64)),  # beyond the n8 side
+    (torch.bfloat16, 8, 8, 512, ("split", 8)),    # a 16-key tile would straddle two pages
+])
+def test_paged_route(dtype, G, ps, S, route):
+    """bf16 queries with 2 <= G <= 8 and pages of a multiple of 16 keys take
+    the tensor-core kernel at the dense kernel's split for S = maxp * ps;
+    the rest the split-S kernel, a block a page."""
+    assert paged_route(dtype, G, ps, S) == route
 
 
 def test_page_allocator_matches_reference():

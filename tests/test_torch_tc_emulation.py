@@ -12,12 +12,17 @@ card holds the kernels to.
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
 * Flash and decode attention (`csrc/flash_attention.cu` flash_tc_kernel,
-  `csrc/decode_attention.cu` decode_tc_kernel), bf16: products are exact,
+  `csrc/decode_tc.cuh` decode_tc_kernel), bf16: products are exact,
   but p rounds to bf16 against a tile's (flash) or a warp's (decode)
   running max where the plain version rounds against the row max, and the
   output is bf16: 2e-2 of the output's scale, the card's tolerance
   (chip_smoke.py). Rows without a valid key are exactly 0. One case of
   each is also held to the JAX kernel in interpret mode.
+* Decode through a page table (`decode_tc_kernel` with `PagedRows`): equal
+  bit for bit to the dense emulation on the gathered pages at the same
+  split, and within 2e-2 of each row's scale of the plain version
+  (`tools/_timing.attn_err`); tests/test_torch_paged.py holds it to the
+  JAX `_paged_kernel`.
 """
 import numpy as np
 import pytest
@@ -29,11 +34,12 @@ from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.ops.attention import flash_attention as jax_flash
 from gemma_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from gemma_tpu.quant.qtensor import quantize_array
-from gemma_tpu_torch.ops.attention import decode_attention_plain, flash_attention_plain
+from gemma_tpu_torch.ops.attention import decode_attention_plain, decode_tc_split, flash_attention_plain
+from gemma_tpu_torch.ops.paged_attention import gather_pages
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
 from gemma_tpu_torch.quant.qtensor import dequant, from_jax
 from gemma_tpu_torch.tools import tc_emulation as emu
-from gemma_tpu_torch.tools._timing import random_qtensor
+from gemma_tpu_torch.tools._timing import attn_err, random_qtensor
 
 
 def _case(fmt, N, K, seed):
@@ -217,6 +223,47 @@ def test_decode_emulation_matches_plain(B, S, Hq, Hkv, D, limits, cap, window, s
         scales = dict(k_scale=ks, v_scale=vs)
     ref = decode_attention_plain(q, k, v, lim, cap, window, **scales).float().numpy()
     _held(emu.decode(q, k, v, lim, cap, window, split=split, **scales), ref)
+
+
+PAGED_EMU_CASES = [
+    # B, Hq, Hkv, D, ps, maxp, limits, softcap, window, split (None: the route's)
+    (2, 8, 1, 128, 64, 4, [1, 200], 0.0, 0, None),       # serving's pages: a page a block
+    (1, 4, 2, 128, 16, 16, [230], 30.0, 40, None),       # four pages a block; window: dead splits
+    (1, 8, 1, 128, 256, 2, [300], 0.0, 0, None),         # a quarter of a page a block
+    (2, 8, 1, 256, 32, 4, [50, 128], 20.0, 0, 128),      # D = 256, two tiles a warp, two stages
+    (2, 4, 4, 128, 16, 5, [80, 33], 0.0, 24, 32),        # G = 1 (the kernel's), two pages a block
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,maxp,limits,cap,window,split", PAGED_EMU_CASES)
+def test_paged_decode_emulation_is_dense_decode_on_the_gathered_pages(B, Hq, Hkv, D, ps, maxp, limits,
+                                                                      cap, window, split, int8):
+    """Each row's pages shuffled over the pool, the trash page 0 and the free
+    pages random: the paged kernel runs the dense kernel's tiles, in its
+    order and arithmetic, so the two agree bit for bit."""
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    rng = np.random.default_rng(B * ps + maxp)
+    n_pages = B * maxp + 3
+    q, kp, vp = [torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3).to(torch.bfloat16)
+                 for shape in ((B, 1, Hq, D), (n_pages, Hkv, ps, D), (n_pages, Hkv, ps, D))]
+    perm = rng.permutation(n_pages - 1) + 1
+    table = np.zeros((B, maxp), np.int32)
+    live = [-(-n // ps) for n in limits]
+    table[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
+    pt = torch.from_numpy(table)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    dense = [None if x is None else gather_pages(x, pt) for x in (kp, vp, ks, vs)]
+    got = emu.paged_decode(q, kp, vp, pt, lim, cap, window, ks, vs, split)
+    want = emu.decode(q, dense[0], dense[1], lim, cap, window, dense[2], dense[3],
+                      split or decode_tc_split(maxp * ps))
+    assert np.array_equal(got, want)
+    ref = decode_attention_plain(q, *dense[:2], lim, cap, window, *dense[2:])
+    assert attn_err(torch.from_numpy(got), ref, ATT_TOL)[1] <= 1.0
 
 
 def test_emulations_match_the_jax_kernels():
