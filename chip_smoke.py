@@ -16,8 +16,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    over long caches (S = 4096: flash at 2048 tokens from position 0 and at
    the last 512-token chunk, decode and paged decode at limits 2048 and
    4096, both arms; paged decode equal bit for bit to decode on the
-   gathered rows), with the route each took (bf16: the tensor-core
-   kernels), max|diff|
+   gathered rows), and flash at the speculative verify's shapes (T = 8
+   and T = 2 query rows from each sequence's length, batch 1 and the 8
+   serving rows; q4_0 also at the verify's M = 2 and 16), with the route
+   each took (bf16: the tensor-core kernels), max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
    computes the same function (CUDA events), and the least time the
@@ -30,21 +32,34 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    equal to what the layer structure implies (the tensor-core attention
    kernels' share too); then `Engine.generate` must
    give the same tokens; the prefill's median wall time over 5 more runs
-   and a device profile of one;
+   and a device profile of one; then, on the same engine, speculative
+   decoding (`SpecDecoder`, k = 7, blocks of 4) of 96 tokens from a
+   repetitive 203-token prompt with exact launch counts, its verify logits
+   held to plain decode steps (2e-2 of their scale; delta = twice the
+   largest difference) and its stream teacher-forced through plain decode
+   (each token the plain argmax or within delta of the plain maximum),
+   tokens a verify forward, wall tok/s against plain, device busy a verify
+   forward against a plain step, and one block issued under
+   `set_sync_debug_mode("error")`;
 5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
    tiny q4_0, q4_k_m and q8_0 GGUF, its printed text equal to the
    in-process run's, and each tiny model on the card held against the same
    model on the CPU (plain path); then `python -m gemma_tpu_torch serve
    --device cuda --paged --kv-quant` against the in-process `serve`, and
    serving on the card against the CPU in f32 over paged and paged int8
-   caches;
+   caches; `generate --speculative` and `serve --speculative` likewise,
+   and the tiny f32 model's speculative streams card vs CPU;
 6. continuous-batching serving (8 slots, 24 requests of 96 tokens) at full
    Gemma-2B q4_0 width over four caches: dense, dense int8, paged, and
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
    shuffled and admitted every 4 steps, which must give the same streams;
    all with exact launch counts (every bf16 paged decode call on the
-   tensor cores);
+   tensor cores); then speculative serving of the same requests (Gemma-2B,
+   dense bf16 and int8, adaptive k; k = 7 in admission order and shuffled,
+   which must give the same streams), each stream teacher-forced through
+   plain decode against phase 4's delta, and a batched block under
+   `set_sync_debug_mode("error")`;
 7. the decode-GEMV instruments, the kernels that replace the Pallas
    kernels of the reference's tools/ (bench_qmm_variants, bench_bn_sweep,
    probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
@@ -114,6 +129,12 @@ KERNELS = {
 # admission chunk, the prompt
 TILE_MS = (17, 64, PROMPT_LEN)
 SERVE_SLOTS = 8  # the serving step's rows: every format's tensor-core GEMV
+# the speculative verify: k = 7 drafts (T = 8 rows a sequence; the k = 1
+# decoder of adaptive serving: T = 2), blocks of 4 verify forwards
+SPEC_K, SPEC_BLOCK, SPEC_TOKENS = 7, 4, 96
+# q4_0's verify rows beside M = 8 and 64: k = 1 at batch 1 (M = 2, the
+# GEMV) and over 8 slots (M = 16, the tile)
+VERIFY_MS = (2, 16)
 # phase 3's quantized-matmul shapes (name, N, K, Ms): Gemma-2B's for q4_0
 # and for the q4_k_m path (q4_k q, k, out, fused gate|up, down; q6_k attn_v,
 # and the tied head, which prefill runs at its last row only), the deep-K
@@ -122,9 +143,10 @@ SERVE_SLOTS = 8  # the serving step's rows: every format's tensor-core GEMV
 # M = 1 is the decode step and M = 8 the serving step (every format: the
 # tensor-core GEMV of csrc/dq_gemv.cuh)
 MATMUL_SHAPES = {
-    "q4_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
+    "q4_0": ([(name, N, K, (1, *VERIFY_MS, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("qkv", 2560, 2048), ("attn_out", 2048, 2048), ("gate_up", 32768, 2048),
-        ("down", 2048, 16384))] + [("head", 256000, 2048, (1, SERVE_SLOTS, PROMPT_LEN))], "gate_up"),
+        ("down", 2048, 16384))] + [("head", 256000, 2048, (1, *VERIFY_MS, SERVE_SLOTS, 64,
+                                                           PROMPT_LEN))], "gate_up"),
     "q8_0": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("qkv", 12288, 3072), ("attn_out", 3072, 4096), ("gate_up", 49152, 3072),
         ("down", 3072, 24576))] + [("head", 256000, 3072, (1, SERVE_SLOTS))], "gate_up"),
@@ -478,6 +500,74 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     return results
 
 
+def check_verify_attention(torch, dev) -> dict[str, dict]:
+    """Phase 3, flash attention at the speculative verify's shapes: T = 8
+    (k = 7) and T = 2 (k = 1) query rows a sequence at positions length ..
+    length + T - 1 over a MAX_SEQ_LEN cache, kv_limit length + T: Gemma-2B
+    heads at batch 1 (length PROMPT_LEN) and over the 8 serving rows (each
+    its own length, SERVE_LIMITS clipped to S - T), Gemma-7B heads at
+    batch 1 (T = 8: 8 of a block's 16 rows are padding at G = 1), and
+    correctness only, an idle serving row whose positions and limit passed
+    the cache (the kernel clamps the limit to S). Each within 2e-2 of each
+    row's scale of its plain version (`_timing.attn_err`), with kernel,
+    plain and SDPA times, decode attention's time at the same limits (one
+    query row a sequence), and the bound. Returns the Gemma-2B batch-1
+    readings by T."""
+    import gemma_tpu_torch.ops.attention as att
+    from gemma_tpu_torch.tools._timing import attn_err
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tol, D, S = 2e-2, 256, MAX_SEQ_LEN
+    key = torch.arange(S, device=dev)
+    readings = {}
+    cases = [(f"Gemma-2B heads B=1 T={T}", 8, 1, T, [PROMPT_LEN]) for T in (1 + SPEC_K, 2)]
+    cases += [(f"Gemma-2B heads {SERVE_SLOTS} rows T={T}", 8, 1, T,
+               [min(n, S - T) for n in SERVE_LIMITS]) for T in (1 + SPEC_K, 2)]
+    cases += [(f"Gemma-7B heads B=1 T={1 + SPEC_K}", 16, 16, 1 + SPEC_K, [PROMPT_LEN]),
+              ("idle row past the cache", 8, 1, 1 + SPEC_K, [PROMPT_LEN, S + 40])]
+    for name, hq, hkv, T, starts in cases:
+        B = len(starts)
+        q = (torch.randn(B, T, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        k, v = ((torch.randn(B, hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+                for _ in range(2))
+        length = torch.tensor(starts, dtype=torch.int32, device=dev)
+        pos = length[:, None] + torch.arange(T, dtype=torch.int32, device=dev)
+        lim = length + T
+        kernel = lambda: att.flash_attention(q, k, v, pos, lim)
+        plain = lambda: att.flash_attention_plain(q, k, v, pos, lim)
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ratio, lo, hi = attn_err(got, ref, tol)
+        require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+                f"flash_attention verify {name}: |diff| {ratio:.3f} x {tol} of its row's scale")
+        if name.startswith("idle"):
+            info("kernel", f"flash_attention verify {name}: lengths {starts}, max|diff|={err:.3e}, "
+                           f"worst |diff| / ({tol:.0e} x row scale) {ratio:.3f}")
+            continue
+        ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain, launches=1)
+        valid = (key[None, None] <= pos[:, :, None]) & (key < lim[:, None, None])
+        library_ms = sdpa_ms(torch, q, k, v, valid)
+        qd = q[:, -1:].contiguous()
+        decode_ms = device_ms(torch, lambda: att.decode_attention(qd, k, v, lim))
+        live = sum(min(n + T, S) for n in starts)
+        seen = int(valid.sum())  # (row, key) pairs a query head reads
+        bound_ms, bound_by = bound(2 * B * T * hq * D * 2 + 2 * live * hkv * D * 2 + B * T * 4,
+                                   4 * hq * D * seen, BF16_FLOPS)
+        info("kernel", f"flash_attention verify {name} lengths {starts} S={S}: max|diff|={err:.3e}, "
+                       f"worst |diff| / ({tol:.0e} x row scale) {ratio:.3f}, row scales "
+                       f"{lo:.3e}-{hi:.3e}; device ms: kernel {ms:.4f} plain {plain_ms:.4f} library "
+                       f"(scaled_dot_product_attention, boolean mask) {library_ms:.4f} decode "
+                       f"attention (T = 1, same limits) {decode_ms:.4f}; bound {bound_ms:.6f} "
+                       f"({bound_by})")
+        if B == 1 and hq == 8:
+            readings[f"verify_t{T}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "decode_ms": decode_ms,
+                "shape": f"T={T} positions {starts[0]}.. S={S} Hq={hq} Hkv={hkv} D={D}"}
+    return readings
+
+
 def check_edge_cases(torch, dev) -> None:
     """Phase 3, correctness only: the kernels' instances the main path does
     not reach (M = 2..9 and 70 on ragged N and K, and the prefill rows 17,
@@ -509,7 +599,7 @@ def check_edge_cases(torch, dev) -> None:
                       ("q4_k", 1000, 1280), ("q6_k", 1000, 1280), ("q6_k", 999, 1280)):
         qt = random_qtensor(fmt, N, K, gen, dev)
         for dtype in (torch.bfloat16, torch.float32):
-            for M in (*range(1, 10), 17, 64, 70, 130, PROMPT_LEN):
+            for M in (*range(1, 10), 16, 17, 64, 70, 130, PROMPT_LEN):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                 got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
                 err = (got - ref).abs().max().item()
@@ -902,9 +992,11 @@ def model_config(name: str):
     return {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B}[name]
 
 
-def main_path(torch, dev, card: str, model_name: str, fmt: str) -> dict[str, int]:
+def main_path(torch, dev, card: str, model_name: str, fmt: str):
     """Phases 4 (Gemma-2B q4_0), 4b (Gemma-2B q4_k_m) and 4c (Gemma-7B
-    q8_0): the model at full width, prefill + NEW_TOKENS greedy tokens."""
+    q8_0): the model at full width, prefill + NEW_TOKENS greedy tokens, then
+    the speculative run on the same engine (`speculative_path`). Returns
+    (the plain run's launch counts, the speculative run's, its delta)."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import make_params
 
@@ -950,9 +1042,151 @@ def main_path(torch, dev, card: str, model_name: str, fmt: str) -> dict[str, int
     info(phase, f"host ms per decode step by op: {host_profile(torch, eng, cache, toks[-1])}")
     again = eng.generate([prompt], NEW_TOKENS)[0]
     require(again == toks, "Engine.generate differs from prefill + generate_from")
-    del eng, model, cache
+    del cache
+    spec_counts, delta = speculative_path(torch, card, eng, fmt, phase, busy)
+    del eng, model
     torch.cuda.empty_cache()
-    return counts
+    return counts, spec_counts, delta
+
+
+def spec_prompt(cfg) -> list[int]:
+    """A repetitive prompt: one 29-token block seen 7 times (203 tokens)."""
+    return [2 + (i * 7919 + 13) % (cfg.vocab_size - 2) for i in range(29)] * 7
+
+
+def clone_cache(cache):
+    from gemma_tpu_torch.runtime import KVCache
+
+    def c(xs):
+        return None if xs is None else [x.clone() for x in xs]
+
+    return KVCache(c(cache.k), c(cache.v), cache.length.clone(), c(cache.k_scale), c(cache.v_scale))
+
+
+def teacher_forced_gaps(torch, eng, prompts: list[list[int]], streams: list[list[int]]):
+    """Feed each stream through the plain path (prefill, then one decode
+    step a token, the sequences batched in eng's slots): for every position,
+    max(plain logits) - plain logit of the stream's token (0 where the
+    stream's token is the plain argmax). Returns [n_tokens, len(prompts)]
+    on the host."""
+    B = len(prompts)
+    cache = eng.new_cache(B)
+    logits = torch.empty(B, eng.cfg.vocab_size, dtype=torch.float32, device=eng.device)
+    for b, p in enumerate(prompts):
+        pre = eng.prefill_standalone(p)
+        eng.insert_sequence(cache, b, pre)
+        logits[b] = pre[0]
+    toks = torch.tensor(streams, dtype=torch.int64, device=eng.device)  # [B, n]
+    gaps = []
+    for j in range(toks.shape[1]):
+        mine = logits.gather(1, toks[:, j : j + 1])[:, 0]
+        am = logits.argmax(-1)
+        gaps.append(torch.where(am == toks[:, j], 0.0, logits.amax(-1) - mine))
+        logits, cache = eng.decode_step(toks[:, j], cache)
+    return torch.stack(gaps).cpu()
+
+
+def speculative_path(torch, card, eng, fmt: str, phase: str, plain_busy: float):
+    """Phases 4-4c, speculative: on the engine the plain run used,
+    `SpecDecoder(k=SPEC_K, block=SPEC_BLOCK).generate` of SPEC_TOKENS tokens
+    from `spec_prompt`, with exact launch counts (one prefill, then one
+    flash launch a layer a verify forward and no decode attention), against
+    plain `prefill` + `generate_from` of the same prompt (wall tok/s, both
+    with their prefill). bf16: the verify's M = 8 and flash round otherwise
+    than M = 1 and decode attention, so the stream is held by calibration,
+    not equality: one verify forward of 8 tokens and 8 plain decode steps
+    over the same tokens from the same cache must agree within 2e-2 of the
+    logits' scale, and delta is twice their largest |difference|; then the
+    stream, teacher-forced through the plain path, must at every position
+    be the plain argmax or lie within delta of the plain maximum. Device
+    busy a verify forward (torch.profiler, one block) beside a plain step's.
+    One block issued under `torch.cuda.set_sync_debug_mode("error")` must
+    not sync. Returns (launch counts, delta)."""
+    from gemma_tpu_torch.models import forward
+    from gemma_tpu_torch.runtime import SpecDecoder
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = eng.cfg
+    prompt = spec_prompt(cfg)
+    P = len(prompt)
+    dec = SpecDecoder(eng, k=SPEC_K, block=SPEC_BLOCK)
+    dec.generate(prompt[:16], 8)  # warm-up: first launches at the verify shapes
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    stream = dec.generate(prompt, SPEC_TOKENS)
+    t_spec = time.perf_counter() - t0
+    counts = read_counters()
+    expected = expected_forward_launches(cfg, fmt, 1 + dec.steps, 0, "decode_attention")
+    require(counts == expected, f"{phase} speculative: launch counts {counts} != expected {expected}")
+    require(len(stream) == SPEC_TOKENS and all(0 <= t < cfg.vocab_size for t in stream),
+            f"{phase} speculative: {len(stream)} tokens, or a token out of range")
+    t0 = time.perf_counter()
+    logits0, cache = eng.prefill([prompt])
+    plain = eng.generate_from(logits0, cache, SPEC_TOKENS)[0]
+    t_plain = time.perf_counter() - t0
+
+    with torch.no_grad():
+        logits0, cache = eng.prefill([prompt])
+        ca, cb = clone_cache(cache), clone_cache(cache)
+        toks = torch.tensor([stream[:1 + SPEC_K]], device=eng.device)
+        pos = P + torch.arange(1 + SPEC_K, dtype=torch.int32, device=eng.device)[None]
+        verify = forward(eng.params, cfg, toks, pos, ca, write_index=ca.length,
+                         kv_limit=ca.length + 1 + SPEC_K)[0]
+        steps = []
+        for j in range(1 + SPEC_K):
+            lg, cb = eng.decode_step(toks[:, j], cb)
+            steps.append(lg[0])
+        steps = torch.stack(steps)
+        dmax = (verify - steps).abs().max().item()
+        scale = steps.abs().max().item()
+    delta = 2 * dmax
+    info(phase, f"speculative logit check: {1 + SPEC_K} verify rows against {1 + SPEC_K} decode "
+                f"steps over the same tokens, max|diff| {dmax:.4e} (tol {2e-2 * scale:.4e}, 2e-2 of "
+                f"the logits' scale {scale:.3f}); delta = {delta:.4e}")
+    require(dmax <= 2e-2 * scale, f"{phase}: verify logits differ from decode steps by {dmax} > "
+                                  f"{2e-2 * scale}")
+    gaps = teacher_forced_gaps(torch, eng, [prompt], [stream])[:, 0]
+    off = [j for j, g in enumerate(gaps.tolist()) if g > 0]
+    info(phase, f"speculative stream teacher-forced through plain decode: {len(off)} of "
+                f"{SPEC_TOKENS} positions not the plain argmax (first {off[:1]}), largest gap "
+                f"{float(gaps.max()):.4e} (delta {delta:.4e}); equal to plain greedy's stream: "
+                f"{stream == plain}")
+    require(float(gaps.max()) <= delta, f"{phase}: a speculative token lies {float(gaps.max())} "
+                                        f"below the plain maximum (delta {delta})")
+
+    _, carry, cache = dec.start(prompt)
+    torch.cuda.synchronize()
+    before = read_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        carry, _ = dec.batch_block(carry, cache)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3 / SPEC_BLOCK
+    coverage = profiler_coverage(prof, before)
+    no_sync(torch, lambda: dec.batch_block(carry, cache), f"{phase} batch-1 speculative block")
+    info(phase, f"speculative on {card}: k={SPEC_K}, block {SPEC_BLOCK}, {dec.steps} verify forwards "
+                f"for {dec.emitted} tokens ({dec.emitted / dec.steps:.3f} a forward; {SPEC_TOKENS} "
+                f"kept); prefill + {SPEC_TOKENS} tokens {t_spec:.3f} s = {SPEC_TOKENS / t_spec:.2f} "
+                f"tok/s against plain prefill + generate_from {t_plain:.3f} s = "
+                f"{SPEC_TOKENS / t_plain:.2f} tok/s ({t_plain / t_spec:.3f}x); device busy "
+                f"{busy:.3f} ms a verify forward against {plain_busy:.3f} a plain decode step "
+                f"({busy / plain_busy:.3f}x; {coverage}); launches {counts}")
+    return counts, delta
+
+
+def no_sync(torch, fn, what: str) -> None:
+    """fn() under `torch.cuda.set_sync_debug_mode("error")`: a host sync
+    inside it fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{what} synchronized with the host: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    info("sync", f"{what}: no host sync under set_sync_debug_mode('error')")
 
 
 def serve_requests(cfg):
@@ -986,20 +1220,21 @@ SERVE_7B_RUNS = (
 )
 
 
-def serving(torch, dev, card: str, model_name: str, fmt: str,
-            runs=SERVE_RUNS) -> dict[str, dict[str, int]]:
+def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
+            spec_delta: float | None = None) -> dict[str, dict[str, int]]:
     """Phases 6 (Gemma-2B q4_0, the four caches of SERVE_RUNS) and 6b
     (Gemma-7B q8_0, SERVE_7B_RUNS): `serve` at full width, weights from
     make_params(seed=0), SERVE_SLOTS slots, max_seq_len 512, blocks of
     SERVE_BLOCK (or a run's "block"), greedy; a run with "shuffle_seed"
     submits the requests shuffled and must give the first run's streams.
+    With `spec_delta`, the speculative runs follow (`spec_serving`).
     Returns each run's launch counts."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
     from gemma_tpu_torch.testing import make_params
 
     cfg = model_config(model_name)
     model = make_params(cfg, fmt, seed=0, device=dev)
-    streams, counts_by_run = {}, {}
+    streams, counts_by_run, rates = {}, {}, {}
     for name, options, decode_kernel in runs:
         phase = f"serve {model_name} {fmt} {name}"
         options = dict(options)
@@ -1043,6 +1278,7 @@ def serving(torch, dev, card: str, model_name: str, fmt: str,
                     "decode calls took the tensor cores")
         streams[name] = {r.id: r.tokens for r in sched.finished}
         counts_by_run[name] = counts
+        rates[name] = (st["total_tokens"] / wall, st["p50_ttft_s"], st["p99_ttft_s"])
         del eng, sched
         torch.cuda.empty_cache()
     dense = streams["dense bf16"]
@@ -1062,8 +1298,108 @@ def serving(torch, dev, card: str, model_name: str, fmt: str,
                           "the dense bf16 run's")
             require(same == len(dense), f"serve {model_name} {fmt} {name}: {len(dense) - same} "
                                         "streams differ from the dense bf16 run's")
+    if spec_delta is not None:
+        counts_by_run.update(spec_serving(torch, card, model_name, cfg, model, fmt, spec_delta, rates))
     serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
     del model
+    torch.cuda.empty_cache()
+    return counts_by_run
+
+
+# phase 6's speculative runs: (name, EngineConfig options, Scheduler options,
+# shuffle seed). `serve(speculative=True)` (adaptive k) over the dense bf16
+# and int8 caches; then k = 7 pinned, in admission order and shuffled: at a
+# fixed k and B every row's arithmetic is its own, so the streams must match
+SPEC_SERVE_RUNS = (
+    ("dense bf16", {}, None, None),
+    ("dense int8", {"kv_quantized": True}, None, None),
+    ("dense bf16, k = 7", {}, {"spec_min_accept": 0.0}, None),
+    ("dense bf16, k = 7, shuffled", {}, {"spec_min_accept": 0.0}, 1),
+)
+
+
+def spec_serving(torch, card: str, model_name: str, cfg, model, fmt: str, delta: float,
+                 rates: dict) -> dict[str, dict[str, int]]:
+    """Phase 6, speculative: SPEC_SERVE_RUNS over phase 6's requests
+    (SERVE_SLOTS slots, k = SPEC_K, blocks of SPEC_BLOCK ticks, two in
+    flight), each with exact launch counts (one admission forward a request,
+    then one flash launch a layer a verify forward, no decode attention).
+    Every stream of a run in admission order is teacher-forced through the
+    plain decode path of its cache (8 sequences a batch) and must at every
+    position be the plain argmax or lie within `delta` (phase 4's) of the
+    plain maximum; the shuffled run must give its unshuffled run's streams.
+    Then one batched block under set_sync_debug_mode("error"). Returns each
+    run's launch counts."""
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, Scheduler, serve
+
+    streams, counts_by_run = {}, {}
+    for name, options, sched_options, shuffle_seed in SPEC_SERVE_RUNS:
+        phase = f"serve {model_name} {fmt} speculative {name}"
+        ecfg = EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS, **options)
+        eng = Engine(cfg, model, ecfg)
+        reqs = serve_requests(cfg)
+        if shuffle_seed is not None:
+            random.Random(shuffle_seed).shuffle(reqs)
+        reset_counters()
+        t0 = time.perf_counter()
+        if sched_options is None:
+            sched = serve(eng, reqs, speculative=True, spec_k=SPEC_K, spec_block=SPEC_BLOCK)
+        else:
+            sched = Scheduler(eng, speculative=True, spec_k=SPEC_K, spec_block=SPEC_BLOCK,
+                              **sched_options)
+            for r in reqs:
+                sched.submit(r)
+            sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, st = read_counters(), sched.stats()
+        require(len(sched.finished) == SERVE_REQUESTS and all(
+            len(r.tokens) == SERVE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in sched.finished), f"{phase}: not every request finished with "
+                                      f"{SERVE_NEW_TOKENS} in-range tokens")
+        expected = expected_forward_launches(cfg, fmt, len(reqs) + st["spec_forwards"], 0,
+                                             "decode_attention")
+        plain_rate, p50, p99 = rates[name.split(",")[0]]
+        info(phase, f"{SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x {SERVE_NEW_TOKENS} tokens "
+                    f"on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate (plain "
+                    f"{plain_rate:.2f}), TTFT p50 {st['p50_ttft_s'] * 1e3:.1f} ms p99 "
+                    f"{st['p99_ttft_s'] * 1e3:.1f} ms (plain {p50 * 1e3:.1f}, {p99 * 1e3:.1f}), wall "
+                    f"{wall:.3f} s; verify forwards {st['spec_forwards']} ({st['spec_lo_forwards']} "
+                    f"of them k = 1), tokens / (verify forwards x {SERVE_SLOTS} slots) "
+                    f"{st['total_tokens'] / st['spec_forwards'] / SERVE_SLOTS:.3f}, tokens "
+                    f"discarded {st['tokens_discarded']}; "
+                    f"launches {counts}")
+        require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+        streams[name] = {r.id: r.tokens for r in sched.finished}
+        counts_by_run[f"speculative {name}"] = counts
+        if shuffle_seed is None:
+            by_id = {r.id: r for r in sched.finished}
+            plain_eng = Engine(cfg, model, ecfg)
+            ids = sorted(by_id, key=lambda i: int(i[1:]))
+            gaps = torch.cat([teacher_forced_gaps(torch, plain_eng,
+                                                  [by_id[i].prompt for i in ids[g:g + SERVE_SLOTS]],
+                                                  [by_id[i].tokens for i in ids[g:g + SERVE_SLOTS]])
+                              for g in range(0, len(ids), SERVE_SLOTS)], dim=1)
+            off = int((gaps > 0).sum())
+            info(phase, f"streams teacher-forced through plain decode ({name.split(',')[0]} cache): "
+                        f"{off} of {gaps.numel()} tokens not the plain argmax, largest gap "
+                        f"{float(gaps.max()):.4e} (delta {delta:.4e})")
+            require(float(gaps.max()) <= delta, f"{phase}: a token lies {float(gaps.max())} below "
+                                                f"the plain maximum (delta {delta})")
+        else:
+            base = streams[name.rsplit(",", 1)[0]]
+            same = sum(streams[name][i] == base[i] for i in base)
+            info(phase, f"{same} of {len(base)} streams equal to the unshuffled run's")
+            require(same == len(base), f"{phase}: {len(base) - same} streams differ")
+        del eng, sched
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS))
+    sched = Scheduler(eng, speculative=True, spec_k=SPEC_K, spec_block=SPEC_BLOCK)
+    for r in serve_requests(cfg)[:SERVE_SLOTS]:
+        sched.submit(Request(r.id, r.prompt, SERVE_NEW_TOKENS))
+    sched._admit()
+    require(len(sched.active) == SERVE_SLOTS, "speculative no-sync check: slots not all admitted")
+    no_sync(torch, lambda: sched.spec.batch_block(sched._sp_carry, sched.cache),
+            f"serve {model_name} {fmt} batched speculative block ({SERVE_SLOTS} slots)")
     torch.cuda.empty_cache()
     return counts_by_run
 
@@ -1146,6 +1482,76 @@ def tiny_serving_checks(torch, dev) -> None:
             require(gpu == cpu, f"tiny f32 serving, {name}: card streams {gpu} != CPU {cpu}")
     info("tiny", f"serve: CLI on cuda (paged int8, chunk 64) prints the in-process serve's texts; "
                  f"f32 serving card vs CPU, greedy streams equal: {results}")
+
+
+def tiny_spec_checks(torch, dev) -> None:
+    """Phase 5, speculative: `generate --speculative` and `serve
+    --speculative` (dense cache) on the card in subprocesses, their texts
+    equal to the in-process SpecDecoder's and serve's, on a tiny q4_0 GGUF
+    (TINY_KERNEL_CONFIG); then the tiny model in f32 on the card against the
+    same model on the CPU: SpecDecoder and speculative serving streams
+    equal, with drafts accepted (more tokens than verify forwards)."""
+    from gemma_tpu_torch import cli
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, SpecDecoder, serve
+    from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
+
+    prompt = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
+    texts = ["hello world", "the hello", "world of the worlds and hello", "a", "hello " * 40]
+    n_new = 16
+    with tempfile.TemporaryDirectory() as tmp:
+        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0)
+        (Path(tmp) / "p.txt").write_text("\n".join(texts) + "\n")
+        gen_cmd = ["generate", str(path), "--device", "cuda", "--tokens", ",".join(map(str, prompt)),
+                   "--max-new-tokens", str(n_new), "--no-eos", "--speculative"]
+        serve_flags = ["--batch", "4", "--max-seq-len", "256", "--max-new-tokens", "12", "--no-eos",
+                       "--speculative"]
+        serve_cmd = ["serve", str(path), "--device", "cuda", "--prompts-file",
+                     str(Path(tmp) / "p.txt"), *serve_flags]
+        out = {}
+        for name, cmd in (("generate", gen_cmd), ("serve", serve_cmd)):
+            proc = subprocess.run([sys.executable, "-m", "gemma_tpu_torch", *cmd], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=600)
+            require(proc.returncode == 0, f"CLI {name} --speculative failed ({proc.returncode}):\n"
+                                          f"{proc.stderr[-4000:]}")
+            out[name] = proc
+        cfg, model_gpu, tok = cli.load(path, dev)
+        before = read_counters()
+        gpu_spec = SpecDecoder(Engine(cfg, model_gpu, EngineConfig(max_seq_len=512)), k=SPEC_K)
+        text = tok.decode(gpu_spec.generate(prompt, n_new))
+        require(read_counters()["flash_attention_tc"] > before["flash_attention_tc"],
+                "tiny speculative generate launched no flash kernel")
+        require(out["generate"].stdout == text + "\n",
+                f"CLI generate --speculative printed {out['generate'].stdout!r}, in-process {text!r}")
+        sched = serve(Engine(cfg, model_gpu, EngineConfig(max_seq_len=256, max_batch=4)),
+                      [Request(f"r{i}", tok.encode(t), 12) for i, t in enumerate(texts)],
+                      speculative=True)
+        ours = [tok.decode(r.tokens) for r in sorted(sched.finished, key=lambda r: int(r.id[1:]))]
+        cli_texts = [json.loads(line)["text"] for line in out["serve"].stdout.strip().splitlines()]
+        require(cli_texts == ours, f"CLI serve --speculative printed {cli_texts}, in-process {ours}")
+
+        _, model_cpu, _ = cli.load(path, "cpu")
+        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+        ecfg32 = dict(max_seq_len=256, kv_dtype=torch.float32)
+        decs = [SpecDecoder(Engine(cfg32, m, EngineConfig(**ecfg32)), k=SPEC_K, block=SPEC_BLOCK)
+                for m in (model_gpu, model_cpu)]
+        gpu, cpu = (d.generate(prompt, 24) for d in decs)
+        require(gpu == cpu, f"tiny f32 SpecDecoder: card {gpu} != CPU {cpu}")
+        require(decs[0].emitted > decs[0].steps, f"tiny f32 SpecDecoder: no draft accepted "
+                                                 f"({decs[0].steps} verify forwards)")
+        prompts = [tok.encode(t) for t in texts]
+        runs = [serve(Engine(cfg32, m, EngineConfig(max_batch=4, **ecfg32)),
+                      [Request(f"r{i}", p, 16) for i, p in enumerate(prompts)], speculative=True)
+                for m in (model_gpu, model_cpu)]
+        g_streams, c_streams = ({r.id: r.tokens for r in s.finished} for s in runs)
+        require(g_streams == c_streams, f"tiny f32 speculative serving: card {g_streams} != CPU "
+                                        f"{c_streams}")
+        st = runs[0].stats()
+        require(0 < st["spec_forwards"] < st["total_tokens"],
+                f"tiny f32 speculative serving stats {st}")
+    info("tiny", f"speculative: CLI generate and serve --speculative on cuda print the in-process "
+                 f"texts; f32 card vs CPU: SpecDecoder streams equal ({decs[0].steps} verify "
+                 f"forwards for {decs[0].emitted} tokens), speculative serving streams equal "
+                 f"({st['spec_forwards']} verify forwards, {st['total_tokens']} tokens)")
 
 
 def tiny_checks(torch, dev, weight_type: str, config_name: str) -> None:
@@ -1422,25 +1828,28 @@ def run() -> dict:
         info("time", f"{phase} done at {time.perf_counter() - t0:.1f} s")
 
     results = check_kernels(torch, dev)
+    results["flash_attention"].update(check_verify_attention(torch, dev))
     results.update(check_serving_kernels(torch, dev))
     check_edge_cases(torch, dev)
     check_serving_edge_cases(torch, dev)
     done("kernels (phase 3)")
-    counts_q4_0 = main_path(torch, dev, card, "Gemma-2B", "q4_0")
-    counts = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
-    counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"]
+    # each path's launches: the plain generation's, plus its speculative run's
+    counts_q4_0, spec_q4_0, delta = main_path(torch, dev, card, "Gemma-2B", "q4_0")
+    counts, spec, _ = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
+    counts = {name: n + spec[name] for name, n in counts.items()}
+    counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"] + spec_q4_0["q4_0_matmul"]
     done("generation (phases 4, 4b)")
-    # this slice's path: q8_0, and flash and decode attention at G = 1
-    counts_7b = main_path(torch, dev, card, "Gemma-7B", "q8_0")
-    counts["q8_0_matmul"] = counts_7b["q8_0_matmul"]
+    counts_7b, spec_7b, _ = main_path(torch, dev, card, "Gemma-7B", "q8_0")
+    counts["q8_0_matmul"] = counts_7b["q8_0_matmul"] + spec_7b["q8_0_matmul"]
     done("Gemma-7B q8_0 generation (phase 4c)")
     for weight_type, config_name in (("q4_0", "TINY_KERNEL_CONFIG"),
                                      ("q4_k_m", "TINY_KERNEL_CONFIG"),
                                      ("q8_0", "TINY_MHA_CONFIG")):
         tiny_checks(torch, dev, weight_type, config_name)
     tiny_serving_checks(torch, dev)
+    tiny_spec_checks(torch, dev)
     done("tiny checks (phase 5)")
-    served = serving(torch, dev, card, "Gemma-2B", "q4_0")
+    served = serving(torch, dev, card, "Gemma-2B", "q4_0", spec_delta=delta)
     done("serving (phase 6)")
     for name, run in (("decode_attention_int8", "dense int8"), ("paged_attention", "paged bf16"),
                       ("paged_attention_int8", "paged int8")):

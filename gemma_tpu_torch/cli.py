@@ -2,13 +2,18 @@
 
     python -m gemma_tpu_torch generate model.gguf --prompt "..." [--stream]
     python -m gemma_tpu_torch generate model.gguf --tokens 1,7,300 --device cpu
+    python -m gemma_tpu_torch generate model.gguf --prompt "..." --speculative [--spec-k 7]
     python -m gemma_tpu_torch serve    model.gguf --prompts-file p.txt [--paged] [--kv-quant]
+    python -m gemma_tpu_torch serve    model.gguf --prompts-file p.txt --speculative
     python -m gemma_tpu_torch inspect  model.gguf [--json]
 
 Counterpart of the `generate`, `serve` and `inspect` subcommands of
 `gemma_tpu/cli.py`, with the port's copy of its tokenizer. `serve` reads
 one prompt per line and prints one JSON line per request on stdout and the
-scheduler's stats on stderr, as the reference does. `--device` defaults to `cuda`;
+scheduler's stats on stderr, as the reference does. `--speculative`
+(prompt-lookup speculative decoding, `runtime/speculative.py`) needs greedy
+sampling, and for `serve` the dense cache: otherwise it says so on stderr
+and decodes plainly, as the reference does. `--device` defaults to `cuda`;
 without a GPU the command fails rather than running on the CPU. `--device
 cpu` is the explicit way to run the plain PyTorch path.
 """
@@ -94,10 +99,21 @@ def cmd_generate(args) -> int:
     _sync(eng.device)
     t_prefill = time.perf_counter() - t0
     t1 = time.perf_counter()
-    out = eng.generate_from(
-        first_logits, cache, budget, sampling=sampling, eos_id=eos, seed=args.seed,
-        on_token=on_token if args.stream else None,
-    )[0]
+    if args.speculative and sampling.is_greedy:
+        from .runtime import SpecDecoder
+
+        out = SpecDecoder(eng, k=args.spec_k).generate(prompt, budget)
+        if eos is not None and eos in out:
+            out = out[: out.index(eos) + 1]
+        for t in out if args.stream else ():
+            on_token(0, [t])
+    else:
+        if args.speculative:
+            print("--speculative requires greedy sampling; ignoring", file=sys.stderr)
+        out = eng.generate_from(
+            first_logits, cache, budget, sampling=sampling, eos_id=eos, seed=args.seed,
+            on_token=on_token if args.stream else None,
+        )[0]
     t_decode = time.perf_counter() - t1
     if args.stream:
         print()
@@ -133,8 +149,14 @@ def cmd_serve(args) -> int:
     reqs = [Request(f"r{i}", tok.encode(ln), max_new_tokens=args.max_new_tokens, eos_id=eos)
             for i, ln in enumerate(lines)]
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
+    speculative = args.speculative
+    if speculative and (not sampling.is_greedy or args.paged):
+        print("--speculative requires greedy sampling and the dense cache; ignoring",
+              file=sys.stderr)
+        speculative = False
     t0 = time.monotonic()
-    sched = serve(eng, reqs, sampling=sampling, block=args.block, seed=args.seed)
+    sched = serve(eng, reqs, sampling=sampling, block=args.block, seed=args.seed,
+                  speculative=speculative, spec_k=args.spec_k, spec_block=args.spec_block)
     wall = time.monotonic() - t0
     for r in sorted(sched.finished, key=lambda r: int(r.id[1:])):
         print(json.dumps({"id": r.id, "text": tok.decode(r.tokens), "tokens": len(r.tokens),
@@ -214,6 +236,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--top-k", type=int, default=0)
     g.add_argument("--top-p", type=float, default=1.0)
     g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--speculative", action="store_true",
+                   help="prompt-lookup speculative decoding (greedy only): drafts k tokens from "
+                   "the token history and verifies them in one forward; the greedy stream")
+    g.add_argument("--spec-k", type=int, default=7, help="draft tokens a verify step")
     g.add_argument("--chat", action="store_true",
                    help="wrap the prompt in the Gemma instruction-tuned turn template")
     g.add_argument("--stream", action="store_true", help="print tokens as they decode")
@@ -236,6 +262,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--top-p", type=float, default=1.0)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--no-eos", dest="eos", action="store_false")
+    s.add_argument("--speculative", action="store_true",
+                   help="batched prompt-lookup speculation (greedy, dense cache): every slot "
+                   "drafts and verifies spec-k tokens a tick, k = 1 while drafts miss")
+    s.add_argument("--spec-k", type=int, default=7)
+    s.add_argument("--spec-block", type=int, default=4, help="verify ticks a block")
     s.set_defaults(fn=cmd_serve)
 
     i = sub.add_parser("inspect", help="dump GGUF metadata and tensor info")

@@ -98,7 +98,7 @@ def decoder_layer(
     positions: torch.Tensor,  # [B, T]
     cache: KVCache | PagedKVCache,
     layer_idx: int,
-    write_index,  # int chunk start (prefill) or [B] per-sequence slot (decode)
+    write_index,  # int chunk start (prefill) or [B] per-sequence start (decode, verify)
     kv_limit: torch.Tensor,  # [B] valid cache slots after this write
 ) -> torch.Tensor:
     B, T, _ = x.shape
@@ -126,11 +126,8 @@ def decoder_layer(
         cache.write_chunk(layer_idx, write_index, k, v)
     elif T == 1:
         cache.write_token(layer_idx, write_index, k, v)
-    else:
-        raise NotImplementedError(
-            "per-sequence chunk writes (batched speculative verify) are not ported yet "
-            "(ROADMAP queue 1, item 7)"
-        )
+    else:  # per-sequence chunk starts: the speculative verify
+        cache.write_chunk_per_seq(layer_idx, write_index, k, v)
 
     window = cfg.layer_window(layer_idx)
     if isinstance(cache, PagedKVCache) and T == 1:  # pages read in place through the table
@@ -191,7 +188,7 @@ def forward(
     tokens: torch.Tensor,  # [B, T] token ids
     positions: torch.Tensor,  # [B, T] absolute positions
     cache: KVCache | PagedKVCache,
-    write_index,  # int chunk start (prefill) or [B] slots (decode)
+    write_index,  # int chunk start (prefill) or [B] per-sequence starts (decode, verify)
     kv_limit: torch.Tensor,  # [B] valid lengths after the write
     logits_at: torch.Tensor | None = None,  # [B] row per sequence; None = all rows
 ) -> torch.Tensor:

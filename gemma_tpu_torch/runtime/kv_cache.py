@@ -122,6 +122,23 @@ class KVCache:
         self._write(layer, idx, k_new.transpose(1, 2), v_new.transpose(1, 2))
         return self
 
+    def write_chunk_per_seq(self, layer: int, starts: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor) -> "KVCache":
+        """Write a [B, T, H, D] chunk at slots [starts[b], starts[b] + T) of
+        sequence b (the batched speculative verify), in place, as one
+        indexed write and with no host sync. Starts are clamped on the
+        device to [0, S - T], as the reference clips them: the chunk moves
+        back whole. Active sequences never need the clamp; an idle serving
+        slot may drift past capacity, and its rows are rewritten when the
+        slot is admitted again."""
+        B, T = k_new.shape[:2]
+        dev = self.k[layer].device
+        starts = starts.to(device=dev, dtype=torch.long).clamp(0, self.max_len - T)
+        rows = starts[:, None] + torch.arange(T, device=dev)
+        # (b, :, rows[b, t]) addresses [B, T, H, D], and [B, T, H] of the scales
+        self._write(layer, (torch.arange(B, device=dev)[:, None], slice(None), rows), k_new, v_new)
+        return self
+
     def write_token(self, layer: int, index: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
         """Write one token per sequence, k_new [B, 1, H, D] at slot index[b]
         (decode), in place. `index` stays on the device: no host sync. Every

@@ -176,6 +176,13 @@ class PagedKVCache:
         self._write(layer, pos, k_new, v_new)
         return self
 
+    def write_chunk_per_seq(self, layer: int, starts: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor) -> "PagedKVCache":
+        """Neither package writes a chunk at per-sequence starts into pages:
+        refuse it (`write_token` would keep row 0 only)."""
+        raise ValueError("per-sequence chunk writes (speculative verify) need the dense KVCache, "
+                         "not the paged cache")
+
     def advance(self, n: int | torch.Tensor) -> "PagedKVCache":
         self.length = self.length + n
         return self

@@ -17,7 +17,19 @@ are read, so the host's wait overlaps the device's work.
 
 Every batch row decodes on every tick, idle rows included;
 `Engine.decode_step` keeps their writes inside the cache (ROADMAP section
-3). Speculative serving is not ported yet (ROADMAP queue 1, item 7).
+3).
+
+`speculative=True` (greedy sampling, dense cache): every tick drafts
+`spec_k` tokens a slot from its token history and verifies them in one
+batched (spec_k + 1)-row forward (`runtime/speculative.py`), so a slot
+emits 1 to spec_k + 1 tokens a tick with its exact greedy stream;
+`spec_block` ticks chain into one block, drained by one packed host copy,
+and `run` keeps `spec_pipeline` blocks in flight. The slots' draft state
+(current and previous token, token history, its length) stays on the
+device. Adaptive k: while the rolling tokens a verify of the spec_k
+decoder stay below `spec_min_accept`, blocks run a k = 1 decoder instead
+(its 2-row verify costs about a plain step), with a spec_k probe every 8
+blocks.
 """
 from __future__ import annotations
 
@@ -107,17 +119,22 @@ class Scheduler:
         prefill_engine: Engine | None = None,
         overlap_admission: bool = True,
         speculative: bool = False,
+        spec_k: int = 7,
+        spec_pipeline: int = 2,
+        spec_block: int = 4,
+        spec_min_accept: float = 2.5,
     ):
         """`prefill_engine` runs admission prefills on another engine than
         the decode batch (prefill/decode disaggregation in one process); its
         output enters the decode cache through `insert_sequence`, so both
         must store K/V in one format. `overlap_admission`: with the prefill
         engine's `prefill_chunk` set, prompts longer than two chunks admit
-        one chunk per tick."""
-        if speculative:
-            raise NotImplementedError(
-                "speculative serving is not ported to gemma_tpu_torch yet (ROADMAP queue 1, item 7)"
-            )
+        one chunk per tick.
+
+        `speculative` and the `spec_*` options: the module docstring.
+        Finish decisions lag `spec_pipeline` blocks, so a finished slot may
+        run a few discarded ticks (`tokens_discarded`); the streams do not
+        change. `spec_min_accept` <= 1 pins k = spec_k."""
         self.engine = engine
         self.prefill_engine = prefill_engine or engine
         if prefill_engine is not None:
@@ -153,6 +170,30 @@ class Scheduler:
                                    device=engine.device)
         self._steps = 0
         self._tokens_discarded = 0
+        self._spec_forwards = self._spec_lo_forwards = 0
+        self.spec = None
+        if speculative:
+            if not sampling.is_greedy:
+                raise ValueError("speculative scheduling requires greedy sampling")
+            if engine.ecfg.paged:
+                raise ValueError("speculative scheduling requires the dense cache")
+            from .speculative import get_decoder
+
+            spec_block = max(1, int(spec_block))
+            self.spec = get_decoder(engine, k=spec_k, block=spec_block)
+            self._spec_depth = max(1, int(spec_pipeline))
+            self._spec_pending: collections.deque = collections.deque()
+            self._spec_min_accept = float(spec_min_accept)
+            self._spec_lo = (get_decoder(engine, k=1, block=spec_block)
+                             if spec_k > 1 and self._spec_min_accept > 1 else None)
+            self._accept_ema = float(spec_k + 1)  # optimistic start
+            self._spec_probe_every = 8
+            self._lo_blocks_since_probe = 0
+            L = engine.ecfg.max_seq_len + spec_k + 2
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=engine.device)
+            # (t_cur, t_prev, history, hist_len) of every slot
+            self._sp_carry = (zeros(self.max_batch), zeros(self.max_batch),
+                              zeros(self.max_batch, L), zeros(self.max_batch))
 
     # -- request intake ----------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -213,6 +254,8 @@ class Scheduler:
         self._logits[slot] = logits
         req.slot = slot
         self.active[slot] = req
+        if self.spec is not None:
+            self._seed_spec_slot(slot, req, logits)
 
     # -- overlapped (chunked) admission ------------------------------------
     def _start_admission(self, req: Request, slot: int, pages) -> None:
@@ -253,9 +296,106 @@ class Scheduler:
         k_seq, v_seq, scales = st.cache.extract_seq(0)
         pre = (st.last[0], k_seq, v_seq, scales, len(st.req.prompt))
         self.engine.insert_sequence(self.cache, slot, pre, st.pages)
-        self._activate(slot, st.req, pre[0])
         self._admit_order.popleft()
         del self._admitting[slot]
+        self._activate(slot, st.req, pre[0])
+
+    # -- speculative ticks -------------------------------------------------
+    def _seed_spec_slot(self, slot: int, req: Request, logits0: torch.Tensor) -> None:
+        """A newly admitted slot's draft state: its history row is the prompt
+        and the first greedy token, which is emitted here (the plain path
+        samples it on the next tick: the same stream). One host read a
+        request, at admission, not inside a block."""
+        t0 = int(logits0.argmax())
+        tc, tp, hist, hlen = self._sp_carry
+        P = len(req.prompt)
+        row = np.zeros(hist.shape[1], np.int32)
+        row[:P] = req.prompt
+        row[P] = t0
+        tc[slot] = t0
+        tp[slot] = req.prompt[-1] if req.prompt else 0
+        hist[slot] = to_device(torch.from_numpy(row), hist.device)
+        hlen[slot] = P + 1
+        now = time.monotonic()
+        self._emit(req, t0, now)
+        if (req.eos_id is not None and t0 == req.eos_id) or req.max_new_tokens <= 1:
+            self._finish(slot, req, now)
+
+    def _spec_full_limit(self) -> int:
+        # an active slot keeps write headroom: each in-flight tick writes
+        # k + 1 rows past its length, and depth * block ticks land before the
+        # host can stop it (the per-sequence write clamps, and a clamp on an
+        # active slot would overwrite its valid rows)
+        return self.engine.ecfg.max_seq_len - (self._spec_depth * self.spec.block + 1) * (
+            self.spec.k + 1)
+
+    def _pick_spec_decoder(self):
+        """(decoder, is the spec_k one): spec_k while the rolling acceptance
+        clears spec_min_accept; k = 1 below it, with a spec_k probe every
+        `_spec_probe_every` blocks."""
+        if self._spec_lo is None or self._accept_ema >= self._spec_min_accept:
+            self._lo_blocks_since_probe = 0
+            return self.spec, True
+        self._lo_blocks_since_probe += 1
+        if self._lo_blocks_since_probe >= self._spec_probe_every:
+            self._lo_blocks_since_probe = 0
+            return self.spec, True
+        return self._spec_lo, False
+
+    def _spec_issue(self) -> bool:
+        """Admit, then issue one block of batched speculative ticks with no
+        host sync; its packed [n, B, k + 2] tokens are copied to the host
+        behind an event, queued with which request held each slot."""
+        self._advance_admissions()
+        self._admit()
+        if not self.active:
+            return False
+        dec, is_hi = self._pick_spec_decoder()
+        self._sp_carry, packed = dec.batch_block(self._sp_carry, self.cache)
+        self._steps += dec.block
+        self._spec_forwards += dec.block
+        self._spec_lo_forwards += 0 if is_hi else dec.block
+        self._spec_pending.append((_HostCopy(packed), is_hi, list(self.active.items())))
+        return True
+
+    def _spec_drain(self) -> list[tuple[str, int]]:
+        """Emit the oldest block's tokens, tick by tick. A request that ended
+        earlier (in an earlier drain or tick) discards its rows."""
+        copy, is_hi, snapshot = self._spec_pending.popleft()
+        p = copy.numpy()  # [n, B, k + 2]
+        k1 = p.shape[2] - 1
+        if is_hi and snapshot:
+            # the rolling tokens a verify of spec_k blocks only (a k = 1
+            # block tops out at 2 and says nothing of spec_k)
+            live = [slot for slot, req in snapshot if not req.done]
+            if live:
+                self._accept_ema = 0.5 * self._accept_ema + 0.5 * float(p[:, live, k1].mean())
+        now = time.monotonic()
+        emitted: list[tuple[str, int]] = []
+        headroom = self.engine.ecfg.max_seq_len - self._spec_full_limit()
+        for i in range(p.shape[0]):
+            for slot, req in snapshot:
+                c = int(p[i, slot, k1])
+                if req.done:
+                    self._tokens_discarded += c
+                    continue
+                for j in range(c):
+                    t = int(p[i, slot, j])
+                    self._emit(req, t, now)
+                    emitted.append((req.id, t))
+                    if self._ends(req, t, headroom):
+                        self._finish(slot, req, now)
+                        self._tokens_discarded += c - 1 - j
+                        break
+        return emitted
+
+    def step_spec(self) -> list[tuple[str, int]]:
+        """One synchronous speculative block: admit, then `spec_block`
+        ticks in which every active slot emits 1 to spec_k + 1 tokens.
+        (`run` keeps `spec_pipeline` blocks in flight instead.)"""
+        if not self._spec_issue():
+            return []
+        return self._spec_drain()
 
     # -- decode ticks ------------------------------------------------------
     def _emit(self, req: Request, t: int, now: float) -> None:
@@ -345,36 +485,44 @@ class Scheduler:
 
     def run(self, max_steps: int | None = None, block: int = 1) -> list[Request]:
         """Drive until all submitted work completes; returns the finished
-        requests. `block` > 1 decodes in pipelined n-step blocks. `max_steps`
-        bounds device decode steps (a block counts `block` steps)."""
+        requests. `block` > 1 decodes in pipelined n-step blocks, and a
+        speculative Scheduler in pipelined blocks of `spec_block` ticks
+        (`block` is then unused). `max_steps` bounds device decode steps (a
+        block counts its steps or ticks)."""
         steps = 0
 
         def busy() -> bool:
             return bool(self.pending or self.active or self._admitting) and (
                 max_steps is None or steps < max_steps)
 
-        if block > 1:
+        if self.spec is None and block <= 1:
             while busy():
-                issued = False
-                if len(self._plain_pending) < self._plain_depth:
-                    issued = self._plain_issue(block)
-                    steps += block if issued else 0
-                if self._plain_pending and (not issued or len(self._plain_pending) >= self._plain_depth):
-                    self._plain_drain(lag=self._plain_depth)
-                elif not issued:
-                    break
-            while self._plain_pending:
-                self._plain_drain(lag=self._plain_depth)
+                self.step()
+                steps += 1
             return self.finished
-        while busy():
-            self.step()
-            steps += 1
+        if self.spec is not None:
+            pending, depth, n = self._spec_pending, self._spec_depth, self.spec.block
+            issue, drain = self._spec_issue, self._spec_drain
+        else:
+            pending, depth, n = self._plain_pending, self._plain_depth, block
+            issue, drain = (lambda: self._plain_issue(block)), (lambda: self._plain_drain(lag=depth))
+        while busy():  # `depth` blocks in flight: each drain overlaps the next block
+            issued = False
+            if len(pending) < depth:
+                issued = issue()
+                steps += n if issued else 0
+            if pending and (not issued or len(pending) >= depth):
+                drain()
+            elif not issued:
+                break
+        while pending:
+            drain()
         return self.finished
 
     # -- metrics -----------------------------------------------------------
     def stats(self) -> dict:
         ttfts = sorted(r.ttft for r in self.finished if r.ttft is not None)
-        return {
+        out = {
             "requests": len(self.finished),
             "decode_steps": self._steps,
             "tokens_discarded": self._tokens_discarded,
@@ -382,3 +530,7 @@ class Scheduler:
             "p50_ttft_s": ttfts[len(ttfts) // 2] if ttfts else None,
             "p99_ttft_s": ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))] if ttfts else None,
         }
+        if self.spec is not None:
+            out["spec_forwards"] = self._spec_forwards
+            out["spec_lo_forwards"] = self._spec_lo_forwards  # of them, by the k = 1 decoder
+        return out

@@ -27,12 +27,17 @@ def serve(
     on_token=None,
     roles=None,
     transport=None,
+    speculative: bool = False,
+    spec_k: int = 7,
+    spec_block: int = 4,
 ) -> Scheduler:
     """Drive `requests` to completion; returns the finished Scheduler
     (results in `.finished`, metrics in `.stats()`).
 
     block: decode steps per issued block (`Scheduler.run`).
-    prefill_engine: engine for admission prefills (default `engine`)."""
+    prefill_engine: engine for admission prefills (default `engine`).
+    speculative, spec_k, spec_block: batched prompt-lookup speculation
+    (greedy, dense cache; adaptive k: `Scheduler`)."""
     if roles is not None:
         raise NotImplementedError(
             "serve(roles=...) is not ported to gemma_tpu_torch yet: host roles come with "
@@ -44,7 +49,8 @@ def serve(
             "hand-off is ROADMAP queue 1, item 8"
         )
     sched = Scheduler(engine, sampling=sampling, seed=seed, on_token=on_token,
-                      prefill_engine=prefill_engine)
+                      prefill_engine=prefill_engine, speculative=speculative, spec_k=spec_k,
+                      spec_block=spec_block)
     for r in requests:
         sched.submit(r)
     sched.run(max_steps=max_steps, block=block)

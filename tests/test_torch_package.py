@@ -126,8 +126,8 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
         "tools": ["_timing", "bench_bn_sweep", "bench_prefill", "bench_q4k_variants",
-                  "bench_q6k_variants", "bench_qmm_variants", "parent_turn", "probe_int4",
-                  "probe_variants", "tc_emulation"],
+                  "bench_q6k_variants", "bench_qmm_variants", "bench_spec", "parent_turn",
+                  "probe_int4", "probe_spec_serving", "probe_variants", "tc_emulation"],
         "reference_tools": []}
 
 

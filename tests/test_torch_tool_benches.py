@@ -14,11 +14,12 @@ from gemma_tpu_torch.ops import qmm_variants as qv
 from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.tools import _timing as T
 from gemma_tpu_torch.tools import (bench_bn_sweep, bench_prefill, bench_q4k_variants,
-                                   bench_q6k_variants, bench_qmm_variants, probe_int4)
+                                   bench_q6k_variants, bench_qmm_variants, bench_spec, probe_int4,
+                                   probe_spec_serving)
 
 CPU = torch.device("cpu")
 TOOLS = ["bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
-         "bench_q6k_variants", "bench_prefill"]
+         "bench_q6k_variants", "bench_prefill", "bench_spec", "probe_spec_serving"]
 LINE = re.compile(r"\d+\.\d\d us +\d+\.\d GB/s +\d\.\d{3} of 3\.35 TB/s; bound \d+\.\d\d us "
                   r"\((bytes|operations)\)")
 
@@ -80,6 +81,52 @@ def test_bench_prefill_cli_takes_formats(capsys):
     metrics = [json.loads(line)["metric"] for line in capsys.readouterr().out.splitlines()
                if line.startswith("{")]
     assert metrics == ["prefill_tokens_per_sec_tiny_q4_0", "prefill_tokens_per_sec_tiny_q8_0"]
+
+
+@pytest.fixture
+def one_torch_thread():
+    # the tiny model's eager steps are thousands of small ops: one thread
+    # runs them as fast alone, and does not spin against other workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_bench_spec_reports_both_workloads(capsys, one_torch_thread):
+    """On the CPU (tiny config, f32-exact plain versions): the speculative
+    stream equals plain greedy in both workloads; the repetitive one cycles
+    and its drafts are accepted, the random one's drafts all miss."""
+    out = bench_spec.run(CPU, tokens=12, reps=1)
+    assert list(out) == ["repetitive", "random"]
+    assert out["repetitive"]["cycles"] and out["repetitive"]["tokens_per_verify"] > 1
+    assert out["random"]["tokens_per_verify"] == 1.0
+    assert all(r["first_token_unlike_plain"] is None and r["plain_tok_s"] > 0
+               for r in out.values())
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("{")]
+    assert [r["metric"] for r in records] == ["speculative_decode_tiny_q4_0_repetitive",
+                                              "speculative_decode_tiny_q4_0_random"]
+    assert records[0]["k"] == 7 and records[0]["block"] == 4
+
+
+def test_spec_tools_parse_their_arguments(monkeypatch):
+    """Both CLIs hand their flags to `run` (which the tests above drive)."""
+    calls = []
+    for tool in (bench_spec, probe_spec_serving):
+        monkeypatch.setattr(tool, "run", lambda *a: calls.append(a))
+    assert bench_spec.main(["--k", "3", "--block", "2", "--tokens", "6", "--device", "cpu"]) == 0
+    assert probe_spec_serving.main(["--blocks", "2", "--device", "cpu"]) == 0
+    assert calls == [(CPU, 3, 2, 6), (CPU, 2)]
+
+
+def test_probe_spec_serving_reads_both_blocks(capsys, one_torch_thread):
+    out = probe_spec_serving.run(CPU, blocks=2)
+    assert out["speculative"]["ticks_a_block"] == 4 and out["plain"]["steps_a_block"] == 8
+    assert out["speculative"]["tokens_per_verify"] >= 1
+    assert out["speculative"]["issue_ms"] > 0 and out["plain"]["wall_ms_block"] > 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record["metric"] == "spec_serving_tick_tiny_q4_0" and record["slots"] == 8
 
 
 def test_probe_int4_prints_ok_lines(capsys):
