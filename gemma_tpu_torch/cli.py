@@ -6,16 +6,24 @@
     python -m gemma_tpu_torch serve    model.gguf --prompts-file p.txt [--paged] [--kv-quant]
     python -m gemma_tpu_torch serve    model.gguf --prompts-file p.txt --speculative
     python -m gemma_tpu_torch inspect  model.gguf [--json]
+    python -m gemma_tpu_torch bench    model.gguf [--max-new-tokens 128] [--batch 1]
+    python -m gemma_tpu_torch perplexity model.gguf --text-file corpus.txt [--window 512]
+    python -m gemma_tpu_torch quantize model.gguf out.gguf --type q4_k_m
 
-Counterpart of the `generate`, `serve` and `inspect` subcommands of
-`gemma_tpu/cli.py`, with the port's copy of its tokenizer. `serve` reads
-one prompt per line and prints one JSON line per request on stdout and the
-scheduler's stats on stderr, as the reference does. `--speculative`
-(prompt-lookup speculative decoding, `runtime/speculative.py`) needs greedy
-sampling, and for `serve` the dense cache: otherwise it says so on stderr
-and decodes plainly, as the reference does. `--device` defaults to `cuda`;
-without a GPU the command fails rather than running on the CPU. `--device
-cpu` is the explicit way to run the plain PyTorch path.
+Counterpart of `gemma_tpu/cli.py`, every subcommand of its one process,
+with the port's copies of its tokenizer, GGUF writer and ggml codecs.
+`serve` reads one prompt per line and prints one JSON line per request on
+stdout and the scheduler's stats on stderr, as the reference does.
+`--speculative` (prompt-lookup speculative decoding,
+`runtime/speculative.py`) needs greedy sampling, and for `serve` the dense
+cache: otherwise it says so on stderr and decodes plainly, as the
+reference does. `--mode dequant` loads every matrix as dense bf16.
+`--verify` (generate, bench, serve) first runs `utils/verify.py` (the
+kernels against their plain versions on the same device) and exits 3 on a
+mismatch; `--profile` (generate) prints `utils/profiling.py`'s report on
+stderr. `--device` defaults to `cuda`; without a GPU the command fails
+rather than running on the CPU. `--device cpu` is the explicit way to run
+the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -34,15 +42,44 @@ def _device(name: str):
         raise SystemExit(f"error: {e}") from None
 
 
-def load(path, device):
-    """(config, model on `device`, tokenizer) of a GGUF checkpoint."""
+def load(path, device, mode: str = "quantized"):
+    """(config, model on `device`, tokenizer) of a GGUF checkpoint; `mode`
+    as `load_params` takes it."""
     from .gguf.reader import GGUFReader
     from .models.params import load_params
     from .tokenizer.sentencepiece import Tokenizer
 
     reader = GGUFReader(path)
-    cfg, params = load_params(reader, device)
+    cfg, params = load_params(reader, device, mode=mode)
     return cfg, params, Tokenizer.from_gguf(reader)
+
+
+def _load(args):
+    """`load` of args.model on args.device in args.mode, reported on stderr."""
+    device = _device(args.device)
+    t0 = time.perf_counter()
+    cfg, params, tok = load(args.model, device, args.mode)
+    print(f"loaded {args.model} in {time.perf_counter() - t0:.1f}s "
+          f"({cfg.n_layers} layers, d_model={cfg.d_model}, vocab={cfg.vocab_size}, "
+          f"device={device}, mode={args.mode})", file=sys.stderr)
+    return cfg, params, tok
+
+
+def _maybe_verify(args, cfg, params, prompt: list[int] | None = None) -> bool:
+    """With --verify, the kernels against their plain versions for one
+    prefill and 4 decode steps on the model's device; False on a mismatch."""
+    if not args.verify:
+        return True
+    from .utils.verify import format_report, verify_device_kernels
+
+    if prompt is None:
+        prompt = [2 + (i % max(2, cfg.vocab_size - 2)) for i in range(64)]
+    res = verify_device_kernels(
+        cfg, params, prompt[:64], max_seq_len=args.max_seq_len, kv_quantized=args.kv_quant,
+        paged=args.paged, page_size=args.page_size,
+    )
+    print(format_report(res), file=sys.stderr)
+    return bool(res["ok"])
 
 
 def _sync(device) -> None:
@@ -64,13 +101,12 @@ def _engine_config(args, max_batch: int):
 
 def cmd_generate(args) -> int:
     from .runtime import Engine, SamplingParams
+    from .utils import profiling
 
-    device = _device(args.device)
-    t0 = time.perf_counter()
-    cfg, params, tok = load(args.model, device)
-    print(f"loaded {args.model} in {time.perf_counter() - t0:.1f}s "
-          f"({cfg.n_layers} layers, d_model={cfg.d_model}, vocab={cfg.vocab_size}, "
-          f"device={device})", file=sys.stderr)
+    if args.profile:
+        profiling.enable(sync_every=max(0, args.profile_sync))
+        profiling.autoset_peaks()
+    cfg, params, tok = _load(args)
     if args.tokens:
         prompt = [int(t) for t in args.tokens.split(",")]
     else:
@@ -83,6 +119,8 @@ def cmd_generate(args) -> int:
         print(f"prompt ({len(prompt)} tokens) must be shorter than "
               f"--max-seq-len {args.max_seq_len}", file=sys.stderr)
         return 2
+    if not _maybe_verify(args, cfg, params, prompt):
+        return 3
 
     eng = Engine(cfg, params, _engine_config(args, max_batch=1))
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
@@ -127,6 +165,115 @@ def cmd_generate(args) -> int:
         f"device {eng.device}]",
         file=sys.stderr,
     )
+    if args.profile:
+        print(profiling.report(), file=sys.stderr)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """Decode throughput on a checkpoint: the marginal time of n more tokens,
+    t(2n) - t(n) over `Engine.generate_fused`, which cancels the prefill and
+    the fixed host cost. Prints the reference CLI's JSON line."""
+    from .runtime import Engine
+
+    cfg, params, tok = _load(args)
+    if not _maybe_verify(args, cfg, params):
+        return 3
+    eng = Engine(cfg, params, _engine_config(args, max_batch=args.batch))
+    n = args.max_new_tokens
+    if args.prompt:
+        prompt = tok.encode(args.prompt)
+    else:
+        # the default prompt leaves room for the 2n-token measurement run
+        plen = max(1, min(64, args.max_seq_len - 2 * n - 1))
+        prompt = list(range(2, 2 + plen))
+    if len(prompt) + 2 * n > args.max_seq_len:
+        raise SystemExit(f"prompt ({len(prompt)}) + 2*max_new_tokens ({2 * n}) exceeds "
+                         f"--max-seq-len {args.max_seq_len}")
+    prompts = [prompt] * args.batch
+    eng.generate_fused(prompts, max_new_tokens=8)  # warm-up: first launches, allocator
+    t0 = time.perf_counter()
+    eng.generate_fused(prompts, max_new_tokens=n)
+    t1 = time.perf_counter()
+    eng.generate_fused(prompts, max_new_tokens=2 * n)
+    t2 = time.perf_counter()
+    dt = max((t2 - t1) - (t1 - t0), 1e-9)
+    print(json.dumps({
+        "metric": "decode_tokens_per_sec",
+        "value": round(n * args.batch / dt, 2),
+        "unit": "tokens/s",
+        "batch": args.batch,
+    }))
+    return 0
+
+
+def cmd_perplexity(args) -> int:
+    from .utils.perplexity import evaluate
+
+    cfg, params, tok = _load(args)
+    if args.text_file:
+        with open(args.text_file, encoding="utf-8") as f:
+            text = f.read()
+    else:
+        text = sys.stdin.read()
+    res = evaluate(params, cfg, tok.encode(text), ctx=args.window)
+    print(json.dumps({"perplexity": res.ppl, "tokens": res.n_tokens}))
+    return 0
+
+
+# llama.cpp's LLAMA_FTYPE_* of each --type: the output advertises its own
+# quant type, not the source's (downstream tooling reads general.file_type)
+QUANTIZE_FTYPES = {"f16": 1, "q4_0": 2, "q8_0": 7, "q4_k": 14, "q4_k_m": 15, "q5_k": 16,
+                   "q5_k_m": 17, "q6_k": 18}
+
+
+def cmd_quantize(args) -> int:
+    """Re-quantize a GGUF checkpoint with the port's ggml codecs and GGUF
+    writer: the file the reference's `quantize` writes, byte for byte.
+
+    2-D matrices quantize to --type, or to the mixed recipe (q4_k_m /
+    q5_k_m: q4_k / q5_k with q6_k attn_v and embedding/head); 1-D norms and
+    any matrix whose row length the block size does not divide stay f32."""
+    import numpy as np
+
+    from .gguf.constants import GGMLType
+    from .gguf.reader import GGUFReader
+    from .gguf.writer import GGUFWriter
+    from .quant import numpy_ref
+
+    t0 = time.time()
+    reader = GGUFReader(args.model)
+    w = GGUFWriter(args.out)
+    ftype = QUANTIZE_FTYPES[args.type]
+    for k, v in reader.metadata.items():
+        w.add_kv(k, np.uint32(ftype) if k == "general.file_type" else v)
+    if "general.file_type" not in reader.metadata:
+        w.add_kv("general.file_type", np.uint32(ftype))
+
+    name_to_type = {"q4_0": GGMLType.Q4_0, "q8_0": GGMLType.Q8_0, "q4_k": GGMLType.Q4_K,
+                    "q5_k": GGMLType.Q5_K, "q6_k": GGMLType.Q6_K, "f16": GGMLType.F16}
+    mixed = args.type in ("q4_k_m", "q5_k_m")
+    base = ({"q4_k_m": GGMLType.Q4_K, "q5_k_m": GGMLType.Q5_K}[args.type] if mixed
+            else name_to_type[args.type])
+    block = {GGMLType.Q4_0: 32, GGMLType.Q8_0: 32, GGMLType.Q4_K: 256, GGMLType.Q5_K: 256,
+             GGMLType.Q6_K: 256, GGMLType.F16: 1}
+
+    n_q = 0
+    for ti in reader:
+        x = np.asarray(numpy_ref.dequantize(reader.tensor_raw(ti.name), ti.ggml_type, ti.shape),
+                       np.float32)
+        t = base
+        if mixed and (ti.name in ("token_embd.weight", "output.weight")
+                      or ti.name.endswith("attn_v.weight")):
+            t = GGMLType.Q6_K
+        if x.ndim != 2 or x.shape[-1] % block[t] != 0:
+            w.add_tensor(ti.name, x, tuple(x.shape), GGMLType.F32)
+            continue
+        w.add_tensor(ti.name, numpy_ref.quantize(x, t), tuple(x.shape), t)
+        n_q += 1
+    w.write()
+    print(f"quantized {n_q} matrices -> {args.out} ({args.type}) in {time.time() - t0:.1f}s",
+          file=sys.stderr)
     return 0
 
 
@@ -136,8 +283,9 @@ def cmd_serve(args) -> int:
     prints them."""
     from .runtime import Engine, Request, SamplingParams, serve
 
-    device = _device(args.device)
-    cfg, params, tok = load(args.model, device)
+    cfg, params, tok = _load(args)
+    if not _maybe_verify(args, cfg, params):
+        return 3
     eng = Engine(cfg, params, _engine_config(args, max_batch=args.batch))
     if args.prompts_file:
         with open(args.prompts_file, encoding="utf-8") as f:
@@ -208,15 +356,25 @@ def cmd_inspect(args) -> int:
     return 0
 
 
-def _add_engine_flags(p: argparse.ArgumentParser) -> None:
+def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("model", help="path to a GGUF checkpoint")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
+    p.add_argument("--mode", choices=("quantized", "dequant"), default="quantized",
+                   help="serve the block-quantized weights through the CUDA kernels (quantized) "
+                   "or dequantize every matrix to dense bf16 at load (dequant)")
+
+
+def _add_engine_flags(p: argparse.ArgumentParser) -> None:
+    _add_common(p)
     p.add_argument("--max-seq-len", type=int, default=512, help="KV-cache capacity")
     p.add_argument("--kv-quant", action="store_true", help="int8-quantize the KV cache")
     p.add_argument("--paged", action="store_true", help="use the paged KV cache (page tables)")
     p.add_argument("--page-size", type=int, default=None,
                    help="paged KV page length (default 64)")
+    p.add_argument("--verify", action="store_true",
+                   help="before running, hold the CUDA kernels against their plain versions on "
+                   "the device for one prefill + 4 decode steps; exit 3 on a mismatch")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -245,6 +403,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--stream", action="store_true", help="print tokens as they decode")
     g.add_argument("--no-eos", dest="eos", action="store_false",
                    help="ignore EOS and generate max-new-tokens")
+    g.add_argument("--profile", action="store_true",
+                   help="print the span/counter/roofline report on stderr at exit")
+    g.add_argument("--profile-sync", type=int, default=1, metavar="N",
+                   help="with --profile: synchronize the device every Nth decode dispatch so "
+                   "span times are device time, not queueing (0 disables)")
     g.set_defaults(fn=cmd_generate)
 
     s = sub.add_parser("serve", help="batch-serve prompts (one per line) through the "
@@ -273,6 +436,25 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("model")
     i.add_argument("--json", action="store_true")
     i.set_defaults(fn=cmd_inspect)
+
+    b = sub.add_parser("bench", help="decode throughput on a checkpoint")
+    _add_engine_flags(b)
+    b.add_argument("--prompt", default=None)
+    b.add_argument("--max-new-tokens", type=int, default=128)
+    b.add_argument("--batch", type=int, default=1)
+    b.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("perplexity", help="perplexity over a text corpus")
+    _add_common(p)
+    p.add_argument("--text-file", default=None, help="UTF-8 text file (default: stdin)")
+    p.add_argument("--window", type=int, default=512)
+    p.set_defaults(fn=cmd_perplexity)
+
+    q = sub.add_parser("quantize", help="re-quantize a checkpoint")
+    q.add_argument("model", help="source GGUF (any format)")
+    q.add_argument("out", help="output GGUF path")
+    q.add_argument("--type", default="q4_0", choices=tuple(QUANTIZE_FTYPES))
+    q.set_defaults(fn=cmd_quantize)
     return ap
 
 

@@ -4,6 +4,10 @@ Counterpart of `gemma_tpu/models/gemma.py`: embed * sqrt(d) -> N x
 [RMSNorm -> q|k|v -> (QK-norm) -> NEOX RoPE -> KV write -> attention ->
 out-proj -> (post-norm) -> residual -> RMSNorm -> GeGLU FFN -> (post-norm)
 -> residual] -> final RMSNorm -> tied-embedding logits (-> final softcap).
+The activations the reference records for golden diffs are reported to
+`utils.tensor_dump` under its names (`inp_embd`, `blk.{i}.attn_out`,
+`blk.{i}.ffn_out`, `result_norm`, `result_output`); with no capture open
+that is a no-op.
 Gemma-1/2/3 knobs (sandwich norms, QK-norm, per-layer window and rope
 base/scale, softcaps) come from `GemmaConfig`.
 
@@ -36,6 +40,7 @@ from ..ops.paged_attention import paged_decode_attention
 from ..quant.qtensor import QTensor, gather_dequant
 from ..runtime.kv_cache import KVCache
 from ..runtime.paged_kv import PagedKVCache
+from ..utils.tensor_dump import record
 from .config import GemmaConfig
 
 
@@ -140,6 +145,7 @@ def decoder_layer(
     if lp.has("post_attention_norm"):  # Gemma-2/3 sandwich norm
         attn_out = lp.post_attention_norm(attn_out)
     x = x + attn_out
+    record(f"blk.{layer_idx}.attn_out", x)
 
     h2 = lp.ffn_norm(x)
     if lp.has("ffn_gate_up"):
@@ -152,7 +158,9 @@ def decoder_layer(
     ff = linear((gate * up).to(x.dtype), lp.ffn_down)
     if lp.has("post_ffw_norm"):  # Gemma-2/3 sandwich norm
         ff = lp.post_ffw_norm(ff)
-    return x + ff
+    x = x + ff
+    record(f"blk.{layer_idx}.ffn_out", x)
+    return x
 
 
 class Gemma(nn.Module):
@@ -197,13 +205,16 @@ def forward(
     dtype (bf16 serving, f32 evaluation) for the same weights."""
     x = _embed_lookup(model.embed, tokens, cfg.act_dtype)
     x = (x.to(torch.float32) * math.sqrt(cfg.d_model)).to(cfg.act_dtype)
+    record("inp_embd", x)
     for layer in model.layers:
         x = layer(cfg, x, positions, cache, write_index, kv_limit)
     x = model.final_norm(x)
+    record("result_norm", x)
     if logits_at is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, logits_at.long()][:, None]  # [B, 1, d]
     logits = linear(x, model.head, out_dtype=torch.float32)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    record("result_output", logits)
     return logits

@@ -3,7 +3,9 @@
 Counterpart of `gemma_tpu/models/params.py`, with the same GGUF tensor names
 (`token_embd.weight`, `output_norm.weight`, `blk.{i}.*.weight`):
 * q4_0, q8_0, q4_k and q6_k matrices become `QTensor`s in the port's
-  layout (exact f16 scales);
+  layout (exact f16 scales); with `mode="dequant"` they too become dense
+  bf16 at load (the reference's mode, `params.py:45-48`), so every
+  projection takes `torch.matmul`;
 * norms are f32;
 * every other type (f32, f16, bf16, q5_k, ...) is dequantized to dense bf16
   through the port's `quant/numpy_ref.py`;
@@ -38,10 +40,14 @@ _NORM_NAMES = {"attn_norm", "ffn_norm"}
 OPTIONAL_LAYER_NORMS = ("post_attention_norm", "post_ffw_norm", "attn_q_norm", "attn_k_norm")
 
 
-def _load_tensor(reader: GGUFReader, name: str, device, *, is_norm: bool = False):
+MODES = ("quantized", "dequant")
+
+
+def _load_tensor(reader: GGUFReader, name: str, device, mode: str = "quantized", *,
+                 is_norm: bool = False):
     ti = reader.tensors[name]
     raw = reader.tensor_raw(name)
-    if not is_norm and ti.ggml_type in QUANTIZED_TYPES:
+    if not is_norm and ti.ggml_type in QUANTIZED_TYPES and mode == "quantized":
         return from_ggml(raw, ti.ggml_type, ti.shape, device)
     x = numpy_ref.dequantize(raw, ti.ggml_type, ti.shape)
     t = torch.from_numpy(np.asarray(x, np.float32).reshape(ti.shape))
@@ -75,16 +81,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def load_params(reader: GGUFReader, device="cuda", fuse_projections: bool = True
-                ) -> tuple[GemmaConfig, Gemma]:
+def load_params(reader: GGUFReader, device="cuda", fuse_projections: bool = True,
+                mode: str = "quantized") -> tuple[GemmaConfig, Gemma]:
     """Read (config, model) from a GGUF file onto `device` (the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU). `mode` "quantized" keeps the block
+    formats the kernels take; "dequant" makes every matrix dense bf16."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     device = resolve_device(device)
     cfg = GemmaConfig.from_gguf(reader)
     layers = []
     for i in range(cfg.n_layers):
         lp = {
-            t: _load_tensor(reader, f"blk.{i}.{t}.weight", device, is_norm=t in _NORM_NAMES)
+            t: _load_tensor(reader, f"blk.{i}.{t}.weight", device, mode, is_norm=t in _NORM_NAMES)
             for t in LAYER_TENSORS
         }
         for t in OPTIONAL_LAYER_NORMS:
@@ -96,10 +105,10 @@ def load_params(reader: GGUFReader, device="cuda", fuse_projections: bool = True
         layers.append(lp)
     output = None
     if "output.weight" in reader.tensors:
-        output = _load_tensor(reader, "output.weight", device)
+        output = _load_tensor(reader, "output.weight", device, mode)
     model = Gemma(
         cfg,
-        embed=_load_tensor(reader, "token_embd.weight", device),
+        embed=_load_tensor(reader, "token_embd.weight", device, mode),
         final_norm=_load_tensor(reader, "output_norm.weight", device, is_norm=True),
         layers=layers,
         output=output,

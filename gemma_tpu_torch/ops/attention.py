@@ -32,7 +32,10 @@ with f32 activations.
 `attention` dispatches on T alone: T == 1 goes to decode, anything else to
 flash (int8 K and V are dequantized once first, as the reference does).
 There is no shape gate to a plain path on CUDA, so every prefill length
-reaches the flash kernel.
+reaches the flash kernel. `set_force_plain(True)` routes `attention` to the
+plain versions on every device: the reference's explicit switch
+(`set_force_fallback`, `gemma_tpu/ops/attention.py:51`), set only by
+`utils.verify`, off by default, never turned on by a failing kernel.
 """
 from __future__ import annotations
 
@@ -47,6 +50,14 @@ TC_MAX_G = 8  # query heads a KV head the decode tensor-core kernel takes (its n
 # G = 1 (Gemma-7B) takes the split-S kernel: at 8 serving rows the
 # tensor-core kernel measured slower there (PERF.md)
 TC_MIN_G = 2
+_FORCE_PLAIN = False
+
+
+def set_force_plain(flag: bool) -> None:
+    """Route `attention` to the plain versions on every device while set.
+    Only `utils.verify` sets it, and clears it in a `finally`."""
+    global _FORCE_PLAIN
+    _FORCE_PLAIN = bool(flag)
 
 
 def _valid_mask(positions, kv_limit, S, window):
@@ -283,9 +294,12 @@ def attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: i
               k_scale=None, v_scale=None):
     """Dispatch: T == 1 -> decode (int8 k/v read in place with their
     scales); otherwise flash, after dequantizing int8 k/v once to bf16 and
-    then to q's dtype (the flash kernel takes one dtype)."""
+    then to q's dtype (the flash kernel takes one dtype). While
+    `set_force_plain` is on, the plain versions of both."""
+    decode, flash = ((decode_attention_plain, flash_attention_plain) if _FORCE_PLAIN
+                     else (decode_attention, flash_attention))
     if q.shape[1] == 1:
-        return decode_attention(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
+        return decode(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
     if k_scale is not None:
         k, v = dequantize_kv(k, k_scale).to(q.dtype), dequantize_kv(v, v_scale).to(q.dtype)
-    return flash_attention(q, k, v, positions, kv_limit, attn_softcap, window)
+    return flash(q, k, v, positions, kv_limit, attn_softcap, window)

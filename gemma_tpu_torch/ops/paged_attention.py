@@ -20,6 +20,8 @@ tiling and are not ported: the kernels take any Hq % Hkv == 0 and head_dim
 `paged_decode_attention_plain` follows the kernels' numerics: the pages of
 each row gathered through the table into a dense view, then the decode
 kernel's plain version (int8: s = (q . k8) * ks, weight bf16(p * vs)).
+`set_force_plain(True)` routes `paged_decode_attention` to it on every
+device: the reference's explicit switch, set only by `utils.verify`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,15 @@ import torch
 from ..kernels import build
 from .attention import (TC_MAX_G, TC_MIN_G, check_kv_args, decode_attention_plain, decode_tc_split,
                         kv_dtype_code)
+
+_FORCE_PLAIN = False
+
+
+def set_force_plain(flag: bool) -> None:
+    """Route `paged_decode_attention` to its plain version on every device
+    while set. Only `utils.verify` sets it, and clears it in a `finally`."""
+    global _FORCE_PLAIN
+    _FORCE_PLAIN = bool(flag)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -70,8 +81,9 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     of `paged_route` (the tensor-core kernel, one launch; or the split-S
     kernel plus the combine) or raises. Pages in q's dtype count their
     calls in `launches`, int8 pages in `int8_launches`; those that went
-    through the tensor-core kernel also in `tc_launches`."""
-    if q.device.type == "cpu":
+    through the tensor-core kernel also in `tc_launches`. While
+    `set_force_plain` is on, the plain version on every device."""
+    if q.device.type == "cpu" or _FORCE_PLAIN:
         return paged_decode_attention_plain(q, cache, layer, kv_limit, attn_softcap, window)
     B, T, Hq, D = q.shape
     if T != 1:

@@ -33,6 +33,11 @@ M = 8 (`quant_matmul.py:315`):
 
 Each wrapper takes the plain version for CPU tensors and, for CUDA tensors,
 launches its kernel or raises; `launches` counts its kernel launches.
+`set_force_plain(True)` routes `quant_matmul` to the plain versions on
+every device: the reference's explicit switch (`set_force_fallback`,
+`gemma_tpu/ops/linear.py:27`), which `utils.verify` sets to run the plain
+side of its check on the card. It is off by default and nothing turns it
+on when a kernel fails.
 """
 from __future__ import annotations
 
@@ -42,6 +47,19 @@ from ..kernels import build
 from ..quant.qtensor import QTensor, dequant, q4_k_group_scales, q4_k_nibbles
 
 DECODE_MAX_M = 8  # largest M served by the GEMV launch shape (f32 weights)
+_FORCE_PLAIN = False
+
+
+def set_force_plain(flag: bool) -> None:
+    """Route `quant_matmul` to the plain versions (`PLAIN`) on every
+    device while set. Only `utils.verify` sets it, and clears it in a
+    `finally`."""
+    global _FORCE_PLAIN
+    _FORCE_PLAIN = bool(flag)
+
+
+def forcing_plain() -> bool:
+    return _FORCE_PLAIN
 
 
 def _f32_regime(x2: torch.Tensor) -> bool:
@@ -193,5 +211,6 @@ PLAIN = {"q4_0": q4_0_matmul_plain, "q8_0": q8_0_matmul_plain, "q4_k": q4_k_matm
 
 
 def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """y = x @ dequant(qt).T in f32, by the weight's format."""
-    return MATMULS[qt.fmt](x, qt)
+    """y = x @ dequant(qt).T in f32, by the weight's format (its plain
+    version while `set_force_plain` is on)."""
+    return (PLAIN if _FORCE_PLAIN else MATMULS)[qt.fmt](x, qt)

@@ -12,10 +12,21 @@ Prompts longer than `prefill_chunk` (when set) prefill in chunks of that
 many tokens, carrying each sequence's last-token logits from chunk to
 chunk on the device. `prefill_standalone` and `insert_sequence` are the
 prefill -> serving-cache hand-off of the continuous-batching scheduler.
+
+With `utils.profiling` enabled, the engine reports the reference's spans
+(`prefill.dispatch[B=..,T=..]`, `prefill.chunk[B=..,C=..]`,
+`decode.dispatch`, `decode.block[n=..]`), the `tokens.prefilled` and
+`tokens.decoded` counters and the `decode.steps[B=..]` roofline entry
+(weight bytes x steps, 2 x weight elements x steps x batch), and in the
+sampled-synchronous mode synchronizes every Nth decode dispatch;
+disabled, none of that touches a tensor. `capture_activations` runs one
+forward under `utils.tensor_dump.capture` for golden diffs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Callable
 
 import numpy as np
@@ -24,6 +35,8 @@ import torch
 from ..models import gemma
 from ..models.config import GemmaConfig
 from ..ops.attention import DECODE_SPLIT
+from ..quant.qtensor import QTensor
+from ..utils import profiling as prof
 from .kv_cache import KVCache, to_device
 from .paged_kv import PagedKVCache
 from .sampler import SamplingParams, sample
@@ -57,6 +70,33 @@ class Engine:
         self.params = params
         self.ecfg = engine_cfg or EngineConfig()
         self.device = params.device
+
+    @functools.cached_property
+    def _weight_stats(self) -> tuple[int, int]:
+        """(bytes, elements) of the model's weights, each counted once (a
+        tied head is the embedding)."""
+        nbytes = nelems = 0
+        for mod in self.params.modules():
+            if isinstance(mod, QTensor):
+                nbytes += sum(b.numel() * b.element_size() for b in mod.arrays.values())
+                nelems += mod.shape[0] * mod.shape[1]
+                continue
+            for b in mod.buffers(recurse=False):
+                nbytes += b.numel() * b.element_size()
+                nelems += b.numel()
+        return nbytes, nelems
+
+    def _record_decode_roofline(self, n_steps: int, batch: int, seconds: float) -> None:
+        if not prof.is_enabled() or n_steps <= 0 or seconds <= 0:
+            return
+        nbytes, nelems = self._weight_stats
+        prof.roofline(f"decode.steps[B={batch}]", seconds=seconds, bytes_moved=nbytes * n_steps,
+                      flops=2 * nelems * n_steps * batch)
+        prof.add_count("tokens.decoded", n_steps * batch)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def new_cache(self, batch: int | None = None, *, identity_pages: bool = True):
         """A zeroed cache of this engine's geometry. `identity_pages` (paged
@@ -103,10 +143,12 @@ class Engine:
         lengths_t = to_device(torch.tensor(lengths, dtype=torch.int32), self.device)
         positions = torch.arange(T, dtype=torch.int32, device=self.device).expand(B, T)
         cache = cache if cache is not None else self.new_cache(B)
-        logits = gemma.forward(
-            self.params, self.cfg, toks, positions, cache,
-            write_index=0, kv_limit=lengths_t, logits_at=lengths_t - 1,
-        )
+        with prof.span(f"prefill.dispatch[B={B},T={T}]"):
+            logits = gemma.forward(
+                self.params, self.cfg, toks, positions, cache,
+                write_index=0, kv_limit=lengths_t, logits_at=lengths_t - 1,
+            )
+        prof.add_count("tokens.prefilled", sum(lengths))
         cache.length = lengths_t
         return logits[:, 0], cache
 
@@ -147,9 +189,11 @@ class Engine:
         last = torch.zeros(B, self.cfg.vocab_size, dtype=torch.float32, device=self.device)
         for start in range(0, maxlen, chunk):
             limit = to_device(torch.from_numpy(np.minimum(lengths, start + chunk)), self.device)
-            last, cache = self.chunk_step(toks[:, start : start + chunk], start, limit, cache,
-                                          lengths_d, last)
+            with prof.span(f"prefill.chunk[B={B},C={chunk}]"):
+                last, cache = self.chunk_step(toks[:, start : start + chunk], start, limit, cache,
+                                              lengths_d, last)
         cache.length = lengths_d
+        prof.add_count("tokens.prefilled", int(lengths.sum()))
         return last, cache
 
     @torch.no_grad()
@@ -224,6 +268,24 @@ class Engine:
             return cache.insert_sequence(slot, pages, k_seq, v_seq, length, k_sc, v_sc)
         return cache.insert_sequence(slot, k_seq, v_seq, length, k_sc, v_sc)
 
+    @torch.no_grad()
+    def capture_activations(self, prompt: list[int], patterns=("*",)):
+        """Golden-diff hook: one prefill of `prompt` into a fresh cache while
+        capturing the named activations (`utils.tensor_dump`). Returns
+        (logits [T, vocab] f32, {name: array}); every row's logits are
+        computed (logits_at=None). T is the prompt's length: the port does
+        not bucket it, where the reference pads to a power of two."""
+        from ..utils import tensor_dump
+
+        T = len(prompt)
+        toks = self.pad_tokens([prompt], T)
+        positions = torch.arange(T, dtype=torch.int32, device=self.device)[None]
+        limit = to_device(torch.tensor([T], dtype=torch.int32), self.device)
+        with tensor_dump.capture(patterns) as cap:
+            logits = gemma.forward(self.params, self.cfg, toks, positions, self.new_cache(1),
+                                   write_index=0, kv_limit=limit)
+        return logits[0].float().cpu().numpy(), cap.values
+
     # -- public API --------------------------------------------------------
     def generate(
         self,
@@ -290,13 +352,19 @@ class Engine:
             return bool(done.all())
 
         check_every = 1 if on_token is not None else max(1, eos_check_every)
+        sync_k = prof.sync_every()  # profiled runs: make spans device-honest
+        t_dec = time.perf_counter()
         for i in range(budget):
-            tok, logits, cache = self.step(logits, gen, cache, sampling)
+            with prof.span("decode.dispatch"):
+                tok, logits, cache = self.step(logits, gen, cache, sampling)
+                if sync_k and i % sync_k == sync_k - 1:
+                    self._sync()
             device_toks.append(tok)
             if (eos_id is not None or on_token is not None) and (i + 1) % check_every == 0:
                 if drain():
                     break
-        drain()
+        drain()  # the copies to the host wait for the device: the wall time is real
+        self._record_decode_roofline(emitted, B, time.perf_counter() - t_dec)
         return out
 
     @torch.no_grad()
@@ -320,5 +388,9 @@ class Engine:
             return np.zeros((len(prompts), 0), np.int32)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        toks, _, _ = self.block(logits, gen, cache, max_new_tokens, sampling)
-        return toks.cpu().numpy()
+        t_dec = time.perf_counter()
+        with prof.span(f"decode.block[n={max_new_tokens}]"):
+            toks, _, _ = self.block(logits, gen, cache, max_new_tokens, sampling)
+            out = toks.cpu().numpy()
+        self._record_decode_roofline(max_new_tokens, len(prompts), time.perf_counter() - t_dec)
+        return out

@@ -29,13 +29,14 @@ import torch
 
 from ..ops import qmm_variants as qv
 from ..quant.qtensor import QTensor
+from ..utils.device import H100_SXM
 
-HBM_BPS = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet, 700 W)
+HBM_BPS = H100_SXM[0] * 1e9  # H100 SXM HBM3 (NVIDIA data sheet, 700 W)
 # H100 SXM dense bf16 tensor-core rate (data sheet, 700 W). A GEMV's
 # products of bf16 x with small-integer weights are exact there, summed in
 # f32 with the scale applied per block after (the main path's gdot form),
 # so this is the card's rate for the function, whatever the kernel uses.
-BF16_FLOPS = 989e12
+BF16_FLOPS = H100_SXM[1]
 COLD_BYTES = 100e6  # twice the H100's 50 MB L2
 MIN_LAUNCHES = 20  # launches per repetition, at least
 # copies at most: R stays under the launch queue's ~1024 entries, which
