@@ -78,7 +78,23 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    the kernel side's launches exact, the plain side's zero; then the CLI's
    `perplexity` (card against CPU), `bench`, `generate --verify --profile`,
    `generate --mode dequant` and `quantize` in subprocesses on phase 5's
-   tiny files.
+   tiny files;
+9. serving across two processes on the card (`serve(roles=...,
+   transport=...)`): this script re-invoked with `--prefill-host` is rank 1
+   of a gloo group and serves the admission prefills of Gemma-2B q4_0
+   (weights of seed 0) at an AF_UNIX path; the parent, rank 0, decodes 16
+   of phase 6's requests (64 tokens each) over a dense bf16 cache, then a
+   paged int8 cache of 16-key pages behind an int8 host that prefills in
+   64-token chunks. Each arm's streams equal the same `serve` with an
+   in-process prefill engine; the decode process's launches are exact (no
+   tile, no flash); the host prints `SERVED <n>` for every admission and
+   its own exact launches; one remote tuple equals the parent's own
+   `prefill_standalone` bit for bit; TTFT and wall tok/s disaggregated
+   against in-process; a hand-off's bytes and its serialize, wire and
+   deserialize-to-card ms at Gemma-2B and (random tensors, no model)
+   Gemma-7B width, bit for bit; then `python -m
+   gemma_tpu_torch.runtime.kv_transfer --device cuda` on phase 5's tiny
+   q4_0 file, driven by a `RemotePrefillClient` on the card.
 
 Quantized-matmul times are taken with L2 cold (operands rotated over
 copies totalling >= 100 MB), as a decode step meets its weights.
@@ -2141,6 +2157,376 @@ def quality_gates(torch, dev, card: str) -> tuple[dict[str, int], dict[str, dict
     return counts, readings
 
 
+# phase 9: serving across two processes on the card. The parent is rank 0
+# and decodes; a child (this script with --prefill-host) is rank 1 and
+# serves the admission prefills. 16 of phase 6's requests (prompts cycling
+# SERVE_PROMPT_LENS), 64 greedy tokens each
+DISAGG_REQUESTS = 16
+DISAGG_NEW_TOKENS = 64
+DISAGG_PAGE = 16  # the tensor-core paged route takes pages of a multiple of 16 keys
+# (name, decode EngineConfig options, prefill host's, decode attention
+# counter): a dense bf16 cache behind a host that does not chunk; a paged
+# int8 cache of 16-key pages behind an int8 host that prefills in 64-token
+# chunks, so a 203-token prompt hands over 256 slots (208 without the
+# host's chunk in the handshake)
+DISAGG_RUNS = (
+    ("dense bf16", {}, {}, "decode_attention"),
+    ("paged int8, chunking host", {"paged": True, "page_size": DISAGG_PAGE, "kv_quantized": True},
+     {"kv_quantized": True, "prefill_chunk": PAGE}, "paged_attention_int8"),
+)
+HANDOFF_REPS = 3
+
+
+def disagg_requests(cfg):
+    from gemma_tpu_torch.runtime import Request
+
+    return [Request(r.id, r.prompt, DISAGG_NEW_TOKENS)
+            for r in serve_requests(cfg)[:DISAGG_REQUESTS]]
+
+
+def prefill_forwards(reqs, chunk: int) -> int:
+    """Forwards of the admission prefills: one a prompt, or one a chunk."""
+    return sum(-(-len(r.prompt) // chunk) if chunk and len(r.prompt) > chunk else 1 for r in reqs)
+
+
+def prefill_host(spec: dict) -> int:
+    """Phase 9's child, rank 1 of the gloo group at spec["coordinator"]: the
+    Gemma-2B q4_0 weights of make_params(seed=0) on the card, then, for each
+    of DISAGG_RUNS, `serve(roles=HostRoles((1,), (0,)), transport=...)` with
+    the run's prefill host configuration, then one more connection for the
+    parent's bit-for-bit check. Prints each run's launch counts and
+    `SERVED <n>` (prefills served) after each connection."""
+    import torch
+    import torch.distributed as dist
+
+    require(torch.cuda.is_available(), "prefill host: no CUDA device")
+    from gemma_tpu_torch.parallel import multihost
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, serve
+    from gemma_tpu_torch.runtime.kv_transfer import serve_prefill_host
+    from gemma_tpu_torch.testing import make_params
+
+    class CountingEngine(Engine):
+        served = 0
+
+        def prefill_standalone(self, prompt, pad_to=None):
+            self.served += 1
+            return super().prefill_standalone(prompt, pad_to)
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize(spec["coordinator"], 2, 1, timeout=300)
+    cfg = model_config("Gemma-2B")
+    model = make_params(cfg, "q4_0", seed=0, device=dev)
+    roles = multihost.HostRoles((1,), (0,))
+    try:
+        for (name, _, host_options, _), transport in zip(DISAGG_RUNS, spec["transports"]):
+            ecfg = EngineConfig(max_seq_len=MAX_SEQ_LEN, **host_options)
+            Engine(cfg, model, ecfg).prefill_standalone(disagg_requests(cfg)[-1].prompt)  # warm-up
+            torch.cuda.synchronize()
+            eng = CountingEngine(cfg, model, ecfg)
+            reset_counters()
+            serve(eng, disagg_requests(cfg), roles=roles, transport=transport)
+            torch.cuda.synchronize()
+            print(json.dumps({"run": name, "launches": read_counters()}), flush=True)
+            print(f"SERVED {eng.served}", flush=True)
+        eng = CountingEngine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN))
+        serve_prefill_host(eng, spec["tuple_transport"])
+        print(f"SERVED {eng.served}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two insert tuples hold the same bits (bf16 compared as int16)."""
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    pairs = list(zip(a[:3], b[:3])) + [(x, y) for x, y in zip(a[3], b[3]) if x is not None]
+    return (all(x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(bits(x).cpu(), bits(y).cpu()) for x, y in pairs)
+            and int(a[4]) == int(b[4]) and (a[3][0] is None) == (b[3][0] is None))
+
+
+def handoff(torch, pre, dev) -> tuple[int, float, float, float, bool]:
+    """One hand-off of the insert tuple `pre` (on the card) through
+    serialize -> a socketpair -> deserialize onto the card: (frame bytes,
+    then the median over HANDOFF_REPS of serialize ms, wire ms and
+    deserialize-to-card ms, each ended by a synchronize; and whether every
+    repetition's tuple holds `pre`'s bits)."""
+    import socket
+    import threading
+
+    from gemma_tpu_torch.runtime import kv_transfer as kv
+
+    times, same = [], True
+    for _ in range(HANDOFF_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = kv.serialize_prefill(pre)
+        t1 = time.perf_counter()
+        a, b = socket.socketpair()
+        with a, b:
+            sender = threading.Thread(target=kv._send_frame, args=(a, data))
+            sender.start()
+            got = kv._recv_frame(b)
+            sender.join()
+        t2 = time.perf_counter()
+        back = kv.deserialize_prefill(got, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        same = same and got == data and same_bits(torch, back, pre) and back[0].device == dev
+        times.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    ser, wire, deser = (statistics.median(col) for col in zip(*times))
+    return len(data), ser, wire, deser, same
+
+
+def handoff_line(what: str, reading, card: str) -> str:
+    nbytes, ser, wire, deser, _ = reading
+    return (f"{what}: {nbytes / 1e6:.3f} MB a frame; serialize {ser:.3f} ms, wire (socketpair) "
+            f"{wire:.3f} ms, deserialize to the card {deser:.3f} ms (medians of {HANDOFF_REPS}) "
+            f"on {card}; bit for bit")
+
+
+def first_line(proc, timeout: float) -> str:
+    """The first line `proc` prints, or "" if it exits or `timeout` passes."""
+    import queue
+    import threading
+
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: lines.put(proc.stdout.readline()), daemon=True).start()
+    try:
+        return lines.get(timeout=timeout).strip()
+    except queue.Empty:
+        return ""
+
+
+def await_host(child, path: str, err: Path, timeout: float = 300) -> None:
+    """Wait until the prefill host listens at the AF_UNIX `path`; fail at
+    once if it exits first, or after `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        require(child.poll() is None, f"phase 9: the prefill host exited {child.returncode}:\n"
+                                      f"{err.read_text()[-4000:]}")
+        require(time.monotonic() < deadline, f"phase 9: no prefill host at {path} after "
+                                             f"{timeout:g} s")
+        time.sleep(0.05)
+
+
+def disaggregated_serving(torch, dev, card: str) -> None:
+    """Phase 9: `serve` across two processes on the card (DISAGG_RUNS), each
+    arm against the same `serve` with an in-process prefill engine of the
+    host's configuration; one remote tuple bit for bit against the parent's
+    own; hand-off times at Gemma-2B and Gemma-7B widths; the prefill worker
+    (`python -m gemma_tpu_torch.runtime.kv_transfer --device cuda`) on
+    phase 5's tiny q4_0 file."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gemma_tpu_torch.parallel import multihost
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+    from gemma_tpu_torch.runtime.kv_transfer import RemotePrefillClient
+    from gemma_tpu_torch.testing import make_params
+
+    t_phase = time.perf_counter()
+    cfg = model_config("Gemma-2B")
+    with tempfile.TemporaryDirectory(prefix="smoke") as tmp:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        spec = {"coordinator": f"tcp://127.0.0.1:{port}",
+                "transports": [os.path.join(tmp, f"run{i}.sock") for i in range(len(DISAGG_RUNS))],
+                "tuple_transport": os.path.join(tmp, "tuple.sock")}
+        with open(Path(tmp) / "child.err", "w") as err:
+            child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                      "--prefill-host", json.dumps(spec)],
+                                     cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            model = make_params(cfg, "q4_0", seed=0, device=dev)
+            require(child.poll() is None, f"phase 9: the prefill host exited {child.returncode}:\n"
+                                          f"{(Path(tmp) / 'child.err').read_text()[-4000:]}")
+            multihost.initialize(spec["coordinator"], 2, 0, timeout=300)
+            require((multihost.process_count(), multihost.process_index()) == (2, 0),
+                    "phase 9: the parent is not rank 0 of 2")
+            roles = multihost.HostRoles((1,), (0,))
+            expected_child = []
+            for (name, dec_options, host_options, decode_kernel), transport in zip(
+                    DISAGG_RUNS, spec["transports"]):
+                phase = f"disagg {name}"
+                dec = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN,
+                                                      max_batch=SERVE_SLOTS, **dec_options))
+                local = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, **host_options))
+                serve(dec, [Request(r.id, r.prompt, 4) for r in disagg_requests(cfg)[:4]],
+                      prefill_engine=local, block=SERVE_BLOCK, route_across_hosts=False)
+                torch.cuda.synchronize()
+                runs = {}
+                for how in ("in-process", "disaggregated"):
+                    kw = ({"prefill_engine": local, "route_across_hosts": False}
+                          if how == "in-process" else {"roles": roles, "transport": transport})
+                    if how == "disaggregated":
+                        await_host(child, transport, Path(tmp) / "child.err")
+                    reqs = disagg_requests(cfg)
+                    reset_counters()
+                    t0 = time.perf_counter()
+                    sched = serve(dec, reqs, block=SERVE_BLOCK, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts, st = read_counters(), sched.stats()
+                    require(len(sched.finished) == DISAGG_REQUESTS and all(
+                        len(r.tokens) == DISAGG_NEW_TOKENS
+                        and all(0 <= t < cfg.vocab_size for t in r.tokens)
+                        for r in sched.finished), f"{phase} {how}: not every request finished "
+                                                  f"with {DISAGG_NEW_TOKENS} in-range tokens")
+                    # the decode process runs no prefill forward when the
+                    # host prefills: no tile (M > 8) and no flash launch
+                    prefills = prefill_forwards(reqs, host_options.get("prefill_chunk", 0))
+                    expected = expected_forward_launches(
+                        cfg, "q4_0", prefills if how == "in-process" else 0, st["decode_steps"],
+                        decode_kernel)
+                    info(phase, f"{how}: Gemma-2B q4_0, {SERVE_SLOTS} slots, {DISAGG_REQUESTS} "
+                                f"requests x {DISAGG_NEW_TOKENS} tokens, prompts "
+                                f"{SERVE_PROMPT_LENS}, block {SERVE_BLOCK} on {card}: "
+                                f"{st['total_tokens'] / wall:.2f} tok/s (tokens / wall), TTFT p50 "
+                                f"{st['p50_ttft_s'] * 1e3:.1f} ms p99 "
+                                f"{st['p99_ttft_s'] * 1e3:.1f} ms, wall {wall:.3f} s, decode "
+                                f"steps {st['decode_steps']}; decode-process launches {counts}")
+                    require(counts == expected, f"{phase} {how}: launch counts {counts} != "
+                                                f"expected {expected}")
+                    if decode_kernel.startswith("paged"):
+                        require(counts["paged_attention_tc"] == counts[decode_kernel] > 0,
+                                f"{phase} {how}: paged decode off the tensor cores")
+                    runs[how] = {r.id: r.tokens for r in sched.finished}
+                same = sum(runs["disaggregated"][i] == runs["in-process"][i] for i in runs["in-process"])
+                info(phase, f"{same} of {DISAGG_REQUESTS} disaggregated streams equal the "
+                            "in-process ones")
+                require(same == DISAGG_REQUESTS, f"{phase}: {DISAGG_REQUESTS - same} streams differ")
+                expected_child.append((name, expected_forward_launches(
+                    cfg, "q4_0", prefill_forwards(reqs, host_options.get("prefill_chunk", 0)), 0,
+                    "decode_attention")))
+                del dec, local
+
+            prompt = disagg_requests(cfg)[-1].prompt  # 203 tokens
+            await_host(child, spec["tuple_transport"], Path(tmp) / "child.err")
+            client = RemotePrefillClient(spec["tuple_transport"], device=dev)
+            try:
+                t0 = time.perf_counter()
+                remote = client.prefill_standalone(prompt)
+                torch.cuda.synchronize()
+                fetch_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                client.close()
+            local = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN))
+            mine = local.prefill_standalone(prompt)
+            exact = same_bits(torch, remote, mine)
+            diff = max((x.float() - y.float()).abs().max().item()
+                       for x, y in zip(remote[:3], mine[:3]))
+            info("disagg", f"remote prefill of {len(prompt)} tokens fetched onto the card in "
+                           f"{fetch_ms:.3f} ms (prefill, serialize, wire, deserialize); "
+                           f"bit for bit the parent's own prefill_standalone: {exact} "
+                           f"(max|diff| {diff:.3e})")
+            require(exact, "phase 9: the remote tuple differs from the parent's prefill_standalone")
+            a = handoff(torch, mine, dev)
+            b = handoff(torch, Engine(cfg, model, EngineConfig(
+                max_seq_len=MAX_SEQ_LEN, kv_quantized=True, prefill_chunk=PAGE)).prefill_standalone(
+                    prompt, pad_to=DISAGG_PAGE), dev)
+            info("disagg", handoff_line(f"Gemma-2B hand-off of {len(prompt)} tokens, bf16 K/V",
+                                        a, card))
+            info("disagg", handoff_line(f"Gemma-2B hand-off of {len(prompt)} tokens, int8 K/V "
+                                        "with scales, 256 slots", b, card))
+            require(a[4] and b[4], "phase 9: a Gemma-2B hand-off is not bit for bit")
+            del model, local, mine, remote
+            torch.cuda.empty_cache()
+
+            out, _ = child.communicate(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        err_text = (Path(tmp) / "child.err").read_text()
+    require(child.returncode == 0, f"phase 9: the prefill host exited {child.returncode}:\n"
+                                   f"{err_text[-4000:]}")
+    lines = out.strip().splitlines()
+    child_counts = [json.loads(line) for line in lines if line.startswith("{")]
+    served = [int(line.split()[1]) for line in lines if line.startswith("SERVED ")]
+    info("disagg", f"prefill host (rank 1): SERVED {served}; launches "
+                   f"{[(c['run'], c['launches']) for c in child_counts]}")
+    require(served == [DISAGG_REQUESTS] * len(DISAGG_RUNS) + [1],
+            f"phase 9: the prefill host served {served}, not one prefill an admission")
+    for (name, expected), got in zip(expected_child, child_counts):
+        require(got["run"] == name and got["launches"] == expected,
+                f"phase 9: prefill host launches {got} != expected {expected}")
+
+    # Gemma-7B q8_0's hand-off of a 203-token prompt, without a model
+    cfg7 = model_config("Gemma-7B")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    shape = (cfg7.n_layers, cfg7.n_kv_heads, PROMPT_LEN, cfg7.head_dim)
+    pre7 = (torch.randn(cfg7.vocab_size, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16), (None, None),
+            PROMPT_LEN)
+    c = handoff(torch, pre7, dev)
+    info("disagg", handoff_line(f"Gemma-7B hand-off of {PROMPT_LEN} tokens ({cfg7.n_layers} "
+                                f"layers x {cfg7.n_kv_heads} KV heads x {PROMPT_LEN} x "
+                                f"{cfg7.head_dim}, bf16 K and V)", c, card))
+    require(c[4], "phase 9: the Gemma-7B hand-off is not bit for bit")
+    del pre7
+    torch.cuda.empty_cache()
+    worker_checks(torch, dev)
+    info("time", f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def worker_checks(torch, dev) -> None:
+    """Phase 9, the worker: `python -m gemma_tpu_torch.runtime.kv_transfer
+    --device cuda` on phase 5's tiny q4_0 file, driven by a
+    RemotePrefillClient on the card through `serve`; its streams equal the
+    same `serve` with an in-process prefill engine of the worker's
+    configuration (mode dequant, bf16, max_seq_len 512)."""
+    from gemma_tpu_torch.gguf.reader import GGUFReader
+    from gemma_tpu_torch.models.params import load_params
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+    from gemma_tpu_torch.runtime.kv_transfer import RemotePrefillClient
+    from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
+
+    prompts = [TINY_PROMPT[: 3 + i] * (1 + i) for i in range(6)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = make_gguf(Path(tmp) / "tiny.gguf", TINY_KERNEL_CONFIG, seed=0)
+        with open(Path(tmp) / "worker.err", "w") as err:
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "gemma_tpu_torch.runtime.kv_transfer", "--gguf", str(path),
+                 "--device", "cuda", "--max-connections", "1"],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = first_line(worker, 300)
+            require(line.startswith("PORT "), f"worker printed {line!r}:\n"
+                                              f"{(Path(tmp) / 'worker.err').read_text()[-4000:]}")
+            cfg, model = load_params(GGUFReader(path), dev, mode="dequant")
+            ecfg = EngineConfig(max_seq_len=256, max_batch=4)
+            client = RemotePrefillClient(("127.0.0.1", int(line.split()[1])), device=dev)
+            try:
+                remote = serve(Engine(cfg, model, ecfg),
+                               [Request(f"w{i}", p, 12) for i, p in enumerate(prompts)],
+                               prefill_engine=client, block=4)
+            finally:
+                client.close()
+            out, _ = worker.communicate(timeout=120)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+        require(worker.returncode == 0 and out.split() == ["SERVED", str(len(prompts))],
+                f"worker exited {worker.returncode} after printing {out!r}")
+    local = serve(Engine(cfg, model, ecfg), [Request(f"w{i}", p, 12) for i, p in enumerate(prompts)],
+                  prefill_engine=Engine(cfg, model, EngineConfig(max_seq_len=512)), block=4)
+    ours, theirs = ({r.id: r.tokens for r in s.finished} for s in (remote, local))
+    info("disagg", f"worker on cuda (tiny q4_0, dequant): SERVED {len(prompts)}; "
+                   f"{sum(ours[i] == theirs[i] for i in theirs)} of {len(prompts)} streams equal "
+                   "the in-process prefill engine's")
+    require(ours == theirs, f"worker streams {ours} != in-process {theirs}")
+
+
 def run() -> dict:
     import torch
 
@@ -2205,6 +2591,8 @@ def run() -> dict:
     for name, reading in eval_readings.items():  # the f32 evaluation routes
         results[name]["eval_f32"] = reading
     done("quality gates (phase 8)")
+    disaggregated_serving(torch, dev, card)
+    done("serving across two processes (phase 9)")
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [
@@ -2219,6 +2607,8 @@ def run() -> dict:
 
 def main() -> int:
     try:
+        if sys.argv[1:2] == ["--prefill-host"]:  # phase 9's child
+            return prefill_host(json.loads(sys.argv[2]))
         result = run()
     except ImportError as e:
         print(f"chip_smoke: cannot import the port (run from the repository root): {e}",

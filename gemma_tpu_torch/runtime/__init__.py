@@ -1,4 +1,7 @@
-"""Serving runtime: KV caches, sampler, engine, scheduler, serve() and speculative decoding."""
+"""Serving runtime: KV caches, sampler, engine, scheduler, serve() and speculative decoding.
+
+The cross-process prefill -> decode hand-off is the submodule `kv_transfer`
+(not imported here: `python -m gemma_tpu_torch.runtime.kv_transfer` runs it)."""
 from .engine import Engine, EngineConfig
 from .kv_cache import KVCache
 from .paged_kv import PageAllocator, PagedKVCache

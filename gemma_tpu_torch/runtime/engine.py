@@ -62,6 +62,19 @@ class EngineConfig:
             self.page_size = DECODE_SPLIT
 
 
+def prefill_len(prompt_len: int, chunk: int, page_size: int | None,
+                pad_to: int | None = None) -> int:
+    """Slots a prefill of `prompt_len` tokens hands over: the prompt length,
+    rounded up to a whole number of chunks when it chunks (chunk > 0 and a
+    longer prompt), then to `page_size` (a paged prefill engine's), then to
+    `pad_to`."""
+    T = -(-prompt_len // chunk) * chunk if chunk and prompt_len > chunk else prompt_len
+    for m in (page_size, pad_to):
+        if m:
+            T = -(-T // m) * m
+    return T
+
+
 class Engine:
     """Runs one model on its device with one cache geometry."""
 
@@ -235,16 +248,10 @@ class Engine:
 
     # -- prefill -> serving-cache hand-off ---------------------------------
     def prefill_len(self, prompt_len: int, pad_to: int | None = None) -> int:
-        """Slots of the throwaway cache `prefill_standalone` fills: the
-        prompt length, rounded up to a whole number of chunks when it
-        chunks, then to this engine's page size when paged, then to
-        `pad_to`."""
-        chunk = self.ecfg.prefill_chunk
-        T = -(-prompt_len // chunk) * chunk if chunk and prompt_len > chunk else prompt_len
-        for m in (self.ecfg.page_size if self.ecfg.paged else None, pad_to):
-            if m:
-                T = -(-T // m) * m
-        return T
+        """Slots of the throwaway cache `prefill_standalone` fills
+        (`prefill_len` of this engine's chunk and page size)."""
+        e = self.ecfg
+        return prefill_len(prompt_len, e.prefill_chunk, e.page_size if e.paged else None, pad_to)
 
     @torch.no_grad()
     def prefill_standalone(self, prompt: list[int], pad_to: int | None = None):

@@ -52,7 +52,7 @@ from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
 from gemma_tpu.testing import TINY_CONFIG, TINY_GEMMA2_CONFIG, TINY_GEMMA3_CONFIG, make_gguf
 from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.quant.qtensor import QTensor
-from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache, SamplingParams, Scheduler, serve
+from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache, SamplingParams, Scheduler
 from gemma_tpu_torch.testing import TINY_CONFIG as PORT_TINY_CONFIG
 from gemma_tpu_torch.testing import TINY_MHA_CONFIG
 from gemma_tpu_torch.testing import make_gguf as port_make_gguf
@@ -213,10 +213,10 @@ def test_decode_steps_match_full_prefill(models):
 
 
 def test_unported_engine_options_raise():
-    """The serving options still unported raise NotImplementedError naming
-    their ROADMAP item; paged, int8 and chunked caches are legal, and
-    speculative scheduling refuses a paged cache and sampling that is not
-    greedy with a ValueError, as the reference's does."""
+    """Paged, int8 and chunked caches are legal, and speculative scheduling
+    refuses a paged cache and sampling that is not greedy with a ValueError,
+    as the reference's does. (`serve`'s `roles` and `transport` are ported:
+    tests/test_torch_kv_transfer.py and tests/test_torch_multihost.py.)"""
     cfg = PORT_TINY_CONFIG
     eng = Engine(cfg, make_params(cfg, seed=0), EngineConfig(max_seq_len=16))
     paged = Engine(cfg, eng.params, EngineConfig(max_seq_len=16, paged=True, page_size=16))
@@ -225,10 +225,6 @@ def test_unported_engine_options_raise():
     with pytest.raises(ValueError, match="greedy sampling"):
         Scheduler(eng, SamplingParams(temperature=0.7), speculative=True)
     assert Scheduler(eng, speculative=True).spec.k == 7
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 8"):
-        serve(eng, [], transport=("localhost", 1))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 9"):
-        serve(eng, [], roles=object())
     ecfg = EngineConfig(paged=True, kv_quantized=True, prefill_chunk=64)
     assert ecfg.page_size == 64
     assert KVCache.create(cfg, 1, 8, quantized=True).quantized

@@ -34,10 +34,37 @@ try:
     runpy.run_module("gemma_tpu_torch", run_name="__main__")
 except SystemExit as e:
     assert not e.code, e.code
+# the prefill worker, `python -m gemma_tpu_torch.runtime.kv_transfer`, in a
+# thread, serving one prefill to a client of the port
+import contextlib, io, re, socket, threading
+from gemma_tpu_torch.runtime import kv_transfer
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+
+def worker():
+    sys.argv = ["kv_transfer", "--gguf", str(path), "--device", "cpu", "--port", str(port)]
+    try:
+        runpy.run_module("gemma_tpu_torch.runtime.kv_transfer", run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    t = threading.Thread(target=worker)
+    t.start()
+    client = kv_transfer.RemotePrefillClient(("127.0.0.1", port), device="cpu")
+    pre = client.prefill_standalone([1, 7, 300])
+    client.close()
+    t.join(120)
+assert pre[4] == 3 and pre[1].shape[2] == 3, pre[1].shape
 print(json.dumps({"jax": "jax" in sys.modules and sys.modules["jax"] is not None,
                   "gemma_tpu": any(m == "gemma_tpu" or m.startswith("gemma_tpu.")
                                    for m, mod in sys.modules.items() if mod is not None),
-                  "ml_dtypes": "ml_dtypes" in sys.modules}), file=sys.stderr)
+                  "ml_dtypes": "ml_dtypes" in sys.modules,
+                  "worker": [re.sub(r"^PORT \d+$", "PORT", line)
+                             for line in out.getvalue().splitlines()]}),
+      file=sys.stderr)
 """
 
 
@@ -47,8 +74,8 @@ def test_runs_end_to_end_with_jax_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_RUN, str(tmp_path / "tiny.gguf")],
                           cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"jax": False, "gemma_tpu": False,
-                                                                 "ml_dtypes": False}
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {
+        "jax": False, "gemma_tpu": False, "ml_dtypes": False, "worker": ["PORT", "SERVED 1"]}
     assert "decode 5 tokens" in proc.stderr and "device cpu" in proc.stderr
     # the CLI prints what the library generates
     cfg, model, tok = cli.load(tmp_path / "tiny.gguf", "cpu")
