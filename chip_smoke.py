@@ -94,7 +94,23 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    deserialize-to-card ms at Gemma-2B and (random tensors, no model)
    Gemma-7B width, bit for bit; then `python -m
    gemma_tpu_torch.runtime.kv_transfer --device cuda` on phase 5's tiny
-   q4_0 file, driven by a `RemotePrefillClient` on the card.
+   q4_0 file, driven by a `RemotePrefillClient` on the card;
+10. tensor parallelism (`parallel/shard_decode.py` `TPEngine`): every
+   kernel at a shard's shapes against its plain version, timed with bound
+   and library call (q4_0 at Gemma-2B's and q8_0 at Gemma-7B's tp = 2 and
+   4 shards, q4_k and q6_k at TINY_MHA_CONFIG's tp = 2, decode and flash
+   at each shard's heads, paged at Gemma-2B's); 10a: Gemma-7B q8_0 at full
+   width through a TPEngine at world size 1 over NCCL, prompt 203 + 32
+   greedy tokens, bit for bit the Engine; 10b: tp = 2 and 4 as ranks
+   sharing the card over gloo with CUDA tensors (this script re-invoked
+   with `--tp-rank`, each rank drawing only its shard on the card):
+   Gemma-7B q8_0 and Gemma-2B q4_0 in bf16 (first-step logits within 2e-2
+   of their scale of the single-device Engine's; Gemma-2B also over paged
+   int8) and f32 (greedy streams equal), at tp = 2 also 8 requests through
+   `serve()` on a paged int8 TPEngine in f32 and TINY_MHA_CONFIG q4_k_m,
+   with exact launches, the collectives a decode step by axis and the wall
+   ms a step; 10c: NCCL, one rank a card, where there are 2 or more cards
+   (on one card a line says it did not run).
 
 Quantized-matmul times are taken with L2 cold (operands rotated over
 copies totalling >= 100 MB), as a decode step meets its weights.
@@ -112,6 +128,7 @@ import math
 import os
 import random
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -359,65 +376,77 @@ def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
             for fmt in formats}
 
 
+# attention: bf16 outputs, and p rounded to bf16 against a per-tile
+# (kernel) or per-row (plain) running max; the reference's own kernel
+# tests allow 2e-2 for the same reasons. Held row by row to 2e-2 of
+# the row's scale (`_timing.attn_err`).
+ATT_TOL = 2e-2
+HEAD_DIM = 256  # Gemma-2B's and Gemma-7B's
+
+
+def held_attention(torch, kind, desc, kernel, plain, library=None, nbytes=0, flops=0):
+    """kernel() against plain() within ATT_TOL of each row's scale, with
+    their device times; given `library` (a timing function), also its ms
+    and the bound of nbytes and flops at the bf16 rate. Returns (reading,
+    kernel output)."""
+    from gemma_tpu_torch.tools._timing import attn_err
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err, ratio, lo, hi = attn_err(got, ref, ATT_TOL)
+    r = {"max_abs_err": err, "ms": device_ms(torch, kernel),
+         "plain_ms": device_ms(torch, plain, launches=1)}
+    per_call = call_ms(torch, kernel)
+    line = (f"{kind} {desc}: max|diff|={err:.3e}, worst |diff| / ({ATT_TOL:.0e} x row scale) "
+            f"{ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms: kernel "
+            f"{r['ms']:.4f} plain {r['plain_ms']:.4f}")
+    if library is not None:
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r["library_ms"] = library()
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        line += (f" library (scaled_dot_product_attention, boolean mask) "
+                 f"{lib}; bound {r['bound_ms']:.6f} ({r['bound_by']})")
+    info("kernel", f"{line}; kernel per back-to-back call {per_call:.4f} ms")
+    require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+            f"{kind} {desc}: |diff| {ratio:.3f} x {ATT_TOL} of its row's scale")
+    return r, got
+
+
+def decode_cost(limits, hq, hkv, kv_bytes=2 * HEAD_DIM * 2):
+    """(bytes, flops) of decode attention: the live keys' K and V (int8:
+    and their scales), q, out and the limits; QK and PV products."""
+    D = HEAD_DIM
+    live = sum(limits)
+    return live * hkv * kv_bytes + 2 * len(limits) * hq * D * 2 + len(limits) * 4, 4 * hq * D * live
+
+
+def flash_cost(pos, limit, hq, hkv):
+    """(bytes, flops) of prefill attention of rows at positions `pos`
+    (consecutive) below `limit`: q, the live keys' K and V, out and
+    positions; the query at p sees min(p + 1, limit) keys."""
+    D = HEAD_DIM
+    T = len(pos)
+    seen = sum(min(int(p_) + 1, limit) for p_ in pos)
+    live = min(int(pos[-1]) + 1, limit)
+    return 2 * T * hq * D * 2 + 2 * live * hkv * D * 2 + T * 4, 4 * hq * D * seen
+
+
 def check_kernels(torch, dev) -> dict[str, dict]:
     """Phase 3: every kernel against its plain version at the main path's
     shapes (the quantized matmuls by `check_matmuls`). Returns per-kernel
     results for the JSON line."""
     import gemma_tpu_torch.ops.attention as att
-    from gemma_tpu_torch.tools._timing import attn_err
 
     results = check_matmuls(torch, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    # attention: bf16 outputs, and p rounded to bf16 against a per-tile
-    # (kernel) or per-row (plain) running max; the reference's own kernel
-    # tests allow 2e-2 for the same reasons. Held row by row to 2e-2 of
-    # the row's scale (`_timing.attn_err`).
-    att_tol = 2e-2
-    Hq, Hkv, D = 8, 1, 256
+    Hq, Hkv, D = 8, 1, HEAD_DIM
     S = MAX_SEQ_LEN
     key = torch.arange(S, device=dev)
 
-    def held(kind, desc, kernel, plain, library=None, nbytes=0, flops=0):
-        """kernel() against plain() within att_tol of each row's scale, with
-        their device times; given `library` (a timing function), also its
-        ms and the bound of nbytes and flops at the bf16 rate. Returns
-        (reading, kernel output)."""
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err, ratio, lo, hi = attn_err(got, ref, att_tol)
-        r = {"max_abs_err": err, "ms": device_ms(torch, kernel),
-             "plain_ms": device_ms(torch, plain, launches=1)}
-        per_call = call_ms(torch, kernel)
-        line = (f"{kind} {desc}: max|diff|={err:.3e}, worst |diff| / ({att_tol:.0e} x row scale) "
-                f"{ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms: kernel "
-                f"{r['ms']:.4f} plain {r['plain_ms']:.4f}")
-        if library is not None:
-            r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
-            r["library_ms"] = library()
-            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            line += (f" library (scaled_dot_product_attention, boolean mask) "
-                     f"{lib}; bound {r['bound_ms']:.6f} ({r['bound_by']})")
-        info("kernel", f"{line}; kernel per back-to-back call {per_call:.4f} ms")
-        require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
-                f"{kind} {desc}: |diff| {ratio:.3f} x {att_tol} of its row's scale")
-        return r, got
-
-    def decode_cost(limits, hq, hkv, kv_bytes=2 * D * 2):
-        """(bytes, flops) of decode attention: the live keys' K and V (int8:
-        and their scales), q, out and the limits; QK and PV products."""
-        live = sum(limits)
-        return live * hkv * kv_bytes + 2 * len(limits) * hq * D * 2 + len(limits) * 4, 4 * hq * D * live
-
-    def flash_cost(pos, limit, hq, hkv):
-        """(bytes, flops) of prefill attention of rows at positions `pos`
-        (consecutive) below `limit`: q, the live keys' K and V, out and
-        positions; the query at p sees min(p + 1, limit) keys."""
-        T = len(pos)
-        seen = sum(min(int(p_) + 1, limit) for p_ in pos)
-        live = min(int(pos[-1]) + 1, limit)
-        return 2 * T * hq * D * 2 + 2 * live * hkv * D * 2 + T * 4, 4 * hq * D * seen
+    def held(*args, **kw):
+        return held_attention(torch, *args, **kw)
 
     def kv(B=1, hkv=Hkv, S=S):
         return ((torch.randn(B, hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
@@ -2253,7 +2282,6 @@ def handoff(torch, pre, dev) -> tuple[int, float, float, float, bool]:
     then the median over HANDOFF_REPS of serialize ms, wire ms and
     deserialize-to-card ms, each ended by a synchronize; and whether every
     repetition's tuple holds `pre`'s bits)."""
-    import socket
     import threading
 
     from gemma_tpu_torch.runtime import kv_transfer as kv
@@ -2319,8 +2347,6 @@ def disaggregated_serving(torch, dev, card: str) -> None:
     own; hand-off times at Gemma-2B and Gemma-7B widths; the prefill worker
     (`python -m gemma_tpu_torch.runtime.kv_transfer --device cuda`) on
     phase 5's tiny q4_0 file."""
-    import socket
-
     import torch.distributed as dist
 
     from gemma_tpu_torch.parallel import multihost
@@ -2527,6 +2553,487 @@ def worker_checks(torch, dev) -> None:
     require(ours == theirs, f"worker streams {ours} != in-process {theirs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism
+# ---------------------------------------------------------------------------
+# 10a: world size 1 over NCCL, in this process; 10b: tp = 2 and 4 as ranks
+# sharing the one card over gloo (NCCL puts one rank on one card); 10c: NCCL,
+# one rank a card, where the machine has 2 or more
+TP_SIZES = (2, 4)
+TP_MODELS = (("Gemma-7B", "q8_0"), ("Gemma-2B", "q4_0"))
+TP_REL = 2e-2  # bf16 logits against the single-device Engine: of their scale (phase 8's 7B standard)
+TP_TIMED_STEPS = 8  # decode steps timed a run (after the first, checked one)
+TP_SERVE_REQUESTS = 8  # 10b's serving: Gemma-2B q4_0, paged int8, f32, at tp = 2
+TP_SERVE_TOKENS = 24
+
+
+def tp_matmul_shapes(cfg, tp: int, ms, head_ms) -> list:
+    """A shard's quantized-matmul shapes (name, N, K, Ms): fused q|k|v (its
+    query heads and its KV heads, one duplicated head where the KV heads do
+    not divide), attn_output and ffn_down at K / tp, fused gate|up, and the
+    ceil(V / tp)-row head."""
+    from gemma_tpu_torch.parallel.shard_decode import local_config
+
+    lc = local_config(cfg, tp)
+    return [("qkv", lc.q_dim + 2 * lc.kv_dim, cfg.d_model, ms), ("attn_out", cfg.d_model, lc.q_dim, ms),
+            ("gate_up", 2 * lc.d_ff, cfg.d_model, ms), ("down", cfg.d_model, lc.d_ff, ms),
+            ("head", lc.vocab_size, cfg.d_model, head_ms)]
+
+
+def check_tp_kernels(torch, dev) -> dict[str, dict]:
+    """Phase 10's kernel checks: every kernel of the tensor-parallel path at
+    a shard's shapes, against its plain version, with its time, bound and
+    library call, as phase 3 holds the full-width ones: q4_0 at Gemma-2B's
+    and q8_0 at Gemma-7B's shard shapes (M = 1, the 203-token prefill's
+    tile, and at Gemma-2B tp = 2 the 8 serving rows), q4_k and q6_k at
+    TINY_MHA_CONFIG's tp = 2 shapes, decode and flash attention at each
+    shard's heads (Gemma-2B: one KV head a shard, G = 4 and 2 on the
+    tensor cores; Gemma-7B: 8 and 4 heads, G = 1 on split-S), paged
+    attention (bf16 and int8 pages of PAGE keys, the 8 serving rows) at
+    Gemma-2B's shard heads. Returns {kernel: {"<model> tp=<n>": reading}}."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.parallel.shard_decode import local_config
+    from gemma_tpu_torch.testing import TINY_MHA_CONFIG
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out: dict[str, dict] = {}
+    D, S, T = HEAD_DIM, MAX_SEQ_LEN, PROMPT_LEN
+    key = torch.arange(S, device=dev)
+    for model_name, fmt in TP_MODELS:
+        cfg = model_config(model_name)
+        for tp in TP_SIZES:
+            label = f"{model_name} tp={tp}"
+            serving = (model_name, tp) == ("Gemma-2B", 2)
+            ms = (1, SERVE_SLOTS, T) if serving else (1, T)
+            out.setdefault(f"{fmt}_matmul", {})[label] = check_matmul(
+                torch, fmt, tp_matmul_shapes(cfg, tp, ms, (1,)), "gate_up", gen, dev)
+            lc = local_config(cfg, tp)
+            hq, hkv = lc.n_heads, lc.n_kv_heads
+            q = (torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+            k, v = ((torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+                    for _ in range(2))
+            limit = T + 1
+            lim = torch.tensor([limit], dtype=torch.int32, device=dev)
+            route = "{}, {} keys a block".format(*att.decode_route(torch.bfloat16, hq // hkv, S))
+            r, _ = held_attention(
+                torch, "decode_attention", f"{label} Hq={hq} Hkv={hkv} S={S} limit={limit} ({route})",
+                lambda: att.decode_attention(q, k, v, lim),
+                lambda: att.decode_attention_plain(q, k, v, lim),
+                lambda: sdpa_ms(torch, q, k, v, key[None, None] < limit), *decode_cost([limit], hq, hkv))
+            out.setdefault("decode_attention", {})[label] = {**r, "shape": f"Hq={hq} Hkv={hkv} S={S} "
+                                                                           f"kv_limit={limit}"}
+            qf = (torch.randn(1, T, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+            pos = torch.arange(T, device=dev)
+            valid = (key[None, None] <= pos[None, :, None]) & (key < T)
+            r, _ = held_attention(
+                torch, "flash_attention", f"{label} prompt T={T} S={S} Hq={hq} Hkv={hkv}",
+                lambda: att.flash_attention(qf, k, v, pos.to(torch.int32)[None], lim - 1),
+                lambda: att.flash_attention_plain(qf, k, v, pos.to(torch.int32)[None], lim - 1),
+                lambda: sdpa_ms(torch, qf, k, v, valid), *flash_cost(pos.tolist(), T, hq, hkv))
+            out.setdefault("flash_attention", {})[label] = {**r, "shape": f"T={T} S={S} Hq={hq} "
+                                                                          f"Hkv={hkv}"}
+            if model_name != "Gemma-2B":
+                continue
+            for quantized in (False, True):
+                name = "paged_attention_int8" if quantized else "paged_attention"
+                qp, cache, plim = paged_inputs(gen, dev, SERVE_SLOTS, hq, hkv, D, PAGE, SERVE_LIMITS,
+                                               65, S, quantized)
+                route, split = pat.paged_route(torch.bfloat16, hq // hkv, PAGE, S)
+                require(route == "tc", f"{name} {label}: took the {route} route")
+                nbytes, flops = decode_cost(SERVE_LIMITS, hq, hkv, 2 * (D + 4) if quantized
+                                            else 2 * D * 2)
+                r, _ = held_attention(
+                    torch, name, f"{label} B={SERVE_SLOTS} Hq={hq} Hkv={hkv} ps={PAGE} limits="
+                                 f"{SERVE_LIMITS} ({route}, {split} keys a block; no single "
+                                 "library call)",
+                    lambda: pat.paged_decode_attention(qp, cache, 0, plim),
+                    lambda: pat.paged_decode_attention_plain(qp, cache, 0, plim), lambda: None,
+                    nbytes + sum(-(-n // PAGE) for n in SERVE_LIMITS) * 4, flops)
+                out.setdefault(name, {})[label] = {**r, "shape": f"B={SERVE_SLOTS} Hq={hq} Hkv={hkv} "
+                                                                  f"ps={PAGE}"}
+                del qp, cache
+    # q4_k and q6_k: the tiny q4_k_m model of 10b (TINY_MHA_CONFIG at tp = 2)
+    cfg = TINY_MHA_CONFIG
+    lc = local_config(cfg, 2)
+    out["q4_k_matmul"] = {"TINY_MHA tp=2": check_matmul(torch, "q4_k", [
+        ("attn_q", lc.q_dim, cfg.d_model, (1,)), ("attn_k", lc.kv_dim, cfg.d_model, (1,)),
+        ("attn_out", cfg.d_model, lc.q_dim, (1,)), ("gate_up", 2 * lc.d_ff, cfg.d_model, (1,)),
+        ("down", cfg.d_model, lc.d_ff, (1,))], "down", gen, dev)}
+    out["q6_k_matmul"] = {"TINY_MHA tp=2": check_matmul(torch, "q6_k", [
+        ("attn_v", lc.kv_dim, cfg.d_model, (1,)), ("head", lc.vocab_size, cfg.d_model, (1,))],
+        "head", gen, dev)}
+    return out
+
+
+def tp_prompt(cfg) -> list[int]:
+    return [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
+
+
+def tp_greedy(torch, eng, prompt, n: int, timed: int = 0, mesh=None) -> dict:
+    """Greedy decode through `eng` (an Engine or a TPEngine): the prompt's
+    logits, the first decode step's, n tokens (n decode steps), then `timed`
+    more steps timed (wall ms a step, ended by a synchronize) and, given
+    the mesh, one more step's collectives by axis. Logits on the host."""
+    logits, cache = eng.prefill([prompt])
+    out = {"prefill": logits[0].float().cpu()}
+    toks = []
+    for i in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(int(tok[0]))
+        logits, cache = eng.decode_step(tok, cache)
+        if i == 0:
+            out["step1"] = logits[0].float().cpu()
+    out["tokens"] = toks
+    if timed:
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            logits, cache = eng.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+    if mesh is not None:
+        mesh.reset_stats()
+        eng.decode_step(logits.argmax(-1).to(torch.int32), cache)
+        out["collectives"] = mesh.collective_stats()
+        if timed:
+            out["collectives_ms"] = collectives_ms(torch, eng, mesh, out["collectives"], timed)
+    return out
+
+
+def collectives_ms(torch, eng, mesh, stats: dict, reps: int) -> float:
+    """Wall ms of a decode step's collectives alone (batch 1): its
+    all-reduces of [1, 1, d_model] activations and its logits all-gather,
+    replayed `reps` times on zeros, ended by a synchronize."""
+    c = eng.lcfg
+    x = torch.zeros(1, 1, c.d_model, dtype=c.act_dtype, device=eng.device)
+    y = torch.zeros(1, 1, c.vocab_size, dtype=torch.float32, device=eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for _ in range(stats["model"]["all_reduce"]):
+            mesh.model.all_reduce(x)
+        mesh.model.all_gather(y, -1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    mesh.reset_stats()
+    return ms
+
+
+def rel_diff(a, b) -> float:
+    """max|a - b| over b's scale."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def expected_tp_launches(cfg, fmt: str, prefills: int, steps: int, kernel: str, f32: bool) -> dict:
+    """`expected_forward_launches`; f32 activations take no tensor-core
+    attention route."""
+    counts = expected_forward_launches(cfg, fmt, prefills, steps, kernel)
+    if f32:
+        for name in ("flash_attention_tc", "decode_attention_tc", "paged_attention_tc"):
+            counts[name] = 0
+    return counts
+
+
+def tp_scenarios(cfg, fmt: str, serving: bool) -> list:
+    """(name, activation dtype, EngineConfig options, new tokens, timed
+    steps, decode counter) of one model in 10b: bf16 over the dense cache
+    (the first step's logits, then timed steps), bf16 over paged int8 (the
+    first step), f32 over an f32 cache (the stream), and at serving, the f32
+    paged int8 serve."""
+    import torch
+
+    paged = {"paged": True, "page_size": PAGE, "kv_quantized": True}
+    runs = [("bf16 dense", "bfloat16", {}, 1, TP_TIMED_STEPS, "decode_attention"),
+            ("f32 dense", "float32", {"kv_dtype": torch.float32}, NEW_TOKENS, 0, "decode_attention")]
+    if fmt == "q4_0":
+        runs.insert(1, ("bf16 paged int8", "bfloat16", paged, 1, 0, "paged_attention_int8"))
+    if serving:
+        runs.append(("f32 serve paged int8", "float32", paged, TP_SERVE_TOKENS, 0,
+                     "paged_attention_int8"))
+    return runs
+
+
+def tp_serve_requests(cfg):
+    from gemma_tpu_torch.runtime import Request
+
+    return [Request(r.id, r.prompt, TP_SERVE_TOKENS) for r in serve_requests(cfg)[:TP_SERVE_REQUESTS]]
+
+
+def tp_run(torch, eng, cfg, prompt, name, new, timed, mesh=None) -> dict:
+    """One scenario of `tp_scenarios` on `eng`."""
+    from gemma_tpu_torch.runtime import serve
+
+    if name.startswith("f32 serve"):
+        sched = serve(eng, tp_serve_requests(cfg), block=4)
+        return {"streams": {r.id: r.tokens for r in sched.finished},
+                "decode_steps": sched.stats()["decode_steps"]}
+    return tp_greedy(torch, eng, prompt, new, timed, mesh)
+
+
+def tp_references(torch, dev, card: str) -> dict:
+    """The single-device Engine's results of every 10b scenario (and the
+    tiny q4_k_m stream), and 10a: Gemma-7B q8_0 through a TPEngine at world
+    size 1 over NCCL, held to the Engine bit for bit. Returns {"refs":
+    {(model, scenario): result}, "counts": 10a's launches}."""
+    import dataclasses
+
+    from gemma_tpu_torch.parallel import multihost
+    from gemma_tpu_torch.parallel.shard_decode import TPEngine
+    from gemma_tpu_torch.parallel.sharding import make_mesh
+    from gemma_tpu_torch.runtime import Engine, EngineConfig
+    from gemma_tpu_torch.testing import TINY_MHA_CONFIG, make_params
+
+    refs, counts = {}, {}
+    for model_name, fmt in TP_MODELS:
+        cfg = model_config(model_name)
+        model = make_params(cfg, fmt, seed=0, device=dev)
+        prompt = tp_prompt(cfg)
+        for name, act, opts, new, timed, _ in tp_scenarios(cfg, fmt, model_name == "Gemma-2B"):
+            c = dataclasses.replace(cfg, activation_dtype=act)
+            batch = SERVE_SLOTS if "serve" in name else 1
+            eng = Engine(c, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=batch, **opts))
+            refs[(model_name, name)] = tp_run(torch, eng, c, prompt, name, new, timed)
+        if model_name != "Gemma-7B":
+            del model
+            continue
+        # 10a: the same Gemma-7B through a TPEngine over NCCL at world size 1
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, timeout=120)
+        try:
+            mesh = make_mesh(1, 1, backend="nccl", device=dev)
+            tpe = TPEngine(cfg, model, mesh, max_seq_len=MAX_SEQ_LEN)
+            tp_greedy(torch, tpe, prompt[:16], 2)  # warm-up
+            reset_counters()
+            got = tp_greedy(torch, tpe, prompt, NEW_TOKENS, TP_TIMED_STEPS, mesh)
+            counts = read_counters()
+            eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN))
+            one = tp_greedy(torch, eng, prompt, NEW_TOKENS, TP_TIMED_STEPS)
+        finally:
+            dist_destroy()
+        exact = all(torch.equal(got[k], one[k]) for k in ("prefill", "step1"))
+        expected = expected_tp_launches(cfg, fmt, 1, NEW_TOKENS + TP_TIMED_STEPS + 1,
+                                        "decode_attention", False)
+        info("tp", f"10a: {model_name} {fmt} at full width through TPEngine, world size 1 over "
+                   f"NCCL (mesh {mesh.shape}): prompt {PROMPT_LEN} + {NEW_TOKENS} greedy tokens; "
+                   f"prefill and first-step logits bit for bit the Engine's: {exact}; stream "
+                   f"equal: {got['tokens'] == one['tokens']}; wall ms a decode step "
+                   f"{got['step_ms']:.3f} (nccl, tp=1) against the Engine's {one['step_ms']:.3f} "
+                   f"on {card}, its collectives alone {got['collectives_ms']:.3f} ms; collectives "
+                   f"a decode step {got['collectives']}; launches {counts}")
+        require(exact and got["tokens"] == one["tokens"], "10a: the TPEngine at world size 1 is not "
+                                                           "the Engine bit for bit")
+        require(counts == expected, f"10a: launch counts {counts} != expected {expected}")
+        stats = got["collectives"]
+        require(stats["data"] == {} and stats["model"]["all_reduce"] == 2 * cfg.n_layers + 1
+                and stats["model"]["all_gather"] == 1, f"10a: collectives {stats}")
+        del tpe, model, eng
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(TINY_MHA_CONFIG, activation_dtype="float32")
+    model = make_params(cfg, "q4_k_m", seed=0, device=dev)
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=256, kv_dtype=torch.float32))
+    refs[("TINY_MHA", "f32 dense")] = tp_greedy(torch, eng, TINY_PROMPT, NEW_TOKENS)
+    del model, eng
+    torch.cuda.empty_cache()
+    return {"refs": refs, "counts": counts}
+
+
+def dist_destroy() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def tp_rank(spec: dict) -> int:
+    """A rank of 10b (gloo, every rank on cuda:0) or 10c (nccl, cuda:<rank>):
+    each model's shard drawn on the card (`make_params(tp=...)`: the whole
+    model never sits on a rank), each scenario of `tp_scenarios` through a
+    TPEngine, launches counted from 0 around each on rank 0 (every rank
+    counts the same), and its results saved for the parent to hold."""
+    import dataclasses
+
+    import torch
+
+    from gemma_tpu_torch.kernels import build
+    from gemma_tpu_torch.parallel import multihost
+    from gemma_tpu_torch.parallel.shard_decode import TPEngine, local_config
+    from gemma_tpu_torch.parallel.sharding import make_mesh
+    from gemma_tpu_torch.testing import TINY_MHA_CONFIG, make_params
+
+    require(torch.cuda.is_available(), "tp rank: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, tp = spec["rank"], spec["world"]
+    dev = torch.device("cuda", rank if spec["backend"] == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    build.load()
+    multihost.initialize(spec["coordinator"], tp, rank, timeout=300)
+    out = {"rank": rank, "runs": {}, "counts": {}, "peak_gb": {}}
+    try:
+        mesh = make_mesh(1, tp, backend=spec["backend"], device=dev)
+        models = [(m, f, model_config(m)) for m, f in TP_MODELS]
+        if spec["tiny"]:
+            models.append(("TINY_MHA", "q4_k_m", TINY_MHA_CONFIG))
+        for model_name, fmt, cfg in models:
+            torch.cuda.reset_peak_memory_stats(dev)
+            shard = make_params(cfg, fmt, seed=0, device=dev, tp=(rank, tp))
+            shard_gb = sum(b.numel() * b.element_size() for b in shard.buffers()) / 1e9
+            out["peak_gb"][model_name] = (shard_gb, torch.cuda.max_memory_allocated(dev) / 1e9)
+            lcfg = local_config(cfg, tp)
+            if model_name == "TINY_MHA":
+                scenarios = [("f32 dense", "float32", {"kv_dtype": torch.float32}, NEW_TOKENS, 0,
+                              "decode_attention")]
+                prompt, seq = TINY_PROMPT, 256
+            else:
+                scenarios = tp_scenarios(cfg, fmt, spec["serving"] and model_name == "Gemma-2B")
+                prompt, seq = tp_prompt(cfg), MAX_SEQ_LEN
+            for name, act, opts, new, timed, kernel in scenarios:
+                c = dataclasses.replace(cfg, activation_dtype=act)
+                batch = SERVE_SLOTS if "serve" in name else 1
+                eng = TPEngine(c, shard, mesh, max_seq_len=seq, max_batch=batch, **opts)
+                tp_greedy(torch, eng, prompt[:16], 2)  # warm-up
+                torch.cuda.synchronize()
+                reset_counters()
+                got = tp_run(torch, eng, c, prompt, name, new, timed, mesh)
+                torch.cuda.synchronize()
+                counts = read_counters()
+                # a greedy run's steps: n, the timed ones, the collectives' one
+                steps = got["decode_steps"] if "streams" in got else new + timed + 1
+                prefills = TP_SERVE_REQUESTS if "serve" in name else 1
+                expected = expected_tp_launches(lcfg, fmt, prefills, steps, kernel,
+                                                act == "float32")
+                require(counts == expected, f"tp={tp} rank {rank} {model_name} {name}: launches "
+                                            f"{counts} != expected {expected}")
+                out["runs"][f"{model_name}|{name}"] = got
+                out["counts"][f"{model_name}|{name}"] = counts
+                del eng
+            del shard
+            torch.cuda.empty_cache()
+        torch.save(out, Path(spec["out"]) / f"rank{rank}.pt")
+    finally:
+        dist_destroy()
+    return 0
+
+
+def spawn_tp(tp: int, backend: str, tmp: Path, serving: bool, tiny: bool) -> list[dict]:
+    """Run a group of `tp` ranks (this script with --tp-rank) to its end;
+    every rank's saved results."""
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp / f"{backend}{tp}"
+    out.mkdir()
+    procs = []
+    for rank in range(tp):
+        spec = {"coordinator": f"tcp://127.0.0.1:{port}", "world": tp, "rank": rank,
+                "backend": backend, "out": str(out), "serving": serving, "tiny": tiny}
+        with open(out / f"rank{rank}.err", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--tp-rank", json.dumps(spec)],
+                                          cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err))
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        require(p.returncode == 0, f"tp={tp} {backend} rank {rank} exited {p.returncode}:\n"
+                                   f"{(out / f'rank{rank}.err').read_text()[-4000:]}")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(tp)]
+
+
+def hold_tp_group(torch, card: str, tp: int, backend: str, ranks: list[dict], refs: dict) -> dict:
+    """Hold one group's results against the single-device references:
+    bf16 logits within TP_REL of their scale, f32 streams (and served
+    streams) equal, every rank alike. Prints the collectives and wall ms a
+    decode step. Returns rank 0's launches summed over its scenarios."""
+    phase = f"tp={tp} {backend}"
+    r0 = ranks[0]
+    for key, got in r0["runs"].items():
+        model_name, name = key.split("|")
+        ref = refs[(model_name, name)]
+        for other in ranks[1:]:
+            o = other["runs"][key]
+            require(o.get("tokens") == got.get("tokens") and o.get("streams") == got.get("streams"),
+                    f"{phase} {key}: ranks disagree")
+        if "streams" in got:
+            same = sum(got["streams"][i] == ref["streams"][i] for i in ref["streams"])
+            info("tp", f"{phase} {model_name} {name}: {TP_SERVE_REQUESTS} requests x "
+                       f"{TP_SERVE_TOKENS} tokens through serve() on a paged int8 TPEngine; {same} "
+                       f"of {len(ref['streams'])} streams equal the one-process Engine's f32 serve; "
+                       f"decode steps {got['decode_steps']}")
+            require(same == len(ref["streams"]), f"{phase} {key}: streams differ")
+            continue
+        d_pre, d_step = rel_diff(got["prefill"], ref["prefill"]), rel_diff(got["step1"], ref["step1"])
+        line = (f"{phase} {model_name} {name}: prefill logits {d_pre:.3e} and first-step logits "
+                f"{d_step:.3e} of their scale from the single-device Engine's; stream "
+                f"{sum(a == b for a, b in zip(got['tokens'], ref['tokens']))} of "
+                f"{len(ref['tokens'])} tokens equal")
+        if "step_ms" in got:
+            line += (f"; wall ms a decode step {got['step_ms']:.3f} ({backend}, tp={tp}, ranks "
+                     f"{'sharing one card' if backend == 'gloo' else 'one a card'}) against "
+                     f"{ref['step_ms']:.3f} single-device on {card}; its collectives alone "
+                     f"{got['collectives_ms']:.3f} ms (share "
+                     f"{got['collectives_ms'] / got['step_ms']:.3f})")
+        info("tp", line)
+        if name.startswith("bf16"):
+            require(d_step <= TP_REL and d_pre <= TP_REL, f"{phase} {key}: logits {d_pre:.3e} / "
+                                                          f"{d_step:.3e} > {TP_REL} of their scale")
+        else:
+            require(got["tokens"] == ref["tokens"], f"{phase} {key}: f32 stream {got['tokens']} != "
+                                                    f"single-device {ref['tokens']}")
+        if "collectives" in got:
+            info("tp", f"{phase} {model_name}: collectives a decode step by axis (calls and bytes): "
+                       f"{got['collectives']}")
+            require(got["collectives"]["data"] == {}, f"{phase}: data-axis traffic in a decode step")
+    for model_name, (shard_gb, peak_gb) in r0["peak_gb"].items():
+        info("tp", f"{phase} {model_name}: rank 0 holds a {shard_gb:.3f} GB shard; peak allocated "
+                   f"while drawing it {peak_gb:.3f} GB (one whole layer and the embedding at a time)")
+    total: dict[str, int] = {}
+    for counts in r0["counts"].values():
+        add_counts(total, counts)
+    info("tp", f"{phase}: rank 0's launches over its runs {total}")
+    return total
+
+
+def tensor_parallel(torch, dev, card: str) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 10. Returns (launches of the tensor-parallel runs: 10a's and
+    rank 0's of each 10b group, the shard-shape readings by kernel)."""
+    t_phase = time.perf_counter()
+    readings = check_tp_kernels(torch, dev)
+    info("time", f"phase 10 kernel checks took {time.perf_counter() - t_phase:.1f} s")
+    ref = tp_references(torch, dev, card)
+    counts = dict(ref["counts"])
+    with tempfile.TemporaryDirectory(prefix="tp") as tmp:
+        for tp in TP_SIZES:
+            t0 = time.perf_counter()
+            ranks = spawn_tp(tp, "gloo", Path(tmp), serving=tp == 2, tiny=tp == 2)
+            add_counts(counts, hold_tp_group(torch, card, tp, "gloo", ranks, ref["refs"]))
+            info("time", f"10b tp={tp} took {time.perf_counter() - t0:.1f} s")
+        n = torch.cuda.device_count()
+        if n >= 2:
+            t0 = time.perf_counter()
+            ranks = spawn_tp(n, "nccl", Path(tmp), serving=False, tiny=False)
+            add_counts(counts, hold_tp_group(torch, card, n, "nccl", ranks, ref["refs"]))
+            info("time", f"10c tp={n} took {time.perf_counter() - t0:.1f} s")
+        else:
+            info("tp", "10c: not run: this machine has 1 CUDA device, and NCCL puts one rank on "
+                       "one card, so a tp >= 2 NCCL mesh needs 2 or more cards (10b's ranks share "
+                       "the card over gloo: they hold the path, not scaling)")
+    info("time", f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return counts, readings
+
+
 def run() -> dict:
     import torch
 
@@ -2593,6 +3100,11 @@ def run() -> dict:
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
     done("serving across two processes (phase 9)")
+    tp_counts, tp_readings = tensor_parallel(torch, dev, card)
+    add_counts(counts, tp_counts)
+    for name, reading in tp_readings.items():  # the shard-local shapes
+        results[name]["tp"] = reading
+    done("tensor parallelism (phase 10)")
     require("jax" not in sys.modules, "jax was imported")
 
     kernels = [
@@ -2609,6 +3121,8 @@ def main() -> int:
     try:
         if sys.argv[1:2] == ["--prefill-host"]:  # phase 9's child
             return prefill_host(json.loads(sys.argv[2]))
+        if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 10
+            return tp_rank(json.loads(sys.argv[2]))
         result = run()
     except ImportError as e:
         print(f"chip_smoke: cannot import the port (run from the repository root): {e}",

@@ -92,8 +92,9 @@ class DecoderLayer(nn.Module):
         return name in self._modules or name in self._buffers
 
     def forward(self, cfg: GemmaConfig, x, positions, cache: KVCache | PagedKVCache, write_index,
-                kv_limit):
-        return decoder_layer(self, cfg, x, positions, cache, self.layer_idx, write_index, kv_limit)
+                kv_limit, tp=None):
+        return decoder_layer(self, cfg, x, positions, cache, self.layer_idx, write_index, kv_limit,
+                             tp)
 
 
 def decoder_layer(
@@ -105,6 +106,7 @@ def decoder_layer(
     layer_idx: int,
     write_index,  # int chunk start (prefill) or [B] per-sequence start (decode, verify)
     kv_limit: torch.Tensor,  # [B] valid cache slots after this write
+    tp=None,  # model-axis group: all-reduce the sharded projections' partial sums
 ) -> torch.Tensor:
     B, T, _ = x.shape
     h = lp.attn_norm(x)
@@ -142,6 +144,8 @@ def decoder_layer(
         attn = attention(q, kc, vc, positions, kv_limit, cfg.attn_softcap, window,
                          k_scale=ks, v_scale=vs)
     attn_out = linear(attn.reshape(B, T, cfg.q_dim), lp.attn_output)
+    if tp is not None:  # column-sharded attn_output: partial sums
+        attn_out = tp.all_reduce(attn_out)
     if lp.has("post_attention_norm"):  # Gemma-2/3 sandwich norm
         attn_out = lp.post_attention_norm(attn_out)
     x = x + attn_out
@@ -156,6 +160,8 @@ def decoder_layer(
         gate = F.gelu(linear(h2, lp.ffn_gate).to(torch.float32), approximate="tanh")
         up = linear(h2, lp.ffn_up).to(torch.float32)
     ff = linear((gate * up).to(x.dtype), lp.ffn_down)
+    if tp is not None:  # column-sharded ffn_down: partial sums
+        ff = tp.all_reduce(ff)
     if lp.has("post_ffw_norm"):  # Gemma-2/3 sandwich norm
         ff = lp.post_ffw_norm(ff)
     x = x + ff
@@ -184,10 +190,22 @@ class Gemma(nn.Module):
         return self.output if "output" in self._modules or "output" in self._buffers else self.embed
 
 
-def _embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """Token embedding gather. With `tp`, the vocab rows are sharded over
+    the model axis: each shard gathers the ids it owns (the others give
+    zeros) and one all-reduce assembles the embedding."""
+    if tp is not None:
+        n_local = embed.shape[0]
+        local = tokens.long() - tp.index * n_local
+        valid = (local >= 0) & (local < n_local)
+        tokens = local.clamp(0, n_local - 1)
     if isinstance(embed, QTensor):  # quantized: dequantize only the gathered rows
-        return gather_dequant(embed, tokens, dtype)
-    return embed[tokens.long()].to(dtype)
+        x = gather_dequant(embed, tokens, dtype)
+    else:
+        x = embed[tokens.long()].to(dtype)
+    if tp is not None:
+        x = tp.all_reduce(x.masked_fill(~valid[..., None], 0))
+    return x
 
 
 def forward(
@@ -199,15 +217,17 @@ def forward(
     write_index,  # int chunk start (prefill) or [B] per-sequence starts (decode, verify)
     kv_limit: torch.Tensor,  # [B] valid lengths after the write
     logits_at: torch.Tensor | None = None,  # [B] row per sequence; None = all rows
+    tp=None,  # model-axis group of a tensor-parallel forward; cfg is then local
 ) -> torch.Tensor:
     """Full forward; returns logits [B, T, vocab] f32 ([B, 1, vocab] with
-    `logits_at`). The cache is written in place. `cfg` sets the activation
-    dtype (bf16 serving, f32 evaluation) for the same weights."""
-    x = _embed_lookup(model.embed, tokens, cfg.act_dtype)
+    `logits_at`; with `tp`, vocab is this shard's rows). The cache is written
+    in place. `cfg` sets the activation dtype (bf16 serving, f32 evaluation)
+    for the same weights."""
+    x = _embed_lookup(model.embed, tokens, cfg.act_dtype, tp)
     x = (x.to(torch.float32) * math.sqrt(cfg.d_model)).to(cfg.act_dtype)
     record("inp_embd", x)
     for layer in model.layers:
-        x = layer(cfg, x, positions, cache, write_index, kv_limit)
+        x = layer(cfg, x, positions, cache, write_index, kv_limit, tp)
     x = model.final_norm(x)
     record("result_norm", x)
     if logits_at is not None:

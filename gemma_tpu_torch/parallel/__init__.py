@@ -1,3 +1,4 @@
 """Work across processes: `multihost` (process group, request routing, host
-roles). The tensor-parallel half of the reference's `parallel/`
-(`sharding.py`, `shard_decode.py`) is not ported yet."""
+roles, the host-major mesh), `sharding` (the (data, model) mesh, its
+collectives and placement plan) and `shard_decode` (Megatron shards and
+`TPEngine`). Import the submodules."""

@@ -13,11 +13,15 @@ on `torch.distributed`:
   and admits its own subset (`local_requests`).
 * `HostRoles` tags processes as prefill and/or decode hosts.
 * `scaling_efficiency`: throughput against linear scaling.
+* `make_multihost_mesh`: the (data, model) mesh of `parallel.sharding` laid
+  out host-major, with the model axis inside one node's ranks so its
+  collectives (two all-reduces a layer and the logits all-gather a step)
+  stay on the node's links; only the data axis spans nodes, and a decode
+  step sends nothing over it but the sampled token ids.
 
 Where the reference's `initialize` carries on as a single process after any
 error, this one raises: a process that meant to join a group and could not
-is a fault, not a single-process run. `make_multihost_mesh` goes with the
-tensor-parallel layer, which is not ported yet.
+is a fault, not a single-process run.
 """
 from __future__ import annotations
 
@@ -62,6 +66,33 @@ def process_count() -> int:
 def process_index() -> int:
     """This process's rank, 0 without a group."""
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def make_multihost_mesh(n_model: int | None = None, *, backend: str = "nccl", device="cuda",
+                        local_world_size: int | None = None):
+    """The (data, model) mesh with the model axis inside each node.
+
+    Ranks are host-major (a node's ranks are consecutive, as launchers
+    number them), so model groups of `n_model` consecutive ranks stay on one
+    node when n_model divides the node's rank count. `local_world_size`:
+    ranks a node (default LOCAL_WORLD_SIZE, else every rank on one node);
+    `n_model` defaults to it. Raises where the model axis would cross nodes
+    or does not divide a node's ranks. `backend` and `device` as
+    `sharding.make_mesh` (the card unless the caller asks for the CPU)."""
+    from .sharding import make_mesh
+
+    n = process_count()
+    n_local = local_world_size or int(os.environ.get("LOCAL_WORLD_SIZE", n))
+    if n % n_local:
+        raise ValueError(f"{n} ranks do not fill nodes of {n_local}")
+    if n_model is None:
+        n_model = n_local
+    if n_model > n_local:
+        raise ValueError(f"model axis {n_model} exceeds a node's {n_local} ranks: the tensor-"
+                         "parallel collectives would cross nodes")
+    if n_local % n_model:
+        raise ValueError(f"a node's ranks ({n_local}) are not divisible by tp={n_model}")
+    return make_mesh(n // n_model, n_model, backend=backend, device=device)
 
 
 def route_request(request_id: str, n_hosts: int | None = None) -> int:

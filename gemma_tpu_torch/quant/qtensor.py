@@ -121,6 +121,23 @@ def select_rows(qt: QTensor, rows) -> QTensor:
     return QTensor(qt.fmt, **{k: v[rows].contiguous() for k, v in qt.arrays.items()})
 
 
+def select_cols(qt: QTensor, lo: int, hi: int) -> QTensor:
+    """The QTensor of in-features [lo, hi) of `qt`: each buffer sliced along
+    K at whole blocks (32 for q4_0 and q8_0, 256 for q4_k and q6_k), copied
+    into contiguous buffers the kernels take. Raises where lo or hi would
+    cut a block."""
+    block = FORMATS[qt.fmt][0]
+    K = qt.shape[1]
+    if not 0 <= lo < hi <= K or lo % block or hi % block:
+        raise ValueError(f"{qt.fmt}: columns [{lo}, {hi}) of K = {K} do not hold whole "
+                         f"{block}-element blocks")
+    out = {}
+    for name, _, trailing in FORMATS[qt.fmt][2]:
+        per = K // trailing(K)[0]  # in-features a step of the buffer's axis 1
+        out[name] = qt.arrays[name][:, lo // per : hi // per].contiguous()
+    return QTensor(qt.fmt, **out)
+
+
 def concat_rows(parts: list[QTensor]) -> QTensor:
     """Concatenate QTensors of one format and K along N (fused projections)."""
     fmt, k = parts[0].fmt, parts[0].shape[1]

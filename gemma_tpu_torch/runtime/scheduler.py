@@ -154,6 +154,8 @@ class Scheduler:
         # unadmitted slots point at the trash page until admission installs
         # the allocator's pages (an identity layout would alias them)
         self.cache = engine.new_cache(self.max_batch, identity_pages=False)
+        if hasattr(engine, "place_cache"):  # sharded engines (TPEngine)
+            self.cache = engine.place_cache(self.cache)
         self.allocator = PageAllocator(self.cache.n_pages) if engine.ecfg.paged else None
         self._pad_to = engine.ecfg.page_size if engine.ecfg.paged else None
         self._slot_pages: dict[int, list[int]] = {}

@@ -13,6 +13,10 @@ roles, requests are routed over the decode processes only, so every request
 is decoded exactly once; the reference routes over every process first, and
 a request that lands on a prefill-only process is never decoded. In one
 process, disaggregation is a second `Engine`, passed as `prefill_engine`.
+
+`engine` may be a `parallel.shard_decode.TPEngine`: every rank of its mesh
+calls `serve()` with the same requests and runs the same Scheduler on them
+(SPMD), so they are not routed over the mesh's processes.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ def serve(
     """Drive `requests` to completion; returns the finished Scheduler
     (results in `.finished`, metrics in `.stats()`).
 
+    engine: `runtime.Engine` or `parallel.shard_decode.TPEngine`.
     block: decode steps per issued block (`Scheduler.run`).
     roles: `multihost.HostRoles` for prefill/decode disaggregation; None =
         every process does both.
@@ -58,7 +63,8 @@ def serve(
     speculative, spec_k, spec_block: batched prompt-lookup speculation
         (greedy, dense cache; adaptive k: `Scheduler`)."""
     reqs = list(requests)
-    if route_across_hosts and multihost.process_count() > 1:
+    tensor_parallel = hasattr(engine, "mesh")  # the mesh's ranks serve the same requests
+    if route_across_hosts and multihost.process_count() > 1 and not tensor_parallel:
         hosts = roles.decode_hosts if roles is not None else None
         reqs = multihost.local_requests(reqs, hosts=hosts)
     if roles is not None and not roles.is_decode():

@@ -15,6 +15,10 @@ append) is tensor ops on the device, so steps queue back to back and the
 host reads one packed int32 tensor a block of `block` steps: [block, k + 2]
 at batch 1, [block, B, k + 2] batched (k + 1 token columns, then the count).
 
+An engine with a `spec_verify` (`parallel.shard_decode.TPEngine`) runs the
+verify forward itself and returns the greedy token after each row; drafts,
+acceptance and history stay here, replicated on every rank.
+
 Cache: the verify forward writes all k + 1 rows at each sequence's own
 length (`KVCache.write_chunk_per_seq`); the accepted prefix advances
 `cache.length`, and the rejected tail is overwritten by the next step
@@ -82,10 +86,15 @@ class SpecDecoder:
         drafts = self._draft(history, hist_len, t_prev, t_cur)
         toks = torch.cat([t_cur[:, None], drafts], dim=1)
         lengths = cache.length
-        positions = lengths[:, None] + torch.arange(k + 1, dtype=torch.int32, device=lengths.device)
-        logits = gemma.forward(eng.params, eng.cfg, toks, positions, cache,
-                               write_index=lengths, kv_limit=lengths + k + 1)
-        g = logits.argmax(dim=-1).to(torch.int32)  # [B, k + 1]: greedy after each row
+        verify = getattr(eng, "spec_verify", None)
+        if verify is not None:  # TPEngine: the sharded forward, greedy ids gathered
+            g = verify(toks, cache)
+        else:
+            positions = lengths[:, None] + torch.arange(k + 1, dtype=torch.int32,
+                                                        device=lengths.device)
+            logits = gemma.forward(eng.params, eng.cfg, toks, positions, cache,
+                                   write_index=lengths, kv_limit=lengths + k + 1)
+            g = logits.argmax(dim=-1).to(torch.int32)  # [B, k + 1]: greedy after each row
         # drafts are accepted while each equals the greedy token before it
         a = torch.cumprod((drafts == g[:, :k]).to(torch.int32), dim=1).sum(dim=1)
         n_emit = (a + 1).to(torch.int32)  # [d_1 .. d_a, g_a] = g[0 .. a]

@@ -181,7 +181,8 @@ def make_gguf(
     return path
 
 
-def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu") -> Gemma:
+def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu",
+                tp: tuple[int, int] | None = None) -> Gemma:
     """Fabricate a q4_0, q8_0 or q4_k_m model directly in the port's layout
     on `device`, from a seeded `torch.Generator` on the device.
 
@@ -197,7 +198,12 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     constants are the standard deviations of sc * q - 7.5 mn and sc * q),
     so a projection keeps its input's scale and activations stay finite
     through every layer. Norm weights are 1. Throughput does not depend on
-    the values."""
+    the values.
+
+    `tp=(index, size)` returns shard `index` of `size` instead
+    (`parallel.shard_decode.build_tp_params` of the same model, bit for
+    bit): each layer is drawn whole, as above, then cut, so a rank holds
+    one layer beyond its shard at a time."""
     if fmt not in ("q4_0", "q8_0", "q4_k_m"):
         raise NotImplementedError(f"make_params fabricates q4_0, q8_0 and q4_k_m, got {fmt!r}")
     device = torch.device(device)
@@ -254,9 +260,18 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
             "ffn_down": q4_k(cfg.d_model, cfg.d_ff),
         }
 
-    layers = [layer() for _ in range(cfg.n_layers)]
+    if tp is not None:
+        from .parallel.shard_decode import local_config, shard_layer, shard_vocab
+    index, size = tp or (0, 1)
+    layers = [layer() if tp is None else shard_layer(layer(), cfg, size, index)
+              for _ in range(cfg.n_layers)]
     embed = {"q4_0": q4_0, "q8_0": q8_0, "q4_k_m": q6_k}[fmt](cfg.vocab_size, cfg.d_model)
-    return Gemma(cfg, embed=embed, final_norm=norm(cfg.d_model), layers=layers)
+    if tp is None:
+        return Gemma(cfg, embed=embed, final_norm=norm(cfg.d_model), layers=layers)
+    model = Gemma(local_config(cfg, size), embed=shard_vocab(embed, cfg, size, index),
+                  final_norm=norm(cfg.d_model), layers=layers)
+    model.tp_shard = (index, size)
+    return model
 
 
 def from_jax_cache(np_cache, device="cpu") -> KVCache | PagedKVCache:

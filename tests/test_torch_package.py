@@ -153,7 +153,8 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
         "tools": ["_timing", "bench_bn_sweep", "bench_prefill", "bench_q4k_variants",
-                  "bench_q6k_variants", "bench_qmm_variants", "bench_spec", "parent_turn",
+                  "bench_q6k_variants", "bench_qmm_variants", "bench_scaling", "bench_spec",
+                  "parent_turn",
                   "probe_int4", "probe_spec_serving", "probe_variants", "tc_emulation"],
         "reference_tools": []}
 
@@ -175,6 +176,26 @@ def test_load_params_defaults_to_the_card(monkeypatch, tmp_path):
         cli.main(["generate", str(path)])
     cfg, model = load_params(GGUFReader(path), device="cpu")
     assert cfg.n_layers == TINY_CONFIG.n_layers and model.embed.device.type == "cpu"
+
+
+def test_tp_engine_and_make_mesh_default_to_the_card(monkeypatch):
+    """Without a GPU, make_mesh (any backend), make_multihost_mesh and a
+    TPEngine with no mesh fail: they never place a rank on the CPU unless
+    asked (device="cpu", which takes gloo)."""
+    from gemma_tpu_torch.parallel import multihost
+    from gemma_tpu_torch.parallel.shard_decode import TPEngine
+    from gemma_tpu_torch.parallel.sharding import make_mesh
+    from gemma_tpu_torch.testing import TINY_CONFIG, make_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (make_mesh, lambda: make_mesh(backend="gloo"), multihost.make_multihost_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    model = make_params(TINY_CONFIG, "q8_0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPEngine(TINY_CONFIG, model)
+    eng = TPEngine(TINY_CONFIG, model, make_mesh(backend="gloo", device="cpu"))
+    assert eng.device.type == "cpu" and eng.params.embed.device.type == "cpu"
 
 
 def test_kernel_sources_note_what_they_replace():
