@@ -18,7 +18,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    4096, both arms; paged decode equal bit for bit to decode on the
    gathered rows), and flash at the speculative verify's shapes (T = 8
    and T = 2 query rows from each sequence's length, batch 1 and the 8
-   serving rows; q4_0 also at the verify's M = 2 and 16), with the route
+   serving rows; q4_0 also at the verify's M = 2 and 16), and q4_k's and
+   q6_k's f32 route at M > 8, the TF32 tile (csrc/dq_tile_tf32.cuh), at
+   every q4_k_m row at M = 17, 64, 203 and 512 and at ragged N and K,
+   within 1e-5 of the output's scale, with the route
    each took (bf16: the tensor-core kernels), max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
@@ -59,19 +62,24 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    dense bf16 and int8, adaptive k; k = 7 in admission order and shuffled,
    which must give the same streams), each stream teacher-forced through
    plain decode against phase 4's delta, and a batched block under
-   `set_sync_debug_mode("error")`;
+   `set_sync_debug_mode("error")`; then non-greedy serving (Gemma-2B,
+   temperature 1.0, top-k 64, top-p 0.95, four requests of one prompt)
+   twice from one seed, the same streams both times, exact launch counts,
+   and the sampler's frequencies on the card against the filtered softmax;
 7. the decode-GEMV instruments, the kernels that replace the Pallas
    kernels of the reference's tools/ (bench_qmm_variants, bench_bn_sweep,
    probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
    its plain version at the tools' Gemma-2B shapes with exact launch
    counts, each kernel's L2-cold time, bound, plain and library time, then
    each `python -m gemma_tpu_torch.tools.<name>` in a subprocess;
-8. the quality gates: every format's f32 evaluation route (the plain-FMA
-   tiles, the head included) and the FMA flash kernel at the perplexity
+8. the quality gates: q4_0's and q8_0's f32 evaluation route (the
+   plain-FMA tiles, the head included; q4_k's and q6_k's TF32 tile is
+   phase 3's) and the FMA flash kernel at the perplexity
    window's M = T = 512 against their plain versions, timed with bound and
    library call; `perplexity.evaluate` at full width (Gemma-2B q4_0 and
    q4_k_m, Gemma-7B q8_0) over two 512-token windows of seeded token ids,
-   each window's launch counts exact and its wall time printed, its NLL
+   each window's launch counts exact (q4_k_m's matmuls all on the TF32
+   tile) and its wall time printed, its NLL
    within 1e-4 of the same through the plain versions on the card;
    `verify_device_kernels` at full Gemma-2B q4_0 and Gemma-7B q8_0 width
    over the dense bf16, dense int8 and paged (64-token pages) caches: ok,
@@ -172,6 +180,11 @@ KERNELS = {
                         "gemma_tpu/ops/paged_attention.py:47 _paged_kernel"),
     "paged_attention_int8": ("gemma_tpu_torch/csrc/paged_attention.cu",
                              "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages)"),
+    # the f32 evaluation route of q4_k and q6_k at M > 8: the TF32 tile
+    "q4_k_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
+                         "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel (f32 x, M > 8)"),
+    "q6_k_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
+                         "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
 }
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
@@ -204,6 +217,14 @@ MATMUL_SHAPES = {
     "q6_k": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048))], "head"),
 }
+# q4_k's and q6_k's f32 route (the TF32 tile): phase 3 holds it at the
+# q4_k_m rows of MATMUL_SHAPES (not deep_k: on no GGUF path) at the tiles'
+# M and the perplexity window's, and at ragged edges (N past a tile, K of an
+# odd count of superblocks), to 1e-5 of the output's scale
+TF32_MS = (*TILE_MS, 512)
+TF32_EDGES = (("q4_k", "edge", 1000, 1280), ("q4_k", "edge", 1100, 256),
+              ("q6_k", "edge", 999, 1280))
+TF32_PASSES = 2  # the tile's TF32 products a k8 step (x's hi and lo): not in the bound
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 96
@@ -374,6 +395,89 @@ def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
     gen.manual_seed(0)
     return {f"{fmt}_matmul": check_matmul(torch, fmt, *MATMUL_SHAPES[fmt], gen, dev)
             for fmt in formats}
+
+
+def check_tf32_routes(torch, dev) -> dict[str, dict]:
+    """Phase 3, q4_k's and q6_k's f32 route at M > 8 (`dq_tile_tf32_kernel`,
+    csrc/dq_tile_tf32.cuh): each q4_k_m row of MATMUL_SHAPES at TF32_MS and
+    the ragged TF32_EDGES against the plain version (f32 x @ the weight
+    dequantized to f32), held to 1e-5 of the output's scale. The main rows
+    are timed with L2 cold, with the library call (torch.matmul of f32 x
+    with the weight dequantized to f32 beforehand, TF32 off) and the bound:
+    the wire bytes over HBM bandwidth, or the function's 2 M N K flops over
+    the TF32 rate (the tile's second pass is its way to f32 accuracy, not
+    work the function needs: the info line gives the TF32_PASSES figure
+    beside it). Each launch is counted by the library's own count of the
+    tile's launches, and the library's K-split scratch at each shape is
+    held to the plan that tools/tc_emulation.py emulates (`tf32_plan`). The
+    JSON reading of each is its EVAL_REP row at M = 512 (the perplexity
+    window), every row's under "rows"."""
+    import gemma_tpu_torch.ops.quant_matmul as qmm
+    from gemma_tpu_torch.kernels import build
+    from gemma_tpu_torch.quant.qtensor import dequant
+    from gemma_tpu_torch.tools import _timing as T
+    from gemma_tpu_torch.tools import tc_emulation as emu
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in f32")
+    rows = [(fmt, name, N, K) for fmt in qmm.TF32_FORMATS
+            for name, N, K, _ in MATMUL_SHAPES[fmt][0] if name != "deep_k"]
+    readings: dict[str, dict] = {f"{fmt}_matmul_tf32": {"max_abs_err": 0.0, "rows": []}
+                                 for fmt in qmm.TF32_FORMATS}
+    for fmt, name, N, K in rows + list(TF32_EDGES):
+        timed = name != "edge"
+        qt = T.random_qtensor(fmt, N, K, gen, dev)
+        w32 = dequant(qt, torch.float32)
+        wire = T.nbytes(qt)
+        reading = readings[f"{fmt}_matmul_tf32"]
+        for M in TF32_MS:
+            x = torch.randn(M, K, generator=gen, device=dev)
+            before = qmm.MATMULS[fmt].tf32_launches
+            got = qmm.MATMULS[fmt](x, qt)
+            ref = qmm.PLAIN[fmt](x, qt)
+            torch.cuda.synchronize()
+            require(qmm.MATMULS[fmt].tf32_launches == before + 1,
+                    f"{fmt}_matmul f32 M={M}: the library launched no TF32 tile")
+            splits = emu.tf32_plan(fmt, M, N, K)[1]
+            work = build.matmul_scratch(build.load(), build.FORMAT_CODES[fmt],
+                                        build.DTYPE_CODES[torch.float32], M, N, K)[0]
+            require(work == (splits * M * N * 4 if splits > 1 else 0),
+                    f"{fmt}_matmul_tf32 M={M} N={N} K={K}: the library's scratch {work} bytes, "
+                    f"the emulated plan's {splits} splits")
+            err = (got - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()
+            require(bool(torch.isfinite(got).all()) and err <= tol,
+                    f"{fmt}_matmul_tf32 {name} M={M} N={N} K={K}: max|diff| {err} > tol {tol}")
+            reading["max_abs_err"] = max(reading["max_abs_err"], err)
+            line = (f"{fmt}_matmul_tf32 {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
+                    f"tol={tol:.3e} (1e-5 of scale)")
+            if timed:
+                ms = cold_ms(qmm.MATMULS[fmt], (x, qt), dev, reps=3)
+                library_ms = cold_ms(lambda x_, w_: torch.matmul(x_, w_.T), (x, w32), dev, reps=3)
+                plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
+                bound_ms, bound_by = bound(wire + M * K * 4 + M * N * 4, 2 * M * N * K,
+                                           H100_TF32_FLOPS)
+                passes_ms = TF32_PASSES * 2 * M * N * K / H100_TF32_FLOPS * 1e3
+                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms, "shape": f"f32 {name} M={M} N={N} K={K}"}
+                reading["rows"].append(row)
+                if name == EVAL_REP[fmt] and M == PPL_WINDOW:
+                    reading.update(row)
+                line += (f"; device ms, L2 cold: kernel {ms:.4f} "
+                         f"({2 * M * N * K / ms / 1e9:.3f} TFLOP/s of the product, "
+                         f"{bound_ms / ms:.3f} of the bound) library (f32 matmul, weight "
+                         f"dequantized beforehand) {library_ms:.4f} (kernel / library "
+                         f"{ms / library_ms:.3f}); plain {plain_ms:.4f}; bound {bound_ms:.4f} "
+                         f"({bound_by}, 2 M N K at the TF32 rate); at {TF32_PASSES} TF32 "
+                         f"passes {passes_ms:.4f} ({passes_ms / ms:.3f} of the kernel's time); "
+                         f"K splits {splits}")
+            info("kernel", line)
+            del x, got, ref
+        del qt, w32
+        torch.cuda.empty_cache()
+    return readings
 
 
 # attention: bf16 outputs, and p rounded to bf16 against a per-tile
@@ -913,7 +1017,7 @@ def profiler_coverage(prof, before: dict[str, int]) -> str:
     after = read_counters()
     launched = sum(after[k] - before[k] for k in after if k.endswith("_matmul"))
     recorded = sum(e.count for e in prof.key_averages()
-                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_(tile|gemv)_kernel", e.key))
+                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_(tile|gemv|tile_tf32)_kernel", e.key))
     return f"{recorded} of {launched} quantized-matmul launches recorded"
 
 
@@ -1350,10 +1454,99 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
                                         "streams differ from the dense bf16 run's")
     if spec_delta is not None:
         counts_by_run.update(spec_serving(torch, card, model_name, cfg, model, fmt, spec_delta, rates))
+        sampled_serving(torch, dev, card, model_name, cfg, model, fmt)
     serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
     del model
     torch.cuda.empty_cache()
     return counts_by_run
+
+
+# phase 6's non-greedy run: the sampler's three filters at once
+SAMPLED = {"temperature": 1.0, "top_k": 64, "top_p": 0.95}
+SAMPLED_NEW_TOKENS = 32
+SAMPLER_DRAWS = 20000  # rows of one small-vocabulary logits row, phase 6's frequency check
+
+
+def filtered_probs(logits, temperature: float, top_k: int, top_p: float):
+    """The plain version of the sampler's filter on one row of logits
+    (numpy, f64): temperature, then the top_k largest, then the smallest
+    prefix of those, most probable first, whose mass reaches top_p (the
+    first token always kept); the softmax over what is kept, 0 elsewhere."""
+    import numpy as np
+
+    z = np.asarray(logits, np.float64) / temperature
+    order = np.argsort(-z, kind="stable")
+    kept = order[:top_k] if 0 < top_k < z.size else order
+    p = np.exp(z[kept] - z[kept].max())
+    p /= p.sum()
+    before = np.cumsum(p) - p  # mass of the more probable tokens
+    kept = kept[before < top_p]
+    out = np.zeros(z.size)
+    out[kept] = np.exp(z[kept] - z[kept].max())
+    return out / out.sum()
+
+
+def sampled_serving(torch, dev, card: str, model_name: str, cfg, model, fmt: str) -> None:
+    """Phase 6, non-greedy: `serve` on the dense bf16 cache with SAMPLED
+    over phase 6's first SERVE_SLOTS requests, the first prompt given to
+    four of them, SAMPLED_NEW_TOKENS tokens each, twice from one seed: every
+    request finishes with in-range tokens, the launch counts are exact, and
+    the second run repeats the first token for token; the share of the four
+    identical prompts' streams that differ is printed. Then the sampler
+    alone on the card: SAMPLER_DRAWS rows of one 64-token row of logits,
+    each token's frequency within 5 binomial deviations of
+    `filtered_probs`, and no draw of a filtered token."""
+    import numpy as np
+
+    from gemma_tpu_torch.runtime import (Engine, EngineConfig, Request, SamplingParams,
+                                         sample, serve)
+
+    phase = f"serve {model_name} {fmt} sampled"
+    params = SamplingParams(**SAMPLED)
+    base = serve_requests(cfg)[:SERVE_SLOTS]
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS))
+    streams = []
+    for _ in range(2):  # fresh requests each run: the scheduler fills them in
+        reqs = [Request(r.id, base[0].prompt if i < 4 else r.prompt, SAMPLED_NEW_TOKENS)
+                for i, r in enumerate(base)]
+        reset_counters()
+        t0 = time.perf_counter()
+        sched = serve(eng, reqs, sampling=params, block=SERVE_BLOCK, seed=16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, st = read_counters(), sched.stats()
+        got = {r.id: r.tokens for r in sched.finished}
+        require(len(got) == len(reqs) and all(
+            len(t) == SAMPLED_NEW_TOKENS and all(0 <= v < cfg.vocab_size for v in t)
+            for t in got.values()), f"{phase}: not every request finished with "
+                                    f"{SAMPLED_NEW_TOKENS} in-range tokens")
+        expected = expected_forward_launches(cfg, fmt, len(reqs), st["decode_steps"],
+                                             "decode_attention")
+        require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+        streams.append(got)
+    require(streams[0] == streams[1], f"{phase}: two runs from one seed sampled different streams")
+    same = [streams[0][reqs[i].id] for i in range(4)]
+    differ = sum(same[i] != same[j] for i in range(4) for j in range(i + 1, 4)) / 6
+    info(phase, f"{model_name} {fmt}, {len(reqs)} requests x {SAMPLED_NEW_TOKENS} tokens, "
+                f"{SAMPLED} on {card}: wall {wall:.3f} s, decode steps {st['decode_steps']}; "
+                f"two runs from seed 16 equal; share of the 6 pairs of the 4 identical prompts' "
+                f"streams that differ: {differ:.3f}; launches {counts}")
+    del eng, sched
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    row = torch.randn(64, generator=gen, device=dev) * 2
+    want = filtered_probs(row.cpu().numpy(), **SAMPLED)
+    toks = sample(row.expand(SAMPLER_DRAWS, -1), params, gen).cpu().numpy()
+    freq = np.bincount(toks, minlength=row.numel()) / SAMPLER_DRAWS
+    slack = 5 * np.sqrt(want * (1 - want) / SAMPLER_DRAWS)
+    worst = float(np.max(np.abs(freq - want) - slack))
+    info(phase, f"sampler on the card: {SAMPLER_DRAWS} draws of one 64-token row, {SAMPLED}: "
+                f"{int((want > 0).sum())} tokens kept, max |freq - p| "
+                f"{np.abs(freq - want).max():.2e}, draws of filtered tokens "
+                f"{int(freq[want == 0].sum() * SAMPLER_DRAWS)}")
+    require(worst <= 0 and not freq[want == 0].any(),
+            f"{phase}: sampled frequencies {freq} against the filtered softmax {want}")
 
 
 # phase 6's speculative runs: (name, EngineConfig options, Scheduler options,
@@ -1889,13 +2082,26 @@ QUANTIZE_SHA256 = {
 }
 
 
+def tf32_prefill_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
+                          head: bool) -> None:
+    """Set the TF32 tile's share of `counts`: every q4_k and q6_k launch of
+    `prefills` f32 prefill forwards of more than 8 rows (q4_k_m), the head
+    too where it runs at every row (perplexity; a prefill runs it at the
+    last row, M = 1)."""
+    if fmt == "q4_k_m":
+        counts["q4_k_matmul_tf32"] = 5 * cfg.n_layers * prefills
+        counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
+
+
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
     """Kernel launches of one perplexity window: a prefill forward whose
     f32 queries take the FMA flash kernel (no tensor-core launch) and whose
-    head runs at every row (one launch all the same)."""
+    head runs at every row (one launch all the same); q4_k_m's matmuls all
+    on the TF32 tile."""
     counts = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=0,
                                        decode_kernel="decode_attention")
     counts["flash_attention_tc"] = 0
+    tf32_prefill_launches(counts, cfg, fmt, 1, head=True)
     return counts
 
 
@@ -1998,9 +2204,10 @@ def quality_verify(torch, dev, model_name: str, fmt: str, rel: float | None) -> 
 
 def check_eval_routes(torch, dev) -> dict[str, dict]:
     """Phase 8: the kernels' f32 evaluation routes at the perplexity
-    window's shapes (M = T = PPL_WINDOW): every format's plain-FMA tile at
-    each of its full-width matrices (the head too: perplexity scores every
-    row), and the FMA flash kernel at Gemma-2B's and Gemma-7B's heads, each
+    window's shapes (M = T = PPL_WINDOW): q4_0's and q8_0's plain-FMA tile
+    at each of its full-width matrices (the head too: perplexity scores
+    every row; q4_k's and q6_k's TF32 tile is phase 3's), and the FMA flash
+    kernel at Gemma-2B's and Gemma-7B's heads, each
     against its plain version (f32 both: 1e-4 of the output's scale, of
     each row's for attention), with device times (matmuls L2 cold), the
     bound at the f32 FMA rate (67 TFLOP/s) or HBM bytes, and the library
@@ -2022,6 +2229,8 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
 
     readings: dict[str, dict] = {}
     for fmt, (shapes, _) in MATMUL_SHAPES.items():
+        if fmt in qmm.TF32_FORMATS:  # the TF32 tile: phase 3 (check_tf32_routes)
+            continue
         for name, N, K, _ in shapes:
             if name == "deep_k":  # not on a GGUF path
                 continue
@@ -2730,11 +2939,13 @@ def rel_diff(a, b) -> float:
 
 def expected_tp_launches(cfg, fmt: str, prefills: int, steps: int, kernel: str, f32: bool) -> dict:
     """`expected_forward_launches`; f32 activations take no tensor-core
-    attention route."""
+    attention route, and q4_k_m's prefill matmuls (prompts of more than 8
+    tokens) the TF32 tile."""
     counts = expected_forward_launches(cfg, fmt, prefills, steps, kernel)
     if f32:
         for name in ("flash_attention_tc", "decode_attention_tc", "paged_attention_tc"):
             counts[name] = 0
+        tf32_prefill_launches(counts, cfg, fmt, prefills, head=False)
     return counts
 
 
@@ -3060,6 +3271,7 @@ def run() -> dict:
         info("time", f"{phase} done at {time.perf_counter() - t0:.1f} s")
 
     results = check_kernels(torch, dev)
+    results.update(check_tf32_routes(torch, dev))
     results["flash_attention"].update(check_verify_attention(torch, dev))
     results.update(check_serving_kernels(torch, dev))
     check_edge_cases(torch, dev)

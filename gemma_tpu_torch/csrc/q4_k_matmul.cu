@@ -46,12 +46,17 @@
 //   kernel's rounding point. The per-32 affine part sum(x) * (8 d*sc -
 //   dmin*mn) stays in f32 (a bf16-rounded offset is a perplexity bias): the
 //   tile adds it from the x tile's group sums into the accumulators.
-// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
-//   (`q4_k_tiled_kernel`): 64 x 64 outputs per block, K stepped one 64-element
-//   chunk (two sub-blocks) at a time, both tiles in shared memory in f32.
+// * Prefill with f32 x (evaluation mode: perplexity, the f32 caches of
+//   --verify, f32 serving) runs the TF32 tensor-core tile of
+//   dq_tile_tf32.cuh (`dq_tile_tf32_kernel<Q4KTf32>`), held to 1e-5 of the
+//   output's scale: the integers q - 8, exact in TF32, against x split
+//   into two TF32 parts (two m16n8k8 products a k8 step), each 32-group's
+//   fragment scaled by d*sc in f32 and the affine part (8 d*sc - dmin*mn) *
+//   sum(x) added in f32 from the f32 x tile's group sums.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
 #include "dq_gemv.cuh"
+#include "dq_tile_tf32.cuh"
 
 using namespace gt;
 
@@ -330,88 +335,32 @@ struct Q4KGemv : SuperPlan {
   }
 };
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 64;  // one 32-byte chunk: sub-blocks 2c and 2c + 1
-constexpr int kTiledThreads = 256;
+// The f32 route's TF32 tile (dq_tile_tf32.cuh): Q4KTile's raw step and
+// copies. A 16-wide unit u of the step is quarter u of Q4KTile's item
+// order: nibble u / 2 (32-group 2c + u / 2) of payload bytes 16 (u % 2)
+// .. + 15, so lane t's four weights are the nibbles of one payload word.
+// `prepare` writes d*sc and the offset 8 d*sc - dmin*mn of the step's two
+// 32-groups.
+struct Q4KTf32 : Q4KTile {
+  static constexpr int kGroupUnits = 2;
 
-// f32 x (evaluation mode): f32 weights, plain FMA
-__global__ void __launch_bounds__(kTiledThreads)
-q4_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
-                  const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
-                  float* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
-  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // weight tile, K-major
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output cols tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int nsb = K / kQK;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-#pragma unroll 4
-    for (int it = 0; it < kTileM * kTileK / kTiledThreads; ++it) {
-      const int i = tid + it * kTiledThreads;
-      const int r = i / kTileK;
-      const int c = i % kTileK;
-      const int m = m0 + r;
-      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
-    }
-    {
-      // 64 weight rows x 4 quarters of 16 weights: quarter p holds elements
-      // 16p..16p+15 of the chunk, nibble p / 2 of payload bytes 16(p % 2)..
-      const int r = tid / 4;
-      const int part = tid % 4;
-      const int n = n0 + r;
-      const int sb = k0 / kQK;
-      const int c = (k0 % kQK) / kTileK;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      float dsc = 0.f, dmn = 0.f;
-      if (n < N) {
-        raw = *reinterpret_cast<const uint4*>(qs + static_cast<size_t>(n) * (K / 2) + sb * 128 + c * 32 + (part % 2) * 16);
-        group_scale(table + static_cast<size_t>(n) * nsb * 12, dm + static_cast<size_t>(n) * nsb, sb,
-                    2 * c + part / 2, dsc, dmn);
-      }
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      const int shift = (part / 2) * 4;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float q = static_cast<float>((words[i / 4] >> (8 * (i % 4) + shift)) & 0xfu);
-        ws[part * 16 + i][r] = __fsub_rn(__fmul_rn(dsc, q), dmn);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  __device__ __forceinline__ static void prepare(const uint8_t* raw, float* scale, float* off, int,
+                                                 int, int k0, int grp) {
+    const uint32_t* t = reinterpret_cast<const uint32_t*>(raw + 32);
+    const float2 dmf = __half22float2(*reinterpret_cast<const __half2*>(raw + 44));
+    float sc, mn;
+    scale_min_k4(t[0], t[1], t[2], 2 * ((k0 % kQK) / 64) + grp, sc, mn);
+    const float dsc = dmf.x * sc;
+    *scale = dsc;
+    *off = fmaf(-dmf.y, mn, 8.f * dsc);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
+
+  __device__ __forceinline__ static void weights(const uint8_t* raw, int, int u, int t,
+                                                 uint32_t (&b)[4]) {
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(raw + 16 * (u % 2) + 4 * t);
+    bytes_minus((word >> (4 * (u / 2))) & 0x0F0F0F0Fu, 8.f, b);
   }
-}
+};
 
 template <typename TX>
 cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const void* dm, void* y,
@@ -425,8 +374,7 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
     return launch_dq_gemv<Q4KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
                                    N, K, s);
   } else if (M > 8) {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.table, w.dm, yp, M, N, K);
+    return launch_dq_tile_tf32<Q4KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
   } else {
     const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
     const dim3 block(kGemvWarps * 32);
@@ -445,6 +393,17 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
 }
 
 }  // namespace
+
+// launches of the TF32 tile (dq_tile_tf32.cuh), q4_k's and q6_k's, so far in
+// this process
+extern "C" unsigned long long gt_dq_tile_tf32_launches() {
+  return dq_tile_tf32_launch_count.load(std::memory_order_relaxed);
+}
+
+// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
+extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K) {
+  return dq_tile_tf32_work_bytes<Q4KTf32>(M, N, K);
+}
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
 // port's q4_k layout; y: [M, N] f32; work and tickets: the f32 scratch

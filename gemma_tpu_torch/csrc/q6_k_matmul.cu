@@ -53,12 +53,16 @@
 //   dequantizes 16 weights a thread from shared memory into the bf16 tile:
 //   bf16((d*sc) * q), the true weight rounded once with d*sc formed in f32
 //   first (the reference's -24 fold exists only for its int4 bitcast).
-// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
-//   (`q6_k_tiled_kernel`): 64 x 64 outputs per block, K stepped 64 elements
-//   at a time; a thread dequantizes one 16-element sub-block of one row.
+// * Prefill with f32 x (evaluation mode: perplexity, the f32 caches of
+//   --verify, f32 serving) runs the TF32 tensor-core tile of
+//   dq_tile_tf32.cuh (`dq_tile_tf32_kernel<Q6KTf32>`), held to 1e-5 of the
+//   output's scale: the integers q - 32, exact in TF32, against x split
+//   into two TF32 parts (two m16n8k8 products a k8 step), each 16-element
+//   sub-block's fragment scaled by d*sc in f32.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
 #include "dq_gemv.cuh"
+#include "dq_tile_tf32.cuh"
 
 using namespace gt;
 
@@ -416,90 +420,34 @@ struct Q6KGemv : SuperPlan {
   }
 };
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 64;  // a quarter superblock: four 16-element sub-blocks
-constexpr int kTiledThreads = 256;
+// The f32 route's TF32 tile (dq_tile_tf32.cuh): Q6KTile's raw step and
+// copies. A 16-wide unit u of the step is Q6KTile's item u: sub-block u of
+// the step, elements 16u + i at ql byte 16u + i (nibble t64, the step's
+// 64-wide half of its 128) and qh byte 16 (u % 2) + i (field 2 t64 + u /
+// 2), so lane t's four weights are one ql word and one qh word, their 6-bit
+// values formed four at a time. `prepare` writes d*sc of the step's four
+// sub-blocks.
+struct Q6KTf32 : Q6KTile {
+  static constexpr int kGroupUnits = 1;
 
-// f32 x (evaluation mode): f32 weights, plain FMA
-__global__ void __launch_bounds__(kTiledThreads)
-q6_k_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ ql,
-                  const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
-                  const __half* __restrict__ d, float* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
-  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // dequantized W tile, K-major
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output cols tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int nsb = K / kQK;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int i = tid; i < kTileM * kTileK; i += kTiledThreads) {
-      const int r = i / kTileK;
-      const int c = i % kTileK;
-      const int m = m0 + r;
-      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
-    }
-    {
-      // 64 weight rows x 4 sub-blocks of 16: part p holds element
-      // e = 64t + 16p + i of half h (t = this quarter within the half),
-      // from ql byte e % 64 (nibble t) and qh byte e % 32 (field e / 32)
-      const int r = tid / 4;
-      const int part = tid % 4;
-      const int n = n0 + r;
-      const int sb = k0 / kQK;
-      const int h = (k0 % kQK) / 128;
-      const int t = (k0 % 128) / kTileK;
-      uint4 l4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 h4 = make_uint4(0u, 0u, 0u, 0u);
-      float dsc = 0.f;
-      if (n < N) {
-        l4 = *reinterpret_cast<const uint4*>(ql + static_cast<size_t>(n) * (K / 2) + sb * 128 + 64 * h + 16 * part);
-        h4 = *reinterpret_cast<const uint4*>(qh + static_cast<size_t>(n) * (K / 4) + sb * 64 + 32 * h + 16 * (part % 2));
-        dsc = __half2float(d[static_cast<size_t>(n) * nsb + sb]) *
-              static_cast<float>(sc[static_cast<size_t>(n) * (K / 16) + sb * 16 + 8 * h + 4 * t + part]);
-      }
-      const uint32_t lw[4] = {l4.x, l4.y, l4.z, l4.w};
-      const uint32_t hw[4] = {h4.x, h4.y, h4.z, h4.w};
-      const int qh_shift = 4 * t + 2 * (part / 2);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        ws[part * 16 + i][r] = dsc * q6(byte_of(lw, i), 4 * t, byte_of(hw, i), qh_shift);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  __device__ __forceinline__ static void prepare(const uint8_t* raw, float* scale, float*, int n,
+                                                 int K, int k0, int grp) {
+    const __half2 dword = *reinterpret_cast<const __half2*>(raw + 100);
+    const bool odd = (static_cast<size_t>(n) * (K / kQK) + k0 / kQK) & 1;  // d is the word's high half
+    const float d = __half2float(odd ? __high2half(dword) : __low2half(dword));
+    *scale = d * static_cast<float>(static_cast<int8_t>(raw[96 + grp]));
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
+
+  __device__ __forceinline__ static void weights(const uint8_t* raw, int k0, int u, int t,
+                                                 uint32_t (&b)[4]) {
+    const int t64 = (k0 % 128) / 64;
+    const uint32_t l = *reinterpret_cast<const uint32_t*>(raw + 16 * u + 4 * t);
+    const uint32_t h = *reinterpret_cast<const uint32_t*>(raw + 64 + 16 * (u % 2) + 4 * t);
+    bytes_minus(((l >> (4 * t64)) & 0x0F0F0F0Fu) |
+                    (((h >> (4 * t64 + 2 * (u / 2))) & 0x03030303u) << 4),
+                32.f, b);
   }
-}
+};
 
 template <typename TX>
 cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const void* sc,
@@ -514,8 +462,7 @@ cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const voi
     return launch_dq_gemv<Q6KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
                                    N, K, s);
   } else if (M > 8) {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q6_k_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, M, N, K);
+    return launch_dq_tile_tf32<Q6KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
   } else {
     const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
     const dim3 block(kGemvWarps * 32);
@@ -534,6 +481,11 @@ cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const voi
 }
 
 }  // namespace
+
+// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
+extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K) {
+  return dq_tile_tf32_work_bytes<Q6KTf32>(M, N, K);
+}
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
 // port's q6_k layout; y: [M, N] f32; work and tickets: the f32 scratch

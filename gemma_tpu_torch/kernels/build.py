@@ -191,6 +191,9 @@ def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ct
     # launches)
     lib.gt_matmul_work_bytes.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.gt_matmul_work_bytes.restype = ctypes.c_size_t
+    # launches of the TF32 tile (csrc/dq_tile_tf32.cuh) so far in this process
+    lib.gt_dq_tile_tf32_launches.argtypes = []
+    lib.gt_dq_tile_tf32_launches.restype = ctypes.c_ulonglong
     return lib
 
 

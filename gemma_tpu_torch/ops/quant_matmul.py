@@ -13,8 +13,13 @@ shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`, f32 accumulators, x
 copied by `cp.async`, the weight dequantized to bf16 in shared memory), and
 at 1 <= M <= 8 through the GEMV of `csrc/dq_gemv.cuh` (the weight's
 integers against x in bf16 `mma.sync`, scaled per group in f32), the
-batch-1 decode step included. Only f32 x (evaluation mode) runs SIMT:
-every format's GEMV at M <= 8 and plain-FMA tiles above.
+batch-1 decode step included. With f32 x (evaluation mode) q4_k and q6_k
+run above M = 8 on the tensor cores too, through the TF32 tile of
+`csrc/dq_tile_tf32.cuh` (the weight's integers against x split into two
+TF32 parts, scaled per group in f32: 1e-5 of the output's scale), counted
+also in their wrappers' `tf32_launches` as the library reports its launches;
+the rest of f32 x runs SIMT: every format's GEMV at M <= 8 and q4_0's and
+q8_0's plain-FMA tiles above.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -47,6 +52,7 @@ from ..kernels import build
 from ..quant.qtensor import QTensor, dequant, q4_k_group_scales, q4_k_nibbles
 
 DECODE_MAX_M = 8  # largest M served by the GEMV launch shape (f32 weights)
+TF32_FORMATS = ("q4_k", "q6_k")  # f32 x above DECODE_MAX_M: csrc/dq_tile_tf32.cuh
 _FORCE_PLAIN = False
 
 
@@ -142,10 +148,14 @@ def _launch(op, entry: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     work = tickets = None
     if nbytes or nt:
         work, tickets = (t.data_ptr() for t in build.workspace(x.device, stream, nbytes // 4, nt))
+    f32 = x2.dtype == torch.float32  # only f32 x can reach the TF32 tile
+    tf32 = lib.gt_dq_tile_tf32_launches() if f32 else 0
     err = getattr(lib, entry)(x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr(), work,
                               tickets, M, N, K, stream)
     build.check(err, f"{name} M={M} N={N} K={K}")
     op.launches += 1
+    if f32:  # the tile's launches as the library counted them
+        op.tf32_launches += lib.gt_dq_tile_tf32_launches() - tf32
     return y.reshape(*lead, N)
 
 
@@ -204,6 +214,11 @@ q4_0_matmul.launches = 0
 q8_0_matmul.launches = 0
 q4_k_matmul.launches = 0
 q6_k_matmul.launches = 0
+# of those, the launches that went through the TF32 tile (csrc/dq_tile_tf32.cuh)
+q4_0_matmul.tf32_launches = 0
+q8_0_matmul.tf32_launches = 0
+q4_k_matmul.tf32_launches = 0
+q6_k_matmul.tf32_launches = 0
 
 MATMULS = {"q4_0": q4_0_matmul, "q8_0": q8_0_matmul, "q4_k": q4_k_matmul, "q6_k": q6_k_matmul}
 PLAIN = {"q4_0": q4_0_matmul_plain, "q8_0": q8_0_matmul_plain, "q4_k": q4_k_matmul_plain,

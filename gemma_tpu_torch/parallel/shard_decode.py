@@ -376,13 +376,14 @@ class TPEngine:
     @torch.no_grad()
     def step(self, logits: torch.Tensor, gen: torch.Generator | None, cache,
              sampling: SamplingParams = SamplingParams()):
-        """Sample this group's rows (the same generator state on every rank
-        gives every rank of the group the same tokens), gather the token ids
-        over the data axis, decode them. Returns (tokens [B] i32, next
-        logits, cache)."""
+        """Sample this group's rows, gather the token ids over the data
+        axis, decode them. Every rank draws the whole batch's uniforms and
+        keeps its rows' (`sampler.sample`), so the generators stay in step
+        and each row of the batch gets its own noise. Returns (tokens [B]
+        i32, next logits, cache)."""
         B = logits.shape[0]
         rows = self._rows(B)
-        tok = self._gather_rows(sample(logits[rows], sampling, gen), rows, B)
+        tok = self._gather_rows(sample(logits, sampling, gen, rows), rows, B)
         logits, cache = self.decode_step(tok, cache)
         return tok, logits, cache
 

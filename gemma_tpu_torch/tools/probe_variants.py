@@ -1,10 +1,12 @@
 """Patched builds of the kernels, timed side by side on the card: the
-measurements behind the tensor-core GEMV's constants (`csrc/dq_gemv.cuh`)
-and the tile plan (`csrc/dq_tile.cuh`), and ablations that say where a
-kernel's time goes; and the tensor-core attention kernels' launch shapes.
+measurements behind the tensor-core GEMV's constants (`csrc/dq_gemv.cuh`),
+the tile plan (`csrc/dq_tile.cuh`) and the f32 route's TF32 tile
+(`csrc/dq_tile_tf32.cuh`), and ablations that say where a kernel's time
+goes; and the tensor-core attention kernels' launch shapes.
 
     python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8] [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
+    python -m gemma_tpu_torch.tools.probe_variants tf32 [--variants base,tf_cvt,...] [--fmt q4_k,q6_k] [--ms 17,512]
     python -m gemma_tpu_torch.tools.probe_variants attn
     python -m gemma_tpu_torch.tools.probe_variants mutants
 
@@ -31,11 +33,13 @@ A variant is a list of text substitutions in a copy of
 (`kernels/build.py build_library`). For each main-path shape of q4_0
 (Gemma-2B), q8_0 (Gemma-7B), q4_k and q6_k (Gemma-2B q4_k_m, and q6_k's
 deep-K shape), and each M (gemv: the decode step's 1 and the serving
-step's 8; tile: the prefill rows), a line gives the library call (torch.matmul of
-the weight dequantized to bf16 beforehand) and each variant's time, all
+step's 8; tile: the prefill rows; tf32: f32 x at M > 8), a line gives the
+library call (torch.matmul of the weight dequantized to bf16 beforehand;
+tf32: to f32, with f32 x and TF32 off) and each variant's time, all
 device ms with L2 cold (`_timing.py`). Variants named `ab_*` drop a part
 of the kernel and compute wrong results, so they are timed only; every
-other variant is first held to the plain version within 1e-4 x max|ref|.
+other variant is first held to the plain version within 1e-4 x max|ref|
+(tf32: 1e-5).
 `--parent DIR` (a commit unpacked with `git archive`) adds its kernels,
 built from its `csrc/`, as one more variant named `parent`. Runs on the
 card only.
@@ -53,7 +57,7 @@ from ..ops import quant_matmul as qmm
 from ..quant.qtensor import dequant
 from . import _timing as T
 
-GV, TL = "dq_gemv.cuh", "dq_tile.cuh"
+GV, TL, TF = "dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh"
 _PLAN = ("  const DqTilePlan p = dq_tile_plan(M, N, K);\n"
          "  if (p.splits > 1 && work == nullptr) return cudaErrorInvalidValue;\n")
 
@@ -195,6 +199,30 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # the K-quants' scale decode (`prepare`): the table keeps what it held
     "ab_gv_noprep": [_gv("      F::prepare(ring + (st % kS) * F::kStage, table, lane, n0, K, "
                          "klo + st * F::kStageK);", "")],
+    # the TF32 tile (f32 x, mode tf32): hi rounded by the cvt instruction
+    # (which checks for infinities and NaN first), not by two integer ops
+    "tf_cvt": [(TF, "  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;",
+                "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(v));\n  return r;")],
+    # lo rounded to nearest as hi is, not truncated
+    "tf_lorna": [(TF, "  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;",
+                  "  lo = tf32_rna(v - __uint_as_float(hi));")],
+    # a row's four raw quarters over four lanes (the bf16 tile's mapping):
+    # a warp's lanes branch on the quarter
+    "tf_quarters": [(TF, "F::copy(w, rdst + (it % BN) * F::kRaw, n0 + it % BN, N, K, k0, it / BN);",
+                     "F::copy(w, rdst + (it / 4) * F::kRaw, n0 + it / 4, N, K, k0, it % 4);")],
+    # four ring stages (q6_k's rows then take 64-wide tiles at two blocks an SM)
+    "tf_st4": [(TF, "constexpr int kTfStages = 3;", "constexpr int kTfStages = 4;")],
+    # at most 8 K splits of at least 4 steps (the bf16 tile's limits)
+    "tf_sp8": [(TF, "constexpr int kTfMaxSplits = 16;", "constexpr int kTfMaxSplits = 8;"),
+               (TF, "constexpr int kTfMinSplitSteps = 2;", "constexpr int kTfMinSplitSteps = 4;")],
+    # ablations of the TF32 tile: one pass (hi only), no group scaling, no
+    # weight conversion (constant B fragments)
+    "ab_tf_hi": [(TF, "          for (int j = 0; j < TN; ++j) mma_1688_tf32(part[i][j], lo, b[j][2 * s], "
+                      "b[j][2 * s + 1]);\n", "")],
+    "ab_tf_noscale": [(TF, f"acc[i][j][{c}] = fmaf(d.{'xy'[c % 2]}, part[i][j][{c}], acc[i][j][{c}]);",
+                       f"acc[i][j][{c}] += part[i][j][{c}];") for c in range(4)],
+    "ab_tf_noB": [(TF, "for (int j = 0; j < TN; ++j) F::weights(rb + 8 * j * F::kRaw, k0, u, t, b[j]);",
+                   "for (int j = 0; j < TN; ++j) b[j][0] = b[j][1] = b[j][2] = b[j][3] = 0x3F800000u + u;")],
 }
 
 # the main path's shapes (chip_smoke.py MATMUL_SHAPES): q4_0 Gemma-2B, q8_0
@@ -253,6 +281,7 @@ def build_variant(name: str):
 
 def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.device,
         parent: str | None = None) -> None:
+    f32 = mode == "tf32"  # f32 x, the f32 library yardstick, 1e-5
     libs = {name: build_variant(name) for name in names}
     if parent:  # the parent commit's kernels, timed and held like a variant
         libs["parent"] = build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
@@ -264,9 +293,10 @@ def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.
                 continue  # a prefill runs the head at its last row only
             qt = T.random_qtensor(fmt, N, K, gen, dev)
             for M in ms:
-                x = T.bf16_x(M, K, gen, dev)
+                x = (torch.randn(M, K, generator=gen, device=dev) if f32 else
+                     T.bf16_x(M, K, gen, dev))
                 ref = qmm.PLAIN[fmt](x, qt)
-                w16 = dequant(qt, torch.bfloat16)
+                w16 = dequant(qt, torch.float32 if f32 else torch.bfloat16)
                 lib_ms = T.time_us(lambda a, b: torch.matmul(a, b.T),
                                    T.replicate((x, w16), T.copies_for(T.nbytes(x, w16), dev)),
                                    dev) / 1e3
@@ -276,7 +306,7 @@ def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.
                     with build.using(lib):
                         if not name.startswith("ab_"):
                             T.check(f"{fmt} {sname} M={M} variant {name}", qmm.MATMULS[fmt](x, qt),
-                                    ref, 1e-4)
+                                    ref, 1e-5 if f32 else 1e-4)
                         args = T.replicate((x, qt), T.copies_for(T.nbytes(x, qt), dev))
                         readings.append(f"{name} {T.time_us(qmm.MATMULS[fmt], args, dev) / 1e3:.4f}")
                         del args
@@ -469,11 +499,11 @@ def run_mutants(dev: torch.device) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("gemv", "tile", "attn", "mutants"))
+    ap.add_argument("mode", choices=("gemv", "tile", "tf32", "attn", "mutants"))
     ap.add_argument("--variants", default="base,tw4,tw16,st3,st6,w2,w8,sl1024,sk256,nosplit",
                     help="comma-separated names of VARIANTS")
     ap.add_argument("--fmt", default="q4_0,q8_0")
-    ap.add_argument("--ms", default=None, help="rows of x (gemv: 1,8; tile: 17,64,203)")
+    ap.add_argument("--ms", default=None, help="rows of x (gemv: 1,8; tile: 17,64,203; tf32: 17,512)")
     ap.add_argument("--parent", help="the parent commit unpacked here: its kernels timed beside the variants")
     args = ap.parse_args(argv)
     names = args.variants.split(",")
@@ -487,7 +517,9 @@ def main(argv=None) -> None:
         print(T.card_line(dev), flush=True)
         (run_attention if args.mode == "attn" else run_mutants)(dev)
         return
-    ms = [int(m) for m in (args.ms or ("1,8" if args.mode == "gemv" else "17,64,203")).split(",")]
+    ms = [int(m) for m in (args.ms or {"gemv": "1,8", "tile": "17,64,203", "tf32": "17,512"}[args.mode]).split(",")]
+    if args.mode == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick in f32
     print(T.card_line(dev), flush=True)
     run(args.mode, names, args.fmt.split(","), ms, dev, args.parent)
 

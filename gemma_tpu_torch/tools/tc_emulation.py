@@ -527,6 +527,247 @@ def tile_weights(qt: QTensor, rows: int | None = None) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The f32 route's TF32 tile (csrc/dq_tile_tf32.cuh) of q4_k and q6_k
+# ---------------------------------------------------------------------------
+TF_BM, TF_BK, TF_LD, TF_STAGES, TF_WARPS = 64, 64, 80, 3, 8  # kTfBM, kTfBK, kTfLd, kTfStages, kTfThreads / 32
+TF_TWO_BLOCK_SMEM = 113 * 1024  # kTfTwoBlockSmem
+TF_MAX_SPLITS, TF_MIN_SPLIT_STEPS = 16, 2  # kTfMaxSplits, kTfMinSplitSteps
+
+
+def tf32_rna(v) -> np.ndarray:
+    """`tf32_rna` (`cvt.rna.tf32.f32` on finite values): f32 rounded to 10
+    mantissa bits, nearest with ties away from zero (the low 13 bits
+    cleared), as f32."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(v) -> tuple[np.ndarray, np.ndarray]:
+    """`split_tf32`: (hi, lo) = (tf32(v) rounded, v - hi truncated to TF32);
+    v - hi is exact in f32."""
+    hi = tf32_rna(v)
+    lo = (np.asarray(v, np.float32) - hi).view(np.uint32) & np.uint32(0xFFFFE000)
+    return hi, lo.view(np.float32)
+
+
+def mma_1688_tf32(c: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """mma.sync m16n8k8 row.col f32.tf32.tf32.f32 over lanes, every (m16
+    tile, n8 tile) pair at once: a [R, 32, 4], b [J, 32, 2] f32 registers
+    (exact TF32 values), c [R, J, 32, 4] f32, through the PTX layouts: lane
+    (g, t) holds A[g (+8)][t (+4)] (a0 = (g, t), a1 = (g + 8, t), a2 = (g, t
+    + 4), a3 = (g + 8, t + 4)), B[t (+4)][g], C[g (+8)][2t + {0, 1}]. The
+    products are exact; each mma adds its sum of eight to c in one f32
+    rounding."""
+    R, J = a.shape[0], b.shape[0]
+    A = np.zeros((R, 16, 8), np.float64)
+    B = np.zeros((J, 8, 8), np.float64)
+    for reg, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+        A[:, LANE_G + dr, LANE_T + dk] = a[:, :, reg]
+    for reg, dk in enumerate((0, 4)):
+        B[:, LANE_T + dk, LANE_G] = b[:, :, reg]
+    C = np.einsum("rmk,jkn->rjmn", A, B)
+    out = np.empty_like(c)
+    for reg, (dr, dn) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+        out[..., reg] = (c[..., reg] + C[:, :, LANE_G + dr, 2 * LANE_T + dn]).astype(np.float32)
+    return out
+
+
+def tf_x_off(r, c):
+    """Float offset of 16-byte chunk c of row r in an x stage (kTfLd a row)."""
+    return r * TF_LD + 4 * c
+
+
+def _bytes_minus(w: np.ndarray, bias: float) -> np.ndarray:
+    """`bytes_minus`: the four bytes of each word less `bias`, [..., 4] f32."""
+    return np.stack([byte_perm(w, 0x4B000000, 0x7650 + i).view(np.float32)
+                     - np.float32(8388608 + bias) for i in range(4)], axis=-1)
+
+
+class Q4KTf32:
+    """`Q4KTf32` of csrc/q4_k_matmul.cu on `Q4KTile`'s raw step: qs [0, 32),
+    the 12-byte table [32, 44), d, dmin [44, 48)."""
+    raw, group_units, affine = 48, 2, True
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.qs = _np(qt.qs).view(np.uint8).reshape(self.N, self.K // 2)
+        self.tab = _np(qt.scales).view(np.uint8).reshape(self.N, -1, 12)
+        self.dm = _np(qt.dm).view(np.uint8).reshape(self.N, -1, 4)
+
+    def copy(self, rows: int, k0: int) -> np.ndarray:
+        """`Q4KTile::copy` of every row of the step at k0 ([rows, 48]; rows
+        past N zero-filled)."""
+        out = np.zeros((rows, self.raw), np.uint8)
+        n, sb = min(rows, self.N), k0 // 256
+        out[:n, :32] = self.qs[:n, sb * 128 + (k0 % 256) // 2: sb * 128 + (k0 % 256) // 2 + 32]
+        out[:n, 32:44] = self.tab[:n, sb]
+        out[:n, 44:48] = self.dm[:n, sb]
+        return out
+
+    def prepare(self, raw: np.ndarray, n0: int, k0: int) -> tuple[np.ndarray, np.ndarray]:
+        """(d*sc [2, rows], offsets 8 d*sc - dmin*mn [2, rows]) of the step's
+        two 32-groups."""
+        dm = raw[:, 44:48].copy().view(np.float16).astype(np.float32)
+        sc, off = [], []
+        for grp in range(2):
+            s, mn = scale_min_k4(raw[:, 32:44], 2 * ((k0 % 256) // 64) + grp)
+            dsc = (dm[:, 0] * s).astype(np.float32)
+            sc.append(dsc)
+            off.append(_fma(-dm[:, 1], mn, np.float32(8) * dsc))
+        return np.stack(sc), np.stack(off)
+
+    def weights(self, raw: np.ndarray, k0: int, u: int) -> np.ndarray:
+        """Lane t's four weights 16u + 4t .. + 3 of each row: [rows, 4 (t), 4]."""
+        w = raw[:, 16 * (u % 2): 16 * (u % 2) + 16].copy().view(np.uint32)  # [rows, 4]
+        return _bytes_minus((w >> (4 * (u // 2))) & 0x0F0F0F0F, 8)
+
+
+class Q6KTf32:
+    """`Q6KTf32` of csrc/q6_k_matmul.cu on `Q6KTile`'s raw step: ql [0, 64),
+    qh [64, 96), the sc word [96, 100), the d word [100, 104)."""
+    raw, group_units, affine = 112, 1, False
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.ql = _np(qt.ql).view(np.uint8).reshape(self.N, self.K // 2)
+        self.qh = _np(qt.qh).view(np.uint8).reshape(self.N, self.K // 4)
+        self.sc = _np(qt.sc).view(np.uint8).reshape(self.N, self.K // 16)
+        self.d = np.concatenate([_np(qt.d), np.zeros(1, np.float16)])  # a word may end past it
+
+    def copy(self, rows: int, k0: int) -> np.ndarray:
+        out = np.zeros((rows, self.raw), np.uint8)
+        n, sb = min(rows, self.N), k0 // 256
+        h, t = (k0 % 256) // 128, (k0 % 128) // 64
+        out[:n, :64] = self.ql[:n, sb * 128 + 64 * h: sb * 128 + 64 * h + 64]
+        out[:n, 64:96] = self.qh[:n, sb * 64 + 32 * h: sb * 64 + 32 * h + 32]
+        out[:n, 96:100] = self.sc[:n, sb * 16 + 8 * h + 4 * t: sb * 16 + 8 * h + 4 * t + 4]
+        idx = (np.arange(n) * (self.K // 256) + sb) & ~1
+        out[:n, 100:104] = np.stack([self.d[idx], self.d[idx + 1]], 1).view(np.uint8)
+        return out
+
+    def prepare(self, raw: np.ndarray, n0: int, k0: int) -> tuple[np.ndarray, None]:
+        dw = raw[:, 100:104].copy().view(np.float16).astype(np.float32)
+        odd = ((n0 + np.arange(len(raw))) * (self.K // 256) + k0 // 256) & 1
+        d = np.where(odd == 1, dw[:, 1], dw[:, 0])
+        sc = raw[:, 96:100].view(np.int8).astype(np.float32)
+        return (d[None] * sc.T).astype(np.float32), None
+
+    def weights(self, raw: np.ndarray, k0: int, u: int) -> np.ndarray:
+        t64 = (k0 % 128) // 64
+        lw = raw[:, 16 * u: 16 * u + 16].copy().view(np.uint32)
+        hw = raw[:, 64 + 16 * (u % 2): 64 + 16 * (u % 2) + 16].copy().view(np.uint32)
+        q = ((lw >> (4 * t64)) & 0x0F0F0F0F) | (((hw >> (4 * t64 + 2 * (u // 2))) & 0x03030303) << 4)
+        return _bytes_minus(q, 32)
+
+
+TF32_FORMATS = {"q4_k": Q4KTf32, "q6_k": Q6KTf32}
+
+
+def tf32_plan(fmt: str, M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """`dq_tile_tf32_plan`: (BN, K splits) at (M, N, K)."""
+    F = TF32_FORMATS[fmt]
+    smem = (TF_STAGES * TF_BM * TF_LD * 4 + TF_STAGES * 128 * F.raw + 2 * 4 * 128 * 4
+            + (2 * 2 * 128 * 4 + 2 * TF_BM * 2 * 4 if F.affine else 0))
+    bn = 128 if N >= 1024 and smem <= TF_TWO_BLOCK_SMEM else 64
+    steps = -(-K // TF_BK)
+    warps = -(-M // TF_BM) * -(-N // bn) * TF_WARPS
+    splits = 1
+    while (warps * 2 * splits <= 16 * sms and splits < TF_MAX_SPLITS and steps % (2 * splits) == 0
+           and steps // (2 * splits) >= TF_MIN_SPLIT_STEPS):
+        splits *= 2
+    return bn, splits
+
+
+def tile_tf32(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = 2) -> np.ndarray:
+    """`launch_dq_tile_tf32` on f32 x [M, K] (M > 8) and a q4_k or q6_k
+    weight: y f32 [M, N]. Every block of the grid at once, a K-step at a
+    time: the x stage at its padded offsets, the functor's raw bytes,
+    its scale table (and q4_k's offsets and per-32 sums of x), each 16-wide
+    unit's A fragments (16-byte loads of rows g and g + 8, split into hi and
+    lo) and B fragments (the functor's words), the two k8 steps' mma in
+    fragment order (lo, then hi; `passes=1` leaves out lo), each group's
+    fragment scaled into the accumulators, the affine part, then the K
+    splits summed in order."""
+    F = TF32_FORMATS[qt.fmt](qt)
+    M, K = x.shape
+    N = qt.shape[0]
+    assert M > 8 and x.dtype == torch.float32 and K % 256 == 0
+    bn, splits = tf32_plan(qt.fmt, M, N, K, sms)
+    Mp, Np = -(-M // TF_BM) * TF_BM, -(-N // bn) * bn
+    R, J = Mp // 16, Np // 8
+    xp = np.zeros((Mp, K), np.float32)
+    xp[:M] = x.numpy()
+    steps = K // TF_BK // splits
+    r_idx = np.arange(Mp)
+    work = np.zeros((splits, M, N), np.float32)
+    for z in range(splits):
+        acc = np.zeros((R, J, 32, 4), np.float32)
+        for st in range(steps):
+            k0 = (z * steps + st) * TF_BK
+            # the x stage of every row block: [Mp, 64] at tf_x_off
+            xs = np.zeros((Mp // TF_BM, TF_BM * TF_LD), np.float32)
+            rr = r_idx % TF_BM
+            for c in range(TF_BK // 4):
+                off = tf_x_off(rr, c)[:, None] + np.arange(4)
+                xs[(r_idx // TF_BM)[:, None], off] = xp[:, k0 + 4 * c: k0 + 4 * c + 4]
+            raw = F.copy(Np, k0)
+            scale, offs = F.prepare(raw, 0, k0)
+            if F.affine:  # each row's sums over the two 32-groups, the kernel's order
+                xsum = np.zeros((Mp, 2), np.float32)
+                for gq in range(2):
+                    s = []
+                    for q in range(4):
+                        a, b = (xs[(r_idx // TF_BM)[:, None], tf_x_off(rr, 8 * gq + 2 * q + h)[:, None]
+                                   + np.arange(4)] for h in range(2))
+                        s.append(((a[:, 0] + a[:, 1]) + (a[:, 2] + a[:, 3]))
+                                 + ((b[:, 0] + b[:, 1]) + (b[:, 2] + b[:, 3])))
+                    xsum[:, gq] = (s[0] + s[1]) + (s[2] + s[3])
+            part = None
+            for u in range(4):
+                if u % F.group_units == 0:
+                    part = np.zeros_like(acc)
+                # B: lane (g, t) of n8 tile j reads row 8j + g's four weights
+                wv = F.weights(raw, k0, u)  # [Np, 4 (t), 4]
+                bw = wv[(8 * np.arange(J))[:, None] + LANE_G[None], LANE_T[None]]  # [J, 32, 4]
+                # A: lane (g, t) of m16 tile i reads rows 16i + g and + 8 at chunk 4u + t
+                rows = (16 * np.arange(R))[:, None] + LANE_G[None]  # [R, 32]
+                v0, v1 = (xs[(rw // TF_BM)[..., None], tf_x_off(rw % TF_BM, 4 * u + LANE_T)[..., None]
+                             + np.arange(4)] for rw in (rows, rows + 8))  # [R, 32, 4]
+                for s in range(2):
+                    a = np.stack([v0[..., 2 * s], v1[..., 2 * s], v0[..., 2 * s + 1],
+                                  v1[..., 2 * s + 1]], -1)
+                    hi, lo = split_tf32(a)
+                    b = bw[..., 2 * s: 2 * s + 2]
+                    if passes == 2:
+                        part = mma_1688_tf32(part, lo, b)
+                    part = mma_1688_tf32(part, hi, b)
+                if u % F.group_units == F.group_units - 1:
+                    grp = u // F.group_units
+                    col = (8 * np.arange(J))[:, None] + 2 * LANE_T[None]  # [J, 32]
+                    for reg in range(4):
+                        d = scale[grp][col + reg % 2][None]
+                        acc[..., reg] = _fma(d, part[..., reg], acc[..., reg])
+            if F.affine:
+                col = (8 * np.arange(J))[:, None] + 2 * LANE_T[None]
+                for reg in range(4):
+                    row = (16 * np.arange(R))[:, None] + LANE_G[None] + 8 * (reg // 2)  # [R, 32]
+                    o0, o1 = offs[0][col + reg % 2][None], offs[1][col + reg % 2][None]
+                    s0, s1 = xsum[row, 0][:, None], xsum[row, 1][:, None]
+                    acc[..., reg] = _fma(s1, o1, _fma(s0, o0, acc[..., reg]))
+        for reg in range(4):
+            m = (16 * np.arange(R))[:, None] + LANE_G[None] + 8 * (reg // 2)  # [R, 32]
+            n = (8 * np.arange(J))[:, None] + 2 * LANE_T[None] + reg % 2  # [J, 32]
+            mm = np.broadcast_to(m[:, None], acc.shape[:3])
+            nn = np.broadcast_to(n[None], acc.shape[:3])
+            ok = (mm < M) & (nn < N)
+            work[z, mm[ok], nn[ok]] = acc[..., reg][ok]
+    y = work[0].copy()
+    for z in range(1, splits):
+        y += work[z]
+    return y
+
+
 # constants of csrc/flash_attention.cu (kFlashTargetBlocks, FlashTc) and
 # csrc/decode_tc.cuh (kDecWarps, DecodeTc::kPLd)
 FLASH_TARGET_BLOCKS = 99

@@ -19,6 +19,9 @@ H100_SXM = (3350.0, 989e12)
 # its float32 rate outside the tensor cores (data sheet): the bound of the
 # f32 evaluation routes (the plain-FMA tiles and the FMA flash kernel)
 H100_F32_FLOPS = 67e12
+# its dense TF32 tensor-core rate (data sheet): the bound of q4_k's and
+# q6_k's f32 route (csrc/dq_tile_tf32.cuh), at two passes of it
+H100_TF32_FLOPS = 495e12
 # name substring (lower case) -> (HBM GB/s, dense bf16 FLOP/s)
 _PEAKS = [("h100 80gb hbm3", H100_SXM)]
 NOMINAL = (100.0, 1e12)  # the reference's pair for a CPU or an unknown device

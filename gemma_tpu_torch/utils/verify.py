@@ -36,6 +36,9 @@ def launch_counters() -> list[tuple[str, Any, str]]:
     """(name, wrapper, attribute) of every kernel launch counter of the
     main path's ops."""
     return [*((f"{fmt}_matmul", op, "launches") for fmt, op in qmm.MATMULS.items()),
+            # the calls of q4_k and q6_k with f32 x at M > 8 (the TF32 tile)
+            ("q4_k_matmul_tf32", qmm.q4_k_matmul, "tf32_launches"),
+            ("q6_k_matmul_tf32", qmm.q6_k_matmul, "tf32_launches"),
             ("flash_attention", att.flash_attention, "launches"),
             ("decode_attention", att.decode_attention, "launches"),
             ("decode_attention_int8", att.decode_attention, "int8_launches"),

@@ -89,8 +89,8 @@ def test_sources_have_no_jax_sdpa_or_compile():
     files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))
     assert len(files) > 10
     # every header, the tensor-core attention header and the emulation included
-    assert {"attn_tc.cuh", "dq_gemv.cuh", "dq_tile.cuh", "common.cuh", "tc_emulation.py",
-            "probe_variants.py"} <= {f.name for f in files}
+    assert {"attn_tc.cuh", "dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh", "common.cuh",
+            "tc_emulation.py", "probe_variants.py"} <= {f.name for f in files}
     jax_import = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|import_module\(\s*['\"]jax", re.M)
     for f in files:
         text = f.read_text()
@@ -202,7 +202,8 @@ def test_kernel_sources_note_what_they_replace():
     notes = [("q4_0_matmul.cu", "_q4_0_kernel"), ("decode_attention.cu", "_decode_kernel"),
              ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
              ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel"),
-             ("paged_attention.cu", "_paged_kernel"), ("q8_0_matmul.cu", "_q8_0_kernel")]
+             ("paged_attention.cu", "_paged_kernel"), ("q8_0_matmul.cu", "_q8_0_kernel"),
+             ("dq_tile_tf32.cuh", "_q4_k_kernel"), ("dq_tile_tf32.cuh", "_q6_k_kernel")]
     notes += [("qmm_variants.cu", "kernel3"), ("qmm_variants.cu", "_kernel"),
               ("q4_0_matmul.cu", "_kernel"), ("q4_0_matmul.cu", "call"),
               ("q4_k_matmul.cu", "_kernel"), ("q6_k_matmul.cu", "_kernel")]

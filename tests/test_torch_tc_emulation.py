@@ -8,6 +8,14 @@ card holds the kernels to.
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
   split: 1e-5 of the output's scale, also against every format's Pallas
   kernel in interpret mode at M = 1.
+* The f32 route's TF32 tile of q4_k and q6_k (`csrc/dq_tile_tf32.cuh`):
+  x split into two TF32 parts against the exact integer weights, each
+  group scaled in f32, the K splits summed in order: within 1e-5 of the
+  output's scale of the plain f32 version and of the JAX package's f32
+  dispatch, and within 2e-2 of `_q4_k_kernel` / `_q6_k_kernel` in
+  interpret mode, which round x and weights to bf16 at M > 8 (the
+  tolerances of tests/test_torch_quant_matmul.py). One TF32 pass misses
+  1e-5, so the second pass is guarded.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
@@ -33,7 +41,7 @@ import jax.numpy as jnp
 from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.ops.attention import flash_attention as jax_flash
 from gemma_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
-from gemma_tpu.quant.qtensor import quantize_array
+from gemma_tpu.quant.qtensor import dequant_t, quantize_array
 from gemma_tpu_torch.ops.attention import decode_attention_plain, decode_tc_split, flash_attention_plain
 from gemma_tpu_torch.ops.paged_attention import gather_pages
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
@@ -143,6 +151,101 @@ def test_kquant_gemv_emulation_matches_the_jax_kernel(fmt, monkeypatch):
     got = emu.gemv(x, qt)
     assert got.shape == ref.shape == (1, 256)
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+# (fmt, M, N, K): JAX-quantized weights (its K-quant kernels take K % 1024 ==
+# 0); M = 16 one m16 row of a 64-row tile, 17 ragged, 70 two row tiles
+TF32_JAX_CASES = [(fmt, M, N, 1024) for fmt in ("q4_k", "q6_k")
+                  for M, N in ((16, 256), (17, 512), (70, 256))]
+
+
+@pytest.mark.parametrize("fmt,M,N,K", TF32_JAX_CASES)
+def test_tf32_tile_emulation_matches_plain_and_jax(fmt, M, N, K, monkeypatch):
+    """The TF32 tile (f32 x, M > 8) against the plain f32 version and the
+    JAX package's f32 dispatch within 1e-5 of the output's scale, and
+    against `_q4_k_kernel` / `_q6_k_kernel` in interpret mode (bf16 x and
+    weights at M > 8) within 2e-2; K splits in play (the plan's splits
+    at these shapes: 2 to 4)."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    rng = np.random.default_rng(M + N)
+    jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, fmt)
+    qt = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    got = emu.tile_tf32(torch.from_numpy(x), qt)
+    assert got.shape == (M, N) and emu.tf32_plan(fmt, M, N, K)[1] > 1
+    plain = PLAIN[fmt](torch.from_numpy(x), qt).numpy()
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-5 * scale
+    xj = jnp.asarray(x)
+    f32_dispatch = np.asarray(jnp.dot(xj, dequant_t(jqt, jnp.float32)))
+    assert np.abs(got - f32_dispatch).max() <= 1e-5 * scale
+    assert np.abs(got - np.asarray(jax_quant_matmul(xj, jqt))).max() <= 2e-2 * scale
+
+
+# ragged N (past a 64- or 128-wide tile), ragged M, K of an odd count of
+# superblocks (q6_k's d words at both parities, the last one ending the
+# array mid-word), one split and several
+@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
+@pytest.mark.parametrize("M,N,K", [(17, 300, 1280), (70, 1000, 512), (203, 1100, 256)])
+def test_tf32_tile_emulation_ragged(fmt, M, N, K):
+    gen, qt = _case(fmt, N, K, seed=M + N)
+    x = torch.randn(M, K, generator=gen)
+    ref = PLAIN[fmt](x, qt).numpy()
+    got = emu.tile_tf32(x, qt)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_tf32_single_pass_misses_1e5():
+    """Without the lo pass (x rounded once to TF32) the tile misses 1e-5 of
+    the output's scale: the second pass is what holds it."""
+    gen, qt = _case("q4_k", 256, 1024, seed=3)
+    x = torch.randn(70, 1024, generator=gen)
+    ref = PLAIN["q4_k"](x, qt).numpy()
+    scale = np.abs(ref).max()
+    one = np.abs(emu.tile_tf32(x, qt, passes=1) - ref).max()
+    two = np.abs(emu.tile_tf32(x, qt) - ref).max()
+    assert one > 1e-5 * scale and two <= 1e-5 * scale
+
+
+def test_tf32_rounding_and_split():
+    """`tf32_rna` (`cvt.rna.tf32.f32` on finite values): nearest, ties away
+    from zero, 10 mantissa bits; hi + lo (lo truncated) is x within 2^-21 of
+    |x|, hi and lo exact in TF32; the bytes less the bias are exact
+    integers."""
+    one = np.float32(1)
+    ulp = np.float32(2.0 ** -10)
+    v = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + 3 * ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4],
+                 np.float32)
+    assert np.array_equal(emu.tf32_rna(v), np.array(
+        [1 + ulp, -(1 + ulp), 1 + 2 * ulp, one, 1 + ulp], np.float32))
+    x = np.random.default_rng(0).normal(size=4096).astype(np.float32) * 3
+    hi, lo = emu.split_tf32(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    assert np.all(np.abs(x.astype(np.float64) - hi - lo) <= 2.0 ** -21 * np.abs(x))
+    b = np.arange(256, dtype=np.uint32)
+    vals = emu._bytes_minus(b | (b << 8) | (b << 16) | (b << 24), 32)
+    assert np.array_equal(vals, np.repeat((b.astype(np.float32) - 32)[:, None], 4, 1))
+
+
+@pytest.mark.parametrize("M", [17, 64, 203, 512])
+@pytest.mark.parametrize("fmt,N,K", [("q4_k", 2048, 2048), ("q4_k", 256, 2048),
+                                     ("q4_k", 32768, 2048), ("q4_k", 2048, 16384),
+                                     ("q6_k", 256, 2048), ("q6_k", 256000, 2048)])
+def test_tf32_plan_at_the_q4_k_m_shapes(fmt, M, N, K):
+    """The plan at Gemma-2B q4_k_m's shapes: wide rows on 128-wide tiles
+    (two blocks an SM), narrow ones on 64; K split in whole steps, at
+    least 2 a split and at most 16 splits, only where the split grid stays
+    within 16 warps an SM (attn_k and attn_v always, attn_q, attn_out and
+    down at every M here, gate_up and head never)."""
+    bn, splits = emu.tf32_plan(fmt, M, N, K)
+    assert bn == (128 if N >= 1024 else 64)
+    steps = K // emu.TF_BK
+    assert steps % splits == 0 and steps // splits >= 2 and splits <= 16
+    warps = -(-M // 64) * -(-N // bn) * emu.TF_WARPS
+    assert splits == 1 or warps * splits <= 16 * emu.H100_SMS
+    assert (splits > 1) == (N <= 2048)
+    if splits < 16:  # a doubling would overfill the card
+        assert warps * splits * 2 > 16 * emu.H100_SMS
 
 
 ATT_TOL = 2e-2  # of max|ref|: p rounded against a local max, bf16 outputs

@@ -238,10 +238,12 @@ def test_probe_variants_patches_apply_to_the_sources():
 
     for name in pv.VARIANTS:
         changed = pv.patched_sources(name)
-        assert set(changed) <= {"dq_gemv.cuh", "dq_tile.cuh"}, name
+        assert set(changed) <= {"dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh"}, name
         assert bool(changed) == (name != "base"), name
     with pytest.raises(SystemExit, match="no CUDA device"):
         pv.main(["gemv", "--variants", "base"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        pv.main(["tf32", "--variants", "base,tf_cvt", "--fmt", "q4_k,q6_k"])
     with pytest.raises(SystemExit, match="unknown variants"):
         pv.main(["tile", "--variants", "nope"])
 

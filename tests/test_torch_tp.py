@@ -75,7 +75,8 @@ import torch.distributed as dist
 from gemma_tpu_torch.parallel import multihost
 from gemma_tpu_torch.parallel.sharding import make_mesh
 from gemma_tpu_torch.parallel.shard_decode import TPEngine
-from gemma_tpu_torch.runtime import Request, SamplingParams, Scheduler, serve
+from gemma_tpu_torch.runtime import (Engine, EngineConfig, Request, SamplingParams,
+                                     Scheduler, serve)
 
 torch.set_num_threads(1)
 spec = json.loads(sys.argv[1])
@@ -99,6 +100,16 @@ def rows_of(eng, logits):
 def reqs(table):
     return [Request(i, p, n) for i, p, n in table]
 
+def sampled4(eng):
+    logits, cache = eng.prefill([[1, 7, 300]] * 4)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return eng.block(logits, gen, cache, 16, SamplingParams(temperature=1.0))[0].tolist()
+
+if spec["world"] == 4:  # the single-device Engine's stream of the same draws
+    out["engine_sampled4"] = sampled4(Engine(cfg, model, EngineConfig(
+        max_seq_len=32, max_batch=4, kv_dtype=torch.float32)))
+
 for nd, nm in map(tuple, spec["meshes"]):
     m = mesh(nd, nm)
     res = out[f"{nd}x{nm}"] = {"model_group": dist.get_process_group_ranks(m.model.group),
@@ -119,6 +130,8 @@ for nd, nm in map(tuple, spec["meshes"]):
         m.reset_stats()
         eng.step(step1, None, cache)
         res[arm + "_sample_stats"] = m.collective_stats()
+    if spec["world"] == 4:  # four identical prompts, temperature 1.0, 16 tokens
+        res["sampled4"] = sampled4(engine(m, max_batch=4, kv_dtype=torch.float32))
     if nd > 1:
         try:
             engine(m, max_batch=2, paged=True)
@@ -272,7 +285,8 @@ def runs(model_file):
             for key, val in o.items():
                 if "x" in key and key[0].isdigit():
                     ranks.setdefault(tuple(map(int, key.split("x"))), []).append(val)
-    return {"ref": ref, "port": ranks, "multihost": [o["multihost"] for o in port[4]]}
+    return {"ref": ref, "port": ranks, "multihost": [o["multihost"] for o in port[4]],
+            "engine_sampled4": [o["engine_sampled4"] for o in port[4]]}
 
 
 def _same_on_every_rank(results, key):
@@ -340,6 +354,21 @@ def test_tp_engine_sampling_step(runs):
     toks = np.asarray(_same_on_every_rank(runs["port"][(1, 2)], "sampled"))
     assert toks.shape == (1, 3)
     assert ((toks >= 0) & (toks < TINY_CONFIG.vocab_size)).all()
+
+
+def test_tp_engine_samples_each_row_over_the_data_axis(runs):
+    """Four identical prompts at temperature 1.0 over 16 tokens, one
+    generator seed on every rank: on the (2, 2) mesh rows 0 and 2 (one in
+    each data group) sample different streams and every rank agrees on
+    every token; at data axis 1 the (1, 4) mesh's stream is the
+    single-device Engine's, draw for draw."""
+    got = np.asarray(_same_on_every_rank(runs["port"][(2, 2)], "sampled4"))
+    assert got.shape == (4, 16)
+    assert ((got >= 0) & (got < TINY_CONFIG.vocab_size)).all()
+    assert not np.array_equal(got[0], got[2]) and not np.array_equal(got[1], got[3])
+    engine = runs["engine_sampled4"][0]
+    assert all(e == engine for e in runs["engine_sampled4"])
+    assert _same_on_every_rank(runs["port"][(1, 4)], "sampled4") == engine
 
 
 def test_spec_scheduler_drives_tp_engine(runs):
