@@ -18,10 +18,11 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    4096, both arms; paged decode equal bit for bit to decode on the
    gathered rows), and flash at the speculative verify's shapes (T = 8
    and T = 2 query rows from each sequence's length, batch 1 and the 8
-   serving rows; q4_0 also at the verify's M = 2 and 16), and q4_k's and
-   q6_k's f32 route at M > 8, the TF32 tile (csrc/dq_tile_tf32.cuh), at
-   every q4_k_m row at M = 17, 64, 203 and 512 and at ragged N and K,
-   within 1e-5 of the output's scale, with the route
+   serving rows; q4_0 also at the verify's M = 2 and 16), and q8_0's,
+   q4_k's and q6_k's f32 route at M > 8, the TF32 tile
+   (csrc/dq_tile_tf32.cuh), at every Gemma-7B q8_0 row and every q4_k_m
+   row at M = 17, 64, 203 and 512 and at ragged N and K (q8_0 at K % 64 ==
+   32 too), within 1e-5 of the output's scale, with the route
    each took (bf16: the tensor-core kernels), max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
@@ -72,14 +73,17 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    its plain version at the tools' Gemma-2B shapes with exact launch
    counts, each kernel's L2-cold time, bound, plain and library time, then
    each `python -m gemma_tpu_torch.tools.<name>` in a subprocess;
-8. the quality gates: q4_0's and q8_0's f32 evaluation route (the
-   plain-FMA tiles, the head included; q4_k's and q6_k's TF32 tile is
-   phase 3's) and the FMA flash kernel at the perplexity
-   window's M = T = 512 against their plain versions, timed with bound and
+8. the quality gates: q4_0's f32 evaluation route (the plain-FMA tile,
+   the head included; q8_0's, q4_k's and q6_k's TF32 tile is phase 3's)
+   and the TF32 flash kernel at the perplexity window's M = T = 512
+   against their plain versions, timed with bound and library call, the
+   TF32 flash also at ragged T, a window, a softcap, kv_limit < T (rows
+   without keys) and D = 128; every format's f32 SIMT GEMV at M = 1 and 8
+   on its recipe's gate_up, down and head rows, timed with bound and
    library call; `perplexity.evaluate` at full width (Gemma-2B q4_0 and
    q4_k_m, Gemma-7B q8_0) over two 512-token windows of seeded token ids,
-   each window's launch counts exact (q4_k_m's matmuls all on the TF32
-   tile) and its wall time printed, its NLL
+   each window's launch counts exact (its flash launches and q8_0's and
+   q4_k_m's matmuls on the TF32 kernels) and its wall time printed, its NLL
    within 1e-4 of the same through the plain versions on the card;
    `verify_device_kernels` at full Gemma-2B q4_0 and Gemma-7B q8_0 width
    over the dense bf16, dense int8 and paged (64-token pages) caches: ok,
@@ -180,11 +184,16 @@ KERNELS = {
                         "gemma_tpu/ops/paged_attention.py:47 _paged_kernel"),
     "paged_attention_int8": ("gemma_tpu_torch/csrc/paged_attention.cu",
                              "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages)"),
-    # the f32 evaluation route of q4_k and q6_k at M > 8: the TF32 tile
+    # the f32 evaluation routes on the tensor cores: q8_0, q4_k and q6_k at
+    # M > 8 (the TF32 tile) and flash attention with f32 queries
+    "q8_0_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
+                         "gemma_tpu/ops/quant_matmul.py:103 _q8_0_kernel (f32 x, M > 8)"),
     "q4_k_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
                          "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel (f32 x, M > 8)"),
     "q6_k_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
                          "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
+    "flash_attention_tf32": ("gemma_tpu_torch/csrc/flash_attention.cu",
+                             "gemma_tpu/ops/attention.py:94 _flash_kernel (f32 queries)"),
 }
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
@@ -217,13 +226,16 @@ MATMUL_SHAPES = {
     "q6_k": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048))], "head"),
 }
-# q4_k's and q6_k's f32 route (the TF32 tile): phase 3 holds it at the
-# q4_k_m rows of MATMUL_SHAPES (not deep_k: on no GGUF path) at the tiles'
-# M and the perplexity window's, and at ragged edges (N past a tile, K of an
-# odd count of superblocks), to 1e-5 of the output's scale
+# q8_0's, q4_k's and q6_k's f32 route (the TF32 tile): phase 3 holds it at
+# the Gemma-7B q8_0 and q4_k_m rows of MATMUL_SHAPES (not deep_k: on no GGUF
+# path) at the tiles' M and the perplexity window's, and at ragged edges (N
+# past a tile, K of an odd count of superblocks; q8_0: K % 64 == 32, the
+# tile's half step past K, with an odd count of scales, and a split K), to
+# 1e-5 of the output's scale
 TF32_MS = (*TILE_MS, 512)
 TF32_EDGES = (("q4_k", "edge", 1000, 1280), ("q4_k", "edge", 1100, 256),
-              ("q6_k", "edge", 999, 1280))
+              ("q6_k", "edge", 999, 1280), ("q8_0", "edge", 1000, 1056),
+              ("q8_0", "edge", 999, 1056), ("q8_0", "edge", 130, 4064))
 TF32_PASSES = 2  # the tile's TF32 products a k8 step (x's hi and lo): not in the bound
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
 SERVE_REQUESTS = 24
@@ -398,9 +410,10 @@ def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
 
 
 def check_tf32_routes(torch, dev) -> dict[str, dict]:
-    """Phase 3, q4_k's and q6_k's f32 route at M > 8 (`dq_tile_tf32_kernel`,
-    csrc/dq_tile_tf32.cuh): each q4_k_m row of MATMUL_SHAPES at TF32_MS and
-    the ragged TF32_EDGES against the plain version (f32 x @ the weight
+    """Phase 3, q8_0's, q4_k's and q6_k's f32 route at M > 8
+    (`dq_tile_tf32_kernel`, csrc/dq_tile_tf32.cuh): each Gemma-7B q8_0 and
+    q4_k_m row of MATMUL_SHAPES at TF32_MS and the ragged TF32_EDGES
+    against the plain version (f32 x @ the weight
     dequantized to f32), held to 1e-5 of the output's scale. The main rows
     are timed with L2 cold, with the library call (torch.matmul of f32 x
     with the weight dequantized to f32 beforehand, TF32 off) and the bound:
@@ -2084,10 +2097,14 @@ QUANTIZE_SHA256 = {
 
 def tf32_prefill_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
                           head: bool) -> None:
-    """Set the TF32 tile's share of `counts`: every q4_k and q6_k launch of
-    `prefills` f32 prefill forwards of more than 8 rows (q4_k_m), the head
+    """Set the TF32 kernels' share of `counts` in `prefills` f32 prefill
+    forwards of more than 8 rows: every flash launch (the TF32 flash
+    kernel), and every q8_0, q4_k and q6_k launch (the TF32 tile), the head
     too where it runs at every row (perplexity; a prefill runs it at the
-    last row, M = 1)."""
+    last row, M = 1); q4_0's f32 tile is off the tensor cores."""
+    counts["flash_attention_tf32"] = cfg.n_layers * prefills
+    if fmt == "q8_0":
+        counts["q8_0_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
     if fmt == "q4_k_m":
         counts["q4_k_matmul_tf32"] = 5 * cfg.n_layers * prefills
         counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
@@ -2095,9 +2112,9 @@ def tf32_prefill_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
 
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
     """Kernel launches of one perplexity window: a prefill forward whose
-    f32 queries take the FMA flash kernel (no tensor-core launch) and whose
-    head runs at every row (one launch all the same); q4_k_m's matmuls all
-    on the TF32 tile."""
+    f32 queries take the TF32 flash kernel (no bf16 tensor-core launch) and
+    whose head runs at every row (one launch all the same); q8_0's and
+    q4_k_m's matmuls all on the TF32 tile."""
     counts = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=0,
                                        decode_kernel="decode_attention")
     counts["flash_attention_tc"] = 0
@@ -2181,8 +2198,9 @@ def quality_verify(torch, dev, model_name: str, fmt: str, rel: float | None) -> 
                                     **opts)
         expected = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=VERIFY_STEPS,
                                              decode_kernel=decode_kernel)
-        if act == "float32":  # f32 queries take the FMA flash and split-S decode kernels
+        if act == "float32":  # f32: the TF32 flash and tile, the split-S decode kernel
             expected["flash_attention_tc"] = expected["decode_attention_tc"] = 0
+            tf32_prefill_launches(expected, cfg, fmt, 1, head=False)
         held = ("the reference's 0.05" if atol == 0.05 else
                 f"{rel:g} of the logits' scale {scale:.3f} (the reference's 0.05 "
                 f"{'holds' if res['max_abs'] <= 0.05 else 'does not hold'} here)")
@@ -2202,23 +2220,64 @@ def quality_verify(torch, dev, model_name: str, fmt: str, rel: float | None) -> 
     return total
 
 
+# phase 8's f32 flash edge cases, the TF32 kernel at 1e-4 of each row's
+# scale (name, B, T, Hq, Hkv, D, S, first position, limits, softcap,
+# window, the row warps of the kernel's plan): ragged T, a softcap, a
+# window, kv_limit below the rows' positions (rows without a valid key:
+# exactly 0), D = 128. With the two windows at T = S = PPL_WINDOW (D = 256:
+# 2 row warps at Gemma-2B's heads, 4 at Gemma-7B's) they run every block
+# plan the kernel has, FLASH_PLANS
+EVAL_FLASH_EDGES = (
+    ("Gemma-2B heads, ragged T, softcap, window", 1, PROMPT_LEN, 8, 1, 256, MAX_SEQ_LEN, 0,
+     [PROMPT_LEN], 50.0, 64, 1),
+    ("Gemma-7B heads, kv_limit < T", 1, 100, 16, 16, 256, MAX_SEQ_LEN, 0, [60], 0.0, 0, 1),
+    ("GQA D=128, window, rows without keys", 2, 45, 8, 2, 128, 200, 20, [40, 120], 30.0, 16, 1),
+    ("MQA D=128, 2048 rows from position 100", 1, 256, 8, 1, 128, 400, 100, [356], 0.0, 0, 1),
+    ("MQA D=128, 3200 rows, softcap", 1, 400, 8, 1, 128, MAX_SEQ_LEN, 0, [400], 30.0, 0, 2),
+    ("GQA D=128, 4 groups of 1600 rows, window, kv_limit < T", 2, 400, 8, 2, 128, MAX_SEQ_LEN, 0,
+     [400, 300], 0.0, 128, 4),
+)
+FLASH_PLANS = {(D, r) for D in (256, 128) for r in (1, 2, 4)}  # (D, row warps) of flash_tc_shape
+# phase 8's f32 SIMT GEMVs (f32 x at M <= 8: the decode and serving steps of
+# f32 serving and --verify's f32 cache): each format's gate_up, down and
+# head rows of its recipe (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k
+# Gemma-2B q4_k_m: q6_k is its head), at the decode step's M = 1 and the
+# serving step's 8
+GEMV_F32_ROWS = {"q4_0": ("gate_up", "down", "head"), "q8_0": ("gate_up", "down", "head"),
+                 "q4_k": ("gate_up", "down"), "q6_k": ("head",)}
+GEMV_F32_MS = (1, SERVE_SLOTS)
+FLASH_TF32_PASSES = 3  # the TF32 flash kernel's products a k8 step (3xTF32): not in the bound
+
+
 def check_eval_routes(torch, dev) -> dict[str, dict]:
     """Phase 8: the kernels' f32 evaluation routes at the perplexity
-    window's shapes (M = T = PPL_WINDOW): q4_0's and q8_0's plain-FMA tile
-    at each of its full-width matrices (the head too: perplexity scores
-    every row; q4_k's and q6_k's TF32 tile is phase 3's), and the FMA flash
-    kernel at Gemma-2B's and Gemma-7B's heads, each
-    against its plain version (f32 both: 1e-4 of the output's scale, of
-    each row's for attention), with device times (matmuls L2 cold), the
-    bound at the f32 FMA rate (67 TFLOP/s) or HBM bytes, and the library
-    call (torch.matmul of f32 x with the weight dequantized to f32
-    beforehand; scaled_dot_product_attention in f32). Returns readings."""
+    window's shapes (M = T = PPL_WINDOW): q4_0's plain-FMA tile at each of
+    its full-width matrices (the head too: perplexity scores every row;
+    q8_0's, q4_k's and q6_k's TF32 tile is phase 3's), and the TF32 flash
+    kernel at Gemma-2B's and Gemma-7B's heads, each against its plain
+    version (f32 both: 1e-4 of the output's scale, of each row's for
+    attention), with device times (matmuls L2 cold), the bound (HBM bytes,
+    or the function's flops at the TF32 rate, 495 TFLOP/s: f32 x against
+    exact integer weights runs there at two passes, as the TF32 tile shows,
+    so the FMA tile's figure at the f32 FMA rate, 67 TFLOP/s, is in its
+    info line, and the TF32 flash kernel's three passes in its) and the
+    library call (torch.matmul
+    of f32 x with the weight dequantized to f32 beforehand, TF32 off;
+    scaled_dot_product_attention in f32); the TF32 flash kernel also at
+    EVAL_FLASH_EDGES, each launch counted in `tf32_launches`; then every
+    format's f32 SIMT GEMV at GEMV_F32_ROWS and GEMV_F32_MS against its
+    plain version (1e-4 of scale), L2 cold, with the bound (wire bytes over
+    HBM bandwidth against the flops at the TF32 rate) and the library
+    call. Returns readings: the FMA tile's and the GEMVs' under their
+    kernels' names, the TF32 flash kernel's as `flash_attention_tf32`."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.quant.qtensor import dequant
     from gemma_tpu_torch.tools import _timing as T
-    from gemma_tpu_torch.utils.device import H100_F32_FLOPS
+    from gemma_tpu_torch.tools import tc_emulation as emu
+    from gemma_tpu_torch.utils.device import H100_F32_FLOPS, H100_TF32_FLOPS
 
+    require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in f32")
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     M = PPL_WINDOW
@@ -2246,12 +2305,14 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
             plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
             library_ms = cold(lambda x_, w_: torch.matmul(x_, w_.T), (x, w32))
             wire = T.nbytes(qt)
-            bound_ms, bound_by = bound(wire + M * K * 4 + M * N * 4, 2 * M * N * K, H100_F32_FLOPS)
+            bound_ms, bound_by = bound(wire + M * K * 4 + M * N * 4, 2 * M * N * K, H100_TF32_FLOPS)
+            fma_ms = 2 * M * N * K / H100_F32_FLOPS * 1e3
             info("quality", f"{fmt}_matmul f32 route {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
                             f"tol={tol:.3e}; device ms, L2 cold: kernel {ms:.4f} "
                             f"({2 * M * N * K / ms / 1e9:.3f} TFLOP/s) library (f32 matmul, weight "
                             f"dequantized beforehand) {library_ms:.4f}; plain {plain_ms:.4f}; bound "
-                            f"{bound_ms:.4f} ({bound_by}, f32 FMA rate)")
+                            f"{bound_ms:.4f} ({bound_by}, TF32 rate); the flops at the f32 FMA "
+                            f"rate {fma_ms:.4f}")
             require(err <= tol, f"{fmt}_matmul f32 {name} M={M}: max|diff| {err} > tol {tol}")
             if name == EVAL_REP[fmt]:
                 readings[f"{fmt}_matmul"] = {
@@ -2260,37 +2321,115 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
                     "shape": f"f32 {name} M={M} N={N} K={K}"}
             del qt, w32, x
             torch.cuda.empty_cache()
+    flash = {"max_abs_err": 0.0}
+    plans = set()  # (D, row warps) run
     for heads, hq, hkv in (("Gemma-2B", 8, 1), ("Gemma-7B", 16, 16)):
         S, D = M, 256
         q = torch.randn(1, M, hq, D, generator=gen, device=dev) * 0.3
         k, v = (torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
         pos = torch.arange(M, dtype=torch.int32, device=dev)[None]
         lim = torch.tensor([M], dtype=torch.int32, device=dev)
+        before = att.flash_attention.tf32_launches
         got = att.flash_attention(q, k, v, pos, lim)
         ref = att.flash_attention_plain(q, k, v, pos, lim)
         torch.cuda.synchronize()
+        require(att.flash_attention.tf32_launches == before + 1,
+                f"flash_attention f32 {heads}: no TF32 kernel launched")
         err, ratio, lo, hi = T.attn_err(got, ref, 1e-4)
         ms = device_ms(torch, lambda: att.flash_attention(q, k, v, pos, lim), reps=3)
         plain_ms = device_ms(torch, lambda: att.flash_attention_plain(q, k, v, pos, lim),
                              launches=1, reps=3)
         valid = torch.arange(S, device=dev)[None, :] <= pos[0][:, None]
         library_ms = sdpa_ms(torch, q, k, v, valid[None])
+        plans.add((D, emu.flash_shape(1, hkv, M, hq // hkv)[0]))
         seen = M * (M + 1) // 2
-        bound_ms, bound_by = bound(2 * M * hq * D * 4 + 2 * S * hkv * D * 4 + M * 4,
-                                   4 * hq * D * seen, H100_F32_FLOPS)
+        flops = 4 * hq * D * seen
+        bound_ms, bound_by = bound(2 * M * hq * D * 4 + 2 * S * hkv * D * 4 + M * 4, flops,
+                                   H100_TF32_FLOPS)
+        passes_ms = FLASH_TF32_PASSES * flops / H100_TF32_FLOPS * 1e3
         info("quality", f"flash_attention f32 route T={M} S={S} {heads} heads (Hq={hq} Hkv={hkv} "
-                        f"D={D}, FMA kernel): max|diff|={err:.3e}, worst |diff| / (1e-4 x row "
+                        f"D={D}, TF32 kernel, {emu.flash_shape(1, hkv, M, hq // hkv)[0]} row "
+                        f"warps): max|diff|={err:.3e}, worst |diff| / (1e-4 x row "
                         f"scale) {ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms: kernel "
-                        f"{ms:.4f} ({4 * hq * D * seen / ms / 1e9:.3f} TFLOP/s) library "
-                        f"(scaled_dot_product_attention, f32, boolean mask) {library_ms:.4f}; "
-                        f"plain {plain_ms:.4f}; bound {bound_ms:.6f} ({bound_by}, f32 FMA rate)")
+                        f"{ms:.4f} ({flops / ms / 1e9:.3f} TFLOP/s) library "
+                        f"(scaled_dot_product_attention, f32, boolean mask) {library_ms:.4f} "
+                        f"(kernel / library {ms / library_ms:.3f}); plain {plain_ms:.4f}; bound "
+                        f"{bound_ms:.6f} ({bound_by}, HBM bytes or the flops at the TF32 rate); "
+                        f"at {FLASH_TF32_PASSES} TF32 passes {passes_ms:.6f}")
         require(ratio <= 1.0, f"flash_attention f32 {heads}: |diff| {ratio:.3f} x 1e-4 of its row's "
                               f"scale")
+        flash["max_abs_err"] = max(flash["max_abs_err"], err)
         if heads == "Gemma-2B":
-            readings["flash_attention"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
-                "shape": f"f32 T={M} S={S} Hq={hq} Hkv={hkv} D={D}"}
+            flash.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms, "shape": f"f32 T={M} S={S} Hq={hq} Hkv={hkv} D={D}"})
+        else:
+            flash["gemma_7b"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "library_ms": library_ms,
+                                 "shape": f"f32 T={M} S={S} Hq={hq} Hkv={hkv} D={D}"}
+        del q, k, v, got, ref
+    worst = 0.0
+    for name, B, T_, hq, hkv, D, S, p0, limits, cap, window, row_warps in EVAL_FLASH_EDGES:
+        require(emu.flash_shape(B, hkv, T_, hq // hkv)[0] == row_warps,
+                f"flash_attention f32 edge {name}: the plan is not {row_warps} row warps")
+        plans.add((D, row_warps))
+        q = torch.randn(B, T_, hq, D, generator=gen, device=dev) * 0.3
+        k, v = (torch.randn(B, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
+        pos = (torch.arange(T_, dtype=torch.int32, device=dev) + p0).expand(B, T_).contiguous()
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        before = att.flash_attention.tf32_launches
+        got = att.flash_attention(q, k, v, pos, lim, cap, window)
+        ref = att.flash_attention_plain(q, k, v, pos, lim, cap, window)
+        torch.cuda.synchronize()
+        err, ratio, lo, _ = T.attn_err(got, ref, 1e-4)
+        require(att.flash_attention.tf32_launches == before + 1 and ratio <= 1.0,
+                f"flash_attention f32 {name}: |diff| {ratio:.3f} x 1e-4 of its row's scale "
+                f"(TF32 launches {att.flash_attention.tf32_launches - before})")
+        worst = max(worst, ratio)
+        flash["max_abs_err"] = max(flash["max_abs_err"], err)
+        info("quality", f"flash_attention f32 edge {name} (B={B} T={T_} Hq={hq} Hkv={hkv} D={D} "
+                        f"S={S} limits={limits} softcap={cap} window={window}, {row_warps} row "
+                        f"warps): max|diff|={err:.3e}, "
+                        f"worst |diff| / (1e-4 x row scale) {ratio:.3f}, least row scale {lo:.3e} "
+                        f"(0: rows without a key, held to exactly 0)")
+        del q, k, v, got, ref
+    info("quality", f"TF32 flash edge cases within 1e-4 of each row's scale (worst ratio {worst:.3f})")
+    require(plans == FLASH_PLANS, f"TF32 flash: block plans {sorted(FLASH_PLANS - plans)} never ran")
+    readings["flash_attention_tf32"] = flash
+    for fmt, names in GEMV_F32_ROWS.items():
+        shapes = {name: (N, K) for name, N, K, _ in MATMUL_SHAPES[fmt][0]}
+        rows = []
+        for name in names:
+            N, K = shapes[name]
+            qt = T.random_qtensor(fmt, N, K, gen, dev)
+            w32 = dequant(qt, torch.float32)
+            wire = T.nbytes(qt)
+            for Mg in GEMV_F32_MS:
+                x = torch.randn(Mg, K, generator=gen, device=dev)
+                got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                tol = 1e-4 * ref.abs().max().item() + 1e-6
+                require(err <= tol, f"{fmt}_matmul f32 GEMV {name} M={Mg}: max|diff| {err} > tol {tol}")
+                ms = cold(qmm.MATMULS[fmt], (x, qt))
+                library_ms = cold(lambda x_, w_: torch.matmul(x_, w_.T), (x, w32))
+                plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
+                bound_ms, bound_by = bound(wire + Mg * K * 4 + Mg * N * 4, 2 * Mg * N * K,
+                                           H100_TF32_FLOPS)
+                fma_ms = 2 * Mg * N * K / H100_F32_FLOPS * 1e3
+                info("quality", f"{fmt}_matmul f32 GEMV {name} M={Mg} N={N} K={K}: max|diff|={err:.3e} "
+                                f"tol={tol:.3e}; device ms, L2 cold: kernel {ms:.4f} "
+                                f"({wire / ms / 1e9:.3f} TB/s at wire bytes) library (f32 matmul, "
+                                f"weight dequantized beforehand) {library_ms:.4f} (kernel / library "
+                                f"{ms / library_ms:.3f}); plain {plain_ms:.4f}; bound {bound_ms:.4f} "
+                                f"({bound_by}: wire bytes at HBM rate, or the flops at the TF32 "
+                                f"rate); the flops at the f32 FMA rate {fma_ms:.4f}")
+                rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": library_ms,
+                             "shape": f"f32 {name} M={Mg} N={N} K={K}"})
+                del x, got, ref
+            del qt, w32
+            torch.cuda.empty_cache()
+        readings.setdefault(f"{fmt}_matmul", {})["gemv_f32"] = rows
     return readings
 
 
@@ -2938,9 +3077,10 @@ def rel_diff(a, b) -> float:
 
 
 def expected_tp_launches(cfg, fmt: str, prefills: int, steps: int, kernel: str, f32: bool) -> dict:
-    """`expected_forward_launches`; f32 activations take no tensor-core
-    attention route, and q4_k_m's prefill matmuls (prompts of more than 8
-    tokens) the TF32 tile."""
+    """`expected_forward_launches`; f32 activations take no bf16
+    tensor-core attention route, the TF32 flash kernel, and q8_0's and
+    q4_k_m's prefill matmuls (prompts of more than 8 tokens) the TF32
+    tile."""
     counts = expected_forward_launches(cfg, fmt, prefills, steps, kernel)
     if f32:
         for name in ("flash_attention_tc", "decode_attention_tc", "paged_attention_tc"):
@@ -3307,8 +3447,12 @@ def run() -> dict:
     done("decode-GEMV instruments (phase 7)")
     quality_counts, eval_readings = quality_gates(torch, dev, card)
     add_counts(counts, quality_counts)
-    for name, reading in eval_readings.items():  # the f32 evaluation routes
-        results[name]["eval_f32"] = reading
+    results["flash_attention_tf32"] = eval_readings.pop("flash_attention_tf32")
+    for name, reading in eval_readings.items():  # the other f32 evaluation routes
+        gemvs = reading.pop("gemv_f32")
+        if reading:  # q4_0's FMA tile
+            results[name]["eval_f32"] = reading
+        results[name]["gemv_f32"] = gemvs
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
     done("serving across two processes (phase 9)")

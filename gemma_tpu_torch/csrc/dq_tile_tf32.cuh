@@ -3,22 +3,23 @@
 // (perplexity, the f32 caches of --verify, f32 serving), held to 1e-5 of the
 // output's scale against the f32 dot.
 //
-// Replaces on that route the Pallas kernels `_q4_k_kernel` and
-// `_q6_k_kernel` of gemma_tpu/ops/quant_matmul.py (whose dispatch sends f32
-// activations to an f32 dequant and dot, quant_matmul.py:375-380), in place
-// of the f32 plain-FMA tiles `q4_k_tiled_kernel` and `q6_k_tiled_kernel`
-// that ran there; q4_0 and q8_0 keep theirs.
+// Replaces on that route the Pallas kernels `_q4_k_kernel`, `_q6_k_kernel`
+// and `_q8_0_kernel` of gemma_tpu/ops/quant_matmul.py (whose dispatch sends
+// f32 activations to an f32 dequant and dot, quant_matmul.py:373-380), in
+// place of the f32 plain-FMA tiles `q4_k_tiled_kernel`, `q6_k_tiled_kernel`
+// and `q8_0_tiled_kernel` that ran there; q4_0 keeps its FMA tile.
 //
 // Accuracy: TF32 keeps 10 mantissa bits (~5e-4 relative), so one TF32 pass
 // cannot hold 1e-5. Chosen here: two passes with the weight exact.
-// * The weight enters the product as its integer, q4_k's q - 8 (-8..7) and
-//   q6_k's q - 32 (-32..31): exact in TF32. No scale is folded into it.
+// * The weight enters the product as its integer, q4_k's q - 8 (-8..7),
+//   q6_k's q - 32 (-32..31) and q8_0's q (-128..127): exact in TF32. No
+//   scale is folded into it.
 // * x splits into hi = tf32(x), rounded to nearest as `cvt.rna.tf32.f32`
 //   rounds, and lo = x - hi (exact in f32) truncated to TF32: hi + lo is x
 //   within 2^-21 of |x|, and each of hi * q, lo * q is exact in the f32
 //   accumulators. Two `mma.sync` m16n8k8 TF32 products a k8 step, not
 //   3xTF32's three: the weight needs no lo part.
-// * Each scale group (q4_k: 32 weights, q6_k: 16) sums into a fresh
+// * Each scale group (q4_k and q8_0: 32 weights, q6_k: 16) sums into a fresh
 //   fragment, which is scaled by its f32 group scale (d*sc) into the
 //   accumulators with fmaf: the pattern of the bf16 GEMV (dq_gemv.cuh).
 //   The scale is per weight row, that is per column of the C fragment, so
@@ -32,8 +33,8 @@
 // sums: ~1e-6 of the output's scale.
 //
 // A template over a per-format functor F that reuses the bf16 tile's raw
-// layout and copies (`Q4KTile`, `Q6KTile`: one row's raw bytes of a 64-wide
-// K-step, in quarters):
+// layout and copies (`Q4KTile`, `Q6KTile`, `Q8_0Tile`: one row's raw bytes
+// of a 64-wide K-step, in quarters):
 //
 //   struct F : <the bf16 tile's functor> {
 //     static constexpr int kGroupUnits;  // 16-wide units a scale covers: 2 or 1
@@ -63,18 +64,26 @@
 //   16u + 4t + 2s + 1. So a lane's A values for both k8 steps of a unit are
 //   one 16-byte shared load a row, and its B values are four consecutive
 //   weights of its row: one 32-bit word of q4_k's nibbles (q6_k: one ql
-//   and one qh word), turned into f32 integers by a byte perm and a
-//   subtract (2^23 + u less 2^23 + bias), with no conversion instruction.
+//   and one qh word; q8_0: one payload word, sign bits flipped), turned
+//   into f32 integers by a byte perm and a subtract (2^23 + u less 2^23 +
+//   bias), with no conversion instruction.
+// * K is a multiple of 32. Where it is not one of 64 (q8_0), the last step
+//   is half a step, as in dq_tile.cuh: x columns at or past K are
+//   zero-filled by cp.async (nothing past K is read), the functor copies
+//   zero weights there and `prepare` gives the group past K the scale 0.
+//   q4_k and q6_k (K a multiple of 256) never meet it.
 // * x rows are padded to 80 floats (320 bytes): the 8 lanes of a 16-byte
 //   load phase, rows g and g + 1 at chunks 4u + t, fall on distinct banks,
 //   and each lane's loads sit at fixed offsets from one address (no
 //   per-load address math, as an XOR swizzle would need). The raw rows'
-//   pitches (48, 112 bytes) put the 32-bit weight words of a warp's 8 rows
-//   x 4 lanes on distinct banks.
-// * Grid fill: where the output tiles hold fewer than 8 warps an SM (q4_k
-//   attn_k and q6_k attn_v, [256 x 2048], at any M; attn_q, attn_out and
-//   down at M <= 512), the K steps split over up to 16 blocks a tile (grid
-//   z), each writing f32 partial sums to the caller's workspace
+//   pitches (48, 112, 80 bytes) put the 32-bit weight words of a warp's 8
+//   rows x 4 lanes on distinct banks.
+// * Grid fill: where the output tiles hold fewer than two blocks an SM
+//   (q4_k attn_k and q6_k attn_v, [256 x 2048], at any M; attn_q, attn_out
+//   and down at M <= 512; q8_0's qkv at M <= 64, attn_out and down), the K
+//   steps split over up to 16 blocks a tile (grid z, by the count with the
+//   fewest rounds: `dq_tile_tf32_splits`), each writing f32 partial sums to
+//   the caller's workspace
 //   (`dq_tile_tf32_work_bytes`), and dq_tile.cuh's second kernel adds the
 //   splits in order: the sums are deterministic at fixed shapes.
 //
@@ -97,7 +106,7 @@
 #include "dq_tile.cuh"  // cp.async, smem_u32, dq_steps, dq_warps, sm_count, dq_split_sum_kernel
 
 namespace gt {
-// launches of dq_tile_tf32_kernel in this process, both formats, counted
+// launches of dq_tile_tf32_kernel in this process, every format, counted
 // where they are issued; gt_dq_tile_tf32_launches (q4_k_matmul.cu) reads
 // it, and the wrappers count a launch as the tile's by its change
 inline std::atomic<unsigned long long> dq_tile_tf32_launch_count{0};
@@ -196,7 +205,8 @@ dq_tile_tf32_kernel(const float* __restrict__ x, const typename F::Weight w, flo
   y += static_cast<size_t>(blockIdx.z) * M * N;
 
   // x tile and raw weight bytes of `step` into ring slot step % S; rows of
-  // x at or past M and weight rows at or past N are zeros. A thread copies
+  // x at or past M, its columns at or past K (the half step) and weight
+  // rows at or past N are zeros. A thread copies
   // chunk tid % 16 of x rows tid / 16 + 16 i, and quarter (tid + 256 i) / BN
   // of weight row tid % BN: the lanes of a warp take one quarter of 32 rows,
   // so the functor's branches on the quarter do not diverge.
@@ -208,7 +218,7 @@ dq_tile_tf32_kernel(const float* __restrict__ x, const typename F::Weight w, flo
     float* xdst = xs + (step % S) * BM * kTfLd + xdst_off;
 #pragma unroll
     for (int i = 0; i < BM / kXRows; ++i) {
-      const bool ok = m0 + tid / 16 + kXRows * i < M;
+      const bool ok = m0 + tid / 16 + kXRows * i < M && k0 + 4 * (tid % 16) < K;
       cp_async16(smem_u32(xdst + kXRows * i * kTfLd),
                  ok ? xsrc + static_cast<size_t>(kXRows * i) * K + k0 : x, ok);
     }
@@ -388,23 +398,35 @@ struct TfTilePlan {
   int splits;  // K splits (grid z), 1 to kTfMaxSplits
 };
 
-// K splits of (64 x bn)-tiles at (M, N, K): doubled while the doubled grid
-// holds at most 16 warps an SM and each split keeps at least
-// kTfMinSplitSteps steps, up to kTfMaxSplits: narrow and deep rows at small
-// M (attn_k, attn_v, down at M = 17) take 16 splits of 2 steps where the
-// bf16 tile's limits stop at 8 of 4 (`probe_variants tf32`, `tf_sp8`:
-// PERF.md).
+// K splits of (64 x bn)-tiles at (M, N, K). A grid of two blocks an SM or
+// more runs unsplit. A smaller one takes the split count (a power of two up
+// to kTfMaxSplits that divides the steps, each split kTfMinSplitSteps steps
+// or more) with the fewest rounds of two blocks an SM x (steps a split +
+// 2, for a block's prologue and the sum of its partials), the fewer splits
+// on a tie. Narrow and deep rows at small M (q4_k's attn_k, attn_v and down
+// at M = 17) take 16 splits of 2 steps, where the bf16 tile's limits stop
+// at 8 of 4 (`probe_variants tf32`, `tf_sp8`); q8_0's attn_out and down at
+// M = 203 and 512 take 8 and 4, 0.71-0.82x the time of the 1 or 2 that
+// doubling while the split grid held at most 16 warps an SM gave them, and
+// q4_k_m's Gemma-2B rows keep that rule's plans (`tf_fill16`: PERF.md).
 inline int dq_tile_tf32_splits(int M, int N, int K, int bn) {
   const int steps = dq_steps(K);
+  const long tiles = dq_warps(M, N, kTfBM, bn) / (kTfThreads / 32), slots = 2L * sm_count();
   int splits = 1;
-  while (dq_warps(M, N, kTfBM, bn) * 2 * splits <= 16L * sm_count() && splits < kTfMaxSplits &&
-         steps % (2 * splits) == 0 && steps / (2 * splits) >= kTfMinSplitSteps)
-    splits *= 2;
+  if (tiles >= slots) return splits;
+  long best = steps + 2;  // one round, unsplit
+  for (int z = 2; z <= kTfMaxSplits && steps % z == 0 && steps / z >= kTfMinSplitSteps; z *= 2) {
+    const long cost = (tiles * z + slots - 1) / slots * (steps / z + 2);
+    if (cost < best) {
+      best = cost;
+      splits = z;
+    }
+  }
   return splits;
 }
 
 // The tile's plan at (M, N, K): 128-wide tiles where N >= 1024 and the
-// format's raw step lets two blocks share an SM (both formats at three
+// format's raw step lets two blocks share an SM (every format at three
 // stages), else 64
 template <class F>
 TfTilePlan dq_tile_tf32_plan(int M, int N, int K) {
@@ -439,12 +461,12 @@ cudaError_t launch_tf32_shape(const float* x, const typename F::Weight& w, float
 }
 
 // work: dq_tile_tf32_work_bytes<F>(M, N, K) bytes (may be null when that is
-// 0); K a multiple of 64, x 16-byte aligned
+// 0); K a multiple of 32, x 16-byte aligned
 template <class F>
 cudaError_t launch_dq_tile_tf32(const float* x, const typename F::Weight& w, float* y, float* work,
                                 int M, int N, int K, cudaStream_t s) {
   const TfTilePlan p = dq_tile_tf32_plan<F>(M, N, K);
-  if (K % kTfBK != 0 || (p.splits > 1 && work == nullptr)) return cudaErrorInvalidValue;
+  if (K % 32 != 0 || (p.splits > 1 && work == nullptr)) return cudaErrorInvalidValue;
   if constexpr (TfTileSmem<F, 128>::kBytes <= kTfTwoBlockSmem) {
     if (p.bn == 128) return launch_tf32_shape<F, 128>(x, w, y, work, M, N, K, p.splits, s);
   }

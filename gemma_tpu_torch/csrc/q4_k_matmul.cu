@@ -394,7 +394,7 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
 
 }  // namespace
 
-// launches of the TF32 tile (dq_tile_tf32.cuh), q4_k's and q6_k's, so far in
+// launches of the TF32 tile (dq_tile_tf32.cuh), every format's, so far in
 // this process
 extern "C" unsigned long long gt_dq_tile_tf32_launches() {
   return dq_tile_tf32_launch_count.load(std::memory_order_relaxed);

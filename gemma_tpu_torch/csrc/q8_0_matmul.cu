@@ -31,13 +31,30 @@
 //   raw bytes staged by cp.async). `Q8_0Tile` rounds each weight to
 //   bf16(d * q), as the reference kernel rounds its weight above M = 8.
 //   Where K % 64 == 32 the tile's last K-step is half a step, zero-filled.
-// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
-//   (`q8_0_tiled_kernel`): 64 x 64 outputs per block, K stepped one
-//   32-block at a time, both tiles in shared memory in f32.
+// * Prefill with f32 x (evaluation mode: perplexity, the f32 caches of
+//   --verify, f32 serving) runs the TF32 tensor-core tile of
+//   dq_tile_tf32.cuh (`dq_tile_tf32_kernel<Q8_0Tf32>`) on Q8_0Tile's raw
+//   copies, held to 1e-5 of the output's scale: the integers q (-128..127),
+//   exact in TF32, against x split into two TF32 parts (two m16n8k8
+//   products a k8 step), each 32-block's fragment scaled by its f32 d. Where
+//   K % 64 == 32 the last K-step is half a step: x past K zero-filled, the
+//   second block's scale 0. It bounds on operations: Gemma-7B's gate_up at
+//   the perplexity window (M = 512) is 155 GFLOP, 0.312 ms at 495 TFLOP/s
+//   of TF32 (twice that at two passes) against 0.10 ms of bytes; the f32
+//   FMA tile it replaced read 27.7 TFLOP/s there (5.5745 ms; PERF.md).
+//   Expected before it ran: every Gemma-7B f32 row at M = 17-512 at or
+//   below f32 torch.matmul, gate_up near 2.4-2.8 ms and the head near
+//   13-14 ms at M = 512 (q4_k's and q6_k's rows on the same tile: 59-64
+//   TFLOP/s). Measured (chip_smoke.py phase 3, PERF.md section 6): every
+//   row 0.26-0.91x the library call, gate_up 2.12 ms and the head 11.19 at
+//   M = 512 (73 and 72 TFLOP/s, 14.7 and 14.5 % of the bound); attn_out
+//   and down need their K split by the grid's rounds (dq_tile_tf32.cuh
+//   `dq_tile_tf32_splits`) to stay below the library.
 //
 // Any N and any K that is a multiple of 32 (ragged edges masked). Every
 // launch is checked: the entry point returns cudaGetLastError().
 #include "dq_gemv.cuh"
+#include "dq_tile_tf32.cuh"
 
 using namespace gt;
 
@@ -117,80 +134,6 @@ q8_0_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
   }
 }
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 32;  // one q8_0 block
-constexpr int kTiledThreads = 256;
-
-// f32 x (evaluation mode): f32 weights, plain FMA
-__global__ void __launch_bounds__(kTiledThreads)
-q8_0_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
-                  const __half* __restrict__ scales, float* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
-  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // dequantized W tile, K-major
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output cols tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int nblk = K / 32;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int i = tid; i < kTileM * kTileK; i += kTiledThreads) {
-      const int r = i / kTileK;
-      const int c = i % kTileK;
-      const int m = m0 + r;
-      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
-    }
-    {
-      // 64 weight rows x 4 parts of 8 payload bytes: 8 values per thread
-      const int r = tid / 4;
-      const int part = tid % 4;
-      const int n = n0 + r;
-      uint2 word = make_uint2(0u, 0u);
-      float d = 0.f;
-      if (n < N) {
-        word = *reinterpret_cast<const uint2*>(qs + static_cast<size_t>(n) * K + k0 + part * 8);
-        d = __half2float(scales[static_cast<size_t>(n) * nblk + k0 / 32]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ws[part * 8 + j][r] = d * sbyte(word.x, j);
-        ws[part * 8 + 4 + j][r] = d * sbyte(word.y, j);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
 // f32 x only (bf16 x takes the tensor cores above)
 void launch_gemv(const float* x, const int8_t* qs, const __half* sc, float* y, int M, int N, int K,
                  cudaStream_t s) {
@@ -252,29 +195,51 @@ struct Q8_0Tile {
   }
 };
 
+// The f32 route's TF32 tile (dq_tile_tf32.cuh): Q8_0Tile's raw step and
+// copies. A 16-wide unit u of the step is Q8_0Tile's quarter u, payload
+// bytes 16u .. 16u + 15 (half u % 2 of block u / 2), so lane t's four
+// weights are the payload word at 16u + 4t: signed bytes, whose sign bits
+// flipped give q + 128 (0..255), less 128 by `bytes_minus`. `prepare`
+// writes the exact f16 d of the step's two blocks as f32, 0 for the half
+// step past K (whose payload and x are zero-filled too).
+struct Q8_0Tf32 : Q8_0Tile {
+  static constexpr int kGroupUnits = 2;
+
+  __device__ __forceinline__ static void prepare(const uint8_t* raw, float* scale, float*, int n,
+                                                 int K, int k0, int grp) {
+    const int odd = (static_cast<size_t>(n) * (K / 32) + k0 / 32) & 1;
+    *scale = k0 + 32 * grp < K ? __half2float(reinterpret_cast<const __half*>(raw + 64)[odd + grp]) : 0.f;
+  }
+
+  __device__ __forceinline__ static void weights(const uint8_t* raw, int, int u, int t,
+                                                 uint32_t (&b)[4]) {
+    bytes_minus(*reinterpret_cast<const uint32_t*>(raw + 16 * u + 4 * t) ^ 0x80808080u, 128.f, b);
+  }
+};
+
 template <typename TX>
 cudaError_t launch_q8_0(const void* x, const void* qs, const void* scales, void* y, void* work,
                         void* tickets, int M, int N, int K, cudaStream_t s) {
   const TX* xp = static_cast<const TX*>(x);
   const BlockWeight w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(scales)};
-  const int8_t* qp = static_cast<const int8_t*>(qs);
   float* yp = static_cast<float*>(y);
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (M > 8) return launch_dq_tile<Q8_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
     return launch_dq_gemv<Q8_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M, N,
                                     K, s);
   } else {
-    if (M > 8) {
-      const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-      q8_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, qp, w.scales, yp, M, N, K);
-    } else {
-      launch_gemv(xp, qp, w.scales, yp, M, N, K, s);
-    }
+    if (M > 8) return launch_dq_tile_tf32<Q8_0Tf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+    launch_gemv(xp, static_cast<const int8_t*>(qs), w.scales, yp, M, N, K, s);
     return cudaGetLastError();
   }
 }
 
 }  // namespace
+
+// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
+extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K) {
+  return dq_tile_tf32_work_bytes<Q8_0Tf32>(M, N, K);
+}
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;
 // qs/scales: the port's q8_0 layout (qs 16-byte aligned); y: [M, N] f32;

@@ -71,13 +71,13 @@ SIGNATURES = {
     # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, work, tickets,
     # B, Hq, Hkv, page_size, max_pages, D, kv_dtype, split, window, softcap, stream
     "gt_paged_attention_tc": (_P,) * 10 + (_I,) * 9 + (_F, _P),
-    # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, window, softcap, stream (f32)
-    "gt_flash_attention": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
     # B, Hq, Hkv, S, D, kv_dtype, split, window, softcap, stream
     "gt_decode_attention_tc": (_P,) * 9 + (_I,) * 8 + (_F, _P),
-    # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, warps, window, softcap, stream
+    # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, row warps, window, softcap, stream
     "gt_flash_attention_tc": (_P,) * 6 + (_I,) * 8 + (_F, _P),
+    # the same for f32 q, k, v and out at the plan's row warps (no row-warps argument)
+    "gt_flash_attention_tf32": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     # the decode-GEMV instruments (ops/qmm_variants.py)
     # x, mode, qs, scales, sc_dtype, y, M, N, K, stream
     "gt_qmm_variant": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),

@@ -14,10 +14,11 @@ Kernels: `csrc/decode_attention.cu` with `csrc/decode_tc.cuh` (replaces
 Each holds two kernels, and the route between them is fixed by dtype (and
 for decode by G = Hq / Hkv): a bf16 query takes the tensor-core kernel
 (`mma.sync` on bf16 operands; decode over a bf16 or int8 cache at
-2 <= G <= 8); an f32 query, whose f32 x f32 products bf16 tensor cores
-cannot form exactly, takes the FMA kernel (flash) or the split-S kernel
-with its combine launch (decode), as does decode at G = 1 and G > 8. Both routes launch a
-hand-written kernel; neither falls back.
+2 <= G <= 8). An f32 query, whose f32 x f32 products bf16 tensor cores
+cannot form exactly, takes for flash the TF32 tensor-core kernel (3xTF32:
+each operand split into two TF32 parts, three `mma.sync` products) and for
+decode the split-S kernel with its combine launch, as does decode at G = 1
+and G > 8. Every route launches a hand-written kernel; none falls back.
 Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
 softcap before the mask, p rounded to the cache dtype before p . v, and 0
 for a row with no valid key (plain `sdpa` gives the mean of V there
@@ -255,7 +256,7 @@ def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, win
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises: bf16 the tensor-core kernel (also counted in `tc_launches`),
-    f32 the FMA kernel. Any T and S."""
+    f32 the TF32 kernel (also counted in `tf32_launches`). Any T and S."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, kv_limit, attn_softcap, window)
     check_kv_args("flash attention", q, k, v, None, None)
@@ -273,21 +274,20 @@ def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, win
     tc = q.dtype == torch.bfloat16
     args = (qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(),
             out.data_ptr(), B, T, Hq, Hkv, S, D)
-    if tc:
-        # 0: the kernel's block shape (`flash_tc_shape`, csrc/flash_attention.cu)
-        err = lib.gt_flash_attention_tc(*args, 0, int(window), float(attn_softcap),
-                                        build.stream_ptr(q.device))
-    else:
-        err = lib.gt_flash_attention(*args, int(window), float(attn_softcap),
-                                     build.stream_ptr(q.device))
+    tail = (int(window), float(attn_softcap), build.stream_ptr(q.device))
+    # row warps 0: the kernels' block plan (`flash_tc_shape`, csrc/flash_attention.cu)
+    err = (lib.gt_flash_attention_tc(*args, 0, *tail) if tc
+           else lib.gt_flash_attention_tf32(*args, *tail))
     build.check(err, f"flash attention B={B} T={T} Hq={Hq} Hkv={Hkv} S={S} D={D} tc={tc}")
     flash_attention.launches += 1
     flash_attention.tc_launches += tc
+    flash_attention.tf32_launches += not tc
     return out
 
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
+flash_attention.tf32_launches = 0
 
 
 def attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0,

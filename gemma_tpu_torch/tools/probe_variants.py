@@ -7,7 +7,7 @@ goes; and the tensor-core attention kernels' launch shapes.
     python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8] [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
     python -m gemma_tpu_torch.tools.probe_variants tf32 [--variants base,tf_cvt,...] [--fmt q4_k,q6_k] [--ms 17,512]
-    python -m gemma_tpu_torch.tools.probe_variants attn
+    python -m gemma_tpu_torch.tools.probe_variants attn [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants mutants
 
 `attn` needs no patched build: at the main path's attention shapes (and
@@ -17,16 +17,22 @@ and the decode kernel at 32-256 keys a
 block (both arms) to the plain version (2e-2 of each row's scale,
 `_timing.attn_err`: p rounds to bf16 against a local max), and times each,
 decode beside the split-S kernel and its combine launch (the route of
-G = 1), device ms with the operands warm (as chip_smoke.py).
-`tools/parent_turn.py` times the parent's kernels.
+G = 1), device ms with the operands warm (as chip_smoke.py). With
+`--parent DIR` it also builds the parent's kernels and holds its bf16
+flash at each block shape against this tree's bit for bit, timed in turns
+(this, parent, parent, this); `tools/parent_turn.py` times the parent's
+kernels through the public wrappers.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, the int8 V
-scale of a paged tile read at its logical rather than its physical page),
-and holds each, and the unpatched kernels, to the plain version at the S =
-4096 shapes, where a row averages thousands of keys, and at PAGED_SHAPES
-(both arms, shuffled pages); it fails unless the unpatched kernels pass
-and every mutant fails.
+scale of a paged tile read at its logical rather than its physical page;
+in the f32 flash kernel a ring stage's keys, or the lo.hi product of its
+3xTF32), and holds each, and the unpatched kernels, to the plain version
+at the S = 4096 shapes, where a row averages thousands of keys, and at
+PAGED_SHAPES (both arms, shuffled pages), in bf16 at 2e-2 of each row's
+scale; and in f32 at chip_smoke.py phase 8's shapes (T = S = 512,
+Gemma-2B's and Gemma-7B's heads) at its 1e-4 of each row's scale. It fails
+unless the unpatched kernels pass and every mutant fails.
 
 A variant is a list of text substitutions in a copy of
 `gemma_tpu_torch/csrc/`, built into `gemma_tpu_torch/build/variants/<name>/`
@@ -215,6 +221,23 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # at most 8 K splits of at least 4 steps (the bf16 tile's limits)
     "tf_sp8": [(TF, "constexpr int kTfMaxSplits = 16;", "constexpr int kTfMaxSplits = 8;"),
                (TF, "constexpr int kTfMinSplitSteps = 2;", "constexpr int kTfMinSplitSteps = 4;")],
+    # the TF32 tile's K splits by the rule before the grid's rounds:
+    # doubled while the split grid holds at most 16 warps an SM
+    "tf_fill16": [(TF, """  int splits = 1;
+  if (tiles >= slots) return splits;
+  long best = steps + 2;  // one round, unsplit
+  for (int z = 2; z <= kTfMaxSplits && steps % z == 0 && steps / z >= kTfMinSplitSteps; z *= 2) {
+    const long cost = (tiles * z + slots - 1) / slots * (steps / z + 2);
+    if (cost < best) {
+      best = cost;
+      splits = z;
+    }
+  }
+  return splits;""", """  int splits = 1;
+  while (dq_warps(M, N, kTfBM, bn) * 2 * splits <= 16L * sm_count() && splits < kTfMaxSplits &&
+         steps % (2 * splits) == 0 && steps / (2 * splits) >= kTfMinSplitSteps)
+    splits *= 2;
+  return splits;""")],
     # ablations of the TF32 tile: one pass (hi only), no group scaling, no
     # weight conversion (constant B fragments)
     "ab_tf_hi": [(TF, "          for (int j = 0; j < TN; ++j) mma_1688_tf32(part[i][j], lo, b[j][2 * s], "
@@ -245,8 +268,14 @@ MUTANTS: dict[str, list[tuple[str, str, str]]] = {
                       "const float w = ls > 0.f ? expf(sw[sp_ * G + h] - mx) : 0.f;",
                       "const float w = ls > 0.f && sp_ != 1 ? expf(sw[sp_ * G + h] - mx) : 0.f;")],
     # the flash kernel loads ring step 5 (64 keys at D = 256) but never multiplies it
+    # (the skeleton's step loop, in the bf16 policy's instances only)
     "drop_step_5": [("flash_attention.cu", "    compute(i);\n    __syncthreads();  // stage i % 2",
-                     "    if (i != 5) compute(i);\n    __syncthreads();  // stage i % 2")],
+                     "    if (i != 5 || sizeof(T) != 2) compute(i);\n    __syncthreads();  // stage i % 2")],
+    # the f32 (TF32) flash kernel loads ring step 3 (32 keys at D = 256) but never multiplies it
+    "drop_tf32_step_3": [("flash_attention.cu", "    compute(i);\n    __syncthreads();  // stage i % 2",
+                          "    if (i != 3 || sizeof(T) != 4) compute(i);\n    __syncthreads();  // stage i % 2")],
+    # the f32 flash kernel's products leave out lo(a) . hi(b): 2 of 3xTF32's passes
+    "drop_tf32_lo_hi": [("flash_attention.cu", "  mma_1688_tf32(c, al, bh0, bh1);\n", "")],
     # the tensor-core core reads a tile's int8 V scales at the dense slab
     # offset: through pages, the logical page's rows, not the physical one's
     "paged_v_scale_logical": [("decode_tc.cuh", "w *= ok[e] ? v_scale[srow + 8 * (e / 2)] : 0.f;",
@@ -387,13 +416,15 @@ def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool 
     return out
 
 
-def run_attention(dev: torch.device) -> None:
+def run_attention(dev: torch.device, parent: str | None = None) -> None:
     from ..ops import attention as att
     from ..runtime.kv_cache import quantize_kv
 
     gen = T.generator(dev)
     D = 256
     lib = build.load()
+    plib = parent and build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
+                                          build.BUILD_DIR / "variants" / "parent")
 
     def rnd(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
@@ -413,6 +444,12 @@ def run_attention(dev: torch.device) -> None:
             t = ms(lambda: _flash(lib, q, k, v, pos, lim, rw))
             readings.append(f"{rw} row warps x {4 // rw} key groups {t:.4f} "
                             f"({flops / t / 1e9:.1f} TFLOP/s)")
+            if plib:
+                equal = torch.equal(_flash(lib, q, k, v, pos, lim, rw), _flash(plib, q, k, v, pos, lim, rw))
+                tp = [ms(lambda: _flash(plib, q, k, v, pos, lim, rw)) for _ in range(2)]
+                readings[-1] += (f", parent {tp[0]:.4f} / {tp[1]:.4f}, this again "
+                                 f"{ms(lambda: _flash(lib, q, k, v, pos, lim, rw)):.4f}, outputs "
+                                 f"{'equal' if equal else 'differ from this'} bit for bit")
         print(f"flash {name} S={S}: device ms, warm: " + "; ".join(readings), flush=True)
         del q, k, v, ref
 
@@ -437,12 +474,19 @@ def run_attention(dev: torch.device) -> None:
         del q, k, v, k8, v8
 
 
+# f32 flash at chip_smoke.py phase 8's shapes (T = S = 512 from position 0),
+# Gemma-2B's heads (8, 1) and Gemma-7B's (16, 16), held to its 1e-4 of each row's scale
+F32_FLASH_SHAPES = (("Gemma-2B", 8, 1), ("Gemma-7B", 16, 16))
+F32_TOL = 1e-4
+
+
 def run_mutants(dev: torch.device) -> None:
     """The unpatched attention kernels and each of MUTANTS against the plain
     versions at the S = 4096 shapes of FLASH_SHAPES and DECODE_SHAPES
-    (decode: both arms) and at PAGED_SHAPES (bf16 and int8 pages), through
-    the public wrappers; one line a reading, with max|diff| beside the
-    row-scaled ratio."""
+    (decode: both arms) and at PAGED_SHAPES (bf16 and int8 pages), at
+    ATT_TOL of each row's scale, and f32 flash at F32_FLASH_SHAPES at
+    F32_TOL, through the public wrappers; one line a reading, with max|diff|
+    beside the row-scaled ratio."""
     from ..ops import attention as att
     from ..ops import paged_attention as pat
     from ..runtime.kv_cache import quantize_kv
@@ -452,10 +496,10 @@ def run_mutants(dev: torch.device) -> None:
     libs = {"unpatched": build.load(), **{name: build_variant(name) for name in MUTANTS}}
     gen = T.generator(dev)
 
-    def rnd(*shape):
-        return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    def rnd(*shape, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(dtype)
 
-    cases = []  # (reading, kernel call, plain output)
+    cases = []  # (reading, kernel call, plain output, tolerance of the row's scale)
     for name, T_, p0, S, limit, hq, hkv in FLASH_SHAPES:
         if S == 4096:
             q, k, v = rnd(1, T_, hq, D), rnd(1, hkv, S, D), rnd(1, hkv, S, D)
@@ -463,7 +507,7 @@ def run_mutants(dev: torch.device) -> None:
             lim = torch.tensor([limit], dtype=torch.int32, device=dev)
             cases.append((f"flash {name}", lambda q=q, k=k, v=v, pos=pos, lim=lim:
                           att.flash_attention(q, k, v, pos, lim),
-                          att.flash_attention_plain(q, k, v, pos, lim)))
+                          att.flash_attention_plain(q, k, v, pos, lim), ATT_TOL))
     for name, S, limits, hq, hkv in DECODE_SHAPES:
         if S == 4096 and att.decode_route(torch.bfloat16, hq // hkv, S)[0] == "tc":
             B = len(limits)
@@ -474,22 +518,31 @@ def run_mutants(dev: torch.device) -> None:
                 cases.append((f"decode {name} S={S} limits={limits} {arm}",
                               lambda q=q, kk=kk, vv=vv, lim=lim, sk=sk, sv=sv:
                               att.decode_attention(q, kk, vv, lim, k_scale=sk, v_scale=sv),
-                              att.decode_attention_plain(q, kk, vv, lim, k_scale=sk, v_scale=sv)))
+                              att.decode_attention_plain(q, kk, vv, lim, k_scale=sk, v_scale=sv), ATT_TOL))
     for name, S, limits, ps, hq, hkv, pool in PAGED_SHAPES:
         for quantized in (False, True):
             q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, ps, limits, pool, S,
                                          quantized)
             cases.append((f"paged{' int8' if quantized else ''} {name} S={S} ps={ps} limits={limits}",
                           lambda q=q, cache=cache, lim=lim: pat.paged_decode_attention(q, cache, 0, lim),
-                          pat.paged_decode_attention_plain(q, cache, 0, lim)))
+                          pat.paged_decode_attention_plain(q, cache, 0, lim), ATT_TOL))
+    for name, hq, hkv in F32_FLASH_SHAPES:
+        T_ = S = 512
+        q, k, v = (rnd(*shape, dtype=torch.float32) for shape in ((1, T_, hq, D), (1, hkv, S, D),
+                                                                  (1, hkv, S, D)))
+        pos = torch.arange(T_, dtype=torch.int32, device=dev)[None]
+        lim = torch.tensor([S], dtype=torch.int32, device=dev)
+        cases.append((f"f32 flash {name} T=S={S}", lambda q=q, k=k, v=v, pos=pos, lim=lim:
+                      att.flash_attention(q, k, v, pos, lim),
+                      att.flash_attention_plain(q, k, v, pos, lim), F32_TOL))
     failed = {}
     for lname, lib in libs.items():
         with build.using(lib):
-            for reading, call, ref in cases:
-                err, ratio, lo, hi = T.attn_err(call(), ref, ATT_TOL)
+            for reading, call, ref, tol in cases:
+                err, ratio, lo, hi = T.attn_err(call(), ref, tol)
                 failed.setdefault(lname, []).append(ratio > 1.0)
-                print(f"{lname} {reading}: max|diff| {err:.3e} (an absolute {ATT_TOL} "
-                      f"{'fails' if err > ATT_TOL else 'passes'}); worst |diff| / ({ATT_TOL} x row "
+                print(f"{lname} {reading}: max|diff| {err:.3e} (an absolute {tol} "
+                      f"{'fails' if err > tol else 'passes'}); worst |diff| / ({tol} x row "
                       f"scale) {ratio:.3f} ({'fails' if ratio > 1.0 else 'passes'}); row scales "
                       f"{lo:.3e}-{hi:.3e}", flush=True)
     if any(failed["unpatched"]) or not all(any(failed[name]) for name in MUTANTS):
@@ -515,7 +568,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     if args.mode in ("attn", "mutants"):
         print(T.card_line(dev), flush=True)
-        (run_attention if args.mode == "attn" else run_mutants)(dev)
+        run_attention(dev, args.parent) if args.mode == "attn" else run_mutants(dev)
         return
     ms = [int(m) for m in (args.ms or {"gemv": "1,8", "tile": "17,64,203", "tf32": "17,512"}[args.mode]).split(",")]
     if args.mode == "tf32":

@@ -18,13 +18,26 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   `csrc/q4_0_matmul.cu` and `csrc/q8_0_matmul.cu` (`copy` with cp.async's
   zero fill, then `store`) for every K-step of `dq_tile.cuh`, the half step
   past K included: the bf16 weight tile they write, as f32.
-* `flash` emulates `flash_tc_kernel` of `csrc/flash_attention.cu`: the
-  (position, head) row packing of a block's row warps, Q, K and V in
+* `tile_tf32` emulates the f32 route's TF32 tile of `csrc/dq_tile_tf32.cuh`
+  through the `Q8_0Tf32`, `Q4KTf32` and `Q6KTf32` functors: the x stage at
+  its padded offsets (zero-filled past K: q8_0's half step), the raw
+  bytes, the group scales, x split into two TF32 parts against the exact
+  integer weights, each group's fragment scaled into f32 accumulators, the
+  K splits summed in order.
+* `flash` emulates `flash_mma_kernel` of `csrc/flash_attention.cu` with
+  the bf16 policy `FlashBf16`: the (position, head) row packing of a
+  block's row warps, Q, K and V in
   shared memory at the kernel's pitch and ring stage, the key groups'
   tiles of a stage, ldmatrix of Q and K, ldmatrix.trans of V, S's C
   fragments reused as P's A fragments, the masks and the online softmax
   over key tiles, the live-range and per-warp tile skips, and the merge of
-  the key groups.
+  the key groups. `flash_tf32` emulates the same kernel with the f32
+  policy `FlashTf32`: Q, K and V in f32 at its pitches (D + 16, D + 4),
+  m16n8k8 TF32 fragments with D permuted within each 16-wide unit (one
+  16-byte load a row for two k8 steps) and keys permuted within each 8
+  (P's A fragment is S's C fragment; V's B values rows 2t, 2t + 1 at
+  column g), every operand split into two TF32 parts and three products
+  (lo.hi, hi.lo, hi.hi), p kept in f32.
 * `decode` emulates `decode_tc_kernel` of `csrc/decode_tc.cuh` over the
   dense cache (`DenseRows`): K (or V^T by ldmatrix.trans) as the A
   operand, q (or P through its shared tile) as the n8 B operand, int8
@@ -528,7 +541,7 @@ def tile_weights(qt: QTensor, rows: int | None = None) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# The f32 route's TF32 tile (csrc/dq_tile_tf32.cuh) of q4_k and q6_k
+# The f32 route's TF32 tile (csrc/dq_tile_tf32.cuh) of q8_0, q4_k and q6_k
 # ---------------------------------------------------------------------------
 TF_BM, TF_BK, TF_LD, TF_STAGES, TF_WARPS = 64, 64, 80, 3, 8  # kTfBM, kTfBK, kTfLd, kTfStages, kTfThreads / 32
 TF_TWO_BLOCK_SMEM = 113 * 1024  # kTfTwoBlockSmem
@@ -661,28 +674,78 @@ class Q6KTf32:
         return _bytes_minus(q, 32)
 
 
-TF32_FORMATS = {"q4_k": Q4KTf32, "q6_k": Q6KTf32}
+class Q8_0Tf32:
+    """`Q8_0Tf32` of csrc/q8_0_matmul.cu on `Q8_0Tile`'s raw step: the two
+    blocks' payload [0, 64) (zeros past K: the half step), the two aligned
+    f16 words that hold their scales [64, 72)."""
+    raw, group_units, affine = 80, 2, False
+
+    def __init__(self, qt: QTensor):
+        self.N, self.K = qt.shape
+        self.qs = _np(qt.qs).view(np.uint8).reshape(self.N, self.K)
+        self.scales = np.concatenate([_np(qt.scales).reshape(-1), np.zeros(4, np.float16)])
+
+    def copy(self, rows: int, k0: int) -> np.ndarray:
+        """`Q8_0Tile::copy` of every row of the step at k0 ([rows, 80]; rows
+        past N, and the block past K, zero-filled; a scale word past the end
+        of the array reads zeros, one that ends it only its low half)."""
+        out = np.zeros((rows, self.raw), np.uint8)
+        n, total = min(rows, self.N), self.N * (self.K // 32)
+        for blk in range(2):
+            if k0 + 32 * blk < self.K:
+                out[:n, 32 * blk: 32 * blk + 32] = self.qs[:n, k0 + 32 * blk: k0 + 32 * blk + 32]
+        h0 = (np.arange(n) * (self.K // 32) + k0 // 32) & ~1
+        for j in range(2):
+            h = h0 + 2 * j
+            word = np.stack([np.where(h < total, self.scales[h], 0),
+                             np.where(h + 1 < total, self.scales[h + 1], 0)], 1).astype(np.float16)
+            out[:n, 64 + 4 * j: 68 + 4 * j] = word.view(np.uint8)
+        return out
+
+    def prepare(self, raw: np.ndarray, n0: int, k0: int) -> tuple[np.ndarray, None]:
+        """(d [2, rows] of the step's two blocks, 0 past K; no offsets)."""
+        d = raw[:, 64:72].copy().view(np.float16).astype(np.float32)  # [rows, 4]
+        r = np.arange(len(raw))
+        odd = ((n0 + r) * (self.K // 32) + k0 // 32) & 1
+        return np.stack([d[r, odd + grp] if k0 + 32 * grp < self.K else np.zeros(len(raw), np.float32)
+                         for grp in range(2)]).astype(np.float32), None
+
+    def weights(self, raw: np.ndarray, k0: int, u: int) -> np.ndarray:
+        """The payload word at 16u + 4t, sign bits flipped, less 128."""
+        w = raw[:, 16 * u: 16 * u + 16].copy().view(np.uint32) ^ np.uint32(0x80808080)
+        return _bytes_minus(w, 128)
+
+
+TF32_FORMATS = {"q8_0": Q8_0Tf32, "q4_k": Q4KTf32, "q6_k": Q6KTf32}
 
 
 def tf32_plan(fmt: str, M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[int, int]:
-    """`dq_tile_tf32_plan`: (BN, K splits) at (M, N, K)."""
+    """`dq_tile_tf32_plan`: (BN, K splits) at (M, N, K): 128-wide tiles at
+    N >= 1024 where two blocks fit an SM; K split only where the grid holds
+    fewer than two blocks an SM, by the fewest rounds x (steps a split + 2)."""
     F = TF32_FORMATS[fmt]
     smem = (TF_STAGES * TF_BM * TF_LD * 4 + TF_STAGES * 128 * F.raw + 2 * 4 * 128 * 4
             + (2 * 2 * 128 * 4 + 2 * TF_BM * 2 * 4 if F.affine else 0))
     bn = 128 if N >= 1024 and smem <= TF_TWO_BLOCK_SMEM else 64
     steps = -(-K // TF_BK)
-    warps = -(-M // TF_BM) * -(-N // bn) * TF_WARPS
+    tiles, slots = -(-M // TF_BM) * -(-N // bn), 2 * sms
     splits = 1
-    while (warps * 2 * splits <= 16 * sms and splits < TF_MAX_SPLITS and steps % (2 * splits) == 0
-           and steps // (2 * splits) >= TF_MIN_SPLIT_STEPS):
-        splits *= 2
+    if tiles >= slots:  # two blocks an SM or more: unsplit
+        return bn, splits
+    best, z = steps + 2, 2  # the fewest rounds x (steps a split + 2)
+    while z <= TF_MAX_SPLITS and steps % z == 0 and steps // z >= TF_MIN_SPLIT_STEPS:
+        cost = -(-tiles * z // slots) * (steps // z + 2)
+        if cost < best:
+            best, splits = cost, z
+        z *= 2
     return bn, splits
 
 
 def tile_tf32(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = 2) -> np.ndarray:
-    """`launch_dq_tile_tf32` on f32 x [M, K] (M > 8) and a q4_k or q6_k
-    weight: y f32 [M, N]. Every block of the grid at once, a K-step at a
-    time: the x stage at its padded offsets, the functor's raw bytes,
+    """`launch_dq_tile_tf32` on f32 x [M, K] (M > 8) and a q8_0, q4_k or
+    q6_k weight: y f32 [M, N]. Every block of the grid at once, a K-step at
+    a time: the x stage at its padded offsets (zeros past K: a K of an odd
+    count of 32-blocks ends on a half step), the functor's raw bytes,
     its scale table (and q4_k's offsets and per-32 sums of x), each 16-wide
     unit's A fragments (16-byte loads of rows g and g + 8, split into hi and
     lo) and B fragments (the functor's words), the two k8 steps' mma in
@@ -692,13 +755,13 @@ def tile_tf32(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = 2
     F = TF32_FORMATS[qt.fmt](qt)
     M, K = x.shape
     N = qt.shape[0]
-    assert M > 8 and x.dtype == torch.float32 and K % 256 == 0
+    assert M > 8 and x.dtype == torch.float32 and K % 32 == 0
     bn, splits = tf32_plan(qt.fmt, M, N, K, sms)
     Mp, Np = -(-M // TF_BM) * TF_BM, -(-N // bn) * bn
     R, J = Mp // 16, Np // 8
-    xp = np.zeros((Mp, K), np.float32)
-    xp[:M] = x.numpy()
-    steps = K // TF_BK // splits
+    steps = -(-K // TF_BK) // splits
+    xp = np.zeros((Mp, steps * splits * TF_BK), np.float32)  # cp.async's zero fill past M and K
+    xp[:M, :K] = x.numpy()
     r_idx = np.arange(Mp)
     work = np.zeros((splits, M, N), np.float32)
     for z in range(splits):
@@ -768,7 +831,7 @@ def tile_tf32(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = 2
     return y
 
 
-# constants of csrc/flash_attention.cu (kFlashTargetBlocks, FlashTc) and
+# constants of csrc/flash_attention.cu (kFlashTargetBlocks, FlashBf16) and
 # csrc/decode_tc.cuh (kDecWarps, DecodeTc::kPLd)
 FLASH_TARGET_BLOCKS = 99
 DEC_WARPS, P_LD = 4, 24
@@ -827,15 +890,37 @@ def flash_shape(B: int, Hkv: int, T: int, G: int) -> tuple[int, int]:
 
 
 def flash_tile_keys(D: int, H: int) -> int:
-    """`flash_tile_keys`: keys a warp's tile."""
+    """`FlashBf16::kBK`: keys a warp's tile."""
     return (64 if D == 256 else 128) // (2 if H == 1 else H)
+
+
+def _flash_ranges(pos_b, r0: int, R: int, rows: int, G: int, limit: int, window: int, SK: int):
+    """A flash block's rows and live keys, as the kernel's skeleton forms them:
+    each row warp's lanes' packed rows (g, g + 8) and their positions (-1
+    past the rows), its live key range [lo, hi], the block's last live key,
+    and the ring's first key and step count over stages of SK keys."""
+    wpos, wlo, whi = [], [], []  # of each row warp
+    for rw in range(R):
+        prs = (r0 + rw * 16 + LANE_G, r0 + rw * 16 + LANE_G + 8)
+        ps = [np.where(pr < rows, pos_b[np.minimum(pr, rows - 1) // G], -1) for pr in prs]
+        hi_ = int(max(ps[0].max(), ps[1].max()))
+        lo_ = INT_MAX if hi_ < 0 else (
+            max(0, int(np.concatenate([p_[p_ >= 0] for p_ in ps]).min()) - window + 1)
+            if window > 0 else 0)
+        wpos.append((prs, ps))
+        wlo.append(lo_)
+        whi.append(min(hi_, limit - 1))
+    lo, hi = min(wlo), max(whi)
+    s_beg = lo // SK * SK if hi >= lo else 0
+    nst = -(-(hi + 1 - s_beg) // SK) if hi >= lo else 0
+    return wpos, wlo, whi, hi, s_beg, nst
 
 
 def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
           row_warps: int = 0) -> np.ndarray:
-    """`flash_tc_kernel` on bf16 q [B, T, Hq, D] and k/v [B, Hkv, S, D]
-    (positions [B, T], kv_limit [B]): out [B, T, Hq, D] as f32 (bf16
-    values). row_warps: 0 for the plan, or 1, 2, 4."""
+    """`flash_mma_kernel` with `FlashBf16` on bf16 q [B, T, Hq, D] and k/v
+    [B, Hkv, S, D] (positions [B, T], kv_limit [B]): out [B, T, Hq, D] as
+    f32 (bf16 values). row_warps: 0 for the plan, or 1, 2, 4."""
     B, T, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -844,8 +929,7 @@ def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
     SK, ld, nrows, rows = BK * H, D + 8, 16 * R, T * G
     qb, kb, vb = _bits(q), _bits(k), _bits(v)
     pos_all, lims = positions.to(torch.int32).numpy(), kv_limit.to(torch.int32).numpy()
-    lanes = np.arange(32)
-    g, t = lanes // 4, lanes % 4
+    lanes, t = np.arange(32), LANE_T
     k_off = nrows * ld  # uint16 offsets: Q [nrows][ld], K [2][SK][ld], V [2][SK][ld]
     v_off = k_off + 2 * SK * ld
     nblk = -(-rows // nrows)
@@ -857,20 +941,7 @@ def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
         h = smem.view(np.uint16)
         for r in range(min(nrows, rows - r0)):
             h[r * ld: r * ld + D] = qb[b, (r0 + r) // G, hk * G + (r0 + r) % G]
-        wpos, wlo, whi = [], [], []  # of each row warp
-        for rw in range(R):
-            prs = (r0 + rw * 16 + g, r0 + rw * 16 + g + 8)
-            ps = [np.where(pr < rows, pos_all[b, np.minimum(pr, rows - 1) // G], -1) for pr in prs]
-            hi_ = int(max(ps[0].max(), ps[1].max()))
-            lo_ = INT_MAX if hi_ < 0 else (
-                max(0, int(np.concatenate([p_[p_ >= 0] for p_ in ps]).min()) - window + 1)
-                if window > 0 else 0)
-            wpos.append((prs, ps))
-            wlo.append(lo_)
-            whi.append(min(hi_, limit - 1))
-        lo, hi = min(wlo), max(whi)
-        s_beg = lo // SK * SK if hi >= lo else 0
-        nst = -(-(hi + 1 - s_beg) // SK) if hi >= lo else 0
+        wpos, wlo, whi, hi, s_beg, nst = _flash_ranges(pos_all[b], r0, R, rows, G, limit, window, SK)
         acc = [dict(o=[[np.zeros(32, _F32) for _ in range(4)] for _ in range(D // 8)],
                     m=[np.full(32, -np.inf, _F32) for _ in range(2)],
                     l=[np.zeros(32, _F32) for _ in range(2)]) for _ in range(R * H)]
@@ -956,6 +1027,148 @@ def flash(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
                         out[b, tt, hh, n * 8 + 2 * t[m] + e] = _bf16_round(a_["o"][n][2 * r + e][m] * inv[m])
     return out
 
+
+
+def flash_tf32_tile_keys(D: int, H: int) -> int:
+    """`FlashTf32::kBK`: keys a warp's tile (a ring stage: 32 keys at
+    D = 256, 64 at D = 128)."""
+    return (32 if D == 256 else 64) // H
+
+
+TF32_3X = ("lo.hi", "hi.lo", "hi.hi")  # `mma_3xtf32`'s products, in its order
+
+
+def mma_3xtf32(c: np.ndarray, a: np.ndarray, b: np.ndarray, passes=TF32_3X) -> np.ndarray:
+    """`mma_3xtf32`: c += a . b with both operands split by `split_tf32`
+    into (hi, lo), as the products `passes` names, in order
+    (`mma_1688_tf32`'s layouts): the kernel's lo.hi, hi.lo, then hi.hi;
+    ("hi.hi",) rounds each operand once to TF32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    parts = {"lo.hi": (al, bh), "hi.lo": (ah, bl), "hi.hi": (ah, bh)}
+    for name in passes:
+        c = mma_1688_tf32(c, *parts[name])
+    return c
+
+
+def flash_tf32(q, k, v, positions, kv_limit, softcap: float = 0.0, window: int = 0,
+               row_warps: int = 0, passes=(TF32_3X, TF32_3X)) -> np.ndarray:
+    """`flash_mma_kernel` with `FlashTf32` on f32 q [B, T, Hq, D] and k/v
+    [B, Hkv, S, D] (positions [B, T], kv_limit [B]): out [B, T, Hq, D] f32. The blocks,
+    rows, ring stages, tile skips, softmax and merge of `flash`; Q and K in
+    shared memory at pitch D + 16, V at D + 4; S = Q K^T as m16n8k8 TF32
+    fragments, a lane's A values (rows g, g + 8) and B values (key row g of
+    each n8 tile) one 16-byte load each at chunk t of every 16-wide unit u
+    of D, k8 step s taking its elements 2s and 2s + 1; P's A fragment the
+    C fragment (c0, c2, c1, c3: slots t and t + 4 are keys 2t and 2t + 1),
+    V's B values rows 2t and 2t + 1 at column g of every n8 tile of D;
+    every product in 3xTF32 (`mma_3xtf32`; `passes`: the products of S and
+    of P . V, to drop one for an ablation)."""
+    B, T, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    R, H = flash_shape(B, Hkv, T, G) if not row_warps else (row_warps, 4 // row_warps)
+    BK = flash_tf32_tile_keys(D, H)
+    SK, ld, ldv, nrows, rows = BK * H, D + 16, D + 4, 16 * R, T * G
+    NT, DT = BK // 8, D // 8
+    qf, kf, vf = (x.to(torch.float32).numpy() for x in (q, k, v))
+    pos_all, lims = positions.to(torch.int32).numpy(), kv_limit.to(torch.int32).numpy()
+    g, t = LANE_G, LANE_T
+    k_off = nrows * ld  # float offsets: Q [nrows][ld], K [2][SK][ld], V [2][SK][ldv]
+    v_off = k_off + 2 * SK * ld
+    nblk = -(-rows // nrows)
+    out = np.zeros((B, T, Hq, D), np.float32)
+    chunk = np.arange(4)
+    for b, hk, bx in np.ndindex(B, Hkv, nblk):
+        limit = min(int(lims[b]), S)
+        r0 = (nblk - 1 - bx) * nrows  # latest rows first
+        sm = np.zeros(v_off + 2 * SK * ldv, np.float32)
+        for r in range(min(nrows, rows - r0)):
+            sm[r * ld: r * ld + D] = qf[b, (r0 + r) // G, hk * G + (r0 + r) % G]
+        wpos, wlo, whi, hi, s_beg, nst = _flash_ranges(pos_all[b], r0, R, rows, G, limit, window, SK)
+        acc = [dict(o=np.zeros((1, DT, 32, 4), _F32), m=[np.full(32, -np.inf, _F32) for _ in range(2)],
+                    l=[np.zeros(32, _F32) for _ in range(2)]) for _ in range(R * H)]
+        for i in range(nst):
+            st = i % 2
+            for j in range(SK):  # issue(i): keys past hi zero-filled
+                key = s_beg + i * SK + j
+                ko, vo = k_off + (st * SK + j) * ld, v_off + (st * SK + j) * ldv
+                sm[ko: ko + D] = kf[b, hk, key] if key <= hi else 0
+                sm[vo: vo + D] = vf[b, hk, key] if key <= hi else 0
+            for w in range(R * H):
+                rw, kg = w % R, w // R
+                s0 = s_beg + i * SK + kg * BK
+                if s0 > whi[rw] or s0 + BK - 1 < wlo[rw]:
+                    continue
+                a_ = acc[w]
+                qa = (rw * 16 + g) * ld + 4 * t  # [32]
+                kt = k_off + (st * SK + kg * BK) * ld + g * ld + 4 * t
+                vt = v_off + (st * SK + kg * BK) * ldv + 2 * t * ldv + g
+                sc = np.zeros((1, NT, 32, 4), _F32)
+                for u in range(D // 16):
+                    x0 = sm[(qa + 16 * u)[:, None] + chunk]  # [32, 4]
+                    x1 = sm[(qa + 8 * ld + 16 * u)[:, None] + chunk]
+                    y = sm[(kt[None] + (8 * ld * np.arange(NT))[:, None] + 16 * u)[..., None] + chunk]
+                    for s_ in range(2):
+                        a = np.stack([x0[:, 2 * s_], x1[:, 2 * s_], x0[:, 2 * s_ + 1], x1[:, 2 * s_ + 1]],
+                                     -1)[None]
+                        sc = mma_3xtf32(sc, a, y[..., 2 * s_: 2 * s_ + 2], passes[0])
+                pos = wpos[rw][1]
+                valid = np.zeros((NT, 32, 4), bool)
+                mx = [np.full(32, MASK_VALUE, _F32) for _ in range(2)]
+                for n in range(NT):
+                    for e in range(4):
+                        key = s0 + n * 8 + 2 * t + (e & 1)
+                        x = sc[0, n, :, e]
+                        if softcap > 0:
+                            x = (_F32(softcap) * np.tanh(x / _F32(softcap))).astype(_F32)
+                        ok = _key_valid(key, pos[e // 2], limit, window)
+                        valid[n, :, e] = ok
+                        sc[0, n, :, e] = np.where(ok, x, MASK_VALUE)
+                        mx[e // 2] = np.maximum(mx[e // 2], sc[0, n, :, e])
+                mn = [np.maximum(a_["m"][r], _quad(mx[r], np.max)) for r in range(2)]
+                al = [np.exp(a_["m"][r] - mn[r]).astype(_F32) for r in range(2)]
+                a_["m"] = mn
+                psum = [np.zeros(32, _F32) for _ in range(2)]
+                p = np.zeros((NT, 32, 4), _F32)
+                for n in range(NT):
+                    for e in range(4):
+                        p[n, :, e] = np.where(valid[n, :, e], np.exp(sc[0, n, :, e] - mn[e // 2]), 0)
+                    psum[0] += p[n, :, 0] + p[n, :, 1]
+                    psum[1] += p[n, :, 2] + p[n, :, 3]
+                a_["l"] = [a_["l"][r] * al[r] + psum[r] for r in range(2)]
+                o = a_["o"]
+                for e in range(4):
+                    o[..., e] *= al[e // 2]
+                cols = vt[None] + 8 * np.arange(DT)[:, None]  # [DT, 32]: row 2t, column 8j + g
+                for n in range(NT):
+                    a = p[n][:, [0, 2, 1, 3]][None]  # slot t = key 2t, slot t + 4 = key 2t + 1
+                    bv = np.stack([sm[cols + 8 * n * ldv], sm[cols + (8 * n + 1) * ldv]], -1)
+                    o = mma_3xtf32(o, a, bv, passes[1])
+                a_["o"] = o
+        for rw in range(R):
+            a_ = acc[rw]  # key group 0 merges groups 1.. in order
+            for kg in range(1, H):
+                o_ = acc[kg * R + rw]
+                for r in range(2):
+                    m, hm = a_["m"][r], o_["m"][r]
+                    mn = np.maximum(m, hm)
+                    wa = np.where(m == -np.inf, 0, np.exp(m - np.where(mn == -np.inf, 0, mn))).astype(_F32)
+                    wb = np.where(hm == -np.inf, 0, np.exp(hm - np.where(mn == -np.inf, 0, mn))).astype(_F32)
+                    a_["l"][r] = a_["l"][r] * wa + o_["l"][r] * wb
+                    for e in (2 * r, 2 * r + 1):
+                        a_["o"][0, :, :, e] = a_["o"][0, :, :, e] * wa + o_["o"][0, :, :, e] * wb
+                    a_["m"][r] = mn
+            for r in range(2):
+                lsum = _quad(a_["l"][r], np.sum)
+                inv = np.where(lsum == 0, _F32(1), _F32(1) / np.where(lsum == 0, 1, lsum)).astype(_F32)
+                pr = wpos[rw][0][r]
+                m = pr < rows
+                tt, hh = pr[m] // G, hk * G + pr[m] % G
+                for n in range(DT):
+                    for e in range(2):
+                        out[b, tt, hh, n * 8 + 2 * t[m] + e] = a_["o"][0, n, m, 2 * r + e] * inv[m]
+    return out
 
 def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=None, v_scale=None,
            split: int = 64) -> np.ndarray:
@@ -1142,6 +1355,12 @@ def main() -> None:
                          and not tile[N:].any() and not tile[:, K:].any())
                 line += f"; tile weights bit-exact: {exact}"
             print(line)
+    for fmt, M, N, K in (("q8_0", 70, 300, 1056), ("q4_k", 17, 300, 1280), ("q6_k", 17, 300, 1280)):
+        qt = random_qtensor(fmt, N, K, gen, "cpu")
+        x = torch.randn(M, K, generator=gen)
+        ref = PLAIN[fmt](x, qt).numpy()
+        err = np.abs(tile_tf32(x, qt) - ref).max() / np.abs(ref).max()
+        print(f"{fmt} f32 N={N} K={K} M={M}: TF32 tile max|diff| / max|ref| {err:.2e}")
     from ..ops.attention import decode_attention_plain, flash_attention_plain
     from ..runtime.kv_cache import quantize_kv
 
@@ -1159,8 +1378,11 @@ def main() -> None:
         errd = np.abs(decode(qd, k, v, lim_t, cap, window) - refd).max() / np.abs(refd).max()
         ref8 = decode_attention_plain(qd, k8, v8, lim_t, cap, window, ks, vs).float().numpy()
         err8 = np.abs(decode(qd, k8, v8, lim_t, cap, window, ks, vs) - ref8).max() / np.abs(ref8).max()
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        ref32 = flash_attention_plain(q32, k32, v32, pos, lim_t, cap, window).numpy()
+        err32 = np.abs(flash_tf32(q32, k32, v32, pos, lim_t, cap, window) - ref32).max() / np.abs(ref32).max()
         print(f"attention B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}: max|diff| / max|ref|: flash "
-              f"{err:.2e}, decode {errd:.2e}, decode int8 {err8:.2e}")
+              f"{err:.2e}, decode {errd:.2e}, decode int8 {err8:.2e}, f32 flash (TF32) {err32:.2e}")
     # paged decode: 16-key pages shuffled over a pool, against the dense
     # emulation on the gathered pages
     from ..ops.paged_attention import gather_pages

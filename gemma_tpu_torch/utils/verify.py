@@ -36,10 +36,13 @@ def launch_counters() -> list[tuple[str, Any, str]]:
     """(name, wrapper, attribute) of every kernel launch counter of the
     main path's ops."""
     return [*((f"{fmt}_matmul", op, "launches") for fmt, op in qmm.MATMULS.items()),
-            # the calls of q4_k and q6_k with f32 x at M > 8 (the TF32 tile)
+            # the calls of q8_0, q4_k and q6_k with f32 x at M > 8 (the TF32 tile)
+            ("q8_0_matmul_tf32", qmm.q8_0_matmul, "tf32_launches"),
             ("q4_k_matmul_tf32", qmm.q4_k_matmul, "tf32_launches"),
             ("q6_k_matmul_tf32", qmm.q6_k_matmul, "tf32_launches"),
             ("flash_attention", att.flash_attention, "launches"),
+            # the calls of flash attention with f32 queries (the TF32 kernel)
+            ("flash_attention_tf32", att.flash_attention, "tf32_launches"),
             ("decode_attention", att.decode_attention, "launches"),
             ("decode_attention_int8", att.decode_attention, "int8_launches"),
             # the calls of the two above that went through the tensor cores

@@ -8,21 +8,31 @@ card holds the kernels to.
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
   split: 1e-5 of the output's scale, also against every format's Pallas
   kernel in interpret mode at M = 1.
-* The f32 route's TF32 tile of q4_k and q6_k (`csrc/dq_tile_tf32.cuh`):
-  x split into two TF32 parts against the exact integer weights, each
-  group scaled in f32, the K splits summed in order: within 1e-5 of the
-  output's scale of the plain f32 version and of the JAX package's f32
-  dispatch, and within 2e-2 of `_q4_k_kernel` / `_q6_k_kernel` in
-  interpret mode, which round x and weights to bf16 at M > 8 (the
-  tolerances of tests/test_torch_quant_matmul.py). One TF32 pass misses
-  1e-5, so the second pass is guarded.
+* The f32 route's TF32 tile of q8_0, q4_k and q6_k
+  (`csrc/dq_tile_tf32.cuh`): x split into two TF32 parts against the exact
+  integer weights, each group scaled in f32, the K splits summed in order:
+  within 1e-5 of the output's scale of the plain f32 version and of the
+  JAX package's f32 dispatch, and within 2e-2 of `_q8_0_kernel`,
+  `_q4_k_kernel` / `_q6_k_kernel` in interpret mode, which round x and
+  weights to bf16 at M > 8 (the tolerances of
+  tests/test_torch_quant_matmul.py); q8_0 also where K % 64 == 32 (the
+  half step past K). One TF32 pass misses 1e-5, so the second pass is
+  guarded.
+* Flash attention's f32 route (`flash_mma_kernel` with `FlashTf32`):
+  both products in 3xTF32, so it differs from the plain f32 version by
+  ~2^-21 of each product and the order of f32 sums: within 1e-4 of each
+  row's scale (`tools/_timing.attn_err`, the card's check in
+  chip_smoke.py phase 8), of the plain version and of the JAX kernel in
+  interpret mode (f32).
+  Dropping any one of the four small-part products, or both small parts
+  (1xTF32), misses that tolerance.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
-* Flash and decode attention (`csrc/flash_attention.cu` flash_tc_kernel,
-  `csrc/decode_tc.cuh` decode_tc_kernel), bf16: products are exact,
-  but p rounds to bf16 against a tile's (flash) or a warp's (decode)
-  running max where the plain version rounds against the row max, and the
+* Flash and decode attention (`csrc/flash_attention.cu` flash_mma_kernel
+  with FlashBf16, `csrc/decode_tc.cuh` decode_tc_kernel), bf16: products
+  are exact, but p rounds to bf16 against a tile's (flash) or a warp's
+  (decode) running max where the plain version rounds against the row max, and the
   output is bf16: 2e-2 of the output's scale, the card's tolerance
   (chip_smoke.py). Rows without a valid key are exactly 0. One case of
   each is also held to the JAX kernel in interpret mode.
@@ -207,6 +217,70 @@ def test_tf32_single_pass_misses_1e5():
     assert one > 1e-5 * scale and two <= 1e-5 * scale
 
 
+# q8_0 (Gemma-7B's format): K % 64 == 32 (1056: 33 blocks, the last step a
+# half step; odd rows' scales at odd halves of their words), ragged M and N
+# past a tile, one split and several
+@pytest.mark.parametrize("M,N,K", [(17, 130, 1056), (70, 200, 1056), (33, 129, 2080)])
+def test_tf32_tile_emulation_q8_0(M, N, K):
+    gen, qt = _case("q8_0", N, K, seed=M + N)
+    x = torch.randn(M, K, generator=gen)
+    ref = PLAIN["q8_0"](x, qt).numpy()
+    got = emu.tile_tf32(x, qt)
+    assert got.shape == (M, N)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_tf32_q8_0_matches_the_jax_dispatch(monkeypatch):
+    """q8_0's TF32 tile on JAX-quantized weights: within 1e-5 of the
+    output's scale of the JAX package's f32 dispatch (f32 x against the f32
+    dequant) at K % 64 == 32, where one TF32 pass misses 1e-5; and at K =
+    1024, which `_q8_0_kernel` takes, within 2e-2 of it in interpret mode
+    (bf16 x and weights at M > 8)."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    rng = np.random.default_rng(17)
+    for M, N, K in ((17, 192, 1056), (20, 128, 1024)):
+        jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, "q8_0")
+        qt = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        got = emu.tile_tf32(torch.from_numpy(x), qt)
+        xj = jnp.asarray(x)
+        f32_dispatch = np.asarray(jnp.dot(xj, dequant_t(jqt, jnp.float32)))
+        scale = np.abs(f32_dispatch).max()
+        assert np.abs(got - f32_dispatch).max() <= 1e-5 * scale
+        if K % 64:
+            one = emu.tile_tf32(torch.from_numpy(x), qt, passes=1)
+            assert np.abs(one - f32_dispatch).max() > 1e-5 * scale
+        else:
+            assert np.abs(got - np.asarray(jax_quant_matmul(xj, jqt))).max() <= 2e-2 * scale
+
+
+# Gemma-7B q8_0's rows: (N, K) -> K splits at M = 17, 64, 203 and 512
+Q8_0_TF32_SPLITS = {(12288, 3072): (8, 8, 1, 1), (3072, 4096): (8, 8, 8, 4),
+                    (49152, 3072): (1, 1, 1, 1), (3072, 24576): (8, 8, 8, 4),
+                    (256000, 3072): (1, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("M", [17, 64, 203, 512])
+@pytest.mark.parametrize("N,K", list(Q8_0_TF32_SPLITS))
+def test_tf32_plan_at_the_gemma_7b_q8_0_shapes(M, N, K):
+    """q8_0's 80-byte raw step keeps 128-wide tiles at two blocks an SM
+    (96256 bytes of shared memory). K splits in whole steps, at least 2 a
+    split, only where the grid holds fewer than two blocks an SM, the count
+    with the fewest rounds x (steps a split + 2): never gate_up and the
+    head, attn_out and down 8 or 4 ways."""
+    smem = emu.TF_STAGES * emu.TF_BM * emu.TF_LD * 4 + emu.TF_STAGES * 128 * 80 + 2 * 4 * 128 * 4
+    assert smem == 96256 and smem <= emu.TF_TWO_BLOCK_SMEM
+    bn, splits = emu.tf32_plan("q8_0", M, N, K)
+    assert bn == 128 and splits == Q8_0_TF32_SPLITS[N, K][[17, 64, 203, 512].index(M)]
+    steps = K // emu.TF_BK
+    assert steps % splits == 0 and steps // splits >= 2 and splits <= 16
+    tiles, slots = -(-M // 64) * -(-N // bn), 2 * emu.H100_SMS
+    assert splits == 1 or tiles < slots
+    if tiles < slots:
+        cost = {z: -(-tiles * z // slots) * (steps // z + 2) for z in (1, 2, 4, 8, 16)}
+        assert cost[splits] == min(cost.values())
+
+
 def test_tf32_rounding_and_split():
     """`tf32_rna` (`cvt.rna.tf32.f32` on finite values): nearest, ties away
     from zero, 10 mantissa bits; hi + lo (lo truncated) is x within 2^-21 of
@@ -301,6 +375,81 @@ def test_flash_block_plan():
     assert emu.flash_shape(1, 1, 203, 8) == (1, 4) and emu.flash_shape(1, 16, 203, 1) == (2, 2)
     assert emu.flash_shape(1, 1, 2048, 8) == (4, 1) and emu.flash_shape(1, 16, 2048, 1) == (4, 1)
     assert emu.flash_shape(1, 1, 512, 8) == (2, 2)
+
+
+ATT_TF32_TOL = 1e-4  # of each row's scale: the card's f32 check (chip_smoke.py phase 8)
+
+
+def _qkv32(B, T, S, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3)
+            for shape in ((B, T, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+
+
+FLASH_TF32_CASES = [
+    # B, T, S, Hq, Hkv, D, pos0, limits, softcap, window, row warps (0: the plan)
+    (1, 37, 300, 8, 1, 128, 0, [37], 0.0, 0, 0),      # G = 8, ragged T and S: 1 x 4 key groups
+    (2, 21, 90, 4, 4, 128, 40, [61, 50], 30.0, 0, 2),  # G = 1, batch rows, softcap, limit < position
+    (1, 30, 260, 4, 2, 128, 150, [180], 0.0, 24, 1),  # GQA, window: tiles skipped both sides
+    (1, 9, 40, 8, 1, 256, 0, [9], 50.0, 0, 0),        # Gemma-2B heads, D = 256 (8-key tiles)
+    (1, 6, 80, 16, 16, 256, 60, [64], 0.0, 0, 4),     # Gemma-7B heads, 32-key tiles, kv_limit < T + pos0
+    (1, 40, 96, 4, 1, 128, 50, [50], 0.0, 32, 2),     # rows past 81 see no key: exactly 0
+]
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,pos0,limits,cap,window,row_warps", FLASH_TF32_CASES)
+def test_flash_tf32_emulation_matches_plain(B, T, S, Hq, Hkv, D, pos0, limits, cap, window, row_warps):
+    q, k, v = _qkv32(B, T, S, Hq, Hkv, D, seed=T + S)
+    pos = (torch.arange(T, dtype=torch.int32) + pos0).expand(B, T).contiguous()
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ref = flash_attention_plain(q, k, v, pos, lim, cap, window)
+    got = emu.flash_tf32(q, k, v, pos, lim, cap, window, row_warps)
+    assert got.shape == tuple(ref.shape) and np.isfinite(got).all()
+    assert attn_err(torch.from_numpy(got), ref, ATT_TF32_TOL)[1] <= 1.0
+    key = np.arange(S)
+    p_ = pos.numpy()[:, :, None]
+    seen = (key <= p_) & (key < np.asarray(limits)[:, None, None]) & ((key > p_ - window) | (window <= 0))
+    empty = ~seen.any(-1)  # [B, T]: rows without a valid key are exactly 0
+    assert not got[empty].any()
+
+
+def test_flash_tf32_emulation_matches_the_jax_kernel(monkeypatch):
+    """f32 inputs through the JAX `flash_attention` (`_flash_kernel` in
+    interpret mode): G = 8 with softcap and window, rows above kv_limit."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    q, k, v = _qkv32(1, 30, 96, 8, 1, 128, seed=21)
+    pos = (np.arange(30, dtype=np.int32) + 40)[None]
+    lim = np.asarray([60], np.int32)
+    ref = jax_flash(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(pos), jnp.asarray(lim),
+                    attn_softcap=30.0, window=48)
+    got = emu.flash_tf32(q, k, v, torch.from_numpy(pos), torch.from_numpy(lim), 30.0, 48)
+    assert attn_err(torch.from_numpy(got), torch.from_numpy(np.array(ref)), ATT_TF32_TOL)[1] <= 1.0
+
+
+# (S passes, P . V passes): the kernel's, each with one small-part product
+# dropped, and 1xTF32 (hi.hi only in both)
+_HI = ("hi.hi",)
+FLASH_TF32_ABLATIONS = [
+    ("3xTF32", (emu.TF32_3X, emu.TF32_3X), True),
+    *((f"S without {d}", (tuple(x for x in emu.TF32_3X if x != d), emu.TF32_3X), False)
+      for d in ("lo.hi", "hi.lo")),
+    *((f"P.V without {d}", (emu.TF32_3X, tuple(x for x in emu.TF32_3X if x != d)), False)
+      for d in ("lo.hi", "hi.lo")),
+    ("1xTF32", (_HI, _HI), False),
+]
+
+
+@pytest.mark.parametrize("name,passes,holds", FLASH_TF32_ABLATIONS, ids=[a[0] for a in FLASH_TF32_ABLATIONS])
+def test_flash_tf32_needs_every_pass(name, passes, holds):
+    """At Gemma-2B's group (G = 8, D = 256), 64 positions from 0: the
+    kernel's three products a k8 step hold 1e-4 of each row's scale, and
+    leaving out any small-part product of either S or P . V misses it."""
+    q, k, v = _qkv32(1, 64, 64, 8, 1, 256, seed=1)
+    pos = torch.arange(64, dtype=torch.int32)[None]
+    lim = torch.tensor([64], dtype=torch.int32)
+    ref = flash_attention_plain(q, k, v, pos, lim)
+    got = emu.flash_tf32(q, k, v, pos, lim, passes=passes)
+    assert (attn_err(torch.from_numpy(got), ref, ATT_TF32_TOL)[1] <= 1.0) == holds
 
 
 DECODE_EMU_CASES = [
