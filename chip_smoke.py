@@ -194,6 +194,12 @@ KERNELS = {
                          "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
     "flash_attention_tf32": ("gemma_tpu_torch/csrc/flash_attention.cu",
                              "gemma_tpu/ops/attention.py:94 _flash_kernel (f32 queries)"),
+    # q4_0's and q4_k's f32 x at M <= 8: the tensor-core GEMV with x in
+    # three bf16 parts
+    "q4_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
+                             "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel (f32 x, M <= 8)"),
+    "q4_k_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
+                             "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel (f32 x, M <= 8)"),
 }
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
@@ -1059,15 +1065,16 @@ def prefill_profile(torch, eng, prompt: list[int], runs: int = 5) -> tuple[float
                                       f"{profiler_coverage(prof, before)}")
 
 
-def decode_profile(torch, eng, cache, last_tok: int, steps: int = 8):
-    """Device time of greedy decode steps from torch.profiler: (busy ms per
+def decode_profile(torch, eng, cache, last_tok, steps: int = 8):
+    """Device time of greedy decode steps from torch.profiler, from the
+    last token (an int at batch 1, or a tensor of each row's): (busy ms per
     step, the five largest kernels' ms per step and the profiler's
     coverage, and the device kernels a step beside the quantized-matmul
     wrapper launches a step: a K split summed in a second launch shows as
     `dq_split_sum_kernel`, a GEMV off the tensor cores as a SIMT kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    tok = torch.tensor([last_tok], device=eng.device)
+    tok = last_tok if torch.is_tensor(last_tok) else torch.tensor([last_tok], device=eng.device)
     before = read_counters()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -2095,19 +2102,25 @@ QUANTIZE_SHA256 = {
 }
 
 
-def tf32_prefill_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
-                          head: bool) -> None:
-    """Set the TF32 kernels' share of `counts` in `prefills` f32 prefill
-    forwards of more than 8 rows: every flash launch (the TF32 flash
-    kernel), and every q8_0, q4_k and q6_k launch (the TF32 tile), the head
-    too where it runs at every row (perplexity; a prefill runs it at the
-    last row, M = 1); q4_0's f32 tile is off the tensor cores."""
+def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
+                       head: bool) -> None:
+    """Set the f32 tensor-core routes' share of `counts` with f32
+    activations, `prefills` of its forwards prefills of more than 8 rows:
+    every flash launch (the TF32 flash kernel), and every q8_0, q4_k and
+    q6_k launch of a prefill (the TF32 tile), the head too where it runs at
+    every row (perplexity; a prefill runs it at the last row, M = 1); every
+    other q4_0 and q4_k launch (the decode steps', and q4_0's head at a
+    prefill's last row) is the f32 GEMV's. q4_0's f32 tile is off the
+    tensor cores."""
     counts["flash_attention_tf32"] = cfg.n_layers * prefills
     if fmt == "q8_0":
         counts["q8_0_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
+    if fmt == "q4_0":
+        counts["q4_0_matmul_gemv_f32"] = counts["q4_0_matmul"] - (4 * cfg.n_layers + head) * prefills
     if fmt == "q4_k_m":
         counts["q4_k_matmul_tf32"] = 5 * cfg.n_layers * prefills
         counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
+        counts["q4_k_matmul_gemv_f32"] = counts["q4_k_matmul"] - counts["q4_k_matmul_tf32"]
 
 
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
@@ -2118,7 +2131,7 @@ def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
     counts = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=0,
                                        decode_kernel="decode_attention")
     counts["flash_attention_tc"] = 0
-    tf32_prefill_launches(counts, cfg, fmt, 1, head=True)
+    f32_route_launches(counts, cfg, fmt, 1, head=True)
     return counts
 
 
@@ -2198,9 +2211,9 @@ def quality_verify(torch, dev, model_name: str, fmt: str, rel: float | None) -> 
                                     **opts)
         expected = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=VERIFY_STEPS,
                                              decode_kernel=decode_kernel)
-        if act == "float32":  # f32: the TF32 flash and tile, the split-S decode kernel
+        if act == "float32":  # f32: the TF32 flash and tile, the f32 GEMV, the split-S decode kernel
             expected["flash_attention_tc"] = expected["decode_attention_tc"] = 0
-            tf32_prefill_launches(expected, cfg, fmt, 1, head=False)
+            f32_route_launches(expected, cfg, fmt, 1, head=False)
         held = ("the reference's 0.05" if atol == 0.05 else
                 f"{rel:g} of the logits' scale {scale:.3f} (the reference's 0.05 "
                 f"{'holds' if res['max_abs'] <= 0.05 else 'does not hold'} here)")
@@ -2238,14 +2251,23 @@ EVAL_FLASH_EDGES = (
      [400, 300], 0.0, 128, 4),
 )
 FLASH_PLANS = {(D, r) for D in (256, 128) for r in (1, 2, 4)}  # (D, row warps) of flash_tc_shape
-# phase 8's f32 SIMT GEMVs (f32 x at M <= 8: the decode and serving steps of
-# f32 serving and --verify's f32 cache): each format's gate_up, down and
-# head rows of its recipe (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k
-# Gemma-2B q4_k_m: q6_k is its head), at the decode step's M = 1 and the
-# serving step's 8
-GEMV_F32_ROWS = {"q4_0": ("gate_up", "down", "head"), "q8_0": ("gate_up", "down", "head"),
-                 "q4_k": ("gate_up", "down"), "q6_k": ("head",)}
+# phase 8's f32 GEMVs (f32 x at M <= 8: the decode and serving steps of f32
+# serving and --verify's f32 cache), on the rows of each format's recipe
+# (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k Gemma-2B q4_k_m: q6_k is its
+# head), at the decode step's M = 1 and the serving step's 8: q4_0's and
+# q4_k's every row of a decode step on the tensor-core GEMV with x in three
+# bf16 parts (1e-5 of the output's scale), q8_0's gate_up, down and head
+# and q6_k's head on their SIMT GEMVs (1e-4)
+GEMV_F32_ROWS = {"q4_0": ("qkv", "attn_out", "gate_up", "down", "head"),
+                 "q8_0": ("gate_up", "down", "head"),
+                 "q4_k": ("attn_q", "attn_k", "attn_out", "gate_up", "down"), "q6_k": ("head",)}
 GEMV_F32_MS = (1, SERVE_SLOTS)
+# the tensor-core f32 GEMV's edges (format, N, K, Ms): every M of 1-8 at N
+# not a multiple of 16, q4_0 at K % 64 == 32 and q4_k at an odd count of
+# superblocks, both summing their K splits by ticket; and at M = 8 ragged
+# rows wide enough that a second launch (`dq_split_sum_kernel`) sums them
+GEMV_F32_EDGES = (("q4_0", 1000, 1056, tuple(range(1, 9))), ("q4_k", 999, 1280, tuple(range(1, 9))),
+                  ("q4_0", 9990, 2048, (SERVE_SLOTS,)), ("q4_k", 19990, 2048, (SERVE_SLOTS,)))
 FLASH_TF32_PASSES = 3  # the TF32 flash kernel's products a k8 step (3xTF32): not in the bound
 
 
@@ -2265,11 +2287,10 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     of f32 x with the weight dequantized to f32 beforehand, TF32 off;
     scaled_dot_product_attention in f32); the TF32 flash kernel also at
     EVAL_FLASH_EDGES, each launch counted in `tf32_launches`; then every
-    format's f32 SIMT GEMV at GEMV_F32_ROWS and GEMV_F32_MS against its
-    plain version (1e-4 of scale), L2 cold, with the bound (wire bytes over
-    HBM bandwidth against the flops at the TF32 rate) and the library
-    call. Returns readings: the FMA tile's and the GEMVs' under their
-    kernels' names, the TF32 flash kernel's as `flash_attention_tf32`."""
+    format's f32 GEMV (`check_gemv_f32`). Returns readings: the FMA tile's
+    and the SIMT GEMVs' under their kernels' names, the TF32 flash
+    kernel's as `flash_attention_tf32`, the tensor-core f32 GEMV's as
+    `q4_0_matmul_gemv_f32` and `q4_k_matmul_gemv_f32`."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.quant.qtensor import dequant
@@ -2395,9 +2416,79 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     info("quality", f"TF32 flash edge cases within 1e-4 of each row's scale (worst ratio {worst:.3f})")
     require(plans == FLASH_PLANS, f"TF32 flash: block plans {sorted(FLASH_PLANS - plans)} never ran")
     readings["flash_attention_tf32"] = flash
+    readings.update(check_gemv_f32(torch, dev, cold))
+    return readings
+
+
+def gemv_f32_plan(torch, fmt: str, M: int, N: int, K: int) -> tuple[str, str]:
+    """The f32 GEMV's plan at (M, N, K) as tools/tc_emulation.py emulates
+    it, held to the library's K-split scratch and tickets there: (a line
+    with its slice, splits, how they are summed, and the shared bytes and
+    blocks an SM against bf16 x's; how the splits are summed)."""
+    from gemma_tpu_torch.kernels import build
+    from gemma_tpu_torch.tools import tc_emulation as emu
+
+    F = emu.GEMV_FORMATS[fmt]
+    sl_max = emu.gemv_slice_max(M, fmt, emu.GV_F32_PARTS)
+    sl, splits = emu.gemv_plan(M, N, K, emu.H100_SMS, F.gran, F.target, F.slice_min, sl_max)
+    tiles = -(-(-(-N // 16)) // emu.GV_WARPS)
+    ticket = splits > 1 and tiles * splits <= 4 * emu.H100_SMS
+    work, tickets = build.matmul_scratch(build.load(), build.FORMAT_CODES[fmt],
+                                         build.DTYPE_CODES[torch.float32], M, N, K)
+    require((work, tickets) == (splits * M * N * 4 if splits > 1 else 0, tiles if ticket else 0),
+            f"{fmt} f32 GEMV M={M} N={N} K={K}: the library's scratch {work} bytes and {tickets} "
+            f"tickets, the emulated plan's {splits} splits (ticket sum {ticket})")
+    smem = emu.gemv_smem_bytes(fmt, M, sl, emu.GV_F32_PARTS)
+    bf16_sl = emu.gemv_plan(M, N, K, emu.H100_SMS, F.gran, F.target, F.slice_min)[0]
+    bf16_smem = emu.gemv_smem_bytes(fmt, M, bf16_sl)
+    how = "one split" if splits == 1 else "summed by ticket" if ticket else "summed by dq_split_sum_kernel"
+    return (f"slice {sl} (at most {sl_max}) x {splits} splits, {how}; {smem} B shared, "
+            f"{emu.gemv_sm_blocks(smem)} blocks an SM (bf16 x: slice {bf16_sl}, {bf16_smem} B, "
+            f"{emu.gemv_sm_blocks(bf16_smem)})"), how
+
+
+def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
+    """Phase 8: every format's f32 GEMV at GEMV_F32_ROWS and GEMV_F32_MS
+    against its plain version, L2 cold, with the bound (wire bytes over HBM
+    bandwidth against the function's 2 M N K flops at the TF32 rate; the
+    tensor-core route's three bf16 passes at the bf16 rate in its info
+    line) and the library call (f32 torch.matmul on the weight dequantized
+    beforehand). q4_0 and q4_k (the tensor-core GEMV, qmm.GEMV_F32_FORMATS):
+    1e-5 of the output's scale, one `gemv_f32_launches` a call, the
+    library's K-split scratch held to the emulated plan (`gemv_f32_plan`),
+    and GEMV_F32_EDGES too; q8_0 and q6_k (SIMT): 1e-4. Returns readings:
+    the tensor-core route's as `q4_0_matmul_gemv_f32` and
+    `q4_k_matmul_gemv_f32` (its gate_up row at M = 8, every row under
+    "rows"), the SIMT GEMVs' under their kernels' names ("gemv_f32")."""
+    import gemma_tpu_torch.ops.quant_matmul as qmm
+    from gemma_tpu_torch.quant.qtensor import dequant
+    from gemma_tpu_torch.tools import _timing as T
+    from gemma_tpu_torch.tools import tc_emulation as emu
+    from gemma_tpu_torch.utils.device import H100_F32_FLOPS, H100_TF32_FLOPS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    readings: dict[str, dict] = {}
+
+    def held(fmt, qt, x, what) -> tuple[float, str]:
+        """(max|diff|, its line) of one call against the plain version"""
+        op = qmm.MATMULS[fmt]
+        tc = fmt in qmm.GEMV_F32_FORMATS
+        before = op.gemv_f32_launches
+        got, ref = op(x, qt), qmm.PLAIN[fmt](x, qt)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item() if tc else 1e-4 * ref.abs().max().item() + 1e-6
+        require(op.gemv_f32_launches == before + tc,
+                f"{fmt}_matmul f32 GEMV {what}: {op.gemv_f32_launches - before} f32 GEMV launches")
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f"{fmt}_matmul f32 GEMV {what}: max|diff| {err} > tol {tol}")
+        return err, f"max|diff|={err:.3e} tol={tol:.3e} ({'1e-5' if tc else '1e-4'} of scale)"
+
     for fmt, names in GEMV_F32_ROWS.items():
+        tc = fmt in qmm.GEMV_F32_FORMATS
         shapes = {name: (N, K) for name, N, K, _ in MATMUL_SHAPES[fmt][0]}
-        rows = []
+        rows, worst = [], 0.0
         for name in names:
             N, K = shapes[name]
             qt = T.random_qtensor(fmt, N, K, gen, dev)
@@ -2405,31 +2496,52 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
             wire = T.nbytes(qt)
             for Mg in GEMV_F32_MS:
                 x = torch.randn(Mg, K, generator=gen, device=dev)
-                got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
-                torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                tol = 1e-4 * ref.abs().max().item() + 1e-6
-                require(err <= tol, f"{fmt}_matmul f32 GEMV {name} M={Mg}: max|diff| {err} > tol {tol}")
+                err, held_line = held(fmt, qt, x, f"{name} M={Mg}")
+                worst = max(worst, err)
                 ms = cold(qmm.MATMULS[fmt], (x, qt))
                 library_ms = cold(lambda x_, w_: torch.matmul(x_, w_.T), (x, w32))
                 plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
                 bound_ms, bound_by = bound(wire + Mg * K * 4 + Mg * N * 4, 2 * Mg * N * K,
                                            H100_TF32_FLOPS)
-                fma_ms = 2 * Mg * N * K / H100_F32_FLOPS * 1e3
-                info("quality", f"{fmt}_matmul f32 GEMV {name} M={Mg} N={N} K={K}: max|diff|={err:.3e} "
-                                f"tol={tol:.3e}; device ms, L2 cold: kernel {ms:.4f} "
-                                f"({wire / ms / 1e9:.3f} TB/s at wire bytes) library (f32 matmul, "
-                                f"weight dequantized beforehand) {library_ms:.4f} (kernel / library "
-                                f"{ms / library_ms:.3f}); plain {plain_ms:.4f}; bound {bound_ms:.4f} "
-                                f"({bound_by}: wire bytes at HBM rate, or the flops at the TF32 "
-                                f"rate); the flops at the f32 FMA rate {fma_ms:.4f}")
+                if tc:
+                    plan, _ = gemv_f32_plan(torch, fmt, Mg, N, K)
+                    route = (f"tensor cores, x in {emu.GV_F32_PARTS} bf16 parts: the passes at the "
+                             f"bf16 rate {emu.GV_F32_PARTS * 2 * Mg * N * K / BF16_FLOPS * 1e3:.4f}; "
+                             f"{plan}")
+                else:
+                    route = f"SIMT: the flops at the f32 FMA rate {2 * Mg * N * K / H100_F32_FLOPS * 1e3:.4f}"
+                info("quality", f"{fmt}_matmul f32 GEMV {name} M={Mg} N={N} K={K}: {held_line}; device "
+                                f"ms, L2 cold: kernel {ms:.4f} ({wire / ms / 1e9:.3f} TB/s at wire bytes) "
+                                f"library (f32 matmul, weight dequantized beforehand) {library_ms:.4f} "
+                                f"(kernel / library {ms / library_ms:.3f}); plain {plain_ms:.4f}; bound "
+                                f"{bound_ms:.4f} ({bound_by}: wire bytes at HBM rate, or the flops at the "
+                                f"TF32 rate); {route}")
                 rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "library_ms": library_ms,
                              "shape": f"f32 {name} M={Mg} N={N} K={K}"})
-                del x, got, ref
+                del x
             del qt, w32
             torch.cuda.empty_cache()
-        readings.setdefault(f"{fmt}_matmul", {})["gemv_f32"] = rows
+        if tc:
+            rep = next(r for r in rows if r["shape"].startswith(f"f32 gate_up M={SERVE_SLOTS} "))
+            readings[f"{fmt}_matmul_gemv_f32"] = {**rep, "max_abs_err": worst, "rows": rows}
+        else:
+            readings[f"{fmt}_matmul"] = {"gemv_f32": rows}
+    sums = set()
+    for fmt, N, K, ms in GEMV_F32_EDGES:
+        qt = T.random_qtensor(fmt, N, K, gen, dev)
+        for Mg in ms:
+            x = torch.randn(Mg, K, generator=gen, device=dev)
+            err, held_line = held(fmt, qt, x, f"edge M={Mg} N={N} K={K}")
+            plan, how = gemv_f32_plan(torch, fmt, Mg, N, K)
+            sums.add(how)
+            readings[f"{fmt}_matmul_gemv_f32"]["max_abs_err"] = max(
+                readings[f"{fmt}_matmul_gemv_f32"]["max_abs_err"], err)
+            info("quality", f"{fmt}_matmul f32 GEMV edge M={Mg} N={N} K={K}: {held_line}; {plan}")
+            del x
+        del qt
+    require({"summed by ticket", "summed by dq_split_sum_kernel"} <= sums,
+            f"f32 GEMV edges: the splits were {sorted(sums)}")
     return readings
 
 
@@ -2522,10 +2634,92 @@ def quality_cli(torch, dev) -> None:
                     f"text; quantize {sorted(QUANTIZE_SHA256)} wrote the CPU's bytes")
 
 
+F32_DECODE_STEPS = 4  # f32_decode_steps's checked steps a run
+F32_DECODE_REL = 1e-4  # of the logits' scale: kernels against plain versions, both f32
+
+
+def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[str, float],
+                                                                            dict[str, int]]:
+    """Phase 8: Gemma-2B q4_0 and q4_k_m decode steps with f32 activations
+    and cache, at 1 and SERVE_SLOTS rows (each row its own rotation of one
+    PROMPT_LEN-token prompt) after a prefill. With `check`: F32_DECODE_STEPS
+    greedy steps with exact launches (a step: 73 q4_0, or 90 q4_k and 19
+    q6_k; every q4_0 and q4_k launch the f32 GEMV's, q6_k's the SIMT
+    GEMV's), each step's logits held against the same steps through the
+    plain versions on the card (the same token stream, F32_DECODE_REL of
+    the logits' scale), the plain side launching nothing. Then the device
+    busy ms of a step by torch.profiler over 8 more (`decode_profile`, as
+    phases 4 and 6; `check=False` times only, as a parent tree's turn of
+    `tools/parent_turn.py` does). Returns (the busy ms by "<format>
+    rows=<rows>", the checked steps' launches)."""
+    from gemma_tpu_torch.models import GEMMA_2B
+    from gemma_tpu_torch.runtime import Engine, EngineConfig
+    from gemma_tpu_torch.testing import make_params
+    from gemma_tpu_torch.utils.verify import plain_versions
+
+    cfg = dataclasses.replace(GEMMA_2B, activation_dtype="float32")
+    prompt = [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
+    busy: dict[str, float] = {}
+    total: dict[str, int] = {}
+    for fmt in ("q4_0", "q4_k_m"):
+        model = make_params(GEMMA_2B, fmt, seed=0, device=dev)
+        for rows in (1, SERVE_SLOTS):
+            phase = f"quality Gemma-2B {fmt} f32 decode, {rows} rows"
+            ecfg = EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=rows, kv_dtype=torch.float32)
+            prompts = [prompt[r:] + prompt[:r] for r in range(rows)]
+
+            def run(stream):
+                """A prefill and F32_DECODE_STEPS steps, greedy (stream None)
+                or replaying `stream`: (engine, cache, each step's logits,
+                the tokens fed, the steps' launches)."""
+                eng = Engine(cfg, model, ecfg)
+                logits, cache = eng.prefill(prompts)
+                outs, fed = [], []
+                torch.cuda.synchronize()
+                reset_counters()
+                for i in range(F32_DECODE_STEPS if check else 2):
+                    fed.append(logits.argmax(-1) if stream is None else stream[i])
+                    logits, cache = eng.decode_step(fed[-1], cache)
+                    outs.append(logits)
+                torch.cuda.synchronize()
+                return eng, cache, outs, fed, read_counters()
+
+            eng, cache, outs, fed, counts = run(None)
+            if check:
+                expected = expected_forward_launches(cfg, fmt, prefills=0, decode_steps=F32_DECODE_STEPS,
+                                                     decode_kernel="decode_attention")
+                expected["decode_attention_tc"] = 0  # f32 queries: the split-S decode kernel
+                f32_route_launches(expected, cfg, fmt, 0, head=False)
+                with plain_versions():
+                    _, _, plain, _, plain_counts = run(fed)
+                errs = [(a - b).abs().max().item() for a, b in zip(outs, plain)]
+                scale = max(b.abs().max().item() for b in plain)
+                info(phase, f"{F32_DECODE_STEPS} steps on {card}: per-step max|dlogit| "
+                            + ", ".join(f"{e:.3e}" for e in errs) + f", logits up to {scale:.3f} "
+                            f"(tol {F32_DECODE_REL * scale:.3e}, {F32_DECODE_REL:g} of scale); launches "
+                            f"{({k: n for k, n in counts.items() if n})}; plain side "
+                            f"{sum(plain_counts.values())}")
+                require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+                require(not any(plain_counts.values()), f"{phase}: the plain side launched {plain_counts}")
+                require(all(math.isfinite(e) for e in errs) and max(errs) <= F32_DECODE_REL * scale,
+                        f"{phase}: max|dlogit| {errs} > {F32_DECODE_REL} of {scale}")
+                add_counts(total, counts)
+                del plain
+            ms, top = decode_profile(torch, eng, cache, outs[-1].argmax(-1))
+            busy[f"{fmt} rows={rows}"] = ms
+            info("quality", f"Gemma-2B {fmt} f32 decode step, {rows} rows, on {card}: device busy "
+                            f"{ms:.4f} ms; device ms a step by kernel: {top}")
+            del eng, cache, outs
+        del model
+        torch.cuda.empty_cache()
+    return busy, total
+
+
 def quality_gates(torch, dev, card: str) -> tuple[dict[str, int], dict[str, dict]]:
     """Phase 8. Returns (its launches, the f32 routes' readings)."""
     counts: dict[str, int] = {}
     readings = check_eval_routes(torch, dev)
+    add_counts(counts, f32_decode_steps(torch, dev, card)[1])
     for model_name, fmt in PPL_MODELS:
         add_counts(counts, quality_perplexity(torch, dev, card, model_name, fmt))
     for model_name, fmt, rel in VERIFY_MODELS:
@@ -3078,14 +3272,14 @@ def rel_diff(a, b) -> float:
 
 def expected_tp_launches(cfg, fmt: str, prefills: int, steps: int, kernel: str, f32: bool) -> dict:
     """`expected_forward_launches`; f32 activations take no bf16
-    tensor-core attention route, the TF32 flash kernel, and q8_0's and
+    tensor-core attention route, the TF32 flash kernel, q8_0's and
     q4_k_m's prefill matmuls (prompts of more than 8 tokens) the TF32
-    tile."""
+    tile, and q4_0's and q4_k's other matmuls the f32 GEMV."""
     counts = expected_forward_launches(cfg, fmt, prefills, steps, kernel)
     if f32:
         for name in ("flash_attention_tc", "decode_attention_tc", "paged_attention_tc"):
             counts[name] = 0
-        tf32_prefill_launches(counts, cfg, fmt, prefills, head=False)
+        f32_route_launches(counts, cfg, fmt, prefills, head=False)
     return counts
 
 
@@ -3447,12 +3641,13 @@ def run() -> dict:
     done("decode-GEMV instruments (phase 7)")
     quality_counts, eval_readings = quality_gates(torch, dev, card)
     add_counts(counts, quality_counts)
-    results["flash_attention_tf32"] = eval_readings.pop("flash_attention_tf32")
+    for name in ("flash_attention_tf32", "q4_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32"):
+        results[name] = eval_readings.pop(name)
     for name, reading in eval_readings.items():  # the other f32 evaluation routes
-        gemvs = reading.pop("gemv_f32")
+        if "gemv_f32" in reading:  # q8_0's and q6_k's SIMT GEMVs
+            results[name]["gemv_f32"] = reading.pop("gemv_f32")
         if reading:  # q4_0's FMA tile
             results[name]["eval_f32"] = reading
-        results[name]["gemv_f32"] = gemvs
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
     done("serving across two processes (phase 9)")
@@ -3468,6 +3663,8 @@ def run() -> dict:
          "launches": counts[name], **results[name]}
         for name, (src, replaces) in {**KERNELS, **TOOL_KERNELS}.items()
     ]
+    require(counts["q4_0_matmul_gemv_f32"] > 0 and counts["q4_k_matmul_gemv_f32"] > 0,
+            "the f32 paths launched no f32 GEMV")
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -1,10 +1,48 @@
-// The tensor-core GEMV of the quantized matmuls: y[M, N] (f32) = x[M, K]
-// (bf16) . dequant(W)^T at M <= 8 with bf16 x, the decode and serving steps'
-// shape. Every format launches it at 1 <= M <= 8 with bf16 x: q4_k and q6_k
-// (`Q4KGemv` in q4_k_matmul.cu, `Q6KGemv` in q6_k_matmul.cu), q4_0 and q8_0
-// (`Q4_0Gemv`, `Q8_0Gemv` below), so every matmul of a batch-1 decode step
-// and of a serving step runs here. f32 x (evaluation mode) runs each
-// format's SIMT GEMV at M <= 8.
+// The tensor-core GEMV of the quantized matmuls: y[M, N] (f32) = x[M, K] .
+// dequant(W)^T at M <= 8, the decode and serving steps' shape. Every format
+// launches it at 1 <= M <= 8 with bf16 x: q4_k and q6_k (`Q4KGemv` in
+// q4_k_matmul.cu, `Q6KGemv` in q6_k_matmul.cu), q4_0 and q8_0 (`Q4_0Gemv`,
+// `Q8_0Gemv` below), so every matmul of a batch-1 decode step and of a
+// serving step runs here. With f32 x (evaluation mode: --verify's f32
+// cache, f32 serving) q4_0 and q4_k launch it too, at 1 <= M <= 8; q8_0's
+// and q6_k's f32 x at M <= 8 runs their SIMT GEMVs.
+//
+// The kernel is a template over the format's functor F and an element
+// policy X of x (`XBf16`, `XF32` below): the policy says how x enters
+// shared memory and how a k16 step's B fragments are read from it, the
+// skeleton (rings, fragments of W, scales, splits) is one.
+// * `XBf16`: x's own bits, one bf16 mma a k16 step.
+// * `XF32`: f32 x as three bf16 parts, x0 = bf16(x), x1 = bf16(x - x0), x2 =
+//   bf16(x - x0 - x1); each residual is exact in f32, so x0 + x1 + x2 == x
+//   for |x| from 2^-110 up to bf16's largest value, and +-0 (below 2^-110
+//   the last part's bf16 subnormals leave up to 2^-134). A k16 step issues
+//   three mma on the same A fragment (the weight's exact integers), into the
+//   group's fresh fragment, smallest part first: every product is exact in
+//   f32, so only the order of f32 sums differs from the plain version (f32
+//   x against the f32 dequant), as in the TF32 tile. Three bf16 products
+//   take a k16 step where two-pass TF32 takes four m16n8k8, and keep every
+//   functor's A fragments as they are; at M <= 8 the tensor cores are far
+//   from their limit (down at M = 8: 1.6 us of products at 989 TFLOP/s
+//   against 5.8 us of bytes). x is split once a block: plain 16-byte loads
+//   of f32 x, four 8-value chunks a thread in flight at once, issued after
+//   the ring's first stages, each value split in registers and stored as
+//   three bf16 planes at bf16's pitch, so the fragment reads stay 8-byte
+//   and conflict-free. q4_k's affine part takes its per-32 sums of the f32
+//   x (rebuilt exactly from the planes by 16-byte reads), in a fixed order.
+//   Three planes are three times bf16's bytes, so the slice a block holds
+//   (`gemv_slice_max`) is halved until a block reaches the blocks an SM
+//   that bf16 x reaches at the same M and its widest slice.
+// * `XF32Packed`, f32 x at M <= 2: the same planes, the three parts as
+//   columns of one mma (column g: part g / 2 of x row g % 2), summed across
+//   the quad's lanes at the end: one mma a k16 step, as with bf16 x.
+//   Expected (written before the first run on the card; bf16's rows of
+//   PERF.md as the base): every f32 row of q4_0 and q4_k at M = 1 and 8 at
+//   or below the f32 library call and the SIMT GEMV it replaces, 1e-5 of
+//   the output's scale; at M = 8 q4_0 down 0.022-0.030 ms, gate_up
+//   0.035-0.045, head 0.19-0.23 (K split 4 ways to keep 4 blocks an SM);
+//   q4_k down 0.021-0.028, gate_up 0.032-0.040; at M = 1 q4_0 head
+//   0.15-0.16, q4_k down 0.019-0.022. What the card measured: PERF.md
+//   section 6.
 //
 // Replaces, at that shape, the Pallas kernels `_q4_0_kernel`, `_q8_0_kernel`,
 // `_q4_k_kernel` and `_q6_k_kernel` (`_q6_k_v4_kernel` on its layout) of
@@ -25,7 +63,7 @@
 //   a warp) and x as the B operand: the n8 side is the <= 8 rows of x, rows
 //   at or past M read as zeros (at M = 1 seven of eight columns: bytes, not
 //   the tensor cores, bound the kernel). One mma does 16 x 8 x 16 products.
-// * x is copied once a block, as bf16, by 16-byte cp.async: the block's
+// * x is copied once a block (bf16: by 16-byte cp.async): the block's
 //   K-slice of its M rows (gemv_slice_max(M) values a row: at M = 1 up to
 //   all of K that a decode step has, so a split is made only to fill the
 //   card) and, at 2 <= M < 8, one zero row that the lanes of rows >= M
@@ -64,7 +102,8 @@
 //   with twice the stages a warp). Each split writes its f32 partials to a workspace the caller
 //   allocates, and they are added in split order, so a row's sums do not
 //   depend on the other rows: serving stays batch-invariant and
-//   deterministic. The plan depends on M only through M = 1's wider slice:
+//   deterministic. With bf16 x the plan depends on M only through M = 1's
+//   wider slice (with f32 x, through the policy's slice at each M):
 //   at 2 <= M <= 8 a row's sums do not depend on M, but at M = 1 a shape
 //   that splits at M >= 2 only to fit x (q8_0's K = 3072, K = 24576) sums
 //   in fewer splits, so its M = 1 and M >= 2 rows agree to the order of f32
@@ -111,6 +150,14 @@
 
 #include "dq_tile.cuh"
 
+namespace gt {
+// launches of dq_gemv_kernel with f32 x (`XF32`) in this process, every
+// format's, counted where they are issued; gt_dq_gemv_f32_launches
+// (q4_0_matmul.cu) reads it, and the wrappers count a launch as the f32
+// GEMV's by its change
+inline std::atomic<unsigned long long> dq_gemv_f32_launch_count{0};
+}  // namespace gt
+
 namespace {
 
 using namespace gt;
@@ -134,6 +181,9 @@ constexpr int kGvTargetWarps = 8;   // warps an SM the K splits aim for (q4_0, q
 constexpr int kGvSuperTargetWarps = 4;  // the same for q4_k and q6_k (measured: PERF.md)
 constexpr int kGvTicketBlocks = 4;  // blocks an SM up to which a launch sums its own splits (measured)
 constexpr int kGvPrefetchAhead = 4;  // stages of a slice that must follow a copy for its L2 prefetch
+constexpr int kGvMinBlocks = 4;     // blocks an SM of the kernel's __launch_bounds__
+constexpr size_t kGvSmemSM = 233472;  // shared memory of an H100 SM (228 KB)
+constexpr size_t kGvSmemBlock = 1024;  // of it, reserved by the runtime for each block
 
 // the plan's constants: q4_0's and q8_0's (whole 32-blocks), and q4_k's
 // and q6_k's (whole superblocks)
@@ -289,28 +339,204 @@ using Q8_0Gemv = BlockGemv<32>;
 // zeros
 __host__ __device__ constexpr int gemv_x_rows(int M) { return M == 1 ? 1 : M < 8 ? M + 1 : 8; }
 
-// K values of x a row a block holds in shared memory: at M = 1 eight times
-// kGvSliceMax, no more bytes than 8 rows of kGvSliceMax, so a split is made
-// only to fill the card
-__host__ __device__ constexpr int gemv_slice_max(int M) { return M == 1 ? 8 * kGvSliceMax : kGvSliceMax; }
+// The element policies of x. A policy's kParts bf16 parts of x lie in
+// shared memory one plane after another, each [gemv_x_rows(M)][slice + 16]
+// (a pitch of 32 mod 128 bytes, so the 8-byte reads of a half warp fall on
+// distinct banks), kBytes bytes a value in all. `load` fills the block's
+// K-slice klo .. khi of x's M rows, zeros at rows >= M and at k >= khi
+// (kAsync: by cp.async, before the ring's first stages; else after them,
+// so that the ring's copies are in flight meanwhile); `finish` turns the
+// accumulators into rows of y. A policy of more than one part also gives
+// `row`, where the lanes of B column g read (the element offset of their
+// row); `frag`, a k16 step's kFrags B fragments, each one mma, from the
+// lane's four values at v (the slot order above); and `sum32`, the sum of
+// the 32 values of x at v, in a fixed order (q4_k's affine part). bf16 x's
+// row, fragment and sums are written in the kernel itself: through policy
+// functions the compiler orders q4_k's bf16 GEMV differently
+// (`probe_variants sass` holds each bf16 GEMV to the parent's code).
 
-// shared bytes of a block at M rows of x and a K-slice: x [gemv_x_rows(M)]
-// [slice + 16] bf16 (a pitch of 32 mod 128 bytes, so the 8-byte x reads of
-// a half warp fall on distinct banks); with kAffine each 32-group's x sums
-// [slice / 32][8] f32; then each warp's f32 scale table and its ring of
-// stages
-template <class F>
+// bf16 x: its own bits, one part
+struct XBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kParts = 1, kFrags = 1;
+  static constexpr int kBytes = 2;
+  static constexpr bool kAsync = true;
+
+  __device__ __forceinline__ static void finish(float (&)[4]) {}
+
+  __device__ __forceinline__ static void load(const T* __restrict__ x, __nv_bfloat16* xs, size_t, int xpitch,
+                                              int xrows, int M, int K, int klo, int khi, int slice) {
+    for (int i = threadIdx.x; i < xrows * (slice / 8); i += kGvWarps * 32) {
+      const int r = i / (slice / 8), c = i % (slice / 8);
+      const bool ok = r < M && klo + c * 8 < khi;
+      cp_async16(smem_u32(xs + r * xpitch + c * 8), ok ? x + static_cast<size_t>(r) * K + klo + c * 8 : x,
+                 ok);
+    }
+  }
+};
+
+// f32 x as three bf16 parts (header): planes x0, x1, x2; a k16 step's
+// three mma take the parts of column g's x row g, smallest first (3 <= M <=
+// 8; `XF32Packed` at M <= 2)
+struct XF32 {
+  using T = float;
+  static constexpr int kParts = 3, kFrags = kParts;
+  static constexpr int kBytes = 2 * kParts;
+  static constexpr bool kAsync = false;
+  static constexpr int kBatch = 4;  // 8-value chunks of x a thread loads at once
+
+  __device__ __forceinline__ static int row(int g, int xrows, int xpitch, size_t) {
+    return min(g, xrows - 1) * xpitch;
+  }
+  __device__ __forceinline__ static void finish(float (&)[4]) {}
+
+  // the parts of the pair (a, b), as bf16x2 words (a in the low half)
+  __device__ __forceinline__ static void split(float a, float b, uint32_t (&p)[kParts]) {
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      p[q] = pack_bf16(a, b);
+      a -= __uint_as_float(p[q] << 16);  // exact: a less its bf16 rounding
+      b -= __uint_as_float(p[q] & 0xFFFF0000u);
+    }
+  }
+
+  __device__ __forceinline__ static void load(const T* __restrict__ x, __nv_bfloat16* xs, size_t plane,
+                                              int xpitch, int xrows, int M, int K, int klo, int khi,
+                                              int slice) {
+    const int chunks = xrows * (slice / 8);
+    for (int i0 = threadIdx.x; i0 < chunks; i0 += kBatch * kGvWarps * 32) {
+      float4 v[kBatch][2];  // all of a batch's loads in flight before the first split
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * kGvWarps * 32, r = i / (slice / 8), c = i % (slice / 8);
+        v[j][0] = v[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < chunks && r < M && klo + c * 8 < khi) {
+          const float4* src = reinterpret_cast<const float4*>(x + static_cast<size_t>(r) * K + klo + c * 8);
+          v[j][0] = __ldg(src);
+          v[j][1] = __ldg(src + 1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * kGvWarps * 32, r = i / (slice / 8), c = i % (slice / 8);
+        if (i >= chunks) break;
+        uint32_t p[4][kParts];
+        split(v[j][0].x, v[j][0].y, p[0]);
+        split(v[j][0].z, v[j][0].w, p[1]);
+        split(v[j][1].x, v[j][1].y, p[2]);
+        split(v[j][1].z, v[j][1].w, p[3]);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q)
+          *reinterpret_cast<uint4*>(xs + q * plane + r * xpitch + c * 8) =
+              make_uint4(p[0][q], p[1][q], p[2][q], p[3][q]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void frag(const __nv_bfloat16* v, size_t plane,
+                                              uint32_t (&b)[kFrags][2]) {
+#pragma unroll
+    for (int q = 0; q < kFrags; ++q) {
+      const uint2 xv = *reinterpret_cast<const uint2*>(v + q * plane);
+      b[q][0] = __byte_perm(xv.x, xv.y, 0x5410);
+      b[q][1] = __byte_perm(xv.x, xv.y, 0x7632);
+    }
+  }
+
+  // each 8 values of x rebuilt from their parts' 16-byte words, (x0 + x1) +
+  // x2 (exact), and summed as sum8_bf16 sums bf16 x
+  __device__ __forceinline__ static float sum32(const __nv_bfloat16* v, size_t plane) {
+    float s8[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float f[8];
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        const uint4 u = *reinterpret_cast<const uint4*>(v + p * plane + 8 * q);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+          f[2 * i] = p ? f[2 * i] + h.x : h.x;
+          f[2 * i + 1] = p ? f[2 * i + 1] + h.y : h.y;
+        }
+      }
+      s8[q] = ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
+    }
+    return (s8[0] + s8[1]) + (s8[2] + s8[3]);
+  }
+};
+
+// f32 x at M <= 2: the parts as columns of one mma. Column g reads part g /
+// 2 of x row g % 2 (parts past the third and rows past M: columns never
+// stored), so a k16 step is one mma as with bf16 x, and quad lane t holds
+// part t of rows 0 and 1 (c0, c1; q4_k's affine part on part 0 only, the
+// per-32 sums of rows >= M being 0); `finish` sums the parts into quad
+// lane 0, (x0 + x1) + x2, which stores them. Its shared memory and plan are
+// XF32's.
+struct XF32Packed : XF32 {
+  static constexpr int kFrags = 1;
+
+  __device__ __forceinline__ static int row(int g, int xrows, int xpitch, size_t plane) {
+    return min(g / 2, kParts - 1) * static_cast<int>(plane) + min(g % 2, xrows - 1) * xpitch;
+  }
+
+  __device__ __forceinline__ static void frag(const __nv_bfloat16* v, size_t, uint32_t (&b)[kFrags][2]) {
+    const uint2 xv = *reinterpret_cast<const uint2*>(v);
+    b[0][0] = __byte_perm(xv.x, xv.y, 0x5410);
+    b[0][1] = __byte_perm(xv.x, xv.y, 0x7632);
+  }
+
+  __device__ __forceinline__ static void finish(float (&acc)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sum = acc[i];
+#pragma unroll
+      for (int q = 1; q < kParts; ++q) sum += __shfl_down_sync(0xffffffffu, acc[i], q);
+      acc[i] = sum;
+    }
+  }
+};
+
+// shared bytes of a block at M rows of x under policy X and a K-slice: x,
+// X::kBytes a value of [gemv_x_rows(M)][slice + 16]; with kAffine each
+// 32-group's x sums [slice / 32][8] f32; then each warp's f32 scale table
+// and its ring of stages
+template <class F, class X>
 __host__ __device__ constexpr size_t gemv_warps_offset(int M, int slice) {
-  return 2 * static_cast<size_t>(gemv_x_rows(M)) * (slice + 16) +
-         (F::kAffine ? size_t{32} * (slice / 32) : 0);
+  return size_t{X::kBytes} * gemv_x_rows(M) * (slice + 16) + (F::kAffine ? size_t{32} * (slice / 32) : 0);
 }
 template <class F>
 __host__ __device__ constexpr size_t gemv_warp_bytes() {
   return 4 * size_t{F::kTable} + size_t{kGvStages} * F::kStage;
 }
-template <class F>
+template <class F, class X>
 __host__ __device__ constexpr size_t gemv_smem_bytes(int M, int slice) {
-  return gemv_warps_offset<F>(M, slice) + kGvWarps * gemv_warp_bytes<F>();
+  return gemv_warps_offset<F, X>(M, slice) + kGvWarps * gemv_warp_bytes<F>();
+}
+
+// blocks an SM that blocks of `smem` bytes reach by shared memory, at most
+// the kernel's kGvMinBlocks
+__host__ __device__ constexpr int gemv_sm_blocks(size_t smem) {
+  const size_t blocks = kGvSmemSM / (smem + kGvSmemBlock);
+  return blocks < kGvMinBlocks ? static_cast<int>(blocks) : kGvMinBlocks;
+}
+
+// K values of x a row a block holds in shared memory. bf16 x: at M = 1 eight
+// times kGvSliceMax, no more bytes than 8 rows of kGvSliceMax, so a split is
+// made only to fill the card. A policy of more parts: bf16's, halved while
+// a block of format F would reach fewer blocks an SM than with bf16 x
+template <class F, class X = XBf16>
+__host__ __device__ constexpr int gemv_slice_max(int M) {
+  const int bf16 = M == 1 ? 8 * kGvSliceMax : kGvSliceMax;
+  if constexpr (X::kParts == 1) {
+    return bf16;
+  } else {
+    const int blocks = gemv_sm_blocks(gemv_smem_bytes<F, XBf16>(M, bf16));
+    int s = bf16;
+    while (s > F::kGran && gemv_sm_blocks(gemv_smem_bytes<F, X>(M, s)) < blocks) s /= 2;
+    return s;
+  }
 }
 
 // The sums y = work[0] + work[1] + ... (in split order) of row tile
@@ -354,9 +580,9 @@ __device__ __forceinline__ void gemv_split_sum(const float* __restrict__ work, f
 // writes y, or with splits its partial sums [M][N] at work + z * M * N;
 // given tickets (one a tile, 0 on entry and on return), the tile's last
 // block then writes y from them
-template <class F>
-__global__ void __launch_bounds__(kGvWarps * 32, 4)
-dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, float* __restrict__ y,
+template <class F, class X>
+__global__ void __launch_bounds__(kGvWarps * 32, kGvMinBlocks)
+dq_gemv_kernel(const typename X::T* __restrict__ x, const typename F::Weight w, float* __restrict__ y,
                float* __restrict__ work, int* __restrict__ tickets, int M, int N, int K, int slice) {
   constexpr int kS = kGvStages;
   static_assert(F::kStage % 16 == 0 && F::kStageK % 32 == 0, "stage shape");
@@ -365,10 +591,12 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
   const int xpitch = slice + 16;  // bf16
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(gv_smem);
   const int xrows = gemv_x_rows(M);
-  float* xsum = reinterpret_cast<float*>(gv_smem + 2 * static_cast<size_t>(xrows) * xpitch);
+  float* xsum = reinterpret_cast<float*>(gv_smem + X::kBytes * static_cast<size_t>(xrows) * xpitch);
+  // bf16 of one part of x (one part: none, so bf16 x's code stays the parent's)
+  const size_t plane = X::kParts > 1 ? static_cast<size_t>(xrows) * xpitch : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* table = reinterpret_cast<float*>(gv_smem + gemv_warps_offset<F>(M, slice) +
+  float* table = reinterpret_cast<float*>(gv_smem + gemv_warps_offset<F, X>(M, slice) +
                                           warp * gemv_warp_bytes<F>());
   unsigned char* ring = reinterpret_cast<unsigned char*>(table + F::kTable);
   const int n0 = (blockIdx.x * kGvWarps + warp) * 16;
@@ -376,12 +604,7 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
   const int nstages = n0 < N ? (khi - klo + F::kStageK - 1) / F::kStageK : 0;
 
   // the block's x slice: its rows, zeros at rows >= M and at k >= K
-  for (int i = threadIdx.x; i < xrows * (slice / 8); i += kGvWarps * 32) {
-    const int r = i / (slice / 8), c = i % (slice / 8);
-    const bool ok = r < M && klo + c * 8 < khi;
-    cp_async16(smem_u32(xs + r * xpitch + c * 8), ok ? x + static_cast<size_t>(r) * K + klo + c * 8 : x,
-               ok);
-  }
+  if constexpr (X::kAsync) X::load(x, xs, plane, xpitch, xrows, M, K, klo, khi, slice);
   cp_async_commit();
 
   // stage st of this warp's rows into ring slot st % kS
@@ -395,8 +618,12 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
   auto compute = [&](int st) {
     const unsigned char* src = ring + (st % kS) * F::kStage;
     const int kb = klo + st * F::kStageK;
-    // rows >= M: the zero row (M = 1: x, its columns unused)
-    const __nv_bfloat16* xrow = xs + min(g, xrows - 1) * xpitch + (kb - klo) + 4 * t;
+    const __nv_bfloat16* xrow;
+    if constexpr (X::kParts == 1) {  // rows >= M: the zero row (M = 1: x, its columns unused)
+      xrow = xs + min(g, xrows - 1) * xpitch + (kb - klo) + 4 * t;
+    } else {
+      xrow = xs + X::row(g, xrows, xpitch, plane) + (kb - klo) + 4 * t;
+    }
 #pragma unroll
     for (int p = 0; p < F::kPieces; ++p) {
       uint32_t r[F::kWords];
@@ -412,8 +639,15 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
         for (int s = 0; s < F::kSteps; ++s) {
           uint32_t a[4];
           F::a_frag(r, gi, s, a);
-          const uint2 xv = *reinterpret_cast<const uint2*>(xrow + F::x_off(p, gi, s));
-          mma_16816(f, a, __byte_perm(xv.x, xv.y, 0x5410), __byte_perm(xv.x, xv.y, 0x7632));
+          if constexpr (X::kParts == 1) {
+            const uint2 xv = *reinterpret_cast<const uint2*>(xrow + F::x_off(p, gi, s));
+            mma_16816(f, a, __byte_perm(xv.x, xv.y, 0x5410), __byte_perm(xv.x, xv.y, 0x7632));
+          } else {
+            uint32_t b[X::kFrags][2];
+            X::frag(xrow + F::x_off(p, gi, s), plane, b);
+#pragma unroll
+            for (int q = X::kFrags - 1; q >= 0; --q) mma_16816(f, a, b[q][0], b[q][1]);  // smallest part first
+          }
         }
         // c0, c1: row g, x rows 2t, 2t + 1; c2, c3: row g + 8
         float d[2], off[2];
@@ -441,6 +675,7 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
     if (s < nstages) issue(s);
     cp_async_commit();
   }
+  if constexpr (!X::kAsync) X::load(x, xs, plane, xpitch, xrows, M, K, klo, khi, slice);
   cp_async_wait<kS - 2>();
   __syncthreads();
   if constexpr (F::kAffine) {
@@ -450,8 +685,12 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
       const int grp = i / 8, m = i % 8;
       float s = 0.f;
       if (m < M) {
-        const uint4* v = reinterpret_cast<const uint4*>(xs + m * xpitch + 32 * grp);
-        s = (sum8_bf16(v[0]) + sum8_bf16(v[1])) + (sum8_bf16(v[2]) + sum8_bf16(v[3]));
+        if constexpr (X::kParts == 1) {
+          const uint4* v = reinterpret_cast<const uint4*>(xs + m * xpitch + 32 * grp);
+          s = (sum8_bf16(v[0]) + sum8_bf16(v[1])) + (sum8_bf16(v[2]) + sum8_bf16(v[3]));
+        } else {
+          s = X::sum32(xs + m * xpitch + 32 * grp, plane);
+        }
       }
       xsum[i] = s;
     }
@@ -470,6 +709,7 @@ dq_gemv_kernel(const __nv_bfloat16* __restrict__ x, const typename F::Weight w, 
     cp_async_wait<kS - 2>();  // stage st + 1 has landed: this lane's copies,
     __syncwarp();             // and, after the warp's barrier, every lane's
   }
+  X::finish(acc);
   float* out = gridDim.y > 1 ? work + static_cast<size_t>(blockIdx.y) * M * N : y;
   const int m = 2 * t;
   if (nstages > 0) {
@@ -504,17 +744,17 @@ struct GemvPlan {
   int splits;  // grid y
 };
 
-// The plan at (M, N, K): the fewest splits whose slice (whole multiples of
-// P::kGran) fits gemv_slice_max(M), doubled while the row tiles hold fewer
-// than P::kTargetWarps warps an SM and each slice keeps at least
-// P::kSliceMin. It depends on M only through gemv_slice_max: at M = 1 only
-// the card's fill splits K.
-template <class P>
+// The plan at (M, N, K) under policy X: the fewest splits whose slice
+// (whole multiples of P::kGran) fits gemv_slice_max<P, X>(M), doubled while
+// the row tiles hold fewer than P::kTargetWarps warps an SM and each slice
+// keeps at least P::kSliceMin. It depends on M only through
+// gemv_slice_max: with bf16 x at M = 1 only the card's fill splits K.
+template <class P, class X = XBf16>
 GemvPlan dq_gemv_plan(int M, int N, int K) {
   const long tiles = (N + 15) / 16;
   auto slice_of = [K](int splits) { return (K / P::kGran + splits - 1) / splits * P::kGran; };
   int splits = 1;
-  while (slice_of(splits) > gemv_slice_max(M)) splits *= 2;
+  while (slice_of(splits) > gemv_slice_max<P, X>(M)) splits *= 2;
   while (tiles * splits < static_cast<long>(P::kTargetWarps) * sm_count() &&
          slice_of(2 * splits) >= P::kSliceMin)
     splits *= 2;
@@ -522,10 +762,10 @@ GemvPlan dq_gemv_plan(int M, int N, int K) {
   return {slice, (K + slice - 1) / slice};
 }
 
-// bytes of the workspace of a (M, N, K) GEMV of plan P (0: none)
-template <class P>
+// bytes of the workspace of a (M, N, K) GEMV of plan P under policy X (0: none)
+template <class P, class X = XBf16>
 size_t dq_gemv_work_bytes(int M, int N, int K) {
-  const GemvPlan p = dq_gemv_plan<P>(M, N, K);
+  const GemvPlan p = dq_gemv_plan<P, X>(M, N, K);
   return p.splits > 1 ? static_cast<size_t>(p.splits) * M * N * sizeof(float) : 0;
 }
 
@@ -537,35 +777,36 @@ inline bool dq_gemv_ticket_sum(const GemvPlan& p, int N) {
   return p.splits > 1 && tiles * p.splits <= static_cast<long>(kGvTicketBlocks) * sm_count();
 }
 
-// tickets of a (M, N, K) GEMV of plan P: one a row tile where it sums its
-// splits by ticket (0: none)
-template <class P>
+// tickets of a (M, N, K) GEMV of plan P under policy X: one a row tile where
+// it sums its splits by ticket (0: none)
+template <class P, class X = XBf16>
 int dq_gemv_tickets(int M, int N, int K) {
-  return dq_gemv_ticket_sum(dq_gemv_plan<P>(M, N, K), N) ? ((N + 15) / 16 + kGvWarps - 1) / kGvWarps : 0;
+  return dq_gemv_ticket_sum(dq_gemv_plan<P, X>(M, N, K), N) ? ((N + 15) / 16 + kGvWarps - 1) / kGvWarps : 0;
 }
 
-// Raise dq_gemv_kernel<F>'s dynamic shared memory limit on the current
+// Raise dq_gemv_kernel<F, X>'s dynamic shared memory limit on the current
 // device to at least `smem`, once a device and size (`raise_smem_limit`).
-template <class F>
+template <class F, class X>
 cudaError_t gemv_smem_limit(size_t smem) {
   static std::atomic<int> limits[kSmemDevices];  // bytes set so far, 0 on start
-  return raise_smem_limit(dq_gemv_kernel<F>, limits, smem);
+  return raise_smem_limit(dq_gemv_kernel<F, X>, limits, smem);
 }
 
-// work: dq_gemv_work_bytes<F>(M, N, K) bytes, tickets: dq_gemv_tickets<F>(M,
-// N, K) ints, 0 (each may be null when its size is 0)
-template <class F>
-cudaError_t launch_dq_gemv(const __nv_bfloat16* x, const typename F::Weight& w, float* y, float* work,
+// work: dq_gemv_work_bytes<F, X>(M, N, K) bytes, tickets: dq_gemv_tickets<F,
+// X>(M, N, K) ints, 0 (each may be null when its size is 0)
+template <class F, class X = XBf16>
+cudaError_t launch_dq_gemv(const typename X::T* x, const typename F::Weight& w, float* y, float* work,
                            int* tickets, int M, int N, int K, cudaStream_t s) {
-  const GemvPlan p = dq_gemv_plan<F>(M, N, K);
+  const GemvPlan p = dq_gemv_plan<F, X>(M, N, K);
   const bool ticket = dq_gemv_ticket_sum(p, N);
   if (p.splits > 1 && (work == nullptr || (ticket && tickets == nullptr))) return cudaErrorInvalidValue;
-  const size_t smem = gemv_smem_bytes<F>(M, p.slice);
-  const cudaError_t e = gemv_smem_limit<F>(smem);
+  const size_t smem = gemv_smem_bytes<F, X>(M, p.slice);
+  const cudaError_t e = gemv_smem_limit<F, X>(smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(((N + 15) / 16 + kGvWarps - 1) / kGvWarps, p.splits);
-  dq_gemv_kernel<F><<<grid, kGvWarps * 32, smem, s>>>(x, w, y, work, ticket ? tickets : nullptr, M, N, K,
-                                                      p.slice);
+  dq_gemv_kernel<F, X><<<grid, kGvWarps * 32, smem, s>>>(x, w, y, work, ticket ? tickets : nullptr, M, N, K,
+                                                         p.slice);
+  if constexpr (X::kParts > 1) dq_gemv_f32_launch_count.fetch_add(1, std::memory_order_relaxed);
   if (p.splits > 1 && !ticket) {
     const size_t MN = static_cast<size_t>(M) * N;
     const size_t blocks = (MN + 255) / 256;
@@ -573,6 +814,15 @@ cudaError_t launch_dq_gemv(const __nv_bfloat16* x, const typename F::Weight& w, 
         work, y, MN, p.splits);
   }
   return cudaGetLastError();
+}
+
+// f32 x: XF32Packed at M <= 2, XF32 above (one plan: dq_gemv_work_bytes<F,
+// XF32> and dq_gemv_tickets<F, XF32> size both)
+template <class F>
+cudaError_t launch_dq_gemv_f32(const float* x, const typename F::Weight& w, float* y, float* work,
+                               int* tickets, int M, int N, int K, cudaStream_t s) {
+  return M <= 2 ? launch_dq_gemv<F, XF32Packed>(x, w, y, work, tickets, M, N, K, s)
+                : launch_dq_gemv<F, XF32>(x, w, y, work, tickets, M, N, K, s);
 }
 
 }  // namespace

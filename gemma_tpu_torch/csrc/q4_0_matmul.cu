@@ -10,26 +10,25 @@
 // Four launch shapes, one op:
 //
 // * Decode (M <= 8) is bound by weight bytes: each weight is used M times,
-//   far below the card's ~295 flop/byte balance point. With bf16 x it runs
-//   on the tensor cores, the batch-1 decode step (M = 1) and serving (2 <=
-//   M <= 8) alike: `dq_gemv_kernel<Q4_0Gemv>` of dq_gemv.cuh (W the A
-//   operand of bf16 mma.sync as its integers u - 8, x the n8 operand, each
-//   block's fragment scaled by d in f32: the gdot numerics below), with x
-//   copied once a block, each warp's rows streamed through its own cp.async
-//   ring, and at M = 1 K split only to fill the card.
-// * With f32 x (evaluation mode) at M <= 8, `q4_0_gemv_kernel` (SIMT)
-//   gives each warp one output row; a lane's 16-byte load along K is
-//   exactly one block (32 nibbles + one scale), so a warp reads 512
-//   contiguous bytes per step. Nibbles
-//   unpack and scale in registers, FMA into f32, and a warp shuffle reduces.
-//   x is staged in shared memory in K-chunks of 1024 (all of K = 16384 at
-//   M = 8 in f32 would not fit), padded to 36 floats per block so the
-//   lanes' float4 reads do not conflict on banks. Numerics follow the
-//   reference kernel at M <= 8: weights and x in f32. Rows per block
-//   (warps), the dot form (Mode) and the scale type are template
-//   parameters; f32 x launches kGemvWarps = 8, kGDot, f16 scales.
-//   Two bench entry points launch the same kernel with bf16 x (a shape the
-//   main path runs on the tensor cores):
+//   far below the card's ~295 flop/byte balance point. It runs on the
+//   tensor cores, the batch-1 decode step (M = 1) and serving (2 <= M <= 8)
+//   alike, bf16 and f32 x: `dq_gemv_kernel<Q4_0Gemv, X>` of dq_gemv.cuh (W
+//   the A operand of bf16 mma.sync as its integers u - 8, x the n8 operand,
+//   each block's fragment scaled by d in f32: the gdot numerics below),
+//   with x copied once a block, each warp's rows streamed through its own
+//   cp.async ring, and at M = 1 K split only to fill the card. f32 x
+//   (evaluation mode) enters as three bf16 parts (`XF32`: three mma a k16
+//   step; `XF32Packed` at M <= 2: one, the parts as its columns): the
+//   reference kernel's f32 weights and x at M <= 8, to the order of f32
+//   sums.
+// * `q4_0_gemv_kernel` (SIMT, bf16 x) is an instrument only: each warp one
+//   output row; a lane's 16-byte load along K is exactly one block (32
+//   nibbles + one scale), so a warp reads 512 contiguous bytes per step.
+//   Nibbles unpack and scale in registers, FMA into f32, and a warp shuffle
+//   reduces. x is staged in shared memory as f32 in K-chunks of 1024,
+//   padded to 36 floats per block so the lanes' float4 reads do not
+//   conflict on banks. Rows per block (warps), the dot form (Mode) and the
+//   scale type are template parameters. Two bench entry points launch it:
 //   `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps (replaces `call` of
 //   tools/bench_bn_sweep.py, the reference kernel at a forced N tile) and
 //   `gt_qmm_variant` in the modes below with f32, bf16 or f16 scales
@@ -40,7 +39,7 @@
 //     kRsc      w = bf16((u - 8) * d)            (its f32sc, rsc, u16sc)
 //     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (its bf16sc, rscb)
 //     kNoScale  w = u - 8
-//     kGDot     d * sum_32((u - 8) * x)          (f32 x's, gdot)
+//     kGDot     d * sum_32((u - 8) * x)          (gdot)
 //   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
 //   scale's broadcast lived; here each pair is one instantiation.
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
@@ -87,9 +86,9 @@ __device__ __forceinline__ void unpack_block(uint4 raw, float w[32]) {
   }
 }
 
-template <int M, typename TX, int Warps = kGemvWarps, int Mode = kGDot, typename SC = __half>
+template <int M, int Warps = kGemvWarps, int Mode = kGDot, typename SC = __half>
 __global__ void __launch_bounds__(Warps * 32)
-q4_0_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+q4_0_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
                  const SC* __restrict__ scales, float* __restrict__ y, int N, int K) {
   __shared__ __align__(16) float xs[M][kGemvBlocks][kXPad];
   const int warp = threadIdx.x / 32;
@@ -232,20 +231,20 @@ q4_0_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
   }
 }
 
-template <typename TX>
-void launch_gemv(const TX* x, const uint8_t* qs, const __half* sc, float* y, int M, int N, int K,
+// the SIMT GEMV (kGDot, f16 scales) at M <= 8, bf16 x: gt_qmm_variant's
+void launch_gemv(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc, float* y, int M, int N, int K,
                  cudaStream_t s) {
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const dim3 block(kGemvWarps * 32);
   switch (M) {
-    case 1: q4_0_gemv_kernel<1, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 2: q4_0_gemv_kernel<2, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 3: q4_0_gemv_kernel<3, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 4: q4_0_gemv_kernel<4, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 5: q4_0_gemv_kernel<5, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 6: q4_0_gemv_kernel<6, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 7: q4_0_gemv_kernel<7, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    default: q4_0_gemv_kernel<8, TX><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 1: q4_0_gemv_kernel<1><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 2: q4_0_gemv_kernel<2><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 3: q4_0_gemv_kernel<3><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 4: q4_0_gemv_kernel<4><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 5: q4_0_gemv_kernel<5><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 6: q4_0_gemv_kernel<6><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    case 7: q4_0_gemv_kernel<7><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
+    default: q4_0_gemv_kernel<8><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
   }
 }
 
@@ -303,17 +302,19 @@ cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void*
   const TX* xp = static_cast<const TX*>(x);
   const BlockWeight w{static_cast<const uint8_t*>(qs), static_cast<const __half*>(scales)};
   float* yp = static_cast<float*>(y);
+  if (M <= 8) {
+    float* wk = static_cast<float*>(work);
+    int* tk = static_cast<int*>(tickets);
+    if constexpr (std::is_same<TX, float>::value)
+      return launch_dq_gemv_f32<Q4_0Gemv>(xp, w, yp, wk, tk, M, N, K, s);
+    else
+      return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, wk, tk, M, N, K, s);
+  }
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    if (M > 8) return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M, N,
-                                    K, s);
+    return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
   } else {
-    if (M > 8) {
-      const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-      q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
-    } else {
-      launch_gemv<TX>(xp, w.qs, w.scales, yp, M, N, K, s);
-    }
+    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+    q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
     return cudaGetLastError();
   }
 }
@@ -337,22 +338,26 @@ extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const 
 }
 
 extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K);  // q8_0_matmul.cu
-extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K);  // q4_k_matmul.cu
+extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K, int* tickets);  // q4_k_matmul.cu
 extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K);  // q6_k_matmul.cu
 
 // The scratch a quantized matmul of format `fmt` (0 q4_0, 1 q8_0, 2 q4_k,
 // 3 q6_k: kernels/build.py FORMAT_CODES) takes at (x_dtype, M, N, K):
 // returns the bytes of its f32 scratch, the K-split partial sums of its
-// bf16 prefill tile (M > 8), of its tensor-core GEMV (M <= 8) or of q8_0's,
-// q4_k's and q6_k's f32 TF32 tile (M > 8), and sets *tickets to the count of
-// ints (0 between launches) the GEMV's last block a row tile takes to sum
-// the splits; each 0 where there is none.
+// bf16 prefill tile (M > 8), of its tensor-core GEMV (M <= 8; with f32 x
+// q4_0's and q4_k's) or of q8_0's, q4_k's and q6_k's f32 TF32 tile (M > 8),
+// and sets *tickets to the count of ints (0 between launches) the GEMV's
+// last block a row tile takes to sum the splits; each 0 where there is none.
 extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K, int* tickets) {
   *tickets = 0;
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
+  if (x_dtype == kF32 && M <= 8 && fmt == 0) {
+    *tickets = dq_gemv_tickets<Q4_0Gemv, XF32>(M, N, K);
+    return dq_gemv_work_bytes<Q4_0Gemv, XF32>(M, N, K);
+  }
   if (x_dtype == kF32 && M > 8 && fmt == 1) return gt_q8_0_f32_work_bytes(M, N, K);
-  if (x_dtype == kF32 && M > 8 && K % 256 == 0 && (fmt == 2 || fmt == 3))
-    return fmt == 2 ? gt_q4_k_f32_work_bytes(M, N, K) : gt_q6_k_f32_work_bytes(M, N, K);
+  if (x_dtype == kF32 && K % 256 == 0 && fmt == 2) return gt_q4_k_f32_work_bytes(M, N, K, tickets);
+  if (x_dtype == kF32 && M > 8 && K % 256 == 0 && fmt == 3) return gt_q6_k_f32_work_bytes(M, N, K);
   if (x_dtype != kBF16) return 0;
   if (M > 8) return dq_tile_work_bytes(M, N, K);
   if (fmt <= 1) {
@@ -369,7 +374,7 @@ namespace {
 template <int Warps>
 void launch_gemv_m8(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc, float* y, int N,
                     int K, cudaStream_t s) {
-  q4_0_gemv_kernel<8, __nv_bfloat16, Warps><<<(N + Warps - 1) / Warps, Warps * 32, 0, s>>>(x, qs, sc, y, N, K);
+  q4_0_gemv_kernel<8, Warps><<<(N + Warps - 1) / Warps, Warps * 32, 0, s>>>(x, qs, sc, y, N, K);
 }
 
 template <int Mode>
@@ -381,15 +386,15 @@ bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc,
   auto* yp = static_cast<float*>(y);
   switch (sc_dtype) {
     case kScF32:
-      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, float><<<grid, kGemvWarps * 32, 0, s>>>(
+      q4_0_gemv_kernel<8, kGemvWarps, Mode, float><<<grid, kGemvWarps * 32, 0, s>>>(
           xp, qp, static_cast<const float*>(sc), yp, N, K);
       return true;
     case kScBF16:
-      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, __nv_bfloat16><<<grid, kGemvWarps * 32, 0, s>>>(
+      q4_0_gemv_kernel<8, kGemvWarps, Mode, __nv_bfloat16><<<grid, kGemvWarps * 32, 0, s>>>(
           xp, qp, static_cast<const __nv_bfloat16*>(sc), yp, N, K);
       return true;
     case kScF16:
-      q4_0_gemv_kernel<8, __nv_bfloat16, kGemvWarps, Mode, __half><<<grid, kGemvWarps * 32, 0, s>>>(
+      q4_0_gemv_kernel<8, kGemvWarps, Mode, __half><<<grid, kGemvWarps * 32, 0, s>>>(
           xp, qp, static_cast<const __half*>(sc), yp, N, K);
       return true;
     default:
@@ -401,15 +406,15 @@ bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc,
 
 // The q4_0 SIMT GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K],
 // scales [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32:
-// M = 8 in every mode; kGDot on f16 scales at any M <= 8 (the kernel f32 x
-// launches, here on bf16 x). Returns a cudaError_t value.
+// M = 8 in every mode; kGDot on f16 scales at any M <= 8. Returns a
+// cudaError_t value.
 extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales,
                               int sc_dtype, void* y, int M, int N, int K, void* stream) {
   if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kGDot && sc_dtype == kScF16) {
-    launch_gemv<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-                               static_cast<const __half*>(scales), static_cast<float*>(y), M, N, K, s);
+    launch_gemv(static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
+                static_cast<const __half*>(scales), static_cast<float*>(y), M, N, K, s);
     return static_cast<int>(cudaGetLastError());
   }
   bool launched = false;
@@ -445,6 +450,12 @@ extern "C" int gt_q4_0_gemv_warps(const void* x, const void* qs, const void* sca
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// launches of the tensor-core GEMV with f32 x (dq_gemv.cuh), every
+// format's, so far in this process
+extern "C" unsigned long long gt_dq_gemv_f32_launches() {
+  return dq_gemv_f32_launch_count.load(std::memory_order_relaxed);
 }
 
 extern "C" const char* gt_error_string(int err) {

@@ -10,20 +10,24 @@
 //
 // What launches where, one op:
 //
-// * Decode and serving (M <= 8) with bf16 x are bound by weight bytes: 4.5
-//   bits a weight used M times, far below the card's ~295 flop/byte balance
-//   point. They run on the tensor cores through the shared GEMV of
-//   dq_gemv.cuh (`dq_gemv_kernel<Q4KGemv>`): the weight's integers q - 8 as
-//   the A operand of bf16 mma.sync (a nibble pair to bf16x2 by one mask-or
-//   and one subtract, no conversion per weight), x the n8 operand, each
+// * Decode and serving (M <= 8) are bound by weight bytes: 4.5 bits a
+//   weight used M times, far below the card's ~295 flop/byte balance point.
+//   They run on the tensor cores through the shared GEMV of dq_gemv.cuh
+//   (`dq_gemv_kernel<Q4KGemv, X>`), bf16 and f32 x: the weight's integers
+//   q - 8 as the A operand of bf16 mma.sync (a nibble pair to bf16x2 by one
+//   mask-or and one subtract, no conversion per weight), x the n8 operand, each
 //   32-group's fragment scaled by d*sc in f32 and the affine part (8 d*sc -
 //   dmin*mn) * sum(x) added in f32 (the reference's `xs_ref` side input,
 //   quant_matmul.py:110-143); x copied once a block with its per-32 sums,
 //   each warp's 16 rows streamed a superblock a stage through its own
 //   cp.async ring, the 6-bit table decoded once a row and superblock, K
 //   split in whole superblocks where the rows alone do not fill the card.
-// * With f32 x (evaluation mode) M <= 8 runs the SIMT `q4_k_gemv_kernel`:
-//   each warp one output row, lane l's 16-byte load payload bytes 16l..16l+15
+//   f32 x (evaluation mode) enters as three bf16 parts (`XF32`: three mma
+//   a k16 step; `XF32Packed` at M <= 2: one, the parts as its columns), its
+//   per-32 sums taken from the f32 x: the reference kernel's f32 weights
+//   and x at M <= 8, to the order of f32 sums.
+// * The SIMT `q4_k_gemv_kernel` (bf16 x) is an instrument only: each warp
+//   one output row, lane l's 16-byte load payload bytes 16l..16l+15
 //   of a 512-byte span (four superblocks), half a 32-byte chunk: 16 weights
 //   of sub-block 2c (low nibbles) and 16 of 2c + 1 (high nibbles). The lane
 //   decodes its two sub-blocks' sc/mn from the 12-byte table and d/dmin in
@@ -33,7 +37,7 @@
 //   floats so the lanes' float4 reads do not conflict on banks); all math
 //   f32. A template mode drops parts of that math for the metadata ablation
 //   that replaces `_kernel` of tools/bench_q4k_variants.py (`gt_q4_k_variant`,
-//   M = 8, bf16 x): noaffine forms d*sc * (q - 8) (no dmin*mn, no sum(x)),
+//   M = 8): noaffine forms d*sc * (q - 8) (no dmin*mn, no sum(x)),
 //   nosub d * (q - 8) (no 6-bit table decode, no affine part).
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
 //   is bound by operations (gate_up at M = 203: 0.0275 ms at 989 TFLOP/s
@@ -113,9 +117,9 @@ __device__ __forceinline__ int gemv_slot(int e) {
   return (sb * 8 + c * 2 + h) * kXPad + hi * 16 + (s & 15);
 }
 
-template <int M, typename TX, int Mode = kProd>
+template <int M, int Mode = kProd>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-q4_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ qs,
+q4_k_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
                  const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
                  float* __restrict__ y, int N, int K) {
   __shared__ __align__(16) float xs[M][32 * kXPad];
@@ -369,27 +373,19 @@ cudaError_t launch_q4_k(const void* x, const void* qs, const void* table, const 
   const Q4KTile::Weight w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(table),
                           static_cast<const __half2*>(dm)};
   float* yp = static_cast<float*>(y);
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    if (M > 8) return launch_dq_tile<Q4KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    return launch_dq_gemv<Q4KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
-                                   N, K, s);
-  } else if (M > 8) {
-    return launch_dq_tile_tf32<Q4KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-  } else {
-    const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-    const dim3 block(kGemvWarps * 32);
-    switch (M) {
-      case 1: q4_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 2: q4_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 3: q4_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 4: q4_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 5: q4_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 6: q4_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      case 7: q4_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-      default: q4_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, w.qs, w.table, w.dm, yp, N, K); break;
-    }
+  if (M <= 8) {
+    float* wk = static_cast<float*>(work);
+    int* tk = static_cast<int*>(tickets);
+    if constexpr (std::is_same<TX, float>::value)
+      return launch_dq_gemv_f32<Q4KGemv>(xp, w, yp, wk, tk, M, N, K, s);
+    else
+      return launch_dq_gemv<Q4KGemv>(xp, w, yp, wk, tk, M, N, K, s);
   }
-  return cudaGetLastError();
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return launch_dq_tile<Q4KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+  } else {
+    return launch_dq_tile_tf32<Q4KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+  }
 }
 
 }  // namespace
@@ -400,9 +396,12 @@ extern "C" unsigned long long gt_dq_tile_tf32_launches() {
   return dq_tile_tf32_launch_count.load(std::memory_order_relaxed);
 }
 
-// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
-extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K) {
-  return dq_tile_tf32_work_bytes<Q4KTf32>(M, N, K);
+// bytes of the f32 route's K-split scratch (gt_matmul_work_bytes): the
+// GEMV's at M <= 8, which sets *tickets, and the TF32 tile's above
+extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K, int* tickets) {
+  if (M > 8) return dq_tile_tf32_work_bytes<Q4KTf32>(M, N, K);
+  *tickets = dq_gemv_tickets<Q4KGemv, XF32>(M, N, K);
+  return dq_gemv_work_bytes<Q4KGemv, XF32>(M, N, K);
 }
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; qs/scales/dm: the
@@ -422,7 +421,7 @@ extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);
+// The SIMT GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);
 // y: [8, N] f32. Returns a cudaError_t value.
 extern "C" int gt_q4_k_variant(const void* x, int mode, const void* qs, const void* scales,
                                const void* dm, void* y, int N, int K, void* stream) {
@@ -436,9 +435,9 @@ extern "C" int gt_q4_k_variant(const void* x, int mode, const void* qs, const vo
   const dim3 block(kGemvWarps * 32);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kProd: q4_k_gemv_kernel<8, __nv_bfloat16, kProd><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-    case kNoAffine: q4_k_gemv_kernel<8, __nv_bfloat16, kNoAffine><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-    case kNoSub: q4_k_gemv_kernel<8, __nv_bfloat16, kNoSub><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    case kProd: q4_k_gemv_kernel<8, kProd><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    case kNoAffine: q4_k_gemv_kernel<8, kNoAffine><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
+    case kNoSub: q4_k_gemv_kernel<8, kNoSub><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -194,6 +194,9 @@ def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ct
     # launches of the TF32 tile (csrc/dq_tile_tf32.cuh) so far in this process
     lib.gt_dq_tile_tf32_launches.argtypes = []
     lib.gt_dq_tile_tf32_launches.restype = ctypes.c_ulonglong
+    # launches of the GEMV with f32 x (csrc/dq_gemv.cuh) so far in this process
+    lib.gt_dq_gemv_f32_launches.argtypes = []
+    lib.gt_dq_gemv_f32_launches.restype = ctypes.c_ulonglong
     return lib
 
 

@@ -18,8 +18,10 @@ q6_k run above M = 8 on the tensor cores too, through the TF32 tile of
 `csrc/dq_tile_tf32.cuh` (the weight's integers against x split into two
 TF32 parts, scaled per group in f32: 1e-5 of the output's scale), counted
 also in their wrappers' `tf32_launches` as the library reports its launches;
-the rest of f32 x runs SIMT: every format's GEMV at M <= 8 and q4_0's
-plain-FMA tile above.
+q4_0 and q4_k at 1 <= M <= 8 through the GEMV with x split into three bf16
+parts (three `mma.sync` a k16 step, one at M <= 2: 1e-5 of the output's
+scale), counted also in `gemv_f32_launches`; the rest of f32 x runs SIMT:
+q8_0's and q6_k's GEMV at M <= 8 and q4_0's plain-FMA tile above.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -53,6 +55,7 @@ from ..quant.qtensor import QTensor, dequant, q4_k_group_scales, q4_k_nibbles
 
 DECODE_MAX_M = 8  # largest M served by the GEMV launch shape (f32 weights)
 TF32_FORMATS = ("q8_0", "q4_k", "q6_k")  # f32 x above DECODE_MAX_M: csrc/dq_tile_tf32.cuh
+GEMV_F32_FORMATS = ("q4_0", "q4_k")  # f32 x at M <= DECODE_MAX_M: csrc/dq_gemv.cuh's XF32
 _FORCE_PLAIN = False
 
 
@@ -148,14 +151,16 @@ def _launch(op, entry: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     work = tickets = None
     if nbytes or nt:
         work, tickets = (t.data_ptr() for t in build.workspace(x.device, stream, nbytes // 4, nt))
-    f32 = x2.dtype == torch.float32  # only f32 x can reach the TF32 tile
+    f32 = x2.dtype == torch.float32  # only f32 x can reach the TF32 tile and the f32 GEMV
     tf32 = lib.gt_dq_tile_tf32_launches() if f32 else 0
+    gemv32 = lib.gt_dq_gemv_f32_launches() if f32 else 0
     err = getattr(lib, entry)(x2.data_ptr(), code, *(b.data_ptr() for b in bufs), y.data_ptr(), work,
                               tickets, M, N, K, stream)
     build.check(err, f"{name} M={M} N={N} K={K}")
     op.launches += 1
-    if f32:  # the tile's launches as the library counted them
+    if f32:  # the tile's and the f32 GEMV's launches as the library counted them
         op.tf32_launches += lib.gt_dq_tile_tf32_launches() - tf32
+        op.gemv_f32_launches += lib.gt_dq_gemv_f32_launches() - gemv32
     return y.reshape(*lead, N)
 
 
@@ -219,6 +224,11 @@ q4_0_matmul.tf32_launches = 0
 q8_0_matmul.tf32_launches = 0
 q4_k_matmul.tf32_launches = 0
 q6_k_matmul.tf32_launches = 0
+# of those, the launches of the f32 GEMV (csrc/dq_gemv.cuh with f32 x)
+q4_0_matmul.gemv_f32_launches = 0
+q8_0_matmul.gemv_f32_launches = 0
+q4_k_matmul.gemv_f32_launches = 0
+q6_k_matmul.gemv_f32_launches = 0
 
 MATMULS = {"q4_0": q4_0_matmul, "q8_0": q8_0_matmul, "q4_k": q4_k_matmul, "q6_k": q6_k_matmul}
 PLAIN = {"q4_0": q4_0_matmul_plain, "q8_0": q8_0_matmul_plain, "q4_k": q4_k_matmul_plain,

@@ -33,7 +33,15 @@ Then DECODE_ROUNDS more rounds in the same order, each turn a fresh
 process that only decodes (`decode_turn`): batch-1 tok/s of Gemma-2B q4_k_m
 and q4_0, several runs without a profiler, and the host µs of one call of
 the quantized-matmul wrapper. The card's `nvidia-smi` line heads each turn.
-Runs on the card only.
+
+    python -m gemma_tpu_torch.tools.parent_turn --parent DIR --gemv
+
+runs only the GEMVs' part, four turns and no decode rounds: the quantized
+matmuls at M = 1, 2, 4 and 8 with bf16 and with f32 x (times L2 cold, and
+outputs compared across the trees, f32 too), then chip_smoke's
+`f32_decode_steps` (device busy of a Gemma-2B q4_0 and q4_k_m decode step
+with f32 activations at 1 and 8 rows): copy this tree's chip_smoke.py into
+DIR first, as the parent's has no such phase. Runs on the card only.
 """
 from __future__ import annotations
 
@@ -200,9 +208,10 @@ def paged_serving_profile(dev: torch.device, c) -> str:
 MATMUL_MS = (1, 2, 4, 8)  # the decode step's rows and the serving step's
 
 
-def matmul_times(dev: torch.device, shapes: dict) -> dict[str, float]:
+def matmul_times(dev: torch.device, shapes: dict, dtype: torch.dtype = torch.bfloat16) -> dict[str, float]:
     """Device ms, L2 cold, of the public quantized matmuls at `shapes`
-    (probe_variants' SHAPES: format -> (name, N, K)) and MATMUL_MS, bf16 x."""
+    (probe_variants' SHAPES: format -> (name, N, K)) and MATMUL_MS, x in
+    `dtype`."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.tools import _timing as T
 
@@ -212,7 +221,7 @@ def matmul_times(dev: torch.device, shapes: dict) -> dict[str, float]:
         for name, N, K in rows:
             qt = T.random_qtensor(fmt, N, K, gen, dev)
             for M in MATMUL_MS:
-                x = T.bf16_x(M, K, gen, dev)
+                x = T.bf16_x(M, K, gen, dev).to(dtype)
                 args = T.replicate((x, qt), T.copies_for(T.nbytes(x, qt), dev))
                 res[f"{fmt} {name} M={M} N={N} K={K}"] = T.time_us(qmm.MATMULS[fmt], args, dev) / 1e3
                 del args
@@ -227,9 +236,10 @@ OUTPUT_SHAPES = (("q4_0", 1000, 1056), ("q4_0", 2048, 16384), ("q8_0", 999, 1056
                  ("q6_k", 999, 1280), ("q6_k", 2048, 16384))
 
 
-def matmul_outputs(dev: torch.device) -> dict[str, torch.Tensor]:
-    """Each format's quantized matmul at OUTPUT_SHAPES and M = 1-8, bf16 x,
-    on inputs from a fixed seed (so the same in every tree): y on the CPU."""
+def matmul_outputs(dev: torch.device, f32: bool = False) -> dict[str, torch.Tensor]:
+    """Each format's quantized matmul at OUTPUT_SHAPES and M = 1-8, bf16 x
+    (and with `f32`, the same x in f32), on inputs from a fixed seed (so
+    the same in every tree): y on the CPU."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.tools import _timing as T
 
@@ -238,12 +248,16 @@ def matmul_outputs(dev: torch.device) -> dict[str, torch.Tensor]:
     for fmt, N, K in OUTPUT_SHAPES:
         qt = T.random_qtensor(fmt, N, K, gen, dev)
         for M in range(1, 9):
-            out[f"{fmt} N={N} K={K} M={M}"] = qmm.MATMULS[fmt](T.bf16_x(M, K, gen, dev), qt).cpu()
+            x = T.bf16_x(M, K, gen, dev)
+            out[f"{fmt} N={N} K={K} M={M}"] = qmm.MATMULS[fmt](x, qt).cpu()
+            if f32:
+                out[f"f32 {fmt} N={N} K={K} M={M}"] = qmm.MATMULS[fmt](x.float(), qt).cpu()
     return out
 
 
-def turn(tag: str, shapes: dict, outputs: str | None = None) -> None:
-    """One turn, in the tree of the current directory."""
+def turn(tag: str, shapes: dict, outputs: str | None = None, gemv: bool = False) -> None:
+    """One turn, in the tree of the current directory (`gemv`: the GEMVs'
+    part only)."""
     if not torch.cuda.is_available():
         raise SystemExit("parent_turn: no CUDA device (it times the kernels on the card)")
     sys.path.insert(0, os.getcwd())  # this tree's chip_smoke.py
@@ -261,8 +275,16 @@ def turn(tag: str, shapes: dict, outputs: str | None = None) -> None:
     print(tag, card, f"build+load {time.perf_counter() - t0:.1f} s", flush=True)
     print(tag, "quantized matmuls device ms, L2 cold:",
           json.dumps(matmul_times(dev, shapes["matmul"])), flush=True)
+    if gemv:
+        print(tag, "quantized matmuls with f32 x device ms, L2 cold:",
+              json.dumps(matmul_times(dev, shapes["matmul"], torch.float32)), flush=True)
     if outputs:
-        torch.save(matmul_outputs(dev), outputs)
+        torch.save(matmul_outputs(dev, f32=gemv), outputs)
+    if gemv:
+        busy, _ = c.f32_decode_steps(torch, dev, card, check=False)  # a parent has no f32 GEMV counter
+        print(tag, "f32 decode step busy ms:", json.dumps(busy), flush=True)
+        print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return
     times = kernel_times(dev, shapes["flash"], shapes["decode"], shapes["paged"])
     print(tag, "kernels device ms, warm:", json.dumps(times), flush=True)
     c.main_path(torch, dev, card, "Gemma-2B", "q4_0")
@@ -341,12 +363,13 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", help="(with --turn) the attention shapes, as JSON")
     ap.add_argument("--outputs", help="(with --turn) save the matmul outputs to this file")
     ap.add_argument("--decode", action="store_true", help="(with --turn) a decode turn")
+    ap.add_argument("--gemv", action="store_true", help="the GEMVs' part only, bf16 and f32 x")
     args = ap.parse_args(argv)
     if args.turn:
         if args.decode:
             decode_turn(args.turn)
         else:
-            turn(args.turn, json.loads(args.shapes), args.outputs)
+            turn(args.turn, json.loads(args.shapes), args.outputs, args.gemv)
         return 0
     if not args.parent:
         ap.error("give --parent DIR (or --turn TAG --shapes JSON)")
@@ -358,13 +381,14 @@ def main(argv=None) -> int:
     order = ("parent", "change", "change", "parent")
     with tempfile.TemporaryDirectory() as tmp:
         saved = {tag: Path(tmp) / f"{tag}.pt" for tag in ("parent", "change")}
-        for i, tag in enumerate(order * (1 + DECODE_ROUNDS)):
+        for i, tag in enumerate(order * (1 if args.gemv else 1 + DECODE_ROUNDS)):
             tree = Path(args.parent).resolve() if tag == "parent" else change
             env = {**os.environ, "PYTHONPATH": str(tree)}
             if i >= len(order):
                 extra = ["--decode"]
             else:
-                extra = ["--shapes", shapes] + ([] if saved[tag].exists() else ["--outputs", str(saved[tag])])
+                extra = (["--shapes", shapes] + ([] if saved[tag].exists() else ["--outputs", str(saved[tag])])
+                         + (["--gemv"] if args.gemv else []))
             proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", tag, *extra],
                                   cwd=tree, env=env, timeout=900)
             if proc.returncode != 0:

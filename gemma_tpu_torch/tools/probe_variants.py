@@ -7,6 +7,8 @@ goes; and the tensor-core attention kernels' launch shapes.
     python -m gemma_tpu_torch.tools.probe_variants gemv [--variants base,tw16,...] [--fmt q4_k,q6_k] [--ms 1,8] [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants tile [--variants ...] [--fmt q8_0] [--ms 17,64,203]
     python -m gemma_tpu_torch.tools.probe_variants tf32 [--variants base,tf_cvt,...] [--fmt q4_k,q6_k] [--ms 17,512]
+    python -m gemma_tpu_torch.tools.probe_variants gemv32 [--variants base,xf32_p2,ab_xf32_p1] [--fmt q4_0,q4_k] [--ms 1,8]
+    python -m gemma_tpu_torch.tools.probe_variants sass --parent DIR
     python -m gemma_tpu_torch.tools.probe_variants attn [--parent DIR]
     python -m gemma_tpu_torch.tools.probe_variants mutants
 
@@ -22,6 +24,12 @@ G = 1), device ms with the operands warm (as chip_smoke.py). With
 flash at each block shape against this tree's bit for bit, timed in turns
 (this, parent, parent, this); `tools/parent_turn.py` times the parent's
 kernels through the public wrappers.
+
+`sass` needs no card, only the CUDA toolkit: it builds this tree's kernels
+and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
+and compares, instruction by instruction (`cuobjdump -sass`, branch labels
+numbered in order of use), each format's tensor-core GEMV with bf16 x in
+the two builds; it fails unless every one is the same code.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, the int8 V
@@ -39,13 +47,14 @@ A variant is a list of text substitutions in a copy of
 (`kernels/build.py build_library`). For each main-path shape of q4_0
 (Gemma-2B), q8_0 (Gemma-7B), q4_k and q6_k (Gemma-2B q4_k_m, and q6_k's
 deep-K shape), and each M (gemv: the decode step's 1 and the serving
-step's 8; tile: the prefill rows; tf32: f32 x at M > 8), a line gives the
-library call (torch.matmul of the weight dequantized to bf16 beforehand;
-tf32: to f32, with f32 x and TF32 off) and each variant's time, all
+step's 8; tile: the prefill rows; tf32: f32 x at M > 8; gemv32: f32 x at
+M <= 8, the f32 GEMV's policy), a line gives the library call
+(torch.matmul of the weight dequantized to bf16 beforehand; tf32 and
+gemv32: to f32, with f32 x and TF32 off) and each variant's time, all
 device ms with L2 cold (`_timing.py`). Variants named `ab_*` drop a part
 of the kernel and compute wrong results, so they are timed only; every
 other variant is first held to the plain version within 1e-4 x max|ref|
-(tf32: 1e-5).
+(tf32 and gemv32: 1e-5).
 `--parent DIR` (a commit unpacked with `git archive`) adds its kernels,
 built from its `csrc/`, as one more variant named `parent`. Runs on the
 card only.
@@ -111,9 +120,9 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "ab_nosync": [(TL, "    cp_async_wait<S - 3>();  // step k + 2 has landed\n    __syncthreads();",
                    "    cp_async_wait<S - 3>();")],
     # ablations of the GEMV
-    "ab_gv_nomma": [_gv("          mma_16816(f, a, __byte_perm(xv.x, xv.y, 0x5410), "
-                        "__byte_perm(xv.x, xv.y, 0x7632));",
-                        "          f[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ xv.x ^ xv.y);")],
+    "ab_gv_nomma": [_gv("for (int q = X::kFrags - 1; q >= 0; --q) mma_16816(f, a, b[q][0], b[q][1]);",
+                        "for (int q = X::kFrags - 1; q >= 0; --q) "
+                        "f[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[q][0] ^ b[q][1]);")],
     # no weight bytes copied at all (the x slice still is)
     "ab_gv_noload": [_gv("    F::copy(w, ring + (st % kS) * F::kStage, lane, n0, N, K, "
                          "klo + st * F::kStageK, khi);", "")],
@@ -155,7 +164,7 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "par32": [_gv("((static_cast<size_t>(n0 + g + 8 * h) * (K / 32) + kb / 32) & 1);",
                   "((((n0 + g + 8 * h) & (K / 32)) ^ (kb / 32)) & 1);")],
     # six blocks an SM by registers (at most 80 a thread)
-    "lb6": [_gv("__launch_bounds__(kGvWarps * 32, 4)", "__launch_bounds__(kGvWarps * 32, 6)")],
+    "lb6": [_gv("constexpr int kGvMinBlocks = 4;", "constexpr int kGvMinBlocks = 6;")],
     # q4_0's and q8_0's payload copies without their L2 prefetch of the row's next stage
     "nopf": [_gv("kGvPrefetchAhead = 4;", "kGvPrefetchAhead = 1 << 20;")],
     # the L2 prefetch at every stage of every slice
@@ -188,10 +197,11 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # the L2 prefetch where the row's next stage lies in the block's slice
     "pfin": [_gv("kGvPrefetchAhead = 4;", "kGvPrefetchAhead = 1;")],
     # M = 1 holds x slices no wider than M >= 2 (the parent's plan)
-    "m1slice": [_gv("return M == 1 ? 8 * kGvSliceMax : kGvSliceMax;", "return kGvSliceMax;")],
+    "m1slice": [_gv("const int bf16 = M == 1 ? 8 * kGvSliceMax : kGvSliceMax;", "const int bf16 = kGvSliceMax;")],
     # M = 1 holds a zero row beside x, as M >= 2 does (the parent's)
     "m1zero": [_gv("return M == 1 ? 1 : M < 8 ? M + 1 : 8;", "return M < 8 ? M + 1 : 8;"),
-               _gv("return M == 1 ? 8 * kGvSliceMax : kGvSliceMax;", "return M == 1 ? 4 * kGvSliceMax : kGvSliceMax;")],
+               _gv("const int bf16 = M == 1 ? 8 * kGvSliceMax : kGvSliceMax;",
+                   "const int bf16 = M == 1 ? 4 * kGvSliceMax : kGvSliceMax;")],
     # how the GEMV sums its K splits: by ticket in the same launch at every
     # grid, or in a second launch at every grid; four outputs a thread of
     # the ticket sum at every M
@@ -205,6 +215,13 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # the K-quants' scale decode (`prepare`): the table keeps what it held
     "ab_gv_noprep": [_gv("      F::prepare(ring + (st % kS) * F::kStage, table, lane, n0, K, "
                          "klo + st * F::kStageK);", "")],
+    # the f32 GEMV (f32 x at M <= 8, mode gemv32): x in two bf16 parts (x
+    # rounded to 16 bits: 1e-5 held on random data, PERF.md), or x0 alone
+    # (misses 1e-5), each slice widened by its smaller planes
+    "xf32_p2": [_gv("  static constexpr int kParts = 3, kFrags = kParts;",
+                    "  static constexpr int kParts = 2, kFrags = kParts;")],
+    "ab_xf32_p1": [_gv("  static constexpr int kParts = 3, kFrags = kParts;",
+                       "  static constexpr int kParts = 1, kFrags = kParts;")],
     # the TF32 tile (f32 x, mode tf32): hi rounded by the cvt instruction
     # (which checks for infinities and NaN first), not by two integer ops
     "tf_cvt": [(TF, "  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;",
@@ -310,7 +327,7 @@ def build_variant(name: str):
 
 def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.device,
         parent: str | None = None) -> None:
-    f32 = mode == "tf32"  # f32 x, the f32 library yardstick, 1e-5
+    f32 = mode in ("tf32", "gemv32")  # f32 x, the f32 library yardstick, 1e-5
     libs = {name: build_variant(name) for name in names}
     if parent:  # the parent commit's kernels, timed and held like a variant
         libs["parent"] = build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
@@ -550,9 +567,76 @@ def run_mutants(dev: torch.device) -> None:
     print("mutants: the unpatched kernels pass; every mutant fails", flush=True)
 
 
+# each format's tensor-core GEMV with bf16 x, by a part of its mangled
+# name: this tree's instance takes the element policy XBf16
+GEMV_BF16_KERNELS = {"q4_0": "BlockGemvILi16E", "q8_0": "BlockGemvILi32E", "q4_k": "Q4KGemv",
+                     "q6_k": "Q6KGemv"}
+
+
+def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
+    """The instructions of every kernel of the library built from `csrc`, by
+    mangled name: each instruction's text, branch labels renumbered in the
+    order the kernel uses them."""
+    import re
+    import subprocess
+
+    path = build.library_path(csrc, build_dir)
+    if not path.exists():
+        build._compile(path, csrc)
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    kernels: dict[str, list[str]] = {}
+    code: list[str] = []
+    for line in text.splitlines():
+        if line.strip().startswith("Function : "):
+            code = kernels.setdefault(line.split(":", 1)[1].strip(), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m:
+            code.append(" ".join(m.group(1).split()))
+    for name, code in kernels.items():
+        labels: dict[str, str] = {}
+        kernels[name] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(m.group(0), f"L{len(labels)}"), c)
+                         for c in code]
+    return kernels
+
+
+def run_sass(parent: str) -> None:
+    """Mode sass: the bf16 GEMVs of this tree and of the parent, compared
+    instruction by instruction."""
+    import difflib
+
+    trees = {"this": _sass(build.CSRC, build.BUILD_DIR / "variants" / "sass"),
+             "parent": _sass(Path(parent) / "gemma_tpu_torch" / "csrc",
+                             build.BUILD_DIR / "variants" / "parent")}
+    differ = []
+    for fmt, token in GEMV_BF16_KERNELS.items():
+        code = {}
+        for tree, kernels in trees.items():
+            names = [n for n in kernels if "dq_gemv_kernel" in n and token in n and "XF32" not in n]
+            if len(names) != 1:
+                raise SystemExit(f"sass: {tree} has {len(names)} bf16 GEMVs of {fmt}: {names}")
+            code[tree] = kernels[names[0]]
+        a, b = code["this"], code["parent"]
+        same = sum(x == y for x, y in zip(a, b))
+        ops = [sorted(c.split()[1] if c.startswith("@") else c.split()[0] for c in k) for k in (a, b)]
+        verdict = ("the same code" if a == b else
+                   f"{len(a) - same} of {len(a)} instructions differ in place; "
+                   f"{'the same' if ops[0] == ops[1] else 'not the same'} opcodes in another order")
+        print(f"sass {fmt} bf16 GEMV: this {len(a)} instructions, parent {len(b)}: {verdict}", flush=True)
+        if a != b:
+            differ.append(fmt)
+            diff = difflib.unified_diff(b, a, "parent", "this", lineterm="", n=2)
+            print("\n".join(list(diff)[:60]), flush=True)
+    if differ:
+        raise SystemExit(f"sass: the bf16 GEMVs of {differ} are not the parent's code")
+    print("sass: every bf16 GEMV is the parent's code", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("gemv", "tile", "tf32", "attn", "mutants"))
+    ap.add_argument("mode", choices=("gemv", "tile", "tf32", "gemv32", "attn", "mutants", "sass"))
     ap.add_argument("--variants", default="base,tw4,tw16,st3,st6,w2,w8,sl1024,sk256,nosplit",
                     help="comma-separated names of VARIANTS")
     ap.add_argument("--fmt", default="q4_0,q8_0")
@@ -563,6 +647,11 @@ def main(argv=None) -> None:
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         raise SystemExit(f"unknown variants {unknown}; known: {sorted(VARIANTS)}")
+    if args.mode == "sass":
+        if not args.parent:
+            raise SystemExit("probe_variants sass: --parent DIR is required")
+        run_sass(args.parent)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("probe_variants: no CUDA device (it times builds of the kernels on the card)")
     dev = torch.device("cuda", 0)
@@ -570,8 +659,9 @@ def main(argv=None) -> None:
         print(T.card_line(dev), flush=True)
         run_attention(dev, args.parent) if args.mode == "attn" else run_mutants(dev)
         return
-    ms = [int(m) for m in (args.ms or {"gemv": "1,8", "tile": "17,64,203", "tf32": "17,512"}[args.mode]).split(",")]
-    if args.mode == "tf32":
+    ms = [int(m) for m in (args.ms or {"gemv": "1,8", "tile": "17,64,203", "tf32": "17,512",
+                                       "gemv32": "1,8"}[args.mode]).split(",")]
+    if args.mode in ("tf32", "gemv32"):
         torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick in f32
     print(T.card_line(dev), flush=True)
     run(args.mode, names, args.fmt.split(","), ms, dev, args.parent)

@@ -4,9 +4,13 @@ every format, q4_0's and q8_0's tile functors, flash and decode attention.
 The CUDA sources build only on the card, so their index math is held here,
 on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
 
-* `gemv` emulates `dq_gemv_kernel` of `csrc/dq_gemv.cuh` (M <= 8, bf16 x)
-  through each format's functor (`BlockGemv` for q4_0 and q8_0, `Q4KGemv`,
-  `Q6KGemv`): the block's x slice (and q4_k's per-32 sums of x) and each
+* `gemv` emulates `dq_gemv_kernel` of `csrc/dq_gemv.cuh` (M <= 8) through
+  each format's functor (`BlockGemv` for q4_0 and q8_0, `Q4KGemv`,
+  `Q6KGemv`) and the element policy of x: bf16 x (`XBf16`), or f32 x
+  (`XF32`, q4_0 and q4_k on the main path) split into three bf16 parts
+  (`split_bf16x3`), three products a k16 step, smallest part first, the
+  per-32 sums from the f32 x, and the policy's slice (`gemv_slice_max`):
+  the block's x slice (and q4_k's per-32 sums of x) and each
   warp's ring stage in shared memory as bytes, the functor's decoded scale
   table, ldmatrix.x4 on the raw payload, the A fragments built from the
   words by the kernel's bit operations (nibble pairs, 6-bit pairs, int8
@@ -61,6 +65,8 @@ from ..quant.qtensor import QTensor
 GV_WARPS, GV_STAGE_K, GV_SUPER_K, GV_STAGES, GV_SCALE_WORDS = 4, 128, 256, 4, 3
 GV_SLICE_MAX, GV_SLICE_MIN, GV_TARGET_WARPS, GV_SUPER_TARGET_WARPS = 2048, 512, 8, 4
 GV_BLOCK_SLICE_MIN = 256  # q4_0's and q8_0's slice floor (BlockPlan)
+GV_MIN_BLOCKS, GV_SMEM_SM, GV_SMEM_BLOCK = 4, 233472, 1024  # blocks an SM and shared bytes
+GV_F32_PARTS = 3  # XF32's bf16 parts of x
 H100_SMS = 132
 BLOCK_BYTES = {"q4_0": 16, "q8_0": 32}
 DQ_BK = 64  # csrc/dq_tile.cuh kDqBK
@@ -106,24 +112,55 @@ def int8_pair(u, i: int, j: int) -> np.ndarray:
     return byte_perm(a.view(np.uint32), b.view(np.uint32), 0x7632)
 
 
-def gemv_slice_max(M: int) -> int:
-    """`gemv_slice_max`: K values of x a row a block holds."""
-    return 8 * GV_SLICE_MAX if M == 1 else GV_SLICE_MAX
+def gemv_x_rows(M: int) -> int:
+    """`gemv_x_rows`: rows of the x slice, with 2 <= M < 8's zero row."""
+    return 1 if M == 1 else min(M + 1, 8)
+
+
+def gemv_smem_bytes(fmt: str, M: int, sl: int, parts: int = 1) -> int:
+    """`gemv_smem_bytes<F, X>`: a block's shared bytes at M rows of x in
+    `parts` bf16 planes (1: bf16 x, 3: f32 x) and a K-slice `sl`."""
+    F = GEMV_FORMATS[fmt]
+    return (2 * parts * gemv_x_rows(M) * (sl + 16) + (32 * (sl // 32) if F.affine else 0)
+            + GV_WARPS * (4 * F.table + GV_STAGES * F.stage_size(fmt)))
+
+
+def gemv_sm_blocks(smem: int) -> int:
+    """`gemv_sm_blocks`: blocks an SM by shared memory, at most the launch
+    bound's 4."""
+    return min(GV_SMEM_SM // (smem + GV_SMEM_BLOCK), GV_MIN_BLOCKS)
+
+
+def gemv_slice_max(M: int, fmt: str | None = None, parts: int = 1) -> int:
+    """`gemv_slice_max<F, X>`: K values of x a row a block holds; with more
+    than one part (f32 x) bf16's, halved while a block of `fmt` would reach
+    fewer blocks an SM than with bf16 x."""
+    bf16 = 8 * GV_SLICE_MAX if M == 1 else GV_SLICE_MAX
+    if parts == 1:
+        return bf16
+    blocks = gemv_sm_blocks(gemv_smem_bytes(fmt, M, bf16))
+    sl = bf16
+    while sl > GEMV_FORMATS[fmt].gran and gemv_sm_blocks(gemv_smem_bytes(fmt, M, sl, parts)) < blocks:
+        sl //= 2
+    return sl
 
 
 def gemv_plan(M: int, N: int, K: int, sms: int = H100_SMS, gran: int = 32,
-              target: int = GV_TARGET_WARPS, slice_min: int = GV_BLOCK_SLICE_MIN) -> tuple[int, int]:
+              target: int = GV_TARGET_WARPS, slice_min: int = GV_BLOCK_SLICE_MIN,
+              slice_max: int | None = None) -> tuple[int, int]:
     """`dq_gemv_plan`: (slice, splits) at (M, N, K), slices in multiples of
     `gran` (q4_0, q8_0: 32; q4_k, q6_k: their 256-superblock) no wider than
-    `gemv_slice_max(M)`, splits doubled towards `target` warps an SM while
-    a slice keeps `slice_min` (`BlockPlan`, `SuperPlan`)."""
+    `slice_max` (default bf16's `gemv_slice_max(M)`), splits doubled towards
+    `target` warps an SM while a slice keeps `slice_min` (`BlockPlan`,
+    `SuperPlan`)."""
     tiles = (N + 15) // 16
+    slice_max = slice_max or gemv_slice_max(M)
 
     def slice_of(splits):
         return -(-(K // gran) // splits) * gran
 
     splits = 1
-    while slice_of(splits) > gemv_slice_max(M):
+    while slice_of(splits) > slice_max:
         splits *= 2
     while tiles * splits < target * sms and slice_of(2 * splits) >= slice_min:
         splits *= 2
@@ -221,7 +258,12 @@ def scale_min_k4(tb: np.ndarray, j: int) -> tuple[np.ndarray, np.ndarray]:
 class BlockGemv:
     """`BlockGemv<kBlockBytes>` (q4_0: 16, q8_0: 32) of csrc/dq_gemv.cuh."""
     stage_k, gran, target, slice_min = GV_STAGE_K, 32, GV_TARGET_WARPS, GV_BLOCK_SLICE_MIN
-    group_k, steps, affine = 32, 2, False
+    group_k, steps, affine, table = 32, 2, False, 0
+
+    @staticmethod
+    def stage_size(fmt: str) -> int:
+        """`kStage`: the payload rows at their pitch, then the scale words."""
+        return 16 * (GV_STAGE_K // 32 * BLOCK_BYTES[fmt] + 16) + 16 * GV_SCALE_WORDS * 4
 
     def __init__(self, qt: QTensor):
         self.N, self.K = qt.shape
@@ -281,10 +323,14 @@ class Q4KGemv:
     warp's table holds d*sc [8][16] and the offsets [8][16]."""
     stage_k = gran = GV_SUPER_K
     target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
-    group_k, steps, affine, pieces, groups = 32, 2, True, 4, 2
+    group_k, steps, affine, pieces, groups, table = 32, 2, True, 4, 2, 256
     pitch = 144
     meta = 16 * pitch
     stage_bytes = meta + 16 * 16
+
+    @classmethod
+    def stage_size(cls, fmt: str) -> int:
+        return cls.stage_bytes
 
     def __init__(self, qt: QTensor):
         self.N, self.K = qt.shape
@@ -344,12 +390,16 @@ class Q6KGemv:
     half (12 ldmatrix words), a group one 16-element sub-block."""
     stage_k = gran = GV_SUPER_K
     target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
-    group_k, steps, affine, pieces, groups = 16, 1, False, 2, 8
+    group_k, steps, affine, pieces, groups, table = 16, 1, False, 2, 8, 256
     ql_pitch, qh_pitch = 144, 80
     qh_off = 16 * ql_pitch
     sc_off = qh_off + 16 * qh_pitch
     d_off = sc_off + 16 * 16
     stage_bytes = d_off + 16 * 4
+
+    @classmethod
+    def stage_size(cls, fmt: str) -> int:
+        return cls.stage_bytes
 
     def __init__(self, qt: QTensor):
         self.N, self.K = qt.shape
@@ -426,34 +476,88 @@ def _sum8(v: np.ndarray) -> np.float32:
     return np.float32(np.float32(s[0] + s[1]) + np.float32(s[2] + s[3]))
 
 
-def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
-    """`launch_dq_gemv` on x bf16 [M, K] (1 <= M <= 8) and qt of any format,
-    through its functor (`GEMV_FORMATS`): y f32 [M, N]."""
+def _sum32(v: np.ndarray) -> np.float32:
+    """A per-32 sum of x of either policy (bf16 x's in the kernel, `XF32::sum32`):
+    four `_sum8`, pairwise."""
+    return np.float32(np.float32(_sum8(v[:8]) + _sum8(v[8:16])) + np.float32(_sum8(v[16:24]) + _sum8(v[24:])))
+
+
+def _quad_sum(v: np.ndarray, n: int) -> np.ndarray:
+    """`XF32Packed::finish` on a lane array: lane l + v[l + 1] + ... + v[l +
+    n - 1] (`__shfl_down_sync`, a lane past 31 reading its own), in f32."""
+    s = v.copy()
+    for q in range(1, n):
+        s = (s + np.concatenate([v[q:], v[32 - q:]])).astype(np.float32)
+    return s
+
+
+def bf16_rn(v) -> np.ndarray:
+    """f32 -> bf16 bits, round to nearest even (`__floats2bfloat162_rn` on
+    finite values)."""
+    b = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def split_bf16x3(v) -> list[np.ndarray]:
+    """`XF32::split`: x as bf16 bits x0 = bf16(x), x1 = bf16(x - x0), x2 =
+    bf16(x - x0 - x1), each residual exact in f32."""
+    r = np.asarray(v, np.float32)
+    parts = []
+    for _ in range(GV_F32_PARTS):
+        p = bf16_rn(r)
+        parts.append(p)
+        r = (r - _bf16_bits_to_f32(p)).astype(np.float32)
+    return parts
+
+
+def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = GV_F32_PARTS) -> np.ndarray:
+    """`launch_dq_gemv` on x [M, K] (1 <= M <= 8) and qt of any format,
+    through its functor (`GEMV_FORMATS`): y f32 [M, N]. bf16 x takes the
+    `XBf16` policy; f32 x `XF32` (the three-part split, its slice, the
+    per-32 sums of the f32 x; at M <= 2 `XF32Packed`, the parts as columns
+    of one product summed into quad lane 0 at the end), the products of its
+    first `passes` parts only (fewer than 3 drops the smallest)."""
     F = GEMV_FORMATS[qt.fmt](qt)
     M, K = x.shape
     N = qt.shape[0]
-    assert 1 <= M <= 8 and x.dtype == torch.bfloat16 and K % F.gran == 0
-    xb = x.contiguous().view(torch.int16).numpy().view(np.uint16)
-    sl, splits = gemv_plan(M, N, K, sms, F.gran, F.target, F.slice_min)
+    assert 1 <= M <= 8 and x.dtype in (torch.bfloat16, torch.float32) and K % F.gran == 0
+    if x.dtype == torch.bfloat16:
+        parts, used = 1, 1
+        planes = [x.contiguous().view(torch.int16).numpy().view(np.uint16)]
+    else:
+        parts, used = GV_F32_PARTS, passes
+        planes = split_bf16x3(x.contiguous().numpy())
+    packed = parts > 1 and M <= 2
+    xrows = gemv_x_rows(M)
+    # column g's row: part g // 2 of x row g % 2 (packed), else x row g (the
+    # zero row past M; at M = 1 x itself)
+    if packed:
+        col_plane, col_row = np.minimum(LANE_G // 2, parts - 1), np.minimum(LANE_G % 2, xrows - 1)
+    else:
+        col_plane, col_row = np.zeros_like(LANE_G), np.minimum(LANE_G, xrows - 1)
+    steps_parts = [0] if packed else list(reversed(range(used)))  # the mma of a k16 step
+    sl, splits = gemv_plan(M, N, K, sms, F.gran, F.target, F.slice_min,
+                           gemv_slice_max(M, qt.fmt, parts))
     g, t = LANE_G, LANE_T
     work = np.zeros((splits, M, N), np.float32)
     for z in range(splits):
         klo, khi = z * sl, min(K, (z + 1) * sl)
-        # the x slice; row M (2 <= M < 8): zeros
-        xs = np.zeros((1 if M == 1 else min(M + 1, 8), sl + 16), np.uint16)
-        for r in range(M):
-            for c in range(sl // 8):
-                if klo + 8 * c < khi:
-                    xs[r, 8 * c: 8 * c + 8] = xb[r, klo + 8 * c: klo + 8 * c + 8]
-        xflat = xs.reshape(-1)
+        # the x slice, a plane a part; row M (2 <= M < 8): zeros
+        xs = np.zeros((parts, gemv_x_rows(M), sl + 16), np.uint16)
+        for q in range(parts):
+            for r in range(M):
+                for c in range(sl // 8):
+                    if klo + 8 * c < khi:
+                        xs[q, r, 8 * c: 8 * c + 8] = planes[q][r, klo + 8 * c: klo + 8 * c + 8]
+        xflat = xs.reshape(parts, -1)
         xsum = np.zeros((sl // 32, 8), np.float32)
         if F.affine:
-            xf = _bf16_bits_to_f32(xs)
+            xf = _bf16_bits_to_f32(xs[0])
+            for q in range(1, parts):  # the f32 x: (x0 + x1) + x2, exact
+                xf = (xf + _bf16_bits_to_f32(xs[q])).astype(np.float32)
             for grp in range(sl // 32):
                 for m in range(M):
-                    v = xf[m, 32 * grp: 32 * grp + 32]
-                    xsum[grp, m] = np.float32(np.float32(_sum8(v[:8]) + _sum8(v[8:16]))
-                                              + np.float32(_sum8(v[16:24]) + _sum8(v[24:])))
+                    xsum[grp, m] = _sum32(xf[m, 32 * grp: 32 * grp + 32])
         for n0 in range(0, N, 16):
             acc = [np.zeros(32, np.float32) for _ in range(4)]
             for st in range(-(-(khi - klo) // F.stage_k)):
@@ -469,10 +573,11 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
                         f = [np.zeros(32, np.float32) for _ in range(4)]
                         for s in range(F.steps):
                             a = F.a_frag(r4, gi, s)
-                            xo = np.minimum(g, len(xs) - 1) * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
-                            xw = xflat[xo[:, None] + np.arange(4)].astype(np.uint32)
-                            lo, hi = xw[:, 0] | (xw[:, 1] << 16), xw[:, 2] | (xw[:, 3] << 16)
-                            f = mma_16816(f, a, byte_perm(lo, hi, 0x5410), byte_perm(lo, hi, 0x7632))
+                            xo = col_row * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
+                            for q in steps_parts:  # smallest part first
+                                xw = xflat[(col_plane + q)[:, None], xo[:, None] + np.arange(4)].astype(np.uint32)
+                                lo, hi = xw[:, 0] | (xw[:, 1] << 16), xw[:, 2] | (xw[:, 3] << 16)
+                                f = mma_16816(f, a, byte_perm(lo, hi, 0x5410), byte_perm(lo, hi, 0x7632))
                         d, off = F.scales(stage, table, n0, kb, grp)
                         acc = [_fma(d[0], f[0], acc[0]), _fma(d[0], f[1], acc[1]),
                                _fma(d[1], f[2], acc[2]), _fma(d[1], f[3], acc[3])]
@@ -481,6 +586,8 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS) -> np.ndarray:
                             x0, x1 = xg[2 * t], xg[2 * t + 1]
                             acc = [_fma(off[0], x0, acc[0]), _fma(off[0], x1, acc[1]),
                                    _fma(off[1], x0, acc[2]), _fma(off[1], x1, acc[3])]
+            if packed:  # `finish`: quad lane 0 sums the parts, (x0 + x1) + x2
+                acc = [_quad_sum(v, used) for v in acc]
             m = 2 * t
             for h in range(2):
                 n = n0 + g + 8 * h
@@ -1355,6 +1462,12 @@ def main() -> None:
                          and not tile[N:].any() and not tile[:, K:].any())
                 line += f"; tile weights bit-exact: {exact}"
             print(line)
+    for fmt, N, K, M in (("q4_0", 40, 1056, 7), ("q4_k", 19, 1280, 8)):
+        qt = random_qtensor(fmt, N, K, gen, "cpu")
+        x = torch.randn(M, K, generator=gen)
+        ref = PLAIN[fmt](x, qt).numpy()
+        err = np.abs(gemv(x, qt) - ref).max() / np.abs(ref).max()
+        print(f"{fmt} f32 N={N} K={K} M={M}: GEMV (three bf16 parts) max|diff| / max|ref| {err:.2e}")
     for fmt, M, N, K in (("q8_0", 70, 300, 1056), ("q4_k", 17, 300, 1280), ("q6_k", 17, 300, 1280)):
         qt = random_qtensor(fmt, N, K, gen, "cpu")
         x = torch.randn(M, K, generator=gen)

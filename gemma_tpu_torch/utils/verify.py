@@ -40,6 +40,9 @@ def launch_counters() -> list[tuple[str, Any, str]]:
             ("q8_0_matmul_tf32", qmm.q8_0_matmul, "tf32_launches"),
             ("q4_k_matmul_tf32", qmm.q4_k_matmul, "tf32_launches"),
             ("q6_k_matmul_tf32", qmm.q6_k_matmul, "tf32_launches"),
+            # the calls of q4_0 and q4_k with f32 x at M <= 8 (the f32 GEMV)
+            ("q4_0_matmul_gemv_f32", qmm.q4_0_matmul, "gemv_f32_launches"),
+            ("q4_k_matmul_gemv_f32", qmm.q4_k_matmul, "gemv_f32_launches"),
             ("flash_attention", att.flash_attention, "launches"),
             # the calls of flash attention with f32 queries (the TF32 kernel)
             ("flash_attention_tf32", att.flash_attention, "tf32_launches"),

@@ -8,6 +8,14 @@ card holds the kernels to.
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
   split: 1e-5 of the output's scale, also against every format's Pallas
   kernel in interpret mode at M = 1.
+* The f32 GEMV of q4_0 and q4_k (`dq_gemv_kernel` with `XF32`): x split
+  into three bf16 parts that sum to x exactly, three products a k16 step
+  against the exact integer weights, q4_k's per-32 sums from the f32 x:
+  within 1e-5 of the output's scale of the plain f32 version, of the JAX
+  package's f32 dispatch and of `_q4_0_kernel` / `_q4_k_kernel` in
+  interpret mode (f32 weights and x at M <= 8) on bf16-exact f32 x. Two
+  parts still hold 1e-5 on random data; one misses it. Its plan keeps the
+  blocks an SM that bf16 x reaches.
 * The f32 route's TF32 tile of q8_0, q4_k and q6_k
   (`csrc/dq_tile_tf32.cuh`): x split into two TF32 parts against the exact
   integer weights, each group scaled in f32, the K splits summed in order:
@@ -161,6 +169,108 @@ def test_kquant_gemv_emulation_matches_the_jax_kernel(fmt, monkeypatch):
     got = emu.gemv(x, qt)
     assert got.shape == ref.shape == (1, 256)
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_f32_split_is_exact():
+    """`XF32::split`: x0 + x1 + x2 == x exactly, each part a bf16 value, over
+    random normals, large and tiny magnitudes (2^-110 and up) and +-0;
+    below 2^-110, where x2 would need bf16 subnormals' missing bits, within
+    2^-134."""
+    rng = np.random.default_rng(18)
+    x = np.concatenate([rng.normal(size=4096), rng.normal(size=1024) * 1e30, rng.normal(size=1024) * 1e-25,
+                        rng.normal(size=1024) * 2.0 ** -100, [0.0, -0.0]]).astype(np.float32)
+    x = x[(np.abs(x) >= 2.0 ** -110) | (x == 0)]
+    parts = emu.split_bf16x3(x)
+    vals = [emu._bf16_bits_to_f32(p).astype(np.float64) for p in parts]
+    assert np.array_equal(vals[0] + vals[1] + vals[2], x.astype(np.float64))
+    sub = (rng.normal(size=1024) * 2.0 ** -115).astype(np.float32)
+    back = sum(emu._bf16_bits_to_f32(p).astype(np.float64) for p in emu.split_bf16x3(sub))
+    assert np.abs(back - sub).max() <= 2.0 ** -134
+    assert np.array_equal(emu._bf16_bits_to_f32(parts[0]).view(np.uint32) >> 31, x.view(np.uint32) >> 31)
+    # the parts shrink by at least 2^8 each
+    big = np.abs(x) > 0
+    assert np.all(np.abs(vals[1][big]) <= 2.0 ** -8 * np.abs(vals[0][big]))
+    assert np.all(np.abs(vals[2][big]) <= 2.0 ** -8 * np.abs(vals[1][big]))
+
+
+# (fmt, N, K, M): every M of the M = 1, 2, 7, 8 rows; ragged N (19, 40 and
+# 1000 against the 16-row tiles); q4_0 at K % 64 == 32 (1056); q4_k at five
+# superblocks; K splits (4096: several slices; q4_0 1056 at M = 7 and 8:
+# four slices of the policy's 512)
+GEMV_F32_CASES = [*(("q4_0", N, K, M) for N, K, M in ((40, 1056, 1), (19, 1056, 2), (40, 1056, 7),
+                                                      (1000, 1056, 8), (48, 4096, 2), (20, 4096, 8))),
+                  *(("q4_k", N, K, M) for N, K, M in ((19, 1280, 1), (40, 1280, 2), (20, 2048, 7),
+                                                      (19, 1280, 8), (48, 4096, 8)))]
+
+
+@pytest.mark.parametrize("fmt,N,K,M", GEMV_F32_CASES)
+def test_f32_gemv_emulation_matches_plain(fmt, N, K, M):
+    """The f32 GEMV against the plain f32 version within 1e-5 of the
+    output's scale."""
+    gen, qt = _case(fmt, N, K, seed=N + M)
+    x = torch.randn(M, K, generator=gen)
+    ref = PLAIN[fmt](x, qt).numpy()
+    got = emu.gemv(x, qt)
+    assert got.shape == (M, N)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("fmt", ["q4_0", "q4_k"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_f32_gemv_matches_the_jax_dispatch_and_kernels(fmt, M, monkeypatch):
+    """On JAX-quantized weights (`from_jax` carries them exactly), the f32
+    GEMV within 1e-5 of the output's scale of the JAX package's f32
+    dispatch (`register_all`: f32 x against the f32 dequant), and on
+    bf16-exact f32 x of `_q4_0_kernel` / `_q4_k_kernel` in interpret mode,
+    which take f32 weights and x at M <= 8."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    rng = np.random.default_rng(18 + M)
+    jqt = quantize_array(rng.normal(size=(256, 1024)).astype(np.float32) * 0.05, fmt)
+    qt = from_jax(jqt.fmt, {k: np.asarray(v) for k, v in jqt.arrays.items()})
+    x = rng.normal(size=(M, 1024)).astype(np.float32)
+    got = emu.gemv(torch.from_numpy(x), qt)
+    f32_dispatch = np.asarray(jnp.dot(jnp.asarray(x), dequant_t(jqt, jnp.float32)))
+    assert got.shape == f32_dispatch.shape == (M, 256)
+    assert np.abs(got - f32_dispatch).max() <= 1e-5 * np.abs(f32_dispatch).max()
+    xb = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    ref = np.asarray(jax_quant_matmul(jnp.asarray(xb), jqt), np.float32)
+    got = emu.gemv(torch.from_numpy(xb), qt)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_f32_gemv_passes():
+    """Which of x's parts the products need: the three parts and the first
+    two hold 1e-5 of the output's scale on random data (x rounded to 16
+    bits), x0 alone (x rounded to bf16) misses it."""
+    gen, qt = _case("q4_k", 48, 4096, seed=5)
+    x = torch.randn(8, 4096, generator=gen)
+    ref = PLAIN["q4_k"](x, qt).numpy()
+    scale = np.abs(ref).max()
+    err = {p: np.abs(emu.gemv(x, qt, passes=p) - ref).max() / scale for p in (1, 2, 3)}
+    assert err[3] <= err[2] <= 1e-5 < err[1]
+
+
+@pytest.mark.parametrize("M", list(range(1, 9)))
+@pytest.mark.parametrize("fmt,N,K", [("q4_0", 2560, 2048), ("q4_0", 2048, 2048), ("q4_0", 32768, 2048),
+                                     ("q4_0", 2048, 16384), ("q4_0", 256000, 2048), ("q4_k", 2048, 2048),
+                                     ("q4_k", 256, 2048), ("q4_k", 32768, 2048), ("q4_k", 2048, 16384)])
+def test_f32_gemv_plan_keeps_the_blocks_an_sm(fmt, N, K, M):
+    """The f32 plan at the Gemma-2B q4_0 and q4_k_m shapes: whole 32-blocks
+    (superblocks) a slice, at most the policy's slice, every K value in one
+    slice, and a block's shared memory (three bf16 planes of x) within the
+    card's and reaching the blocks an SM that bf16 x reaches."""
+    F = emu.GEMV_FORMATS[fmt]
+    sl_max = emu.gemv_slice_max(M, fmt, emu.GV_F32_PARTS)
+    sl, splits = emu.gemv_plan(M, N, K, gran=F.gran, target=F.target, slice_min=F.slice_min,
+                               slice_max=sl_max)
+    assert sl % F.gran == 0 and sl <= sl_max and (splits - 1) * sl < K <= splits * sl
+    smem = emu.gemv_smem_bytes(fmt, M, sl, emu.GV_F32_PARTS)
+    assert smem <= 227 * 1024
+    bf16 = emu.gemv_smem_bytes(fmt, M, emu.gemv_slice_max(M))
+    assert emu.gemv_sm_blocks(smem) >= emu.gemv_sm_blocks(bf16) >= 2
+    if sl_max < emu.gemv_slice_max(M):  # the next wider slice would lose a block an SM
+        wider = emu.gemv_smem_bytes(fmt, M, 2 * sl_max, emu.GV_F32_PARTS)
+        assert emu.gemv_sm_blocks(wider) < emu.gemv_sm_blocks(bf16)
 
 
 # (fmt, M, N, K): JAX-quantized weights (its K-quant kernels take K % 1024 ==
