@@ -18,11 +18,11 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    4096, both arms; paged decode equal bit for bit to decode on the
    gathered rows), and flash at the speculative verify's shapes (T = 8
    and T = 2 query rows from each sequence's length, batch 1 and the 8
-   serving rows; q4_0 also at the verify's M = 2 and 16), and q8_0's,
-   q4_k's and q6_k's f32 route at M > 8, the TF32 tile
-   (csrc/dq_tile_tf32.cuh), at every Gemma-7B q8_0 row and every q4_k_m
-   row at M = 17, 64, 203 and 512 and at ragged N and K (q8_0 at K % 64 ==
-   32 too), within 1e-5 of the output's scale, with the route
+   serving rows; q4_0 also at the verify's M = 2 and 16), and every
+   format's f32 route at M > 8, the TF32 tile (csrc/dq_tile_tf32.cuh), at
+   every Gemma-2B q4_0 row, every Gemma-7B q8_0 row and every q4_k_m row
+   at M = 17, 64, 203 and 512 and at ragged N and K (q4_0 and q8_0 at K %
+   64 == 32 too), within 1e-5 of the output's scale, with the route
    each took (bf16: the tensor-core kernels), max|diff|
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
@@ -73,18 +73,20 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    its plain version at the tools' Gemma-2B shapes with exact launch
    counts, each kernel's L2-cold time, bound, plain and library time, then
    each `python -m gemma_tpu_torch.tools.<name>` in a subprocess;
-8. the quality gates: q4_0's f32 evaluation route (the plain-FMA tile,
-   the head included; q8_0's, q4_k's and q6_k's TF32 tile is phase 3's)
-   and the TF32 flash kernel at the perplexity window's M = T = 512
-   against their plain versions, timed with bound and library call, the
-   TF32 flash also at ragged T, a window, a softcap, kv_limit < T (rows
-   without keys) and D = 128; every format's f32 SIMT GEMV at M = 1 and 8
-   on its recipe's gate_up, down and head rows, timed with bound and
-   library call; `perplexity.evaluate` at full width (Gemma-2B q4_0 and
-   q4_k_m, Gemma-7B q8_0) over two 512-token windows of seeded token ids,
-   each window's launch counts exact (its flash launches and q8_0's and
-   q4_k_m's matmuls on the TF32 kernels) and its wall time printed, its NLL
-   within 1e-4 of the same through the plain versions on the card;
+8. the quality gates: the TF32 flash kernel at the perplexity window's
+   M = T = 512 against its plain version, timed with bound and library
+   call (the matmuls' f32 route there, the TF32 tile, is phase 3's), also
+   at ragged T, a window, a softcap, kv_limit < T (rows without keys) and
+   D = 128; the f32-q decode attention at limit 204 and S = 4096, timed;
+   every format's f32 GEMV at M = 1 and 8 on its recipe's rows (q4_0's,
+   q8_0's and q4_k's on the tensor cores, q6_k's SIMT), timed with bound
+   and library call; the f32 decode step of Gemma-2B q4_0 and q4_k_m and
+   Gemma-7B q8_0 at 1 and 8 rows against the plain versions;
+   `perplexity.evaluate` at full width (Gemma-2B q4_0 and q4_k_m, Gemma-7B
+   q8_0) over two 512-token windows of seeded token ids, each window's
+   launch counts exact (its flash launches and every matmul on the TF32
+   kernels) and its wall time printed, its NLL within 1e-4 of the same
+   through the plain versions on the card;
    `verify_device_kernels` at full Gemma-2B q4_0 and Gemma-7B q8_0 width
    over the dense bf16, dense int8 and paged (64-token pages) caches: ok,
    the kernel side's launches exact, the plain side's zero; then the CLI's
@@ -184,8 +186,10 @@ KERNELS = {
                         "gemma_tpu/ops/paged_attention.py:47 _paged_kernel"),
     "paged_attention_int8": ("gemma_tpu_torch/csrc/paged_attention.cu",
                              "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages)"),
-    # the f32 evaluation routes on the tensor cores: q8_0, q4_k and q6_k at
-    # M > 8 (the TF32 tile) and flash attention with f32 queries
+    # the f32 evaluation routes on the tensor cores: every format at M > 8
+    # (the TF32 tile) and flash attention with f32 queries
+    "q4_0_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
+                         "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel (f32 x, M > 8)"),
     "q8_0_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
                          "gemma_tpu/ops/quant_matmul.py:103 _q8_0_kernel (f32 x, M > 8)"),
     "q4_k_matmul_tf32": ("gemma_tpu_torch/csrc/dq_tile_tf32.cuh",
@@ -194,10 +198,12 @@ KERNELS = {
                          "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
     "flash_attention_tf32": ("gemma_tpu_torch/csrc/flash_attention.cu",
                              "gemma_tpu/ops/attention.py:94 _flash_kernel (f32 queries)"),
-    # q4_0's and q4_k's f32 x at M <= 8: the tensor-core GEMV with x in
-    # three bf16 parts
+    # q4_0's, q8_0's and q4_k's f32 x at M <= 8: the tensor-core GEMV with
+    # x in three bf16 parts
     "q4_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
                              "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel (f32 x, M <= 8)"),
+    "q8_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
+                             "gemma_tpu/ops/quant_matmul.py:103 _q8_0_kernel (f32 x, M <= 8)"),
     "q4_k_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
                              "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel (f32 x, M <= 8)"),
 }
@@ -232,16 +238,18 @@ MATMUL_SHAPES = {
     "q6_k": ([(name, N, K, (1, SERVE_SLOTS, *TILE_MS)) for name, N, K in (
         ("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048))], "head"),
 }
-# q8_0's, q4_k's and q6_k's f32 route (the TF32 tile): phase 3 holds it at
-# the Gemma-7B q8_0 and q4_k_m rows of MATMUL_SHAPES (not deep_k: on no GGUF
-# path) at the tiles' M and the perplexity window's, and at ragged edges (N
-# past a tile, K of an odd count of superblocks; q8_0: K % 64 == 32, the
-# tile's half step past K, with an odd count of scales, and a split K), to
-# 1e-5 of the output's scale
+# every format's f32 route (the TF32 tile): phase 3 holds it at the
+# Gemma-2B q4_0, Gemma-7B q8_0 and q4_k_m rows of MATMUL_SHAPES (not deep_k:
+# on no GGUF path) at the tiles' M and the perplexity window's, and at
+# ragged edges (N past a tile, K of an odd count of superblocks; q4_0 and
+# q8_0: K % 64 == 32, the tile's half step past K, with an odd count of
+# scales, and a split K; q4_0's half step in the last split), to 1e-5 of the
+# output's scale
 TF32_MS = (*TILE_MS, 512)
 TF32_EDGES = (("q4_k", "edge", 1000, 1280), ("q4_k", "edge", 1100, 256),
               ("q6_k", "edge", 999, 1280), ("q8_0", "edge", 1000, 1056),
-              ("q8_0", "edge", 999, 1056), ("q8_0", "edge", 130, 4064))
+              ("q8_0", "edge", 999, 1056), ("q8_0", "edge", 130, 4064),
+              ("q4_0", "edge", 1000, 1056), ("q4_0", "edge", 999, 2144))
 TF32_PASSES = 2  # the tile's TF32 products a k8 step (x's hi and lo): not in the bound
 SERVE_PROMPT_LENS = (17, 64, 100, 203)  # cycled over the requests of phase 6
 SERVE_REQUESTS = 24
@@ -416,9 +424,9 @@ def check_matmuls(torch, dev, formats=tuple(MATMUL_SHAPES)) -> dict[str, dict]:
 
 
 def check_tf32_routes(torch, dev) -> dict[str, dict]:
-    """Phase 3, q8_0's, q4_k's and q6_k's f32 route at M > 8
-    (`dq_tile_tf32_kernel`, csrc/dq_tile_tf32.cuh): each Gemma-7B q8_0 and
-    q4_k_m row of MATMUL_SHAPES at TF32_MS and the ragged TF32_EDGES
+    """Phase 3, every format's f32 route at M > 8 (`dq_tile_tf32_kernel`,
+    csrc/dq_tile_tf32.cuh): each Gemma-2B q4_0, Gemma-7B q8_0 and q4_k_m
+    row of MATMUL_SHAPES at TF32_MS and the ragged TF32_EDGES
     against the plain version (f32 x @ the weight
     dequantized to f32), held to 1e-5 of the output's scale. The main rows
     are timed with L2 cold, with the library call (torch.matmul of f32 x
@@ -1036,7 +1044,7 @@ def profiler_coverage(prof, before: dict[str, int]) -> str:
     after = read_counters()
     launched = sum(after[k] - before[k] for k in after if k.endswith("_matmul"))
     recorded = sum(e.count for e in prof.key_averages()
-                   if re.search(r"q[468]_[0k]_(gemv|tiled)_kernel|dq_(tile|gemv|tile_tf32)_kernel", e.key))
+                   if re.search(r"q[468]_[0k]_gemv_kernel|dq_(tile|gemv|tile_tf32)_kernel", e.key))
     return f"{recorded} of {launched} quantized-matmul launches recorded"
 
 
@@ -2106,17 +2114,15 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
                        head: bool) -> None:
     """Set the f32 tensor-core routes' share of `counts` with f32
     activations, `prefills` of its forwards prefills of more than 8 rows:
-    every flash launch (the TF32 flash kernel), and every q8_0, q4_k and
-    q6_k launch of a prefill (the TF32 tile), the head too where it runs at
-    every row (perplexity; a prefill runs it at the last row, M = 1); every
-    other q4_0 and q4_k launch (the decode steps', and q4_0's head at a
-    prefill's last row) is the f32 GEMV's. q4_0's f32 tile is off the
-    tensor cores."""
+    every flash launch (the TF32 flash kernel), and every matmul launch of
+    a prefill (the TF32 tile), the head too where it runs at every row
+    (perplexity; a prefill runs it at the last row, M = 1); every other
+    q4_0, q8_0 and q4_k launch (the decode steps', and the head at a
+    prefill's last row) is the f32 GEMV's; q6_k's is SIMT."""
     counts["flash_attention_tf32"] = cfg.n_layers * prefills
-    if fmt == "q8_0":
-        counts["q8_0_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
-    if fmt == "q4_0":
-        counts["q4_0_matmul_gemv_f32"] = counts["q4_0_matmul"] - (4 * cfg.n_layers + head) * prefills
+    if fmt in ("q4_0", "q8_0"):
+        counts[f"{fmt}_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
+        counts[f"{fmt}_matmul_gemv_f32"] = counts[f"{fmt}_matmul"] - counts[f"{fmt}_matmul_tf32"]
     if fmt == "q4_k_m":
         counts["q4_k_matmul_tf32"] = 5 * cfg.n_layers * prefills
         counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
@@ -2126,8 +2132,8 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
     """Kernel launches of one perplexity window: a prefill forward whose
     f32 queries take the TF32 flash kernel (no bf16 tensor-core launch) and
-    whose head runs at every row (one launch all the same); q8_0's and
-    q4_k_m's matmuls all on the TF32 tile."""
+    whose head runs at every row (one launch all the same); every matmul
+    on the TF32 tile."""
     counts = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=0,
                                        decode_kernel="decode_attention")
     counts["flash_attention_tc"] = 0
@@ -2252,51 +2258,47 @@ EVAL_FLASH_EDGES = (
 )
 FLASH_PLANS = {(D, r) for D in (256, 128) for r in (1, 2, 4)}  # (D, row warps) of flash_tc_shape
 # phase 8's f32 GEMVs (f32 x at M <= 8: the decode and serving steps of f32
-# serving and --verify's f32 cache), on the rows of each format's recipe
-# (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k Gemma-2B q4_k_m: q6_k is its
-# head), at the decode step's M = 1 and the serving step's 8: q4_0's and
-# q4_k's every row of a decode step on the tensor-core GEMV with x in three
-# bf16 parts (1e-5 of the output's scale), q8_0's gate_up, down and head
-# and q6_k's head on their SIMT GEMVs (1e-4)
+# serving and --verify's f32 cache), on every row of a decode step of each
+# format's recipe (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k Gemma-2B
+# q4_k_m: q6_k is its attn_v and head), at the decode step's M = 1 and the
+# serving step's 8: q4_0's, q8_0's and q4_k's on the tensor-core GEMV with
+# x in three bf16 parts (1e-5 of the output's scale), q6_k's on its SIMT
+# GEMV (1e-4)
 GEMV_F32_ROWS = {"q4_0": ("qkv", "attn_out", "gate_up", "down", "head"),
-                 "q8_0": ("gate_up", "down", "head"),
-                 "q4_k": ("attn_q", "attn_k", "attn_out", "gate_up", "down"), "q6_k": ("head",)}
+                 "q8_0": ("qkv", "attn_out", "gate_up", "down", "head"),
+                 "q4_k": ("attn_q", "attn_k", "attn_out", "gate_up", "down"), "q6_k": ("attn_v", "head")}
 GEMV_F32_MS = (1, SERVE_SLOTS)
 # the tensor-core f32 GEMV's edges (format, N, K, Ms): every M of 1-8 at N
-# not a multiple of 16, q4_0 at K % 64 == 32 and q4_k at an odd count of
-# superblocks, both summing their K splits by ticket; and at M = 8 ragged
-# rows wide enough that a second launch (`dq_split_sum_kernel`) sums them
+# not a multiple of 16, q4_0 and q8_0 at K % 64 == 32 and q4_k at an odd
+# count of superblocks, each summing its K splits by ticket; and at M = 8
+# ragged rows wide enough that a second launch (`dq_split_sum_kernel`) sums
+# them
 GEMV_F32_EDGES = (("q4_0", 1000, 1056, tuple(range(1, 9))), ("q4_k", 999, 1280, tuple(range(1, 9))),
-                  ("q4_0", 9990, 2048, (SERVE_SLOTS,)), ("q4_k", 19990, 2048, (SERVE_SLOTS,)))
+                  ("q8_0", 999, 1056, tuple(range(1, 9))), ("q4_0", 9990, 2048, (SERVE_SLOTS,)),
+                  ("q4_k", 19990, 2048, (SERVE_SLOTS,)), ("q8_0", 9990, 3072, (SERVE_SLOTS,)))
 FLASH_TF32_PASSES = 3  # the TF32 flash kernel's products a k8 step (3xTF32): not in the bound
 
 
 def check_eval_routes(torch, dev) -> dict[str, dict]:
-    """Phase 8: the kernels' f32 evaluation routes at the perplexity
-    window's shapes (M = T = PPL_WINDOW): q4_0's plain-FMA tile at each of
-    its full-width matrices (the head too: perplexity scores every row;
-    q8_0's, q4_k's and q6_k's TF32 tile is phase 3's), and the TF32 flash
-    kernel at Gemma-2B's and Gemma-7B's heads, each against its plain
-    version (f32 both: 1e-4 of the output's scale, of each row's for
-    attention), with device times (matmuls L2 cold), the bound (HBM bytes,
-    or the function's flops at the TF32 rate, 495 TFLOP/s: f32 x against
-    exact integer weights runs there at two passes, as the TF32 tile shows,
-    so the FMA tile's figure at the f32 FMA rate, 67 TFLOP/s, is in its
-    info line, and the TF32 flash kernel's three passes in its) and the
-    library call (torch.matmul
-    of f32 x with the weight dequantized to f32 beforehand, TF32 off;
-    scaled_dot_product_attention in f32); the TF32 flash kernel also at
-    EVAL_FLASH_EDGES, each launch counted in `tf32_launches`; then every
-    format's f32 GEMV (`check_gemv_f32`). Returns readings: the FMA tile's
-    and the SIMT GEMVs' under their kernels' names, the TF32 flash
-    kernel's as `flash_attention_tf32`, the tensor-core f32 GEMV's as
-    `q4_0_matmul_gemv_f32` and `q4_k_matmul_gemv_f32`."""
+    """Phase 8: the f32 evaluation routes of attention. The TF32 flash
+    kernel at the perplexity window's shapes (T = PPL_WINDOW) at
+    Gemma-2B's and Gemma-7B's heads against its plain version (f32 both:
+    1e-4 of each row's scale), with device times, the bound (HBM bytes, or
+    the function's flops at the TF32 rate, 495 TFLOP/s; its three passes
+    in the info line) and the library call (scaled_dot_product_attention
+    in f32), and at EVAL_FLASH_EDGES, each launch counted in
+    `tf32_launches`; the f32-q decode kernel (`check_f32_decode`); then
+    every format's f32 GEMV (`check_gemv_f32`). The matmuls' f32 route at
+    M > 8, the TF32 tile, is phase 3's (`check_tf32_routes`). Returns
+    readings: the TF32 flash kernel's as `flash_attention_tf32`, the f32-q
+    decode's under `decode_attention` ("f32"), the tensor-core f32 GEMV's
+    as `q4_0_matmul_gemv_f32`, `q8_0_matmul_gemv_f32` and
+    `q4_k_matmul_gemv_f32`, q6_k's SIMT GEMV's under its kernel's name
+    ("gemv_f32")."""
     import gemma_tpu_torch.ops.attention as att
-    import gemma_tpu_torch.ops.quant_matmul as qmm
-    from gemma_tpu_torch.quant.qtensor import dequant
     from gemma_tpu_torch.tools import _timing as T
     from gemma_tpu_torch.tools import tc_emulation as emu
-    from gemma_tpu_torch.utils.device import H100_F32_FLOPS, H100_TF32_FLOPS
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
 
     require(not torch.backends.cuda.matmul.allow_tf32, "the library yardstick must run in f32")
     gen = torch.Generator(device=dev)
@@ -2308,40 +2310,6 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
                          launches=5) / 1e3
 
     readings: dict[str, dict] = {}
-    for fmt, (shapes, _) in MATMUL_SHAPES.items():
-        if fmt in qmm.TF32_FORMATS:  # the TF32 tile: phase 3 (check_tf32_routes)
-            continue
-        for name, N, K, _ in shapes:
-            if name == "deep_k":  # not on a GGUF path
-                continue
-            qt = T.random_qtensor(fmt, N, K, gen, dev)
-            x = torch.randn(M, K, generator=gen, device=dev)
-            got, ref = qmm.MATMULS[fmt](x, qt), qmm.PLAIN[fmt](x, qt)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            tol = 1e-4 * ref.abs().max().item() + 1e-6
-            del got, ref
-            w32 = dequant(qt, torch.float32)
-            ms = cold(qmm.MATMULS[fmt], (x, qt))
-            plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
-            library_ms = cold(lambda x_, w_: torch.matmul(x_, w_.T), (x, w32))
-            wire = T.nbytes(qt)
-            bound_ms, bound_by = bound(wire + M * K * 4 + M * N * 4, 2 * M * N * K, H100_TF32_FLOPS)
-            fma_ms = 2 * M * N * K / H100_F32_FLOPS * 1e3
-            info("quality", f"{fmt}_matmul f32 route {name} M={M} N={N} K={K}: max|diff|={err:.3e} "
-                            f"tol={tol:.3e}; device ms, L2 cold: kernel {ms:.4f} "
-                            f"({2 * M * N * K / ms / 1e9:.3f} TFLOP/s) library (f32 matmul, weight "
-                            f"dequantized beforehand) {library_ms:.4f}; plain {plain_ms:.4f}; bound "
-                            f"{bound_ms:.4f} ({bound_by}, TF32 rate); the flops at the f32 FMA "
-                            f"rate {fma_ms:.4f}")
-            require(err <= tol, f"{fmt}_matmul f32 {name} M={M}: max|diff| {err} > tol {tol}")
-            if name == EVAL_REP[fmt]:
-                readings[f"{fmt}_matmul"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms,
-                    "shape": f"f32 {name} M={M} N={N} K={K}"}
-            del qt, w32, x
-            torch.cuda.empty_cache()
     flash = {"max_abs_err": 0.0}
     plans = set()  # (D, row warps) run
     for heads, hq, hkv in (("Gemma-2B", 8, 1), ("Gemma-7B", 16, 16)):
@@ -2416,8 +2384,64 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     info("quality", f"TF32 flash edge cases within 1e-4 of each row's scale (worst ratio {worst:.3f})")
     require(plans == FLASH_PLANS, f"TF32 flash: block plans {sorted(FLASH_PLANS - plans)} never ran")
     readings["flash_attention_tf32"] = flash
+    readings["decode_attention"] = {"f32": check_f32_decode(torch, dev, gen)}
     readings.update(check_gemv_f32(torch, dev, cold))
     return readings
+
+
+# phase 8's f32-q decode readings: (heads, Hq, Hkv, S, kv_limit) at a
+# prompt's first decode step over the main path's cache and over a 4096-slot
+# one, full
+F32_DECODE_SHAPES = tuple((heads, hq, hkv, S, limit) for heads, hq, hkv in (("Gemma-2B", 8, 1),
+                                                                           ("Gemma-7B", 16, 16))
+                          for S, limit in ((MAX_SEQ_LEN, PROMPT_LEN + 1), (LONG_SEQ_LEN, LONG_SEQ_LEN)))
+
+
+def check_f32_decode(torch, dev, gen) -> list[dict]:
+    """Phase 8: decode attention with f32 queries over an f32 cache (every
+    f32 decode step's: the split-S kernel and its combine, at Gemma-2B's G
+    = 8 and Gemma-7B's G = 1) at F32_DECODE_SHAPES, batch 1, against its
+    plain version (1e-4 of each row's scale), timed warm beside f32
+    scaled_dot_product_attention, with its bound: the live keys' f32 K and
+    V, q and out over HBM bandwidth against the function's flops at the
+    TF32 rate. Changes no kernel: the row the redesigns are ranked by.
+    Returns a reading a shape."""
+    import gemma_tpu_torch.ops.attention as att
+    from gemma_tpu_torch.tools._timing import attn_err
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
+
+    rows = []
+    D = HEAD_DIM
+    for heads, hq, hkv, S, limit in F32_DECODE_SHAPES:
+        q = torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3
+        k, v = (torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
+        lim = torch.tensor([limit], dtype=torch.int32, device=dev)
+        before = att.decode_attention.tc_launches
+        got = att.decode_attention(q, k, v, lim)
+        ref = att.decode_attention_plain(q, k, v, lim)
+        torch.cuda.synchronize()
+        err, ratio, lo, hi = attn_err(got, ref, 1e-4)
+        require(att.decode_attention.tc_launches == before and ratio <= 1.0,
+                f"decode_attention f32 {heads} S={S}: |diff| {ratio:.3f} x 1e-4 of its row's scale "
+                f"(tensor-core launches {att.decode_attention.tc_launches - before})")
+        ms = device_ms(torch, lambda: att.decode_attention(q, k, v, lim), reps=3)
+        plain_ms = device_ms(torch, lambda: att.decode_attention_plain(q, k, v, lim), launches=1, reps=3)
+        library_ms = sdpa_ms(torch, q, k, v, torch.arange(S, device=dev)[None, None] < limit)
+        bound_ms, bound_by = bound(limit * hkv * 2 * D * 4 + 2 * hq * D * 4 + 4, 4 * hq * D * limit,
+                                   H100_TF32_FLOPS)
+        route = "{}, {} keys a block".format(*att.decode_route(torch.float32, hq // hkv, S))
+        info("quality", f"decode_attention f32 q {heads} heads (Hq={hq} Hkv={hkv} D={D}) S={S} "
+                        f"limit={limit} ({route}): max|diff|={err:.3e}, worst |diff| / (1e-4 x row "
+                        f"scale) {ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms, warm: kernel "
+                        f"{ms:.4f} library (scaled_dot_product_attention, f32, boolean mask) "
+                        f"{library_ms:.4f} (kernel / library {ms / library_ms:.3f}); plain "
+                        f"{plain_ms:.4f}; bound {bound_ms:.6f} ({bound_by}: f32 K and V at HBM rate, "
+                        f"or the flops at the TF32 rate)")
+        rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "shape": f"f32 q {heads} S={S} kv_limit={limit} Hq={hq} Hkv={hkv} D={D}"})
+        del q, k, v, got, ref
+    return rows
 
 
 def gemv_f32_plan(torch, fmt: str, M: int, N: int, K: int) -> tuple[str, str]:
@@ -2453,13 +2477,14 @@ def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
     bandwidth against the function's 2 M N K flops at the TF32 rate; the
     tensor-core route's three bf16 passes at the bf16 rate in its info
     line) and the library call (f32 torch.matmul on the weight dequantized
-    beforehand). q4_0 and q4_k (the tensor-core GEMV, qmm.GEMV_F32_FORMATS):
-    1e-5 of the output's scale, one `gemv_f32_launches` a call, the
-    library's K-split scratch held to the emulated plan (`gemv_f32_plan`),
-    and GEMV_F32_EDGES too; q8_0 and q6_k (SIMT): 1e-4. Returns readings:
-    the tensor-core route's as `q4_0_matmul_gemv_f32` and
+    beforehand). q4_0, q8_0 and q4_k (the tensor-core GEMV,
+    qmm.GEMV_F32_FORMATS): 1e-5 of the output's scale, one
+    `gemv_f32_launches` a call, the library's K-split scratch held to the
+    emulated plan (`gemv_f32_plan`), and GEMV_F32_EDGES too; q6_k (SIMT):
+    1e-4. Returns readings: the tensor-core route's as
+    `q4_0_matmul_gemv_f32`, `q8_0_matmul_gemv_f32` and
     `q4_k_matmul_gemv_f32` (its gate_up row at M = 8, every row under
-    "rows"), the SIMT GEMVs' under their kernels' names ("gemv_f32")."""
+    "rows"), the SIMT GEMV's under its kernel's name ("gemv_f32")."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.quant.qtensor import dequant
     from gemma_tpu_torch.tools import _timing as T
@@ -2636,35 +2661,37 @@ def quality_cli(torch, dev) -> None:
 
 F32_DECODE_STEPS = 4  # f32_decode_steps's checked steps a run
 F32_DECODE_REL = 1e-4  # of the logits' scale: kernels against plain versions, both f32
+# f32_decode_steps's models: each recipe's f32 GEMVs (q6_k's SIMT)
+F32_DECODE_MODELS = (("Gemma-2B", "q4_0"), ("Gemma-2B", "q4_k_m"), ("Gemma-7B", "q8_0"))
 
 
 def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[str, float],
                                                                             dict[str, int]]:
-    """Phase 8: Gemma-2B q4_0 and q4_k_m decode steps with f32 activations
-    and cache, at 1 and SERVE_SLOTS rows (each row its own rotation of one
-    PROMPT_LEN-token prompt) after a prefill. With `check`: F32_DECODE_STEPS
-    greedy steps with exact launches (a step: 73 q4_0, or 90 q4_k and 19
-    q6_k; every q4_0 and q4_k launch the f32 GEMV's, q6_k's the SIMT
-    GEMV's), each step's logits held against the same steps through the
-    plain versions on the card (the same token stream, F32_DECODE_REL of
-    the logits' scale), the plain side launching nothing. Then the device
-    busy ms of a step by torch.profiler over 8 more (`decode_profile`, as
-    phases 4 and 6; `check=False` times only, as a parent tree's turn of
-    `tools/parent_turn.py` does). Returns (the busy ms by "<format>
-    rows=<rows>", the checked steps' launches)."""
-    from gemma_tpu_torch.models import GEMMA_2B
+    """Phase 8: F32_DECODE_MODELS' decode steps with f32 activations and
+    cache, at 1 and SERVE_SLOTS rows (each row its own rotation of one
+    PROMPT_LEN-token prompt) after a prefill. With `check`:
+    F32_DECODE_STEPS greedy steps with exact launches (a step: 73 q4_0, or
+    90 q4_k and 19 q6_k, or 113 q8_0; every q4_0, q8_0 and q4_k launch the
+    f32 GEMV's, q6_k's the SIMT GEMV's), each step's logits held against
+    the same steps through the plain versions on the card (the same token
+    stream, F32_DECODE_REL of the logits' scale), the plain side launching
+    nothing. Then the device busy ms of a step by torch.profiler over 8
+    more (`decode_profile`, as phases 4 and 6; `check=False` times only, as
+    a parent tree's turn of `tools/parent_turn.py` does). Returns (the busy
+    ms by "<format> rows=<rows>", the checked steps' launches)."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import make_params
     from gemma_tpu_torch.utils.verify import plain_versions
 
-    cfg = dataclasses.replace(GEMMA_2B, activation_dtype="float32")
-    prompt = [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
     busy: dict[str, float] = {}
     total: dict[str, int] = {}
-    for fmt in ("q4_0", "q4_k_m"):
-        model = make_params(GEMMA_2B, fmt, seed=0, device=dev)
+    for model_name, fmt in F32_DECODE_MODELS:
+        base = model_config(model_name)
+        cfg = dataclasses.replace(base, activation_dtype="float32")
+        prompt = [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
+        model = make_params(base, fmt, seed=0, device=dev)
         for rows in (1, SERVE_SLOTS):
-            phase = f"quality Gemma-2B {fmt} f32 decode, {rows} rows"
+            phase = f"quality {model_name} {fmt} f32 decode, {rows} rows"
             ecfg = EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=rows, kv_dtype=torch.float32)
             prompts = [prompt[r:] + prompt[:r] for r in range(rows)]
 
@@ -2707,7 +2734,7 @@ def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[st
                 del plain
             ms, top = decode_profile(torch, eng, cache, outs[-1].argmax(-1))
             busy[f"{fmt} rows={rows}"] = ms
-            info("quality", f"Gemma-2B {fmt} f32 decode step, {rows} rows, on {card}: device busy "
+            info("quality", f"{model_name} {fmt} f32 decode step, {rows} rows, on {card}: device busy "
                             f"{ms:.4f} ms; device ms a step by kernel: {top}")
             del eng, cache, outs
         del model
@@ -3641,13 +3668,11 @@ def run() -> dict:
     done("decode-GEMV instruments (phase 7)")
     quality_counts, eval_readings = quality_gates(torch, dev, card)
     add_counts(counts, quality_counts)
-    for name in ("flash_attention_tf32", "q4_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32"):
+    for name in ("flash_attention_tf32", "q4_0_matmul_gemv_f32", "q8_0_matmul_gemv_f32",
+                 "q4_k_matmul_gemv_f32"):
         results[name] = eval_readings.pop(name)
-    for name, reading in eval_readings.items():  # the other f32 evaluation routes
-        if "gemv_f32" in reading:  # q8_0's and q6_k's SIMT GEMVs
-            results[name]["gemv_f32"] = reading.pop("gemv_f32")
-        if reading:  # q4_0's FMA tile
-            results[name]["eval_f32"] = reading
+    for name, reading in eval_readings.items():  # q6_k's SIMT GEMV ("gemv_f32"), f32-q decode ("f32")
+        results[name].update(reading)
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
     done("serving across two processes (phase 9)")
@@ -3663,8 +3688,10 @@ def run() -> dict:
          "launches": counts[name], **results[name]}
         for name, (src, replaces) in {**KERNELS, **TOOL_KERNELS}.items()
     ]
-    require(counts["q4_0_matmul_gemv_f32"] > 0 and counts["q4_k_matmul_gemv_f32"] > 0,
+    require(all(counts[f"{fmt}_matmul_gemv_f32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k")),
             "the f32 paths launched no f32 GEMV")
+    require(all(counts[f"{fmt}_matmul_tf32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
+            "the f32 paths launched no TF32 tile")
     print(json.dumps({"kernels": kernels}), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -3,23 +3,24 @@
 // (perplexity, the f32 caches of --verify, f32 serving), held to 1e-5 of the
 // output's scale against the f32 dot.
 //
-// Replaces on that route the Pallas kernels `_q4_k_kernel`, `_q6_k_kernel`
-// and `_q8_0_kernel` of gemma_tpu/ops/quant_matmul.py (whose dispatch sends
-// f32 activations to an f32 dequant and dot, quant_matmul.py:373-380), in
-// place of the f32 plain-FMA tiles `q4_k_tiled_kernel`, `q6_k_tiled_kernel`
-// and `q8_0_tiled_kernel` that ran there; q4_0 keeps its FMA tile.
+// Replaces on that route the Pallas kernels `_q4_0_kernel`, `_q4_k_kernel`,
+// `_q6_k_kernel` and `_q8_0_kernel` of gemma_tpu/ops/quant_matmul.py (whose
+// dispatch sends f32 activations to an f32 dequant and dot,
+// quant_matmul.py:373-380), in place of the f32 plain-FMA tiles
+// `q4_0_tiled_kernel`, `q4_k_tiled_kernel`, `q6_k_tiled_kernel` and
+// `q8_0_tiled_kernel` that ran there: every format's f32 x above M = 8.
 //
 // Accuracy: TF32 keeps 10 mantissa bits (~5e-4 relative), so one TF32 pass
 // cannot hold 1e-5. Chosen here: two passes with the weight exact.
-// * The weight enters the product as its integer, q4_k's q - 8 (-8..7),
-//   q6_k's q - 32 (-32..31) and q8_0's q (-128..127): exact in TF32. No
-//   scale is folded into it.
+// * The weight enters the product as its integer, q4_0's and q4_k's q - 8
+//   (-8..7), q6_k's q - 32 (-32..31) and q8_0's q (-128..127): exact in
+//   TF32. No scale is folded into it.
 // * x splits into hi = tf32(x), rounded to nearest as `cvt.rna.tf32.f32`
 //   rounds, and lo = x - hi (exact in f32) truncated to TF32: hi + lo is x
 //   within 2^-21 of |x|, and each of hi * q, lo * q is exact in the f32
 //   accumulators. Two `mma.sync` m16n8k8 TF32 products a k8 step, not
 //   3xTF32's three: the weight needs no lo part.
-// * Each scale group (q4_k and q8_0: 32 weights, q6_k: 16) sums into a fresh
+// * Each scale group (q4_0, q4_k and q8_0: 32 weights, q6_k: 16) sums into a fresh
 //   fragment, which is scaled by its f32 group scale (d*sc) into the
 //   accumulators with fmaf: the pattern of the bf16 GEMV (dq_gemv.cuh).
 //   The scale is per weight row, that is per column of the C fragment, so
@@ -33,8 +34,8 @@
 // sums: ~1e-6 of the output's scale.
 //
 // A template over a per-format functor F that reuses the bf16 tile's raw
-// layout and copies (`Q4KTile`, `Q6KTile`, `Q8_0Tile`: one row's raw bytes
-// of a 64-wide K-step, in quarters):
+// layout and copies (`Q4_0Tile`, `Q4KTile`, `Q6KTile`, `Q8_0Tile`: one row's
+// raw bytes of a 64-wide K-step, in quarters):
 //
 //   struct F : <the bf16 tile's functor> {
 //     static constexpr int kGroupUnits;  // 16-wide units a scale covers: 2 or 1
@@ -63,11 +64,11 @@
 //   fragment slots k = t and k = t + 4 take elements 16u + 4t + 2s and
 //   16u + 4t + 2s + 1. So a lane's A values for both k8 steps of a unit are
 //   one 16-byte shared load a row, and its B values are four consecutive
-//   weights of its row: one 32-bit word of q4_k's nibbles (q6_k: one ql
-//   and one qh word; q8_0: one payload word, sign bits flipped), turned
+//   weights of its row: one 32-bit word of q4_0's or q4_k's nibbles (q6_k:
+//   one ql and one qh word; q8_0: one payload word, sign bits flipped), turned
 //   into f32 integers by a byte perm and a subtract (2^23 + u less 2^23 +
 //   bias), with no conversion instruction.
-// * K is a multiple of 32. Where it is not one of 64 (q8_0), the last step
+// * K is a multiple of 32. Where it is not one of 64 (q4_0, q8_0), the last step
 //   is half a step, as in dq_tile.cuh: x columns at or past K are
 //   zero-filled by cp.async (nothing past K is read), the functor copies
 //   zero weights there and `prepare` gives the group past K the scale 0.
@@ -76,8 +77,8 @@
 //   load phase, rows g and g + 1 at chunks 4u + t, fall on distinct banks,
 //   and each lane's loads sit at fixed offsets from one address (no
 //   per-load address math, as an XOR swizzle would need). The raw rows'
-//   pitches (48, 112, 80 bytes) put the 32-bit weight words of a warp's 8
-//   rows x 4 lanes on distinct banks.
+//   pitches (q4_0 and q4_k 48, q6_k 112, q8_0 80 bytes) put the 32-bit
+//   weight words of a warp's 8 rows x 4 lanes on distinct banks.
 // * Grid fill: where the output tiles hold fewer than two blocks an SM
 //   (q4_k attn_k and q6_k attn_v, [256 x 2048], at any M; attn_q, attn_out
 //   and down at M <= 512; q8_0's qkv at M <= 64, attn_out and down), the K

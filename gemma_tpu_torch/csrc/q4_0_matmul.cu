@@ -49,12 +49,27 @@
 //   kernel's bf16 MXU operands above M = 8. `Q4_0Tile` rounds each weight
 //   to bf16(d * (u - 8)), the reference kernel's rounding point. Where K %
 //   64 == 32 the tile's last K-step is half a step, zero-filled.
-// * Prefill with f32 x (evaluation mode) runs an f32 plain-FMA tile
-//   (`q4_0_tiled_kernel`): 64 x 64 outputs per block, K stepped one
-//   32-block at a time, both tiles in shared memory in f32.
+// * Prefill with f32 x (evaluation mode: perplexity, the f32 caches of
+//   --verify, f32 serving) runs the TF32 tensor-core tile of
+//   dq_tile_tf32.cuh (`dq_tile_tf32_kernel<Q4_0Tf32>`) on Q4_0Tile's raw
+//   copies (48 bytes a row and step), held to 1e-5 of the output's scale:
+//   the integers u - 8, exact in TF32, against x split into two TF32 parts
+//   (two m16n8k8 products a k8 step), each 32-block's fragment scaled by
+//   its f32 d. Where K % 64 == 32 the last K-step is half a step: x past K
+//   zero-filled, the second block's scale 0. It bounds on operations:
+//   Gemma-2B's gate_up at the perplexity window (M = 512) is 68.7 GFLOP,
+//   0.139 ms at 495 TFLOP/s of TF32. The f32 plain-FMA tile it replaced
+//   read 21-29 TFLOP/s there (gate_up 2.4669 ms, head 18.5751; PERF.md).
+//   Expected before it ran (q4_k's rows on the same tile and shapes as the
+//   guide): at M = 512 gate_up 1.0-1.15 ms, down 0.55-0.65, attn_out
+//   ~0.08, qkv 0.09-0.11, head 8.5-9.5, every row at or below f32
+//   torch.matmul on the dequantized weight (1.3861, 0.6885, 0.1002,
+//   0.1287, 10.5792), and a Gemma-2B q4_0 f32 perplexity window from
+//   105.6-111.6 ms to about 50-60.
 //
 // Every launch is checked: the entry point returns cudaGetLastError().
 #include "dq_gemv.cuh"
+#include "dq_tile_tf32.cuh"
 
 using namespace gt;
 
@@ -153,84 +168,6 @@ q4_0_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   }
 }
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 32;  // one q4_0 block
-constexpr int kTiledThreads = 256;
-
-// f32 x (evaluation mode): f32 weights, plain FMA
-__global__ void __launch_bounds__(kTiledThreads)
-q4_0_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
-                  const __half* __restrict__ scales, float* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) float xs[kTileK][kTileM + 4];  // x tile, K-major
-  __shared__ __align__(16) float ws[kTileK][kTileN + 4];  // dequantized W tile, K-major
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output cols tx*4 .. +3
-  const int ty = tid / 16;  // output rows ty*4 .. +3
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int nblk = K / 32;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int i = tid; i < kTileM * kTileK; i += kTiledThreads) {
-      const int r = i / kTileK;
-      const int c = i % kTileK;
-      const int m = m0 + r;
-      xs[c][r] = m < M ? x[static_cast<size_t>(m) * K + k0 + c] : 0.f;
-    }
-    {
-      // 64 weight rows x 4 words of 4 payload bytes: 8 values per thread
-      const int r = tid / 4;
-      const int part = tid % 4;
-      const int n = n0 + r;
-      uint32_t word = 0x88888888u;  // nibbles of 8 dequantize to 0
-      float d = 0.f;
-      if (n < N) {
-        const int b = k0 / 32;
-        word = *reinterpret_cast<const uint32_t*>(qs + static_cast<size_t>(n) * (K / 2) + b * 16 + part * 4);
-        d = __half2float(scales[static_cast<size_t>(n) * nblk + b]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t byte = (word >> (8 * j)) & 0xffu;
-        const float lo = d * static_cast<float>(static_cast<int>(byte & 0xfu) - 8);
-        const float hi = d * static_cast<float>(static_cast<int>(byte >> 4) - 8);
-        ws[part * 4 + j][r] = lo;
-        ws[16 + part * 4 + j][r] = hi;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
 // the SIMT GEMV (kGDot, f16 scales) at M <= 8, bf16 x: gt_qmm_variant's
 void launch_gemv(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc, float* y, int M, int N, int K,
                  cudaStream_t s) {
@@ -296,6 +233,29 @@ struct Q4_0Tile {
   }
 };
 
+// The f32 route's TF32 tile (dq_tile_tf32.cuh): Q4_0Tile's raw step and
+// copies. A 16-wide unit u of the step is Q4_0Tile's quarter u, nibble u % 2
+// of block u / 2's 16 payload bytes (the reverse of Q4KTf32's order), so
+// lane t's four weights are the nibbles of the payload word at 16 (u / 2) +
+// 4t, less 8 by `bytes_minus`. `prepare` writes the exact f16 d of the
+// step's two blocks as f32, 0 for the half step past K (whose payload and x
+// are zero-filled too).
+struct Q4_0Tf32 : Q4_0Tile {
+  static constexpr int kGroupUnits = 2;
+
+  __device__ __forceinline__ static void prepare(const uint8_t* raw, float* scale, float*, int n,
+                                                 int K, int k0, int grp) {
+    const int odd = (static_cast<size_t>(n) * (K / 32) + k0 / 32) & 1;
+    *scale = k0 + 32 * grp < K ? __half2float(reinterpret_cast<const __half*>(raw + 32)[odd + grp]) : 0.f;
+  }
+
+  __device__ __forceinline__ static void weights(const uint8_t* raw, int, int u, int t,
+                                                 uint32_t (&b)[4]) {
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(raw + 16 * (u / 2) + 4 * t);
+    bytes_minus((word >> (4 * (u % 2))) & 0x0F0F0F0Fu, 8.f, b);
+  }
+};
+
 template <typename TX>
 cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void* y, void* work,
                         void* tickets, int M, int N, int K, cudaStream_t s) {
@@ -310,16 +270,21 @@ cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void*
     else
       return launch_dq_gemv<Q4_0Gemv>(xp, w, yp, wk, tk, M, N, K, s);
   }
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value)
     return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-  } else {
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    q4_0_tiled_kernel<<<grid, kTiledThreads, 0, s>>>(xp, w.qs, w.scales, yp, M, N, K);
-    return cudaGetLastError();
-  }
+  else
+    return launch_dq_tile_tf32<Q4_0Tf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
 }
 
 }  // namespace
+
+// bytes of the f32 route's K-split scratch (gt_matmul_work_bytes): the
+// GEMV's at M <= 8, which sets *tickets, and the TF32 tile's above
+extern "C" size_t gt_q4_0_f32_work_bytes(int M, int N, int K, int* tickets) {
+  if (M > 8) return dq_tile_tf32_work_bytes<Q4_0Tf32>(M, N, K);
+  *tickets = dq_gemv_tickets<Q4_0Gemv, XF32>(M, N, K);
+  return dq_gemv_work_bytes<Q4_0Gemv, XF32>(M, N, K);
+}
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;
 // qs/scales: the port's q4_0 layout; y: [M, N] f32; work and tickets: the
@@ -337,7 +302,7 @@ extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K);  // q8_0_matmul.cu
+extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K, int* tickets);  // q8_0_matmul.cu
 extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K, int* tickets);  // q4_k_matmul.cu
 extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K);  // q6_k_matmul.cu
 
@@ -345,17 +310,14 @@ extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K);  // q6_k_matmul.c
 // 3 q6_k: kernels/build.py FORMAT_CODES) takes at (x_dtype, M, N, K):
 // returns the bytes of its f32 scratch, the K-split partial sums of its
 // bf16 prefill tile (M > 8), of its tensor-core GEMV (M <= 8; with f32 x
-// q4_0's and q4_k's) or of q8_0's, q4_k's and q6_k's f32 TF32 tile (M > 8),
-// and sets *tickets to the count of ints (0 between launches) the GEMV's
-// last block a row tile takes to sum the splits; each 0 where there is none.
+// q4_0's, q8_0's and q4_k's) or of its f32 TF32 tile (M > 8), and sets
+// *tickets to the count of ints (0 between launches) the GEMV's last block
+// a row tile takes to sum the splits; each 0 where there is none.
 extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K, int* tickets) {
   *tickets = 0;
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0) return 0;
-  if (x_dtype == kF32 && M <= 8 && fmt == 0) {
-    *tickets = dq_gemv_tickets<Q4_0Gemv, XF32>(M, N, K);
-    return dq_gemv_work_bytes<Q4_0Gemv, XF32>(M, N, K);
-  }
-  if (x_dtype == kF32 && M > 8 && fmt == 1) return gt_q8_0_f32_work_bytes(M, N, K);
+  if (x_dtype == kF32 && fmt == 0) return gt_q4_0_f32_work_bytes(M, N, K, tickets);
+  if (x_dtype == kF32 && fmt == 1) return gt_q8_0_f32_work_bytes(M, N, K, tickets);
   if (x_dtype == kF32 && K % 256 == 0 && fmt == 2) return gt_q4_k_f32_work_bytes(M, N, K, tickets);
   if (x_dtype == kF32 && M > 8 && K % 256 == 0 && fmt == 3) return gt_q6_k_f32_work_bytes(M, N, K);
   if (x_dtype != kBF16) return 0;

@@ -17,14 +17,24 @@
 //   mask-ors and a bf16x2 subtract a pair, x the n8 operand, each block's
 //   fragment scaled by d in f32: the reference's numerics at M <= 8), with
 //   x copied once a block, each warp's rows streamed through its own
-//   cp.async ring, and at M = 1 K split only to fill the card. With f32 x
-//   (evaluation mode) `q8_0_gemv_kernel` (SIMT) gives each warp one output
-//   row; a lane takes one 32-byte block as two 16-byte loads, so a warp
-//   reads 1 KB contiguous per step. The int8 values widen in registers,
-//   FMA into f32 against x, and the block's sum is scaled by d once; a
-//   warp shuffle reduces. x is staged in shared memory in K-chunks of 1024
-//   (all of K = 24576 at M = 8 in f32 would not fit), padded to 36 floats
-//   per block so the lanes' float4 reads do not conflict on banks.
+//   cp.async ring, and at M = 1 K split only to fill the card. f32 x
+//   (evaluation mode: f32 serving's decode step, --verify's f32 cache)
+//   takes the same kernel with x in three bf16 parts (`XF32`: three mma a
+//   k16 step; `XF32Packed` at M <= 2: one, the parts as its columns), 1e-5
+//   of the output's scale: the reference kernel's f32 weights and x at
+//   M <= 8, to the order of f32 sums. Three planes of x are three times
+//   bf16's bytes beside q8_0's wide ring, so the policy's slice is a
+//   quarter of bf16's (512 at M = 2-8, M = 4's 1024 aside; 4096 at M = 1)
+//   and K splits further.
+//   The SIMT GEMV it replaced read 10 % of its byte bound at M = 8 (gate_up
+//   0.4791 ms against 0.0484; PERF.md): one warp a row, M FMAs and M
+//   shared reads of x a weight. Expected before it ran (bf16's M = 8 rows,
+//   gate_up 0.0765, down 0.0432, head 0.3424, times q4_0's and q4_k's f32
+//   / bf16 ratio, 1.3-1.7): at M = 8 gate_up 0.10-0.13 ms, down 0.056-0.075,
+//   head 0.45-0.58, well under f32 torch.matmul on the dequantized weight
+//   (0.3337, 0.2676, 1.6971); at M = 1 near bf16's (0.0654, 0.0379,
+//   0.2968): down below the SIMT's 0.0679, gate_up and head up to ~1.1x
+//   the SIMT's 0.0610 and 0.2859.
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
 //   bound by operations: the shared tensor-core tile of dq_tile.cuh
 //   (`dq_tile_kernel<Q8_0Tile>`: bf16 mma.sync, f32 accumulators, x and the
@@ -60,95 +70,9 @@ using namespace gt;
 
 namespace {
 
-constexpr int kGemvWarps = 8;
-constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass: one block per lane
-constexpr int kGemvBlocks = kGemvKChunk / 32;
-constexpr int kXPad = 36;  // floats per staged 32-block (bank-conflict-free)
-
 // the signed byte j (0..3) of a 32-bit word, as f32
 __device__ __forceinline__ float sbyte(uint32_t word, int j) {
   return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * j)) >> 24);
-}
-
-__device__ __forceinline__ void unpack16(uint4 raw, float* w) {
-  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = sbyte(words[i / 4], i % 4);
-}
-
-template <int M>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-q8_0_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ qs,
-                 const __half* __restrict__ scales, float* __restrict__ y, int N, int K) {
-  __shared__ __align__(16) float xs[M][kGemvBlocks][kXPad];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kGemvWarps + warp;
-  const int nblk = K / 32;
-  const int8_t* qrow = qs + static_cast<size_t>(n) * K;
-  const __half* srow = scales + static_cast<size_t>(n) * nblk;
-
-  float acc[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kGemvKChunk) {
-    const int klen = min(kGemvKChunk, K - k0);
-    __syncthreads();  // previous chunk fully consumed
-    for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
-      const int m = i / kGemvKChunk;
-      const int kk = i % kGemvKChunk;
-      xs[m][kk / 32][kk % 32] = kk < klen ? x[static_cast<size_t>(m) * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    const int b = k0 / 32 + lane;
-    if (n < N && lane < klen / 32) {
-      const uint4* blk = reinterpret_cast<const uint4*>(qrow + static_cast<size_t>(b) * 32);
-      const uint4 lo = blk[0];
-      const uint4 hi = blk[1];
-      const float d = __half2float(srow[b]);
-      float w[32];
-      unpack16(lo, w);
-      unpack16(hi, w + 16);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane][0]);
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 t = xv[i];
-          s = fmaf(w[4 * i + 0], t.x, s);
-          s = fmaf(w[4 * i + 1], t.y, s);
-          s = fmaf(w[4 * i + 2], t.z, s);
-          s = fmaf(w[4 * i + 3], t.w, s);
-        }
-        acc[m] = fmaf(d, s, acc[m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = warp_sum(acc[m]);
-  if (lane == 0 && n < N) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
-  }
-}
-
-// f32 x only (bf16 x takes the tensor cores above)
-void launch_gemv(const float* x, const int8_t* qs, const __half* sc, float* y, int M, int N, int K,
-                 cudaStream_t s) {
-  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-  const dim3 block(kGemvWarps * 32);
-  switch (M) {
-    case 1: q8_0_gemv_kernel<1><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 2: q8_0_gemv_kernel<2><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 3: q8_0_gemv_kernel<3><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 4: q8_0_gemv_kernel<4><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 5: q8_0_gemv_kernel<5><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 6: q8_0_gemv_kernel<6><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 7: q8_0_gemv_kernel<7><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    default: q8_0_gemv_kernel<8><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-  }
 }
 
 // The tensor-core tile's q8_0 item (dq_tile.cuh): 16 weights of one row in
@@ -229,16 +153,19 @@ cudaError_t launch_q8_0(const void* x, const void* qs, const void* scales, void*
                                     K, s);
   } else {
     if (M > 8) return launch_dq_tile_tf32<Q8_0Tf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    launch_gemv(xp, static_cast<const int8_t*>(qs), w.scales, yp, M, N, K, s);
-    return cudaGetLastError();
+    return launch_dq_gemv_f32<Q8_0Gemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
+                                        N, K, s);
   }
 }
 
 }  // namespace
 
-// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
-extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K) {
-  return dq_tile_tf32_work_bytes<Q8_0Tf32>(M, N, K);
+// bytes of the f32 route's K-split scratch (gt_matmul_work_bytes): the
+// GEMV's at M <= 8, which sets *tickets, and the TF32 tile's above
+extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K, int* tickets) {
+  if (M > 8) return dq_tile_tf32_work_bytes<Q8_0Tf32>(M, N, K);
+  *tickets = dq_gemv_tickets<Q8_0Gemv, XF32>(M, N, K);
+  return dq_gemv_work_bytes<Q8_0Gemv, XF32>(M, N, K);
 }
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous, 16-byte aligned;

@@ -13,15 +13,15 @@ shared tile of `csrc/dq_tile.cuh` (bf16 `mma.sync`, f32 accumulators, x
 copied by `cp.async`, the weight dequantized to bf16 in shared memory), and
 at 1 <= M <= 8 through the GEMV of `csrc/dq_gemv.cuh` (the weight's
 integers against x in bf16 `mma.sync`, scaled per group in f32), the
-batch-1 decode step included. With f32 x (evaluation mode) q8_0, q4_k and
-q6_k run above M = 8 on the tensor cores too, through the TF32 tile of
+batch-1 decode step included. With f32 x (evaluation mode) every format
+runs above M = 8 on the tensor cores too, through the TF32 tile of
 `csrc/dq_tile_tf32.cuh` (the weight's integers against x split into two
 TF32 parts, scaled per group in f32: 1e-5 of the output's scale), counted
 also in their wrappers' `tf32_launches` as the library reports its launches;
-q4_0 and q4_k at 1 <= M <= 8 through the GEMV with x split into three bf16
-parts (three `mma.sync` a k16 step, one at M <= 2: 1e-5 of the output's
-scale), counted also in `gemv_f32_launches`; the rest of f32 x runs SIMT:
-q8_0's and q6_k's GEMV at M <= 8 and q4_0's plain-FMA tile above.
+q4_0, q8_0 and q4_k at 1 <= M <= 8 through the GEMV with x split into three
+bf16 parts (three `mma.sync` a k16 step, one at M <= 2: 1e-5 of the
+output's scale), counted also in `gemv_f32_launches`; q6_k's f32 x at
+M <= 8 runs its SIMT GEMV.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -54,8 +54,8 @@ from ..kernels import build
 from ..quant.qtensor import QTensor, dequant, q4_k_group_scales, q4_k_nibbles
 
 DECODE_MAX_M = 8  # largest M served by the GEMV launch shape (f32 weights)
-TF32_FORMATS = ("q8_0", "q4_k", "q6_k")  # f32 x above DECODE_MAX_M: csrc/dq_tile_tf32.cuh
-GEMV_F32_FORMATS = ("q4_0", "q4_k")  # f32 x at M <= DECODE_MAX_M: csrc/dq_gemv.cuh's XF32
+TF32_FORMATS = ("q4_0", "q8_0", "q4_k", "q6_k")  # f32 x above DECODE_MAX_M: csrc/dq_tile_tf32.cuh
+GEMV_F32_FORMATS = ("q4_0", "q8_0", "q4_k")  # f32 x at M <= DECODE_MAX_M: csrc/dq_gemv.cuh's XF32
 _FORCE_PLAIN = False
 
 

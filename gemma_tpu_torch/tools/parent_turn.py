@@ -36,12 +36,14 @@ the quantized-matmul wrapper. The card's `nvidia-smi` line heads each turn.
 
     python -m gemma_tpu_torch.tools.parent_turn --parent DIR --gemv
 
-runs only the GEMVs' part, four turns and no decode rounds: the quantized
-matmuls at M = 1, 2, 4 and 8 with bf16 and with f32 x (times L2 cold, and
-outputs compared across the trees, f32 too), then chip_smoke's
-`f32_decode_steps` (device busy of a Gemma-2B q4_0 and q4_k_m decode step
-with f32 activations at 1 and 8 rows): copy this tree's chip_smoke.py into
-DIR first, as the parent's has no such phase. Runs on the card only.
+runs only the f32 routes' part, four turns and no decode rounds: the
+quantized matmuls at M = 1, 2, 4 and 8 with bf16 and with f32 x (times L2
+cold, and outputs compared across the trees, f32 too), q4_0's with f32 x at
+the tile's M = 17, 64, 203 and 512 (L2 cold), then chip_smoke's
+`f32_decode_steps` (device busy of a decode step with f32 activations at 1
+and 8 rows: Gemma-2B q4_0 and q4_k_m, Gemma-7B q8_0): copy this tree's
+chip_smoke.py into DIR first, as the parent's may lack that phase or a
+model of it. Runs on the card only.
 """
 from __future__ import annotations
 
@@ -206,12 +208,14 @@ def paged_serving_profile(dev: torch.device, c) -> str:
 
 
 MATMUL_MS = (1, 2, 4, 8)  # the decode step's rows and the serving step's
+TILE_F32_MS = (17, 64, 203, 512)  # prefill rows and the perplexity window: f32 x on the tile
 
 
-def matmul_times(dev: torch.device, shapes: dict, dtype: torch.dtype = torch.bfloat16) -> dict[str, float]:
+def matmul_times(dev: torch.device, shapes: dict, dtype: torch.dtype = torch.bfloat16,
+                 ms=MATMUL_MS) -> dict[str, float]:
     """Device ms, L2 cold, of the public quantized matmuls at `shapes`
-    (probe_variants' SHAPES: format -> (name, N, K)) and MATMUL_MS, x in
-    `dtype`."""
+    (probe_variants' SHAPES: format -> (name, N, K)) and each M of `ms`, x
+    in `dtype`."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.tools import _timing as T
 
@@ -220,7 +224,7 @@ def matmul_times(dev: torch.device, shapes: dict, dtype: torch.dtype = torch.bfl
     for fmt, rows in shapes.items():
         for name, N, K in rows:
             qt = T.random_qtensor(fmt, N, K, gen, dev)
-            for M in MATMUL_MS:
+            for M in ms:
                 x = T.bf16_x(M, K, gen, dev).to(dtype)
                 args = T.replicate((x, qt), T.copies_for(T.nbytes(x, qt), dev))
                 res[f"{fmt} {name} M={M} N={N} K={K}"] = T.time_us(qmm.MATMULS[fmt], args, dev) / 1e3
@@ -278,6 +282,9 @@ def turn(tag: str, shapes: dict, outputs: str | None = None, gemv: bool = False)
     if gemv:
         print(tag, "quantized matmuls with f32 x device ms, L2 cold:",
               json.dumps(matmul_times(dev, shapes["matmul"], torch.float32)), flush=True)
+        print(tag, "q4_0 with f32 x at M > 8 device ms, L2 cold:",
+              json.dumps(matmul_times(dev, {"q4_0": shapes["matmul"]["q4_0"]}, torch.float32,
+                                      TILE_F32_MS)), flush=True)
     if outputs:
         torch.save(matmul_outputs(dev, f32=gemv), outputs)
     if gemv:

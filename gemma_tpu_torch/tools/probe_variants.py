@@ -28,8 +28,9 @@ kernels through the public wrappers.
 `sass` needs no card, only the CUDA toolkit: it builds this tree's kernels
 and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
 and compares, instruction by instruction (`cuobjdump -sass`, branch labels
-numbered in order of use), each format's tensor-core GEMV with bf16 x in
-the two builds; it fails unless every one is the same code.
+numbered in order of use), each format's tensor-core GEMV with bf16 x and
+the TF32 tile's instances of TF32_KERNELS in the two builds; it fails
+unless every one is the same code.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, the int8 V
@@ -571,6 +572,9 @@ def run_mutants(dev: torch.device) -> None:
 # name: this tree's instance takes the element policy XBf16
 GEMV_BF16_KERNELS = {"q4_0": "BlockGemvILi16E", "q8_0": "BlockGemvILi32E", "q4_k": "Q4KGemv",
                      "q6_k": "Q6KGemv"}
+# the f32 TF32 tile's functors held to the parent's code (each instance: BN
+# 64 and 128), by a part of their mangled names
+TF32_KERNELS = {"q8_0": "Q8_0Tf32", "q4_k": "Q4KTf32", "q6_k": "Q6KTf32"}
 
 
 def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
@@ -603,35 +607,48 @@ def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
 
 
 def run_sass(parent: str) -> None:
-    """Mode sass: the bf16 GEMVs of this tree and of the parent, compared
-    instruction by instruction."""
+    """Mode sass: the bf16 GEMVs and the TF32_KERNELS tiles of this tree and
+    of the parent, compared instruction by instruction."""
     import difflib
+    import re
 
     trees = {"this": _sass(build.CSRC, build.BUILD_DIR / "variants" / "sass"),
              "parent": _sass(Path(parent) / "gemma_tpu_torch" / "csrc",
                              build.BUILD_DIR / "variants" / "parent")}
-    differ = []
+    pairs = []  # (label, this tree's kernel name, the parent's)
     for fmt, token in GEMV_BF16_KERNELS.items():
-        code = {}
+        names = {}
         for tree, kernels in trees.items():
-            names = [n for n in kernels if "dq_gemv_kernel" in n and token in n and "XF32" not in n]
-            if len(names) != 1:
-                raise SystemExit(f"sass: {tree} has {len(names)} bf16 GEMVs of {fmt}: {names}")
-            code[tree] = kernels[names[0]]
-        a, b = code["this"], code["parent"]
+            found = [n for n in kernels if "dq_gemv_kernel" in n and token in n and "XF32" not in n]
+            if len(found) != 1:
+                raise SystemExit(f"sass: {tree} has {len(found)} bf16 GEMVs of {fmt}: {found}")
+            names[tree] = found[0]
+        pairs.append((f"{fmt} bf16 GEMV", names["this"], names["parent"]))
+    for fmt, token in TF32_KERNELS.items():
+        # by instance: the names less their unnamed namespace's hash, which follows the source
+        names = {tree: {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", n): n for n in kernels
+                        if "dq_tile_tf32_kernel" in n and token in n} for tree, kernels in trees.items()}
+        if not names["this"] or names["this"].keys() != names["parent"].keys():
+            raise SystemExit(f"sass: the TF32 tiles of {fmt} differ: {names}")
+        for key, n in sorted(names["this"].items()):
+            bn = re.search(r"Tf32ELi(\d+)E", key).group(1)
+            pairs.append((f"{fmt} TF32 tile BN={bn}", n, names["parent"][key]))
+    differ = []
+    for label, this, par in pairs:
+        a, b = trees["this"][this], trees["parent"][par]
         same = sum(x == y for x, y in zip(a, b))
         ops = [sorted(c.split()[1] if c.startswith("@") else c.split()[0] for c in k) for k in (a, b)]
         verdict = ("the same code" if a == b else
                    f"{len(a) - same} of {len(a)} instructions differ in place; "
                    f"{'the same' if ops[0] == ops[1] else 'not the same'} opcodes in another order")
-        print(f"sass {fmt} bf16 GEMV: this {len(a)} instructions, parent {len(b)}: {verdict}", flush=True)
+        print(f"sass {label}: this {len(a)} instructions, parent {len(b)}: {verdict}", flush=True)
         if a != b:
-            differ.append(fmt)
+            differ.append(label)
             diff = difflib.unified_diff(b, a, "parent", "this", lineterm="", n=2)
             print("\n".join(list(diff)[:60]), flush=True)
     if differ:
-        raise SystemExit(f"sass: the bf16 GEMVs of {differ} are not the parent's code")
-    print("sass: every bf16 GEMV is the parent's code", flush=True)
+        raise SystemExit(f"sass: {differ} are not the parent's code")
+    print("sass: every bf16 GEMV and TF32 tile compared is the parent's code", flush=True)
 
 
 def main(argv=None) -> None:

@@ -7,7 +7,7 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
 * `gemv` emulates `dq_gemv_kernel` of `csrc/dq_gemv.cuh` (M <= 8) through
   each format's functor (`BlockGemv` for q4_0 and q8_0, `Q4KGemv`,
   `Q6KGemv`) and the element policy of x: bf16 x (`XBf16`), or f32 x
-  (`XF32`, q4_0 and q4_k on the main path) split into three bf16 parts
+  (`XF32`, q4_0, q8_0 and q4_k on the main path) split into three bf16 parts
   (`split_bf16x3`), three products a k16 step, smallest part first, the
   per-32 sums from the f32 x, and the policy's slice (`gemv_slice_max`):
   the block's x slice (and q4_k's per-32 sums of x) and each
@@ -23,8 +23,8 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   zero fill, then `store`) for every K-step of `dq_tile.cuh`, the half step
   past K included: the bf16 weight tile they write, as f32.
 * `tile_tf32` emulates the f32 route's TF32 tile of `csrc/dq_tile_tf32.cuh`
-  through the `Q8_0Tf32`, `Q4KTf32` and `Q6KTf32` functors: the x stage at
-  its padded offsets (zero-filled past K: q8_0's half step), the raw
+  through the `Q4_0Tf32`, `Q8_0Tf32`, `Q4KTf32` and `Q6KTf32` functors: the x stage at
+  its padded offsets (zero-filled past K: q4_0's and q8_0's half step), the raw
   bytes, the group scales, x split into two TF32 parts against the exact
   integer weights, each group's fragment scaled into f32 accumulators, the
   K splits summed in order.
@@ -648,7 +648,7 @@ def tile_weights(qt: QTensor, rows: int | None = None) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# The f32 route's TF32 tile (csrc/dq_tile_tf32.cuh) of q8_0, q4_k and q6_k
+# The f32 route's TF32 tile (csrc/dq_tile_tf32.cuh) of every format
 # ---------------------------------------------------------------------------
 TF_BM, TF_BK, TF_LD, TF_STAGES, TF_WARPS = 64, 64, 80, 3, 8  # kTfBM, kTfBK, kTfLd, kTfStages, kTfThreads / 32
 TF_TWO_BLOCK_SMEM = 113 * 1024  # kTfTwoBlockSmem
@@ -781,41 +781,63 @@ class Q6KTf32:
         return _bytes_minus(q, 32)
 
 
-class Q8_0Tf32:
-    """`Q8_0Tf32` of csrc/q8_0_matmul.cu on `Q8_0Tile`'s raw step: the two
-    blocks' payload [0, 64) (zeros past K: the half step), the two aligned
-    f16 words that hold their scales [64, 72)."""
-    raw, group_units, affine = 80, 2, False
+class BlockTf32:
+    """The f32 tile's functors of q4_0 and q8_0 (`Q4_0Tf32`, `Q8_0Tf32`) on
+    their bf16 tiles' raw step (`Q4_0Tile`, `Q8_0Tile`): the two blocks'
+    payload [0, 2 bb) (zeros past K: the half step), the two aligned f16
+    words that hold their scales [2 bb, 2 bb + 8)."""
+    bb = 0  # payload bytes of a 32-block
+    group_units, affine = 2, False
 
     def __init__(self, qt: QTensor):
         self.N, self.K = qt.shape
-        self.qs = _np(qt.qs).view(np.uint8).reshape(self.N, self.K)
+        self.qs = _np(qt.qs).view(np.uint8).reshape(self.N, self.K // 32 * self.bb)
         self.scales = np.concatenate([_np(qt.scales).reshape(-1), np.zeros(4, np.float16)])
 
     def copy(self, rows: int, k0: int) -> np.ndarray:
-        """`Q8_0Tile::copy` of every row of the step at k0 ([rows, 80]; rows
-        past N, and the block past K, zero-filled; a scale word past the end
-        of the array reads zeros, one that ends it only its low half)."""
+        """The tile's `copy` of every row of the step at k0 ([rows, raw];
+        rows past N, and the block past K, zero-filled; a scale word past
+        the end of the array reads zeros, one that ends it only its low
+        half)."""
+        bb = self.bb
         out = np.zeros((rows, self.raw), np.uint8)
         n, total = min(rows, self.N), self.N * (self.K // 32)
         for blk in range(2):
             if k0 + 32 * blk < self.K:
-                out[:n, 32 * blk: 32 * blk + 32] = self.qs[:n, k0 + 32 * blk: k0 + 32 * blk + 32]
+                src = (k0 // 32 + blk) * bb
+                out[:n, bb * blk: bb * blk + bb] = self.qs[:n, src: src + bb]
         h0 = (np.arange(n) * (self.K // 32) + k0 // 32) & ~1
         for j in range(2):
             h = h0 + 2 * j
             word = np.stack([np.where(h < total, self.scales[h], 0),
                              np.where(h + 1 < total, self.scales[h + 1], 0)], 1).astype(np.float16)
-            out[:n, 64 + 4 * j: 68 + 4 * j] = word.view(np.uint8)
+            out[:n, 2 * bb + 4 * j: 2 * bb + 4 * j + 4] = word.view(np.uint8)
         return out
 
     def prepare(self, raw: np.ndarray, n0: int, k0: int) -> tuple[np.ndarray, None]:
         """(d [2, rows] of the step's two blocks, 0 past K; no offsets)."""
-        d = raw[:, 64:72].copy().view(np.float16).astype(np.float32)  # [rows, 4]
+        d = raw[:, 2 * self.bb: 2 * self.bb + 8].copy().view(np.float16).astype(np.float32)  # [rows, 4]
         r = np.arange(len(raw))
         odd = ((n0 + r) * (self.K // 32) + k0 // 32) & 1
         return np.stack([d[r, odd + grp] if k0 + 32 * grp < self.K else np.zeros(len(raw), np.float32)
                          for grp in range(2)]).astype(np.float32), None
+
+
+class Q4_0Tf32(BlockTf32):
+    """`Q4_0Tf32` of csrc/q4_0_matmul.cu: raw 48 bytes a row (payload [0, 32),
+    scale words [32, 40)); unit u is nibble u % 2 of block u // 2."""
+    bb, raw = 16, 48
+
+    def weights(self, raw: np.ndarray, k0: int, u: int) -> np.ndarray:
+        """The nibbles of the payload word at 16 (u // 2) + 4t, less 8."""
+        w = raw[:, 16 * (u // 2): 16 * (u // 2) + 16].copy().view(np.uint32)  # [rows, 4]
+        return _bytes_minus((w >> (4 * (u % 2))) & 0x0F0F0F0F, 8)
+
+
+class Q8_0Tf32(BlockTf32):
+    """`Q8_0Tf32` of csrc/q8_0_matmul.cu: raw 80 bytes a row (payload [0, 64),
+    scale words [64, 72)); unit u is payload bytes 16u .. 16u + 15."""
+    bb, raw = 32, 80
 
     def weights(self, raw: np.ndarray, k0: int, u: int) -> np.ndarray:
         """The payload word at 16u + 4t, sign bits flipped, less 128."""
@@ -823,7 +845,7 @@ class Q8_0Tf32:
         return _bytes_minus(w, 128)
 
 
-TF32_FORMATS = {"q8_0": Q8_0Tf32, "q4_k": Q4KTf32, "q6_k": Q6KTf32}
+TF32_FORMATS = {"q4_0": Q4_0Tf32, "q8_0": Q8_0Tf32, "q4_k": Q4KTf32, "q6_k": Q6KTf32}
 
 
 def tf32_plan(fmt: str, M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[int, int]:
@@ -849,8 +871,8 @@ def tf32_plan(fmt: str, M: int, N: int, K: int, sms: int = H100_SMS) -> tuple[in
 
 
 def tile_tf32(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = 2) -> np.ndarray:
-    """`launch_dq_tile_tf32` on f32 x [M, K] (M > 8) and a q8_0, q4_k or
-    q6_k weight: y f32 [M, N]. Every block of the grid at once, a K-step at
+    """`launch_dq_tile_tf32` on f32 x [M, K] (M > 8) and a weight of any
+    format: y f32 [M, N]. Every block of the grid at once, a K-step at
     a time: the x stage at its padded offsets (zeros past K: a K of an odd
     count of 32-blocks ends on a half step), the functor's raw bytes,
     its scale table (and q4_k's offsets and per-32 sums of x), each 16-wide
@@ -1462,13 +1484,14 @@ def main() -> None:
                          and not tile[N:].any() and not tile[:, K:].any())
                 line += f"; tile weights bit-exact: {exact}"
             print(line)
-    for fmt, N, K, M in (("q4_0", 40, 1056, 7), ("q4_k", 19, 1280, 8)):
+    for fmt, N, K, M in (("q4_0", 40, 1056, 7), ("q8_0", 40, 1056, 2), ("q4_k", 19, 1280, 8)):
         qt = random_qtensor(fmt, N, K, gen, "cpu")
         x = torch.randn(M, K, generator=gen)
         ref = PLAIN[fmt](x, qt).numpy()
         err = np.abs(gemv(x, qt) - ref).max() / np.abs(ref).max()
         print(f"{fmt} f32 N={N} K={K} M={M}: GEMV (three bf16 parts) max|diff| / max|ref| {err:.2e}")
-    for fmt, M, N, K in (("q8_0", 70, 300, 1056), ("q4_k", 17, 300, 1280), ("q6_k", 17, 300, 1280)):
+    for fmt, M, N, K in (("q4_0", 17, 300, 1056), ("q8_0", 70, 300, 1056), ("q4_k", 17, 300, 1280),
+                         ("q6_k", 17, 300, 1280)):
         qt = random_qtensor(fmt, N, K, gen, "cpu")
         x = torch.randn(M, K, generator=gen)
         ref = PLAIN[fmt](x, qt).numpy()

@@ -13,8 +13,7 @@ scored positions see what they see in the reference.
 
 On the card, f32 activations (the default: ggml's evaluation arithmetic)
 take the kernels' f32 routes at M = window, the tied head included: the
-TF32 tensor-core tile of q8_0, q4_k and q6_k (q4_0's plain-FMA tile), and
-the TF32 flash kernel.
+TF32 tensor-core tile of every format, and the TF32 flash kernel.
 One window's logits are [T, vocab] f32 (524 MB at Gemma-2B's vocab and
 512 tokens), and log-softmax takes as much again: only one window is
 alive at a time.

@@ -36,12 +36,14 @@ def launch_counters() -> list[tuple[str, Any, str]]:
     """(name, wrapper, attribute) of every kernel launch counter of the
     main path's ops."""
     return [*((f"{fmt}_matmul", op, "launches") for fmt, op in qmm.MATMULS.items()),
-            # the calls of q8_0, q4_k and q6_k with f32 x at M > 8 (the TF32 tile)
+            # the calls with f32 x at M > 8 (the TF32 tile)
+            ("q4_0_matmul_tf32", qmm.q4_0_matmul, "tf32_launches"),
             ("q8_0_matmul_tf32", qmm.q8_0_matmul, "tf32_launches"),
             ("q4_k_matmul_tf32", qmm.q4_k_matmul, "tf32_launches"),
             ("q6_k_matmul_tf32", qmm.q6_k_matmul, "tf32_launches"),
-            # the calls of q4_0 and q4_k with f32 x at M <= 8 (the f32 GEMV)
+            # the calls of q4_0, q8_0 and q4_k with f32 x at M <= 8 (the f32 GEMV)
             ("q4_0_matmul_gemv_f32", qmm.q4_0_matmul, "gemv_f32_launches"),
+            ("q8_0_matmul_gemv_f32", qmm.q8_0_matmul, "gemv_f32_launches"),
             ("q4_k_matmul_gemv_f32", qmm.q4_k_matmul, "gemv_f32_launches"),
             ("flash_attention", att.flash_attention, "launches"),
             # the calls of flash attention with f32 queries (the TF32 kernel)

@@ -8,24 +8,23 @@ card holds the kernels to.
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
   split: 1e-5 of the output's scale, also against every format's Pallas
   kernel in interpret mode at M = 1.
-* The f32 GEMV of q4_0 and q4_k (`dq_gemv_kernel` with `XF32`): x split
-  into three bf16 parts that sum to x exactly, three products a k16 step
-  against the exact integer weights, q4_k's per-32 sums from the f32 x:
-  within 1e-5 of the output's scale of the plain f32 version, of the JAX
-  package's f32 dispatch and of `_q4_0_kernel` / `_q4_k_kernel` in
-  interpret mode (f32 weights and x at M <= 8) on bf16-exact f32 x. Two
-  parts still hold 1e-5 on random data; one misses it. Its plan keeps the
-  blocks an SM that bf16 x reaches.
-* The f32 route's TF32 tile of q8_0, q4_k and q6_k
-  (`csrc/dq_tile_tf32.cuh`): x split into two TF32 parts against the exact
-  integer weights, each group scaled in f32, the K splits summed in order:
-  within 1e-5 of the output's scale of the plain f32 version and of the
-  JAX package's f32 dispatch, and within 2e-2 of `_q8_0_kernel`,
-  `_q4_k_kernel` / `_q6_k_kernel` in interpret mode, which round x and
-  weights to bf16 at M > 8 (the tolerances of
-  tests/test_torch_quant_matmul.py); q8_0 also where K % 64 == 32 (the
-  half step past K). One TF32 pass misses 1e-5, so the second pass is
-  guarded.
+* The f32 GEMV of q4_0, q8_0 and q4_k (`dq_gemv_kernel` with `XF32`): x
+  split into three bf16 parts that sum to x exactly, three products a k16
+  step against the exact integer weights, q4_k's per-32 sums from the f32
+  x: within 1e-5 of the output's scale of the plain f32 version, of the
+  JAX package's f32 dispatch and of `_q4_0_kernel` / `_q8_0_kernel` /
+  `_q4_k_kernel` in interpret mode (f32 weights and x at M <= 8) on
+  bf16-exact f32 x. Two parts still hold 1e-5 on random data; one misses
+  it. Its plan keeps the blocks an SM that bf16 x reaches.
+* The f32 route's TF32 tile of every format (`csrc/dq_tile_tf32.cuh`): x
+  split into two TF32 parts against the exact integer weights, each group
+  scaled in f32, the K splits summed in order: within 1e-5 of the output's
+  scale of the plain f32 version and of the JAX package's f32 dispatch,
+  and within 2e-2 of `_q4_0_kernel`, `_q8_0_kernel`, `_q4_k_kernel` /
+  `_q6_k_kernel` in interpret mode, which round x and weights to bf16 at
+  M > 8 (the tolerances of tests/test_torch_quant_matmul.py); q4_0 and
+  q8_0 also where K % 64 == 32 (the half step past K). One TF32 pass
+  misses 1e-5, so the second pass is guarded.
 * Flash attention's f32 route (`flash_mma_kernel` with `FlashTf32`):
   both products in 3xTF32, so it differs from the plain f32 version by
   ~2^-21 of each product and the order of f32 sums: within 1e-4 of each
@@ -194,13 +193,17 @@ def test_f32_split_is_exact():
 
 
 # (fmt, N, K, M): every M of the M = 1, 2, 7, 8 rows; ragged N (19, 40 and
-# 1000 against the 16-row tiles); q4_0 at K % 64 == 32 (1056); q4_k at five
-# superblocks; K splits (4096: several slices; q4_0 1056 at M = 7 and 8:
-# four slices of the policy's 512)
+# 1000 against the 16-row tiles); q4_0 and q8_0 at K % 64 == 32 (1056); q4_k
+# at five superblocks; K splits (4096: several slices; q4_0 1056 at M = 7
+# and 8: four slices of the policy's 512; q8_0 at M >= 2: slices of 288 and
+# 384, its wider ring stage; Gemma-7B's K = 3072 at M = 1: eight to fill the
+# card)
 GEMV_F32_CASES = [*(("q4_0", N, K, M) for N, K, M in ((40, 1056, 1), (19, 1056, 2), (40, 1056, 7),
                                                       (1000, 1056, 8), (48, 4096, 2), (20, 4096, 8))),
                   *(("q4_k", N, K, M) for N, K, M in ((19, 1280, 1), (40, 1280, 2), (20, 2048, 7),
-                                                      (19, 1280, 8), (48, 4096, 8)))]
+                                                      (19, 1280, 8), (48, 4096, 8))),
+                  *(("q8_0", N, K, M) for N, K, M in ((40, 1056, 1), (19, 1056, 2), (40, 1056, 7),
+                                                      (20, 3072, 8), (24, 3072, 1)))]
 
 
 @pytest.mark.parametrize("fmt,N,K,M", GEMV_F32_CASES)
@@ -215,14 +218,14 @@ def test_f32_gemv_emulation_matches_plain(fmt, N, K, M):
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("fmt", ["q4_0", "q4_k"])
+@pytest.mark.parametrize("fmt", ["q4_0", "q4_k", "q8_0"])
 @pytest.mark.parametrize("M", [1, 8])
 def test_f32_gemv_matches_the_jax_dispatch_and_kernels(fmt, M, monkeypatch):
     """On JAX-quantized weights (`from_jax` carries them exactly), the f32
     GEMV within 1e-5 of the output's scale of the JAX package's f32
     dispatch (`register_all`: f32 x against the f32 dequant), and on
-    bf16-exact f32 x of `_q4_0_kernel` / `_q4_k_kernel` in interpret mode,
-    which take f32 weights and x at M <= 8."""
+    bf16-exact f32 x of `_q4_0_kernel` / `_q4_k_kernel` / `_q8_0_kernel` in
+    interpret mode, which take f32 weights and x at M <= 8."""
     monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
     rng = np.random.default_rng(18 + M)
     jqt = quantize_array(rng.normal(size=(256, 1024)).astype(np.float32) * 0.05, fmt)
@@ -253,12 +256,15 @@ def test_f32_gemv_passes():
 @pytest.mark.parametrize("M", list(range(1, 9)))
 @pytest.mark.parametrize("fmt,N,K", [("q4_0", 2560, 2048), ("q4_0", 2048, 2048), ("q4_0", 32768, 2048),
                                      ("q4_0", 2048, 16384), ("q4_0", 256000, 2048), ("q4_k", 2048, 2048),
-                                     ("q4_k", 256, 2048), ("q4_k", 32768, 2048), ("q4_k", 2048, 16384)])
+                                     ("q4_k", 256, 2048), ("q4_k", 32768, 2048), ("q4_k", 2048, 16384),
+                                     ("q8_0", 12288, 3072), ("q8_0", 3072, 4096), ("q8_0", 49152, 3072),
+                                     ("q8_0", 3072, 24576), ("q8_0", 256000, 3072)])
 def test_f32_gemv_plan_keeps_the_blocks_an_sm(fmt, N, K, M):
-    """The f32 plan at the Gemma-2B q4_0 and q4_k_m shapes: whole 32-blocks
-    (superblocks) a slice, at most the policy's slice, every K value in one
-    slice, and a block's shared memory (three bf16 planes of x) within the
-    card's and reaching the blocks an SM that bf16 x reaches."""
+    """The f32 plan at the Gemma-2B q4_0 and q4_k_m shapes and the Gemma-7B
+    q8_0 ones: whole 32-blocks (superblocks) a slice, at most the policy's
+    slice, every K value in one slice, and a block's shared memory (three
+    bf16 planes of x) within the card's and reaching the blocks an SM that
+    bf16 x reaches."""
     F = emu.GEMV_FORMATS[fmt]
     sl_max = emu.gemv_slice_max(M, fmt, emu.GV_F32_PARTS)
     sl, splits = emu.gemv_plan(M, N, K, gran=F.gran, target=F.target, slice_min=F.slice_min,
@@ -275,7 +281,7 @@ def test_f32_gemv_plan_keeps_the_blocks_an_sm(fmt, N, K, M):
 
 # (fmt, M, N, K): JAX-quantized weights (its K-quant kernels take K % 1024 ==
 # 0); M = 16 one m16 row of a 64-row tile, 17 ragged, 70 two row tiles
-TF32_JAX_CASES = [(fmt, M, N, 1024) for fmt in ("q4_k", "q6_k")
+TF32_JAX_CASES = [(fmt, M, N, 1024) for fmt in ("q4_k", "q6_k", "q4_0")
                   for M, N in ((16, 256), (17, 512), (70, 256))]
 
 
@@ -283,9 +289,9 @@ TF32_JAX_CASES = [(fmt, M, N, 1024) for fmt in ("q4_k", "q6_k")
 def test_tf32_tile_emulation_matches_plain_and_jax(fmt, M, N, K, monkeypatch):
     """The TF32 tile (f32 x, M > 8) against the plain f32 version and the
     JAX package's f32 dispatch within 1e-5 of the output's scale, and
-    against `_q4_k_kernel` / `_q6_k_kernel` in interpret mode (bf16 x and
-    weights at M > 8) within 2e-2; K splits in play (the plan's splits
-    at these shapes: 2 to 4)."""
+    against `_q4_k_kernel` / `_q6_k_kernel` / `_q4_0_kernel` in interpret
+    mode (bf16 x and weights at M > 8) within 2e-2; K splits in play (the
+    plan's splits at these shapes: 2 to 4)."""
     monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
     rng = np.random.default_rng(M + N)
     jqt = quantize_array(rng.normal(size=(N, K)).astype(np.float32) * 0.05, fmt)
@@ -304,9 +310,17 @@ def test_tf32_tile_emulation_matches_plain_and_jax(fmt, M, N, K, monkeypatch):
 
 # ragged N (past a 64- or 128-wide tile), ragged M, K of an odd count of
 # superblocks (q6_k's d words at both parities, the last one ending the
-# array mid-word), one split and several
-@pytest.mark.parametrize("fmt", ["q4_k", "q6_k"])
-@pytest.mark.parametrize("M,N,K", [(17, 300, 1280), (70, 1000, 512), (203, 1100, 256)])
+# array mid-word), one split and several; q4_0 at K % 64 == 32 (the half
+# step past K; its odd rows' scales at odd halves of their words), that
+# step in the last of two splits (K = 2144), and past a 128-wide tile
+TF32_RAGGED = [*(pytest.param(fmt, M, N, K, id=f"{M}-{N}-{K}-{fmt}")
+                 for M, N, K in ((17, 300, 1280), (70, 1000, 512), (203, 1100, 256))
+                 for fmt in ("q4_k", "q6_k")),
+               *(pytest.param("q4_0", M, N, K, id=f"{M}-{N}-{K}-q4_0")
+                 for M, N, K in ((17, 129, 2144), (70, 1000, 1056), (203, 1100, 288)))]
+
+
+@pytest.mark.parametrize("fmt,M,N,K", TF32_RAGGED)
 def test_tf32_tile_emulation_ragged(fmt, M, N, K):
     gen, qt = _case(fmt, N, K, seed=M + N)
     x = torch.randn(M, K, generator=gen)
@@ -382,6 +396,34 @@ def test_tf32_plan_at_the_gemma_7b_q8_0_shapes(M, N, K):
     assert smem == 96256 and smem <= emu.TF_TWO_BLOCK_SMEM
     bn, splits = emu.tf32_plan("q8_0", M, N, K)
     assert bn == 128 and splits == Q8_0_TF32_SPLITS[N, K][[17, 64, 203, 512].index(M)]
+    steps = K // emu.TF_BK
+    assert steps % splits == 0 and steps // splits >= 2 and splits <= 16
+    tiles, slots = -(-M // 64) * -(-N // bn), 2 * emu.H100_SMS
+    assert splits == 1 or tiles < slots
+    if tiles < slots:
+        cost = {z: -(-tiles * z // slots) * (steps // z + 2) for z in (1, 2, 4, 8, 16)}
+        assert cost[splits] == min(cost.values())
+
+
+# Gemma-2B q4_0's rows: (N, K) -> K splits at M = 17, 64, 203 and 512
+Q4_0_TF32_SPLITS = {(2560, 2048): (8, 8, 2, 4), (2048, 2048): (16, 16, 4, 2),
+                    (32768, 2048): (1, 1, 1, 1), (2048, 16384): (16, 16, 4, 2),
+                    (256000, 2048): (1, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("M", [17, 64, 203, 512])
+@pytest.mark.parametrize("N,K", list(Q4_0_TF32_SPLITS))
+def test_tf32_plan_at_the_gemma_2b_q4_0_shapes(M, N, K):
+    """q4_0's 48-byte raw step (q4_k's pitch) keeps 128-wide tiles at two
+    blocks an SM (83968 bytes of shared memory). K splits in whole steps,
+    at least 2 a split, only where the grid holds fewer than two blocks an
+    SM, the count with the fewest rounds x (steps a split + 2): never
+    gate_up and the head; and the plan q4_k takes at the same shape."""
+    smem = emu.TF_STAGES * emu.TF_BM * emu.TF_LD * 4 + emu.TF_STAGES * 128 * 48 + 2 * 4 * 128 * 4
+    assert smem == 83968 and smem <= emu.TF_TWO_BLOCK_SMEM
+    bn, splits = emu.tf32_plan("q4_0", M, N, K)
+    assert bn == 128 and splits == Q4_0_TF32_SPLITS[N, K][[17, 64, 203, 512].index(M)]
+    assert (bn, splits) == emu.tf32_plan("q4_k", M, N, K)
     steps = K // emu.TF_BK
     assert steps % splits == 0 and steps // splits >= 2 and splits <= 16
     tiles, slots = -(-M // 64) * -(-N // bn), 2 * emu.H100_SMS
