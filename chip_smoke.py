@@ -77,10 +77,12 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    M = T = 512 against its plain version, timed with bound and library
    call (the matmuls' f32 route there, the TF32 tile, is phase 3's), also
    at ragged T, a window, a softcap, kv_limit < T (rows without keys) and
-   D = 128; the f32-q decode attention at limit 204 and S = 4096, timed;
-   every format's f32 GEMV at M = 1 and 8 on its recipe's rows (q4_0's,
-   q8_0's and q4_k's on the tensor cores, q6_k's SIMT), timed with bound
-   and library call; the f32 decode step of Gemma-2B q4_0 and q4_k_m and
+   D = 128; the f32-q decode attention at limit 204 and S = 4096, timed
+   (Gemma-2B's heads on the tensor-core decode core in 3xTF32, also at
+   limit 1, limit 0, softcap, window, G = 2 and 4, D = 128; Gemma-7B's
+   on the split-S kernel); every format's f32 GEMV at M = 1 and 8 on its
+   recipe's rows (the tensor-core GEMV with x in three bf16 parts), timed
+   with bound and library call; the f32 decode step of Gemma-2B q4_0 and q4_k_m and
    Gemma-7B q8_0 at 1 and 8 rows against the plain versions;
    `perplexity.evaluate` at full width (Gemma-2B q4_0 and q4_k_m, Gemma-7B
    q8_0) over two 512-token windows of seeded token ids, each window's
@@ -198,14 +200,20 @@ KERNELS = {
                          "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
     "flash_attention_tf32": ("gemma_tpu_torch/csrc/flash_attention.cu",
                              "gemma_tpu/ops/attention.py:94 _flash_kernel (f32 queries)"),
-    # q4_0's, q8_0's and q4_k's f32 x at M <= 8: the tensor-core GEMV with
-    # x in three bf16 parts
+    # decode attention with f32 queries over an f32 cache at 2 <= G <= 8:
+    # the tensor-core decode core's TF32 policy
+    "decode_attention_tf32": ("gemma_tpu_torch/csrc/decode_tc.cuh",
+                              "gemma_tpu/ops/attention.py:273 _decode_kernel (f32 queries)"),
+    # every format's f32 x at M <= 8: the tensor-core GEMV with x in three
+    # bf16 parts
     "q4_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
                              "gemma_tpu/ops/quant_matmul.py:95 _q4_0_kernel (f32 x, M <= 8)"),
     "q8_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
                              "gemma_tpu/ops/quant_matmul.py:103 _q8_0_kernel (f32 x, M <= 8)"),
     "q4_k_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
                              "gemma_tpu/ops/quant_matmul.py:110 _q4_k_kernel (f32 x, M <= 8)"),
+    "q6_k_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
+                             "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M <= 8)"),
 }
 # prefill rows of the quantized-matmul tiles: a serving prompt, an
 # admission chunk, the prompt
@@ -2117,8 +2125,9 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
     every flash launch (the TF32 flash kernel), and every matmul launch of
     a prefill (the TF32 tile), the head too where it runs at every row
     (perplexity; a prefill runs it at the last row, M = 1); every other
-    q4_0, q8_0 and q4_k launch (the decode steps', and the head at a
-    prefill's last row) is the f32 GEMV's; q6_k's is SIMT."""
+    matmul launch (the decode steps', and the head at a prefill's last row)
+    is the f32 GEMV's; every dense decode attention launch at 2 <= G <= 8
+    the TF32 decode core's."""
     counts["flash_attention_tf32"] = cfg.n_layers * prefills
     if fmt in ("q4_0", "q8_0"):
         counts[f"{fmt}_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
@@ -2127,6 +2136,19 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
         counts["q4_k_matmul_tf32"] = 5 * cfg.n_layers * prefills
         counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
         counts["q4_k_matmul_gemv_f32"] = counts["q4_k_matmul"] - counts["q4_k_matmul_tf32"]
+        counts["q6_k_matmul_gemv_f32"] = counts["q6_k_matmul"] - counts["q6_k_matmul_tf32"]
+    if tf32_decode(cfg):
+        counts["decode_attention_tf32"] = counts["decode_attention"]
+
+
+def tf32_decode(cfg) -> bool:
+    """Whether `cfg`'s f32 queries over an f32 dense cache take the TF32
+    decode core (2 <= G <= 8) rather than the split-S kernel."""
+    import torch
+
+    import gemma_tpu_torch.ops.attention as att
+
+    return att.decode_route(torch.float32, cfg.n_heads // cfg.n_kv_heads, MAX_SEQ_LEN)[0] == "tf32"
 
 
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
@@ -2217,7 +2239,7 @@ def quality_verify(torch, dev, model_name: str, fmt: str, rel: float | None) -> 
                                     **opts)
         expected = expected_forward_launches(cfg, fmt, prefills=1, decode_steps=VERIFY_STEPS,
                                              decode_kernel=decode_kernel)
-        if act == "float32":  # f32: the TF32 flash and tile, the f32 GEMV, the split-S decode kernel
+        if act == "float32":  # f32: the TF32 flash, tile and decode core, the f32 GEMV
             expected["flash_attention_tc"] = expected["decode_attention_tc"] = 0
             f32_route_launches(expected, cfg, fmt, 1, head=False)
         held = ("the reference's 0.05" if atol == 0.05 else
@@ -2261,21 +2283,21 @@ FLASH_PLANS = {(D, r) for D in (256, 128) for r in (1, 2, 4)}  # (D, row warps) 
 # serving and --verify's f32 cache), on every row of a decode step of each
 # format's recipe (q4_0 Gemma-2B, q8_0 Gemma-7B, q4_k and q6_k Gemma-2B
 # q4_k_m: q6_k is its attn_v and head), at the decode step's M = 1 and the
-# serving step's 8: q4_0's, q8_0's and q4_k's on the tensor-core GEMV with
-# x in three bf16 parts (1e-5 of the output's scale), q6_k's on its SIMT
-# GEMV (1e-4)
+# serving step's 8: on the tensor-core GEMV with x in three bf16 parts
+# (1e-5 of the output's scale)
 GEMV_F32_ROWS = {"q4_0": ("qkv", "attn_out", "gate_up", "down", "head"),
                  "q8_0": ("qkv", "attn_out", "gate_up", "down", "head"),
                  "q4_k": ("attn_q", "attn_k", "attn_out", "gate_up", "down"), "q6_k": ("attn_v", "head")}
 GEMV_F32_MS = (1, SERVE_SLOTS)
 # the tensor-core f32 GEMV's edges (format, N, K, Ms): every M of 1-8 at N
-# not a multiple of 16, q4_0 and q8_0 at K % 64 == 32 and q4_k at an odd
-# count of superblocks, each summing its K splits by ticket; and at M = 8
-# ragged rows wide enough that a second launch (`dq_split_sum_kernel`) sums
-# them
+# not a multiple of 16, q4_0 and q8_0 at K % 64 == 32 and q4_k and q6_k at
+# an odd count of superblocks, each summing its K splits by ticket; and at
+# M = 8 ragged rows wide enough that a second launch (`dq_split_sum_kernel`)
+# sums them
 GEMV_F32_EDGES = (("q4_0", 1000, 1056, tuple(range(1, 9))), ("q4_k", 999, 1280, tuple(range(1, 9))),
-                  ("q8_0", 999, 1056, tuple(range(1, 9))), ("q4_0", 9990, 2048, (SERVE_SLOTS,)),
-                  ("q4_k", 19990, 2048, (SERVE_SLOTS,)), ("q8_0", 9990, 3072, (SERVE_SLOTS,)))
+                  ("q8_0", 999, 1056, tuple(range(1, 9))), ("q6_k", 999, 1280, tuple(range(1, 9))),
+                  ("q4_0", 9990, 2048, (SERVE_SLOTS,)), ("q4_k", 19990, 2048, (SERVE_SLOTS,)),
+                  ("q8_0", 9990, 3072, (SERVE_SLOTS,)), ("q6_k", 19990, 2048, (SERVE_SLOTS,)))
 FLASH_TF32_PASSES = 3  # the TF32 flash kernel's products a k8 step (3xTF32): not in the bound
 
 
@@ -2287,14 +2309,12 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     the function's flops at the TF32 rate, 495 TFLOP/s; its three passes
     in the info line) and the library call (scaled_dot_product_attention
     in f32), and at EVAL_FLASH_EDGES, each launch counted in
-    `tf32_launches`; the f32-q decode kernel (`check_f32_decode`); then
-    every format's f32 GEMV (`check_gemv_f32`). The matmuls' f32 route at
-    M > 8, the TF32 tile, is phase 3's (`check_tf32_routes`). Returns
-    readings: the TF32 flash kernel's as `flash_attention_tf32`, the f32-q
-    decode's under `decode_attention` ("f32"), the tensor-core f32 GEMV's
-    as `q4_0_matmul_gemv_f32`, `q8_0_matmul_gemv_f32` and
-    `q4_k_matmul_gemv_f32`, q6_k's SIMT GEMV's under its kernel's name
-    ("gemv_f32")."""
+    `tf32_launches`; f32-q decode (`check_f32_decode`); then every format's
+    f32 GEMV (`check_gemv_f32`). The matmuls' f32 route at M > 8, the TF32
+    tile, is phase 3's (`check_tf32_routes`). Returns readings: the TF32
+    flash kernel's as `flash_attention_tf32`, the TF32 decode core's as
+    `decode_attention_tf32`, the split-S kernel's with f32 q under
+    `decode_attention` ("f32"), the f32 GEMV's as `<format>_matmul_gemv_f32`."""
     import gemma_tpu_torch.ops.attention as att
     from gemma_tpu_torch.tools import _timing as T
     from gemma_tpu_torch.tools import tc_emulation as emu
@@ -2384,7 +2404,7 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     info("quality", f"TF32 flash edge cases within 1e-4 of each row's scale (worst ratio {worst:.3f})")
     require(plans == FLASH_PLANS, f"TF32 flash: block plans {sorted(FLASH_PLANS - plans)} never ran")
     readings["flash_attention_tf32"] = flash
-    readings["decode_attention"] = {"f32": check_f32_decode(torch, dev, gen)}
+    readings.update(check_f32_decode(torch, dev, gen))
     readings.update(check_gemv_f32(torch, dev, cold))
     return readings
 
@@ -2395,53 +2415,160 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
 F32_DECODE_SHAPES = tuple((heads, hq, hkv, S, limit) for heads, hq, hkv in (("Gemma-2B", 8, 1),
                                                                            ("Gemma-7B", 16, 16))
                           for S, limit in ((MAX_SEQ_LEN, PROMPT_LEN + 1), (LONG_SEQ_LEN, LONG_SEQ_LEN)))
+# the TF32 decode core's edges (name, Hq, Hkv, D, S, limits, softcap,
+# window): limit 1, limits not a multiple of 16 over batch rows, a row of
+# limit 0 (no live key: exactly 0), softcap, a window (dead splits), G = 2
+# and 4, D = 128 with two ring stages a warp (256 keys a block)
+F32_DECODE_EDGES = (
+    ("Gemma-2B heads, limit 1", 8, 1, 256, MAX_SEQ_LEN, [1], 0.0, 0),
+    ("Gemma-2B heads, serving rows, softcap", 8, 1, 256, MAX_SEQ_LEN, SERVE_LIMITS, 50.0, 0),
+    ("G=4 D=128, window: dead splits, a row without keys", 8, 2, 128, MAX_SEQ_LEN, [0, 17, 300], 30.0, 48),
+    ("G=2 D=128, two stages a warp, limit 1000", 4, 2, 128, LONG_SEQ_LEN, [1000], 0.0, 0),
+)
+F32_DECODE_TOL = 1e-4  # of each row's scale: the TF32 flash kernel's
+# f32 queries that stay on the split-S kernels, timed beside the TF32 core:
+# (name, cache) at Gemma-2B's heads: SERVE_SLOTS rows through PAGE-key
+# pages of f32 (a 65-page pool, SERVE_LIMITS), and one row over an int8
+# dense cache at limit PROMPT_LEN + 1
+F32_SPLIT_ROUTES = (("paged f32 pages", "paged"), ("dense int8 cache", "int8"))
 
 
-def check_f32_decode(torch, dev, gen) -> list[dict]:
+def check_f32_decode(torch, dev, gen) -> dict[str, dict]:
     """Phase 8: decode attention with f32 queries over an f32 cache (every
-    f32 decode step's: the split-S kernel and its combine, at Gemma-2B's G
-    = 8 and Gemma-7B's G = 1) at F32_DECODE_SHAPES, batch 1, against its
-    plain version (1e-4 of each row's scale), timed warm beside f32
+    f32 decode step's) at F32_DECODE_SHAPES, batch 1, against its plain
+    version (F32_DECODE_TOL of each row's scale), timed warm beside f32
     scaled_dot_product_attention, with its bound: the live keys' f32 K and
     V, q and out over HBM bandwidth against the function's flops at the
-    TF32 rate. Changes no kernel: the row the redesigns are ranked by.
-    Returns a reading a shape."""
+    TF32 rate. Gemma-2B's G = 8 takes the tensor-core core's TF32 policy,
+    one launch counted in `tf32_launches` a call; Gemma-7B's G = 1 the
+    split-S kernel and its combine. Then the TF32 core at F32_DECODE_EDGES.
+    Returns readings: the TF32 core's as `decode_attention_tf32` (its S =
+    MAX_SEQ_LEN row, every row under "rows"), the split-S kernel's under
+    `decode_attention` ("f32")."""
     import gemma_tpu_torch.ops.attention as att
     from gemma_tpu_torch.tools._timing import attn_err
     from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
 
-    rows = []
+    rows: dict[str, list] = {"tf32": [], "split": []}
     D = HEAD_DIM
     for heads, hq, hkv, S, limit in F32_DECODE_SHAPES:
         q = torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3
         k, v = (torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
         lim = torch.tensor([limit], dtype=torch.int32, device=dev)
-        before = att.decode_attention.tc_launches
+        route, split = att.decode_route(torch.float32, hq // hkv, S)
+        before = (att.decode_attention.tc_launches, att.decode_attention.tf32_launches)
         got = att.decode_attention(q, k, v, lim)
         ref = att.decode_attention_plain(q, k, v, lim)
         torch.cuda.synchronize()
-        err, ratio, lo, hi = attn_err(got, ref, 1e-4)
-        require(att.decode_attention.tc_launches == before and ratio <= 1.0,
-                f"decode_attention f32 {heads} S={S}: |diff| {ratio:.3f} x 1e-4 of its row's scale "
-                f"(tensor-core launches {att.decode_attention.tc_launches - before})")
+        err, ratio, lo, hi = attn_err(got, ref, F32_DECODE_TOL)
+        launched = (att.decode_attention.tc_launches - before[0], att.decode_attention.tf32_launches - before[1])
+        require(launched == (0, route == "tf32") and ratio <= 1.0,
+                f"decode_attention f32 {heads} S={S}: |diff| {ratio:.3f} x {F32_DECODE_TOL} of its row's "
+                f"scale (bf16 tensor-core, TF32 launches {launched}; route {route})")
         ms = device_ms(torch, lambda: att.decode_attention(q, k, v, lim), reps=3)
         plain_ms = device_ms(torch, lambda: att.decode_attention_plain(q, k, v, lim), launches=1, reps=3)
         library_ms = sdpa_ms(torch, q, k, v, torch.arange(S, device=dev)[None, None] < limit)
         bound_ms, bound_by = bound(limit * hkv * 2 * D * 4 + 2 * hq * D * 4 + 4, 4 * hq * D * limit,
                                    H100_TF32_FLOPS)
-        route = "{}, {} keys a block".format(*att.decode_route(torch.float32, hq // hkv, S))
+        what = ("the tensor-core core, 3xTF32" if route == "tf32" else "the split-S kernel and its combine")
         info("quality", f"decode_attention f32 q {heads} heads (Hq={hq} Hkv={hkv} D={D}) S={S} "
-                        f"limit={limit} ({route}): max|diff|={err:.3e}, worst |diff| / (1e-4 x row "
-                        f"scale) {ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms, warm: kernel "
-                        f"{ms:.4f} library (scaled_dot_product_attention, f32, boolean mask) "
-                        f"{library_ms:.4f} (kernel / library {ms / library_ms:.3f}); plain "
-                        f"{plain_ms:.4f}; bound {bound_ms:.6f} ({bound_by}: f32 K and V at HBM rate, "
-                        f"or the flops at the TF32 rate)")
-        rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "shape": f"f32 q {heads} S={S} kv_limit={limit} Hq={hq} Hkv={hkv} D={D}"})
+                        f"limit={limit} ({route}, {split} keys a block: {what}): max|diff|={err:.3e}, "
+                        f"worst |diff| / ({F32_DECODE_TOL} x row scale) {ratio:.3f}, row scales "
+                        f"{lo:.3e}-{hi:.3e}; device ms, warm: kernel {ms:.4f} library "
+                        f"(scaled_dot_product_attention, f32, boolean mask) {library_ms:.4f} (kernel / "
+                        f"library {ms / library_ms:.3f}); plain {plain_ms:.4f}; bound {bound_ms:.6f} "
+                        f"({bound_by}: f32 K and V at HBM rate, or the flops at the TF32 rate)")
+        rows[route].append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms,
+                            "shape": f"f32 q {heads} S={S} kv_limit={limit} Hq={hq} Hkv={hkv} D={D}"})
         del q, k, v, got, ref
-    return rows
+    worst = max(r["max_abs_err"] for r in rows["tf32"])
+    for name, hq, hkv, D_, S, limits, cap, window in F32_DECODE_EDGES:
+        B = len(limits)
+        q = torch.randn(B, 1, hq, D_, generator=gen, device=dev) * 0.3
+        k, v = (torch.randn(B, hkv, S, D_, generator=gen, device=dev) * 0.3 for _ in range(2))
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        route, split = att.decode_route(torch.float32, hq // hkv, S)
+        before = att.decode_attention.tf32_launches
+        got = att.decode_attention(q, k, v, lim, cap, window)
+        ref = att.decode_attention_plain(q, k, v, lim, cap, window)
+        torch.cuda.synchronize()
+        err, ratio, lo, _ = attn_err(got, ref, F32_DECODE_TOL)
+        empty = lim == 0
+        require(route == "tf32" and att.decode_attention.tf32_launches == before + 1 and ratio <= 1.0
+                and not bool(got[empty].any()),
+                f"decode_attention f32 edge {name}: |diff| {ratio:.3f} x {F32_DECODE_TOL} of its row's "
+                f"scale (route {route}, TF32 launches {att.decode_attention.tf32_launches - before}; "
+                f"rows without a key exactly 0: {not bool(got[empty].any())})")
+        worst = max(worst, err)
+        info("quality", f"decode_attention f32 edge {name} (B={B} Hq={hq} Hkv={hkv} D={D_} S={S} "
+                        f"limits={limits} softcap={cap} window={window}; {split} keys a block): "
+                        f"max|diff|={err:.3e}, worst |diff| / ({F32_DECODE_TOL} x row scale) {ratio:.3f}, "
+                        f"least row scale {lo:.3e} (0: a row without a key, held to exactly 0)")
+        del q, k, v, got, ref
+    rep = rows["tf32"][0]
+    readings = {"decode_attention_tf32": {**rep, "max_abs_err": worst, "rows": rows["tf32"]},
+                "decode_attention": {"f32": rows["split"]}}
+    readings.update(f32_split_routes(torch, dev, gen))
+    return readings
+
+
+def f32_split_routes(torch, dev, gen) -> dict[str, dict]:
+    """Phase 8: the f32-q decode routes that stay on the split-S kernels
+    (F32_SPLIT_ROUTES, Gemma-2B's heads), each against its plain version
+    (f32 pages: F32_DECODE_TOL of each row's scale; int8: ATT_TOL, p * vs
+    rounds to bf16), timed warm with its bound (the live keys' K and V,
+    int8 with their scales, q and out over HBM bandwidth against the flops
+    at the TF32 rate); no single library call computes either. Returns
+    readings under `paged_attention` and `decode_attention_int8` ("f32")."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+    from gemma_tpu_torch.tools._timing import attn_err
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
+
+    D, hq, hkv = HEAD_DIM, 8, 1
+    out = {}
+    for name, cache_kind in F32_SPLIT_ROUTES:
+        if cache_kind == "paged":
+            limits = SERVE_LIMITS
+            q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, PAGE, limits, 65, MAX_SEQ_LEN,
+                                         False, torch.float32, seed=6)
+            route = pat.paged_route(torch.float32, hq // hkv, PAGE, MAX_SEQ_LEN)
+            kernel = lambda: pat.paged_decode_attention(q, cache, 0, lim)  # noqa: E731
+            plain = lambda: pat.paged_decode_attention_plain(q, cache, 0, lim)  # noqa: E731
+            key_bytes, tol, counter = 2 * D * 4, F32_DECODE_TOL, "paged_attention"
+        else:
+            limits = [PROMPT_LEN + 1]
+            q = torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3
+            (k8, ks), (v8, vs) = (quantize_kv(torch.randn(1, hkv, MAX_SEQ_LEN, D, generator=gen, device=dev) * 0.3)
+                                  for _ in range(2))
+            lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+            route = att.decode_route(torch.float32, hq // hkv, MAX_SEQ_LEN, int8=True)
+            kernel = lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs)  # noqa: E731
+            plain = lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs)  # noqa: E731
+            key_bytes, tol, counter = 2 * (D + 4), ATT_TOL, "decode_attention_int8"
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ratio, lo, hi = attn_err(got, ref, tol)
+        require(route[0] == "split" and ratio <= 1.0,
+                f"f32-q {name}: |diff| {ratio:.3f} x {tol} of its row's scale (route {route})")
+        ms = device_ms(torch, kernel, reps=3)
+        plain_ms = device_ms(torch, plain, launches=1, reps=3)
+        live = sum(limits)
+        bound_ms, bound_by = bound(live * hkv * key_bytes + 2 * len(limits) * hq * D * 4 + 4 * len(limits),
+                                   4 * hq * D * live, H100_TF32_FLOPS)
+        info("quality", f"f32-q {name} (Gemma-2B heads, limits {limits}; {route[0]}, {route[1]} keys a "
+                        f"block: the split-S kernel and its combine): max|diff|={err:.3e}, worst |diff| / "
+                        f"({tol} x row scale) {ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms, warm: "
+                        f"kernel {ms:.4f} library none; plain {plain_ms:.4f}; bound {bound_ms:.6f} "
+                        f"({bound_by}: K and V at HBM rate, or the flops at the TF32 rate)")
+        out[counter] = {"f32": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None,
+                                "shape": f"f32 q {name} limits={limits} Hq={hq} Hkv={hkv} D={D}"}}
+        del q, got, ref
+    return out
 
 
 def gemv_f32_plan(torch, fmt: str, M: int, N: int, K: int) -> tuple[str, str]:
@@ -2472,24 +2599,22 @@ def gemv_f32_plan(torch, fmt: str, M: int, N: int, K: int) -> tuple[str, str]:
 
 
 def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
-    """Phase 8: every format's f32 GEMV at GEMV_F32_ROWS and GEMV_F32_MS
-    against its plain version, L2 cold, with the bound (wire bytes over HBM
-    bandwidth against the function's 2 M N K flops at the TF32 rate; the
-    tensor-core route's three bf16 passes at the bf16 rate in its info
-    line) and the library call (f32 torch.matmul on the weight dequantized
-    beforehand). q4_0, q8_0 and q4_k (the tensor-core GEMV,
-    qmm.GEMV_F32_FORMATS): 1e-5 of the output's scale, one
-    `gemv_f32_launches` a call, the library's K-split scratch held to the
-    emulated plan (`gemv_f32_plan`), and GEMV_F32_EDGES too; q6_k (SIMT):
-    1e-4. Returns readings: the tensor-core route's as
-    `q4_0_matmul_gemv_f32`, `q8_0_matmul_gemv_f32` and
-    `q4_k_matmul_gemv_f32` (its gate_up row at M = 8, every row under
-    "rows"), the SIMT GEMV's under its kernel's name ("gemv_f32")."""
+    """Phase 8: every format's f32 GEMV (the tensor-core GEMV with x in
+    three bf16 parts, qmm.GEMV_F32_FORMATS) at GEMV_F32_ROWS and
+    GEMV_F32_MS against its plain version, L2 cold, with the bound (wire
+    bytes over HBM bandwidth against the function's 2 M N K flops at the
+    TF32 rate; the three bf16 passes at the bf16 rate in its info line) and
+    the library call (f32 torch.matmul on the weight dequantized
+    beforehand): 1e-5 of the output's scale, one `gemv_f32_launches` a
+    call, the library's K-split scratch held to the emulated plan
+    (`gemv_f32_plan`), and GEMV_F32_EDGES too. Returns readings as
+    `<format>_matmul_gemv_f32` (its EVAL_REP row at M = 8, every row under
+    "rows")."""
     import gemma_tpu_torch.ops.quant_matmul as qmm
     from gemma_tpu_torch.quant.qtensor import dequant
     from gemma_tpu_torch.tools import _timing as T
     from gemma_tpu_torch.tools import tc_emulation as emu
-    from gemma_tpu_torch.utils.device import H100_F32_FLOPS, H100_TF32_FLOPS
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
@@ -2498,20 +2623,19 @@ def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
     def held(fmt, qt, x, what) -> tuple[float, str]:
         """(max|diff|, its line) of one call against the plain version"""
         op = qmm.MATMULS[fmt]
-        tc = fmt in qmm.GEMV_F32_FORMATS
+        require(fmt in qmm.GEMV_F32_FORMATS, f"{fmt}: f32 x at M <= 8 is not on the tensor-core GEMV")
         before = op.gemv_f32_launches
         got, ref = op(x, qt), qmm.PLAIN[fmt](x, qt)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        tol = 1e-5 * ref.abs().max().item() if tc else 1e-4 * ref.abs().max().item() + 1e-6
-        require(op.gemv_f32_launches == before + tc,
+        tol = 1e-5 * ref.abs().max().item()
+        require(op.gemv_f32_launches == before + 1,
                 f"{fmt}_matmul f32 GEMV {what}: {op.gemv_f32_launches - before} f32 GEMV launches")
         require(bool(torch.isfinite(got).all()) and err <= tol,
                 f"{fmt}_matmul f32 GEMV {what}: max|diff| {err} > tol {tol}")
-        return err, f"max|diff|={err:.3e} tol={tol:.3e} ({'1e-5' if tc else '1e-4'} of scale)"
+        return err, f"max|diff|={err:.3e} tol={tol:.3e} (1e-5 of scale)"
 
     for fmt, names in GEMV_F32_ROWS.items():
-        tc = fmt in qmm.GEMV_F32_FORMATS
         shapes = {name: (N, K) for name, N, K, _ in MATMUL_SHAPES[fmt][0]}
         rows, worst = [], 0.0
         for name in names:
@@ -2528,13 +2652,9 @@ def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
                 plain_ms = device_ms(torch, lambda: qmm.PLAIN[fmt](x, qt), launches=1, reps=3)
                 bound_ms, bound_by = bound(wire + Mg * K * 4 + Mg * N * 4, 2 * Mg * N * K,
                                            H100_TF32_FLOPS)
-                if tc:
-                    plan, _ = gemv_f32_plan(torch, fmt, Mg, N, K)
-                    route = (f"tensor cores, x in {emu.GV_F32_PARTS} bf16 parts: the passes at the "
-                             f"bf16 rate {emu.GV_F32_PARTS * 2 * Mg * N * K / BF16_FLOPS * 1e3:.4f}; "
-                             f"{plan}")
-                else:
-                    route = f"SIMT: the flops at the f32 FMA rate {2 * Mg * N * K / H100_F32_FLOPS * 1e3:.4f}"
+                plan, _ = gemv_f32_plan(torch, fmt, Mg, N, K)
+                route = (f"tensor cores, x in {emu.GV_F32_PARTS} bf16 parts: the passes at the "
+                         f"bf16 rate {emu.GV_F32_PARTS * 2 * Mg * N * K / BF16_FLOPS * 1e3:.4f}; {plan}")
                 info("quality", f"{fmt}_matmul f32 GEMV {name} M={Mg} N={N} K={K}: {held_line}; device "
                                 f"ms, L2 cold: kernel {ms:.4f} ({wire / ms / 1e9:.3f} TB/s at wire bytes) "
                                 f"library (f32 matmul, weight dequantized beforehand) {library_ms:.4f} "
@@ -2547,11 +2667,8 @@ def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
                 del x
             del qt, w32
             torch.cuda.empty_cache()
-        if tc:
-            rep = next(r for r in rows if r["shape"].startswith(f"f32 gate_up M={SERVE_SLOTS} "))
-            readings[f"{fmt}_matmul_gemv_f32"] = {**rep, "max_abs_err": worst, "rows": rows}
-        else:
-            readings[f"{fmt}_matmul"] = {"gemv_f32": rows}
+        rep = next(r for r in rows if r["shape"].startswith(f"f32 {EVAL_REP[fmt]} M={SERVE_SLOTS} "))
+        readings[f"{fmt}_matmul_gemv_f32"] = {**rep, "max_abs_err": worst, "rows": rows}
     sums = set()
     for fmt, N, K, ms in GEMV_F32_EDGES:
         qt = T.random_qtensor(fmt, N, K, gen, dev)
@@ -2661,7 +2778,7 @@ def quality_cli(torch, dev) -> None:
 
 F32_DECODE_STEPS = 4  # f32_decode_steps's checked steps a run
 F32_DECODE_REL = 1e-4  # of the logits' scale: kernels against plain versions, both f32
-# f32_decode_steps's models: each recipe's f32 GEMVs (q6_k's SIMT)
+# f32_decode_steps's models: each recipe's f32 GEMVs and f32-q decode
 F32_DECODE_MODELS = (("Gemma-2B", "q4_0"), ("Gemma-2B", "q4_k_m"), ("Gemma-7B", "q8_0"))
 
 
@@ -2671,8 +2788,9 @@ def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[st
     cache, at 1 and SERVE_SLOTS rows (each row its own rotation of one
     PROMPT_LEN-token prompt) after a prefill. With `check`:
     F32_DECODE_STEPS greedy steps with exact launches (a step: 73 q4_0, or
-    90 q4_k and 19 q6_k, or 113 q8_0; every q4_0, q8_0 and q4_k launch the
-    f32 GEMV's, q6_k's the SIMT GEMV's), each step's logits held against
+    90 q4_k and 19 q6_k, or 113 q8_0, every one the f32 GEMV's; an attention
+    a layer, Gemma-2B's on the TF32 decode core, Gemma-7B's on the split-S
+    kernel), each step's logits held against
     the same steps through the plain versions on the card (the same token
     stream, F32_DECODE_REL of the logits' scale), the plain side launching
     nothing. Then the device busy ms of a step by torch.profiler over 8
@@ -2715,7 +2833,7 @@ def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[st
             if check:
                 expected = expected_forward_launches(cfg, fmt, prefills=0, decode_steps=F32_DECODE_STEPS,
                                                      decode_kernel="decode_attention")
-                expected["decode_attention_tc"] = 0  # f32 queries: the split-S decode kernel
+                expected["decode_attention_tc"] = 0  # f32 queries: no bf16 tensor-core decode
                 f32_route_launches(expected, cfg, fmt, 0, head=False)
                 with plain_versions():
                     _, _, plain, _, plain_counts = run(fed)
@@ -3668,10 +3786,10 @@ def run() -> dict:
     done("decode-GEMV instruments (phase 7)")
     quality_counts, eval_readings = quality_gates(torch, dev, card)
     add_counts(counts, quality_counts)
-    for name in ("flash_attention_tf32", "q4_0_matmul_gemv_f32", "q8_0_matmul_gemv_f32",
-                 "q4_k_matmul_gemv_f32"):
+    for name in ("flash_attention_tf32", "decode_attention_tf32", "q4_0_matmul_gemv_f32",
+                 "q8_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32", "q6_k_matmul_gemv_f32"):
         results[name] = eval_readings.pop(name)
-    for name, reading in eval_readings.items():  # q6_k's SIMT GEMV ("gemv_f32"), f32-q decode ("f32")
+    for name, reading in eval_readings.items():  # the split-S kernels with f32 q ("f32")
         results[name].update(reading)
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
@@ -3682,14 +3800,16 @@ def run() -> dict:
         results[name]["tp"] = reading
     done("tensor parallelism (phase 10)")
     require("jax" not in sys.modules, "jax was imported")
+    info("time", f"the whole script took {time.perf_counter() - t0:.1f} s, the kernels' build included")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[name], **results[name]}
         for name, (src, replaces) in {**KERNELS, **TOOL_KERNELS}.items()
     ]
-    require(all(counts[f"{fmt}_matmul_gemv_f32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k")),
+    require(all(counts[f"{fmt}_matmul_gemv_f32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
             "the f32 paths launched no f32 GEMV")
+    require(counts["decode_attention_tf32"] > 0, "the f32 paths launched no TF32 decode")
     require(all(counts[f"{fmt}_matmul_tf32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
             "the f32 paths launched no TF32 tile")
     print(json.dumps({"kernels": kernels}), flush=True)

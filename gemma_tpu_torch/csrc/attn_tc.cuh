@@ -1,6 +1,7 @@
 // Shared pieces of the tensor-core attention kernels (flash_attention.cu,
-// decode_tc.cuh): the transposing ldmatrix and reductions over the
-// lanes of a warp or of an mma fragment.
+// decode_tc.cuh): the transposing ldmatrix, the 3xTF32 product of their
+// f32 policies, and reductions over the lanes of a warp or of an mma
+// fragment.
 //
 // Fragment layouts of `mma.sync.m16n8k16` (bf16 operands, f32
 // accumulators), lane = 4 g + t: A[g (+8)][2t (+8) + {0, 1}],
@@ -12,7 +13,7 @@
 
 #include <limits.h>
 
-#include "dq_tile.cuh"  // cp.async, ldmatrix_x4, mma_16816, pack_bf16, smem_u32
+#include "dq_tile_tf32.cuh"  // cp.async, ldmatrix_x4, mma_16816, pack_bf16, smem_u32, split_tf32, mma_1688_tf32
 
 namespace {
 
@@ -25,6 +26,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// c += a . b in 3xTF32 (m16n8k8), each operand split by `split_tf32` into
+// hi and lo: the small parts' products first, then hi . hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_1688_tf32(c, al, bh0, bh1);
+  mma_1688_tf32(c, ah, bl0, bl1);
+  mma_1688_tf32(c, ah, bh0, bh1);
 }
 
 __device__ __forceinline__ int warp_max_i(int x) {

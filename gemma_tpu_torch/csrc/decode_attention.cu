@@ -19,18 +19,19 @@
 // work is split along S, so one (b, kv head) spreads over many SMs. Two
 // kernels, routed in ops/attention.py `decode_attention`:
 //
-// `decode_tc_kernel` (decode_tc.cuh, with `DenseRows`): bf16 q over a bf16
-// or int8 cache, 2 <= G = Hq / Hkv <= 8 (Gemma-2B's G = 8; the main path):
-// 16 keys on the m16 side of `mma.sync` and the query group on n8, the
-// splits merged in the same launch by the last block. The paged kernel
-// (paged_attention.cu) runs the same core through its page table.
+// `decode_tc_kernel` (decode_tc.cuh, with `DenseRows`) at 2 <= G = Hq / Hkv
+// <= 8 (Gemma-2B's G = 8; the main path): bf16 q over a bf16 or int8 cache
+// (`DecBf16`, `DecInt8`), and f32 q over an f32 cache in 3xTF32
+// (`DecTf32`: f32 serving and --verify's f32 cache): 16 keys on the m16
+// side of `mma.sync` and the query group on n8, the splits merged in the
+// same launch by the last block. The paged kernel (paged_attention.cu)
+// runs the same core through its page table (bf16 q).
 //
-// `decode_split_kernel`: f32 queries (both arms), G = 1 and G > 8, with FMA
-// only (f32 x f32 products are not exact on bf16 tensor cores). At G = 1
-// (Gemma-7B) the tensor-core kernel, whose n8 side then carries 7 zero
-// columns, measured faster at batch 1 and slower over 8 serving rows,
-// where its 1024 blocks of 69 KB run in three waves against the split-S
-// kernel's one (PERF.md).
+// `decode_split_kernel`: G = 1 and G > 8, and f32 q over an int8 cache,
+// with FMA only. At G = 1 (Gemma-7B) the tensor-core kernel, whose n8 side
+// then carries 7 zero columns, measured faster at batch 1 and slower over
+// 8 serving rows, where its 1024 blocks of 69 KB run in three waves
+// against the split-S kernel's one (PERF.md).
 // `decode_split_kernel` gives each block `split` keys of one (b, kv head)
 // for all G query heads of the group. Blocks whose keys are all outside
 // [max(limit - window, 0), limit) write an empty partial and return at once,
@@ -133,12 +134,13 @@ extern "C" int gt_decode_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: q [B, Hq, D] bf16 with G = Hq / Hkv <= 8, k/v
-// [B, Hkv, S, D] bf16 or int8 (kv_dtype kI8, with f32 k_scale/v_scale [B,
-// Hkv, S]; else null), all contiguous; kv_limit i32 [B]; out [B, Hq, D]
-// bf16. work: B * Hkv * n_splits * G * (D + 2) f32, n_splits = ceil(S /
-// split); tickets: B * Hkv ints, 0 on entry and on return; split: a
-// multiple of 16.
+// The tensor-core kernel: q [B, Hq, D] with G = Hq / Hkv <= 8, bf16 over
+// k/v [B, Hkv, S, D] bf16 or int8 (kv_dtype kI8, with f32 k_scale/v_scale
+// [B, Hkv, S]; else null), or f32 over f32 k/v (kv_dtype kF32, the TF32
+// policy), all contiguous; kv_limit i32 [B]; out [B, Hq, D] in q's dtype.
+// work: B * Hkv * n_splits * G * (D + 2) f32, n_splits = ceil(S / split);
+// tickets: B * Hkv ints, 0 on entry and on return; split: a multiple of
+// 16.
 extern "C" int gt_decode_attention_tc(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
                                       const void* kv_limit, void* out, void* work, void* tickets,
@@ -148,6 +150,19 @@ extern "C" int gt_decode_attention_tc(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype == kF32) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int* lim = static_cast<const int*>(kv_limit);
+    float* wk = static_cast<float*>(work);
+    int* tk = static_cast<int*>(tickets);
+    if (D == 256)
+      return launch_decode_tc<256, DecTf32>(q, k, v, nullptr, nullptr, lim, out, wk, tk, DenseRows{S}, B, Hq,
+                                            Hkv, S, split, window, softcap, s);
+    if (D == 128)
+      return launch_decode_tc<128, DecTf32>(q, k, v, nullptr, nullptr, lim, out, wk, tk, DenseRows{S}, B, Hq,
+                                            Hkv, S, split, window, softcap, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch_decode_tc(kv_dtype, D, q, k, v, static_cast<const float*>(k_scale),
                             static_cast<const float*>(v_scale), static_cast<const int*>(kv_limit),
                             out, static_cast<float*>(work), static_cast<int*>(tickets),

@@ -4,8 +4,7 @@
 // q4_k_matmul.cu, `Q6KGemv` in q6_k_matmul.cu), q4_0 and q8_0 (`Q4_0Gemv`,
 // `Q8_0Gemv` below), so every matmul of a batch-1 decode step and of a
 // serving step runs here. With f32 x (evaluation mode: --verify's f32
-// cache, f32 serving) q4_0, q8_0 and q4_k launch it too, at 1 <= M <= 8;
-// q6_k's f32 x at M <= 8 runs its SIMT GEMV.
+// cache, f32 serving) every format launches it too, at 1 <= M <= 8.
 //
 // The kernel is a template over the format's functor F and an element
 // policy X of x (`XBf16`, `XF32` below): the policy says how x enters
@@ -45,8 +44,9 @@
 //   first run (bf16's rows times q4_0's and q4_k's f32 / bf16 ratio,
 //   1.3-1.7): at M = 8 gate_up 0.10-0.13, down 0.056-0.075, head
 //   0.45-0.58; at M = 1 near bf16's 0.0654, 0.0379, 0.2968 (its 2496-byte
-//   ring stage holds the slice to 512 at M >= 2, M = 4's 1024 aside). What
-//   the card measured: PERF.md section 6.
+//   ring stage holds the slice to 512 at M >= 2, M = 4's 1024 aside).
+//   q6_k's f32 x, expected before its first run: q6_k_matmul.cu. What the
+//   card measured: PERF.md section 6.
 //
 // Replaces, at that shape, the Pallas kernels `_q4_0_kernel`, `_q8_0_kernel`,
 // `_q4_k_kernel` and `_q6_k_kernel` (`_q6_k_v4_kernel` on its layout) of

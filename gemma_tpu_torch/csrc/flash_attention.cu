@@ -89,7 +89,6 @@
 // and 0.89x SDPA f32, at most 0.17 of 1e-4 of a row's scale; dropping any
 // one small-part product misses 1e-4 (tests/test_torch_tc_emulation.py).
 #include "attn_tc.cuh"
-#include "dq_tile_tf32.cuh"  // split_tf32, mma_1688_tf32
 
 using namespace gt;
 
@@ -157,14 +156,6 @@ struct FlashBf16 {
     *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
   }
 };
-
-// c += a . b in 3xTF32: the small parts' products first, then hi . hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_1688_tf32(c, al, bh0, bh1);
-  mma_1688_tf32(c, ah, bl0, bl1);
-  mma_1688_tf32(c, ah, bh0, bh1);
-}
 
 // f32 on TF32: keys a warp's tile: a ring stage holds 32 keys (D = 256) or
 // 64 (D = 128), one tile a key group

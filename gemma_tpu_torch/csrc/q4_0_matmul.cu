@@ -304,13 +304,13 @@ extern "C" int gt_q4_0_matmul(const void* x, int x_dtype, const void* qs, const 
 
 extern "C" size_t gt_q8_0_f32_work_bytes(int M, int N, int K, int* tickets);  // q8_0_matmul.cu
 extern "C" size_t gt_q4_k_f32_work_bytes(int M, int N, int K, int* tickets);  // q4_k_matmul.cu
-extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K);  // q6_k_matmul.cu
+extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K, int* tickets);  // q6_k_matmul.cu
 
 // The scratch a quantized matmul of format `fmt` (0 q4_0, 1 q8_0, 2 q4_k,
 // 3 q6_k: kernels/build.py FORMAT_CODES) takes at (x_dtype, M, N, K):
 // returns the bytes of its f32 scratch, the K-split partial sums of its
-// bf16 prefill tile (M > 8), of its tensor-core GEMV (M <= 8; with f32 x
-// q4_0's, q8_0's and q4_k's) or of its f32 TF32 tile (M > 8), and sets
+// bf16 prefill tile (M > 8), of its tensor-core GEMV (M <= 8, bf16 or f32
+// x) or of its f32 TF32 tile (M > 8), and sets
 // *tickets to the count of ints (0 between launches) the GEMV's last block
 // a row tile takes to sum the splits; each 0 where there is none.
 extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K, int* tickets) {
@@ -319,7 +319,7 @@ extern "C" size_t gt_matmul_work_bytes(int fmt, int x_dtype, int M, int N, int K
   if (x_dtype == kF32 && fmt == 0) return gt_q4_0_f32_work_bytes(M, N, K, tickets);
   if (x_dtype == kF32 && fmt == 1) return gt_q8_0_f32_work_bytes(M, N, K, tickets);
   if (x_dtype == kF32 && K % 256 == 0 && fmt == 2) return gt_q4_k_f32_work_bytes(M, N, K, tickets);
-  if (x_dtype == kF32 && M > 8 && K % 256 == 0 && fmt == 3) return gt_q6_k_f32_work_bytes(M, N, K);
+  if (x_dtype == kF32 && K % 256 == 0 && fmt == 3) return gt_q6_k_f32_work_bytes(M, N, K, tickets);
   if (x_dtype != kBF16) return 0;
   if (M > 8) return dq_tile_work_bytes(M, N, K);
   if (fmt <= 1) {

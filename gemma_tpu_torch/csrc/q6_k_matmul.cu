@@ -24,7 +24,26 @@
 //   copied once a block, each warp's 16 rows streamed a superblock a stage
 //   through its own cp.async ring, K split in whole superblocks where the
 //   rows alone do not fill the card.
-// * With f32 x (evaluation mode) M <= 8 runs the SIMT `q6_k_gemv_kernel`:
+// * With f32 x (evaluation mode: --verify's f32 cache, f32 serving) M <= 8
+//   runs on the same GEMV and functor (`dq_gemv_kernel<Q6KGemv, XF32>`,
+//   `XF32Packed` at M <= 2): x split once a block into three bf16 parts
+//   that sum to it exactly, three mma a k16 step (one at M <= 2) against
+//   the exact integers q - 32 into the sub-block's fresh fragment, then the
+//   f32 d * sc: the reference kernel's f32 weights and x at M <= 8, to the
+//   order of f32 sums (1e-5 of the output's scale). Three planes of x hold
+//   a quarter of bf16's slice at M = 8 (512: `gemv_slice_max`, so that a
+//   block keeps bf16's two an SM), so the head (K = 2048) takes four slices
+//   where bf16 x takes one, summed in a second launch.
+//   Expected (written before its first run on the card; bf16's rows of
+//   PERF.md times the f32 / bf16 ratio that q4_0, q4_k and q8_0 showed,
+//   1.0-1.1 at M = 1 and 1.3-1.7 at M = 8): attn_v at M = 8 0.008-0.011 ms
+//   (f32 library 0.0120, the SIMT GEMV it replaces 0.0299), head at M = 8
+//   0.23-0.30 (1.1423, 1.3783), head at M = 1 0.16-0.19 (0.6591, 0.3305),
+//   attn_v at M = 1 ~0.0065-0.0070, likely still above the library's
+//   0.0042 (its 16 row tiles: a grid too small for the card, as q4_k's
+//   attn_k); a q4_k_m f32 decode step at 8 rows from 5.68-5.77 ms busy to
+//   about 4.3-4.6. What the card measured: PERF.md section 6.
+// * The SIMT `q6_k_gemv_kernel` (bf16 x, M = 8) is an instrument only:
 //   each warp one output row. Lane l's 16-byte ql load is bytes 16l..16l+15
 //   of a 512-byte span (four superblocks), so a warp's ql reads are
 //   contiguous; with o = 16 (l % 8) the lane owns half h = o / 64 and p = o %
@@ -35,14 +54,14 @@
 //   two 16-element sub-blocks, 8h + p / 16 and 8h + p / 16 + 4, and d, and
 //   accumulates (d*sc) * sum(x*q) per sub-block in f32. x is staged per
 //   K-chunk of 1024 in shared memory in lane order, padded to 36 floats a
-//   lane against bank conflicts; all math f32. The 6-bit value is combined
-//   in int32 and converted once: the `split_int` mode of
-//   tools/bench_q6k_variants.py. For the layout ablation that replaces that
-//   tool's `_kernel` (`gt_q6_k_variant`, M = 8, bf16 x), a template flag
-//   combines the two planes in f32 instead (`split_f32`: lo + 16 * hi - 32),
-//   and `q6_k_int8_gemv_kernel` reads an int8 payload q [N, K] with the same
-//   sc and d (`prod`, 8.5625 bits a weight against 6.5625: a lane's two
-//   16-byte loads are its 32 weights, two 16-element sub-blocks).
+//   lane against bank conflicts; all math f32. With `q6_k_int8_gemv_kernel`
+//   it replaces that tool's `_kernel`, the layout ablation of
+//   tools/bench_q6k_variants.py (`gt_q6_k_variant`): the 6-bit value combined
+//   in int32 and converted once (`split_int`), or the two planes combined in
+//   f32 (`split_f32`: lo + 16 * hi - 32), and `q6_k_int8_gemv_kernel` reads
+//   an int8 payload q [N, K] with the same sc and d (`prod`, 8.5625 bits a
+//   weight against 6.5625: a lane's two 16-byte loads are its 32 weights,
+//   two 16-element sub-blocks).
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
 //   is bound by operations (the deep-K (2048, 16384) shape at M = 203:
 //   0.0138 ms at 989 TFLOP/s against 0.0082 ms of bytes). It runs on the
@@ -97,9 +116,9 @@ __device__ __forceinline__ float q6_f32(uint32_t ql_byte, int nibble_shift, uint
          16.f * static_cast<float>((qh_byte >> qh_shift) & 3u) - 32.f;
 }
 
-template <int M, typename TX, bool F32Combine = false>
+template <int M, bool F32Combine>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-q6_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
+q6_k_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ ql,
                  const uint8_t* __restrict__ qh, const int8_t* __restrict__ sc,
                  const __half* __restrict__ d, float* __restrict__ y, int N, int K) {
   __shared__ __align__(16) float xs[M][32 * kXPad];
@@ -126,7 +145,7 @@ q6_k_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ ql,
     for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
       const int m = i / kGemvKChunk;
       const int e = i % kGemvKChunk;
-      xs[m][gemv_slot(e)] = e < klen ? to_f32(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
+      xs[m][gemv_slot(e)] = e < klen ? __bfloat162float(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
     }
     __syncthreads();
     if (n < N && lane < klen / 32) {
@@ -457,34 +476,29 @@ cudaError_t launch_q6_k(const void* x, const void* ql, const void* qh, const voi
   const Q6KTile::Weight w{static_cast<const uint8_t*>(ql), static_cast<const uint8_t*>(qh),
                           static_cast<const int8_t*>(sc), static_cast<const __half*>(d)};
   float* yp = static_cast<float*>(y);
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    if (M > 8) return launch_dq_tile<Q6KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-    return launch_dq_gemv<Q6KGemv>(xp, w, yp, static_cast<float*>(work), static_cast<int*>(tickets), M,
-                                   N, K, s);
-  } else if (M > 8) {
-    return launch_dq_tile_tf32<Q6KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
-  } else {
-    const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-    const dim3 block(kGemvWarps * 32);
-    switch (M) {
-      case 1: q6_k_gemv_kernel<1, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 2: q6_k_gemv_kernel<2, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 3: q6_k_gemv_kernel<3, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 4: q6_k_gemv_kernel<4, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 5: q6_k_gemv_kernel<5, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 6: q6_k_gemv_kernel<6, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      case 7: q6_k_gemv_kernel<7, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-      default: q6_k_gemv_kernel<8, TX><<<grid, block, 0, s>>>(xp, w.ql, w.qh, w.sc, w.d, yp, N, K); break;
-    }
+  if (M <= 8) {
+    float* wk = static_cast<float*>(work);
+    int* tk = static_cast<int*>(tickets);
+    if constexpr (std::is_same<TX, float>::value)
+      return launch_dq_gemv_f32<Q6KGemv>(xp, w, yp, wk, tk, M, N, K, s);
+    else
+      return launch_dq_gemv<Q6KGemv>(xp, w, yp, wk, tk, M, N, K, s);
   }
-  return cudaGetLastError();
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return launch_dq_tile<Q6KTile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+  } else {
+    return launch_dq_tile_tf32<Q6KTf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+  }
 }
 
 }  // namespace
 
-// bytes of the f32 route's K-split scratch at M > 8 (gt_matmul_work_bytes)
-extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K) {
-  return dq_tile_tf32_work_bytes<Q6KTf32>(M, N, K);
+// bytes of the f32 route's K-split scratch (gt_matmul_work_bytes): the
+// GEMV's at M <= 8, which sets *tickets, and the TF32 tile's above
+extern "C" size_t gt_q6_k_f32_work_bytes(int M, int N, int K, int* tickets) {
+  if (M > 8) return dq_tile_tf32_work_bytes<Q6KTf32>(M, N, K);
+  *tickets = dq_gemv_tickets<Q6KGemv, XF32>(M, N, K);
+  return dq_gemv_work_bytes<Q6KGemv, XF32>(M, N, K);
 }
 
 // x: [M, K] f32 or bf16 (x_dtype), row-major contiguous; ql/qh/sc/d: the
@@ -506,7 +520,7 @@ extern "C" int gt_q6_k_matmul(const void* x, int x_dtype, const void* ql, const 
 
 // The layout ablation at M = 8 with bf16 x; y: [8, N] f32. mode 0 (prod):
 // a0 = q i8 [N, K], a1 = sc, a2 = d, a3 unused; mode 1 (split_f32) and 2
-// (split_int, the SIMT GEMV of f32 x): a0..a3 = ql, qh, sc, d of the port's
+// (split_int, the SIMT GEMV): a0..a3 = ql, qh, sc, d of the port's
 // q6_k layout. Returns a cudaError_t value.
 extern "C" int gt_q6_k_variant(const void* x, int mode, const void* a0, const void* a1,
                                const void* a2, const void* a3, void* y, int N, int K,
@@ -526,11 +540,11 @@ extern "C" int gt_q6_k_variant(const void* x, int mode, const void* a0, const vo
                                                    static_cast<const __half*>(a2), yp, N, K);
       break;
     case 1:
-      q6_k_gemv_kernel<8, __nv_bfloat16, true><<<grid, block, 0, s>>>(
+      q6_k_gemv_kernel<8, true><<<grid, block, 0, s>>>(
           xp, u0, u1, static_cast<const int8_t*>(a2), static_cast<const __half*>(a3), yp, N, K);
       break;
     case 2:
-      q6_k_gemv_kernel<8, __nv_bfloat16, false><<<grid, block, 0, s>>>(
+      q6_k_gemv_kernel<8, false><<<grid, block, 0, s>>>(
           xp, u0, u1, static_cast<const int8_t*>(a2), static_cast<const __half*>(a3), yp, N, K);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -11,14 +11,15 @@ s < kv_limit[b] and, with a sliding window, s > pos - window.
 Kernels: `csrc/decode_attention.cu` with `csrc/decode_tc.cuh` (replaces
 `_decode_kernel`, its bf16 and int8 arms) and `csrc/flash_attention.cu`
 (replaces `_flash_kernel`).
-Each holds two kernels, and the route between them is fixed by dtype (and
-for decode by G = Hq / Hkv): a bf16 query takes the tensor-core kernel
-(`mma.sync` on bf16 operands; decode over a bf16 or int8 cache at
-2 <= G <= 8). An f32 query, whose f32 x f32 products bf16 tensor cores
-cannot form exactly, takes for flash the TF32 tensor-core kernel (3xTF32:
-each operand split into two TF32 parts, three `mma.sync` products) and for
-decode the split-S kernel with its combine launch, as does decode at G = 1
-and G > 8. Every route launches a hand-written kernel; none falls back.
+The route is fixed by dtype (and for decode by G = Hq / Hkv): a bf16 query
+takes the tensor-core kernels (`mma.sync` on bf16 operands; decode over a
+bf16 or int8 cache at 2 <= G <= 8). An f32 query, whose f32 x f32
+products bf16 tensor cores cannot form exactly, takes the TF32 tensor-core
+kernels (3xTF32: each operand split into two TF32 parts, three `mma.sync`
+products): flash, and decode over an f32 cache at 2 <= G <= 8 (the same
+decode core with its TF32 element policy). Decode at G = 1 and G > 8, and
+f32 queries over an int8 cache, take the split-S kernel with its combine
+launch. Every route launches a hand-written kernel; none falls back.
 Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
 softcap before the mask, p rounded to the cache dtype before p . v, and 0
 for a row with no valid key (plain `sdpa` gives the mean of V there
@@ -46,7 +47,7 @@ from ..kernels import build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (128, 256)
-DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (f32 q, G = 1, G > 8)
+DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (G = 1, G > 8, f32 q over int8)
 TC_MAX_G = 8  # query heads a KV head the decode tensor-core kernel takes (its n8 side)
 # G = 1 (Gemma-7B) takes the split-S kernel: at 8 serving rows the
 # tensor-core kernel measured slower there (PERF.md)
@@ -182,12 +183,17 @@ def decode_tc_split(S: int) -> int:
     return split
 
 
-def decode_route(q_dtype: torch.dtype, G: int, S: int) -> tuple[str, int]:
-    """("tc", keys a block) for the tensor-core decode kernel, or
-    ("split", DECODE_SPLIT) for the split-S kernel: bf16 queries with
-    TC_MIN_G <= G <= TC_MAX_G take the tensor cores."""
-    if q_dtype == torch.bfloat16 and TC_MIN_G <= G <= TC_MAX_G:
-        return "tc", decode_tc_split(S)
+def decode_route(q_dtype: torch.dtype, G: int, S: int, int8: bool = False) -> tuple[str, int]:
+    """The decode kernel of a call and its keys a block: at TC_MIN_G <= G <=
+    TC_MAX_G, ("tc", decode_tc_split(S)) for bf16 queries (over a bf16 or
+    int8 cache) and ("tf32", decode_tc_split(S)) for f32 queries over an
+    f32 cache, both the tensor-core core; else ("split", DECODE_SPLIT), the
+    split-S kernel."""
+    if TC_MIN_G <= G <= TC_MAX_G:
+        if q_dtype == torch.bfloat16:
+            return "tc", decode_tc_split(S)
+        if q_dtype == torch.float32 and not int8:
+            return "tf32", decode_tc_split(S)
     return "split", DECODE_SPLIT
 
 
@@ -200,7 +206,8 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     of `decode_route` (the tensor-core kernel, one launch; or the split-S
     kernel plus its combine step) or raises. The bf16/f32 arm counts its
     calls in `launches`, the int8 arm in `int8_launches`; those that went
-    through the tensor-core kernel also in `tc_launches`."""
+    through the tensor-core kernel also in `tc_launches` (bf16 queries) or
+    `tf32_launches` (f32 queries)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
     B, T, Hq, D = q.shape
@@ -211,16 +218,16 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
         raise ValueError(f"decode attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    route, split = decode_route(q.dtype, G, S)
+    int8 = k_scale is not None
+    route, split = decode_route(q.dtype, G, S, int8)
     n_splits = -(-S // split)
     qc = q.contiguous()
     lim = kv_limit.to(torch.int32).contiguous()
     out = torch.empty_like(qc)
-    int8 = k_scale is not None
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if int8 else (None, None)
     lib = build.load()
     stream = build.stream_ptr(q.device)
-    if route == "tc":
+    if route != "split":
         work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_decode_attention_tc(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
@@ -243,12 +250,14 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     else:
         decode_attention.launches += 1
     decode_attention.tc_launches += route == "tc"
+    decode_attention.tf32_launches += route == "tf32"
     return out
 
 
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
 decode_attention.tc_launches = 0
+decode_attention.tf32_launches = 0
 
 
 def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):

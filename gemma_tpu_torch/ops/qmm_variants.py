@@ -4,9 +4,9 @@ kernels in the reference's timing tools, each with its plain version.
 * `qmm_variant` (`csrc/q4_0_matmul.cu`, replaces `_kernel` of
   tools/bench_qmm_variants.py and `kernel`/`kernel2` of tools/probe_int4.py):
   q4_0's SIMT GEMV at M = 8 over the port's q4_0 payload with f32, bf16 or
-  f16-bit scales, in the modes of `VARIANT_MODES` (gdot on f16 scales, at
-  any M <= 8, is the kernel the main path launches with f32 x; bf16 x at
-  M <= 8 takes the tensor-core GEMV of `csrc/dq_gemv.cuh`);
+  f16-bit scales, in the modes of `VARIANT_MODES` (the main path launches
+  none of them: bf16 and f32 x at M <= 8 take the tensor-core GEMV of
+  `csrc/dq_gemv.cuh`);
 * `int4_dot` (`csrc/qmm_variants.cu`, replaces `kernel3` of
   tools/probe_int4.py): int8 x [M, K] against int4 w [N, K/2] -> int32;
 * `row_checksum` (`csrc/qmm_variants.cu`, the `stream` modes of
@@ -268,7 +268,7 @@ def q4_k_variant_plain(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 def q4_k_variant(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """The q4_k GEMV ablation `mode` at M = 8, x bf16 [8, K] -> [8, N] f32:
-    prod (the SIMT GEMV of f32 x), nohilo (prod; pass `q4_k_hi_parts(qt)`),
+    prod (the SIMT GEMV), nohilo (prod; pass `q4_k_hi_parts(qt)`),
     noaffine (d*sc * (q - 8)), nosub (d * (q - 8)), q4_0ref (#1's GEMV;
     pass `q4_0ref_weight(qt)`)."""
     if mode not in Q4_K_MODES:

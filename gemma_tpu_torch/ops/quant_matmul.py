@@ -18,10 +18,9 @@ runs above M = 8 on the tensor cores too, through the TF32 tile of
 `csrc/dq_tile_tf32.cuh` (the weight's integers against x split into two
 TF32 parts, scaled per group in f32: 1e-5 of the output's scale), counted
 also in their wrappers' `tf32_launches` as the library reports its launches;
-q4_0, q8_0 and q4_k at 1 <= M <= 8 through the GEMV with x split into three
-bf16 parts (three `mma.sync` a k16 step, one at M <= 2: 1e-5 of the
-output's scale), counted also in `gemv_f32_launches`; q6_k's f32 x at
-M <= 8 runs its SIMT GEMV.
+and at 1 <= M <= 8 through the GEMV with x split into three bf16 parts
+(three `mma.sync` a k16 step, one at M <= 2: 1e-5 of the output's scale),
+counted also in `gemv_f32_launches`.
 
 Numerics follow the reference kernels, which switch their dot dtype at
 M = 8 (`quant_matmul.py:315`):
@@ -55,7 +54,7 @@ from ..quant.qtensor import QTensor, dequant, q4_k_group_scales, q4_k_nibbles
 
 DECODE_MAX_M = 8  # largest M served by the GEMV launch shape (f32 weights)
 TF32_FORMATS = ("q4_0", "q8_0", "q4_k", "q6_k")  # f32 x above DECODE_MAX_M: csrc/dq_tile_tf32.cuh
-GEMV_F32_FORMATS = ("q4_0", "q8_0", "q4_k")  # f32 x at M <= DECODE_MAX_M: csrc/dq_gemv.cuh's XF32
+GEMV_F32_FORMATS = ("q4_0", "q8_0", "q4_k", "q6_k")  # f32 x at M <= DECODE_MAX_M: csrc/dq_gemv.cuh's XF32
 _FORCE_PLAIN = False
 
 

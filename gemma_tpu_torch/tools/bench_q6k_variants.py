@@ -8,8 +8,8 @@ d f16 [N, K/256]), through `gt_q6_k_variant` (`csrc/q6_k_matmul.cu`):
   prod       int8 payload q [N, K] with the same sc and d (8.5625 bpw)
   split_f32  the planes, low nibble + 16 * high bits - 32 in f32
   split_int  the planes combined in int32, one convert: the SIMT
-             `q6_k_gemv_kernel` (f32 x's path; bf16 x takes the tensor-core
-             GEMV of csrc/dq_gemv.cuh)
+             `q6_k_gemv_kernel` (an instrument only: bf16 and f32 x take
+             the tensor-core GEMV of csrc/dq_gemv.cuh)
   stream     every byte of the planes read once (the checksum kernel)
 
 Each mode is first held against its plain version; times are L2 cold

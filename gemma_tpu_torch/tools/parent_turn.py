@@ -39,7 +39,8 @@ the quantized-matmul wrapper. The card's `nvidia-smi` line heads each turn.
 runs only the f32 routes' part, four turns and no decode rounds: the
 quantized matmuls at M = 1, 2, 4 and 8 with bf16 and with f32 x (times L2
 cold, and outputs compared across the trees, f32 too), q4_0's with f32 x at
-the tile's M = 17, 64, 203 and 512 (L2 cold), then chip_smoke's
+the tile's M = 17, 64, 203 and 512 (L2 cold), `decode_attention` with f32
+q, k and v at F32_DECODE_SHAPES (device ms, warm), then chip_smoke's
 `f32_decode_steps` (device busy of a decode step with f32 activations at 1
 and 8 rows: Gemma-2B q4_0 and q4_k_m, Gemma-7B q8_0): copy this tree's
 chip_smoke.py into DIR first, as the parent's may lack that phase or a
@@ -144,6 +145,33 @@ def kernel_times(dev: torch.device, flash_shapes, decode_shapes, paged_shapes) -
             torch.cuda.synchronize()
             res[f"host us a call, {at}"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
             del q, cache
+    return res
+
+
+# f32-q decode attention of --gemv (name, S, kv_limits, Hq, Hkv): Gemma-2B's
+# heads at a prompt's first decode step, over a full 4096-slot cache and
+# over 8 serving rows; Gemma-7B's at the first step
+F32_DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B", 4096, [4096], 8, 1),
+                     ("Gemma-2B serving", 512, [1, 64, 65, 203, 300, 512, 203, 64], 8, 1),
+                     ("Gemma-7B", 512, [204], 16, 16))
+
+
+def f32_decode_times(dev: torch.device) -> dict[str, float]:
+    """Device ms, warm, of `decode_attention` with f32 q, k and v at
+    F32_DECODE_SHAPES, through the public wrapper (each tree's route)."""
+    import gemma_tpu_torch.ops.attention as att
+    from gemma_tpu_torch.tools import _timing as T
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res = {}
+    for name, S, limits, hq, hkv in F32_DECODE_SHAPES:
+        B = len(limits)
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev) * 0.3
+                   for shape in ((B, 1, hq, D), (B, hkv, S, D), (B, hkv, S, D)))
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        res[f"f32 decode {name} S={S} Hq={hq} Hkv={hkv} limits={limits}"] = T.time_us(
+            lambda: att.decode_attention(q, k, v, lim), [()], dev) / 1e3
     return res
 
 
@@ -288,6 +316,7 @@ def turn(tag: str, shapes: dict, outputs: str | None = None, gemv: bool = False)
     if outputs:
         torch.save(matmul_outputs(dev, f32=gemv), outputs)
     if gemv:
+        print(tag, "f32 decode attention device ms, warm:", json.dumps(f32_decode_times(dev)), flush=True)
         busy, _ = c.f32_decode_steps(torch, dev, card, check=False)  # a parent has no f32 GEMV counter
         print(tag, "f32 decode step busy ms:", json.dumps(busy), flush=True)
         print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)

@@ -16,7 +16,8 @@ goes; and the tensor-core attention kernels' launch shapes.
 S = 4096, bench_prefill's), each in bf16 with D = 256, it holds the flash
 kernel's 4 warps as 1, 2 or 4 row warps (the rest splitting the keys)
 and the decode kernel at 32-256 keys a
-block (both arms) to the plain version (2e-2 of each row's scale,
+block (both arms, and at 2 <= G <= 8 the TF32 policy on f32 q, k and v, at
+1e-4) to the plain version (2e-2 of each row's scale,
 `_timing.attn_err`: p rounds to bf16 against a local max), and times each,
 decode beside the split-S kernel and its combine launch (the route of
 G = 1), device ms with the operands warm (as chip_smoke.py). With
@@ -28,20 +29,23 @@ kernels through the public wrappers.
 `sass` needs no card, only the CUDA toolkit: it builds this tree's kernels
 and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
 and compares, instruction by instruction (`cuobjdump -sass`, branch labels
-numbered in order of use), each format's tensor-core GEMV with bf16 x and
-the TF32 tile's instances of TF32_KERNELS in the two builds; it fails
-unless every one is the same code.
+numbered in order of use), each format's tensor-core GEMV with bf16 x,
+the TF32 tile's instances of TF32_KERNELS and the decode core's bf16 and
+int8 instances (`decode_tc_kernel`, dense and paged, D = 128 and 256) in
+the two builds; it fails unless every one is the same code.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, the int8 V
 scale of a paged tile read at its logical rather than its physical page;
-in the f32 flash kernel a ring stage's keys, or the lo.hi product of its
-3xTF32), and holds each, and the unpatched kernels, to the plain version
-at the S = 4096 shapes, where a row averages thousands of keys, and at
-PAGED_SHAPES (both arms, shuffled pages), in bf16 at 2e-2 of each row's
-scale; and in f32 at chip_smoke.py phase 8's shapes (T = S = 512,
-Gemma-2B's and Gemma-7B's heads) at its 1e-4 of each row's scale. It fails
-unless the unpatched kernels pass and every mutant fails.
+in the f32 flash kernel a ring stage's keys, or the lo.hi product of the
+3xTF32 that f32 flash and decode share), and holds each, and the unpatched
+kernels, to the plain version at the S = 4096 shapes, where a row averages
+thousands of keys, and at PAGED_SHAPES (both arms, shuffled pages), in
+bf16 at 2e-2 of each row's scale; and in f32 at chip_smoke.py phase 8's
+shapes (flash at T = S = 512, Gemma-2B's and Gemma-7B's heads; decode on
+the TF32 core over 4096 slots and the serving rows) at its 1e-4 of each
+row's scale. It fails unless the unpatched kernels pass and every mutant
+fails.
 
 A variant is a list of text substitutions in a copy of
 `gemma_tpu_torch/csrc/`, built into `gemma_tpu_torch/build/variants/<name>/`
@@ -292,8 +296,8 @@ MUTANTS: dict[str, list[tuple[str, str, str]]] = {
     # the f32 (TF32) flash kernel loads ring step 3 (32 keys at D = 256) but never multiplies it
     "drop_tf32_step_3": [("flash_attention.cu", "    compute(i);\n    __syncthreads();  // stage i % 2",
                           "    if (i != 3 || sizeof(T) != 4) compute(i);\n    __syncthreads();  // stage i % 2")],
-    # the f32 flash kernel's products leave out lo(a) . hi(b): 2 of 3xTF32's passes
-    "drop_tf32_lo_hi": [("flash_attention.cu", "  mma_1688_tf32(c, al, bh0, bh1);\n", "")],
+    # the f32 flash and decode kernels' products leave out lo(a) . hi(b): 2 of 3xTF32's passes
+    "drop_tf32_lo_hi": [("attn_tc.cuh", "  mma_1688_tf32(c, al, bh0, bh1);\n", "")],
     # the tensor-core core reads a tile's int8 V scales at the dense slab
     # offset: through pages, the logical page's rows, not the physical one's
     "paged_v_scale_logical": [("decode_tc.cuh", "w *= ok[e] ? v_scale[srow + 8 * (e / 2)] : 0.f;",
@@ -385,11 +389,11 @@ SPLITS = (32, 64, 128, 256)
 ATT_TOL = 2e-2
 
 
-def _held(name: str, got, ref) -> None:
-    """Raise unless got is within ATT_TOL of each row's scale of ref."""
-    ratio = T.attn_err(got, ref, ATT_TOL)[1]
+def _held(name: str, got, ref, tol: float = ATT_TOL) -> None:
+    """Raise unless got is within tol of each row's scale of ref."""
+    ratio = T.attn_err(got, ref, tol)[1]
     if ratio > 1.0:
-        raise RuntimeError(f"{name}: |diff| {ratio:.3f} x {ATT_TOL} of its row's scale")
+        raise RuntimeError(f"{name}: |diff| {ratio:.3f} x {tol} of its row's scale")
 
 
 def _flash(lib, q, k, v, pos, lim, row_warps: int):
@@ -406,9 +410,10 @@ def _flash(lib, q, k, v, pos, lim, row_warps: int):
 
 
 def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool = True):
-    """One launch of the decode kernel on bf16 q at `split` keys a block:
-    the tensor-core kernel, or (tc=False) the split-S kernel and its
-    combine, through the C entry points."""
+    """One launch of the decode kernel on bf16 or f32 q at `split` keys a
+    block: the tensor-core kernel (f32 q over f32 k and v: its TF32
+    policy), or (tc=False) the split-S kernel and its combine, through the
+    C entry points."""
     from ..ops import attention as att
 
     B, _, Hq, D = q.shape
@@ -476,25 +481,31 @@ def run_attention(dev: torch.device, parent: str | None = None) -> None:
         q, k, v = rnd(B, 1, hq, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D)
         lim = torch.tensor(limits, dtype=torch.int32, device=dev)
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-        for arm, args in (("bf16", (k, v)), ("int8", (k8, v8, ks, vs))):
-            ref = att.decode_attention_plain(q, args[0], args[1], lim, 0.0, 0, *args[2:])
+        arms = [("bf16", q, (k, v), ATT_TOL), ("int8", q, (k8, v8, ks, vs), ATT_TOL)]
+        if att.decode_route(torch.float32, hq // hkv, S)[0] == "tf32":  # the TF32 policy, f32 q, k, v
+            arms.append(("f32", q.float(), (k.float(), v.float()), F32_TOL))
+        for arm, qa, args, tol in arms:
+            ref = att.decode_attention_plain(qa, args[0], args[1], lim, 0.0, 0, *args[2:])
             readings = []
             for split, tc in ((att.DECODE_SPLIT, False), *((sp, True) for sp in SPLITS)):
                 def call(split=split, tc=tc):
-                    return _decode(lib, split, q, args[0], args[1], lim, *args[2:], tc=tc)
+                    return _decode(lib, split, qa, args[0], args[1], lim, *args[2:], tc=tc)
 
-                _held(f"decode {name} {arm} split {split} tc={tc}", call(), ref)
+                _held(f"decode {name} {arm} split {split} tc={tc}", call(), ref, tol)
                 readings.append(f"{split} keys a block {ms(call):.4f}" if tc
                                 else f"split-S kernel {ms(call):.4f}")
             print(f"decode {name} {arm} S={S} Hq={hq} Hkv={hkv} limits={limits}: device ms, warm "
-                  f"(route: {att.decode_route(torch.bfloat16, hq // hkv, S)}): " + "; ".join(readings),
-                  flush=True)
+                  f"(route: {att.decode_route(qa.dtype, hq // hkv, S, arm == 'int8')}): "
+                  + "; ".join(readings), flush=True)
         del q, k, v, k8, v8
 
 
 # f32 flash at chip_smoke.py phase 8's shapes (T = S = 512 from position 0),
 # Gemma-2B's heads (8, 1) and Gemma-7B's (16, 16), held to its 1e-4 of each row's scale
 F32_FLASH_SHAPES = (("Gemma-2B", 8, 1), ("Gemma-7B", 16, 16))
+# f32-q decode on the TF32 decode core (name, S, kv_limits, Hq, Hkv): a full
+# 4096-slot cache (16 splits) and the serving rows, at the same tolerance
+F32_DECODE_SHAPES = (("Gemma-2B", 4096, [4096], 8, 1), ("Gemma-2B serving", 512, SERVE_LIMITS, 8, 1))
 F32_TOL = 1e-4
 
 
@@ -502,9 +513,9 @@ def run_mutants(dev: torch.device) -> None:
     """The unpatched attention kernels and each of MUTANTS against the plain
     versions at the S = 4096 shapes of FLASH_SHAPES and DECODE_SHAPES
     (decode: both arms) and at PAGED_SHAPES (bf16 and int8 pages), at
-    ATT_TOL of each row's scale, and f32 flash at F32_FLASH_SHAPES at
-    F32_TOL, through the public wrappers; one line a reading, with max|diff|
-    beside the row-scaled ratio."""
+    ATT_TOL of each row's scale, and f32 flash at F32_FLASH_SHAPES and f32
+    decode at F32_DECODE_SHAPES at F32_TOL, through the public wrappers; one
+    line a reading, with max|diff| beside the row-scaled ratio."""
     from ..ops import attention as att
     from ..ops import paged_attention as pat
     from ..runtime.kv_cache import quantize_kv
@@ -553,6 +564,13 @@ def run_mutants(dev: torch.device) -> None:
         cases.append((f"f32 flash {name} T=S={S}", lambda q=q, k=k, v=v, pos=pos, lim=lim:
                       att.flash_attention(q, k, v, pos, lim),
                       att.flash_attention_plain(q, k, v, pos, lim), F32_TOL))
+    for name, S, limits, hq, hkv in F32_DECODE_SHAPES:
+        B = len(limits)
+        q, k, v = (rnd(*shape, dtype=torch.float32) for shape in ((B, 1, hq, D), (B, hkv, S, D),
+                                                                  (B, hkv, S, D)))
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        cases.append((f"f32 decode {name} S={S} limits={limits}", lambda q=q, k=k, v=v, lim=lim:
+                      att.decode_attention(q, k, v, lim), att.decode_attention_plain(q, k, v, lim), F32_TOL))
     failed = {}
     for lname, lib in libs.items():
         with build.using(lib):
@@ -575,6 +593,23 @@ GEMV_BF16_KERNELS = {"q4_0": "BlockGemvILi16E", "q8_0": "BlockGemvILi32E", "q4_k
 # the f32 TF32 tile's functors held to the parent's code (each instance: BN
 # 64 and 128), by a part of their mangled names
 TF32_KERNELS = {"q8_0": "Q8_0Tf32", "q4_k": "Q4KTf32", "q6_k": "Q6KTf32"}
+# the decode core's instances by (D, arm, rows), from a mangled name: since
+# the element policy (`DecBf16`, `DecInt8`) took the place of `bool kInt8`
+# in its template, or before
+_DECODE_TC = (r"decode_tc_kernelILi(\d+)ENS\d*_\d+Dec(Bf16|Int8)ENS\d*_\d+(Dense|Paged)Rows",
+              r"decode_tc_kernelILi(\d+)ELb([01])ENS\d*_\d+(Dense|Paged)Rows")
+
+
+def _decode_tc_key(name: str) -> tuple[str, str, str] | None:
+    """(D, "bf16" or "int8", "Dense" or "Paged") of a bf16 or int8 instance
+    of `decode_tc_kernel`, else None."""
+    import re
+
+    for pattern in _DECODE_TC:
+        m = re.search(pattern, name)
+        if m:
+            return m.group(1), {"Bf16": "bf16", "0": "bf16", "Int8": "int8", "1": "int8"}[m.group(2)], m.group(3)
+    return None
 
 
 def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
@@ -607,8 +642,9 @@ def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
 
 
 def run_sass(parent: str) -> None:
-    """Mode sass: the bf16 GEMVs and the TF32_KERNELS tiles of this tree and
-    of the parent, compared instruction by instruction."""
+    """Mode sass: the bf16 GEMVs, the TF32_KERNELS tiles and the bf16 and
+    int8 decode cores of this tree and of the parent, compared instruction
+    by instruction."""
     import difflib
     import re
 
@@ -633,6 +669,11 @@ def run_sass(parent: str) -> None:
         for key, n in sorted(names["this"].items()):
             bn = re.search(r"Tf32ELi(\d+)E", key).group(1)
             pairs.append((f"{fmt} TF32 tile BN={bn}", n, names["parent"][key]))
+    cores = {tree: {key: n for n in kernels if (key := _decode_tc_key(n))} for tree, kernels in trees.items()}
+    if len(cores["this"]) != 8 or cores["this"].keys() != cores["parent"].keys():
+        raise SystemExit(f"sass: the bf16 and int8 decode cores differ: {cores}")
+    for key, n in sorted(cores["this"].items()):
+        pairs.append((f"decode core D={key[0]} {key[1]} {key[2]}Rows", n, cores["parent"][key]))
     differ = []
     for label, this, par in pairs:
         a, b = trees["this"][this], trees["parent"][par]
@@ -648,7 +689,8 @@ def run_sass(parent: str) -> None:
             print("\n".join(list(diff)[:60]), flush=True)
     if differ:
         raise SystemExit(f"sass: {differ} are not the parent's code")
-    print("sass: every bf16 GEMV and TF32 tile compared is the parent's code", flush=True)
+    print("sass: every bf16 GEMV, TF32 tile and bf16 or int8 decode core compared is the parent's code",
+          flush=True)
 
 
 def main(argv=None) -> None:

@@ -1312,6 +1312,29 @@ def decode(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=Non
                       softcap, window, split)
 
 
+def decode_tf32(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, split: int | None = None,
+                passes=(TF32_3X, TF32_3X)) -> np.ndarray:
+    """`decode_tc_kernel` with `DecTf32` and `DenseRows` on f32 q [B, 1, Hq,
+    D] (2 <= Hq / Hkv <= 8) and k/v [B, Hkv, S, D] f32, split by default the
+    route's (`decode_tc_split(S)`): out [B, 1, Hq, D] f32. The tiles, ring,
+    masks, softmax and merges of `decode`; q split once into its hi and lo
+    planes [8][D + 16] (heads >= G: 0), K at pitch D + 16 and V at D + 8;
+    S = K q as m16n8k8 TF32 fragments, a lane's A values (key rows g, g + 8)
+    and B values (head g) one 16-byte load each at chunk t of every 16-wide
+    unit u of D, k8 step s taking its elements 2s and 2s + 1, the units in
+    two accumulator chains; P through an f32 tile [8][20], V^T's A values
+    (d rows g, g + 8 of each m16 tile; key slots t, t + 4) and P's B values
+    (head g) of each k8 step of the 16 keys; every product in 3xTF32
+    (`mma_3xtf32`; `passes`: the products of S and of P . V, to drop one
+    for an ablation); p kept in f32."""
+    from ..ops.attention import decode_tc_split
+
+    B, Hkv, S, D = k.shape
+    return _decode_tc(q, k.reshape(-1, D), v.reshape(-1, D), None, None, kv_limit, Hkv, S,
+                      lambda b, hk, key0: (b * Hkv + hk) * S + key0, softcap, window,
+                      decode_tc_split(S) if split is None else split, tf32=passes)
+
+
 def paged_decode(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0, window: int = 0,
                  k_scale=None, v_scale=None, split: int | None = None,
                  reads: set | None = None) -> np.ndarray:
@@ -1341,19 +1364,26 @@ def paged_decode(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0
 
 
 def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softcap: float,
-               window: int, split: int) -> np.ndarray:
+               window: int, split: int, tf32=None) -> np.ndarray:
     """`decode_tc_kernel` on K/V rows k, v [N, D] (scales [N]), S logical
     keys a (batch row, kv head), `row(b, hk, key0)` the row of the first
     key of a 16-key tile (its others follow it), called only for a tile
-    that holds a live key."""
+    that holds a live key; `tf32`: the `DecTf32` policy's products of S and
+    of P . V (f32 q, k and v), else bf16 or int8 K/V."""
     B, _, Hq, D = q.shape
     G = Hq // Hkv
     assert G <= 8 and split % 16 == 0
     int8 = k_scale is not None
-    qb = _bits(q).reshape(B, Hq, D)
-    # the staged tiles: bf16 as they are, int8 widened exactly (`widen_int8x16`)
-    kh, vh = ((_to_bf16_bits(x.numpy().astype(np.float32)) for x in (k, v)) if int8
-              else (_bits(k), _bits(v)))
+    if tf32 is not None:
+        qb = q.to(torch.float32).numpy().reshape(B, Hq, D)
+        kh, vh = (x.to(torch.float32).numpy() for x in (k, v))
+        ldk, ldv, pld = D + 16, D + 8, 20  # DecodeTc's kLdK, kLdV, kPLd32
+        chunk = np.arange(4)
+    else:
+        qb = _bits(q).reshape(B, Hq, D)
+        # the staged tiles: bf16 as they are, int8 widened exactly (`widen_int8x16`)
+        kh, vh = ((_to_bf16_bits(x.numpy().astype(np.float32)) for x in (k, v)) if int8
+                  else (_bits(k), _bits(v)))
     ks, vs = (k_scale.numpy(), v_scale.numpy()) if int8 else (None, None)
     lims = kv_limit.to(torch.int32).numpy()
     lanes = np.arange(32)
@@ -1364,11 +1394,16 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
         limit = min(int(lims[b]), S)
         live_lo = max(limit - window, 0) if window > 0 else 0
         qrow = qb[b, hk * G:(hk + 1) * G]
-        # q as the B operand: lane (g, t) holds q[head g][16 kk + 2t (+8) + {0, 1}]
-        gq = np.minimum(g, G - 1)
-        qf = [[np.where(g < G, qrow[gq, kk * 16 + 2 * t + 8 * c].astype(np.uint32)
-                        | (qrow[gq, kk * 16 + 2 * t + 8 * c + 1].astype(np.uint32) << 16), 0)
-               .astype(np.uint32) for c in range(2)] for kk in range(D // 16)]
+        if tf32 is not None:  # q's planes [8][ldk] (kept as f32: mma_3xtf32 splits them alike)
+            qs = np.zeros((8, ldk), _F32)
+            qs[:G, :D] = qrow
+            qs = qs.reshape(-1)
+        else:
+            # q as the B operand: lane (g, t) holds q[head g][16 kk + 2t (+8) + {0, 1}]
+            gq = np.minimum(g, G - 1)
+            qf = [[np.where(g < G, qrow[gq, kk * 16 + 2 * t + 8 * c].astype(np.uint32)
+                            | (qrow[gq, kk * 16 + 2 * t + 8 * c + 1].astype(np.uint32) << 16), 0)
+                   .astype(np.uint32) for c in range(2)] for kk in range(D // 16)]
         parts = []
         for sp in range(n_splits):
             s0 = sp * split
@@ -1390,18 +1425,38 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                 for j in range(mine):
                     key0 = kb0 + 16 * (w + j * DEC_WARPS)
                     row0 = row(b, hk, key0)
-                    tk, tv = np.zeros(16 * ld, np.uint16), np.zeros(16 * ld, np.uint16)
-                    for r in range(16):
-                        if key0 + r < kend:
-                            tk[r * ld: r * ld + D] = kh[row0 + r]
-                            tv[r * ld: r * ld + D] = vh[row0 + r]
+                    if tf32 is not None:
+                        tk, tv = np.zeros(16 * ldk, _F32), np.zeros(16 * ldv, _F32)
+                        for r in range(16):
+                            if key0 + r < kend:
+                                tk[r * ldk: r * ldk + D] = kh[row0 + r]
+                                tv[r * ldv: r * ldv + D] = vh[row0 + r]
+                    else:
+                        tk, tv = np.zeros(16 * ld, np.uint16), np.zeros(16 * ld, np.uint16)
+                        for r in range(16):
+                            if key0 + r < kend:
+                                tk[r * ld: r * ld + D] = kh[row0 + r]
+                                tv[r * ld: r * ld + D] = vh[row0 + r]
                     # the tile's scale rows (int8): lane (g, t)'s keys g and g + 8
                     srows = [np.minimum(row0 + g + 8 * h, len(kh) - 1) for h in range(2)]
                     sab = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(2)]  # two chains
-                    for kk in range(D // 16):
-                        a = ldmatrix_x4(tk.view(np.uint8),
-                                        2 * ((lanes % 16) * ld + kk * 16 + (lanes // 16) * 8))
-                        sab[kk % 2] = mma_16816(sab[kk % 2], a, qf[kk][0], qf[kk][1])
+                    if tf32 is not None:
+                        kl, ql = g * ldk + 4 * t, g * ldk + 4 * t
+                        for u in range(D // 16):
+                            x0 = tk[(kl + 16 * u)[:, None] + chunk]  # [32, 4]: key g
+                            x1 = tk[(kl + 8 * ldk + 16 * u)[:, None] + chunk]  # key g + 8
+                            y = qs[(ql + 16 * u)[:, None] + chunk]  # head g
+                            c = np.stack(sab[u % 2], -1)[None, None]
+                            for s_ in range(2):
+                                a = np.stack([x0[:, 2 * s_], x1[:, 2 * s_], x0[:, 2 * s_ + 1],
+                                              x1[:, 2 * s_ + 1]], -1)[None]
+                                c = mma_3xtf32(c, a, y[None, :, 2 * s_: 2 * s_ + 2], tf32[0])
+                            sab[u % 2] = [c[0, 0, :, e] for e in range(4)]
+                    else:
+                        for kk in range(D // 16):
+                            a = ldmatrix_x4(tk.view(np.uint8),
+                                            2 * ((lanes % 16) * ld + kk * 16 + (lanes // 16) * 8))
+                            sab[kk % 2] = mma_16816(sab[kk % 2], a, qf[kk][0], qf[kk][1])
                     sc, ok, tmx = [], [], [np.full(32, MASK_VALUE, _F32) for _ in range(2)]
                     for e in range(4):
                         key = key0 + g + 8 * (e // 2)
@@ -1418,14 +1473,27 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                         mn = np.maximum(m[hh], _col(tmx[hh], np.max))
                         al.append(np.exp(m[hh] - mn).astype(_F32))
                         m[hh] = mn
-                    pt = np.zeros((8, P_LD), np.uint16)
+                    pt = np.zeros((8, pld), _F32) if tf32 is not None else np.zeros((8, P_LD), np.uint16)
                     pv = []
                     for e in range(4):
                         pe = np.where(ok[e], np.exp(sc[e] - m[e % 2]), 0).astype(_F32)
                         pv.append(pe)
                         wgt = pe * np.where(ok[e], vs[srows[e // 2]], 0).astype(_F32) if int8 else pe
-                        pt[2 * t + e % 2, g + 8 * (e // 2)] = _to_bf16_bits(wgt)
+                        pt[2 * t + e % 2, g + 8 * (e // 2)] = wgt if tf32 is not None else _to_bf16_bits(wgt)
                     l = [l[0] * al[0] + (pv[0] + pv[2]), l[1] * al[1] + (pv[1] + pv[3])]
+                    if tf32 is not None:
+                        DT = D // 16
+                        oc = np.stack([np.stack(o[mt], -1) for mt in range(DT)])[:, None]  # [DT, 1, 32, 4]
+                        for e in range(4):
+                            oc[..., e] *= al[e % 2]
+                        vl = t * ldv + g
+                        for kk in range(2):
+                            bp = np.stack([pt[g, 8 * kk + t], pt[g, 8 * kk + t + 4]], -1)[None]  # [1, 32, 2]
+                            vk = vl[None] + 8 * kk * ldv + 16 * np.arange(DT)[:, None]  # [DT, 32]
+                            a = np.stack([tv[vk], tv[vk + 8], tv[vk + 4 * ldv], tv[vk + 4 * ldv + 8]], -1)
+                            oc = mma_3xtf32(oc, a, bp, tf32[1])
+                        o = [[oc[mt, 0, :, e] for e in range(4)] for mt in range(DT)]
+                        continue
                     pflat = pt.reshape(-1)
                     b0, b1 = _word(pflat, g * P_LD + 2 * t), _word(pflat, g * P_LD + 8 + 2 * t)
                     for mt in range(D // 16):
@@ -1459,7 +1527,8 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                 total = _F32(w * pl[hh] + total)
                 if w > 0:
                     acc = (w * po[hh] + acc).astype(_F32)
-            out[b, 0, hk * G + hh] = _bf16_round(acc * (_F32(1) if total == 0 else _F32(1) / total))
+            res = acc * (_F32(1) if total == 0 else _F32(1) / total)
+            out[b, 0, hk * G + hh] = res if tf32 is not None else _bf16_round(res)
     return out
 
 

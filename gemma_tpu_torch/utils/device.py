@@ -16,14 +16,9 @@ import warnings
 # H100 SXM (the name "NVIDIA H100 80GB HBM3"): HBM3 bandwidth and the dense
 # bf16 tensor-core rate, NVIDIA data sheet at 700 W
 H100_SXM = (3350.0, 989e12)
-# its float32 rate outside the tensor cores (data sheet): printed beside the
-# bound of the f32 route that stays off the tensor cores (q6_k's f32 SIMT
-# GEMV)
-H100_F32_FLOPS = 67e12
 # its dense TF32 tensor-core rate (data sheet): the bound of every f32 route.
 # f32 x against exact integer weights runs there at two passes of it
-# (csrc/dq_tile_tf32.cuh), so it bounds the SIMT GEMV too; the TF32 flash
-# kernel runs three
+# (csrc/dq_tile_tf32.cuh); the TF32 flash and decode kernels run three
 H100_TF32_FLOPS = 495e12
 # name substring (lower case) -> (HBM GB/s, dense bf16 FLOP/s)
 _PEAKS = [("h100 80gb hbm3", H100_SXM)]

@@ -41,15 +41,18 @@ def launch_counters() -> list[tuple[str, Any, str]]:
             ("q8_0_matmul_tf32", qmm.q8_0_matmul, "tf32_launches"),
             ("q4_k_matmul_tf32", qmm.q4_k_matmul, "tf32_launches"),
             ("q6_k_matmul_tf32", qmm.q6_k_matmul, "tf32_launches"),
-            # the calls of q4_0, q8_0 and q4_k with f32 x at M <= 8 (the f32 GEMV)
+            # the calls with f32 x at M <= 8 (the f32 GEMV)
             ("q4_0_matmul_gemv_f32", qmm.q4_0_matmul, "gemv_f32_launches"),
             ("q8_0_matmul_gemv_f32", qmm.q8_0_matmul, "gemv_f32_launches"),
             ("q4_k_matmul_gemv_f32", qmm.q4_k_matmul, "gemv_f32_launches"),
+            ("q6_k_matmul_gemv_f32", qmm.q6_k_matmul, "gemv_f32_launches"),
             ("flash_attention", att.flash_attention, "launches"),
             # the calls of flash attention with f32 queries (the TF32 kernel)
             ("flash_attention_tf32", att.flash_attention, "tf32_launches"),
             ("decode_attention", att.decode_attention, "launches"),
             ("decode_attention_int8", att.decode_attention, "int8_launches"),
+            # the calls of decode attention with f32 queries on TF32 tensor cores
+            ("decode_attention_tf32", att.decode_attention, "tf32_launches"),
             # the calls of the two above that went through the tensor cores
             ("flash_attention_tc", att.flash_attention, "tc_launches"),
             ("decode_attention_tc", att.decode_attention, "tc_launches"),

@@ -231,16 +231,19 @@ def test_decode_int8_plain_matches_jax_kernel(B, S, Hq, Hkv, D, limits, cap, win
 
 
 def test_decode_route_is_fixed_by_dtype_and_group():
-    """bf16 queries with 2 <= G <= 8 take the tensor-core kernel at the
-    split of `decode_tc_split` (a multiple of 16, fixed by S); f32 queries,
-    G = 1 and G > 8 the split-S kernel. No route depends on the live
-    length."""
+    """At 2 <= G <= 8 bf16 queries take the tensor-core kernel and f32
+    queries over an f32 cache its TF32 policy, both at the split of
+    `decode_tc_split` (a multiple of 16, fixed by S); G = 1, G > 8 and f32
+    queries over an int8 cache the split-S kernel. No route depends on the
+    live length."""
     from gemma_tpu_torch.ops import attention as att
 
     for S in (1, 512, 4096, 8192):
         route, split = att.decode_route(torch.bfloat16, 8, S)
         assert route == "tc" and split % 16 == 0 and split == att.decode_tc_split(S)
         assert att.decode_route(torch.bfloat16, 2, S)[0] == "tc"
-        for q_dtype, G in ((torch.float32, 8), (torch.bfloat16, 1), (torch.bfloat16, 16)):
+        assert att.decode_route(torch.float32, 8, S) == ("tf32", att.decode_tc_split(S))
+        assert att.decode_route(torch.float32, 8, S, int8=True) == ("split", att.DECODE_SPLIT)
+        for q_dtype, G in ((torch.float32, 1), (torch.bfloat16, 1), (torch.bfloat16, 16)):
             assert att.decode_route(q_dtype, G, S) == ("split", att.DECODE_SPLIT)
     assert [att.decode_tc_split(S) for S in (512, 1024, 2048, 4096, 8192)] == [64, 64, 128, 256, 256]

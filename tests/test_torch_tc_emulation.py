@@ -8,14 +8,14 @@ card holds the kernels to.
   in the f32 rounding of each dequantized weight against its (d*sc, affine)
   split: 1e-5 of the output's scale, also against every format's Pallas
   kernel in interpret mode at M = 1.
-* The f32 GEMV of q4_0, q8_0 and q4_k (`dq_gemv_kernel` with `XF32`): x
-  split into three bf16 parts that sum to x exactly, three products a k16
-  step against the exact integer weights, q4_k's per-32 sums from the f32
-  x: within 1e-5 of the output's scale of the plain f32 version, of the
-  JAX package's f32 dispatch and of `_q4_0_kernel` / `_q8_0_kernel` /
-  `_q4_k_kernel` in interpret mode (f32 weights and x at M <= 8) on
-  bf16-exact f32 x. Two parts still hold 1e-5 on random data; one misses
-  it. Its plan keeps the blocks an SM that bf16 x reaches.
+* The f32 GEMV of every format (`dq_gemv_kernel` with `XF32`): x split
+  into three bf16 parts that sum to x exactly, three products a k16 step
+  against the exact integer weights, q4_k's per-32 sums from the f32 x:
+  within 1e-5 of the output's scale of the plain f32 version, of the JAX
+  package's f32 dispatch and of `_q4_0_kernel` / `_q8_0_kernel` /
+  `_q4_k_kernel` / `_q6_k_kernel` in interpret mode (f32 weights and x at
+  M <= 8) on bf16-exact f32 x. Two parts still hold 1e-5 on random data;
+  one misses it. Its plan keeps the blocks an SM that bf16 x reaches.
 * The f32 route's TF32 tile of every format (`csrc/dq_tile_tf32.cuh`): x
   split into two TF32 parts against the exact integer weights, each group
   scaled in f32, the K splits summed in order: within 1e-5 of the output's
@@ -33,6 +33,15 @@ card holds the kernels to.
   interpret mode (f32).
   Dropping any one of the four small-part products, or both small parts
   (1xTF32), misses that tolerance.
+* Decode attention's f32 route (`decode_tc_kernel` with `DecTf32`): the
+  same 3xTF32 products on the decode core's tiles, at 2 <= G <= 8, D = 128
+  and 256, limits 0, 1, 17 and 204, softcap, window and dead splits:
+  within 1e-4 of each row's scale of the plain version and of the JAX
+  kernel in interpret mode (f32); rows without a key exactly 0; dropping
+  any one small-part product misses it. `decode_route` sends f32 queries
+  over an f32 cache there at G = 2-8, and G = 1, G = 16 and f32 queries
+  over an int8 cache to the split-S kernel; on the CPU both ops run their
+  plain versions.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
@@ -203,7 +212,11 @@ GEMV_F32_CASES = [*(("q4_0", N, K, M) for N, K, M in ((40, 1056, 1), (19, 1056, 
                   *(("q4_k", N, K, M) for N, K, M in ((19, 1280, 1), (40, 1280, 2), (20, 2048, 7),
                                                       (19, 1280, 8), (48, 4096, 8))),
                   *(("q8_0", N, K, M) for N, K, M in ((40, 1056, 1), (19, 1056, 2), (40, 1056, 7),
-                                                      (20, 3072, 8), (24, 3072, 1)))]
+                                                      (20, 3072, 8), (24, 3072, 1))),
+                  # q6_k: a k16 step is one sub-block (its own scale group); K = 1280 at
+                  # M = 3 and 8 splits into three slices, 2048 at M = 8 into four
+                  *(("q6_k", N, K, M) for N, K, M in ((19, 1280, 1), (40, 2048, 2), (40, 1280, 3),
+                                                      (19, 2048, 8), (40, 1280, 8)))]
 
 
 @pytest.mark.parametrize("fmt,N,K,M", GEMV_F32_CASES)
@@ -218,14 +231,15 @@ def test_f32_gemv_emulation_matches_plain(fmt, N, K, M):
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("fmt", ["q4_0", "q4_k", "q8_0"])
+@pytest.mark.parametrize("fmt", ["q4_0", "q4_k", "q8_0", "q6_k"])
 @pytest.mark.parametrize("M", [1, 8])
 def test_f32_gemv_matches_the_jax_dispatch_and_kernels(fmt, M, monkeypatch):
     """On JAX-quantized weights (`from_jax` carries them exactly), the f32
     GEMV within 1e-5 of the output's scale of the JAX package's f32
     dispatch (`register_all`: f32 x against the f32 dequant), and on
-    bf16-exact f32 x of `_q4_0_kernel` / `_q4_k_kernel` / `_q8_0_kernel` in
-    interpret mode, which take f32 weights and x at M <= 8."""
+    bf16-exact f32 x of `_q4_0_kernel` / `_q4_k_kernel` / `_q8_0_kernel` /
+    `_q6_k_kernel` in interpret mode, which take f32 weights and x at
+    M <= 8."""
     monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
     rng = np.random.default_rng(18 + M)
     jqt = quantize_array(rng.normal(size=(256, 1024)).astype(np.float32) * 0.05, fmt)
@@ -258,13 +272,14 @@ def test_f32_gemv_passes():
                                      ("q4_0", 2048, 16384), ("q4_0", 256000, 2048), ("q4_k", 2048, 2048),
                                      ("q4_k", 256, 2048), ("q4_k", 32768, 2048), ("q4_k", 2048, 16384),
                                      ("q8_0", 12288, 3072), ("q8_0", 3072, 4096), ("q8_0", 49152, 3072),
-                                     ("q8_0", 3072, 24576), ("q8_0", 256000, 3072)])
+                                     ("q8_0", 3072, 24576), ("q8_0", 256000, 3072), ("q6_k", 256, 2048),
+                                     ("q6_k", 256000, 2048)])
 def test_f32_gemv_plan_keeps_the_blocks_an_sm(fmt, N, K, M):
-    """The f32 plan at the Gemma-2B q4_0 and q4_k_m shapes and the Gemma-7B
-    q8_0 ones: whole 32-blocks (superblocks) a slice, at most the policy's
-    slice, every K value in one slice, and a block's shared memory (three
-    bf16 planes of x) within the card's and reaching the blocks an SM that
-    bf16 x reaches."""
+    """The f32 plan at the Gemma-2B q4_0 and q4_k_m shapes (q6_k: attn_v and
+    the head) and the Gemma-7B q8_0 ones: whole 32-blocks (superblocks) a
+    slice, at most the policy's slice, every K value in one slice, and a
+    block's shared memory (three bf16 planes of x) within the card's and
+    reaching the blocks an SM that bf16 x reaches."""
     F = emu.GEMV_FORMATS[fmt]
     sl_max = emu.gemv_slice_max(M, fmt, emu.GV_F32_PARTS)
     sl, splits = emu.gemv_plan(M, N, K, gran=F.gran, target=F.target, slice_min=F.slice_min,
@@ -602,6 +617,84 @@ def test_flash_tf32_needs_every_pass(name, passes, holds):
     ref = flash_attention_plain(q, k, v, pos, lim)
     got = emu.flash_tf32(q, k, v, pos, lim, passes=passes)
     assert (attn_err(torch.from_numpy(got), ref, ATT_TF32_TOL)[1] <= 1.0) == holds
+
+
+DECODE_TF32_CASES = [
+    # B, S, Hq, Hkv, D, limits, softcap, window, split (None: the route's)
+    (1, 300, 8, 1, 128, [204], 0.0, 0, None),         # G = 8 (Gemma-2B's group), limit 204
+    (2, 256, 8, 2, 128, [1, 230], 30.0, 40, 32),      # G = 4, limit 1, softcap, window: dead splits
+    (1, 96, 8, 1, 256, [17], 50.0, 0, 16),            # Gemma-2B heads at D = 256, limit 17
+    (2, 200, 4, 2, 256, [204, 130], 0.0, 0, 128),     # G = 2, D = 256: two tiles a warp, one stage
+    (2, 160, 4, 2, 128, [0, 150], 0.0, 24, 64),       # a row without keys: exactly 0
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,limits,cap,window,split", DECODE_TF32_CASES)
+def test_decode_tf32_emulation_matches_plain(B, S, Hq, Hkv, D, limits, cap, window, split):
+    """The TF32 decode core within 1e-4 of each row's scale of the plain
+    f32 version; rows without a valid key exactly 0."""
+    q, k, v = _qkv32(B, 1, S, Hq, Hkv, D, seed=S + D)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ref = decode_attention_plain(q, k, v, lim, cap, window)
+    got = emu.decode_tf32(q, k, v, lim, cap, window, split)
+    assert got.shape == tuple(ref.shape) and np.isfinite(got).all()
+    assert attn_err(torch.from_numpy(got), ref, ATT_TF32_TOL)[1] <= 1.0
+    assert not got[np.asarray(limits) == 0].any()
+
+
+def test_decode_tf32_emulation_matches_the_jax_kernel(monkeypatch):
+    """f32 inputs through the JAX `decode_attention` (`_decode_kernel` in
+    interpret mode): G = 4 over per-row limits, softcap and window."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    q, k, v = _qkv32(2, 1, 160, 8, 2, 128, seed=20)
+    lim = np.asarray([77, 150], np.int32)
+    ref = jax_decode(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(lim), attn_softcap=30.0,
+                     window=48)
+    got = emu.decode_tf32(q, k, v, torch.from_numpy(lim), 30.0, 48)
+    assert attn_err(torch.from_numpy(got), torch.from_numpy(np.array(ref)), ATT_TF32_TOL)[1] <= 1.0
+
+
+@pytest.mark.parametrize("name,passes,holds", FLASH_TF32_ABLATIONS, ids=[a[0] for a in FLASH_TF32_ABLATIONS])
+def test_decode_tf32_needs_every_pass(name, passes, holds):
+    """At Gemma-2B's group (G = 8, D = 256) over 128 keys: the core's three
+    products a k8 step hold 1e-4 of each row's scale, and leaving out any
+    small-part product of either S or P . V misses it."""
+    q, k, v = _qkv32(1, 1, 128, 8, 1, 256, seed=2)
+    lim = torch.tensor([128], dtype=torch.int32)
+    ref = decode_attention_plain(q, k, v, lim)
+    got = emu.decode_tf32(q, k, v, lim, passes=passes)
+    assert (attn_err(torch.from_numpy(got), ref, ATT_TF32_TOL)[1] <= 1.0) == holds
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("S", [512, 4096])
+def test_decode_route_takes_tf32_at_the_kernels_groups(G, S):
+    """f32 queries over an f32 cache take the TF32 decode core at 2 <= G <=
+    8, at the bf16 core's split; G = 1, G = 16 and f32 queries over an int8
+    cache take the split-S kernel."""
+    from gemma_tpu_torch.ops import attention as att
+
+    want = ("tf32", decode_tc_split(S)) if 2 <= G <= 8 else ("split", att.DECODE_SPLIT)
+    assert att.decode_route(torch.float32, G, S) == want
+    assert att.decode_route(torch.float32, G, S, int8=True) == ("split", att.DECODE_SPLIT)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU, f32 decode attention at G = 8 and q6_k's f32 matmul at
+    M <= 8 return their plain versions and count no launch."""
+    from gemma_tpu_torch.ops import attention as att
+    from gemma_tpu_torch.ops import quant_matmul as qmm
+
+    q, k, v = _qkv32(1, 1, 64, 8, 1, 128, seed=3)
+    lim = torch.tensor([40], dtype=torch.int32)
+    before = (att.decode_attention.launches, att.decode_attention.tf32_launches, qmm.q6_k_matmul.launches,
+              qmm.q6_k_matmul.gemv_f32_launches)
+    assert torch.equal(att.decode_attention(q, k, v, lim), decode_attention_plain(q, k, v, lim))
+    gen, qt = _case("q6_k", 20, 512, seed=4)
+    x = torch.randn(8, 512, generator=gen)
+    assert torch.equal(qmm.q6_k_matmul(x, qt), PLAIN["q6_k"](x, qt))
+    assert before == (att.decode_attention.launches, att.decode_attention.tf32_launches,
+                      qmm.q6_k_matmul.launches, qmm.q6_k_matmul.gemv_f32_launches)
 
 
 DECODE_EMU_CASES = [

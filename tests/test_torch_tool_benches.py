@@ -251,16 +251,17 @@ def test_probe_variants_patches_apply_to_the_sources():
 def test_probe_mutants_patch_the_attention_kernels_only():
     """Each planted fault of `probe_variants mutants` finds its text once in
     one attention kernel's source (the tensor-core decode core that dense
-    and paged decode share, or the flash kernel), and none of the timing
-    variants touches those sources."""
+    and paged decode share, the flash kernel, or the 3xTF32 product the
+    f32 flash and decode kernels share), and none of the timing variants
+    touches those sources."""
     from gemma_tpu_torch.tools import probe_variants as pv
 
+    sources = {"decode_tc.cuh", "flash_attention.cu", "attn_tc.cuh"}
     assert set(pv.MUTANTS) & set(pv.VARIANTS) == set()
     for name in pv.MUTANTS:
         changed = pv.patched_sources(name)
-        assert len(changed) == 1 and set(changed) <= {"decode_tc.cuh", "flash_attention.cu"}
-    assert {f for name in pv.MUTANTS for f in pv.patched_sources(name)} == {
-        "decode_tc.cuh", "flash_attention.cu"}
+        assert len(changed) == 1 and set(changed) <= sources
+    assert {f for name in pv.MUTANTS for f in pv.patched_sources(name)} == sources
 
 
 def test_attn_err_holds_each_row_to_its_own_scale():
