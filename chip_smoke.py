@@ -11,7 +11,9 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    tile at M = 17, 64 and 203, its GEMV at M = 1 and the serving step's
    M = 8), the Gemma-7B
    shapes of the q8_0 path (its tiles and serving GEMV likewise; attention
-   at 16 heads, batch 1 and 8), and the shapes of
+   at 16 heads on the core for one query row, csrc/decode_g1.cuh, in every
+   (q, cache) arm at batch 1, 8 rows and S = 4096, and through 64-key
+   pages, equal bit for bit to the dense core), and the shapes of
    8-slot serving (the paged kernel and both int8 arms), and attention
    over long caches (S = 4096: flash at 2048 tokens from position 0 and at
    the last 512-token chunk, decode and paged decode at limits 2048 and
@@ -57,9 +59,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    Gemma-2B q4_0 width over four caches: dense, dense int8, paged, and
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
-   shuffled and admitted every 4 steps, which must give the same streams;
-   all with exact launch counts (every bf16 paged decode call on the
-   tensor cores); then speculative serving of the same requests (Gemma-2B,
+   shuffled and admitted every 4 steps, which must give the same streams,
+   and over a paged bf16 cache of 64-token pages (streams compared with the
+   dense run's); all with exact launch counts (every paged decode call on
+   the tensor cores, at G = 1 on its core); then speculative serving of the same requests (Gemma-2B,
    dense bf16 and int8, adaptive k; k = 7 in admission order and shuffled,
    which must give the same streams), each stream teacher-forced through
    plain decode against phase 4's delta, and a batched block under
@@ -80,7 +83,7 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    D = 128; the f32-q decode attention at limit 204 and S = 4096, timed
    (Gemma-2B's heads on the tensor-core decode core in 3xTF32, also at
    limit 1, limit 0, softcap, window, G = 2 and 4, D = 128; Gemma-7B's
-   on the split-S kernel); every format's f32 GEMV at M = 1 and 8 on its
+   on the G = 1 core); every format's f32 GEMV at M = 1 and 8 on its
    recipe's rows (the tensor-core GEMV with x in three bf16 parts), timed
    with bound and library call; the f32 decode step of Gemma-2B q4_0 and q4_k_m and
    Gemma-7B q8_0 at 1 and 8 rows against the plain versions;
@@ -122,7 +125,7 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    with `--tp-rank`, each rank drawing only its shard on the card):
    Gemma-7B q8_0 and Gemma-2B q4_0 in bf16 (first-step logits within 2e-2
    of their scale of the single-device Engine's; Gemma-2B also over paged
-   int8) and f32 (greedy streams equal), at tp = 2 also 8 requests through
+   int8) and f32 (16-token greedy streams equal), at tp = 2 also 8 requests through
    `serve()` on a paged int8 TPEngine in f32 and TINY_MHA_CONFIG q4_k_m,
    with exact launches, the collectives a decode step by axis and the wall
    ms a step; 10c: NCCL, one rank a card, where there are 2 or more cards
@@ -200,6 +203,12 @@ KERNELS = {
                          "gemma_tpu/ops/quant_matmul.py:162 _q6_k_kernel (f32 x, M > 8)"),
     "flash_attention_tf32": ("gemma_tpu_torch/csrc/flash_attention.cu",
                              "gemma_tpu/ops/attention.py:94 _flash_kernel (f32 queries)"),
+    # decode and paged decode attention at G = 1 (Gemma-7B), every (q, cache)
+    # arm: the core built for one query row
+    "decode_attention_g1": ("gemma_tpu_torch/csrc/decode_g1.cuh",
+                            "gemma_tpu/ops/attention.py:273 _decode_kernel (G = 1)"),
+    "paged_attention_g1": ("gemma_tpu_torch/csrc/decode_g1.cuh",
+                           "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (G = 1)"),
     # decode attention with f32 queries over an f32 cache at 2 <= G <= 8:
     # the tensor-core decode core's TF32 policy
     "decode_attention_tf32": ("gemma_tpu_torch/csrc/decode_tc.cuh",
@@ -523,31 +532,32 @@ ATT_TOL = 2e-2
 HEAD_DIM = 256  # Gemma-2B's and Gemma-7B's
 
 
-def held_attention(torch, kind, desc, kernel, plain, library=None, nbytes=0, flops=0):
-    """kernel() against plain() within ATT_TOL of each row's scale, with
+def held_attention(torch, kind, desc, kernel, plain, library=None, nbytes=0, flops=0, tol=ATT_TOL,
+                   peak=BF16_FLOPS):
+    """kernel() against plain() within `tol` of each row's scale, with
     their device times; given `library` (a timing function), also its ms
-    and the bound of nbytes and flops at the bf16 rate. Returns (reading,
-    kernel output)."""
+    and the bound of nbytes and flops at `peak` (the bf16 rate). Returns
+    (reading, kernel output)."""
     from gemma_tpu_torch.tools._timing import attn_err
 
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err, ratio, lo, hi = attn_err(got, ref, ATT_TOL)
+    err, ratio, lo, hi = attn_err(got, ref, tol)
     r = {"max_abs_err": err, "ms": device_ms(torch, kernel),
          "plain_ms": device_ms(torch, plain, launches=1)}
     per_call = call_ms(torch, kernel)
-    line = (f"{kind} {desc}: max|diff|={err:.3e}, worst |diff| / ({ATT_TOL:.0e} x row scale) "
+    line = (f"{kind} {desc}: max|diff|={err:.3e}, worst |diff| / ({tol:.0e} x row scale) "
             f"{ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms: kernel "
             f"{r['ms']:.4f} plain {r['plain_ms']:.4f}")
     if library is not None:
-        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, peak)
         r["library_ms"] = library()
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         line += (f" library (scaled_dot_product_attention, boolean mask) "
                  f"{lib}; bound {r['bound_ms']:.6f} ({r['bound_by']})")
     info("kernel", f"{line}; kernel per back-to-back call {per_call:.4f} ms")
     require(bool(torch.isfinite(got).all()) and ratio <= 1.0,
-            f"{kind} {desc}: |diff| {ratio:.3f} x {ATT_TOL} of its row's scale")
+            f"{kind} {desc}: |diff| {ratio:.3f} x {tol} of its row's scale")
     return r, got
 
 
@@ -634,24 +644,9 @@ def check_kernels(torch, dev) -> dict[str, dict]:
                     lambda: None, *decode_cost([limit], Hq, Hkv, 2 * (D + 4)))
         worst = max(worst, r["max_abs_err"])
     del kl, vl, kl8, vl8
-    # Gemma-7B's heads (Hq = Hkv = 16: one query head per KV head), the
-    # shapes of phases 4c (batch 1, kv_limit 204) and 6b (the 8 serving rows)
-    H7 = 16
-    k7, v7 = kv(SERVE_SLOTS, H7)
-    for limits in ([PROMPT_LEN + 1], SERVE_LIMITS):
-        B = len(limits)
-        q = (torch.randn(B, 1, H7, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
-        k, v = k7[:B], v7[:B]
-        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
-        r, _ = held("decode_attention", f"Gemma-7B heads Hq=Hkv={H7} B={B} S={S} limits={limits} "
-                                        f"({route(H7, H7, S)})",
-                    lambda: att.decode_attention(q, k, v, lim),
-                    lambda: att.decode_attention_plain(q, k, v, lim),
-                    lambda: sdpa_ms(torch, q, k, v, key[None, None] < lim[:, None, None]),
-                    *decode_cost(limits, H7, H7))
-        worst = max(worst, r["max_abs_err"])
     results["decode_attention"] = {"max_abs_err": worst, **rep}
 
+    H7 = 16  # Gemma-7B's heads (Hq = Hkv = 16: one query head per KV head)
     T = PROMPT_LEN
     worst = 0.0
     rep = None
@@ -697,6 +692,125 @@ def check_kernels(torch, dev) -> dict[str, dict]:
             rep = {**r, "shape": f"T={T} S={S} Hq={Hq} Hkv={Hkv} D={D}"}
     results["flash_attention"] = {"max_abs_err": worst, **rep}
     return results
+
+
+# Gemma-7B's attention (Hq = Hkv = 16: G = 1) on the core built for one
+# query row (csrc/decode_g1.cuh), phase 3: (label, S, kv_limits) at batch 1
+# and kv_limit 204 (phase 4c's first decode step), the 8 serving rows (phase
+# 6b) and a 4096-slot cache at limits 2048 and 4096; in each (q, cache) arm
+# (name, q dtype, int8 cache, tolerance of each row's scale): bf16 and int8
+# round p (p * vs) to bf16 against a warp's running max, f32 over f32
+# rounds nothing, f32 over int8 keeps bf16(p * vs)
+G1_HEADS = 16
+G1_SHAPES = (("B=1", MAX_SEQ_LEN, [PROMPT_LEN + 1]), (f"{SERVE_SLOTS} rows", MAX_SEQ_LEN, SERVE_LIMITS),
+             ("S=4096", LONG_SEQ_LEN, [LONG_SEQ_LEN // 2]), ("S=4096", LONG_SEQ_LEN, [LONG_SEQ_LEN]))
+G1_ARMS = (("bf16", "bfloat16", False, ATT_TOL), ("int8", "bfloat16", True, ATT_TOL),
+           ("f32", "float32", False, 1e-4), ("f32 q int8", "float32", True, ATT_TOL))
+
+
+def g1_once(torch, what: str, call, route: str, counter) -> None:
+    """One call of a G = 1 wrapper (`counter`: decode_attention or
+    paged_decode_attention) must take route "g1" and count one launch in
+    `g1_launches` and none on the other one-launch cores."""
+    before = (counter.g1_launches, counter.tc_launches, getattr(counter, "tf32_launches", 0))
+    call()
+    after = (counter.g1_launches, counter.tc_launches, getattr(counter, "tf32_launches", 0))
+    require(route == "g1" and after == (before[0] + 1, before[1], before[2]),
+            f"{what}: route {route}, launches (G = 1, tensor cores, TF32) {before} -> {after}")
+
+
+def check_g1(torch, dev) -> dict[str, dict]:
+    """Phase 3: decode and paged decode attention at G = 1 on the core for
+    one query row, at Gemma-7B's heads: G1_SHAPES in every arm of G1_ARMS,
+    each against its plain version at its tolerance of each row's scale,
+    one call counted on the core (`g1_once`), timed warm with its plain
+    version, SDPA (bf16 and f32 arms; none takes int8) and its bound (the
+    live keys' K and V, int8 with their scales, q, out and the limits over
+    HBM bandwidth against 4 Hq D flops a key at the bf16 or TF32 rate);
+    then paged attention over the 8 serving rows of 64-key pages (a 65-page
+    pool) in every arm, timed, equal bit for bit to decode attention on the
+    gathered rows. Returns the readings of `decode_attention_g1` (bf16, B =
+    1) and `paged_attention_g1` (bf16 pages), every reading under
+    "readings"."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+    from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    H, D = G1_HEADS, HEAD_DIM
+    readings = {"decode_attention_g1": {}, "paged_attention_g1": {}}
+
+    def size(dtype):  # bytes of an element
+        return 4 if dtype == torch.float32 else 2
+
+    def kv_bytes(dtype, int8):
+        return 2 * (D + 4) if int8 else 2 * D * size(dtype)
+
+    for label, S, limits in G1_SHAPES:
+        B = len(limits)
+        q32, k32, v32 = (torch.randn(*shape, generator=gen, device=dev) * 0.3
+                         for shape in ((B, 1, H, D), (B, H, S, D), (B, H, S, D)))
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        valid = torch.arange(S, device=dev)[None, None] < lim[:, None, None]
+        for arm, dtype_name, int8, tol in G1_ARMS:
+            dtype = getattr(torch, dtype_name)
+            q = q32.to(dtype)
+            if int8:
+                (k, ks), (v, vs) = quantize_kv(k32.to(torch.bfloat16)), quantize_kv(v32.to(torch.bfloat16))
+            else:
+                k, v, ks, vs = k32.to(dtype), v32.to(dtype), None, None
+            route, split = att.decode_route(dtype, 1, S, int8)
+            desc = f"Gemma-7B heads Hq=Hkv={H} {label} S={S} limits={limits} {arm} ({route}, {split} keys a block)"
+            g1_once(torch, f"decode_attention {desc}", lambda: att.decode_attention(q, k, v, lim, k_scale=ks,
+                                                                                     v_scale=vs),
+                    route, att.decode_attention)
+            nbytes, flops = decode_cost(limits, H, H, kv_bytes(dtype, int8))
+            nbytes += 2 * B * H * D * (size(dtype) - 2)  # q and out in f32
+            r, _ = held_attention(
+                torch, "decode_attention_g1", desc,
+                lambda: att.decode_attention(q, k, v, lim, k_scale=ks, v_scale=vs),
+                lambda: att.decode_attention_plain(q, k, v, lim, k_scale=ks, v_scale=vs),
+                (lambda: None) if int8 else (lambda: sdpa_ms(torch, q, k, v, valid)), nbytes, flops, tol,
+                BF16_FLOPS if dtype == torch.bfloat16 else H100_TF32_FLOPS)
+            readings["decode_attention_g1"][f"{label} S={S} limits={limits} {arm}"] = {
+                **r, "shape": f"B={B} Hq=Hkv={H} D={D} S={S} kv_limits={limits} {arm}"}
+            del k, v, ks, vs
+        del q32, k32, v32
+    S, pool = MAX_SEQ_LEN, 65
+    for arm, dtype_name, int8, tol in G1_ARMS:
+        dtype = getattr(torch, dtype_name)
+        q, cache, lim = paged_inputs(gen, dev, SERVE_SLOTS, H, H, D, PAGE, SERVE_LIMITS, pool, S, int8,
+                                     torch.bfloat16 if int8 else dtype, seed=8)
+        q = q.to(dtype)
+        route, split = pat.paged_route(dtype, 1, PAGE, S)
+        desc = (f"Gemma-7B heads Hq=Hkv={H} {SERVE_SLOTS} rows ps={PAGE} pool={pool} limits={SERVE_LIMITS} "
+                f"{arm} ({route}, {split} keys a block; no single library call)")
+        g1_once(torch, f"paged_attention {desc}", lambda: pat.paged_decode_attention(q, cache, 0, lim),
+                route, pat.paged_decode_attention)
+        nbytes, flops = decode_cost(SERVE_LIMITS, H, H, kv_bytes(dtype, int8))
+        nbytes += 2 * SERVE_SLOTS * H * D * (size(dtype) - 2) + sum(-(-n // PAGE) for n in SERVE_LIMITS) * 4
+        r, got = held_attention(
+            torch, "paged_attention_g1", desc, lambda: pat.paged_decode_attention(q, cache, 0, lim),
+            lambda: pat.paged_decode_attention_plain(q, cache, 0, lim), lambda: None, nbytes, flops, tol,
+            BF16_FLOPS if dtype == torch.bfloat16 else H100_TF32_FLOPS)
+        k, v, ks, vs = (None if x is None else x.contiguous() for x in cache.layer_kv(0))
+        same = torch.equal(got, att.decode_attention(q, k, v, lim, k_scale=ks, v_scale=vs))
+        info("kernel", f"paged_attention_g1 {arm}: equal bit for bit to decode_attention on the gathered "
+                       f"rows: {same}")
+        require(same, f"paged_attention_g1 {arm}: differs from decode_attention on the gathered rows")
+        readings["paged_attention_g1"][arm] = {**r, "shape": f"B={SERVE_SLOTS} Hq=Hkv={H} D={D} ps={PAGE} "
+                                                             f"limits={SERVE_LIMITS} {arm}"}
+        del q, cache, k, v, ks, vs
+    out = {}
+    for name, rep_key in (("decode_attention_g1", f"B=1 S={MAX_SEQ_LEN} limits={[PROMPT_LEN + 1]} bf16"),
+                          ("paged_attention_g1", "bf16")):
+        rows = readings[name]
+        out[name] = {**rows[rep_key], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                     "readings": rows}
+    return out
 
 
 def check_verify_attention(torch, dev) -> dict[str, dict]:
@@ -817,6 +931,10 @@ def check_edge_cases(torch, dev) -> None:
         ("Gemma-7B heads, 8 rows", SERVE_SLOTS, 16, 16, 16, 256, MAX_SEQ_LEN,
          torch.arange(16)[None] + torch.tensor([max(0, n - 16) for n in SERVE_LIMITS])[:, None],
          SERVE_LIMITS, SERVE_LIMITS),
+        # G = 1 at D = 128: decode rows of limit 0 (exactly 0) and 1
+        ("MHA D=128", 3, 16, 4, 4, 128, 200,
+         torch.stack([torch.arange(16), torch.arange(16) + 20, torch.arange(16) + 100]), [16, 36, 116],
+         [0, 1, 150]),
     ]
     for name, B, T, Hq, Hkv, D, S, positions, limits, dlimits in attn_cases:
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
@@ -841,7 +959,7 @@ def check_edge_cases(torch, dev) -> None:
                 worst[f"decode {name}"] = max(worst.get(f"decode {name}", 0.0), ratio)
     torch.cuda.synchronize()
     info("kernel", "edge cases (other M, ragged N/K/T, f32, GQA D=128, batch 2, Gemma-7B heads "
-                   "at batch 1 and 8) "
+                   "at batch 1 and 8, G = 1 at D = 128 with decode limits 0 and 1) "
                    "within tolerance; worst max|diff| / tol (attention: of the row's scale): "
                    + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
 
@@ -947,13 +1065,16 @@ def check_serving_edge_cases(torch, dev) -> None:
     off the serving shapes. bf16 queries take the tensor-core route (GQA
     with head_dim 128, softcap with window, 16-, 64- and 256-key pages:
     four pages a block, one, a quarter of one) and equal `decode_attention`
-    on the gathered rows bit for bit; f32 queries the split-S route. f32
-    queries over f32 pages round nothing: tolerance 1e-4. Every int8 case
+    on the gathered rows bit for bit; f32 queries the split-S route; G = 1
+    (D = 128 and 16-key pages with softcap and window; f32 pages of 8 keys)
+    the core for one query row, equal bit for bit to `decode_attention` on
+    the gathered rows. f32 queries over f32 pages round nothing: tolerance
+    1e-4. Every int8 case
     keeps the bf16 rounding of p * vs (against a local max in the kernel,
     the row max in the plain version), and bf16 queries round p: tolerance
     2e-2. Each of the row's scale (`_timing.attn_err`). Then no fallback: a
     page table that is not int32 raises, and so does the tensor-core entry
-    at a page size off 16."""
+    at a page size off 16, and the G = 1 entry at G = 8."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.paged_attention as pat
     from gemma_tpu_torch.kernels import build
@@ -969,6 +1090,8 @@ def check_serving_edge_cases(torch, dev) -> None:
         ("softcap+window", 8, 1, 256, 64, torch.bfloat16, 50.0, 128),
         ("ps=16", 8, 1, 256, 16, torch.bfloat16, 0.0, 0),
         ("ps=256", 8, 1, 256, 256, torch.bfloat16, 30.0, 100),
+        ("G=1 D=128 ps=16", 4, 4, 128, 16, torch.bfloat16, 30.0, 100),
+        ("G=1 f32 ps=8", 2, 2, 256, 8, torch.float32, 0.0, 0),
     ]
     limits = [1, 16, 17, 255, 256, 257, 400, MAX_SEQ_LEN]
     for name, Hq, Hkv, D, ps, dtype, cap, window in cases:
@@ -980,18 +1103,19 @@ def check_serving_edge_cases(torch, dev) -> None:
                 q = q.to(dtype)  # f32 queries over int8 pages too
             tol = 1e-4 if dtype == torch.float32 and not quantized else 2e-2
             route = pat.paged_route(q.dtype, Hq // Hkv, ps, MAX_SEQ_LEN)[0]
-            tc_before = pat.paged_decode_attention.tc_launches
+            before = (pat.paged_decode_attention.tc_launches, pat.paged_decode_attention.g1_launches)
             got = pat.paged_decode_attention(q, cache, 0, lim, cap, window)
             arm = f"paged{' int8' if quantized else ''}"
-            require(route == ("tc" if dtype == torch.bfloat16 else "split")
-                    and pat.paged_decode_attention.tc_launches - tc_before == (route == "tc"),
-                    f"{arm} {name}: took the {route} route")
+            want = "g1" if Hq == Hkv else "tc" if dtype == torch.bfloat16 else "split"
+            require(route == want and (pat.paged_decode_attention.tc_launches - before[0],
+                                       pat.paged_decode_attention.g1_launches - before[1])
+                    == (route == "tc", route == "g1"), f"{arm} {name}: took the {route} route")
             ref = pat.paged_decode_attention_plain(q, cache, 0, lim, cap, window)
             ratio = attn_err(got, ref, tol)[1]
             require(ratio <= 1.0, f"{arm} {name}: |diff| {ratio:.3f} x {tol} of its row's scale")
             worst[f"{arm} {route}"] = max(worst.get(f"{arm} {route}", 0.0), ratio)
             k, v, ks, vs = (None if x is None else x.contiguous() for x in cache.layer_kv(0))
-            if route == "tc":  # the dense kernel on the gathered rows, bit for bit
+            if route != "split":  # the dense kernel on the gathered rows, bit for bit
                 dense = att.decode_attention(q, k, v, lim, cap, window, ks, vs)
                 require(torch.equal(got, dense), f"{arm} {name}: differs from decode_attention on "
                                                  "the gathered rows")
@@ -1023,11 +1147,21 @@ def check_serving_edge_cases(torch, dev) -> None:
         build.check(err, "paged attention (tc) at page size 8")
     except build.KernelLaunchError as e:
         refused.append(str(e))
-    require(len(refused) == 2, f"paged attention: a bad call did not raise ({refused})")
+    err = build.load().gt_paged_attention_g1(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None, table.data_ptr(), lim.data_ptr(),
+        torch.empty_like(q).data_ptr(), work.data_ptr(), tickets.data_ptr(), 2, 8, 1, PAGE,
+        table.shape[1], 256, build.DTYPE_CODES[torch.bfloat16], build.DTYPE_CODES[torch.bfloat16], 32,
+        0, 0.0, build.stream_ptr(dev))
+    try:
+        build.check(err, "paged attention (G = 1 core) at G = 8")
+    except build.KernelLaunchError as e:
+        refused.append(str(e))
+    require(len(refused) == 3, f"paged attention: a bad call did not raise ({refused})")
     torch.cuda.synchronize()
-    info("kernel", "serving edge cases (f32, GQA D=128, softcap+window, ps 16 and 256, limits "
-                   f"{limits}; bf16 on the tensor cores, equal bit for bit to decode_attention on "
-                   "the gathered rows) within tolerance; worst max|diff| / (tol x row scale): "
+    info("kernel", "serving edge cases (f32, GQA D=128, softcap+window, ps 16 and 256, G = 1 at D = "
+                   f"128 and ps 8 and 16, limits {limits}; bf16 on the tensor cores and G = 1 on its "
+                   "core, equal bit for bit to decode_attention on the gathered rows) within "
+                   "tolerance; worst max|diff| / (tol x row scale): "
                    + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
                    + "; refused: " + "; ".join(refused))
 
@@ -1081,13 +1215,16 @@ def prefill_profile(torch, eng, prompt: list[int], runs: int = 5) -> tuple[float
                                       f"{profiler_coverage(prof, before)}")
 
 
-def decode_profile(torch, eng, cache, last_tok, steps: int = 8):
+def decode_profile(torch, eng, cache, last_tok, steps: int = 8, no_combine: bool = True):
     """Device time of greedy decode steps from torch.profiler, from the
     last token (an int at batch 1, or a tensor of each row's): (busy ms per
     step, the five largest kernels' ms per step and the profiler's
     coverage, and the device kernels a step beside the quantized-matmul
     wrapper launches a step: a K split summed in a second launch shows as
-    `dq_split_sum_kernel`, a GEMV off the tensor cores as a SIMT kernel)."""
+    `dq_split_sum_kernel`, a GEMV off the tensor cores as a SIMT kernel).
+    Every decode route of Gemma-2B and Gemma-7B merges its splits in its
+    one launch: with `no_combine`, a split-S combine
+    (`attend_combine_kernel`) fails."""
     from torch.profiler import ProfilerActivity, profile
 
     tok = last_tok if torch.is_tensor(last_tok) else torch.tensor([last_tok], device=eng.device)
@@ -1107,8 +1244,11 @@ def decode_profile(torch, eng, cache, last_tok, steps: int = 8):
     kernels = sum(e.count for e in events if getattr(e, "self_device_time_total", 0) > 0) / steps
     split_sums = sum(e.count for e in events if "dq_split_sum_kernel" in e.key) / steps
     simt = sum(e.count for e in events if re.search(r"q[468]_[0k]_gemv_kernel", e.key)) / steps
+    combines = sum(e.count for e in events if "attend_combine_kernel" in e.key) / steps
+    require(not (no_combine and combines), f"decode steps launched {combines:g} attention combines a step")
     counted = (f"device kernels a step {kernels:g} (quantized-matmul wrapper launches {wrapper:g}, "
-               f"second-launch split sums {split_sums:g}, SIMT GEMVs {simt:g})")
+               f"second-launch split sums {split_sums:g}, SIMT GEMVs {simt:g}, attention combines "
+               f"{combines:g})")
     return busy, f"{top}; {profiler_coverage(prof, before)}; {counted}"
 
 
@@ -1152,12 +1292,12 @@ def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
     counts.update({name: n * forwards for name, n in per_forward.items()})
     counts["flash_attention"] = counts["flash_attention_tc"] = cfg.n_layers * prefills
     counts[decode_kernel] = cfg.n_layers * decode_steps
-    # bf16 activations: dense and paged decode take the tensor cores where
-    # their routes say so
-    if decode_kernel.startswith("decode_attention") and decode_route(cfg)[0] == "tc":
-        counts["decode_attention_tc"] = cfg.n_layers * decode_steps
-    if decode_kernel.startswith("paged_attention") and decode_route(cfg, paged=True)[0] == "tc":
-        counts["paged_attention_tc"] = cfg.n_layers * decode_steps
+    # bf16 activations: dense and paged decode take the tensor cores or, at
+    # G = 1, the core for one query row, where their routes say so
+    for op in ("decode_attention", "paged_attention"):
+        route = decode_route(cfg, paged=op == "paged_attention")[0]
+        if decode_kernel.startswith(op) and route in ("tc", "g1"):
+            counts[f"{op}_{route}"] = cfg.n_layers * decode_steps
     return counts
 
 
@@ -1403,10 +1543,11 @@ SERVE_RUNS = (
 # phase 6b's runs: dense bf16, then the same requests in a shuffled order
 # admitted every 4 decode steps, so each request decodes in another slot
 # beside other requests; rows are computed independently, so every stream
-# must equal the first run's
+# must equal the first run's; then paged bf16 (64-token pages)
 SERVE_7B_RUNS = (
     SERVE_RUNS[0],
     ("dense bf16, shuffled, block 4", {"block": 4, "shuffle_seed": 1}, "decode_attention"),
+    SERVE_RUNS[2],
 )
 
 
@@ -1462,10 +1603,11 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
                     f"wall {wall:.3f} s, decode steps {st['decode_steps']}, tokens discarded "
                     f"{st['tokens_discarded']}, admission forwards {prefills}; launches {counts}")
         require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
-        if decode_kernel.startswith("paged_attention"):  # every paged decode call on the tensor cores
-            require(counts["paged_attention_tc"] == counts[decode_kernel] > 0,
-                    f"{phase}: {counts['paged_attention_tc']} of {counts[decode_kernel]} paged "
-                    "decode calls took the tensor cores")
+        # every decode call on its route's one-launch core: the tensor cores, or at G = 1 its own
+        op = "paged_attention" if decode_kernel.startswith("paged_attention") else "decode_attention"
+        core = f"{op}_{decode_route(cfg, paged=op == 'paged_attention')[0]}"
+        require(counts.get(core, 0) == counts[decode_kernel] > 0,
+                f"{phase}: {counts.get(core, 0)} of {counts[decode_kernel]} decode calls took {core}")
         streams[name] = {r.id: r.tokens for r in sched.finished}
         counts_by_run[name] = counts
         rates[name] = (st["total_tokens"] / wall, st["p50_ttft_s"], st["p99_ttft_s"])
@@ -1477,9 +1619,10 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
     firsts = {name: sum(s[i][0] == dense[i][0] for i in dense) / len(dense)
               for name, s in streams.items()}
     if "paged bf16" in streams:
-        same = sum(streams["paged bf16"][i] == dense[i] for i in dense) / len(dense)
-        info("serve", f"share of first tokens equal to the dense bf16 run's: {firsts}; share of "
-                      f"paged bf16 streams equal to the dense bf16 streams: {same:.3f}")
+        same = sum(streams["paged bf16"][i] == dense[i] for i in dense)
+        info("serve", f"{model_name} {fmt}: share of first tokens equal to the dense bf16 run's: "
+                      f"{firsts}; {same} of {len(dense)} paged bf16 streams equal to the dense bf16 "
+                      f"streams ({same / len(dense):.3f})")
     require(all(v == 1.0 for v in firsts.values()), f"serve: first tokens differ across runs {firsts}")
     for name, options, _ in runs:
         if "shuffle_seed" in options:
@@ -1704,10 +1847,13 @@ def serving_profile(torch, cfg, model, card: str, label: str) -> None:
                          for e in prof.key_averages()), reverse=True)
     busy = sum(ms for ms, _ in per_kernel) / 1e3
     require(busy > 0, "the profiled serving run recorded no device time")
+    combines = sum(e.count for e in prof.key_averages() if "attend_combine_kernel" in e.key)
+    require(combines == 0, f"serve {label}: {combines} split-S attention combines launched")
     steps = sched.stats()["decode_steps"]
     info(f"serve {label} dense bf16 profiled", f"{len(reqs)} requests on {card}: wall {wall:.3f} s, "
                                       f"device busy {busy:.3f} s, "
-                                      f"idle share {1 - busy / wall:.3f}; {steps} decode steps; "
+                                      f"idle share {1 - busy / wall:.3f}; {steps} decode steps, "
+                                      f"{combines} attention combines; "
                                       f"{profiler_coverage(prof, before)}; "
                                       "device s by kernel: " + "; ".join(
                                           f"{name[:48]} {ms / 1e3:.3f}" for ms, name in per_kernel[:6]))
@@ -2313,8 +2459,8 @@ def check_eval_routes(torch, dev) -> dict[str, dict]:
     f32 GEMV (`check_gemv_f32`). The matmuls' f32 route at M > 8, the TF32
     tile, is phase 3's (`check_tf32_routes`). Returns readings: the TF32
     flash kernel's as `flash_attention_tf32`, the TF32 decode core's as
-    `decode_attention_tf32`, the split-S kernel's with f32 q under
-    `decode_attention` ("f32"), the f32 GEMV's as `<format>_matmul_gemv_f32`."""
+    `decode_attention_tf32`, the G = 1 core's with f32 q under
+    `decode_attention_g1` ("f32"), the f32 GEMV's as `<format>_matmul_gemv_f32`."""
     import gemma_tpu_torch.ops.attention as att
     from gemma_tpu_torch.tools import _timing as T
     from gemma_tpu_torch.tools import tc_emulation as emu
@@ -2440,37 +2586,38 @@ def check_f32_decode(torch, dev, gen) -> dict[str, dict]:
     scaled_dot_product_attention, with its bound: the live keys' f32 K and
     V, q and out over HBM bandwidth against the function's flops at the
     TF32 rate. Gemma-2B's G = 8 takes the tensor-core core's TF32 policy,
-    one launch counted in `tf32_launches` a call; Gemma-7B's G = 1 the
-    split-S kernel and its combine. Then the TF32 core at F32_DECODE_EDGES.
-    Returns readings: the TF32 core's as `decode_attention_tf32` (its S =
-    MAX_SEQ_LEN row, every row under "rows"), the split-S kernel's under
-    `decode_attention` ("f32")."""
+    one launch counted in `tf32_launches` a call; Gemma-7B's G = 1 the core
+    for one query row, one launch counted in `g1_launches`. Then the TF32
+    core at F32_DECODE_EDGES. Returns readings: the TF32 core's as
+    `decode_attention_tf32` (its S = MAX_SEQ_LEN row, every row under
+    "rows"), the G = 1 core's under `decode_attention_g1` ("f32")."""
     import gemma_tpu_torch.ops.attention as att
     from gemma_tpu_torch.tools._timing import attn_err
     from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
 
-    rows: dict[str, list] = {"tf32": [], "split": []}
+    rows: dict[str, list] = {"tf32": [], "g1": []}
     D = HEAD_DIM
     for heads, hq, hkv, S, limit in F32_DECODE_SHAPES:
         q = torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3
         k, v = (torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
         lim = torch.tensor([limit], dtype=torch.int32, device=dev)
         route, split = att.decode_route(torch.float32, hq // hkv, S)
-        before = (att.decode_attention.tc_launches, att.decode_attention.tf32_launches)
+        op = att.decode_attention
+        before = (op.tc_launches, op.tf32_launches, op.g1_launches)
         got = att.decode_attention(q, k, v, lim)
         ref = att.decode_attention_plain(q, k, v, lim)
         torch.cuda.synchronize()
         err, ratio, lo, hi = attn_err(got, ref, F32_DECODE_TOL)
-        launched = (att.decode_attention.tc_launches - before[0], att.decode_attention.tf32_launches - before[1])
-        require(launched == (0, route == "tf32") and ratio <= 1.0,
+        launched = tuple(n - b for n, b in zip((op.tc_launches, op.tf32_launches, op.g1_launches), before))
+        require(launched == (0, route == "tf32", route == "g1") and ratio <= 1.0,
                 f"decode_attention f32 {heads} S={S}: |diff| {ratio:.3f} x {F32_DECODE_TOL} of its row's "
-                f"scale (bf16 tensor-core, TF32 launches {launched}; route {route})")
+                f"scale (bf16 tensor-core, TF32, G = 1 launches {launched}; route {route})")
         ms = device_ms(torch, lambda: att.decode_attention(q, k, v, lim), reps=3)
         plain_ms = device_ms(torch, lambda: att.decode_attention_plain(q, k, v, lim), launches=1, reps=3)
         library_ms = sdpa_ms(torch, q, k, v, torch.arange(S, device=dev)[None, None] < limit)
         bound_ms, bound_by = bound(limit * hkv * 2 * D * 4 + 2 * hq * D * 4 + 4, 4 * hq * D * limit,
                                    H100_TF32_FLOPS)
-        what = ("the tensor-core core, 3xTF32" if route == "tf32" else "the split-S kernel and its combine")
+        what = ("the tensor-core core, 3xTF32" if route == "tf32" else "the core for one query row")
         info("quality", f"decode_attention f32 q {heads} heads (Hq={hq} Hkv={hkv} D={D}) S={S} "
                         f"limit={limit} ({route}, {split} keys a block: {what}): max|diff|={err:.3e}, "
                         f"worst |diff| / ({F32_DECODE_TOL} x row scale) {ratio:.3f}, row scales "
@@ -2508,7 +2655,7 @@ def check_f32_decode(torch, dev, gen) -> dict[str, dict]:
         del q, k, v, got, ref
     rep = rows["tf32"][0]
     readings = {"decode_attention_tf32": {**rep, "max_abs_err": worst, "rows": rows["tf32"]},
-                "decode_attention": {"f32": rows["split"]}}
+                "decode_attention_g1": {"f32": rows["g1"]}}
     readings.update(f32_split_routes(torch, dev, gen))
     return readings
 
@@ -2789,8 +2936,8 @@ def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[st
     PROMPT_LEN-token prompt) after a prefill. With `check`:
     F32_DECODE_STEPS greedy steps with exact launches (a step: 73 q4_0, or
     90 q4_k and 19 q6_k, or 113 q8_0, every one the f32 GEMV's; an attention
-    a layer, Gemma-2B's on the TF32 decode core, Gemma-7B's on the split-S
-    kernel), each step's logits held against
+    a layer, Gemma-2B's on the TF32 decode core, Gemma-7B's on the G = 1
+    core), each step's logits held against
     the same steps through the plain versions on the card (the same token
     stream, F32_DECODE_REL of the logits' scale), the plain side launching
     nothing. Then the device busy ms of a step by torch.profiler over 8
@@ -2850,7 +2997,7 @@ def f32_decode_steps(torch, dev, card: str, check: bool = True) -> tuple[dict[st
                         f"{phase}: max|dlogit| {errs} > {F32_DECODE_REL} of {scale}")
                 add_counts(total, counts)
                 del plain
-            ms, top = decode_profile(torch, eng, cache, outs[-1].argmax(-1))
+            ms, top = decode_profile(torch, eng, cache, outs[-1].argmax(-1), no_combine=check)
             busy[f"{fmt} rows={rows}"] = ms
             info("quality", f"{model_name} {fmt} f32 decode step, {rows} rows, on {card}: device busy "
                             f"{ms:.4f} ms; device ms a step by kernel: {top}")
@@ -3275,7 +3422,7 @@ def check_tp_kernels(torch, dev) -> dict[str, dict]:
     tile, and at Gemma-2B tp = 2 the 8 serving rows), q4_k and q6_k at
     TINY_MHA_CONFIG's tp = 2 shapes, decode and flash attention at each
     shard's heads (Gemma-2B: one KV head a shard, G = 4 and 2 on the
-    tensor cores; Gemma-7B: 8 and 4 heads, G = 1 on split-S), paged
+    tensor cores; Gemma-7B: 8 and 4 heads, G = 1 on its core), paged
     attention (bf16 and int8 pages of PAGE keys, the 8 serving rows) at
     Gemma-2B's shard heads. Returns {kernel: {"<model> tp=<n>": reading}}."""
     import gemma_tpu_torch.ops.attention as att
@@ -3304,14 +3451,18 @@ def check_tp_kernels(torch, dev) -> dict[str, dict]:
                     for _ in range(2))
             limit = T + 1
             lim = torch.tensor([limit], dtype=torch.int32, device=dev)
-            route = "{}, {} keys a block".format(*att.decode_route(torch.bfloat16, hq // hkv, S))
+            route, split = att.decode_route(torch.bfloat16, hq // hkv, S)
+            kname = "decode_attention_g1" if route == "g1" else "decode_attention"
+            if route == "g1":
+                g1_once(torch, f"decode_attention {label}", lambda: att.decode_attention(q, k, v, lim),
+                        route, att.decode_attention)
             r, _ = held_attention(
-                torch, "decode_attention", f"{label} Hq={hq} Hkv={hkv} S={S} limit={limit} ({route})",
+                torch, kname, f"{label} Hq={hq} Hkv={hkv} S={S} limit={limit} ({route}, {split} keys a "
+                              "block)",
                 lambda: att.decode_attention(q, k, v, lim),
                 lambda: att.decode_attention_plain(q, k, v, lim),
                 lambda: sdpa_ms(torch, q, k, v, key[None, None] < limit), *decode_cost([limit], hq, hkv))
-            out.setdefault("decode_attention", {})[label] = {**r, "shape": f"Hq={hq} Hkv={hkv} S={S} "
-                                                                           f"kv_limit={limit}"}
+            out.setdefault(kname, {})[label] = {**r, "shape": f"Hq={hq} Hkv={hkv} S={S} kv_limit={limit}"}
             qf = (torch.randn(1, T, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
             pos = torch.arange(T, device=dev)
             valid = (key[None, None] <= pos[None, :, None]) & (key < T)
@@ -3753,6 +3904,7 @@ def run() -> dict:
     results.update(check_tf32_routes(torch, dev))
     results["flash_attention"].update(check_verify_attention(torch, dev))
     results.update(check_serving_kernels(torch, dev))
+    results.update(check_g1(torch, dev))
     check_edge_cases(torch, dev)
     check_serving_edge_cases(torch, dev)
     done("kernels (phase 3)")
@@ -3764,6 +3916,7 @@ def run() -> dict:
     done("generation (phases 4, 4b)")
     counts_7b, spec_7b, _ = main_path(torch, dev, card, "Gemma-7B", "q8_0")
     counts["q8_0_matmul"] = counts_7b["q8_0_matmul"] + spec_7b["q8_0_matmul"]
+    counts["decode_attention_g1"] = counts_7b["decode_attention_g1"] + spec_7b["decode_attention_g1"]
     done("Gemma-7B q8_0 generation (phase 4c)")
     for weight_type, config_name in (("q4_0", "TINY_KERNEL_CONFIG"),
                                      ("q4_k_m", "TINY_KERNEL_CONFIG"),
@@ -3779,7 +3932,8 @@ def run() -> dict:
         counts[name] = served[run][name]
         if name.startswith("paged"):  # of those, on the tensor cores
             results[name]["tc_launches"] = served[run]["paged_attention_tc"]
-    serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
+    served_7b = serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
+    counts["paged_attention_g1"] = served_7b["paged bf16"]["paged_attention_g1"]
     done("Gemma-7B q8_0 serving (phase 6b)")
     results.update(check_tool_kernels(torch, dev))
     counts.update(run_tools(dev))
@@ -3789,7 +3943,7 @@ def run() -> dict:
     for name in ("flash_attention_tf32", "decode_attention_tf32", "q4_0_matmul_gemv_f32",
                  "q8_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32", "q6_k_matmul_gemv_f32"):
         results[name] = eval_readings.pop(name)
-    for name, reading in eval_readings.items():  # the split-S kernels with f32 q ("f32")
+    for name, reading in eval_readings.items():  # the split-S and G = 1 kernels with f32 q ("f32")
         results[name].update(reading)
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
@@ -3810,6 +3964,8 @@ def run() -> dict:
     require(all(counts[f"{fmt}_matmul_gemv_f32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
             "the f32 paths launched no f32 GEMV")
     require(counts["decode_attention_tf32"] > 0, "the f32 paths launched no TF32 decode")
+    require(counts["decode_attention_g1"] > 0 and counts["paged_attention_g1"] > 0,
+            "Gemma-7B's decode launched no G = 1 core, dense or paged")
     require(all(counts[f"{fmt}_matmul_tf32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
             "the f32 paths launched no TF32 tile")
     print(json.dumps({"kernels": kernels}), flush=True)

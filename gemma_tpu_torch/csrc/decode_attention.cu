@@ -16,8 +16,8 @@
 // Gemma-2B row at limit 204 reads 0.2 MB of K and V, 0.06 us of HBM), the
 // live K/V bytes at long ones (int8 halves them). The TPU kernel walks S in
 // sequence per batch row and skips dead tiles with `tile_map`; here the
-// work is split along S, so one (b, kv head) spreads over many SMs. Two
-// kernels, routed in ops/attention.py `decode_attention`:
+// work is split along S, so one (b, kv head) spreads over many SMs. Three
+// kernels, routed in ops/attention.py `decode_route`:
 //
 // `decode_tc_kernel` (decode_tc.cuh, with `DenseRows`) at 2 <= G = Hq / Hkv
 // <= 8 (Gemma-2B's G = 8; the main path): bf16 q over a bf16 or int8 cache
@@ -27,19 +27,23 @@
 // same launch by the last block. The paged kernel (paged_attention.cu)
 // runs the same core through its page table (bf16 q).
 //
-// `decode_split_kernel`: G = 1 and G > 8, and f32 q over an int8 cache,
-// with FMA only. At G = 1 (Gemma-7B) the tensor-core kernel, whose n8 side
-// then carries 7 zero columns, measured faster at batch 1 and slower over
-// 8 serving rows, where its 1024 blocks of 69 KB run in three waves
-// against the split-S kernel's one (PERF.md).
-// `decode_split_kernel` gives each block `split` keys of one (b, kv head)
+// `decode_g1_kernel` (decode_g1.cuh, with `DenseRows`) at G = 1 (Gemma-7B's
+// 16 heads over 16 KV heads), all four (q, cache) arms: a core built for a
+// single query row, each lane a 16-byte slice of a key row against q in
+// registers, scores by shuffles, the online softmax per warp in registers,
+// the splits merged in the same launch by the last block (the tensor-core
+// core's merge). The paged kernel runs it through its page table too.
+//
+// `decode_split_kernel`: G > 8, and f32 q over an int8 cache at 2 <= G <=
+// 8, with FMA only. It gives each block `split` keys of one (b, kv head)
 // for all G query heads of the group. Blocks whose keys are all outside
 // [max(limit - window, 0), limit) write an empty partial and return at once,
 // so only live tiles are read. Each live block writes its partial (max, sum,
 // unnormalized output), and `attend_combine_kernel` (common.cuh), a second
 // small launch, rescales and sums the partials. The split itself is
-// `attend_split` (common.cuh), shared with the paged kernel.
-#include "decode_tc.cuh"
+// `attend_split` (common.cuh), shared with the paged kernel. Its G = 1
+// instances are built but no route reaches them.
+#include "decode_g1.cuh"
 
 using namespace gt;
 
@@ -168,4 +172,21 @@ extern "C" int gt_decode_attention_tc(const void* q, const void* k, const void* 
                             out, static_cast<float*>(work), static_cast<int*>(tickets),
                             DenseRows{S}, B, Hq, Hkv, S, split, window, softcap,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The G = 1 core (decode_g1.cuh): q [B, Hq, D] bf16 or f32 with Hq == Hkv;
+// k/v [B, Hkv, S, D] in q's dtype or int8 (kv_dtype kI8, with f32
+// k_scale/v_scale [B, Hkv, S]; else null), all contiguous, K and V 16-byte
+// aligned; kv_limit i32 [B]; out [B, Hq, D] in q's dtype. work: B * Hkv *
+// n_splits * (D + 2) f32, n_splits = ceil(S / split); tickets: B * Hkv
+// ints, 0 on entry and on return.
+extern "C" int gt_decode_attention_g1(const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* kv_limit, void* out, void* work, void* tickets,
+                                      int B, int Hq, int Hkv, int S, int D, int q_dtype, int kv_dtype,
+                                      int split, int window, float softcap, void* stream) {
+  return dispatch_decode_g1(q_dtype, kv_dtype, D, q, k, v, static_cast<const float*>(k_scale),
+                            static_cast<const float*>(v_scale), static_cast<const int*>(kv_limit),
+                            out, static_cast<float*>(work), static_cast<int*>(tickets), DenseRows{S},
+                            B, Hq, Hkv, S, split, window, softcap, static_cast<cudaStream_t>(stream));
 }

@@ -43,13 +43,11 @@
 // * The block merges its warps in shared memory, writes its partial (max,
 //   sum, unnormalized output) and takes a ticket from a per-(b, kv head)
 //   counter; the last block of the row merges all partials in split order
-//   (the splits' statistics staged in shared memory by all its threads, a
-//   warp a head for the weights, four splits' loads in flight a thread for
-//   the outputs) and resets the counter to 0. One launch; the result does
-//   not depend on which block finished last, so serving stays
-//   batch-invariant and deterministic. The counters must start at 0 and
-//   launches that share them must not overlap: `workspace` keeps one a
-//   stream.
+//   and resets the counter to 0 (`merge_splits_last`, which the G = 1 core
+//   of decode_g1.cuh shares). One launch; the result does not depend on
+//   which block finished last, so serving stays batch-invariant and
+//   deterministic. The counters must start at 0 and launches that share
+//   them must not overlap: `workspace` keeps one a stream.
 // With the same S and split, both row policies run the same tiles in the
 // same order with the same arithmetic, so paged attention equals dense
 // decode attention on the gathered view bit for bit.
@@ -161,8 +159,9 @@ struct DenseRows {
   }
 };
 
-// pools [P, Hkv, ps, D] (scales [P, Hkv, ps]) through table [B, maxp];
-// key0 % 16 == 0 and ps % 16 == 0: the tile lies in one page
+// pools [P, Hkv, ps, D] (scales [P, Hkv, ps]) through table [B, maxp]; the
+// row of key key0 (decode_tc_kernel: a tile's first, key0 % 16 == 0 and ps
+// % 16 == 0, so the tile lies in one page; decode_g1.cuh: any key, any ps)
 struct PagedRows {
   const int* table;
   int Hkv, ps, maxp;
@@ -268,6 +267,96 @@ struct DecTf32Ops {
   }
 };
 
+// The merge of a decode core's splits, in the same launch: the splits
+// sp_lo .. sp_hi - 1 of (b, kv head) bh's n_splits each write a partial
+// (part_m, part_l [B * Hkv][n_splits][G], part_o [..][G][D], f32) and take
+// a ticket from bh's counter; the last of them to arrive merges their
+// partials in split order into out [.., G, D] (the splits' statistics
+// staged in smem, 2 * (sp_hi - sp_lo) * G floats, by all its threads; a
+// warp a head for the weights; four splits' loads in flight a thread for
+// the outputs) and resets the counter to 0. The result does not depend on
+// which block finished last. `decode_tc_kernel` runs every split (sp_lo =
+// 0, sp_hi = n_splits; a split without a live key writes an empty
+// partial), `decode_g1_kernel` (decode_g1.cuh) only those that hold a live
+// key. kMaxG: the largest G of the caller, so a thread holds kMaxG * D /
+// kThreads outputs.
+template <int D, int kMaxG, int kThreads, typename TQ>
+__device__ __forceinline__ void merge_splits_last(const float* __restrict__ part_m,
+                                                  const float* __restrict__ part_l,
+                                                  const float* __restrict__ part_o, TQ* __restrict__ out,
+                                                  int* __restrict__ tickets, int bh, int G, int n_splits,
+                                                  int sp_lo, int sp_hi, float* smem) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int s_last;
+  __shared__ float s_inv[kMaxG];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __threadfence();
+  __syncthreads();
+  const int n = sp_hi - sp_lo;  // the splits merged
+  if (threadIdx.x == 0) s_last = atomicAdd(tickets + bh, 1) == n - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const size_t base = (static_cast<size_t>(bh) * n_splits + sp_lo) * G;
+  float* sw = smem;        // [n][G]: m, then each split's weight
+  float* sl = sw + n * G;  // [n][G]: l
+  for (int i = threadIdx.x; i < n * G; i += kThreads) {
+    sw[i] = __ldcg(part_m + base + i);
+    sl[i] = __ldcg(part_l + base + i);
+  }
+  __syncthreads();
+  // a warp a head: the max over live splits, each split's weight, and the
+  // sum of weight x l in a fixed order (lane-strided, then a shuffle tree)
+  for (int h = warp; h < G; h += kWarps) {
+    float mx = -INFINITY;
+    for (int sp_ = lane; sp_ < n; sp_ += 32)
+      if (sl[sp_ * G + h] > 0.f) mx = fmaxf(mx, sw[sp_ * G + h]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int sp_ = lane; sp_ < n; sp_ += 32) {
+      const float ls = sl[sp_ * G + h];
+      const float w = ls > 0.f ? expf(sw[sp_ * G + h] - mx) : 0.f;
+      sw[sp_ * G + h] = w;
+      sum = fmaf(w, ls, sum);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) s_inv[h] = sum == 0.f ? 1.f : 1.f / sum;
+  }
+  __syncthreads();
+  // outputs i = threadIdx.x + kThreads * e of this thread, summed over the
+  // splits in order, four splits' loads in flight at a time (dead splits:
+  // weight 0, nothing read)
+  constexpr int kE = kMaxG * D / kThreads;
+  const int NE = G * D / kThreads;
+  float acc[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+  for (int s4 = 0; s4 < n; s4 += 4) {
+    float val[4][kE], wt[4][kE];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int i = threadIdx.x + e * kThreads;
+        const bool in = e < NE && s4 + u < n;
+        wt[u][e] = in ? sw[(s4 + u) * G + i / D] : 0.f;
+        val[u][e] = wt[u][e] > 0.f ? __ldcg(part_o + (base + (s4 + u) * G) * D + i) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] = fmaf(wt[u][e], val[u][e], acc[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int i = threadIdx.x + e * kThreads;
+    if (e < NE) out[static_cast<size_t>(bh) * G * D + i] = from_f32<TQ>(acc[e] * s_inv[i / D]);
+  }
+  if (threadIdx.x == 0) tickets[bh] = 0;
+}
+
 // q [B * Hkv, G, D]; S: the logical keys of a row (the dense cache's S, or
 // maxp * ps); work: part_m, part_l [B * Hkv][n_splits][G] then part_o
 // [..][G][D], f32
@@ -285,7 +374,6 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
   constexpr int kLd = L::kLd, kThreads = kDecWarps * 32;
   extern __shared__ __align__(128) unsigned char dec_smem[];
   __shared__ float s_m[kDecWarps][8], s_l[kDecWarps][8];
-  __shared__ int s_last;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int sp = blockIdx.x, bh = blockIdx.y, b = bh / Hkv;
@@ -546,75 +634,8 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
   }
 
   // the last block of (b, kv head) to finish merges the partials in split order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(tickets + bh, 1) == n_splits - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  const size_t base = static_cast<size_t>(bh) * n_splits * G;
-  float* sw = reinterpret_cast<float*>(dec_smem);  // [n_splits][G]: m, then each split's weight
-  float* sl = sw + n_splits * G;                   // [n_splits][G]: l
-  __shared__ float s_inv[8];
-  for (int i = threadIdx.x; i < n_splits * G; i += kThreads) {
-    sw[i] = __ldcg(part_m + base + i);
-    sl[i] = __ldcg(part_l + base + i);
-  }
-  __syncthreads();
-  // a warp a head: the max over live splits, each split's weight, and the
-  // sum of weight x l in a fixed order (lane-strided, then a shuffle tree)
-  for (int h = warp; h < G; h += kDecWarps) {
-    float mx = -INFINITY;
-    for (int sp_ = lane; sp_ < n_splits; sp_ += 32)
-      if (sl[sp_ * G + h] > 0.f) mx = fmaxf(mx, sw[sp_ * G + h]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int sp_ = lane; sp_ < n_splits; sp_ += 32) {
-      const float ls = sl[sp_ * G + h];
-      const float w = ls > 0.f ? expf(sw[sp_ * G + h] - mx) : 0.f;
-      sw[sp_ * G + h] = w;
-      sum = fmaf(w, ls, sum);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) s_inv[h] = sum == 0.f ? 1.f : 1.f / sum;
-  }
-  __syncthreads();
-  // outputs i = threadIdx.x + kThreads * e of this thread, summed over the
-  // splits in order, four splits' loads in flight at a time (dead splits:
-  // weight 0, nothing read)
-  constexpr int kE = 8 * D / kThreads;
-  const int NE = G * D / kThreads;
-  float acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-  for (int s4 = 0; s4 < n_splits; s4 += 4) {
-    float val[4][kE], wt[4][kE];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        const int i = threadIdx.x + e * kThreads;
-        const bool in = e < NE && s4 + u < n_splits;
-        wt[u][e] = in ? sw[(s4 + u) * G + i / D] : 0.f;
-        val[u][e] = wt[u][e] > 0.f ? __ldcg(part_o + (base + (s4 + u) * G) * D + i) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] = fmaf(wt[u][e], val[u][e], acc[e]);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int i = threadIdx.x + e * kThreads;
-    if constexpr (E::kF32) {
-      if (e < NE) out[static_cast<size_t>(bh) * G * D + i] = acc[e] * s_inv[i / D];
-    } else {
-      if (e < NE) out[static_cast<size_t>(bh) * G * D + i] = __float2bfloat16_rn(acc[e] * s_inv[i / D]);
-    }
-  }
-  if (threadIdx.x == 0) tickets[bh] = 0;
+  merge_splits_last<D, 8, kThreads>(part_m, part_l, part_o, out, tickets, bh, G, n_splits, 0, n_splits,
+                                    reinterpret_cast<float*>(dec_smem));
 }
 
 // One launch of the core: q [B, Hq, D] (E::TQ) with G = Hq / Hkv <= 8; k/v

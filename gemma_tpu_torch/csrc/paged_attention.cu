@@ -14,7 +14,7 @@
 // under 1 us of HBM time; half for int8), the live K/V bytes at long
 // contexts. The TPU kernel walks the pages of a row in sequence with its
 // running softmax in VMEM and fetches each page through scalar-prefetched
-// table entries (`page_map`). Two kernels, routed in
+// table entries (`page_map`). Three kernels, routed in
 // ops/paged_attention.py `paged_route`:
 //
 // `decode_tc_kernel` (decode_tc.cuh, with `PagedRows`): bf16 q, 2 <= G <= 8,
@@ -29,15 +29,23 @@
 // ps, so it equals decode attention on the gathered pages bit for bit.
 // A tile reads its table entry only when it holds a live key.
 //
-// `paged_split_kernel`: f32 queries, G = 1, G > 8 and other page sizes.
-// Each block takes ONE page of one (batch row, kv head): grid (maxp, B *
-// Hkv), the split equal to the page size. A block reads its own physical
-// page id from page_table[b, i] only when the page holds a live key; pages
-// at or past kv_limit[b], or wholly before the window, write an empty
-// partial and read nothing (their table entries are the trash page). The
-// combine launch of decode_attention.cu then merges the pages of each
-// (row, head).
-#include "decode_tc.cuh"
+// `decode_g1_kernel` (decode_g1.cuh, with `PagedRows`): G = 1 (Gemma-7B),
+// all four (q, pages) arms, any page size: the dense G = 1 core with each
+// key's row looked up in the page table (only for a live key), a block a
+// `decode_tc_split(maxp * ps)` keys, the splits merged by the last block in
+// one launch. Its steps and arithmetic are the dense core's at S = maxp *
+// ps, so it equals decode attention on the gathered pages bit for bit.
+//
+// `paged_split_kernel`: f32 queries at 2 <= G <= 8, G > 8, and at 2 <= G
+// <= 8 page sizes off 16. Each block takes ONE page of one (batch row, kv
+// head): grid (maxp, B * Hkv), the split equal to the page size. A block
+// reads its own physical page id from page_table[b, i] only when the page
+// holds a live key; pages at or past kv_limit[b], or wholly before the
+// window, write an empty partial and read nothing (their table entries are
+// the trash page). The combine launch of decode_attention.cu then merges
+// the pages of each (row, head). Its G = 1 instances are built but no
+// route reaches them.
+#include "decode_g1.cuh"
 
 using namespace gt;
 
@@ -160,4 +168,26 @@ extern "C" int gt_paged_attention_tc(const void* q, const void* k_pages, const v
                             out, static_cast<float*>(work), static_cast<int*>(tickets), rows, B,
                             Hq, Hkv, maxp * ps, split, window, softcap,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The G = 1 core through the page table: q [B, Hq, D] bf16 or f32 with Hq ==
+// Hkv; k/v pages [P, Hkv, ps, D] in q's dtype or int8 (kv_dtype kI8, with
+// f32 k_scale/v_scale [P, Hkv, ps]; else null), any ps, all contiguous, K
+// and V 16-byte aligned; page_table i32 [B, maxp]; kv_limit i32 [B]; out
+// [B, Hq, D] in q's dtype. work: B * Hkv * n_splits * (D + 2) f32, n_splits
+// = ceil(maxp * ps / split); tickets: B * Hkv ints, 0 on entry and on
+// return.
+extern "C" int gt_paged_attention_g1(const void* q, const void* k_pages, const void* v_pages,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* page_table, const void* kv_limit, void* out,
+                                     void* work, void* tickets, int B, int Hq, int Hkv, int ps,
+                                     int maxp, int D, int q_dtype, int kv_dtype, int split,
+                                     int window, float softcap, void* stream) {
+  if (ps <= 0 || maxp <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows rows{static_cast<const int*>(page_table), Hkv, ps, maxp};
+  return dispatch_decode_g1(q_dtype, kv_dtype, D, q, k_pages, v_pages,
+                            static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                            static_cast<const int*>(kv_limit), out, static_cast<float*>(work),
+                            static_cast<int*>(tickets), rows, B, Hq, Hkv, maxp * ps, split, window,
+                            softcap, static_cast<cudaStream_t>(stream));
 }

@@ -74,6 +74,12 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
     # B, Hq, Hkv, S, D, kv_dtype, split, window, softcap, stream
     "gt_decode_attention_tc": (_P,) * 9 + (_I,) * 8 + (_F, _P),
+    # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
+    # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
+    "gt_decode_attention_g1": (_P,) * 9 + (_I,) * 9 + (_F, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, work, tickets,
+    # B, Hq, Hkv, page_size, max_pages, D, q_dtype, kv_dtype, split, window, softcap, stream
+    "gt_paged_attention_g1": (_P,) * 10 + (_I,) * 10 + (_F, _P),
     # q, k, v, positions, kv_limit, out, B, T, Hq, Hkv, S, D, row warps, window, softcap, stream
     "gt_flash_attention_tc": (_P,) * 6 + (_I,) * 8 + (_F, _P),
     # the same for f32 q, k, v and out at the plan's row warps (no row-warps argument)
@@ -166,10 +172,12 @@ def _compile(out: Path, csrc: Path) -> None:
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
 
 
-def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ctypes.CDLL:
+def build_library(csrc: Path | None = None, build_dir: Path | None = None,
+                  entries: tuple[str, ...] | None = None) -> ctypes.CDLL:
     """The library of the sources under `csrc` (default: the package's),
     built into `build_dir` unless a build of the same sources is there, and
-    bound."""
+    bound: `entries` of SIGNATURES (default: all), each of which it must
+    have."""
     global build_seconds
     path = library_path(csrc, build_dir)
     if not path.exists():
@@ -180,9 +188,11 @@ def build_library(csrc: Path | None = None, build_dir: Path | None = None) -> ct
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise KernelBuildError(f"cannot load {path}: {e}") from e
-    for name, argtypes in SIGNATURES.items():
+    for name in entries or SIGNATURES:
+        if not hasattr(lib, name):
+            raise KernelBuildError(f"{path} has no entry point {name}")
         fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
+        fn.argtypes = list(SIGNATURES[name])
         fn.restype = ctypes.c_int
     lib.gt_error_string.argtypes = [ctypes.c_int]
     lib.gt_error_string.restype = ctypes.c_char_p
@@ -258,8 +268,9 @@ _workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] =
 def workspace(device: torch.device, stream: int, floats: int, tickets: int):
     """(f32 scratch of >= `floats`, i32 tickets of >= `tickets`, all 0) on
     `device`, one pair for each stream (`stream`: its cudaStream_t), kept
-    between calls and grown on demand: the tensor-core decode attention's
-    (ops/attention.py, and through pages ops/paged_attention.py) and the
+    between calls and grown on demand: the tensor-core and G = 1 decode
+    attention cores' (ops/attention.py, and through pages
+    ops/paged_attention.py) and the
     quantized matmuls' K-split scratch and the GEMV's tickets
     (ops/quant_matmul.py). Each kernel leaves its tickets at
     0, so the launches that share a pair run in order on their stream.

@@ -8,18 +8,20 @@ Counterpart of `gemma_tpu/ops/attention.py`, with its public layouts:
 Key slot s is valid for a query at position pos iff s <= pos and
 s < kv_limit[b] and, with a sliding window, s > pos - window.
 
-Kernels: `csrc/decode_attention.cu` with `csrc/decode_tc.cuh` (replaces
-`_decode_kernel`, its bf16 and int8 arms) and `csrc/flash_attention.cu`
-(replaces `_flash_kernel`).
+Kernels: `csrc/decode_attention.cu` with `csrc/decode_tc.cuh` and
+`csrc/decode_g1.cuh` (replaces `_decode_kernel`, its bf16 and int8 arms)
+and `csrc/flash_attention.cu` (replaces `_flash_kernel`).
 The route is fixed by dtype (and for decode by G = Hq / Hkv): a bf16 query
 takes the tensor-core kernels (`mma.sync` on bf16 operands; decode over a
 bf16 or int8 cache at 2 <= G <= 8). An f32 query, whose f32 x f32
 products bf16 tensor cores cannot form exactly, takes the TF32 tensor-core
 kernels (3xTF32: each operand split into two TF32 parts, three `mma.sync`
 products): flash, and decode over an f32 cache at 2 <= G <= 8 (the same
-decode core with its TF32 element policy). Decode at G = 1 and G > 8, and
-f32 queries over an int8 cache, take the split-S kernel with its combine
-launch. Every route launches a hand-written kernel; none falls back.
+decode core with its TF32 element policy). Decode at G = 1 (Gemma-7B) takes
+the core built for one query row, `decode_g1_kernel`, in every (q, cache)
+arm, one launch. Decode at G > 8, and f32 queries over an int8 cache at 2
+<= G <= 8, take the split-S kernel with its combine launch. Every route
+launches a hand-written kernel; none falls back.
 Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
 softcap before the mask, p rounded to the cache dtype before p . v, and 0
 for a row with no valid key (plain `sdpa` gives the mean of V there
@@ -47,10 +49,10 @@ from ..kernels import build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (128, 256)
-DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (G = 1, G > 8, f32 q over int8)
+DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (G > 8, f32 q over int8)
 TC_MAX_G = 8  # query heads a KV head the decode tensor-core kernel takes (its n8 side)
-# G = 1 (Gemma-7B) takes the split-S kernel: at 8 serving rows the
-# tensor-core kernel measured slower there (PERF.md)
+# G = 1 (Gemma-7B) takes the core built for one query row, not the
+# tensor-core kernel: its n8 side would carry 7 zero columns (PERF.md)
 TC_MIN_G = 2
 _FORCE_PLAIN = False
 
@@ -170,13 +172,17 @@ def kv_dtype_code(k, k_scale) -> int:
 
 
 def decode_tc_split(S: int) -> int:
-    """Keys a block of the tensor-core decode kernel at cache length S (a
-    multiple of 16: its 4 warps take the block's 16-key tiles in turn):
-    64, doubled while S holds more than 16 splits, at most 256. Measured
-    (PERF.md): at S = 512, 64 keys beat 32 and 256 in both arms (128
-    is 7 % faster in bf16, 11 % slower in int8); at S = 4096, 256 beat 64
-    and 128 (the last block merges fewer partials). Fixed by S, never by
-    the live length, which stays on the device."""
+    """Keys a block of the one-launch decode cores at cache length S, the
+    tensor-core core's (a multiple of 16: its 4 warps take the block's
+    16-key tiles in turn) and the G = 1 core's: 64, doubled while S holds
+    more than 16 splits, at most 256. Measured (PERF.md, `probe_variants
+    attn`): tensor cores at S = 512, 64 keys beat 32 and 256 in both arms
+    (128 is 7 % faster in bf16, 11 % slower in int8); at S = 4096, 256
+    beat 64 and 128 (the last block merges fewer partials). G = 1 at
+    Gemma-7B's heads, S = 512: 64 keys the best over the 8 serving rows
+    in every arm, 4 % behind 32 at batch 1; S = 4096: 256 the best or
+    within 1 %. Fixed by S, never by the live length, which stays on the
+    device."""
     split = 64
     while split < 256 and S > 16 * split:
         split *= 2
@@ -184,11 +190,14 @@ def decode_tc_split(S: int) -> int:
 
 
 def decode_route(q_dtype: torch.dtype, G: int, S: int, int8: bool = False) -> tuple[str, int]:
-    """The decode kernel of a call and its keys a block: at TC_MIN_G <= G <=
-    TC_MAX_G, ("tc", decode_tc_split(S)) for bf16 queries (over a bf16 or
-    int8 cache) and ("tf32", decode_tc_split(S)) for f32 queries over an
-    f32 cache, both the tensor-core core; else ("split", DECODE_SPLIT), the
-    split-S kernel."""
+    """The decode kernel of a call and its keys a block: at G = 1, ("g1",
+    decode_tc_split(S)), the core built for one query row, for every (q,
+    cache) arm; at TC_MIN_G <= G <= TC_MAX_G, ("tc", decode_tc_split(S))
+    for bf16 queries (over a bf16 or int8 cache) and ("tf32",
+    decode_tc_split(S)) for f32 queries over an f32 cache, both the
+    tensor-core core; else ("split", DECODE_SPLIT), the split-S kernel."""
+    if G == 1:
+        return "g1", decode_tc_split(S)
     if TC_MIN_G <= G <= TC_MAX_G:
         if q_dtype == torch.bfloat16:
             return "tc", decode_tc_split(S)
@@ -203,11 +212,12 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     q's dtype, or int8 with f32 scales [B, Hkv, S] (the int8 arm).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    of `decode_route` (the tensor-core kernel, one launch; or the split-S
-    kernel plus its combine step) or raises. The bf16/f32 arm counts its
-    calls in `launches`, the int8 arm in `int8_launches`; those that went
-    through the tensor-core kernel also in `tc_launches` (bf16 queries) or
-    `tf32_launches` (f32 queries)."""
+    of `decode_route` (the tensor-core kernel or the G = 1 core, one launch
+    each; or the split-S kernel plus its combine step) or raises. The
+    bf16/f32 arm counts its calls in `launches`, the int8 arm in
+    `int8_launches`; those that went through the tensor-core kernel also in
+    `tc_launches` (bf16 queries) or `tf32_launches` (f32 queries), those
+    through the G = 1 core in `g1_launches`."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
     B, T, Hq, D = q.shape
@@ -227,7 +237,14 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if int8 else (None, None)
     lib = build.load()
     stream = build.stream_ptr(q.device)
-    if route != "split":
+    if route == "g1":
+        work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * (D + 2), B * Hkv)
+        err = lib.gt_decode_attention_g1(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
+            work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype],
+            kv_dtype_code(k, k_scale), split, int(window), float(attn_softcap), stream,
+        )
+    elif route != "split":
         work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_decode_attention_tc(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
@@ -251,6 +268,7 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
         decode_attention.launches += 1
     decode_attention.tc_launches += route == "tc"
     decode_attention.tf32_launches += route == "tf32"
+    decode_attention.g1_launches += route == "g1"
     return out
 
 
@@ -258,6 +276,7 @@ decode_attention.launches = 0
 decode_attention.int8_launches = 0
 decode_attention.tc_launches = 0
 decode_attention.tf32_launches = 0
+decode_attention.g1_launches = 0
 
 
 def flash_attention(q, k, v, positions, kv_limit, attn_softcap: float = 0.0, window: int = 0):

@@ -1,15 +1,21 @@
 """Paged decode attention: T = 1 attention through a paged KV cache's table.
 
 Counterpart of `gemma_tpu/ops/paged_attention.py`. `csrc/paged_attention.cu`
-replaces `_paged_kernel` with two kernels, bf16/f32 pages or int8 pages
+replaces `_paged_kernel` with three kernels, bf16/f32 pages or int8 pages
 with their f32 scales read in place, routed by `paged_route`:
+* G = 1 (Gemma-7B), every (q, pages) arm and page size, takes the dense
+  decode's core built for one query row (`csrc/decode_g1.cuh`) with each
+  key's row looked up in the table, one launch at the dense core's split
+  for S = maxp * ps (`decode_tc_split`); it equals `decode_attention` on
+  the gathered pages bit for bit;
 * bf16 queries with TC_MIN_G <= G <= TC_MAX_G and a page size that is a
   multiple of 16 (the main path: Gemma-2B's G = 8, 64-token pages) take
   the tensor-core decode kernel through the page table, one launch, its
   split the dense kernel's at S = maxp * ps (`decode_tc_split`), its
   scratch and tickets the persistent `build.workspace`; it equals
   `decode_attention` on the gathered pages bit for bit;
-* f32 queries, G = 1, G > 8 and other page sizes take the split-S kernel:
+* f32 queries at 2 <= G <= 8, G > 8 and other page sizes take the split-S
+  kernel:
   one block per live page of one (batch row, kv head), then the combine
   launch of the decode kernel, its shared memory G * (D + ps) * 4 bytes
   within 48 KB.
@@ -61,11 +67,15 @@ def paged_decode_attention_plain(q, cache, layer: int, kv_limit, attn_softcap: f
 
 
 def paged_route(q_dtype: torch.dtype, G: int, ps: int, S: int) -> tuple[str, int]:
-    """("tc", keys a block) for the tensor-core kernel through the page
-    table, or ("split", ps) for the split-S kernel (a block a page): bf16
-    queries with TC_MIN_G <= G <= TC_MAX_G and a page size that is a
-    multiple of 16 (a 16-key tile never straddles two pages) take the
-    tensor cores, at the dense kernel's split for S = maxp * ps."""
+    """("g1", keys a block) for the G = 1 core through the page table (any
+    query dtype and page size), ("tc", keys a block) for the tensor-core
+    kernel through it, or ("split", ps) for the split-S kernel (a block a
+    page): bf16 queries with TC_MIN_G <= G <= TC_MAX_G and a page size that
+    is a multiple of 16 (a 16-key tile never straddles two pages) take the
+    tensor cores. Both one-launch cores run at the dense kernel's split for
+    S = maxp * ps."""
+    if G == 1:
+        return "g1", decode_tc_split(S)
     if q_dtype == torch.bfloat16 and TC_MIN_G <= G <= TC_MAX_G and ps % 16 == 0:
         return "tc", decode_tc_split(S)
     return "split", ps
@@ -78,11 +88,12 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     q.dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    of `paged_route` (the tensor-core kernel, one launch; or the split-S
-    kernel plus the combine) or raises. Pages in q's dtype count their
-    calls in `launches`, int8 pages in `int8_launches`; those that went
-    through the tensor-core kernel also in `tc_launches`. While
-    `set_force_plain` is on, the plain version on every device."""
+    of `paged_route` (the tensor-core kernel or the G = 1 core, one launch
+    each; or the split-S kernel plus the combine) or raises. Pages in q's
+    dtype count their calls in `launches`, int8 pages in `int8_launches`;
+    those that went through the tensor-core kernel also in `tc_launches`,
+    through the G = 1 core in `g1_launches`. While `set_force_plain` is on,
+    the plain version on every device."""
     if q.device.type == "cpu" or _FORCE_PLAIN:
         return paged_decode_attention_plain(q, cache, layer, kv_limit, attn_softcap, window)
     B, T, Hq, D = q.shape
@@ -108,7 +119,16 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     scales = (ks.data_ptr(), vs.data_ptr()) if int8 else (None, None)
     lib = build.load()
     stream = build.stream_ptr(q.device)
-    if route == "tc":
+    if route == "g1":
+        n_splits = -(-maxp * ps // split)
+        work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * (D + 2), B * Hkv)
+        err = lib.gt_paged_attention_g1(
+            qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales, pt.data_ptr(), lim.data_ptr(),
+            out.data_ptr(), work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, ps, maxp, D,
+            build.DTYPE_CODES[q.dtype], kv_dtype_code(kp, ks), split, int(window),
+            float(attn_softcap), stream,
+        )
+    elif route == "tc":
         n_splits = -(-maxp * ps // split)
         work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_paged_attention_tc(
@@ -133,9 +153,11 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     else:
         paged_decode_attention.launches += 1
     paged_decode_attention.tc_launches += route == "tc"
+    paged_decode_attention.g1_launches += route == "g1"
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
 paged_decode_attention.tc_launches = 0
+paged_decode_attention.g1_launches = 0

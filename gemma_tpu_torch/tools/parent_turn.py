@@ -44,7 +44,18 @@ q, k and v at F32_DECODE_SHAPES (device ms, warm), then chip_smoke's
 `f32_decode_steps` (device busy of a decode step with f32 activations at 1
 and 8 rows: Gemma-2B q4_0 and q4_k_m, Gemma-7B q8_0): copy this tree's
 chip_smoke.py into DIR first, as the parent's may lack that phase or a
-model of it. Runs on the card only.
+model of it.
+
+    python -m gemma_tpu_torch.tools.parent_turn --parent DIR --attn
+
+runs only the decode attention cores, four turns: `decode_attention`
+(bf16 and int8 caches, and f32 q over f32) at G1_DECODE_SHAPES (Gemma-7B,
+G = 1) and TC_DECODE_SHAPES (Gemma-2B, the tensor-core core), and
+`paged_decode_attention` (bf16 and int8 pages) at G1_PAGED_SHAPES and
+TC_PAGED_SHAPES, device ms warm through the public wrappers, then the
+device busy ms of a decode step at 1 and 8 rows of Gemma-7B q8_0 and
+Gemma-2B q4_0 (`decode_step_busy`; copy this tree's chip_smoke.py into DIR
+first). Runs on the card only.
 """
 from __future__ import annotations
 
@@ -156,16 +167,17 @@ F32_DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B", 4096, [4096], 
                      ("Gemma-7B", 512, [204], 16, 16))
 
 
-def f32_decode_times(dev: torch.device) -> dict[str, float]:
+def f32_decode_times(dev: torch.device, shapes=F32_DECODE_SHAPES) -> dict[str, float]:
     """Device ms, warm, of `decode_attention` with f32 q, k and v at
-    F32_DECODE_SHAPES, through the public wrapper (each tree's route)."""
+    `shapes` (name, S, kv_limits, Hq, Hkv), through the public wrapper (each
+    tree's route)."""
     import gemma_tpu_torch.ops.attention as att
     from gemma_tpu_torch.tools import _timing as T
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     res = {}
-    for name, S, limits, hq, hkv in F32_DECODE_SHAPES:
+    for name, S, limits, hq, hkv in shapes:
         B = len(limits)
         q, k, v = (torch.randn(*shape, generator=gen, device=dev) * 0.3
                    for shape in ((B, 1, hq, D), (B, hkv, S, D), (B, hkv, S, D)))
@@ -175,7 +187,90 @@ def f32_decode_times(dev: torch.device) -> dict[str, float]:
     return res
 
 
-PAGED_KERNELS = ("paged_split_kernel", "attend_combine_kernel", "decode_tc_kernel")
+SERVE_LIMITS = [1, 64, 65, 203, 300, 512, 203, 64]  # chip_smoke.py's serving rows
+# --attn: Gemma-7B's heads (16 over 16 KV heads, G = 1) at its first decode
+# step's limit, the serving rows and a 4096-slot cache (decode), and the
+# serving rows through 64-key pages (paged: a 65-page pool)
+G1_DECODE_SHAPES = (("Gemma-7B", 512, [204], 16, 16), ("Gemma-7B serving", 512, SERVE_LIMITS, 16, 16),
+                    ("Gemma-7B", 4096, [2048], 16, 16), ("Gemma-7B", 4096, [4096], 16, 16))
+G1_PAGED_SHAPES = (("Gemma-7B serving", 512, SERVE_LIMITS, 64, 16, 16, 65),)
+# --attn: Gemma-2B's heads (8 over 1 KV head) on the tensor-core decode core,
+# whose last block merges the splits through the same code as the G = 1
+# core's: its first decode step, the serving rows, a full 4096-slot cache,
+# and the serving rows through 64-key pages
+TC_DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B serving", 512, SERVE_LIMITS, 8, 1),
+                    ("Gemma-2B", 4096, [4096], 8, 1))
+TC_PAGED_SHAPES = (("Gemma-2B serving", 512, SERVE_LIMITS, 64, 8, 1, 65),)
+STEP_ROWS = (1, 8)  # rows of the --attn decode steps
+STEP_MODELS = (("Gemma-7B", "q8_0"), ("Gemma-2B", "q4_0"))  # the --attn decode steps' models
+STEP_PROFILED = 16  # decode steps under the profiler
+STEP_TRIES = 4  # profiles of a decode step until one records every quantized-matmul launch
+
+
+def decode_step_busy(dev: torch.device, c, rows: int, model_name: str = "Gemma-7B",
+                     fmt: str = "q8_0") -> str:
+    """A decode step of `model_name` `fmt` (weights from seed 0) at `rows`
+    rows over a dense bf16 cache, after a prefill of chip_smoke's (`c`)
+    prompt (one row) or its first `rows` serving prompts: chip_smoke's
+    `decode_profile` over STEP_PROFILED greedy steps (device busy ms a step,
+    the largest kernels, the kernels a step; a parent's split-S combines
+    allowed). The profiler may drop kernel records: up to STEP_TRIES
+    profiles, the first that records every quantized-matmul launch kept,
+    or the last, marked as short."""
+    import re
+
+    from gemma_tpu_torch.runtime import Engine, EngineConfig
+    from gemma_tpu_torch.testing import make_params
+
+    cfg = c.model_config(model_name)
+    model = make_params(cfg, fmt, seed=0, device=dev)
+    eng = Engine(cfg, model, EngineConfig(max_seq_len=c.MAX_SEQ_LEN, max_batch=rows))
+    prompts = ([[2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(c.PROMPT_LEN)]] if rows == 1
+               else [r.prompt for r in c.serve_requests(cfg)[:rows]])
+    logits, cache = eng.prefill(prompts)
+    tok = logits.argmax(-1)
+    for _ in range(2):  # warm-up
+        logits, cache = eng.decode_step(tok, cache)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    for tries in range(1, STEP_TRIES + 1):
+        busy, top = c.decode_profile(torch, eng, cache, tok, steps=STEP_PROFILED, no_combine=False)
+        recorded, launched = map(int, re.search(r"(\d+) of (\d+) quantized-matmul", top).groups())
+        if recorded == launched:
+            break
+        for _ in range(STEP_PROFILED):  # the profiled steps, to carry the cache on
+            logits, cache = eng.decode_step(tok, cache)
+            tok = logits.argmax(-1)
+    del eng, model, cache
+    torch.cuda.empty_cache()
+    kept = (f"profile {tries} of {STEP_TRIES} recorded every launch" if recorded == launched else
+            f"SHORT: no profile of {STEP_TRIES} recorded every launch, the last kept")
+    return f"{model_name} {fmt} decode step, {rows} rows ({kept}): device busy {busy:.4f} ms a step; {top}"
+
+
+def attn_turn(tag: str) -> None:
+    """One --attn turn, in the tree of the current directory."""
+    if not torch.cuda.is_available():
+        raise SystemExit("parent_turn: no CUDA device (it times the kernels on the card)")
+    sys.path.insert(0, os.getcwd())  # this tree's chip_smoke.py
+    import chip_smoke as c
+    from gemma_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    build.load()
+    print(tag, c.device_line(), f"build+load {time.perf_counter() - t0:.1f} s", flush=True)
+    times = kernel_times(dev, (), G1_DECODE_SHAPES + TC_DECODE_SHAPES, G1_PAGED_SHAPES + TC_PAGED_SHAPES)
+    times.update(f32_decode_times(dev, G1_DECODE_SHAPES + TC_DECODE_SHAPES))
+    print(tag, "Gemma-7B (G = 1) and Gemma-2B (tensor cores) attention device ms, warm:", json.dumps(times),
+          flush=True)
+    for model_name, fmt in STEP_MODELS:
+        for rows in STEP_ROWS:
+            print(tag, decode_step_busy(dev, c, rows, model_name, fmt), flush=True)
+    print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+PAGED_KERNELS = ("paged_split_kernel", "attend_combine_kernel", "decode_tc_kernel", "decode_g1_kernel")
 PAGED_STEPS = 16  # decode steps of the decode-only profile
 
 
@@ -400,10 +495,13 @@ def main(argv=None) -> int:
     ap.add_argument("--outputs", help="(with --turn) save the matmul outputs to this file")
     ap.add_argument("--decode", action="store_true", help="(with --turn) a decode turn")
     ap.add_argument("--gemv", action="store_true", help="the GEMVs' part only, bf16 and f32 x")
+    ap.add_argument("--attn", action="store_true", help="the decode attention cores and decode steps only")
     args = ap.parse_args(argv)
     if args.turn:
         if args.decode:
             decode_turn(args.turn)
+        elif args.attn:
+            attn_turn(args.turn)
         else:
             turn(args.turn, json.loads(args.shapes), args.outputs, args.gemv)
         return 0
@@ -417,9 +515,15 @@ def main(argv=None) -> int:
     order = ("parent", "change", "change", "parent")
     with tempfile.TemporaryDirectory() as tmp:
         saved = {tag: Path(tmp) / f"{tag}.pt" for tag in ("parent", "change")}
-        for i, tag in enumerate(order * (1 if args.gemv else 1 + DECODE_ROUNDS)):
+        for i, tag in enumerate(order * (1 if args.gemv or args.attn else 1 + DECODE_ROUNDS)):
             tree = Path(args.parent).resolve() if tag == "parent" else change
             env = {**os.environ, "PYTHONPATH": str(tree)}
+            if args.attn:
+                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", tag,
+                                       "--attn"], cwd=tree, env=env, timeout=900)
+                if proc.returncode != 0:
+                    return proc.returncode
+                continue
             if i >= len(order):
                 extra = ["--decode"]
             else:

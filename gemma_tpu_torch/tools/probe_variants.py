@@ -17,14 +17,18 @@ S = 4096, bench_prefill's), each in bf16 with D = 256, it holds the flash
 kernel's 4 warps as 1, 2 or 4 row warps (the rest splitting the keys)
 and the decode kernel at 32-256 keys a
 block (both arms, and at 2 <= G <= 8 the TF32 policy on f32 q, k and v, at
-1e-4) to the plain version (2e-2 of each row's scale,
-`_timing.attn_err`: p rounds to bf16 against a local max), and times each,
-decode beside the split-S kernel and its combine launch (the route of
-G = 1), device ms with the operands warm (as chip_smoke.py). With
+1e-4) and, at G = 1 (Gemma-7B's heads, S = 512 and 4096), the core for one
+query row at 16-512 keys a block (bf16, int8 and f32 arms) to the plain
+version (2e-2 of each row's scale, `_timing.attn_err`: p rounds to bf16
+against a local max), and times each, decode beside the split-S kernel
+and its combine launch (the route of G > 8), device ms with the operands
+warm (as chip_smoke.py). With
 `--parent DIR` it also builds the parent's kernels and holds its bf16
 flash at each block shape against this tree's bit for bit, timed in turns
-(this, parent, parent, this); `tools/parent_turn.py` times the parent's
-kernels through the public wrappers.
+(this, parent, parent, this), and prints whether the tensor-core decode
+core's outputs at each split equal the parent's bit for bit;
+`tools/parent_turn.py` times the parent's kernels through the public
+wrappers.
 
 `sass` needs no card, only the CUDA toolkit: it builds this tree's kernels
 and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
@@ -35,7 +39,8 @@ int8 instances (`decode_tc_kernel`, dense and paged, D = 128 and 256) in
 the two builds; it fails unless every one is the same code.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
-a planted fault (a decode split or a flash key tile dropped, the int8 V
+a planted fault (a decode split or a flash key tile dropped, a warp of the
+G = 1 core's block merge dropped, the int8 V
 scale of a paged tile read at its logical rather than its physical page;
 in the f32 flash kernel a ring stage's keys, or the lo.hi product of the
 3xTF32 that f32 flash and decode share), and holds each, and the unpatched
@@ -44,7 +49,8 @@ thousands of keys, and at PAGED_SHAPES (both arms, shuffled pages), in
 bf16 at 2e-2 of each row's scale; and in f32 at chip_smoke.py phase 8's
 shapes (flash at T = S = 512, Gemma-2B's and Gemma-7B's heads; decode on
 the TF32 core over 4096 slots and the serving rows) at its 1e-4 of each
-row's scale. It fails unless the unpatched kernels pass and every mutant
+row's scale. The S = 4096 decode shapes include Gemma-7B's heads, on the
+G = 1 core (whose split merge is the tensor-core core's). It fails unless the unpatched kernels pass and every mutant
 fails.
 
 A variant is a list of text substitutions in a copy of
@@ -281,6 +287,9 @@ SHAPES = {
              ("gate_up", 32768, 2048), ("down", 2048, 16384)],
     "q6_k": [("attn_v", 256, 2048), ("deep_k", 2048, 16384), ("head", 256000, 2048)],
 }
+# the entry points a variant run calls (through ops/quant_matmul.py): all a
+# parent tree's library binds
+MATMUL_ENTRIES = ("gt_q4_0_matmul", "gt_q8_0_matmul", "gt_q4_k_matmul", "gt_q6_k_matmul")
 
 
 # name -> substitutions that plant a fault in an attention kernel
@@ -298,6 +307,9 @@ MUTANTS: dict[str, list[tuple[str, str, str]]] = {
                           "    if (i != 3 || sizeof(T) != 4) compute(i);\n    __syncthreads();  // stage i % 2")],
     # the f32 flash and decode kernels' products leave out lo(a) . hi(b): 2 of 3xTF32's passes
     "drop_tf32_lo_hi": [("attn_tc.cuh", "  mma_1688_tf32(c, al, bh0, bh1);\n", "")],
+    # the G = 1 core's block merge leaves out warp 3's keys
+    "g1_drop_warp_3": [("decode_g1.cuh", "acc += red[w * D + d] * f[w];",
+                        "acc += w == 3 ? 0.f : red[w * D + d] * f[w];")],
     # the tensor-core core reads a tile's int8 V scales at the dense slab
     # offset: through pages, the logical page's rows, not the physical one's
     "paged_v_scale_logical": [("decode_tc.cuh", "w *= ok[e] ? v_scale[srow + 8 * (e / 2)] : 0.f;",
@@ -336,7 +348,7 @@ def run(mode: str, names: list[str], fmts: list[str], ms: list[int], dev: torch.
     libs = {name: build_variant(name) for name in names}
     if parent:  # the parent commit's kernels, timed and held like a variant
         libs["parent"] = build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
-                                             build.BUILD_DIR / "variants" / "parent")
+                                             build.BUILD_DIR / "variants" / "parent", MATMUL_ENTRIES)
     gen = T.generator(dev)
     for fmt in fmts:
         for sname, N, K in SHAPES[fmt]:
@@ -386,6 +398,7 @@ DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B", 512, [512], 8, 1),
 PAGED_SHAPES = (("Gemma-2B serving", 512, SERVE_LIMITS, 64, 8, 1, 65),
                 ("Gemma-2B long", 4096, [2048, 4096], 64, 8, 1, 129))
 SPLITS = (32, 64, 128, 256)
+G1_SPLITS = (16, 32, 64, 128, 256, 512)  # keys a block of the G = 1 core (decode_tc_split)
 ATT_TOL = 2e-2
 
 
@@ -409,11 +422,11 @@ def _flash(lib, q, k, v, pos, lim, row_warps: int):
     return out
 
 
-def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool = True):
-    """One launch of the decode kernel on bf16 or f32 q at `split` keys a
-    block: the tensor-core kernel (f32 q over f32 k and v: its TF32
-    policy), or (tc=False) the split-S kernel and its combine, through the
-    C entry points."""
+def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, kind: str = "tc"):
+    """One launch of the decode kernel `kind` on bf16 or f32 q at `split`
+    keys a block: "tc" the tensor-core kernel (f32 q over f32 k and v: its
+    TF32 policy), "g1" the core for one query row (G = 1), "split" the
+    split-S kernel and its combine, through the C entry points."""
     from ..ops import attention as att
 
     B, _, Hq, D = q.shape
@@ -423,11 +436,12 @@ def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool 
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None else (None, None)
     kvd = att.kv_dtype_code(k, k_scale)
     stream = build.stream_ptr(q.device)
-    if tc:
+    if kind != "split":
         work, tickets = build.workspace(q.device, stream, B * Hkv * n * G * (D + 2), B * Hkv)
-        err = lib.gt_decode_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
-                                         lim.data_ptr(), out.data_ptr(), work.data_ptr(),
-                                         tickets.data_ptr(), B, Hq, Hkv, S, D, kvd, split, 0, 0.0, stream)
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D)
+        err = (lib.gt_decode_attention_tc(*common, kvd, split, 0, 0.0, stream) if kind == "tc" else
+               lib.gt_decode_attention_g1(*common, build.DTYPE_CODES[q.dtype], kvd, split, 0, 0.0, stream))
     else:
         parts = torch.empty(B * Hkv * n * G * (D + 2), dtype=torch.float32, device=q.device)
         pm, pl = parts.data_ptr(), parts[B * Hkv * n * G:].data_ptr()
@@ -435,7 +449,7 @@ def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, tc: bool 
         err = lib.gt_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(),
                                       out.data_ptr(), pm, pl, po, B, Hq, Hkv, S, D,
                                       build.DTYPE_CODES[q.dtype], kvd, split, 0, 0.0, stream)
-    build.check(err, f"decode tc={tc} split={split}")
+    build.check(err, f"decode {kind} split={split}")
     return out
 
 
@@ -447,7 +461,8 @@ def run_attention(dev: torch.device, parent: str | None = None) -> None:
     D = 256
     lib = build.load()
     plib = parent and build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
-                                          build.BUILD_DIR / "variants" / "parent")
+                                          build.BUILD_DIR / "variants" / "parent",
+                                          ("gt_flash_attention_tc", "gt_decode_attention_tc"))
 
     def rnd(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
@@ -481,19 +496,28 @@ def run_attention(dev: torch.device, parent: str | None = None) -> None:
         q, k, v = rnd(B, 1, hq, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D)
         lim = torch.tensor(limits, dtype=torch.int32, device=dev)
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        G = hq // hkv
         arms = [("bf16", q, (k, v), ATT_TOL), ("int8", q, (k8, v8, ks, vs), ATT_TOL)]
-        if att.decode_route(torch.float32, hq // hkv, S)[0] == "tf32":  # the TF32 policy, f32 q, k, v
+        if G == 1 or att.decode_route(torch.float32, G, S)[0] == "tf32":  # f32 q, k, v
             arms.append(("f32", q.float(), (k.float(), v.float()), F32_TOL))
         for arm, qa, args, tol in arms:
             ref = att.decode_attention_plain(qa, args[0], args[1], lim, 0.0, 0, *args[2:])
             readings = []
-            for split, tc in ((att.DECODE_SPLIT, False), *((sp, True) for sp in SPLITS)):
-                def call(split=split, tc=tc):
-                    return _decode(lib, split, qa, args[0], args[1], lim, *args[2:], tc=tc)
+            # the split-S kernel; the tensor-core core (f32: where its TF32
+            # policy is the route); at G = 1 the core for one query row
+            kinds = [("split", att.DECODE_SPLIT)]
+            kinds += [("tc", sp) for sp in SPLITS if arm != "f32" or G > 1]
+            kinds += [("g1", sp) for sp in G1_SPLITS if G == 1]
+            for kind, split in kinds:
+                def call(split=split, kind=kind):
+                    return _decode(lib, split, qa, args[0], args[1], lim, *args[2:], kind=kind)
 
-                _held(f"decode {name} {arm} split {split} tc={tc}", call(), ref, tol)
-                readings.append(f"{split} keys a block {ms(call):.4f}" if tc
-                                else f"split-S kernel {ms(call):.4f}")
+                _held(f"decode {name} {arm} {kind} split {split}", call(), ref, tol)
+                readings.append(f"split-S kernel {ms(call):.4f}" if kind == "split"
+                                else f"{kind} {split} keys a block {ms(call):.4f}")
+                if plib and kind == "tc":  # the parent's tensor-core core on the same inputs
+                    same = torch.equal(call(), _decode(plib, split, qa, args[0], args[1], lim, *args[2:]))
+                    readings[-1] += f" ({'equal' if same else 'NOT equal'} to the parent's bit for bit)"
             print(f"decode {name} {arm} S={S} Hq={hq} Hkv={hkv} limits={limits}: device ms, warm "
                   f"(route: {att.decode_route(qa.dtype, hq // hkv, S, arm == 'int8')}): "
                   + "; ".join(readings), flush=True)
@@ -538,7 +562,7 @@ def run_mutants(dev: torch.device) -> None:
                           att.flash_attention(q, k, v, pos, lim),
                           att.flash_attention_plain(q, k, v, pos, lim), ATT_TOL))
     for name, S, limits, hq, hkv in DECODE_SHAPES:
-        if S == 4096 and att.decode_route(torch.bfloat16, hq // hkv, S)[0] == "tc":
+        if S == 4096 and att.decode_route(torch.bfloat16, hq // hkv, S)[0] in ("tc", "g1"):
             B = len(limits)
             q, k, v = rnd(B, 1, hq, D), rnd(B, hkv, S, D), rnd(B, hkv, S, D)
             lim = torch.tensor(limits, dtype=torch.int32, device=dev)

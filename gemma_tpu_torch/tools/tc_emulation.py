@@ -1519,16 +1519,182 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
             for w in range(DEC_WARPS):
                 pl += s_l[w, :G] * np.exp(s_m[w, :G] - M[:G]).astype(_F32)
             parts.append((M[:G].copy(), pl, po))
-        for hh in range(G):  # the last block's merge, in split order
-            mx = max((pm[hh] for pm, pl, _ in parts if pl[hh] > 0), default=-np.inf)
-            total, acc = _F32(0), np.zeros(D, _F32)
-            for pm, pl, po in parts:
-                w = _F32(np.exp(pm[hh] - mx)) if pl[hh] > 0 else _F32(0)
-                total = _F32(w * pl[hh] + total)
-                if w > 0:
-                    acc = (w * po[hh] + acc).astype(_F32)
-            res = acc * (_F32(1) if total == 0 else _F32(1) / total)
-            out[b, 0, hk * G + hh] = res if tf32 is not None else _bf16_round(res)
+        res = _merge_splits(parts, G, D)
+        out[b, 0, hk * G:(hk + 1) * G] = res if tf32 is not None else _bf16_round(res)
+    return out
+
+
+def _merge_splits(parts, G: int, D: int) -> np.ndarray:
+    """`merge_splits_last` (csrc/decode_tc.cuh): the last block's merge of
+    the splits' partials (m [G], l [G], unnormalized o [G, D] or None for a
+    split without a live key), in split order: [G, D] f32, 0 for a head
+    without a live key."""
+    res = np.zeros((G, D), _F32)
+    for hh in range(G):
+        mx = max((pm[hh] for pm, pl, _ in parts if pl[hh] > 0), default=-np.inf)
+        total, acc = _F32(0), np.zeros(D, _F32)
+        for pm, pl, po in parts:
+            w = _F32(np.exp(pm[hh] - mx)) if pl[hh] > 0 else _F32(0)
+            total = _F32(w * pl[hh] + total)
+            if w > 0:
+                acc = (w * po[hh] + acc).astype(_F32)
+        res[hh] = acc * (_F32(1) if total == 0 else _F32(1) / total)
+    return res
+
+
+# constants of csrc/decode_g1.cuh (kG1Warps)
+G1_WARPS = 4
+
+
+def g1_layout(D: int, kv_bytes: int) -> tuple[int, int, int, int, int, int]:
+    """`G1Layout<D, TKV>` of the G = 1 core at a cache element of `kv_bytes`
+    bytes: (elements a 16-byte chunk, lanes a key row, rows a warp-wide
+    load, chunks a lane a row, row loads a lane a step: at most 8 chunks
+    and 64 elements, keys a warp step)."""
+    epc = 16 // kv_bytes
+    chunks = D // epc
+    lpr = min(chunks, 32)
+    rpw, cpl = 32 // lpr, chunks // lpr
+    nu = min(8 // cpl, 64 // (cpl * epc))
+    return epc, lpr, rpw, cpl, nu, nu * rpw
+
+
+def decode_g1(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, k_scale=None, v_scale=None,
+              split: int | None = None) -> np.ndarray:
+    """`decode_g1_kernel` with `DenseRows` on q [B, 1, H, D] (bf16 or f32)
+    and k/v [B, H, S, D] in q's dtype, or int8 with f32 scales [B, H, S]
+    (one query head a KV head); split by default the route's
+    (`decode_tc_split(S)`): out [B, 1, H, D] f32 (bf16 values for bf16 q)."""
+    from ..ops.attention import decode_tc_split
+
+    B, Hkv, S, D = k.shape
+    return _decode_g1(q, k.reshape(-1, D), v.reshape(-1, D),
+                      None if k_scale is None else k_scale.reshape(-1),
+                      None if v_scale is None else v_scale.reshape(-1),
+                      kv_limit, Hkv, S, lambda b, hk, key: (b * Hkv + hk) * S + key, softcap, window,
+                      decode_tc_split(S) if split is None else split)
+
+
+def paged_decode_g1(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0, window: int = 0,
+                    k_scale=None, v_scale=None, split: int | None = None,
+                    reads: set | None = None) -> np.ndarray:
+    """`decode_g1_kernel` with `PagedRows` on q [B, 1, H, D] and pools [P,
+    H, ps, D] (any ps) in q's dtype, or int8 with f32 scales [P, H, ps],
+    through page_table [B, maxp]; split by default the route's,
+    `decode_tc_split(maxp * ps)`. Each (row, logical page) whose table entry
+    a live key reads goes into `reads`: out [B, 1, H, D] f32."""
+    from ..ops.attention import decode_tc_split
+
+    _, Hkv, ps, D = k_pages.shape
+    table = page_table.to(torch.int32).numpy()
+    S = table.shape[1] * ps
+
+    def row(b, hk, key):  # each key's row through its page
+        if reads is not None:
+            reads.update((b, int(i)) for i in np.unique(key // ps))
+        return (table[b, key // ps].astype(np.int64) * Hkv + hk) * ps + key % ps
+
+    return _decode_g1(q, k_pages.reshape(-1, D), v_pages.reshape(-1, D),
+                      None if k_scale is None else k_scale.reshape(-1),
+                      None if v_scale is None else v_scale.reshape(-1),
+                      kv_limit, Hkv, S, row, softcap, window,
+                      decode_tc_split(S) if split is None else split)
+
+
+def _decode_g1(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softcap: float,
+               window: int, split: int) -> np.ndarray:
+    """`decode_g1_kernel` on K/V rows k, v [N, D] (scales [N]), S logical keys
+    a (batch row, kv head), `row(b, hk, keys)` the rows of an array of live
+    keys. Only the splits that hold a live key run (the row's out is 0
+    without one). Lane l owns chunks (l % kLpr + kLpr i) of kEpc elements
+    of its row l // kLpr of a load: its q and output slices in registers,
+    its K and V chunks of kNu rows a step; the dot in element order (fmaf),
+    a shuffle tree over the row's lanes, the step's max over the rows of a
+    load, the online softmax per warp, the warp's rows of a load summed by
+    a shuffle tree, the warps merged in warp order, the live splits by
+    `_merge_splits`."""
+    B, _, Hq, D = q.shape
+    assert Hq == Hkv
+    int8 = k_scale is not None
+    epc, lpr, rpw, cpl, nu, keys = g1_layout(D, k.element_size())
+    kf, vf = (x.to(torch.float32).numpy() for x in (k, v))  # bf16 and int8 exact in f32
+    ks, vs = (k_scale.numpy(), v_scale.numpy()) if int8 else (None, None)
+    qf = q.to(torch.float32).numpy().reshape(B, Hq, D)
+    lims = kv_limit.to(torch.int32).numpy()
+    lanes = np.arange(32)
+    rr, cl = lanes // lpr, lanes % lpr
+    idx = ((cl[:, None] + lpr * np.arange(cpl)) * epc)[:, :, None] + np.arange(epc)  # [32, cpl, epc]
+    lane_of = np.broadcast_to(lanes, (nu, 32))
+    out = np.zeros((B, 1, Hq, D), np.float32)
+    for b, hk in np.ndindex(B, Hkv):
+        limit = min(int(lims[b]), S)
+        live_lo = max(limit - window, 0) if window > 0 else 0
+        qv = qf[b, hk][idx]  # [32, cpl, epc]
+        parts = []
+        for sp in range(live_lo // split, -(-limit // split)):  # the splits with a live key
+            s0 = sp * split
+            kbeg, kend = max(s0, live_lo), min(s0 + split, limit)
+            s_m = np.full(G1_WARPS, -np.inf, _F32)
+            s_l = np.zeros(G1_WARPS, _F32)
+            red = np.zeros((G1_WARPS, D), _F32)
+            for w in range(G1_WARPS):
+                o = np.zeros((32, cpl, epc), _F32)
+                m, l = _F32(-np.inf), np.zeros(32, _F32)
+                for key0 in range(kbeg + w * keys, kend, G1_WARPS * keys):
+                    key = key0 + rpw * np.arange(nu)[:, None] + rr  # [nu, 32]: lane l's u-th row
+                    ok = key < kend
+                    kr = np.zeros((nu, 32, cpl, epc), _F32)
+                    vr = np.zeros_like(kr)
+                    rows = row(b, hk, key[ok])
+                    kr[ok] = kf[rows[:, None, None], idx[lane_of[ok]]]
+                    vr[ok] = vf[rows[:, None, None], idx[lane_of[ok]]]
+                    x = np.zeros((nu, 32), _F32)
+                    for i in range(cpl):
+                        for e in range(epc):
+                            x = _fma(qv[:, i, e], kr[:, :, i, e], x)
+                    off = lpr // 2
+                    while off:
+                        x = (x + x[:, lanes ^ off]).astype(_F32)
+                        off //= 2
+                    if int8:
+                        ksu, vsu = np.zeros((nu, 32), _F32), np.zeros((nu, 32), _F32)
+                        ksu[ok], vsu[ok] = ks[rows], vs[rows]
+                        x = (x * ksu).astype(_F32)
+                    if softcap > 0:
+                        x = (_F32(softcap) * np.tanh(x / _F32(softcap))).astype(_F32)
+                    sc = np.where(ok, x, MASK_VALUE).astype(_F32)
+                    mx = sc.max(axis=0)  # [32]: the lane's rows, then over the rows of a load
+                    off = lpr
+                    while off < 32:
+                        mx = np.maximum(mx, mx[lanes ^ off])
+                        off *= 2
+                    mn = max(m, mx[0])
+                    al = _F32(np.exp(_F32(m - mn)))
+                    m = mn
+                    o = (o * al).astype(_F32)
+                    psum = np.zeros(32, _F32)
+                    for u in range(nu):
+                        p = np.where(ok[u], np.exp(sc[u] - m), 0).astype(_F32)
+                        psum = (psum + p).astype(_F32)
+                        wgt = _bf16_round(p * vsu[u]) if int8 else p if k.dtype == torch.float32 else _bf16_round(p)
+                        o = _fma(wgt[:, None, None], vr[u], o)
+                    l = _fma(l, al, psum)
+                off = lpr
+                while off < 32:
+                    l = (l + l[lanes ^ off]).astype(_F32)
+                    o = (o + o[lanes ^ off]).astype(_F32)
+                    off *= 2
+                s_m[w], s_l[w] = m, l[0]
+                red[w, idx[rr == 0].reshape(-1)] = o[rr == 0].reshape(-1)
+            M = s_m.max()
+            f = np.exp(s_m - M).astype(_F32)
+            po, pl = np.zeros(D, _F32), _F32(0)
+            for w in range(G1_WARPS):
+                po = _fma(red[w], f[w], po)
+                pl = _fma(s_l[w], f[w], pl)
+            parts.append((np.full(1, M, _F32), np.full(1, pl, _F32), po[None]))
+        res = _merge_splits(parts, 1, D)[0]  # 0 without a live split
+        out[b, 0, hk] = res if q.dtype == torch.float32 else _bf16_round(res)
     return out
 
 

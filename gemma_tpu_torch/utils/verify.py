@@ -56,10 +56,14 @@ def launch_counters() -> list[tuple[str, Any, str]]:
             # the calls of the two above that went through the tensor cores
             ("flash_attention_tc", att.flash_attention, "tc_launches"),
             ("decode_attention_tc", att.decode_attention, "tc_launches"),
+            # the calls of decode attention at G = 1 (the core for one query row)
+            ("decode_attention_g1", att.decode_attention, "g1_launches"),
             ("paged_attention", pat.paged_decode_attention, "launches"),
             ("paged_attention_int8", pat.paged_decode_attention, "int8_launches"),
             # the calls of the two above that went through the tensor cores
-            ("paged_attention_tc", pat.paged_decode_attention, "tc_launches")]
+            ("paged_attention_tc", pat.paged_decode_attention, "tc_launches"),
+            # and through the G = 1 core
+            ("paged_attention_g1", pat.paged_decode_attention, "g1_launches")]
 
 
 def read_launches() -> dict[str, int]:

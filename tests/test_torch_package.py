@@ -1,6 +1,7 @@
 """Package-level checks of gemma_tpu_torch: no jax and nothing of the JAX
 package, the CLI, the loader's device, the kernel build, and chip_smoke.py's
 refusal to run without a GPU."""
+import ctypes
 import json
 import os
 import re
@@ -203,7 +204,8 @@ def test_kernel_sources_note_what_they_replace():
              ("flash_attention.cu", "_flash_kernel"), ("q4_k_matmul.cu", "_q4_k_kernel"),
              ("q6_k_matmul.cu", "_q6_k_kernel"), ("q6_k_matmul.cu", "_q6_k_v4_kernel"),
              ("paged_attention.cu", "_paged_kernel"), ("q8_0_matmul.cu", "_q8_0_kernel"),
-             ("dq_tile_tf32.cuh", "_q4_k_kernel"), ("dq_tile_tf32.cuh", "_q6_k_kernel")]
+             ("dq_tile_tf32.cuh", "_q4_k_kernel"), ("dq_tile_tf32.cuh", "_q6_k_kernel"),
+             ("decode_g1.cuh", "_decode_kernel"), ("decode_g1.cuh", "_paged_kernel")]
     notes += [("qmm_variants.cu", "kernel3"), ("qmm_variants.cu", "_kernel"),
               ("q4_0_matmul.cu", "_kernel"), ("q4_0_matmul.cu", "call"),
               ("q4_k_matmul.cu", "_kernel"), ("q6_k_matmul.cu", "_kernel")]
@@ -235,6 +237,42 @@ def test_library_name_follows_the_sources():
                                                  "q8_0_matmul.cu", "common.cuh", "attn_tc.cuh"}
     assert {"gt_q4_k_matmul", "gt_q6_k_matmul", "gt_paged_attention", "gt_q8_0_matmul",
             "gt_flash_attention_tc", "gt_decode_attention_tc"} <= set(build.SIGNATURES)
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every `extern "C"` entry of csrc/*.cu that `build.SIGNATURES` binds
+    takes the arguments ctypes passes: a pointer for each `void*`, an int
+    for each `int`, a float for each `float`, in order (a missing or extra
+    argument would shift every later one on the card)."""
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    entries = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (gt_\w+)\(([^)]*)\)', src.read_text()):
+            types = [re.sub(r"\s+", " ", p_.strip()).rsplit(" ", 1)[0].replace(" *", "*")
+                     for p_ in params.split(",")]
+            entries[name] = tuple(kinds[t] for t in types)
+    for name, argtypes in build.SIGNATURES.items():
+        assert entries[name] == argtypes, name
+    assert {"gt_decode_attention_g1", "gt_paged_attention_g1"} <= set(build.SIGNATURES)
+
+
+def test_build_library_raises_on_a_missing_entry(monkeypatch, tmp_path):
+    """A library lacking an entry point it is asked to bind (every one of
+    SIGNATURES by default, or those named) is a build error, not a gap."""
+    import ctypes.util
+
+    class Built(type(Path())):  # the C library, standing in for a build found on disk
+        def exists(self):
+            return True
+
+    libc = ctypes.util.find_library("c")
+    assert libc is not None
+    monkeypatch.setattr(build, "library_path", lambda csrc=None, build_dir=None: Built(libc))
+    with pytest.raises(build.KernelBuildError, match="no entry point gt_q4_0_matmul"):
+        build.build_library()
+    with pytest.raises(build.KernelBuildError, match="no entry point gt_decode_attention_tc"):
+        build.build_library(tmp_path, tmp_path, ("gt_decode_attention_tc",))
 
 
 def test_matmul_scratch_asks_once_a_library_and_shape(monkeypatch):

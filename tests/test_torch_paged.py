@@ -122,7 +122,8 @@ def test_paged_tc_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages,
     `_paged_kernel` on shuffled pages, the trash page and the free pages
     holding random values: within 2e-2 of each row's scale, and no table
     entry read but those of pages that hold a live key. The kernel takes
-    G <= 8, so the G = 1 cases count too (the route sends them to split-S)."""
+    G <= 8, so the G = 1 cases count too (the route sends them to the G = 1
+    core, held below)."""
     jcache = _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized, fill_free=True)
     qj = jnp.asarray(rng.normal(size=(B, 1, Hq, D)) * 0.3, jnp.bfloat16)
     ref = jax_paged(qj, jcache, 0, jnp.asarray(lengths, jnp.int32), softcap, window)
@@ -140,19 +141,56 @@ def test_paged_tc_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages,
     assert {b for b, _ in reads} == set(range(B))
 
 
+G1_PAGED_CASES = [c for c in PAGED_CASES if c[1] == c[2]]  # one query head a KV head
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,maxp,n_pages,lengths,softcap,window", G1_PAGED_CASES)
+def test_paged_g1_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages, lengths, softcap,
+                                               window, quantized, q_dtype, rng):
+    """The G = 1 core through the page table (lane emulation) against
+    `_paged_kernel` at its G = 1 shapes, bf16 and f32 queries over bf16 and
+    int8 pages, shuffled pages and random trash and free pages: within 2e-2
+    of each row's scale (bf16 rounding of p, or p * vs, against a local
+    max), and no table entry read but those of pages that hold a live key."""
+    jcache = _jax_paged_cache(rng, B, Hkv, D, n_pages, ps, maxp, lengths, quantized, fill_free=True)
+    qj = jnp.asarray(rng.normal(size=(B, 1, Hq, D)) * 0.3,
+                     jnp.bfloat16 if q_dtype == torch.bfloat16 else jnp.float32)
+    ref = jax_paged(qj, jcache, 0, jnp.asarray(lengths, jnp.int32), softcap, window)
+    cache = from_jax_cache(_numpy(jcache))
+    k, v, ks, vs = cache.layer_pages(0)
+    if not quantized:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    reads = set()
+    got = emu.paged_decode_g1(_t(qj), k, v, cache.page_table, torch.tensor(lengths, dtype=torch.int32),
+                              softcap, window, ks, vs, reads=reads)
+    assert got.shape == (B, 1, Hq, D)
+    ratio = attn_err(torch.from_numpy(got), torch.from_numpy(np.array(ref, np.float32)), 2e-2)[1]
+    assert ratio <= 1.0
+    for b, i in reads:
+        lo = max(lengths[b] - window, 0) if window else 0
+        assert i * ps < lengths[b] and (i + 1) * ps > lo
+    assert {b for b, _ in reads} == set(range(B))
+
+
 @pytest.mark.parametrize("dtype,G,ps,S,route", [
     (torch.bfloat16, 8, 64, 512, ("tc", 64)),     # Gemma-2B serving: 64-token pages
     (torch.bfloat16, 8, 64, 4096, ("tc", 256)),   # a long cache: four pages a block
     (torch.bfloat16, 4, 16, 512, ("tc", 64)),     # four pages a block
     (torch.float32, 8, 64, 512, ("split", 64)),   # f32 products are not exact on bf16 tensor cores
-    (torch.bfloat16, 1, 64, 512, ("split", 64)),  # G = 1 (Gemma-7B) stays split-S, as dense decode
+    (torch.bfloat16, 1, 64, 512, ("g1", 64)),     # G = 1 (Gemma-7B): the core for one query row
+    (torch.float32, 1, 64, 4096, ("g1", 256)),    # in every arm, at the dense core's split
+    (torch.bfloat16, 1, 24, 480, ("g1", 64)),     # and every page size (each key's row looked up)
     (torch.bfloat16, 16, 64, 512, ("split", 64)),  # beyond the n8 side
     (torch.bfloat16, 8, 8, 512, ("split", 8)),    # a 16-key tile would straddle two pages
 ])
 def test_paged_route(dtype, G, ps, S, route):
-    """bf16 queries with 2 <= G <= 8 and pages of a multiple of 16 keys take
-    the tensor-core kernel at the dense kernel's split for S = maxp * ps;
-    the rest the split-S kernel, a block a page."""
+    """G = 1 takes the core built for one query row at the dense core's
+    split for S = maxp * ps, any query dtype and page size; bf16 queries
+    with 2 <= G <= 8 and pages of a multiple of 16 keys the tensor-core
+    kernel at the dense kernel's split; the rest the split-S kernel, a
+    block a page."""
     assert paged_route(dtype, G, ps, S) == route
 
 

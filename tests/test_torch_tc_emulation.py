@@ -39,9 +39,9 @@ card holds the kernels to.
   within 1e-4 of each row's scale of the plain version and of the JAX
   kernel in interpret mode (f32); rows without a key exactly 0; dropping
   any one small-part product misses it. `decode_route` sends f32 queries
-  over an f32 cache there at G = 2-8, and G = 1, G = 16 and f32 queries
-  over an int8 cache to the split-S kernel; on the CPU both ops run their
-  plain versions.
+  over an f32 cache there at G = 2-8, G = 1 to the core for one query row
+  (below), and G = 16 and f32 queries over an int8 cache to the split-S
+  kernel; on the CPU both ops run their plain versions.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
   half step where K % 64 == 32) and past N.
@@ -57,6 +57,17 @@ card holds the kernels to.
   split, and within 2e-2 of each row's scale of the plain version
   (`tools/_timing.attn_err`); tests/test_torch_paged.py holds it to the
   JAX `_paged_kernel`.
+* Decode at G = 1 (`decode_g1_kernel` of `csrc/decode_g1.cuh`, Gemma-7B's
+  heads): lane slices of each key row, the shuffle trees, the per-warp
+  online softmax and rounding of p, the warp merge and the split merge in
+  split order, in its four (q, cache) arms at D = 128 and 256 with
+  softcap, window, limits 0 and 1 and ragged limits: bf16 and int8 arms
+  within 2e-2 of each row's scale of the plain version (p, or p * vs,
+  rounds to bf16 against a warp's running max), f32 over f32 within 1e-4
+  (nothing rounds), and the same against the JAX `_decode_kernel` in
+  interpret mode; rows without a key exactly 0; through a page table of
+  any page size equal bit for bit to the dense emulation on the gathered
+  pages (tests/test_torch_paged.py: against `_paged_kernel`).
 """
 import numpy as np
 import pytest
@@ -72,6 +83,7 @@ from gemma_tpu_torch.ops.attention import decode_attention_plain, decode_tc_spli
 from gemma_tpu_torch.ops.paged_attention import gather_pages
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
 from gemma_tpu_torch.quant.qtensor import dequant, from_jax
+from gemma_tpu_torch.runtime.kv_cache import quantize_kv
 from gemma_tpu_torch.tools import tc_emulation as emu
 from gemma_tpu_torch.tools._timing import attn_err, random_qtensor
 
@@ -670,13 +682,15 @@ def test_decode_tf32_needs_every_pass(name, passes, holds):
 @pytest.mark.parametrize("S", [512, 4096])
 def test_decode_route_takes_tf32_at_the_kernels_groups(G, S):
     """f32 queries over an f32 cache take the TF32 decode core at 2 <= G <=
-    8, at the bf16 core's split; G = 1, G = 16 and f32 queries over an int8
-    cache take the split-S kernel."""
+    8, at the bf16 core's split; G = 1 takes the core for one query row
+    over an f32 or int8 cache; G = 16 and f32 queries over an int8 cache at
+    2 <= G <= 8 take the split-S kernel."""
     from gemma_tpu_torch.ops import attention as att
 
-    want = ("tf32", decode_tc_split(S)) if 2 <= G <= 8 else ("split", att.DECODE_SPLIT)
+    g1 = ("g1", att.decode_tc_split(S))
+    want = g1 if G == 1 else ("tf32", decode_tc_split(S)) if 2 <= G <= 8 else ("split", att.DECODE_SPLIT)
     assert att.decode_route(torch.float32, G, S) == want
-    assert att.decode_route(torch.float32, G, S, int8=True) == ("split", att.DECODE_SPLIT)
+    assert att.decode_route(torch.float32, G, S, int8=True) == (g1 if G == 1 else ("split", att.DECODE_SPLIT))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -790,3 +804,136 @@ def test_transposing_ldmatrix():
     for i in range(4):
         assert np.array_equal(r[i] & 0xFFFF, 64 * i + 8 * (2 * t) + g)
         assert np.array_equal(r[i] >> 16, 64 * i + 8 * (2 * t + 1) + g)
+
+
+# The G = 1 core's four (q, cache) arms: (q dtype, int8 cache, tolerance of
+# each row's scale). bf16 q over bf16 and int8 round p (int8: p * vs) to
+# bf16 against a warp's running max where the plain version takes the row
+# max; f32 q over f32 rounds nothing (1e-4, the card's f32 check); f32 q
+# over int8 keeps bf16(p * vs) (2e-2, as chip_smoke.py holds it).
+G1_ARMS = {"bf16": (torch.bfloat16, False, ATT_TOL), "int8": (torch.bfloat16, True, ATT_TOL),
+           "f32": (torch.float32, False, ATT_TF32_TOL), "f32 int8": (torch.float32, True, ATT_TOL)}
+
+
+def _g1_inputs(arm, q, k, v):
+    """q, k, v (f32) in `arm`'s dtypes: (q, k, v, k_scale, v_scale, tolerance)."""
+    dtype, int8, tol = G1_ARMS[arm]
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k.to(torch.bfloat16)), quantize_kv(v.to(torch.bfloat16))
+        return q.to(dtype), k, v, ks, vs, tol
+    return q.to(dtype), k.to(dtype), v.to(dtype), None, None, tol
+
+
+def test_g1_layout():
+    """A lane owns 16 bytes of a key row; a warp keeps up to 8 such loads of
+    K (and of V), 64 elements, in flight a step: bf16 at D = 256 one row a
+    load and 8 keys a step, int8 two rows a load and 8 keys, f32 half a
+    row and 4 keys."""
+    assert emu.g1_layout(256, 2) == (8, 32, 1, 1, 8, 8)
+    assert emu.g1_layout(128, 2) == (8, 16, 2, 1, 8, 16)
+    assert emu.g1_layout(256, 1) == (16, 16, 2, 1, 4, 8)
+    assert emu.g1_layout(128, 1) == (16, 8, 4, 1, 4, 16)
+    assert emu.g1_layout(256, 4) == (4, 32, 1, 2, 4, 4)
+    assert emu.g1_layout(128, 4) == (4, 32, 1, 1, 8, 8)
+    for D in (128, 256):
+        for nbytes in (1, 2, 4):
+            epc, lpr, rpw, cpl, nu, keys = emu.g1_layout(D, nbytes)
+            assert lpr * rpw == 32 and lpr * cpl * epc == D and nu * cpl <= 8 and nu * cpl * epc <= 64
+
+
+DECODE_G1_CASES = [
+    # B, S, H, D, limits, softcap, window, split (None: the route's)
+    (1, 512, 4, 256, [204], 0.0, 0, None),        # Gemma-7B's head_dim at the first step's limit
+    (3, 160, 2, 128, [0, 1, 160], 0.0, 0, None),  # limit 0 (exactly 0), limit 1, a full cache
+    (2, 300, 2, 128, [257, 90], 30.0, 40, 64),    # softcap, window: dead splits, steps from the first live key
+    (2, 200, 2, 256, [130, 17], 50.0, 0, 128),    # ragged limits, several steps a warp
+]
+
+
+@pytest.mark.parametrize("arm", list(G1_ARMS))
+@pytest.mark.parametrize("B,S,H,D,limits,cap,window,split", DECODE_G1_CASES)
+def test_decode_g1_emulation_matches_plain(B, S, H, D, limits, cap, window, split, arm):
+    q, k, v, ks, vs, tol = _g1_inputs(arm, *_qkv32(B, 1, S, H, H, D, seed=S + D))
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ref = decode_attention_plain(q, k, v, lim, cap, window, ks, vs)
+    got = emu.decode_g1(q, k, v, lim, cap, window, ks, vs, split)
+    assert got.shape == tuple(ref.shape) and np.isfinite(got).all()
+    assert attn_err(torch.from_numpy(got), ref.float(), tol)[1] <= 1.0
+    assert not got[np.asarray(limits) == 0].any()
+
+
+PAGED_G1_CASES = [
+    # B, H, D, ps, maxp, limits, softcap, window, split (None: the route's)
+    (2, 4, 256, 64, 8, [1, 300], 0.0, 0, None),      # serving's 64-key pages: two blocks a page
+    (2, 2, 128, 16, 12, [100, 192], 30.0, 40, None),  # 16-key pages: two pages a block; window
+    (2, 2, 128, 24, 6, [0, 131], 0.0, 0, 64),         # a page size off 16: pages straddle blocks
+]
+
+
+@pytest.mark.parametrize("arm", list(G1_ARMS))
+@pytest.mark.parametrize("B,H,D,ps,maxp,limits,cap,window,split", PAGED_G1_CASES)
+def test_paged_decode_g1_emulation_is_dense_decode_on_the_gathered_pages(B, H, D, ps, maxp, limits, cap,
+                                                                         window, split, arm):
+    """Each row's pages shuffled over the pool, the trash page 0 and the free
+    pages random: the G = 1 core through the page table runs the dense
+    core's steps in its order and arithmetic (equal bit for bit), within
+    its arm's tolerance of the plain version, and reads the table entries
+    of pages that hold a live key only."""
+    rng = np.random.default_rng(B * ps + maxp)
+    n_pages = B * maxp + 3
+    q, kp, vp = (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3)
+                 for shape in ((B, 1, H, D), (n_pages, H, ps, D), (n_pages, H, ps, D)))
+    q, kp, vp, ks, vs, tol = _g1_inputs(arm, q, kp, vp)
+    perm = rng.permutation(n_pages - 1) + 1
+    table = np.zeros((B, maxp), np.int32)
+    live = [-(-n // ps) for n in limits]
+    table[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
+    pt = torch.from_numpy(table)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    dense = [None if x is None else gather_pages(x, pt) for x in (kp, vp, ks, vs)]
+    reads = set()
+    got = emu.paged_decode_g1(q, kp, vp, pt, lim, cap, window, ks, vs, split, reads=reads)
+    assert np.array_equal(got, emu.decode_g1(q, *dense[:2], lim, cap, window, *dense[2:], split))
+    ref = decode_attention_plain(q, *dense[:2], lim, cap, window, *dense[2:])
+    assert attn_err(torch.from_numpy(got), ref.float(), tol)[1] <= 1.0
+    for b, i in reads:  # the page holds a key in [max(limit - window, 0), limit)
+        lo = max(limits[b] - window, 0) if window else 0
+        assert i * ps < limits[b] and (i + 1) * ps > lo
+
+
+@pytest.mark.parametrize("arm", list(G1_ARMS))
+def test_decode_g1_emulation_matches_the_jax_kernel(arm, monkeypatch):
+    """The G = 1 core against the JAX `decode_attention` (`_decode_kernel` in
+    interpret mode) on the same inputs: 4 heads over 4 KV heads, per-row
+    limits (one of 0), softcap and window, at the arm's tolerance."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    q, k, v, ks, vs, tol = _g1_inputs(arm, *_qkv32(3, 1, 160, 4, 4, 128, seed=22))
+    lim = np.asarray([77, 0, 150], np.int32)
+
+    def j(x):
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16 if x.dtype == torch.bfloat16 else None)
+
+    scales = {} if ks is None else dict(k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()))
+    kj, vj = (jnp.asarray(x.numpy()) if x.dtype == torch.int8 else j(x) for x in (k, v))
+    ref = jax_decode(j(q), kj, vj, jnp.asarray(lim), attn_softcap=30.0, window=48, **scales)
+    got = emu.decode_g1(q, k, v, torch.from_numpy(lim), 30.0, 48, ks, vs)
+    assert attn_err(torch.from_numpy(got), torch.from_numpy(np.array(ref, np.float32)), tol)[1] <= 1.0
+    assert not got[1].any()
+
+
+def test_cpu_tensors_take_the_plain_versions_at_g1():
+    """On the CPU, decode and paged decode attention at G = 1 return their
+    plain versions and count no launch of the G = 1 core."""
+    from gemma_tpu_torch.ops import attention as att
+    from gemma_tpu_torch.ops import paged_attention as pat
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+
+    q, k, v = _qkv(1, 1, 64, 4, 4, 128, seed=5)
+    lim = torch.tensor([40], dtype=torch.int32)
+    before = (att.decode_attention.g1_launches, pat.paged_decode_attention.g1_launches)
+    assert torch.equal(att.decode_attention(q, k, v, lim), decode_attention_plain(q, k, v, lim))
+    qp, cache, plim = paged_inputs(torch.Generator().manual_seed(0), torch.device("cpu"), 2, 4, 4, 128, 16,
+                                   [20, 64], 9, 64, False)
+    assert torch.equal(pat.paged_decode_attention(qp, cache, 0, plim),
+                       pat.paged_decode_attention_plain(qp, cache, 0, plim))
+    assert before == (att.decode_attention.g1_launches, pat.paged_decode_attention.g1_launches)

@@ -251,12 +251,12 @@ def test_probe_variants_patches_apply_to_the_sources():
 def test_probe_mutants_patch_the_attention_kernels_only():
     """Each planted fault of `probe_variants mutants` finds its text once in
     one attention kernel's source (the tensor-core decode core that dense
-    and paged decode share, the flash kernel, or the 3xTF32 product the
-    f32 flash and decode kernels share), and none of the timing variants
-    touches those sources."""
+    and paged decode share, the G = 1 decode core, the flash kernel, or the
+    3xTF32 product the f32 flash and decode kernels share), and none of the
+    timing variants touches those sources."""
     from gemma_tpu_torch.tools import probe_variants as pv
 
-    sources = {"decode_tc.cuh", "flash_attention.cu", "attn_tc.cuh"}
+    sources = {"decode_tc.cuh", "decode_g1.cuh", "flash_attention.cu", "attn_tc.cuh"}
     assert set(pv.MUTANTS) & set(pv.VARIANTS) == set()
     for name in pv.MUTANTS:
         changed = pv.patched_sources(name)
