@@ -29,7 +29,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    against the stated tolerance, the device
    times of kernel, plain version and a PyTorch library call where one
    computes the same function (CUDA events), and the least time the
-   card could take (bound); then correctness-only edge cases;
+   card could take (bound); then correctness-only edge cases; then the
+   same at Gemma-2-2B's q4_k_m and Gemma-3-4B's q4_0 shapes (every matmul
+   row at M = 1, 8 and a 512-row chunk; decode, paged decode and flash at
+   their heads, G = 2 and D = 256, with softcap and window);
 4. the main path at full width with random weights from a seed: Gemma-2B
    q4_0 (4), Gemma-2B q4_k_m (4b) and Gemma-7B q8_0 (4c): `Engine.prefill`
    of a 203-token prompt then `Engine.generate_from` for 32 greedy tokens
@@ -46,11 +49,21 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    (each token the plain argmax or within delta of the plain maximum),
    tokens a verify forward, wall tok/s against plain, device busy a verify
    forward against a plain step, and one block issued under
-   `set_sync_debug_mode("error")`;
-5. `python -m gemma_tpu_torch generate --device cuda` in a subprocess on a
-   tiny q4_0, q4_k_m and q8_0 GGUF, its printed text equal to the
-   in-process run's, and each tiny model on the card held against the same
-   model on the CPU (plain path); then `python -m gemma_tpu_torch serve
+   `set_sync_debug_mode("error")`; 4d: Gemma-2-2B q4_k_m and Gemma-3-4B
+   q4_0 at full width (sandwich norms, softcaps, QK-norm, split rope
+   bases, sliding windows), prompts of 4200 and 1200 tokens prefilled in
+   512-token chunks past their windows, then 32 greedy tokens, with exact
+   launch counts, weight GB, prefill ms, decode tok/s and the step's busy
+   and idle share; the kernels against the plain versions on the card
+   (bf16 within 2e-2 of the logits' scale, f32 greedy streams equal) and
+   the window shown to bind, at the logits and kernel by kernel at layer 0;
+5. `python -m gemma_tpu_torch generate --device cuda` in subprocesses, all
+   started at once, on tiny q4_0, q4_k_m and q8_0 GGUFs (TINY_RUNS: Gemma-1
+   geometry, and Gemma-2 and Gemma-3 at the kernels' widths in every
+   format), its printed text equal to the in-process run's (exact launch
+   counts), and each tiny model on the card held against the same model
+   on the CPU (plain path); the Gemma-2 and Gemma-3 models also served
+   dense and paged, streams equal, and paged f32 card against CPU; then `python -m gemma_tpu_torch serve
    --device cuda --paged --kv-quant` against the in-process `serve`, and
    serving on the card against the CPU in f32 over paged and paged int8
    caches; `generate --speculative` and `serve --speculative` likewise,
@@ -60,9 +73,12 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
    shuffled and admitted every 4 steps, which must give the same streams,
-   and over a paged bf16 cache of 64-token pages (streams compared with the
-   dense run's); all with exact launch counts (every paged decode call on
-   the tensor cores, at G = 1 on its core); then speculative serving of the same requests (Gemma-2B,
+   and over a paged bf16 cache of 64-token pages; 6c: Gemma-2-2B q4_k_m
+   and Gemma-3-4B q4_0 (16 requests of 48 tokens, Gemma-3-4B's cache 2048
+   slots with two 1100-token prompts past its window) over dense and paged
+   bf16; every paged run's streams equal to its dense run's; all with exact
+   launch counts (every paged decode call on the tensor cores, at G = 1
+   on its core); then speculative serving of the same requests (Gemma-2B,
    dense bf16 and int8, adaptive k; k = 7 in admission order and shuffled,
    which must give the same streams), each stream teacher-forced through
    plain decode against phase 4's delta, and a batched block under
@@ -561,22 +577,28 @@ def held_attention(torch, kind, desc, kernel, plain, library=None, nbytes=0, flo
     return r, got
 
 
-def decode_cost(limits, hq, hkv, kv_bytes=2 * HEAD_DIM * 2):
+def decode_cost(limits, hq, hkv, kv_bytes=2 * HEAD_DIM * 2, window=0):
     """(bytes, flops) of decode attention: the live keys' K and V (int8:
-    and their scales), q, out and the limits; QK and PV products."""
+    and their scales), q, out and the limits; QK and PV products. With a
+    window, a row's live keys are its last `window`."""
     D = HEAD_DIM
-    live = sum(limits)
+    live = sum(min(n, window) if window else n for n in limits)
     return live * hkv * kv_bytes + 2 * len(limits) * hq * D * 2 + len(limits) * 4, 4 * hq * D * live
 
 
-def flash_cost(pos, limit, hq, hkv):
+def flash_cost(pos, limit, hq, hkv, window=0):
     """(bytes, flops) of prefill attention of rows at positions `pos`
     (consecutive) below `limit`: q, the live keys' K and V, out and
-    positions; the query at p sees min(p + 1, limit) keys."""
+    positions; the query at p sees the keys below min(p + 1, limit) and,
+    with a window, above p - window."""
     D = HEAD_DIM
     T = len(pos)
-    seen = sum(min(int(p_) + 1, limit) for p_ in pos)
-    live = min(int(pos[-1]) + 1, limit)
+
+    def lo(p_):
+        return max(0, int(p_) + 1 - window) if window else 0
+
+    seen = sum(max(0, min(int(p_) + 1, limit) - lo(p_)) for p_ in pos)
+    live = min(int(pos[-1]) + 1, limit) - lo(pos[0])
     return 2 * T * hq * D * 2 + 2 * live * hkv * D * 2 + T * 4, 4 * hq * D * seen
 
 
@@ -1166,6 +1188,112 @@ def check_serving_edge_cases(torch, dev) -> None:
                    + "; refused: " + "; ".join(refused))
 
 
+# Gemma-2-2B q4_k_m and Gemma-3-4B q4_0 (phases 4d and 6c), phase 3: (model,
+# format, its phase 4d prompt and cache). Their matmul rows at the decode
+# step's M = 1, the serving step's 8 and a prefill chunk's 512 (the head
+# at 1 and 8: prefill runs it at its last row); decode attention at their
+# heads (8 query heads over 4 KV heads, D = 256: G = 2 on the tensor-core
+# core) with softcap and window at the last decode step's limit, dense and
+# through 64-key pages (two rows, one past the window, one inside it);
+# flash over the prompt's last chunk, which crosses the window's lower edge
+ARCH_MODELS = (("Gemma-2-2B", "q4_k_m", 4200, 4608), ("Gemma-3-4B", "q4_0", 1200, 2048))
+ARCH_MS = (1, SERVE_SLOTS, PREFILL_CHUNK)
+
+
+def arch_matmul_rows(cfg, fmt: str) -> dict[str, list]:
+    """{format: [(name, N, K, Ms)]} of one decode forward of `cfg` in
+    `fmt`: q4_0 fuses q|k|v and gate|up; q4_k_m is q4_k with q6_k attn_v
+    and the tied head."""
+    d, q, kv, ff, V = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff, cfg.vocab_size
+    head = ("head", V, d, (1, SERVE_SLOTS))
+    if fmt == "q4_0":
+        return {"q4_0": [(n, N, K, ARCH_MS) for n, N, K in (
+            ("qkv", q + 2 * kv, d), ("attn_out", d, q), ("gate_up", 2 * ff, d), ("down", d, ff))] + [head]}
+    return {"q4_k": [(n, N, K, ARCH_MS) for n, N, K in (
+                ("attn_q", q, d), ("attn_k", kv, d), ("attn_out", d, q), ("gate_up", 2 * ff, d),
+                ("down", d, ff))],
+            "q6_k": [("attn_v", kv, d, ARCH_MS), head]}
+
+
+def check_arch_kernels(torch, dev) -> dict[str, dict]:
+    """Phase 3 at ARCH_MODELS' shapes: each matmul row (`check_matmul`: L2
+    cold, bound, library), decode attention (G = 2, D = 256, softcap and
+    window, S the phase 4d cache) against its plain version and SDPA, the
+    same rows through 64-key pages equal bit for bit to decode on the
+    gathered rows, and flash over the prompt's last 512-token chunk. The
+    bounds count only the keys a window leaves. Returns {kernel: {model:
+    reading}}."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    readings: dict[str, dict] = {}
+    D = HEAD_DIM
+    for model_name, fmt, prompt_len, S in ARCH_MODELS:
+        cfg = model_config(model_name)
+        for f, rows in arch_matmul_rows(cfg, fmt).items():
+            rep = rows[-1][0] if f == "q6_k" else "gate_up"
+            readings.setdefault(f"{f}_matmul", {})[model_name] = check_matmul(torch, f, rows, rep, gen, dev)
+        hq, hkv, cap, window = cfg.n_heads, cfg.n_kv_heads, cfg.attn_softcap, cfg.sliding_window
+        limit = prompt_len + NEW_TOKENS
+        route = "{}, {} keys a block".format(*att.decode_route(torch.bfloat16, hq // hkv, S))
+        q = (torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        k, v = ((torch.randn(1, hkv, S, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+                for _ in range(2))
+        lim = torch.tensor([limit], dtype=torch.int32, device=dev)
+        key = torch.arange(S, device=dev)
+        valid = ((key < limit) & (key > limit - 1 - window))[None, None]
+        tc_before = att.decode_attention.tc_launches
+        r, _ = held_attention(torch, "decode_attention", f"{model_name} S={S} limit={limit} Hq={hq} "
+                                                         f"Hkv={hkv} softcap={cap} window={window} "
+                                                         f"({route})",
+                              lambda: att.decode_attention(q, k, v, lim, cap, window),
+                              lambda: att.decode_attention_plain(q, k, v, lim, cap, window),
+                              lambda: sdpa_ms(torch, q, k, v, valid),
+                              *decode_cost([limit], hq, hkv, window=window))
+        require(att.decode_attention.tc_launches > tc_before, f"decode {model_name}: off the tensor cores")
+        readings.setdefault("decode_attention", {})[model_name] = r
+        limits = [limit, window // 2]
+        pq, cache, plim = paged_inputs(gen, dev, 2, hq, hkv, D, PAGE, limits, 2 * S // PAGE + 1, S, False)
+        proute = pat.paged_route(torch.bfloat16, hq // hkv, PAGE, S)
+        tc_before = pat.paged_decode_attention.tc_launches
+        r, got = held_attention(torch, "paged_attention", f"{model_name} S={S} ps={PAGE} limits={limits} "
+                                                          f"softcap={cap} window={window} ({proute[0]}, "
+                                                          f"{proute[1]} keys a block)",
+                                lambda: pat.paged_decode_attention(pq, cache, 0, plim, cap, window),
+                                lambda: pat.paged_decode_attention_plain(pq, cache, 0, plim, cap, window),
+                                lambda: None, *decode_cost(limits, hq, hkv, window=window))
+        require(proute[0] == "tc" and pat.paged_decode_attention.tc_launches > tc_before,
+                f"paged {model_name}: took the {proute[0]} route, not the tensor cores")
+        kd, vd = (x.contiguous() for x in cache.layer_kv(0)[:2])
+        same = torch.equal(got, att.decode_attention(pq, kd, vd, plim, cap, window))
+        info("kernel", f"paged_attention {model_name}: equal bit for bit to decode_attention on the "
+                       f"gathered rows: {same}")
+        require(same, f"paged {model_name}: differs from decode_attention on the gathered rows")
+        readings.setdefault("paged_attention", {})[model_name] = r
+        start = (prompt_len - 1) // PREFILL_CHUNK * PREFILL_CHUNK
+        pos = torch.arange(start, prompt_len, device=dev)
+        T = len(pos)
+        qf = (torch.randn(1, T, hq, D, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        positions = pos.to(torch.int32)[None]
+        flim = torch.tensor([prompt_len], dtype=torch.int32, device=dev)
+        fvalid = ((key[None, None] <= pos[None, :, None]) & (key < prompt_len)
+                  & (key > pos[None, :, None] - window))
+        r, _ = held_attention(torch, "flash_attention", f"{model_name} last chunk T={T} from {start} "
+                                                        f"S={S} limit={prompt_len} Hq={hq} Hkv={hkv} "
+                                                        f"softcap={cap} window={window}",
+                              lambda: att.flash_attention(qf, k, v, positions, flim, cap, window),
+                              lambda: att.flash_attention_plain(qf, k, v, positions, flim, cap, window),
+                              lambda: sdpa_ms(torch, qf, k, v, fvalid),
+                              *flash_cost(pos.tolist(), prompt_len, hq, hkv, window))
+        readings.setdefault("flash_attention", {})[model_name] = r
+        del k, v, cache, pq
+        torch.cuda.empty_cache()
+    return readings
+
+
 def reset_counters() -> None:
     for _, op, attr in _counters():
         setattr(op, attr, 0)
@@ -1301,8 +1429,8 @@ def expected_forward_launches(cfg, fmt: str, prefills: int, decode_steps: int,
     return counts
 
 
-def decode_route(cfg, paged: bool = False):
-    """The decode kernel's route for `cfg`'s bf16 queries over a MAX_SEQ_LEN
+def decode_route(cfg, paged: bool = False, S: int = MAX_SEQ_LEN):
+    """The decode kernel's route for `cfg`'s bf16 queries over an S-slot
     cache, dense or of PAGE-key pages."""
     import torch
 
@@ -1311,15 +1439,36 @@ def decode_route(cfg, paged: bool = False):
 
     G = cfg.n_heads // cfg.n_kv_heads
     if paged:
-        return pat.paged_route(torch.bfloat16, G, PAGE, MAX_SEQ_LEN)
-    return att.decode_route(torch.bfloat16, G, MAX_SEQ_LEN)
+        return pat.paged_route(torch.bfloat16, G, PAGE, S)
+    return att.decode_route(torch.bfloat16, G, S)
+
+
+# the GGUF architecture of each model by its printed name: Gemma-2B and
+# Gemma-7B (gemma_tpu_torch.models), Gemma-2-2B and Gemma-3-4B
+# (gemma_tpu_torch.testing; phases 3, 4d and 6c)
+MODEL_ARCH = {"Gemma-2B": "gemma", "Gemma-7B": "gemma", "Gemma-2-2B": "gemma2", "Gemma-3-4B": "gemma3"}
 
 
 def model_config(name: str):
-    """GEMMA_2B or GEMMA_7B of gemma_tpu_torch.models by its printed name."""
+    """The full-width config of a model by its printed name (MODEL_ARCH)."""
     from gemma_tpu_torch.models import GEMMA_2B, GEMMA_7B
+    from gemma_tpu_torch.testing import GEMMA2_2B, GEMMA3_4B
 
-    return {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B}[name]
+    return {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B, "Gemma-2-2B": GEMMA2_2B,
+            "Gemma-3-4B": GEMMA3_4B}[name]
+
+
+def make_model(name: str, fmt: str, dev):
+    """A model by its printed name at full width, random weights from seed 0
+    in `fmt`, with its architecture's norms, on `dev`. Gemma-2 and Gemma-3
+    models take make_params' centred q4_0 nibbles, on which their sliding
+    windows move the output (phase 4d; on uniform nibbles a 1024-key window
+    moved Gemma-3-4B's logits by 6e-4 of their scale); Gemma-2B and
+    Gemma-7B keep the draws their phases' tolerances were set on."""
+    from gemma_tpu_torch.testing import make_params
+
+    arch = MODEL_ARCH[name]
+    return make_params(model_config(name), fmt, seed=0, device=dev, arch=arch, centred=arch != "gemma")
 
 
 def main_path(torch, dev, card: str, model_name: str, fmt: str):
@@ -1335,7 +1484,7 @@ def main_path(torch, dev, card: str, model_name: str, fmt: str):
     model = make_params(cfg, fmt, seed=0, device=dev)
     weight_gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
     eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=1))
-    prompt = [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(PROMPT_LEN)]
+    prompt = prompt_tokens(cfg, PROMPT_LEN)
     eng.generate([prompt[:16]], 4)  # warm-up: first launches, allocator
     torch.cuda.synchronize()
 
@@ -1377,6 +1526,174 @@ def main_path(torch, dev, card: str, model_name: str, fmt: str):
     del eng, model
     torch.cuda.empty_cache()
     return counts, spec_counts, delta
+
+
+# phase 4d: (model, format, prompt tokens, cache slots) of ARCH_MODELS. The
+# prompts pass each model's window (Gemma-2-2B 4096 keys on even layers,
+# Gemma-3-4B 1024 on five layers of six) and prefill in PREFILL_CHUNK chunks
+# (9 and 3), so every sliding layer's window binds in prefill and decode.
+# bf16 logits are held to LONG_REL of their scale against the plain versions
+# on the card (phase 8's Gemma-7B standard); f32 greedy streams must be
+# equal, with max|dlogit| against the reference's 0.05
+LONG_REL = 2e-2
+
+
+def prompt_tokens(cfg, n: int) -> list[int]:
+    """The n-token prompt of phases 4-4d: token ids from a fixed recipe."""
+    return [2 + (i * 7919) % (cfg.vocab_size - 2) for i in range(n)]
+
+
+def replay(torch, eng, prompt: list[int], stream: list[int]):
+    """Prefill `prompt`, then decode each token of `stream`, on `eng`:
+    (layer 0's output, `blk.0.attn_out`, the residual after its attention,
+    at the prompt's last prefill chunk, and at the last step; the last
+    step's logits), as float tensors on the host."""
+    from gemma_tpu_torch.utils import tensor_dump
+
+    with tensor_dump.capture(["blk.0.attn_out"]) as cap:  # each chunk's; the last one stays
+        logits, cache = eng.prefill([prompt])
+    chunk = cap.values["blk.0.attn_out"]
+    for t in stream[:-1]:
+        logits, cache = eng.decode_step(torch.tensor([t], device=eng.device), cache)
+    with tensor_dump.capture(["blk.0.attn_out"]) as cap:
+        logits, _ = eng.decode_step(torch.tensor([stream[-1]], device=eng.device), cache)
+    return torch.from_numpy(chunk), torch.from_numpy(cap.values["blk.0.attn_out"]), logits[0].cpu()
+
+
+def long_context(torch, dev, card: str, model_name: str, fmt: str, prompt_len: int,
+                 max_seq_len: int) -> dict[str, int]:
+    """Phase 4d: `model_name` at full width with its architecture's norms,
+    a `prompt_len`-token prompt prefilled in PREFILL_CHUNK chunks into a
+    `max_seq_len`-slot cache, then NEW_TOKENS greedy tokens (`prefill` and
+    `generate_from`, as phases 4-4c), with exact launch counts (a flash
+    launch a layer a chunk, every decode call on the tensor-core core);
+    weight GB, prefill ms, decode tok/s and the decode step's device busy
+    and idle share. Then `verify_device_kernels` over the same prompt and
+    steps, the kernels against the plain versions on the card: bf16 within
+    LONG_REL of the logits' scale, its greedy stream the run's; f32 (the
+    TF32 flash, tile and decode core, the f32 GEMV) with every argmax
+    equal, so the plain versions' greedy stream is the kernels', and
+    max|dlogit| within 0.05. Then the window must bind: the kernels'
+    last-step logits must differ by more than LONG_REL of the scale from
+    those of the same weights and stream with a window as wide as the cache
+    (`sliding_window = max_seq_len`: no key falls out, and each layer keeps
+    its rope base; 0 would also move Gemma-3's sliding layers to the global
+    base), so a kernel that ignored the window would fail the comparison
+    with the plain versions. The same holds kernel by kernel at layer 0, a
+    sliding layer of both models: its output at the prompt's last chunk
+    (flash) and at the last decode step lies within LONG_REL of its scale
+    of the plain versions' with the window (layer 0 run alone, with the
+    embedding and head) and moves by more than that when the window is
+    widened to the cache. Returns the bf16 run's launch counts."""
+    from gemma_tpu_torch.models import Gemma
+    from gemma_tpu_torch.runtime import Engine, EngineConfig
+    from gemma_tpu_torch.utils.verify import plain_versions, verify_device_kernels
+
+    cfg = model_config(model_name)
+    phase = f"long {model_name} {fmt}"
+    model = make_model(model_name, fmt, dev)
+    weight_gb = sum(b.numel() * b.element_size() for b in model.buffers()) / 1e9
+    ecfg = EngineConfig(max_seq_len=max_seq_len, max_batch=1, prefill_chunk=PREFILL_CHUNK)
+    eng = Engine(cfg, model, ecfg)
+    prompt = prompt_tokens(cfg, prompt_len)
+    chunks = -(-prompt_len // PREFILL_CHUNK)
+    eng.generate([prompt[:PREFILL_CHUNK + 88]], 4)  # warm-up: two chunks, decode steps
+    torch.cuda.synchronize()
+
+    reset_counters()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill([prompt])
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    require(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+            f"{phase}: prefill logits {tuple(logits.shape)}, or not finite")
+    t1 = time.perf_counter()
+    toks = eng.generate_from(logits, cache, NEW_TOKENS)[0]
+    t_decode = time.perf_counter() - t1
+    counts = read_counters()
+    expected = expected_forward_launches(cfg, fmt, chunks, NEW_TOKENS, "decode_attention")
+    step = {k: n for k, n in expected_forward_launches(cfg, fmt, 0, 1, "decode_attention").items() if n}
+    require(len(toks) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in toks),
+            f"{phase}: {len(toks)} tokens, or a token out of range")
+    busy, top = decode_profile(torch, eng, cache, toks[-1])
+    per_token = t_decode / NEW_TOKENS * 1e3
+    info(phase, f"{model_name} {fmt} ({weight_gb:.3f} GB of weights on the card), prompt {prompt_len} "
+                f"tokens in {chunks} chunks of {PREFILL_CHUNK} into {max_seq_len} slots (window "
+                f"{cfg.sliding_window}, pattern {cfg.swa_pattern}): prefill {t_prefill * 1e3:.2f} ms, "
+                f"decode {NEW_TOKENS} tokens in {t_decode:.3f} s = {NEW_TOKENS / t_decode:.2f} tok/s on "
+                f"{card}; decode step {per_token:.3f} ms wall, device busy {busy:.3f} ms (idle share "
+                f"{1 - busy / per_token:.3f}); a decode step launches {step}; launches {counts} "
+                f"(expected {expected}); device ms per token by kernel: {top}")
+    require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
+    del cache
+
+    for act in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        res = verify_device_kernels(dataclasses.replace(cfg, activation_dtype=act), model, prompt,
+                                    n_decode=NEW_TOKENS, max_seq_len=max_seq_len,
+                                    prefill_chunk=PREFILL_CHUNK)
+        want = expected_forward_launches(cfg, fmt, chunks, NEW_TOKENS, "decode_attention")
+        if act == "float32":  # the TF32 flash, tile and decode core, the f32 GEMV
+            want["flash_attention_tc"] = want["decode_attention_tc"] = 0
+            f32_route_launches(want, cfg, fmt, chunks, head=False)
+        info(phase, f"{act} kernels against the plain versions on {card} over the prefill and "
+                    f"{NEW_TOKENS} decode steps ({time.perf_counter() - t0:.1f} s): max|dlogit| "
+                    f"{res['max_abs']:.4e} ({res['max_abs'] / res['scale']:.3e} of the logits' scale "
+                    f"{res['scale']:.3f}; tol {LONG_REL:g} of it in bf16, the reference's 0.05 "
+                    f"{'holds' if res['max_abs'] <= 0.05 else 'does not hold'}); every argmax "
+                    f"equal: {res['argmax_agree']}; per step "
+                    + ", ".join(f"{x:.2e}" for x in res["steps"]))
+        require(res["kernel_launches"] == want,
+                f"{phase} {act}: launch counts {res['kernel_launches']} != expected {want}")
+        require(not any(res["plain_launches"].values()),
+                f"{phase} {act}: the plain side launched {res['plain_launches']}")
+        require(all(math.isfinite(x) for x in res["steps"]), f"{phase} {act}: logits are not finite")
+        if act == "bfloat16":
+            require(res["stream"] == toks, f"{phase}: verify's greedy stream differs from generate_from's")
+            require(res["max_abs"] <= LONG_REL * res["scale"],
+                    f"{phase} bf16: max|dlogit| {res['max_abs']} > {LONG_REL} of {res['scale']}")
+            scale = res["scale"]
+        else:
+            require(res["argmax_agree"] and res["max_abs"] <= 0.05,
+                    f"{phase} f32: the plain versions' greedy stream differs, or max|dlogit| "
+                    f"{res['max_abs']} > 0.05")
+
+    wide = dataclasses.replace(cfg, sliding_window=max_seq_len)
+    got, got_wide = (replay(torch, Engine(c, model, ecfg), prompt, toks) for c in (cfg, wide))
+    d_logits = (got[2] - got_wide[2]).abs().max().item()
+    one = dataclasses.replace(cfg, n_layers=1)  # layer 0 alone, with the embedding and head
+    first = Gemma(one, model.embed, model.final_norm.weight, [dict(model.layers[0].named_children())])
+    with plain_versions():
+        want = replay(torch, Engine(one, first, ecfg), prompt, toks)
+    line = []
+    for where, g, w, gw in zip(("the prompt's last chunk (flash)", "the last decode step"), got[:2],
+                               want[:2], got_wide[:2]):
+        sc, err, moved = w.abs().max().item(), (g - w).abs().max().item(), (g - gw).abs().max().item()
+        line.append(f"{where}: kernels against plain versions {err:.4e}, against the kernels with a "
+                    f"{max_seq_len}-key window {moved:.4e} (tol {LONG_REL * sc:.4e}, {LONG_REL:g} of "
+                    f"the scale {sc:.3f})")
+        require(err <= LONG_REL * sc < moved, f"{phase}: layer 0 at {where}: kernels against plain "
+                                              f"{err}, window moved it {moved}, tol {LONG_REL * sc}")
+    info(phase, f"the window binds: last-step logits with window {cfg.sliding_window} against a "
+                f"{max_seq_len}-key window (no key falls out) max|dlogit| {d_logits:.4e} "
+                f"({d_logits / scale:.3e} of the scale, tol {LONG_REL:g}); layer 0's output at "
+                + "; at ".join(line))
+    require(d_logits > LONG_REL * scale, f"{phase}: the window moves the last-step logits by "
+                                         f"{d_logits} <= {LONG_REL} of {scale}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def long_contexts(torch, dev, card: str) -> dict[str, int]:
+    """Phase 4d: `long_context` of each of ARCH_MODELS, one model at a time,
+    each model's phase time printed. Returns the bf16 runs' launches, summed."""
+    total: dict[str, int] = {}
+    for model_name, fmt, prompt_len, max_seq_len in ARCH_MODELS:
+        t0 = time.perf_counter()
+        add_counts(total, long_context(torch, dev, card, model_name, fmt, prompt_len, max_seq_len))
+        info("time", f"phase 4d {model_name} {fmt} took {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def spec_prompt(cfg) -> list[int]:
@@ -1519,15 +1836,18 @@ def no_sync(torch, fn, what: str) -> None:
     info("sync", f"{what}: no host sync under set_sync_debug_mode('error')")
 
 
-def serve_requests(cfg):
-    """Phase 6's requests: prompt lengths cycling SERVE_PROMPT_LENS, token
-    ids from a fixed recipe, SERVE_NEW_TOKENS greedy tokens each, no EOS."""
+def serve_requests(cfg, n: int = SERVE_REQUESTS, new_tokens: int = SERVE_NEW_TOKENS,
+                   long: dict[int, int] | None = None):
+    """Phase 6's requests: `n` of them, prompt lengths cycling
+    SERVE_PROMPT_LENS (request r of `long` has long[r] tokens instead),
+    token ids from a fixed recipe, `new_tokens` greedy tokens each, no EOS."""
     from gemma_tpu_torch.runtime import Request
 
+    long = long or {}
     return [Request(f"r{r}", [2 + (r * 104729 + i * 7919) % (cfg.vocab_size - 2)
-                              for i in range(SERVE_PROMPT_LENS[r % len(SERVE_PROMPT_LENS)])],
-                    max_new_tokens=SERVE_NEW_TOKENS)
-            for r in range(SERVE_REQUESTS)]
+                              for i in range(long.get(r, SERVE_PROMPT_LENS[r % len(SERVE_PROMPT_LENS)]))],
+                    max_new_tokens=new_tokens)
+            for r in range(n)]
 
 
 # phase 6's caches: (name, EngineConfig options, decode attention counter)
@@ -1549,34 +1869,47 @@ SERVE_7B_RUNS = (
     ("dense bf16, shuffled, block 4", {"block": 4, "shuffle_seed": 1}, "decode_attention"),
     SERVE_RUNS[2],
 )
+# phase 6c: ARCH_MODELS through `serve`, 8 slots, over dense and paged bf16
+# (64-key pages), every paged stream equal to its dense stream (the paged
+# route is the dense core on the gathered rows): (model, format, cache
+# slots, {request: prompt tokens}). Gemma-3-4B's two 1100-token prompts
+# pass its 1024-key window, so the window binds in a paged row
+ARCH_SERVE_REQUESTS, ARCH_SERVE_NEW_TOKENS = 16, 48
+ARCH_SERVE_RUNS = (SERVE_RUNS[0], SERVE_RUNS[2])
+ARCH_SERVE_MODELS = (("Gemma-2-2B", "q4_k_m", MAX_SEQ_LEN, {}),
+                     ("Gemma-3-4B", "q4_0", 2048, {5: 1100, 13: 1100}))
 
 
 def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
-            spec_delta: float | None = None) -> dict[str, dict[str, int]]:
-    """Phases 6 (Gemma-2B q4_0, the four caches of SERVE_RUNS) and 6b
-    (Gemma-7B q8_0, SERVE_7B_RUNS): `serve` at full width, weights from
-    make_params(seed=0), SERVE_SLOTS slots, max_seq_len 512, blocks of
-    SERVE_BLOCK (or a run's "block"), greedy; a run with "shuffle_seed"
-    submits the requests shuffled and must give the first run's streams.
-    With `spec_delta`, the speculative runs follow (`spec_serving`).
-    Returns each run's launch counts."""
+            spec_delta: float | None = None, make_requests=serve_requests,
+            max_seq_len: int = MAX_SEQ_LEN, profile: bool = True) -> dict[str, dict[str, int]]:
+    """Phases 6 (Gemma-2B q4_0, the four caches of SERVE_RUNS), 6b
+    (Gemma-7B q8_0, SERVE_7B_RUNS) and 6c (ARCH_SERVE_MODELS): `serve` at
+    full width, weights from make_params(seed=0), SERVE_SLOTS slots,
+    `max_seq_len` slots a sequence, the requests of `make_requests(cfg)`,
+    blocks of SERVE_BLOCK (or a run's "block"), greedy; a run with
+    "shuffle_seed" submits the requests shuffled and must give the first
+    run's streams; the paged bf16 run's streams must equal the dense bf16
+    run's (the paged route is the dense core on the gathered rows). With
+    `spec_delta`, the speculative runs follow (`spec_serving`); with
+    `profile`, a profiled dense run (`serving_profile`). Returns each run's
+    launch counts."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
-    from gemma_tpu_torch.testing import make_params
 
     cfg = model_config(model_name)
-    model = make_params(cfg, fmt, seed=0, device=dev)
+    model = make_model(model_name, fmt, dev)
     streams, counts_by_run, rates = {}, {}, {}
     for name, options, decode_kernel in runs:
         phase = f"serve {model_name} {fmt} {name}"
         options = dict(options)
         block, shuffle_seed = options.pop("block", SERVE_BLOCK), options.pop("shuffle_seed", None)
-        eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=SERVE_SLOTS,
+        eng = Engine(cfg, model, EngineConfig(max_seq_len=max_seq_len, max_batch=SERVE_SLOTS,
                                               **options))
+        reqs = make_requests(cfg)
         if not streams:  # first launches and allocations of the serving path
-            warm = serve_requests(cfg)[:4]
-            serve(eng, [Request(r.id, r.prompt, 8) for r in warm], block=SERVE_BLOCK)
+            serve(eng, [Request(r.id, r.prompt[:SERVE_PROMPT_LENS[-1]], 8) for r in reqs[:4]],
+                  block=SERVE_BLOCK)
             torch.cuda.synchronize()
-        reqs = serve_requests(cfg)
         if shuffle_seed is not None:
             random.Random(shuffle_seed).shuffle(reqs)
         reset_counters()
@@ -1586,26 +1919,27 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
         wall = time.perf_counter() - t0
         counts = read_counters()
         st = sched.stats()
-        require(len(sched.finished) == SERVE_REQUESTS and all(
-            len(r.tokens) == SERVE_NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in r.tokens)
-            for r in sched.finished), f"{phase}: not every request finished with "
-                                      f"{SERVE_NEW_TOKENS} in-range tokens")
+        require(len(sched.finished) == len(reqs) and all(
+            len(r.tokens) == r.max_new_tokens and all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in sched.finished), f"{phase}: not every request finished with its in-range tokens")
         require(bool(torch.isfinite(sched._logits).all()), f"{phase}: logits are not finite")
         chunk = options.get("prefill_chunk", 0)
         prefills = sum(-(-len(r.prompt) // chunk) if chunk and len(r.prompt) > chunk else 1
                        for r in reqs)
         expected = expected_forward_launches(cfg, fmt, prefills, st["decode_steps"],
                                              decode_kernel)
-        info(phase, f"{model_name} {fmt}, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x "
-                    f"{SERVE_NEW_TOKENS} tokens, prompts {SERVE_PROMPT_LENS}, block {block} "
-                    f"on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate (tokens / wall), "
+        lens = sorted({len(r.prompt) for r in reqs})
+        info(phase, f"{model_name} {fmt}, {SERVE_SLOTS} slots, {len(reqs)} requests x "
+                    f"{reqs[0].max_new_tokens} tokens, prompts {lens}, block {block}, {max_seq_len} "
+                    f"slots a sequence on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate "
+                    f"(tokens / wall), "
                     f"TTFT p50 {st['p50_ttft_s'] * 1e3:.1f} ms p99 {st['p99_ttft_s'] * 1e3:.1f} ms, "
                     f"wall {wall:.3f} s, decode steps {st['decode_steps']}, tokens discarded "
                     f"{st['tokens_discarded']}, admission forwards {prefills}; launches {counts}")
         require(counts == expected, f"{phase}: launch counts {counts} != expected {expected}")
         # every decode call on its route's one-launch core: the tensor cores, or at G = 1 its own
         op = "paged_attention" if decode_kernel.startswith("paged_attention") else "decode_attention"
-        core = f"{op}_{decode_route(cfg, paged=op == 'paged_attention')[0]}"
+        core = f"{op}_{decode_route(cfg, paged=op == 'paged_attention', S=max_seq_len)[0]}"
         require(counts.get(core, 0) == counts[decode_kernel] > 0,
                 f"{phase}: {counts.get(core, 0)} of {counts[decode_kernel]} decode calls took {core}")
         streams[name] = {r.id: r.tokens for r in sched.finished}
@@ -1623,6 +1957,8 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
         info("serve", f"{model_name} {fmt}: share of first tokens equal to the dense bf16 run's: "
                       f"{firsts}; {same} of {len(dense)} paged bf16 streams equal to the dense bf16 "
                       f"streams ({same / len(dense):.3f})")
+        require(same == len(dense),
+                f"serve {model_name} {fmt}: {len(dense) - same} paged streams differ from dense")
     require(all(v == 1.0 for v in firsts.values()), f"serve: first tokens differ across runs {firsts}")
     for name, options, _ in runs:
         if "shuffle_seed" in options:
@@ -1634,10 +1970,27 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
     if spec_delta is not None:
         counts_by_run.update(spec_serving(torch, card, model_name, cfg, model, fmt, spec_delta, rates))
         sampled_serving(torch, dev, card, model_name, cfg, model, fmt)
-    serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
+    if profile:
+        serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
     del model
     torch.cuda.empty_cache()
     return counts_by_run
+
+
+def arch_serving(torch, dev, card: str) -> dict[str, int]:
+    """Phase 6c: `serving` of each of ARCH_SERVE_MODELS over ARCH_SERVE_RUNS,
+    each model's phase time printed. Returns the runs' launches, summed."""
+    total: dict[str, int] = {}
+    for model_name, fmt, max_seq_len, long in ARCH_SERVE_MODELS:
+        t0 = time.perf_counter()
+        served = serving(torch, dev, card, model_name, fmt, runs=ARCH_SERVE_RUNS,
+                         make_requests=lambda cfg: serve_requests(cfg, ARCH_SERVE_REQUESTS,
+                                                                  ARCH_SERVE_NEW_TOKENS, long),
+                         max_seq_len=max_seq_len, profile=False)
+        for counts in served.values():
+            add_counts(total, counts)
+        info("time", f"phase 6c {model_name} {fmt} took {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 # phase 6's non-greedy run: the sampler's three filters at once
@@ -1979,64 +2332,127 @@ def tiny_spec_checks(torch, dev) -> None:
                  f"({st['spec_forwards']} verify forwards, {st['total_tokens']} tokens)")
 
 
-def tiny_checks(torch, dev, weight_type: str, config_name: str) -> None:
+# phase 5's tiny models: (format, config of gemma_tpu_torch.testing, GGUF
+# architecture). TINY_KERNEL_CONFIG (MQA, every K a multiple of 256) for
+# q4_0 and q4_k_m, TINY_MHA_CONFIG (multi-head, q_dim != d_model) for q8_0;
+# then Gemma-2 and Gemma-3 at the kernels' widths (G = 2 and 4, 16-key
+# windows, softcaps, QK-norm, split rope bases) in every format, their
+# streams longer than the window, also served dense and paged
+TINY_RUNS = (("q4_0", "TINY_KERNEL_CONFIG", "gemma"), ("q4_k_m", "TINY_KERNEL_CONFIG", "gemma"),
+             ("q8_0", "TINY_MHA_CONFIG", "gemma"),
+             *((fmt, name, arch) for name, arch in (("TINY_GEMMA2_KERNEL_CONFIG", "gemma2"),
+                                                    ("TINY_GEMMA3_KERNEL_CONFIG", "gemma3"))
+               for fmt in ("q4_0", "q4_k_m", "q8_0")))
+TINY_PROMPT = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
+TINY_NEW_TOKENS = 16
+TINY_PAGE = 16
+
+
+def tiny_checks(torch, dev, runs=TINY_RUNS) -> None:
     """Phase 5: the CLI on the card, and the card against the CPU, on a tiny
-    model of `config_name` in gemma_tpu_torch.testing: TINY_KERNEL_CONFIG
-    (MQA, every K a multiple of 256) for q4_0 and q4_k_m, TINY_MHA_CONFIG
-    (multi-head, q_dim != d_model) for q8_0."""
+    GGUF of each of `runs` (`make_gguf(..., arch=)`). Every file's `generate
+    --device cuda` subprocess starts first, all at once; then each model in
+    process: TINY_NEW_TOKENS greedy tokens from TINY_PROMPT with exact launch
+    counts, the CLI's text equal to theirs; f32 prefill logits within 1e-3
+    of scale of the same model on the CPU and the greedy streams equal; bf16
+    within 5e-2. A Gemma-2 or Gemma-3 model (16-key window: the stream
+    passes it) is also served through `serve` on the card over dense and
+    paged (TINY_PAGE-key pages) bf16 caches with exact launch counts and
+    equal streams, and over a paged f32 cache equal to the CPU's streams."""
     from gemma_tpu_torch import cli, testing
     from gemma_tpu_torch.runtime import Engine, EngineConfig
 
-    tiny_cfg = getattr(testing, config_name)
-    prompt = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
-    n_new = 16
-    moved = [name for name, n in expected_launches(tiny_cfg, weight_type).items() if n]
     with tempfile.TemporaryDirectory() as tmp:
-        path = testing.make_gguf(Path(tmp) / "tiny.gguf", tiny_cfg, seed=0,
-                                 weight_type=weight_type)
-        before = read_counters()
-        proc = subprocess.run(
-            [sys.executable, "-m", "gemma_tpu_torch", "generate", str(path), "--device", "cuda",
-             "--tokens", ",".join(map(str, prompt)), "--max-new-tokens", str(n_new),
-             "--no-eos"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        require(proc.returncode == 0, f"CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        procs = []
+        for weight_type, config_name, arch in runs:
+            path = testing.make_gguf(Path(tmp) / f"{config_name}_{weight_type}.gguf",
+                                     getattr(testing, config_name), seed=0, weight_type=weight_type,
+                                     arch=arch)
+            procs.append((path, subprocess.Popen(
+                [sys.executable, "-m", "gemma_tpu_torch", "generate", str(path), "--device", "cuda",
+                 "--tokens", ",".join(map(str, TINY_PROMPT)), "--max-new-tokens",
+                 str(TINY_NEW_TOKENS), "--no-eos"],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            for (weight_type, config_name, arch), (path, proc) in zip(runs, procs):
+                cfg, model_gpu, tok = cli.load(path, dev)
+                _, model_cpu, _ = cli.load(path, "cpu")
+                reset_counters()
+                gpu_toks = Engine(cfg, model_gpu, EngineConfig(max_seq_len=256)).generate(
+                    [TINY_PROMPT], TINY_NEW_TOKENS)[0]
+                counts = read_counters()
+                expected = expected_forward_launches(cfg, weight_type, 1, TINY_NEW_TOKENS,
+                                                     "decode_attention")
+                require(counts == expected, f"tiny {weight_type} {config_name}: launch counts {counts} "
+                                            f"!= expected {expected}")
+                text = tok.decode(gpu_toks)
+                out, cli_err = proc.communicate(timeout=600)
+                require(proc.returncode == 0, f"CLI failed ({proc.returncode}):\n{cli_err[-4000:]}")
+                require(out == text + "\n", f"CLI printed {out!r}, in-process run {text!r}")
 
-        cfg, model_gpu, tok = cli.load(path, dev)
-        _, model_cpu, _ = cli.load(path, "cpu")
-        gpu_toks = Engine(cfg, model_gpu, EngineConfig(max_seq_len=256)).generate([prompt], n_new)[0]
-        after = read_counters()
-        require(all(after[k] > before[k] for k in moved),
-                f"tiny {weight_type} run missed a kernel of {moved}: {before} -> {after}")
-        text = tok.decode(gpu_toks)
-        require(proc.stdout == text + "\n", f"CLI printed {proc.stdout!r}, in-process run {text!r}")
+                # f32 activations and cache: the kernels' f32 arms against the
+                # plain path on the CPU; identical products, sums in another order
+                cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+                ecfg32 = EngineConfig(max_seq_len=256, kv_dtype=torch.float32)
+                e_gpu, e_cpu = Engine(cfg32, model_gpu, ecfg32), Engine(cfg32, model_cpu, ecfg32)
+                lg, _ = e_gpu.prefill([TINY_PROMPT])
+                lc, _ = e_cpu.prefill([TINY_PROMPT])
+                err = (lg.cpu() - lc).abs().max().item()
+                tol = 1e-3 * lc.abs().max().item()
+                toks_g = e_gpu.generate([TINY_PROMPT], TINY_NEW_TOKENS)[0]
+                toks_c = e_cpu.generate([TINY_PROMPT], TINY_NEW_TOKENS)[0]
+                # bf16 activations: rounding points agree, rounding inputs differ
+                # in their last bits, so only the prefill logits' scale is held
+                lgb, _ = Engine(cfg, model_gpu, EngineConfig(max_seq_len=256)).prefill([TINY_PROMPT])
+                lcb, _ = Engine(cfg, model_cpu, EngineConfig(max_seq_len=256)).prefill([TINY_PROMPT])
+                err_b = (lgb.cpu() - lcb).abs().max().item()
+                tol_b = 5e-2 * lcb.abs().max().item()
+                served = tiny_serve(torch, cfg, model_gpu, model_cpu, weight_type) if arch != "gemma" else ""
+                info("tiny", f"{weight_type} {config_name} ({arch}): CLI on cuda: its "
+                             f"{TINY_NEW_TOKENS} tokens' text equals the in-process run's; launches "
+                             f"exact {({k: n for k, n in counts.items() if n})}; card vs CPU, f32: "
+                             f"prefill logits max|diff|={err:.3e} (tol {tol:.3e}), greedy streams "
+                             f"{'equal' if toks_g == toks_c else 'DIFFER'}; bf16: max|diff|={err_b:.3e} "
+                             f"(tol {tol_b:.3e}){served}")
+                require(err <= tol, f"f32 prefill logits card vs CPU: {err} > {tol}")
+                require(toks_g == toks_c, f"f32 greedy streams differ: {toks_g} vs {toks_c}")
+                require(err_b <= tol_b, f"bf16 prefill logits card vs CPU: {err_b} > {tol_b}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
-        # f32 activations and cache: the kernels' f32 arms against the plain
-        # path on the CPU; identical products, sums in another order
-        cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
-        ecfg32 = EngineConfig(max_seq_len=256, kv_dtype=torch.float32)
-        e_gpu, e_cpu = Engine(cfg32, model_gpu, ecfg32), Engine(cfg32, model_cpu, ecfg32)
-        lg, _ = e_gpu.prefill([prompt])
-        lc, _ = e_cpu.prefill([prompt])
-        err = (lg.cpu() - lc).abs().max().item()
-        tol = 1e-3 * lc.abs().max().item()
-        toks_g = e_gpu.generate([prompt], n_new)[0]
-        toks_c = e_cpu.generate([prompt], n_new)[0]
-        # bf16 activations: rounding points agree, rounding inputs differ in
-        # their last bits, so only the prefill logits' scale is held
-        lgb, _ = Engine(cfg, model_gpu, EngineConfig(max_seq_len=256)).prefill([prompt])
-        lcb, _ = Engine(cfg, model_cpu, EngineConfig(max_seq_len=256)).prefill([prompt])
-        err_b = (lgb.cpu() - lcb).abs().max().item()
-        tol_b = 5e-2 * lcb.abs().max().item()
-    info("tiny", f"{weight_type} {config_name}: CLI on cuda: its {n_new} tokens' text equals the in-process "
-                 f"run's; kernels {moved} launched; card vs CPU, "
-                 f"f32: prefill logits max|diff|={err:.3e} (tol {tol:.3e}), greedy streams "
-                 f"{'equal' if toks_g == toks_c else 'DIFFER'}; bf16: max|diff|={err_b:.3e} "
-                 f"(tol {tol_b:.3e})")
-    require(err <= tol, f"f32 prefill logits card vs CPU: {err} > {tol}")
-    require(toks_g == toks_c, f"f32 greedy streams differ: {toks_g} vs {toks_c}")
-    require(err_b <= tol_b, f"bf16 prefill logits card vs CPU: {err_b} > {tol_b}")
+
+def tiny_serve(torch, cfg, model_gpu, model_cpu, fmt: str) -> str:
+    """`serve` of a tiny model on the card: 6 requests of prompts up to 40
+    tokens and 12 tokens each, 4 slots, over dense and paged bf16 caches
+    (exact launches; paged on the tensor-core route, its streams the dense
+    ones), then over a paged f32 cache against the CPU's streams."""
+    from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
+
+    prompts = [[2 + (r * 31 + i * 7) % (cfg.vocab_size - 2) for i in range(n)]
+               for r, n in enumerate((5, 12, 17, 24, 33, 40))]
+    streams = {}
+    for name, opts, kernel in (("dense", {}, "decode_attention"),
+                               ("paged", {"paged": True, "page_size": TINY_PAGE}, "paged_attention")):
+        reset_counters()
+        sched = serve(Engine(cfg, model_gpu, EngineConfig(max_seq_len=128, max_batch=4, **opts)),
+                      [Request(f"r{i}", p, 12) for i, p in enumerate(prompts)], block=4)
+        counts = read_counters()
+        expected = expected_forward_launches(cfg, fmt, len(prompts), sched.stats()["decode_steps"], kernel)
+        require(counts == expected, f"tiny serve {name}: launch counts {counts} != expected {expected}")
+        streams[name] = {r.id: r.tokens for r in sched.finished}
+    require(streams["paged"] == streams["dense"], f"tiny serve: paged streams {streams['paged']} != "
+                                                  f"dense {streams['dense']}")
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    ecfg32 = EngineConfig(max_seq_len=128, max_batch=4, kv_dtype=torch.float32, paged=True,
+                          page_size=TINY_PAGE)
+    gpu, cpu = ({r.id: r.tokens for r in serve(Engine(cfg32, m, ecfg32), [Request(f"r{i}", p, 12)
+                 for i, p in enumerate(prompts)], block=4).finished} for m in (model_gpu, model_cpu))
+    require(gpu == cpu, f"tiny f32 paged serving: card {gpu} != CPU {cpu}")
+    return (f"; serve dense and paged bf16: {len(prompts)} streams equal, launches exact; paged f32 "
+            f"card vs CPU streams equal")
 
 
 # phase 7: the decode-GEMV instruments, kernels of the reference's tools/
@@ -2837,7 +3253,6 @@ def check_gemv_f32(torch, dev, cold) -> dict[str, dict]:
 # phase 8's tiny files: those of phase 5
 TINY_FILES = (("q4_0", "TINY_KERNEL_CONFIG"), ("q4_k_m", "TINY_KERNEL_CONFIG"),
               ("q8_0", "TINY_MHA_CONFIG"))
-TINY_PROMPT = [1, 7, 300, 42, 260, 9, 77, 5, 400, 13, 2, 100]
 
 
 def quality_cli(torch, dev) -> None:
@@ -3897,8 +4312,12 @@ def run() -> dict:
                    if built is not None else "kernel library already built")
          + f" ({time.perf_counter() - t0:.1f} s to load): {build.library_path().name}")
 
+    last = [time.perf_counter()]
+
     def done(phase: str) -> None:
-        info("time", f"{phase} done at {time.perf_counter() - t0:.1f} s")
+        now = time.perf_counter()
+        info("time", f"{phase} took {now - last[0]:.1f} s, done at {now - t0:.1f} s")
+        last[0] = now
 
     results = check_kernels(torch, dev)
     results.update(check_tf32_routes(torch, dev))
@@ -3908,6 +4327,9 @@ def run() -> dict:
     check_edge_cases(torch, dev)
     check_serving_edge_cases(torch, dev)
     done("kernels (phase 3)")
+    for name, by_model in check_arch_kernels(torch, dev).items():
+        results[name]["arch"] = by_model
+    done("Gemma-2-2B and Gemma-3-4B kernels (phase 3)")
     # each path's launches: the plain generation's, plus its speculative run's
     counts_q4_0, spec_q4_0, delta = main_path(torch, dev, card, "Gemma-2B", "q4_0")
     counts, spec, _ = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
@@ -3918,10 +4340,9 @@ def run() -> dict:
     counts["q8_0_matmul"] = counts_7b["q8_0_matmul"] + spec_7b["q8_0_matmul"]
     counts["decode_attention_g1"] = counts_7b["decode_attention_g1"] + spec_7b["decode_attention_g1"]
     done("Gemma-7B q8_0 generation (phase 4c)")
-    for weight_type, config_name in (("q4_0", "TINY_KERNEL_CONFIG"),
-                                     ("q4_k_m", "TINY_KERNEL_CONFIG"),
-                                     ("q8_0", "TINY_MHA_CONFIG")):
-        tiny_checks(torch, dev, weight_type, config_name)
+    add_counts(counts, long_contexts(torch, dev, card))
+    done("Gemma-2-2B and Gemma-3-4B past their windows (phase 4d)")
+    tiny_checks(torch, dev)
     tiny_serving_checks(torch, dev)
     tiny_spec_checks(torch, dev)
     done("tiny checks (phase 5)")
@@ -3935,6 +4356,8 @@ def run() -> dict:
     served_7b = serving(torch, dev, card, "Gemma-7B", "q8_0", runs=SERVE_7B_RUNS)
     counts["paged_attention_g1"] = served_7b["paged bf16"]["paged_attention_g1"]
     done("Gemma-7B q8_0 serving (phase 6b)")
+    add_counts(counts, arch_serving(torch, dev, card))
+    done("Gemma-2-2B and Gemma-3-4B serving (phase 6c)")
     results.update(check_tool_kernels(torch, dev))
     counts.update(run_tools(dev))
     done("decode-GEMV instruments (phase 7)")

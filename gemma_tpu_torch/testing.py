@@ -13,6 +13,7 @@ carries a reference KV cache's state into the port's, as
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from pathlib import Path
 
@@ -63,6 +64,40 @@ TINY_MHA_CONFIG = GemmaConfig(
     vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=4,
     head_dim=128, d_ff=512, context_length=256,
 )
+
+# Gemma-2 and Gemma-3 at the kernels' widths: TINY_KERNEL_CONFIG's geometry
+# with their attention features, so the CUDA kernels take them (G = 2 and
+# 4, q_dim 512 != d_model 256; every K a multiple of 256 for q4_k_m).
+# Gemma-2: sandwich norms, both softcaps, a 16-key window on even layers.
+TINY_GEMMA2_KERNEL_CONFIG = dataclasses.replace(
+    TINY_KERNEL_CONFIG, n_heads=4, n_kv_heads=2,
+    sliding_window=16, swa_pattern=2, attn_softcap=50.0, final_softcap=30.0,
+)
+# Gemma-3: QK-norm, sandwich norms, five sliding layers to one global,
+# split rope bases with linear scaling on the global layer.
+TINY_GEMMA3_KERNEL_CONFIG = dataclasses.replace(
+    TINY_KERNEL_CONFIG, n_layers=6, n_heads=4, n_kv_heads=1,
+    sliding_window=16, swa_pattern=6,
+    rope_base=1_000_000.0, rope_base_swa=10_000.0, rope_scale=1.0 / 8.0,
+)
+
+# Full-width Gemma-2 and Gemma-3 text models, the widths of their published
+# config.json files (google/gemma-2-2b; google/gemma-3-4b-pt's text_config),
+# for fabricated full-width runs on the card. Both scale queries by
+# query_pre_attn_scalar 256 ** -0.5, which is head_dim ** -0.5 here.
+GEMMA2_2B = GemmaConfig(
+    vocab_size=256000, d_model=2304, n_layers=26, n_heads=8, n_kv_heads=4,
+    head_dim=256, d_ff=9216, context_length=8192,
+    sliding_window=4096, swa_pattern=2, attn_softcap=50.0, final_softcap=30.0,
+)
+GEMMA3_4B = GemmaConfig(
+    vocab_size=262144, d_model=2560, n_layers=34, n_heads=8, n_kv_heads=4,
+    head_dim=256, d_ff=10240, context_length=131072,
+    sliding_window=1024, swa_pattern=6,
+    rope_base=1_000_000.0, rope_base_swa=10_000.0, rope_scale=1.0 / 8.0,
+)
+# the GGUF architecture of each fabricated model's features
+ARCHS = ("gemma", "gemma2", "gemma3")
 
 
 def default_vocab(n: int) -> tuple[list[str], list[float], list[int]]:
@@ -182,23 +217,36 @@ def make_gguf(
 
 
 def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu",
-                tp: tuple[int, int] | None = None) -> Gemma:
+                tp: tuple[int, int] | None = None, arch: str = "gemma",
+                centred: bool = False) -> Gemma:
     """Fabricate a q4_0, q8_0 or q4_k_m model directly in the port's layout
     on `device`, from a seeded `torch.Generator` on the device.
 
     Payload bytes are uniform random. q4_0: each row's f16 scales are drawn
     around 1 / (4.6 sqrt(K)) (4.6 is the standard deviation of a uniform
     nibble minus 8); q8_0 around 1 / (73.9 sqrt(K)) (73.9 is that of a
-    uniform int8). q4_0 and q8_0 fuse q|k|v and gate|up and tie a head of
-    their own format. q4_k_m is the reference's recipe (q4_k matrices, q6_k
-    attn_v and the tied embedding/head, so q|k|v stay unfused): q4_k tables
-    hold random 6-bit sc and mn, with dmin = 7.5 d so a group's mean
-    offsets cancel on average; q6_k sub-scales are random int8. Each d is
-    drawn so a weight's standard deviation is about 1 / sqrt(K) (the
-    constants are the standard deviations of sc * q - 7.5 mn and sc * q),
-    so a projection keeps its input's scale and activations stay finite
-    through every layer. Norm weights are 1. Throughput does not depend on
-    the values.
+    uniform int8). With `centred`, q4_0's nibbles are uniform in 1..15
+    instead, so that q - 8 is symmetric about 0, as ggml's quantizer
+    centres them, and its scales are drawn around 1 / (4.32 sqrt(K)) (the
+    standard deviation of q - 8): uniform in 0..15, q - 8 has a mean of
+    -0.5, 11 % of its spread, which every projection of a random model
+    carries into a part shared by all positions, so that attention averages
+    hardly depend on which keys they see, and a sliding window moves next to
+    nothing (q8_0's mean of -0.5 is 0.7 % of its spread). q4_0 and q8_0 fuse
+    q|k|v and gate|up and tie a head of their own format. q4_k_m is the
+    reference's recipe (q4_k matrices, q6_k attn_v and the tied
+    embedding/head, so q|k|v stay unfused): q4_k tables hold random 6-bit
+    sc and mn, with dmin = 7.5 d so a group's mean offsets cancel on
+    average; q6_k sub-scales are random int8. Each d is drawn so a weight's
+    standard deviation is about 1 / sqrt(K) (the constants are the standard
+    deviations of sc * q - 7.5 mn and sc * q), so a projection keeps its
+    input's scale and activations stay finite through every layer. Norm
+    weights are 1. Throughput does not depend on the values.
+
+    `arch` adds the norms of that architecture, as `make_gguf(..., arch=)`
+    writes them and `load_params` names them: "gemma2" the sandwich norms
+    (`post_attention_norm`, `post_ffw_norm`), "gemma3" those and the
+    per-head QK-norms (`attn_q_norm`, `attn_k_norm`, over head_dim).
 
     `tp=(index, size)` returns shard `index` of `size` instead
     (`parallel.shard_decode.build_tp_params` of the same model, bit for
@@ -206,6 +254,8 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     one layer beyond its shard at a time."""
     if fmt not in ("q4_0", "q8_0", "q4_k_m"):
         raise NotImplementedError(f"make_params fabricates q4_0, q8_0 and q4_k_m, got {fmt!r}")
+    if arch not in ARCHS:
+        raise ValueError(f"make_params fabricates the architectures {ARCHS}, got {arch!r}")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -217,7 +267,15 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
         u = torch.rand(*shape, generator=gen, device=device)
         return ((0.5 + u) * base).to(torch.float16)
 
+    def centred_nibbles(*shape: int) -> torch.Tensor:
+        lo, hi = (torch.randint(1, 16, shape, generator=gen, device=device, dtype=torch.uint8)
+                  for _ in range(2))
+        return lo | (hi << 4)
+
     def q4_0(rows: int, cols: int) -> QTensor:
+        if centred:
+            return QTensor("q4_0", qs=centred_nibbles(rows, cols // 2),
+                           scales=around(1.0 / (4.32 * math.sqrt(cols)), rows, cols // QGROUP))
         return QTensor("q4_0", qs=bytes_(rows, cols // 2),
                        scales=around(1.0 / (4.6 * math.sqrt(cols)), rows, cols // QGROUP))
 
@@ -243,6 +301,10 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
 
     def layer() -> dict:
         lp = {"attn_norm": norm(cfg.d_model), "ffn_norm": norm(cfg.d_model)}
+        if arch in ("gemma2", "gemma3"):  # sandwich norms
+            lp |= {"post_attention_norm": norm(cfg.d_model), "post_ffw_norm": norm(cfg.d_model)}
+        if arch == "gemma3":  # per-head QK-norm
+            lp |= {"attn_q_norm": norm(cfg.head_dim), "attn_k_norm": norm(cfg.head_dim)}
         if fmt in ("q4_0", "q8_0"):
             mat = q4_0 if fmt == "q4_0" else q8_0
             return lp | {

@@ -94,23 +94,27 @@ def verify_device_kernels(
     paged: bool = False,
     page_size: int | None = None,
     atol: float = 0.05,
+    prefill_chunk: int = 0,
 ) -> dict[str, Any]:
     """Compare the kernel and plain-version forwards on `model`'s device.
 
     Returns {"ok", "max_abs", "steps" (per-step max |Δ| of the logits
     vector: the prefill's last row, then each decode step), "scale" (the
-    largest |logit| of the kernel side), "argmax_agree", "n_decode",
-    "atol", "kernel_launches", "plain_launches"}. ok: max |Δ| within atol,
+    largest |logit| of the kernel side), "argmax_agree", "stream" (the
+    kernel side's greedy tokens), "n_decode", "atol", "kernel_launches",
+    "plain_launches"}. ok: max |Δ| within atol,
     every argmax equal, and no kernel launched by the plain side. Both
     sides form the same products from the same weights and differ in the
     order of f32 sums; with bf16 activations a sum can also land on the
     other side of a bf16 rounding, and such flips grow with depth. The
     cache holds `cfg`'s activation dtype (bf16, or f32 for evaluation
-    numerics; int8 with `kv_quantized`)."""
+    numerics; int8 with `kv_quantized`). Prompts longer than
+    `prefill_chunk` (when set) prefill in chunks of that many tokens."""
     from ..runtime import Engine, EngineConfig
 
     ecfg = EngineConfig(max_seq_len=max_seq_len, max_batch=1, kv_dtype=cfg.act_dtype,
-                        kv_quantized=kv_quantized, paged=paged, page_size=page_size)
+                        kv_quantized=kv_quantized, paged=paged, page_size=page_size,
+                        prefill_chunk=prefill_chunk)
 
     def run(tokens: list[int] | None):
         """One prefill + n_decode steps. tokens=None: greedy (records the
@@ -142,6 +146,7 @@ def verify_device_kernels(
         "steps": steps,
         "scale": max(float(np.abs(a).max()) for a in kernel_outs),
         "argmax_agree": argmax_agree,
+        "stream": stream,
         "n_decode": n_decode,
         "atol": atol,
         "kernel_launches": kernel_launches,
