@@ -145,7 +145,20 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    `serve()` on a paged int8 TPEngine in f32 and TINY_MHA_CONFIG q4_k_m,
    with exact launches, the collectives a decode step by axis and the wall
    ms a step; 10c: NCCL, one rank a card, where there are 2 or more cards
-   (on one card a line says it did not run).
+   (on one card a line says it did not run);
+11. the serving and step benches (gemma_tpu_torch/tools/) at full Gemma-2B
+   width with short arguments: `python -m gemma_tpu_torch.tools.bench_serving`
+   (8 requests of 16 tokens, centred q4_0 weights, whose streams must
+   differ from request to request) in a subprocess, then through their `main` here bench_serving
+   with `--admit-per-tick 1` (at least the uncapped run's decode steps,
+   the same streams) and over a paged int8 cache, bench_itl (a 1024-token
+   prompt), bench_longctx (q4_k_m, 1024 slots, a 512-token prefill, four
+   arms), bench_step_parts, bench_micro and bench_scan: each last line
+   with its keys and finite rates, each run's launches above 0 with no
+   plain version, and between them #1, #3, #4, #6 (bf16 and int8), #7 and
+   #8. The phase's launches are printed on a line of their own (`[bench]
+   launches`) and are not added to the paths' counts in the kernels'
+   line: the benches time the wrappers in loops.
 
 Quantized-matmul times are taken with L2 cold (operands rotated over
 copies totalling >= 100 MB), as a decode step meets its weights.
@@ -4290,6 +4303,147 @@ def tensor_parallel(torch, dev, card: str) -> tuple[dict[str, int], dict[str, di
     return counts, readings
 
 
+# phase 11: the serving and step benches (gemma_tpu_torch/tools/) at full
+# Gemma-2B width with short arguments: (tool, argv). bench_serving runs once
+# as a user runs it, in a subprocess beside the rest, which run through
+# main(argv) here (the eager step leaves the card mostly idle). Its weights
+# are centred q4_0 draws: with uniform nibbles or zero payloads every
+# request repeats one token, the same in all, and the streams' digest shows
+# nothing of which request went where. Centred, each request repeats its
+# prompt's last token (the tied head reads back the residual's embedding):
+# a request given another's prompt or slot shows, a wrong cache does not
+BENCH_REQUESTS = 8
+BENCH_SERVING = ["--requests", str(BENCH_REQUESTS), "--max-new", "16", "--fill", "centred"]
+BENCH_RUNS = (
+    ("bench_serving", [*BENCH_SERVING, "--admit-per-tick", "1"]),
+    ("bench_serving", [*BENCH_SERVING, "--paged", "--kv-quant"]),
+    ("bench_itl", ["--prompt-len", "1024", "--block", "4", "--steady-new", "80", "--repeats", "1"]),
+    ("bench_longctx", ["--fmt", "q4_k_m", "--ctx", "1024", "--prefill", "512", "--tokens", "8",
+                       "--repeats", "1"]),
+    ("bench_step_parts", ["q4_0", "--r", "1", "--reps", "1"]),
+    ("bench_micro", ["q4_0", "--reps", "10"]),
+    ("bench_scan", ["--steps", "16", "--runs", "1"]),
+)
+# the keys of each bench's last line (the reference's, where it prints JSON)
+BENCH_KEYS = {
+    "bench_serving": {"metric", "value", "unit", "requests", "decode_steps", "p50_ttft_s",
+                      "p99_ttft_s", "block", "wall_s", "admit_per_tick", "prefill_chunk",
+                      "kv_quant", "fill"},
+    "bench_itl": {"metric", "max_itl_ms_sync", "max_itl_ms_overlap", "prompt_len", "chunk",
+                  "block"},
+    "bench_longctx": {"metric", "prefill_tokens", "dense", "paged", "page_size_resolved",
+                      "dense_int8kv", "paged_int8kv", "page_size", "unit"},
+    "bench_step_parts": {"metric", "matmuls_ms", "attn_ms", "ew_ms", "step_ms", "tok_s",
+                         "attribution_ms", "busy_ms", "kernels_per_token", "chained"},
+    "bench_micro": {"metric", "matmuls", "matmul_sum_ms", "matmul_device_sum_ms", "sdpa_us",
+                    "sdpa_device_us", "decode_attention_us", "decode_attention_device_us",
+                    "dispatch_us", "step_ms", "tok_s", "peak_gbs"},
+    "bench_scan": {"metric", "chain_ms", "chain_tok_s", "block_ms", "block_tok_s", "scan_ms",
+                   "steps", "prompt"},
+}
+# each bench's rates, which must be finite and positive
+BENCH_RATES = {"bench_serving": ("value", "p50_ttft_s", "wall_s"),
+               "bench_itl": ("max_itl_ms_sync", "max_itl_ms_overlap"),
+               "bench_longctx": ("dense", "paged", "dense_int8kv", "paged_int8kv"),
+               "bench_step_parts": ("matmuls_ms", "attn_ms", "ew_ms", "step_ms"),
+               "bench_micro": ("matmul_sum_ms", "matmul_device_sum_ms", "sdpa_device_us",
+                               "decode_attention_device_us", "dispatch_us", "step_ms"),
+               "bench_scan": ("chain_ms", "block_ms")}
+# kernels the phase's runs must launch between them: #1, #3, #4, #6 in both
+# arms, #7 and #8
+BENCH_KERNELS = ("q4_0_matmul", "q4_k_matmul", "q6_k_matmul", "decode_attention",
+                 "decode_attention_int8", "flash_attention", "paged_attention",
+                 "paged_attention_int8")
+
+
+def bench_output(name: str, text: str) -> tuple[dict, dict[str, int], str | None]:
+    """(the last line's record, the `launches {...}` line's counts, the
+    `streams ...` line's words after `streams`, or None) of a bench's
+    output, its keys and rates held to BENCH_KEYS and BENCH_RATES and every
+    launch count above 0."""
+    lines = text.strip().splitlines()
+    for line in lines:
+        info(f"bench {name}", line)
+    record = json.loads(lines[-1])
+    want = BENCH_KEYS[name] | ({"speculative"} if "speculative" in record else set())
+    require(set(record) == want, f"{name}: keys {sorted(record)} != {sorted(want)}")
+    for key in BENCH_RATES[name]:
+        require(isinstance(record[key], (int, float)) and math.isfinite(record[key])
+                and record[key] > 0, f"{name}: {key} = {record[key]!r}, not a finite rate above 0")
+    reported = [json.loads(line.split(" ", 1)[1]) for line in lines if line.startswith("launches ")]
+    require(len(reported) == 1 and reported[0] and all(n > 0 for n in reported[0].values()),
+            f"{name}: launches {reported}")
+    streams = [line.split(" ", 1)[1] for line in lines if line.startswith("streams ")]
+    return record, reported[0], streams[0] if streams else None
+
+
+def serving_benches(card: str) -> None:
+    """Phase 11: the serving and step benches on the card at full Gemma-2B
+    width, short arguments: bench_serving uncapped in a subprocess, beside
+    BENCH_RUNS in-process. Each bench resets the launch counters before its
+    measured work and prints what it launched; a bench whose run took a
+    plain version on the card raises (`_timing.launches_line`). The capped
+    run (--admit-per-tick 1) decodes at least the uncapped run's steps and
+    gives its streams, which must differ from request to request. The
+    launches, summed by
+    kernel, must cover BENCH_KERNELS; they are printed, not returned: they
+    count the benches' timing loops, not a path's run."""
+    import contextlib
+    import importlib
+    import io
+
+    t_phase = time.perf_counter()
+    counts: dict[str, int] = {}
+    records: list[tuple[list[str], dict, str | None]] = []
+    child = subprocess.Popen([sys.executable, "-m", "gemma_tpu_torch.tools.bench_serving",
+                              *BENCH_SERVING], cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        for name, argv in BENCH_RUNS:
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = importlib.import_module(f"gemma_tpu_torch.tools.{name}").main(argv)
+            require(rc == 0 and out.getvalue().splitlines()[0] == card, f"{name} {argv}: rc {rc}")
+            record, launched, streams = bench_output(name, out.getvalue())
+            add_counts(counts, launched)
+            if name == "bench_serving":
+                records.append((argv, record, streams))
+            info("time", f"{name} {' '.join(argv)} took {time.perf_counter() - t0:.1f} s")
+        stdout, stderr = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    require(child.returncode == 0, f"tools.bench_serving failed ({child.returncode}):\n"
+                                   f"{stderr[-4000:]}")
+    require(stdout.splitlines()[0] == card, f"bench_serving printed no card line: {stdout[:200]!r}")
+    base, launched, base_streams = bench_output("bench_serving", stdout)
+    add_counts(counts, launched)
+    info("time", f"bench_serving (subprocess, beside the rest) done at "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    _, _, distinct, _, fewest = base_streams.split()
+    require(int(distinct) == BENCH_REQUESTS,
+            f"bench_serving's streams are degenerate: {distinct} distinct of {BENCH_REQUESTS}")
+    info("bench", f"{distinct} distinct streams of {BENCH_REQUESTS}, the poorest holding {fewest} "
+                  f"distinct tokens")
+    for argv, record, streams in records:
+        require(record["requests"] == base["requests"] == BENCH_REQUESTS,
+                f"bench_serving served {record['requests']} and {base['requests']} of "
+                f"{BENCH_REQUESTS} requests")
+        if "--admit-per-tick" in argv:
+            require(record["decode_steps"] >= base["decode_steps"],
+                    f"capped bench_serving decoded {record['decode_steps']} steps, fewer than the "
+                    f"uncapped {base['decode_steps']}")
+            require(streams == base_streams, "capped and uncapped bench_serving streams differ")
+            info("bench", f"--admit-per-tick 1: {record['decode_steps']} decode steps against "
+                          f"{base['decode_steps']} uncapped, streams equal ({streams})")
+    missing = [k for k in BENCH_KERNELS if not counts.get(k)]
+    require(not missing, f"the benches launched none of {missing}: {counts}")
+    info("bench", f"launches {json.dumps(counts)}")
+    info("time", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run() -> dict:
     import torch
 
@@ -4376,6 +4530,8 @@ def run() -> dict:
     for name, reading in tp_readings.items():  # the shard-local shapes
         results[name]["tp"] = reading
     done("tensor parallelism (phase 10)")
+    serving_benches(card)
+    done("serving and step benches (phase 11)")
     require("jax" not in sys.modules, "jax was imported")
     info("time", f"the whole script took {time.perf_counter() - t0:.1f} s, the kernels' build included")
 

@@ -64,6 +64,10 @@ def set_force_plain(flag: bool) -> None:
     _FORCE_PLAIN = bool(flag)
 
 
+def forcing_plain() -> bool:
+    return _FORCE_PLAIN
+
+
 def _valid_mask(positions, kv_limit, S, window):
     """[B, T, S] bool: the key-validity rule of the module docstring."""
     key = torch.arange(S, device=positions.device, dtype=torch.int32)

@@ -47,6 +47,10 @@ def set_force_plain(flag: bool) -> None:
     _FORCE_PLAIN = bool(flag)
 
 
+def forcing_plain() -> bool:
+    return _FORCE_PLAIN
+
+
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """Pool [P, Hkv, ps, ...] through page_table [B, maxp] -> the dense
     per-row view [B, Hkv, maxp * ps, ...] (trash pages included: the

@@ -380,10 +380,13 @@ class Engine:
         prompts: list[list[int]],
         max_new_tokens: int,
         sampling: SamplingParams = SamplingParams(),
+        eos_id: int | None = None,
         seed: int = 0,
     ) -> np.ndarray:
         """Throughput path: no host sync until the end, no early EOS exit.
-        Returns the [B, max_new_tokens] token matrix."""
+        Returns the [B, max_new_tokens] token matrix. `eos_id` is accepted
+        for the reference's signature and unused, as there: every sequence
+        decodes all max_new_tokens."""
         logits, cache = self.prefill(prompts)
         prompt_len = int(cache.length.max())
         if max_new_tokens > self.ecfg.max_seq_len - prompt_len:

@@ -117,6 +117,7 @@ class Scheduler:
         seed: int = 0,
         on_token: Callable[[Request, int], None] | None = None,
         prefill_engine: Engine | None = None,
+        admit_per_tick: int | None = None,
         overlap_admission: bool = True,
         speculative: bool = False,
         spec_k: int = 7,
@@ -127,9 +128,15 @@ class Scheduler:
         """`prefill_engine` runs admission prefills on another engine than
         the decode batch (prefill/decode disaggregation in one process); its
         output enters the decode cache through `insert_sequence`, so both
-        must store K/V in one format. `overlap_admission`: with the prefill
-        engine's `prefill_chunk` set, prompts longer than two chunks admit
-        one chunk per tick.
+        must store K/V in one format.
+
+        `admit_per_tick` caps the admissions a tick starts (None: every
+        free slot). Admission prefills run inside the tick, so a burst of N
+        admissions runs N prefills before the batch decodes its next token;
+        a cap trades a slower ramp for the running requests' latency. An
+        overlapped admission counts when it starts; a rejected request does
+        not. `overlap_admission`: with the prefill engine's `prefill_chunk`
+        set, prompts longer than two chunks admit one chunk per tick.
 
         `speculative` and the `spec_*` options: the module docstring.
         Finish decisions lag `spec_pipeline` blocks, so a finished slot may
@@ -145,6 +152,7 @@ class Scheduler:
                     f"(prefill kv_quantized={pe.kv_quantized} dtype={pe.kv_dtype}; decode "
                     f"kv_quantized={de.kv_quantized} dtype={de.kv_dtype})"
                 )
+        self.admit_per_tick = admit_per_tick
         self.overlap_admission = overlap_admission
         self._admitting: dict[int, _Admission] = {}  # slot -> in flight
         self._admit_order: collections.deque[int] = collections.deque()
@@ -225,8 +233,11 @@ class Scheduler:
         return self.prefill_engine.prefill_len(prompt_len, self._pad_to)
 
     def _admit(self) -> None:
+        admitted = 0
         for slot in self._free_slots():
             if not self.pending:
+                break
+            if self.admit_per_tick is not None and admitted >= self.admit_per_tick:
                 break
             req = self.pending.popleft()
             if len(req.prompt) >= self.engine.ecfg.max_seq_len:
@@ -251,6 +262,7 @@ class Scheduler:
                 pre = self.prefill_engine.prefill_standalone(req.prompt, pad_to=self._pad_to)
                 self.engine.insert_sequence(self.cache, slot, pre, pages)
                 self._activate(slot, req, pre[0])
+            admitted += 1
 
     def _activate(self, slot: int, req: Request, logits: torch.Tensor) -> None:
         self._logits[slot] = logits

@@ -218,7 +218,7 @@ def make_gguf(
 
 def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu",
                 tp: tuple[int, int] | None = None, arch: str = "gemma",
-                centred: bool = False) -> Gemma:
+                centred: bool = False, fill: str = "random") -> Gemma:
     """Fabricate a q4_0, q8_0 or q4_k_m model directly in the port's layout
     on `device`, from a seeded `torch.Generator` on the device.
 
@@ -251,17 +251,41 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
     `tp=(index, size)` returns shard `index` of `size` instead
     (`parallel.shard_decode.build_tp_params` of the same model, bit for
     bit): each layer is drawn whole, as above, then cut, so a rank holds
-    one layer beyond its shard at a time."""
+    one layer beyond its shard at a time.
+
+    `fill="zeros"` is the reference's: every payload byte 0, q4_k's 6-bit
+    sc and mn and q6_k's sub-scales 1, and every d, dmin and scale as
+    drawn (the same draws as `fill="random"`, whose bytes are then
+    dropped): a q4_0 weight is -8 d, a q4_k weight -dmin, a q6_k weight
+    -32 d and a q8_0 weight 0. Timings do not depend on the values. It
+    takes neither `centred` nor `tp`."""
     if fmt not in ("q4_0", "q8_0", "q4_k_m"):
         raise NotImplementedError(f"make_params fabricates q4_0, q8_0 and q4_k_m, got {fmt!r}")
     if arch not in ARCHS:
         raise ValueError(f"make_params fabricates the architectures {ARCHS}, got {arch!r}")
+    if fill not in ("random", "zeros"):
+        raise ValueError(f"make_params fills 'random' or 'zeros', got {fill!r}")
+    zeros = fill == "zeros"
+    if zeros and (centred or tp is not None):
+        raise ValueError("make_params(fill='zeros') takes neither centred nor tp")
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def bytes_(*shape: int) -> torch.Tensor:
         return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+
+    def payload(*shape: int) -> torch.Tensor:
+        b = bytes_(*shape)
+        return b.zero_() if zeros else b
+
+    def unit_table(t: torch.Tensor) -> torch.Tensor:
+        # q4_k's 12-byte table with every 6-bit sc and mn 1: bytes 0-3 sc
+        # 0-3, 4-7 mn 0-3, 8-11 the low nibbles of sc 4-7 | mn 4-7 << 4
+        if zeros:
+            t[..., :8] = 1
+            t[..., 8:] = 0x11
+        return t
 
     def around(base: float, *shape: int) -> torch.Tensor:
         u = torch.rand(*shape, generator=gen, device=device)
@@ -276,11 +300,11 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
         if centred:
             return QTensor("q4_0", qs=centred_nibbles(rows, cols // 2),
                            scales=around(1.0 / (4.32 * math.sqrt(cols)), rows, cols // QGROUP))
-        return QTensor("q4_0", qs=bytes_(rows, cols // 2),
+        return QTensor("q4_0", qs=payload(rows, cols // 2),
                        scales=around(1.0 / (4.6 * math.sqrt(cols)), rows, cols // QGROUP))
 
     def q8_0(rows: int, cols: int) -> QTensor:
-        return QTensor("q8_0", qs=bytes_(rows, cols).view(torch.int8),
+        return QTensor("q8_0", qs=payload(rows, cols).view(torch.int8),
                        scales=around(1.0 / (73.9 * math.sqrt(cols)), rows, cols // QGROUP))
 
     def q4_k(rows: int, cols: int) -> QTensor:
@@ -288,12 +312,12 @@ def make_params(cfg: GemmaConfig, fmt: str = "q4_0", seed: int = 0, device="cpu"
         # fill all 96 bits of the table
         d = around(1.0 / (258.0 * math.sqrt(cols)), rows, cols // QK_K).float()
         dm = torch.stack([d, 7.5 * d], dim=-1).to(torch.float16)
-        return QTensor("q4_k", qs=bytes_(rows, cols // 2), scales=bytes_(rows, cols // QK_K, 12),
-                       dm=dm)
+        return QTensor("q4_k", qs=payload(rows, cols // 2),
+                       scales=unit_table(bytes_(rows, cols // QK_K, 12)), dm=dm)
 
     def q6_k(rows: int, cols: int) -> QTensor:
-        return QTensor("q6_k", ql=bytes_(rows, cols // 2), qh=bytes_(rows, cols // 4),
-                       sc=bytes_(rows, cols // 16).view(torch.int8),
+        ql, qh, sc = payload(rows, cols // 2), payload(rows, cols // 4), bytes_(rows, cols // 16)
+        return QTensor("q6_k", ql=ql, qh=qh, sc=(sc.fill_(1) if zeros else sc).view(torch.int8),
                        d=around(1.0 / (1366.0 * math.sqrt(cols)), rows, cols // QK_K))
 
     def norm(d: int) -> torch.Tensor:

@@ -1,16 +1,26 @@
-"""The port's decode-GEMV benches, counterparts of the reference's
-`tools/bench_qmm_variants.py`, `bench_bn_sweep.py`, `probe_int4.py`,
-`bench_q4k_variants.py` and `bench_q6k_variants.py`:
+"""The port's benches and probes, counterparts of the reference's `tools/`.
+
+The decode-GEMV benches (`bench_qmm_variants`, `bench_bn_sweep`,
+`probe_int4`, `bench_q4k_variants`, `bench_q6k_variants`):
 
     python -m gemma_tpu_torch.tools.<name> [shape] [--device cpu]
 
-They run on the card unless `--device cpu` asks for the plain versions, and
-time each kernel with L2 cold (`_timing.py`). Two more instruments serve the
-port's own kernels: `probe_variants` builds patched copies of the kernels
-and times them side by side on the card (constants, tile shapes,
-ablations), and `tc_emulation` emulates the q4_0 and q8_0 tensor-core
-kernels lane by lane in numpy on the CPU. `bench_spec` and
-`probe_spec_serving`, counterparts of the reference's tools of the same
-names, time speculative decoding against plain decode at batch 1 and over
-8 serving slots.
+time each kernel with L2 cold (`_timing.py`). The serving and step benches
+(`bench_serving`, `bench_itl`, `bench_longctx`, `bench_step_parts`,
+`bench_micro`, `bench_scan`) take the reference tools' flags and print
+their JSON keys on the last line, after the card's name and power limit
+and a `launches {...}` line of the kernels the run launched:
+
+    python -m gemma_tpu_torch.tools.bench_serving [--model gemma2b|gemma7b|tiny] [--device cpu]
+
+Every bench runs on the card unless `--device cpu` asks for the plain
+versions (with `--model tiny` for the serving and step benches), whose
+times say nothing of the card. `bench_prefill` reads the marginal prefill
+rate; `bench_spec` and `probe_spec_serving` time speculative decoding
+against plain decode at batch 1 and over 8 serving slots; `bench_scaling`
+times tensor parallelism. Instruments of the port's own kernels:
+`probe_variants` builds patched copies of the kernels and times them side
+by side on the card (constants, tile shapes, ablations), `tc_emulation`
+emulates the tensor-core kernels lane by lane in numpy on the CPU, and
+`parent_turn` times a parent tree against this one in turns.
 """

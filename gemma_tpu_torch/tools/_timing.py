@@ -246,3 +246,81 @@ def generator(dev: torch.device, seed: int = 0) -> torch.Generator:
 
 def bf16_x(rows: int, cols: int, gen: torch.Generator, dev) -> torch.Tensor:
     return torch.randn(rows, cols, generator=gen, device=dev).to(torch.bfloat16)
+
+
+# the serving and step benches' models: --model name -> config
+MODELS = ("gemma2b", "gemma7b", "tiny")
+
+
+def model_config(name: str):
+    """Gemma-2B and Gemma-7B at their published widths, or "tiny":
+    `testing.TINY_KERNEL_CONFIG`, the smallest geometry the CUDA attention
+    kernels take (the reference's tiny model is a bf16 TINY_CONFIG; the
+    port fabricates block formats only)."""
+    from ..models import GEMMA_2B, GEMMA_7B
+    from ..testing import TINY_KERNEL_CONFIG
+
+    return {"gemma2b": GEMMA_2B, "gemma7b": GEMMA_7B, "tiny": TINY_KERNEL_CONFIG}[name]
+
+
+def token_ids(n: int, vocab: int, offset: int = 0) -> list[int]:
+    """The reference benches' prompt [2 + (j + offset) % 1000 for j < n],
+    wrapped inside a vocabulary smaller than 1002 (the tiny model's 512)."""
+    mod = min(1000, vocab - 2)
+    return [2 + (j + offset) % mod for j in range(n)]
+
+
+def reset_launches() -> None:
+    """Set every kernel launch counter of the main path's ops to 0."""
+    from ..utils.verify import launch_counters
+
+    for _, op, attr in launch_counters():
+        setattr(op, attr, 0)
+
+
+def launches_line(dev: torch.device) -> str:
+    """`launches {...}`: the main path's kernel launch counters that moved
+    since `reset_launches`. On the card every wrapper call launches its
+    kernel or raises, and a plain version runs there only while an op's
+    `set_force_plain` is on (`utils.verify`): this raises if one is on, or
+    if no kernel was launched. On the CPU the plain versions run and the
+    line reads `launches {}`."""
+    from ..ops import attention as att
+    from ..ops import paged_attention as pat
+    from ..ops import quant_matmul as qmm
+    from ..utils.verify import read_launches
+
+    counts = {name: n for name, n in read_launches().items() if n}
+    if dev.type == "cuda":
+        forced = [m.__name__ for m in (qmm, att, pat) if m.forcing_plain()]
+        if forced:
+            raise RuntimeError(f"plain versions forced on the card by {forced}")
+        if not counts:
+            raise RuntimeError("no kernel was launched on the card")
+    return "launches " + json.dumps(counts)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_busy(fn, dev: torch.device, match: str = r"$^"):
+    """(device busy ms, device kernels, device ms of the kernels whose name
+    matches the regular expression `match`) of one call of fn, from
+    torch.profiler: the sum of the kernels' device times and their count,
+    as chip_smoke.py reads a decode step's busy time. Nones on the CPU,
+    where nothing runs on a card."""
+    if dev.type != "cuda":
+        fn()
+        return None, None, None
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    return (sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events if re.search(match, e.key)) / 1e3)

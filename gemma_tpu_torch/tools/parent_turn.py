@@ -277,7 +277,9 @@ PAGED_STEPS = 16  # decode steps of the decode-only profile
 def _device_reading(prof, steps: int) -> str:
     """Device busy ms, device kernels and the paged attention kernels' ms
     (PAGED_KERNELS: the split-S kernel and its combine, or the tensor-core
-    kernel) of a profile, in all and a step."""
+    kernel) of a profile, in all and a step. It reads the profile itself,
+    not through `_timing.profile_busy`: a turn imports its own tree's
+    `_timing`, and a parent's may predate that function."""
     events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     paged = sum(e.self_device_time_total for e in events

@@ -43,24 +43,6 @@ PROMPT = 64
 PLAIN_BLOCK = 8
 
 
-def device_busy_ms(fn, dev: torch.device) -> float:
-    """Device ms of the kernels fn() launches (torch.profiler), 0 on the CPU."""
-    if dev.type != "cuda":
-        fn()
-        return 0.0
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
-    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()) / 1e3
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def run(dev: torch.device, blocks: int = 4) -> dict:
     card = T.card_line(dev)
     print(card, flush=True)
@@ -76,7 +58,7 @@ def run(dev: torch.device, blocks: int = 4) -> dict:
     if len(sched.active) != SLOTS:
         raise RuntimeError(f"{len(sched.active)} of {SLOTS} slots active")
     sched.step_spec()  # first launches, allocator
-    _sync(dev)
+    T.sync(dev)
     flash0 = att.flash_attention.launches
 
     emitted0 = sum(len(r.tokens) for r in sched.active.values())
@@ -102,7 +84,7 @@ def run(dev: torch.device, blocks: int = 4) -> dict:
         while sched._spec_pending:
             sched._spec_drain()
 
-    busy = device_busy_ms(spec_blocks, dev) / blocks
+    busy = (T.profile_busy(spec_blocks, dev)[0] or 0.0) / blocks  # 0 on the CPU
     if len(sched.active) != SLOTS:  # 1 + 2 x blocks blocks of at most 32 tokens a slot
         raise RuntimeError("a slot finished inside the probe: run fewer blocks")
     ticks = sched.spec.block
@@ -115,7 +97,7 @@ def run(dev: torch.device, blocks: int = 4) -> dict:
     # the plain decode block on the same batch and cache
     logits, gen = sched._logits, torch.Generator(device=dev)
     eng.block(logits, gen, sched.cache, PLAIN_BLOCK)  # first launches
-    _sync(dev)
+    T.sync(dev)
     p_issue = []
     t0 = time.perf_counter()
     for _ in range(blocks):
@@ -124,8 +106,8 @@ def run(dev: torch.device, blocks: int = 4) -> dict:
         p_issue.append((time.perf_counter() - t1) * 1e3)
         toks.cpu()
     p_wall = (time.perf_counter() - t0) * 1e3 / blocks
-    p_busy = device_busy_ms(lambda: [eng.block(logits, gen, sched.cache, PLAIN_BLOCK)
-                                     for _ in range(blocks)], dev) / blocks
+    p_busy = (T.profile_busy(lambda: [eng.block(logits, gen, sched.cache, PLAIN_BLOCK)
+                                      for _ in range(blocks)], dev)[0] or 0.0) / blocks
     plain = {"issue_ms": statistics.median(p_issue), "wall_ms_block": p_wall,
              "busy_ms_block": p_busy, "steps_a_block": PLAIN_BLOCK,
              "idle_share": 1 - p_busy / p_wall if p_busy else None}

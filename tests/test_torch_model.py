@@ -36,6 +36,7 @@ rounds q4_0's, and the port keeps ggml's f16 (`load_params`) or carries the
 reference's bf16 values (`from_jax_params`).
 """
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -54,7 +55,7 @@ from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.runtime import Engine, EngineConfig, KVCache, SamplingParams, Scheduler
 from gemma_tpu_torch.testing import TINY_CONFIG as PORT_TINY_CONFIG
-from gemma_tpu_torch.testing import TINY_MHA_CONFIG
+from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, TINY_MHA_CONFIG
 from gemma_tpu_torch.testing import make_gguf as port_make_gguf
 from gemma_tpu_torch.testing import make_params
 
@@ -363,3 +364,72 @@ def test_make_params_q8_0():
     eng = Engine(TINY_MHA_CONFIG, model, EngineConfig(max_seq_len=32))
     logits, _ = eng.prefill([PROMPT])
     assert bool(torch.isfinite(logits).all()) and float(logits.std()) > 0
+
+
+# sha256 of make_params(TINY_KERNEL_CONFIG, fmt, seed=1)'s buffers by name, as
+# drawn before `fill` existed: the default fill="random" keeps every byte
+RANDOM_DRAWS = {
+    "q4_0": "3f3c0c1e5b83fa779fc2dfe4c6ee2b6dd2517961827601ce3198dcfbb09a3429",
+    "q8_0": "46d4ea1194d48aefc758be8edd526de710acb3bab1ef29862c027c4ab48bd459",
+    "q4_k_m": "6604486b2b6fa7cbcbf303ccfb1b3cf1aa240063b4bc487a1070ee8589a58ce1",
+}
+PAYLOADS = {"q4_0": ("qs",), "q8_0": ("qs",), "q4_k": ("qs",), "q6_k": ("ql", "qh")}
+
+
+def _digest(model) -> str:
+    h = hashlib.sha256()
+    for name, b in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update((b.view(torch.int16) if b.dtype == torch.bfloat16 else b).contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("fmt", list(RANDOM_DRAWS))
+def test_make_params_random_fill_keeps_its_draws(fmt):
+    assert _digest(make_params(TINY_KERNEL_CONFIG, fmt, seed=1, fill="random")) == RANDOM_DRAWS[fmt]
+    assert _digest(make_params(TINY_KERNEL_CONFIG, fmt, seed=1)) == RANDOM_DRAWS[fmt]
+
+
+@pytest.mark.parametrize("fmt", list(RANDOM_DRAWS))
+def test_make_params_zeros_fill(fmt):
+    """fill="zeros": every payload byte 0, every scale the random fill's
+    (nonzero), q4_k's sc and mn and q6_k's sub-scales 1; the weights are
+    -8 d (q4_0), 0 (q8_0), -dmin (q4_k) and -32 d (q6_k); logits finite."""
+    from gemma_tpu_torch.quant.qtensor import dequant, q4_k_group_scales
+
+    zeros = make_params(TINY_KERNEL_CONFIG, fmt, seed=1, fill="zeros")
+    drawn = dict(make_params(TINY_KERNEL_CONFIG, fmt, seed=1).named_modules())
+    qts = [(name, m) for name, m in zeros.named_modules() if isinstance(m, QTensor)]
+    assert len(qts) == len(zeros.layers) * (4 if fmt != "q4_k_m" else 6) + 1
+    for name, qt in qts:
+        for key, a in qt.arrays.items():
+            if key in PAYLOADS[qt.fmt]:
+                assert not bool(a.any()), (name, key)
+            elif key == "sc":
+                assert bool((a == 1).all()), name
+            elif key != "scales" or qt.fmt != "q4_k":
+                assert torch.equal(a, drawn[name].arrays[key]) and bool((a != 0).all()), (name, key)
+        w = dequant(qt)
+        if qt.fmt == "q4_0":
+            want = -8 * qt.scales.float().repeat_interleave(32, dim=1)
+        elif qt.fmt == "q8_0":
+            want = torch.zeros_like(w)
+        elif qt.fmt == "q4_k":
+            sc, mn = q4_k_group_scales(qt.scales, qt.dm)
+            assert torch.equal(sc, qt.dm[..., 0:1].float().expand_as(sc))  # every sc 1
+            want = -mn.reshape(w.shape[0], -1).repeat_interleave(32, dim=1)  # every mn 1: -dmin
+            assert torch.equal(mn, qt.dm[..., 1:2].float().expand_as(mn))
+        else:
+            want = -32 * qt.d.float().repeat_interleave(256, dim=1)
+        torch.testing.assert_close(w, want, rtol=1e-6, atol=0)
+    logits, _ = Engine(TINY_KERNEL_CONFIG, zeros, EngineConfig(max_seq_len=32)).prefill([PROMPT])
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_make_params_zeros_fill_refuses_centred_and_shards():
+    with pytest.raises(ValueError, match="neither centred nor tp"):
+        make_params(TINY_KERNEL_CONFIG, fill="zeros", centred=True)
+    with pytest.raises(ValueError, match="neither centred nor tp"):
+        make_params(TINY_KERNEL_CONFIG, fill="zeros", tp=(0, 2))
+    with pytest.raises(ValueError, match="fills"):
+        make_params(TINY_KERNEL_CONFIG, fill="ones")

@@ -86,17 +86,25 @@ def test_runs_end_to_end_with_jax_blocked(tmp_path):
 
 def test_sources_have_no_jax_sdpa_or_compile():
     """The port imports no jax and calls no finished attention kernel or
-    compiler for the ported ops."""
+    compiler for the ported ops. One bench, `tools/bench_micro.py`, times
+    SDPA as the library's yardstick beside the port's decode kernel (the
+    reference's bench_micro times its non-Pallas attention): one call
+    there, and no module of the package imports that bench."""
     files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))
     assert len(files) > 10
     # every header, the tensor-core attention header and the emulation included
     assert {"attn_tc.cuh", "dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh", "common.cuh",
             "tc_emulation.py", "probe_variants.py"} <= {f.name for f in files}
     jax_import = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|import_module\(\s*['\"]jax", re.M)
+    yardstick = PKG / "tools" / "bench_micro.py"
     for f in files:
         text = f.read_text()
         assert not jax_import.search(text), f
-        assert "scaled_dot_product_attention" not in text, f
+        if f == yardstick:
+            assert text.count("scaled_dot_product_attention(") == 1, f
+        else:
+            assert "scaled_dot_product_attention" not in text, f
+            assert not re.search(r"^\s*(from|import)\s.*\bbench_micro\b", text, re.M), f
         assert "torch.compile" not in text, f
 
 
@@ -153,11 +161,77 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
-        "tools": ["_timing", "bench_bn_sweep", "bench_prefill", "bench_q4k_variants",
-                  "bench_q6k_variants", "bench_qmm_variants", "bench_scaling", "bench_spec",
-                  "parent_turn",
+        "tools": ["_timing", "bench_bn_sweep", "bench_itl", "bench_longctx", "bench_micro",
+                  "bench_prefill", "bench_q4k_variants", "bench_q6k_variants",
+                  "bench_qmm_variants", "bench_scaling", "bench_scan", "bench_serving",
+                  "bench_spec", "bench_step_parts", "parent_turn",
                   "probe_int4", "probe_spec_serving", "probe_variants", "tc_emulation"],
         "reference_tools": []}
+
+
+# the modules the serving path and the tools use, compared by their public
+# surface with the JAX package's
+SURFACE_MODULES = ("runtime.engine", "runtime.scheduler", "runtime.serving", "runtime.sampler",
+                   "models", "models.gemma", "testing")
+# what the port leaves out on purpose, each with its reason
+SURFACE_GAPS = {
+    # XLA program shapes and buffer donation
+    "runtime.engine EngineConfig.__init__(prefill_bucket_min=)",
+    "runtime.engine EngineConfig.__init__(donate_cache=)",
+    "runtime.engine EngineConfig.__init__(decode_block=)",
+    # the port samples from a torch.Generator, not a jax.random key
+    "runtime.sampler sample(key=)",
+    # the port's model is an nn.Module, and its tensor-parallel hook is `tp`
+    "models.gemma forward(params=)",
+    "models.gemma forward(tp_axis=)",
+    "models.gemma decoder_layer(tp_axis=)",
+}
+
+
+def _surface_gaps() -> set[str]:
+    """Every public function, class and method (and parameter name) defined
+    in a SURFACE_MODULES module of the JAX package that the port's module
+    of the same name lacks."""
+    import importlib
+    import inspect
+
+    def names(f) -> list[str]:
+        return [p for p in inspect.signature(f).parameters if p not in ("self", "cls")]
+
+    gaps = set()
+    for mod in SURFACE_MODULES:
+        ref = importlib.import_module(f"gemma_tpu.{mod}")
+        port = importlib.import_module(f"gemma_tpu_torch.{mod}")
+        for name, obj in vars(ref).items():
+            if (name.startswith("_") or getattr(obj, "__module__", None) != ref.__name__
+                    or not (inspect.isfunction(obj) or inspect.isclass(obj))):
+                continue
+            if not hasattr(port, name):
+                gaps.add(f"{mod} {name}")
+                continue
+            if inspect.isfunction(obj):
+                members = [(name, obj, getattr(port, name))]
+            else:
+                members = []
+                for attr, m in vars(obj).items():
+                    if (attr.startswith("_") and attr != "__init__") or not (
+                            inspect.isfunction(m) or isinstance(m, (property, staticmethod, classmethod))):
+                        continue
+                    if not hasattr(getattr(port, name), attr):
+                        gaps.add(f"{mod} {name}.{attr}")
+                    elif not isinstance(m, property):
+                        f = m.__func__ if isinstance(m, (staticmethod, classmethod)) else m
+                        members.append((f"{name}.{attr}", f, getattr(getattr(port, name), attr)))
+            for label, f, g in members:
+                gaps |= {f"{mod} {label}({p}=)" for p in names(f) if p not in names(g)}
+    return gaps
+
+
+def test_public_surface_matches_the_jax_package():
+    """For the modules the serving path and the tools use, every public
+    function, class and method of the JAX module, with each of its
+    parameter names, exists in the port's module, except SURFACE_GAPS."""
+    assert _surface_gaps() == SURFACE_GAPS
 
 
 def test_load_params_defaults_to_the_card(monkeypatch, tmp_path):

@@ -162,6 +162,10 @@ def _scenario(tiny, arm, name):
         return Scheduler(_engine(tiny, arm)), ids, "step_block", {}
     if name == "slot_reuse":  # one slot serves every request in turn
         return Scheduler(_engine(tiny, arm, max_batch=1)), ids, 2, {}
+    if name == "admit_per_tick":  # one admission a tick, every prompt prefilled whole
+        return Scheduler(_engine(tiny, arm), admit_per_tick=1, overlap_admission=False), ids, 4, {}
+    if name == "admit_per_tick_overlapped":  # one a tick; "e" and "f" admit chunk by chunk
+        return Scheduler(_engine(tiny, arm), admit_per_tick=1), ids, 4, {}
     if name == "pool_exhaustion":  # 4 usable pages: requests wait for pages
         # "huge" needs 5 pages: it can never fit and finishes empty
         return Scheduler(_engine(tiny, arm, n_pages=5)), ids + ["huge"], 4, {"huge": []}
@@ -172,7 +176,7 @@ def _scenario(tiny, arm, name):
 
 
 SCENARIOS = ["per_token", "step_block", "synchronous_chunks", "disaggregated", "slot_reuse",
-             "pool_exhaustion", "idle_slot"]
+             "pool_exhaustion", "idle_slot", "admit_per_tick", "admit_per_tick_overlapped"]
 
 
 @pytest.mark.parametrize("arm,scenario", [(a, s) for a in ARMS for s in SCENARIOS

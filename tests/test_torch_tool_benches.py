@@ -1,7 +1,9 @@
-"""The port's decode-GEMV benches (`gemma_tpu_torch/tools/`) end to end on
-the CPU at small shapes, their harness, and the wrappers' argument checks.
-On the CPU the benches run the plain versions; on the card (chip_smoke.py
-phase 7) they launch the kernels."""
+"""The port's benches (`gemma_tpu_torch/tools/`) end to end on the CPU at
+small shapes, their harness, and the wrappers' argument checks. On the CPU
+the benches run the plain versions; on the card (chip_smoke.py phases 7
+and 11) they launch the kernels. The serving bench's counts are held to
+the JAX package's Scheduler on the same requests."""
+import dataclasses
 import importlib
 import json
 import re
@@ -10,16 +12,30 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from gemma_tpu.gguf import GGUFReader
+from gemma_tpu.models.params import load_params as jax_load_params
+from gemma_tpu.runtime import Engine as JaxEngine
+from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
+from gemma_tpu.runtime.scheduler import Request as JaxRequest
+from gemma_tpu.runtime.scheduler import Scheduler as JaxScheduler
+from gemma_tpu_torch.models import from_jax_params, load_params
 from gemma_tpu_torch.ops import qmm_variants as qv
 from gemma_tpu_torch.quant.qtensor import QTensor
+from gemma_tpu_torch.runtime import Engine, EngineConfig, Request
+from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
 from gemma_tpu_torch.tools import _timing as T
 from gemma_tpu_torch.tools import (bench_bn_sweep, bench_prefill, bench_q4k_variants,
-                                   bench_q6k_variants, bench_qmm_variants, bench_spec, probe_int4,
-                                   probe_spec_serving)
+                                   bench_q6k_variants, bench_qmm_variants, bench_serving,
+                                   bench_spec, probe_int4, probe_spec_serving)
 
 CPU = torch.device("cpu")
 TOOLS = ["bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
-         "bench_q6k_variants", "bench_prefill", "bench_spec", "probe_spec_serving"]
+         "bench_q6k_variants", "bench_prefill", "bench_spec", "probe_spec_serving",
+         "bench_serving", "bench_itl", "bench_longctx", "bench_step_parts", "bench_micro",
+         "bench_scan"]
 LINE = re.compile(r"\d+\.\d\d us +\d+\.\d GB/s +\d\.\d{3} of 3\.35 TB/s; bound \d+\.\d\d us "
                   r"\((bytes|operations)\)")
 
@@ -302,3 +318,135 @@ def test_attention_probes_run_on_the_card_only(monkeypatch):
         parent_turn.main(["--turn", "change", "--decode"])
     with pytest.raises(SystemExit):
         parent_turn.main([])  # neither --parent nor --turn
+
+
+# the serving and step benches at their smallest arguments on the tiny
+# model, and the keys of their last line: the reference tools' own where
+# those print JSON (bench_serving, bench_itl, bench_longctx), else the port's
+# names for what the reference prints as text
+SERVING_KEYS = {"metric", "value", "unit", "requests", "decode_steps", "p50_ttft_s",
+                "p99_ttft_s", "block", "wall_s", "admit_per_tick", "prefill_chunk", "kv_quant",
+                "fill"}
+SMALL_RUNS = {
+    "bench_serving": (["--requests", "5", "--batch", "2", "--prompt-len", "12", "--max-new", "4",
+                       "--block", "2", "--max-seq-len", "64"], SERVING_KEYS),
+    "bench_itl": (["--prompt-len", "40", "--chunk", "8", "--block", "2", "--max-seq-len", "256",
+                   "--steady-new", "40", "--repeats", "1"],
+                  {"metric", "max_itl_ms_sync", "max_itl_ms_overlap", "prompt_len", "chunk",
+                   "block"}),
+    "bench_longctx": (["--ctx", "192", "--prefill", "80", "--tokens", "2", "--chunk", "32",
+                       "--page-size", "16", "--repeats", "1"],
+                      {"metric", "prefill_tokens", "dense", "paged", "page_size_resolved",
+                       "dense_int8kv", "paged_int8kv", "page_size", "unit"}),
+    "bench_step_parts": (["q4_k_m", "--r", "1", "--reps", "1"],
+                         {"metric", "matmuls_ms", "attn_ms", "ew_ms", "step_ms", "tok_s",
+                          "attribution_ms", "busy_ms", "kernels_per_token", "chained"}),
+    "bench_micro": (["q4_k_m", "--reps", "2"],
+                    {"metric", "matmuls", "matmul_sum_ms", "matmul_device_sum_ms", "sdpa_us",
+                     "sdpa_device_us", "decode_attention_us", "decode_attention_device_us",
+                     "dispatch_us", "step_ms", "tok_s", "peak_gbs"}),
+    "bench_scan": (["--steps", "4", "--runs", "1"],
+                   {"metric", "chain_ms", "chain_tok_s", "block_ms", "block_tok_s", "scan_ms",
+                    "steps", "prompt"}),
+}
+
+
+@pytest.mark.parametrize("name", list(SMALL_RUNS))
+def test_serving_and_step_benches_print_their_keys(name, capsys, one_torch_thread):
+    """Each bench on the tiny model on the CPU: the card line first, a
+    `launches {}` line (the plain versions launch nothing), and a last line
+    of exactly its keys (2-6 s a bench)."""
+    argv, keys = SMALL_RUNS[name]
+    tool = importlib.import_module(f"gemma_tpu_torch.tools.{name}")
+    assert tool.main([*argv, "--model", "tiny", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("cpu (cpu: plain PyTorch versions")
+    assert "launches {}" in lines
+    record = json.loads(lines[-1])
+    assert set(record) == keys
+    assert "tiny" in record["metric"] or name == "bench_itl"
+
+
+def test_bench_longctx_runs_the_arms_asked_for(capsys, one_torch_thread):
+    """A page-size sweep runs the paged arm alone; the engine's default
+    page size is 64 (`page_size_resolved`)."""
+    from gemma_tpu_torch.tools import bench_longctx
+
+    assert bench_longctx.main(["--model", "tiny", "--device", "cpu", "--ctx", "192", "--prefill",
+                               "70", "--tokens", "2", "--chunk", "64", "--repeats", "1", "--arms",
+                               "paged"]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(record) == {"metric", "prefill_tokens", "paged", "page_size_resolved", "page_size",
+                           "unit"}
+    assert record["page_size_resolved"] == 64 and record["page_size"] is None
+    with pytest.raises(SystemExit):
+        bench_longctx.main(["--device", "cpu", "--arms", "nope"])
+
+
+def test_bench_serving_reads_its_streams(capsys, one_torch_thread):
+    """`--fill centred` fabricates random payloads with centred q4_0 nibbles
+    and records it; the `streams` line counts distinct streams and the
+    fewest distinct tokens in one (here on made-up requests too). 2-4 s."""
+    argv, _ = SMALL_RUNS["bench_serving"]
+    assert bench_serving.main([*argv, "--model", "tiny", "--device", "cpu", "--fill",
+                               "centred"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1])["fill"] == "centred"
+    words = next(line for line in lines if line.startswith("streams ")).split()
+    assert len(words) == 6 and words[2::2] == ["distinct", "fewest"]
+    assert 1 <= int(words[3]) <= 5 and 1 <= int(words[5]) <= 4
+    done = [Request("a", [1], 3), Request("b", [1], 3), Request("c", [1], 3)]
+    for r, tokens in zip(done, ([5, 5, 5], [5, 6, 7], [5, 6, 7])):
+        r.tokens = tokens
+    assert bench_serving.streams_line(done).split()[2:] == ["distinct", "2", "fewest", "1"]
+
+
+@pytest.fixture(scope="module")
+def tiny_f32(tmp_path_factory):
+    """One q4_0 GGUF of TINY_KERNEL_CONFIG in both packages, f32 activations
+    (tests/test_torch_admission.py imports it too)."""
+    path = make_gguf(tmp_path_factory.mktemp("bench_serving") / "tiny.gguf", TINY_KERNEL_CONFIG,
+                     seed=3)
+    reader = GGUFReader(path)
+    jcfg, jparams = jax_load_params(reader)
+    tcfg, _ = load_params(reader, device="cpu")
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    jcfg, tcfg = (dataclasses.replace(c, activation_dtype="float32") for c in (jcfg, tcfg))
+    return jcfg, jparams, tcfg, model
+
+
+@pytest.mark.parametrize("flags", [["--admit-per-tick", "1"], ["--speculative"],
+                                   ["--paged", "--kv-quant", "--prefill-chunk", "16",
+                                    "--admit-per-tick", "2"]])
+def test_bench_serving_counts_what_the_reference_scheduler_counts(tiny_f32, flags, monkeypatch,
+                                                                  one_torch_thread):
+    """bench_serving's measured run against the JAX Scheduler on the same
+    requests over the same model in f32: requests, decode steps, useful
+    tokens and streams (speculative: verify forwards too). 6-15 s a case."""
+    jcfg, jparams, tcfg, model = tiny_f32
+    args = bench_serving.parse_args(["--requests", "7", "--batch", "3", "--prompt-len", "20",
+                                     "--max-new", "6", "--block", "2", "--max-seq-len", "64",
+                                     "--spec-k", "3", "--spec-block", "2", *flags])
+    ecfg = dict(max_seq_len=args.max_seq_len, max_batch=args.batch, paged=args.paged,
+                page_size=16, kv_quantized=args.kv_quant, prefill_chunk=args.prefill_chunk)
+    got, finished = bench_serving.measure(
+        Engine(tcfg, model, EngineConfig(kv_dtype=torch.float32, **ecfg)), args, "tiny_q4_0")
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    ref = JaxScheduler(JaxEngine(jcfg, jparams, JaxEngineConfig(kv_dtype=jnp.float32,
+                                                                 donate_cache=False, **ecfg)),
+                       admit_per_tick=args.admit_per_tick, speculative=args.speculative,
+                       spec_k=args.spec_k, spec_pipeline=args.spec_pipeline,
+                       spec_block=args.spec_block)
+    for r in bench_serving.make_requests(args, tcfg.vocab_size, JaxRequest):
+        ref.submit(r)
+    ref_done = ref.run(block=args.block)
+    stats = ref.stats()
+    assert got["requests"] == stats["requests"] == args.requests
+    assert got["decode_steps"] == stats["decode_steps"]
+    assert {r.id: r.tokens for r in finished} == {r.id: r.tokens for r in ref_done}
+    useful = sum(min(len(r.tokens), r.max_new_tokens) for r in ref_done)
+    assert round(useful / got["wall_s"], 2) == pytest.approx(got["value"], rel=0.05)
+    assert got["admit_per_tick"] == args.admit_per_tick
+    if args.speculative:
+        assert got["speculative"]["spec_forwards"] == stats["spec_forwards"]
+        assert got["speculative"]["tokens_discarded"] == stats["tokens_discarded"]
