@@ -65,11 +65,16 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    on the CPU (plain path); the Gemma-2 and Gemma-3 models also served
    dense and paged, streams equal, and paged f32 card against CPU; then `python -m gemma_tpu_torch serve
    --device cuda --paged --kv-quant` against the in-process `serve`, and
-   serving on the card against the CPU in f32 over paged and paged int8
-   caches; `generate --speculative` and `serve --speculative` likewise,
+   serving on the card against the CPU in f32 over paged f32, paged int8
+   and dense int8 caches, every decode call on the decode core's f32
+   policies (their launches are the kernels' line's for
+   `paged_attention_tf32`, `paged_attention_tf32_int8` and
+   `decode_attention_tf32_int8`); `generate --speculative` and `serve
+   --speculative` likewise,
    and the tiny f32 model's speculative streams card vs CPU;
 6. continuous-batching serving (8 slots, 24 requests of 96 tokens) at full
-   Gemma-2B q4_0 width over four caches: dense, dense int8, paged, and
+   width over each model's first layers (CUT_LAYERS: Gemma-2B 6 of 18,
+   Gemma-7B 7 of 28, Gemma-2-2B and Gemma-3-4B 6), Gemma-2B q4_0 over four caches: dense, dense int8, paged, and
    paged int8 with overlapped chunked admission (6), and at full Gemma-7B
    q8_0 width over the dense bf16 cache (6b), once more with the requests
    shuffled and admitted every 4 steps, which must give the same streams,
@@ -81,7 +86,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    on its core); then speculative serving of the same requests (Gemma-2B,
    dense bf16 and int8, adaptive k; k = 7 in admission order and shuffled,
    which must give the same streams), each stream teacher-forced through
-   plain decode against phase 4's delta, and a batched block under
+   plain decode against the delta of the same calibration as phase 4's
+   on this model, and a batched block under
    `set_sync_debug_mode("error")`; then non-greedy serving (Gemma-2B,
    temperature 1.0, top-k 64, top-p 0.95, four requests of one prompt)
    twice from one seed, the same streams both times, exact launch counts,
@@ -91,7 +97,8 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
    its plain version at the tools' Gemma-2B shapes with exact launch
    counts, each kernel's L2-cold time, bound, plain and library time, then
-   each `python -m gemma_tpu_torch.tools.<name>` in a subprocess;
+   `python -m gemma_tpu_torch.tools.bench_qmm_variants` in a subprocess,
+   as a user runs it, and the other four through their `main` here;
 8. the quality gates: the TF32 flash kernel at the perplexity window's
    M = T = 512 against its plain version, timed with bound and library
    call (the matmuls' f32 route there, the TF32 tile, is phase 3's), also
@@ -99,7 +106,12 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    D = 128; the f32-q decode attention at limit 204 and S = 4096, timed
    (Gemma-2B's heads on the tensor-core decode core in 3xTF32, also at
    limit 1, limit 0, softcap, window, G = 2 and 4, D = 128; Gemma-7B's
-   on the G = 1 core); every format's f32 GEMV at M = 1 and 8 on its
+   on the G = 1 core); f32 q on the same core over 64-key pages of f32
+   and of int8 (8 serving rows) and over an int8 dense cache (limit 204),
+   one launch a call, against the plain versions, through pages bit for
+   bit the dense core on the gathered rows, timed with bound and in turns
+   against the split-S kernel and its combine (which must be slower), and
+   at the same edges; every format's f32 GEMV at M = 1 and 8 on its
    recipe's rows (the tensor-core GEMV with x in three bf16 parts), timed
    with bound and library call; the f32 decode step of Gemma-2B q4_0 and q4_k_m and
    Gemma-7B q8_0 at 1 and 8 rows against the plain versions;
@@ -117,7 +129,7 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
 9. serving across two processes on the card (`serve(roles=...,
    transport=...)`): this script re-invoked with `--prefill-host` is rank 1
    of a gloo group and serves the admission prefills of Gemma-2B q4_0
-   (weights of seed 0) at an AF_UNIX path; the parent, rank 0, decodes 16
+   (6 of its 18 layers, weights of seed 0) at an AF_UNIX path; the parent, rank 0, decodes 16
    of phase 6's requests (64 tokens each) over a dense bf16 cache, then a
    paged int8 cache of 16-key pages behind an int8 host that prefills in
    64-token chunks. Each arm's streams equal the same `serve` with an
@@ -134,8 +146,9 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    kernel at a shard's shapes against its plain version, timed with bound
    and library call (q4_0 at Gemma-2B's and q8_0 at Gemma-7B's tp = 2 and
    4 shards, q4_k and q6_k at TINY_MHA_CONFIG's tp = 2, decode and flash
-   at each shard's heads, paged at Gemma-2B's); 10a: Gemma-7B q8_0 at full
-   width through a TPEngine at world size 1 over NCCL, prompt 203 + 32
+   at each shard's heads, paged at Gemma-2B's); 10a and 10b at full width
+   over 7 of Gemma-7B's 28 and 6 of Gemma-2B's 18 layers; 10a: Gemma-7B q8_0
+   through a TPEngine at world size 1 over NCCL, prompt 203 + 32
    greedy tokens, bit for bit the Engine; 10b: tp = 2 and 4 as ranks
    sharing the card over gloo with CUDA tensors (this script re-invoked
    with `--tp-rank`, each rank drawing only its shard on the card):
@@ -158,7 +171,13 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    plain version, and between them #1, #3, #4, #6 (bf16 and int8), #7 and
    #8. The phase's launches are printed on a line of their own (`[bench]
    launches`) and are not added to the paths' counts in the kernels'
-   line: the benches time the wrappers in loops.
+   line: the benches time the wrappers in loops;
+12. the reference's last five tools (gemma_tpu_torch/tools/) through their
+   `main`: `bench_decode_attn` at S = 8192 (four arms at five splits and
+   the split-S kernel), `bench_flash` at T = S = 2048, `bench_fmt_kernels
+   2b`, `bench_shapes` and `probe_cache_cost` (Gemma-7B, 2048 and 4096
+   slots), each line checked (REF_TOOLS), every kernel held to its plain
+   version inside the tool.
 
 Quantized-matmul times are taken with L2 cold (operands rotated over
 copies totalling >= 100 MB), as a decode step meets its weights.
@@ -171,6 +190,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -190,6 +210,7 @@ NEW_TOKENS = 32  # greedy tokens of the phase 4 generation runs
 MAX_SEQ_LEN = 512
 LONG_SEQ_LEN = 4096  # phase 3's long attention readings (bench_prefill's longest prompt)
 PREFILL_CHUNK = 512  # bench_prefill's chunk
+STACK_DUMP_S = 1100  # the script must end within 1200 s; it aims at 600
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and dense bf16
 # tensor-core flop/s; a kernel's bound is the larger of its bytes and its
@@ -242,6 +263,14 @@ KERNELS = {
     # the tensor-core decode core's TF32 policy
     "decode_attention_tf32": ("gemma_tpu_torch/csrc/decode_tc.cuh",
                               "gemma_tpu/ops/attention.py:273 _decode_kernel (f32 queries)"),
+    # f32 queries on the same core over an int8 cache (`DecTf32Int8`), and
+    # through pages of f32 (`DecTf32`) and of int8 (`DecTf32Int8`)
+    "decode_attention_tf32_int8": ("gemma_tpu_torch/csrc/decode_tc.cuh",
+                                   "gemma_tpu/ops/attention.py:273 _decode_kernel (int8 arm, f32 queries)"),
+    "paged_attention_tf32": ("gemma_tpu_torch/csrc/decode_tc.cuh",
+                             "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (f32 queries)"),
+    "paged_attention_tf32_int8": ("gemma_tpu_torch/csrc/decode_tc.cuh",
+                                  "gemma_tpu/ops/paged_attention.py:47 _paged_kernel (int8 pages, f32 queries)"),
     # every format's f32 x at M <= 8: the tensor-core GEMV with x in three
     # bf16 parts
     "q4_0_matmul_gemv_f32": ("gemma_tpu_torch/csrc/dq_gemv.cuh",
@@ -797,7 +826,7 @@ def check_g1(torch, dev) -> dict[str, dict]:
                 (k, ks), (v, vs) = quantize_kv(k32.to(torch.bfloat16)), quantize_kv(v32.to(torch.bfloat16))
             else:
                 k, v, ks, vs = k32.to(dtype), v32.to(dtype), None, None
-            route, split = att.decode_route(dtype, 1, S, int8)
+            route, split = att.decode_route(dtype, 1, S)
             desc = f"Gemma-7B heads Hq=Hkv={H} {label} S={S} limits={limits} {arm} ({route}, {split} keys a block)"
             g1_once(torch, f"decode_attention {desc}", lambda: att.decode_attention(q, k, v, lim, k_scale=ks,
                                                                                      v_scale=vs),
@@ -1100,10 +1129,11 @@ def check_serving_edge_cases(torch, dev) -> None:
     off the serving shapes. bf16 queries take the tensor-core route (GQA
     with head_dim 128, softcap with window, 16-, 64- and 256-key pages:
     four pages a block, one, a quarter of one) and equal `decode_attention`
-    on the gathered rows bit for bit; f32 queries the split-S route; G = 1
-    (D = 128 and 16-key pages with softcap and window; f32 pages of 8 keys)
-    the core for one query row, equal bit for bit to `decode_attention` on
-    the gathered rows. f32 queries over f32 pages round nothing: tolerance
+    on the gathered rows bit for bit; f32 queries the same core's f32
+    policies (over f32 and int8 pages), bit for bit likewise; G = 1 (D =
+    128 and 16-key pages with softcap and window; f32 pages of 8 keys) the
+    core for one query row, equal bit for bit to `decode_attention` on the
+    gathered rows. f32 queries over f32 pages round nothing: tolerance
     1e-4. Every int8 case
     keeps the bf16 rounding of p * vs (against a local max in the kernel,
     the row max in the plain version), and bf16 queries round p: tolerance
@@ -1134,17 +1164,19 @@ def check_serving_edge_cases(torch, dev) -> None:
             q, cache, lim = paged_inputs(gen, dev, len(limits), Hq, Hkv, D, ps, limits,
                                          len(limits) * MAX_SEQ_LEN // ps + 1, MAX_SEQ_LEN, quantized,
                                          dtype, seed=5)
-            if quantized:
-                q = q.to(dtype)  # f32 queries over int8 pages too
+            if quantized and dtype == torch.float32:  # f32 queries over int8 pages too
+                q = torch.randn(q.shape, generator=gen, device=dev) * 0.3
             tol = 1e-4 if dtype == torch.float32 and not quantized else 2e-2
             route = pat.paged_route(q.dtype, Hq // Hkv, ps, MAX_SEQ_LEN)[0]
-            before = (pat.paged_decode_attention.tc_launches, pat.paged_decode_attention.g1_launches)
+            op = pat.paged_decode_attention
+            before = (op.tc_launches, op.tf32_launches + op.tf32_int8_launches, op.g1_launches)
             got = pat.paged_decode_attention(q, cache, 0, lim, cap, window)
             arm = f"paged{' int8' if quantized else ''}"
-            want = "g1" if Hq == Hkv else "tc" if dtype == torch.bfloat16 else "split"
-            require(route == want and (pat.paged_decode_attention.tc_launches - before[0],
-                                       pat.paged_decode_attention.g1_launches - before[1])
-                    == (route == "tc", route == "g1"), f"{arm} {name}: took the {route} route")
+            want = "g1" if Hq == Hkv else "tc" if dtype == torch.bfloat16 else "tf32"
+            require(route == want and (op.tc_launches - before[0],
+                                       op.tf32_launches + op.tf32_int8_launches - before[1],
+                                       op.g1_launches - before[2])
+                    == (route == "tc", route == "tf32", route == "g1"), f"{arm} {name}: took the {route} route")
             ref = pat.paged_decode_attention_plain(q, cache, 0, lim, cap, window)
             ratio = attn_err(got, ref, tol)[1]
             require(ratio <= 1.0, f"{arm} {name}: |diff| {ratio:.3f} x {tol} of its row's scale")
@@ -1176,8 +1208,8 @@ def check_serving_edge_cases(torch, dev) -> None:
     err = build.load().gt_paged_attention_tc(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None, table.data_ptr(), lim.data_ptr(),
         torch.empty_like(q).data_ptr(), work.data_ptr(), tickets.data_ptr(), 2, 8, 1, 8,
-        table.shape[1] * PAGE // 8, 256, build.DTYPE_CODES[torch.bfloat16], 64, 0, 0.0,
-        build.stream_ptr(dev))
+        table.shape[1] * PAGE // 8, 256, build.DTYPE_CODES[torch.bfloat16], build.DTYPE_CODES[torch.bfloat16],
+        64, 0, 0.0, build.stream_ptr(dev))
     try:
         build.check(err, "paged attention (tc) at page size 8")
     except build.KernelLaunchError as e:
@@ -1194,8 +1226,8 @@ def check_serving_edge_cases(torch, dev) -> None:
     require(len(refused) == 3, f"paged attention: a bad call did not raise ({refused})")
     torch.cuda.synchronize()
     info("kernel", "serving edge cases (f32, GQA D=128, softcap+window, ps 16 and 256, G = 1 at D = "
-                   f"128 and ps 8 and 16, limits {limits}; bf16 on the tensor cores and G = 1 on its "
-                   "core, equal bit for bit to decode_attention on the gathered rows) within "
+                   f"128 and ps 8 and 16, limits {limits}; bf16 and f32 on the tensor cores and G = 1 on "
+                   "its core, equal bit for bit to decode_attention on the gathered rows) within "
                    "tolerance; worst max|diff| / (tol x row scale): "
                    + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
                    + "; refused: " + "; ".join(refused))
@@ -1460,35 +1492,52 @@ def decode_route(cfg, paged: bool = False, S: int = MAX_SEQ_LEN):
 # Gemma-7B (gemma_tpu_torch.models), Gemma-2-2B and Gemma-3-4B
 # (gemma_tpu_torch.testing; phases 3, 4d and 6c)
 MODEL_ARCH = {"Gemma-2B": "gemma", "Gemma-7B": "gemma", "Gemma-2-2B": "gemma2", "Gemma-3-4B": "gemma3"}
+# The phases that serve or shard a model (6-6c, 9 and 10b) run it at full
+# width over its first CUT_LAYERS layers. They take hundreds of decode steps
+# each, and a step's host time grows with the layers (about 1.3 ms a layer
+# on the H100's host, phase 4's host profile): at every layer they took half
+# the script's 1200 s. Gemma-2-2B keeps sliding and global layers in turn,
+# Gemma-3-4B its five sliding layers and one global. Phases 3, 4-4d, 8, 11
+# and 12 keep every layer.
+CUT_LAYERS = {"Gemma-2B": 6, "Gemma-7B": 7, "Gemma-2-2B": 6, "Gemma-3-4B": 6}
 
 
-def model_config(name: str):
-    """The full-width config of a model by its printed name (MODEL_ARCH)."""
+def model_config(name: str, cut: bool = False):
+    """The full-width config of a model by its printed name (MODEL_ARCH);
+    with `cut`, its first CUT_LAYERS[name] layers."""
     from gemma_tpu_torch.models import GEMMA_2B, GEMMA_7B
     from gemma_tpu_torch.testing import GEMMA2_2B, GEMMA3_4B
 
-    return {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B, "Gemma-2-2B": GEMMA2_2B,
-            "Gemma-3-4B": GEMMA3_4B}[name]
+    cfg = {"Gemma-2B": GEMMA_2B, "Gemma-7B": GEMMA_7B, "Gemma-2-2B": GEMMA2_2B,
+           "Gemma-3-4B": GEMMA3_4B}[name]
+    return dataclasses.replace(cfg, n_layers=CUT_LAYERS[name]) if cut else cfg
 
 
-def make_model(name: str, fmt: str, dev):
-    """A model by its printed name at full width, random weights from seed 0
-    in `fmt`, with its architecture's norms, on `dev`. Gemma-2 and Gemma-3
-    models take make_params' centred q4_0 nibbles, on which their sliding
-    windows move the output (phase 4d; on uniform nibbles a 1024-key window
-    moved Gemma-3-4B's logits by 6e-4 of their scale); Gemma-2B and
-    Gemma-7B keep the draws their phases' tolerances were set on."""
+def depth(name: str, cfg) -> str:
+    """`cfg`'s layers against the whole model's, for the phases' lines."""
+    return f"{cfg.n_layers} of {model_config(name).n_layers} layers"
+
+
+def make_model(name: str, fmt: str, dev, cut: bool = False):
+    """A model by its printed name at full width (with `cut`, its first
+    CUT_LAYERS layers), random weights from seed 0 in `fmt`, with its
+    architecture's norms, on `dev`. Gemma-2 and Gemma-3 models take
+    make_params' centred q4_0 nibbles, on which their sliding windows move
+    the output (phase 4d; on uniform nibbles a 1024-key window moved
+    Gemma-3-4B's logits by 6e-4 of their scale); Gemma-2B and Gemma-7B keep
+    the draws their phases' tolerances were set on."""
     from gemma_tpu_torch.testing import make_params
 
     arch = MODEL_ARCH[name]
-    return make_params(model_config(name), fmt, seed=0, device=dev, arch=arch, centred=arch != "gemma")
+    return make_params(model_config(name, cut), fmt, seed=0, device=dev, arch=arch,
+                       centred=arch != "gemma")
 
 
 def main_path(torch, dev, card: str, model_name: str, fmt: str):
     """Phases 4 (Gemma-2B q4_0), 4b (Gemma-2B q4_k_m) and 4c (Gemma-7B
     q8_0): the model at full width, prefill + NEW_TOKENS greedy tokens, then
     the speculative run on the same engine (`speculative_path`). Returns
-    (the plain run's launch counts, the speculative run's, its delta)."""
+    (the plain run's launch counts, the speculative run's)."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig
     from gemma_tpu_torch.testing import make_params
 
@@ -1535,10 +1584,10 @@ def main_path(torch, dev, card: str, model_name: str, fmt: str):
     again = eng.generate([prompt], NEW_TOKENS)[0]
     require(again == toks, "Engine.generate differs from prefill + generate_from")
     del cache
-    spec_counts, delta = speculative_path(torch, card, eng, fmt, phase, busy)
+    spec_counts = speculative_path(torch, card, eng, fmt, phase, busy)
     del eng, model
     torch.cuda.empty_cache()
-    return counts, spec_counts, delta
+    return counts, spec_counts
 
 
 # phase 4d: (model, format, prompt tokens, cache slots) of ARCH_MODELS. The
@@ -1761,14 +1810,12 @@ def speculative_path(torch, card, eng, fmt: str, phase: str, plain_busy: float):
     be the plain argmax or lie within delta of the plain maximum. Device
     busy a verify forward (torch.profiler, one block) beside a plain step's.
     One block issued under `torch.cuda.set_sync_debug_mode("error")` must
-    not sync. Returns (launch counts, delta)."""
-    from gemma_tpu_torch.models import forward
+    not sync. Returns the launch counts."""
     from gemma_tpu_torch.runtime import SpecDecoder
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
     prompt = spec_prompt(cfg)
-    P = len(prompt)
     dec = SpecDecoder(eng, k=SPEC_K, block=SPEC_BLOCK)
     dec.generate(prompt[:16], 8)  # warm-up: first launches at the verify shapes
     torch.cuda.synchronize()
@@ -1786,26 +1833,7 @@ def speculative_path(torch, card, eng, fmt: str, phase: str, plain_busy: float):
     plain = eng.generate_from(logits0, cache, SPEC_TOKENS)[0]
     t_plain = time.perf_counter() - t0
 
-    with torch.no_grad():
-        logits0, cache = eng.prefill([prompt])
-        ca, cb = clone_cache(cache), clone_cache(cache)
-        toks = torch.tensor([stream[:1 + SPEC_K]], device=eng.device)
-        pos = P + torch.arange(1 + SPEC_K, dtype=torch.int32, device=eng.device)[None]
-        verify = forward(eng.params, cfg, toks, pos, ca, write_index=ca.length,
-                         kv_limit=ca.length + 1 + SPEC_K)[0]
-        steps = []
-        for j in range(1 + SPEC_K):
-            lg, cb = eng.decode_step(toks[:, j], cb)
-            steps.append(lg[0])
-        steps = torch.stack(steps)
-        dmax = (verify - steps).abs().max().item()
-        scale = steps.abs().max().item()
-    delta = 2 * dmax
-    info(phase, f"speculative logit check: {1 + SPEC_K} verify rows against {1 + SPEC_K} decode "
-                f"steps over the same tokens, max|diff| {dmax:.4e} (tol {2e-2 * scale:.4e}, 2e-2 of "
-                f"the logits' scale {scale:.3f}); delta = {delta:.4e}")
-    require(dmax <= 2e-2 * scale, f"{phase}: verify logits differ from decode steps by {dmax} > "
-                                  f"{2e-2 * scale}")
+    delta = verify_delta(torch, eng, prompt, stream[:1 + SPEC_K], phase)
     gaps = teacher_forced_gaps(torch, eng, [prompt], [stream])[:, 0]
     off = [j for j, g in enumerate(gaps.tolist()) if g > 0]
     info(phase, f"speculative stream teacher-forced through plain decode: {len(off)} of "
@@ -1831,7 +1859,37 @@ def speculative_path(torch, card, eng, fmt: str, phase: str, plain_busy: float):
                 f"{SPEC_TOKENS / t_plain:.2f} tok/s ({t_plain / t_spec:.3f}x); device busy "
                 f"{busy:.3f} ms a verify forward against {plain_busy:.3f} a plain decode step "
                 f"({busy / plain_busy:.3f}x; {coverage}); launches {counts}")
-    return counts, delta
+    return counts
+
+
+def verify_delta(torch, eng, prompt: list[int], toks: list[int], phase: str) -> float:
+    """The speculative streams' calibration on `eng`: one verify forward of
+    the 1 + SPEC_K tokens `toks` after `prompt` and as many plain decode
+    steps over them from the same cache must agree within 2e-2 of the
+    logits' scale. Returns delta, twice their largest |difference|."""
+    from gemma_tpu_torch.models import forward
+
+    with torch.no_grad():
+        _, cache = eng.prefill([prompt])
+        ca, cb = clone_cache(cache), clone_cache(cache)
+        toks = torch.tensor([toks], device=eng.device)
+        pos = len(prompt) + torch.arange(1 + SPEC_K, dtype=torch.int32, device=eng.device)[None]
+        verify = forward(eng.params, eng.cfg, toks, pos, ca, write_index=ca.length,
+                         kv_limit=ca.length + 1 + SPEC_K)[0]
+        steps = []
+        for j in range(1 + SPEC_K):
+            lg, cb = eng.decode_step(toks[:, j], cb)
+            steps.append(lg[0])
+        steps = torch.stack(steps)
+        dmax = (verify - steps).abs().max().item()
+        scale = steps.abs().max().item()
+    delta = 2 * dmax
+    info(phase, f"speculative logit check: {1 + SPEC_K} verify rows against {1 + SPEC_K} decode "
+                f"steps over the same tokens, max|diff| {dmax:.4e} (tol {2e-2 * scale:.4e}, 2e-2 of "
+                f"the logits' scale {scale:.3f}); delta = {delta:.4e}")
+    require(dmax <= 2e-2 * scale, f"{phase}: verify logits differ from decode steps by {dmax} > "
+                                  f"{2e-2 * scale}")
+    return delta
 
 
 def no_sync(torch, fn, what: str) -> None:
@@ -1894,23 +1952,25 @@ ARCH_SERVE_MODELS = (("Gemma-2-2B", "q4_k_m", MAX_SEQ_LEN, {}),
 
 
 def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
-            spec_delta: float | None = None, make_requests=serve_requests,
+            spec: bool = False, make_requests=serve_requests,
             max_seq_len: int = MAX_SEQ_LEN, profile: bool = True) -> dict[str, dict[str, int]]:
     """Phases 6 (Gemma-2B q4_0, the four caches of SERVE_RUNS), 6b
     (Gemma-7B q8_0, SERVE_7B_RUNS) and 6c (ARCH_SERVE_MODELS): `serve` at
-    full width, weights from make_params(seed=0), SERVE_SLOTS slots,
+    full width over the model's first CUT_LAYERS layers, weights from
+    make_params(seed=0), SERVE_SLOTS slots,
     `max_seq_len` slots a sequence, the requests of `make_requests(cfg)`,
     blocks of SERVE_BLOCK (or a run's "block"), greedy; a run with
     "shuffle_seed" submits the requests shuffled and must give the first
     run's streams; the paged bf16 run's streams must equal the dense bf16
     run's (the paged route is the dense core on the gathered rows). With
-    `spec_delta`, the speculative runs follow (`spec_serving`); with
+    `spec`, the speculative runs follow (`spec_serving`, against the delta
+    of `verify_delta` on this model); with
     `profile`, a profiled dense run (`serving_profile`). Returns each run's
     launch counts."""
     from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
 
-    cfg = model_config(model_name)
-    model = make_model(model_name, fmt, dev)
+    cfg = model_config(model_name, cut=True)
+    model = make_model(model_name, fmt, dev, cut=True)
     streams, counts_by_run, rates = {}, {}, {}
     for name, options, decode_kernel in runs:
         phase = f"serve {model_name} {fmt} {name}"
@@ -1942,7 +2002,8 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
         expected = expected_forward_launches(cfg, fmt, prefills, st["decode_steps"],
                                              decode_kernel)
         lens = sorted({len(r.prompt) for r in reqs})
-        info(phase, f"{model_name} {fmt}, {SERVE_SLOTS} slots, {len(reqs)} requests x "
+        info(phase, f"{model_name} {fmt} ({depth(model_name, cfg)}), {SERVE_SLOTS} slots, "
+                    f"{len(reqs)} requests x "
                     f"{reqs[0].max_new_tokens} tokens, prompts {lens}, block {block}, {max_seq_len} "
                     f"slots a sequence on {card}: {st['total_tokens'] / wall:.2f} tok/s aggregate "
                     f"(tokens / wall), "
@@ -1980,8 +2041,13 @@ def serving(torch, dev, card: str, model_name: str, fmt: str, runs=SERVE_RUNS,
                           "the dense bf16 run's")
             require(same == len(dense), f"serve {model_name} {fmt} {name}: {len(dense) - same} "
                                         "streams differ from the dense bf16 run's")
-    if spec_delta is not None:
-        counts_by_run.update(spec_serving(torch, card, model_name, cfg, model, fmt, spec_delta, rates))
+    if spec:
+        eng = Engine(cfg, model, EngineConfig(max_seq_len=MAX_SEQ_LEN, max_batch=1))
+        prompt = spec_prompt(cfg)
+        delta = verify_delta(torch, eng, prompt, eng.generate([prompt], 1 + SPEC_K)[0],
+                             f"serve {model_name} {fmt} speculative")
+        del eng
+        counts_by_run.update(spec_serving(torch, card, model_name, cfg, model, fmt, delta, rates))
         sampled_serving(torch, dev, card, model_name, cfg, model, fmt)
     if profile:
         serving_profile(torch, cfg, model, card, f"{model_name} {fmt}")
@@ -2114,7 +2180,7 @@ def spec_serving(torch, card: str, model_name: str, cfg, model, fmt: str, delta:
     then one flash launch a layer a verify forward, no decode attention).
     Every stream of a run in admission order is teacher-forced through the
     plain decode path of its cache (8 sequences a batch) and must at every
-    position be the plain argmax or lie within `delta` (phase 4's) of the
+    position be the plain argmax or lie within `delta` (`verify_delta`'s) of the
     plain maximum; the shuffled run must give its unshuffled run's streams.
     Then one batched block under set_sync_debug_mode("error"). Returns each
     run's launch counts."""
@@ -2225,10 +2291,20 @@ def serving_profile(torch, cfg, model, card: str, label: str) -> None:
                                           f"{name[:48]} {ms / 1e3:.3f}" for ms, name in per_kernel[:6]))
 
 
-def tiny_serving_checks(torch, dev) -> None:
+# phase 5's f32 serving runs, card against CPU: (name, paged, int8 cache, the
+# decode calls' counter, the counter of those on the decode core's f32
+# policy, which must be all of them)
+TINY_F32_SERVE = (("paged f32", True, False, "paged_attention", "paged_attention_tf32"),
+                  ("paged int8", True, True, "paged_attention_int8", "paged_attention_tf32_int8"),
+                  ("dense int8", False, True, "decode_attention_int8", "decode_attention_tf32_int8"))
+
+
+def tiny_serving_checks(torch, dev) -> dict[str, int]:
     """Phase 5, serving: the CLI `serve --device cuda --paged --kv-quant` in a
     subprocess against the in-process `serve`, then serving on the card
-    against the CPU in f32 (caches in f32, and int8) on paged caches."""
+    against the CPU in f32 over TINY_F32_SERVE's caches (paged f32 and int8,
+    dense int8): equal streams, every decode call on the decode core's f32
+    policy. Returns those runs' launches on the card, summed."""
     from gemma_tpu_torch import cli
     from gemma_tpu_torch.runtime import Engine, EngineConfig, Request, serve
     from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
@@ -2261,18 +2337,26 @@ def tiny_serving_checks(torch, dev) -> None:
         _, model_cpu, _ = cli.load(path, "cpu")
         cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
         prompts = [tok.encode(t) for t in texts]
-        results = {}
-        for name, quant in (("paged f32", False), ("paged int8", True)):
+        results, total = {}, {}
+        for name, paged, quant, calls, core in TINY_F32_SERVE:
             ecfg32 = EngineConfig(max_seq_len=256, max_batch=4, kv_dtype=torch.float32,
-                                  paged=True, page_size=64, kv_quantized=quant, prefill_chunk=64)
-            runs = [serve(Engine(cfg32, m, ecfg32),
-                          [Request(f"r{i}", p, 16) for i, p in enumerate(prompts)], block=4)
-                    for m in (model_gpu, model_cpu)]
+                                  paged=paged, page_size=64, kv_quantized=quant, prefill_chunk=64)
+            runs = []
+            for m in (model_gpu, model_cpu):
+                reset_counters()
+                runs.append(serve(Engine(cfg32, m, ecfg32),
+                                  [Request(f"r{i}", p, 16) for i, p in enumerate(prompts)], block=4))
+                if m is model_gpu:
+                    counts = read_counters()
             gpu, cpu = ({r.id: r.tokens for r in s.finished} for s in runs)
-            results[name] = gpu == cpu
+            results[name] = f"streams {'equal' if gpu == cpu else 'DIFFER'}, {counts[core]} {core}"
             require(gpu == cpu, f"tiny f32 serving, {name}: card streams {gpu} != CPU {cpu}")
+            require(counts[core] > 0 and counts[core] == counts[calls],
+                    f"tiny f32 serving, {name}: {counts[core]} of {counts[calls]} decode calls took {core}")
+            add_counts(total, counts)
     info("tiny", f"serve: CLI on cuda (paged int8, chunk 64) prints the in-process serve's texts; "
-                 f"f32 serving card vs CPU, greedy streams equal: {results}")
+                 f"f32 serving card vs CPU: {results}")
+    return total
 
 
 def tiny_spec_checks(torch, dev) -> None:
@@ -2631,27 +2715,40 @@ def check_tool_kernels(torch, dev) -> dict[str, dict]:
 
 
 def run_tools(dev) -> dict[str, int]:
-    """Phase 7, the benches as a user runs them: `python -m
-    gemma_tpu_torch.tools.<name>` in a subprocess on the card, each of
-    which holds its kernels against their plain versions, times them L2
-    cold and checks its own launch counts. Returns the launches they
-    report, summed by kernel."""
+    """Phase 7, the benches: the first of TOOLS as a user runs it, `python
+    -m gemma_tpu_torch.tools.<name>` in a subprocess on the card, the others
+    through their `main([])` in this process (a process costs ~10 s to
+    start and reach the card); each holds its kernels against their plain
+    versions, times them L2 cold and checks its own launch counts (its
+    tally counts from 0). Returns the launches they report, summed by
+    kernel."""
+    import contextlib
+    import importlib
+    import io
+
     launches: dict[str, int] = {}
-    for name in TOOLS:
+    for i, name in enumerate(TOOLS):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"gemma_tpu_torch.tools.{name}"], cwd=ROOT,
-                              capture_output=True, text=True, timeout=600)
-        for line in proc.stdout.splitlines():
+        if i == 0:
+            proc = subprocess.run([sys.executable, "-m", f"gemma_tpu_torch.tools.{name}"], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=600)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = importlib.import_module(f"gemma_tpu_torch.tools.{name}").main([])
+            out, err = buf.getvalue(), ""
+        for line in out.splitlines():
             info(f"tool {name}", line)
-        require(proc.returncode == 0, f"tools.{name} failed ({proc.returncode}):\n"
-                                      f"{proc.stderr[-4000:]}")
-        reported = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+        require(rc == 0, f"tools.{name} failed ({rc}):\n{err[-4000:]}")
+        reported = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
                     if line.startswith("launches ")]
         require(len(reported) == 1 and all(n > 0 for n in reported[0].values()),
                 f"tools.{name} reported launches {reported}")
         for k, n in reported[0].items():
             launches[k] = launches.get(k, 0) + n
-        info("tools", f"tools.{name} passed in {time.perf_counter() - t0:.1f} s")
+        info("tools", f"tools.{name} passed in {time.perf_counter() - t0:.1f} s"
+                      + (" (a subprocess)" if i == 0 else " (in this process)"))
     require(set(launches) == set(TOOL_KERNELS), f"the tools launched {sorted(launches)}")
     return launches
 
@@ -2701,8 +2798,8 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
     a prefill (the TF32 tile), the head too where it runs at every row
     (perplexity; a prefill runs it at the last row, M = 1); every other
     matmul launch (the decode steps', and the head at a prefill's last row)
-    is the f32 GEMV's; every dense decode attention launch at 2 <= G <= 8
-    the TF32 decode core's."""
+    is the f32 GEMV's; every decode attention launch at 2 <= G <= 8, dense
+    or through pages, one of the decode core's f32 policies."""
     counts["flash_attention_tf32"] = cfg.n_layers * prefills
     if fmt in ("q4_0", "q8_0"):
         counts[f"{fmt}_matmul_tf32"] = (4 * cfg.n_layers + head) * prefills
@@ -2712,18 +2809,27 @@ def f32_route_launches(counts: dict[str, int], cfg, fmt: str, prefills: int,
         counts["q6_k_matmul_tf32"] = (cfg.n_layers + head) * prefills
         counts["q4_k_matmul_gemv_f32"] = counts["q4_k_matmul"] - counts["q4_k_matmul_tf32"]
         counts["q6_k_matmul_gemv_f32"] = counts["q6_k_matmul"] - counts["q6_k_matmul_tf32"]
-    if tf32_decode(cfg):
-        counts["decode_attention_tf32"] = counts["decode_attention"]
+    for op, core in (("decode_attention", "decode_attention_tf32"),
+                     ("decode_attention_int8", "decode_attention_tf32_int8"),
+                     ("paged_attention", "paged_attention_tf32"),
+                     ("paged_attention_int8", "paged_attention_tf32_int8")):
+        if tf32_decode(cfg, paged=op.startswith("paged")):
+            counts[core] = counts[op]
 
 
-def tf32_decode(cfg) -> bool:
-    """Whether `cfg`'s f32 queries over an f32 dense cache take the TF32
-    decode core (2 <= G <= 8) rather than the split-S kernel."""
+def tf32_decode(cfg, paged: bool = False) -> bool:
+    """Whether `cfg`'s f32 queries take the decode core's f32 policies (2 <=
+    G <= 8; dense, or through PAGE-key pages) rather than the G = 1 core or
+    the split-S kernel."""
     import torch
 
     import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
 
-    return att.decode_route(torch.float32, cfg.n_heads // cfg.n_kv_heads, MAX_SEQ_LEN)[0] == "tf32"
+    G = cfg.n_heads // cfg.n_kv_heads
+    route = (pat.paged_route(torch.float32, G, PAGE, MAX_SEQ_LEN) if paged
+             else att.decode_route(torch.float32, G, MAX_SEQ_LEN))
+    return route[0] == "tf32"
 
 
 def expected_eval_launches(cfg, fmt: str) -> dict[str, int]:
@@ -3001,11 +3107,17 @@ F32_DECODE_EDGES = (
     ("G=2 D=128, two stages a warp, limit 1000", 4, 2, 128, LONG_SEQ_LEN, [1000], 0.0, 0),
 )
 F32_DECODE_TOL = 1e-4  # of each row's scale: the TF32 flash kernel's
-# f32 queries that stay on the split-S kernels, timed beside the TF32 core:
-# (name, cache) at Gemma-2B's heads: SERVE_SLOTS rows through PAGE-key
-# pages of f32 (a 65-page pool, SERVE_LIMITS), and one row over an int8
-# dense cache at limit PROMPT_LEN + 1
-F32_SPLIT_ROUTES = (("paged f32 pages", "paged"), ("dense int8 cache", "int8"))
+# f32 queries on the one-launch decode core over pages and int8 caches, each
+# timed in turns against the split-S kernel and its combine that took them
+# before (the route of G > 8, whose source is unchanged): (kernel name,
+# paged, int8) at Gemma-2B's heads: SERVE_SLOTS rows through PAGE-key pages
+# (a 65-page pool, SERVE_LIMITS) of f32 and of int8, and one row over an
+# int8 dense cache at limit PROMPT_LEN + 1
+F32_CORE_ROUTES = (("paged_attention_tf32", True, False), ("paged_attention_tf32_int8", True, True),
+                   ("decode_attention_tf32_int8", False, True))
+# each arm's launch counter on its wrapper
+F32_CORE_COUNTERS = {"paged_attention_tf32": "tf32_launches", "paged_attention_tf32_int8": "tf32_int8_launches",
+                     "decode_attention_tf32_int8": "tf32_int8_launches"}
 
 
 def check_f32_decode(torch, dev, gen) -> dict[str, dict]:
@@ -3085,65 +3197,151 @@ def check_f32_decode(torch, dev, gen) -> dict[str, dict]:
     rep = rows["tf32"][0]
     readings = {"decode_attention_tf32": {**rep, "max_abs_err": worst, "rows": rows["tf32"]},
                 "decode_attention_g1": {"f32": rows["g1"]}}
-    readings.update(f32_split_routes(torch, dev, gen))
+    readings.update(f32_core_routes(torch, dev, gen))
     return readings
 
 
-def f32_split_routes(torch, dev, gen) -> dict[str, dict]:
-    """Phase 8: the f32-q decode routes that stay on the split-S kernels
-    (F32_SPLIT_ROUTES, Gemma-2B's heads), each against its plain version
-    (f32 pages: F32_DECODE_TOL of each row's scale; int8: ATT_TOL, p * vs
-    rounds to bf16), timed warm with its bound (the live keys' K and V,
-    int8 with their scales, q and out over HBM bandwidth against the flops
-    at the TF32 rate); no single library call computes either. Returns
-    readings under `paged_attention` and `decode_attention_int8` ("f32")."""
+def f32_core_inputs(torch, gen, dev, paged: bool, int8: bool, hq: int, hkv: int, D: int, S: int, limits,
+                    seed: int = 6):
+    """(q [B, 1, hq, D] f32, the cache, kv_limit) of an f32-q core arm: a
+    one-layer PagedKVCache of PAGE-key pages (the live pages shuffled over
+    the pool, f32 or int8 with scales), or a dense cache's (k, v, k_scale,
+    v_scale), f32 or int8; q drawn in f32 (not bf16 values)."""
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+    from gemma_tpu_torch.tools.parent_turn import paged_inputs
+
+    B = len(limits)
+    lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+    if paged:
+        _, cache, lim = paged_inputs(gen, dev, B, hq, hkv, D, PAGE, limits, B * S // PAGE + 1, S, int8,
+                                     torch.float32, seed=seed)
+    else:
+        k, v = (torch.randn(B, hkv, S, D, generator=gen, device=dev) * 0.3 for _ in range(2))
+        if int8:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            cache = (k, v, ks, vs)
+        else:
+            cache = (k, v, None, None)
+    q = torch.randn(B, 1, hq, D, generator=gen, device=dev) * 0.3
+    return q, cache, lim
+
+
+def f32_core_calls(paged: bool, q, cache, lim, cap: float = 0.0, window: int = 0):
+    """(the wrapper's call, its plain version, decode_attention on the
+    gathered rows or None) of an f32-q core arm."""
     import gemma_tpu_torch.ops.attention as att
     import gemma_tpu_torch.ops.paged_attention as pat
-    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+
+    if paged:
+        dense = [None if x is None else x.contiguous() for x in cache.layer_kv(0)]
+        return (lambda: pat.paged_decode_attention(q, cache, 0, lim, cap, window),
+                lambda: pat.paged_decode_attention_plain(q, cache, 0, lim, cap, window),
+                lambda: att.decode_attention(q, dense[0], dense[1], lim, cap, window, *dense[2:]))
+    k, v, ks, vs = cache
+    return (lambda: att.decode_attention(q, k, v, lim, cap, window, ks, vs),
+            lambda: att.decode_attention_plain(q, k, v, lim, cap, window, ks, vs), None)
+
+
+def f32_core_once(torch, name: str, paged: bool, call, dense, what: str):
+    """call() (one wrapper call of arm `name`) once: one launch counted in
+    its counter and nothing else on the tensor cores; through pages equal
+    to decode_attention on the gathered rows bit for bit. Returns call()'s
+    output."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+
+    op = pat.paged_decode_attention if paged else att.decode_attention
+    names = ("tc_launches", "tf32_launches", "tf32_int8_launches", "g1_launches")
+    before = [getattr(op, n) for n in names]
+    got = call()
+    launched = {n: getattr(op, n) - b for n, b in zip(names, before)}
+    require(launched == {n: int(n == F32_CORE_COUNTERS[name]) for n in names},
+            f"{name} {what}: launches {launched}, not one of the core's f32 policy")
+    if dense is not None:
+        require(torch.equal(got, dense()), f"{name} {what}: differs from decode_attention on the gathered "
+                                           "rows")
+    return got
+
+
+def f32_core_routes(torch, dev, gen) -> dict[str, dict]:
+    """Phase 8: f32 queries on the one-launch decode core over pages of f32
+    (`DecTf32` through `PagedRows`) and over int8 pages and an int8 dense
+    cache (`DecTf32Int8`), F32_CORE_ROUTES at Gemma-2B's heads: one launch
+    a call counted in the arm's counter (F32_CORE_COUNTERS), against the
+    plain version (f32 pages: F32_DECODE_TOL of each row's scale; int8:
+    ATT_TOL, p * vs rounds to bf16), through pages equal bit for bit to
+    decode_attention on the gathered rows, timed warm with its bound (the
+    live keys' K and V, int8 with their scales, q and out over HBM
+    bandwidth against the flops at the TF32 rate) and in turns against the
+    split-S kernel and its combine on the same inputs (core, split-S,
+    split-S, core: the route these arms took before); no single library
+    call computes either. Then each arm at F32_DECODE_EDGES. Returns
+    readings under each arm's kernel name."""
+    import gemma_tpu_torch.ops.attention as att
+    from gemma_tpu_torch.kernels import build
+    from gemma_tpu_torch.tools import _launch
     from gemma_tpu_torch.tools._timing import attn_err
-    from gemma_tpu_torch.tools.parent_turn import paged_inputs
     from gemma_tpu_torch.utils.device import H100_TF32_FLOPS
 
     D, hq, hkv = HEAD_DIM, 8, 1
+    lib = build.load()
     out = {}
-    for name, cache_kind in F32_SPLIT_ROUTES:
-        if cache_kind == "paged":
-            limits = SERVE_LIMITS
-            q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, PAGE, limits, 65, MAX_SEQ_LEN,
-                                         False, torch.float32, seed=6)
-            route = pat.paged_route(torch.float32, hq // hkv, PAGE, MAX_SEQ_LEN)
-            kernel = lambda: pat.paged_decode_attention(q, cache, 0, lim)  # noqa: E731
-            plain = lambda: pat.paged_decode_attention_plain(q, cache, 0, lim)  # noqa: E731
-            key_bytes, tol, counter = 2 * D * 4, F32_DECODE_TOL, "paged_attention"
+    for name, paged, int8 in F32_CORE_ROUTES:
+        limits = SERVE_LIMITS if paged else [PROMPT_LEN + 1]
+        q, cache, lim = f32_core_inputs(torch, gen, dev, paged, int8, hq, hkv, D, MAX_SEQ_LEN, limits)
+        kernel, plain, dense = f32_core_calls(paged, q, cache, lim)
+        if paged:
+            split_s = lambda: _launch.paged_split(lib, q, cache, 0, lim)  # noqa: E731
         else:
-            limits = [PROMPT_LEN + 1]
-            q = torch.randn(1, 1, hq, D, generator=gen, device=dev) * 0.3
-            (k8, ks), (v8, vs) = (quantize_kv(torch.randn(1, hkv, MAX_SEQ_LEN, D, generator=gen, device=dev) * 0.3)
-                                  for _ in range(2))
-            lim = torch.tensor(limits, dtype=torch.int32, device=dev)
-            route = att.decode_route(torch.float32, hq // hkv, MAX_SEQ_LEN, int8=True)
-            kernel = lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs)  # noqa: E731
-            plain = lambda: att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs)  # noqa: E731
-            key_bytes, tol, counter = 2 * (D + 4), ATT_TOL, "decode_attention_int8"
-        got, ref = kernel(), plain()
+            split_s = lambda: _launch.decode(lib, att.DECODE_SPLIT, q, *cache[:2], lim, *cache[2:],  # noqa: E731
+                                             kind="split")
+        tol = ATT_TOL if int8 else F32_DECODE_TOL
+        got = f32_core_once(torch, name, paged, kernel, dense, f"limits {limits}")
+        ref = plain()
         torch.cuda.synchronize()
         err, ratio, lo, hi = attn_err(got, ref, tol)
-        require(route[0] == "split" and ratio <= 1.0,
-                f"f32-q {name}: |diff| {ratio:.3f} x {tol} of its row's scale (route {route})")
-        ms = device_ms(torch, kernel, reps=3)
+        split_ratio = attn_err(split_s(), ref, tol)[1]
+        require(ratio <= 1.0 and split_ratio <= 1.0,
+                f"{name}: |diff| {ratio:.3f} x {tol} of its row's scale (split-S: {split_ratio:.3f})")
+        turns = [device_ms(torch, fn, reps=3) for fn in (kernel, split_s, split_s, kernel)]
+        ms = statistics.median([turns[0], turns[3]])
         plain_ms = device_ms(torch, plain, launches=1, reps=3)
         live = sum(limits)
+        key_bytes = 2 * (D + 4) if int8 else 2 * D * 4
         bound_ms, bound_by = bound(live * hkv * key_bytes + 2 * len(limits) * hq * D * 4 + 4 * len(limits),
                                    4 * hq * D * live, H100_TF32_FLOPS)
-        info("quality", f"f32-q {name} (Gemma-2B heads, limits {limits}; {route[0]}, {route[1]} keys a "
-                        f"block: the split-S kernel and its combine): max|diff|={err:.3e}, worst |diff| / "
-                        f"({tol} x row scale) {ratio:.3f}, row scales {lo:.3e}-{hi:.3e}; device ms, warm: "
-                        f"kernel {ms:.4f} library none; plain {plain_ms:.4f}; bound {bound_ms:.6f} "
-                        f"({bound_by}: K and V at HBM rate, or the flops at the TF32 rate)")
-        out[counter] = {"f32": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by, "library_ms": None,
-                                "shape": f"f32 q {name} limits={limits} Hq={hq} Hkv={hkv} D={D}"}}
-        del q, got, ref
+        route = f"{'int8' if int8 else 'f32'} {'pages' if paged else 'cache'}"
+        equal = "; equal bit for bit to the dense core on the gathered rows" if paged else ""
+        info("quality", f"{name}: f32 q over {route} (Gemma-2B heads, limits {limits}; one launch of the "
+                        f"decode core): max|diff|={err:.3e}, worst |diff| / ({tol} x row scale) {ratio:.3f}, "
+                        f"row scales {lo:.3e}-{hi:.3e}{equal}; device ms, warm, in turns: core {turns[0]:.4f}, split-S kernel and combine "
+                        f"{turns[1]:.4f} / {turns[2]:.4f}, core {turns[3]:.4f} (core / split-S "
+                        f"{ms / statistics.median(turns[1:3]):.3f}); library none; plain {plain_ms:.4f}; "
+                        f"bound {bound_ms:.6f} ({bound_by}: K and V at HBM rate, or the flops at the TF32 rate)")
+        require(ms < min(turns[1:3]), f"{name}: the core ({ms:.4f} ms) is not faster than the split-S "
+                                      f"kernel ({turns[1]:.4f} / {turns[2]:.4f})")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "split_s_ms": turns[1:3],
+                     "shape": f"f32 q over {route} limits={limits} Hq={hq} Hkv={hkv} D={D}"}
+        del q, cache, got, ref
+    worst = {name: 0.0 for name in out}
+    for edge, hq_, hkv_, D_, S, limits, cap, window in F32_DECODE_EDGES:
+        for name, paged, int8 in F32_CORE_ROUTES:
+            q, cache, lim = f32_core_inputs(torch, gen, dev, paged, int8, hq_, hkv_, D_, S, limits, seed=9)
+            kernel, plain, dense = f32_core_calls(paged, q, cache, lim, cap, window)
+            got = f32_core_once(torch, name, paged, kernel, dense, f"edge {edge}")
+            tol = ATT_TOL if int8 else F32_DECODE_TOL
+            ratio = attn_err(got, plain(), tol)[1]
+            empty = lim == 0
+            require(ratio <= 1.0 and not bool(got[empty].any()),
+                    f"{name} edge {edge}: |diff| {ratio:.3f} x {tol} of its row's scale (rows without a key "
+                    f"exactly 0: {not bool(got[empty].any())})")
+            worst[name] = max(worst[name], ratio)
+            del q, cache, got
+    info("quality", "f32-q core arms at F32_DECODE_EDGES (limit 1, serving rows with softcap, G = 4 at D = 128 "
+                    "with a window and a row without keys, G = 2 at D = 128 over 4096 slots; pages equal bit "
+                    "for bit to the dense core on the gathered rows, rows without a key exactly 0), worst "
+                    "|diff| / (tol x row scale): " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
     return out
 
 
@@ -3505,7 +3703,7 @@ def prefill_host(spec: dict) -> int:
 
     dev = torch.device("cuda", 0)
     multihost.initialize(spec["coordinator"], 2, 1, timeout=300)
-    cfg = model_config("Gemma-2B")
+    cfg = model_config("Gemma-2B", cut=True)
     model = make_params(cfg, "q4_0", seed=0, device=dev)
     roles = multihost.HostRoles((1,), (0,))
     try:
@@ -3617,7 +3815,7 @@ def disaggregated_serving(torch, dev, card: str) -> None:
     from gemma_tpu_torch.testing import make_params
 
     t_phase = time.perf_counter()
-    cfg = model_config("Gemma-2B")
+    cfg = model_config("Gemma-2B", cut=True)
     with tempfile.TemporaryDirectory(prefix="smoke") as tmp:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
@@ -3671,7 +3869,8 @@ def disaggregated_serving(torch, dev, card: str) -> None:
                     expected = expected_forward_launches(
                         cfg, "q4_0", prefills if how == "in-process" else 0, st["decode_steps"],
                         decode_kernel)
-                    info(phase, f"{how}: Gemma-2B q4_0, {SERVE_SLOTS} slots, {DISAGG_REQUESTS} "
+                    info(phase, f"{how}: Gemma-2B q4_0 ({depth('Gemma-2B', cfg)}), {SERVE_SLOTS} "
+                                f"slots, {DISAGG_REQUESTS} "
                                 f"requests x {DISAGG_NEW_TOKENS} tokens, prompts "
                                 f"{SERVE_PROMPT_LENS}, block {SERVE_BLOCK} on {card}: "
                                 f"{st['total_tokens'] / wall:.2f} tok/s (tokens / wall), TTFT p50 "
@@ -3717,10 +3916,11 @@ def disaggregated_serving(torch, dev, card: str) -> None:
             b = handoff(torch, Engine(cfg, model, EngineConfig(
                 max_seq_len=MAX_SEQ_LEN, kv_quantized=True, prefill_chunk=PAGE)).prefill_standalone(
                     prompt, pad_to=DISAGG_PAGE), dev)
-            info("disagg", handoff_line(f"Gemma-2B hand-off of {len(prompt)} tokens, bf16 K/V",
-                                        a, card))
-            info("disagg", handoff_line(f"Gemma-2B hand-off of {len(prompt)} tokens, int8 K/V "
-                                        "with scales, 256 slots", b, card))
+            info("disagg", handoff_line(f"Gemma-2B ({depth('Gemma-2B', cfg)}) hand-off of "
+                                        f"{len(prompt)} tokens, bf16 K/V", a, card))
+            info("disagg", handoff_line(f"Gemma-2B ({depth('Gemma-2B', cfg)}) hand-off of "
+                                        f"{len(prompt)} tokens, int8 K/V with scales, 256 slots",
+                                        b, card))
             require(a[4] and b[4], "phase 9: a Gemma-2B hand-off is not bit for bit")
             del model, local, mine, remote
             torch.cuda.empty_cache()
@@ -4058,7 +4258,7 @@ def tp_references(torch, dev, card: str) -> dict:
 
     refs, counts = {}, {}
     for model_name, fmt in TP_MODELS:
-        cfg = model_config(model_name)
+        cfg = model_config(model_name, cut=True)
         model = make_params(cfg, fmt, seed=0, device=dev)
         prompt = tp_prompt(cfg)
         for name, act, opts, new, timed, _ in tp_scenarios(cfg, fmt, model_name == "Gemma-2B"):
@@ -4088,7 +4288,8 @@ def tp_references(torch, dev, card: str) -> dict:
         exact = all(torch.equal(got[k], one[k]) for k in ("prefill", "step1"))
         expected = expected_tp_launches(cfg, fmt, 1, NEW_TOKENS + TP_TIMED_STEPS + 1,
                                         "decode_attention", False)
-        info("tp", f"10a: {model_name} {fmt} at full width through TPEngine, world size 1 over "
+        info("tp", f"10a: {model_name} {fmt} at full width ({depth(model_name, cfg)}) through "
+                   f"TPEngine, world size 1 over "
                    f"NCCL (mesh {mesh.shape}): prompt {PROMPT_LEN} + {NEW_TOKENS} greedy tokens; "
                    f"prefill and first-step logits bit for bit the Engine's: {exact}; stream "
                    f"equal: {got['tokens'] == one['tokens']}; wall ms a decode step "
@@ -4145,7 +4346,7 @@ def tp_rank(spec: dict) -> int:
     out = {"rank": rank, "runs": {}, "counts": {}, "peak_gb": {}}
     try:
         mesh = make_mesh(1, tp, backend=spec["backend"], device=dev)
-        models = [(m, f, model_config(m)) for m, f in TP_MODELS]
+        models = [(m, f, model_config(m, cut=True)) for m, f in TP_MODELS]
         if spec["tiny"]:
             models.append(("TINY_MHA", "q4_k_m", TINY_MHA_CONFIG))
         for model_name, fmt, cfg in models:
@@ -4281,6 +4482,8 @@ def tensor_parallel(torch, dev, card: str) -> tuple[dict[str, int], dict[str, di
     t_phase = time.perf_counter()
     readings = check_tp_kernels(torch, dev)
     info("time", f"phase 10 kernel checks took {time.perf_counter() - t_phase:.1f} s")
+    info("tp", "10a and 10b at full width over each model's first layers: " + ", ".join(
+        f"{m} {depth(m, model_config(m, cut=True))}" for m, _ in TP_MODELS))
     ref = tp_references(torch, dev, card)
     counts = dict(ref["counts"])
     with tempfile.TemporaryDirectory(prefix="tp") as tmp:
@@ -4444,6 +4647,71 @@ def serving_benches(card: str) -> None:
     info("time", f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12: the reference's last five tools (gemma_tpu_torch/tools/) at full
+# width with short arguments, through their main(argv): (tool, argv, the
+# regular expression of a reading line, the lines it must print). The decode
+# sweep at the reference's longest cache, four arms at five splits and the
+# split-S kernel; flash at 1, 2 and 4 row warps and the plan, and SDPA; every
+# format at the 2b shapes; q4_0 at every Gemma-2B decode shape and the step's
+# sum; the cache cost of Gemma-7B's five probes at 2048 and 4096 slots and
+# their ratios
+_NUM = r"\s+([0-9.]+)"
+REF_TOOLS = (
+    ("bench_decode_attn", ["--sizes", "8192:8000"],
+     r"^\s+(bf16|int8|f32|f32_int8)\s+S= 8192 limit= 8000 (split=\s*\d+[ *]|split-S \(64 keys, \+ combine\))"
+     + _NUM + " us" + _NUM + " GB/s$", 24),
+    ("bench_flash", ["2048"], r"^\s+(row warps \d|the plan's|scaled_dot_product_attention).*?" + _NUM
+     + " us/layer" + _NUM + " TFLOP/s$", 5),
+    ("bench_fmt_kernels", ["2b"], r"^(ffn_down|gate_up|lm_head)\s+(q4_0|q4_k|q6_k|q8_0)" + _NUM + " us" + _NUM
+     + r" GB/s\s+\(([0-9.]+) MB\)$", 12),
+    ("bench_shapes", [], r"^\s+(qkv|attn_out|gate_up|ffn_down|lm_head|lm_head_pad)\s+\[.*\]" + _NUM + " us"
+     + _NUM + r" GB/s\s+\(\s*([0-9.]+) MB\) x(1|18)$", 6),
+    ("probe_cache_cost", [], r"^\s+S=(2048|4096): \S+" + _NUM + " ms/step device" + _NUM + " ms/step wall$",
+     10),
+)
+
+
+def reference_tools(card: str) -> None:
+    """Phase 12: REF_TOOLS on the card, in this process: each prints the card
+    line first and its reading lines (as many as it must, every number
+    finite and above 0), each holding its kernels to their plain versions
+    as it runs; the decode sweep marks one split an arm as the route's, the
+    shapes bench sums the step and the cache probe prints its five ratios.
+    Every tool but the two attention sweeps (direct launches through the
+    C entry points) prints its launches, each above 0."""
+    import contextlib
+    import importlib
+    import io
+
+    t_phase = time.perf_counter()
+    for name, argv, pattern, n_lines in REF_TOOLS:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = importlib.import_module(f"gemma_tpu_torch.tools.{name}").main(argv)
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            info(f"tool {name}", line)
+        readings = [m for m in map(re.compile(pattern).match, lines) if m]
+        numbers = [float(x) for m in readings for x in m.groups() if re.fullmatch(r"[0-9.]+", x)]
+        require(rc == 0 and lines[0] == card and len(readings) == n_lines
+                and all(math.isfinite(x) and x > 0 for x in numbers),
+                f"tools.{name} {argv}: rc {rc}, {len(readings)} of {n_lines} reading lines")
+        launched = [json.loads(line.split(" ", 1)[1]) for line in lines if line.startswith("launches ")]
+        require(name in ("bench_decode_attn", "bench_flash")
+                or (len(launched) == 1 and launched[0] and all(n > 0 for n in launched[0].values())),
+                f"tools.{name}: launches {launched}")
+        if name == "bench_decode_attn":
+            require(sum("*" in m.group(2) for m in readings) == 4, "bench_decode_attn: the route's split unmarked")
+        if name == "bench_shapes":
+            require(any(line.startswith("  sum over decode matmuls") for line in lines), "bench_shapes: no sum")
+        if name == "probe_cache_cost":
+            require(sum(" S=4096 / S=2048: device " in line for line in lines) == 5,
+                    "probe_cache_cost: not every probe's ratio")
+        info("time", f"tools.{name} {' '.join(argv)} took {time.perf_counter() - t0:.1f} s")
+    info("time", f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run() -> dict:
     import torch
 
@@ -4460,6 +4728,9 @@ def run() -> dict:
                    f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    # a run near the 1200 s limit leaves its stack on stderr, so a cut run
+    # shows the phase it was in
+    faulthandler.dump_traceback_later(STACK_DUMP_S)
     build.load()
     built = build.build_seconds
     info("build", (f"nvcc sm_90a build of {len(build.sources())} sources in {built:.1f} s"
@@ -4485,22 +4756,24 @@ def run() -> dict:
         results[name]["arch"] = by_model
     done("Gemma-2-2B and Gemma-3-4B kernels (phase 3)")
     # each path's launches: the plain generation's, plus its speculative run's
-    counts_q4_0, spec_q4_0, delta = main_path(torch, dev, card, "Gemma-2B", "q4_0")
-    counts, spec, _ = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
+    counts_q4_0, spec_q4_0 = main_path(torch, dev, card, "Gemma-2B", "q4_0")
+    counts, spec = main_path(torch, dev, card, "Gemma-2B", "q4_k_m")
     counts = {name: n + spec[name] for name, n in counts.items()}
     counts["q4_0_matmul"] = counts_q4_0["q4_0_matmul"] + spec_q4_0["q4_0_matmul"]
     done("generation (phases 4, 4b)")
-    counts_7b, spec_7b, _ = main_path(torch, dev, card, "Gemma-7B", "q8_0")
+    counts_7b, spec_7b = main_path(torch, dev, card, "Gemma-7B", "q8_0")
     counts["q8_0_matmul"] = counts_7b["q8_0_matmul"] + spec_7b["q8_0_matmul"]
     counts["decode_attention_g1"] = counts_7b["decode_attention_g1"] + spec_7b["decode_attention_g1"]
     done("Gemma-7B q8_0 generation (phase 4c)")
     add_counts(counts, long_contexts(torch, dev, card))
     done("Gemma-2-2B and Gemma-3-4B past their windows (phase 4d)")
     tiny_checks(torch, dev)
-    tiny_serving_checks(torch, dev)
+    tiny_f32 = tiny_serving_checks(torch, dev)
+    for name, *_, core in TINY_F32_SERVE:  # f32 serving's path: the core's f32 policies over int8 and pages
+        counts[core] = tiny_f32[core]
     tiny_spec_checks(torch, dev)
     done("tiny checks (phase 5)")
-    served = serving(torch, dev, card, "Gemma-2B", "q4_0", spec_delta=delta)
+    served = serving(torch, dev, card, "Gemma-2B", "q4_0", spec=True)
     done("serving (phase 6)")
     for name, run in (("decode_attention_int8", "dense int8"), ("paged_attention", "paged bf16"),
                       ("paged_attention_int8", "paged int8")):
@@ -4518,9 +4791,10 @@ def run() -> dict:
     quality_counts, eval_readings = quality_gates(torch, dev, card)
     add_counts(counts, quality_counts)
     for name in ("flash_attention_tf32", "decode_attention_tf32", "q4_0_matmul_gemv_f32",
-                 "q8_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32", "q6_k_matmul_gemv_f32"):
+                 "q8_0_matmul_gemv_f32", "q4_k_matmul_gemv_f32", "q6_k_matmul_gemv_f32",
+                 *(name for name, _, _ in F32_CORE_ROUTES)):
         results[name] = eval_readings.pop(name)
-    for name, reading in eval_readings.items():  # the split-S and G = 1 kernels with f32 q ("f32")
+    for name, reading in eval_readings.items():  # the G = 1 kernels with f32 q ("f32")
         results[name].update(reading)
     done("quality gates (phase 8)")
     disaggregated_serving(torch, dev, card)
@@ -4532,7 +4806,10 @@ def run() -> dict:
     done("tensor parallelism (phase 10)")
     serving_benches(card)
     done("serving and step benches (phase 11)")
+    reference_tools(card)
+    done("the reference's last five tools (phase 12)")
     require("jax" not in sys.modules, "jax was imported")
+    faulthandler.cancel_dump_traceback_later()
     info("time", f"the whole script took {time.perf_counter() - t0:.1f} s, the kernels' build included")
 
     kernels = [
@@ -4543,6 +4820,8 @@ def run() -> dict:
     require(all(counts[f"{fmt}_matmul_gemv_f32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),
             "the f32 paths launched no f32 GEMV")
     require(counts["decode_attention_tf32"] > 0, "the f32 paths launched no TF32 decode")
+    require(all(counts[name] > 0 for name, _, _ in F32_CORE_ROUTES),
+            "f32 serving over pages or an int8 cache launched no f32 policy of the decode core")
     require(counts["decode_attention_g1"] > 0 and counts["paged_attention_g1"] > 0,
             "Gemma-7B's decode launched no G = 1 core, dense or paged")
     require(all(counts[f"{fmt}_matmul_tf32"] > 0 for fmt in ("q4_0", "q8_0", "q4_k", "q6_k")),

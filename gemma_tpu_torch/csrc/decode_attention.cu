@@ -21,11 +21,13 @@
 //
 // `decode_tc_kernel` (decode_tc.cuh, with `DenseRows`) at 2 <= G = Hq / Hkv
 // <= 8 (Gemma-2B's G = 8; the main path): bf16 q over a bf16 or int8 cache
-// (`DecBf16`, `DecInt8`), and f32 q over an f32 cache in 3xTF32
-// (`DecTf32`: f32 serving and --verify's f32 cache): 16 keys on the m16
-// side of `mma.sync` and the query group on n8, the splits merged in the
-// same launch by the last block. The paged kernel (paged_attention.cu)
-// runs the same core through its page table (bf16 q).
+// (`DecBf16`, `DecInt8`), f32 q over an f32 cache in 3xTF32 (`DecTf32`:
+// f32 serving and --verify's f32 cache) and f32 q over an int8 cache
+// (`DecTf32Int8`: f32 serving with --kv-quant; scores in TF32 with q in two
+// parts, p . v as the int8 arm's): 16 keys on the m16 side of `mma.sync`
+// and the query group on n8, the splits merged in the same launch by the
+// last block. The paged kernel (paged_attention.cu) runs the same core,
+// every policy, through its page table.
 //
 // `decode_g1_kernel` (decode_g1.cuh, with `DenseRows`) at G = 1 (Gemma-7B's
 // 16 heads over 16 KV heads), all four (q, cache) arms: a core built for a
@@ -34,12 +36,11 @@
 // the splits merged in the same launch by the last block (the tensor-core
 // core's merge). The paged kernel runs it through its page table too.
 //
-// `decode_split_kernel`: G > 8, and f32 q over an int8 cache at 2 <= G <=
-// 8, with FMA only. It gives each block `split` keys of one (b, kv head)
-// for all G query heads of the group. Blocks whose keys are all outside
-// [max(limit - window, 0), limit) write an empty partial and return at once,
-// so only live tiles are read. Each live block writes its partial (max, sum,
-// unnormalized output), and `attend_combine_kernel` (common.cuh), a second
+// `decode_split_kernel`: G > 8, with FMA only. It gives each block `split`
+// keys of one (b, kv head) for all G query heads of the group. Blocks
+// whose keys are all outside [max(limit - window, 0), limit) write an empty
+// partial and return at once, so only live tiles are read. Each live block
+// writes its partial (max, sum, unnormalized output), and `attend_combine_kernel` (common.cuh), a second
 // small launch, rescales and sums the partials. The split itself is
 // `attend_split` (common.cuh), shared with the paged kernel. Its G = 1
 // instances are built but no route reaches them.
@@ -138,36 +139,23 @@ extern "C" int gt_decode_attention(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: q [B, Hq, D] with G = Hq / Hkv <= 8, bf16 over
-// k/v [B, Hkv, S, D] bf16 or int8 (kv_dtype kI8, with f32 k_scale/v_scale
-// [B, Hkv, S]; else null), or f32 over f32 k/v (kv_dtype kF32, the TF32
-// policy), all contiguous; kv_limit i32 [B]; out [B, Hq, D] in q's dtype.
+// The tensor-core kernel: q [B, Hq, D] with G = Hq / Hkv <= 8, bf16 (q_dtype
+// kBF16) over k/v [B, Hkv, S, D] bf16 or int8, or f32 (kF32) over f32 or
+// int8 k/v; int8 (kv_dtype kI8) with f32 k_scale/v_scale [B, Hkv, S], else
+// null; all contiguous; kv_limit i32 [B]; out [B, Hq, D] in q's dtype.
 // work: B * Hkv * n_splits * G * (D + 2) f32, n_splits = ceil(S / split);
 // tickets: B * Hkv ints, 0 on entry and on return; split: a multiple of
 // 16.
 extern "C" int gt_decode_attention_tc(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
                                       const void* kv_limit, void* out, void* work, void* tickets,
-                                      int B, int Hq, int Hkv, int S, int D, int kv_dtype, int split,
-                                      int window, float softcap, void* stream) {
+                                      int B, int Hq, int Hkv, int S, int D, int q_dtype, int kv_dtype,
+                                      int split, int window, float softcap, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kv_dtype == kF32) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int* lim = static_cast<const int*>(kv_limit);
-    float* wk = static_cast<float*>(work);
-    int* tk = static_cast<int*>(tickets);
-    if (D == 256)
-      return launch_decode_tc<256, DecTf32>(q, k, v, nullptr, nullptr, lim, out, wk, tk, DenseRows{S}, B, Hq,
-                                            Hkv, S, split, window, softcap, s);
-    if (D == 128)
-      return launch_decode_tc<128, DecTf32>(q, k, v, nullptr, nullptr, lim, out, wk, tk, DenseRows{S}, B, Hq,
-                                            Hkv, S, split, window, softcap, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return dispatch_decode_tc(kv_dtype, D, q, k, v, static_cast<const float*>(k_scale),
+  return dispatch_decode_tc(q_dtype, kv_dtype, D, q, k, v, static_cast<const float*>(k_scale),
                             static_cast<const float*>(v_scale), static_cast<const int*>(kv_limit),
                             out, static_cast<float*>(work), static_cast<int*>(tickets),
                             DenseRows{S}, B, Hq, Hkv, S, split, window, softcap,

@@ -3,8 +3,9 @@
 //
 // `decode_tc_kernel<D, E, Rows>`: 2 <= G = Hq / Hkv <= 8 (Gemma-2B's G = 8)
 // over an element policy E: bf16 q over bf16 K/V (`DecBf16`) or int8 K/V
-// with f32 scales a key, read in place (`DecInt8`), or f32 q over f32 K/V
-// (`DecTf32`, below the bf16 design).
+// with f32 scales a key, read in place (`DecInt8`), f32 q over f32 K/V
+// (`DecTf32`, below the bf16 design), or f32 q over int8 K/V (`DecTf32Int8`,
+// below that).
 // The GEMV-on-tensor-cores pattern of dq_gemv.cuh with the cache in place
 // of the weight: `mma.sync.m16n8k16` with the cache on the m16 side and the
 // G query heads, zero-padded to 8 as the reference pads to MIN_DECODE_G, on
@@ -88,6 +89,33 @@
 // 0.0370, f32 SDPA 0.0480), S = 4096 full 0.03-0.06 (0.1706, SDPA 0.1398,
 // plain 0.0752), within 1e-4 of each row's scale; rows without a live key
 // exactly 0. What the card measured: PERF.md section 6.
+//
+// `DecTf32Int8`: f32 q over an int8 cache (f32 serving with --kv-quant;
+// the reference kernel's int8 arm with f32 queries: s = (q . k8) * ks, out
+// = bf16(p * vs) . v8). The skeleton is unchanged; the operands:
+// * scores in TF32 on m16n8k8 as `DecTf32` lays them out (the same D
+//   permutation, q's hi and lo planes staged once a block), but an int8 key
+//   is exact in one TF32 part, so a k8 step takes two products, K . lo(q)
+//   then K . hi(q), into the same accumulators: each product carries ~2^-21
+//   of relative error, as 3xTF32's. The raw int8 K tile stays in shared
+//   memory at a pitch of D + 16 bytes (a lane's four keys of a unit one
+//   32-bit load, the 8 rows x 4 lanes of a load on distinct banks) and
+//   each byte becomes its f32 value in registers (`bytes_minus`: a byte
+//   permute and a subtract); ks scales each score after the dot;
+// * p . v as `DecInt8` takes it: the raw V tile widened to bf16 in shared
+//   memory, P = bf16(p * vs), bf16 `mma.sync` m16n8k16 into f32, so the
+//   output fragment and both merges are the bf16 design's;
+// * a ring stage of 16 keys is 8.3 KB at D = 256 (K at its pitch, V raw),
+//   with a bf16 V tile and P a warp and q's planes (17 KB) a block: 86 KB a
+//   block at one stage (two blocks an SM), 120 KB at two.
+// Expected (written before the first run on the card): at Gemma-2B's heads
+// S = 512, limit 204 0.014-0.02 ms (the split-S kernel it replaces there
+// 0.0363, the bf16-q int8 core 0.0134), within 2e-2 of each row's scale
+// (p * vs rounds to bf16, as in the int8 arm); through 64-key pages over
+// the 8 serving rows equal to the dense core on the gathered pages bit for
+// bit. With `PagedRows`, `DecTf32` likewise (f32 pages: 0.013-0.02 ms over
+// the serving rows against the split-S kernel's 0.0441). What the card
+// measured: PERF.md section 6.
 #pragma once
 
 #include "attn_tc.cuh"
@@ -114,6 +142,11 @@ struct DecTf32 {
   using TKV = float;
   static constexpr bool kInt8 = false, kF32 = true;
 };
+struct DecTf32Int8 {
+  using TQ = float;
+  using TKV = int8_t;
+  static constexpr bool kInt8 = true, kF32 = false;
+};
 
 // ring stages a warp: one where each warp has one 16-key tile a split
 __host__ __device__ constexpr int decode_tc_stages(int split) { return split > 16 * kDecWarps ? 2 : 1; }
@@ -121,6 +154,10 @@ __host__ __device__ constexpr int decode_tc_stages(int split) { return split > 1
 template <int D, class E>
 struct DecodeTc {
   static constexpr bool kInt8 = E::kInt8;
+  // f32 q (`DecTf32`, `DecTf32Int8`): its hi and lo planes in shared memory
+  static constexpr bool kQ32 = sizeof(typename E::TQ) == 4;
+  static constexpr bool kQ32Int8 = kQ32 && kInt8;  // `DecTf32Int8`
+  static constexpr int kLdK8 = D + 16;  // DecTf32Int8: byte pitch of a raw K row
   static constexpr int kLd = D + 8;          // bf16 pitch of a staged K or V row (ldmatrix
                                              // phases on distinct banks)
   static constexpr int kTile = 16 * kLd * 2;  // bytes of a 16-key bf16 K or V tile
@@ -130,12 +167,15 @@ struct DecodeTc {
   static constexpr int kLdK = D + 16, kLdV = D + 8, kPLd32 = 20;
   static constexpr int kVOff = 16 * kLdK * 4;  // bytes of a stage's K tile (DecTf32)
   // a warp's share: `stages` ring stages of K and V (bf16, or int8 raw
-  // bytes and then one bf16 pair they widen into, or f32), and P
-  static constexpr int kStage = E::kF32 ? 16 * (kLdK + kLdV) * 4 : kInt8 ? 2 * kRawTile : 2 * kTile;
-  static constexpr int kQ = E::kF32 ? 2 * 8 * kLdK * 4 : 0;  // q's hi and lo planes, before the warps'
+  // bytes and then one bf16 pair they widen into, or f32; DecTf32Int8: raw K
+  // at kLdK8 and raw V, then the bf16 V tile V widens into), and P
+  static constexpr int kStage = E::kF32 ? 16 * (kLdK + kLdV) * 4
+                                : kQ32Int8 ? 16 * kLdK8 + kRawTile
+                                : kInt8 ? 2 * kRawTile : 2 * kTile;
+  static constexpr int kWiden = kQ32Int8 ? kTile : kInt8 ? 2 * kTile : 0;  // the widened bf16 tiles
+  static constexpr int kQ = kQ32 ? 2 * 8 * kLdK * 4 : 0;  // q's hi and lo planes, before the warps'
   __host__ __device__ static constexpr int warp_bytes(int stages) {
-    return E::kF32 ? stages * kStage + 8 * kPLd32 * 4
-                   : stages * kStage + (kInt8 ? 2 * kTile : 0) + 8 * kPLd * 2;
+    return E::kF32 ? stages * kStage + 8 * kPLd32 * 4 : stages * kStage + kWiden + 8 * kPLd * 2;
   }
   // ring stages a warp at `split` keys a block: f32 at D = 256, one
   __host__ __device__ static constexpr int stages(int split) {
@@ -267,6 +307,39 @@ struct DecTf32Ops {
   }
 };
 
+// The `DecTf32Int8` policy's scores on one 16-key tile (header).
+template <int D>
+struct DecTf32Int8Ops {
+  static constexpr int kLdK8 = DecodeTc<D, DecTf32Int8>::kLdK8, kLdQ = DecodeTc<D, DecTf32Int8>::kLdK;
+
+  // sa, sb += K q on the raw int8 tile kt [16][kLdK8] and q's planes [8][kLdQ]
+  // (two chains over the units): the elements of `DecTf32Ops::scores`, a
+  // lane's four bytes of key g (and g + 8) in unit u one 32-bit word, each
+  // byte its f32 value (exact: one TF32 part, no lo); K . lo(q), then K .
+  // hi(q), a k8 step
+  static __device__ __forceinline__ void scores(float (&sa)[4], float (&sb)[4], const unsigned char* kt,
+                                                const uint32_t* qhi, const uint32_t* qlo, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    const unsigned char* kl = kt + g * kLdK8 + 4 * t;
+    const uint32_t* qh = qhi + g * kLdQ + 4 * t;
+    const uint32_t* ql = qlo + g * kLdQ + 4 * t;
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u) {
+      uint32_t x0[4], x1[4];  // elements 16u + 4t + i of keys g and g + 8
+      bytes_minus(*reinterpret_cast<const uint32_t*>(kl + 16 * u) ^ 0x80808080u, 128.f, x0);
+      bytes_minus(*reinterpret_cast<const uint32_t*>(kl + 8 * kLdK8 + 16 * u) ^ 0x80808080u, 128.f, x1);
+      const uint4 bh = *reinterpret_cast<const uint4*>(qh + 16 * u);
+      const uint4 bl = *reinterpret_cast<const uint4*>(ql + 16 * u);
+      const uint32_t a0[4] = {x0[0], x1[0], x0[1], x1[1]}, a1[4] = {x0[2], x1[2], x0[3], x1[3]};
+      float(&c)[4] = u % 2 ? sb : sa;
+      mma_1688_tf32(c, a0, bl.x, bl.y);
+      mma_1688_tf32(c, a0, bh.x, bh.y);
+      mma_1688_tf32(c, a1, bl.z, bl.w);
+      mma_1688_tf32(c, a1, bh.z, bh.w);
+    }
+  }
+};
+
 // The merge of a decode core's splits, in the same launch: the splits
 // sp_lo .. sp_hi - 1 of (b, kv head) bh's n_splits each write a partial
 // (part_m, part_l [B * Hkv][n_splits][G], part_o [..][G][D], f32) and take
@@ -393,7 +466,7 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
     // q as the B operand: lane (g, t) holds q[head g][16 kk + 2t (+8) + {0, 1}]; heads >= G: 0
     // (DecTf32: q's planes in shared memory, staged below)
     uint32_t qf[D / 16][2];
-    if constexpr (!E::kF32) {
+    if constexpr (!L::kQ32) {
       const uint32_t* qh = reinterpret_cast<const uint32_t*>(q + (static_cast<size_t>(bh) * G + g) * D) + t;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -406,10 +479,9 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
     const int mine = ntile > warp ? (ntile - warp + kDecWarps - 1) / kDecWarps : 0;
     const int stages = L::stages(split);
     unsigned char* wbase = dec_smem + L::kQ + warp * L::warp_bytes(stages);
-    __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(wbase + stages * L::kStage +
-                                                         (kInt8 ? 2 * L::kTile : 0));
+    __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(wbase + stages * L::kStage + L::kWiden);
     float* pt32 = reinterpret_cast<float*>(wbase + stages * L::kStage);  // DecTf32's P
-    uint32_t* qhi = reinterpret_cast<uint32_t*>(dec_smem);  // DecTf32's q planes
+    uint32_t* qhi = reinterpret_cast<uint32_t*>(dec_smem);  // f32 q's planes
     uint32_t* qlo = qhi + 8 * L::kLdK;
 
     // DecTf32: K (which 0, at pitch kLdK) or V (1, at kLdV) of the warp's
@@ -436,6 +508,15 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
       if constexpr (E::kF32) {
         issue_f32(j, 0);
         issue_f32(j, 1);
+      } else if constexpr (L::kQ32Int8) {  // K at pitch kLdK8, then V at D
+#pragma unroll
+        for (int c = lane; c < 16 * kChunks; c += 32) {
+          const int r = c / kChunks, d = (c % kChunks) * 16;
+          const bool ok = key0 + r < kend;
+          const size_t off = (row0 + r) * D + d;
+          cp_async16(smem_u32(st + r * L::kLdK8 + d), ok ? kp + off : kp, ok);
+          cp_async16(smem_u32(st + 16 * L::kLdK8 + r * D + d), ok ? vp + off : vp, ok);
+        }
       } else {
 #pragma unroll
         for (int c = lane; c < 16 * kChunks; c += 32) {
@@ -467,7 +548,7 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
       if (mine > 0) issue(0);
       cp_async_commit();
     }
-    if constexpr (E::kF32) {  // q's planes, while the first tiles land
+    if constexpr (L::kQ32) {  // q's planes, while the first tiles land
       DecTf32Ops<D>::stage_q(q + static_cast<size_t>(bh) * G * D, qhi, qlo, G);
       __syncthreads();
     }
@@ -485,7 +566,20 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
       const unsigned char* st = wbase + (j % stages) * L::kStage;
       const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(st);
       const __nv_bfloat16* vt = reinterpret_cast<const __nv_bfloat16*>(st + L::kTile);
-      if constexpr (kInt8) {  // widen the tile's integers to bf16, exactly
+      if constexpr (L::kQ32Int8) {  // widen V's integers to bf16, exactly (K is read raw)
+        __nv_bfloat16* cv = reinterpret_cast<__nv_bfloat16*>(wbase + stages * L::kStage);
+#pragma unroll
+        for (int c = lane; c < 16 * (D / 16); c += 32) {
+          const int r = c / (D / 16), d = (c % (D / 16)) * 16;
+          uint32_t w[8];
+          widen_int8x16(*reinterpret_cast<const int4*>(st + 16 * L::kLdK8 + r * D + d), w);
+          uint4* dst = reinterpret_cast<uint4*>(cv + r * kLd + d);
+          dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+          dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+        __syncwarp();
+        vt = cv;
+      } else if constexpr (kInt8) {  // widen the tile's integers to bf16, exactly
         __nv_bfloat16* cv = reinterpret_cast<__nv_bfloat16*>(wbase + stages * L::kStage);
 #pragma unroll
         for (int c = lane; c < 2 * 16 * (D / 16); c += 32) {
@@ -503,7 +597,9 @@ decode_tc_kernel(const typename E::TQ* __restrict__ q, const void* __restrict__ 
       }
       // s = K q: two accumulator chains over the k16 steps
       float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (E::kF32) {
+      if constexpr (L::kQ32Int8) {
+        DecTf32Int8Ops<D>::scores(sa, sb, st, qhi, qlo, lane);
+      } else if constexpr (E::kF32) {
         DecTf32Ops<D>::scores(sa, sb, reinterpret_cast<const float*>(st), qhi, qlo, lane);
         if constexpr (kOneStage) {
           __syncwarp();  // K of tile j consumed: tile j + 1's K into it
@@ -665,20 +761,25 @@ int launch_decode_tc(const void* q, const void* k, const void* v, const float* k
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_decode_tc with bf16 q at the kv dtype code (kBF16 or kI8) and head
-// dim (128 or 256) of a call
+// launch_decode_tc at the q dtype code (kBF16 or kF32), kv dtype code
+// (kBF16, kF32 or kI8) and head dim (128 or 256) of a call: bf16 q over bf16
+// or int8 K/V, f32 q over f32 or int8 K/V
 template <class Rows>
-int dispatch_decode_tc(int kv_dtype, int D, const void* q, const void* k, const void* v,
+int dispatch_decode_tc(int q_dtype, int kv_dtype, int D, const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale, const int* kv_limit, void* out,
                        float* work, int* tickets, const Rows& rows, int B, int Hq, int Hkv, int S,
                        int split, int window, float softcap, cudaStream_t s) {
 #define GT_DECODE_TC(DIM, POL)                                                                   \
   return launch_decode_tc<DIM, POL, Rows>(q, k, v, k_scale, v_scale, kv_limit, out, work, tickets, \
                                           rows, B, Hq, Hkv, S, split, window, softcap, s)
-  if (kv_dtype == kBF16 && D == 256) GT_DECODE_TC(256, DecBf16);
-  if (kv_dtype == kBF16 && D == 128) GT_DECODE_TC(128, DecBf16);
-  if (kv_dtype == kI8 && D == 256) GT_DECODE_TC(256, DecInt8);
-  if (kv_dtype == kI8 && D == 128) GT_DECODE_TC(128, DecInt8);
+  if (q_dtype == kBF16 && kv_dtype == kBF16 && D == 256) GT_DECODE_TC(256, DecBf16);
+  if (q_dtype == kBF16 && kv_dtype == kBF16 && D == 128) GT_DECODE_TC(128, DecBf16);
+  if (q_dtype == kBF16 && kv_dtype == kI8 && D == 256) GT_DECODE_TC(256, DecInt8);
+  if (q_dtype == kBF16 && kv_dtype == kI8 && D == 128) GT_DECODE_TC(128, DecInt8);
+  if (q_dtype == kF32 && kv_dtype == kF32 && D == 256) GT_DECODE_TC(256, DecTf32);
+  if (q_dtype == kF32 && kv_dtype == kF32 && D == 128) GT_DECODE_TC(128, DecTf32);
+  if (q_dtype == kF32 && kv_dtype == kI8 && D == 256) GT_DECODE_TC(256, DecTf32Int8);
+  if (q_dtype == kF32 && kv_dtype == kI8 && D == 128) GT_DECODE_TC(128, DecTf32Int8);
 #undef GT_DECODE_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }

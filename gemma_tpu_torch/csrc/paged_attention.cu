@@ -17,9 +17,11 @@
 // table entries (`page_map`). Three kernels, routed in
 // ops/paged_attention.py `paged_route`:
 //
-// `decode_tc_kernel` (decode_tc.cuh, with `PagedRows`): bf16 q, 2 <= G <= 8,
-// a page size that is a multiple of 16 (the main path: Gemma-2B's G = 8,
-// 64-token pages). The dense decode kernel's tensor-core core with the page
+// `decode_tc_kernel` (decode_tc.cuh, with `PagedRows`): 2 <= G <= 8 and a
+// page size that is a multiple of 16 (the main path: Gemma-2B's G = 8,
+// 64-token pages), every element policy of the dense core: bf16 q over bf16
+// or int8 pages, f32 q over f32 pages (`DecTf32`) or int8 pages
+// (`DecTf32Int8`). The dense decode kernel's tensor-core core with the page
 // table in place of the slab offset: all G query heads on the n8 side of
 // `mma.sync`, 16-key tiles fetched by cp.async from their physical pages
 // into the core's ring (two stages where a warp has more than one tile), a
@@ -36,9 +38,9 @@
 // one launch. Its steps and arithmetic are the dense core's at S = maxp *
 // ps, so it equals decode attention on the gathered pages bit for bit.
 //
-// `paged_split_kernel`: f32 queries at 2 <= G <= 8, G > 8, and at 2 <= G
-// <= 8 page sizes off 16. Each block takes ONE page of one (batch row, kv
-// head): grid (maxp, B * Hkv), the split equal to the page size. A block
+// `paged_split_kernel`: G > 8, and at 2 <= G <= 8 page sizes off 16. Each
+// block takes ONE page of one (batch row, kv head): grid (maxp, B * Hkv),
+// the split equal to the page size. A block
 // reads its own physical page id from page_table[b, i] only when the page
 // holds a live key; pages at or past kv_limit[b], or wholly before the
 // window, write an empty partial and read nothing (their table entries are
@@ -145,25 +147,25 @@ extern "C" int gt_paged_attention(const void* q, const void* k_pages, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: q [B, Hq, D] bf16 with G = Hq / Hkv <= 8; k/v
-// pages [P, Hkv, ps, D] bf16 or int8 (kv_dtype kI8, with f32
-// k_scale/v_scale [P, Hkv, ps]; else null), ps a multiple of 16, all
-// contiguous; page_table i32 [B, maxp]; kv_limit i32 [B]; out [B, Hq, D]
-// bf16. work: B * Hkv * n_splits * G * (D + 2) f32, n_splits = ceil(maxp *
-// ps / split); tickets: B * Hkv ints, 0 on entry and on return; split: a
-// multiple of 16.
+// The tensor-core kernel: q [B, Hq, D] with G = Hq / Hkv <= 8, bf16 (q_dtype
+// kBF16) over k/v pages [P, Hkv, ps, D] bf16 or int8, or f32 (kF32) over f32
+// or int8 pages; int8 (kv_dtype kI8) with f32 k_scale/v_scale [P, Hkv, ps],
+// else null; ps a multiple of 16, all contiguous; page_table i32 [B, maxp];
+// kv_limit i32 [B]; out [B, Hq, D] in q's dtype. work: B * Hkv * n_splits *
+// G * (D + 2) f32, n_splits = ceil(maxp * ps / split); tickets: B * Hkv
+// ints, 0 on entry and on return; split: a multiple of 16.
 extern "C" int gt_paged_attention_tc(const void* q, const void* k_pages, const void* v_pages,
                                      const void* k_scale, const void* v_scale,
                                      const void* page_table, const void* kv_limit, void* out,
                                      void* work, void* tickets, int B, int Hq, int Hkv, int ps,
-                                     int maxp, int D, int kv_dtype, int split, int window,
+                                     int maxp, int D, int q_dtype, int kv_dtype, int split, int window,
                                      float softcap, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || ps <= 0 || ps % 16 != 0 || maxp <= 0 || split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const PagedRows rows{static_cast<const int*>(page_table), Hkv, ps, maxp};
-  return dispatch_decode_tc(kv_dtype, D, q, k_pages, v_pages, static_cast<const float*>(k_scale),
+  return dispatch_decode_tc(q_dtype, kv_dtype, D, q, k_pages, v_pages, static_cast<const float*>(k_scale),
                             static_cast<const float*>(v_scale), static_cast<const int*>(kv_limit),
                             out, static_cast<float*>(work), static_cast<int*>(tickets), rows, B,
                             Hq, Hkv, maxp * ps, split, window, softcap,

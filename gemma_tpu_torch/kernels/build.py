@@ -69,11 +69,11 @@ SIGNATURES = {
     # B, Hq, Hkv, page_size, max_pages, D, q_dtype, kv_dtype, window, softcap, stream
     "gt_paged_attention": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     # q, k_pages, v_pages, k_scale, v_scale, page_table, kv_limit, out, work, tickets,
-    # B, Hq, Hkv, page_size, max_pages, D, kv_dtype, split, window, softcap, stream
-    "gt_paged_attention_tc": (_P,) * 10 + (_I,) * 9 + (_F, _P),
+    # B, Hq, Hkv, page_size, max_pages, D, q_dtype, kv_dtype, split, window, softcap, stream
+    "gt_paged_attention_tc": (_P,) * 10 + (_I,) * 10 + (_F, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
-    # B, Hq, Hkv, S, D, kv_dtype, split, window, softcap, stream
-    "gt_decode_attention_tc": (_P,) * 9 + (_I,) * 8 + (_F, _P),
+    # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
+    "gt_decode_attention_tc": (_P,) * 9 + (_I,) * 9 + (_F, _P),
     # q, k, v, k_scale, v_scale, kv_limit, out, work, tickets,
     # B, Hq, Hkv, S, D, q_dtype, kv_dtype, split, window, softcap, stream
     "gt_decode_attention_g1": (_P,) * 9 + (_I,) * 9 + (_F, _P),

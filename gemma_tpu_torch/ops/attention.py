@@ -16,11 +16,12 @@ takes the tensor-core kernels (`mma.sync` on bf16 operands; decode over a
 bf16 or int8 cache at 2 <= G <= 8). An f32 query, whose f32 x f32
 products bf16 tensor cores cannot form exactly, takes the TF32 tensor-core
 kernels (3xTF32: each operand split into two TF32 parts, three `mma.sync`
-products): flash, and decode over an f32 cache at 2 <= G <= 8 (the same
-decode core with its TF32 element policy). Decode at G = 1 (Gemma-7B) takes
-the core built for one query row, `decode_g1_kernel`, in every (q, cache)
-arm, one launch. Decode at G > 8, and f32 queries over an int8 cache at 2
-<= G <= 8, take the split-S kernel with its combine launch. Every route
+products): flash, and decode at 2 <= G <= 8 on the same decode core with
+an f32 element policy, over an f32 cache in 3xTF32 and over an int8 cache
+with q in two TF32 parts against the exact int8 keys (p . v as the int8
+arm's, in bf16). Decode at G = 1 (Gemma-7B) takes the core built for one
+query row, `decode_g1_kernel`, in every (q, cache) arm, one launch. Decode
+at G > 8 takes the split-S kernel with its combine launch. Every route
 launches a hand-written kernel; none falls back.
 Their plain PyTorch versions here follow the kernels' numerics: f32 scores,
 softcap before the mask, p rounded to the cache dtype before p . v, and 0
@@ -49,7 +50,7 @@ from ..kernels import build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (128, 256)
-DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (G > 8, f32 q over int8)
+DECODE_SPLIT = 64  # keys per block of the split-S decode kernel (G > 8)
 TC_MAX_G = 8  # query heads a KV head the decode tensor-core kernel takes (its n8 side)
 # G = 1 (Gemma-7B) takes the core built for one query row, not the
 # tensor-core kernel: its n8 side would carry 7 zero columns (PERF.md)
@@ -193,20 +194,17 @@ def decode_tc_split(S: int) -> int:
     return split
 
 
-def decode_route(q_dtype: torch.dtype, G: int, S: int, int8: bool = False) -> tuple[str, int]:
+def decode_route(q_dtype: torch.dtype, G: int, S: int) -> tuple[str, int]:
     """The decode kernel of a call and its keys a block: at G = 1, ("g1",
     decode_tc_split(S)), the core built for one query row, for every (q,
     cache) arm; at TC_MIN_G <= G <= TC_MAX_G, ("tc", decode_tc_split(S))
-    for bf16 queries (over a bf16 or int8 cache) and ("tf32",
-    decode_tc_split(S)) for f32 queries over an f32 cache, both the
-    tensor-core core; else ("split", DECODE_SPLIT), the split-S kernel."""
+    for bf16 queries and ("tf32", decode_tc_split(S)) for f32 queries, the
+    tensor-core core over a cache of either dtype or int8; else ("split",
+    DECODE_SPLIT), the split-S kernel."""
     if G == 1:
         return "g1", decode_tc_split(S)
     if TC_MIN_G <= G <= TC_MAX_G:
-        if q_dtype == torch.bfloat16:
-            return "tc", decode_tc_split(S)
-        if q_dtype == torch.float32 and not int8:
-            return "tf32", decode_tc_split(S)
+        return ("tc" if q_dtype == torch.bfloat16 else "tf32"), decode_tc_split(S)
     return "split", DECODE_SPLIT
 
 
@@ -220,7 +218,8 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     each; or the split-S kernel plus its combine step) or raises. The
     bf16/f32 arm counts its calls in `launches`, the int8 arm in
     `int8_launches`; those that went through the tensor-core kernel also in
-    `tc_launches` (bf16 queries) or `tf32_launches` (f32 queries), those
+    `tc_launches` (bf16 queries), `tf32_launches` (f32 queries over an f32
+    cache) or `tf32_int8_launches` (f32 queries over an int8 cache), those
     through the G = 1 core in `g1_launches`."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_limit, attn_softcap, window, k_scale, v_scale)
@@ -233,7 +232,7 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
     int8 = k_scale is not None
-    route, split = decode_route(q.dtype, G, S, int8)
+    route, split = decode_route(q.dtype, G, S)
     n_splits = -(-S // split)
     qc = q.contiguous()
     lim = kv_limit.to(torch.int32).contiguous()
@@ -252,8 +251,8 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
         work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_decode_attention_tc(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
-            work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D, kv_dtype_code(k, k_scale),
-            split, int(window), float(attn_softcap), stream,
+            work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D, build.DTYPE_CODES[q.dtype],
+            kv_dtype_code(k, k_scale), split, int(window), float(attn_softcap), stream,
         )
     else:
         part_m = torch.empty(B * Hkv, n_splits, G, dtype=torch.float32, device=q.device)
@@ -271,7 +270,8 @@ def decode_attention(q, k, v, kv_limit, attn_softcap: float = 0.0, window: int =
     else:
         decode_attention.launches += 1
     decode_attention.tc_launches += route == "tc"
-    decode_attention.tf32_launches += route == "tf32"
+    decode_attention.tf32_launches += route == "tf32" and not int8
+    decode_attention.tf32_int8_launches += route == "tf32" and int8
     decode_attention.g1_launches += route == "g1"
     return out
 
@@ -280,6 +280,7 @@ decode_attention.launches = 0
 decode_attention.int8_launches = 0
 decode_attention.tc_launches = 0
 decode_attention.tf32_launches = 0
+decode_attention.tf32_int8_launches = 0
 decode_attention.g1_launches = 0
 
 

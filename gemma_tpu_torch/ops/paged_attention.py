@@ -8,14 +8,15 @@ with their f32 scales read in place, routed by `paged_route`:
   key's row looked up in the table, one launch at the dense core's split
   for S = maxp * ps (`decode_tc_split`); it equals `decode_attention` on
   the gathered pages bit for bit;
-* bf16 queries with TC_MIN_G <= G <= TC_MAX_G and a page size that is a
-  multiple of 16 (the main path: Gemma-2B's G = 8, 64-token pages) take
-  the tensor-core decode kernel through the page table, one launch, its
-  split the dense kernel's at S = maxp * ps (`decode_tc_split`), its
-  scratch and tickets the persistent `build.workspace`; it equals
-  `decode_attention` on the gathered pages bit for bit;
-* f32 queries at 2 <= G <= 8, G > 8 and other page sizes take the split-S
-  kernel:
+* TC_MIN_G <= G <= TC_MAX_G with a page size that is a multiple of 16
+  (the main path: Gemma-2B's G = 8, 64-token pages) takes the tensor-core
+  decode kernel through the page table, one launch, in every arm of the
+  dense core (bf16 queries over bf16 or int8 pages; f32 queries over f32
+  pages in 3xTF32, or over int8 pages with q in two TF32 parts), its split
+  the dense kernel's at S = maxp * ps (`decode_tc_split`), its scratch and
+  tickets the persistent `build.workspace`; it equals `decode_attention`
+  on the gathered pages bit for bit;
+* G > 8, and at 2 <= G <= 8 page sizes off 16, take the split-S kernel:
   one block per live page of one (batch row, kv head), then the combine
   launch of the decode kernel, its shared memory G * (D + ps) * 4 bytes
   within 48 KB.
@@ -72,16 +73,17 @@ def paged_decode_attention_plain(q, cache, layer: int, kv_limit, attn_softcap: f
 
 def paged_route(q_dtype: torch.dtype, G: int, ps: int, S: int) -> tuple[str, int]:
     """("g1", keys a block) for the G = 1 core through the page table (any
-    query dtype and page size), ("tc", keys a block) for the tensor-core
-    kernel through it, or ("split", ps) for the split-S kernel (a block a
-    page): bf16 queries with TC_MIN_G <= G <= TC_MAX_G and a page size that
-    is a multiple of 16 (a 16-key tile never straddles two pages) take the
-    tensor cores. Both one-launch cores run at the dense kernel's split for
-    S = maxp * ps."""
+    query dtype and page size), ("tc" for bf16 queries, "tf32" for f32
+    ones, keys a block) for the tensor-core kernel through it, or ("split",
+    ps) for the split-S kernel (a block a page): TC_MIN_G <= G <= TC_MAX_G
+    with a page size that is a multiple of 16 (a 16-key tile never
+    straddles two pages) takes the tensor cores, over pages of the query's
+    dtype or int8. Both one-launch cores run at the dense kernel's split
+    for S = maxp * ps."""
     if G == 1:
         return "g1", decode_tc_split(S)
-    if q_dtype == torch.bfloat16 and TC_MIN_G <= G <= TC_MAX_G and ps % 16 == 0:
-        return "tc", decode_tc_split(S)
+    if TC_MIN_G <= G <= TC_MAX_G and ps % 16 == 0:
+        return ("tc" if q_dtype == torch.bfloat16 else "tf32"), decode_tc_split(S)
     return "split", ps
 
 
@@ -95,9 +97,11 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     of `paged_route` (the tensor-core kernel or the G = 1 core, one launch
     each; or the split-S kernel plus the combine) or raises. Pages in q's
     dtype count their calls in `launches`, int8 pages in `int8_launches`;
-    those that went through the tensor-core kernel also in `tc_launches`,
-    through the G = 1 core in `g1_launches`. While `set_force_plain` is on,
-    the plain version on every device."""
+    those that went through the tensor-core kernel also in `tc_launches`
+    (bf16 queries), `tf32_launches` (f32 queries over f32 pages) or
+    `tf32_int8_launches` (f32 queries over int8 pages), through the G = 1
+    core in `g1_launches`. While `set_force_plain` is on, the plain version
+    on every device."""
     if q.device.type == "cpu" or _FORCE_PLAIN:
         return paged_decode_attention_plain(q, cache, layer, kv_limit, attn_softcap, window)
     B, T, Hq, D = q.shape
@@ -132,13 +136,14 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
             build.DTYPE_CODES[q.dtype], kv_dtype_code(kp, ks), split, int(window),
             float(attn_softcap), stream,
         )
-    elif route == "tc":
+    elif route != "split":
         n_splits = -(-maxp * ps // split)
         work, tickets = build.workspace(q.device, stream, B * Hkv * n_splits * G * (D + 2), B * Hkv)
         err = lib.gt_paged_attention_tc(
             qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales, pt.data_ptr(), lim.data_ptr(),
             out.data_ptr(), work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, ps, maxp, D,
-            kv_dtype_code(kp, ks), split, int(window), float(attn_softcap), stream,
+            build.DTYPE_CODES[q.dtype], kv_dtype_code(kp, ks), split, int(window), float(attn_softcap),
+            stream,
         )
     else:
         part_m = torch.empty(B * Hkv, maxp, G, dtype=torch.float32, device=q.device)
@@ -157,6 +162,8 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
     else:
         paged_decode_attention.launches += 1
     paged_decode_attention.tc_launches += route == "tc"
+    paged_decode_attention.tf32_launches += route == "tf32" and not int8
+    paged_decode_attention.tf32_int8_launches += route == "tf32" and int8
     paged_decode_attention.g1_launches += route == "g1"
     return out
 
@@ -164,4 +171,6 @@ def paged_decode_attention(q, cache, layer: int, kv_limit, attn_softcap: float =
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
 paged_decode_attention.tc_launches = 0
+paged_decode_attention.tf32_launches = 0
+paged_decode_attention.tf32_int8_launches = 0
 paged_decode_attention.g1_launches = 0

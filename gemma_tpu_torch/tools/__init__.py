@@ -13,9 +13,17 @@ and a `launches {...}` line of the kernels the run launched:
 
     python -m gemma_tpu_torch.tools.bench_serving [--model gemma2b|gemma7b|tiny] [--device cpu]
 
+The kernel-timing tools (`bench_decode_attn`, `bench_flash`,
+`bench_fmt_kernels`, `bench_shapes`, `probe_cache_cost`) sweep the
+attention kernels' launch shapes through their C entry points
+(`_launch.py`), time the production matmul at the decode step's M = 8 by
+format and shape, and a Gemma-7B step's cost by allocated cache:
+
+    python -m gemma_tpu_torch.tools.bench_decode_attn [--heads 7b] [--device cpu --sizes 64:50]
+
 Every bench runs on the card unless `--device cpu` asks for the plain
-versions (with `--model tiny` for the serving and step benches), whose
-times say nothing of the card. `bench_prefill` reads the marginal prefill
+versions (with `--model tiny` for the serving and step benches, and tiny
+sizes for the kernel-timing tools), whose times say nothing of the card. `bench_prefill` reads the marginal prefill
 rate; `bench_spec` and `probe_spec_serving` time speculative decoding
 against plain decode at batch 1 and over 8 serving slots; `bench_scaling`
 times tensor parallelism. Instruments of the port's own kernels:

@@ -48,6 +48,12 @@ CPU_NOTE = "(cpu: plain PyTorch versions; host times, meaningless for the card)"
 _cycles_per_ms: float | None = None
 
 
+def clock(dev: torch.device) -> str:
+    """Whose time a bench's lines give: "device" on the card, "host" on the
+    CPU (plain versions, host wall times)."""
+    return "device" if dev.type == "cuda" else "host"
+
+
 def card_line(dev: torch.device) -> str:
     """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of the
     card (the benches print it first), or the CPU note."""

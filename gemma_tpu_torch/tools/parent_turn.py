@@ -52,7 +52,8 @@ runs only the decode attention cores, four turns: `decode_attention`
 (bf16 and int8 caches, and f32 q over f32) at G1_DECODE_SHAPES (Gemma-7B,
 G = 1) and TC_DECODE_SHAPES (Gemma-2B, the tensor-core core), and
 `paged_decode_attention` (bf16 and int8 pages) at G1_PAGED_SHAPES and
-TC_PAGED_SHAPES, device ms warm through the public wrappers, then the
+TC_PAGED_SHAPES, f32 q over f32 and int8 pages and an int8 dense cache at
+F32_CORE_SHAPES, device ms warm through the public wrappers, then the
 device busy ms of a decode step at 1 and 8 rows of Gemma-7B q8_0 and
 Gemma-2B q4_0 (`decode_step_busy`; copy this tree's chip_smoke.py into DIR
 first). Runs on the card only.
@@ -201,10 +202,43 @@ G1_PAGED_SHAPES = (("Gemma-7B serving", 512, SERVE_LIMITS, 64, 16, 16, 65),)
 TC_DECODE_SHAPES = (("Gemma-2B", 512, [204], 8, 1), ("Gemma-2B serving", 512, SERVE_LIMITS, 8, 1),
                     ("Gemma-2B", 4096, [4096], 8, 1))
 TC_PAGED_SHAPES = (("Gemma-2B serving", 512, SERVE_LIMITS, 64, 8, 1, 65),)
+# --attn: f32 queries at Gemma-2B's heads over SERVE_LIMITS through 64-key
+# pages of f32 and of int8 (a 65-page pool), and over an int8 dense cache
+# at limit 204 (chip_smoke.py phase 8's shapes): (name, paged, int8)
+F32_CORE_SHAPES = (("paged f32 pages", True, False), ("paged int8 pages", True, True),
+                   ("dense int8 cache", False, True))
 STEP_ROWS = (1, 8)  # rows of the --attn decode steps
 STEP_MODELS = (("Gemma-7B", "q8_0"), ("Gemma-2B", "q4_0"))  # the --attn decode steps' models
 STEP_PROFILED = 16  # decode steps under the profiler
 STEP_TRIES = 4  # profiles of a decode step until one records every quantized-matmul launch
+
+
+def f32_core_times(dev: torch.device) -> dict[str, float]:
+    """Device ms, warm, of f32-q decode attention at F32_CORE_SHAPES through
+    the public wrappers (each tree's route: the decode core's f32 policies,
+    or a parent's split-S kernel and its combine)."""
+    import gemma_tpu_torch.ops.attention as att
+    import gemma_tpu_torch.ops.paged_attention as pat
+    from gemma_tpu_torch.runtime.kv_cache import quantize_kv
+    from gemma_tpu_torch.tools import _timing as T
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res = {}
+    for name, paged, int8 in F32_CORE_SHAPES:
+        limits = SERVE_LIMITS if paged else [204]
+        q = torch.randn(len(limits), 1, 8, D, generator=gen, device=dev) * 0.3
+        lim = torch.tensor(limits, dtype=torch.int32, device=dev)
+        if paged:
+            _, cache, lim = paged_inputs(gen, dev, len(limits), 8, 1, D, 64, limits, 65, 512, int8,
+                                         torch.float32)
+            fn = lambda: pat.paged_decode_attention(q, cache, 0, lim)  # noqa: E731
+        else:
+            (k8, ks), (v8, vs) = (quantize_kv(torch.randn(1, 1, 512, D, generator=gen, device=dev) * 0.3)
+                                  for _ in range(2))
+            fn = lambda: att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs)  # noqa: E731
+        res[f"f32 q {name} Hq=8 Hkv=1 limits={limits}"] = T.time_us(fn, [()], dev) / 1e3
+    return res
 
 
 def decode_step_busy(dev: torch.device, c, rows: int, model_name: str = "Gemma-7B",
@@ -262,6 +296,7 @@ def attn_turn(tag: str) -> None:
     print(tag, c.device_line(), f"build+load {time.perf_counter() - t0:.1f} s", flush=True)
     times = kernel_times(dev, (), G1_DECODE_SHAPES + TC_DECODE_SHAPES, G1_PAGED_SHAPES + TC_PAGED_SHAPES)
     times.update(f32_decode_times(dev, G1_DECODE_SHAPES + TC_DECODE_SHAPES))
+    times.update(f32_core_times(dev))
     print(tag, "Gemma-7B (G = 1) and Gemma-2B (tensor cores) attention device ms, warm:", json.dumps(times),
           flush=True)
     for model_name, fmt in STEP_MODELS:

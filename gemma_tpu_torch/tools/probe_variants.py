@@ -16,13 +16,14 @@ goes; and the tensor-core attention kernels' launch shapes.
 S = 4096, bench_prefill's), each in bf16 with D = 256, it holds the flash
 kernel's 4 warps as 1, 2 or 4 row warps (the rest splitting the keys)
 and the decode kernel at 32-256 keys a
-block (both arms, and at 2 <= G <= 8 the TF32 policy on f32 q, k and v, at
-1e-4) and, at G = 1 (Gemma-7B's heads, S = 512 and 4096), the core for one
-query row at 16-512 keys a block (bf16, int8 and f32 arms) to the plain
-version (2e-2 of each row's scale, `_timing.attn_err`: p rounds to bf16
-against a local max), and times each, decode beside the split-S kernel
-and its combine launch (the route of G > 8), device ms with the operands
-warm (as chip_smoke.py). With
+block (both arms, and at 2 <= G <= 8 the f32 policies: f32 q over f32 k
+and v at 1e-4, and over the int8 cache) and, at G = 1 (Gemma-7B's heads,
+S = 512 and 4096), the core for one query row at 16-512 keys a block
+(bf16, int8, f32 and f32-over-int8 arms) to the plain version (2e-2 of
+each row's scale, `_timing.attn_err`: p rounds to bf16 against a local
+max), and times each, decode beside the split-S kernel and its combine
+launch (the route of G > 8), device ms with the operands warm (as
+chip_smoke.py); each launch through `_launch.py`. With
 `--parent DIR` it also builds the parent's kernels and holds its bf16
 flash at each block shape against this tree's bit for bit, timed in turns
 (this, parent, parent, this), and prints whether the tensor-core decode
@@ -34,22 +35,25 @@ wrappers.
 and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
 and compares, instruction by instruction (`cuobjdump -sass`, branch labels
 numbered in order of use), each format's tensor-core GEMV with bf16 x,
-the TF32 tile's instances of TF32_KERNELS and the decode core's bf16 and
-int8 instances (`decode_tc_kernel`, dense and paged, D = 128 and 256) in
-the two builds; it fails unless every one is the same code.
+the TF32 tile's instances of TF32_KERNELS and the decode core's instances
+that the parent has (`decode_tc_kernel`: bf16 and int8, dense and paged,
+and f32 over f32 dense, D = 128 and 256) in the two builds; it fails
+unless every one is the same code.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, a warp of the
 G = 1 core's block merge dropped, the int8 V
 scale of a paged tile read at its logical rather than its physical page;
 in the f32 flash kernel a ring stage's keys, or the lo.hi product of the
-3xTF32 that f32 flash and decode share), and holds each, and the unpatched
+3xTF32 that f32 flash and decode share; f32 q over an int8 cache reading
+its raw K tile at the wrong pitch), and holds each, and the unpatched
 kernels, to the plain version at the S = 4096 shapes, where a row averages
-thousands of keys, and at PAGED_SHAPES (both arms, shuffled pages), in
-bf16 at 2e-2 of each row's scale; and in f32 at chip_smoke.py phase 8's
-shapes (flash at T = S = 512, Gemma-2B's and Gemma-7B's heads; decode on
-the TF32 core over 4096 slots and the serving rows) at its 1e-4 of each
-row's scale. The S = 4096 decode shapes include Gemma-7B's heads, on the
+thousands of keys, and at PAGED_SHAPES (bf16 and f32 q over pages of
+their dtype and int8, shuffled pages), at 2e-2 of each row's scale (f32
+over f32 pages: 1e-4); and in f32 at chip_smoke.py phase 8's shapes
+(flash at T = S = 512, Gemma-2B's and Gemma-7B's heads; decode on the TF32
+core over 4096 slots and the serving rows, f32 and int8 caches) at its
+1e-4 of each row's scale (over int8: 2e-2). The S = 4096 decode shapes include Gemma-7B's heads, on the
 G = 1 core (whose split merge is the tensor-core core's). It fails unless the unpatched kernels pass and every mutant
 fails.
 
@@ -81,6 +85,7 @@ import torch
 from ..kernels import build
 from ..ops import quant_matmul as qmm
 from ..quant.qtensor import dequant
+from . import _launch
 from . import _timing as T
 
 GV, TL, TF = "dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh"
@@ -315,6 +320,10 @@ MUTANTS: dict[str, list[tuple[str, str, str]]] = {
     "paged_v_scale_logical": [("decode_tc.cuh", "w *= ok[e] ? v_scale[srow + 8 * (e / 2)] : 0.f;",
                                "w *= ok[e] ? v_scale[static_cast<size_t>(bh) * S + key0 + g + "
                                "8 * (e / 2)] : 0.f;")],
+    # f32 q over an int8 cache (`DecTf32Int8`) reads its raw K tile at the
+    # int8 arm's pitch D, not the pitch D + 16 it was staged at
+    "tf32_int8_k_pitch": [("decode_tc.cuh", "const unsigned char* kl = kt + g * kLdK8 + 4 * t;",
+                           "const unsigned char* kl = kt + g * D + 4 * t;")],
 }
 
 
@@ -409,60 +418,37 @@ def _held(name: str, got, ref, tol: float = ATT_TOL) -> None:
         raise RuntimeError(f"{name}: |diff| {ratio:.3f} x {tol} of its row's scale")
 
 
-def _flash(lib, q, k, v, pos, lim, row_warps: int):
-    """One launch of the tensor-core flash kernel at `row_warps` on bf16
-    inputs, through its C entry point."""
-    B, T_, Hq, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), lim.data_ptr(), out.data_ptr(),
-            B, T_, Hq, Hkv, S, D)
-    err = lib.gt_flash_attention_tc(*args, row_warps, 0, 0.0, build.stream_ptr(q.device))
-    build.check(err, f"flash at {row_warps} row warps")
-    return out
+def c_params(csrc: Path, name: str) -> list[str]:
+    """The parameter names of the `extern "C"` entry `name` in the sources
+    under `csrc`, in order."""
+    import re
 
-
-def _decode(lib, split: int, q, k, v, lim, k_scale=None, v_scale=None, kind: str = "tc"):
-    """One launch of the decode kernel `kind` on bf16 or f32 q at `split`
-    keys a block: "tc" the tensor-core kernel (f32 q over f32 k and v: its
-    TF32 policy), "g1" the core for one query row (G = 1), "split" the
-    split-S kernel and its combine, through the C entry points."""
-    from ..ops import attention as att
-
-    B, _, Hq, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    G, n = Hq // Hkv, -(-S // split)
-    out = torch.empty_like(q)
-    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None else (None, None)
-    kvd = att.kv_dtype_code(k, k_scale)
-    stream = build.stream_ptr(q.device)
-    if kind != "split":
-        work, tickets = build.workspace(q.device, stream, B * Hkv * n * G * (D + 2), B * Hkv)
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(), out.data_ptr(),
-                  work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, S, D)
-        err = (lib.gt_decode_attention_tc(*common, kvd, split, 0, 0.0, stream) if kind == "tc" else
-               lib.gt_decode_attention_g1(*common, build.DTYPE_CODES[q.dtype], kvd, split, 0, 0.0, stream))
-    else:
-        parts = torch.empty(B * Hkv * n * G * (D + 2), dtype=torch.float32, device=q.device)
-        pm, pl = parts.data_ptr(), parts[B * Hkv * n * G:].data_ptr()
-        po = parts[2 * B * Hkv * n * G:].data_ptr()
-        err = lib.gt_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lim.data_ptr(),
-                                      out.data_ptr(), pm, pl, po, B, Hq, Hkv, S, D,
-                                      build.DTYPE_CODES[q.dtype], kvd, split, 0, 0.0, stream)
-    build.check(err, f"decode {kind} split={split}")
-    return out
+    for src in sorted(csrc.glob("*.cu")):
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src.read_text())
+        if m:
+            return [p_.split()[-1].lstrip("*") for p_ in m.group(1).split(",")]
+    raise ValueError(f"no entry point {name} under {csrc}")
 
 
 def run_attention(dev: torch.device, parent: str | None = None) -> None:
+    import ctypes
+
     from ..ops import attention as att
     from ..runtime.kv_cache import quantize_kv
 
     gen = T.generator(dev)
     D = 256
     lib = build.load()
-    plib = parent and build.build_library(Path(parent) / "gemma_tpu_torch" / "csrc",
-                                          build.BUILD_DIR / "variants" / "parent",
-                                          ("gt_flash_attention_tc", "gt_decode_attention_tc"))
+    plib, parent_q = None, True
+    if parent:
+        pcsrc = Path(parent) / "gemma_tpu_torch" / "csrc"
+        plib = build.build_library(pcsrc, build.BUILD_DIR / "variants" / "parent",
+                                   ("gt_flash_attention_tc", "gt_decode_attention_tc"))
+        # a parent before f32 queries over int8 reached the core takes no q dtype
+        params = c_params(pcsrc, "gt_decode_attention_tc")
+        parent_q = "q_dtype" in params
+        plib.gt_decode_attention_tc.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * (len(params) - 11)
+                                                + [ctypes.c_float, ctypes.c_void_p])
 
     def rnd(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
@@ -478,15 +464,16 @@ def run_attention(dev: torch.device, parent: str | None = None) -> None:
         flops = 4 * hq * D * sum(min(p + 1, limit) for p in range(p0, p0 + T_))
         readings = []
         for rw in (1, 2, 4):
-            _held(f"flash {name} {rw} row warps", _flash(lib, q, k, v, pos, lim, rw), ref)
-            t = ms(lambda: _flash(lib, q, k, v, pos, lim, rw))
+            _held(f"flash {name} {rw} row warps", _launch.flash(lib, q, k, v, pos, lim, rw), ref)
+            t = ms(lambda: _launch.flash(lib, q, k, v, pos, lim, rw))
             readings.append(f"{rw} row warps x {4 // rw} key groups {t:.4f} "
                             f"({flops / t / 1e9:.1f} TFLOP/s)")
             if plib:
-                equal = torch.equal(_flash(lib, q, k, v, pos, lim, rw), _flash(plib, q, k, v, pos, lim, rw))
-                tp = [ms(lambda: _flash(plib, q, k, v, pos, lim, rw)) for _ in range(2)]
+                equal = torch.equal(_launch.flash(lib, q, k, v, pos, lim, rw),
+                                    _launch.flash(plib, q, k, v, pos, lim, rw))
+                tp = [ms(lambda: _launch.flash(plib, q, k, v, pos, lim, rw)) for _ in range(2)]
                 readings[-1] += (f", parent {tp[0]:.4f} / {tp[1]:.4f}, this again "
-                                 f"{ms(lambda: _flash(lib, q, k, v, pos, lim, rw)):.4f}, outputs "
+                                 f"{ms(lambda: _launch.flash(lib, q, k, v, pos, lim, rw)):.4f}, outputs "
                                  f"{'equal' if equal else 'differ from this'} bit for bit")
         print(f"flash {name} S={S}: device ms, warm: " + "; ".join(readings), flush=True)
         del q, k, v, ref
@@ -498,29 +485,33 @@ def run_attention(dev: torch.device, parent: str | None = None) -> None:
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
         G = hq // hkv
         arms = [("bf16", q, (k, v), ATT_TOL), ("int8", q, (k8, v8, ks, vs), ATT_TOL)]
-        if G == 1 or att.decode_route(torch.float32, G, S)[0] == "tf32":  # f32 q, k, v
-            arms.append(("f32", q.float(), (k.float(), v.float()), F32_TOL))
+        if att.decode_route(torch.float32, G, S)[0] in ("g1", "tf32"):  # f32 q over f32 and int8
+            arms += [("f32", q.float(), (k.float(), v.float()), F32_TOL),
+                     ("f32 int8", q.float(), (k8, v8, ks, vs), ATT_TOL)]
         for arm, qa, args, tol in arms:
             ref = att.decode_attention_plain(qa, args[0], args[1], lim, 0.0, 0, *args[2:])
             readings = []
-            # the split-S kernel; the tensor-core core (f32: where its TF32
-            # policy is the route); at G = 1 the core for one query row
+            # the split-S kernel; the tensor-core core (f32 q: where its
+            # policies are the route); at G = 1 the core for one query row
             kinds = [("split", att.DECODE_SPLIT)]
-            kinds += [("tc", sp) for sp in SPLITS if arm != "f32" or G > 1]
+            kinds += [("tc", sp) for sp in SPLITS if not arm.startswith("f32") or G > 1]
             kinds += [("g1", sp) for sp in G1_SPLITS if G == 1]
             for kind, split in kinds:
                 def call(split=split, kind=kind):
-                    return _decode(lib, split, qa, args[0], args[1], lim, *args[2:], kind=kind)
+                    return _launch.decode(lib, split, qa, args[0], args[1], lim, *args[2:], kind=kind)
 
                 _held(f"decode {name} {arm} {kind} split {split}", call(), ref, tol)
                 readings.append(f"split-S kernel {ms(call):.4f}" if kind == "split"
                                 else f"{kind} {split} keys a block {ms(call):.4f}")
-                if plib and kind == "tc":  # the parent's tensor-core core on the same inputs
-                    same = torch.equal(call(), _decode(plib, split, qa, args[0], args[1], lim, *args[2:]))
+                # the parent's tensor-core core on the same inputs (a parent
+                # without the q dtype argument: f32 q over an int8 cache was not its)
+                if plib and kind == "tc" and (parent_q or arm != "f32 int8"):
+                    same = torch.equal(call(), _launch.decode(plib, split, qa, args[0], args[1], lim,
+                                                              *args[2:], q_code=parent_q))
                     readings[-1] += f" ({'equal' if same else 'NOT equal'} to the parent's bit for bit)"
             print(f"decode {name} {arm} S={S} Hq={hq} Hkv={hkv} limits={limits}: device ms, warm "
-                  f"(route: {att.decode_route(qa.dtype, hq // hkv, S, arm == 'int8')}): "
-                  + "; ".join(readings), flush=True)
+                  f"(route: {att.decode_route(qa.dtype, hq // hkv, S)}): " + "; ".join(readings),
+                  flush=True)
         del q, k, v, k8, v8
 
 
@@ -573,12 +564,17 @@ def run_mutants(dev: torch.device) -> None:
                               att.decode_attention(q, kk, vv, lim, k_scale=sk, v_scale=sv),
                               att.decode_attention_plain(q, kk, vv, lim, k_scale=sk, v_scale=sv), ATT_TOL))
     for name, S, limits, ps, hq, hkv, pool in PAGED_SHAPES:
-        for quantized in (False, True):
+        # bf16 q over bf16 and int8 pages; f32 q over f32 (1e-4) and int8 pages
+        for dtype, quantized, tol in ((torch.bfloat16, False, ATT_TOL), (torch.bfloat16, True, ATT_TOL),
+                                      (torch.float32, False, F32_TOL), (torch.float32, True, ATT_TOL)):
             q, cache, lim = paged_inputs(gen, dev, len(limits), hq, hkv, D, ps, limits, pool, S,
-                                         quantized)
-            cases.append((f"paged{' int8' if quantized else ''} {name} S={S} ps={ps} limits={limits}",
+                                         quantized, dtype)
+            if quantized and dtype == torch.float32:  # f32 q beside int8 pages: not bf16 values
+                q = rnd(*q.shape, dtype=dtype)
+            cases.append((f"paged{' int8' if quantized else ''} {'f32 q ' if dtype == torch.float32 else ''}"
+                          f"{name} S={S} ps={ps} limits={limits}",
                           lambda q=q, cache=cache, lim=lim: pat.paged_decode_attention(q, cache, 0, lim),
-                          pat.paged_decode_attention_plain(q, cache, 0, lim), ATT_TOL))
+                          pat.paged_decode_attention_plain(q, cache, 0, lim), tol))
     for name, hq, hkv in F32_FLASH_SHAPES:
         T_ = S = 512
         q, k, v = (rnd(*shape, dtype=torch.float32) for shape in ((1, T_, hq, D), (1, hkv, S, D),
@@ -595,6 +591,12 @@ def run_mutants(dev: torch.device) -> None:
         lim = torch.tensor(limits, dtype=torch.int32, device=dev)
         cases.append((f"f32 decode {name} S={S} limits={limits}", lambda q=q, k=k, v=v, lim=lim:
                       att.decode_attention(q, k, v, lim), att.decode_attention_plain(q, k, v, lim), F32_TOL))
+        # f32 q over the same cache in int8 (p * vs rounds to bf16: ATT_TOL)
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        cases.append((f"f32 decode {name} S={S} limits={limits} int8 cache",
+                      lambda q=q, k8=k8, v8=v8, ks=ks, vs=vs, lim=lim:
+                      att.decode_attention(q, k8, v8, lim, k_scale=ks, v_scale=vs),
+                      att.decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs), ATT_TOL))
     failed = {}
     for lname, lib in libs.items():
         with build.using(lib):
@@ -618,21 +620,22 @@ GEMV_BF16_KERNELS = {"q4_0": "BlockGemvILi16E", "q8_0": "BlockGemvILi32E", "q4_k
 # 64 and 128), by a part of their mangled names
 TF32_KERNELS = {"q8_0": "Q8_0Tf32", "q4_k": "Q4KTf32", "q6_k": "Q6KTf32"}
 # the decode core's instances by (D, arm, rows), from a mangled name: since
-# the element policy (`DecBf16`, `DecInt8`) took the place of `bool kInt8`
-# in its template, or before
-_DECODE_TC = (r"decode_tc_kernelILi(\d+)ENS\d*_\d+Dec(Bf16|Int8)ENS\d*_\d+(Dense|Paged)Rows",
+# the element policy (`DecBf16`, `DecInt8`, `DecTf32`) took the place of
+# `bool kInt8` in its template, or before
+_DECODE_TC = (r"decode_tc_kernelILi(\d+)ENS\d*_\d+Dec(Bf16|Int8|Tf32)ENS\d*_\d+(Dense|Paged)Rows",
               r"decode_tc_kernelILi(\d+)ELb([01])ENS\d*_\d+(Dense|Paged)Rows")
 
 
 def _decode_tc_key(name: str) -> tuple[str, str, str] | None:
-    """(D, "bf16" or "int8", "Dense" or "Paged") of a bf16 or int8 instance
-    of `decode_tc_kernel`, else None."""
+    """(D, "bf16", "int8" or "tf32", "Dense" or "Paged") of a bf16, int8 or
+    f32-over-f32 instance of `decode_tc_kernel`, else None."""
     import re
 
+    arms = {"Bf16": "bf16", "0": "bf16", "Int8": "int8", "1": "int8", "Tf32": "tf32"}
     for pattern in _DECODE_TC:
         m = re.search(pattern, name)
         if m:
-            return m.group(1), {"Bf16": "bf16", "0": "bf16", "Int8": "int8", "1": "int8"}[m.group(2)], m.group(3)
+            return m.group(1), arms[m.group(2)], m.group(3)
     return None
 
 
@@ -666,9 +669,9 @@ def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
 
 
 def run_sass(parent: str) -> None:
-    """Mode sass: the bf16 GEMVs, the TF32_KERNELS tiles and the bf16 and
-    int8 decode cores of this tree and of the parent, compared instruction
-    by instruction."""
+    """Mode sass: the bf16 GEMVs, the TF32_KERNELS tiles and the decode
+    cores the parent has (bf16 and int8, dense and paged; f32 over f32) of
+    this tree and of the parent, compared instruction by instruction."""
     import difflib
     import re
 
@@ -693,11 +696,14 @@ def run_sass(parent: str) -> None:
         for key, n in sorted(names["this"].items()):
             bn = re.search(r"Tf32ELi(\d+)E", key).group(1)
             pairs.append((f"{fmt} TF32 tile BN={bn}", n, names["parent"][key]))
+    # every instance the parent has (bf16 and int8 dense and paged, and f32
+    # dense where it has one); this tree's others may be new
     cores = {tree: {key: n for n in kernels if (key := _decode_tc_key(n))} for tree, kernels in trees.items()}
-    if len(cores["this"]) != 8 or cores["this"].keys() != cores["parent"].keys():
+    if (sum(key[1] != "tf32" for key in cores["this"]) != 8
+            or not cores["parent"].keys() <= cores["this"].keys()):
         raise SystemExit(f"sass: the bf16 and int8 decode cores differ: {cores}")
-    for key, n in sorted(cores["this"].items()):
-        pairs.append((f"decode core D={key[0]} {key[1]} {key[2]}Rows", n, cores["parent"][key]))
+    for key, n in sorted(cores["parent"].items()):
+        pairs.append((f"decode core D={key[0]} {key[1]} {key[2]}Rows", cores["this"][key], n))
     differ = []
     for label, this, par in pairs:
         a, b = trees["this"][this], trees["parent"][par]
@@ -713,7 +719,7 @@ def run_sass(parent: str) -> None:
             print("\n".join(list(diff)[:60]), flush=True)
     if differ:
         raise SystemExit(f"sass: {differ} are not the parent's code")
-    print("sass: every bf16 GEMV, TF32 tile and bf16 or int8 decode core compared is the parent's code",
+    print("sass: every bf16 GEMV, TF32 tile and bf16, int8 or f32 decode core compared is the parent's code",
           flush=True)
 
 

@@ -47,8 +47,11 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   operand, q (or P through its shared tile) as the n8 B operand, int8
   tiles widened to bf16 and their scales, each warp's running softmax, the
   block's merge and the last block's merge of the splits in order;
-  `paged_decode` the same kernel through a page table (`PagedRows`), each
-  tile's rows and scales taken from its physical page.
+  `decode_tf32` its f32 policy `DecTf32` (3xTF32 on m16n8k8) and
+  `decode_tf32_int8` its `DecTf32Int8` (f32 q in two TF32 parts against
+  the exact int8 keys, p . v as the int8 arm's); `paged_decode` the same
+  kernel through a page table (`PagedRows`), the policy from the dtypes,
+  each tile's rows and scales taken from its physical page.
 
 Run as a module, it checks each at a few ragged shapes:
 
@@ -1335,15 +1338,38 @@ def decode_tf32(q, k, v, kv_limit, softcap: float = 0.0, window: int = 0, split:
                       decode_tc_split(S) if split is None else split, tf32=passes)
 
 
+TF32_INT8_QK = ("hi.lo", "hi.hi")  # `DecTf32Int8`'s score products: K exact, q's lo then hi
+
+
+def decode_tf32_int8(q, k, v, k_scale, v_scale, kv_limit, softcap: float = 0.0, window: int = 0,
+                     split: int | None = None, passes=TF32_INT8_QK) -> np.ndarray:
+    """`decode_tc_kernel` with `DecTf32Int8` and `DenseRows` on f32 q [B, 1,
+    Hq, D] (2 <= Hq / Hkv <= 8) and int8 k/v [B, Hkv, S] with f32 scales [B,
+    Hkv, S], split by default the route's: out [B, 1, Hq, D] f32. The scores
+    are `decode_tf32`'s fragments (q's planes, the D permutation of each
+    16-wide unit) with each int8 key its exact f32 value, so a k8 step's
+    products are K . lo(q) then K . hi(q) (`passes`, of `mma_3xtf32`'s
+    names: ("hi.hi",) drops q's lo part), scaled by ks after; P = bf16(p *
+    vs) and V widened to bf16 as in `decode`'s int8 arm."""
+    from ..ops.attention import decode_tc_split
+
+    B, Hkv, S, D = k.shape
+    return _decode_tc(q, k.reshape(-1, D), v.reshape(-1, D), k_scale.reshape(-1), v_scale.reshape(-1),
+                      kv_limit, Hkv, S, lambda b, hk, key0: (b * Hkv + hk) * S + key0, softcap, window,
+                      decode_tc_split(S) if split is None else split, q32=passes)
+
+
 def paged_decode(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0, window: int = 0,
                  k_scale=None, v_scale=None, split: int | None = None,
                  reads: set | None = None) -> np.ndarray:
-    """`decode_tc_kernel` with `PagedRows` on bf16 q [B, 1, Hq, D] and pools
-    [P, Hkv, ps, D] (ps a multiple of 16) bf16, or int8 with f32 scales [P,
-    Hkv, ps], through page_table [B, maxp]; split by default the route's,
-    `decode_tc_split(maxp * ps)`. Each (row, logical page) whose table
-    entry a tile reads goes into `reads`: out [B, 1, Hq, D] as f32 (bf16
-    values)."""
+    """`decode_tc_kernel` with `PagedRows` on q [B, 1, Hq, D] and pools [P,
+    Hkv, ps, D] (ps a multiple of 16) through page_table [B, maxp], the
+    policy from the dtypes as the kernel's dispatch picks it: bf16 q over
+    bf16 pools, or int8 with f32 scales [P, Hkv, ps] (`decode`'s); f32 q over
+    f32 pools (`decode_tf32`'s) or int8 ones (`decode_tf32_int8`'s); split
+    by default the route's, `decode_tc_split(maxp * ps)`. Each (row, logical
+    page) whose table entry a tile reads goes into `reads`: out [B, 1, Hq,
+    D] as f32 (bf16 values for bf16 q)."""
     from ..ops.attention import decode_tc_split
 
     _, Hkv, ps, D = k_pages.shape
@@ -1356,29 +1382,38 @@ def paged_decode(q, k_pages, v_pages, page_table, kv_limit, softcap: float = 0.0
             reads.add((b, key0 // ps))
         return (int(table[b, key0 // ps]) * Hkv + hk) * ps + key0 % ps
 
+    f32 = q.dtype == torch.float32
     return _decode_tc(q, k_pages.reshape(-1, D), v_pages.reshape(-1, D),
                       None if k_scale is None else k_scale.reshape(-1),
                       None if v_scale is None else v_scale.reshape(-1),
                       kv_limit, Hkv, S, row, softcap, window,
-                      decode_tc_split(S) if split is None else split)
+                      decode_tc_split(S) if split is None else split,
+                      tf32=(TF32_3X, TF32_3X) if f32 and k_scale is None else None,
+                      q32=TF32_INT8_QK if f32 and k_scale is not None else None)
 
 
 def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softcap: float,
-               window: int, split: int, tf32=None) -> np.ndarray:
+               window: int, split: int, tf32=None, q32=None) -> np.ndarray:
     """`decode_tc_kernel` on K/V rows k, v [N, D] (scales [N]), S logical
     keys a (batch row, kv head), `row(b, hk, key0)` the row of the first
     key of a 16-key tile (its others follow it), called only for a tile
     that holds a live key; `tf32`: the `DecTf32` policy's products of S and
-    of P . V (f32 q, k and v), else bf16 or int8 K/V."""
+    of P . V (f32 q, k and v); `q32`: the `DecTf32Int8` policy's products of
+    S (f32 q over int8 K/V, whose P . V is the int8 arm's); else bf16 or
+    int8 K/V."""
     B, _, Hq, D = q.shape
     G = Hq // Hkv
     assert G <= 8 and split % 16 == 0
     int8 = k_scale is not None
-    if tf32 is not None:
+    qk32 = tf32[0] if tf32 is not None else q32  # the TF32 scores' products (f32 q)
+    if qk32 is not None:
         qb = q.to(torch.float32).numpy().reshape(B, Hq, D)
-        kh, vh = (x.to(torch.float32).numpy() for x in (k, v))
-        ldk, ldv, pld = D + 16, D + 8, 20  # DecodeTc's kLdK, kLdV, kPLd32
+        ldk, ldv, pld = D + 16, D + 8, 20  # DecodeTc's kLdK (and kLdK8), kLdV, kPLd32
         chunk = np.arange(4)
+    if tf32 is not None:
+        kh, vh = (x.to(torch.float32).numpy() for x in (k, v))
+    elif q32 is not None:  # int8 keys read raw as their f32 values; V widened to bf16
+        kh, vh = k.numpy().astype(np.float32), _to_bf16_bits(v.numpy().astype(np.float32))
     else:
         qb = _bits(q).reshape(B, Hq, D)
         # the staged tiles: bf16 as they are, int8 widened exactly (`widen_int8x16`)
@@ -1394,7 +1429,7 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
         limit = min(int(lims[b]), S)
         live_lo = max(limit - window, 0) if window > 0 else 0
         qrow = qb[b, hk * G:(hk + 1) * G]
-        if tf32 is not None:  # q's planes [8][ldk] (kept as f32: mma_3xtf32 splits them alike)
+        if qk32 is not None:  # q's planes [8][ldk] (kept as f32: mma_3xtf32 splits them alike)
             qs = np.zeros((8, ldk), _F32)
             qs[:G, :D] = qrow
             qs = qs.reshape(-1)
@@ -1431,6 +1466,12 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                             if key0 + r < kend:
                                 tk[r * ldk: r * ldk + D] = kh[row0 + r]
                                 tv[r * ldv: r * ldv + D] = vh[row0 + r]
+                    elif q32 is not None:  # raw K at the pitch D + 16, V's bf16 tile at D + 8
+                        tk, tv = np.zeros(16 * ldk, _F32), np.zeros(16 * ld, np.uint16)
+                        for r in range(16):
+                            if key0 + r < kend:
+                                tk[r * ldk: r * ldk + D] = kh[row0 + r]
+                                tv[r * ld: r * ld + D] = vh[row0 + r]
                     else:
                         tk, tv = np.zeros(16 * ld, np.uint16), np.zeros(16 * ld, np.uint16)
                         for r in range(16):
@@ -1440,7 +1481,7 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                     # the tile's scale rows (int8): lane (g, t)'s keys g and g + 8
                     srows = [np.minimum(row0 + g + 8 * h, len(kh) - 1) for h in range(2)]
                     sab = [[np.zeros(32, _F32) for _ in range(4)] for _ in range(2)]  # two chains
-                    if tf32 is not None:
+                    if qk32 is not None:
                         kl, ql = g * ldk + 4 * t, g * ldk + 4 * t
                         for u in range(D // 16):
                             x0 = tk[(kl + 16 * u)[:, None] + chunk]  # [32, 4]: key g
@@ -1450,7 +1491,7 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                             for s_ in range(2):
                                 a = np.stack([x0[:, 2 * s_], x1[:, 2 * s_], x0[:, 2 * s_ + 1],
                                               x1[:, 2 * s_ + 1]], -1)[None]
-                                c = mma_3xtf32(c, a, y[None, :, 2 * s_: 2 * s_ + 2], tf32[0])
+                                c = mma_3xtf32(c, a, y[None, :, 2 * s_: 2 * s_ + 2], qk32)
                             sab[u % 2] = [c[0, 0, :, e] for e in range(4)]
                     else:
                         for kk in range(D // 16):
@@ -1520,7 +1561,7 @@ def _decode_tc(q, k, v, k_scale, v_scale, kv_limit, Hkv: int, S: int, row, softc
                 pl += s_l[w, :G] * np.exp(s_m[w, :G] - M[:G]).astype(_F32)
             parts.append((M[:G].copy(), pl, po))
         res = _merge_splits(parts, G, D)
-        out[b, 0, hk * G:(hk + 1) * G] = res if tf32 is not None else _bf16_round(res)
+        out[b, 0, hk * G:(hk + 1) * G] = res if qk32 is not None else _bf16_round(res)
     return out
 
 
@@ -1768,6 +1809,18 @@ def main() -> None:
                           decode(q, gather_pages(kp, pt), gather_pages(vp, pt), lim_t, 30.0, 48))
     print(f"paged decode B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps}: bit for bit the dense emulation on "
           f"the gathered pages: {same}")
+    # f32 queries over f32 and int8 pages (`DecTf32`, `DecTf32Int8`)
+    q32 = torch.randn(B, 1, Hq, D, generator=gen).mul(0.3)
+    kp32, vp32 = (torch.randn(B * maxp + 1, Hkv, ps, D, generator=gen).mul(0.3) for _ in range(2))
+    (kp8, ks8), (vp8, vs8) = quantize_kv(kp32), quantize_kv(vp32)
+    dense = [gather_pages(x, pt) for x in (kp32, vp32, kp8, vp8, ks8, vs8)]
+    got32 = paged_decode(q32, kp32, vp32, pt, lim_t, 30.0, 48)
+    got8 = paged_decode(q32, kp8, vp8, pt, lim_t, 30.0, 48, ks8, vs8)
+    ref8 = decode_attention_plain(q32, *dense[2:4], lim_t, 30.0, 48, *dense[4:]).numpy()
+    print(f"f32 q through pages: f32 pages bit for bit the dense TF32 emulation: "
+          f"{np.array_equal(got32, decode_tf32(q32, *dense[:2], lim_t, 30.0, 48))}; int8 pages "
+          f"{np.array_equal(got8, decode_tf32_int8(q32, *dense[2:4], *dense[4:], lim_t, 30.0, 48))}, "
+          f"max|diff| / max|ref| {np.abs(got8 - ref8).max() / np.abs(ref8).max():.2e}")
 
 
 if __name__ == "__main__":

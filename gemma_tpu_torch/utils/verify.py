@@ -51,8 +51,10 @@ def launch_counters() -> list[tuple[str, Any, str]]:
             ("flash_attention_tf32", att.flash_attention, "tf32_launches"),
             ("decode_attention", att.decode_attention, "launches"),
             ("decode_attention_int8", att.decode_attention, "int8_launches"),
-            # the calls of decode attention with f32 queries on TF32 tensor cores
+            # the calls of decode attention with f32 queries on TF32 tensor cores,
+            # over an f32 cache and over an int8 one
             ("decode_attention_tf32", att.decode_attention, "tf32_launches"),
+            ("decode_attention_tf32_int8", att.decode_attention, "tf32_int8_launches"),
             # the calls of the two above that went through the tensor cores
             ("flash_attention_tc", att.flash_attention, "tc_launches"),
             ("decode_attention_tc", att.decode_attention, "tc_launches"),
@@ -60,8 +62,11 @@ def launch_counters() -> list[tuple[str, Any, str]]:
             ("decode_attention_g1", att.decode_attention, "g1_launches"),
             ("paged_attention", pat.paged_decode_attention, "launches"),
             ("paged_attention_int8", pat.paged_decode_attention, "int8_launches"),
-            # the calls of the two above that went through the tensor cores
+            # the calls of the two above that went through the tensor cores: bf16
+            # queries, and f32 queries over f32 and over int8 pages
             ("paged_attention_tc", pat.paged_decode_attention, "tc_launches"),
+            ("paged_attention_tf32", pat.paged_decode_attention, "tf32_launches"),
+            ("paged_attention_tf32_int8", pat.paged_decode_attention, "tf32_int8_launches"),
             # and through the G = 1 core
             ("paged_attention_g1", pat.paged_decode_attention, "g1_launches")]
 

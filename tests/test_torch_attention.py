@@ -232,11 +232,11 @@ def test_decode_int8_plain_matches_jax_kernel(B, S, Hq, Hkv, D, limits, cap, win
 
 def test_decode_route_is_fixed_by_dtype_and_group():
     """At 2 <= G <= 8 bf16 queries take the tensor-core kernel and f32
-    queries over an f32 cache its TF32 policy, both at the split of
-    `decode_tc_split` (a multiple of 16, fixed by S); G = 1 the core built
-    for one query row in every (q, cache) arm, at `decode_tc_split`; G > 8
-    and f32 queries over an int8 cache at 2 <= G <= 8 the split-S kernel.
-    No route depends on the live length."""
+    queries its f32 policies (over an f32 or an int8 cache), both at the
+    split of `decode_tc_split` (a multiple of 16, fixed by S); G = 1 the
+    core built for one query row in every (q, cache) arm, at
+    `decode_tc_split`; G > 8 the split-S kernel. No route depends on the
+    live length or the cache's dtype."""
     from gemma_tpu_torch.ops import attention as att
 
     for S in (1, 512, 4096, 8192):
@@ -244,9 +244,8 @@ def test_decode_route_is_fixed_by_dtype_and_group():
         assert route == "tc" and split % 16 == 0 and split == att.decode_tc_split(S)
         assert att.decode_route(torch.bfloat16, 2, S)[0] == "tc"
         assert att.decode_route(torch.float32, 8, S) == ("tf32", att.decode_tc_split(S))
-        assert att.decode_route(torch.float32, 8, S, int8=True) == ("split", att.DECODE_SPLIT)
+        assert att.decode_route(torch.float32, 2, S) == ("tf32", att.decode_tc_split(S))
         for q_dtype in (torch.float32, torch.bfloat16):
-            for int8 in (False, True):
-                assert att.decode_route(q_dtype, 1, S, int8) == ("g1", att.decode_tc_split(S))
-        assert att.decode_route(torch.bfloat16, 16, S) == ("split", att.DECODE_SPLIT)
+            assert att.decode_route(q_dtype, 1, S) == ("g1", att.decode_tc_split(S))
+            assert att.decode_route(q_dtype, 16, S) == ("split", att.DECODE_SPLIT)
     assert [att.decode_tc_split(S) for S in (512, 1024, 2048, 4096, 8192)] == [64, 64, 128, 256, 256]

@@ -86,25 +86,26 @@ def test_runs_end_to_end_with_jax_blocked(tmp_path):
 
 def test_sources_have_no_jax_sdpa_or_compile():
     """The port imports no jax and calls no finished attention kernel or
-    compiler for the ported ops. One bench, `tools/bench_micro.py`, times
-    SDPA as the library's yardstick beside the port's decode kernel (the
-    reference's bench_micro times its non-Pallas attention): one call
-    there, and no module of the package imports that bench."""
+    compiler for the ported ops. Two benches time SDPA as the library's
+    yardstick: `tools/bench_micro.py` beside the port's decode kernel (the
+    reference's bench_micro times its non-Pallas attention) and
+    `tools/bench_flash.py` beside its flash kernel: one call in each, and
+    no module of the package imports either bench."""
     files = sorted(PKG.rglob("*.py")) + sorted((PKG / "csrc").glob("*.cu*"))
     assert len(files) > 10
     # every header, the tensor-core attention header and the emulation included
     assert {"attn_tc.cuh", "dq_gemv.cuh", "dq_tile.cuh", "dq_tile_tf32.cuh", "common.cuh",
             "tc_emulation.py", "probe_variants.py"} <= {f.name for f in files}
     jax_import = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)|import_module\(\s*['\"]jax", re.M)
-    yardstick = PKG / "tools" / "bench_micro.py"
+    yardsticks = {PKG / "tools" / "bench_micro.py", PKG / "tools" / "bench_flash.py"}
     for f in files:
         text = f.read_text()
         assert not jax_import.search(text), f
-        if f == yardstick:
+        if f in yardsticks:
             assert text.count("scaled_dot_product_attention(") == 1, f
         else:
             assert "scaled_dot_product_attention" not in text, f
-            assert not re.search(r"^\s*(from|import)\s.*\bbench_micro\b", text, re.M), f
+            assert not re.search(r"^\s*(from|import)\s.*\b(bench_micro|bench_flash)\b", text, re.M), f
         assert "torch.compile" not in text, f
 
 
@@ -161,11 +162,13 @@ def test_tools_import_with_jax_and_the_jax_package_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout) == {
-        "tools": ["_timing", "bench_bn_sweep", "bench_itl", "bench_longctx", "bench_micro",
+        "tools": ["_launch", "_timing", "bench_bn_sweep", "bench_decode_attn", "bench_flash",
+                  "bench_fmt_kernels", "bench_itl", "bench_longctx", "bench_micro",
                   "bench_prefill", "bench_q4k_variants", "bench_q6k_variants",
                   "bench_qmm_variants", "bench_scaling", "bench_scan", "bench_serving",
-                  "bench_spec", "bench_step_parts", "parent_turn",
-                  "probe_int4", "probe_spec_serving", "probe_variants", "tc_emulation"],
+                  "bench_shapes", "bench_spec", "bench_step_parts", "parent_turn",
+                  "probe_cache_cost", "probe_int4", "probe_spec_serving", "probe_variants",
+                  "tc_emulation"],
         "reference_tools": []}
 
 

@@ -178,7 +178,9 @@ def test_paged_g1_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages,
     (torch.bfloat16, 8, 64, 512, ("tc", 64)),     # Gemma-2B serving: 64-token pages
     (torch.bfloat16, 8, 64, 4096, ("tc", 256)),   # a long cache: four pages a block
     (torch.bfloat16, 4, 16, 512, ("tc", 64)),     # four pages a block
-    (torch.float32, 8, 64, 512, ("split", 64)),   # f32 products are not exact on bf16 tensor cores
+    (torch.float32, 8, 64, 512, ("tf32", 64)),    # f32 queries: the core's f32 policies (f32 or int8 pages)
+    (torch.float32, 4, 64, 4096, ("tf32", 256)),  # at the dense kernel's split
+    (torch.float32, 8, 24, 480, ("split", 24)),   # a page off 16 keys: the split-S kernel, a block a page
     (torch.bfloat16, 1, 64, 512, ("g1", 64)),     # G = 1 (Gemma-7B): the core for one query row
     (torch.float32, 1, 64, 4096, ("g1", 256)),    # in every arm, at the dense core's split
     (torch.bfloat16, 1, 24, 480, ("g1", 64)),     # and every page size (each key's row looked up)
@@ -187,10 +189,10 @@ def test_paged_g1_emulation_matches_jax_kernel(B, Hq, Hkv, D, ps, maxp, n_pages,
 ])
 def test_paged_route(dtype, G, ps, S, route):
     """G = 1 takes the core built for one query row at the dense core's
-    split for S = maxp * ps, any query dtype and page size; bf16 queries
-    with 2 <= G <= 8 and pages of a multiple of 16 keys the tensor-core
-    kernel at the dense kernel's split; the rest the split-S kernel, a
-    block a page."""
+    split for S = maxp * ps, any query dtype and page size; 2 <= G <= 8
+    with pages of a multiple of 16 keys the tensor-core kernel at the dense
+    kernel's split (bf16 queries "tc", f32 queries its f32 policies,
+    "tf32"); the rest the split-S kernel, a block a page."""
     assert paged_route(dtype, G, ps, S) == route
 
 

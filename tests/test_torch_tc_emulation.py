@@ -38,9 +38,20 @@ card holds the kernels to.
   and 256, limits 0, 1, 17 and 204, softcap, window and dead splits:
   within 1e-4 of each row's scale of the plain version and of the JAX
   kernel in interpret mode (f32); rows without a key exactly 0; dropping
-  any one small-part product misses it. `decode_route` sends f32 queries
-  over an f32 cache there at G = 2-8, G = 1 to the core for one query row
-  (below), and G = 16 and f32 queries over an int8 cache to the split-S
+  any one small-part product misses it. Through a page table
+  (`PagedRows`) it equals the dense emulation on the gathered pages bit
+  for bit.
+* f32 queries over an int8 cache (`decode_tc_kernel` with `DecTf32Int8`):
+  the scores on `DecTf32`'s fragments with each int8 key exact in one
+  TF32 part (K . lo(q), then K . hi(q)), scaled by ks after; P = bf16(p *
+  vs) against the int8 arm's widened V: within 2e-2 of each row's scale
+  of the plain version and of the JAX kernel in interpret mode (p * vs
+  rounds to bf16, as in the int8 arm), dense and through pages (bit for
+  bit the dense form). Dropping q's lo part moves the output far less
+  than that rounding, so this tolerance cannot see it.
+  `decode_route` and `paged_route` send f32 queries to the core's f32
+  policies at G = 2-8 (pages of a multiple of 16 keys), G = 1 to the core
+  for one query row (below), and G = 16 and 24-key pages to the split-S
   kernel; on the CPU both ops run their plain versions.
 * The prefill tile's functors (`Q4_0Tile`, `Q8_0Tile`): the bf16 weights
   they store equal the plain bf16 dequant bit for bit, zeros past K (the
@@ -681,16 +692,18 @@ def test_decode_tf32_needs_every_pass(name, passes, holds):
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("S", [512, 4096])
 def test_decode_route_takes_tf32_at_the_kernels_groups(G, S):
-    """f32 queries over an f32 cache take the TF32 decode core at 2 <= G <=
-    8, at the bf16 core's split; G = 1 takes the core for one query row
-    over an f32 or int8 cache; G = 16 and f32 queries over an int8 cache at
-    2 <= G <= 8 take the split-S kernel."""
+    """f32 queries take the decode core's f32 policies at 2 <= G <= 8 (over
+    an f32 or an int8 cache, dense or through pages of a multiple of 16
+    keys), at the bf16 core's split; G = 1 takes the core for one query row;
+    G = 16, and pages of 24 keys, the split-S kernel."""
     from gemma_tpu_torch.ops import attention as att
+    from gemma_tpu_torch.ops import paged_attention as pat
 
     g1 = ("g1", att.decode_tc_split(S))
     want = g1 if G == 1 else ("tf32", decode_tc_split(S)) if 2 <= G <= 8 else ("split", att.DECODE_SPLIT)
     assert att.decode_route(torch.float32, G, S) == want
-    assert att.decode_route(torch.float32, G, S, int8=True) == (g1 if G == 1 else ("split", att.DECODE_SPLIT))
+    assert pat.paged_route(torch.float32, G, 64, S) == (want if G <= 8 else ("split", 64))
+    assert pat.paged_route(torch.float32, G, 24, S) == (g1 if G == 1 else ("split", 24))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -937,3 +950,103 @@ def test_cpu_tensors_take_the_plain_versions_at_g1():
     assert torch.equal(pat.paged_decode_attention(qp, cache, 0, plim),
                        pat.paged_decode_attention_plain(qp, cache, 0, plim))
     assert before == (att.decode_attention.g1_launches, pat.paged_decode_attention.g1_launches)
+
+
+DECODE_TF32_INT8_CASES = [
+    # B, S, Hq, Hkv, D, limits, softcap, window, split (None: the route's)
+    (1, 300, 8, 1, 128, [204], 0.0, 0, None),         # G = 8 (Gemma-2B's group), ragged limit
+    (2, 256, 8, 2, 128, [1, 230], 30.0, 40, 32),      # G = 4, limit 1, softcap, window: dead splits
+    (1, 96, 8, 1, 256, [17], 50.0, 0, 16),            # Gemma-2B heads at D = 256
+    (2, 200, 4, 2, 256, [204, 130], 0.0, 0, 128),     # G = 2, two tiles a warp, two stages
+    (2, 160, 4, 2, 128, [0, 150], 0.0, 24, 64),       # a row without keys: exactly 0
+]
+
+
+def _int8_cache(B, S, Hq, Hkv, D, seed):
+    """f32 q [B, 1, Hq, D] (not bf16 values) and an int8 cache with its
+    scales, from f32 K and V."""
+    q, k, v = _qkv32(B, 1, S, Hq, Hkv, D, seed)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    return q, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,limits,cap,window,split", DECODE_TF32_INT8_CASES)
+def test_decode_tf32_int8_emulation_matches_plain(B, S, Hq, Hkv, D, limits, cap, window, split):
+    """f32 q over an int8 cache on the decode core within 2e-2 of each row's
+    scale of the plain version (s = (q . k8) * ks, out = bf16(p * vs) .
+    v8); rows without a valid key exactly 0."""
+    q, k8, v8, ks, vs = _int8_cache(B, S, Hq, Hkv, D, seed=S + D)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ref = decode_attention_plain(q, k8, v8, lim, cap, window, ks, vs)
+    got = emu.decode_tf32_int8(q, k8, v8, ks, vs, lim, cap, window, split)
+    assert got.shape == tuple(ref.shape) and np.isfinite(got).all()
+    assert attn_err(torch.from_numpy(got), ref, ATT_TOL)[1] <= 1.0
+    assert not got[np.asarray(limits) == 0].any()
+
+
+def test_decode_tf32_int8_emulation_matches_the_jax_kernel(monkeypatch):
+    """f32 q over int8 K/V through the JAX `decode_attention`
+    (`_decode_kernel` in interpret mode, its int8 arm): G = 4 over per-row
+    limits, softcap and window."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    q, k8, v8, ks, vs = _int8_cache(2, 160, 8, 2, 128, seed=21)
+    lim = np.asarray([77, 150], np.int32)
+    ref = jax_decode(jnp.asarray(q.numpy()), jnp.asarray(k8.numpy()), jnp.asarray(v8.numpy()), jnp.asarray(lim),
+                     attn_softcap=30.0, window=48, k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()))
+    got = emu.decode_tf32_int8(q, k8, v8, ks, vs, torch.from_numpy(lim), 30.0, 48)
+    assert attn_err(torch.from_numpy(got), torch.from_numpy(np.array(ref)), ATT_TOL)[1] <= 1.0
+
+
+def test_decode_tf32_int8_takes_q_in_two_parts():
+    """The scores' two products against the one-part q (`passes`
+    ("hi.hi",)): q's lo part moves the output, though less than the bf16
+    rounding of p * vs that the int8 arm's tolerance allows."""
+    q, k8, v8, ks, vs = _int8_cache(1, 128, 8, 1, 256, seed=3)
+    lim = torch.tensor([128], dtype=torch.int32)
+    two = emu.decode_tf32_int8(q, k8, v8, ks, vs, lim)
+    one = emu.decode_tf32_int8(q, k8, v8, ks, vs, lim, passes=("hi.hi",))
+    assert not np.array_equal(two, one)
+    ref = decode_attention_plain(q, k8, v8, lim, k_scale=ks, v_scale=vs)
+    assert attn_err(torch.from_numpy(two), ref, ATT_TOL)[1] <= attn_err(torch.from_numpy(one), ref, ATT_TOL)[1]
+
+
+PAGED_F32_CASES = [
+    # B, Hq, Hkv, D, ps, maxp, limits, softcap, window, split (None: the route's)
+    (2, 8, 1, 128, 64, 4, [1, 200], 0.0, 0, None),       # serving's pages: a page a block
+    (1, 4, 2, 128, 16, 16, [230], 30.0, 40, None),       # four pages a block; window: dead splits
+    (2, 8, 1, 256, 32, 4, [50, 128], 20.0, 0, 128),      # D = 256, two tiles a warp
+    (2, 8, 2, 128, 16, 5, [0, 33], 0.0, 24, 32),         # a row without keys, two pages a block
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,maxp,limits,cap,window,split", PAGED_F32_CASES)
+def test_paged_f32_emulation_is_dense_decode_on_the_gathered_pages(B, Hq, Hkv, D, ps, maxp, limits, cap,
+                                                                   window, split, int8):
+    """f32 queries through a page table, over f32 pages (`DecTf32`) and int8
+    pages (`DecTf32Int8`), each row's pages shuffled over the pool: bit for
+    bit the dense emulation of the same policy on the gathered pages at the
+    same split, and within the plain version's tolerance (f32 pages 1e-4,
+    int8 2e-2 of each row's scale)."""
+    rng = np.random.default_rng(B * ps + maxp + 1)
+    n_pages = B * maxp + 3
+    q, kp, vp = [torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 0.3)
+                 for shape in ((B, 1, Hq, D), (n_pages, Hkv, ps, D), (n_pages, Hkv, ps, D))]
+    perm = rng.permutation(n_pages - 1) + 1
+    table = np.zeros((B, maxp), np.int32)
+    live = [-(-n // ps) for n in limits]
+    table[np.arange(maxp)[None, :] < np.asarray(live)[:, None]] = perm[: sum(live)]
+    pt = torch.from_numpy(table)
+    lim = torch.tensor(limits, dtype=torch.int32)
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    dense = [None if x is None else gather_pages(x, pt) for x in (kp, vp, ks, vs)]
+    got = emu.paged_decode(q, kp, vp, pt, lim, cap, window, ks, vs, split)
+    S_split = split or decode_tc_split(maxp * ps)
+    want = (emu.decode_tf32_int8(q, *dense[:2], *dense[2:], lim, cap, window, S_split) if int8
+            else emu.decode_tf32(q, *dense[:2], lim, cap, window, S_split))
+    assert np.array_equal(got, want)
+    ref = decode_attention_plain(q, *dense[:2], lim, cap, window, *dense[2:])
+    assert attn_err(torch.from_numpy(got), ref, ATT_TOL if int8 else ATT_TF32_TOL)[1] <= 1.0
+    assert not got[np.asarray(limits) == 0].any()

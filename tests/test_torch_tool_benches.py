@@ -1,8 +1,11 @@
 """The port's benches (`gemma_tpu_torch/tools/`) end to end on the CPU at
 small shapes, their harness, and the wrappers' argument checks. On the CPU
-the benches run the plain versions; on the card (chip_smoke.py phases 7
-and 11) they launch the kernels. The serving bench's counts are held to
-the JAX package's Scheduler on the same requests."""
+the benches run the plain versions; on the card (chip_smoke.py phases 7,
+11 and 12) they launch the kernels. The serving bench's counts are held to
+the JAX package's Scheduler on the same requests; the decode sweep's
+outputs to the JAX `decode_attention` at the same block_s, and the cache
+probe's programs to the same programs built from the JAX package's
+`KVCache` and `decode_attention`."""
 import dataclasses
 import importlib
 import json
@@ -16,9 +19,11 @@ import jax
 import jax.numpy as jnp
 
 from gemma_tpu.gguf import GGUFReader
+from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.models.params import load_params as jax_load_params
 from gemma_tpu.runtime import Engine as JaxEngine
 from gemma_tpu.runtime import EngineConfig as JaxEngineConfig
+from gemma_tpu.runtime.kv_cache import KVCache as JaxKVCache
 from gemma_tpu.runtime.scheduler import Request as JaxRequest
 from gemma_tpu.runtime.scheduler import Scheduler as JaxScheduler
 from gemma_tpu_torch.models import from_jax_params, load_params
@@ -27,15 +32,16 @@ from gemma_tpu_torch.quant.qtensor import QTensor
 from gemma_tpu_torch.runtime import Engine, EngineConfig, Request
 from gemma_tpu_torch.testing import TINY_KERNEL_CONFIG, make_gguf
 from gemma_tpu_torch.tools import _timing as T
-from gemma_tpu_torch.tools import (bench_bn_sweep, bench_prefill, bench_q4k_variants,
+from gemma_tpu_torch.tools import (bench_bn_sweep, bench_decode_attn, bench_prefill, bench_q4k_variants,
                                    bench_q6k_variants, bench_qmm_variants, bench_serving,
-                                   bench_spec, probe_int4, probe_spec_serving)
+                                   bench_spec, probe_cache_cost, probe_int4, probe_spec_serving)
 
 CPU = torch.device("cpu")
 TOOLS = ["bench_qmm_variants", "bench_bn_sweep", "probe_int4", "bench_q4k_variants",
          "bench_q6k_variants", "bench_prefill", "bench_spec", "probe_spec_serving",
          "bench_serving", "bench_itl", "bench_longctx", "bench_step_parts", "bench_micro",
-         "bench_scan"]
+         "bench_scan", "bench_decode_attn", "probe_cache_cost", "bench_flash", "bench_fmt_kernels",
+         "bench_shapes"]
 LINE = re.compile(r"\d+\.\d\d us +\d+\.\d GB/s +\d\.\d{3} of 3\.35 TB/s; bound \d+\.\d\d us "
                   r"\((bytes|operations)\)")
 
@@ -450,3 +456,113 @@ def test_bench_serving_counts_what_the_reference_scheduler_counts(tiny_f32, flag
     if args.speculative:
         assert got["speculative"]["spec_forwards"] == stats["spec_forwards"]
         assert got["speculative"]["tokens_discarded"] == stats["tokens_discarded"]
+
+
+# the reference's last five tools at tiny shapes on the CPU: (argv, the
+# regular expression of a reading line, the lines it must print, a line
+# that must follow them)
+_US = r"\s+[0-9.]+ us"
+REF_TOOL_RUNS = {
+    "bench_decode_attn": (["--sizes", "64:50,128:100"],
+                          r"^\s+(bf16|int8|f32|f32_int8)\s+S=\s+(64|128) limit=\s+(50|100) (split=\s+\d+[ *]|split-S)"
+                          r".*" + _US + r"\s+[0-9.]+ GB/s", 2 * 4 * 6, None),
+    "bench_flash": (["48"], r"^\s+(row warps [124]|the plan's|scaled_dot_product_attention).*[0-9.]+ us/layer", 5,
+                    None),
+    "bench_fmt_kernels": (["tiny", "q4_0", "q6_k"], r"^(ffn_down|gate_up|lm_head)\s+(q4_0|q6_k)" + _US, 6,
+                          "launches {}"),
+    "bench_shapes": (["--model", "tiny"], r"^\s+(qkv|attn_out|gate_up|ffn_down|lm_head|lm_head_pad)\s+\[.*\]" + _US,
+                     6, "  sum over decode matmuls (raw lm_head)"),
+    "probe_cache_cost": (["--layers", "2", "--heads", "2", "--head-dim", "128", "--sizes", "64,96", "--limit",
+                          "40", "--steps", "2"], r"^\s+S=(64|96): \S+\s+[0-9.]+ ms/step host", 10,
+                         "  per-layer-combined   S=96 / S=64: host"),
+}
+
+
+@pytest.mark.parametrize("name", list(REF_TOOL_RUNS))
+def test_reference_tools_print_their_lines(name, capsys, one_torch_thread):
+    """Each of the five on the CPU (plain versions): the card line first,
+    then its reading lines, each marked as the CPU's host times, and what
+    follows them (the launches, the step's sum, the ratios)."""
+    argv, pattern, n, then = REF_TOOL_RUNS[name]
+    tool = importlib.import_module(f"gemma_tpu_torch.tools.{name}")
+    assert tool.main([*argv, "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("cpu (cpu: plain PyTorch versions")
+    readings = [line for line in lines if re.match(pattern, line)]
+    assert len(readings) == n and all(line.endswith(T.CPU_NOTE) for line in readings)
+    assert then is None or any(line.startswith(then) for line in lines)
+    if name == "bench_decode_attn":  # the route's split, marked once an arm and size
+        assert sum("*" in line for line in readings) == 4 * 2
+
+
+def test_bench_decode_attn_holds_the_jax_kernel(monkeypatch):
+    """The sweep's outputs on the CPU (the plain versions) against the JAX
+    package's `decode_attention` (`_decode_kernel` in interpret mode) at
+    each split as its block_s, on the same inputs, in every arm: 2e-2 of
+    each row's scale (p, or p * vs, rounds to bf16 against other maxima)."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    records = bench_decode_attn.run(CPU, sizes=((64, 50),), splits=(32, 64), reps=1)
+    by_arm, lim = bench_decode_attn.make_inputs(64, 50, 8, 1, CPU)
+    for r in records:
+        if r["split"] == "split-S":
+            continue
+        q, k, v, ks, vs = by_arm[r["arm"]]
+        dtype = jnp.bfloat16 if q.dtype == torch.bfloat16 else jnp.float32
+        jq, jk, jv = (jnp.asarray(x.float().numpy(), dtype) if x.dtype != torch.int8 else jnp.asarray(x.numpy())
+                      for x in (q, k, v))
+        scales = {} if ks is None else dict(k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()))
+        ref = jax_decode(jq, jk, jv, jnp.asarray(lim.numpy()), block_s=r["split"], **scales)
+        ratio = T.attn_err(r["out"].float(), torch.from_numpy(np.array(ref, np.float32)), 2e-2)[1]
+        assert ratio <= 1.0, (r["arm"], r["split"], ratio)
+
+
+def _jax_cache_program(probe: str, init: dict, steps: int, limit: int):
+    """`probe_cache_cost`'s program `probe` built from the JAX package's
+    functions (`KVCache.write_token`, `decode_attention`) on the same
+    initial state: (final K and V of each layer, the last output)."""
+    bf = jnp.bfloat16
+    q = jnp.asarray(init["q"], bf)
+    k = tuple(jnp.asarray(x, bf) for x in init["k"])
+    v = tuple(jnp.asarray(x, bf) for x in init["v"])
+    lim = jnp.asarray([limit], jnp.int32)
+    cache = JaxKVCache(k=k, v=v, length=lim)
+    out = None
+    if probe == "write":
+        new = jnp.asarray(init["new"], bf)
+        at = min(probe_cache_cost.WRITE_AT, k[0].shape[2] - steps)
+        for step in range(steps):
+            for layer in range(len(k)):
+                kn = new + bf(step + layer)
+                cache = cache.write_token(layer, jnp.asarray([at + step], jnp.int32), kn, kn)
+        return cache.k, cache.v, None
+    qq = q
+    for step in range(steps):
+        for layer in range(len(k)):
+            if probe.endswith("combined"):
+                kn = qq + bf(layer)
+                cache = cache.write_token(layer, lim + step, kn, kn)
+                out = jax_decode(qq, cache.k[layer], cache.v[layer], lim + step + 1)
+            else:
+                out = jax_decode(qq, k[layer], v[layer], lim)
+            qq = q + out[:, :, :1, :1].astype(bf) * bf(1e-8)
+    return cache.k, cache.v, out
+
+
+@pytest.mark.parametrize("probe", probe_cache_cost.PROBES)
+def test_probe_cache_cost_runs_the_reference_programs(probe, monkeypatch, one_torch_thread):
+    """Each probe's two chained steps at L = 2, H = 2, S = 64, D = 128 on
+    the CPU against the same program from the JAX package's functions: the
+    final caches equal bit for bit (every write stores the same bf16
+    token), the last output within 2e-2 of each row's scale."""
+    monkeypatch.setenv("GEMMA_TPU_INTERPRET_KERNELS", "1")
+    st = probe_cache_cost.make_state(probe, 64, 40, CPU, layers=2, heads=2, d=128)
+    init = {key: ([x.float().numpy() for x in st[key]] if key in ("k", "v") else st[key].float().numpy())
+            for key in ("q", "k", "v", "new") if key in st}
+    out = probe_cache_cost.run_steps(probe, st, 2)
+    ref_k, ref_v, ref_out = _jax_cache_program(probe, init, 2, 40)
+    for got, ref in zip((*st["cache"].k, *st["cache"].v), (*ref_k, *ref_v)):
+        assert np.array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    if probe == "write":
+        assert out is None
+    else:
+        assert T.attn_err(out.float(), torch.from_numpy(np.array(ref_out, np.float32)), 2e-2)[1] <= 1.0
