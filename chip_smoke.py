@@ -96,7 +96,10 @@ Phases, each printing `[phase]` info lines; any failure exits non-zero:
    kernels of the reference's tools/ (bench_qmm_variants, bench_bn_sweep,
    probe_int4, bench_q4k_variants, bench_q6k_variants): every mode against
    its plain version at the tools' Gemma-2B shapes with exact launch
-   counts, each kernel's L2-cold time, bound, plain and library time, then
+   counts (bench_qmm_variants' and bench_q4k_variants' on instances of the
+   main path's tensor-core GEMV, their production lines equal to the main
+   path's `linear` bit for bit), each kernel's L2-cold time, bound, plain
+   and library time, then
    `python -m gemma_tpu_torch.tools.bench_qmm_variants` in a subprocess,
    as a user runs it, and the other four through their `main` here;
 8. the quality gates: the TF32 flash kernel at the perplexity window's
@@ -2554,9 +2557,8 @@ def tiny_serve(torch, cfg, model_gpu, model_cpu, fmt: str) -> str:
 
 # phase 7: the decode-GEMV instruments, kernels of the reference's tools/
 TOOL_KERNELS = {
-    "qmm_variant": ("gemma_tpu_torch/csrc/q4_0_matmul.cu",
-                    "tools/bench_qmm_variants.py:55 _kernel; tools/probe_int4.py:43 kernel, "
-                    ":81 kernel2"),
+    "qmm_tc_variant": ("gemma_tpu_torch/csrc/q4_0_matmul.cu", "tools/bench_qmm_variants.py:55 _kernel"),
+    "qmm_variant": ("gemma_tpu_torch/csrc/q4_0_matmul.cu", "tools/probe_int4.py:43 kernel, :81 kernel2"),
     "row_checksum": ("gemma_tpu_torch/csrc/qmm_variants.cu",
                      "tools/bench_qmm_variants.py:55 _kernel (stream); "
                      "tools/bench_q6k_variants.py:68 _kernel (stream)"),
@@ -2572,14 +2574,18 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
 
 def check_tool_kernels(torch, dev) -> dict[str, dict]:
     """Phase 7: every mode of the instruments' kernels against its plain
-    version on the card at the tools' Gemma-2B shapes (M = 8, bf16 x):
-    1e-4 x max|ref| for float modes (f32 products, sums in another order;
-    the bf16-rounded modes round the same weights on both sides), exact for
-    the checksum and the int32 dot. The launches of these checks are
-    counted and must equal the checks made. Then each kernel's
-    representative shape: L2-cold device time, plain time (warm),
+    version on the card at the tools' Gemma-2B shapes (M = 8, bf16 x; the
+    q4_0 variants' gdot also at M = 1): 1e-4 x max|ref| for float modes
+    (f32 products, sums in another order; the bf16-rounded modes round the
+    same weights on both sides), exact for the checksum and the int32 dot.
+    The production lines of bench_qmm_variants (gdot and f32dot on f16
+    scales, M = 8 and 1) and bench_q4k_variants (prod, q4_0ref) must equal
+    the main path's `linear` on the same inputs bit for bit. The launches
+    of these checks are counted and must equal the checks made. Then each
+    kernel's representative shape: L2-cold device time, plain time (warm),
     bound, and a library call's L2-cold time. Returns the JSON records."""
     import gemma_tpu_torch.ops.qmm_variants as qv
+    from gemma_tpu_torch.ops.linear import linear
     from gemma_tpu_torch.ops.quant_matmul import q4_0_matmul_plain
     from gemma_tpu_torch.quant.qtensor import dequant
     from gemma_tpu_torch.tools import bench_bn_sweep, bench_qmm_variants
@@ -2605,18 +2611,33 @@ def check_tool_kernels(torch, dev) -> dict[str, dict]:
                 f"{name} {desc}: max|diff| {err} > tol {tol}")
         worst[name] = max(worst[name], err)
 
+    def main_path(name, desc, got, x, w):
+        """A production line against `linear` (the main path) bit for bit."""
+        want = linear(x, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{name} {desc}: not the main path's output bit for bit "
+                                        f"(max|diff| {(got - want).abs().max().item()})")
+
     x8 = {}
     for sname, N, K in bench_qmm_variants.SHAPES:
         qt = random_qtensor("q4_0", N, K, gen, dev)
         x = x8[K] = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-        for mode, scd, _ in bench_qmm_variants.CONFIGS:
-            sc = qt.scales.to(scd)
+        m1 = (*bench_qmm_variants.M1_CONFIG, 1)
+        for mode, scd, _, m in [(*c, M) for c in bench_qmm_variants.CONFIGS] + [m1]:
+            sc, xm = qt.scales.to(scd), x[:m]
             if mode == "stream":
                 held("row_checksum", f"q4_0 {sname}", qv.row_checksum(qt.qs, sc),
                      qv.row_checksum_plain(qt.qs, sc), exact=True)
-            else:
-                held("qmm_variant", f"{mode} {scd} {sname}", qv.qmm_variant(mode, x, qt.qs, sc),
-                     qv.qmm_variant_plain(mode, x, qt.qs, sc))
+                continue
+            got = qv.qmm_tc_variant(mode, xm, qt.qs, sc)
+            held("qmm_tc_variant", f"{mode} {scd} {sname} M={m}", got,
+                 qv.qmm_variant_plain(mode, xm, qt.qs, sc))
+            if qv.TC_FORMS[mode] == 0 and scd == torch.float16:
+                main_path("qmm_tc_variant", f"{mode} {sname} M={m}", got, xm, qt)
+        for mode in ("bf16sc", "noscale"):  # probe_int4's kernel and kernel2 on the SIMT GEMV
+            sc = qt.scales.float()
+            held("qmm_variant", f"{mode} f32 scales {sname}", qv.qmm_variant(mode, x, qt.qs, sc),
+                 qv.qmm_variant_plain(mode, x, qt.qs, sc))
         del qt
     for sname, N, K in bench_bn_sweep.SHAPES:
         qt = random_qtensor("q4_0", N, K, gen, dev)
@@ -2631,8 +2652,10 @@ def check_tool_kernels(torch, dev) -> dict[str, dict]:
     q4k_w = {"prod": q4k, "nohilo": qv.q4_k_hi_parts(q4k), "noaffine": q4k, "nosub": q4k,
              "q4_0ref": qv.q4_0ref_weight(q4k)}
     for mode, w in q4k_w.items():
-        held("q4_k_variant", f"{mode} ffn_down", qv.q4_k_variant(mode, xd, w),
-             qv.q4_k_variant_plain(mode, xd, w))
+        got = qv.q4_k_variant(mode, xd, w)
+        held("q4_k_variant", f"{mode} ffn_down", got, qv.q4_k_variant_plain(mode, xd, w))
+        if mode in ("prod", "q4_0ref"):
+            main_path("q4_k_variant", f"{mode} ffn_down", got, xd, w)
     q6k = random_qtensor("q6_k", N, K, gen, dev)
     q6k_w = {"prod": qv.q6_k_int8_payload(q6k), "split_f32": q6k.arrays, "split_int": q6k.arrays}
     for mode, arrays in q6k_w.items():
@@ -2675,10 +2698,15 @@ def check_tool_kernels(torch, dev) -> dict[str, dict]:
     qt = random_qtensor("q4_0", N, K, gen, dev)
     lib, lib_args = matmul_yardstick(dequant(qt, torch.bfloat16))
     wire = qt.qs.numel() + qt.scales.numel() * 2
-    timed("qmm_variant", f"f32dot f16 scales ffn_down M=8 N={N} K={K}",
-          lambda *a: qv.qmm_variant("f32dot", *a), lambda *a: qv.qmm_variant_plain("f32dot", *a),
+    timed("qmm_tc_variant", f"f32dot f16 scales (the main path's GEMV) ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.qmm_tc_variant("f32dot", *a), lambda *a: qv.qmm_variant_plain("f32dot", *a),
           (xd, qt.qs, qt.scales), wire + xd.numel() * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS,
           lib, lib_args, "bf16 matmul, weight dequantized beforehand")
+    sc32 = qt.scales.float()
+    timed("qmm_variant", f"bf16sc f32 scales (probe_int4's kernel) ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.qmm_variant("bf16sc", *a), lambda *a: qv.qmm_variant_plain("bf16sc", *a),
+          (xd, qt.qs, sc32), qt.qs.numel() + sc32.numel() * 4 + xd.numel() * 2 + M * N * 4,
+          2 * M * N * K, BF16_FLOPS, lib, lib_args, "bf16 matmul, weight dequantized beforehand")
     sc_bits = qt.scales.view(torch.int16)
     timed("row_checksum", f"q4_0 ffn_down N={N} K={K}", qv.row_checksum, qv.row_checksum_plain,
           (qt.qs, qt.scales), wire + N * 4, 0, BF16_FLOPS,
@@ -2690,7 +2718,8 @@ def check_tool_kernels(torch, dev) -> dict[str, dict]:
           "bf16 matmul, weight dequantized beforehand")
     del qt, lib_args
     lib, lib_args = matmul_yardstick(dequant(q4k, torch.bfloat16))
-    timed("q4_k_variant", f"prod ffn_down M=8 N={N} K={K}", lambda *a: qv.q4_k_variant("prod", *a),
+    timed("q4_k_variant", f"prod (the main path's GEMV) ffn_down M=8 N={N} K={K}",
+          lambda *a: qv.q4_k_variant("prod", *a),
           lambda *a: qv.q4_k_variant_plain("prod", *a), (xd, q4k),
           sum(a.numel() * a.element_size() for a in q4k.arrays.values()) + xd.numel() * 2
           + M * N * 4, 2 * M * N * K, BF16_FLOPS, lib, lib_args,

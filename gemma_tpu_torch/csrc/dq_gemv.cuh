@@ -4,7 +4,11 @@
 // q4_k_matmul.cu, `Q6KGemv` in q6_k_matmul.cu), q4_0 and q8_0 (`Q4_0Gemv`,
 // `Q8_0Gemv` below), so every matmul of a batch-1 decode step and of a
 // serving step runs here. With f32 x (evaluation mode: --verify's f32
-// cache, f32 serving) every format launches it too, at 1 <= M <= 8.
+// cache, f32 serving) every format launches it too, at 1 <= M <= 8. The
+// decode-GEMV instruments vary it: `Q4KAblation` (q4_k_matmul.cu) drops
+// terms of q4_k's metadata math, `Q4_0Variant` (q4_0_matmul.cu) changes
+// q4_0's scale dtype and dot form; each is an instance of its own, so the
+// main path's instances stay as they are.
 //
 // The kernel is a template over the format's functor F and an element
 // policy X of x (`XBf16`, `XF32` below): the policy says how x enters
@@ -134,6 +138,12 @@
 //     static constexpr int kWords;   // ldmatrix words a piece
 //     static constexpr int kTable;   // f32 of a warp's decoded scales (0: none)
 //     static constexpr bool kAffine; // q4_k's per-32 affine part
+//     static constexpr bool kOneAcc; // the plan's false; true: the instruments'
+//                                    // rounded-weight and unscaled q4_0 forms
+//                                    // (q4_0_matmul.cu), whose A fragments
+//                                    // `weigh(d, a)` scales in registers before
+//                                    // one mma into the accumulator, no group
+//                                    // fragment
 //     // cp.async of the warp's 16 rows' K values kb .. kb + kStageK (below
 //     // khi) into `stage`; rows >= N and values past khi read as zeros
 //     static void copy(const Weight&, unsigned char* stage, int lane, int n0, int N, int K,
@@ -147,6 +157,9 @@
 //     // group grp's scales (d) and affine offsets (off) of rows g and g + 8
 //     static void scales(const unsigned char* stage, const float* table, int g, int n0, int K,
 //                        int kb, int grp, float (&d)[2], float (&off)[2]);
+//     // (kOneAcc only) the A fragment of rows g (a[0], a[2]) and g + 8 (a[1],
+//     // a[3]) scaled in place by their d
+//     static void weigh(const float (&d)[2], uint32_t (&a)[4]);
 //   };
 #pragma once
 
@@ -195,11 +208,13 @@ struct BlockPlan {
   static constexpr int kGran = 32;
   static constexpr int kTargetWarps = kGvTargetWarps;
   static constexpr int kSliceMin = kGvBlockSliceMin;
+  static constexpr bool kOneAcc = false;
 };
 struct SuperPlan {
   static constexpr int kGran = kGvSuperK;
   static constexpr int kTargetWarps = kGvSuperTargetWarps;
   static constexpr int kSliceMin = kGvSliceMin;
+  static constexpr bool kOneAcc = false;
 };
 
 // bf16x2 (u0 - 8, u1 - 8) of the nibbles in bits 0-3 and 16-19 of v
@@ -272,7 +287,10 @@ struct BlockGemv : BlockPlan {
   static constexpr int kTable = 0;
   static constexpr bool kAffine = false;
 
-  __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
+  // kScaleWordsToo false: the payload alone (the instruments' q4_0
+  // variants copy their scales themselves, q4_0_matmul.cu)
+  template <bool kScaleWordsToo = true, class W = Weight>
+  __device__ __forceinline__ static void copy(const W& w, unsigned char* stage, int lane, int n0,
                                               int N, int K, int kb, int khi) {
     constexpr int kChunks = 16 * kRowBytes / 16;  // 16-byte payload copies a stage
     const size_t row_bytes = static_cast<size_t>(K) / 32 * kBlockBytes;
@@ -289,11 +307,13 @@ struct BlockGemv : BlockPlan {
       else
         cp_async16(dst, ok ? src : w.qs, ok);
     }
+    if constexpr (kScaleWordsToo) {
 #pragma unroll
-    for (int i = lane; i < 16 * kGvScaleWords; i += 32) {
-      const int r = i / kGvScaleWords, j = i % kGvScaleWords;
-      const size_t h = ((static_cast<size_t>(n0 + r) * (K / 32) + kb / 32) & ~size_t{1}) + 2 * j;
-      cp_async_half2(smem_u32(stage + kScales + 4 * i), w.scales, h, nscales);
+      for (int i = lane; i < 16 * kGvScaleWords; i += 32) {
+        const int r = i / kGvScaleWords, j = i % kGvScaleWords;
+        const size_t h = ((static_cast<size_t>(n0 + r) * (K / 32) + kb / 32) & ~size_t{1}) + 2 * j;
+        cp_async_half2(smem_u32(stage + kScales + 4 * i), w.scales, h, nscales);
+      }
     }
   }
 
@@ -637,6 +657,20 @@ dq_gemv_kernel(const typename X::T* __restrict__ x, const typename F::Weight w, 
         const int grp = p * F::kGroups + gi;  // scale group of the stage
         if constexpr (F::kGran < F::kStageK) {
           if (kb + F::kGroupK * grp >= khi) break;
+        }
+        if constexpr (F::kOneAcc) {  // the weight scaled in registers, one accumulator
+          static_assert(X::kParts == 1, "one accumulator: bf16 x");
+          float d[2], off[2];
+          F::scales(src, table, g, n0, K, kb, grp, d, off);
+#pragma unroll
+          for (int s = 0; s < F::kSteps; ++s) {
+            uint32_t a[4];
+            F::a_frag(r, gi, s, a);
+            F::weigh(d, a);
+            const uint2 xv = *reinterpret_cast<const uint2*>(xrow + F::x_off(p, gi, s));
+            mma_16816(acc, a, __byte_perm(xv.x, xv.y, 0x5410), __byte_perm(xv.x, xv.y, 0x7632));
+          }
+          continue;
         }
         float f[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll

@@ -21,27 +21,29 @@
 //   step; `XF32Packed` at M <= 2: one, the parts as its columns): the
 //   reference kernel's f32 weights and x at M <= 8, to the order of f32
 //   sums.
-// * `q4_0_gemv_kernel` (SIMT, bf16 x) is an instrument only: each warp one
-//   output row; a lane's 16-byte load along K is exactly one block (32
-//   nibbles + one scale), so a warp reads 512 contiguous bytes per step.
+// * `q4_0_gemv_kernel` (SIMT, bf16 x, M = 8) is an instrument only: each
+//   warp one output row; a lane's 16-byte load along K is exactly one block
+//   (32 nibbles + one scale), so a warp reads 512 contiguous bytes per step.
 //   Nibbles unpack and scale in registers, FMA into f32, and a warp shuffle
 //   reduces. x is staged in shared memory as f32 in K-chunks of 1024,
 //   padded to 36 floats per block so the lanes' float4 reads do not
 //   conflict on banks. Rows per block (warps), the dot form (Mode) and the
 //   scale type are template parameters. Two bench entry points launch it:
-//   `gt_q4_0_gemv_warps` with 4, 8, 16 or 32 warps (replaces `call` of
-//   tools/bench_bn_sweep.py, the reference kernel at a forced N tile) and
-//   `gt_qmm_variant` in the modes below with f32, bf16 or f16 scales
-//   (replaces `_kernel` of tools/bench_qmm_variants.py and
-//   `kernel`/`kernel2` of tools/probe_int4.py). A mode differs only in how
-//   a weight meets x:
-//     kF32Dot   w = (u - 8) * d                  (the tool's f32dot)
-//     kRsc      w = bf16((u - 8) * d)            (its f32sc, rsc, u16sc)
-//     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (its bf16sc, rscb)
-//     kNoScale  w = u - 8
-//     kGDot     d * sum_32((u - 8) * x)          (gdot)
-//   On the TPU f32sc/rsc and bf16sc/rscb differed only in where the
-//   scale's broadcast lived; here each pair is one instantiation.
+//   `gt_q4_0_gemv_warps` (kGDot, f16 scales) with 4, 8, 16 or 32 warps
+//   (replaces `call` of tools/bench_bn_sweep.py, the reference kernel at a
+//   forced N tile) and `gt_qmm_variant` on f32 scales (replaces `kernel`
+//   and `kernel2` of tools/probe_int4.py) in its two modes:
+//     kRscb     w = bf16(bf16(u - 8) * bf16(d))  (probe_int4's kernel)
+//     kNoScale  w = u - 8                        (its kernel2)
+//     kGDot     d * sum_32((u - 8) * x)          (bench_bn_sweep's)
+// * `Q4_0Variant` (below) puts those dot forms and scale dtypes on the
+//   tensor-core GEMV, as instances of `dq_gemv_kernel` beside the main
+//   path's `Q4_0Gemv` (`gt_qmm_tc_variant`, bf16 x at M <= 8; replaces
+//   `_kernel` of tools/bench_qmm_variants.py, which varied the reference's
+//   production q4_0 kernel): the group-scaled fragment (gdot, f32dot; with
+//   f16 scales `Q4_0Gemv` itself), the rounded-weight operand (rsc, f32sc,
+//   u16sc; rscb, bf16sc) and the integer operand unscaled (noscale). It
+//   keeps Q4_0Gemv's plan, rings, copies and fragments.
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and is
 //   bound by operations: the shared tensor-core tile of dq_tile.cuh
 //   (`dq_tile_kernel<Q4_0Tile>`: bf16 mma.sync, f32 accumulators, x and the
@@ -80,13 +82,11 @@ constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass
 constexpr int kGemvBlocks = kGemvKChunk / 32;
 constexpr int kXPad = 36;  // floats per staged 32-block (bank-conflict-free)
 
-// GEMV modes (ops/qmm_variants.py VARIANT_MODES); see the header
-constexpr int kF32Dot = 0;
-constexpr int kRsc = 1;
+// SIMT GEMV modes (ops/qmm_variants.py SIMT_MODES); see the header
 constexpr int kRscb = 2;
 constexpr int kNoScale = 3;
 constexpr int kGDot = 4;
-// scale dtypes of gt_qmm_variant (ops/qmm_variants.py SCALE_CODES)
+// scale dtypes of gt_qmm_tc_variant (ops/qmm_variants.py SCALE_CODES)
 constexpr int kScF32 = 0;
 constexpr int kScBF16 = 1;
 constexpr int kScF16 = 2;
@@ -132,17 +132,10 @@ q4_0_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
       const float d = to_f32(srow[b]);
       float w[32];
       unpack_block(raw, w);
-      if constexpr (Mode == kF32Dot || Mode == kRsc || Mode == kRscb) {
+      if constexpr (Mode == kRscb) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          if constexpr (Mode == kF32Dot) {
-            w[i] *= d;
-          } else if constexpr (Mode == kRsc) {
-            w[i] = round_to<__nv_bfloat16>(w[i] * d);
-          } else {
-            w[i] = __bfloat162float(__hmul(__float2bfloat16_rn(w[i]), __float2bfloat16_rn(d)));
-          }
-        }
+        for (int i = 0; i < 32; ++i)
+          w[i] = __bfloat162float(__hmul(__float2bfloat16_rn(w[i]), __float2bfloat16_rn(d)));
       }
 #pragma unroll
       for (int m = 0; m < M; ++m) {
@@ -165,23 +158,6 @@ q4_0_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   if (lane == 0 && n < N) {
 #pragma unroll
     for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
-  }
-}
-
-// the SIMT GEMV (kGDot, f16 scales) at M <= 8, bf16 x: gt_qmm_variant's
-void launch_gemv(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc, float* y, int M, int N, int K,
-                 cudaStream_t s) {
-  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-  const dim3 block(kGemvWarps * 32);
-  switch (M) {
-    case 1: q4_0_gemv_kernel<1><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 2: q4_0_gemv_kernel<2><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 3: q4_0_gemv_kernel<3><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 4: q4_0_gemv_kernel<4><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 5: q4_0_gemv_kernel<5><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 6: q4_0_gemv_kernel<6><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    case 7: q4_0_gemv_kernel<7><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
-    default: q4_0_gemv_kernel<8><<<grid, block, 0, s>>>(x, qs, sc, y, N, K); break;
   }
 }
 
@@ -256,6 +232,94 @@ struct Q4_0Tf32 : Q4_0Tile {
   }
 };
 
+// The instruments' q4_0 GEMV variants (bench_qmm_variants): Q4_0Gemv with
+// the scales in the tool's dtype SC and one of its dot forms
+// (ops/qmm_variants.py TC_FORMS):
+//   kFormGroup    each 32-group's fragment of the integers u - 8 scaled by
+//                 d in f32 (gdot, f32dot; on f16 scales this is Q4_0Gemv,
+//                 launched as itself)
+//   kFormRound    A = bf16((u - 8) * d), products into one accumulator
+//                 across groups (rsc, f32sc, u16sc)
+//   kFormRoundB   A = bf16(bf16(u - 8) * bf16(d)), one accumulator (rscb,
+//                 bf16sc)
+//   kFormNoScale  A = u - 8, one accumulator, no scale copied or read
+// A 2-byte SC lies in the stage as Q4_0Gemv's f16 words (three aligned words
+// a row, at any parity); f32 as the row's four scales, 4 bytes a group more.
+constexpr int kFormGroup = 0;
+constexpr int kFormRound = 1;
+constexpr int kFormRoundB = 2;
+constexpr int kFormNoScale = 3;
+
+template <int Form, class SC>
+struct Q4_0Variant : Q4_0Gemv {
+  struct Weight {
+    const uint8_t* qs;
+    const SC* scales;  // [N, K / 32]
+  };
+  static constexpr bool kOneAcc = Form != kFormGroup;
+  static constexpr int kScaleWords = Form == kFormNoScale ? 0 : sizeof(SC) == 4 ? 4 : kGvScaleWords;
+  static constexpr int kStage = kScales + 16 * kScaleWords * 4;
+
+  __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
+                                              int N, int K, int kb, int khi) {
+    if constexpr (Form != kFormNoScale && sizeof(SC) == 2) {  // Q4_0Gemv's copies, scale words too
+      Q4_0Gemv::copy(BlockWeight{w.qs, reinterpret_cast<const __half*>(w.scales)}, stage, lane, n0, N, K,
+                     kb, khi);
+    } else {
+      Q4_0Gemv::copy<false>(w, stage, lane, n0, N, K, kb, khi);
+    }
+    if constexpr (kScaleWords == 4) {  // f32: the row's four scales, those past K as zeros
+      const size_t groups = static_cast<size_t>(K) / 32;
+#pragma unroll
+      for (int i = lane; i < 16 * 4; i += 32) {
+        const int r = i / 4, j = i % 4;
+        const bool ok = n0 + r < N && kb / 32 + j < static_cast<int>(groups);
+        cp_async4(smem_u32(stage + kScales + 4 * i),
+                  ok ? w.scales + static_cast<size_t>(n0 + r) * groups + kb / 32 + j : w.scales, ok);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void scales(const unsigned char* stage, const float*, int g, int n0,
+                                                int K, int kb, int grp, float (&d)[2], float (&)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kScaleWords == 0) {
+        d[h] = 1.f;
+      } else if constexpr (kScaleWords == 4) {
+        d[h] = reinterpret_cast<const float*>(stage + kScales + 16 * (g + 8 * h))[grp];
+      } else {
+        const SC* sc = reinterpret_cast<const SC*>(stage + kScales + (g + 8 * h) * 4 * kGvScaleWords) +
+                       ((static_cast<size_t>(n0 + g + 8 * h) * (K / 32) + kb / 32) & 1);
+        d[h] = to_f32(sc[grp]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void weigh(const float (&d)[2], uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a[0], a[2]: row g; a[1], a[3]: row g + 8
+      if constexpr (Form == kFormRound) {
+        const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]));
+        a[i] = pack_bf16(q.x * d[i & 1], q.y * d[i & 1]);  // the f32 product, then bf16
+      } else if constexpr (Form == kFormRoundB) {
+        const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]),
+                                         __float2bfloat162_rn(d[i & 1]));
+        a[i] = *reinterpret_cast<const uint32_t*>(&r);
+      }
+    }
+  }
+};
+
+template <int Form, class SC>
+cudaError_t launch_q4_0_variant(const void* x, const void* qs, const void* scales, void* y, void* work,
+                                void* tickets, int M, int N, int K, cudaStream_t s) {
+  using F = Q4_0Variant<Form, SC>;
+  const typename F::Weight w{static_cast<const uint8_t*>(qs), static_cast<const SC*>(scales)};
+  return launch_dq_gemv<F>(static_cast<const __nv_bfloat16*>(x), w, static_cast<float*>(y),
+                           static_cast<float*>(work), static_cast<int*>(tickets), M, N, K, s);
+}
+
 template <typename TX>
 cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void* y, void* work,
                         void* tickets, int M, int N, int K, cudaStream_t s) {
@@ -274,6 +338,21 @@ cudaError_t launch_q4_0(const void* x, const void* qs, const void* scales, void*
     return launch_dq_tile<Q4_0Tile>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
   else
     return launch_dq_tile_tf32<Q4_0Tf32>(xp, w, yp, static_cast<float*>(work), M, N, K, s);
+}
+
+// Q4_0Variant<Form, SC> by the scales' dtype code; the group form on f16
+// scales is the main path's Q4_0Gemv, launched as itself
+template <int Form>
+cudaError_t dispatch_q4_0_variant(int sc_dtype, const void* x, const void* qs, const void* scales, void* y,
+                                  void* work, void* tickets, int M, int N, int K, cudaStream_t s) {
+  if (sc_dtype == kScF32) return launch_q4_0_variant<Form, float>(x, qs, scales, y, work, tickets, M, N, K, s);
+  if (sc_dtype == kScBF16)
+    return launch_q4_0_variant<Form, __nv_bfloat16>(x, qs, scales, y, work, tickets, M, N, K, s);
+  if (sc_dtype != kScF16) return cudaErrorInvalidValue;
+  if constexpr (Form == kFormGroup)
+    return launch_q4_0<__nv_bfloat16>(x, qs, scales, y, work, tickets, M, N, K, s);
+  else
+    return launch_q4_0_variant<Form, __half>(x, qs, scales, y, work, tickets, M, N, K, s);
 }
 
 }  // namespace
@@ -339,58 +418,30 @@ void launch_gemv_m8(const __nv_bfloat16* x, const uint8_t* qs, const __half* sc,
   q4_0_gemv_kernel<8, Warps><<<(N + Warps - 1) / Warps, Warps * 32, 0, s>>>(x, qs, sc, y, N, K);
 }
 
-template <int Mode>
-bool launch_variant(int sc_dtype, const void* x, const void* qs, const void* sc, void* y, int N,
-                    int K, cudaStream_t s) {
+}  // namespace
+
+// The q4_0 SIMT GEMV at M = 8 in `mode` (kRscb or kNoScale) with bf16 x
+// [8, K], f32 scales [N, K/32] and y [8, N] f32. Returns a cudaError_t
+// value.
+extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales, void* y,
+                              int N, int K, void* stream) {
+  if (N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* qp = static_cast<const uint8_t*>(qs);
+  const auto* sp = static_cast<const float*>(scales);
   auto* yp = static_cast<float*>(y);
-  switch (sc_dtype) {
-    case kScF32:
-      q4_0_gemv_kernel<8, kGemvWarps, Mode, float><<<grid, kGemvWarps * 32, 0, s>>>(
-          xp, qp, static_cast<const float*>(sc), yp, N, K);
-      return true;
-    case kScBF16:
-      q4_0_gemv_kernel<8, kGemvWarps, Mode, __nv_bfloat16><<<grid, kGemvWarps * 32, 0, s>>>(
-          xp, qp, static_cast<const __nv_bfloat16*>(sc), yp, N, K);
-      return true;
-    case kScF16:
-      q4_0_gemv_kernel<8, kGemvWarps, Mode, __half><<<grid, kGemvWarps * 32, 0, s>>>(
-          xp, qp, static_cast<const __half*>(sc), yp, N, K);
-      return true;
-    default:
-      return false;
-  }
-}
-
-}  // namespace
-
-// The q4_0 SIMT GEMV in `mode` (kF32Dot .. kGDot) with bf16 x [M, K],
-// scales [N, K/32] of sc_dtype (0 f32, 1 bf16, 2 f16) and y [M, N] f32:
-// M = 8 in every mode; kGDot on f16 scales at any M <= 8. Returns a
-// cudaError_t value.
-extern "C" int gt_qmm_variant(const void* x, int mode, const void* qs, const void* scales,
-                              int sc_dtype, void* y, int M, int N, int K, void* stream) {
-  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == kGDot && sc_dtype == kScF16) {
-    launch_gemv(static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qs),
-                static_cast<const __half*>(scales), static_cast<float*>(y), M, N, K, s);
-    return static_cast<int>(cudaGetLastError());
+  switch (mode) {
+    case kRscb:
+      q4_0_gemv_kernel<8, kGemvWarps, kRscb, float><<<grid, kGemvWarps * 32, 0, s>>>(xp, qp, sp, yp, N, K);
+      break;
+    case kNoScale:
+      q4_0_gemv_kernel<8, kGemvWarps, kNoScale, float><<<grid, kGemvWarps * 32, 0, s>>>(xp, qp, sp, yp, N, K);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  bool launched = false;
-  if (M == 8) {
-    switch (mode) {
-      case kF32Dot: launched = launch_variant<kF32Dot>(sc_dtype, x, qs, scales, y, N, K, s); break;
-      case kRsc: launched = launch_variant<kRsc>(sc_dtype, x, qs, scales, y, N, K, s); break;
-      case kRscb: launched = launch_variant<kRscb>(sc_dtype, x, qs, scales, y, N, K, s); break;
-      case kNoScale: launched = launch_variant<kNoScale>(sc_dtype, x, qs, scales, y, N, K, s); break;
-      case kGDot: launched = launch_variant<kGDot>(sc_dtype, x, qs, scales, y, N, K, s); break;
-      default: break;
-    }
-  }
-  return launched ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The q4_0 SIMT GEMV (kGDot, f16 scales) at M = 8 with bf16 x and `warps`
@@ -412,6 +463,35 @@ extern "C" int gt_q4_0_gemv_warps(const void* x, const void* qs, const void* sca
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instruments' q4_0 GEMV on the tensor cores in `form` (kFormGroup ..
+// kFormNoScale) with bf16 x [M <= 8, K], scales [N, K/32] of sc_dtype (0
+// f32, 1 bf16, 2 f16; kFormNoScale reads none) and y [M, N] f32; work and
+// tickets: the main path's bf16 q4_0 scratch (gt_matmul_work_bytes(0, bf16,
+// M, N, K, &tickets)). kFormGroup on f16 scales launches the main path's
+// instance. Returns a cudaError_t value.
+extern "C" int gt_qmm_tc_variant(const void* x, int form, const void* qs, const void* scales, int sc_dtype,
+                                 void* y, void* work, void* tickets, int M, int N, int K, void* stream) {
+  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (form) {
+    case kFormGroup:
+      e = dispatch_q4_0_variant<kFormGroup>(sc_dtype, x, qs, scales, y, work, tickets, M, N, K, s);
+      break;
+    case kFormRound:
+      e = dispatch_q4_0_variant<kFormRound>(sc_dtype, x, qs, scales, y, work, tickets, M, N, K, s);
+      break;
+    case kFormRoundB:
+      e = dispatch_q4_0_variant<kFormRoundB>(sc_dtype, x, qs, scales, y, work, tickets, M, N, K, s);
+      break;
+    case kFormNoScale:  // reads no scale, whatever their dtype
+      e = launch_q4_0_variant<kFormNoScale, float>(x, qs, scales, y, work, tickets, M, N, K, s);
+      break;
+    default: break;
+  }
+  return static_cast<int>(e);
 }
 
 // launches of the tensor-core GEMV with f32 x (dq_gemv.cuh), every

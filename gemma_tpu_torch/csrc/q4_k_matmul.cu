@@ -26,19 +26,12 @@
 //   a k16 step; `XF32Packed` at M <= 2: one, the parts as its columns), its
 //   per-32 sums taken from the f32 x: the reference kernel's f32 weights
 //   and x at M <= 8, to the order of f32 sums.
-// * The SIMT `q4_k_gemv_kernel` (bf16 x) is an instrument only: each warp
-//   one output row, lane l's 16-byte load payload bytes 16l..16l+15
-//   of a 512-byte span (four superblocks), half a 32-byte chunk: 16 weights
-//   of sub-block 2c (low nibbles) and 16 of 2c + 1 (high nibbles). The lane
-//   decodes its two sub-blocks' sc/mn from the 12-byte table and d/dmin in
-//   registers, and accumulates d*sc * sum(x*q) - dmin*mn * sum(x) per
-//   sub-block, as ggml's vec_dot does; x staged in shared memory per K-chunk
-//   of 1024 in lane order (each lane's 32 values contiguous, padded to 36
-//   floats so the lanes' float4 reads do not conflict on banks); all math
-//   f32. A template mode drops parts of that math for the metadata ablation
-//   that replaces `_kernel` of tools/bench_q4k_variants.py (`gt_q4_k_variant`,
-//   M = 8): noaffine forms d*sc * (q - 8) (no dmin*mn, no sum(x)),
-//   nosub d * (q - 8) (no 6-bit table decode, no affine part).
+// * `Q4KAblation` (below) is an instrument only: the metadata ablations
+//   that replace `_kernel` of tools/bench_q4k_variants.py, which dropped
+//   terms from the reference's production q4_k kernel, as instances of the
+//   same tensor-core GEMV (`gt_q4_k_ablation`, bf16 x at M <= 8): noaffine
+//   forms d*sc * (q - 8) (no per-32 sums of x, no offsets, no affine add),
+//   nosub d * (q - 8) (no 6-bit table decoded or copied, no affine part).
 // * Prefill (M > 8) with bf16 x does 2 M N K flops on the same bytes and
 //   is bound by operations (gate_up at M = 203: 0.0275 ms at 989 TFLOP/s
 //   against 0.0113 ms of bytes). It runs on the tensor cores through the
@@ -67,14 +60,6 @@ using namespace gt;
 namespace {
 
 constexpr int kQK = 256;  // superblock
-constexpr int kGemvWarps = 8;
-constexpr int kGemvKChunk = 1024;  // K elements of x staged per pass (4 superblocks)
-constexpr int kXPad = 36;          // floats per lane's 32 staged values (bank-conflict-free)
-
-// GEMV modes (ops/qmm_variants.py Q4_K_MODES)
-constexpr int kProd = 0;
-constexpr int kNoAffine = 1;
-constexpr int kNoSub = 2;
 
 // byte i (0..11) of the packed 6-bit table held as three words
 __device__ __forceinline__ uint32_t table_byte(uint32_t t0, uint32_t t1, uint32_t t2, int i) {
@@ -96,109 +81,6 @@ __device__ __forceinline__ void scale_min_k4(uint32_t t0, uint32_t t1, uint32_t 
   }
   sc = static_cast<float>(s);
   mn = static_cast<float>(m);
-}
-
-// (d * sc, dmin * mn) of sub-block j of superblock sb of one row
-__device__ __forceinline__ void group_scale(const uint8_t* table_row, const __half2* dm_row, int sb,
-                                            int j, float& dsc, float& dmn) {
-  const uint32_t* t = reinterpret_cast<const uint32_t*>(table_row + sb * 12);
-  const float2 dmf = __half22float2(dm_row[sb]);
-  float sc, mn;
-  scale_min_k4(t[0], t[1], t[2], j, sc, mn);
-  dsc = dmf.x * sc;
-  dmn = dmf.y * mn;
-}
-
-// GEMV lane order: element e (< 1024) of a staged K-chunk -> lane * kXPad + slot
-__device__ __forceinline__ int gemv_slot(int e) {
-  const int sb = e >> 8, r = e & 255;
-  const int c = r >> 6, s = r & 63;  // chunk, position in chunk
-  const int hi = s >> 5, h = (s & 31) >> 4;
-  return (sb * 8 + c * 2 + h) * kXPad + hi * 16 + (s & 15);
-}
-
-template <int M, int Mode = kProd>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-q4_k_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qs,
-                 const uint8_t* __restrict__ table, const __half2* __restrict__ dm,
-                 float* __restrict__ y, int N, int K) {
-  __shared__ __align__(16) float xs[M][32 * kXPad];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kGemvWarps + warp;
-  const int nsb = K / kQK;
-  const uint8_t* qrow = qs + static_cast<size_t>(n) * (K / 2);
-  const uint8_t* trow = table + static_cast<size_t>(n) * nsb * 12;
-  const __half2* dmrow = dm + static_cast<size_t>(n) * nsb;
-  const int c = (lane % 8) / 2;  // the lane's chunk: sub-blocks 2c and 2c + 1
-
-  float acc[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kGemvKChunk) {
-    const int klen = min(kGemvKChunk, K - k0);  // a multiple of 256
-    __syncthreads();  // previous chunk fully consumed
-    for (int i = threadIdx.x; i < M * kGemvKChunk; i += blockDim.x) {
-      const int m = i / kGemvKChunk;
-      const int e = i % kGemvKChunk;
-      xs[m][gemv_slot(e)] = e < klen ? to_f32(x[static_cast<size_t>(m) * K + k0 + e]) : 0.f;
-    }
-    __syncthreads();
-    if (n < N && lane < klen / 32) {
-      const int sb = k0 / kQK + lane / 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(qrow + static_cast<size_t>(sb) * 128 + (lane % 8) * 16);
-      float dsc_lo, dmn_lo, dsc_hi, dmn_hi;
-      if constexpr (Mode == kNoSub) {
-        dsc_lo = dsc_hi = __low2float(dmrow[sb]);
-        dmn_lo = dmn_hi = 0.f;
-      } else {
-        group_scale(trow, dmrow, sb, 2 * c, dsc_lo, dmn_lo);
-        group_scale(trow, dmrow, sb, 2 * c + 1, dsc_hi, dmn_hi);
-      }
-      const float zero = Mode == kProd ? 0.f : 8.f;  // the ablations take q - 8
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float qlo[16], qhi[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const uint32_t byte = (words[i / 4] >> (8 * (i % 4))) & 0xffu;
-        qlo[i] = static_cast<float>(byte & 0xfu) - zero;
-        qhi[i] = static_cast<float>(byte >> 4) - zero;
-      }
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float4* xv = reinterpret_cast<const float4*>(&xs[m][lane * kXPad]);
-        float sq_lo = 0.f, sx_lo = 0.f, sq_hi = 0.f, sx_hi = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 a = xv[i];
-          const float4 b = xv[4 + i];
-          sq_lo = fmaf(qlo[4 * i + 0], a.x, sq_lo);
-          sq_lo = fmaf(qlo[4 * i + 1], a.y, sq_lo);
-          sq_lo = fmaf(qlo[4 * i + 2], a.z, sq_lo);
-          sq_lo = fmaf(qlo[4 * i + 3], a.w, sq_lo);
-          if constexpr (Mode == kProd) sx_lo += (a.x + a.y) + (a.z + a.w);
-          sq_hi = fmaf(qhi[4 * i + 0], b.x, sq_hi);
-          sq_hi = fmaf(qhi[4 * i + 1], b.y, sq_hi);
-          sq_hi = fmaf(qhi[4 * i + 2], b.z, sq_hi);
-          sq_hi = fmaf(qhi[4 * i + 3], b.w, sq_hi);
-          if constexpr (Mode == kProd) sx_hi += (b.x + b.y) + (b.z + b.w);
-        }
-        acc[m] = fmaf(dsc_lo, sq_lo, acc[m]);
-        acc[m] = fmaf(dsc_hi, sq_hi, acc[m]);
-        if constexpr (Mode == kProd) {
-          acc[m] = fmaf(-dmn_lo, sx_lo, acc[m]);
-          acc[m] = fmaf(-dmn_hi, sx_hi, acc[m]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = warp_sum(acc[m]);
-  if (lane == 0 && n < N) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) y[static_cast<size_t>(m) * N + n] = acc[m];
-  }
 }
 
 // The tensor-core tile's q4_k item (dq_tile.cuh): 16 weights of one row in
@@ -280,13 +162,7 @@ struct Q4KGemv : SuperPlan {
   __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
                                               int N, int K, int kb, int) {
     const int nsb = K / kQK, sb = kb / kQK;
-#pragma unroll
-    for (int i = lane; i < 16 * 8; i += 32) {  // 8 payload pieces of 16 bytes a row
-      const int r = i / 8, c = i % 8;
-      const bool ok = n0 + r < N;
-      const size_t row = ok ? n0 + r : 0;
-      cp_async16(smem_u32(stage + r * kPitch + 16 * c), w.qs + row * (K / 2) + sb * 128 + 16 * c, ok);
-    }
+    copy_payload(w, stage, lane, n0, N, K, kb);
 #pragma unroll
     for (int i = lane; i < 16 * 4; i += 32) {  // the table's 3 words and d, dmin a row
       const int r = i / 4, j = i % 4;
@@ -295,6 +171,19 @@ struct Q4KGemv : SuperPlan {
       const void* src = j < 3 ? static_cast<const void*>(w.table + sbi * 12 + 4 * j)
                               : static_cast<const void*>(w.dm + sbi);
       cp_async4(smem_u32(stage + kMeta + 16 * r + 4 * j), src, ok);
+    }
+  }
+
+  // the 16 rows' payload of superblock kb / 256: 8 pieces of 16 bytes a row
+  __device__ __forceinline__ static void copy_payload(const Weight& w, unsigned char* stage, int lane, int n0,
+                                                      int N, int K, int kb) {
+    const int sb = kb / kQK;
+#pragma unroll
+    for (int i = lane; i < 16 * 8; i += 32) {
+      const int r = i / 8, c = i % 8;
+      const bool ok = n0 + r < N;
+      const size_t row = ok ? n0 + r : 0;
+      cp_async16(smem_u32(stage + r * kPitch + 16 * c), w.qs + row * (K / 2) + sb * 128 + 16 * c, ok);
     }
   }
 
@@ -336,6 +225,63 @@ struct Q4KGemv : SuperPlan {
     d[1] = table[16 * grp + g + 8];
     off[0] = table[128 + 16 * grp + g];
     off[1] = table[128 + 16 * grp + g + 8];
+  }
+};
+
+// The instruments' q4_k ablations (bench_q4k_variants; ops/qmm_variants.py
+// Q4_K_MODES): Q4KGemv with terms of its metadata math dropped. Neither has
+// an affine part, so the block takes no per-32 sums of x and one barrier
+// where Q4KGemv takes two.
+//   kNoAffine  d*sc * (q - 8): `prepare` decodes the 6-bit scales alone into
+//              a table of d*sc [8][16], no offsets
+//   kNoSub     d * (q - 8): a stage copies the payload and each row's d,
+//              dmin word, nothing is decoded, every group's scale is d
+constexpr int kNoAffine = 1;
+constexpr int kNoSub = 2;
+
+template <int Mode>
+struct Q4KAblation : Q4KGemv {
+  static constexpr int kTable = Mode == kNoAffine ? 8 * 16 : 0;
+  static constexpr bool kAffine = false;
+
+  __device__ __forceinline__ static void copy(const Weight& w, unsigned char* stage, int lane, int n0,
+                                              int N, int K, int kb, int khi) {
+    if constexpr (Mode == kNoAffine) {
+      Q4KGemv::copy(w, stage, lane, n0, N, K, kb, khi);
+    } else {
+      const int nsb = K / kQK, sb = kb / kQK;
+      copy_payload(w, stage, lane, n0, N, K, kb);
+      if (lane < 16) {  // d, dmin of row lane, where Q4KGemv puts it
+        const bool ok = n0 + lane < N;
+        cp_async4(smem_u32(stage + kMeta + 16 * lane + 12),
+                  w.dm + static_cast<size_t>(ok ? n0 + lane : 0) * nsb + sb, ok);
+      }
+    }
+  }
+
+  __device__ __forceinline__ static void prepare(const unsigned char* stage, float* table, int lane, int,
+                                                 int, int) {
+    const int r = lane % 16;
+    const uint32_t* t = reinterpret_cast<const uint32_t*>(stage + kMeta + 16 * r);
+    const float d = __low2float(*reinterpret_cast<const __half2*>(t + 3));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = lane / 16 + 2 * i;
+      float sc, mn;
+      scale_min_k4(t[0], t[1], t[2], j, sc, mn);
+      table[16 * j + r] = d * sc;
+    }
+  }
+
+  __device__ __forceinline__ static void scales(const unsigned char* stage, const float* table, int g, int,
+                                                int, int, int grp, float (&d)[2], float (&)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (Mode == kNoAffine)
+        d[h] = table[16 * grp + g + 8 * h];
+      else
+        d[h] = __low2float(*reinterpret_cast<const __half2*>(stage + kMeta + 16 * (g + 8 * h) + 12));
+    }
   }
 };
 
@@ -421,24 +367,28 @@ extern "C" int gt_q4_k_matmul(const void* x, int x_dtype, const void* qs, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The SIMT GEMV at M = 8 with bf16 x in `mode` (0 prod, 1 noaffine, 2 nosub);
-// y: [8, N] f32. Returns a cudaError_t value.
-extern "C" int gt_q4_k_variant(const void* x, int mode, const void* qs, const void* scales,
-                               const void* dm, void* y, int N, int K, void* stream) {
-  if (N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
+// The instruments' q4_k GEMV on the tensor cores with bf16 x [M <= 8, K] in
+// `mode` (0 prod: the main path's instance, 1 noaffine, 2 nosub); y [M, N]
+// f32; work and tickets: the main path's bf16 q4_k scratch
+// (gt_matmul_work_bytes(2, bf16, M, N, K, &tickets)). Returns a cudaError_t
+// value.
+extern "C" int gt_q4_k_ablation(const void* x, int mode, const void* qs, const void* scales,
+                                const void* dm, void* y, void* work, void* tickets, int M, int N, int K,
+                                void* stream) {
+  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % kQK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* qp = static_cast<const uint8_t*>(qs);
-  const auto* tp = static_cast<const uint8_t*>(scales);
-  const auto* dp = static_cast<const __half2*>(dm);
+  const Q4KTile::Weight w{static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(scales),
+                          static_cast<const __half2*>(dm)};
   auto* yp = static_cast<float*>(y);
-  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-  const dim3 block(kGemvWarps * 32);
+  auto* wk = static_cast<float*>(work);
+  auto* tk = static_cast<int*>(tickets);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
   switch (mode) {
-    case kProd: q4_k_gemv_kernel<8, kProd><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-    case kNoAffine: q4_k_gemv_kernel<8, kNoAffine><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-    case kNoSub: q4_k_gemv_kernel<8, kNoSub><<<grid, block, 0, s>>>(xp, qp, tp, dp, yp, N, K); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: e = launch_q4_k<__nv_bfloat16>(x, qs, scales, dm, y, work, tickets, M, N, K, s); break;
+    case kNoAffine: e = launch_dq_gemv<Q4KAblation<kNoAffine>>(xp, w, yp, wk, tk, M, N, K, s); break;
+    case kNoSub: e = launch_dq_gemv<Q4KAblation<kNoSub>>(xp, w, yp, wk, tk, M, N, K, s); break;
+    default: break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

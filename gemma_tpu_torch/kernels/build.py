@@ -85,16 +85,18 @@ SIGNATURES = {
     # the same for f32 q, k, v and out at the plan's row warps (no row-warps argument)
     "gt_flash_attention_tf32": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     # the decode-GEMV instruments (ops/qmm_variants.py)
-    # x, mode, qs, scales, sc_dtype, y, M, N, K, stream
-    "gt_qmm_variant": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P),
+    # x, mode, qs, f32 scales, y, N, K, stream
+    "gt_qmm_variant": (_P, _I, _P, _P, _P, _I, _I, _P),
+    # x, form, qs, scales, sc_dtype, y, work, tickets, M, N, K, stream
+    "gt_qmm_tc_variant": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     # x, w, y, M, N, K, stream
     "gt_int4_dot": (_P, _P, _P, _I, _I, _I, _P),
     # four (array, row_bytes, width), out, N, stream
     "gt_row_checksum": (_P, _I, _I) * 4 + (_P, _I, _P),
     # x, qs, scales, y, N, K, warps, stream
     "gt_q4_0_gemv_warps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # x, mode, qs, scales, dm, y, N, K, stream
-    "gt_q4_k_variant": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # x, mode, qs, scales, dm, y, work, tickets, M, N, K, stream
+    "gt_q4_k_ablation": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, mode, a0, a1, a2, a3, y, N, K, stream
     "gt_q6_k_variant": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
 }

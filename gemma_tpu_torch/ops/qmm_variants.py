@@ -1,12 +1,15 @@
 """The decode-GEMV instruments: kernels that take the place of the Pallas
 kernels in the reference's timing tools, each with its plain version.
 
-* `qmm_variant` (`csrc/q4_0_matmul.cu`, replaces `_kernel` of
-  tools/bench_qmm_variants.py and `kernel`/`kernel2` of tools/probe_int4.py):
-  q4_0's SIMT GEMV at M = 8 over the port's q4_0 payload with f32, bf16 or
-  f16-bit scales, in the modes of `VARIANT_MODES` (the main path launches
-  none of them: bf16 and f32 x at M <= 8 take the tensor-core GEMV of
-  `csrc/dq_gemv.cuh`);
+* `qmm_tc_variant` (`csrc/q4_0_matmul.cu` `Q4_0Variant`, replaces `_kernel`
+  of tools/bench_qmm_variants.py): the main path's tensor-core q4_0 GEMV
+  (`dq_gemv_kernel` of `csrc/dq_gemv.cuh`) over the port's q4_0 payload
+  with f32, bf16 or f16-bit scales, in the dot forms of `TC_FORMS`, at M <=
+  8; gdot and f32dot on f16 scales launch the main path's instance itself;
+* `qmm_variant` (`csrc/q4_0_matmul.cu`, replaces `kernel`/`kernel2` of
+  tools/probe_int4.py): q4_0's SIMT GEMV at M = 8 on f32 scales in the
+  modes of `SIMT_MODES` (no path launches it: bf16 and f32 x at M <= 8 take
+  the tensor-core GEMV);
 * `int4_dot` (`csrc/qmm_variants.cu`, replaces `kernel3` of
   tools/probe_int4.py): int8 x [M, K] against int4 w [N, K/2] -> int32;
 * `row_checksum` (`csrc/qmm_variants.cu`, the `stream` modes of
@@ -15,8 +18,10 @@ kernels in the reference's timing tools, each with its plain version.
 * `q4_0_gemv_warps` (`csrc/q4_0_matmul.cu`, replaces `call` of
   tools/bench_bn_sweep.py): q4_0's SIMT GEMV at M = 8 with 4, 8, 16 or 32
   rows per block;
-* `q4_k_variant` (`csrc/q4_k_matmul.cu`, replaces `_kernel` of
-  tools/bench_q4k_variants.py): the q4_k GEMV ablations of `Q4_K_MODES`;
+* `q4_k_variant` (`csrc/q4_k_matmul.cu` `Q4KAblation`, replaces `_kernel`
+  of tools/bench_q4k_variants.py): the q4_k ablations of `Q4_K_MODES` on
+  the main path's tensor-core q4_k GEMV (prod: its instance itself), and
+  q4_0ref on q4_0's;
 * `q6_k_variant` (`csrc/q6_k_matmul.cu`, replaces `_kernel` of
   tools/bench_q6k_variants.py): the q6_k GEMV over an int8 payload or the
   port's planes combined in f32 or int32.
@@ -24,7 +29,8 @@ kernels in the reference's timing tools, each with its plain version.
 They lie on no serving path: the benches under `gemma_tpu_torch/tools/`
 and `chip_smoke.py` run them. As everywhere in the port, a CPU tensor takes
 the plain version and a CUDA tensor launches the kernel or raises; each
-wrapper's `launches` counts its kernel launches.
+wrapper's `launches` counts its kernel launches. The tensor-core ones take
+the main path's K-split scratch (`build.workspace`) and plan.
 """
 from __future__ import annotations
 
@@ -36,13 +42,26 @@ from .quant_matmul import q4_0_matmul_plain, q4_k_matmul_plain, q6_k_matmul_plai
 
 GEMV_M = 8  # the rows of x every bench runs (the reference's decode bucket)
 
-# mode name -> kernel mode. The tool's f32sc and rsc, and its bf16sc and
-# rscb, differed only in where the TPU kept the scale's broadcast: one
-# kernel mode each here. u16sc is rsc on f16-bit scales.
+# mode name -> the plain version's dot form (`qmm_variant_plain`): 0 f32
+# weights q * d, 1 bf16(q * d), 2 bf16(bf16 q * bf16 d), 3 q unscaled, 4
+# per-32 sums scaled by d. The tool's f32sc and rsc, and its bf16sc and
+# rscb, differed only in where the TPU kept the scale's broadcast: one form
+# each here. u16sc is rsc on f16-bit scales.
 VARIANT_MODES = {"f32dot": 0, "f32sc": 1, "rsc": 1, "u16sc": 1, "bf16sc": 2, "rscb": 2,
                  "noscale": 3, "gdot": 4}
+# probe_int4's modes on the SIMT GEMV (f32 scales), by their forms above,
+# which are the kernel's mode codes
+SIMT_MODES = ("bf16sc", "noscale")
 # scale dtype -> kernel code; float16 stands for the tool's u16 (f16 bits)
 SCALE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# mode name -> the tensor-core GEMV's dot form (`Q4_0Variant`): 0 each
+# 32-group's fragment scaled by d (gdot; f32dot is the same function up to
+# the order of f32 sums), 1 the weight bf16(q * d), 2 bf16(bf16 q * bf16 d),
+# 3 q unscaled; forms 1-3 sum into one accumulator across groups
+TC_FORMS = {"gdot": 0, "f32dot": 0, "f32sc": 1, "rsc": 1, "u16sc": 1, "bf16sc": 2, "rscb": 2,
+            "noscale": 3}
+# mode name -> gt_q4_k_ablation's mode (0: the main path's q4_k instance);
+# q4_0ref runs q4_0's main-path instance
 Q4_K_MODES = {"prod": 0, "nohilo": 0, "noaffine": 1, "nosub": 2, "q4_0ref": None}
 Q6_K_MODES = {"prod": 0, "split_f32": 1, "split_int": 2}
 WARPS = (4, 8, 16, 32)
@@ -64,6 +83,18 @@ def _on_cpu(what: str, *tensors: torch.Tensor) -> bool:
 def _launch(op, entry: str, what: str, *args) -> None:
     build.check(getattr(build.load(), entry)(*args), what)
     op.launches += 1
+
+
+def _gemv_scratch(fmt: str, x: torch.Tensor, N: int, K: int) -> tuple[int | None, int | None]:
+    """The main path's bf16 GEMV scratch of format `fmt` at x's M: pointers
+    to the stream's K-split partial sums and tickets (`build.workspace`),
+    None where the plan makes no split."""
+    nbytes, nt = build.matmul_scratch(build.load(), build.FORMAT_CODES[fmt],
+                                      build.DTYPE_CODES[torch.bfloat16], x.shape[0], N, K)
+    if not (nbytes or nt):
+        return None, None
+    work, tickets = build.workspace(x.device, build.stream_ptr(x.device), nbytes // 4, nt)
+    return work.data_ptr(), tickets.data_ptr()
 
 
 def _gemv_x(what: str, x: torch.Tensor, K: int, exact_m: bool = True) -> None:
@@ -113,27 +144,51 @@ def qmm_variant_plain(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torc
     return xf @ w.T
 
 
-def qmm_variant(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """The q4_0 SIMT GEMV variant `mode`: x bf16 [8, K] (gdot on f16 scales:
-    [M <= 8, K]), qs u8 [N, K/2] (the port's q4_0
-    payload), scales [N, K/32] f32, bf16 or f16 (u16sc needs f16) -> y
-    [M, N] f32."""
-    if mode not in VARIANT_MODES:
-        raise ValueError(f"unknown q4_0 variant {mode!r}; modes {sorted(VARIANT_MODES)}")
+def _variant_args(what: str, mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                  exact_m: bool, modes=VARIANT_MODES) -> tuple[int, int]:
+    """Check a q4_0 variant's arguments; its (N, K)."""
+    if mode not in modes:
+        raise ValueError(f"unknown {what} mode {mode!r}; modes {sorted(modes)}")
     N, K = qs.shape[0], 2 * qs.shape[1]
     if scales.dtype not in SCALE_CODES or tuple(scales.shape) != (N, K // 32):
         raise ValueError(f"q4_0 variant scales must be f32/bf16/f16 [{N}, {K // 32}], "
                          f"got {scales.dtype} {tuple(scales.shape)}")
     if mode == "u16sc" and scales.dtype != torch.float16:
         raise TypeError("u16sc decodes f16 bits: pass float16 scales")
-    _gemv_x("q4_0 variant", x, K, exact_m=not (mode == "gdot" and scales.dtype == torch.float16))
-    if _on_cpu("q4_0 variant", x, qs, scales):
+    _gemv_x(what, x, K, exact_m)
+    return N, K
+
+
+def qmm_tc_variant(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The q4_0 GEMV variant `mode` on the tensor cores (`TC_FORMS`): x bf16
+    [M <= 8, K], qs u8 [N, K/2] (the port's q4_0 payload), scales [N, K/32]
+    f32, bf16 or f16 (u16sc needs f16) -> y [M, N] f32. Its plain version
+    is `qmm_variant_plain`."""
+    N, K = _variant_args("q4_0 tensor-core variant", mode, x, qs, scales, exact_m=False)
+    if _on_cpu("q4_0 tensor-core variant", x, qs, scales):
         return qmm_variant_plain(mode, x, qs, scales)
     M = x.shape[0]
     y = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    _launch(qmm_variant, "gt_qmm_variant", f"q4_0 variant {mode} M={M} N={N} K={K}",
-            x.data_ptr(), VARIANT_MODES[mode], qs.data_ptr(), scales.data_ptr(),
-            SCALE_CODES[scales.dtype], y.data_ptr(), M, N, K, build.stream_ptr(x.device))
+    work, tickets = _gemv_scratch("q4_0", x, N, K)
+    _launch(qmm_tc_variant, "gt_qmm_tc_variant", f"q4_0 tensor-core variant {mode} M={M} N={N} K={K}",
+            x.data_ptr(), TC_FORMS[mode], qs.data_ptr(), scales.data_ptr(), SCALE_CODES[scales.dtype],
+            y.data_ptr(), work, tickets, M, N, K, build.stream_ptr(x.device))
+    return y
+
+
+def qmm_variant(mode: str, x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The q4_0 SIMT GEMV variant `mode` of `SIMT_MODES`: x bf16 [8, K], qs
+    u8 [N, K/2] (the port's q4_0 payload), scales f32 [N, K/32] -> y [8, N]
+    f32. Its plain version is `qmm_variant_plain`."""
+    N, K = _variant_args("q4_0 SIMT variant", mode, x, qs, scales, exact_m=True, modes=SIMT_MODES)
+    if scales.dtype != torch.float32:
+        raise TypeError(f"the q4_0 SIMT variant takes f32 scales, got {scales.dtype}")
+    if _on_cpu("q4_0 SIMT variant", x, qs, scales):
+        return qmm_variant_plain(mode, x, qs, scales)
+    y = torch.empty(GEMV_M, N, dtype=torch.float32, device=x.device)
+    _launch(qmm_variant, "gt_qmm_variant", f"q4_0 SIMT variant {mode} N={N} K={K}",
+            x.data_ptr(), VARIANT_MODES[mode], qs.data_ptr(), scales.data_ptr(), y.data_ptr(), N, K,
+            build.stream_ptr(x.device))
     return y
 
 
@@ -267,10 +322,10 @@ def q4_k_variant_plain(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def q4_k_variant(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """The q4_k GEMV ablation `mode` at M = 8, x bf16 [8, K] -> [8, N] f32:
-    prod (the SIMT GEMV), nohilo (prod; pass `q4_k_hi_parts(qt)`),
-    noaffine (d*sc * (q - 8)), nosub (d * (q - 8)), q4_0ref (#1's GEMV;
-    pass `q4_0ref_weight(qt)`)."""
+    """The q4_k GEMV ablation `mode` at M = 8 on the tensor cores, x bf16
+    [8, K] -> [8, N] f32: prod (the main path's q4_k GEMV), nohilo (prod;
+    pass `q4_k_hi_parts(qt)`), noaffine (d*sc * (q - 8)), nosub (d * (q -
+    8)), q4_0ref (the main path's q4_0 GEMV; pass `q4_0ref_weight(qt)`)."""
     if mode not in Q4_K_MODES:
         raise ValueError(f"unknown q4_k variant {mode!r}; modes {list(Q4_K_MODES)}")
     want = "q4_0" if mode == "q4_0ref" else "q4_k"
@@ -281,14 +336,17 @@ def q4_k_variant(mode: str, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     if _on_cpu("q4_k variant", x, *qt.arrays.values()):
         return q4_k_variant_plain(mode, x, qt)
     y = torch.empty(GEMV_M, N, dtype=torch.float32, device=x.device)
+    work, tickets = _gemv_scratch(qt.fmt, x, N, K)
     if mode == "q4_0ref":
-        _launch(q4_k_variant, "gt_q4_0_gemv_warps", f"q4_k variant q4_0ref N={N} K={K}",
-                x.data_ptr(), qt.qs.data_ptr(), qt.scales.data_ptr(), y.data_ptr(), N, K, 8,
+        _launch(q4_k_variant, "gt_qmm_tc_variant", f"q4_k variant q4_0ref N={N} K={K}",
+                x.data_ptr(), TC_FORMS["gdot"], qt.qs.data_ptr(), qt.scales.data_ptr(),
+                SCALE_CODES[torch.float16], y.data_ptr(), work, tickets, GEMV_M, N, K,
                 build.stream_ptr(x.device))
     else:
-        _launch(q4_k_variant, "gt_q4_k_variant", f"q4_k variant {mode} N={N} K={K}",
+        _launch(q4_k_variant, "gt_q4_k_ablation", f"q4_k variant {mode} N={N} K={K}",
                 x.data_ptr(), Q4_K_MODES[mode], qt.qs.data_ptr(), qt.scales.data_ptr(),
-                qt.dm.data_ptr(), y.data_ptr(), N, K, build.stream_ptr(x.device))
+                qt.dm.data_ptr(), y.data_ptr(), work, tickets, GEMV_M, N, K,
+                build.stream_ptr(x.device))
     return y
 
 
@@ -334,6 +392,7 @@ def q6_k_variant(mode: str, x: torch.Tensor, arrays: dict[str, torch.Tensor]) ->
     return y
 
 
+qmm_tc_variant.launches = 0
 qmm_variant.launches = 0
 int4_dot.launches = 0
 row_checksum.launches = 0
@@ -342,6 +401,6 @@ q4_k_variant.launches = 0
 q6_k_variant.launches = 0
 
 # kernel name (chip_smoke.py's JSON line) -> wrapper with a `launches` counter
-COUNTERS = {"qmm_variant": qmm_variant, "int4_dot": int4_dot, "row_checksum": row_checksum,
-            "q4_0_gemv_warps": q4_0_gemv_warps, "q4_k_variant": q4_k_variant,
-            "q6_k_variant": q6_k_variant}
+COUNTERS = {"qmm_tc_variant": qmm_tc_variant, "qmm_variant": qmm_variant, "int4_dot": int4_dot,
+            "row_checksum": row_checksum, "q4_0_gemv_warps": q4_0_gemv_warps,
+            "q4_k_variant": q4_k_variant, "q6_k_variant": q6_k_variant}

@@ -1,21 +1,27 @@
 """Where the q4_k GEMV's time goes beyond q4_0's, at decode M = 8 on
 ffn_down [2048, 16384]: ablations of its metadata math.
 
-The counterpart of the reference's `tools/bench_q4k_variants.py` on the
-port's q4_k layout (qs u8 [N, K/2], the packed 12-byte 6-bit table, f16 d
-and dmin), through `gt_q4_k_variant` (`csrc/q4_k_matmul.cu`) and #1's GEMV:
+The counterpart of the reference's `tools/bench_q4k_variants.py`, which
+dropped terms from the reference's production q4_k kernel, on the port's
+q4_k layout (qs u8 [N, K/2], the packed 12-byte 6-bit table, f16 d and
+dmin). Every line runs the main path's tensor-core GEMV (`dq_gemv_kernel`
+of `csrc/dq_gemv.cuh`) with its plan, through `gt_q4_k_ablation`
+(`csrc/q4_k_matmul.cu`) and `gt_qmm_tc_variant`:
 
-  prod      the SIMT GEMV (an instrument only: bf16 and f32 x take the
-            tensor-core GEMV of csrc/dq_gemv.cuh): d*sc * sum(x q) -
-            dmin*mn * sum(x)
+  prod      the main path's q4_k instance (`Q4KGemv`): each 32-group's
+            fragment scaled by d*sc, the affine part (8 d*sc - dmin*mn) *
+            sum(x) added from the block's per-32 sums of x
   nohilo    prod on d and dmin rounded to bf16. The reference stores them
             as an exact bf16 hi/lo pair and paid two adds for exactness;
             the port keeps exact f16, so that cost does not exist here and
             this line equals prod's work
-  noaffine  d*sc * (q - 8): no dmin*mn, no sum(x)
-  nosub     d * (q - 8): no 6-bit table decode, no affine part
-  q4_0ref   #1's q4_0 GEMV on the same payload bytes with the 6-bit
-            sub-scales as f16 scales: the floor
+  noaffine  d*sc * (q - 8) (`Q4KAblation<kNoAffine>`): no dmin*mn, no
+            per-32 sums of x (one barrier where prod takes two), no affine
+            add
+  nosub     d * (q - 8) (`Q4KAblation<kNoSub>`): no 6-bit table copied or
+            decoded, no affine part
+  q4_0ref   the main path's q4_0 instance (`Q4_0Gemv`) on the same payload
+            bytes with the 6-bit sub-scales as f16 scales: the floor
 
 Times are L2 cold (`_timing.py`); GB/s at the bytes each mode reads.
 
@@ -33,7 +39,7 @@ from . import _timing as T
 
 M = qv.GEMV_M
 N, K = 2048, 16384  # ffn_down (Gemma-2B)
-RTOL = 1e-4  # f32 products (vec_dot form against x @ dequant), sums reordered
+RTOL = 1e-4  # exact products of the integers and bf16 x, f32 sums in another order
 
 
 def weights(mode: str, qt):

@@ -1,18 +1,21 @@
 """Decode (M = 8) q4_0 GEMV variants on the card: what scale format, dequant
 precision and dot form cost, against a stream of the same bytes.
 
-The counterpart of the reference's `tools/bench_qmm_variants.py` on the
-port's q4_0 layout (qs u8 [N, K/2], scales [N, K/32]); the kernels are
-q4_0's SIMT GEMV (the main path's with f32 x) in the modes of
-`ops/qmm_variants.VARIANT_MODES` (`csrc/q4_0_matmul.cu`) and the stream
-checksum (`csrc/qmm_variants.cu`). Each line: mode, scale dtype, µs (L2
-cold, `_timing.py`), GB/s at the variant's own bytes (payload + scales + x
-+ y), its fraction of 3.35 TB/s, and the bound. Every variant is first
+The counterpart of the reference's `tools/bench_qmm_variants.py`, which
+varied the reference's production q4_0 kernel, on the port's q4_0 layout
+(qs u8 [N, K/2], scales [N, K/32]). The kernels are the main path's
+tensor-core GEMV (`dq_gemv_kernel` of `csrc/dq_gemv.cuh`) in the dot forms
+of `ops/qmm_variants.TC_FORMS` (`Q4_0Variant` of `csrc/q4_0_matmul.cu`;
+gdot and f32dot on f16 scales are the main path's instance itself) and the
+stream checksum (`csrc/qmm_variants.cu`). Each line: mode, scale dtype, µs
+(L2 cold, `_timing.py`), GB/s at the variant's own bytes (payload + scales
++ x + y), its fraction of 3.35 TB/s, and the bound. Every variant is first
 held against its plain version on the same inputs.
 
-The TPU's (bk, bn) tile pairs have no counterpart here: every mode stages x
-in 1024-element K-chunks in shared memory with 8 rows (warps) per block;
-`bench_bn_sweep` sweeps the rows per block.
+The TPU's (bk, bn) tile pairs have no counterpart here: every mode runs
+the main path's plan (each block's K-slice of x copied once into shared
+memory, 4 warps of 16 weight rows a block, K split where the rows alone do
+not fill the card); `bench_bn_sweep` sweeps rows per block.
 
     python -m gemma_tpu_torch.tools.bench_qmm_variants [ffn_down|gate_up|attn_out] [--device cpu]
 """
@@ -32,15 +35,17 @@ SHAPES = [("ffn_down", 2048, 16384), ("gate_up", 32768, 2048), ("attn_out", 2048
 CONFIGS = [
     ("stream", torch.float16, "every payload and scale byte read once, a checksum: "
                               "the byte floor of this kernel (HBM's is the bound)"),
-    ("gdot", torch.float16, "#1's form, sc * sum(q x), on the port's f16 scales: production"),
-    ("f32dot", torch.float16, "f32 weights, exact f16 scales (#1's function)"),
-    ("f32dot", torch.bfloat16, "f32 weights, bf16 scales (the TPU's production)"),
-    ("f32dot", torch.float32, "f32 weights, f32 scales"),
-    ("rsc", torch.bfloat16, "bf16(q * sc), bf16 scales (= rsc)"),
-    ("f32sc", torch.float32, "bf16(q * sc), f32 scales (= f32sc and rsc)"),
-    ("u16sc", torch.float16, "bf16(q * sc), f16 bits decoded in the kernel"),
-    ("bf16sc", torch.bfloat16, "bf16(bf16 q * bf16 sc) (= bf16sc and rscb)"),
-    ("noscale", torch.float32, "no scale: the scale-multiply cost by difference"),
+    ("gdot", torch.float16, "#1's form, sc * sum(q x) a group, on the port's f16 scales: "
+                            "the main path's instance"),
+    ("f32dot", torch.float16, "f32 weights, exact f16 scales: #1's function, the main path's "
+                              "instance again"),
+    ("f32dot", torch.bfloat16, "the group-scaled form on bf16 scales (the TPU's production)"),
+    ("f32dot", torch.float32, "the group-scaled form on f32 scales (4 bytes a group)"),
+    ("rsc", torch.bfloat16, "A = bf16(q * sc), one accumulator, bf16 scales (= rsc)"),
+    ("f32sc", torch.float32, "A = bf16(q * sc), f32 scales (= f32sc and rsc)"),
+    ("u16sc", torch.float16, "A = bf16(q * sc), f16 bits decoded in the kernel"),
+    ("bf16sc", torch.bfloat16, "A = bf16(bf16 q * bf16 sc) (= bf16sc and rscb)"),
+    ("noscale", torch.float32, "A = q, no scale read: the scale's cost by difference"),
 ]
 # the production form once more with one row of x: what M = 8 costs over M = 1
 M1_CONFIG = ("gdot", torch.float16, "the same kernel at M = 1: the cost of the other 7 rows")
@@ -67,7 +72,7 @@ def measure(name: str, N: int, K: int, mode: str, sc_dtype: torch.dtype, dev, ta
         args, out_bytes, flops = (qs, sc), N * 4, 0
         diff = T.check(f"stream {name}", got, ref, None)
     else:
-        kernel = tally.call("qmm_variant", lambda *a: qv.qmm_variant(mode, *a))
+        kernel = tally.call("qmm_tc_variant", lambda *a: qv.qmm_tc_variant(mode, *a))
         got, ref = kernel(x, qs, sc), qv.qmm_variant_plain(mode, x, qs, sc)
         args, out_bytes, flops = (x, qs, sc), m * N * 4, 2 * m * N * K
         diff = T.check(f"{mode} {name}", got, ref, RTOL)
@@ -82,8 +87,8 @@ def run(shapes, dev: torch.device, reps: int = 5, configs=CONFIGS) -> dict:
     scale dtype): reading}."""
     tally = T.Tally()
     print(T.card_line(dev), flush=True)
-    print(f"q4_0 GEMV variants, M={M}; tile: 1024-element K-chunk of x in shared memory, "
-          f"8 rows per block (f32sc = rsc and bf16sc = rscb: one kernel mode each)", flush=True)
+    print(f"q4_0 GEMV variants, M={M}, on the main path's tensor-core GEMV and plan "
+          f"(f32sc = rsc and bf16sc = rscb: one form each)", flush=True)
     out = {}
     for name, N, K in shapes:
         print(f"{name} [{N}, {K}]", flush=True)

@@ -57,6 +57,13 @@ F32_CORE_SHAPES, device ms warm through the public wrappers, then the
 device busy ms of a decode step at 1 and 8 rows of Gemma-7B q8_0 and
 Gemma-2B q4_0 (`decode_step_busy`; copy this tree's chip_smoke.py into DIR
 first). Runs on the card only.
+
+    python -m gemma_tpu_torch.tools.parent_turn --parent DIR --tools
+
+runs only the decode-GEMV instruments whose kernels a tree may have
+replaced, four turns: each tree's own `bench_q4k_variants` and
+`bench_qmm_variants` (every line's µs, L2 cold, each held to its plain
+version by the tool), so a line reads the kernel its tree launches.
 """
 from __future__ import annotations
 
@@ -305,6 +312,32 @@ def attn_turn(tag: str) -> None:
     print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def tools_turn(tag: str) -> None:
+    """One --tools turn, in the tree of the current directory: its
+    bench_q4k_variants (ffn_down) and bench_qmm_variants (every shape),
+    their lines' µs as JSON (the tools' own lines are not printed)."""
+    import contextlib
+    import io
+
+    if not torch.cuda.is_available():
+        raise SystemExit("parent_turn: no CUDA device (it times the kernels on the card)")
+    from gemma_tpu_torch.kernels import build
+    from gemma_tpu_torch.tools import _timing as T
+    from gemma_tpu_torch.tools import bench_q4k_variants, bench_qmm_variants
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    build.load()
+    print(tag, T.card_line(dev), f"build+load {time.perf_counter() - t0:.1f} s", flush=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        q4k = bench_q4k_variants.run(dev)
+        qmm = bench_qmm_variants.run(bench_qmm_variants.SHAPES, dev)
+    print(tag, "bench_q4k_variants us:", json.dumps({m: r["us"] for m, r in q4k.items()}), flush=True)
+    print(tag, "bench_qmm_variants us:", json.dumps({" ".join(map(str, k)): r["us"] for k, r in qmm.items()}),
+          flush=True)
+    print(tag, "turn done", f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 PAGED_KERNELS = ("paged_split_kernel", "attend_combine_kernel", "decode_tc_kernel", "decode_g1_kernel")
 PAGED_STEPS = 16  # decode steps of the decode-only profile
 
@@ -533,12 +566,15 @@ def main(argv=None) -> int:
     ap.add_argument("--decode", action="store_true", help="(with --turn) a decode turn")
     ap.add_argument("--gemv", action="store_true", help="the GEMVs' part only, bf16 and f32 x")
     ap.add_argument("--attn", action="store_true", help="the decode attention cores and decode steps only")
+    ap.add_argument("--tools", action="store_true", help="bench_q4k_variants and bench_qmm_variants only")
     args = ap.parse_args(argv)
     if args.turn:
         if args.decode:
             decode_turn(args.turn)
         elif args.attn:
             attn_turn(args.turn)
+        elif args.tools:
+            tools_turn(args.turn)
         else:
             turn(args.turn, json.loads(args.shapes), args.outputs, args.gemv)
         return 0
@@ -552,12 +588,12 @@ def main(argv=None) -> int:
     order = ("parent", "change", "change", "parent")
     with tempfile.TemporaryDirectory() as tmp:
         saved = {tag: Path(tmp) / f"{tag}.pt" for tag in ("parent", "change")}
-        for i, tag in enumerate(order * (1 if args.gemv or args.attn else 1 + DECODE_ROUNDS)):
+        for i, tag in enumerate(order * (1 if args.gemv or args.attn or args.tools else 1 + DECODE_ROUNDS)):
             tree = Path(args.parent).resolve() if tag == "parent" else change
             env = {**os.environ, "PYTHONPATH": str(tree)}
-            if args.attn:
+            if args.attn or args.tools:
                 proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--turn", tag,
-                                       "--attn"], cwd=tree, env=env, timeout=900)
+                                       "--attn" if args.attn else "--tools"], cwd=tree, env=env, timeout=900)
                 if proc.returncode != 0:
                     return proc.returncode
                 continue

@@ -34,11 +34,14 @@ wrappers.
 `sass` needs no card, only the CUDA toolkit: it builds this tree's kernels
 and the parent's (`--parent DIR`, a commit unpacked with `git archive`)
 and compares, instruction by instruction (`cuobjdump -sass`, branch labels
-numbered in order of use), each format's tensor-core GEMV with bf16 x,
-the TF32 tile's instances of TF32_KERNELS and the decode core's instances
-that the parent has (`decode_tc_kernel`: bf16 and int8, dense and paged,
-and f32 over f32 dense, D = 128 and 256) in the two builds; it fails
-unless every one is the same code.
+numbered in order of use), each format's tensor-core GEMV with bf16 x and
+with f32 x (`XF32`, `XF32Packed`), the TF32 tile's instances of
+TF32_KERNELS and the decode core's instances that the parent has
+(`decode_tc_kernel`: bf16 and int8, dense and paged, and f32 over f32
+dense, D = 128 and 256) in the two builds; it fails unless every one is
+the same code. It then lists this tree's other GEMV instances (the
+instruments' `Q4KAblation` and `Q4_0Variant`) with their instructions and
+the registers and spills of the build's ptxas log.
 
 `mutants` checks that check: it builds MUTANTS, the attention kernels with
 a planted fault (a decode split or a flash key tile dropped, a warp of the
@@ -616,6 +619,7 @@ def run_mutants(dev: torch.device) -> None:
 # name: this tree's instance takes the element policy XBf16
 GEMV_BF16_KERNELS = {"q4_0": "BlockGemvILi16E", "q8_0": "BlockGemvILi32E", "q4_k": "Q4KGemv",
                      "q6_k": "Q6KGemv"}
+GEMV_POLICIES = ("XBf16", "XF32", "XF32Packed")  # the element policies of x in a GEMV's name
 # the f32 TF32 tile's functors held to the parent's code (each instance: BN
 # 64 and 128), by a part of their mangled names
 TF32_KERNELS = {"q8_0": "Q8_0Tf32", "q4_k": "Q4KTf32", "q6_k": "Q6KTf32"}
@@ -668,25 +672,65 @@ def _sass(csrc: Path, build_dir: Path) -> dict[str, list[str]]:
     return kernels
 
 
+def _ptxas(csrc: Path, build_dir: Path) -> dict[str, str]:
+    """Each kernel's registers and spill bytes from the ptxas log
+    (`-Xptxas=-v`) that `kernels/build.py` keeps beside the library built
+    from `csrc`, by mangled name."""
+    import re
+
+    out: dict[str, list[str]] = {}
+    name = None
+    for line in build.library_path(csrc, build_dir).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line):
+            name = m.group(1)
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out.setdefault(name, []).append(f"spill stores/loads {m.group(1)}/{m.group(2)} bytes")
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(name, []).insert(0, f"{m.group(1)} registers")
+    return {k: ", ".join(v) for k, v in out.items()}
+
+
+def _gemv_policy(name: str) -> str | None:
+    """The element policy of x (GEMV_POLICIES) of a `dq_gemv_kernel`
+    instance, from its mangled name."""
+    import re
+
+    m = re.search(r"\d+(XBf16|XF32|XF32Packed)E", name) if "dq_gemv_kernel" in name else None
+    return m.group(1) if m else None
+
+
+def _demangled(name: str) -> str:
+    import shutil
+    import subprocess
+
+    cxxfilt = shutil.which("c++filt")
+    if not cxxfilt:
+        return name
+    return subprocess.run([cxxfilt, name], capture_output=True, text=True).stdout.strip() or name
+
+
 def run_sass(parent: str) -> None:
-    """Mode sass: the bf16 GEMVs, the TF32_KERNELS tiles and the decode
-    cores the parent has (bf16 and int8, dense and paged; f32 over f32) of
-    this tree and of the parent, compared instruction by instruction."""
+    """Mode sass: the GEMVs with bf16 and f32 x, the TF32_KERNELS tiles and
+    the decode cores the parent has (bf16 and int8, dense and paged; f32
+    over f32) of this tree and of the parent, compared instruction by
+    instruction; then this tree's other GEMV instances, listed."""
     import difflib
     import re
 
-    trees = {"this": _sass(build.CSRC, build.BUILD_DIR / "variants" / "sass"),
+    here = (build.CSRC, build.BUILD_DIR / "variants" / "sass")
+    trees = {"this": _sass(*here),
              "parent": _sass(Path(parent) / "gemma_tpu_torch" / "csrc",
                              build.BUILD_DIR / "variants" / "parent")}
     pairs = []  # (label, this tree's kernel name, the parent's)
     for fmt, token in GEMV_BF16_KERNELS.items():
-        names = {}
-        for tree, kernels in trees.items():
-            found = [n for n in kernels if "dq_gemv_kernel" in n and token in n and "XF32" not in n]
-            if len(found) != 1:
-                raise SystemExit(f"sass: {tree} has {len(found)} bf16 GEMVs of {fmt}: {found}")
-            names[tree] = found[0]
-        pairs.append((f"{fmt} bf16 GEMV", names["this"], names["parent"]))
+        for policy in GEMV_POLICIES:
+            names = {}
+            for tree, kernels in trees.items():
+                found = [n for n in kernels if token in n and _gemv_policy(n) == policy]
+                if len(found) != 1:
+                    raise SystemExit(f"sass: {tree} has {len(found)} {policy} GEMVs of {fmt}: {found}")
+                names[tree] = found[0]
+            pairs.append((f"{fmt} {policy} GEMV", names["this"], names["parent"]))
     for fmt, token in TF32_KERNELS.items():
         # by instance: the names less their unnamed namespace's hash, which follows the source
         names = {tree: {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", n): n for n in kernels
@@ -704,6 +748,7 @@ def run_sass(parent: str) -> None:
         raise SystemExit(f"sass: the bf16 and int8 decode cores differ: {cores}")
     for key, n in sorted(cores["parent"].items()):
         pairs.append((f"decode core D={key[0]} {key[1]} {key[2]}Rows", cores["this"][key], n))
+    regs = _ptxas(*here)
     differ = []
     for label, this, par in pairs:
         a, b = trees["this"][this], trees["parent"][par]
@@ -712,15 +757,20 @@ def run_sass(parent: str) -> None:
         verdict = ("the same code" if a == b else
                    f"{len(a) - same} of {len(a)} instructions differ in place; "
                    f"{'the same' if ops[0] == ops[1] else 'not the same'} opcodes in another order")
-        print(f"sass {label}: this {len(a)} instructions, parent {len(b)}: {verdict}", flush=True)
+        print(f"sass {label}: this {len(a)} instructions, parent {len(b)}: {verdict}; ptxas "
+              f"{regs.get(this, 'not in the log')}", flush=True)
         if a != b:
             differ.append(label)
             diff = difflib.unified_diff(b, a, "parent", "this", lineterm="", n=2)
             print("\n".join(list(diff)[:60]), flush=True)
+    compared = {this for _, this, _ in pairs}
+    for name in sorted(n for n in trees["this"] if _gemv_policy(n) and n not in compared):
+        print(f"sass new GEMV instance {_demangled(name)}: {len(trees['this'][name])} instructions; "
+              f"ptxas {regs.get(name, 'not in the log')}", flush=True)
     if differ:
         raise SystemExit(f"sass: {differ} are not the parent's code")
-    print("sass: every bf16 GEMV, TF32 tile and bf16, int8 or f32 decode core compared is the parent's code",
-          flush=True)
+    print("sass: every bf16 or f32 GEMV, TF32 tile and bf16, int8 or f32 decode core compared is the "
+          "parent's code", flush=True)
 
 
 def main(argv=None) -> None:

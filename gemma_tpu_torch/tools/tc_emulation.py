@@ -17,7 +17,11 @@ on the CPU, against the plain versions (tests/test_torch_tc_emulation.py):
   pairs), the B fragments of x by byte perms, `mma.sync` m16n8k16 through
   the PTX fragment layouts, the per-group scale (and q4_k's affine part)
   into f32 accumulators, the K splits and their sum in split order (by the
-  row tile's last block, or a second launch: the same sums).
+  row tile's last block, or a second launch: the same sums). The
+  instruments' instances take a functor in place of the weight:
+  `Q4KAblation` (q4_k without its affine part or its 6-bit sub-scales) and
+  `Q4_0Variant` (q4_0 on f32, bf16 or f16 scales, its A fragments weighed
+  into one accumulator in the rounded-weight and unscaled forms).
 * `tile_weights` emulates the `Q4_0Tile` and `Q8_0Tile` functors of
   `csrc/q4_0_matmul.cu` and `csrc/q8_0_matmul.cu` (`copy` with cp.async's
   zero fill, then `store`) for every K-step of `dq_tile.cuh`, the half step
@@ -261,7 +265,7 @@ def scale_min_k4(tb: np.ndarray, j: int) -> tuple[np.ndarray, np.ndarray]:
 class BlockGemv:
     """`BlockGemv<kBlockBytes>` (q4_0: 16, q8_0: 32) of csrc/dq_gemv.cuh."""
     stage_k, gran, target, slice_min = GV_STAGE_K, 32, GV_TARGET_WARPS, GV_BLOCK_SLICE_MIN
-    group_k, steps, affine, table = 32, 2, False, 0
+    group_k, steps, affine, table, one_acc = 32, 2, False, 0, False
 
     @staticmethod
     def stage_size(fmt: str) -> int:
@@ -280,19 +284,27 @@ class BlockGemv:
         self.pieces, self.groups = self.row_stage // 32, 32 // self.bb
 
     def copy(self, n0: int, kb: int, khi: int) -> np.ndarray:
-        N, K, bb = self.N, self.K, self.bb
         stage = np.zeros(self.stage_bytes, np.uint8)
+        self.copy_payload(stage, n0, kb, khi)
+        self.copy_scale_words(stage, n0, kb)
+        return stage
+
+    def copy_payload(self, stage: np.ndarray, n0: int, kb: int, khi: int) -> None:
+        N, K, bb = self.N, self.K, self.bb
         for i in range(self.row_stage):  # 16 rows x row_stage / 16 chunks
             r, c = divmod(i, self.row_stage // 16)
             if n0 + r < N and kb + c * 16 // bb * 32 < khi:
                 src = (n0 + r) * (K // 32 * bb) + kb // 32 * bb + 16 * c
                 stage[r * self.pitch + 16 * c: r * self.pitch + 16 * c + 16] = self.qs[src: src + 16]
+
+    def copy_scale_words(self, stage: np.ndarray, n0: int, kb: int) -> None:
+        """The aligned 2-byte words that hold each row's four scales."""
+        N, K = self.N, self.K
         for i in range(16 * GV_SCALE_WORDS):
             r, j = divmod(i, GV_SCALE_WORDS)
             h = (((n0 + r) * (K // 32) + kb // 32) & ~1) + 2 * j
             o = self.scales_off + 4 * i
             stage[o: o + 4] = np.frombuffer(_cp_half2(self.sc, h, N * (K // 32)), np.uint8)
-        return stage
 
     def prepare(self, stage, n0, kb):
         return None
@@ -326,7 +338,7 @@ class Q4KGemv:
     warp's table holds d*sc [8][16] and the offsets [8][16]."""
     stage_k = gran = GV_SUPER_K
     target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
-    group_k, steps, affine, pieces, groups, table = 32, 2, True, 4, 2, 256
+    group_k, steps, affine, pieces, groups, table, one_acc = 32, 2, True, 4, 2, 256, False
     pitch = 144
     meta = 16 * pitch
     stage_bytes = meta + 16 * 16
@@ -387,13 +399,133 @@ class Q4KGemv:
                 [table[128 + 16 * grp + LANE_G], table[128 + 16 * grp + LANE_G + 8]])
 
 
+class Q4KAblation(Q4KGemv):
+    """`Q4KAblation<Mode>` of csrc/q4_k_matmul.cu, the q4_k instrument's
+    ablations (no affine part, so no per-32 sums of x): `noaffine` decodes
+    the 6-bit scales alone into a table of d*sc [8][16]; `nosub` copies the
+    payload and each row's d, dmin word alone and scales every group by d."""
+    affine = False
+
+    def __init__(self, qt: QTensor, mode: str):
+        assert mode in ("noaffine", "nosub")
+        super().__init__(qt)
+        self.mode = mode
+        self.table = 128 if mode == "noaffine" else 0
+
+    def copy(self, n0, kb, khi):
+        stage = super().copy(n0, kb, khi)
+        if self.mode == "nosub":  # no table bytes copied
+            stage[self.meta:].reshape(16, 16)[:, :12] = 0
+        return stage
+
+    def _d(self, stage) -> np.ndarray:
+        """Each stage row's d as f32 [16]."""
+        return stage[self.meta:].reshape(16, 16)[:, 12:14].copy().view(np.float16)[:, 0].astype(np.float32)
+
+    def prepare(self, stage, n0, kb):
+        if self.mode == "nosub":
+            return None
+        table = np.zeros(128, np.float32)
+        r = LANES % 16
+        meta = stage[self.meta:].reshape(16, 16)[r]
+        d = self._d(stage)[r]
+        for i in range(4):
+            j = LANES // 16 + 2 * i
+            for jj in (2 * i, 2 * i + 1):
+                sel = j == jj
+                sc, _ = scale_min_k4(meta[sel, :12], jj)
+                table[16 * jj + r[sel]] = d[sel] * sc
+        return table
+
+    def scales(self, stage, table, n0, kb, grp):
+        if self.mode == "noaffine":
+            return [table[16 * grp + LANE_G], table[16 * grp + LANE_G + 8]], None
+        d = self._d(stage)
+        return [d[LANE_G], d[LANE_G + 8]], None
+
+
+class Q4_0Variant(BlockGemv):
+    """`Q4_0Variant<Form, SC>` of csrc/q4_0_matmul.cu, the q4_0 instrument's
+    variants of `BlockGemv<16>`: q4_0 payload `qs` with `scales` [N, K/32] of
+    any dtype in the stage (2-byte: BlockGemv's words; f32: each row's four
+    scales; form 3: none), in the dot form `form` of
+    ops/qmm_variants.TC_FORMS. Forms 1-3 weigh each A fragment by its rows'
+    scales (bf16(q * d), bf16(bf16 q * bf16 d), q) and sum into one
+    accumulator across groups."""
+
+    def __init__(self, qs: torch.Tensor, scales: torch.Tensor, form: int):
+        self.N, self.K = qs.shape[0], 2 * qs.shape[1]
+        self.bb, self.form = 16, form
+        self.one_acc = form != 0
+        self.qs = _np(qs).view(np.uint8)
+        self.sc_dtype = scales.dtype
+        raw = scales.view(torch.int16) if scales.dtype == torch.bfloat16 else scales
+        self.sc = _np(raw)
+        self.words = 0 if form == 3 else 4 if scales.element_size() == 4 else GV_SCALE_WORDS
+        self.row_stage = self.stage_k // 32 * self.bb
+        self.pitch = self.row_stage + 16
+        self.scales_off = 16 * self.pitch
+        self.stage_bytes = self.scales_off + 16 * self.words * 4
+        self.pieces, self.groups = self.row_stage // 32, 32 // self.bb
+
+    def copy(self, n0, kb, khi):
+        stage = np.zeros(self.stage_bytes, np.uint8)
+        self.copy_payload(stage, n0, kb, khi)
+        if self.words == GV_SCALE_WORDS:
+            self.copy_scale_words(stage, n0, kb)
+        elif self.words == 4:  # f32: the row's four scales, zeros past K
+            groups = self.K // 32
+            raw = self.sc.view(np.uint8)
+            for i in range(64):
+                r, j = divmod(i, 4)
+                if n0 + r < self.N and kb // 32 + j < groups:
+                    src = 4 * ((n0 + r) * groups + kb // 32 + j)
+                    stage[self.scales_off + 4 * i: self.scales_off + 4 * i + 4] = raw[src: src + 4]
+        return stage
+
+    def _f32(self, v: np.ndarray) -> np.ndarray:
+        if self.sc_dtype == torch.bfloat16:
+            return _bf16_bits_to_f32(v.view(np.uint16))
+        return v.astype(np.float32)
+
+    def scales(self, stage, table, n0, kb, grp):
+        if self.words == 0:
+            return [np.ones(32, np.float32)] * 2, None
+        if self.words == 4:
+            sc = stage[self.scales_off:].view(np.float32)
+            return [sc[(LANE_G + 8 * h) * 4 + grp] for h in range(2)], None
+        sc = stage[self.scales_off:].view(np.uint16)
+        d = []
+        for h in range(2):
+            odd = ((n0 + LANE_G + 8 * h) * (self.K // 32) + kb // 32) & 1
+            bits = sc[(LANE_G + 8 * h) * 2 * GV_SCALE_WORDS + odd + grp]
+            d.append(self._f32(bits.view(np.float16) if self.sc_dtype == torch.float16 else bits))
+        return d, None
+
+    def weigh(self, d, a):
+        """`weigh`: a[0], a[2] (row g) and a[1], a[3] (row g + 8) scaled by
+        their d and rounded to bf16 (form 1: the f32 product; form 2: of
+        bf16 d, exact in f32); form 3 leaves them."""
+        if self.form == 3:
+            return a
+        out = []
+        for i, reg in enumerate(a):
+            dd = np.asarray(d[i & 1], np.float32)
+            if self.form == 2:
+                dd = _bf16_bits_to_f32(bf16_rn(dd))
+            lo = (_bf16_bits_to_f32(reg & 0xFFFF) * dd).astype(np.float32)
+            hi = (_bf16_bits_to_f32(reg >> 16) * dd).astype(np.float32)
+            out.append(bf16_rn(lo).astype(np.uint32) | (bf16_rn(hi).astype(np.uint32) << 16))
+        return out
+
+
 class Q6KGemv:
     """`Q6KGemv` of csrc/q6_k_matmul.cu: a stage is one superblock, ql
     [16][144], qh [16][80], sc [16][16], the d words [16][4]; a piece is a
     half (12 ldmatrix words), a group one 16-element sub-block."""
     stage_k = gran = GV_SUPER_K
     target, slice_min = GV_SUPER_TARGET_WARPS, GV_SLICE_MIN
-    group_k, steps, affine, pieces, groups, table = 16, 1, False, 2, 8, 256
+    group_k, steps, affine, pieces, groups, table, one_acc = 16, 1, False, 2, 8, 256, False
     ql_pitch, qh_pitch = 144, 80
     qh_off = 16 * ql_pitch
     sc_off = qh_off + 16 * qh_pitch
@@ -513,17 +645,20 @@ def split_bf16x3(v) -> list[np.ndarray]:
     return parts
 
 
-def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = GV_F32_PARTS) -> np.ndarray:
+def gemv(x: torch.Tensor, qt, sms: int = H100_SMS, passes: int = GV_F32_PARTS) -> np.ndarray:
     """`launch_dq_gemv` on x [M, K] (1 <= M <= 8) and qt of any format,
-    through its functor (`GEMV_FORMATS`): y f32 [M, N]. bf16 x takes the
-    `XBf16` policy; f32 x `XF32` (the three-part split, its slice, the
-    per-32 sums of the f32 x; at M <= 2 `XF32Packed`, the parts as columns
-    of one product summed into quad lane 0 at the end), the products of its
-    first `passes` parts only (fewer than 3 drops the smallest)."""
-    F = GEMV_FORMATS[qt.fmt](qt)
+    through its functor (`GEMV_FORMATS`), or through a functor given in its
+    place (the instruments' `Q4KAblation`, `Q4_0Variant`; bf16 x): y f32
+    [M, N]. bf16 x takes the `XBf16` policy; f32 x `XF32` (the three-part
+    split, its slice, the per-32 sums of the f32 x; at M <= 2 `XF32Packed`,
+    the parts as columns of one product summed into quad lane 0 at the end),
+    the products of its first `passes` parts only (fewer than 3 drops the
+    smallest)."""
+    F = GEMV_FORMATS[qt.fmt](qt) if isinstance(qt, QTensor) else qt
     M, K = x.shape
-    N = qt.shape[0]
+    N = F.N
     assert 1 <= M <= 8 and x.dtype in (torch.bfloat16, torch.float32) and K % F.gran == 0
+    assert isinstance(qt, QTensor) or x.dtype == torch.bfloat16
     if x.dtype == torch.bfloat16:
         parts, used = 1, 1
         planes = [x.contiguous().view(torch.int16).numpy().view(np.uint16)]
@@ -540,7 +675,7 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = GV_F32
         col_plane, col_row = np.zeros_like(LANE_G), np.minimum(LANE_G, xrows - 1)
     steps_parts = [0] if packed else list(reversed(range(used)))  # the mma of a k16 step
     sl, splits = gemv_plan(M, N, K, sms, F.gran, F.target, F.slice_min,
-                           gemv_slice_max(M, qt.fmt, parts))
+                           gemv_slice_max(M, getattr(qt, "fmt", None), parts))
     g, t = LANE_G, LANE_T
     work = np.zeros((splits, M, N), np.float32)
     for z in range(splits):
@@ -573,6 +708,15 @@ def gemv(x: torch.Tensor, qt: QTensor, sms: int = H100_SMS, passes: int = GV_F32
                         grp = p * F.groups + gi
                         if F.gran < F.stage_k and kb + F.group_k * grp >= khi:
                             break
+                        if F.one_acc:  # the weighed fragments straight into acc
+                            d, _ = F.scales(stage, table, n0, kb, grp)
+                            for s in range(F.steps):
+                                a = F.weigh(d, F.a_frag(r4, gi, s))
+                                xo = col_row * (sl + 16) + (kb - klo) + 4 * t + F.x_off(p, gi, s)
+                                xw = xflat[col_plane[:, None], xo[:, None] + np.arange(4)].astype(np.uint32)
+                                lo, hi = xw[:, 0] | (xw[:, 1] << 16), xw[:, 2] | (xw[:, 3] << 16)
+                                acc = mma_16816(acc, a, byte_perm(lo, hi, 0x5410), byte_perm(lo, hi, 0x7632))
+                            continue
                         f = [np.zeros(32, np.float32) for _ in range(4)]
                         for s in range(F.steps):
                             a = F.a_frag(r4, gi, s)

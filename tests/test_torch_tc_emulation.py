@@ -16,6 +16,15 @@ card holds the kernels to.
   `_q4_k_kernel` / `_q6_k_kernel` in interpret mode (f32 weights and x at
   M <= 8) on bf16-exact f32 x. Two parts still hold 1e-5 on random data;
   one misses it. Its plan keeps the blocks an SM that bf16 x reaches.
+* The decode-GEMV instruments' instances of the same GEMV
+  (`Q4KAblation` of csrc/q4_k_matmul.cu, `Q4_0Variant` of
+  csrc/q4_0_matmul.cu): q4_k without its affine part (noaffine) or its
+  6-bit sub-scales (nosub), and q4_0 on f32, bf16 or f16 scales in the
+  group-scaled form or with the weight rounded to bf16 (or unscaled) in
+  registers before one accumulator: within 1e-5 of the output's scale of
+  their plain versions (`ops/qmm_variants.py`; the rounded forms round
+  the same weights on both sides). The group form on f16 scales and
+  q4_0ref are the main path's q4_0 instance, bit for bit.
 * The f32 route's TF32 tile of every format (`csrc/dq_tile_tf32.cuh`): x
   split into two TF32 parts against the exact integer weights, each group
   scaled in f32, the K splits summed in order: within 1e-5 of the output's
@@ -90,6 +99,7 @@ from gemma_tpu.ops.attention import decode_attention as jax_decode
 from gemma_tpu.ops.attention import flash_attention as jax_flash
 from gemma_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from gemma_tpu.quant.qtensor import dequant_t, quantize_array
+from gemma_tpu_torch.ops import qmm_variants as qv
 from gemma_tpu_torch.ops.attention import decode_attention_plain, decode_tc_split, flash_attention_plain
 from gemma_tpu_torch.ops.paged_attention import gather_pages
 from gemma_tpu_torch.ops.quant_matmul import PLAIN
@@ -315,6 +325,51 @@ def test_f32_gemv_plan_keeps_the_blocks_an_sm(fmt, N, K, M):
     if sl_max < emu.gemv_slice_max(M):  # the next wider slice would lose a block an SM
         wider = emu.gemv_smem_bytes(fmt, M, 2 * sl_max, emu.GV_F32_PARTS)
         assert emu.gemv_sm_blocks(wider) < emu.gemv_sm_blocks(bf16)
+
+
+# q4_k: 19 rows and K = 1280 (five superblocks, one slice), and 48 rows at
+# K = 4096 (K splits summed in order)
+@pytest.mark.parametrize("mode", ["noaffine", "nosub"])
+@pytest.mark.parametrize("N,K,M", [(19, 1280, 5), (48, 4096, 8)])
+def test_q4_k_ablation_emulation_matches_plain(mode, N, K, M):
+    gen, qt = _case("q4_k", N, K, seed=N + M)
+    x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+    ref = qv.q4_k_variant_plain(mode, x, qt).numpy()
+    got = emu.gemv(x, emu.Q4KAblation(qt, mode))
+    assert got.shape == (M, N)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+# q4_0: K = 1056 (33 scale groups: words at odd parity, f32 scales past K
+# zero-filled), 20 rows; the round form also at K = 4096 over K splits
+@pytest.mark.parametrize("mode,sc_dtype,N,K,M", [
+    ("f32dot", torch.bfloat16, 20, 1056, 3), ("f32dot", torch.float32, 20, 1056, 8),
+    ("rsc", torch.bfloat16, 20, 1056, 8), ("f32sc", torch.float32, 20, 1056, 1),
+    ("u16sc", torch.float16, 20, 1056, 8), ("f32sc", torch.float32, 48, 4096, 8),
+    ("bf16sc", torch.bfloat16, 20, 1056, 8), ("bf16sc", torch.float32, 19, 1056, 8),
+    ("noscale", torch.float32, 20, 1056, 8)])
+def test_q4_0_variant_emulation_matches_plain(mode, sc_dtype, N, K, M):
+    gen, qt = _case("q4_0", N, K, seed=N + M)
+    x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+    sc = qt.scales.to(sc_dtype)
+    ref = qv.qmm_variant_plain(mode, x, qt.qs, sc).numpy()
+    got = emu.gemv(x, emu.Q4_0Variant(qt.qs, sc, qv.TC_FORMS[mode]))
+    assert got.shape == (M, N)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_q4_0_production_lines_are_the_main_path_gemv():
+    """gdot on f16 scales, and q4_0ref (q4_k's payload, its 6-bit
+    sub-scales as f16 scales), run the main path's q4_0 instance: the group
+    form on f16 scales is `BlockGemv<16>` bit for bit, and q4_0ref within
+    1e-5 of the output's scale of its plain version."""
+    gen, q4k = _case("q4_k", 40, 1280, seed=3)
+    x = torch.randn(8, 1280, generator=gen).to(torch.bfloat16)
+    w = qv.q4_0ref_weight(q4k)
+    prod = emu.gemv(x, w)
+    assert np.array_equal(emu.gemv(x, emu.Q4_0Variant(w.qs, w.scales, qv.TC_FORMS["gdot"])), prod)
+    ref = qv.q4_k_variant_plain("q4_0ref", x, w).numpy()
+    assert np.abs(prod - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 # (fmt, M, N, K): JAX-quantized weights (its K-quant kernels take K % 1024 ==

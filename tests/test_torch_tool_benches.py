@@ -53,7 +53,7 @@ def test_bench_qmm_variants_runs_every_config(capsys):
     text = capsys.readouterr().out
     assert text.splitlines()[0].startswith("cpu (cpu: plain PyTorch versions")
     assert len(LINE.findall(text)) == len(bench_qmm_variants.CONFIGS) + 1
-    assert "exact" in text and 'launches {"row_checksum": 0, "qmm_variant": 0}' in text
+    assert "exact" in text and 'launches {"row_checksum": 0, "qmm_tc_variant": 0}' in text
 
 
 def test_bench_qmm_variants_cli_on_one_shape(capsys):
@@ -209,19 +209,29 @@ def test_row_checksum_wraps_modulo_2_32():
 @pytest.mark.parametrize("fn,args,err", [
     (qv.qmm_variant, ("nope", torch.zeros(8, 64, dtype=torch.bfloat16),
                       torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
-    (qv.qmm_variant, ("u16sc", torch.zeros(8, 64, dtype=torch.bfloat16),
-                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), TypeError),
-    (qv.qmm_variant, ("f32dot", torch.zeros(9, 64, dtype=torch.bfloat16),
+    # the SIMT GEMV takes f32 scales only
+    (qv.qmm_variant, ("bf16sc", torch.zeros(8, 64, dtype=torch.bfloat16),
+                      torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2).bfloat16()), TypeError),
+    (qv.qmm_variant, ("bf16sc", torch.zeros(9, 64, dtype=torch.bfloat16),
                       torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
-    # off the main path's gdot on f16 scales, the modes take M = 8 only
-    (qv.qmm_variant, ("f32dot", torch.zeros(4, 64, dtype=torch.bfloat16),
+    # the SIMT GEMV takes M = 8 only
+    (qv.qmm_variant, ("noscale", torch.zeros(4, 64, dtype=torch.bfloat16),
                       torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
-    (qv.qmm_variant, ("gdot", torch.zeros(1, 64, dtype=torch.bfloat16),
+    # the bench's modes run on the tensor-core GEMV (qmm_tc_variant), not here
+    (qv.qmm_variant, ("f32dot", torch.zeros(8, 64, dtype=torch.bfloat16),
                       torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
-    (qv.qmm_variant, ("f32dot", torch.zeros(8, 64), torch.zeros(4, 32, dtype=torch.uint8),
+    (qv.qmm_variant, ("bf16sc", torch.zeros(8, 64), torch.zeros(4, 32, dtype=torch.uint8),
                       torch.ones(4, 2)), TypeError),
-    (qv.qmm_variant, ("f32dot", torch.zeros(8, 64, dtype=torch.bfloat16, device="meta"),
+    (qv.qmm_variant, ("bf16sc", torch.zeros(8, 64, dtype=torch.bfloat16, device="meta"),
                       torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_tc_variant, ("nope", torch.zeros(8, 64, dtype=torch.bfloat16),
+                         torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_tc_variant, ("u16sc", torch.zeros(8, 64, dtype=torch.bfloat16),
+                         torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), TypeError),
+    (qv.qmm_tc_variant, ("f32dot", torch.zeros(9, 64, dtype=torch.bfloat16),
+                         torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
+    (qv.qmm_tc_variant, ("f32dot", torch.zeros(8, 64, dtype=torch.bfloat16, device="meta"),
+                         torch.zeros(4, 32, dtype=torch.uint8), torch.ones(4, 2)), ValueError),
     (qv.int4_dot, (torch.zeros(8, 64), torch.zeros(4, 32, dtype=torch.uint8)), TypeError),
     (qv.row_checksum, (torch.zeros(4, 3, dtype=torch.uint8),), ValueError),
 ])

@@ -132,7 +132,8 @@ def test_qmm_variant_plain_matches_tool_kernel(tools, mode, sc_dtype):
     qs_t, sc, sc_port = _qmm_inputs(K, N, sc_dtype, seed=len(mode))
     x, xt = _x(K, seed=1)
     ref = _tool_qmm(tools, mode, x, qs_t, sc)
-    got = qv.qmm_variant(mode, xt, _port_q4_0_payload(qs_t), sc_port)  # CPU: the plain version
+    # the bench's op; on the CPU its plain version
+    got = qv.qmm_tc_variant(mode, xt, _port_q4_0_payload(qs_t), sc_port)
     f32_products = qv.VARIANT_MODES[mode] in (0, 3, 4)
     assert _max_rel(got, ref) <= (1e-5 if f32_products else 2e-5)
 
